@@ -1,0 +1,112 @@
+"""Guards on the PyTorch port as a whole.
+
+- the port (``vit_ssl_tpu_torch``) and ``chip_smoke.py`` import neither JAX
+  nor the JAX package, checked in a fresh interpreter and by an AST scan;
+- its entry points take the card unless the caller asks for the CPU;
+- ``chip_smoke.py``'s DINO ViT-S/8 config is the composed ``configs/dino.yaml``
+  and the script refuses to run without a card.
+"""
+
+import ast
+import importlib.util
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from vit_ssl_tpu.config import compose
+from vit_ssl_tpu_torch import resolve_device
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "vit_ssl_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vit_ssl_tpu")
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_port_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import vit_ssl_tpu_torch, vit_ssl_tpu_torch.serve, vit_ssl_tpu_torch.kernels\n"
+        "import vit_ssl_tpu_torch.models, vit_ssl_tpu_torch.ops\n"
+        "import vit_ssl_tpu_torch.utils.checkpoint, vit_ssl_tpu_torch.data.transforms\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} + ('cv2', 'PIL', 'triton'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "[]"
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_import_anywhere_in_the_port():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = {str(f.relative_to(REPO)): root for f in files
+                 for root in _imported_roots(f) if root in FORBIDDEN}
+    assert offenders == {}
+
+
+def test_resolve_device(monkeypatch):
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cuda:1") == torch.device("cuda:1")
+
+
+def test_chip_smoke_config_is_composed_dino_yaml():
+    composed = compose(REPO / "configs", "dino")
+    smoke = _load_chip_smoke().DINO_VIT_S8
+    assert smoke["training"]["type"] == composed.training.type == "dino"
+    assert smoke["data"]["img_size"] == composed.data.img_size == 96
+    for key, value in smoke["model"].items():
+        assert composed.model[key] == value, key
+
+
+def test_chip_smoke_attention_bound():
+    """Serving shape (128, 145, 6x64) bf16: 57 MB of q/k/v/o at 3.35 TB/s
+    (17 us) against 4.1 GFLOP at 989 TFLOP/s (4.2 us): bytes bound it."""
+    bound_ms, bound_by = _load_chip_smoke().attention_bound(128, 145, 6, 64,
+                                                            "bfloat16", 0)
+    assert bound_by == "bytes"
+    assert bound_ms == pytest.approx(4 * 128 * 145 * 384 * 2 / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """No card here: exit non-zero and print no result, both from the
+    checkout and from a directory holding chip_smoke.py and nothing else."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the card-less path")
+    cwd = REPO
+    if alone:
+        shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

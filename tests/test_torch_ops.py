@@ -1,0 +1,172 @@
+"""Encoder ops of the PyTorch port against the JAX package, on the CPU.
+
+Each JAX module is initialised, its parameters are jiggled with numpy noise
+(so LayerNorm scales and biases are not the trivial ones and zeros), carried
+across with the port's weight bridge and loaded with ``strict=True``; both
+modules then run on the same numpy inputs. fp32 throughout: the point here
+is the algorithm, and the kernel is held to its plain version on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vit_ssl_tpu.ops.attention as jax_attention_mod
+from vit_ssl_tpu.ops.attention import MultiHeadAttention as JaxMHA
+from vit_ssl_tpu.ops.attention import (
+    scaled_dot_product_attention as jax_sdpa,
+)
+from vit_ssl_tpu.ops.encoder_block import EncoderBlock as JaxEncoderBlock
+from vit_ssl_tpu.ops.feed_forward import FeedForwardBlock as JaxFFN
+from vit_ssl_tpu.ops.patch_embedding import DynamicPatchEmbed as JaxPatchEmbed
+from vit_ssl_tpu_torch import kernels
+from vit_ssl_tpu_torch.ops import (
+    DynamicPatchEmbed,
+    EncoderBlock,
+    FeedForwardBlock,
+    MultiHeadAttention,
+    scaled_dot_product_attention,
+)
+from vit_ssl_tpu_torch.ops.flash_attention import KERNEL
+from vit_ssl_tpu_torch.utils.checkpoint import (
+    attention_state_dict_from_flax,
+    encoder_block_state_dict_from_flax,
+    feed_forward_state_dict_from_flax,
+    patch_embedding_state_dict_from_flax,
+)
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _jiggle(params, seed):
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda p: np.asarray(p, np.float32)
+        + 0.1 * rng.standard_normal(np.shape(p)).astype(np.float32),
+        params,
+    )
+
+
+def _x(shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _run(module, x):
+    with torch.inference_mode():
+        return module(torch.from_numpy(x)).numpy()
+
+
+@pytest.mark.parametrize("block_size", [0, 5])
+def test_scaled_dot_product_attention_matches_jax(block_size):
+    q, k, v = (_x((2, 3, 10, 16), seed=s) for s in range(3))
+    want, want_p = jax_sdpa(*(jnp.asarray(t) for t in (q, k, v)), True,
+                            block_size=block_size)
+    got, got_p = scaled_dot_product_attention(
+        *(torch.from_numpy(t) for t in (q, k, v)), True, block_size=block_size
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), **TOL)
+    assert scaled_dot_product_attention(
+        *(torch.from_numpy(t) for t in (q, k, v)))[1] is None
+
+
+@pytest.mark.parametrize("jax_path", ["xla", "kernel"])
+@pytest.mark.parametrize("block_size", [0, 5])
+def test_multi_head_attention_matches_jax(monkeypatch, jax_path, block_size):
+    """Both of JAX's self-attention paths: its XLA einsum path and its B1
+    kernel in interpret mode (the gate forced open, as the JAX package's
+    own tests do). The port sends self-attention to ``attention_nhd``."""
+    if jax_path == "kernel":
+        monkeypatch.setattr(jax_attention_mod, "attention_nhd_profitable",
+                            lambda *a, **kw: True)
+    x = _x((3, 20, 64))
+    jax_mha = JaxMHA(d_model=64, num_heads=4, use_flash=jax_path == "kernel")
+    params = _jiggle(jax_mha.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 1)
+    want = jax_mha.apply({"params": params}, jnp.asarray(x), block_size=block_size)
+
+    mha = MultiHeadAttention(64, 4)
+    mha.load_state_dict(attention_state_dict_from_flax(params), strict=True)
+    before = kernels.launches[KERNEL]
+    with torch.inference_mode():
+        got = mha(torch.from_numpy(x), block_size=block_size).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    assert kernels.launches[KERNEL] == before  # CPU: plain version, no kernel
+
+
+def test_multi_head_attention_return_attn_matches_jax():
+    x = _x((2, 9, 32))
+    jax_mha = JaxMHA(d_model=32, num_heads=2)
+    params = _jiggle(jax_mha.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"], 2)
+    want, want_p = jax_mha.apply({"params": params}, jnp.asarray(x),
+                                 return_attn=True)
+    mha = MultiHeadAttention(32, 2)
+    mha.load_state_dict(attention_state_dict_from_flax(params), strict=True)
+    with torch.inference_mode():
+        got, got_p = mha(torch.from_numpy(x), return_attn=True)
+    assert got_p.shape == (2, 2, 9, 9)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), **TOL)
+
+
+def test_multi_head_attention_cross_attention_matches_jax():
+    q, kv = _x((2, 7, 32)), _x((2, 11, 32), seed=1)
+    jax_mha = JaxMHA(d_model=32, num_heads=2)
+    params = _jiggle(jax_mha.init(jax.random.PRNGKey(2), jnp.asarray(q))["params"], 3)
+    want = jax_mha.apply({"params": params}, jnp.asarray(q), jnp.asarray(kv))
+    mha = MultiHeadAttention(32, 2)
+    mha.load_state_dict(attention_state_dict_from_flax(params), strict=True)
+    with torch.inference_mode():
+        got = mha(torch.from_numpy(q), torch.from_numpy(kv)).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_multi_head_attention_rejects_indivisible_heads():
+    with pytest.raises(ValueError, match="divisible"):
+        MultiHeadAttention(30, 4)
+
+
+def test_feed_forward_matches_jax():
+    x = _x((2, 13, 32))
+    jax_ff = JaxFFN(d_model=32, d_ff=96, dropout=0.0)
+    params = _jiggle(jax_ff.init(jax.random.PRNGKey(3), jnp.asarray(x))["params"], 4)
+    want = jax_ff.apply({"params": params}, jnp.asarray(x))
+    ff = FeedForwardBlock(32, 96)
+    ff.load_state_dict(feed_forward_state_dict_from_flax(params), strict=True)
+    np.testing.assert_allclose(_run(ff, x), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("block_size", [0, 5])
+def test_encoder_block_matches_jax(block_size):
+    x = _x((2, 10, 64))
+    jax_block = JaxEncoderBlock(d_model=64, num_heads=2, mlp_dim=128, dropout=0.0)
+    params = _jiggle(
+        jax_block.init(jax.random.PRNGKey(4), jnp.asarray(x))["params"], 5)
+    want = jax_block.apply({"params": params}, jnp.asarray(x),
+                           block_size=block_size)
+    block = EncoderBlock(64, 2, 128)
+    block.load_state_dict(encoder_block_state_dict_from_flax(params), strict=True)
+    with torch.inference_mode():
+        got = block(torch.from_numpy(x), block_size).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_dynamic_patch_embed_matches_jax():
+    x = np.random.default_rng(6).random((2, 32, 32, 3), np.float32)
+    jax_pe = JaxPatchEmbed(input_shape=(3, 32, 32), embed_dim=48, patch_size=8)
+    params = _jiggle(jax_pe.init(jax.random.PRNGKey(5), jnp.asarray(x))["params"], 7)
+    want = jax_pe.apply({"params": params}, jnp.asarray(x))
+    pe = DynamicPatchEmbed((3, 32, 32), 48, 8)
+    pe.load_state_dict(patch_embedding_state_dict_from_flax(params), strict=True)
+    got = _run(pe, x)
+    assert got.shape == (2, 17, 48)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("hw,match", [(24, "differs from the stored"),
+                                      (30, "divisible")])
+def test_dynamic_patch_embed_rejects_other_grids(hw, match):
+    pe = DynamicPatchEmbed((3, 32, 32), 16, 8)
+    with pytest.raises(ValueError, match=match):
+        pe(torch.zeros(1, hw, hw, 3))

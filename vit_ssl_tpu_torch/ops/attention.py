@@ -1,0 +1,103 @@
+"""Multi-head self-attention (port of ``vit_ssl_tpu/ops/attention.py``).
+
+Bias-free Q/K/V and output projections, scale 1/√d. Self-attention without
+``return_attn`` runs through :func:`.flash_attention.attention_nhd` on the
+projections' (B, N, H·D) layout — the hand-written kernel on the card.
+``return_attn`` (the attention visualizer) and cross-attention take the
+plain math of :func:`scaled_dot_product_attention`, as the JAX package
+sends them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .flash_attention import attention_nhd
+
+
+def scaled_dot_product_attention(query, key, value, return_attn: bool = False,
+                                 block_size: int = 0):
+    """Reference-math attention: softmax(QKᵀ/√d_k)V over (..., N, d).
+
+    fp32 scores and softmax whatever the input dtype; the probabilities are
+    cast to the value dtype before the context product, which accumulates
+    in fp32. ``block_size`` > 0 applies the block-diagonal mask. Returns
+    ``(context, probs)``, ``probs`` being ``None`` unless ``return_attn``."""
+    d_k = query.shape[-1]
+    scores = torch.matmul(query.float(), key.float().transpose(-1, -2))
+    scores = scores / math.sqrt(d_k)
+    if block_size:
+        n_q, n_k = scores.shape[-2], scores.shape[-1]
+        row = torch.arange(n_q, device=scores.device)[:, None] // block_size
+        col = torch.arange(n_k, device=scores.device)[None, :] // block_size
+        scores = scores.masked_fill(row != col, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    context = torch.matmul(probs.to(value.dtype).float(), value.float())
+    context = context.to(value.dtype)
+    return context, (probs if return_attn else None)
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head self/cross attention with bias-free projections.
+
+    Parameters are fp32 (``w_query``, ``w_key``, ``w_value``,
+    ``final_linear``: the reference state-dict names); the projections run
+    in ``dtype``."""
+
+    def __init__(self, d_model: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        if d_model % num_heads != 0:
+            raise ValueError(
+                f"d_model({d_model}) must be cleanly divisible by "
+                f"num_heads({num_heads})!"
+            )
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.dtype = dtype
+        linear = lambda: nn.Linear(d_model, d_model, bias=False, device=device)  # noqa: E731
+        self.w_query = linear()
+        self.w_key = linear()
+        self.w_value = linear()
+        self.final_linear = linear()
+
+    def _proj(self, layer: nn.Linear, x):
+        return F.linear(x.to(self.dtype), layer.weight.to(self.dtype))
+
+    def forward(self, query, key: Optional[torch.Tensor] = None,
+                value: Optional[torch.Tensor] = None,
+                return_attn: bool = False, block_size: int = 0):
+        key = query if key is None else key
+        value = key if value is None else value
+        b, n_q, _ = query.shape
+        n_k = key.shape[1]
+        d_head = self.d_model // self.num_heads
+        scale = 1.0 / float(d_head) ** 0.5
+
+        if not return_attn and n_q == n_k:
+            context = attention_nhd(
+                self._proj(self.w_query, query), self._proj(self.w_key, key),
+                self._proj(self.w_value, value), self.num_heads, scale,
+                block_size,
+            )
+            return self._proj(self.final_linear, context)
+
+        def heads(x, n):  # (B, N, H·D) -> (B, H, N, D)
+            return x.reshape(b, n, self.num_heads, d_head).transpose(1, 2)
+
+        q = heads(self._proj(self.w_query, query), n_q)
+        k = heads(self._proj(self.w_key, key), n_k)
+        v = heads(self._proj(self.w_value, value), n_k)
+        context, probs = scaled_dot_product_attention(
+            q, k, v, return_attn, block_size=block_size
+        )
+        context = context.transpose(1, 2).reshape(b, n_q, self.d_model)
+        out = self._proj(self.final_linear, context)
+        if return_attn:
+            return out, probs
+        return out

@@ -1,0 +1,71 @@
+"""Patch embedder (port of ``vit_ssl_tpu/ops/patch_embedding.py::DynamicPatchEmbed``).
+
+Conv(k = stride = patch) tokenizer ``proj`` + learnable ``cls_token`` +
+learnable ``positional_embedding`` of length (H/p)²+1. Images come in NHWC,
+the JAX package's layout, and are permuted to NCHW for the convolution.
+
+The serving path resizes images to ``img_size`` first, so the patch grid
+always equals the stored one. A different grid (DINO's 48 px local crops)
+needs the a=−0.5 antialiased bicubic resize of the positional embedding,
+which comes with the training slice; until then it raises.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _check_divisible(h: int, w: int, patch_size: int) -> None:
+    if h % patch_size != 0 or w % patch_size != 0:
+        raise ValueError(
+            f"Image dimensions H={h}, W={w} must be divisible by "
+            f"patch_size={patch_size}"
+        )
+
+
+class DynamicPatchEmbed(nn.Module):
+    def __init__(self, input_shape: Tuple[int, int, int], embed_dim: int,
+                 patch_size: int, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        c, h0, w0 = input_shape
+        self.embed_dim = embed_dim
+        self.patch_size = patch_size
+        self.dtype = dtype
+        self.grid = (h0 // patch_size, w0 // patch_size)
+        num_patches = self.grid[0] * self.grid[1]
+        self.proj = nn.Conv2d(c, embed_dim, patch_size, stride=patch_size,
+                              device=device)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim, device=device))
+        self.positional_embedding = nn.Parameter(
+            torch.empty(1, num_patches + 1, embed_dim, device=device)
+        )
+        # the reference initialises both with torch.rand
+        nn.init.uniform_(self.cls_token)
+        nn.init.uniform_(self.positional_embedding)
+
+    def forward(self, x):
+        """(B, H, W, C) → (B, (H/p)·(W/p) + 1, embed_dim) in ``dtype``."""
+        b, h, w, _ = x.shape
+        _check_divisible(h, w, self.patch_size)
+        gh, gw = h // self.patch_size, w // self.patch_size
+        if (gh, gw) != self.grid:
+            raise ValueError(
+                f"patch grid {gh}x{gw} differs from the stored "
+                f"{self.grid[0]}x{self.grid[1]}; resizing the positional "
+                "embedding is not ported yet — resize the images to the "
+                "model's img_size"
+            )
+        dt = self.dtype
+        tokens = F.conv2d(
+            x.to(dt).permute(0, 3, 1, 2), self.proj.weight.to(dt),
+            self.proj.bias.to(dt), stride=self.patch_size,
+        )  # (B, D, gh, gw)
+        tokens = tokens.flatten(2).transpose(1, 2)  # (B, gh·gw, D)
+        cls = self.cls_token.to(dt).expand(b, 1, self.embed_dim)
+        tokens = torch.cat([cls, tokens], dim=1)
+        return tokens + self.positional_embedding.to(dt)

@@ -1,0 +1,150 @@
+"""Checkpoints of the port: reference-layout ``.pth`` files.
+
+:func:`load_pth` reads what ``scripts/export_torch.py`` writes from a JAX
+run — ``{"model_state_dict": ..., "config": ..., "epoch": ...}`` — with
+``torch.load(weights_only=True)``.
+
+The weight bridge turns the JAX package's parameter trees (nested dicts of
+numpy arrays, e.g. ``DINONetwork`` params) into reference-layout state
+dicts that the port's modules load with ``strict=True``. It is a jax-free
+copy of ``vit_ssl_tpu/utils/checkpoint.py::{_encoder_block_to_torch,
+_dino_backbone_to_torch, _dino_head_to_torch, dino_params_to_torch}``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+
+def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """(state_dict, metadata) of a ``.pth`` checkpoint, on the CPU: the
+    state dict is ``model_state_dict``, the metadata every other top-level
+    entry (``config``, ``epoch``)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if "model_state_dict" not in ckpt:
+        raise ValueError(f"{path} has no model_state_dict")
+    state = ckpt.pop("model_state_dict")
+    return state, ckpt
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+
+
+def attention_state_dict_from_flax(att: Mapping,
+                                   prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``MultiHeadAttention`` params → ``MultiHeadAttention`` state dict."""
+    return {f"{prefix}{name}.weight": _t(att[name]["kernel"]).T.contiguous()
+            for name in ("w_query", "w_key", "w_value", "final_linear")}
+
+
+def feed_forward_state_dict_from_flax(ff: Mapping,
+                                      prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``FeedForwardBlock`` params → ``FeedForwardBlock`` state dict."""
+    return {
+        f"{prefix}linear_in.weight": _t(ff["w1"]).T.contiguous(),
+        f"{prefix}linear_in.bias": _t(ff["b1"]),
+        f"{prefix}linear_out.weight": _t(ff["w2"]).T.contiguous(),
+        f"{prefix}linear_out.bias": _t(ff["b2"]),
+    }
+
+
+def encoder_block_state_dict_from_flax(block: Mapping,
+                                      prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``EncoderBlock`` params → ``EncoderBlock`` state dict under ``prefix``."""
+    if "moe" in block:
+        raise ValueError(
+            f"{prefix} is a Mixture-of-Experts block; only dense blocks have "
+            "a reference layout"
+        )
+    sd = attention_state_dict_from_flax(block["self_attention"],
+                                        f"{prefix}self_attention.")
+    sd.update(feed_forward_state_dict_from_flax(block["feed_forward"],
+                                                f"{prefix}feed_forward."))
+    for ln in ("layer_norm1", "layer_norm2"):
+        sd[f"{prefix}{ln}.weight"] = _t(block[ln]["scale"])
+        sd[f"{prefix}{ln}.bias"] = _t(block[ln]["bias"])
+    return sd
+
+
+def patch_embedding_state_dict_from_flax(
+    pe: Mapping, prefix: str = ""
+) -> Dict[str, torch.Tensor]:
+    """JAX ``DynamicPatchEmbed`` params → ``DynamicPatchEmbed`` state dict;
+    the conv kernel goes from HWIO to OIHW."""
+    return {
+        f"{prefix}proj.weight":
+            _t(pe["proj"]["kernel"]).permute(3, 2, 0, 1).contiguous(),
+        f"{prefix}proj.bias": _t(pe["proj"]["bias"]),
+        f"{prefix}cls_token": _t(pe["cls_token"]),
+        f"{prefix}positional_embedding": _t(pe["positional_embedding"]),
+    }
+
+
+def dino_backbone_state_dict_from_flax(
+    backbone: Mapping, prefix: str = ""
+) -> Dict[str, torch.Tensor]:
+    """JAX ``ViTBackbone`` params → ``ViTBackbone`` state dict (keys under
+    ``prefix``, e.g. ``"teacher_backbone."``)."""
+    if "encoder_scan" in backbone:
+        raise ValueError(
+            "params carry a scanned 'encoder_scan' subtree; unroll it with "
+            "the JAX package's ops.encoder_stack.unroll_scanned_tree first"
+        )
+    sd = patch_embedding_state_dict_from_flax(backbone["patch_embedding"],
+                                              f"{prefix}patch_embedding.")
+    blocks = sorted(
+        (k for k in backbone if str(k).startswith("encoder_blocks_")),
+        key=lambda k: int(str(k).rsplit("_", 1)[1]),
+    )
+    for i, key in enumerate(blocks):
+        sd.update(encoder_block_state_dict_from_flax(
+            backbone[key], f"{prefix}encoder_blocks.{i}."))
+    return sd
+
+
+def _dino_head(head: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for ours, theirs in (("mlp_0", "0"), ("mlp_2", "2"), ("mlp_4", "4")):
+        sd[f"{prefix}mlp.{theirs}.weight"] = _t(head[ours]["kernel"]).T.contiguous()
+        sd[f"{prefix}mlp.{theirs}.bias"] = _t(head[ours]["bias"])
+    fc = head["fully_connected"]
+    sd[f"{prefix}fully_connected.parametrizations.weight.original0"] = (
+        _t(fc["g"]).reshape(-1, 1)
+    )
+    sd[f"{prefix}fully_connected.parametrizations.weight.original1"] = (
+        _t(fc["v"]).T.contiguous()
+    )
+    sd[f"{prefix}fully_connected.bias"] = _t(fc["bias"])
+    return sd
+
+
+def dino_state_dict_from_flax(student: Mapping, teacher: Mapping,
+                              center) -> Dict[str, torch.Tensor]:
+    """JAX DINO state trees (``{"backbone", "head"}`` each, plus the center)
+    → a reference ``DINOViT``-layout state dict."""
+    sd = {}
+    sd.update(dino_backbone_state_dict_from_flax(student["backbone"],
+                                                 "student_backbone."))
+    sd.update(_dino_head(student["head"], "student_head."))
+    sd.update(dino_backbone_state_dict_from_flax(teacher["backbone"],
+                                                 "teacher_backbone."))
+    sd.update(_dino_head(teacher["head"], "teacher_head."))
+    sd["center"] = _t(center)
+    return sd
+
+
+def backbone_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The serving backbone out of a DINO state dict: ``teacher_backbone.*``,
+    or ``student_backbone.*`` when there is no teacher, prefix stripped.
+    Head and center keys are dropped."""
+    for prefix in ("teacher_backbone.", "student_backbone."):
+        sub = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+        if sub:
+            return sub
+    raise KeyError(
+        "checkpoint has neither teacher_backbone.* nor student_backbone.* keys"
+    )
