@@ -8,14 +8,25 @@ Run from the root of a checkout, with no arguments:
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device   — needs a CUDA device; prints the card's name and power limit
-2. build    — compiles every kernel of the serving path from ``csrc/``
-3. kernels  — each kernel against its plain PyTorch version on the card
+2. build    — compiles every kernel library from ``csrc/``, one nvcc each,
+              all at once; prints registers and spills
+3. kernels  — kernel B1 against its plain PyTorch versions on the card:
+              the inference forward, the training forward (output and
+              softmax statistics) and the backward (dq, dk, dv)
 4. serving  — a DINO ViT-S/8 ``Server`` at batch 128 through its
               ``forward_batch`` entry point: launch counts, agreement with
               the plain attention path, padding rows inert
-5. times    — warm batch, kernel, plain and library times (CUDA events),
-              and a ``torch.profiler`` breakdown of five serving batches
-6. a JSON line describing every kernel, then the JSON ``ok`` line last.
+5. serving times — warm batch, kernel, plain and library times (CUDA
+              events), and a ``torch.profiler`` breakdown of five batches
+6. training — DINO ViT-S/8 ``train_step`` at full width and depth, batch
+              128 (2 globals of 96 px, 4 packed locals of 48 px), views made
+              on the card from uint8 images: launch counts per step,
+              finite losses, moving state, agreement with the plain
+              attention path from one cloned state
+7. training times — warm step, kernel/plain/library times at the two
+              training shapes, and a ``torch.profiler`` breakdown of three
+              steps
+8. a JSON line describing every kernel, then the JSON ``ok`` line last.
 
 Imports neither JAX nor the JAX package, and needs no PIL, OpenCV or YAML.
 """
@@ -23,6 +34,7 @@ Imports neither JAX nor the JAX package, and needs no PIL, OpenCV or YAML.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -31,11 +43,47 @@ import time
 
 import numpy as np
 
-# DINO ViT-S/8 as configs/dino.yaml composes it (configs/base/model.yaml,
-# configs/dino/{model,data}.yaml); tests/test_torch_guards.py pins these
-# values to the composed config.
+# DINO ViT-S/8 as configs/dino.yaml composes it (configs/base/*.yaml,
+# configs/dino/*.yaml); tests/test_torch_guards.py pins every value here to
+# the composed config.
+GLOBALS = [
+    {"name": "RandomResizedCrop", "params": {"size": 96, "scale": [0.5, 1.0]}},
+    {"name": "RandomHorizontalFlip", "params": {}},
+    {"name": "ColorJitter", "params": {"brightness": 0.4, "contrast": 0.4,
+                                       "saturation": 0.2, "hue": 0.1}},
+    {"name": "RandomGrayscale", "params": {"p": 0.2}},
+    {"name": "GaussianBlur", "params": {"kernel_size": 7, "sigma": [0.1, 2.0]}},
+    {"name": "ToTensor"},
+]
+LOCALS = [
+    {"name": "RandomResizedCrop", "params": {"size": 48, "scale": [0.08, 0.4]}},
+    {"name": "RandomHorizontalFlip", "params": {}},
+    {"name": "ColorJitter", "params": {"brightness": 0.4, "contrast": 0.4,
+                                       "saturation": 0.2, "hue": 0.1}},
+    {"name": "GaussianBlur", "params": {"kernel_size": 7, "sigma": [0.1, 2.0]}},
+    {"name": "ToTensor"},
+]
 DINO_VIT_S8 = {
-    "training": {"type": "dino"},
+    "training": {
+        "type": "dino",
+        "batch_size": 128,
+        "num_epochs": 100,
+        "num_global_views": 2,
+        "num_all_views": 6,
+        "student_temp": 0.1,
+        "teacher_temp": 0.04,
+        "teacher_temp_final": 0.07,
+        "teacher_temp_scheduler": "cosine",
+        "teacher_momentum_start": 0.996,
+        "teacher_momentum_final": 1,
+        "teacher_dropout": True,
+        "warmup_initial_learning_rate": 1e-6,
+        "warmup_final_learning_rate": 1e-4,
+        "warmup_epochs": 10,
+        "optimizer": {"name": "AdamW", "params": {"weight_decay": 0.001}},
+        "lr_scheduler": {"main": {"name": "CosineAnnealingLR",
+                                  "params": {"eta_min": 1e-6}}},
+    },
     "model": {
         "in_channels": 3,
         "embed_dim": 384,
@@ -43,12 +91,20 @@ DINO_VIT_S8 = {
         "num_heads": 6,
         "mlp_dim": 1536,
         "patch_size": 8,
+        "dropout": 0.1,
+        "fast_dropout": True,
+        "use_fused_mlp": False,
         "compute_dtype": "bfloat16",
         "output_dim": 16384,
+        "center_momentum": 0.9,
+        "dino_pack_locals": True,
     },
-    "data": {"img_size": 96},
+    "data": {"img_size": 96, "local_img_size": 48, "device_augment": True},
+    "transforms": {"globals": GLOBALS, "locals": LOCALS},
 }
 SERVE_BATCH = 128
+STL10_UNLABELED = 100_000  # images an epoch of configs/dino's dataset holds
+TIMED_STEPS = 10
 
 # H100 SXM data sheet (700 W): memory rate and dense peaks by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -69,6 +125,24 @@ ATTENTION_CASES = [
     (4, 1, 6, 64, "bfloat16", 0),
     (4, 1, 6, 64, "float32", 0),
 ]
+# The training forward and backward: the student globals and packed locals
+# first (bf16 and fp32), then the other shapes the kernels take
+TRAIN_CASES = [
+    (256, 145, 6, 64, "bfloat16", 0),
+    (256, 145, 6, 64, "float32", 0),
+    (128, 148, 6, 64, "bfloat16", 37),
+    (128, 148, 6, 64, "float32", 37),
+    (512, 37, 6, 64, "bfloat16", 0),
+    (16, 145, 12, 32, "bfloat16", 0),
+    (16, 148, 3, 128, "bfloat16", 37),
+    (8, 1024, 6, 64, "bfloat16", 0),
+    (4, 1, 6, 64, "bfloat16", 0),
+]
+# gradients and statistics: max |kernel - plain| over max |plain|. bf16: p
+# and ds round to bf16 on both sides and may land on either side of a tie;
+# fp32: sums in another order
+GRAD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+STATS_REL_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -101,16 +175,34 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, n, h, d, dtype, block_size):
-    """(bound_ms, bound_by): the larger of bytes moved (q, k, v read once,
-    o written once) over the memory rate and the two products' operations
-    that these inputs need (only the unmasked block when block_size > 0)
-    over the peak rate for the input type."""
-    itemsize = 2 if dtype == "bfloat16" else 4
-    bytes_ms = 4 * b * n * h * d * itemsize / HBM_BYTES_PER_S * 1e3
-    keys = min(block_size, n) if block_size else n
-    ops_ms = 4 * b * h * n * keys * d / PEAK_OPS_PER_S[dtype] * 1e3
+def _bound(bytes_moved, ops, dtype):
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def attention_bound(b, n, h, d, dtype, block_size):
+    """(bound_ms, bound_by) of the inference forward: the larger of bytes
+    moved (q, k, v read once, o written once) over the memory rate and the
+    two products' operations that these inputs need (only the unmasked
+    block when block_size > 0) over the peak rate for the input type."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    keys = min(block_size, n) if block_size else n
+    return _bound(4 * b * n * h * d * itemsize, 4 * b * h * n * keys * d, dtype)
+
+
+def attention_train_bounds(b, n, h, d, dtype, block_size):
+    """{"fwd": (ms, by), "bwd": (ms, by)} of the training forward (q, k, v
+    read, o and the fp32 (m, 1/l) statistics written; two products) and the
+    backward (q, k, v, do and the statistics read, dq, dk, dv written; five
+    products: the scores again, dv, dp, dq, dk)."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    keys = min(block_size, n) if block_size else n
+    act = b * n * h * d * itemsize
+    stats = b * h * n * 2 * 4
+    product = 2 * b * h * n * keys * d
+    return {"fwd": _bound(4 * act + stats, 2 * product, dtype),
+            "bwd": _bound(7 * act + stats, 5 * product, dtype)}
 
 
 def qkv(b, n, h, d, dtype, seed):
@@ -119,6 +211,11 @@ def qkv(b, n, h, d, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(b, n, h * d, generator=g, device="cuda").to(dtype)
             for _ in range(3)]
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
 
 
 def phase_kernels(torch, fa):
@@ -145,25 +242,81 @@ def phase_kernels(torch, fa):
         if not ok:
             fail(f"attention_nhd_fwd disagrees at ({b},{n},{h}x{d}) {dtype_name}")
 
+    print("== kernels: attention_nhd_fwd_stats and attention_nhd_bwd against "
+          "their plain versions", flush=True)
+    errors = {}
+    for idx, (b, n, h, d, dtype_name, bs) in enumerate(TRAIN_CASES):
+        dtype = getattr(torch, dtype_name)
+        xq, xk, xv = qkv(b, n, h, d, dtype, seed=50 + idx)
+        (do,) = qkv(b, n, h, d, torch.float32, seed=80 + idx)[:1]
+        scale = 1.0 / d ** 0.5
+        out, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)
+        grads = fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs)
+        torch.cuda.synchronize()
+        same = torch.equal(out, fa.attention_nhd_fwd(xq, xk, xv, h, scale, bs))
+        out_err = float((out.float() - fa.attention_nhd_reference(
+            xq, xk, xv, h, scale, bs).float()).abs().max())
+        stats_err = rel_err(stats[:, :, :n],
+                            fa.attention_nhd_stats_reference(xq, xk, h, scale, bs))
+        pad_zero = not bool(stats[:, :, n:].any())
+        want = fa.attention_nhd_bwd_reference(xq, xk, xv, do, h, scale, bs)
+        grad_errs = [rel_err(g, w) for g, w in zip(grads, want)]
+        grad_abs = max(float((g.float() - w.float()).abs().max())
+                       for g, w in zip(grads, want))
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        tol = GRAD_REL_TOL[dtype_name]
+        ok = (same and stats_err <= STATS_REL_TOL and pad_zero and finite
+              and max(grad_errs) <= tol)
+        print(f"  ({b},{n},{h}x{d}) {dtype_name} block_size={bs}: output "
+              f"{'bit-equal to' if same else 'DIFFERS from'} the inference "
+              f"kernel (max_abs_err {out_err:.3e} to plain); stats rel_err "
+              f"{stats_err:.3e} (<= {STATS_REL_TOL:g}); dq/dk/dv rel_err "
+              + "/".join(f"{e:.3e}" for e in grad_errs)
+              + f" (<= {tol:g} of max|ref|) {'ok' if ok else 'MISS'}", flush=True)
+        if not ok:
+            fail(f"training kernels disagree at ({b},{n},{h}x{d}) {dtype_name}")
+        errors[(b, n, h, d, dtype_name, bs)] = (out_err, grad_abs)
+    return errors
+
 
 @contextlib.contextmanager
 def plain_attention():
-    """Route the model's attention through the plain PyTorch version."""
+    """Route the model's attention through the plain PyTorch versions,
+    forward and backward."""
     from vit_ssl_tpu_torch.ops import attention as attention_mod
-    from vit_ssl_tpu_torch.ops.flash_attention import attention_nhd_reference
+    from vit_ssl_tpu_torch.ops.flash_attention import attention_nhd_plain
 
     kernel = attention_mod.attention_nhd
-    attention_mod.attention_nhd = attention_nhd_reference
+    attention_mod.attention_nhd = attention_nhd_plain
     try:
         yield
     finally:
         attention_mod.attention_nhd = kernel
 
 
-def phase_serving(torch, tmp):
+@contextlib.contextmanager
+def no_plain_attention(fa):
+    """Make any call of a plain attention version fail: the main path must
+    run the kernels only."""
+    names = ("attention_nhd_reference", "attention_nhd_stats_reference",
+             "attention_nhd_bwd_reference")
+    saved = {name: getattr(fa, name) for name in names}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain attention version ran on the main path")
+
+    for name in names:
+        setattr(fa, name, refuse)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(fa, name, fn)
+
+
+def phase_serving(torch, fa, tmp):
     from vit_ssl_tpu_torch import kernels
     from vit_ssl_tpu_torch.models import build_backbone
-    from vit_ssl_tpu_torch.ops.flash_attention import KERNEL
     from vit_ssl_tpu_torch.serve import Server
 
     print("== serving: DINO ViT-S/8, batch 128, img 96 (N=145), bf16", flush=True)
@@ -181,17 +334,18 @@ def phase_serving(torch, tmp):
     img = DINO_VIT_S8["data"]["img_size"]
     x = np.random.default_rng(0).random((SERVE_BATCH, img, img, 3), np.float32)
 
-    kernels.launches.clear()  # the main path's run starts here
-    out = server.forward_batch(x)
-    per_forward = kernels.launches[KERNEL]
-    short = server.forward_batch(x[:37])
-    main_launches = dict(kernels.launches)  # ... and ends here
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the serving path's run starts here
+        out = server.forward_batch(x)
+        per_forward = kernels.launches[fa.KERNEL]
+        short = server.forward_batch(x[:37])
+        main_launches = dict(kernels.launches)  # ... and ends here
     blocks = DINO_VIT_S8["model"]["num_blocks"]
     print(f"  launches: {main_launches} ({per_forward} in the first forward)",
           flush=True)
-    if per_forward != blocks or main_launches.get(KERNEL) != 2 * blocks:
-        fail(f"expected {blocks} attention launches per forward, got "
-             f"{per_forward} then {main_launches.get(KERNEL)} in all")
+    if per_forward != blocks or main_launches != {fa.KERNEL: 2 * blocks}:
+        fail(f"expected {blocks} attention_nhd_fwd launches per forward and "
+             f"nothing else, got {per_forward} then {main_launches}")
 
     embed = DINO_VIT_S8["model"]["embed_dim"]
     if out.shape != (SERVE_BATCH, embed) or not np.isfinite(out).all():
@@ -205,8 +359,8 @@ def phase_serving(torch, tmp):
     ref_model = teacher.to("cuda").eval()
     with plain_attention(), torch.inference_mode():
         ref = ref_model(torch.from_numpy(x).cuda()).float().cpu().numpy()
-    if kernels.launches[KERNEL] != 2 * blocks:
-        fail("the plain-attention reference run launched the kernel")
+    if dict(kernels.launches) != main_launches:
+        fail("the plain-attention reference run launched a kernel")
     cos = (out * ref).sum(1) / (np.linalg.norm(out, axis=1) * np.linalg.norm(ref, axis=1))
     max_err = float(np.abs(out - ref).max())
     limit = 2e-2 * float(np.abs(ref).max())
@@ -218,11 +372,33 @@ def phase_serving(torch, tmp):
     return server, x, main_launches
 
 
-def phase_times(torch, server, x, card):
-    import torch.nn.functional as F
-    from vit_ssl_tpu_torch.ops import flash_attention as fa
+def profile_window(torch, fn, label, rows=14):
+    """Device busy and idle share of ``fn`` under ``torch.profiler``, and
+    the top device operations."""
+    from torch.profiler import ProfilerActivity, profile
 
-    print(f"== times on {card}", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # device-side entries only (kernels, copies); CPU ops repeat their time
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    idle = 1 - device_us / 1e3 / wall_ms
+    print(f"  profile of {label}: wall {wall_ms:.3f} ms, device busy "
+          f"{device_us / 1e3:.3f} ms, device idle share {idle:.3f}", flush=True)
+    print(events.table(sort_by="self_device_time_total", row_limit=rows,
+                       max_name_column_width=70), flush=True)
+    return idle
+
+
+def phase_serving_times(torch, fa, server, x, card):
+    import torch.nn.functional as F
+
+    print(f"== serving times on {card}", flush=True)
     host = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -237,7 +413,7 @@ def phase_times(torch, server, x, card):
     b, n, h, d, dtype_name, bs = ATTENTION_CASES[0]
     xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=100)
     scale = 1.0 / d ** 0.5
-    kernel_ms = cuda_ms(lambda: fa.attention_nhd(xq, xk, xv, h, scale, bs))
+    kernel_ms = cuda_ms(lambda: fa.attention_nhd_fwd(xq, xk, xv, h, scale, bs))
     plain_ms = cuda_ms(lambda: fa.attention_nhd_reference(xq, xk, xv, h, scale, bs))
 
     def heads(t):  # views only: SDPA reads the (B, N, H·D) storage strided
@@ -245,39 +421,303 @@ def phase_times(torch, server, x, card):
 
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         heads(xq), heads(xk), heads(xv), scale=scale))
-    kernel_ms2 = cuda_ms(lambda: fa.attention_nhd(xq, xk, xv, h, scale, bs))
+    kernel_ms2 = cuda_ms(lambda: fa.attention_nhd_fwd(xq, xk, xv, h, scale, bs))
     bound_ms, bound_by = attention_bound(b, n, h, d, dtype_name, bs)
     print(f"  attention_nhd_fwd ({b},{n},{h}x{d}) {dtype_name}: kernel "
           f"{kernel_ms:.4f} / {kernel_ms2:.4f} ms, plain {plain_ms:.4f} ms, "
           f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
           flush=True)
     f32 = [t.float() for t in (xq, xk, xv)]
-    f32_ms = cuda_ms(lambda: fa.attention_nhd(*f32, h, scale, bs))
+    f32_ms = cuda_ms(lambda: fa.attention_nhd_fwd(*f32, h, scale, bs))
     f32_bound_ms, f32_bound_by = attention_bound(b, n, h, d, "float32", bs)
     print(f"  attention_nhd_fwd ({b},{n},{h}x{d}) float32 (CUDA cores): kernel "
           f"{f32_ms:.4f} ms, bound {f32_bound_ms:.4f} ms ({f32_bound_by})",
           flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def five_batches():
         for _ in range(5):
             server.forward_batch(x)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # device-side entries only (kernels, copies); CPU ops repeat their time
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"  profile of 5 serving batches: wall {wall_ms:.3f} ms, device "
-          f"busy {device_us / 1e3:.3f} ms, device idle share "
-          f"{1 - device_us / 1e3 / wall_ms:.3f}", flush=True)
-    print(events.table(sort_by="self_device_time_total", row_limit=14,
-                       max_name_column_width=70), flush=True)
+
+    profile_window(torch, five_batches, "5 serving batches")
     return {"ms": min(kernel_ms, kernel_ms2), "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def build_training(torch):
+    """DINO ViT-S/8's train state on the card (student seeded, teacher its
+    copy, center 0), its train_step and a batch of 128 uint8 images."""
+    from vit_ssl_tpu_torch.data.device_augment import make_multicrop_fn
+    from vit_ssl_tpu_torch.models import build_dino_network
+    from vit_ssl_tpu_torch.train import (
+        AdamW, TrainState, lr_schedule_from_config, make_dino_steps)
+
+    cfg = DINO_VIT_S8
+    train, model = cfg["training"], cfg["model"]
+    student = build_dino_network(cfg, "cpu").reset_parameters(
+        torch.Generator().manual_seed(2)).to("cuda")
+    steps_per_epoch = STL10_UNLABELED // train["batch_size"]
+    optimizer = AdamW(lr_schedule_from_config(cfg, steps_per_epoch),
+                      weight_decay=train["optimizer"]["params"]["weight_decay"])
+    state = TrainState(student, optimizer, seed=3)
+    view_fn = make_multicrop_fn(cfg["transforms"]["globals"],
+                                cfg["transforms"]["locals"],
+                                train["num_global_views"], train["num_all_views"])
+    train_step, _ = make_dino_steps(
+        optimizer, train["num_global_views"], train["num_all_views"],
+        student_temp=train["student_temp"],
+        center_momentum=model["center_momentum"],
+        teacher_dropout=train["teacher_dropout"], view_fn=view_fn,
+        pack_locals=model["dino_pack_locals"])
+    img = cfg["data"]["img_size"]
+    images = np.random.default_rng(4).integers(
+        0, 256, (train["batch_size"], img, img, 3), dtype=np.uint8)
+    batch = {"image": torch.from_numpy(images).cuda(),
+             "weight": torch.ones(train["batch_size"], device="cuda")}
+    return state, train_step, batch
+
+
+def schedule_values():
+    """Epoch 0's teacher temperature and momentum (the trainer's epoch-
+    granular schedules)."""
+    from vit_ssl_tpu_torch.models.dino import (
+        cosine_momentum_schedule, teacher_temp_schedule)
+
+    t = DINO_VIT_S8["training"]
+    return (teacher_temp_schedule(0, t["teacher_temp"], t["teacher_temp_final"],
+                                  t["num_epochs"], t["teacher_temp_scheduler"]),
+            cosine_momentum_schedule(0, t["teacher_momentum_start"],
+                                     t["teacher_momentum_final"], t["num_epochs"]))
+
+
+def phase_training(torch, fa):
+    from vit_ssl_tpu_torch import kernels
+
+    t = DINO_VIT_S8["training"]
+    print(f"== training: DINO ViT-S/8 train_step, batch {t['batch_size']}, "
+          f"{t['num_global_views']} globals of 96 px (N=145), "
+          f"{t['num_all_views'] - t['num_global_views']} packed locals of 48 px "
+          f"(N=148, block 37), dropout 0.1, teacher dropout on, output_dim "
+          f"16384, bf16, full depth, device augmentation", flush=True)
+    state, train_step, batch = build_training(torch)
+    teacher_temp, teacher_momentum = schedule_values()
+    before = {k: v.detach().clone() for k, v in state.model_state_dict().items()}
+
+    for _ in range(2):  # warm-up steps
+        out = train_step(state, batch, teacher_temp, teacher_momentum)
+    torch.cuda.synchronize()
+    blocks = DINO_VIT_S8["model"]["num_blocks"]
+    per_step = {fa.KERNEL_TRAIN: 2 * blocks, fa.KERNEL: blocks,
+                fa.KERNEL_BWD: 2 * blocks}
+    losses, host_ms = [float(out["loss"])], []
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the training path's run starts here
+        for _ in range(TIMED_STEPS):
+            counted = dict(kernels.launches)
+            t0 = time.perf_counter()
+            out = train_step(state, batch, teacher_temp, teacher_momentum)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out["loss"]))
+            step_launches = {k: v - counted.get(k, 0)
+                             for k, v in kernels.launches.items()}
+            if step_launches != per_step:
+                fail(f"a training step launched {step_launches}, expected "
+                     f"{per_step}")
+        main_launches = dict(kernels.launches)  # ... and ends here
+    print(f"  launches over {TIMED_STEPS} steps: {main_launches} "
+          f"(per step {per_step})", flush=True)
+    print(f"  losses: {' '.join(f'{x:.6f}' for x in losses)}", flush=True)
+    print("  stats of the last step: " + ", ".join(
+        f"{k} {float(v):.6g}" for k, v in out["dino_stats"].items()), flush=True)
+    if not all(np.isfinite(losses)):
+        fail("a training loss is not finite")
+    after = state.model_state_dict()
+    for prefix in ("student_", "teacher_", "center"):
+        moved = [k for k in after if k.startswith(prefix)
+                 and not torch.equal(before[k], after[k])]
+        print(f"  {prefix.rstrip('_')}: {len(moved)} tensors changed", flush=True)
+        if not moved:
+            fail(f"training left every {prefix}* tensor unchanged")
+
+    agreement(torch, fa, state, train_step, batch, teacher_temp, teacher_momentum)
+    warm_ms = float(np.median(host_ms))
+    return state, train_step, batch, main_launches, warm_ms
+
+
+class _ExactAttention:
+    """Attention in fp64 with its exact gradient (no bf16 rounding of p or
+    ds): the yardstick for gradients that bf16 cannot resolve."""
+
+    @staticmethod
+    def heads(x, h):
+        b, n, hd = x.shape
+        return x.reshape(b, n, h, hd // h).transpose(1, 2).double()
+
+    @classmethod
+    def function(cls, torch):
+        heads = cls.heads
+
+        class Exact(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, xq, xk, xv, h, scale, bs):
+                q, k, v = heads(xq, h), heads(xk, h), heads(xv, h)
+                s = torch.matmul(q, k.transpose(-1, -2)) * scale
+                if bs:
+                    idx = torch.arange(s.shape[-1], device=s.device) // bs
+                    s = s.masked_fill(idx[:, None] != idx[None, :], float("-inf"))
+                p = torch.softmax(s, dim=-1)
+                ctx.save_for_backward(q, k, v, p)
+                ctx.args = (h, scale, xq.dtype)
+                return torch.matmul(p, v).transpose(1, 2).reshape(xq.shape).to(xq.dtype)
+
+            @staticmethod
+            def backward(ctx, do):
+                q, k, v, p = ctx.saved_tensors
+                h, scale, dtype = ctx.args
+                g = heads(do, h)
+                dp = torch.matmul(g, v.transpose(-1, -2))
+                ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+                grads = (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+                         torch.matmul(p.transpose(-1, -2), g))
+                return (*(x.transpose(1, 2).reshape(do.shape).to(dtype) for x in grads),
+                        None, None, None)
+
+        return lambda xq, xk, xv, h, scale, bs=0: Exact.apply(xq, xk, xv, h, scale, bs)
+
+
+@contextlib.contextmanager
+def exact_attention(torch):
+    """Route the model's attention through :class:`_ExactAttention`."""
+    from vit_ssl_tpu_torch.ops import attention as attention_mod
+
+    kernel = attention_mod.attention_nhd
+    attention_mod.attention_nhd = _ExactAttention.function(torch)
+    try:
+        yield
+    finally:
+        attention_mod.attention_nhd = kernel
+
+
+def agreement(torch, fa, state, train_step, batch, teacher_temp, teacher_momentum):
+    """One step through the kernels and one through the plain attention
+    (forward and backward), from one cloned state and the same generator
+    seeds, so the dropout masks and the views are the same.
+
+    The bars: |dloss| <= 1e-2 |loss|, the center within 1e-2 max|center|,
+    and every parameter's gradient cosine >= 0.99. One stated exception to
+    the last: a gradient that bf16 attention cannot resolve. The last
+    block's w_query gradient flows only through the CLS rows' softmax
+    backward; after a dozen steps from this init it is ~1e-8 in norm and
+    the plain bf16 path itself is at cosine ~0.95 from fp64 attention (this
+    script on an H100 80GB HBM3). So a parameter below 0.99 passes when the
+    kernel path is as close to an fp64 attention step as the plain path is
+    (cosine within 0.01)."""
+    from vit_ssl_tpu_torch import kernels
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(
+            a.flatten().float(), b.flatten().float(), dim=0))
+
+    kernel_state, plain_state = copy.deepcopy(state), copy.deepcopy(state)
+    exact_state = copy.deepcopy(state)
+    got = train_step(kernel_state, batch, teacher_temp, teacher_momentum,
+                     with_grads=True)
+    counted = dict(kernels.launches)
+    with plain_attention():
+        want = train_step(plain_state, batch, teacher_temp, teacher_momentum,
+                          with_grads=True)
+    with exact_attention(torch):
+        exact = train_step(exact_state, batch, teacher_temp, teacher_momentum,
+                           with_grads=True)
+    torch.cuda.synchronize()
+    if dict(kernels.launches) != counted:
+        fail("the plain-attention step launched a kernel")
+    loss, ref = float(got["loss"]), float(want["loss"])
+    cosines = {name: cos(g, want["grads"][name]) for name, g in got["grads"].items()}
+    worst = min(cosines, key=cosines.get)
+    center_err = float((kernel_state.center - plain_state.center).abs().max())
+    center_tol = 1e-2 * float(plain_state.center.abs().max())
+    print(f"  against plain attention on the card: |dloss| {abs(loss - ref):.3e} "
+          f"(<= {1e-2 * abs(ref):.3e}, loss {ref:.6f}); min gradient cosine "
+          f"{cosines[worst]:.6f} at {worst} (>= 0.99) over {len(cosines)} "
+          f"parameters; center max_abs_err {center_err:.3e} (<= {center_tol:.3e})",
+          flush=True)
+    missed = []
+    for name in (n for n, c in cosines.items() if c < 0.99):
+        to_exact = cos(got["grads"][name], exact["grads"][name])
+        plain_to_exact = cos(want["grads"][name], exact["grads"][name])
+        ok = to_exact >= plain_to_exact - 0.01
+        print(f"  {name}: cosine {cosines[name]:.6f} to plain; to fp64 attention "
+              f"kernel {to_exact:.6f}, plain {plain_to_exact:.6f} (kernel >= plain "
+              f"- 0.01) {'ok' if ok else 'MISS'}; |grad| "
+              f"{float(exact['grads'][name].norm()):.3e}", flush=True)
+        if not ok:
+            missed.append(name)
+    if abs(loss - ref) > 1e-2 * abs(ref) or center_err > center_tol or missed:
+        fail("the training step disagrees with the plain attention path")
+
+
+def phase_training_times(torch, fa, state, train_step, batch, warm_ms, card):
+    import torch.nn.functional as F
+
+    t = DINO_VIT_S8["training"]
+    print(f"== training times on {card}", flush=True)
+    print(f"  train_step: warm step {warm_ms:.3f} ms median of {TIMED_STEPS} "
+          f"({t['batch_size'] / warm_ms * 1e3:.1f} img/s), host clock with "
+          f"torch.cuda.synchronize(), device augmentation included", flush=True)
+    teacher_temp, teacher_momentum = schedule_values()
+
+    rows = {}
+    for b, n, h, d, dtype_name, bs in TRAIN_CASES[:4:2]:  # globals, locals (bf16)
+        xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=300)
+        (do,) = qkv(b, n, h, d, getattr(torch, dtype_name), seed=301)[:1]
+        scale = 1.0 / d ** 0.5
+        _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)
+        times = {
+            "fwd": cuda_ms(lambda: fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)),
+            "fwd_plain": cuda_ms(lambda: (
+                fa.attention_nhd_reference(xq, xk, xv, h, scale, bs),
+                fa.attention_nhd_stats_reference(xq, xk, h, scale, bs))),
+            "bwd": cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h,
+                                                        scale, bs)),
+            "bwd_plain": cuda_ms(lambda: fa.attention_nhd_bwd_reference(
+                xq, xk, xv, do, h, scale, bs)),
+        }
+        times["fwd2"] = cuda_ms(lambda: fa.attention_nhd_fwd_stats(xq, xk, xv, h,
+                                                                   scale, bs))
+        times["bwd2"] = cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats,
+                                                             h, scale, bs))
+        library = {"fwd": None, "bwd": None}
+        if not bs:  # SDPA's yardstick at the unmasked shape
+            q, k, v = (x.detach().view(b, n, h, d).transpose(1, 2).requires_grad_()
+                       for x in (xq, xk, xv))
+            g = do.view(b, n, h, d).transpose(1, 2)
+            library["fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale))
+            o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+            library["bwd"] = cuda_ms(lambda: torch.autograd.grad(
+                o, (q, k, v), g, retain_graph=True))
+        bounds = attention_train_bounds(b, n, h, d, dtype_name, bs)
+        for part in ("fwd", "bwd"):
+            ms = min(times[part], times[part + "2"])
+            lib = library[part]
+            print(f"  attention_nhd_{'fwd_stats' if part == 'fwd' else 'bwd'} "
+                  f"({b},{n},{h}x{d}) {dtype_name} block_size={bs}: kernel "
+                  f"{times[part]:.4f} / {times[part + '2']:.4f} ms, plain "
+                  f"{times[part + '_plain']:.4f} ms, SDPA "
+                  f"{'n/a (masked)' if lib is None else f'{lib:.4f} ms'}, bound "
+                  f"{bounds[part][0]:.4f} ms ({bounds[part][1]})", flush=True)
+            rows[(part, bs)] = {"ms": ms, "plain_ms": times[part + "_plain"],
+                                "bound_ms": bounds[part][0],
+                                "bound_by": bounds[part][1], "library_ms": lib}
+
+    def three_steps():
+        for _ in range(3):
+            train_step(state, batch, teacher_temp, teacher_momentum)
+
+    profile_window(torch, three_steps, "3 training steps", rows=25)
+    return rows
 
 
 def main() -> int:
@@ -312,30 +752,45 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    phase_kernels(torch, fa)
+    train_errors = phase_kernels(torch, fa)
     with tempfile.TemporaryDirectory() as tmp:
-        server, x, main_launches = phase_serving(torch, tmp)
-    stats = phase_times(torch, server, x, card)
+        server, x, serve_launches = phase_serving(torch, fa, tmp)
+    serve_stats = phase_serving_times(torch, fa, server, x, card)
+    del server
+    state, train_step, batch, train_launches, warm_ms = phase_training(torch, fa)
+    train_stats = phase_training_times(torch, fa, state, train_step, batch,
+                                       warm_ms, card)
 
     b, n, h, d, dtype_name, bs = ATTENTION_CASES[0]
     xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=200)
     ref = fa.attention_nhd_reference(xq, xk, xv, h, 1.0 / d ** 0.5, bs)
     out = fa.attention_nhd(xq, xk, xv, h, 1.0 / d ** 0.5, bs)
-    max_abs_err = float((out.float() - ref.float()).abs().max())
+    serve_err = float((out.float() - ref.float()).abs().max())
 
-    launches = main_launches.get(fa.KERNEL, 0)
-    if launches == 0:
-        fail(f"{fa.KERNEL} was not launched on the serving path")
+    globals_case = TRAIN_CASES[0]
+    entries = [
+        (fa.KERNEL, "attention_nhd_fwd.cu", "vit_ssl_tpu/ops/flash_attention.py:352",
+         serve_err, serve_stats),
+        (fa.KERNEL_TRAIN, "attention_nhd_fwd.cu", "vit_ssl_tpu/ops/flash_attention.py:352",
+         train_errors[globals_case][0], train_stats[("fwd", 0)]),
+        (fa.KERNEL_BWD, "attention_nhd_bwd.cu", "vit_ssl_tpu/ops/flash_attention.py:392",
+         train_errors[globals_case][1], train_stats[("bwd", 0)]),
+    ]
+    for name, *_ in entries:
+        if serve_launches.get(name, 0) + train_launches.get(name, 0) == 0:
+            fail(f"{name} was not launched on the main paths")
     print(card, flush=True)
     print(json.dumps({"kernels": [{
-        "name": fa.KERNEL,
+        "name": name,
         "route": "cuda",
-        "source": "vit_ssl_tpu_torch/csrc/attention_nhd_fwd.cu",
-        "replaces": "vit_ssl_tpu/ops/flash_attention.py:352",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
+        "source": f"vit_ssl_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": serve_launches.get(name, 0) + train_launches.get(name, 0),
+        "launches_by_path": {"serving": serve_launches.get(name, 0),
+                             "training": train_launches.get(name, 0)},
+        "max_abs_err": err,
         **stats,
-    }]}), flush=True)
+    } for name, source, replaces, err, stats in entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

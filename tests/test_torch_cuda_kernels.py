@@ -1,5 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
+Kernel B1: the inference forward, the training forward (output and softmax
+statistics) and the backward (dq, dk, dv), and a ``MultiHeadAttention``
+gradient through the kernels against the plain path.
+
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device. The file imports neither JAX nor the JAX package, so it also runs
 on a machine that has only PyTorch:
@@ -105,3 +109,104 @@ def test_multi_head_attention_kernel_path_matches_plain(cuda_device):
         want, probs = mha(x, return_attn=True)  # the plain math path
     assert probs.shape == (8, 6, 145, 145)
     torch.testing.assert_close(got, want.float(), atol=2e-2, rtol=2e-2)
+
+
+# (batch, seq, heads, head_dim, dtype, block_size): chip_smoke.py's training
+# shapes, fp32 and bf16 at the two DINO shapes
+TRAIN_CASES = [
+    (256, 145, 6, 64, "bfloat16", 0),
+    (256, 145, 6, 64, "float32", 0),
+    (128, 148, 6, 64, "bfloat16", 37),
+    (128, 148, 6, 64, "float32", 37),
+    (512, 37, 6, 64, "bfloat16", 0),
+    (16, 145, 12, 32, "bfloat16", 0),
+    (16, 148, 3, 128, "bfloat16", 37),
+    (8, 1024, 6, 64, "bfloat16", 0),
+    (4, 1, 6, 64, "bfloat16", 0),
+]
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+# bf16: p and ds round to bf16 on both sides, and an fp32 value near a
+# rounding tie may land on either side; fp32: sums in another order
+GRAD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+@pytest.mark.parametrize("b,n,h,d,dtype,bs", TRAIN_CASES)
+def test_training_forward_equals_inference_and_plain_stats(cuda_device, b, n, h,
+                                                           d, dtype, bs):
+    dt = getattr(torch, dtype)
+    xq, xk, xv = _inputs(b, n, h, d, dt, cuda_device, seed=b + n + 1)
+    scale = 1.0 / d ** 0.5
+    before = kernels.launches[fa.KERNEL_TRAIN]
+    out, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)
+    torch.cuda.synchronize()
+    assert kernels.launches[fa.KERNEL_TRAIN] == before + 1
+    assert torch.equal(out, fa.attention_nhd_fwd(xq, xk, xv, h, scale, bs))
+    assert stats.shape == (b, h, -(-n // 64) * 64, 2)
+    assert not stats[:, :, n:].any()  # rows past n stay zero
+    ref = fa.attention_nhd_stats_reference(xq, xk, h, scale, bs)
+    torch.testing.assert_close(stats[:, :, :n], ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,n,h,d,dtype,bs", TRAIN_CASES)
+def test_backward_matches_plain(cuda_device, b, n, h, d, dtype, bs):
+    dt = getattr(torch, dtype)
+    xq, xk, xv = _inputs(b, n, h, d, dt, cuda_device, seed=b + n + 2)
+    (do,) = _inputs(b, n, h, d, torch.float32, cuda_device, seed=7)[:1]
+    scale = 1.0 / d ** 0.5
+    _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)
+    before = kernels.launches[fa.KERNEL_BWD]
+    got = fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs)
+    torch.cuda.synchronize()
+    assert kernels.launches[fa.KERNEL_BWD] == before + 1
+    want = fa.attention_nhd_bwd_reference(xq, xk, xv, do, h, scale, bs)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dt and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= GRAD_REL_TOL[dtype], (name, _rel_err(g, w))
+
+
+def test_backward_takes_a_strided_upstream_gradient(cuda_device):
+    xq, xk, xv = _inputs(4, 37, 2, 64, torch.bfloat16, cuda_device, seed=3)
+    do = torch.randn(37, 4, 128, device=cuda_device).transpose(0, 1)
+    _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, 2, 0.125)
+    got = fa.attention_nhd_bwd(xq, xk, xv, do, stats, 2, 0.125)
+    want = fa.attention_nhd_bwd(xq, xk, xv, do.contiguous(), stats, 2, 0.125)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype,bs", [("bfloat16", 0), ("bfloat16", 37),
+                                      ("float32", 37)])
+def test_multi_head_attention_gradient_through_kernels(cuda_device, monkeypatch,
+                                                       dtype, bs):
+    """The old fault: the kernel's output carried no autograd node, so no
+    gradient reached w_query. Now it does, and it equals the plain path's."""
+    dt = getattr(torch, dtype)
+    torch.manual_seed(0)
+    mha = attention_mod.MultiHeadAttention(384, 6, dtype=dt).to(cuda_device)
+    x = torch.randn(8, 148, 384, device=cuda_device)
+
+    def grads():
+        mha.zero_grad()
+        (mha(x, block_size=bs).float() ** 2).sum().backward()
+        return {k: p.grad.clone() for k, p in mha.named_parameters()}
+
+    kernels.launches.clear()
+    got = grads()
+    assert kernels.launches[fa.KERNEL_TRAIN] == 1
+    assert kernels.launches[fa.KERNEL_BWD] == 1
+    assert kernels.launches[fa.KERNEL] == 0
+    monkeypatch.setattr(attention_mod, "attention_nhd", fa.attention_nhd_plain)
+    want = grads()
+    assert kernels.launches[fa.KERNEL_BWD] == 1  # the plain path ran no kernel
+    for name in want:
+        assert float(got[name].abs().max()) > 0, name
+        cos = torch.nn.functional.cosine_similarity(
+            got[name].flatten(), want[name].flatten(), dim=0)
+        assert float(cos) >= 0.999, (name, float(cos))

@@ -163,3 +163,185 @@ def test_build_backbone_eval_dino_mode():
 def test_build_backbone_refuses_unported_modes(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_backbone(_config(mode=mode), "cpu")
+
+
+# ---------------------------------------------------------------------------
+# the training slice's model pieces (dropout 0, fp32)
+
+from vit_ssl_tpu.models import dino as jax_dino  # noqa: E402
+from vit_ssl_tpu.utils import metrics as jax_metrics  # noqa: E402
+from vit_ssl_tpu_torch.models import DINONetwork as TorchDINONetwork  # noqa: E402
+from vit_ssl_tpu_torch.models import build_dino_network  # noqa: E402
+from vit_ssl_tpu_torch.models import dino as port_dino  # noqa: E402
+from vit_ssl_tpu_torch.train import AdamW, TrainState  # noqa: E402
+from vit_ssl_tpu_torch.utils.metrics import DINO_METRICS, dino_distribution_stats  # noqa: E402
+
+NET = dict(num_blocks=2, embed_dim=32, num_heads=2, patch_size=8, mlp_dim=64,
+           img=16, output_dim=16)
+
+
+def _jax_dino(cfg=NET, dtype=jnp.float32):
+    return DINONetwork(
+        num_blocks=cfg["num_blocks"], input_shape=(3, cfg["img"], cfg["img"]),
+        embed_dim=cfg["embed_dim"], patch_size=cfg["patch_size"],
+        num_heads=cfg["num_heads"], mlp_dim=cfg["mlp_dim"], dropout=0.0,
+        output_dim=cfg["output_dim"], dtype=dtype,
+    )
+
+
+def _port_dino(cfg=NET, dtype=torch.float32):
+    return TorchDINONetwork(
+        cfg["num_blocks"], (3, cfg["img"], cfg["img"]), cfg["embed_dim"],
+        cfg["patch_size"], cfg["num_heads"], cfg["mlp_dim"], dropout=0.0,
+        output_dim=cfg["output_dim"], dtype=dtype,
+    )
+
+
+@pytest.fixture(scope="module")
+def dino_pair():
+    """(JAX module, student params, teacher params, center, port state):
+    the same weights on both sides, carried by the port's bridge into a
+    train state with strict=True."""
+    net = _jax_dino()
+    dummy = jnp.zeros((1, 16, 16, 3))
+    student = _jiggle(net.init(jax.random.PRNGKey(0), dummy)["params"], 11)
+    teacher = _jiggle(net.init(jax.random.PRNGKey(1), dummy)["params"], 12)
+    center = np.random.default_rng(13).standard_normal((1, 16)).astype(np.float32)
+    state = TrainState(_port_dino(), AdamW(lambda step: 1e-3), seed=0)
+    state.load_model_state_dict(dino_state_dict_from_flax(student, teacher, center),
+                                strict=True)
+    return net, student, teacher, center, state
+
+
+def test_train_state_loads_the_bridge_strictly(dino_pair):
+    _, student, teacher, center, state = dino_pair
+    sd = state.model_state_dict()
+    assert set(sd) == set(dino_state_dict_from_flax(student, teacher, center))
+    np.testing.assert_array_equal(sd["center"].numpy(), center)
+    bad = dict(sd, extra=torch.zeros(1))
+    with pytest.raises(KeyError, match="unexpected"):
+        state.load_model_state_dict(bad)
+
+
+@pytest.mark.parametrize("which", ["student", "teacher"])
+def test_dino_network_forward_matches_jax(dino_pair, which):
+    net, student, teacher, _, state = dino_pair
+    params = student if which == "student" else teacher
+    x = np.random.default_rng(14).random((3, 16, 16, 3), np.float32)
+    want = net.apply({"params": params}, jnp.asarray(x))
+    with torch.no_grad():
+        got = getattr(state, which)(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (3, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+def test_dino_network_forward_packed_matches_jax(dino_pair):
+    """4 local crops of 8 px (a 1x1 grid against the stored 2x2) packed
+    into one block-diagonal sequence per image, view-major output."""
+    net, student, _, _, state = dino_pair
+    x = np.random.default_rng(15).random((4 * 3, 8, 8, 3), np.float32)
+    want = net.apply({"params": student}, jnp.asarray(x), 4, True,
+                     method="forward_packed")
+    with torch.no_grad():
+        got = state.student.forward_packed(torch.from_numpy(x), 4)
+        unpacked = state.student(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(got.numpy(), unpacked.numpy(), atol=2e-5, rtol=1e-4)
+
+
+def test_dino_head_matches_jax_and_runs_fc_in_fp32(dino_pair):
+    net, student, _, _, state = dino_pair
+    feats = np.random.default_rng(16).standard_normal((5, 32)).astype(np.float32)
+    want = net.apply({"params": student}, jnp.asarray(feats), method=net.head_only)
+    with torch.no_grad():
+        got = state.student.head(torch.from_numpy(feats))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+    bf16 = port_dino.DINOHead(32, 16, dtype=torch.bfloat16).reset_parameters(
+        torch.Generator().manual_seed(0))
+    assert bf16(torch.from_numpy(feats)).dtype == torch.float32
+
+
+def test_weight_norm_reset_sets_g_to_the_norm():
+    fc = port_dino.WeightNormDense(8, 4).reset_parameters(torch.Generator().manual_seed(1))
+    g = fc.parametrizations.weight.original0
+    v = fc.parametrizations.weight.original1
+    torch.testing.assert_close(g, v.norm(dim=1, keepdim=True))
+    x = torch.randn(3, 8)
+    torch.testing.assert_close(fc(x), x @ v.T + fc.bias, atol=1e-6, rtol=1e-5)
+
+
+def test_dino_loss_matches_jax():
+    rng = np.random.default_rng(17)
+    t, s = rng.standard_normal((2, 4, 16)), rng.standard_normal((6, 4, 16))
+    center = rng.standard_normal((1, 16))
+    t, s, center = (a.astype(np.float32) for a in (t, s, center))
+    want = jax_dino.dino_loss(jnp.asarray(t), jnp.asarray(s), jnp.asarray(center),
+                              0.04, 0.1)
+    got = port_dino.dino_loss(torch.from_numpy(t), torch.from_numpy(s),
+                              torch.from_numpy(center), 0.04, 0.1)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_update_center_matches_jax(weighted):
+    rng = np.random.default_rng(18)
+    center = rng.standard_normal((1, 16)).astype(np.float32)
+    t = rng.standard_normal((8, 16)).astype(np.float32)
+    w = np.array([1, 1, 0, 1, 1, 1, 0, 1], np.float32) if weighted else None
+    want = jax_dino.update_center(jnp.asarray(center), jnp.asarray(t), 0.9,
+                                  None if w is None else jnp.asarray(w))
+    got = port_dino.update_center(torch.from_numpy(center), torch.from_numpy(t), 0.9,
+                                  None if w is None else torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
+
+
+def test_momentum_update_in_place():
+    a = port_dino.DINOHead(8, 4).reset_parameters(torch.Generator().manual_seed(2))
+    b = port_dino.DINOHead(8, 4).reset_parameters(torch.Generator().manual_seed(3))
+    want = {k: 0.9 * v + 0.1 * b.state_dict()[k] for k, v in a.state_dict().items()}
+    port_dino.momentum_update(a, b, 0.9)
+    for k, v in a.state_dict().items():
+        torch.testing.assert_close(v, want[k], atol=1e-7, rtol=1e-6)
+
+
+@pytest.mark.parametrize("step", [0, 1, 37, 99, 100, 150])
+def test_schedules_match_jax(step):
+    np.testing.assert_allclose(
+        port_dino.cosine_momentum_schedule(step, 0.996, 1.0, 100),
+        float(jax_dino.cosine_momentum_schedule(step, 0.996, 1.0, 100)), rtol=1e-6)
+    for kind in ("cosine", "linear"):
+        np.testing.assert_allclose(
+            port_dino.teacher_temp_schedule(step, 0.04, 0.07, 100, kind),
+            float(jax_dino.teacher_temp_schedule(step, 0.04, 0.07, 100, kind)),
+            rtol=1e-6)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_dino_distribution_stats_match_jax(weighted):
+    rng = np.random.default_rng(19)
+    t = rng.standard_normal((2, 4, 16)).astype(np.float32)
+    s = rng.standard_normal((6, 4, 16)).astype(np.float32)
+    center = rng.standard_normal((1, 16)).astype(np.float32)
+    w = np.array([1, 0, 1, 1], np.float32) if weighted else None
+    want = jax_metrics.dino_distribution_stats(
+        jnp.asarray(t), jnp.asarray(s), jnp.asarray(center),
+        None if w is None else jnp.asarray(w))
+    got = dino_distribution_stats(torch.from_numpy(t), torch.from_numpy(s),
+                                  torch.from_numpy(center),
+                                  None if w is None else torch.from_numpy(w))
+    assert tuple(got) == DINO_METRICS == tuple(want)
+    for k in DINO_METRICS:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+
+
+def test_build_dino_network_follows_the_config():
+    cfg = _config(dtype="bfloat16")
+    cfg["model"].update(output_dim=24, dropout=0.2)
+    net = build_dino_network(cfg, "cpu")
+    assert net.head.fully_connected.bias.shape == (24,)
+    assert net.backbone.encoder_blocks[0].drop1.rate == 0.2
+    assert net.backbone.dtype == torch.bfloat16
+    cfg["model"]["use_fused_mlp"] = True
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_dino_network(cfg, "cpu")

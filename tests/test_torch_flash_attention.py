@@ -101,3 +101,122 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.build()
     assert not (tmp_path / "_build").exists()
+
+
+# B1's backward: (batch, seq, heads, head_dim, block_size)
+BWD_CASES = [
+    (2, 37, 2, 32, 0),
+    (2, 148, 2, 32, 37),
+    (1, 145, 6, 64, 0),
+]
+# bf16: p and ds round to bf16 on both sides, and the two frameworks' fp32
+# exp and sums may put a value on either side of a rounding tie; one bf16
+# ulp of a ds entry moves a gradient by 2^-8 of that term
+BWD_BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+def _jax_grads(xs, do, h, scale, bs, dtype):
+    import jax
+
+    def f(q, k, v):
+        return jax_attention_nhd(q, k, v, h, scale, True, bs)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x, dtype) for x in xs))
+    return [np.asarray(g, np.float32) for g in vjp(jnp.asarray(do, dtype))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,h,d,bs", BWD_CASES)
+def test_bwd_reference_matches_jax_vjp(b, n, h, d, bs, dtype):
+    xs = _inputs(b, n, h, d, seed=n + 1)
+    do = np.random.default_rng(n + 2).standard_normal((b, n, h * d), dtype=np.float32)
+    scale = 1.0 / d ** 0.5
+    want = _jax_grads(xs, do, h, scale, bs, dtype)
+    tdt = getattr(torch, dtype)
+    got = fa.attention_nhd_bwd_reference(
+        *(torch.from_numpy(x).to(tdt) for x in xs), torch.from_numpy(do), h,
+        scale, bs)
+    tol = FP32_TOL if dtype == "float32" else BWD_BF16_TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tdt and g.shape == (b, n, h * d), name
+        np.testing.assert_allclose(g.float().numpy(), w, err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("b,n,h,d,bs", BWD_CASES)
+def test_autograd_on_cpu_gives_jax_gradients(b, n, h, d, bs):
+    """The Function on a CPU tensor: plain forward, plain backward, and the
+    gradients equal JAX's kernel backward (fp32)."""
+    xs = _inputs(b, n, h, d, seed=n + 1)
+    do = np.random.default_rng(n + 2).standard_normal((b, n, h * d), dtype=np.float32)
+    scale = 1.0 / d ** 0.5
+    want = _jax_grads(xs, do, h, scale, bs, jnp.float32)
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in xs)
+    before = dict(kernels.launches)
+    out = fa.attention_nhd(q, k, v, h, scale, bs)
+    got = torch.autograd.grad(out, (q, k, v), torch.from_numpy(do))
+    assert dict(kernels.launches) == before  # CPU: no kernel
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **FP32_TOL)
+
+
+def test_autograd_uses_the_rounded_probabilities():
+    """In bf16 the backward uses p rounded to bf16, as JAX's does; autograd
+    through the plain forward would pass the rounding as the identity."""
+    xs = [torch.from_numpy(x).bfloat16() for x in _inputs(2, 37, 2, 32, seed=5)]
+    do = torch.randn(2, 37, 64, generator=torch.Generator().manual_seed(0))
+    q, k, v = (x.clone().requires_grad_() for x in xs)
+    got = torch.autograd.grad(fa.attention_nhd(q, k, v, 2, 0.125), (q, k, v), do)
+    want = fa.attention_nhd_bwd_reference(*xs, do, 2, 0.125)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_stats_reference_rebuilds_the_probabilities():
+    xq, xk, xv = (torch.from_numpy(x) for x in _inputs(2, 37, 2, 32, seed=6))
+    stats = fa.attention_nhd_stats_reference(xq, xk, 2, 0.125, 5)
+    assert stats.shape == (2, 2, 37, 2)
+    s = fa._scores(xq, xk, 2, 0.125, 5)
+    p = torch.exp(s - stats[..., :1]) * stats[..., 1:]
+    torch.testing.assert_close(p.sum(-1), torch.ones(2, 2, 37))
+    torch.testing.assert_close(
+        torch.matmul(p, fa._heads(xv, 2)),
+        fa._heads(fa.attention_nhd_reference(xq, xk, xv, 2, 0.125, 5), 2))
+
+
+def test_training_wrappers_take_plain_versions_on_cpu():
+    xq, xk, xv = (torch.from_numpy(x) for x in _inputs(2, 37, 2, 32, seed=7))
+    before = dict(kernels.launches)
+    out, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, 2, 0.125)
+    assert torch.equal(out, fa.attention_nhd_reference(xq, xk, xv, 2, 0.125))
+    assert torch.equal(stats, fa.attention_nhd_stats_reference(xq, xk, 2, 0.125))
+    grads = fa.attention_nhd_bwd(xq, xk, xv, out, stats, 2, 0.125)
+    want = fa.attention_nhd_bwd_reference(xq, xk, xv, out, 2, 0.125)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+    assert dict(kernels.launches) == before
+
+
+def test_kernel_sources_cover_their_headers():
+    """A header edit must rebuild every library that includes it."""
+    for name in ("attention_nhd_fwd", "attention_nhd_bwd"):
+        files = [f.name for f in kernels.source_files(name)]
+        assert files == [f"{name}.cu", "attention_nhd_common.cuh"]
+
+
+def test_stale_follows_headers(monkeypatch, tmp_path):
+    import os
+
+    (tmp_path / "csrc").mkdir()
+    src, header = tmp_path / "csrc" / "k.cu", tmp_path / "csrc" / "k.cuh"
+    src.write_text('#include "k.cuh"\n')
+    header.write_text("// shared\n")
+    monkeypatch.setattr(kernels, "PACKAGE_DIR", tmp_path)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setitem(kernels.SOURCES, "k", "csrc/k.cu")
+    (tmp_path / "_build").mkdir()
+    lib = kernels.library_path("k")
+    lib.write_bytes(b"")
+    os.utime(src, (100, 100))
+    os.utime(header, (100, 100))
+    os.utime(lib, (200, 200))
+    assert not kernels._stale("k")
+    os.utime(header, (300, 300))  # only the header is newer than the library
+    assert kernels._stale("k")

@@ -17,7 +17,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from vit_ssl_tpu.config import compose
+from vit_ssl_tpu.config import compose, to_container
 from vit_ssl_tpu_torch import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
@@ -38,6 +38,8 @@ def test_port_import_leaves_jax_out():
         "import vit_ssl_tpu_torch, vit_ssl_tpu_torch.serve, vit_ssl_tpu_torch.kernels\n"
         "import vit_ssl_tpu_torch.models, vit_ssl_tpu_torch.ops\n"
         "import vit_ssl_tpu_torch.utils.checkpoint, vit_ssl_tpu_torch.data.transforms\n"
+        "import vit_ssl_tpu_torch.train, vit_ssl_tpu_torch.utils.metrics\n"
+        "import vit_ssl_tpu_torch.data.device_augment\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} + ('cv2', 'PIL', 'triton'))\n"
         "print(bad)\n"
@@ -78,13 +80,44 @@ def test_resolve_device(monkeypatch):
     assert resolve_device("cuda:1") == torch.device("cuda:1")
 
 
+def _assert_within(smoke, composed, path):
+    """Every value in ``smoke`` equals the composed config's at its path."""
+    if isinstance(smoke, dict):
+        for key, value in smoke.items():
+            assert key in composed, f"{path}.{key}"
+            _assert_within(value, composed[key], f"{path}.{key}")
+    elif isinstance(smoke, list):
+        assert len(smoke) == len(composed), path
+        for i, (a, b) in enumerate(zip(smoke, composed)):
+            _assert_within(a, b, f"{path}[{i}]")
+    else:
+        assert smoke == composed, (path, smoke, composed)
+
+
 def test_chip_smoke_config_is_composed_dino_yaml():
-    composed = compose(REPO / "configs", "dino")
+    """Model, data, the training step's values (views, temperatures and
+    their schedule, center momentum, dropout, teacher dropout, packing, the
+    optimizer and lr) and both crop pipelines."""
+    composed = to_container(compose(REPO / "configs", "dino"))
     smoke = _load_chip_smoke().DINO_VIT_S8
-    assert smoke["training"]["type"] == composed.training.type == "dino"
-    assert smoke["data"]["img_size"] == composed.data.img_size == 96
-    for key, value in smoke["model"].items():
-        assert composed.model[key] == value, key
+    assert smoke["training"]["type"] == "dino"
+    assert smoke["data"]["img_size"] == 96 and smoke["data"]["local_img_size"] == 48
+    assert smoke["model"]["dino_pack_locals"] and smoke["training"]["teacher_dropout"]
+    assert set(smoke) == {"training", "model", "data", "transforms"}
+    _assert_within(smoke, composed, "config")
+
+
+def test_chip_smoke_training_bounds():
+    """Training shape (256, 145, 6x64) bf16: the forward moves 114 MB of
+    q/k/v/o and 1.8 MB of statistics (about 35 us at 3.35 TB/s); the
+    backward about 200 MB (60 us) against 21 GFLOP (21 us): bytes bound
+    both."""
+    bounds = _load_chip_smoke().attention_train_bounds(256, 145, 6, 64, "bfloat16", 0)
+    act = 256 * 145 * 384 * 2
+    stats = 256 * 6 * 145 * 8
+    assert bounds["fwd"] == pytest.approx(((4 * act + stats) / 3.35e9, "bytes"))
+    assert bounds["bwd"] == pytest.approx(((7 * act + stats) / 3.35e9, "bytes"))
+    assert 0.034 < bounds["fwd"][0] < 0.036 and 0.059 < bounds["bwd"][0] < 0.061
 
 
 def test_chip_smoke_attention_bound():

@@ -29,6 +29,12 @@ from vit_ssl_tpu_torch.ops import (
     MultiHeadAttention,
     scaled_dot_product_attention,
 )
+from vit_ssl_tpu_torch.ops.dropout import (
+    Dropout,
+    drop_threshold,
+    dropout16,
+    keep_mask16,
+)
 from vit_ssl_tpu_torch.ops.flash_attention import KERNEL
 from vit_ssl_tpu_torch.utils.checkpoint import (
     attention_state_dict_from_flax,
@@ -164,9 +170,81 @@ def test_dynamic_patch_embed_matches_jax():
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("hw,match", [(24, "differs from the stored"),
-                                      (30, "divisible")])
+@pytest.mark.parametrize("hw,match", [(30, "divisible")])
 def test_dynamic_patch_embed_rejects_other_grids(hw, match):
     pe = DynamicPatchEmbed((3, 32, 32), 16, 8)
     with pytest.raises(ValueError, match=match):
         pe(torch.zeros(1, hw, hw, 3))
+
+
+@pytest.mark.parametrize("stored,seen,patch", [(96, 48, 8), (16, 8, 8), (32, 48, 8)],
+                         ids=["12to6", "2to1", "4to6"])
+def test_dynamic_patch_embed_resizes_pos_embedding_like_jax(stored, seen, patch):
+    """A grid other than the stored one resizes the positional embedding
+    with JAX's antialiased a=-0.5 bicubic (DINO locals: 12x12 -> 6x6)."""
+    x = np.random.default_rng(8).random((2, seen, seen, 3), np.float32)
+    jax_pe = JaxPatchEmbed(input_shape=(3, stored, stored), embed_dim=16,
+                           patch_size=patch)
+    params = _jiggle(jax_pe.init(jax.random.PRNGKey(6), jnp.asarray(x))["params"], 9)
+    want = jax_pe.apply({"params": params}, jnp.asarray(x))
+    pe = DynamicPatchEmbed((3, stored, stored), 16, patch)
+    pe.load_state_dict(patch_embedding_state_dict_from_flax(params), strict=True)
+    got = _run(pe, x)
+    assert got.shape == (2, (seen // patch) ** 2 + 1, 16)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_dropout_identity_at_rate_zero_and_when_deterministic():
+    x = torch.randn(4, 7, 16)
+    g = torch.Generator().manual_seed(0)
+    assert torch.equal(Dropout(0.0)(x, False, g), x)
+    assert torch.equal(Dropout(0.1)(x, True, g), x)
+    assert torch.equal(Dropout(0.1)(x), x)
+    with pytest.raises(ValueError, match="Generator"):
+        Dropout(0.1)(x, False)
+
+
+def test_dropout16_keep_rate_and_scale():
+    """drop <=> uint16 bits < round(0.1*65536) = 6554: keep rate
+    1 - 6554/65536, kept values scaled by 1/0.9 in x's dtype."""
+    n = 1 << 20
+    keep = keep_mask16((n,), 0.1, torch.Generator().manual_seed(1))
+    p = 1 - 6554 / 65536
+    assert abs(float(keep.float().mean()) - p) < 5 * (p * (1 - p) / n) ** 0.5
+    x = torch.rand(4096, generator=torch.Generator().manual_seed(2)).bfloat16() + 1
+    y = dropout16(x, 0.1, torch.Generator().manual_seed(3))
+    assert y.dtype == torch.bfloat16
+    kept = y != 0
+    assert torch.equal(y[kept], (x / 0.9)[kept])
+    same = dropout16(x, 0.1, torch.Generator().manual_seed(3))
+    assert torch.equal(y, same)  # the generator decides the mask
+
+
+def test_dropout_threshold_saturates():
+    assert drop_threshold(0.1) == 6554
+    assert drop_threshold(1.0) == 65535
+
+
+def test_bernoulli_dropout_and_fused_mlp_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Dropout(0.1, fast=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FeedForwardBlock(32, 64, use_fused=True)
+
+
+def test_encoder_block_dropout_order():
+    """One generator, three masks in a fixed order: after attention, after
+    the GELU inside the FFN, after the FFN."""
+    torch.manual_seed(0)
+    block = EncoderBlock(32, 2, 64, dropout=0.25)
+    x = torch.randn(3, 9, 32)
+    got = block(x, 0, False, torch.Generator().manual_seed(4))
+
+    g = torch.Generator().manual_seed(4)
+    h = block.self_attention(block.layer_norm1(x))
+    x1 = dropout16(h, 0.25, g) + x
+    ff = block.feed_forward
+    h = dropout16(torch.nn.functional.gelu(ff.linear_in(block.layer_norm2(x1))), 0.25, g)
+    want = dropout16(ff.linear_out(h), 0.25, g) + x1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not torch.equal(got, block(x))  # deterministic differs

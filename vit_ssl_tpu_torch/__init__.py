@@ -5,9 +5,18 @@ its counterpart there. Plain tensor code is PyTorch, and every Pallas TPU
 kernel on a ported path is a hand-written Hopper kernel under ``csrc/``,
 built at first use (:mod:`.kernels`).
 
-Ported so far: the DINO serving path (:mod:`.serve`): checkpoint →
-``ViTBackbone`` → teacher CLS embedding, with attention through the
-``attention_nhd_fwd`` CUDA kernel.
+Ported so far:
+
+- the DINO serving path (:mod:`.serve`): checkpoint → ``ViTBackbone`` →
+  teacher CLS embedding, attention through the ``attention_nhd_fwd`` CUDA
+  kernel;
+- the DINO training step (:func:`.train.make_dino_steps`): multi-crop views
+  made on the device (:mod:`.data.device_augment`), student and teacher
+  ``DINONetwork``s with dropout and packed locals, the weighted loss and
+  center, AdamW with optax's arithmetic, the teacher EMA and the collapse
+  statistics; attention through the ``attention_nhd_fwd_stats`` and
+  ``attention_nhd_bwd`` CUDA kernels (and the inference kernel for the
+  teacher).
 
 This package imports neither ``jax`` nor ``vit_ssl_tpu``.
 """

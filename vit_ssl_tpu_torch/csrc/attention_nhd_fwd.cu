@@ -1,9 +1,12 @@
 // Multi-head attention forward on the (B, N, H*D) projection layout, for
-// Hopper (sm_90a).
+// Hopper (sm_90a): kernel B1's forward, inference and training.
 //
 // Replaces the TPU kernel vit_ssl_tpu/ops/flash_attention.py::_nhd_fwd_kernel
-// (the no-probs pallas_call of _attention_nhd_fwd_impl, the inference
-// forward). Same math and the same rounding points:
+// in both of its pallas_calls in _attention_nhd_fwd_impl: the inference call
+// (no probabilities) is the C entry attention_nhd_fwd; the training call,
+// which saves the (B, H, N, N) probabilities for the backward, is the C
+// entry attention_nhd_fwd_stats, which instead saves the softmax statistics
+// of each row (see below). Same math and the same rounding points:
 //
 //   s  = (q_h . k_h^T) * scale            fp32 products and sums
 //   s  = -inf where i/bs != j/bs          only when block_size > 0
@@ -14,30 +17,46 @@
 // q, k, v and o are read and written in place in (B, N, H*D): head h of
 // token i lives at [b, i, h*D : (h+1)*D]. No transpose exists anywhere.
 //
-// What bounds it on an H100 SXM at the serving shape (128, 145, 6x64) bf16:
-// bytes. q/k/v/o move 4 * 128*145*384 * 2 B = 57 MB, 17 us at 3.35 TB/s,
-// against 4.1 GFLOP, 4.2 us at the 989 TFLOP/s bf16 tensor-core rate.
+// Softmax statistics (training entry): stats is fp32 (B, H, Np, 2) with
+// Np = round_up(N, 64); [b, h, i] holds (m, 1/l), m the row max of the
+// scaled, masked scores and l the row sum of exp(s - m). The backward
+// (attention_nhd_bwd.cu) recomputes the scores with the same instructions
+// and rebuilds, from (m, 1/l), the very bf16 pn that this kernel fed to
+// P.V. Rows at or past N are not written: the caller zero-fills stats, and
+// (m, 1/l) = (0, 0) makes those rows' probabilities zero. The two entries
+// run one kernel; the output is the same bit for bit.
+//
+// What bounds it on an H100 SXM: bytes. At the serving shape (128, 145,
+// 6x64) bf16 q/k/v/o move 4 * 128*145*384 * 2 B = 57 MB, 17 us at
+// 3.35 TB/s, against 4.1 GFLOP, 4.2 us at the 989 TFLOP/s bf16 tensor-core
+// rate (data sheet). At the training shape (256, 145, 6x64) the training
+// entry moves 114 MB plus 1.8 MB of statistics, about 35 us, against 8 us
+// of operations.
 //
 // How the design answers that bound: the (N, N) scores never leave the
-// chip, each block reads its Q rows once and writes its O rows once, and
-// the few query tiles of one (b, h) run side by side, so their re-reads of
-// K and V can come from L2 rather than device memory. Two kernels:
+// chip (the TPU kernel's training call writes them out; this one writes 8
+// bytes a row instead), each block reads its Q rows once and writes its O
+// rows once, and the few query tiles of one (b, h) run side by side, so
+// their re-reads of K and V can come from L2 rather than device memory.
+// Two kernels:
 //
-// - bfloat16 (the serving path): tensor cores through mma.sync m16n8k16
-//   with fp32 accumulation. One block of 4 warps owns 64 query rows of one
-//   (b, h), 16 rows a warp, its Q fragments held in registers. K and V
-//   stream through 64-row shared tiles, copied with cp.async into two
-//   buffers: the next tile's copies are in flight while this one computes.
-//   Pass 1 computes each score tile and keeps the running row max and the
-//   rescaled row sum; pass 2 recomputes the scores, forms
-//   p = exp(s - max) * (1 / sum), rounds it to bf16 in registers (where the
-//   reference rounds it) and feeds it straight to the P.V product as the A
-//   operand. K's B fragments come from ldmatrix, V's from ldmatrix.trans;
-//   neither pass writes scores anywhere. exp(s - m) is
+// - bfloat16 (the serving and training path): tensor cores through
+//   mma.sync m16n8k16 with fp32 accumulation. One block of 4 warps owns 64
+//   query rows of one (b, h), 16 rows a warp, its Q fragments held in
+//   registers. K and V stream through 64-row shared tiles, copied with
+//   cp.async into two buffers: the next tile's copies are in flight while
+//   this one computes. Pass 1 computes each score tile and keeps the
+//   running row max and the rescaled row sum; pass 2 recomputes the scores,
+//   forms p = exp(s - max) * (1 / sum), rounds it to bf16 in registers
+//   (where the reference rounds it) and feeds it straight to the P.V
+//   product as the A operand. K's B fragments come from ldmatrix, V's from
+//   ldmatrix.trans; neither pass writes scores anywhere. exp(s - m) is
 //   2^(s log2e - m log2e) on the special-function unit and the division a
 //   reciprocal multiply: each within a few fp32 ulps of the reference, far
-//   below the bf16 rounding that follows. Key tiles past n and warps whose
-//   rows all lie past n skip their arithmetic.
+//   below the bf16 rounding that follows. The block-diagonal mask is a key
+//   span [lo, hi) per row (two compares a score, no division); key tiles
+//   outside the span of a warp's 16 rows, which include the tiles past n,
+//   and warps whose rows all lie past n skip their arithmetic.
 // - float32: the products must stay full fp32 (TF32 would miss the 1e-5
 //   tolerance), so they run on the CUDA cores. One block of 8 warps owns
 //   32 query rows, keeps their fp32 score rows (N <= 1024) in shared
@@ -46,176 +65,38 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (vit_ssl_tpu_torch/kernels.py); called through
-// ctypes from vit_ssl_tpu_torch/ops/flash_attention.py::attention_nhd.
+// ctypes from vit_ssl_tpu_torch/ops/flash_attention.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "attention_nhd_common.cuh"
 
 namespace {
 
-constexpr int kMaxSeq = 1024;
-constexpr int kKTile = 64;  // key/value rows per shared-memory tile (both kernels)
-
-__device__ __forceinline__ float quad_max(float x) {  // over the 4 lanes of a row
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-__device__ __forceinline__ bool keep(int row, int col, int n, int block_size) {
-  return col < n && (block_size == 0 || row / block_size == col / block_size);
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16, fp32 accumulation)
-
-constexpr int kWarps16 = 4;              // warps per block, 16 query rows each
-constexpr int kRows16 = 16 * kWarps16;   // query rows per block
-constexpr int kBPad = 8;                 // row padding in bf16: 16-byte rows
-                                         // whose 8 neighbours sit 4 banks apart
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two floats rounded to bf16 in one register, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-// c += a . b on one 16x8 fp32 tile; a is 16x16 bf16 (row), b 16x8 (col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory, one row address per lane
-// (lanes 8i .. 8i+7 give matrix i's rows): mma B fragments of a row-major
-// tile, as stored (K: [key][d] is B = K^T's column-major form) or, with
-// kTrans, transposed (V: [key][d] is B's row-major form).
-template <bool kTrans>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if (kTrans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit; 2^-inf = 0.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 16 bytes from global to shared memory without passing through registers;
-// with pred false nothing is read and the 16 bytes are zero.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most `pending` committed groups are still in flight.
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
-}
-
-// Starts copying rows [row0, row0 + kKTile) of one head into a padded shared
-// tile, 16 bytes a thread, all in flight at once; rows at or past n become
-// zero. The caller commits, waits (cp_async_wait) and synchronises.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* __restrict__ src,
-                                               int row0, int n, int row_stride) {
-  constexpr int kVecs = D / 8;
-#pragma unroll
-  for (int idx = threadIdx.x; idx < kKTile * kVecs; idx += 32 * kWarps16) {
-    const int r = idx / kVecs, c = (idx % kVecs) * 8;
-    const int g = row0 + r;
-    cp_async16(dst + r * (D + kBPad) + c,
-               g < n ? src + (size_t)g * row_stride + c : src, g < n);
-  }
-}
-
 // One warp's 16 x kKTile scores: s[j] is the 16x8 tile of keys k0 + 8j ..,
-// scaled and masked. Lane (g, t) holds rows g and g + 8, columns 2t, 2t + 1.
-// Tiles wholly past n are skipped (-inf), so a ragged last tile costs only
-// its live 8-key columns; a whole tile with no mask skips the mask test.
+// scaled and masked. Lane (g, t) holds rows g and g + 8 (key spans lo, hi),
+// columns 2t, 2t + 1. Tiles outside the warp's key span are skipped (-inf),
+// so a ragged last tile costs only its live 8-key columns and a masked
+// one only the columns of the warp's diagonal blocks; a whole tile with no
+// mask skips the mask test.
 template <int D>
 __device__ __forceinline__ void score_tile(float (&s)[kKTile / 8][4],
                                            const uint32_t (&qa)[D / 16][4],
-                                           const bf16* ks, int k0, int row_lo,
-                                           int n, float scale, int block_size) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
+                                           const bf16* ks, int k0, Span lo,
+                                           Span hi, Span warp_keys, int n,
+                                           float scale, int block_size) {
+  const int t = threadIdx.x & 3;
   const bool unmasked = block_size == 0 && k0 + kKTile <= n;  // uniform
-  // this lane's ldmatrix row: key 8j + (lane & 7), columns 8 * (lane >> 3)
-  const bf16* kl = ks + (lane & 7) * (D + kBPad) + 8 * (lane >> 3);
 #pragma unroll
   for (int j = 0; j < kKTile / 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    if (k0 + 8 * j >= n) {  // uniform across the warp
+    if (!warp_keys.meets(k0 + 8 * j, 8)) {  // uniform across the warp
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
       continue;
     }
-#pragma unroll
-    for (int kp = 0; kp < D / 32; ++kp) {  // two 16-deep k-steps per ldmatrix
-      uint32_t kb[4];
-      ldmatrix_x4<false>(kb, kl + 8 * j * (D + kBPad) + 32 * kp);
-      mma_bf16(s[j], qa[2 * kp], kb[0], kb[1]);
-      mma_bf16(s[j], qa[2 * kp + 1], kb[2], kb[3]);
-    }
+    mma_abt8<D>(s[j], qa, ks + 8 * j * (D + kBPad));
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int row = row_lo + (e >> 1) * 8, col = k0 + 8 * j + 2 * t + (e & 1);
-      s[j][e] = unmasked || keep(row, col, n, block_size) ? s[j][e] * scale
-                                                          : -INFINITY;
+      const int col = k0 + 8 * j + 2 * t + (e & 1);
+      s[j][e] = unmasked || (e >> 1 ? hi : lo).has(col) ? s[j][e] * scale
+                                                         : -INFINITY;
     }
   }
 }
@@ -226,7 +107,7 @@ constexpr size_t smem_bytes_bf16() {  // K and V, two buffers each
 }
 
 // grid (ceil(n / kRows16), heads, batch), 32 * kWarps16 threads,
-// smem_bytes_bf16<D>() of dynamic shared memory.
+// smem_bytes_bf16<D>() of dynamic shared memory. stats may be null.
 //
 // The block walks 2T tile jobs, T = ceil(n / kKTile): K tiles 0 .. T-1
 // (pass 1), then K and V tiles 0 .. T-1 (pass 2). Job i + 1's copies are in
@@ -236,7 +117,8 @@ __global__ void __launch_bounds__(32 * kWarps16)
     attention_nhd_fwd_bf16_kernel(const bf16* __restrict__ q,
                                   const bf16* __restrict__ k,
                                   const bf16* __restrict__ v, bf16* __restrict__ o,
-                                  int n, int heads, float scale, int block_size) {
+                                  float2* __restrict__ stats, int n, int heads,
+                                  float scale, int block_size) {
   static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
   constexpr int kTileElems = kKTile * (D + kBPad);
   extern __shared__ uint4 smem_bf16[];
@@ -253,6 +135,9 @@ __global__ void __launch_bounds__(32 * kWarps16)
   // A warp whose 16 rows all lie past n only helps load the tiles.
   const bool active = blockIdx.x * kRows16 + 16 * warp < n;
   const int tiles = (n + kKTile - 1) / kKTile;
+  const Span span_lo = key_span(row_lo, n, block_size);
+  const Span span_hi = key_span(row_hi, n, block_size);
+  const Span warp_keys = warp_key_span(blockIdx.x * kRows16 + 16 * warp, n, block_size);
 
   // job j's copies into buffer j & 1, committed as one group
   auto start_copies = [&](int job) {
@@ -265,17 +150,7 @@ __global__ void __launch_bounds__(32 * kWarps16)
 
   // This warp's Q rows as mma A fragments, loaded once; rows past n are 0.
   uint32_t qa[D / 16][4];
-  {
-    const bf16* qlo = q + base + (size_t)row_lo * hd + 2 * t;
-    const bf16* qhi = q + base + (size_t)row_hi * hd + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qa[kk][0] = row_lo < n ? ld32(qlo + 16 * kk) : 0u;
-      qa[kk][1] = row_hi < n ? ld32(qhi + 16 * kk) : 0u;
-      qa[kk][2] = row_lo < n ? ld32(qlo + 16 * kk + 8) : 0u;
-      qa[kk][3] = row_hi < n ? ld32(qhi + 16 * kk + 8) : 0u;
-    }
-  }
+  load_a_frags<D>(qa, q + base, row_lo, n, hd);
 
   // Pass 1: row max and row sum over all key tiles. Each lane keeps the sum
   // of its own columns, rescaled whenever the (quad-wide) row max grows.
@@ -287,8 +162,8 @@ __global__ void __launch_bounds__(32 * kWarps16)
     __syncthreads();
     const int k0 = job * kKTile;
     if (active) {
-      score_tile<D>(s, qa, ks + (job & 1) * kTileElems, k0, row_lo, n, scale,
-                    block_size);
+      score_tile<D>(s, qa, ks + (job & 1) * kTileElems, k0, span_lo, span_hi,
+                    warp_keys, n, scale, block_size);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         float tile_max = -INFINITY;
@@ -301,7 +176,7 @@ __global__ void __launch_bounds__(32 * kWarps16)
         float sum = 0.f;
 #pragma unroll
         for (int j = 0; j < kKTile / 8; ++j)
-          if (k0 + 8 * j < n)
+          if (warp_keys.meets(k0 + 8 * j, 8))
             sum += exp2_approx(fmaf(s[j][2 * half], kLog2e, -ml)) +
                    exp2_approx(fmaf(s[j][2 * half + 1], kLog2e, -ml));
         l[half] = l[half] * exp2_approx((m[half] - m_new) * kLog2e) + sum;
@@ -313,12 +188,18 @@ __global__ void __launch_bounds__(32 * kWarps16)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     l[half] = 1.f / quad_sum(l[half]);  // from here on, the reciprocal
-    m[half] *= kLog2e;                  // ... and the max times log2 e
     if (m[half] == -INFINITY) {  // a padded row with nothing kept: p = 0
       m[half] = 0.f;
       l[half] = 1.f;
     }
   }
+  if (stats != nullptr && active && t == 0) {
+    const size_t srow = ((size_t)b * heads + h) * round_up(n, kKTile);
+    if (row_lo < n) stats[srow + row_lo] = make_float2(m[0], l[0]);
+    if (row_hi < n) stats[srow + row_hi] = make_float2(m[1], l[1]);
+  }
+  m[0] *= kLog2e;  // from here on, the max times log2 e
+  m[1] *= kLog2e;
 
   // Pass 2: the same scores again, p = exp(s - m) * (1 / l) rounded to bf16
   // in registers, then o += p . v with V's fragments from ldmatrix.trans.
@@ -336,11 +217,12 @@ __global__ void __launch_bounds__(32 * kWarps16)
     const int k0 = (job - tiles) * kKTile;
     if (active) {
       const bf16* vt = vs + (job & 1) * kTileElems;
-      score_tile<D>(s, qa, ks + (job & 1) * kTileElems, k0, row_lo, n, scale,
-                    block_size);
+      score_tile<D>(s, qa, ks + (job & 1) * kTileElems, k0, span_lo, span_hi,
+                    warp_keys, n, scale, block_size);
 #pragma unroll
       for (int kk = 0; kk < kKTile / 16; ++kk) {  // 16 keys: score tiles 2kk, 2kk+1
-        if (k0 + 16 * kk >= n) break;  // uniform across the warp
+        // p is exactly 0 outside the warp's key span: no product to add
+        if (!warp_keys.meets(k0 + 16 * kk, 16)) continue;  // uniform
         uint32_t pa[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -349,56 +231,21 @@ __global__ void __launch_bounds__(32 * kWarps16)
           pa[e] = pack_bf16(exp2_approx(fmaf(sj[2 * half], kLog2e, -m[half])) * l[half],
                             exp2_approx(fmaf(sj[2 * half + 1], kLog2e, -m[half])) * l[half]);
         }
-        // lane -> row address of one of the four 8x8 matrices: keys
-        // 16kk + (lane & 7) + 8 * (matrix & 1), columns 8 * (matrix >> 1)
-        const int mat = lane >> 3;
-        const bf16* vrow =
-            vt + (16 * kk + (lane & 7) + 8 * (mat & 1)) * (D + kBPad) + 8 * (mat >> 1);
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          uint32_t vb[4];
-          ldmatrix_x4<true>(vb, vrow + 16 * dp);
-          mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
-          mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
-        }
+        mma_ab16<D>(acc, pa, vt + 16 * kk * (D + kBPad));
       }
     }
     __syncthreads();  // buffer job & 1 is free for job + 2
   }
 
-  bf16* olo = o + base + (size_t)row_lo * hd + 2 * t;
-  bf16* ohi = o + base + (size_t)row_hi * hd + 2 * t;
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    if (row_lo < n)
-      *reinterpret_cast<uint32_t*>(olo + 8 * dn) = pack_bf16(acc[dn][0], acc[dn][1]);
-    if (row_hi < n)
-      *reinterpret_cast<uint32_t*>(ohi + 8 * dn) = pack_bf16(acc[dn][2], acc[dn][3]);
-  }
+  store_rows_bf16<D>(o + base, acc, row_lo, n, hd);
 }
 
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kQTile = 32;     // query rows per block
-constexpr int kPad = 4;        // row padding in floats: keeps float4 alignment
-                               // and puts neighbouring rows 4 banks apart
+constexpr int kQTile = 32;  // query rows per block
 
 static_assert(kThreads == kQTile * 8, "8 threads per query row");
-
-// Rows [row0, row0 + rows) of one head into a padded shared tile. Rows at
-// or past n are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* __restrict__ src,
-                                              int row0, int rows, int n,
-                                              int row_stride) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int g = row0 + r;
-    dst[r * (D + kPad) + c] = g < n ? src[(size_t)g * row_stride + c] : 0.f;
-  }
-}
 
 template <int D>
 size_t smem_bytes_f32(int n) {
@@ -406,13 +253,14 @@ size_t smem_bytes_f32(int n) {
                           (size_t)kQTile * (round_up(n, kKTile) + kPad));
 }
 
-// grid (ceil(n / kQTile), heads, batch), kThreads threads.
+// grid (ceil(n / kQTile), heads, batch), kThreads threads. stats may be null.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     attention_nhd_fwd_f32_kernel(const float* __restrict__ q,
                                  const float* __restrict__ k,
                                  const float* __restrict__ v, float* __restrict__ o,
-                                 int n, int heads, float scale, int block_size) {
+                                 float2* __restrict__ stats, int n, int heads,
+                                 float scale, int block_size) {
   static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -430,36 +278,23 @@ __global__ void __launch_bounds__(kThreads)
   const int r = t >> 3;    // this thread's query row in the tile
   const int sub = t & 7;   // its lane among the row's 8 threads
   const int i = q0 + r;    // global query index
+  const Span span = key_span(i, n, block_size);
 
   load_tile_f32<D>(qs, q + base, q0, kQTile, n, hd);
 
   // Pass 1: scores. Thread (r, sub) owns columns sub + 8j of each key tile;
   // the 8 key rows a quarter-warp reads are 4 banks apart (no conflicts).
-  const float4* qrow = reinterpret_cast<const float4*>(qs + r * (D + kPad));
+  const float* qrow = qs + r * (D + kPad);
   for (int k0 = 0; k0 < n_keys; k0 += kKTile) {
     __syncthreads();  // the Q tile is in; the previous K tile is consumed
     load_tile_f32<D>(kv, k + base, k0, kKTile, n, hd);
     __syncthreads();
     float acc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-#pragma unroll 4
-    for (int d4 = 0; d4 < D / 4; ++d4) {
-      const float4 a = qrow[d4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 kk =
-            reinterpret_cast<const float4*>(kv + (sub + 8 * j) * (D + kPad))[d4];
-        acc[j] = fmaf(a.x, kk.x, acc[j]);
-        acc[j] = fmaf(a.y, kk.y, acc[j]);
-        acc[j] = fmaf(a.z, kk.z, acc[j]);
-        acc[j] = fmaf(a.w, kk.w, acc[j]);
-      }
-    }
+    dot8_f32<D>(acc, qrow, kv, sub);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = k0 + sub + 8 * j;
-      s[r * s_stride + col] = keep(i, col, n, block_size) ? acc[j] * scale : -INFINITY;
+      s[r * s_stride + col] = span.has(col) ? acc[j] * scale : -INFINITY;
     }
   }
   __syncthreads();
@@ -485,6 +320,8 @@ __global__ void __launch_bounds__(kThreads)
       }
       l = warp_sum(l);
       for (int c = lane; c < n_keys; c += 32) sr[c] /= l;
+      if (stats != nullptr && lane == 0)
+        stats[((size_t)b * heads + h) * n_keys + q0 + row] = make_float2(m, 1.f / l);
     }
   }
 
@@ -525,8 +362,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int batch, int n, int heads, int is_bf16, float scale,
-                   int block_size, cudaStream_t stream) {
+                   void* stats, int batch, int n, int heads, int is_bf16,
+                   float scale, int block_size, cudaStream_t stream) {
+  float2* st = static_cast<float2*>(stats);
   if (is_bf16) {
     constexpr size_t smem = smem_bytes_bf16<D>();
     auto kernel = attention_nhd_fwd_bf16_kernel<D>;
@@ -536,7 +374,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     const dim3 grid((n + kRows16 - 1) / kRows16, heads, batch);
     kernel<<<grid, 32 * kWarps16, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), n, heads, scale,
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), st, n, heads, scale,
         block_size);
     return cudaGetLastError();
   }
@@ -548,9 +386,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((n + kQTile - 1) / kQTile, heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), n, heads, scale,
+      static_cast<const float*>(v), static_cast<float*>(o), st, n, heads, scale,
       block_size);
   return cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, void* stats,
+             int batch, int n, int heads, int head_dim, int is_bf16, float scale,
+             int block_size, void* stream) {
+  if (n < 1 || n > kMaxSeq || batch < 1 || heads < 1 || block_size < 0 ||
+      batch > 65535 || heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32:
+      return (int)launch<32>(q, k, v, o, stats, batch, n, heads, is_bf16, scale, block_size, s);
+    case 64:
+      return (int)launch<64>(q, k, v, o, stats, batch, n, heads, is_bf16, scale, block_size, s);
+    case 128:
+      return (int)launch<128>(q, k, v, o, stats, batch, n, heads, is_bf16, scale, block_size, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -563,18 +420,19 @@ extern "C" int attention_nhd_fwd(const void* q, const void* k, const void* v,
                                  void* o, int batch, int n, int heads,
                                  int head_dim, int is_bf16, float scale,
                                  int block_size, void* stream) {
-  if (n < 1 || n > kMaxSeq || batch < 1 || heads < 1 || block_size < 0 ||
-      batch > 65535 || heads > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return (int)launch<32>(q, k, v, o, batch, n, heads, is_bf16, scale, block_size, s);
-    case 64:
-      return (int)launch<64>(q, k, v, o, batch, n, heads, is_bf16, scale, block_size, s);
-    case 128:
-      return (int)launch<128>(q, k, v, o, batch, n, heads, is_bf16, scale, block_size, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (o == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, o, nullptr, batch, n, heads, head_dim, is_bf16, scale,
+                  block_size, stream);
+}
+
+// The training forward: attention_nhd_fwd's output, bit for bit, and the
+// softmax statistics. stats: fp32 (batch, heads, round_up(n, 64), 2),
+// zero-filled by the caller; rows < n get (row max, 1 / row sum).
+extern "C" int attention_nhd_fwd_stats(const void* q, const void* k, const void* v,
+                                       void* o, void* stats, int batch, int n,
+                                       int heads, int head_dim, int is_bf16,
+                                       float scale, int block_size, void* stream) {
+  if (o == nullptr || stats == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, o, stats, batch, n, heads, head_dim, is_bf16, scale,
+                  block_size, stream);
 }

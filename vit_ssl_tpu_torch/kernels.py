@@ -1,12 +1,14 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. It is
-compiled with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>.so`` at first
-use (or by :func:`build` for several at once, one ``nvcc`` each, all
-started together) and loaded with :mod:`ctypes`. Nothing is built or
+Each kernel library is one ``csrc/<name>.cu`` with a plain C interface
+(it may include shared ``csrc/*.cuh`` headers). It is compiled with
+``nvcc`` for ``sm_90a`` into ``_build/lib<name>.so`` at first use (or by
+:func:`build` for several at once, one ``nvcc`` each, all started
+together) and loaded with :mod:`ctypes`; a library older than its source
+or any header it includes is rebuilt. Nothing is built or
 loaded when this module is imported, so the CPU tests import it freely.
 
-``launches`` counts, per kernel name, the launches the wrappers made. Each
+``launches`` counts, per C entry point, the launches the wrappers made. Each
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that a path really went through the kernels.
 """
@@ -16,11 +18,12 @@ from __future__ import annotations
 import collections
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -29,6 +32,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # kernel name -> source, relative to the package
 SOURCES: Dict[str, str] = {
     "attention_nhd_fwd": "csrc/attention_nhd_fwd.cu",
+    "attention_nhd_bwd": "csrc/attention_nhd_bwd.cu",
 }
 
 NVCC_FLAGS = [
@@ -64,10 +68,27 @@ def log_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.log"
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> List[Path]:
+    """The kernel's source and every local header it includes, directly or
+    through another header (``#include "..."``, resolved beside the file)."""
+    files, todo = [], [PACKAGE_DIR / SOURCES[name]]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        todo.extend(path.parent / inc for inc in _INCLUDE.findall(path.read_text()))
+    return files
+
+
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any header."""
     lib = library_path(name)
-    src = PACKAGE_DIR / SOURCES[name]
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    return not lib.exists() or any(lib.stat().st_mtime < f.stat().st_mtime
+                                   for f in source_files(name))
 
 
 def build(names: Iterable[str] = None) -> Dict[str, float]:

@@ -4,10 +4,11 @@ Conv(k = stride = patch) tokenizer ``proj`` + learnable ``cls_token`` +
 learnable ``positional_embedding`` of length (H/p)²+1. Images come in NHWC,
 the JAX package's layout, and are permuted to NCHW for the convolution.
 
-The serving path resizes images to ``img_size`` first, so the patch grid
-always equals the stored one. A different grid (DINO's 48 px local crops)
-needs the a=−0.5 antialiased bicubic resize of the positional embedding,
-which comes with the training slice; until then it raises.
+A patch grid other than the stored one (DINO's 48 px local crops: 6×6
+against 12×12) resizes the positional embedding as the JAX package does,
+``jax.image.resize(..., "bicubic")``: Keys' cubic with a = −0.5,
+antialiased when it downsamples (:mod:`.resample`), in fp32 on the fp32
+parameter, cast to ``dtype`` with the rest of the embedding.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .resample import resize_hw
 
 
 def _check_divisible(h: int, w: int, patch_size: int) -> None:
@@ -53,13 +56,6 @@ class DynamicPatchEmbed(nn.Module):
         b, h, w, _ = x.shape
         _check_divisible(h, w, self.patch_size)
         gh, gw = h // self.patch_size, w // self.patch_size
-        if (gh, gw) != self.grid:
-            raise ValueError(
-                f"patch grid {gh}x{gw} differs from the stored "
-                f"{self.grid[0]}x{self.grid[1]}; resizing the positional "
-                "embedding is not ported yet — resize the images to the "
-                "model's img_size"
-            )
         dt = self.dtype
         tokens = F.conv2d(
             x.to(dt).permute(0, 3, 1, 2), self.proj.weight.to(dt),
@@ -68,4 +64,16 @@ class DynamicPatchEmbed(nn.Module):
         tokens = tokens.flatten(2).transpose(1, 2)  # (B, gh·gw, D)
         cls = self.cls_token.to(dt).expand(b, 1, self.embed_dim)
         tokens = torch.cat([cls, tokens], dim=1)
-        return tokens + self.positional_embedding.to(dt)
+        return tokens + self.interpolate_pos_encoding(gh, gw).to(dt)
+
+    def interpolate_pos_encoding(self, gh: int, gw: int):
+        """The positional embedding for a gh×gw patch grid (JAX's
+        ``_interpolate_pos_encoding``, ``ops/patch_embedding.py:216-226``):
+        the stored one when the grid is square with the stored patch count,
+        else its patch part resized bicubically; the CLS entry is kept."""
+        pe = self.positional_embedding
+        if gh * gw == self.grid[0] * self.grid[1] and gh == gw:
+            return pe
+        patch = pe[:, 1:].reshape(1, self.grid[0], self.grid[1], self.embed_dim)
+        patch = resize_hw(patch, gh, gw, "cubic").reshape(1, gh * gw, self.embed_dim)
+        return torch.cat([pe[:, :1], patch], dim=1)
