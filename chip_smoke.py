@@ -12,21 +12,31 @@ Phases, each printing its own lines; any failure exits non-zero:
               all at once; prints registers and spills
 3. kernels  — kernel B1 against its plain PyTorch versions on the card:
               the inference forward, the training forward (output and
-              softmax statistics) and the backward (dq, dk, dv)
+              softmax statistics) and the backward (dq, dk, dv); kernel B4
+              (fused MLP): its three forwards (no mask; keep-mask; keep-mask
+              and saved pre) and its backward (with and without the mask)
+              at every token count of the main paths, bf16 and fp32
 4. serving  — a DINO ViT-S/8 ``Server`` at batch 128 through its
               ``forward_batch`` entry point: launch counts, agreement with
               the plain attention path, padding rows inert
 5. serving times — warm batch, kernel, plain and library times (CUDA
               events), and a ``torch.profiler`` breakdown of five batches
-6. training — DINO ViT-S/8 ``train_step`` at full width and depth, batch
+6. fused serving — the same weights with ``model.use_fused_mlp=true``:
+              B4 and B1 launch counts, agreement with the unfused server,
+              warm batch
+7. training — DINO ViT-S/8 ``train_step`` at full width and depth, batch
               128 (2 globals of 96 px, 4 packed locals of 48 px), views made
               on the card from uint8 images: launch counts per step,
               finite losses, moving state, agreement with the plain
               attention path from one cloned state
-7. training times — warm step, kernel/plain/library times at the two
+8. training times — warm step, kernel/plain/library times at the two
               training shapes, and a ``torch.profiler`` breakdown of three
               steps
-8. a JSON line describing every kernel, then the JSON ``ok`` line last.
+9. fused training — the same step with ``model.use_fused_mlp=true``:
+              B4 and B1 launch counts per step, agreement with the unfused
+              step from one cloned state, warm step, a profile of three
+              steps, and B4's kernel/plain/unfused-chain times
+10. a JSON line describing every kernel, then the JSON ``ok`` line last.
 
 Imports neither JAX nor the JAX package, and needs no PIL, OpenCV or YAML.
 """
@@ -144,6 +154,19 @@ TRAIN_CASES = [
 GRAD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 STATS_REL_TOL = 1e-5
 
+# Kernel B4 (fused MLP) at the token counts of the main paths: the student
+# globals and the teacher (256 x 145), the packed locals (128 x 148), a
+# served batch (128 x 145) and a short one (37 x 145); then T = 1 and a
+# ragged T
+MLP_ROWS = [37120, 18944, 18560, 5365, 1, 70]
+MLP_DIMS = (384, 1536)  # d_model, d_ff of DINO ViT-S/8
+KEEP_PROB = 0.9  # 1 - model.dropout
+# outputs and gradients: max |kernel - plain| over max |plain|. bf16: h and
+# dpre round to bf16 on both sides and may land on either side of a tie;
+# fp32: sums in another order
+MLP_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+MLP_GRADS = ("dx", "dw1", "db1", "dw2", "db2")  # fused_mlp_bwd's outputs
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -203,6 +226,50 @@ def attention_train_bounds(b, n, h, d, dtype, block_size):
     product = 2 * b * h * n * keys * d
     return {"fwd": _bound(4 * act + stats, 2 * product, dtype),
             "bwd": _bound(7 * act + stats, 5 * product, dtype)}
+
+
+def mlp_bounds(t, d, d_ff, dtype, mask=True, pre=True):
+    """{"fwd": (ms, by), "bwd": (ms, by)} of kernel B4 over t tokens. The
+    forward reads x, the weights and biases and (with dropout) the 1-byte
+    keep-mask, and writes out and (training) pre: two products. The
+    backward reads x, do, pre, the weights and the mask, and writes dx and
+    the four weight and bias gradients: four products."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    weights = 2 * d * d_ff + d_ff + d
+    mask_bytes = t * d_ff if mask else 0
+    fwd_bytes = (2 * t * d + weights + (t * d_ff if pre else 0)) * itemsize
+    bwd_bytes = (3 * t * d + t * d_ff + 2 * d * d_ff + weights) * itemsize
+    return {"fwd": _bound(fwd_bytes + mask_bytes, 4 * t * d * d_ff, dtype),
+            "bwd": _bound(bwd_bytes + mask_bytes, 8 * t * d * d_ff, dtype)}
+
+
+def mlp_inputs(torch, t, dtype, seed):
+    """x (LayerNorm-like), nn.Linear-initialised weights in the nn.Linear
+    layout, a dropout16 keep-mask at rate 0.1 and an upstream gradient."""
+    d, d_ff = MLP_DIMS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def uniform(*shape, fan_in):
+        return ((torch.rand(*shape, generator=g, device="cuda") * 2 - 1)
+                / fan_in ** 0.5).to(dtype)
+
+    x = torch.randn(t, d, generator=g, device="cuda").to(dtype)
+    w1, b1 = uniform(d_ff, d, fan_in=d), uniform(d_ff, fan_in=d)
+    w2, b2 = uniform(d, d_ff, fan_in=d_ff), uniform(d, fan_in=d_ff)
+    mask = torch.randint(0, 65536, (t, d_ff), generator=g, device="cuda") >= 6554
+    do = torch.randn(t, d, generator=g, device="cuda").to(dtype)
+    return x, w1, b1, w2, b2, mask, do
+
+
+def unfused_ffn(torch, x, w1, b1, w2, b2, mask, keep_prob):
+    """The port's unfused FFN chain (``use_fused_mlp=false``) given the
+    keep-mask: F.linear → GELU → dropout16's where/divide → F.linear."""
+    import torch.nn.functional as F
+
+    h = F.gelu(F.linear(x, w1, b1))
+    if mask is not None:
+        h = torch.where(mask, h / keep_prob, h.new_zeros(()))
+    return F.linear(h, w2, b2)
 
 
 def qkv(b, n, h, d, dtype, seed):
@@ -279,6 +346,62 @@ def phase_kernels(torch, fa):
     return errors
 
 
+def max_abs(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_mlp_kernels(torch, fm):
+    """Kernel B4 against its plain versions: per token count and dtype,
+    the forward without a mask (serving), with the keep-mask (the teacher),
+    with the mask and pre saved (the student; its output must equal the
+    masked forward's bit for bit), and the backward with and without the
+    mask (from the plain forward's pre). Returns, per (T, dtype), the max
+    abs errors of each entry point."""
+    print("== kernels: fused_mlp_fwd, fused_mlp_fwd_pre and fused_mlp_bwd "
+          "against fused_mlp_reference and fused_mlp_bwd_reference", flush=True)
+    errors = {}
+    for dtype_name in ("bfloat16", "float32"):
+        tol = MLP_REL_TOL[dtype_name]
+        for idx, t in enumerate(MLP_ROWS):
+            x, w1, b1, w2, b2, mask, do = mlp_inputs(
+                torch, t, getattr(torch, dtype_name), seed=400 + idx)
+            plain = fm.fused_mlp_reference(x, w1, b1, w2, b2)
+            want, want_pre = fm.fused_mlp_reference(x, w1, b1, w2, b2, mask,
+                                                    KEEP_PROB, save_pre=True)
+            out = fm.fused_mlp_fwd(x, w1, b1, w2, b2)
+            out_mask = fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, KEEP_PROB)
+            out_pre, pre = fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, KEEP_PROB,
+                                            save_pre=True)
+            rel = {"fwd": rel_err(out, plain), "fwd mask": rel_err(out_mask, want),
+                   "pre": rel_err(pre, want_pre)}
+            outs = [out, out_mask, out_pre]
+            for m, label in ((mask, "bwd mask"), (None, "bwd")):
+                got = fm.fused_mlp_bwd(x, want_pre, do, w1, w2, m, KEEP_PROB)
+                ref = fm.fused_mlp_bwd_reference(x, want_pre, do, w1, w2, m, KEEP_PROB)
+                for name, g, r in zip(MLP_GRADS, got, ref):
+                    rel[f"{label} {name}"] = rel_err(g, r)
+                outs.extend(got)
+                if m is not None:
+                    bwd_abs = {name: max_abs(g, r)
+                               for name, g, r in zip(MLP_GRADS, got, ref)}
+            torch.cuda.synchronize()
+            same = torch.equal(out_pre, out_mask)
+            finite = all(bool(torch.isfinite(o).all()) for o in outs)
+            ok = same and finite and max(rel.values()) <= tol
+            print(f"  T={t} {dtype_name}: rel_err " + ", ".join(
+                f"{k} {v:.3e}" for k, v in rel.items())
+                + f" (each <= {tol:g} of its max|ref|); fwd_pre output "
+                f"{'bit-equal to' if same else 'DIFFERS from'} fwd's "
+                f"{'ok' if ok else 'MISS'}", flush=True)
+            if not ok:
+                fail(f"fused MLP kernels disagree at T={t} {dtype_name}")
+            errors[(t, dtype_name)] = {
+                "fwd": max_abs(out, plain), "fwd_pre": max_abs(out_pre, want),
+                "bwd_abs": bwd_abs,
+                "bwd_rel": {name: rel[f"bwd mask {name}"] for name in MLP_GRADS}}
+    return errors
+
+
 @contextlib.contextmanager
 def plain_attention():
     """Route the model's attention through the plain PyTorch versions,
@@ -314,21 +437,70 @@ def no_plain_attention(fa):
             setattr(fa, name, fn)
 
 
-def phase_serving(torch, fa, tmp):
-    from vit_ssl_tpu_torch import kernels
-    from vit_ssl_tpu_torch.models import build_backbone
-    from vit_ssl_tpu_torch.serve import Server
+@contextlib.contextmanager
+def no_plain_mlp(fm):
+    """Make any call of a plain fused-MLP version fail."""
+    names = ("fused_mlp_reference", "fused_mlp_bwd_reference")
+    saved = {name: getattr(fm, name) for name in names}
 
-    print("== serving: DINO ViT-S/8, batch 128, img 96 (N=145), bf16", flush=True)
-    teacher = build_backbone(DINO_VIT_S8, "cpu").reset_parameters(
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain fused-MLP version ran on the main path")
+
+    for name in names:
+        setattr(fm, name, refuse)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(fm, name, fn)
+
+
+def fused_config():
+    """DINO ViT-S/8 with ``model.use_fused_mlp=true``."""
+    cfg = copy.deepcopy(DINO_VIT_S8)
+    cfg["model"]["use_fused_mlp"] = True
+    return cfg
+
+
+def write_checkpoint(torch, cfg, path):
+    """A ``.pth`` as ``scripts/export_torch.py`` writes it: teacher and
+    student backbones (seeds 0 and 1, so every call gives the same weights)
+    and the config."""
+    from vit_ssl_tpu_torch.models import build_backbone
+
+    teacher = build_backbone(cfg, "cpu").reset_parameters(
         torch.Generator().manual_seed(0))
-    student = build_backbone(DINO_VIT_S8, "cpu").reset_parameters(
+    student = build_backbone(cfg, "cpu").reset_parameters(
         torch.Generator().manual_seed(1))
     state = {f"teacher_backbone.{k}": v for k, v in teacher.state_dict().items()}
     state.update({f"student_backbone.{k}": v
                   for k, v in student.state_dict().items()})
+    torch.save({"model_state_dict": state, "config": cfg, "epoch": 0}, path)
+    return teacher
+
+
+def warm_batch_ms(server, x) -> float:
+    """Median host-clock ms of 10 ``forward_batch`` calls (host copies
+    included)."""
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        server.forward_batch(x)
+        host.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(host))
+
+
+def row_cosine(a, b):
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def phase_serving(torch, fa, tmp):
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.serve import Server
+
+    print("== serving: DINO ViT-S/8, batch 128, img 96 (N=145), bf16", flush=True)
     pth = f"{tmp}/dino_vit_s8.pth"
-    torch.save({"model_state_dict": state, "config": DINO_VIT_S8, "epoch": 0}, pth)
+    teacher = write_checkpoint(torch, DINO_VIT_S8, pth)
 
     server = Server(pth, batch_size=SERVE_BATCH, device="cuda")
     img = DINO_VIT_S8["data"]["img_size"]
@@ -361,7 +533,7 @@ def phase_serving(torch, fa, tmp):
         ref = ref_model(torch.from_numpy(x).cuda()).float().cpu().numpy()
     if dict(kernels.launches) != main_launches:
         fail("the plain-attention reference run launched a kernel")
-    cos = (out * ref).sum(1) / (np.linalg.norm(out, axis=1) * np.linalg.norm(ref, axis=1))
+    cos = row_cosine(out, ref)
     max_err = float(np.abs(out - ref).max())
     limit = 2e-2 * float(np.abs(ref).max())
     print(f"  against plain attention on the card: min row cosine "
@@ -369,7 +541,41 @@ def phase_serving(torch, fa, tmp):
           f"(<= {limit:.3e})", flush=True)
     if cos.min() < 0.999 or max_err > limit:
         fail("serving embeddings disagree with the plain attention path")
-    return server, x, main_launches
+    return server, x, out, main_launches
+
+
+def phase_serving_fused(torch, fa, fm, tmp, x, unfused_out, card):
+    """The serving path with ``model.use_fused_mlp=true`` on the weights of
+    :func:`phase_serving`: 6 B4 and 6 B1 forwards a batch, and embeddings
+    within row cosine 0.999 of the unfused server's."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.serve import Server
+
+    print("== fused serving: DINO ViT-S/8 with model.use_fused_mlp=true, batch "
+          f"{SERVE_BATCH}, bf16", flush=True)
+    pth = f"{tmp}/dino_vit_s8_fused.pth"
+    write_checkpoint(torch, fused_config(), pth)
+    server = Server(pth, batch_size=SERVE_BATCH, device="cuda")
+    with no_plain_attention(fa), no_plain_mlp(fm):
+        kernels.launches.clear()  # the fused serving path's run starts here
+        out = server.forward_batch(x)
+        main_launches = dict(kernels.launches)  # ... and ends here
+    blocks = DINO_VIT_S8["model"]["num_blocks"]
+    want = {fa.KERNEL: blocks, fm.KERNEL: blocks}
+    print(f"  launches: {main_launches} (expected {want})", flush=True)
+    if main_launches != want:
+        fail(f"a fused served batch launched {main_launches}, expected {want}")
+    cos = row_cosine(out, unfused_out)
+    max_err = float(np.abs(out - unfused_out).max())
+    print(f"  against the unfused server on the same weights: min row cosine "
+          f"{cos.min():.6f} (>= 0.999), max_abs_diff {max_err:.3e}", flush=True)
+    if not np.isfinite(out).all() or cos.min() < 0.999:
+        fail("fused serving embeddings disagree with the unfused server")
+    warm_ms = warm_batch_ms(server, x)
+    print(f"  fused serving on {card}: warm batch {warm_ms:.3f} ms median of 10 "
+          f"({SERVE_BATCH / warm_ms * 1e3:.1f} img/s), host clock incl. H2D/D2H",
+          flush=True)
+    return main_launches
 
 
 def profile_window(torch, fn, label, rows=14):
@@ -399,12 +605,7 @@ def phase_serving_times(torch, fa, server, x, card):
     import torch.nn.functional as F
 
     print(f"== serving times on {card}", flush=True)
-    host = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        server.forward_batch(x)
-        host.append(time.perf_counter() - t0)
-    warm_ms = 1e3 * float(np.median(host))
+    warm_ms = warm_batch_ms(server, x)
     print(f"  serving: warm batch {warm_ms:.3f} ms median of 10 "
           f"({SERVE_BATCH / warm_ms * 1e3:.1f} img/s), host clock incl. "
           f"H2D/D2H; start-up warm batch {server.warm_s * 1e3:.3f} ms",
@@ -444,7 +645,7 @@ def phase_serving_times(torch, fa, server, x, card):
             "library_ms": library_ms}
 
 
-def build_training(torch):
+def build_training(torch, cfg=DINO_VIT_S8):
     """DINO ViT-S/8's train state on the card (student seeded, teacher its
     copy, center 0), its train_step and a batch of 128 uint8 images."""
     from vit_ssl_tpu_torch.data.device_augment import make_multicrop_fn
@@ -452,7 +653,6 @@ def build_training(torch):
     from vit_ssl_tpu_torch.train import (
         AdamW, TrainState, lr_schedule_from_config, make_dino_steps)
 
-    cfg = DINO_VIT_S8
     train, model = cfg["training"], cfg["model"]
     student = build_dino_network(cfg, "cpu").reset_parameters(
         torch.Generator().manual_seed(2)).to("cuda")
@@ -490,27 +690,25 @@ def schedule_values():
                                      t["teacher_momentum_final"], t["num_epochs"]))
 
 
-def phase_training(torch, fa):
+def train_leg(torch, cfg, per_step, guards):
+    """Build the step for ``cfg``, take two warm-up steps, then
+    TIMED_STEPS steps under ``guards`` (no plain kernel version may run),
+    each launching exactly ``per_step``; losses finite, student, teacher
+    and center moved. Returns (state, train_step, batch, launches, warm
+    step ms)."""
     from vit_ssl_tpu_torch import kernels
 
-    t = DINO_VIT_S8["training"]
-    print(f"== training: DINO ViT-S/8 train_step, batch {t['batch_size']}, "
-          f"{t['num_global_views']} globals of 96 px (N=145), "
-          f"{t['num_all_views'] - t['num_global_views']} packed locals of 48 px "
-          f"(N=148, block 37), dropout 0.1, teacher dropout on, output_dim "
-          f"16384, bf16, full depth, device augmentation", flush=True)
-    state, train_step, batch = build_training(torch)
+    state, train_step, batch = build_training(torch, cfg)
     teacher_temp, teacher_momentum = schedule_values()
     before = {k: v.detach().clone() for k, v in state.model_state_dict().items()}
 
     for _ in range(2):  # warm-up steps
         out = train_step(state, batch, teacher_temp, teacher_momentum)
     torch.cuda.synchronize()
-    blocks = DINO_VIT_S8["model"]["num_blocks"]
-    per_step = {fa.KERNEL_TRAIN: 2 * blocks, fa.KERNEL: blocks,
-                fa.KERNEL_BWD: 2 * blocks}
     losses, host_ms = [float(out["loss"])], []
-    with no_plain_attention(fa):
+    with contextlib.ExitStack() as stack:
+        for guard in guards:
+            stack.enter_context(guard)
         kernels.launches.clear()  # the training path's run starts here
         for _ in range(TIMED_STEPS):
             counted = dict(kernels.launches)
@@ -539,9 +737,27 @@ def phase_training(torch, fa):
         print(f"  {prefix.rstrip('_')}: {len(moved)} tensors changed", flush=True)
         if not moved:
             fail(f"training left every {prefix}* tensor unchanged")
+    return state, train_step, batch, main_launches, float(np.median(host_ms))
 
-    agreement(torch, fa, state, train_step, batch, teacher_temp, teacher_momentum)
-    warm_ms = float(np.median(host_ms))
+
+def attention_launches(fa):
+    """B1's launches in one DINO ViT-S/8 training step: the student's
+    training forwards and backwards (globals, packed locals) and the
+    teacher's inference forwards."""
+    blocks = DINO_VIT_S8["model"]["num_blocks"]
+    return {fa.KERNEL_TRAIN: 2 * blocks, fa.KERNEL: blocks, fa.KERNEL_BWD: 2 * blocks}
+
+
+def phase_training(torch, fa):
+    t = DINO_VIT_S8["training"]
+    print(f"== training: DINO ViT-S/8 train_step, batch {t['batch_size']}, "
+          f"{t['num_global_views']} globals of 96 px (N=145), "
+          f"{t['num_all_views'] - t['num_global_views']} packed locals of 48 px "
+          f"(N=148, block 37), dropout 0.1, teacher dropout on, output_dim "
+          f"16384, bf16, full depth, device augmentation", flush=True)
+    state, train_step, batch, main_launches, warm_ms = train_leg(
+        torch, DINO_VIT_S8, attention_launches(fa), [no_plain_attention(fa)])
+    agreement(torch, fa, state, train_step, batch)
     return state, train_step, batch, main_launches, warm_ms
 
 
@@ -599,63 +815,96 @@ def exact_attention(torch):
         attention_mod.attention_nhd = kernel
 
 
-def agreement(torch, fa, state, train_step, batch, teacher_temp, teacher_momentum):
-    """One step through the kernels and one through the plain attention
-    (forward and backward), from one cloned state and the same generator
-    seeds, so the dropout masks and the views are the same.
-
-    The bars: |dloss| <= 1e-2 |loss|, the center within 1e-2 max|center|,
-    and every parameter's gradient cosine >= 0.99. One stated exception to
-    the last: a gradient that bf16 attention cannot resolve. The last
-    block's w_query gradient flows only through the CLS rows' softmax
-    backward; after a dozen steps from this init it is ~1e-8 in norm and
-    the plain bf16 path itself is at cosine ~0.95 from fp64 attention (this
-    script on an H100 80GB HBM3). So a parameter below 0.99 passes when the
-    kernel path is as close to an fp64 attention step as the plain path is
-    (cosine within 0.01)."""
-    from vit_ssl_tpu_torch import kernels
-
+def judge(torch, ref, got, want, exact, got_center, want_center, names=("kernel", "plain")):
+    """The bars of a step against a reference step (``ref`` names it) from
+    one cloned state and the same generator seeds, so the dropout masks and
+    the views are the same: |dloss| <= 1e-2 |loss|, the center within 1e-2
+    max|center|, and every parameter's gradient cosine >= 0.99. One stated
+    exception to the last: a gradient that bf16 attention cannot resolve.
+    The last block's w_query gradient flows only through the CLS rows'
+    softmax backward; after a dozen steps from this init it is ~1e-8 in
+    norm and the plain bf16 path itself is at cosine ~0.95 from fp64
+    attention (this script on an H100 80GB HBM3). So a parameter below 0.99
+    passes when the step is as close to an fp64 attention step (``exact``)
+    as the reference step is (cosine within 0.01)."""
     def cos(a, b):
         return float(torch.nn.functional.cosine_similarity(
             a.flatten().float(), b.flatten().float(), dim=0))
 
-    kernel_state, plain_state = copy.deepcopy(state), copy.deepcopy(state)
-    exact_state = copy.deepcopy(state)
-    got = train_step(kernel_state, batch, teacher_temp, teacher_momentum,
-                     with_grads=True)
-    counted = dict(kernels.launches)
-    with plain_attention():
-        want = train_step(plain_state, batch, teacher_temp, teacher_momentum,
-                          with_grads=True)
-    with exact_attention(torch):
-        exact = train_step(exact_state, batch, teacher_temp, teacher_momentum,
-                           with_grads=True)
-    torch.cuda.synchronize()
-    if dict(kernels.launches) != counted:
-        fail("the plain-attention step launched a kernel")
-    loss, ref = float(got["loss"]), float(want["loss"])
+    mine, theirs = names
+    loss, ref_loss = float(got["loss"]), float(want["loss"])
     cosines = {name: cos(g, want["grads"][name]) for name, g in got["grads"].items()}
     worst = min(cosines, key=cosines.get)
-    center_err = float((kernel_state.center - plain_state.center).abs().max())
-    center_tol = 1e-2 * float(plain_state.center.abs().max())
-    print(f"  against plain attention on the card: |dloss| {abs(loss - ref):.3e} "
-          f"(<= {1e-2 * abs(ref):.3e}, loss {ref:.6f}); min gradient cosine "
-          f"{cosines[worst]:.6f} at {worst} (>= 0.99) over {len(cosines)} "
+    center_err = float((got_center - want_center).abs().max())
+    center_tol = 1e-2 * float(want_center.abs().max())
+    print(f"  against {ref} on the card: |dloss| {abs(loss - ref_loss):.3e} "
+          f"(<= {1e-2 * abs(ref_loss):.3e}, loss {ref_loss:.6f}); min gradient "
+          f"cosine {cosines[worst]:.6f} at {worst} (>= 0.99) over {len(cosines)} "
           f"parameters; center max_abs_err {center_err:.3e} (<= {center_tol:.3e})",
           flush=True)
     missed = []
     for name in (n for n, c in cosines.items() if c < 0.99):
         to_exact = cos(got["grads"][name], exact["grads"][name])
-        plain_to_exact = cos(want["grads"][name], exact["grads"][name])
-        ok = to_exact >= plain_to_exact - 0.01
-        print(f"  {name}: cosine {cosines[name]:.6f} to plain; to fp64 attention "
-              f"kernel {to_exact:.6f}, plain {plain_to_exact:.6f} (kernel >= plain "
-              f"- 0.01) {'ok' if ok else 'MISS'}; |grad| "
+        ref_to_exact = cos(want["grads"][name], exact["grads"][name])
+        ok = to_exact >= ref_to_exact - 0.01
+        print(f"  {name}: cosine {cosines[name]:.6f} to {theirs}; to fp64 attention "
+              f"{mine} {to_exact:.6f}, {theirs} {ref_to_exact:.6f} ({mine} >= "
+              f"{theirs} - 0.01) {'ok' if ok else 'MISS'}; |grad| "
               f"{float(exact['grads'][name].norm()):.3e}", flush=True)
         if not ok:
             missed.append(name)
-    if abs(loss - ref) > 1e-2 * abs(ref) or center_err > center_tol or missed:
-        fail("the training step disagrees with the plain attention path")
+    if abs(loss - ref_loss) > 1e-2 * abs(ref_loss) or center_err > center_tol or missed:
+        fail(f"the training step disagrees with {ref}")
+
+
+def agreement(torch, fa, state, train_step, batch):
+    """One step through the kernels and one through the plain attention
+    (forward and backward), judged by :func:`judge`."""
+    from vit_ssl_tpu_torch import kernels
+
+    temps = schedule_values()
+    kernel_state, plain_state = copy.deepcopy(state), copy.deepcopy(state)
+    exact_state = copy.deepcopy(state)
+    got = train_step(kernel_state, batch, *temps, with_grads=True)
+    counted = dict(kernels.launches)
+    with plain_attention():
+        want = train_step(plain_state, batch, *temps, with_grads=True)
+    with exact_attention(torch):
+        exact = train_step(exact_state, batch, *temps, with_grads=True)
+    torch.cuda.synchronize()
+    if dict(kernels.launches) != counted:
+        fail("the plain-attention step launched a kernel")
+    judge(torch, "plain attention", got, want, exact, kernel_state.center,
+          plain_state.center)
+
+
+def set_fused(state, fused: bool):
+    """Switch every FFN of the student and the teacher between kernel B4
+    and the unfused chain (the parameters are the same)."""
+    from vit_ssl_tpu_torch.ops import FeedForwardBlock
+
+    for net in (state.student, state.teacher):
+        for module in net.modules():
+            if isinstance(module, FeedForwardBlock):
+                module.use_fused = fused
+
+
+def fused_agreement(torch, state, train_step, batch):
+    """One step with the fused FFN and one with the unfused FFN (B1 in
+    both), judged by :func:`judge`; the fp64 yardstick is the unfused step
+    with fp64 attention."""
+    temps = schedule_values()
+    fused_state, unfused_state = copy.deepcopy(state), copy.deepcopy(state)
+    exact_state = copy.deepcopy(state)
+    set_fused(unfused_state, False)
+    set_fused(exact_state, False)
+    got = train_step(fused_state, batch, *temps, with_grads=True)
+    want = train_step(unfused_state, batch, *temps, with_grads=True)
+    with exact_attention(torch):
+        exact = train_step(exact_state, batch, *temps, with_grads=True)
+    torch.cuda.synchronize()
+    judge(torch, "the unfused FFN", got, want, exact, fused_state.center,
+          unfused_state.center, names=("fused", "unfused"))
 
 
 def phase_training_times(torch, fa, state, train_step, batch, warm_ms, card):
@@ -688,16 +937,20 @@ def phase_training_times(torch, fa, state, train_step, batch, warm_ms, card):
                                                                    scale, bs))
         times["bwd2"] = cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats,
                                                              h, scale, bs))
-        library = {"fwd": None, "bwd": None}
-        if not bs:  # SDPA's yardstick at the unmasked shape
-            q, k, v = (x.detach().view(b, n, h, d).transpose(1, 2).requires_grad_()
-                       for x in (xq, xk, xv))
-            g = do.view(b, n, h, d).transpose(1, 2)
-            library["fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=scale))
-            o = F.scaled_dot_product_attention(q, k, v, scale=scale)
-            library["bwd"] = cuda_ms(lambda: torch.autograd.grad(
-                o, (q, k, v), g, retain_graph=True))
+        # SDPA's yardstick; at the packed locals with a boolean
+        # block-diagonal attn_mask (True = attend)
+        q, k, v = (x.detach().view(b, n, h, d).transpose(1, 2).requires_grad_()
+                   for x in (xq, xk, xv))
+        g = do.view(b, n, h, d).transpose(1, 2)
+        mask = None
+        if bs:
+            block = torch.arange(n, device="cuda") // bs
+            mask = block[:, None] == block[None, :]
+        library = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale))}
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+        library["bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            o, (q, k, v), g, retain_graph=True))
         bounds = attention_train_bounds(b, n, h, d, dtype_name, bs)
         for part in ("fwd", "bwd"):
             ms = min(times[part], times[part + "2"])
@@ -705,8 +958,8 @@ def phase_training_times(torch, fa, state, train_step, batch, warm_ms, card):
             print(f"  attention_nhd_{'fwd_stats' if part == 'fwd' else 'bwd'} "
                   f"({b},{n},{h}x{d}) {dtype_name} block_size={bs}: kernel "
                   f"{times[part]:.4f} / {times[part + '2']:.4f} ms, plain "
-                  f"{times[part + '_plain']:.4f} ms, SDPA "
-                  f"{'n/a (masked)' if lib is None else f'{lib:.4f} ms'}, bound "
+                  f"{times[part + '_plain']:.4f} ms, SDPA"
+                  f"{' (boolean attn_mask)' if bs else ''} {lib:.4f} ms, bound "
                   f"{bounds[part][0]:.4f} ms ({bounds[part][1]})", flush=True)
             rows[(part, bs)] = {"ms": ms, "plain_ms": times[part + "_plain"],
                                 "bound_ms": bounds[part][0],
@@ -720,6 +973,101 @@ def phase_training_times(torch, fa, state, train_step, batch, warm_ms, card):
     return rows
 
 
+def phase_training_fused(torch, fa, fm, unfused_ms, card):
+    """The training step with ``model.use_fused_mlp=true``: exact B4 and B1
+    launches per step, agreement with the unfused step, warm step beside
+    the unfused leg's, a profile of three steps."""
+    t = DINO_VIT_S8["training"]
+    print(f"== fused training: the same step with model.use_fused_mlp=true "
+          f"(kernel B4 in every FFN)", flush=True)
+    blocks = DINO_VIT_S8["model"]["num_blocks"]
+    # the student's globals and packed locals (pre saved) and their
+    # backwards; the teacher's globals (keep-mask, no pre)
+    per_step = {**attention_launches(fa), fm.KERNEL_TRAIN: 2 * blocks,
+                fm.KERNEL: blocks, fm.KERNEL_BWD: 2 * blocks}
+    state, train_step, batch, main_launches, warm_ms = train_leg(
+        torch, fused_config(), per_step, [no_plain_attention(fa), no_plain_mlp(fm)])
+    fused_agreement(torch, state, train_step, batch)
+    print(f"  fused training on {card}: warm step {warm_ms:.3f} ms median of "
+          f"{TIMED_STEPS} ({t['batch_size'] / warm_ms * 1e3:.1f} img/s); the "
+          f"unfused leg of this run {unfused_ms:.3f} ms "
+          f"({t['batch_size'] / unfused_ms * 1e3:.1f} img/s)", flush=True)
+    temps = schedule_values()
+
+    def three_steps():
+        for _ in range(3):
+            train_step(state, batch, *temps)
+
+    profile_window(torch, three_steps, "3 fused training steps", rows=25)
+    return main_launches
+
+
+# (entry, T, keep-mask): the training forward at the student's globals and
+# packed locals, the teacher's forward, the served forward, the backward
+# at the two student shapes
+MLP_TIMED = [
+    ("fwd_pre", 37120, True), ("fwd_pre", 18944, True), ("fwd", 37120, True),
+    ("fwd", 18560, False), ("bwd", 37120, True), ("bwd", 18944, True),
+]
+
+
+def phase_mlp_times(torch, fm, card):
+    """Kernel B4 (bf16) at the main paths' token counts: kernel ms twice
+    around its plain version and the unfused FFN chain of the same
+    function (its forward, or its autograd backward), CUDA events."""
+    print(f"== fused MLP times on {card} (bf16; the unfused chain is F.linear -> "
+          f"GELU -> dropout16's where/divide on the same mask -> F.linear)",
+          flush=True)
+    d, d_ff = MLP_DIMS
+    rows = {}
+    for part, t, with_mask in MLP_TIMED:
+        x, w1, b1, w2, b2, mask, do = mlp_inputs(torch, t, torch.bfloat16, seed=500)
+        mask = mask if with_mask else None
+        args = (x, w1, b1, w2, b2, mask, KEEP_PROB)
+        if part == "bwd":
+            _, pre = fm.fused_mlp_fwd(*args, save_pre=True)
+            ins = [y.detach().requires_grad_() for y in (x, w1, b1, w2, b2)]
+            chain_out = unfused_ffn(torch, *ins, mask, KEEP_PROB)
+
+            def kernel():
+                return fm.fused_mlp_bwd(x, pre, do, w1, w2, mask, KEEP_PROB)
+
+            def plain():
+                return fm.fused_mlp_bwd_reference(x, pre, do, w1, w2, mask, KEEP_PROB)
+
+            def chain():
+                return torch.autograd.grad(chain_out, ins, do, retain_graph=True)
+        else:
+            save_pre = part == "fwd_pre"
+
+            def kernel():
+                return fm.fused_mlp_fwd(*args, save_pre=save_pre)
+
+            def plain():
+                return fm.fused_mlp_reference(*args, save_pre=save_pre)
+
+            def chain():
+                return unfused_ffn(torch, *args)
+        first = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, iters=10)
+        chain_ms = cuda_ms(chain)
+        second = cuda_ms(kernel)
+        bounds = mlp_bounds(t, d, d_ff, "bfloat16", with_mask, part == "fwd_pre")
+        bound_ms, bound_by = bounds["bwd" if part == "bwd" else "fwd"]
+        name = {"fwd": fm.KERNEL, "fwd_pre": fm.KERNEL_TRAIN, "bwd": fm.KERNEL_BWD}[part]
+        print(f"  {name} T={t} {'keep-mask' if with_mask else 'no mask'}: kernel "
+              f"{first:.4f} / {second:.4f} ms, plain {plain_ms:.4f} ms, unfused "
+              f"chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+        rows[(part, t)] = {"ms": min(first, second), "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "library_ms": None, "unfused_chain_ms": chain_ms}
+        if part == "bwd":
+            profile_window(torch, lambda: [kernel() for _ in range(5)],
+                           f"5 {name} calls at T={t} (its kernels)", rows=4)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -730,6 +1078,7 @@ def main() -> int:
     try:
         from vit_ssl_tpu_torch import kernels
         from vit_ssl_tpu_torch.ops import flash_attention as fa
+        from vit_ssl_tpu_torch.ops import fused_mlp as fm
     except ImportError as e:
         print(f"chip_smoke: the vit_ssl_tpu_torch package is missing ({e}); "
               "run from the root of a checkout", file=sys.stderr)
@@ -753,13 +1102,19 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     train_errors = phase_kernels(torch, fa)
+    mlp_errors = phase_mlp_kernels(torch, fm)
     with tempfile.TemporaryDirectory() as tmp:
-        server, x, serve_launches = phase_serving(torch, fa, tmp)
-    serve_stats = phase_serving_times(torch, fa, server, x, card)
-    del server
+        server, x, unfused_out, serve_launches = phase_serving(torch, fa, tmp)
+        serve_stats = phase_serving_times(torch, fa, server, x, card)
+        del server
+        fused_serve_launches = phase_serving_fused(torch, fa, fm, tmp, x,
+                                                   unfused_out, card)
     state, train_step, batch, train_launches, warm_ms = phase_training(torch, fa)
     train_stats = phase_training_times(torch, fa, state, train_step, batch,
                                        warm_ms, card)
+    del state, train_step, batch
+    fused_train_launches = phase_training_fused(torch, fa, fm, warm_ms, card)
+    mlp_stats = phase_mlp_times(torch, fm, card)
 
     b, n, h, d, dtype_name, bs = ATTENTION_CASES[0]
     xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=200)
@@ -768,6 +1123,10 @@ def main() -> int:
     serve_err = float((out.float() - ref.float()).abs().max())
 
     globals_case = TRAIN_CASES[0]
+    serve_rows, train_rows = MLP_ROWS[2], MLP_ROWS[0]
+    bwd_errors = mlp_errors[(train_rows, "bfloat16")]
+    # the backward's max_abs_err is dx's: the weight gradients sum over T
+    # rows and are held to a relative bar, so they are listed apart
     entries = [
         (fa.KERNEL, "attention_nhd_fwd.cu", "vit_ssl_tpu/ops/flash_attention.py:352",
          serve_err, serve_stats),
@@ -775,9 +1134,21 @@ def main() -> int:
          train_errors[globals_case][0], train_stats[("fwd", 0)]),
         (fa.KERNEL_BWD, "attention_nhd_bwd.cu", "vit_ssl_tpu/ops/flash_attention.py:392",
          train_errors[globals_case][1], train_stats[("bwd", 0)]),
+        (fm.KERNEL, "fused_mlp_fwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:72",
+         mlp_errors[(serve_rows, "bfloat16")]["fwd"], mlp_stats[("fwd", serve_rows)]),
+        (fm.KERNEL_TRAIN, "fused_mlp_fwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:93",
+         mlp_errors[(train_rows, "bfloat16")]["fwd_pre"],
+         mlp_stats[("fwd_pre", train_rows)]),
+        (fm.KERNEL_BWD, "fused_mlp_bwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:182",
+         bwd_errors["bwd_abs"]["dx"],
+         {**mlp_stats[("bwd", train_rows)],
+          "max_abs_err_by_output": bwd_errors["bwd_abs"],
+          "max_rel_err_by_output": bwd_errors["bwd_rel"]}),
     ]
+    paths = {"serving": serve_launches, "training": train_launches,
+             "serving_fused": fused_serve_launches, "training_fused": fused_train_launches}
     for name, *_ in entries:
-        if serve_launches.get(name, 0) + train_launches.get(name, 0) == 0:
+        if sum(p.get(name, 0) for p in paths.values()) == 0:
             fail(f"{name} was not launched on the main paths")
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -785,9 +1156,8 @@ def main() -> int:
         "route": "cuda",
         "source": f"vit_ssl_tpu_torch/csrc/{source}",
         "replaces": replaces,
-        "launches": serve_launches.get(name, 0) + train_launches.get(name, 0),
-        "launches_by_path": {"serving": serve_launches.get(name, 0),
-                             "training": train_launches.get(name, 0)},
+        "launches": sum(p.get(name, 0) for p in paths.values()),
+        "launches_by_path": {path: p.get(name, 0) for path, p in paths.items()},
         "max_abs_err": err,
         **stats,
     } for name, source, replaces, err, stats in entries]}), flush=True)

@@ -2,7 +2,10 @@
 
 Kernel B1: the inference forward, the training forward (output and softmax
 statistics) and the backward (dq, dk, dv), and a ``MultiHeadAttention``
-gradient through the kernels against the plain path.
+gradient through the kernels against the plain path. Kernel B4 (fused MLP):
+its forwards (no mask, keep-mask, keep-mask with pre saved) and its
+backward (with and without the mask), and a ``FeedForwardBlock(use_fused=
+True)`` gradient through the kernels against the plain path.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device. The file imports neither JAX nor the JAX package, so it also runs
@@ -19,8 +22,10 @@ import torch
 
 from vit_ssl_tpu_torch import kernels
 from vit_ssl_tpu_torch.models import ViTBackbone
+from vit_ssl_tpu_torch.ops import FeedForwardBlock
 from vit_ssl_tpu_torch.ops import attention as attention_mod
 from vit_ssl_tpu_torch.ops import flash_attention as fa
+from vit_ssl_tpu_torch.ops import fused_mlp as fm
 
 pytestmark = pytest.mark.cuda
 
@@ -209,4 +214,109 @@ def test_multi_head_attention_gradient_through_kernels(cuda_device, monkeypatch,
         assert float(got[name].abs().max()) > 0, name
         cos = torch.nn.functional.cosine_similarity(
             got[name].flatten(), want[name].flatten(), dim=0)
+        assert float(cos) >= 0.999, (name, float(cos))
+
+
+# Kernel B4 at DINO ViT-S/8's widths: the student's globals, a short served
+# batch, T = 1 and a ragged T. max |kernel - plain| over max |plain|; bf16:
+# h and dpre round to bf16 on both sides and may land on either side of a
+# tie; fp32: sums in another order
+MLP_ROWS = [37120, 5365, 1, 70]
+MLP_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def _mlp_inputs(t, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    d, d_ff = 384, 1536
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy(
+            scale * rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+
+    x = arr(t, d)
+    w1, b1 = arr(d_ff, d, scale=d ** -0.5), arr(d_ff, scale=0.1)
+    w2, b2 = arr(d, d_ff, scale=d_ff ** -0.5), arr(d, scale=0.1)
+    mask = torch.from_numpy(rng.random((t, d_ff)) >= 0.1).to(device)
+    do = arr(t, d)
+    return x, w1, b1, w2, b2, mask, do
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("t", MLP_ROWS)
+def test_fused_mlp_forwards_match_plain(cuda_device, t, dtype):
+    x, w1, b1, w2, b2, mask, _ = _mlp_inputs(t, getattr(torch, dtype), cuda_device, t)
+    before = dict(kernels.launches)
+    out = fm.fused_mlp_fwd(x, w1, b1, w2, b2)
+    out_mask = fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, 0.9)
+    out_pre, pre = fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, 0.9, save_pre=True)
+    torch.cuda.synchronize()
+    assert kernels.launches[fm.KERNEL] == before.get(fm.KERNEL, 0) + 2
+    assert kernels.launches[fm.KERNEL_TRAIN] == before.get(fm.KERNEL_TRAIN, 0) + 1
+    assert torch.equal(out_pre, out_mask)
+    want, want_pre = fm.fused_mlp_reference(x, w1, b1, w2, b2, mask, 0.9, save_pre=True)
+    pairs = [(out, fm.fused_mlp_reference(x, w1, b1, w2, b2)), (out_mask, want),
+             (pre, want_pre)]
+    for got, ref in pairs:
+        assert got.dtype == x.dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, ref) <= MLP_REL_TOL[dtype], _rel_err(got, ref)
+
+
+@pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "no-mask"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("t", MLP_ROWS)
+def test_fused_mlp_backward_matches_plain(cuda_device, t, dtype, with_mask):
+    x, w1, b1, w2, b2, mask, do = _mlp_inputs(t, getattr(torch, dtype), cuda_device,
+                                              t + 1)
+    mask = mask if with_mask else None
+    _, pre = fm.fused_mlp_reference(x, w1, b1, w2, b2, mask, 0.9, save_pre=True)
+    before = kernels.launches[fm.KERNEL_BWD]
+    got = fm.fused_mlp_bwd(x, pre, do, w1, w2, mask, 0.9)
+    torch.cuda.synchronize()
+    assert kernels.launches[fm.KERNEL_BWD] == before + 1
+    want = fm.fused_mlp_bwd_reference(x, pre, do, w1, w2, mask, 0.9)
+    for name, g, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert g.dtype == x.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= MLP_REL_TOL[dtype], (name, _rel_err(g, w))
+    again = fm.fused_mlp_bwd(x, pre, do, w1, w2, mask, 0.9)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))  # no atomics
+
+
+def test_fused_mlp_refuses_what_the_kernels_cannot_take(cuda_device):
+    x, w1, w2 = (torch.zeros(s, device=cuda_device)
+                 for s in ((8, 768), (3072, 768), (768, 3072)))
+    with pytest.raises(ValueError, match="d_in"):
+        fm.fused_mlp(x, w1, torch.zeros(3072, device=cuda_device), w2,
+                     torch.zeros(768, device=cuda_device))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_feed_forward_gradient_through_fused_kernels(cuda_device, monkeypatch, dtype):
+    """A gradient through FeedForwardBlock(use_fused=True) on the card
+    reaches every parameter through the B4 kernels and equals the plain
+    path's (dropout on, one generator seed for both)."""
+    dt = getattr(torch, dtype)
+    torch.manual_seed(0)
+    ff = FeedForwardBlock(384, 1536, dropout=0.1, dtype=dt, use_fused=True).to(cuda_device)
+    x = torch.randn(8, 145, 384, device=cuda_device)
+
+    def grads():
+        ff.zero_grad()
+        g = torch.Generator(device=cuda_device).manual_seed(1)
+        (ff(x, False, g).float() ** 2).sum().backward()
+        return {k: p.grad.clone() for k, p in ff.named_parameters()}
+
+    kernels.launches.clear()
+    got = grads()
+    assert kernels.launches[fm.KERNEL_TRAIN] == 1
+    assert kernels.launches[fm.KERNEL_BWD] == 1
+    monkeypatch.setattr(fm, "fused_mlp_fwd", fm.fused_mlp_reference)
+    monkeypatch.setattr(fm, "fused_mlp_bwd", fm.fused_mlp_bwd_reference)
+    want = grads()
+    assert kernels.launches[fm.KERNEL_BWD] == 1  # the plain path ran no kernel
+    for name in want:
+        assert float(got[name].abs().max()) > 0, name
+        cos = torch.nn.functional.cosine_similarity(
+            got[name].flatten().float(), want[name].flatten().float(), dim=0)
         assert float(cos) >= 0.999, (name, float(cos))

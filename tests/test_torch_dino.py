@@ -180,20 +180,20 @@ NET = dict(num_blocks=2, embed_dim=32, num_heads=2, patch_size=8, mlp_dim=64,
            img=16, output_dim=16)
 
 
-def _jax_dino(cfg=NET, dtype=jnp.float32):
+def _jax_dino(cfg=NET, dtype=jnp.float32, use_fused_mlp=False):
     return DINONetwork(
         num_blocks=cfg["num_blocks"], input_shape=(3, cfg["img"], cfg["img"]),
         embed_dim=cfg["embed_dim"], patch_size=cfg["patch_size"],
         num_heads=cfg["num_heads"], mlp_dim=cfg["mlp_dim"], dropout=0.0,
-        output_dim=cfg["output_dim"], dtype=dtype,
+        output_dim=cfg["output_dim"], dtype=dtype, use_fused_mlp=use_fused_mlp,
     )
 
 
-def _port_dino(cfg=NET, dtype=torch.float32):
+def _port_dino(cfg=NET, dtype=torch.float32, use_fused_mlp=False):
     return TorchDINONetwork(
         cfg["num_blocks"], (3, cfg["img"], cfg["img"]), cfg["embed_dim"],
         cfg["patch_size"], cfg["num_heads"], cfg["mlp_dim"], dropout=0.0,
-        output_dim=cfg["output_dim"], dtype=dtype,
+        output_dim=cfg["output_dim"], dtype=dtype, use_fused_mlp=use_fused_mlp,
     )
 
 
@@ -247,6 +247,37 @@ def test_dino_network_forward_packed_matches_jax(dino_pair):
         unpacked = state.student(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(got.numpy(), unpacked.numpy(), atol=2e-5, rtol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def fused_dino_pair(dino_pair):
+    """``dino_pair``'s weights in networks built with ``use_fused_mlp``
+    (the FFNs share their parameters with the unfused ones): JAX's runs its
+    Pallas kernel in interpret mode, the port's the plain versions."""
+    _, student, teacher, center, _ = dino_pair
+    state = TrainState(_port_dino(use_fused_mlp=True), AdamW(lambda step: 1e-3), seed=0)
+    state.load_model_state_dict(dino_state_dict_from_flax(student, teacher, center),
+                                strict=True)
+    return _jax_dino(use_fused_mlp=True), student, state
+
+
+def test_dino_network_fused_mlp_forward_matches_jax(fused_dino_pair):
+    net, student, state = fused_dino_pair
+    x = np.random.default_rng(14).random((3, 16, 16, 3), np.float32)
+    want = net.apply({"params": student}, jnp.asarray(x))
+    with torch.no_grad():
+        got = state.student(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+def test_dino_network_fused_mlp_forward_packed_matches_jax(fused_dino_pair):
+    net, student, state = fused_dino_pair
+    x = np.random.default_rng(15).random((4 * 3, 8, 8, 3), np.float32)
+    want = net.apply({"params": student}, jnp.asarray(x), 4, True,
+                     method="forward_packed")
+    with torch.no_grad():
+        got = state.student.forward_packed(torch.from_numpy(x), 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
 
 
 def test_dino_head_matches_jax_and_runs_fc_in_fp32(dino_pair):
@@ -342,6 +373,14 @@ def test_build_dino_network_follows_the_config():
     assert net.head.fully_connected.bias.shape == (24,)
     assert net.backbone.encoder_blocks[0].drop1.rate == 0.2
     assert net.backbone.dtype == torch.bfloat16
-    cfg["model"]["use_fused_mlp"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_dino_network(cfg, "cpu")
+    assert not net.backbone.encoder_blocks[0].feed_forward.use_fused
+    cfg["model"]["use_fused_mlp"] = True  # kernel B4: builds, in every block
+    fused = build_dino_network(cfg, "cpu")
+    assert all(block.feed_forward.use_fused for block in fused.backbone.encoder_blocks)
+    net.reset_parameters(torch.Generator().manual_seed(1))
+    fused.load_state_dict(net.state_dict(), strict=True)
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        got, want = fused(x), net(x)
+    assert torch.isfinite(got).all()
+    assert _row_cosine(got.numpy(), want.numpy()).min() >= 0.999  # bf16 rounding

@@ -129,6 +129,22 @@ def test_chip_smoke_attention_bound():
     assert bound_ms == pytest.approx(4 * 128 * 145 * 384 * 2 / 3.35e12 * 1e3)
 
 
+def test_chip_smoke_mlp_bounds():
+    """Kernel B4 at the student's globals (T = 37120, 384 -> 1536, bf16):
+    the forward's two products are 87.6 GFLOP (0.089 ms at 989 TFLOP/s)
+    against about 230 MB with the keep-mask and the saved pre (0.069 ms at
+    3.35 TB/s); the backward's four are 175 GFLOP (0.177 ms) against about
+    260 MB (0.078 ms): operations bound both."""
+    bounds = _load_chip_smoke().mlp_bounds(37120, 384, 1536, "bfloat16")
+    flops = 2 * 2 * 37120 * 384 * 1536
+    assert bounds["fwd"] == pytest.approx((flops / 989e9, "operations"))
+    assert bounds["bwd"] == pytest.approx((2 * flops / 989e9, "operations"))
+    assert 0.088 < bounds["fwd"][0] < 0.089 and 0.177 < bounds["bwd"][0] < 0.178
+    served = _load_chip_smoke().mlp_bounds(18560, 384, 1536, "bfloat16",
+                                           mask=False, pre=False)
+    assert served["fwd"] == pytest.approx((flops / 2 / 989e9, "operations"))
+
+
 @pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "alone"])
 def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     """No card here: exit non-zero and print no result, both from the

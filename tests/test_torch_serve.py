@@ -31,6 +31,11 @@ from vit_ssl_tpu_torch import serve
 
 REPO = Path(__file__).resolve().parent.parent
 BATCH = 4
+OVERRIDES = [
+    "data.img_size=32", "model.embed_dim=64", "model.num_heads=2",
+    "model.num_blocks=2", "model.mlp_dim=128", "model.output_dim=16",
+    "model.compute_dtype=float32",
+]
 
 
 def _jiggle(params, seed):
@@ -47,11 +52,7 @@ def exported(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_serve")
     data = make(str(root / "data"), n=6, size=40, num_classes=3)
     images = sorted(str(p) for p in Path(f"{data}/train_images").glob("*.png"))
-    config = compose(REPO / "configs", "dino", overrides=[
-        "data.img_size=32", "model.embed_dim=64", "model.num_heads=2",
-        "model.num_blocks=2", "model.mlp_dim=128", "model.output_dim=16",
-        "model.compute_dtype=float32",
-    ])
+    config = compose(REPO / "configs", "dino", overrides=OVERRIDES)
     bundle = build_model(config)
     init = bundle.init_fn(jax.random.PRNGKey(0))
     student = _jiggle(init["params"], 1)
@@ -73,7 +74,8 @@ def exported(tmp_path_factory):
         out = np.asarray(fn(params, x), np.float32)
         want.update({p: out[j] for j, p in enumerate(chunk)})
     return SimpleNamespace(pth=pth, images=images, want=want, sd=sd,
-                           config=to_container(config), root=root)
+                           config=to_container(config), root=root,
+                           student=student, teacher=teacher)
 
 
 @pytest.fixture(scope="module")
@@ -207,3 +209,31 @@ def test_server_defaults_to_the_card(exported, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.Server(exported.pth, batch_size=2)
+
+
+def test_fused_mlp_checkpoint_serves_like_jax(exported, tmp_path):
+    """A ``.pth`` whose embedded config sets ``model.use_fused_mlp`` serves
+    through the fused FFN (its plain versions on the CPU); the embeddings
+    equal JAX's feature function built from that config, whose FFNs run the
+    B4 Pallas kernel in interpret mode."""
+    config = compose(REPO / "configs", "dino",
+                     overrides=OVERRIDES + ["model.use_fused_mlp=true"])
+    pth = str(tmp_path / "fused.pth")
+    save_torch_checkpoint(pth, exported.sd, {"config": to_container(config)})
+    server = serve.Server(pth, batch_size=BATCH, device="cpu")
+    assert all(block.feed_forward.use_fused for block in server.model.encoder_blocks)
+    paths = exported.images[:BATCH]
+    got = _embeddings(server.infer(paths))
+
+    fn, params = make_feature_fn(
+        build_model(config),
+        SimpleNamespace(params=exported.student, teacher_params=exported.teacher))
+    pipeline = Compose([Resize([32, 32]), ToTensor()])
+    x = np.zeros((BATCH, 32, 32, 3), np.float32)
+    for j, p in enumerate(paths):
+        with Image.open(p) as img:
+            x[j] = pipeline(img.convert("RGB"))
+    want = np.asarray(fn(params, x), np.float32)
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=0)
+    np.testing.assert_allclose(got, np.stack([exported.want[p] for p in paths]),
+                               atol=5e-4, rtol=0)  # and the unfused JAX path

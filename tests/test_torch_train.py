@@ -58,10 +58,10 @@ def _batches():
             for _ in range(3)]
 
 
-def _jax_net():
+def _jax_net(use_fused_mlp=False):
     return DINONetwork(num_blocks=2, input_shape=(3, 16, 16), embed_dim=32,
                        patch_size=8, num_heads=2, mlp_dim=64, dropout=0.0,
-                       output_dim=16)
+                       output_dim=16, use_fused_mlp=use_fused_mlp)
 
 
 def _weights():
@@ -73,11 +73,9 @@ def _weights():
     return student, teacher, center
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["unpacked", "packed"])
-def jax_run(request):
+def _jax_steps(pack, fused=False):
     """JAX's state after steps 1 and 3, as reference-layout numpy dicts,
     and its losses."""
-    pack = request.param
     patch = pytest.MonkeyPatch()
     patch.setattr(jax_attention_mod, "attention_nhd_profitable",
                   lambda *a, **kw: True)
@@ -89,9 +87,9 @@ def jax_run(request):
                                    teacher_params=teacher,
                                    center=jnp.asarray(center))
         step, _ = jax_make_dino_steps(
-            _jax_net(), tx, num_global_views=2, num_all_views=6, student_temp=0.1,
-            center_momentum=0.9, donate=False, teacher_dropout=False,
-            pack_locals=pack)
+            _jax_net(fused), tx, num_global_views=2, num_all_views=6,
+            student_temp=0.1, center_momentum=0.9, donate=False,
+            teacher_dropout=False, pack_locals=pack)
         after, losses = {}, []
         for i, views in enumerate(_batches()):
             batch = {"views": [jnp.asarray(v) for v in views],
@@ -107,9 +105,22 @@ def jax_run(request):
     return pack, after, losses
 
 
-def _port_run(pack, steps):
+@pytest.fixture(scope="module", params=[False, True], ids=["unpacked", "packed"])
+def jax_run(request):
+    return _jax_steps(request.param)
+
+
+@pytest.fixture(scope="module")
+def jax_run_fused():
+    """With ``use_fused_mlp`` (packed locals): JAX's FFNs run its B4 kernel
+    in interpret mode, forward and custom-VJP backward."""
+    return _jax_steps(True, fused=True)
+
+
+def _port_run(pack, steps, fused=False):
     student, teacher, center = _weights()
-    net = TorchDINONetwork(2, (3, 16, 16), 32, 8, 2, 64, dropout=0.0, output_dim=16)
+    net = TorchDINONetwork(2, (3, 16, 16), 32, 8, 2, 64, dropout=0.0, output_dim=16,
+                           use_fused_mlp=fused)
     optimizer = AdamW(reference_lr_schedule(**LR), weight_decay=WEIGHT_DECAY)
     state = TrainState(net, optimizer, seed=0)
     state.load_model_state_dict(dino_state_dict_from_flax(student, teacher, center))
@@ -126,16 +137,9 @@ def _port_run(pack, steps):
     return state, losses
 
 
-@pytest.mark.parametrize("steps", [1, 3])
-def test_dino_step_matches_jax(jax_run, steps):
-    """Loss at rtol 1e-5, center at atol 1e-6. Parameters: Adam divides each
-    gradient entry by its own RMS, so its first updates are about
-    lr·sign(g); where the two frameworks' fp32 sums put a near-zero entry
-    on opposite sides of zero, that entry may differ by up to 2·lr a step.
-    So every entry is held within 2·Σlr + 1e-5, and 99.5 % of them within
-    1e-5 + 1e-4·|p|; the teacher, an EMA of those parameters, likewise."""
+def _assert_run_matches(jax_run, steps, fused=False):
     pack, after, jax_losses = jax_run
-    state, losses = _port_run(pack, steps)
+    state, losses = _port_run(pack, steps, fused)
     np.testing.assert_allclose(losses, jax_losses[:steps], rtol=1e-5)
     want = after[steps]
     got = {k: v.detach().numpy() for k, v in state.model_state_dict().items()}
@@ -149,6 +153,25 @@ def test_dino_step_matches_jax(jax_run, steps):
         assert diff.max() <= bound, (key, diff.max(), bound)
         close = diff <= 1e-5 + 1e-4 * np.abs(want[key].reshape(diff.shape))
         assert close.mean() >= 0.995, (key, close.mean())
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_dino_step_matches_jax(jax_run, steps):
+    """Loss at rtol 1e-5, center at atol 1e-6. Parameters: Adam divides each
+    gradient entry by its own RMS, so its first updates are about
+    lr·sign(g); where the two frameworks' fp32 sums put a near-zero entry
+    on opposite sides of zero, that entry may differ by up to 2·lr a step.
+    So every entry is held within 2·Σlr + 1e-5, and 99.5 % of them within
+    1e-5 + 1e-4·|p|; the teacher, an EMA of those parameters, likewise."""
+    _assert_run_matches(jax_run, steps)
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_dino_step_fused_mlp_matches_jax(jax_run_fused, steps):
+    """``use_fused_mlp`` on both sides, at the bars of
+    :func:`test_dino_step_matches_jax`: the port's fused FFN (its plain
+    versions on the CPU) against JAX's B4 kernel, forward and backward."""
+    _assert_run_matches(jax_run_fused, steps, fused=True)
 
 
 def test_adamw_matches_optax():
@@ -216,9 +239,21 @@ def test_grad_accum_not_ported():
 def test_teacher_takes_no_gradient_and_step_trains_with_dropout():
     """Dropout on (student and teacher), views from the device pipeline:
     params, teacher and center all move, the teacher keeps no gradient."""
+    _step_and_eval_with_dropout(use_fused_mlp=False)
+
+
+def test_fused_mlp_step_and_eval_step_with_dropout():
+    """The same with ``use_fused_mlp``: the student's fused FFNs take their
+    keep-masks and the autograd backward, the teacher's run under
+    ``no_grad`` with dropout on, and ``eval_step`` runs them without masks."""
+    _step_and_eval_with_dropout(use_fused_mlp=True)
+
+
+def _step_and_eval_with_dropout(use_fused_mlp):
     from vit_ssl_tpu_torch.data.device_augment import make_multicrop_fn
 
-    net = TorchDINONetwork(1, (3, 16, 16), 32, 8, 2, 64, dropout=0.1, output_dim=16)
+    net = TorchDINONetwork(1, (3, 16, 16), 32, 8, 2, 64, dropout=0.1, output_dim=16,
+                           use_fused_mlp=use_fused_mlp)
     net.reset_parameters(torch.Generator().manual_seed(0))
     optimizer = AdamW(lambda step: 1e-3, weight_decay=1e-3)
     state = TrainState(net, optimizer, seed=1)

@@ -16,7 +16,9 @@ Ported so far:
   center, AdamW with optax's arithmetic, the teacher EMA and the collapse
   statistics; attention through the ``attention_nhd_fwd_stats`` and
   ``attention_nhd_bwd`` CUDA kernels (and the inference kernel for the
-  teacher).
+  teacher);
+- ``model.use_fused_mlp=true`` on both paths: each FFN runs as the fused
+  MLP kernels (``fused_mlp_fwd``, ``fused_mlp_fwd_pre``, ``fused_mlp_bwd``).
 
 This package imports neither ``jax`` nor ``vit_ssl_tpu``.
 """

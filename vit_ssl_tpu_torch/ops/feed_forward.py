@@ -7,8 +7,12 @@ Abramowitz–Stegun polynomial (|error| ≤ 1.5e-7, ``ops/fused_mlp.py:40``);
 here it is PyTorch's own erf. Dropout is ``dropout16``
 (:mod:`.dropout`), drawn from the caller's generator.
 
-The JAX package's fused-MLP Pallas kernel (B4, ``use_fused_mlp=true``) is
-not ported yet: asking for it raises.
+``use_fused`` (the config's ``model.use_fused_mlp``) runs the whole block
+as kernel B4 (:func:`.fused_mlp.fused_mlp`) on the same parameters. Both
+paths draw the keep-mask with the same number of bits at the same point of
+the generator's stream, so from one generator state they drop the same
+units; they round at different places (the fused path keeps GELU's output
+in fp32 through the dropout scale, as the JAX kernel does).
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .dropout import Dropout
+from .dropout import Dropout, keep_mask16
+from .fused_mlp import fused_mlp
 
 
 class FeedForwardBlock(nn.Module):
@@ -28,12 +33,8 @@ class FeedForwardBlock(nn.Module):
                  use_fused: bool = False, fast_dropout: bool = True,
                  device=None):
         super().__init__()
-        if use_fused:
-            raise NotImplementedError(
-                "use_fused_mlp=true needs kernel B4 (fused MLP), which is not "
-                "ported yet; see ROADMAP.md queue B"
-            )
         self.dtype = dtype
+        self.use_fused = use_fused
         self.linear_in = nn.Linear(d_model, d_ff, device=device)
         self.linear_out = nn.Linear(d_ff, d_model, device=device)
         self.dropout = Dropout(dropout, fast_dropout)
@@ -41,8 +42,24 @@ class FeedForwardBlock(nn.Module):
     def forward(self, x, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         dt = self.dtype
-        h = F.linear(x.to(dt), self.linear_in.weight.to(dt),
-                     self.linear_in.bias.to(dt))
-        h = self.dropout(F.gelu(h), deterministic, generator)
-        return F.linear(h, self.linear_out.weight.to(dt),
-                        self.linear_out.bias.to(dt))
+        w1, b1 = self.linear_in.weight.to(dt), self.linear_in.bias.to(dt)
+        w2, b2 = self.linear_out.weight.to(dt), self.linear_out.bias.to(dt)
+        if self.use_fused:
+            return self._fused(x.to(dt), w1, b1, w2, b2, deterministic, generator)
+        h = self.dropout(F.gelu(F.linear(x.to(dt), w1, b1)), deterministic, generator)
+        return F.linear(h, w2, b2)
+
+    def _fused(self, x, w1, b1, w2, b2, deterministic, generator):
+        """``vit_ssl_tpu/ops/feed_forward.py:68-76``: tokens flattened to
+        (B·N, d_model), the keep-mask drawn where the unfused path draws
+        its dropout mask."""
+        *lead, d = x.shape
+        flat = x.reshape(-1, d)
+        rate = self.dropout.rate
+        mask = None
+        if not deterministic and rate > 0.0:
+            if generator is None:
+                raise ValueError("dropout in training mode needs a torch.Generator")
+            mask = keep_mask16((flat.shape[0], w1.shape[0]), rate, generator)
+        out = fused_mlp(flat, w1, b1, w2, b2, mask, 1.0 - rate)
+        return out.reshape(*lead, d)
