@@ -36,7 +36,22 @@ Phases, each printing its own lines; any failure exits non-zero:
               B4 and B1 launch counts per step, agreement with the unfused
               step from one cloned state, warm step, a profile of three
               steps, and B4's kernel/plain/unfused-chain times
-10. a JSON line describing every kernel, then the JSON ``ok`` line last.
+10. B3 kernels — kernel B3 (head-major fused attention) against its plain
+              versions: inference forward, training forward and backward at
+              ViT-B/16's (64, 12, 577, 64), at N = 1, N = 1024 and ragged N,
+              bf16 and fp32
+11. supervised serving — the supervised ViT-B/16 at 384 px (N = 577) from
+              a written ``.pth``, batch 64, through ``Server.forward_batch``:
+              12 B3 inference launches a batch and nothing else, agreement
+              with the plain attention path, padding rows inert, warm batch,
+              a profile
+12. supervised training — its ``train_step`` at batch 64 from uint8
+              images augmented on the card: 12 B3 training forwards and 12
+              backwards a step, agreement with the plain attention path from
+              one cloned state, warm step, peak memory, a profile;
+              ``eval_step``'s 12 inference launches; B3's times beside B1's
+              on the same data and SDPA's
+13. a JSON line describing every kernel, then the JSON ``ok`` line last.
 
 Imports neither JAX nor the JAX package, and needs no PIL, OpenCV or YAML.
 """
@@ -112,6 +127,47 @@ DINO_VIT_S8 = {
     "data": {"img_size": 96, "local_img_size": 48, "device_augment": True},
     "transforms": {"globals": GLOBALS, "locals": LOCALS},
 }
+# The supervised ViT-B/16 at 384 px: configs/vit_b_imagenet.yaml composed
+# with data.img_size=384 parallel.remat=false training.batch_size=64 (one
+# card's share of the global batch of 1024; remat is not ported);
+# tests/test_torch_guards.py pins every value here to that composition.
+SUPERVISED_TRAIN = [
+    {"name": "RandomResizedCrop", "params": {"size": 384, "scale": [0.9, 1.0]}},
+    {"name": "RandomHorizontalFlip", "params": {}},
+    {"name": "ToTensor"},
+]
+VIT_B16_384 = {
+    "training": {
+        "type": "supervised",
+        "batch_size": 64,
+        "num_epochs": 90,
+        "warmup_epochs": 5,
+        "warmup_initial_learning_rate": 1e-6,
+        "warmup_final_learning_rate": 1e-4,
+        "optimizer": {"name": "AdamW", "params": {"weight_decay": 0.001}},
+        "lr_scheduler": {"main": {"name": "CosineAnnealingLR",
+                                  "params": {"eta_min": 1e-6}}},
+    },
+    "model": {
+        "in_channels": 3,
+        "embed_dim": 768,
+        "num_blocks": 12,
+        "num_heads": 12,
+        "mlp_dim": 3072,
+        "patch_size": 16,
+        "num_classes": 1000,
+        "dropout": 0.1,
+        "fast_dropout": True,
+        "use_flash_attention": True,
+        "use_fused_mlp": False,
+        "compute_dtype": "bfloat16",
+    },
+    "data": {"img_size": 384, "device_augment": True, "val_split": 0.04},
+    "parallel": {"remat": False},
+    "transforms": {"train": SUPERVISED_TRAIN},
+}
+GLOBAL_BATCH = 1024  # configs/vit_b_imagenet.yaml's training.batch_size
+IMAGENET_TRAIN = 1_281_167  # images of ImageNet-1k's train split
 SERVE_BATCH = 128
 STL10_UNLABELED = 100_000  # images an epoch of configs/dino's dataset holds
 TIMED_STEPS = 10
@@ -153,6 +209,22 @@ TRAIN_CASES = [
 # fp32: sums in another order
 GRAD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 STATS_REL_TOL = 1e-5
+
+# Kernel B3 (head-major, no mask), (batch, heads, seq, head_dim, dtype):
+# ViT-B/16 at 384 px first (bf16, fp32), then N = 1, N = 1024 and ragged N
+# with the other head dims
+FUSED_CASES = [
+    (64, 12, 577, 64, "bfloat16"),
+    (64, 12, 577, 64, "float32"),
+    (4, 12, 1, 64, "bfloat16"),
+    (4, 12, 1, 64, "float32"),
+    (8, 12, 1024, 64, "bfloat16"),
+    (8, 12, 1024, 64, "float32"),
+    (16, 4, 70, 32, "bfloat16"),
+    (16, 4, 70, 32, "float32"),
+    (16, 2, 203, 128, "bfloat16"),
+    (16, 2, 203, 128, "float32"),
+]
 
 # Kernel B4 (fused MLP) at the token counts of the main paths: the student
 # globals and the teacher (256 x 145), the packed locals (128 x 148), a
@@ -346,6 +418,73 @@ def phase_kernels(torch, fa):
     return errors
 
 
+def heads_qkv(b, h, n, d, dtype, seed, count=3):
+    """``count`` contiguous (B, H, N, D) standard-normal tensors."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, h, n, d, generator=g, device="cuda").to(dtype)
+            for _ in range(count)]
+
+
+def phase_fused_kernels(torch, fa):
+    """Kernel B3 against its plain versions at every FUSED_CASES shape: the
+    inference forward (bf16 atol 1e-2 rtol 1e-2, fp32 atol 1e-5), the
+    training forward (output bit-equal to the inference kernel's,
+    statistics within STATS_REL_TOL, padding rows zero) and the backward
+    (each gradient within GRAD_REL_TOL of max|plain|). At ViT-B/16's shape
+    also whether B3 equals B1 on the same data in B1's layout (the same
+    kernel bodies: expected bit for bit). Returns, per case, (forward
+    max_abs_err, backward max_abs_err)."""
+    print("== kernels: fused_attention_fwd, fused_attention_fwd_stats and "
+          "fused_attention_bwd against their plain versions", flush=True)
+    errors = {}
+    for idx, (b, h, n, d, dtype_name) in enumerate(FUSED_CASES):
+        dtype = getattr(torch, dtype_name)
+        q, k, v = heads_qkv(b, h, n, d, dtype, seed=600 + idx)
+        (do,) = heads_qkv(b, h, n, d, torch.float32, seed=650 + idx, count=1)
+        scale = 1.0 / d ** 0.5
+        out = fa.fused_attention_fwd(q, k, v, scale)
+        out_t, stats = fa.fused_attention_fwd_stats(q, k, v, scale)
+        grads = fa.fused_attention_bwd(q, k, v, do, stats, scale)
+        torch.cuda.synchronize()
+        ref = fa.fused_attention_reference(q, k, v, scale)
+        err = (out.float() - ref.float()).abs()
+        if dtype == torch.bfloat16:
+            fwd_tol, fwd_ok = "atol 1e-2 rtol 1e-2", bool(
+                (err <= 1e-2 + 1e-2 * ref.float().abs()).all())
+        else:
+            fwd_tol, fwd_ok = "atol 1e-5", float(err.max()) <= 1e-5
+        same = torch.equal(out, out_t)
+        stats_err = rel_err(stats[:, :, :n], fa.fused_attention_stats_reference(q, k, scale))
+        pad_zero = not bool(stats[:, :, n:].any())
+        want = fa.fused_attention_bwd_reference(q, k, v, do, scale)
+        grad_errs = [rel_err(g, w) for g, w in zip(grads, want)]
+        grad_abs = max(max_abs(g, w) for g, w in zip(grads, want))
+        finite = all(bool(torch.isfinite(x).all()) for x in (out, *grads))
+        tol = GRAD_REL_TOL[dtype_name]
+        ok = (fwd_ok and same and stats_err <= STATS_REL_TOL and pad_zero and finite
+              and max(grad_errs) <= tol)
+        line = (f"  ({b},{h},{n},{d}) {dtype_name}: forward max_abs_err "
+                f"{float(err.max()):.3e} ({fwd_tol}); training output "
+                f"{'bit-equal to' if same else 'DIFFERS from'} inference; stats "
+                f"rel_err {stats_err:.3e} (<= {STATS_REL_TOL:g}); dq/dk/dv rel_err "
+                + "/".join(f"{e:.3e}" for e in grad_errs)
+                + f" (<= {tol:g} of max|ref|)")
+        if idx == 0:
+            def nhd(x):
+                return x.transpose(1, 2).reshape(b, n, h * d)
+            b1 = fa.attention_nhd_fwd(nhd(q), nhd(k), nhd(v), h, scale)
+            line += (f"; B1 on the same data {'bit-equal' if torch.equal(b1, nhd(out)) else 'differs'}"
+                     f" (max_abs_diff {max_abs(b1, nhd(out)):.3e})")
+        print(line + f" {'ok' if ok else 'MISS'}", flush=True)
+        if not ok:
+            fail(f"B3 kernels disagree at ({b},{h},{n},{d}) {dtype_name}")
+        errors[(b, h, n, d, dtype_name)] = (float(err.max()), grad_abs)
+        del q, k, v, do, out, out_t, stats, grads, ref, want, err
+    return errors
+
+
 def max_abs(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
@@ -403,18 +542,26 @@ def phase_mlp_kernels(torch, fm):
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Route the model's attention through the plain PyTorch versions,
-    forward and backward."""
+def routed_attention(nhd, fused):
+    """Route the model's attention (B1's and B3's calls) through ``nhd``
+    and ``fused``."""
     from vit_ssl_tpu_torch.ops import attention as attention_mod
-    from vit_ssl_tpu_torch.ops.flash_attention import attention_nhd_plain
 
-    kernel = attention_mod.attention_nhd
-    attention_mod.attention_nhd = attention_nhd_plain
+    kernels = attention_mod.attention_nhd, attention_mod.fused_attention
+    attention_mod.attention_nhd, attention_mod.fused_attention = nhd, fused
     try:
         yield
     finally:
-        attention_mod.attention_nhd = kernel
+        attention_mod.attention_nhd, attention_mod.fused_attention = kernels
+
+
+def plain_attention():
+    """Route the model's attention through the plain PyTorch versions,
+    forward and backward."""
+    from vit_ssl_tpu_torch.ops.flash_attention import (
+        attention_nhd_plain, fused_attention_plain)
+
+    return routed_attention(attention_nhd_plain, fused_attention_plain)
 
 
 @contextlib.contextmanager
@@ -422,7 +569,8 @@ def no_plain_attention(fa):
     """Make any call of a plain attention version fail: the main path must
     run the kernels only."""
     names = ("attention_nhd_reference", "attention_nhd_stats_reference",
-             "attention_nhd_bwd_reference")
+             "attention_nhd_bwd_reference", "fused_attention_reference",
+             "fused_attention_stats_reference", "fused_attention_bwd_reference")
     saved = {name: getattr(fa, name) for name in names}
 
     def refuse(*args, **kwargs):
@@ -763,70 +911,76 @@ def phase_training(torch, fa):
 
 class _ExactAttention:
     """Attention in fp64 with its exact gradient (no bf16 rounding of p or
-    ds): the yardstick for gradients that bf16 cannot resolve."""
+    ds): the yardstick for gradients that bf16 cannot resolve. ``function``
+    takes B1's (B, N, H·D) arguments, ``fused`` B3's (B, H, N, D) ones."""
 
     @staticmethod
     def heads(x, h):
         b, n, hd = x.shape
         return x.reshape(b, n, h, hd // h).transpose(1, 2).double()
 
-    @classmethod
-    def function(cls, torch):
-        heads = cls.heads
-
+    @staticmethod
+    def apply(torch):
         class Exact(torch.autograd.Function):
+            """fp64 attention on head-major tensors, block mask ``bs``."""
+
             @staticmethod
-            def forward(ctx, xq, xk, xv, h, scale, bs):
-                q, k, v = heads(xq, h), heads(xk, h), heads(xv, h)
+            def forward(ctx, q, k, v, scale, bs):
                 s = torch.matmul(q, k.transpose(-1, -2)) * scale
                 if bs:
                     idx = torch.arange(s.shape[-1], device=s.device) // bs
                     s = s.masked_fill(idx[:, None] != idx[None, :], float("-inf"))
                 p = torch.softmax(s, dim=-1)
                 ctx.save_for_backward(q, k, v, p)
-                ctx.args = (h, scale, xq.dtype)
-                return torch.matmul(p, v).transpose(1, 2).reshape(xq.shape).to(xq.dtype)
+                ctx.scale = scale
+                return torch.matmul(p, v)
 
             @staticmethod
-            def backward(ctx, do):
+            def backward(ctx, g):
                 q, k, v, p = ctx.saved_tensors
-                h, scale, dtype = ctx.args
-                g = heads(do, h)
                 dp = torch.matmul(g, v.transpose(-1, -2))
-                ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
-                grads = (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
-                         torch.matmul(p.transpose(-1, -2), g))
-                return (*(x.transpose(1, 2).reshape(do.shape).to(dtype) for x in grads),
-                        None, None, None)
+                ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * ctx.scale
+                return (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+                        torch.matmul(p.transpose(-1, -2), g), None, None)
 
-        return lambda xq, xk, xv, h, scale, bs=0: Exact.apply(xq, xk, xv, h, scale, bs)
+        return Exact.apply
+
+    @classmethod
+    def function(cls, torch):
+        exact = cls.apply(torch)
+
+        def nhd(xq, xk, xv, h, scale, bs=0):
+            o = exact(*(cls.heads(x, h) for x in (xq, xk, xv)), scale, bs)
+            return o.transpose(1, 2).reshape(xq.shape).to(xq.dtype)
+
+        return nhd
+
+    @classmethod
+    def fused(cls, torch):
+        exact = cls.apply(torch)
+        return lambda q, k, v, scale: exact(q.double(), k.double(), v.double(),
+                                            scale, 0).to(q.dtype)
 
 
-@contextlib.contextmanager
 def exact_attention(torch):
     """Route the model's attention through :class:`_ExactAttention`."""
-    from vit_ssl_tpu_torch.ops import attention as attention_mod
-
-    kernel = attention_mod.attention_nhd
-    attention_mod.attention_nhd = _ExactAttention.function(torch)
-    try:
-        yield
-    finally:
-        attention_mod.attention_nhd = kernel
+    return routed_attention(_ExactAttention.function(torch), _ExactAttention.fused(torch))
 
 
-def judge(torch, ref, got, want, exact, got_center, want_center, names=("kernel", "plain")):
+def judge(torch, ref, got, want, exact_step, got_center=None, want_center=None,
+          names=("kernel", "plain")):
     """The bars of a step against a reference step (``ref`` names it) from
     one cloned state and the same generator seeds, so the dropout masks and
-    the views are the same: |dloss| <= 1e-2 |loss|, the center within 1e-2
-    max|center|, and every parameter's gradient cosine >= 0.99. One stated
-    exception to the last: a gradient that bf16 attention cannot resolve.
-    The last block's w_query gradient flows only through the CLS rows'
-    softmax backward; after a dozen steps from this init it is ~1e-8 in
-    norm and the plain bf16 path itself is at cosine ~0.95 from fp64
+    the views are the same: |dloss| <= 1e-2 |loss|, the center (DINO)
+    within 1e-2 max|center|, and every parameter's gradient cosine >= 0.99.
+    One stated exception to the last: a gradient that bf16 attention cannot
+    resolve. The last block's w_query gradient flows only through the CLS
+    rows' softmax backward; after a dozen steps from this init it is ~1e-8
+    in norm and the plain bf16 path itself is at cosine ~0.95 from fp64
     attention (this script on an H100 80GB HBM3). So a parameter below 0.99
-    passes when the step is as close to an fp64 attention step (``exact``)
-    as the reference step is (cosine within 0.01)."""
+    passes when the step is as close to an fp64 attention step (the output
+    of ``exact_step()``, run only then) as the reference step is (cosine
+    within 0.01)."""
     def cos(a, b):
         return float(torch.nn.functional.cosine_similarity(
             a.flatten().float(), b.flatten().float(), dim=0))
@@ -835,15 +989,20 @@ def judge(torch, ref, got, want, exact, got_center, want_center, names=("kernel"
     loss, ref_loss = float(got["loss"]), float(want["loss"])
     cosines = {name: cos(g, want["grads"][name]) for name, g in got["grads"].items()}
     worst = min(cosines, key=cosines.get)
-    center_err = float((got_center - want_center).abs().max())
-    center_tol = 1e-2 * float(want_center.abs().max())
+    center_err, center_tol = 0.0, 0.0
+    center = ""
+    if got_center is not None:
+        center_err = float((got_center - want_center).abs().max())
+        center_tol = 1e-2 * float(want_center.abs().max())
+        center = f"; center max_abs_err {center_err:.3e} (<= {center_tol:.3e})"
     print(f"  against {ref} on the card: |dloss| {abs(loss - ref_loss):.3e} "
           f"(<= {1e-2 * abs(ref_loss):.3e}, loss {ref_loss:.6f}); min gradient "
           f"cosine {cosines[worst]:.6f} at {worst} (>= 0.99) over {len(cosines)} "
-          f"parameters; center max_abs_err {center_err:.3e} (<= {center_tol:.3e})",
-          flush=True)
+          f"parameters" + center, flush=True)
     missed = []
-    for name in (n for n, c in cosines.items() if c < 0.99):
+    low = [n for n, c in cosines.items() if c < 0.99]
+    exact = exact_step() if low else None
+    for name in low:
         to_exact = cos(got["grads"][name], exact["grads"][name])
         ref_to_exact = cos(want["grads"][name], exact["grads"][name])
         ok = to_exact >= ref_to_exact - 0.01
@@ -869,12 +1028,15 @@ def agreement(torch, fa, state, train_step, batch):
     counted = dict(kernels.launches)
     with plain_attention():
         want = train_step(plain_state, batch, *temps, with_grads=True)
-    with exact_attention(torch):
-        exact = train_step(exact_state, batch, *temps, with_grads=True)
     torch.cuda.synchronize()
     if dict(kernels.launches) != counted:
         fail("the plain-attention step launched a kernel")
-    judge(torch, "plain attention", got, want, exact, kernel_state.center,
+
+    def exact_step():
+        with exact_attention(torch):
+            return train_step(exact_state, batch, *temps, with_grads=True)
+
+    judge(torch, "plain attention", got, want, exact_step, kernel_state.center,
           plain_state.center)
 
 
@@ -900,10 +1062,13 @@ def fused_agreement(torch, state, train_step, batch):
     set_fused(exact_state, False)
     got = train_step(fused_state, batch, *temps, with_grads=True)
     want = train_step(unfused_state, batch, *temps, with_grads=True)
-    with exact_attention(torch):
-        exact = train_step(exact_state, batch, *temps, with_grads=True)
     torch.cuda.synchronize()
-    judge(torch, "the unfused FFN", got, want, exact, fused_state.center,
+
+    def exact_step():
+        with exact_attention(torch):
+            return train_step(exact_state, batch, *temps, with_grads=True)
+
+    judge(torch, "the unfused FFN", got, want, exact_step, fused_state.center,
           unfused_state.center, names=("fused", "unfused"))
 
 
@@ -1068,6 +1233,262 @@ def phase_mlp_times(torch, fm, card):
     return rows
 
 
+def build_vit_model(torch, seed, cfg=VIT_B16_384):
+    """The config's ViT on the CPU, every parameter drawn with the
+    reference init from ``torch.Generator().manual_seed(seed)``."""
+    from vit_ssl_tpu_torch.models import build_vit
+
+    return build_vit(cfg, "cpu").reset_parameters(torch.Generator().manual_seed(seed))
+
+
+def top2_margin(logits):
+    """Each row's gap between its largest and second-largest logit."""
+    top = np.sort(logits, axis=1)[:, -2:]
+    return top[:, 1] - top[:, 0]
+
+
+def phase_supervised_serving(torch, fa, tmp, card):
+    """The supervised ViT-B/16 at 384 px served from a written ``.pth``:
+    exactly 12 B3 inference launches a batch and nothing else, padding rows
+    inert, logits within row cosine 0.999 of the same server on plain
+    attention and the same preds (a pred may differ only where the plain
+    logits' top two lie closer than twice the largest logit difference),
+    warm batch and a profile. Returns the path's launches."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.serve import Server
+
+    cfg = VIT_B16_384
+    batch, img = cfg["training"]["batch_size"], cfg["data"]["img_size"]
+    blocks = cfg["model"]["num_blocks"]
+    n = (img // cfg["model"]["patch_size"]) ** 2 + 1
+    print(f"== supervised serving: ViT-B/16, batch {batch}, img {img} (N={n}, "
+          f"12 heads of 64), bf16, full depth", flush=True)
+    pth = f"{tmp}/vit_b16_384.pth"
+    model = build_vit_model(torch, 5)
+    torch.save({"model_state_dict": model.state_dict(), "config": cfg, "epoch": 0}, pth)
+    del model
+    server = Server(pth, batch_size=batch, device="cuda")
+    x = np.random.default_rng(5).random((batch, img, img, 3), np.float32)
+
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the supervised serving path's run starts here
+        out = server.forward_batch(x)
+        per_forward = dict(kernels.launches)
+        short = server.forward_batch(x[:37])
+        main_launches = dict(kernels.launches)  # ... and ends here
+    print(f"  launches: {main_launches} ({per_forward} in the first forward)",
+          flush=True)
+    if (per_forward != {fa.FUSED_KERNEL: blocks}
+            or main_launches != {fa.FUSED_KERNEL: 2 * blocks}):
+        fail(f"expected {blocks} fused_attention_fwd launches per forward and "
+             f"nothing else, got {per_forward} then {main_launches}")
+    classes = cfg["model"]["num_classes"]
+    if out.shape != (batch, classes) or not np.isfinite(out).all():
+        fail(f"logits {out.shape} not finite ({batch}, {classes})")
+    pad_err = float(np.abs(short - out[:37]).max())
+    print(f"  padding: short batch of 37 vs full batch rows, max_abs_diff "
+          f"{pad_err:.3e} (must be 0)", flush=True)
+    if pad_err != 0.0:
+        fail("zero-padding rows changed real rows")
+
+    with plain_attention(), torch.inference_mode():
+        ref = server.model(torch.from_numpy(x).cuda()).float().cpu().numpy()
+    if dict(kernels.launches) != main_launches:
+        fail("the plain-attention reference run launched a kernel")
+    cos = row_cosine(out, ref)
+    max_err = float(np.abs(out - ref).max())
+    differ = out.argmax(1) != ref.argmax(1)
+    near_tie = top2_margin(ref) <= 2 * max_err
+    print(f"  against plain attention on the card: min row cosine {cos.min():.6f} "
+          f"(>= 0.999), logits max_abs_err {max_err:.3e}; preds differ in "
+          f"{int(differ.sum())} of {batch} rows, {int((differ & ~near_tie).sum())} "
+          f"of them outside a near tie (must be 0)", flush=True)
+    if cos.min() < 0.999 or (differ & ~near_tie).any():
+        fail("supervised serving disagrees with the plain attention path")
+    warm_ms = warm_batch_ms(server, x)
+    print(f"  supervised serving on {card}: warm batch {warm_ms:.3f} ms median of 10 "
+          f"({batch / warm_ms * 1e3:.1f} img/s), host clock incl. H2D/D2H; start-up "
+          f"warm batch {server.warm_s * 1e3:.3f} ms", flush=True)
+
+    def three_batches():
+        for _ in range(3):
+            server.forward_batch(x)
+
+    profile_window(torch, three_batches, "3 supervised serving batches", rows=16)
+    return main_launches
+
+
+def build_supervised_training(torch, cfg=VIT_B16_384):
+    """The ViT's train state on the card (seeded weights, AdamW on the
+    config's schedule with ImageNet-1k's steps per epoch at the global
+    batch), its steps with the config's train augmentation on the card, and
+    a batch of uint8 images with labels."""
+    from vit_ssl_tpu_torch.data.device_augment import make_batch_augment_fn
+    from vit_ssl_tpu_torch.train import (
+        AdamW, SupervisedTrainState, lr_schedule_from_config, make_supervised_steps)
+
+    train = cfg["training"]
+    steps_per_epoch = int(IMAGENET_TRAIN * (1 - cfg["data"]["val_split"])) // GLOBAL_BATCH
+    optimizer = AdamW(lr_schedule_from_config(cfg, steps_per_epoch),
+                      weight_decay=train["optimizer"]["params"]["weight_decay"])
+    state = SupervisedTrainState(build_vit_model(torch, 6, cfg).to("cuda"), optimizer,
+                                 seed=7)
+    train_step, eval_step = make_supervised_steps(
+        optimizer, augment_fn=make_batch_augment_fn(cfg["transforms"]["train"]))
+    b, img = train["batch_size"], cfg["data"]["img_size"]
+    rng = np.random.default_rng(8)
+    batch = {"image": torch.from_numpy(rng.integers(0, 256, (b, img, img, 3),
+                                                    dtype=np.uint8)).cuda(),
+             "label": torch.from_numpy(rng.integers(0, cfg["model"]["num_classes"], b)).cuda(),
+             "weight": torch.ones(b, device="cuda")}
+    return state, train_step, eval_step, batch
+
+
+def phase_supervised_training(torch, fa, card):
+    """The ViT-B/16 training step at batch 64: two warm-up steps, then
+    TIMED_STEPS steps under the plain-version guard, each launching exactly
+    12 B3 training forwards and 12 backwards; losses finite, every
+    parameter moved; peak memory; agreement with the plain attention step
+    from one cloned state; ``eval_step``'s 12 inference launches; a profile
+    of three steps. Returns the launches of the training and eval paths."""
+    from vit_ssl_tpu_torch import kernels
+
+    cfg = VIT_B16_384
+    blocks, b = cfg["model"]["num_blocks"], cfg["training"]["batch_size"]
+    img = cfg["data"]["img_size"]
+    print(f"== supervised training: ViT-B/16 train_step, batch {b}, img {img} "
+          f"(N={(img // cfg['model']['patch_size']) ** 2 + 1}), dropout 0.1, bf16, "
+          f"full depth, remat off, RandomResizedCrop + flip on the card from uint8",
+          flush=True)
+    state, train_step, eval_step, batch = build_supervised_training(torch)
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    for _ in range(2):  # warm-up steps
+        out = train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = {fa.FUSED_KERNEL_TRAIN: blocks, fa.FUSED_KERNEL_BWD: blocks}
+    losses, host_ms = [float(out["loss"])], []
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the supervised training path's run starts here
+        for _ in range(TIMED_STEPS):
+            counted = dict(kernels.launches)
+            t0 = time.perf_counter()
+            out = train_step(state, batch)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out["loss"]))
+            step_launches = {k: v - counted.get(k, 0) for k, v in kernels.launches.items()}
+            if step_launches != per_step:
+                fail(f"a supervised step launched {step_launches}, expected {per_step}")
+        train_launches = dict(kernels.launches)  # ... and ends here
+        kernels.launches.clear()  # the eval step's run starts here
+        ev = eval_step(state, batch)
+        torch.cuda.synchronize()
+        eval_launches = dict(kernels.launches)  # ... and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  launches over {TIMED_STEPS} steps: {train_launches} (per step "
+          f"{per_step}); eval_step: {eval_launches}", flush=True)
+    print(f"  losses: {' '.join(f'{x:.6f}' for x in losses)}; eval loss "
+          f"{float(ev['loss']):.6f}", flush=True)
+    if eval_launches != {fa.FUSED_KERNEL: blocks}:
+        fail(f"eval_step launched {eval_launches}, expected {blocks} fused_attention_fwd")
+    if not all(np.isfinite(losses + [float(ev["loss"])])):
+        fail("a supervised loss is not finite")
+    moved = [k for k, v in state.model.state_dict().items()
+             if not torch.equal(before[k], v)]
+    print(f"  parameters: {len(moved)} of {len(before)} tensors changed", flush=True)
+    if len(moved) != len(before):
+        fail("a supervised step left a parameter unchanged")
+    warm_ms = float(np.median(host_ms))
+    print(f"  supervised training on {card}: warm step {warm_ms:.3f} ms median of "
+          f"{TIMED_STEPS} ({b / warm_ms * 1e3:.1f} img/s), host clock with "
+          f"torch.cuda.synchronize(), device augmentation included; peak memory "
+          f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)", flush=True)
+
+    kernel_state, plain_state = copy.deepcopy(state), copy.deepcopy(state)
+    got = train_step(kernel_state, batch, with_grads=True)
+    counted = dict(kernels.launches)
+    with plain_attention():
+        want = train_step(plain_state, batch, with_grads=True)
+    torch.cuda.synchronize()
+    if dict(kernels.launches) != counted:
+        fail("the plain-attention step launched a kernel")
+    del kernel_state, plain_state
+
+    def exact_step():
+        exact_state = copy.deepcopy(state)
+        with exact_attention(torch):
+            return train_step(exact_state, batch, with_grads=True)
+
+    judge(torch, "plain attention", got, want, exact_step)
+    del got, want
+
+    def three_steps():
+        for _ in range(3):
+            train_step(state, batch)
+
+    profile_window(torch, three_steps, "3 supervised training steps", rows=25)
+    return {"training_supervised": train_launches, "eval_supervised": eval_launches}
+
+
+def phase_fused_times(torch, fa, card):
+    """B3's three entries at ViT-B/16's (64, 12, 577, 64) bf16, CUDA
+    events: kernel twice around its plain version, SDPA on the same
+    contiguous heads (forward; backward through autograd), and B1 on the
+    same data in its (64, 577, 768) layout. Returns the JSON rows."""
+    import torch.nn.functional as F
+
+    b, h, n, d, dtype_name = FUSED_CASES[0]
+    print(f"== B3 times on {card}: ({b},{h},{n},{d}) {dtype_name}", flush=True)
+    q, k, v, do = heads_qkv(b, h, n, d, getattr(torch, dtype_name), seed=700, count=4)
+    scale = 1.0 / d ** 0.5
+    _, stats = fa.fused_attention_fwd_stats(q, k, v, scale)
+
+    def nhd(x):
+        return x.transpose(1, 2).reshape(b, n, h * d).contiguous()
+
+    xq, xk, xv, xdo = (nhd(x) for x in (q, k, v, do))
+    _, b1_stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    parts = {
+        "fwd": (lambda: fa.fused_attention_fwd(q, k, v, scale),
+                lambda: fa.fused_attention_reference(q, k, v, scale),
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                lambda: fa.attention_nhd_fwd(xq, xk, xv, h, scale),
+                attention_bound(b, n, h, d, dtype_name, 0), fa.FUSED_KERNEL),
+        "fwd_stats": (lambda: fa.fused_attention_fwd_stats(q, k, v, scale),
+                      lambda: (fa.fused_attention_reference(q, k, v, scale),
+                               fa.fused_attention_stats_reference(q, k, scale)),
+                      lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                      lambda: fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale),
+                      attention_train_bounds(b, n, h, d, dtype_name, 0)["fwd"],
+                      fa.FUSED_KERNEL_TRAIN),
+        "bwd": (lambda: fa.fused_attention_bwd(q, k, v, do, stats, scale),
+                lambda: fa.fused_attention_bwd_reference(q, k, v, do, scale),
+                lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True),
+                lambda: fa.attention_nhd_bwd(xq, xk, xv, xdo, b1_stats, h, scale),
+                attention_train_bounds(b, n, h, d, dtype_name, 0)["bwd"],
+                fa.FUSED_KERNEL_BWD),
+    }
+    rows = {}
+    for part, (kernel, plain, library, b1, bound, name) in parts.items():
+        first = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, iters=10)
+        library_ms = cuda_ms(library)
+        b1_ms = cuda_ms(b1)
+        second = cuda_ms(kernel)
+        print(f"  {name}: kernel {first:.4f} / {second:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, SDPA {library_ms:.4f} ms, B1 on the same data {b1_ms:.4f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+        rows[part] = {"ms": min(first, second), "plain_ms": plain_ms,
+                      "bound_ms": bound[0], "bound_by": bound[1],
+                      "library_ms": library_ms, "b1_same_data_ms": b1_ms}
+    profile_window(torch, lambda: [parts["bwd"][0]() for _ in range(5)],
+                   "5 fused_attention_bwd calls (its two kernels)", rows=4)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1103,6 +1524,7 @@ def main() -> int:
 
     train_errors = phase_kernels(torch, fa)
     mlp_errors = phase_mlp_kernels(torch, fm)
+    fused_errors = phase_fused_kernels(torch, fa)
     with tempfile.TemporaryDirectory() as tmp:
         server, x, unfused_out, serve_launches = phase_serving(torch, fa, tmp)
         serve_stats = phase_serving_times(torch, fa, server, x, card)
@@ -1115,6 +1537,10 @@ def main() -> int:
     del state, train_step, batch
     fused_train_launches = phase_training_fused(torch, fa, fm, warm_ms, card)
     mlp_stats = phase_mlp_times(torch, fm, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        sup_serve_launches = phase_supervised_serving(torch, fa, tmp, card)
+    sup_paths = phase_supervised_training(torch, fa, card)
+    fused_stats = phase_fused_times(torch, fa, card)
 
     b, n, h, d, dtype_name, bs = ATTENTION_CASES[0]
     xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=200)
@@ -1145,8 +1571,20 @@ def main() -> int:
           "max_abs_err_by_output": bwd_errors["bwd_abs"],
           "max_rel_err_by_output": bwd_errors["bwd_rel"]}),
     ]
+    vit_case = FUSED_CASES[0]
+    entries += [
+        (fa.FUSED_KERNEL, "fused_attention.cu", "vit_ssl_tpu/ops/flash_attention.py:60",
+         fused_errors[vit_case][0], fused_stats["fwd"]),
+        (fa.FUSED_KERNEL_TRAIN, "fused_attention.cu",
+         "vit_ssl_tpu/ops/flash_attention.py:60", fused_errors[vit_case][0],
+         fused_stats["fwd_stats"]),
+        (fa.FUSED_KERNEL_BWD, "fused_attention.cu",
+         "vit_ssl_tpu/ops/flash_attention.py:150", fused_errors[vit_case][1],
+         fused_stats["bwd"]),
+    ]
     paths = {"serving": serve_launches, "training": train_launches,
-             "serving_fused": fused_serve_launches, "training_fused": fused_train_launches}
+             "serving_fused": fused_serve_launches, "training_fused": fused_train_launches,
+             "serving_supervised": sup_serve_launches, **sup_paths}
     for name, *_ in entries:
         if sum(p.get(name, 0) for p in paths.values()) == 0:
             fail(f"{name} was not launched on the main paths")

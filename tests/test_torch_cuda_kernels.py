@@ -2,7 +2,10 @@
 
 Kernel B1: the inference forward, the training forward (output and softmax
 statistics) and the backward (dq, dk, dv), and a ``MultiHeadAttention``
-gradient through the kernels against the plain path. Kernel B4 (fused MLP):
+gradient through the kernels against the plain path. Kernel B3: the same
+three entries on the head-major layout, their equality with B1 on the same
+data, and a ``MultiHeadAttention`` gradient at ViT-B/16's N = 577 through
+them. Kernel B4 (fused MLP):
 its forwards (no mask, keep-mask, keep-mask with pre saved) and its
 backward (with and without the mask), and a ``FeedForwardBlock(use_fused=
 True)`` gradient through the kernels against the plain path.
@@ -319,4 +322,125 @@ def test_feed_forward_gradient_through_fused_kernels(cuda_device, monkeypatch, d
         assert float(got[name].abs().max()) > 0, name
         cos = torch.nn.functional.cosine_similarity(
             got[name].flatten().float(), want[name].flatten().float(), dim=0)
+        assert float(cos) >= 0.999, (name, float(cos))
+
+
+# Kernel B3 (head-major, no mask), (batch, heads, seq, head_dim, dtype):
+# ViT-B/16 at 384 px, N = 1, N = 1024 and ragged N with each head dim
+FUSED_CASES = [
+    (64, 12, 577, 64, "bfloat16"),
+    (16, 12, 577, 64, "float32"),
+    (4, 12, 1, 64, "bfloat16"),
+    (4, 12, 1, 64, "float32"),
+    (4, 12, 1024, 64, "bfloat16"),
+    (8, 4, 70, 32, "bfloat16"),
+    (8, 4, 70, 32, "float32"),
+    (8, 2, 203, 128, "bfloat16"),
+    (8, 2, 203, 128, "float32"),
+]
+
+
+def _head_inputs(b, h, n, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32))
+            .to(device, dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("b,h,n,d,dtype", FUSED_CASES)
+def test_fused_attention_forwards_match_plain(cuda_device, b, h, n, d, dtype):
+    """The inference kernel within BF16_TOL / FP32_TOL of the plain version;
+    the training kernel's output equal to it bit for bit, its statistics
+    within 1e-5 of the plain ones and zero past n."""
+    dt = getattr(torch, dtype)
+    q, k, v = _head_inputs(b, h, n, d, dt, cuda_device, seed=b + n)
+    scale = 1.0 / d ** 0.5
+    before = dict(kernels.launches)
+    out = fa.fused_attention(q, k, v, scale)
+    out_t, stats = fa.fused_attention_fwd_stats(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert kernels.launches[fa.FUSED_KERNEL] == before.get(fa.FUSED_KERNEL, 0) + 1
+    assert kernels.launches[fa.FUSED_KERNEL_TRAIN] == before.get(fa.FUSED_KERNEL_TRAIN, 0) + 1
+    ref = fa.fused_attention_reference(q, k, v, scale)
+    assert out.dtype == dt and out.shape == ref.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(
+        out.float(), ref.float(), **(FP32_TOL if dtype == "float32" else BF16_TOL))
+    assert torch.equal(out, out_t)
+    assert stats.shape == (b, h, -(-n // 64) * 64, 2) and not stats[:, :, n:].any()
+    torch.testing.assert_close(stats[:, :, :n],
+                               fa.fused_attention_stats_reference(q, k, scale),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,h,n,d,dtype", FUSED_CASES)
+def test_fused_attention_backward_matches_plain(cuda_device, b, h, n, d, dtype):
+    """dq, dk, dv within GRAD_REL_TOL of max|plain|."""
+    dt = getattr(torch, dtype)
+    q, k, v = _head_inputs(b, h, n, d, dt, cuda_device, seed=b + n + 1)
+    (do,) = _head_inputs(b, h, n, d, torch.float32, cuda_device, seed=9)[:1]
+    scale = 1.0 / d ** 0.5
+    _, stats = fa.fused_attention_fwd_stats(q, k, v, scale)
+    before = kernels.launches[fa.FUSED_KERNEL_BWD]
+    got = fa.fused_attention_bwd(q, k, v, do, stats, scale)
+    torch.cuda.synchronize()
+    assert kernels.launches[fa.FUSED_KERNEL_BWD] == before + 1
+    want = fa.fused_attention_bwd_reference(q, k, v, do, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dt and g.shape == w.shape and torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= GRAD_REL_TOL[dtype], (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fused_attention_is_b1_on_the_head_major_layout(cuda_device, dtype):
+    """One kernel body for two layouts: B3 equals B1 on the same data bit
+    for bit, forward and backward."""
+    dt = getattr(torch, dtype)
+    b, h, n, d = 4, 12, 577, 64
+    q, k, v = _head_inputs(b, h, n, d, dt, cuda_device, seed=11)
+    (do,) = _head_inputs(b, h, n, d, dt, cuda_device, seed=12)[:1]
+
+    def nhd(x):
+        return x.transpose(1, 2).reshape(b, n, h * d).contiguous()
+
+    out, stats = fa.fused_attention_fwd_stats(q, k, v, 0.125)
+    b1_out, b1_stats = fa.attention_nhd_fwd_stats(nhd(q), nhd(k), nhd(v), h, 0.125)
+    assert torch.equal(nhd(out), b1_out) and torch.equal(stats, b1_stats)
+    got = fa.fused_attention_bwd(q, k, v, do, stats, 0.125)
+    want = fa.attention_nhd_bwd(nhd(q), nhd(k), nhd(v), nhd(do), b1_stats, h, 0.125)
+    assert all(torch.equal(nhd(g), w) for g, w in zip(got, want))
+
+
+def test_fused_attention_refuses_what_the_kernel_cannot_take(cuda_device):
+    x = torch.zeros(2, 2, 37, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.fused_attention(x, x, x, 0.125)
+    x = torch.zeros(2, 2, 37, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.fused_attention(x, x.transpose(2, 3).contiguous().transpose(2, 3), x, 0.125)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_multi_head_attention_gradient_through_b3(cuda_device, monkeypatch, dtype):
+    """ViT-B's widths at N = 577 route to B3 (B1 does not fit them): one
+    training forward and one backward of B3, no B1, the gradient reaches
+    w_query and every parameter's equals the plain path's (cosine >= 0.999)."""
+    dt = getattr(torch, dtype)
+    torch.manual_seed(0)
+    mha = attention_mod.MultiHeadAttention(768, 12, dtype=dt).to(cuda_device)
+    x = torch.randn(4, 577, 768, device=cuda_device)
+
+    def grads():
+        mha.zero_grad()
+        (mha(x).float() ** 2).sum().backward()
+        return {k: p.grad.clone() for k, p in mha.named_parameters()}
+
+    kernels.launches.clear()
+    got = grads()
+    assert dict(kernels.launches) == {fa.FUSED_KERNEL_TRAIN: 1, fa.FUSED_KERNEL_BWD: 1}
+    monkeypatch.setattr(attention_mod, "fused_attention", fa.fused_attention_plain)
+    want = grads()
+    assert dict(kernels.launches) == {fa.FUSED_KERNEL_TRAIN: 1, fa.FUSED_KERNEL_BWD: 1}
+    for name in want:
+        assert float(got[name].abs().max()) > 0, name
+        cos = torch.nn.functional.cosine_similarity(
+            got[name].flatten(), want[name].flatten(), dim=0)
         assert float(cos) >= 0.999, (name, float(cos))

@@ -174,12 +174,12 @@ def test_stats_reference_rebuilds_the_probabilities():
     xq, xk, xv = (torch.from_numpy(x) for x in _inputs(2, 37, 2, 32, seed=6))
     stats = fa.attention_nhd_stats_reference(xq, xk, 2, 0.125, 5)
     assert stats.shape == (2, 2, 37, 2)
-    s = fa._scores(xq, xk, 2, 0.125, 5)
+    s = fa._head_scores(fa._split(xq, 2), fa._split(xk, 2), 0.125, 5)
     p = torch.exp(s - stats[..., :1]) * stats[..., 1:]
     torch.testing.assert_close(p.sum(-1), torch.ones(2, 2, 37))
     torch.testing.assert_close(
-        torch.matmul(p, fa._heads(xv, 2)),
-        fa._heads(fa.attention_nhd_reference(xq, xk, xv, 2, 0.125, 5), 2))
+        torch.matmul(p, fa._split(xv, 2)),
+        fa._split(fa.attention_nhd_reference(xq, xk, xv, 2, 0.125, 5), 2))
 
 
 def test_training_wrappers_take_plain_versions_on_cpu():
@@ -195,10 +195,18 @@ def test_training_wrappers_take_plain_versions_on_cpu():
 
 
 def test_kernel_sources_cover_their_headers():
-    """A header edit must rebuild every library that includes it."""
-    for name in ("attention_nhd_fwd", "attention_nhd_bwd"):
-        files = [f.name for f in kernels.source_files(name)]
-        assert files == [f"{name}.cu", "attention_nhd_common.cuh"]
+    """A header edit must rebuild every library that includes it: B1's two
+    libraries and B3's share the kernel bodies and the common header."""
+    want = {
+        "attention_nhd_fwd": {"attention_nhd_fwd.cu", "attention_fwd.cuh"},
+        "attention_nhd_bwd": {"attention_nhd_bwd.cu", "attention_bwd.cuh"},
+        "fused_attention": {"fused_attention.cu", "attention_fwd.cuh",
+                            "attention_bwd.cuh"},
+    }
+    for name, files in want.items():
+        got = [f.name for f in kernels.source_files(name)]
+        assert got[0] == f"{name}.cu" and len(got) == len(set(got))
+        assert set(got) == files | {"attention_nhd_common.cuh"}
 
 
 def test_stale_follows_headers(monkeypatch, tmp_path):
@@ -220,3 +228,216 @@ def test_stale_follows_headers(monkeypatch, tmp_path):
     assert not kernels._stale("k")
     os.utime(header, (300, 300))  # only the header is newer than the library
     assert kernels._stale("k")
+
+
+# ---------------------------------------------------------------------------
+# Kernel B3: fused_attention on (B, H, N, D), no mask. JAX's runs in
+# interpret mode, as tests/test_flash_attention.py runs it.
+
+# (batch, heads, seq, head_dim): ragged N (the TPU kernel pads 13 to 16 and
+# 70 to 72), D 32 and 64
+FUSED_CASES = [(2, 3, 13, 32), (1, 2, 70, 64)]
+
+
+def _heads_inputs(b, h, n, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, h, n, d), dtype=np.float32) for _ in range(3)]
+
+
+def _jax_fused(xs, scale, dtype):
+    from vit_ssl_tpu.ops.flash_attention import fused_attention as jax_fused
+
+    return jax_fused(*(jnp.asarray(x, dtype) for x in xs), scale, True)
+
+
+def _jax_fused_grads(xs, do, scale, dtype):
+    import jax
+    from vit_ssl_tpu.ops.flash_attention import fused_attention as jax_fused
+
+    _, vjp = jax.vjp(lambda q, k, v: jax_fused(q, k, v, scale, True),
+                     *(jnp.asarray(x, dtype) for x in xs))
+    return [np.asarray(g, np.float32) for g in vjp(jnp.asarray(do, dtype))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,n,d", FUSED_CASES)
+def test_fused_reference_matches_jax_interpret(b, h, n, d, dtype):
+    """Forward at FP32_TOL (fp32) and BF16_TOL (bf16)."""
+    xs = _heads_inputs(b, h, n, d, seed=n)
+    scale = 1.0 / d ** 0.5
+    want = _jax_fused(xs, scale, dtype)
+    got = fa.fused_attention_reference(
+        *(torch.from_numpy(x).to(getattr(torch, dtype)) for x in xs), scale)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, h, n, d)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32),
+        **(FP32_TOL if dtype == "float32" else BF16_TOL))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,n,d", FUSED_CASES)
+def test_fused_bwd_reference_matches_jax_vjp(b, h, n, d, dtype):
+    """dq, dk, dv against JAX's kernel backward through ``jax.vjp``:
+    FP32_TOL in fp32, BWD_BF16_TOL in bf16."""
+    xs = _heads_inputs(b, h, n, d, seed=n + 1)
+    do = np.random.default_rng(n + 2).standard_normal((b, h, n, d), dtype=np.float32)
+    scale = 1.0 / d ** 0.5
+    want = _jax_fused_grads(xs, do, scale, dtype)
+    tdt = getattr(torch, dtype)
+    got = fa.fused_attention_bwd_reference(
+        *(torch.from_numpy(x).to(tdt) for x in xs), torch.from_numpy(do), scale)
+    tol = FP32_TOL if dtype == "float32" else BWD_BF16_TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tdt and g.shape == (b, h, n, d), name
+        np.testing.assert_allclose(g.float().numpy(), w, err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("b,h,n,d", FUSED_CASES)
+def test_fused_autograd_on_cpu_gives_jax_gradients(b, h, n, d):
+    """The Function on a CPU tensor: plain forward and backward, no kernel,
+    and fp32 gradients equal to JAX's kernel backward at FP32_TOL."""
+    xs = _heads_inputs(b, h, n, d, seed=n + 3)
+    do = np.random.default_rng(n + 4).standard_normal((b, h, n, d), dtype=np.float32)
+    scale = 1.0 / d ** 0.5
+    want = _jax_fused_grads(xs, do, scale, jnp.float32)
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in xs)
+    before = dict(kernels.launches)
+    out = fa.fused_attention(q, k, v, scale)
+    got = torch.autograd.grad(out, (q, k, v), torch.from_numpy(do))
+    assert dict(kernels.launches) == before  # CPU: no kernel
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(_jax_fused(xs, scale, jnp.float32)),
+                               **FP32_TOL)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **FP32_TOL)
+
+
+def test_fused_autograd_uses_the_rounded_probabilities():
+    """bf16: the backward takes p rounded to bf16, as JAX's does."""
+    xs = [torch.from_numpy(x).bfloat16() for x in _heads_inputs(2, 2, 37, 32, seed=5)]
+    do = torch.randn(2, 2, 37, 32, generator=torch.Generator().manual_seed(0))
+    q, k, v = (x.clone().requires_grad_() for x in xs)
+    got = torch.autograd.grad(fa.fused_attention(q, k, v, 0.125), (q, k, v), do)
+    want = fa.fused_attention_bwd_reference(*xs, do, 0.125)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_fused_is_b1_on_the_head_major_layout():
+    """B3's plain versions are B1's without the mask, heads split: equal bit
+    for bit, forward, statistics and backward."""
+    xq, xk, xv, do = (torch.from_numpy(x) for x in _inputs(2, 29, 3, 32, seed=8)
+                      + _inputs(2, 29, 3, 32, seed=9)[:1])
+    split = [fa._split(x, 3).contiguous() for x in (xq, xk, xv, do)]
+    assert torch.equal(fa._unheads(fa.fused_attention_reference(*split[:3], 0.2),
+                                   torch.float32),
+                       fa.attention_nhd_reference(xq, xk, xv, 3, 0.2))
+    assert torch.equal(fa.fused_attention_stats_reference(*split[:2], 0.2),
+                       fa.attention_nhd_stats_reference(xq, xk, 3, 0.2))
+    for g, w in zip(fa.fused_attention_bwd_reference(*split, 0.2),
+                    fa.attention_nhd_bwd_reference(xq, xk, xv, do, 3, 0.2)):
+        assert torch.equal(fa._unheads(g, torch.float32), w)
+
+
+def test_fused_training_wrappers_take_plain_versions_on_cpu():
+    q, k, v = (torch.from_numpy(x) for x in _heads_inputs(2, 2, 37, 32, seed=7))
+    before = dict(kernels.launches)
+    assert torch.equal(fa.fused_attention_fwd(q, k, v, 0.125),
+                       fa.fused_attention_reference(q, k, v, 0.125))
+    out, stats = fa.fused_attention_fwd_stats(q, k, v, 0.125)
+    assert torch.equal(out, fa.fused_attention_reference(q, k, v, 0.125))
+    assert torch.equal(stats, fa.fused_attention_stats_reference(q, k, 0.125))
+    grads = fa.fused_attention_bwd(q, k, v, out, stats, 0.125)
+    want = fa.fused_attention_bwd_reference(q, k, v, out, 0.125)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+    assert fa.fused_attention_plain(q, k, v, 0.125).shape == q.shape
+    assert dict(kernels.launches) == before
+
+
+def test_fused_wrapper_refuses_other_devices():
+    x = torch.empty(2, 2, 37, 32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.fused_attention(x, x, x, 0.125)
+
+
+@pytest.mark.parametrize("shape,dtype,match", [
+    ((2, 2, 37, 48), torch.float32, "head dim 48"),
+    ((2, 2, 1025, 64), torch.float32, "sequence length 1025"),
+    ((2, 2, 37, 64), torch.float16, "not supported"),
+    ((2, 37, 64), torch.float32, "expected"),
+    ((2, 0, 37, 64), torch.float32, "grid limits"),
+])
+def test_fused_kernel_input_checks(shape, dtype, match):
+    x = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        fa._check_heads(x, x, x)
+
+
+def test_fused_kernel_input_checks_layout():
+    x = torch.zeros(2, 2, 37, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._check_heads(x, x.transpose(1, 2).contiguous().transpose(1, 2), x)
+    with pytest.raises(ValueError, match="differs"):
+        fa._check_heads(x, torch.zeros(2, 2, 36, 64), x)
+    shifted = torch.zeros(2 * 2 * 37 * 64 + 1)[1:].view(2, 2, 37, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._check_heads(x, x, shifted)
+    assert fa._check_heads(x, x, x) == (2, 2, 37, 64)
+
+
+# ---------------------------------------------------------------------------
+# Routing: the port picks the kernel family the JAX package's predicates pick
+
+def _jax_route(b, n, h, hd, itemsize):
+    """The JAX MultiHeadAttention's choice (``ops/attention.py:147-185``)
+    for an unpacked self-attention with ``use_flash``."""
+    from vit_ssl_tpu.ops import flash_attention as jfa
+
+    if jfa.attention_nhd_profitable(n, b, h, hd, itemsize):
+        return "B1"
+    if not jfa.flash_attention_available(n):
+        return "B2"
+    if jfa.fused_attention_profitable(n, b * h):
+        return "B3"
+    return "XLA"
+
+
+ROUTE_GRID = [
+    (b, n, h, hd, itemsize)
+    for b in (1, 16, 64, 256)
+    for n, h, hd in ((37, 6, 384), (145, 6, 384), (148, 6, 384), (197, 12, 768),
+                     (401, 12, 768), (512, 6, 384), (512, 12, 768),
+                     (577, 6, 384), (577, 12, 768), (577, 16, 1024),
+                     (1024, 6, 384), (1025, 12, 768), (2049, 6, 384))
+    for itemsize in (2, 4)
+]
+
+
+def test_routing_matches_jax_predicates():
+    """Over the grid: B3 wherever JAX picks B3, B1 wherever JAX picks B1, a
+    NotImplementedError naming B2 wherever JAX picks B2; where JAX's TPU
+    timing gate picks XLA the port keeps its kernel of the same rule (B1
+    where B1 fits, else B3). The slice's ViT-B/16 at 384 px is B3 on both
+    sides, and every DINO ViT-S/8 shape is B1 for the port."""
+    from vit_ssl_tpu.ops import flash_attention as jfa
+
+    seen = set()
+    for b, n, h, hd, itemsize in ROUTE_GRID:
+        jax_route = _jax_route(b, n, h, hd, itemsize)
+        seen.add(jax_route)
+        assert fa.attention_nhd_feasible(b, n, h, hd, itemsize) == \
+            jfa.attention_nhd_feasible(b, n, h, hd, itemsize), (b, n, h, hd)
+        if jax_route == "B2":
+            with pytest.raises(NotImplementedError, match="B2"):
+                fa.attention_route(b, n, h, hd, itemsize)
+            continue
+        got = fa.attention_route(b, n, h, hd, itemsize)
+        if jax_route == "XLA":
+            jax_route = "B1" if jfa.attention_nhd_feasible(b, n, h, hd, itemsize) else "B3"
+        assert got == jax_route, (b, n, h, hd, itemsize)
+    assert seen == {"B1", "B2", "B3", "XLA"}
+    assert _jax_route(64, 577, 12, 768, 2) == "B3"
+    assert fa.attention_route(64, 577, 12, 768, 2) == "B3"
+    for b, n in ((128, 145), (256, 145), (512, 37)):
+        assert fa.attention_route(b, n, 6, 384, 2) == "B1"
+    assert fa.attention_route(128, 148, 6, 384, 2, block_size=37) == "B1"
+    assert fa.attention_route(1, 2048, 6, 384, 2, block_size=37) == "B1"

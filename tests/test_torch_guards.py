@@ -3,8 +3,11 @@
 - the port (``vit_ssl_tpu_torch``) and ``chip_smoke.py`` import neither JAX
   nor the JAX package, checked in a fresh interpreter and by an AST scan;
 - its entry points take the card unless the caller asks for the CPU;
-- ``chip_smoke.py``'s DINO ViT-S/8 config is the composed ``configs/dino.yaml``
-  and the script refuses to run without a card.
+- ``chip_smoke.py``'s DINO ViT-S/8 config is the composed ``configs/dino.yaml``,
+  its supervised ViT-B/16 the composed ``configs/vit_b_imagenet.yaml`` at
+  384 px, and the script refuses to run without a card;
+- a self-attention longer than kernel B3 takes (N > 1024, kernel B2's
+  territory) is refused by name.
 """
 
 import ast
@@ -39,7 +42,7 @@ def test_port_import_leaves_jax_out():
         "import vit_ssl_tpu_torch.models, vit_ssl_tpu_torch.ops\n"
         "import vit_ssl_tpu_torch.utils.checkpoint, vit_ssl_tpu_torch.data.transforms\n"
         "import vit_ssl_tpu_torch.train, vit_ssl_tpu_torch.utils.metrics\n"
-        "import vit_ssl_tpu_torch.data.device_augment\n"
+        "import vit_ssl_tpu_torch.data.device_augment, vit_ssl_tpu_torch.models.vit\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} + ('cv2', 'PIL', 'triton'))\n"
         "print(bad)\n"
@@ -105,6 +108,51 @@ def test_chip_smoke_config_is_composed_dino_yaml():
     assert smoke["model"]["dino_pack_locals"] and smoke["training"]["teacher_dropout"]
     assert set(smoke) == {"training", "model", "data", "transforms"}
     _assert_within(smoke, composed, "config")
+
+
+def test_chip_smoke_supervised_config_is_composed_vit_b_yaml():
+    """configs/vit_b_imagenet.yaml with data.img_size=384
+    parallel.remat=false training.batch_size=64: model, data, the
+    optimizer and its schedule, and the train transforms."""
+    composed = to_container(compose(REPO / "configs", "vit_b_imagenet", overrides=[
+        "data.img_size=384", "parallel.remat=false", "training.batch_size=64"]))
+    smoke = _load_chip_smoke().VIT_B16_384
+    assert smoke["training"]["type"] == "supervised"
+    assert set(smoke) == {"training", "model", "data", "parallel", "transforms"}
+    assert smoke["transforms"]["train"][0]["params"]["size"] == 384
+    _assert_within(smoke, composed, "config")
+
+
+def test_chip_smoke_b3_bounds():
+    """ViT-B/16 at 384 px, (64, 12, 577, 64) bf16: 56.7 MB a tensor and
+    32.7 GFLOP a product. Inference forward 227 MB (0.068 ms) against two
+    products (0.066 ms): bytes. Training forward + 3.5 MB of statistics
+    (0.069 ms): bytes. Backward 401 MB (0.120 ms) against five products
+    (0.165 ms): operations."""
+    smoke = _load_chip_smoke()
+    act = 64 * 12 * 577 * 64 * 2
+    product = 2 * 64 * 12 * 577 * 577 * 64
+    inference = smoke.attention_bound(64, 577, 12, 64, "bfloat16", 0)
+    train = smoke.attention_train_bounds(64, 577, 12, 64, "bfloat16", 0)
+    assert inference == pytest.approx((4 * act / 3.35e9, "bytes"))
+    assert train["fwd"][1] == "bytes" and train["bwd"] == pytest.approx(
+        (5 * product / 989e9, "operations"))
+    assert 0.0677 < inference[0] < 0.0678 and 0.0687 < train["fwd"][0] < 0.0689
+    assert 0.165 < train["bwd"][0] < 0.166
+
+
+def test_long_self_attention_names_b2():
+    """N > 1024 without a mask is kernel B2's (not ported): refused with a
+    NotImplementedError naming it, not a ValueError deep in a kernel check;
+    the attention visualizer's plain path still runs."""
+    from vit_ssl_tpu_torch.ops import MultiHeadAttention
+
+    mha = MultiHeadAttention(64, 2)
+    x = torch.zeros(1, 1025, 64)
+    with pytest.raises(NotImplementedError, match="(?s)B2.*ROADMAP.md"):
+        mha(x)
+    _, probs = mha(x, return_attn=True)
+    assert probs.shape == (1, 2, 1025, 1025)
 
 
 def test_chip_smoke_training_bounds():

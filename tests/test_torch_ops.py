@@ -20,15 +20,21 @@ from vit_ssl_tpu.ops.attention import (
 )
 from vit_ssl_tpu.ops.encoder_block import EncoderBlock as JaxEncoderBlock
 from vit_ssl_tpu.ops.feed_forward import FeedForwardBlock as JaxFFN
+from vit_ssl_tpu.ops.mlp_head import MLPHead as JaxMLPHead
+from vit_ssl_tpu.ops.patch_embedding import ConvPatchEmbed as JaxConvPatchEmbed
 from vit_ssl_tpu.ops.patch_embedding import DynamicPatchEmbed as JaxPatchEmbed
 from vit_ssl_tpu_torch import kernels
 from vit_ssl_tpu_torch.ops import (
+    ConvPatchEmbed,
     DynamicPatchEmbed,
     EncoderBlock,
     FeedForwardBlock,
+    MLPHead,
     MultiHeadAttention,
     scaled_dot_product_attention,
 )
+from vit_ssl_tpu_torch.ops import attention as attention_mod
+from vit_ssl_tpu_torch.ops import flash_attention as fa
 from vit_ssl_tpu_torch.ops.dropout import (
     Dropout,
     drop_threshold,
@@ -286,3 +292,129 @@ def test_encoder_block_dropout_order():
     want = dropout16(ff.linear_out(h), 0.25, g) + x1
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert not torch.equal(got, block(x))  # deterministic differs
+
+
+def force_b3(monkeypatch):
+    """Both packages' self-attention down kernel B3: JAX's NHD gate shut and
+    its fused gate open (its kernel in interpret mode), the port's B1
+    predicate false; nothing in either package is edited."""
+    monkeypatch.setattr(jax_attention_mod, "attention_nhd_profitable",
+                        lambda *a, **kw: False)
+    monkeypatch.setattr(jax_attention_mod, "fused_attention_profitable",
+                        lambda *a, **kw: True)
+    monkeypatch.setattr(fa, "attention_nhd_feasible", lambda *a, **kw: False)
+
+
+def test_multi_head_attention_b3_route_matches_jax(monkeypatch):
+    """Forced down B3 on both sides: output and the gradients of the input
+    and of w_query against JAX's (its B3 kernel forward and custom-VJP
+    backward in interpret mode), fp32 at TOL, N = 21 (ragged to the TPU
+    kernel's 8-row padding)."""
+    force_b3(monkeypatch)
+    x = _x((3, 21, 64), seed=11)
+    g = _x((3, 21, 64), seed=12)
+    jax_mha = JaxMHA(d_model=64, num_heads=4)
+    params = _jiggle(jax_mha.init(jax.random.PRNGKey(7), jnp.asarray(x))["params"], 13)
+
+    def loss(p, xin):
+        return jnp.sum(jax_mha.apply({"params": p}, xin) * jnp.asarray(g))
+
+    want = jax_mha.apply({"params": params}, jnp.asarray(x))
+    want_gp, want_gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+
+    mha = MultiHeadAttention(64, 4)
+    mha.load_state_dict(attention_state_dict_from_flax(params), strict=True)
+    calls = []
+    real = attention_mod.fused_attention
+    monkeypatch.setattr(attention_mod, "fused_attention",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = mha(xt)
+    (out * torch.from_numpy(g)).sum().backward()
+    assert calls == [(3, 4, 21, 16)]  # B3, head-major
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_gx), **TOL)
+    np.testing.assert_allclose(mha.w_query.weight.grad.numpy(),
+                               np.asarray(want_gp["w_query"]["kernel"]).T, **TOL)
+
+
+def test_conv_patch_embed_matches_jax():
+    x = np.random.default_rng(14).random((2, 32, 32, 3), np.float32)
+    jax_pe = JaxConvPatchEmbed(input_shape=(3, 32, 32), embed_dim=48, patch_size=8)
+    params = _jiggle(jax_pe.init(jax.random.PRNGKey(8), jnp.asarray(x))["params"], 15)
+    want = jax_pe.apply({"params": params}, jnp.asarray(x))
+    pe = ConvPatchEmbed((3, 32, 32), 48, 8)
+    state = {"conv.weight": torch.from_numpy(
+                 np.asarray(params["conv"]["kernel"]).transpose(3, 2, 0, 1).copy()),
+             "conv.bias": torch.from_numpy(np.asarray(params["conv"]["bias"])),
+             "cls_token": torch.from_numpy(np.asarray(params["cls_token"])),
+             "positional_embedding": torch.from_numpy(
+                 np.asarray(params["positional_embedding"]))}
+    pe.load_state_dict(state, strict=True)
+    got = _run(pe, x)
+    assert got.shape == (2, 17, 48)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_conv_patch_embed_bf16_rounds_like_jax():
+    """In bf16 the conv output, the cast CLS token and the cast positional
+    embedding are added in bf16, as JAX adds them (one bf16 ulp apart at
+    most: the two convolutions sum in another order)."""
+    x = np.random.default_rng(16).random((2, 16, 16, 3), np.float32)
+    jax_pe = JaxConvPatchEmbed(input_shape=(3, 16, 16), embed_dim=32, patch_size=8,
+                               dtype=jnp.bfloat16)
+    params = _jiggle(jax_pe.init(jax.random.PRNGKey(9), jnp.asarray(x))["params"], 17)
+    want = np.asarray(jax_pe.apply({"params": params}, jnp.asarray(x)), np.float32)
+    pe = ConvPatchEmbed((3, 16, 16), 32, 8, dtype=torch.bfloat16)
+    pe.load_state_dict({
+        "conv.weight": torch.from_numpy(
+            np.asarray(params["conv"]["kernel"]).transpose(3, 2, 0, 1).copy()),
+        "conv.bias": torch.from_numpy(np.asarray(params["conv"]["bias"])),
+        "cls_token": torch.from_numpy(np.asarray(params["cls_token"])),
+        "positional_embedding": torch.from_numpy(
+            np.asarray(params["positional_embedding"]))}, strict=True)
+    with torch.inference_mode():
+        got = pe(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2, rtol=1e-2)
+
+
+def test_conv_patch_embed_rejects_indivisible_size():
+    with pytest.raises(ValueError, match="divisible"):
+        ConvPatchEmbed((3, 30, 30), 16, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_head_matches_jax(dtype):
+    """LayerNorm and Linear in fp32 whatever the input dtype: fp32 logits."""
+    x = _x((4, 32), seed=18)
+    jax_head = JaxMLPHead(d_model=32, num_classes=10)
+    params = _jiggle(jax_head.init(jax.random.PRNGKey(10), jnp.asarray(x))["params"], 19)
+    xin = torch.from_numpy(x).to(dtype)
+    want = jax_head.apply({"params": params}, jnp.asarray(xin.float().numpy()))
+    head = MLPHead(32, 10)
+    head.load_state_dict({
+        "norm.weight": torch.from_numpy(np.asarray(params["norm"]["scale"])),
+        "norm.bias": torch.from_numpy(np.asarray(params["norm"]["bias"])),
+        "linear.weight": torch.from_numpy(np.asarray(params["linear"]["kernel"]).T.copy()),
+        "linear.bias": torch.from_numpy(np.asarray(params["linear"]["bias"]))},
+        strict=True)
+    with torch.inference_mode():
+        got = head(xin)
+    assert got.dtype == torch.float32 and got.shape == (4, 10)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_encoder_block_return_attn_matches_jax():
+    """The visualizer's path: the block's output and its attention
+    probabilities against JAX's."""
+    x = _x((2, 10, 64), seed=20)
+    jax_block = JaxEncoderBlock(d_model=64, num_heads=2, mlp_dim=128, dropout=0.0)
+    params = _jiggle(jax_block.init(jax.random.PRNGKey(11), jnp.asarray(x))["params"], 21)
+    want, want_p = jax_block.apply({"params": params}, jnp.asarray(x), True, True)
+    block = EncoderBlock(64, 2, 128)
+    block.load_state_dict(encoder_block_state_dict_from_flax(params), strict=True)
+    with torch.inference_mode():
+        got, got_p = block(torch.from_numpy(x), return_attn=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), **TOL)

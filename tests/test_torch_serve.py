@@ -237,3 +237,89 @@ def test_fused_mlp_checkpoint_serves_like_jax(exported, tmp_path):
     np.testing.assert_allclose(got, want, atol=5e-4, rtol=0)
     np.testing.assert_allclose(got, np.stack([exported.want[p] for p in paths]),
                                atol=5e-4, rtol=0)  # and the unfused JAX path
+
+
+# ---------------------------------------------------------------------------
+# supervised checkpoints: class predictions
+
+SUPERVISED_OVERRIDES = [
+    "data.img_size=32", "model.embed_dim=64", "model.num_heads=2",
+    "model.num_blocks=2", "model.mlp_dim=128", "model.num_classes=5",
+    "model.patch_size=8", "model.compute_dtype=float32",
+]
+
+
+@pytest.fixture(scope="module")
+def supervised_exported(tmp_path_factory, exported):
+    """A JAX supervised checkpoint (``build_model`` on the composed
+    ``configs/supervised.yaml``, narrowed; jiggled weights) and the ``.pth``
+    that ``scripts/export_torch.py`` makes of it."""
+    import importlib.util
+
+    from vit_ssl_tpu.utils.checkpoint import save_checkpoint
+
+    root = tmp_path_factory.mktemp("torch_serve_supervised")
+    config = compose(REPO / "configs", "supervised", overrides=SUPERVISED_OVERRIDES)
+    bundle = build_model(config)
+    params = _jiggle(bundle.init_fn(jax.random.PRNGKey(3))["params"], 4)
+    ckpt = str(root / "best_model")
+    save_checkpoint(ckpt, {"params": params},
+                    {"mode": "supervised", "epoch": 0, "config": to_container(config)})
+    spec = importlib.util.spec_from_file_location(
+        "export_torch", REPO / "scripts" / "export_torch.py")
+    export = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(export)
+    pth = str(root / "vit.pth")
+    export.main([ckpt, pth])
+    spec = importlib.util.spec_from_file_location("jax_serve", REPO / "scripts" / "serve.py")
+    jax_serve = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_serve)
+    jax_server = jax_serve.Server(ckpt, batch_size=BATCH)
+    want = [rec for i in range(0, 6, BATCH)
+            for rec in jax_server.infer(exported.images[i:i + BATCH])]
+    return SimpleNamespace(pth=pth, want=want, images=exported.images[:6])
+
+
+def test_supervised_checkpoint_serves_like_jax(supervised_exported):
+    """The port's server on the exported ``.pth`` answers what
+    ``scripts/serve.py`` answers on the JAX checkpoint: the same pred for
+    every image and the prob within 1e-5 (both round to 6 digits), over a
+    full batch and a zero-padded short one."""
+    server = serve.Server(supervised_exported.pth, batch_size=BATCH, device="cpu")
+    assert server.classifier and server.mode == "supervised"
+    got = server.infer(supervised_exported.images[:BATCH])
+    got += server.infer(supervised_exported.images[BATCH:])
+    assert [r["path"] for r in got] == [r["path"] for r in supervised_exported.want]
+    assert [r["pred"] for r in got] == [r["pred"] for r in supervised_exported.want]
+    np.testing.assert_allclose([r["prob"] for r in got],
+                               [r["prob"] for r in supervised_exported.want],
+                               atol=1e-5, rtol=0)
+    assert all(set(r) == {"path", "pred", "prob"} for r in got)
+
+
+def test_supervised_cli_and_stdin_share_the_pipeline(supervised_exported, tmp_path):
+    """The CLI writes {path, pred, prob} lines; the stdin server answers
+    the same records."""
+    out = tmp_path / "preds.jsonl"
+    serve.main(["--checkpoint", supervised_exported.pth, "--device", "cpu",
+                "--batch-size", str(BATCH), "--output", str(out),
+                *supervised_exported.images])
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    server = serve.Server(supervised_exported.pth, batch_size=BATCH, device="cpu")
+    r, w = os.pipe()
+    os.write(w, ("\n".join(supervised_exported.images) + "\n").encode())
+    os.close(w)
+    sink = io.StringIO()
+    with os.fdopen(r) as stdin:
+        serve.run_stdin_server(server, sink, max_wait_ms=50.0, stdin=stdin)
+    assert [json.loads(line) for line in sink.getvalue().splitlines()] == recs
+    assert [rec["pred"] for rec in recs] == [r["pred"] for r in supervised_exported.want]
+
+
+def test_supervised_checkpoint_missing_key_raises(supervised_exported, tmp_path):
+    state = torch.load(supervised_exported.pth, weights_only=True)
+    del state["model_state_dict"]["classification_head.linear.bias"]
+    pth = str(tmp_path / "broken.pth")
+    torch.save(state, pth)
+    with pytest.raises(RuntimeError, match="classification_head.linear.bias"):
+        serve.Server(pth, batch_size=2, device="cpu")

@@ -18,7 +18,13 @@ Ported so far:
   ``attention_nhd_bwd`` CUDA kernels (and the inference kernel for the
   teacher);
 - ``model.use_fused_mlp=true`` on both paths: each FFN runs as the fused
-  MLP kernels (``fused_mlp_fwd``, ``fused_mlp_fwd_pre``, ``fused_mlp_bwd``).
+  MLP kernels (``fused_mlp_fwd``, ``fused_mlp_fwd_pre``, ``fused_mlp_bwd``);
+- the supervised ViT (:class:`.models.ViT`): its training and evaluation
+  steps (:func:`.train.make_supervised_steps`, augmentation on the
+  device) and serving of supervised/finetune checkpoints (class
+  predictions); where B1 does not fit (ViT-B/16 at 384 px) attention runs
+  through the head-major kernels ``fused_attention_fwd``,
+  ``fused_attention_fwd_stats`` and ``fused_attention_bwd`` (kernel B3).
 
 This package imports neither ``jax`` nor ``vit_ssl_tpu``.
 """

@@ -1,6 +1,7 @@
-// Device helpers shared by the attention kernels of kernel B1
-// (attention_nhd_fwd.cu, attention_nhd_bwd.cu): warp reductions, the
-// bf16 mma.sync / ldmatrix / cp.async building blocks and the tile loads.
+// Device helpers shared by the attention kernels of kernels B1 and B3
+// (attention_fwd.cuh, attention_bwd.cuh): the two layouts, warp
+// reductions, the bf16 mma.sync / ldmatrix / cp.async building blocks and
+// the tile loads.
 //
 // Both kernels must compute the scores s = q . k^T * scale with the very
 // same instruction sequence (mma_abt8), so that the backward rebuilds the
@@ -47,6 +48,23 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
+}
+
+// Where the n rows of head h of image b lie. B1 reads the projections'
+// (B, N, H*D) layout: head h of token i at [(b*N + i)*H*D + h*D], rows H*D
+// apart. B3 reads the head-major (B, H, N, D) layout: at
+// [((b*H + h)*N + i)*D], rows D apart, one head's rows contiguous. The
+// kernels take every address from these two numbers, so one body serves
+// both layouts.
+struct HeadRows {
+  size_t base;  // element offset of row 0
+  int stride;   // elements from one row to the next
+};
+
+template <bool kHeadMajor, int D>
+__device__ __forceinline__ HeadRows head_rows(int b, int h, int n, int heads) {
+  if (kHeadMajor) return {((size_t)b * heads + h) * n * D, D};
+  return {(size_t)b * n * heads * D + (size_t)h * D, heads * D};
 }
 
 // The keys [lo, hi) that query `row` attends: its diagonal block of the

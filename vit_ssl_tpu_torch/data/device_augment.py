@@ -306,3 +306,16 @@ def make_multicrop_fn(globals_seq: Sequence[Dict], locals_seq: Sequence[Dict],
         return tuple(views)
 
     return fn
+
+
+def make_batch_augment_fn(sequence: Sequence[Dict]) -> Callable:
+    """``fn(generator, images) -> images``: one augmented view of each of a
+    (B, H, W, C) uint8 or float batch, on the images' device (port of
+    ``make_batch_augment_fn``, the supervised step's train-time pipeline);
+    the generator must live there too."""
+    pipeline = build_device_pipeline(sequence)
+
+    def fn(generator, images) -> torch.Tensor:
+        return pipeline(generator, to_unit_float(images))
+
+    return fn

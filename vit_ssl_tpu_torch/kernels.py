@@ -33,6 +33,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES: Dict[str, str] = {
     "attention_nhd_fwd": "csrc/attention_nhd_fwd.cu",
     "attention_nhd_bwd": "csrc/attention_nhd_bwd.cu",
+    "fused_attention": "csrc/fused_attention.cu",
     "fused_mlp_fwd": "csrc/fused_mlp_fwd.cu",
     "fused_mlp_bwd": "csrc/fused_mlp_bwd.cu",
 }

@@ -1,17 +1,22 @@
-"""Model factory (port of the ``dino``/``eval_dino`` branch of
-``vit_ssl_tpu/models/builder.py::build_model``): the DINO backbone that
-serving loads, and the full ``DINONetwork`` that training runs.
+"""Model factory (port of ``vit_ssl_tpu/models/builder.py::build_model``):
+the supervised/finetune :class:`~.vit.ViT`, the DINO backbone that serving
+loads, and the full ``DINONetwork`` that training runs.
 
 The config is the plain dict a checkpoint embeds (``.pth`` written by
-``scripts/export_torch.py``): ``model.*``, ``data.img_size`` and the mode
-under ``training.type`` or ``eval.mode``.
+``scripts/export_torch.py``): ``model.*``, ``data.img_size``,
+``parallel.remat`` and the mode under ``training.type`` or ``eval.mode``.
+Finetune's weight surgery (``load_weights``, the freeze mask) is not
+ported yet (``ROADMAP.md`` queue A item 7): ``build_vit`` builds the
+model only.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from .dino import DINONetwork, ViTBackbone
+from .vit import ViT
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -34,15 +39,8 @@ def compute_dtype(config: dict) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _dino_kwargs(config: dict, device) -> dict:
-    """Constructor arguments shared by the backbone and the network."""
-    mode = config_mode(config)
-    if mode not in ("dino", "eval_dino"):
-        raise NotImplementedError(
-            f"mode '{mode}' is not ported yet: the port serves DINO "
-            "checkpoints only (supervised/finetune models are ROADMAP.md "
-            "queue A item 7, SimMIM item 8)"
-        )
+def _common_kwargs(config: dict, device) -> dict:
+    """Constructor arguments shared by every model (JAX ``_common_kwargs``)."""
     model = config["model"]
     img = int(config["data"]["img_size"])
     return dict(
@@ -58,6 +56,48 @@ def _dino_kwargs(config: dict, device) -> dict:
         use_fused_mlp=bool(model.get("use_fused_mlp", False)),
         device=device,
     )
+
+
+def _dino_kwargs(config: dict, device) -> dict:
+    """Constructor arguments shared by the backbone and the network."""
+    mode = config_mode(config)
+    if mode not in ("dino", "eval_dino"):
+        raise NotImplementedError(
+            f"mode '{mode}' is not a DINO mode: build_model builds the "
+            "supervised/finetune ViT; SimMIM is ROADMAP.md queue A item 8"
+        )
+    return _common_kwargs(config, device)
+
+
+def build_vit(config: dict, device) -> ViT:
+    """The supervised/finetune ViT the config describes, on ``device``
+    (JAX ``build_model``'s ``supervised``/``finetune`` branch)."""
+    mode = config_mode(config)
+    if mode not in ("supervised", "finetune"):
+        raise ValueError(f"mode '{mode}' does not build a ViT classifier")
+    model = config["model"]
+    return ViT(
+        num_classes=int(model["num_classes"]),
+        patch_dropout=float(model.get("patch_dropout", 0.0)),
+        remat=bool((config.get("parallel") or {}).get("remat", False)),
+        scan_layers=bool(model.get("scan_layers", False)),
+        moe_experts=int(model.get("moe_experts", 0) or 0),
+        **_common_kwargs(config, device),
+    )
+
+
+def build_model(config: dict, device) -> nn.Module:
+    """The model of the config's mode, on ``device``: the ViT for
+    supervised and finetune, the ``DINONetwork`` for dino and eval_dino."""
+    mode = config_mode(config)
+    if mode in ("supervised", "finetune"):
+        return build_vit(config, device)
+    if mode in ("dino", "eval_dino"):
+        return build_dino_network(config, device)
+    if mode == "simmim":
+        raise NotImplementedError(
+            "mode 'simmim' is not ported yet; see ROADMAP.md queue A item 8")
+    raise ValueError(f"Unknown model-building mode: {mode}")
 
 
 def build_backbone(config: dict, device) -> ViTBackbone:

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import DynamicPatchEmbed, EncoderBlock
+from ..ops import ConvPatchEmbed, DynamicPatchEmbed, EncoderBlock
 
 
 @torch.no_grad()
@@ -38,6 +38,24 @@ def _reset_linear(module: nn.Module, generator: Optional[torch.Generator]):
     if module.bias is not None:
         bound = 1.0 / math.sqrt(module.weight[0].numel())
         nn.init.uniform_(module.bias, -bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def reference_init_(model: nn.Module, generator: Optional[torch.Generator] = None):
+    """Redraw every parameter of ``model`` with the reference init, in
+    module order: Kaiming-uniform (a=√5) weights and U(±1/√fan_in) biases
+    for Linear/Conv2d, ones and zeros for LayerNorm, U[0, 1) CLS and
+    positional embeddings. Returns ``model``."""
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Conv2d)):
+            _reset_linear(module, generator)
+        elif isinstance(module, nn.LayerNorm):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, (ConvPatchEmbed, DynamicPatchEmbed)):
+            nn.init.uniform_(module.cls_token, generator=generator)
+            nn.init.uniform_(module.positional_embedding, generator=generator)
+    return model
 
 
 class ViTBackbone(nn.Module):
@@ -72,22 +90,10 @@ class ViTBackbone(nn.Module):
         """(B, H, W, C) images → (B, embed_dim) CLS embeddings in ``dtype``."""
         return self.encode(self.embed(x), 0, deterministic, generator)[:, 0]
 
-    @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Redraw every parameter with the reference init: Kaiming-uniform
-        (a=√5) weights and U(±1/√fan_in) biases for Linear/Conv2d, ones and
-        zeros for LayerNorm, U[0, 1) CLS and positional embeddings."""
-        for module in self.modules():
-            if isinstance(module, (nn.Linear, nn.Conv2d)):
-                _reset_linear(module, generator)
-            elif isinstance(module, nn.LayerNorm):
-                nn.init.ones_(module.weight)
-                nn.init.zeros_(module.bias)
-            elif isinstance(module, DynamicPatchEmbed):
-                nn.init.uniform_(module.cls_token, generator=generator)
-                nn.init.uniform_(module.positional_embedding,
-                                 generator=generator)
-        return self
+        """Redraw every parameter with the reference init
+        (:func:`reference_init_`)."""
+        return reference_init_(self, generator)
 
 
 class _WeightParts(nn.Module):

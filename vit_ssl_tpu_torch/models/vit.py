@@ -1,0 +1,98 @@
+"""Supervised Vision Transformer (port of ``vit_ssl_tpu/models/vit.py``).
+
+:class:`ConvPatchEmbed` → pre-LN encoder blocks → CLS token →
+:class:`MLPHead` (LayerNorm + Linear in fp32): fp32 logits.
+``return_attn`` also returns the last block's attention probabilities.
+The forward is ``embed`` → ``encode`` → ``finish``, as in the JAX module.
+
+Not ported yet, and refused with ``NotImplementedError`` (``ROADMAP.md``
+queue A): ``remat`` (activation checkpointing: the dropout masks come from
+explicit generators, which ``torch.utils.checkpoint`` does not replay),
+``scan_layers``, ``patch_dropout`` and Mixture-of-Experts blocks.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops import ConvPatchEmbed, EncoderBlock, MLPHead
+from .dino import reference_init_
+
+
+def _refuse(option: str, why: str = "") -> None:
+    raise NotImplementedError(
+        f"{option} is not ported yet{why}; see ROADMAP.md queue A"
+    )
+
+
+class ViT(nn.Module):
+    def __init__(self, num_classes: int, num_blocks: int,
+                 input_shape: Tuple[int, int, int], embed_dim: int,
+                 patch_size: int, num_heads: int = 8, mlp_dim: int = 3072,
+                 dropout: float = 0.1, patch_dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32, fast_dropout: bool = True,
+                 use_fused_mlp: bool = False, remat: bool = False,
+                 scan_layers: bool = False, moe_experts: int = 0, device=None):
+        super().__init__()
+        if remat:
+            _refuse("parallel.remat (activation checkpointing)",
+                    ": the dropout masks come from explicit generators, which "
+                    "torch.utils.checkpoint does not replay")
+        if scan_layers:
+            _refuse("model.scan_layers")
+        if patch_dropout > 0.0:
+            _refuse("model.patch_dropout > 0")
+        if moe_experts > 0:
+            _refuse("model.moe_experts > 0 (Mixture-of-Experts blocks)")
+        self.dtype = dtype
+        self.patch_embedding = ConvPatchEmbed(
+            input_shape, embed_dim, patch_size, dtype=dtype, device=device
+        )
+        self.encoder_blocks = nn.ModuleList(
+            EncoderBlock(embed_dim, num_heads, mlp_dim, dtype=dtype,
+                         dropout=dropout, fast_dropout=fast_dropout,
+                         use_fused_mlp=use_fused_mlp, device=device)
+            for _ in range(num_blocks)
+        )
+        self.classification_head = MLPHead(embed_dim, num_classes, device=device)
+
+    def embed(self, x):
+        return self.patch_embedding(x)
+
+    def encode(self, x, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None,
+               return_attn: bool = False):
+        """The encoder blocks; with ``return_attn``, (tokens, the last
+        block's probabilities)."""
+        probs = None
+        last = len(self.encoder_blocks) - 1
+        for i, block in enumerate(self.encoder_blocks):
+            if return_attn and i == last:
+                x, probs = block(x, 0, deterministic, generator, return_attn=True)
+            else:
+                x = block(x, 0, deterministic, generator)
+        return (x, probs) if return_attn else x
+
+    def finish(self, x):
+        """The CLS token's fp32 logits."""
+        return self.classification_head(x[:, 0].float())
+
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                return_attn: bool = False):
+        """(B, H, W, C) images → (B, num_classes) fp32 logits [, the last
+        block's attention probabilities (B, heads, N, N)]. Unless
+        ``deterministic``, ``generator`` draws the dropout masks."""
+        x = self.embed(x)
+        if return_attn:
+            x, probs = self.encode(x, deterministic, generator, True)
+            return self.finish(x), probs
+        return self.finish(self.encode(x, deterministic, generator))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Redraw every parameter with the reference init
+        (:func:`~.dino.reference_init_`)."""
+        return reference_init_(self, generator)

@@ -1,8 +1,20 @@
 """Multi-head self-attention (port of ``vit_ssl_tpu/ops/attention.py``).
 
 Bias-free Q/K/V and output projections, scale 1/√d. Self-attention without
-``return_attn`` runs through :func:`.flash_attention.attention_nhd` on the
-projections' (B, N, H·D) layout — the hand-written kernel on the card.
+``return_attn`` runs through a hand-written kernel on the card, picked as
+the JAX package picks it (``MultiHeadAttention.__call__``,
+``vit_ssl_tpu/ops/attention.py:140-197``):
+
+- a packed sequence (``block_size`` > 0), or any shape that B1 fits
+  (:func:`.flash_attention.attention_nhd_feasible`):
+  :func:`.flash_attention.attention_nhd` (kernel B1) on the projections'
+  (B, N, H·D) layout;
+- otherwise, up to N = 1024: :func:`.flash_attention.fused_attention`
+  (kernel B3) on contiguous (B, H, N, D) heads;
+- longer sequences need kernel B2, which is not ported yet: they raise
+
+(:func:`.flash_attention.attention_route`).
+
 ``return_attn`` (the attention visualizer) and cross-attention take the
 plain math of :func:`scaled_dot_product_attention`, as the JAX package
 sends them to XLA.
@@ -17,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .flash_attention import attention_nhd
+from .flash_attention import attention_nhd, attention_route, fused_attention
 
 
 def scaled_dot_product_attention(query, key, value, return_attn: bool = False,
@@ -79,16 +91,22 @@ class MultiHeadAttention(nn.Module):
         d_head = self.d_model // self.num_heads
         scale = 1.0 / float(d_head) ** 0.5
 
-        if not return_attn and n_q == n_k:
-            context = attention_nhd(
-                self._proj(self.w_query, query), self._proj(self.w_key, key),
-                self._proj(self.w_value, value), self.num_heads, scale,
-                block_size,
-            )
-            return self._proj(self.final_linear, context)
-
         def heads(x, n):  # (B, N, H·D) -> (B, H, N, D)
             return x.reshape(b, n, self.num_heads, d_head).transpose(1, 2)
+
+        if not return_attn and n_q == n_k:
+            xq, xk, xv = (self._proj(layer, x) for layer, x in (
+                (self.w_query, query), (self.w_key, key), (self.w_value, value)))
+            route = attention_route(b, n_q, self.num_heads, self.d_model,
+                                    self.dtype.itemsize, block_size)
+            if route == "B1":
+                context = attention_nhd(xq, xk, xv, self.num_heads, scale,
+                                        block_size)
+            else:
+                context = fused_attention(
+                    *(heads(x, n_q).contiguous() for x in (xq, xk, xv)), scale)
+                context = context.transpose(1, 2).reshape(b, n_q, self.d_model)
+            return self._proj(self.final_linear, context)
 
         q = heads(self._proj(self.w_query, query), n_q)
         k = heads(self._proj(self.w_key, key), n_k)

@@ -38,19 +38,27 @@ class EncoderBlock(nn.Module):
         self.drop2 = Dropout(dropout, fast_dropout)
 
     def forward(self, x, block_size: int = 0, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                return_attn: bool = False):
         """``block_size`` > 0: block-diagonal attention over a packed
         sequence (LN, FFN and dropout are per token, so only attention
         needs it). Unless ``deterministic``, ``generator`` draws the three
         dropout masks in a fixed order: after attention, inside the FFN,
-        after the FFN."""
+        after the FFN. ``return_attn`` also returns the attention
+        probabilities (B, H, N, N), fp32."""
         x = x.to(self.dtype)
         residual = x
         h = self.layer_norm1(x.float()).to(self.dtype)
-        h = self.self_attention(h, block_size=block_size)
+        probs = None
+        if return_attn:
+            h, probs = self.self_attention(h, return_attn=True,
+                                           block_size=block_size)
+        else:
+            h = self.self_attention(h, block_size=block_size)
         x = self.drop1(h, deterministic, generator) + residual
 
         residual = x
         h = self.layer_norm2(x.float()).to(self.dtype)
         h = self.feed_forward(h, deterministic, generator)
-        return self.drop2(h, deterministic, generator) + residual
+        x = self.drop2(h, deterministic, generator) + residual
+        return (x, probs) if return_attn else x

@@ -1,8 +1,11 @@
-"""Patch embedder (port of ``vit_ssl_tpu/ops/patch_embedding.py::DynamicPatchEmbed``).
+"""Patch embedders (port of ``vit_ssl_tpu/ops/patch_embedding.py``).
 
-Conv(k = stride = patch) tokenizer ``proj`` + learnable ``cls_token`` +
-learnable ``positional_embedding`` of length (H/p)²+1. Images come in NHWC,
-the JAX package's layout, and are permuted to NCHW for the convolution.
+Conv(k = stride = patch) tokenizer + learnable ``cls_token`` + learnable
+``positional_embedding`` of length (H/p)²+1. Images come in NHWC, the JAX
+package's layout, and are permuted to NCHW for the convolution.
+:class:`ConvPatchEmbed` (the supervised ViT's, tokenizer ``conv``) takes the
+configured image size only; :class:`DynamicPatchEmbed` (DINO's, tokenizer
+``proj``) takes other grids too.
 
 A patch grid other than the stored one (DINO's 48 px local crops: 6×6
 against 12×12) resizes the positional embedding as the JAX package does,
@@ -28,6 +31,42 @@ def _check_divisible(h: int, w: int, patch_size: int) -> None:
             f"Image dimensions H={h}, W={w} must be divisible by "
             f"patch_size={patch_size}"
         )
+
+
+class ConvPatchEmbed(nn.Module):
+    """``ConvPatchEmbed`` (``vit_ssl_tpu/ops/patch_embedding.py:63-110``):
+    the conv runs in ``dtype`` on the fp32 parameters cast to it; the CLS
+    token and the positional embedding are cast to ``dtype`` and added."""
+
+    def __init__(self, input_shape: Tuple[int, int, int], embed_dim: int,
+                 patch_size: int, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        c, h, w = input_shape
+        _check_divisible(h, w, patch_size)
+        self.embed_dim = embed_dim
+        self.patch_size = patch_size
+        self.dtype = dtype
+        num_patches = (h // patch_size) ** 2
+        self.conv = nn.Conv2d(c, embed_dim, patch_size, stride=patch_size,
+                              device=device)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim, device=device))
+        self.positional_embedding = nn.Parameter(
+            torch.empty(1, num_patches + 1, embed_dim, device=device)
+        )
+        nn.init.uniform_(self.cls_token)  # torch.rand, as the reference
+        nn.init.uniform_(self.positional_embedding)
+
+    def forward(self, x):
+        """(B, H, W, C) → (B, (H/p)² + 1, embed_dim) in ``dtype``."""
+        dt = self.dtype
+        tokens = F.conv2d(
+            x.to(dt).permute(0, 3, 1, 2), self.conv.weight.to(dt),
+            self.conv.bias.to(dt), stride=self.patch_size,
+        )  # (B, D, gh, gw)
+        tokens = tokens.flatten(2).transpose(1, 2)  # (B, gh·gw, D)
+        cls = self.cls_token.to(dt).expand(x.shape[0], 1, self.embed_dim)
+        return torch.cat([cls, tokens], dim=1) + self.positional_embedding.to(dt)
 
 
 class DynamicPatchEmbed(nn.Module):

@@ -1,25 +1,30 @@
-"""Serving CLI of the port: a DINO checkpoint → teacher CLS embeddings.
+"""Serving CLI of the port: class predictions or DINO embeddings.
 
-Port of ``scripts/serve.py`` for DINO checkpoints. The checkpoint is the
-reference-layout ``.pth`` that ``scripts/export_torch.py`` writes from a
-JAX run (``model_state_dict`` plus the embedded ``config``). The teacher
-backbone (or the student's, when there is no teacher) is loaded into
-:class:`~vit_ssl_tpu_torch.models.ViTBackbone` with ``strict=True``; head and
-center are not used.
+Port of ``scripts/serve.py`` for supervised, finetune and DINO
+checkpoints. The checkpoint is the reference-layout ``.pth`` that
+``scripts/export_torch.py`` writes from a JAX run (``model_state_dict``
+plus the embedded ``config``), loaded with ``strict=True``:
+
+- supervised / finetune: the whole :class:`~vit_ssl_tpu_torch.models.ViT`,
+  answering the argmax class and its softmax probability;
+- dino: the teacher backbone (or the student's, when there is no teacher)
+  in a :class:`~vit_ssl_tpu_torch.models.ViTBackbone`, answering its CLS
+  embedding; head and center are not used.
 
 Serving mechanics: one forward at a static batch shape (short batches are
 zero-padded, pad rows dropped on output), the checkpoint's compute dtype,
 a warm-up at start-up with the warm batch time reported, and an optional
 micro-batching stdin server that flushes a batch when it fills or when the
 oldest request has waited ``--max-wait-ms``. Attention runs through the
-hand-written CUDA kernel on the card.
+hand-written CUDA kernels on the card (B1, or B3 for ViT-B/16 at 384 px).
 
     python -m vit_ssl_tpu_torch.serve --checkpoint model.pth img1.png img2.png
     python -m vit_ssl_tpu_torch.serve --checkpoint model.pth --input-dir imgs/
     ... | python -m vit_ssl_tpu_torch.serve --checkpoint model.pth --stdin
 
-Output is JSON lines: {"path", "embedding"} (``--no-embedding-values``
-emits the vector's L2 norm instead); an input that fails to decode gives
+Output is JSON lines: {"path", "pred", "prob"} for classifiers,
+{"path", "embedding"} for DINO (``--no-embedding-values`` emits the
+vector's L2 norm instead); an input that fails to decode gives
 {"path", "error"}.
 """
 
@@ -38,7 +43,7 @@ import torch
 
 from .data.transforms import Compose, Resize, ToTensor
 from .device import resolve_device
-from .models.builder import build_backbone, config_mode
+from .models.builder import build_backbone, build_vit, config_mode
 from .utils.checkpoint import backbone_state_dict, load_pth
 
 
@@ -58,8 +63,13 @@ class Server:
             raise ValueError(f"{checkpoint} embeds no config")
         self.config = metadata["config"]
         self.mode = config_mode(self.config)
-        self.model = build_backbone(self.config, self.device)
-        self.model.load_state_dict(backbone_state_dict(state), strict=True)
+        self.classifier = self.mode in ("supervised", "finetune")
+        if self.classifier:
+            self.model = build_vit(self.config, self.device)
+            self.model.load_state_dict(state, strict=True)
+        else:
+            self.model = build_backbone(self.config, self.device)
+            self.model.load_state_dict(backbone_state_dict(state), strict=True)
         self.model.eval()
         self.embedding_values = embedding_values
         self.img = int(self.config["data"]["img_size"])
@@ -82,7 +92,8 @@ class Server:
         )
 
     def forward_batch(self, x: np.ndarray) -> np.ndarray:
-        """(n, img, img, 3) float32 NHWC, n ≤ batch → (n, embed_dim) float32.
+        """(n, img, img, 3) float32 NHWC, n ≤ batch → (n, num_classes)
+        logits (classifiers) or (n, embed_dim) embeddings, float32.
 
         Short batches are zero-padded to the static batch; the pad rows are
         dropped from the result. Returns after the device has finished."""
@@ -122,6 +133,10 @@ class Server:
         return records
 
     def _format(self, path, out_row):
+        if self.classifier:
+            e = np.exp(out_row - out_row.max())
+            return {"path": str(path), "pred": int(out_row.argmax()),
+                    "prob": round(float((e / e.sum()).max()), 6)}
         if not self.embedding_values:
             return {"path": str(path),
                     "embedding_norm": round(float(np.linalg.norm(out_row)), 6)}

@@ -1,10 +1,12 @@
-"""Train state and optimizer (port of ``vit_ssl_tpu/train/state.py``, DINO part).
+"""Train states and optimizer (port of ``vit_ssl_tpu/train/state.py``).
 
 :class:`TrainState` holds what the JAX package threads through its jitted
-step: the step count, the student and teacher ``DINONetwork``s, the
-center, the AdamW moments (:class:`AdamWState`) and the base seed. Unlike
-JAX's immutable pytree it is updated in place by the step (parameters,
-moments, teacher, center), which saves a copy of every tensor.
+DINO step: the step count, the student and teacher ``DINONetwork``s, the
+center, the AdamW moments (:class:`AdamWState`) and the base seed.
+:class:`SupervisedTrainState` holds the supervised step's: the step count,
+the model, the moments and the seed. Unlike JAX's immutable pytree each is
+updated in place by its step (parameters, moments, teacher, center), which
+saves a copy of every tensor.
 
 :class:`AdamW` (the hyper-parameters and the update, as an optax
 transformation is) mirrors ``optax.adamw``'s arithmetic, not
@@ -13,11 +15,11 @@ count + 1 (m̂ / (√v̂ + eps)), then ``+ weight_decay·param`` on every
 parameter, then ``× −lr(count)`` with the schedule read at the count before
 it increments.
 
-Random streams: :meth:`TrainState.next_generators` derives one
-``torch.Generator`` per stream from ``numpy.random.SeedSequence((seed,
-step, stream))`` — the step's streams differ from every other step's and
-from each other, and a resumed run redraws the same ones. The numbers
-differ from ``jax.random``'s by design.
+Random streams: ``next_generators`` derives one ``torch.Generator`` per
+stream from ``numpy.random.SeedSequence((seed, step, stream))`` — the
+step's streams differ from every other step's and from each other, and a
+resumed run redraws the same ones. The numbers differ from
+``jax.random``'s by design.
 """
 
 from __future__ import annotations
@@ -79,6 +81,42 @@ class AdamW:
         return lr
 
 
+def step_generators(seed: int, step: int, n: int, device) -> List[torch.Generator]:
+    """Step ``step``'s n generators on ``device``, stream i seeded from
+    SeedSequence((seed, step, i))."""
+    gens = []
+    for stream in range(n):
+        seq = np.random.SeedSequence((seed, step, stream))
+        value = int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
+        gens.append(torch.Generator(device=device).manual_seed(value))
+    return gens
+
+
+class SupervisedTrainState:
+    """The supervised step's train state: the step count, the model (a
+    ``ViT``), the AdamW moments and the base seed."""
+
+    def __init__(self, model: nn.Module, optimizer: AdamW, seed: int):
+        self.step = 0
+        self.seed = int(seed)
+        self.model = model
+        self.opt_state = optimizer.init(self.params)
+
+    @property
+    def params(self) -> List[torch.Tensor]:
+        """The model's parameters, in ``named_parameters`` order."""
+        return list(self.model.parameters())
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def next_generators(self, n: int, device=None) -> List[torch.Generator]:
+        """This step's n generators on ``device`` (default: the model's)."""
+        device = self.device if device is None else torch.device(device)
+        return step_generators(self.seed, self.step, n, device)
+
+
 class TrainState:
     """DINO's train state; the teacher starts as an exact copy of the
     student, the center at zero."""
@@ -111,12 +149,7 @@ class TrainState:
         """This step's n generators on ``device`` (default: the state's),
         stream i seeded from SeedSequence((seed, step, i))."""
         device = self.device if device is None else torch.device(device)
-        gens = []
-        for stream in range(n):
-            seq = np.random.SeedSequence((self.seed, self.step, stream))
-            seed = int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
-            gens.append(torch.Generator(device=device).manual_seed(seed))
-        return gens
+        return step_generators(self.seed, self.step, n, device)
 
     def model_state_dict(self) -> Dict[str, torch.Tensor]:
         """The reference ``DINOViT`` layout: ``student_backbone.*``,

@@ -1,7 +1,14 @@
-"""The DINO training and evaluation steps (port of
-``vit_ssl_tpu/train/steps.py::make_dino_steps``, ``:429-692``).
+"""The training and evaluation steps (port of ``vit_ssl_tpu/train/steps.py``):
+the supervised steps (``make_supervised_steps``, ``:97-271``) and the DINO
+steps (``make_dino_steps``, ``:429-692``).
 
-One ``train_step`` runs, in order:
+The supervised ``train_step`` makes its images (``augment_fn`` on the
+device from uint8, or the batch's own images scaled to [0, 1]), runs the
+model with dropout on, takes the weighted mean of the fp32 softmax
+cross-entropy, its backward and one AdamW update. Two generators a step,
+from ``state.next_generators(2)``: dropout, augmentation.
+
+One DINO ``train_step`` runs, in order:
 
 1. the views: ``view_fn(generator, batch["image"])`` (device
    augmentation from uint8 images) or the host's ``batch["views"]``;
@@ -18,8 +25,8 @@ It updates the :class:`~.state.TrainState` in place and returns
 ``state.next_generators(4)``: student globals, student locals, teacher,
 augmentation.
 
-Gradient accumulation (``grad_accum > 1``, the JAX package's two-pass
-microbatching) is not ported yet.
+Gradient accumulation (``grad_accum > 1``: the JAX package's microbatching,
+two-pass for DINO) is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,9 +36,75 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ..data.device_augment import to_unit_float
 from ..models.dino import momentum_update, update_center
 from ..utils.metrics import dino_distribution_stats
-from .state import AdamW, TrainState
+from .state import AdamW, SupervisedTrainState, TrainState
+
+
+def _refuse_grad_accum(grad_accum: int) -> None:
+    if grad_accum > 1:
+        raise NotImplementedError(
+            "grad_accum > 1 (microbatched gradient accumulation) is not "
+            "ported yet; see ROADMAP.md queue A"
+        )
+
+
+def cross_entropy_loss(logits, labels, weight):
+    """The weighted mean of fp32 softmax cross-entropy over integer labels
+    (Σ w·ce / max(Σ w, 1)): padding rows of weight 0 drop out."""
+    ce = F.cross_entropy(logits.float(), labels.long(), reduction="none")
+    w = weight.float()
+    return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def make_supervised_steps(optimizer: AdamW, augment_fn: Optional[Callable] = None,
+                          grad_accum: int = 1):
+    """Returns ``(train_step, eval_step)`` over a
+    :class:`~.state.SupervisedTrainState`:
+
+    - ``train_step(state, batch) -> dict`` (``with_grads=True`` adds the
+      gradients by parameter name)
+    - ``eval_step(state, batch) -> dict`` (no gradient, no dropout, no
+      augmentation)
+
+    ``batch`` holds ``"image"`` (B, H, W, C) uint8 or float, ``"label"``
+    (B,) and ``"weight"`` (B,). Each returns ``{"loss", "weight_sum",
+    "preds", "labels", "weight"}``. The JAX function's ``model`` and ``tx``
+    are the state's model and ``optimizer`` here."""
+    _refuse_grad_accum(grad_accum)
+
+    def images(batch, generator):
+        if augment_fn is not None:
+            return augment_fn(generator, batch["image"])
+        return to_unit_float(batch["image"])
+
+    def outputs(logits, loss, batch):
+        return {"loss": loss.detach(), "weight_sum": batch["weight"].sum(),
+                "preds": logits.detach().argmax(dim=-1), "labels": batch["label"],
+                "weight": batch["weight"]}
+
+    def train_step(state: SupervisedTrainState, batch, with_grads: bool = False):
+        g_dropout, g_augment = state.next_generators(2)
+        logits = state.model(images(batch, g_augment), False, g_dropout)
+        loss = cross_entropy_loss(logits, batch["label"], batch["weight"])
+        params = state.params
+        grads = torch.autograd.grad(loss, params)
+        optimizer.update(params, grads, state.opt_state)
+        state.step += 1
+        out = outputs(logits, loss, batch)
+        if with_grads:
+            names = [name for name, _ in state.model.named_parameters()]
+            out["grads"] = dict(zip(names, grads))
+        return out
+
+    @torch.no_grad()
+    def eval_step(state: SupervisedTrainState, batch):
+        logits = state.model(to_unit_float(batch["image"]), True)
+        return outputs(logits, cross_entropy_loss(logits, batch["label"],
+                                                  batch["weight"]), batch)
+
+    return train_step, eval_step
 
 
 def weighted_dino_loss(t, s, center, teacher_temp: float, student_temp: float,
@@ -62,11 +135,7 @@ def make_dino_steps(optimizer: AdamW, num_global_views: int, num_all_views: int,
     ``view_fn``) or ``"views"`` (a sequence of ``num_all_views`` tensors,
     globals first). The JAX function's ``model`` and ``tx`` arguments are
     the state's networks and ``optimizer`` here."""
-    if grad_accum > 1:
-        raise NotImplementedError(
-            "grad_accum > 1 (two-pass microbatching) is not ported yet; see "
-            "ROADMAP.md queue A"
-        )
+    _refuse_grad_accum(grad_accum)
     ng, na = num_global_views, num_all_views
     nl = na - ng
 

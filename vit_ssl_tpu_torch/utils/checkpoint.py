@@ -8,7 +8,8 @@ The weight bridge turns the JAX package's parameter trees (nested dicts of
 numpy arrays, e.g. ``DINONetwork`` params) into reference-layout state
 dicts that the port's modules load with ``strict=True``. It is a jax-free
 copy of ``vit_ssl_tpu/utils/checkpoint.py::{_encoder_block_to_torch,
-_dino_backbone_to_torch, _dino_head_to_torch, dino_params_to_torch}``.
+_dino_backbone_to_torch, _dino_head_to_torch, dino_params_to_torch,
+vit_params_to_torch}``.
 """
 
 from __future__ import annotations
@@ -84,25 +85,54 @@ def patch_embedding_state_dict_from_flax(
     }
 
 
+def _encoder_blocks(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """``encoder_blocks_<i>`` subtrees → ``{prefix}encoder_blocks.<i>.*``."""
+    if "encoder_scan" in tree:
+        raise ValueError(
+            "params carry a scanned 'encoder_scan' subtree; unroll it with "
+            "the JAX package's ops.encoder_stack.unroll_scanned_tree first"
+        )
+    blocks = sorted(
+        (k for k in tree if str(k).startswith("encoder_blocks_")),
+        key=lambda k: int(str(k).rsplit("_", 1)[1]),
+    )
+    sd = {}
+    for i, key in enumerate(blocks):
+        sd.update(encoder_block_state_dict_from_flax(
+            tree[key], f"{prefix}encoder_blocks.{i}."))
+    return sd
+
+
+def vit_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX supervised ``ViT`` params → the port's ``ViT`` state dict (the
+    reference layout of ``vit_params_to_torch``): the conv kernel from HWIO
+    to OIHW, the head's kernel transposed, the blocks as
+    :func:`encoder_block_state_dict_from_flax` gives them."""
+    pe, head = params["patch_embedding"], params["classification_head"]
+    sd = {
+        "patch_embedding.conv.weight":
+            _t(pe["conv"]["kernel"]).permute(3, 2, 0, 1).contiguous(),
+        "patch_embedding.conv.bias": _t(pe["conv"]["bias"]),
+        "patch_embedding.cls_token": _t(pe["cls_token"]),
+        "patch_embedding.positional_embedding": _t(pe["positional_embedding"]),
+        "classification_head.norm.weight": _t(head["norm"]["scale"]),
+        "classification_head.norm.bias": _t(head["norm"]["bias"]),
+        "classification_head.linear.weight": _t(head["linear"]["kernel"]).T.contiguous(),
+        "classification_head.linear.bias": _t(head["linear"]["bias"]),
+    }
+    sd.update(_encoder_blocks(params, ""))
+    return sd
+
+
 def dino_backbone_state_dict_from_flax(
     backbone: Mapping, prefix: str = ""
 ) -> Dict[str, torch.Tensor]:
     """JAX ``ViTBackbone`` params → ``ViTBackbone`` state dict (keys under
     ``prefix``, e.g. ``"teacher_backbone."``)."""
-    if "encoder_scan" in backbone:
-        raise ValueError(
-            "params carry a scanned 'encoder_scan' subtree; unroll it with "
-            "the JAX package's ops.encoder_stack.unroll_scanned_tree first"
-        )
+    blocks = _encoder_blocks(backbone, prefix)
     sd = patch_embedding_state_dict_from_flax(backbone["patch_embedding"],
                                               f"{prefix}patch_embedding.")
-    blocks = sorted(
-        (k for k in backbone if str(k).startswith("encoder_blocks_")),
-        key=lambda k: int(str(k).rsplit("_", 1)[1]),
-    )
-    for i, key in enumerate(blocks):
-        sd.update(encoder_block_state_dict_from_flax(
-            backbone[key], f"{prefix}encoder_blocks.{i}."))
+    sd.update(blocks)
     return sd
 
 
