@@ -51,7 +51,21 @@ Phases, each printing its own lines; any failure exits non-zero:
               one cloned state, warm step, peak memory, a profile;
               ``eval_step``'s 12 inference launches; B3's times beside B1's
               on the same data and SDPA's
-13. a JSON line describing every kernel, then the JSON ``ok`` line last.
+13. B2 kernels — kernel B2 (blockwise flash attention) against its plain
+              versions: the forward (o and lse) and the dq and dk/dv
+              kernels, with and without an lse cotangent, at ViT-B/16's
+              (64, 12, 1025, 64), N = 1, a ragged N, N = 2048 and 4096, head
+              dims 32 and 128, bf16 and fp32 (run beside the other kernel
+              checks, before any model)
+14. supervised serving and training at 512 px (N = 1025) — phases 11 and
+              12 at full width and depth with every block on B2: 12 B2
+              forwards a served batch and an ``eval_step``, 12 forwards, 12
+              dq and 12 dk/dv launches a training step
+15. B2 times — kernel, plain, SDPA and bound at (64, 12, 1025, 64) bf16
+16. exp2 probe — ``vit_ssl_tpu_torch/scripts/exp2_probe.py``: P1
+              (``blockwise_fwd_exp2``) against B2's forward, both timed; P1
+              against its plain version
+17. a JSON line describing every kernel, then the JSON ``ok`` line last.
 
 Imports neither JAX nor the JAX package, and needs no PIL, OpenCV or YAML.
 """
@@ -166,6 +180,21 @@ VIT_B16_384 = {
     "parallel": {"remat": False},
     "transforms": {"train": SUPERVISED_TRAIN},
 }
+
+
+def supervised_config(img: int):
+    """VIT_B16_384 at another resolution: its image and its crop size."""
+    cfg = copy.deepcopy(VIT_B16_384)
+    cfg["data"]["img_size"] = img
+    cfg["transforms"]["train"][0]["params"]["size"] = img
+    return cfg
+
+
+# The same ViT-B/16 at 512 px, N = (512/16)^2 + 1 = 1025: past B1's and B3's
+# 1024, so every block runs kernel B2; tests/test_torch_guards.py pins it to
+# configs/vit_b_imagenet.yaml composed with data.img_size=512
+# parallel.remat=false training.batch_size=64.
+VIT_B16_512 = supervised_config(512)
 GLOBAL_BATCH = 1024  # configs/vit_b_imagenet.yaml's training.batch_size
 IMAGENET_TRAIN = 1_281_167  # images of ImageNet-1k's train split
 SERVE_BATCH = 128
@@ -225,6 +254,47 @@ FUSED_CASES = [
     (16, 2, 203, 128, "bfloat16"),
     (16, 2, 203, 128, "float32"),
 ]
+
+# Kernel B2 (blockwise flash attention), (batch, heads, seq, head_dim,
+# dtype): ViT-B/16 at 512 px first (bf16, fp32), then N = 1, a ragged
+# N <= 1024, N = 2048 and 4096, and head dims 32 and 128
+BLOCKWISE_CASES = [
+    (64, 12, 1025, 64, "bfloat16"),
+    (64, 12, 1025, 64, "float32"),
+    (4, 12, 1, 64, "bfloat16"),
+    (4, 12, 1, 64, "float32"),
+    (8, 12, 777, 64, "bfloat16"),
+    (8, 12, 777, 64, "float32"),
+    (8, 6, 2048, 64, "bfloat16"),
+    (2, 6, 2048, 64, "float32"),
+    (4, 6, 4096, 64, "bfloat16"),
+    (1, 6, 4096, 64, "float32"),
+    (16, 4, 300, 32, "bfloat16"),
+    (16, 4, 300, 32, "float32"),
+    (8, 2, 1100, 128, "bfloat16"),
+    (8, 2, 1100, 128, "float32"),
+]
+# B2's lse: max |kernel - plain| over max |plain| (sums in another order;
+# the bf16 kernels' exponentials are ex2.approx or expf)
+LSE_REL_TOL = 1e-5
+# B2's gradients are held to GRAD_REL_TOL of max|plain| with the
+# denominator floored at this share of the scale of the terms that cancel
+# in dq and dk, scale max_i |do_i| max_j |v_j| max(|q|, |k|) (row norms):
+# they are sums of p (dp - delta) scale, and delta (from do and o) cancels
+# dp only to rounding, so where the exact gradient is 0 (N = 1, one key)
+# both sides give that rounding noise
+B2_GRAD_FLOOR = 1e-3
+
+
+def b2_grad_errs(q, k, v, do, scale, got, want):
+    """Each of dq, dk, dv: max |kernel - plain| over the floored max|plain|
+    (B2_GRAD_FLOOR)."""
+    def top(x):
+        return float(x.float().abs().max())
+
+    floor = B2_GRAD_FLOOR * scale * top(do.float().norm(dim=-1)) \
+        * top(v.float().norm(dim=-1)) * max(top(q), top(k))
+    return [max_abs(g, w) / max(top(w), floor, 1e-30) for g, w in zip(got, want)]
 
 # Kernel B4 (fused MLP) at the token counts of the main paths: the student
 # globals and the teacher (256 x 145), the packed locals (128 x 148), a
@@ -300,6 +370,23 @@ def attention_train_bounds(b, n, h, d, dtype, block_size):
             "bwd": _bound(7 * act + stats, 5 * product, dtype)}
 
 
+def blockwise_bounds(b, h, n, d, dtype):
+    """{"fwd", "dq", "dkv": (ms, by)} of kernel B2's three entries on
+    (B, H, N, D): attention_train_bounds' arithmetic with lse one fp32 a
+    row. The forward reads q, k, v and writes o and lse: two products. The
+    dq kernel reads q, k, v, o, do and lse and writes dq and delta: three
+    products (the scores, dp, dq). The dk/dv kernel reads q, k, v, do, lse
+    and delta and writes dk and dv: four products (the scores, dp, dv,
+    dk)."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    act = b * h * n * d * itemsize
+    row = b * h * n * 4
+    product = 2 * b * h * n * n * d
+    return {"fwd": _bound(4 * act + row, 2 * product, dtype),
+            "dq": _bound(6 * act + 2 * row, 3 * product, dtype),
+            "dkv": _bound(6 * act + 2 * row, 4 * product, dtype)}
+
+
 def mlp_bounds(t, d, d_ff, dtype, mask=True, pre=True):
     """{"fwd": (ms, by), "bwd": (ms, by)} of kernel B4 over t tokens. The
     forward reads x, the weights and biases and (with dropout) the 1-byte
@@ -366,17 +453,9 @@ def phase_kernels(torch, fa):
         out = fa.attention_nhd(xq, xk, xv, h, scale, bs)
         torch.cuda.synchronize()
         ref = fa.attention_nhd_reference(xq, xk, xv, h, scale, bs)
-        err = (out.float() - ref.float()).abs()
-        max_err = float(err.max())
-        if dtype == torch.bfloat16:
-            tol = "atol 1e-2 rtol 1e-2"
-            ok = bool((err <= 1e-2 + 1e-2 * ref.float().abs()).all())
-        else:
-            tol = "atol 1e-5"
-            ok = max_err <= 1e-5
-        ok = ok and bool(torch.isfinite(out).all())
+        ok, tol = forward_ok(torch, out, ref, dtype_name)
         print(f"  ({b},{n},{h}x{d}) {dtype_name} block_size={bs}: "
-              f"max_abs_err {max_err:.3e} ({tol}) {'ok' if ok else 'MISS'}",
+              f"max_abs_err {max_abs(out, ref):.3e} ({tol}) {'ok' if ok else 'MISS'}",
               flush=True)
         if not ok:
             fail(f"attention_nhd_fwd disagrees at ({b},{n},{h}x{d}) {dtype_name}")
@@ -449,24 +528,19 @@ def phase_fused_kernels(torch, fa):
         grads = fa.fused_attention_bwd(q, k, v, do, stats, scale)
         torch.cuda.synchronize()
         ref = fa.fused_attention_reference(q, k, v, scale)
-        err = (out.float() - ref.float()).abs()
-        if dtype == torch.bfloat16:
-            fwd_tol, fwd_ok = "atol 1e-2 rtol 1e-2", bool(
-                (err <= 1e-2 + 1e-2 * ref.float().abs()).all())
-        else:
-            fwd_tol, fwd_ok = "atol 1e-5", float(err.max()) <= 1e-5
+        fwd_ok, fwd_tol = forward_ok(torch, out, ref, dtype_name)
         same = torch.equal(out, out_t)
         stats_err = rel_err(stats[:, :, :n], fa.fused_attention_stats_reference(q, k, scale))
         pad_zero = not bool(stats[:, :, n:].any())
         want = fa.fused_attention_bwd_reference(q, k, v, do, scale)
         grad_errs = [rel_err(g, w) for g, w in zip(grads, want)]
         grad_abs = max(max_abs(g, w) for g, w in zip(grads, want))
-        finite = all(bool(torch.isfinite(x).all()) for x in (out, *grads))
+        finite = all(bool(torch.isfinite(x).all()) for x in grads)
         tol = GRAD_REL_TOL[dtype_name]
         ok = (fwd_ok and same and stats_err <= STATS_REL_TOL and pad_zero and finite
               and max(grad_errs) <= tol)
         line = (f"  ({b},{h},{n},{d}) {dtype_name}: forward max_abs_err "
-                f"{float(err.max()):.3e} ({fwd_tol}); training output "
+                f"{max_abs(out, ref):.3e} ({fwd_tol}); training output "
                 f"{'bit-equal to' if same else 'DIFFERS from'} inference; stats "
                 f"rel_err {stats_err:.3e} (<= {STATS_REL_TOL:g}); dq/dk/dv rel_err "
                 + "/".join(f"{e:.3e}" for e in grad_errs)
@@ -480,13 +554,80 @@ def phase_fused_kernels(torch, fa):
         print(line + f" {'ok' if ok else 'MISS'}", flush=True)
         if not ok:
             fail(f"B3 kernels disagree at ({b},{h},{n},{d}) {dtype_name}")
-        errors[(b, h, n, d, dtype_name)] = (float(err.max()), grad_abs)
-        del q, k, v, do, out, out_t, stats, grads, ref, want, err
+        errors[(b, h, n, d, dtype_name)] = (max_abs(out, ref), grad_abs)
+        del q, k, v, do, out, out_t, stats, grads, ref, want
     return errors
 
 
 def max_abs(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
+
+
+def forward_ok(torch, out, ref, dtype_name):
+    """(ok, tolerance) of a forward's output against its plain version:
+    bf16 atol 1e-2 rtol 1e-2 elementwise (a bf16 ulp is 2^-8 relative),
+    fp32 atol 1e-5."""
+    err = (out.float() - ref.float()).abs()
+    if dtype_name == "bfloat16":
+        ok = bool((err <= 1e-2 + 1e-2 * ref.float().abs()).all())
+        tol = "atol 1e-2 rtol 1e-2"
+    else:
+        ok, tol = float(err.max()) <= 1e-5, "atol 1e-5"
+    return ok and bool(torch.isfinite(out).all()), tol
+
+
+def phase_blockwise_kernels(torch, fb):
+    """Kernel B2 against its plain versions at every BLOCKWISE_CASES shape:
+    the forward (o against the plain version at the kernel's key tile,
+    KERNEL_BLOCK_K, by :func:`forward_ok`: in bf16 the output depends on
+    the tiling, since p rounds relative to the running max; lse within
+    LSE_REL_TOL) and the backward's two kernels with and without an lse
+    cotangent (each gradient within GRAD_REL_TOL of max|plain|, floored as
+    B2_GRAD_FLOOR says, from the same o and lse, and bit-equal on a second
+    call: no atomics). Returns,
+    per case, the max abs errors of o, lse, dq and max(dk, dv) without
+    dlse."""
+    print("== kernels: blockwise_fwd, blockwise_bwd_dq and blockwise_bwd_dkv "
+          "against their plain versions", flush=True)
+    errors = {}
+    for idx, (b, h, n, d, dtype_name) in enumerate(BLOCKWISE_CASES):
+        dtype = getattr(torch, dtype_name)
+        q, k, v = heads_qkv(b, h, n, d, dtype, seed=800 + idx)
+        (do,) = heads_qkv(b, h, n, d, torch.float32, seed=850 + idx, count=1)
+        dlse = torch.randn(b, h, n, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(900 + idx))
+        scale = 1.0 / d ** 0.5
+        out, lse = fb.blockwise_attention_fwd(q, k, v, scale)
+        torch.cuda.synchronize()
+        ref, ref_lse = fb.blockwise_attention_reference(q, k, v, scale, fb.KERNEL_BLOCK_K)
+        fwd_ok, fwd_tol = forward_ok(torch, out, ref, dtype_name)
+        lse_err = rel_err(lse, ref_lse)
+        ok = fwd_ok and lse_err <= LSE_REL_TOL
+        line = (f"  ({b},{h},{n},{d}) {dtype_name}: o max_abs_err {max_abs(out, ref):.3e} "
+                f"({fwd_tol}, plain at block_k {fb.KERNEL_BLOCK_K}); lse rel_err "
+                f"{lse_err:.3e} (<= {LSE_REL_TOL:g})")
+        tol = GRAD_REL_TOL[dtype_name]
+        for label, cot in (("dlse", dlse), ("no dlse", None)):
+            got = fb.blockwise_attention_bwd(q, k, v, out, lse, do, scale, cot)
+            again = fb.blockwise_attention_bwd(q, k, v, out, lse, do, scale, cot)
+            torch.cuda.synchronize()
+            want = fb.blockwise_attention_bwd_reference(q, k, v, out, lse, do, scale, cot)
+            rel = b2_grad_errs(q, k, v, do, scale, got, want)
+            same = all(torch.equal(a, g) for a, g in zip(again, got))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            ok = ok and same and finite and max(rel) <= tol
+            line += (f"; {label} dq/dk/dv rel_err " + "/".join(f"{e:.3e}" for e in rel)
+                     + f" (<= {tol:g} of max|ref|, floored), repeat "
+                     + ("bit-equal" if same else "DIFFERS"))
+        abs_errs = [max_abs(g, w) for g, w in zip(got, want)]
+        print(line + f" {'ok' if ok else 'MISS'}", flush=True)
+        if not ok:
+            fail(f"B2 kernels disagree at ({b},{h},{n},{d}) {dtype_name}")
+        errors[(b, h, n, d, dtype_name)] = {
+            "fwd": max_abs(out, ref), "lse": max_abs(lse, ref_lse),
+            "dq": abs_errs[0], "dkv": max(abs_errs[1:])}
+        del q, k, v, do, out, lse, ref, ref_lse, got, again, want
+    return errors
 
 
 def phase_mlp_kernels(torch, fm):
@@ -541,18 +682,23 @@ def phase_mlp_kernels(torch, fm):
     return errors
 
 
+ATTENTION_CALLS = ("attention_nhd", "fused_attention", "blockwise_attention")
+
+
 @contextlib.contextmanager
-def routed_attention(nhd, fused):
-    """Route the model's attention (B1's and B3's calls) through ``nhd``
-    and ``fused``."""
+def routed_attention(nhd, fused, blockwise):
+    """Route the model's attention (B1's, B3's and B2's calls) through
+    ``nhd``, ``fused`` and ``blockwise``."""
     from vit_ssl_tpu_torch.ops import attention as attention_mod
 
-    kernels = attention_mod.attention_nhd, attention_mod.fused_attention
-    attention_mod.attention_nhd, attention_mod.fused_attention = nhd, fused
+    kernels = [getattr(attention_mod, name) for name in ATTENTION_CALLS]
+    for name, fn in zip(ATTENTION_CALLS, (nhd, fused, blockwise)):
+        setattr(attention_mod, name, fn)
     try:
         yield
     finally:
-        attention_mod.attention_nhd, attention_mod.fused_attention = kernels
+        for name, fn in zip(ATTENTION_CALLS, kernels):
+            setattr(attention_mod, name, fn)
 
 
 def plain_attention():
@@ -560,29 +706,37 @@ def plain_attention():
     forward and backward."""
     from vit_ssl_tpu_torch.ops.flash_attention import (
         attention_nhd_plain, fused_attention_plain)
+    from vit_ssl_tpu_torch.ops.flash_blockwise import blockwise_attention_plain
 
-    return routed_attention(attention_nhd_plain, fused_attention_plain)
+    return routed_attention(attention_nhd_plain, fused_attention_plain,
+                            blockwise_attention_plain)
 
 
 @contextlib.contextmanager
 def no_plain_attention(fa):
-    """Make any call of a plain attention version fail: the main path must
-    run the kernels only."""
-    names = ("attention_nhd_reference", "attention_nhd_stats_reference",
-             "attention_nhd_bwd_reference", "fused_attention_reference",
-             "fused_attention_stats_reference", "fused_attention_bwd_reference")
-    saved = {name: getattr(fa, name) for name in names}
+    """Make any call of a plain attention version (B1, B3, B2) fail: the
+    main path must run the kernels only."""
+    from vit_ssl_tpu_torch.ops import flash_blockwise as fb
+
+    names = {fa: ("attention_nhd_reference", "attention_nhd_stats_reference",
+                  "attention_nhd_bwd_reference", "fused_attention_reference",
+                  "fused_attention_stats_reference", "fused_attention_bwd_reference"),
+             fb: ("blockwise_attention_reference", "blockwise_attention_exp2_reference",
+                  "blockwise_attention_bwd_reference",
+                  "blockwise_attention_delta_reference", "_bwd_plain")}
+    saved = [(module, name, getattr(module, name))
+             for module, module_names in names.items() for name in module_names]
 
     def refuse(*args, **kwargs):
         raise AssertionError("a plain attention version ran on the main path")
 
-    for name in names:
-        setattr(fa, name, refuse)
+    for module, name, _ in saved:
+        setattr(module, name, refuse)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(fa, name, fn)
+        for module, name, fn in saved:
+            setattr(module, name, fn)
 
 
 @contextlib.contextmanager
@@ -912,7 +1066,9 @@ def phase_training(torch, fa):
 class _ExactAttention:
     """Attention in fp64 with its exact gradient (no bf16 rounding of p or
     ds): the yardstick for gradients that bf16 cannot resolve. ``function``
-    takes B1's (B, N, H·D) arguments, ``fused`` B3's (B, H, N, D) ones."""
+    takes B1's (B, N, H·D) arguments, ``fused`` B3's and B2's (B, H, N, D)
+    ones. It saves q, k and v and rebuilds p in its backward: saving the
+    fp64 p of ViT-B/16 at 512 px would take 6.5 GB a block."""
 
     @staticmethod
     def heads(x, h):
@@ -925,19 +1081,23 @@ class _ExactAttention:
             """fp64 attention on head-major tensors, block mask ``bs``."""
 
             @staticmethod
-            def forward(ctx, q, k, v, scale, bs):
+            def probs(q, k, scale, bs):
                 s = torch.matmul(q, k.transpose(-1, -2)) * scale
                 if bs:
                     idx = torch.arange(s.shape[-1], device=s.device) // bs
                     s = s.masked_fill(idx[:, None] != idx[None, :], float("-inf"))
-                p = torch.softmax(s, dim=-1)
-                ctx.save_for_backward(q, k, v, p)
-                ctx.scale = scale
-                return torch.matmul(p, v)
+                return torch.softmax(s, dim=-1)
+
+            @staticmethod
+            def forward(ctx, q, k, v, scale, bs):
+                ctx.save_for_backward(q, k, v)
+                ctx.scale, ctx.bs = scale, bs
+                return torch.matmul(Exact.probs(q, k, scale, bs), v)
 
             @staticmethod
             def backward(ctx, g):
-                q, k, v, p = ctx.saved_tensors
+                q, k, v = ctx.saved_tensors
+                p = Exact.probs(q, k, ctx.scale, ctx.bs)
                 dp = torch.matmul(g, v.transpose(-1, -2))
                 ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * ctx.scale
                 return (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
@@ -964,7 +1124,8 @@ class _ExactAttention:
 
 def exact_attention(torch):
     """Route the model's attention through :class:`_ExactAttention`."""
-    return routed_attention(_ExactAttention.function(torch), _ExactAttention.fused(torch))
+    fused = _ExactAttention.fused(torch)
+    return routed_attention(_ExactAttention.function(torch), fused, fused)
 
 
 def judge(torch, ref, got, want, exact_step, got_center=None, want_center=None,
@@ -1247,24 +1408,24 @@ def top2_margin(logits):
     return top[:, 1] - top[:, 0]
 
 
-def phase_supervised_serving(torch, fa, tmp, card):
-    """The supervised ViT-B/16 at 384 px served from a written ``.pth``:
-    exactly 12 B3 inference launches a batch and nothing else, padding rows
-    inert, logits within row cosine 0.999 of the same server on plain
-    attention and the same preds (a pred may differ only where the plain
-    logits' top two lie closer than twice the largest logit difference),
-    warm batch and a profile. Returns the path's launches."""
+def phase_supervised_serving(torch, fa, tmp, card, cfg, entry):
+    """The supervised ViT-B/16 of ``cfg`` served from a written ``.pth``
+    (``entry``: at 384 px B3's inference forward, at 512 px B2's forward):
+    exactly 12 ``entry`` launches a batch and nothing else,
+    padding rows inert, logits within row cosine 0.999 of the same server
+    on plain attention and the same preds (a pred may differ only where the
+    plain logits' top two lie closer than twice the largest logit
+    difference), warm batch and a profile. Returns the path's launches."""
     from vit_ssl_tpu_torch import kernels
     from vit_ssl_tpu_torch.serve import Server
 
-    cfg = VIT_B16_384
     batch, img = cfg["training"]["batch_size"], cfg["data"]["img_size"]
     blocks = cfg["model"]["num_blocks"]
     n = (img // cfg["model"]["patch_size"]) ** 2 + 1
     print(f"== supervised serving: ViT-B/16, batch {batch}, img {img} (N={n}, "
-          f"12 heads of 64), bf16, full depth", flush=True)
-    pth = f"{tmp}/vit_b16_384.pth"
-    model = build_vit_model(torch, 5)
+          f"12 heads of 64), bf16, full depth, attention {entry}", flush=True)
+    pth = f"{tmp}/vit_b16_{img}.pth"
+    model = build_vit_model(torch, 5, cfg)
     torch.save({"model_state_dict": model.state_dict(), "config": cfg, "epoch": 0}, pth)
     del model
     server = Server(pth, batch_size=batch, device="cuda")
@@ -1278,10 +1439,9 @@ def phase_supervised_serving(torch, fa, tmp, card):
         main_launches = dict(kernels.launches)  # ... and ends here
     print(f"  launches: {main_launches} ({per_forward} in the first forward)",
           flush=True)
-    if (per_forward != {fa.FUSED_KERNEL: blocks}
-            or main_launches != {fa.FUSED_KERNEL: 2 * blocks}):
-        fail(f"expected {blocks} fused_attention_fwd launches per forward and "
-             f"nothing else, got {per_forward} then {main_launches}")
+    if per_forward != {entry: blocks} or main_launches != {entry: 2 * blocks}:
+        fail(f"expected {blocks} {entry} launches per forward and nothing else, "
+             f"got {per_forward} then {main_launches}")
     classes = cfg["model"]["num_classes"]
     if out.shape != (batch, classes) or not np.isfinite(out).all():
         fail(f"logits {out.shape} not finite ({batch}, {classes})")
@@ -1314,7 +1474,8 @@ def phase_supervised_serving(torch, fa, tmp, card):
         for _ in range(3):
             server.forward_batch(x)
 
-    profile_window(torch, three_batches, "3 supervised serving batches", rows=16)
+    profile_window(torch, three_batches, f"3 supervised serving batches at {img} px",
+                   rows=16)
     return main_launches
 
 
@@ -1344,29 +1505,30 @@ def build_supervised_training(torch, cfg=VIT_B16_384):
     return state, train_step, eval_step, batch
 
 
-def phase_supervised_training(torch, fa, card):
-    """The ViT-B/16 training step at batch 64: two warm-up steps, then
-    TIMED_STEPS steps under the plain-version guard, each launching exactly
-    12 B3 training forwards and 12 backwards; losses finite, every
-    parameter moved; peak memory; agreement with the plain attention step
-    from one cloned state; ``eval_step``'s 12 inference launches; a profile
-    of three steps. Returns the launches of the training and eval paths."""
+def phase_supervised_training(torch, fa, card, cfg, entries, eval_entry, suffix):
+    """The ViT-B/16 training step of ``cfg`` at batch 64: two warm-up
+    steps, then TIMED_STEPS steps under the plain-version guard, each
+    launching each of ``entries`` exactly 12 times (at 384 px B3's training
+    forward and backward; at 512 px B2's forward, dq and dk/dv kernels);
+    losses finite, every parameter moved; peak memory; agreement with the
+    plain attention step from one cloned state; ``eval_step``'s 12
+    ``eval_entry`` launches; a profile of three steps. Returns the launches
+    of the training and eval paths, named with ``suffix``."""
     from vit_ssl_tpu_torch import kernels
 
-    cfg = VIT_B16_384
     blocks, b = cfg["model"]["num_blocks"], cfg["training"]["batch_size"]
     img = cfg["data"]["img_size"]
     print(f"== supervised training: ViT-B/16 train_step, batch {b}, img {img} "
           f"(N={(img // cfg['model']['patch_size']) ** 2 + 1}), dropout 0.1, bf16, "
-          f"full depth, remat off, RandomResizedCrop + flip on the card from uint8",
-          flush=True)
-    state, train_step, eval_step, batch = build_supervised_training(torch)
+          f"full depth, remat off, RandomResizedCrop + flip on the card from uint8, "
+          f"attention {'/'.join(entries)}", flush=True)
+    state, train_step, eval_step, batch = build_supervised_training(torch, cfg)
     before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     for _ in range(2):  # warm-up steps
         out = train_step(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    per_step = {fa.FUSED_KERNEL_TRAIN: blocks, fa.FUSED_KERNEL_BWD: blocks}
+    per_step = {entry: blocks for entry in entries}
     losses, host_ms = [float(out["loss"])], []
     with no_plain_attention(fa):
         kernels.launches.clear()  # the supervised training path's run starts here
@@ -1390,8 +1552,8 @@ def phase_supervised_training(torch, fa, card):
           f"{per_step}); eval_step: {eval_launches}", flush=True)
     print(f"  losses: {' '.join(f'{x:.6f}' for x in losses)}; eval loss "
           f"{float(ev['loss']):.6f}", flush=True)
-    if eval_launches != {fa.FUSED_KERNEL: blocks}:
-        fail(f"eval_step launched {eval_launches}, expected {blocks} fused_attention_fwd")
+    if eval_launches != {eval_entry: blocks}:
+        fail(f"eval_step launched {eval_launches}, expected {blocks} {eval_entry}")
     if not all(np.isfinite(losses + [float(ev["loss"])])):
         fail("a supervised loss is not finite")
     moved = [k for k, v in state.model.state_dict().items()
@@ -1400,7 +1562,7 @@ def phase_supervised_training(torch, fa, card):
     if len(moved) != len(before):
         fail("a supervised step left a parameter unchanged")
     warm_ms = float(np.median(host_ms))
-    print(f"  supervised training on {card}: warm step {warm_ms:.3f} ms median of "
+    print(f"  supervised training at {img} px on {card}: warm step {warm_ms:.3f} ms median of "
           f"{TIMED_STEPS} ({b / warm_ms * 1e3:.1f} img/s), host clock with "
           f"torch.cuda.synchronize(), device augmentation included; peak memory "
           f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)", flush=True)
@@ -1427,8 +1589,10 @@ def phase_supervised_training(torch, fa, card):
         for _ in range(3):
             train_step(state, batch)
 
-    profile_window(torch, three_steps, "3 supervised training steps", rows=25)
-    return {"training_supervised": train_launches, "eval_supervised": eval_launches}
+    profile_window(torch, three_steps, f"3 supervised training steps at {img} px",
+                   rows=25)
+    return {"training_supervised" + suffix: train_launches,
+            "eval_supervised" + suffix: eval_launches}
 
 
 def phase_fused_times(torch, fa, card):
@@ -1489,6 +1653,116 @@ def phase_fused_times(torch, fa, card):
     return rows
 
 
+def phase_blockwise_times(torch, fb, card):
+    """B2's three entries at ViT-B/16's (64, 12, 1025, 64) bf16, CUDA
+    events: kernel twice around its plain version (the forward at the
+    kernel's key tile; for the dq and dk/dv kernels the whole plain
+    backward, which computes both), and SDPA on the same contiguous heads
+    (forward; for both backward kernels its whole backward through
+    autograd). Returns the JSON rows."""
+    import torch.nn.functional as F
+
+    b, h, n, d, dtype_name = BLOCKWISE_CASES[0]
+    print(f"== B2 times on {card}: ({b},{h},{n},{d}) {dtype_name}", flush=True)
+    q, k, v, do = heads_qkv(b, h, n, d, getattr(torch, dtype_name), seed=950, count=4)
+    scale = 1.0 / d ** 0.5
+    out, lse = fb.blockwise_attention_fwd(q, k, v, scale)
+    _, delta = fb.blockwise_attention_bwd_dq(q, k, v, out, lse, do, scale)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    bounds = blockwise_bounds(b, h, n, d, dtype_name)
+
+    def plain_bwd():
+        return fb.blockwise_attention_bwd_reference(q, k, v, out, lse, do, scale)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True)
+
+    parts = {
+        "fwd": (lambda: fb.blockwise_attention_fwd(q, k, v, scale),
+                lambda: fb.blockwise_attention_reference(q, k, v, scale,
+                                                         fb.KERNEL_BLOCK_K),
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), fb.KERNEL),
+        "dq": (lambda: fb.blockwise_attention_bwd_dq(q, k, v, out, lse, do, scale),
+               plain_bwd, sdpa_bwd, fb.KERNEL_DQ),
+        "dkv": (lambda: fb.blockwise_attention_bwd_dkv(q, k, v, do, lse, delta, scale),
+                plain_bwd, sdpa_bwd, fb.KERNEL_DKV),
+    }
+    rows = {}
+    for part, (kernel, plain, library, name) in parts.items():
+        first = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, iters=10)
+        library_ms = cuda_ms(library)
+        second = cuda_ms(kernel)
+        bound_ms, bound_by = bounds[part]
+        print(f"  {name}: kernel {first:.4f} / {second:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+        rows[part] = {"ms": min(first, second), "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
+    rows["dq"]["plain_is"] = rows["dkv"]["plain_is"] = "the whole plain backward"
+    rows["dq"]["library_is"] = rows["dkv"]["library_is"] = "SDPA's whole backward"
+    f32 = [x.float() for x in (q, k, v)]
+    f32_ms = cuda_ms(lambda: fb.blockwise_attention_fwd(*f32, scale), iters=10)
+    f32_bound = blockwise_bounds(b, h, n, d, "float32")["fwd"]
+    print(f"  {fb.KERNEL} float32 (CUDA cores): kernel {f32_ms:.4f} ms, bound "
+          f"{f32_bound[0]:.4f} ms ({f32_bound[1]})", flush=True)
+    profile_window(torch, lambda: [fb.blockwise_attention_bwd(q, k, v, out, lse, do, scale)
+                                   for _ in range(5)],
+                   "5 blockwise_attention_bwd calls (its two kernels)", rows=4)
+    return rows
+
+
+def phase_exp2_probe(torch, fb, card):
+    """The exp2 probe (``vit_ssl_tpu_torch/scripts/exp2_probe.py``), P1's
+    path: P1 against B2's forward at the probe's shapes, both timed. Then,
+    apart from the path, P1 against its plain version at the kernel's key
+    tile (bf16 atol 1e-2 rtol 1e-2), its plain and SDPA times and bound at
+    the probe's first shape. Returns (the probe's launches, P1's JSON row,
+    P1's max_abs_err to its plain version)."""
+    import torch.nn.functional as F
+
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.scripts.exp2_probe import SHAPES, probe
+
+    print(f"== exp2 probe on {card}: blockwise_fwd_exp2 (P1, exp2 with log2 e folded "
+          f"into the scale) against blockwise_fwd (expf), bf16", flush=True)
+    kernels.launches.clear()  # the probe's run starts here
+    rows = probe()
+    launches = dict(kernels.launches)  # ... and ends here
+    for row in rows:
+        exp_ms, exp2_ms = min(row["exp_ms"]), min(row["exp2_ms"])
+        print(f"  {row['shape']}: exp {row['exp_ms'][0]:.4f} / {row['exp_ms'][1]:.4f} ms, "
+              f"exp2 {row['exp2_ms'][0]:.4f} / {row['exp2_ms'][1]:.4f} ms, exp2/exp "
+              f"{exp2_ms / exp_ms:.3f}; P1 against B2 max_abs_err "
+              f"{row['max_abs_err']:.3e} (atol/rtol 3e-2)", flush=True)
+    print(f"  launches: {launches}", flush=True)
+    b, h, n, d = SHAPES[0]
+    q, k, v = heads_qkv(b, h, n, d, torch.bfloat16, seed=960)
+    scale = 1.0 / d ** 0.5
+    out, lse = fb.blockwise_attention_fwd_exp2(q, k, v, scale)
+    ref, ref_lse = fb.blockwise_attention_exp2_reference(q, k, v, scale, fb.KERNEL_BLOCK_K)
+    ok, tol = forward_ok(torch, out, ref, "bfloat16")
+    lse_err = rel_err(lse, ref_lse)
+    err = max_abs(out, ref)
+    print(f"  {fb.KERNEL_EXP2} ({b},{h},{n},{d}) against its plain version at block_k "
+          f"{fb.KERNEL_BLOCK_K}: max_abs_err {err:.3e} ({tol}); lse rel_err "
+          f"{lse_err:.3e} (<= {LSE_REL_TOL:g}) {'ok' if ok else 'MISS'}", flush=True)
+    if not ok or lse_err > LSE_REL_TOL:
+        fail("P1 disagrees with its plain version")
+    plain_ms = cuda_ms(lambda: fb.blockwise_attention_exp2_reference(
+        q, k, v, scale, fb.KERNEL_BLOCK_K), iters=10)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    bound_ms, bound_by = blockwise_bounds(b, h, n, d, "bfloat16")["fwd"]
+    print(f"  {fb.KERNEL_EXP2} ({b},{h},{n},{d}): plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    stats = {"ms": min(rows[0]["exp2_ms"]), "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms, "shape": list(SHAPES[0]),
+             "blockwise_fwd_same_shape_ms": min(rows[0]["exp_ms"])}
+    return launches, stats, err
+
+
 def main() -> int:
     import torch
 
@@ -1499,6 +1773,7 @@ def main() -> int:
     try:
         from vit_ssl_tpu_torch import kernels
         from vit_ssl_tpu_torch.ops import flash_attention as fa
+        from vit_ssl_tpu_torch.ops import flash_blockwise as fb
         from vit_ssl_tpu_torch.ops import fused_mlp as fm
     except ImportError as e:
         print(f"chip_smoke: the vit_ssl_tpu_torch package is missing ({e}); "
@@ -1525,6 +1800,7 @@ def main() -> int:
     train_errors = phase_kernels(torch, fa)
     mlp_errors = phase_mlp_kernels(torch, fm)
     fused_errors = phase_fused_kernels(torch, fa)
+    blockwise_errors = phase_blockwise_kernels(torch, fb)
     with tempfile.TemporaryDirectory() as tmp:
         server, x, unfused_out, serve_launches = phase_serving(torch, fa, tmp)
         serve_stats = phase_serving_times(torch, fa, server, x, card)
@@ -1538,9 +1814,20 @@ def main() -> int:
     fused_train_launches = phase_training_fused(torch, fa, fm, warm_ms, card)
     mlp_stats = phase_mlp_times(torch, fm, card)
     with tempfile.TemporaryDirectory() as tmp:
-        sup_serve_launches = phase_supervised_serving(torch, fa, tmp, card)
-    sup_paths = phase_supervised_training(torch, fa, card)
+        sup_serve_launches = phase_supervised_serving(torch, fa, tmp, card, VIT_B16_384,
+                                                      fa.FUSED_KERNEL)
+    sup_paths = phase_supervised_training(
+        torch, fa, card, VIT_B16_384, (fa.FUSED_KERNEL_TRAIN, fa.FUSED_KERNEL_BWD),
+        fa.FUSED_KERNEL, "")
     fused_stats = phase_fused_times(torch, fa, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        sup512_serve_launches = phase_supervised_serving(torch, fa, tmp, card,
+                                                         VIT_B16_512, fb.KERNEL)
+    sup512_paths = phase_supervised_training(
+        torch, fa, card, VIT_B16_512, (fb.KERNEL, fb.KERNEL_DQ, fb.KERNEL_DKV),
+        fb.KERNEL, "_512")
+    blockwise_stats = phase_blockwise_times(torch, fb, card)
+    probe_launches, p1_stats, p1_err = phase_exp2_probe(torch, fb, card)
 
     b, n, h, d, dtype_name, bs = ATTENTION_CASES[0]
     xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=200)
@@ -1582,9 +1869,22 @@ def main() -> int:
          "vit_ssl_tpu/ops/flash_attention.py:150", fused_errors[vit_case][1],
          fused_stats["bwd"]),
     ]
+    b2_case = blockwise_errors[BLOCKWISE_CASES[0]]
+    entries += [
+        (fb.KERNEL, "flash_blockwise_fwd.cu", "vit_ssl_tpu/ops/flash_blockwise.py:76",
+         b2_case["fwd"], {**blockwise_stats["fwd"], "lse_max_abs_err": b2_case["lse"]}),
+        (fb.KERNEL_DQ, "flash_blockwise_bwd.cu", "vit_ssl_tpu/ops/flash_blockwise.py:217",
+         b2_case["dq"], blockwise_stats["dq"]),
+        (fb.KERNEL_DKV, "flash_blockwise_bwd.cu", "vit_ssl_tpu/ops/flash_blockwise.py:168",
+         b2_case["dkv"], blockwise_stats["dkv"]),
+        (fb.KERNEL_EXP2, "flash_blockwise_fwd.cu", "scripts/exp2_probe.py:27",
+         p1_err, p1_stats),
+    ]
     paths = {"serving": serve_launches, "training": train_launches,
              "serving_fused": fused_serve_launches, "training_fused": fused_train_launches,
-             "serving_supervised": sup_serve_launches, **sup_paths}
+             "serving_supervised": sup_serve_launches, **sup_paths,
+             "serving_supervised_512": sup512_serve_launches, **sup512_paths,
+             "exp2_probe": probe_launches}
     for name, *_ in entries:
         if sum(p.get(name, 0) for p in paths.values()) == 0:
             fail(f"{name} was not launched on the main paths")

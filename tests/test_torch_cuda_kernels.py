@@ -5,7 +5,11 @@ statistics) and the backward (dq, dk, dv), and a ``MultiHeadAttention``
 gradient through the kernels against the plain path. Kernel B3: the same
 three entries on the head-major layout, their equality with B1 on the same
 data, and a ``MultiHeadAttention`` gradient at ViT-B/16's N = 577 through
-them. Kernel B4 (fused MLP):
+them. Kernel B2 (blockwise flash attention): its forward (o and lse) and
+its two backward kernels (with and without an lse cotangent) from N = 1 to
+4096, P1 (the exp2 forward) against its plain version and B2's forward, and
+a ``MultiHeadAttention`` gradient at ViT-B/16's N = 1025 through them.
+Kernel B4 (fused MLP):
 its forwards (no mask, keep-mask, keep-mask with pre saved) and its
 backward (with and without the mask), and a ``FeedForwardBlock(use_fused=
 True)`` gradient through the kernels against the plain path.
@@ -28,6 +32,7 @@ from vit_ssl_tpu_torch.models import ViTBackbone
 from vit_ssl_tpu_torch.ops import FeedForwardBlock
 from vit_ssl_tpu_torch.ops import attention as attention_mod
 from vit_ssl_tpu_torch.ops import flash_attention as fa
+from vit_ssl_tpu_torch.ops import flash_blockwise as fb
 from vit_ssl_tpu_torch.ops import fused_mlp as fm
 
 pytestmark = pytest.mark.cuda
@@ -439,6 +444,158 @@ def test_multi_head_attention_gradient_through_b3(cuda_device, monkeypatch, dtyp
     monkeypatch.setattr(attention_mod, "fused_attention", fa.fused_attention_plain)
     want = grads()
     assert dict(kernels.launches) == {fa.FUSED_KERNEL_TRAIN: 1, fa.FUSED_KERNEL_BWD: 1}
+    for name in want:
+        assert float(got[name].abs().max()) > 0, name
+        cos = torch.nn.functional.cosine_similarity(
+            got[name].flatten(), want[name].flatten(), dim=0)
+        assert float(cos) >= 0.999, (name, float(cos))
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2 (blockwise flash attention) and P1 (its exp2 form)
+
+# ViT-B/16 at 512 px first (bf16, fp32), then N = 1, a ragged N <= 1024,
+# N = 2048 and 4096, and head dims 32 and 128
+BLOCKWISE_CASES = [
+    (64, 12, 1025, 64, "bfloat16"),
+    (16, 12, 1025, 64, "float32"),
+    (4, 12, 1, 64, "bfloat16"),
+    (4, 12, 1, 64, "float32"),
+    (8, 4, 777, 64, "bfloat16"),
+    (8, 4, 777, 64, "float32"),
+    (4, 6, 2048, 64, "bfloat16"),
+    (2, 6, 4096, 64, "bfloat16"),
+    (8, 4, 300, 32, "bfloat16"),
+    (8, 4, 300, 32, "float32"),
+    (4, 2, 1100, 128, "bfloat16"),
+    (4, 2, 1100, 128, "float32"),
+]
+# lse: max |kernel - plain| over max |plain|; the scores' sums run in
+# another order, and the bf16 kernels' exponentials are ex2.approx
+LSE_REL_TOL = 1e-5
+
+
+def _blockwise_grad_errs(q, k, v, do, scale, got, want):
+    """Each of dq, dk, dv: max |kernel - plain| over max |plain|, the
+    denominator floored at 1e-3 of the scale of the terms that cancel in
+    dq and dk, scale max_i |do_i| max_j |v_j| max(|q|, |k|) (row norms):
+    they are sums of p (dp - delta) scale, and delta (from do and o)
+    cancels dp only to rounding. Where the exact gradient is 0 (N = 1, one
+    key) both sides give that rounding noise."""
+    def top(x):
+        return float(x.float().abs().max())
+
+    floor = 1e-3 * scale * top(do.float().norm(dim=-1)) * top(v.float().norm(dim=-1)) \
+        * max(top(q), top(k))
+    return [float((g.float() - w.float()).abs().max()) / max(top(w), floor, 1e-30)
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("b,h,n,d,dtype", BLOCKWISE_CASES)
+def test_blockwise_forward_matches_plain(cuda_device, b, h, n, d, dtype):
+    """One launch of blockwise_fwd: o within BF16_TOL / FP32_TOL of the
+    plain version at the kernel's key tile (the bf16 output depends on the
+    tiling: p rounds relative to the running max), lse within LSE_REL_TOL."""
+    dt = getattr(torch, dtype)
+    q, k, v = _head_inputs(b, h, n, d, dt, cuda_device, seed=b + n + 2)
+    scale = 1.0 / d ** 0.5
+    before = kernels.launches[fb.KERNEL]
+    out, lse = fb.blockwise_attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert kernels.launches[fb.KERNEL] == before + 1
+    ref, ref_lse = fb.blockwise_attention_reference(q, k, v, scale, fb.KERNEL_BLOCK_K)
+    assert out.dtype == dt and out.shape == ref.shape and torch.isfinite(out).all()
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, n)
+    torch.testing.assert_close(
+        out.float(), ref.float(), **(FP32_TOL if dtype == "float32" else BF16_TOL))
+    assert _rel_err(lse, ref_lse) <= LSE_REL_TOL, _rel_err(lse, ref_lse)
+
+
+@pytest.mark.parametrize("with_dlse", [True, False], ids=["dlse", "no-dlse"])
+@pytest.mark.parametrize("b,h,n,d,dtype", BLOCKWISE_CASES)
+def test_blockwise_backward_matches_plain(cuda_device, b, h, n, d, dtype, with_dlse):
+    """blockwise_bwd_dq and blockwise_bwd_dkv once each: dq, dk, dv within
+    GRAD_REL_TOL of max|plain| (floored, _blockwise_grad_errs) from the same
+    o and lse, with and without an lse cotangent; a second call gives the
+    same bits (no atomics)."""
+    dt = getattr(torch, dtype)
+    q, k, v = _head_inputs(b, h, n, d, dt, cuda_device, seed=b + n + 3)
+    (do,) = _head_inputs(b, h, n, d, torch.float32, cuda_device, seed=13)[:1]
+    dlse = (torch.randn(b, h, n, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(14)) if with_dlse else None)
+    scale = 1.0 / d ** 0.5
+    out, lse = fb.blockwise_attention_fwd(q, k, v, scale)
+    before = dict(kernels.launches)
+    got = fb.blockwise_attention_bwd(q, k, v, out, lse, do, scale, dlse)
+    torch.cuda.synchronize()
+    for entry in (fb.KERNEL_DQ, fb.KERNEL_DKV):
+        assert kernels.launches[entry] == before.get(entry, 0) + 1
+    want = fb.blockwise_attention_bwd_reference(q, k, v, out, lse, do, scale, dlse)
+    errs = _blockwise_grad_errs(q, k, v, do, scale, got, want)
+    for name, g, w, err in zip(("dq", "dk", "dv"), got, want, errs):
+        assert g.dtype == dt and g.shape == w.shape and torch.isfinite(g).all(), name
+        assert err <= GRAD_REL_TOL[dtype], (name, err)
+    again = fb.blockwise_attention_bwd(q, k, v, out, lse, do, scale, dlse)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("b,h,n,d", [(8, 6, 2048, 64), (4, 6, 4096, 64),
+                                     (64, 12, 1025, 64), (4, 2, 1100, 128)])
+def test_exp2_forward_matches_plain_and_b2(cuda_device, b, h, n, d):
+    """P1 (bf16): o within BF16_TOL of its plain version at the kernel's
+    tile and within the probe's atol/rtol 3e-2 of B2's forward; its lse,
+    returned as natural log, within LSE_REL_TOL of B2's."""
+    q, k, v = _head_inputs(b, h, n, d, torch.bfloat16, cuda_device, seed=n + 4)
+    scale = 1.0 / d ** 0.5
+    before = kernels.launches[fb.KERNEL_EXP2]
+    out, lse = fb.blockwise_attention_fwd_exp2(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert kernels.launches[fb.KERNEL_EXP2] == before + 1
+    ref, ref_lse = fb.blockwise_attention_exp2_reference(q, k, v, scale,
+                                                         fb.KERNEL_BLOCK_K)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    b2, b2_lse = fb.blockwise_attention_fwd(q, k, v, scale)
+    torch.testing.assert_close(out.float(), b2.float(), atol=3e-2, rtol=3e-2)
+    assert _rel_err(lse, b2_lse) <= LSE_REL_TOL
+    assert _rel_err(lse, ref_lse) <= LSE_REL_TOL
+
+
+def test_blockwise_refuses_what_the_kernels_cannot_take(cuda_device):
+    x = torch.zeros(2, 2, 37, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fb.blockwise_attention(x, x, x, 0.125)
+    x = torch.zeros(2, 2, 37, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.blockwise_attention(x, x.transpose(2, 3).contiguous().transpose(2, 3), x, 0.125)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fb.blockwise_attention_fwd_exp2(x, x, x, 0.125)
+    with pytest.raises(ValueError, match="lse"):
+        fb.blockwise_attention_bwd(x, x, x, x, torch.zeros(2, 2, 36, device=cuda_device),
+                                   x, 0.125)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_multi_head_attention_gradient_through_b2(cuda_device, monkeypatch, dtype):
+    """ViT-B's widths at N = 1025 (ViT-B/16 at 512 px) route to B2: one
+    forward and one launch of each backward kernel, nothing else; every
+    parameter's gradient equals the plain path's (cosine >= 0.999)."""
+    dt = getattr(torch, dtype)
+    torch.manual_seed(0)
+    mha = attention_mod.MultiHeadAttention(768, 12, dtype=dt).to(cuda_device)
+    x = torch.randn(2, 1025, 768, device=cuda_device)
+
+    def grads():
+        mha.zero_grad()
+        (mha(x).float() ** 2).sum().backward()
+        return {k: p.grad.clone() for k, p in mha.named_parameters()}
+
+    launched = {fb.KERNEL: 1, fb.KERNEL_DQ: 1, fb.KERNEL_DKV: 1}
+    kernels.launches.clear()
+    got = grads()
+    assert dict(kernels.launches) == launched
+    monkeypatch.setattr(attention_mod, "blockwise_attention", fb.blockwise_attention_plain)
+    want = grads()
+    assert dict(kernels.launches) == launched
     for name in want:
         assert float(got[name].abs().max()) > 0, name
         cos = torch.nn.functional.cosine_similarity(

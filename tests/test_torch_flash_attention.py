@@ -413,11 +413,11 @@ ROUTE_GRID = [
 
 
 def test_routing_matches_jax_predicates():
-    """Over the grid: B3 wherever JAX picks B3, B1 wherever JAX picks B1, a
-    NotImplementedError naming B2 wherever JAX picks B2; where JAX's TPU
-    timing gate picks XLA the port keeps its kernel of the same rule (B1
-    where B1 fits, else B3). The slice's ViT-B/16 at 384 px is B3 on both
-    sides, and every DINO ViT-S/8 shape is B1 for the port."""
+    """Over the grid: B3 wherever JAX picks B3, B1 wherever JAX picks B1, B2
+    wherever JAX picks B2; where JAX's TPU timing gate picks XLA the port
+    keeps its kernel of the same rule (B1 where B1 fits, else B3). ViT-B/16
+    at 384 px is B3 on both sides and at 512 px (N = 1025) B2 on both sides,
+    and every DINO ViT-S/8 shape is B1 for the port."""
     from vit_ssl_tpu.ops import flash_attention as jfa
 
     seen = set()
@@ -426,10 +426,6 @@ def test_routing_matches_jax_predicates():
         seen.add(jax_route)
         assert fa.attention_nhd_feasible(b, n, h, hd, itemsize) == \
             jfa.attention_nhd_feasible(b, n, h, hd, itemsize), (b, n, h, hd)
-        if jax_route == "B2":
-            with pytest.raises(NotImplementedError, match="B2"):
-                fa.attention_route(b, n, h, hd, itemsize)
-            continue
         got = fa.attention_route(b, n, h, hd, itemsize)
         if jax_route == "XLA":
             jax_route = "B1" if jfa.attention_nhd_feasible(b, n, h, hd, itemsize) else "B3"
@@ -437,6 +433,8 @@ def test_routing_matches_jax_predicates():
     assert seen == {"B1", "B2", "B3", "XLA"}
     assert _jax_route(64, 577, 12, 768, 2) == "B3"
     assert fa.attention_route(64, 577, 12, 768, 2) == "B3"
+    assert _jax_route(64, 1025, 12, 768, 2) == "B2"
+    assert fa.attention_route(64, 1025, 12, 768, 2) == "B2"
     for b, n in ((128, 145), (256, 145), (512, 37)):
         assert fa.attention_route(b, n, 6, 384, 2) == "B1"
     assert fa.attention_route(128, 148, 6, 384, 2, block_size=37) == "B1"

@@ -5,9 +5,8 @@
 - its entry points take the card unless the caller asks for the CPU;
 - ``chip_smoke.py``'s DINO ViT-S/8 config is the composed ``configs/dino.yaml``,
   its supervised ViT-B/16 the composed ``configs/vit_b_imagenet.yaml`` at
-  384 px, and the script refuses to run without a card;
-- a self-attention longer than kernel B3 takes (N > 1024, kernel B2's
-  territory) is refused by name.
+  384 px and at 512 px, and the script refuses to run without a card;
+- a self-attention longer than kernel B3 takes (N > 1024) runs kernel B2.
 """
 
 import ast
@@ -123,6 +122,42 @@ def test_chip_smoke_supervised_config_is_composed_vit_b_yaml():
     _assert_within(smoke, composed, "config")
 
 
+def test_chip_smoke_supervised_512_config_is_composed_vit_b_yaml():
+    """configs/vit_b_imagenet.yaml with data.img_size=512
+    parallel.remat=false training.batch_size=64 (N = 1025, kernel B2's
+    route): model, data, the optimizer and its schedule, and the train
+    transforms, whose crop is 512 px."""
+    composed = to_container(compose(REPO / "configs", "vit_b_imagenet", overrides=[
+        "data.img_size=512", "parallel.remat=false", "training.batch_size=64"]))
+    smoke = _load_chip_smoke().VIT_B16_512
+    assert smoke["data"]["img_size"] == 512
+    assert smoke["transforms"]["train"][0]["params"]["size"] == 512
+    assert set(smoke) == {"training", "model", "data", "parallel", "transforms"}
+    assert (smoke["data"]["img_size"] // smoke["model"]["patch_size"]) ** 2 + 1 == 1025
+    _assert_within(smoke, composed, "config")
+    assert _load_chip_smoke().VIT_B16_384["data"]["img_size"] == 384
+
+
+def test_chip_smoke_b2_bounds():
+    """ViT-B/16 at 512 px, (64, 12, 1025, 64) bf16: 100.8 MB a tensor, 3.1 MB
+    of lse and 103.3 GFLOP a product. Forward 406 MB (0.121 ms) against two
+    products (0.209 ms); dq 611 MB (0.182 ms) against three (0.313 ms);
+    dk/dv the same bytes against four (0.418 ms): operations bound all
+    three."""
+    smoke = _load_chip_smoke()
+    act = 64 * 12 * 1025 * 64 * 2
+    row = 64 * 12 * 1025 * 4
+    product = 2 * 64 * 12 * 1025 * 1025 * 64
+    bounds = smoke.blockwise_bounds(64, 12, 1025, 64, "bfloat16")
+    for part, products in (("fwd", 2), ("dq", 3), ("dkv", 4)):
+        assert bounds[part] == pytest.approx((products * product / 989e9, "operations"))
+    assert 0.2088 < bounds["fwd"][0] < 0.2090 and 0.3132 < bounds["dq"][0] < 0.3134
+    assert 0.4177 < bounds["dkv"][0] < 0.4179
+    assert (4 * act + row) / 3.35e9 == pytest.approx(0.1212, abs=1e-4)
+    f32 = smoke.blockwise_bounds(64, 12, 1025, 64, "float32")
+    assert f32["fwd"] == pytest.approx((2 * product / 67e9, "operations"))
+
+
 def test_chip_smoke_b3_bounds():
     """ViT-B/16 at 384 px, (64, 12, 577, 64) bf16: 56.7 MB a tensor and
     32.7 GFLOP a product. Inference forward 227 MB (0.068 ms) against two
@@ -141,18 +176,26 @@ def test_chip_smoke_b3_bounds():
     assert 0.165 < train["bwd"][0] < 0.166
 
 
-def test_long_self_attention_names_b2():
-    """N > 1024 without a mask is kernel B2's (not ported): refused with a
-    NotImplementedError naming it, not a ValueError deep in a kernel check;
-    the attention visualizer's plain path still runs."""
+def test_long_self_attention_names_b2(monkeypatch):
+    """N > 1024 without a mask is kernel B2's: on the CPU MultiHeadAttention
+    reaches ``blockwise_attention`` (its plain versions) once, on contiguous
+    (B, H, N, D) heads, and gives the attention visualizer's plain path's
+    output; that path still returns the probabilities."""
     from vit_ssl_tpu_torch.ops import MultiHeadAttention
+    from vit_ssl_tpu_torch.ops import attention as attention_mod
 
-    mha = MultiHeadAttention(64, 2)
-    x = torch.zeros(1, 1025, 64)
-    with pytest.raises(NotImplementedError, match="(?s)B2.*ROADMAP.md"):
-        mha(x)
-    _, probs = mha(x, return_attn=True)
+    calls = []
+    real = attention_mod.blockwise_attention
+    monkeypatch.setattr(attention_mod, "blockwise_attention",
+                        lambda *a: calls.append((a[0].shape, a[0].is_contiguous()))
+                        or real(*a))
+    mha = MultiHeadAttention(64, 2).requires_grad_(False)
+    x = torch.randn(1, 1025, 64, generator=torch.Generator().manual_seed(0))
+    out = mha(x)
+    assert calls == [((1, 2, 1025, 32), True)]
+    plain, probs = mha(x, return_attn=True)
     assert probs.shape == (1, 2, 1025, 1025)
+    torch.testing.assert_close(out, plain, atol=1e-5, rtol=1e-5)
 
 
 def test_chip_smoke_training_bounds():

@@ -4,9 +4,9 @@
 (2 blocks, embed 64, image 32, patch 8; carried by the port's bridge) on
 the same host float images, at dropout 0, so no random stream enters; a
 padded row has weight 0. Once on each side's default route (B1 and JAX's
-XLA path at this size) and once with kernel B3 forced on both sides (JAX's
-in interpret mode, forward and custom-VJP backward; the port's plain
-versions, which its CPU wrapper runs). Also here: the single-view device
+XLA path at this size), once with kernel B3 and once with kernel B2 forced
+on both sides (JAX's in interpret mode, forward and custom-VJP backward;
+the port's plain versions, which its CPU wrapper runs). Also here: the single-view device
 augmentation against JAX's, ``eval_step`` and the refusals.
 """
 
@@ -75,18 +75,29 @@ def _weights():
                    ["params"], 1)
 
 
-def _force_b3(patch):
+def _force(patch, route):
+    """Send every block down kernel B3 or B2 on both sides (at N = 17 both
+    packages pick B1/XLA on their own): JAX's predicates in its attention
+    module; the port's B1 feasibility, and for B2 its length ceiling."""
+    if route == "default":
+        return
     patch.setattr(jax_attention_mod, "attention_nhd_profitable", lambda *a, **kw: False)
-    patch.setattr(jax_attention_mod, "fused_attention_profitable", lambda *a, **kw: True)
     patch.setattr(fa, "attention_nhd_feasible", lambda *a, **kw: False)
+    if route == "b3":
+        patch.setattr(jax_attention_mod, "fused_attention_profitable",
+                      lambda *a, **kw: True)
+    else:
+        patch.setattr(jax_attention_mod, "flash_attention_available",
+                      lambda *a, **kw: False)
+        patch.setattr(fa, "MAX_SEQ", 16)
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["default", "b3"])
+@pytest.fixture(scope="module", params=["default", "b3", "b2"],
+                ids=["default", "b3", "b2"])
 def jax_run(request):
     """JAX's losses, preds and parameters after each of 3 steps."""
     patch = pytest.MonkeyPatch()
-    if request.param:
-        _force_b3(patch)
+    _force(patch, request.param)
     try:
         tx = optax.adamw(jax_schedules.reference_lr_schedule(**LR),
                          weight_decay=WEIGHT_DECAY)
@@ -103,12 +114,12 @@ def jax_run(request):
     return request.param, runs
 
 
-def _port_run(b3, steps, monkeypatch):
-    if b3:
-        _force_b3(monkeypatch)
+def _port_run(route, steps, monkeypatch):
+    _force(monkeypatch, route)
     calls = []
-    real = attention_mod.fused_attention
-    monkeypatch.setattr(attention_mod, "fused_attention",
+    kernel = "blockwise_attention" if route == "b2" else "fused_attention"
+    real = getattr(attention_mod, kernel)
+    monkeypatch.setattr(attention_mod, kernel,
                         lambda *a: calls.append(a[0].shape) or real(*a))
     model = ViT(**SMALL)
     model.load_state_dict(vit_state_dict_from_flax(_weights()), strict=True)
@@ -120,7 +131,7 @@ def _port_run(b3, steps, monkeypatch):
         outs.append(train_step(state, {k: torch.from_numpy(v)
                                        for k, v in batch.items()}))
     assert state.step == steps
-    assert len(calls) == (SMALL["num_blocks"] * steps if b3 else 0)
+    assert len(calls) == (0 if route == "default" else SMALL["num_blocks"] * steps)
     return state, outs
 
 
@@ -131,8 +142,8 @@ def test_supervised_step_matches_jax(jax_run, steps, monkeypatch):
     entry by its own RMS, so an entry whose fp32 sums land on opposite
     sides of zero may differ by up to 2·lr a step; every entry is held
     within 2·Σlr + 1e-5 and 99.5 % of them within 1e-5 + 1e-4·|p|."""
-    b3, runs = jax_run
-    state, outs = _port_run(b3, steps, monkeypatch)
+    route, runs = jax_run
+    state, outs = _port_run(route, steps, monkeypatch)
     batches = _batches()
     for i, out in enumerate(outs):
         loss, preds, _ = runs[i]

@@ -36,6 +36,8 @@ SOURCES: Dict[str, str] = {
     "fused_attention": "csrc/fused_attention.cu",
     "fused_mlp_fwd": "csrc/fused_mlp_fwd.cu",
     "fused_mlp_bwd": "csrc/fused_mlp_bwd.cu",
+    "flash_blockwise_fwd": "csrc/flash_blockwise_fwd.cu",
+    "flash_blockwise_bwd": "csrc/flash_blockwise_bwd.cu",
 }
 
 NVCC_FLAGS = [

@@ -11,7 +11,8 @@ the JAX package picks it (``MultiHeadAttention.__call__``,
   (B, N, H·D) layout;
 - otherwise, up to N = 1024: :func:`.flash_attention.fused_attention`
   (kernel B3) on contiguous (B, H, N, D) heads;
-- longer sequences need kernel B2, which is not ported yet: they raise
+- longer sequences: :func:`.flash_blockwise.blockwise_attention` (kernel
+  B2) on contiguous (B, H, N, D) heads
 
 (:func:`.flash_attention.attention_route`).
 
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .flash_attention import attention_nhd, attention_route, fused_attention
+from .flash_blockwise import blockwise_attention
 
 
 def scaled_dot_product_attention(query, key, value, return_attn: bool = False,
@@ -103,7 +105,8 @@ class MultiHeadAttention(nn.Module):
                 context = attention_nhd(xq, xk, xv, self.num_heads, scale,
                                         block_size)
             else:
-                context = fused_attention(
+                kernel = fused_attention if route == "B3" else blockwise_attention
+                context = kernel(
                     *(heads(x, n_q).contiguous() for x in (xq, xk, xv)), scale)
                 context = context.transpose(1, 2).reshape(b, n_q, self.d_model)
             return self._proj(self.final_linear, context)

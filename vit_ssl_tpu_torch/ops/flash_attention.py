@@ -112,14 +112,16 @@ def attention_route(b: int, n: int, num_heads: int, hd: int, itemsize: int,
     """The kernel a self-attention of this shape takes: ``"B1"``
     (:func:`attention_nhd`) for a packed sequence or where B1 fits
     (:func:`attention_nhd_feasible`), else ``"B3"`` (:func:`fused_attention`)
-    up to N = ``MAX_SEQ``. Longer unpacked sequences need kernel B2, which
-    is not ported yet: ``NotImplementedError``."""
+    up to N = ``MAX_SEQ``, and ``"B2"``
+    (:func:`.flash_blockwise.blockwise_attention`) for a longer unpacked
+    sequence, as the JAX package sends N > ``MAX_FUSED_SEQ`` to
+    ``blockwise_attention``. B1's and B3's kernels stop at ``MAX_SEQ``, so
+    a long sequence takes B2 even where JAX's rule would let B1 fit (one
+    narrow head)."""
     if block_size:
         return "B1"
     if n > MAX_SEQ:
-        raise NotImplementedError(
-            f"self-attention over N={n} > {MAX_SEQ} needs kernel B2 (blockwise "
-            "flash attention), which is not ported yet; see ROADMAP.md queue B")
+        return "B2"
     return "B1" if attention_nhd_feasible(b, n, num_heads, hd, itemsize) else "B3"
 
 
