@@ -15,7 +15,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               softmax statistics) and the backward (dq, dk, dv); kernel B4
               (fused MLP): its three forwards (no mask; keep-mask; keep-mask
               and saved pre) and its backward (with and without the mask)
-              at every token count of the main paths, bf16 and fp32
+              at every token count of the main paths, and at d_model 768 /
+              d_ff 3072 (T = 36928, ViT-B/16 at 384 px) and 1024 / 4096
+              (T = 12608, ViT-L/16 at 224 px), bf16 and fp32; kernel P2
+              (dropout-masked second FFN product): its forward and backward
+              at T = 37120 x (1536 -> 384), a ragged T, T = 1 and ViT-B's
+              3072 -> 768 at T = 36928, bf16 and fp32
 4. serving  — a DINO ViT-S/8 ``Server`` at batch 128 through its
               ``forward_batch`` entry point: launch counts, agreement with
               the plain attention path, padding rows inert
@@ -35,7 +40,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 9. fused training — the same step with ``model.use_fused_mlp=true``:
               B4 and B1 launch counts per step, agreement with the unfused
               step from one cloned state, warm step, a profile of three
-              steps, and B4's kernel/plain/unfused-chain times
+              steps, and B4's kernel/plain/unfused-chain times at each width
 10. B3 kernels — kernel B3 (head-major fused attention) against its plain
               versions: inference forward, training forward and backward at
               ViT-B/16's (64, 12, 577, 64), at N = 1, N = 1024 and ragged N,
@@ -49,8 +54,14 @@ Phases, each printing its own lines; any failure exits non-zero:
               images augmented on the card: 12 B3 training forwards and 12
               backwards a step, agreement with the plain attention path from
               one cloned state, warm step, peak memory, a profile;
-              ``eval_step``'s 12 inference launches; B3's times beside B1's
-              on the same data and SDPA's
+              ``eval_step``'s 12 inference launches
+12a. fused supervised serving and training — phases 11 and 12 with
+              ``model.use_fused_mlp=true`` (kernel B4 at d_model 768): 12 B3
+              and 12 B4 forwards a served batch and an ``eval_step``; 12 B3
+              training forwards and backwards and 12 B4 training forwards
+              and backwards a step; agreement with the unfused server and
+              the unfused step from one cloned state (the same masks); then
+              B3's times beside B1's on the same data and SDPA's
 13. B2 kernels — kernel B2 (blockwise flash attention) against its plain
               versions: the forward (o and lse) and the dq and dk/dv
               kernels, with and without an lse cotangent, at ViT-B/16's
@@ -65,7 +76,14 @@ Phases, each printing its own lines; any failure exits non-zero:
 16. exp2 probe — ``vit_ssl_tpu_torch/scripts/exp2_probe.py``: P1
               (``blockwise_fwd_exp2``) against B2's forward, both timed; P1
               against its plain version
-17. a JSON line describing every kernel, then the JSON ``ok`` line last.
+17. P2 times — kernel, plain, the library pair (``torch.where`` dropout
+              then ``F.linear``) and bound at T = 37120, 1536 -> 384, bf16
+18. dropout-epilogue probe —
+              ``vit_ssl_tpu_torch/scripts/dropout_epilogue_probe.py``, P2's
+              path: the epilogue FFN checked against the plain FFN, its five
+              legs timed, the derived lines and the retire rule's verdict
+19. a JSON line describing every kernel (B4 once at each width), then the
+              JSON ``ok`` line last.
 
 Imports neither JAX nor the JAX package, and needs no PIL, OpenCV or YAML.
 """
@@ -190,6 +208,11 @@ def supervised_config(img: int):
     return cfg
 
 
+# The same ViT-B/16 at 384 px with model.use_fused_mlp=true: every FFN is
+# kernel B4 at d_model 768, d_ff 3072; tests/test_torch_guards.py pins it to
+# the same composition with that override.
+VIT_B16_384_FUSED = copy.deepcopy(VIT_B16_384)
+VIT_B16_384_FUSED["model"]["use_fused_mlp"] = True
 # The same ViT-B/16 at 512 px, N = (512/16)^2 + 1 = 1025: past B1's and B3's
 # 1024, so every block runs kernel B2; tests/test_torch_guards.py pins it to
 # configs/vit_b_imagenet.yaml composed with data.img_size=512
@@ -302,6 +325,11 @@ def b2_grad_errs(q, k, v, do, scale, got, want):
 # ragged T
 MLP_ROWS = [37120, 18944, 18560, 5365, 1, 70]
 MLP_DIMS = (384, 1536)  # d_model, d_ff of DINO ViT-S/8
+# B4 at the other widths it is built for, (T, d_model, d_ff): ViT-B/16 at
+# 384 px (64 x 577 tokens) and ViT-L/16 at 224 px (64 x 197), each with a
+# short ragged T
+MLP_WIDE_CASES = [(36928, 768, 3072), (70, 768, 3072), (12608, 1024, 4096),
+                  (1, 1024, 4096)]
 KEEP_PROB = 0.9  # 1 - model.dropout
 # outputs and gradients: max |kernel - plain| over max |plain|. bf16: h and
 # dpre round to bf16 on both sides and may land on either side of a tie;
@@ -402,10 +430,11 @@ def mlp_bounds(t, d, d_ff, dtype, mask=True, pre=True):
             "bwd": _bound(bwd_bytes + mask_bytes, 8 * t * d * d_ff, dtype)}
 
 
-def mlp_inputs(torch, t, dtype, seed):
+def mlp_inputs(torch, t, dtype, seed, dims=MLP_DIMS):
     """x (LayerNorm-like), nn.Linear-initialised weights in the nn.Linear
-    layout, a dropout16 keep-mask at rate 0.1 and an upstream gradient."""
-    d, d_ff = MLP_DIMS
+    layout, a dropout16 keep-mask at rate 0.1 and an upstream gradient, at
+    ``dims`` = (d_model, d_ff)."""
+    d, d_ff = dims
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def uniform(*shape, fan_in):
@@ -631,20 +660,21 @@ def phase_blockwise_kernels(torch, fb):
 
 
 def phase_mlp_kernels(torch, fm):
-    """Kernel B4 against its plain versions: per token count and dtype,
-    the forward without a mask (serving), with the keep-mask (the teacher),
-    with the mask and pre saved (the student; its output must equal the
-    masked forward's bit for bit), and the backward with and without the
-    mask (from the plain forward's pre). Returns, per (T, dtype), the max
-    abs errors of each entry point."""
+    """Kernel B4 against its plain versions: per token count, width and
+    dtype, the forward without a mask (serving), with the keep-mask (the
+    teacher), with the mask and pre saved (the student; its output must
+    equal the masked forward's bit for bit), and the backward with and
+    without the mask (from the plain forward's pre). Returns, per (T,
+    d_model, dtype), the max abs errors of each entry point."""
     print("== kernels: fused_mlp_fwd, fused_mlp_fwd_pre and fused_mlp_bwd "
           "against fused_mlp_reference and fused_mlp_bwd_reference", flush=True)
+    cases = [(t, *MLP_DIMS) for t in MLP_ROWS] + MLP_WIDE_CASES
     errors = {}
     for dtype_name in ("bfloat16", "float32"):
         tol = MLP_REL_TOL[dtype_name]
-        for idx, t in enumerate(MLP_ROWS):
+        for idx, (t, d, d_ff) in enumerate(cases):
             x, w1, b1, w2, b2, mask, do = mlp_inputs(
-                torch, t, getattr(torch, dtype_name), seed=400 + idx)
+                torch, t, getattr(torch, dtype_name), seed=400 + idx, dims=(d, d_ff))
             plain = fm.fused_mlp_reference(x, w1, b1, w2, b2)
             want, want_pre = fm.fused_mlp_reference(x, w1, b1, w2, b2, mask,
                                                     KEEP_PROB, save_pre=True)
@@ -668,17 +698,79 @@ def phase_mlp_kernels(torch, fm):
             same = torch.equal(out_pre, out_mask)
             finite = all(bool(torch.isfinite(o).all()) for o in outs)
             ok = same and finite and max(rel.values()) <= tol
-            print(f"  T={t} {dtype_name}: rel_err " + ", ".join(
+            print(f"  T={t} {d}->{d_ff} {dtype_name}: rel_err " + ", ".join(
                 f"{k} {v:.3e}" for k, v in rel.items())
                 + f" (each <= {tol:g} of its max|ref|); fwd_pre output "
                 f"{'bit-equal to' if same else 'DIFFERS from'} fwd's "
                 f"{'ok' if ok else 'MISS'}", flush=True)
             if not ok:
-                fail(f"fused MLP kernels disagree at T={t} {dtype_name}")
-            errors[(t, dtype_name)] = {
+                fail(f"fused MLP kernels disagree at T={t} d_model {d} {dtype_name}")
+            errors[(t, d, dtype_name)] = {
                 "fwd": max_abs(out, plain), "fwd_pre": max_abs(out_pre, want),
                 "bwd_abs": bwd_abs,
                 "bwd_rel": {name: rel[f"bwd mask {name}"] for name in MLP_GRADS}}
+    return errors
+
+
+# Kernel P2 (dropout-masked second FFN product), (T, d_ff, d_out): the DINO
+# student-globals FFN (the probe's shape), a ragged T, T = 1, and ViT-B/16's
+# FFN at 384 px
+MASKED_CASES = [(37120, 1536, 384), (5365, 1536, 384), (1, 1536, 384),
+                (36928, 3072, 768)]
+MASKED_GRADS = ("dh", "dw2", "db2")  # masked_matmul_bwd's outputs
+
+
+def masked_inputs(torch, t, d_ff, d_out, dtype, seed):
+    """h (GELU-like, >= -0.17), a dropout16 keep-mask at rate 0.1, w2 and b2
+    nn.Linear-initialised in the nn.Linear layout, and an upstream
+    gradient."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.nn.functional.gelu(torch.randn(t, d_ff, generator=g, device="cuda")).to(dtype)
+    mask = torch.randint(0, 65536, (t, d_ff), generator=g, device="cuda") >= 6554
+    bound = d_ff ** -0.5
+    w2 = ((torch.rand(d_out, d_ff, generator=g, device="cuda") * 2 - 1) * bound).to(dtype)
+    b2 = ((torch.rand(d_out, generator=g, device="cuda") * 2 - 1) * bound).to(dtype)
+    do = torch.randn(t, d_out, generator=g, device="cuda").to(dtype)
+    return h, mask, w2, b2, do
+
+
+def phase_masked_kernels(torch, mm):
+    """Kernel P2 against its plain versions, per case and dtype: the
+    forward, and the backward (dh, dw2, db2; a second call must repeat it
+    bit for bit: no atomics). Returns, per (T, d_ff, dtype), the max abs
+    errors."""
+    print("== kernels: masked_mm_fwd and masked_mm_bwd against "
+          "masked_matmul_reference and masked_matmul_bwd_reference", flush=True)
+    errors = {}
+    for dtype_name in ("bfloat16", "float32"):
+        tol = MLP_REL_TOL[dtype_name]
+        for idx, (t, d_ff, d_out) in enumerate(MASKED_CASES):
+            h, mask, w2, b2, do = masked_inputs(torch, t, d_ff, d_out,
+                                                getattr(torch, dtype_name), seed=600 + idx)
+            out = mm.masked_matmul_fwd(h, mask, w2, b2, KEEP_PROB)
+            want = mm.masked_matmul_reference(h, mask, w2, b2, KEEP_PROB)
+            got = mm.masked_matmul_bwd(h, mask, do, w2, KEEP_PROB)
+            ref = mm.masked_matmul_bwd_reference(h, mask, do, w2, KEEP_PROB)
+            again = mm.masked_matmul_bwd(h, mask, do, w2, KEEP_PROB)
+            torch.cuda.synchronize()
+            rel = {"fwd": rel_err(out, want)}
+            rel.update({name: rel_err(g, r) for name, g, r in zip(MASKED_GRADS, got, ref)})
+            repeat = all(torch.equal(a, b) for a, b in zip(again, got))
+            finite = all(bool(torch.isfinite(o).all()) for o in (out, *got))
+            shapes = out.shape == want.shape and all(
+                g.shape == r.shape and g.dtype == r.dtype for g, r in zip(got, ref))
+            ok = repeat and finite and shapes and max(rel.values()) <= tol
+            print(f"  T={t} {d_ff}->{d_out} {dtype_name}: rel_err " + ", ".join(
+                f"{k} {v:.3e}" for k, v in rel.items())
+                + f" (each <= {tol:g} of its max|ref|); backward "
+                f"{'repeats' if repeat else 'DOES NOT repeat'} bit for bit "
+                f"{'ok' if ok else 'MISS'}", flush=True)
+            if not ok:
+                fail(f"masked matmul kernels disagree at T={t} {d_ff}->{d_out} {dtype_name}")
+            errors[(t, d_ff, dtype_name)] = {
+                "fwd": max_abs(out, want),
+                "bwd_abs": {name: max_abs(g, r) for name, g, r in zip(MASKED_GRADS, got, ref)},
+                "bwd_rel": {name: rel[name] for name in MASKED_GRADS}}
     return errors
 
 
@@ -740,21 +832,43 @@ def no_plain_attention(fa):
 
 
 @contextlib.contextmanager
-def no_plain_mlp(fm):
-    """Make any call of a plain fused-MLP version fail."""
-    names = ("fused_mlp_reference", "fused_mlp_bwd_reference")
-    saved = {name: getattr(fm, name) for name in names}
+def refused(module, names, what):
+    """Make any call of ``module``'s ``names`` fail: the main path must run
+    the kernels only."""
+    saved = {name: getattr(module, name) for name in names}
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a plain fused-MLP version ran on the main path")
+        raise AssertionError(f"a plain {what} version ran on the main path")
 
     for name in names:
-        setattr(fm, name, refuse)
+        setattr(module, name, refuse)
     try:
         yield
     finally:
         for name, fn in saved.items():
-            setattr(fm, name, fn)
+            setattr(module, name, fn)
+
+
+def no_plain_mlp(fm):
+    """Make any call of a plain fused-MLP version fail."""
+    return refused(fm, ("fused_mlp_reference", "fused_mlp_bwd_reference"), "fused-MLP")
+
+
+def no_plain_masked(mm):
+    """Make any call of a plain masked-matmul (P2) version fail."""
+    return refused(mm, ("masked_matmul_reference", "masked_matmul_bwd_reference"),
+                   "masked-matmul")
+
+
+@contextlib.contextmanager
+def ffn_unfused(*nets):
+    """Run every FFN of ``nets`` as the unfused chain (the same parameters),
+    then switch them back to kernel B4."""
+    set_fused(nets, False)
+    try:
+        yield
+    finally:
+        set_fused(nets, True)
 
 
 def fused_config():
@@ -1201,12 +1315,12 @@ def agreement(torch, fa, state, train_step, batch):
           plain_state.center)
 
 
-def set_fused(state, fused: bool):
-    """Switch every FFN of the student and the teacher between kernel B4
-    and the unfused chain (the parameters are the same)."""
+def set_fused(nets, fused: bool):
+    """Switch every FFN of ``nets`` between kernel B4 and the unfused chain
+    (the parameters are the same)."""
     from vit_ssl_tpu_torch.ops import FeedForwardBlock
 
-    for net in (state.student, state.teacher):
+    for net in nets:
         for module in net.modules():
             if isinstance(module, FeedForwardBlock):
                 module.use_fused = fused
@@ -1219,8 +1333,8 @@ def fused_agreement(torch, state, train_step, batch):
     temps = schedule_values()
     fused_state, unfused_state = copy.deepcopy(state), copy.deepcopy(state)
     exact_state = copy.deepcopy(state)
-    set_fused(unfused_state, False)
-    set_fused(exact_state, False)
+    set_fused((unfused_state.student, unfused_state.teacher), False)
+    set_fused((exact_state.student, exact_state.teacher), False)
     got = train_step(fused_state, batch, *temps, with_grads=True)
     want = train_step(unfused_state, batch, *temps, with_grads=True)
     torch.cuda.synchronize()
@@ -1328,26 +1442,34 @@ def phase_training_fused(torch, fa, fm, unfused_ms, card):
     return main_launches
 
 
-# (entry, T, keep-mask): the training forward at the student's globals and
-# packed locals, the teacher's forward, the served forward, the backward
-# at the two student shapes
+# (entry, T, keep-mask, (d_model, d_ff)): at DINO ViT-S/8's width the
+# training forward at the student's globals and packed locals, the teacher's
+# forward, the served forward, the backward at the two student shapes; at
+# ViT-B/16's (384 px, batch 64) and ViT-L/16's (224 px, batch 64) the served
+# forward, the training forward and the backward
+VIT_B_MLP, VIT_L_MLP = (768, 3072), (1024, 4096)
 MLP_TIMED = [
-    ("fwd_pre", 37120, True), ("fwd_pre", 18944, True), ("fwd", 37120, True),
-    ("fwd", 18560, False), ("bwd", 37120, True), ("bwd", 18944, True),
+    ("fwd_pre", 37120, True, MLP_DIMS), ("fwd_pre", 18944, True, MLP_DIMS),
+    ("fwd", 37120, True, MLP_DIMS), ("fwd", 18560, False, MLP_DIMS),
+    ("bwd", 37120, True, MLP_DIMS), ("bwd", 18944, True, MLP_DIMS),
+    ("fwd", 36928, False, VIT_B_MLP), ("fwd_pre", 36928, True, VIT_B_MLP),
+    ("bwd", 36928, True, VIT_B_MLP),
+    ("fwd", 12608, False, VIT_L_MLP), ("fwd_pre", 12608, True, VIT_L_MLP),
+    ("bwd", 12608, True, VIT_L_MLP),
 ]
 
 
 def phase_mlp_times(torch, fm, card):
-    """Kernel B4 (bf16) at the main paths' token counts: kernel ms twice
-    around its plain version and the unfused FFN chain of the same
+    """Kernel B4 (bf16) at the main paths' token counts and widths: kernel
+    ms twice around its plain version and the unfused FFN chain of the same
     function (its forward, or its autograd backward), CUDA events."""
     print(f"== fused MLP times on {card} (bf16; the unfused chain is F.linear -> "
           f"GELU -> dropout16's where/divide on the same mask -> F.linear)",
           flush=True)
-    d, d_ff = MLP_DIMS
     rows = {}
-    for part, t, with_mask in MLP_TIMED:
-        x, w1, b1, w2, b2, mask, do = mlp_inputs(torch, t, torch.bfloat16, seed=500)
+    for part, t, with_mask, (d, d_ff) in MLP_TIMED:
+        x, w1, b1, w2, b2, mask, do = mlp_inputs(torch, t, torch.bfloat16, seed=500,
+                                                 dims=(d, d_ff))
         mask = mask if with_mask else None
         args = (x, w1, b1, w2, b2, mask, KEEP_PROB)
         if part == "bwd":
@@ -1381,17 +1503,99 @@ def phase_mlp_times(torch, fm, card):
         bounds = mlp_bounds(t, d, d_ff, "bfloat16", with_mask, part == "fwd_pre")
         bound_ms, bound_by = bounds["bwd" if part == "bwd" else "fwd"]
         name = {"fwd": fm.KERNEL, "fwd_pre": fm.KERNEL_TRAIN, "bwd": fm.KERNEL_BWD}[part]
-        print(f"  {name} T={t} {'keep-mask' if with_mask else 'no mask'}: kernel "
-              f"{first:.4f} / {second:.4f} ms, plain {plain_ms:.4f} ms, unfused "
+        print(f"  {name} T={t} {d}->{d_ff} {'keep-mask' if with_mask else 'no mask'}: "
+              f"kernel {first:.4f} / {second:.4f} ms, plain {plain_ms:.4f} ms, unfused "
               f"chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
               flush=True)
-        rows[(part, t)] = {"ms": min(first, second), "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by,
-                           "library_ms": None, "unfused_chain_ms": chain_ms}
-        if part == "bwd":
+        rows[(part, t, d)] = {"ms": min(first, second), "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "library_ms": None, "unfused_chain_ms": chain_ms}
+        if part == "bwd" and d == MLP_DIMS[0]:
             profile_window(torch, lambda: [kernel() for _ in range(5)],
                            f"5 {name} calls at T={t} (its kernels)", rows=4)
     return rows
+
+
+def masked_bounds(t, d_ff, d_out, dtype):
+    """{"fwd": (ms, by), "bwd": (ms, by)} of kernel P2 over t tokens. The
+    forward reads h, the 1-byte keep-mask, w2 and b2 and writes o: one
+    product. The backward reads h, the mask, do and w2 and writes dh, dw2
+    and db2: two products (dh, dw2)."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    act, mask_bytes, out = t * d_ff * itemsize, t * d_ff, t * d_out * itemsize
+    weights = (d_out * d_ff + d_out) * itemsize
+    ops = 2 * t * d_ff * d_out
+    return {"fwd": _bound(act + mask_bytes + weights + out, ops, dtype),
+            "bwd": _bound(2 * act + mask_bytes + out + 2 * weights, 2 * ops, dtype)}
+
+
+def phase_masked_times(torch, mm, card):
+    """Kernel P2 (bf16) at the probe's shape, the DINO student-globals FFN:
+    kernel ms twice around its plain version and the unfused PyTorch pair
+    (dropout16's where/divide on the same mask, then F.linear, or its
+    autograd backward), CUDA events; and the forward at ViT-B/16's FFN."""
+    import torch.nn.functional as F
+
+    print(f"== masked matmul (P2) times on {card} (bf16; the library column is "
+          f"torch.where dropout then F.linear on the same inputs and mask)", flush=True)
+    rows = {}
+    for t, d_ff, d_out in MASKED_CASES[:1]:
+        h, mask, w2, b2, do = masked_inputs(torch, t, d_ff, d_out, torch.bfloat16, seed=700)
+        ins = [y.detach().requires_grad_() for y in (h, w2, b2)]
+
+        def pair(h, w2, b2):
+            return F.linear(torch.where(mask, h / KEEP_PROB, h.new_zeros(())), w2, b2)
+
+        pair_out = pair(*ins)
+        legs = {
+            "fwd": (lambda: mm.masked_matmul_fwd(h, mask, w2, b2, KEEP_PROB),
+                    lambda: mm.masked_matmul_reference(h, mask, w2, b2, KEEP_PROB),
+                    lambda: pair(h, w2, b2)),
+            "bwd": (lambda: mm.masked_matmul_bwd(h, mask, do, w2, KEEP_PROB),
+                    lambda: mm.masked_matmul_bwd_reference(h, mask, do, w2, KEEP_PROB),
+                    lambda: torch.autograd.grad(pair_out, ins, do, retain_graph=True)),
+        }
+        bounds = masked_bounds(t, d_ff, d_out, "bfloat16")
+        for part, (kernel, plain, library) in legs.items():
+            first = cuda_ms(kernel)
+            plain_ms = cuda_ms(plain, iters=10)
+            library_ms = cuda_ms(library)
+            second = cuda_ms(kernel)
+            bound_ms, bound_by = bounds[part]
+            name = mm.KERNEL if part == "fwd" else mm.KERNEL_BWD
+            print(f"  {name} T={t} {d_ff}->{d_out}: kernel {first:.4f} / {second:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, where + F.linear {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+            rows[part] = {"ms": min(first, second), "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": library_ms, "shape": [t, d_ff, d_out],
+                          "library_is": "torch.where dropout then F.linear (addmm)"
+                                        + (", its autograd backward" if part == "bwd" else "")}
+    profile_window(torch, lambda: [legs["bwd"][0]() for _ in range(5)],
+                   "5 masked_matmul_bwd calls (its kernels)", rows=4)
+    return rows
+
+
+def phase_dropout_probe(torch, fm, mm, card):
+    """The dropout-epilogue probe
+    (``vit_ssl_tpu_torch/scripts/dropout_epilogue_probe.py``), P2's path:
+    the epilogue FFN checked against the plain FFN, then the five legs
+    timed, the derived lines and the verdict. Returns its launches."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.scripts import dropout_epilogue_probe as probe
+
+    print(f"== dropout-epilogue probe on {card}: masked_mm_fwd / masked_mm_bwd (P2) "
+          f"in the FFN against dropout as plain passes, bf16", flush=True)
+    with no_plain_mlp(fm), no_plain_masked(mm):
+        kernels.launches.clear()  # the probe's run starts here
+        result = probe.probe()
+        launches = dict(kernels.launches)  # ... and ends here
+    probe.report(result, card)
+    print(f"  launches: {launches}", flush=True)
+    for name in (mm.KERNEL, mm.KERNEL_BWD, fm.KERNEL_TRAIN, fm.KERNEL_BWD):
+        if not launches.get(name):
+            fail(f"the probe did not launch {name}")
+    return launches, result
 
 
 def build_vit_model(torch, seed, cfg=VIT_B16_384):
@@ -1408,22 +1612,26 @@ def top2_margin(logits):
     return top[:, 1] - top[:, 0]
 
 
-def phase_supervised_serving(torch, fa, tmp, card, cfg, entry):
-    """The supervised ViT-B/16 of ``cfg`` served from a written ``.pth``
-    (``entry``: at 384 px B3's inference forward, at 512 px B2's forward):
-    exactly 12 ``entry`` launches a batch and nothing else,
-    padding rows inert, logits within row cosine 0.999 of the same server
-    on plain attention and the same preds (a pred may differ only where the
-    plain logits' top two lie closer than twice the largest logit
-    difference), warm batch and a profile. Returns the path's launches."""
+def phase_supervised_serving(torch, fa, tmp, card, cfg, per_forward, guards=(),
+                             fused=False):
+    """The supervised ViT-B/16 of ``cfg`` served from a written ``.pth``:
+    exactly ``per_forward`` launches a batch (at 384 px 12 of B3's inference
+    forward, and with ``model.use_fused_mlp=true`` (``fused``) 12 of B4's
+    forward too; at 512 px 12 of B2's forward) and nothing else under the
+    plain-version ``guards``, padding rows inert, logits within row cosine
+    0.999 of the reference server and the same preds (a pred may differ
+    only where the reference logits' top two lie closer than twice the
+    largest logit difference), warm batch and a profile. The reference is
+    the same server on plain attention, or, when ``fused``, with every FFN
+    unfused. Returns the path's launches."""
     from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.ops import fused_mlp as fm
     from vit_ssl_tpu_torch.serve import Server
 
     batch, img = cfg["training"]["batch_size"], cfg["data"]["img_size"]
-    blocks = cfg["model"]["num_blocks"]
     n = (img // cfg["model"]["patch_size"]) ** 2 + 1
     print(f"== supervised serving: ViT-B/16, batch {batch}, img {img} (N={n}, "
-          f"12 heads of 64), bf16, full depth, attention {entry}", flush=True)
+          f"12 heads of 64), bf16, full depth, kernels {sorted(per_forward)}", flush=True)
     pth = f"{tmp}/vit_b16_{img}.pth"
     model = build_vit_model(torch, 5, cfg)
     torch.save({"model_state_dict": model.state_dict(), "config": cfg, "epoch": 0}, pth)
@@ -1431,17 +1639,18 @@ def phase_supervised_serving(torch, fa, tmp, card, cfg, entry):
     server = Server(pth, batch_size=batch, device="cuda")
     x = np.random.default_rng(5).random((batch, img, img, 3), np.float32)
 
-    with no_plain_attention(fa):
+    with contextlib.ExitStack() as stack:
+        for guard in (no_plain_attention(fa), *guards):
+            stack.enter_context(guard)
         kernels.launches.clear()  # the supervised serving path's run starts here
         out = server.forward_batch(x)
-        per_forward = dict(kernels.launches)
+        first = dict(kernels.launches)
         short = server.forward_batch(x[:37])
         main_launches = dict(kernels.launches)  # ... and ends here
-    print(f"  launches: {main_launches} ({per_forward} in the first forward)",
-          flush=True)
-    if per_forward != {entry: blocks} or main_launches != {entry: 2 * blocks}:
-        fail(f"expected {blocks} {entry} launches per forward and nothing else, "
-             f"got {per_forward} then {main_launches}")
+    print(f"  launches: {main_launches} ({first} in the first forward)", flush=True)
+    if first != per_forward or main_launches != {k: 2 * v for k, v in per_forward.items()}:
+        fail(f"expected {per_forward} launches per forward and nothing else, got "
+             f"{first} then {main_launches}")
     classes = cfg["model"]["num_classes"]
     if out.shape != (batch, classes) or not np.isfinite(out).all():
         fail(f"logits {out.shape} not finite ({batch}, {classes})")
@@ -1451,20 +1660,25 @@ def phase_supervised_serving(torch, fa, tmp, card, cfg, entry):
     if pad_err != 0.0:
         fail("zero-padding rows changed real rows")
 
-    with plain_attention(), torch.inference_mode():
+    reference = ffn_unfused(server.model) if fused else plain_attention()
+    ref_name = "the unfused FFN" if fused else "plain attention"
+    with reference, torch.inference_mode():
         ref = server.model(torch.from_numpy(x).cuda()).float().cpu().numpy()
-    if dict(kernels.launches) != main_launches:
-        fail("the plain-attention reference run launched a kernel")
+    extra = {k: v - main_launches.get(k, 0) for k, v in kernels.launches.items()
+             if v != main_launches.get(k, 0)}
+    # the unfused reference still runs B3; neither reference may run B4
+    if [k for k in extra if not fused or k.startswith("fused_mlp")]:
+        fail(f"the reference run ({ref_name}) launched {extra}")
     cos = row_cosine(out, ref)
     max_err = float(np.abs(out - ref).max())
     differ = out.argmax(1) != ref.argmax(1)
     near_tie = top2_margin(ref) <= 2 * max_err
-    print(f"  against plain attention on the card: min row cosine {cos.min():.6f} "
+    print(f"  against {ref_name} on the card: min row cosine {cos.min():.6f} "
           f"(>= 0.999), logits max_abs_err {max_err:.3e}; preds differ in "
           f"{int(differ.sum())} of {batch} rows, {int((differ & ~near_tie).sum())} "
           f"of them outside a near tie (must be 0)", flush=True)
     if cos.min() < 0.999 or (differ & ~near_tie).any():
-        fail("supervised serving disagrees with the plain attention path")
+        fail(f"supervised serving disagrees with {ref_name}")
     warm_ms = warm_batch_ms(server, x)
     print(f"  supervised serving on {card}: warm batch {warm_ms:.3f} ms median of 10 "
           f"({batch / warm_ms * 1e3:.1f} img/s), host clock incl. H2D/D2H; start-up "
@@ -1474,8 +1688,8 @@ def phase_supervised_serving(torch, fa, tmp, card, cfg, entry):
         for _ in range(3):
             server.forward_batch(x)
 
-    profile_window(torch, three_batches, f"3 supervised serving batches at {img} px",
-                   rows=16)
+    profile_window(torch, three_batches, f"3 supervised serving batches at {img} px"
+                   + (" (fused FFN)" if fused else ""), rows=16)
     return main_launches
 
 
@@ -1505,32 +1719,35 @@ def build_supervised_training(torch, cfg=VIT_B16_384):
     return state, train_step, eval_step, batch
 
 
-def phase_supervised_training(torch, fa, card, cfg, entries, eval_entry, suffix):
+def phase_supervised_training(torch, fa, card, cfg, per_step, per_eval, suffix,
+                              guards=(), fused=False):
     """The ViT-B/16 training step of ``cfg`` at batch 64: two warm-up
-    steps, then TIMED_STEPS steps under the plain-version guard, each
-    launching each of ``entries`` exactly 12 times (at 384 px B3's training
-    forward and backward; at 512 px B2's forward, dq and dk/dv kernels);
-    losses finite, every parameter moved; peak memory; agreement with the
-    plain attention step from one cloned state; ``eval_step``'s 12
-    ``eval_entry`` launches; a profile of three steps. Returns the launches
-    of the training and eval paths, named with ``suffix``."""
+    steps, then TIMED_STEPS steps under the plain-version guards, each
+    launching exactly ``per_step`` (at 384 px 12 each of B3's training
+    forward and backward, and with ``fused`` 12 each of B4's training
+    forward and backward; at 512 px 12 each of B2's forward, dq and dk/dv
+    kernels); losses finite, every parameter moved; peak memory; agreement
+    with the reference step from one cloned state (plain attention, or,
+    when ``fused``, the unfused FFN); ``eval_step``'s ``per_eval``
+    launches; a profile of three steps. Returns the launches of the
+    training and eval paths, named with ``suffix``."""
     from vit_ssl_tpu_torch import kernels
 
-    blocks, b = cfg["model"]["num_blocks"], cfg["training"]["batch_size"]
-    img = cfg["data"]["img_size"]
+    b, img = cfg["training"]["batch_size"], cfg["data"]["img_size"]
     print(f"== supervised training: ViT-B/16 train_step, batch {b}, img {img} "
           f"(N={(img // cfg['model']['patch_size']) ** 2 + 1}), dropout 0.1, bf16, "
           f"full depth, remat off, RandomResizedCrop + flip on the card from uint8, "
-          f"attention {'/'.join(entries)}", flush=True)
+          f"kernels {sorted(per_step)}", flush=True)
     state, train_step, eval_step, batch = build_supervised_training(torch, cfg)
     before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     for _ in range(2):  # warm-up steps
         out = train_step(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    per_step = {entry: blocks for entry in entries}
     losses, host_ms = [float(out["loss"])], []
-    with no_plain_attention(fa):
+    with contextlib.ExitStack() as stack:
+        for guard in (no_plain_attention(fa), *guards):
+            stack.enter_context(guard)
         kernels.launches.clear()  # the supervised training path's run starts here
         for _ in range(TIMED_STEPS):
             counted = dict(kernels.launches)
@@ -1552,8 +1769,8 @@ def phase_supervised_training(torch, fa, card, cfg, entries, eval_entry, suffix)
           f"{per_step}); eval_step: {eval_launches}", flush=True)
     print(f"  losses: {' '.join(f'{x:.6f}' for x in losses)}; eval loss "
           f"{float(ev['loss']):.6f}", flush=True)
-    if eval_launches != {eval_entry: blocks}:
-        fail(f"eval_step launched {eval_launches}, expected {blocks} {eval_entry}")
+    if eval_launches != per_eval:
+        fail(f"eval_step launched {eval_launches}, expected {per_eval}")
     if not all(np.isfinite(losses + [float(ev["loss"])])):
         fail("a supervised loss is not finite")
     moved = [k for k, v in state.model.state_dict().items()
@@ -1567,30 +1784,36 @@ def phase_supervised_training(torch, fa, card, cfg, entries, eval_entry, suffix)
           f"torch.cuda.synchronize(), device augmentation included; peak memory "
           f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)", flush=True)
 
-    kernel_state, plain_state = copy.deepcopy(state), copy.deepcopy(state)
+    kernel_state, ref_state = copy.deepcopy(state), copy.deepcopy(state)
     got = train_step(kernel_state, batch, with_grads=True)
     counted = dict(kernels.launches)
-    with plain_attention():
-        want = train_step(plain_state, batch, with_grads=True)
+    reference = ffn_unfused(ref_state.model) if fused else plain_attention()
+    with reference:
+        want = train_step(ref_state, batch, with_grads=True)
     torch.cuda.synchronize()
-    if dict(kernels.launches) != counted:
-        fail("the plain-attention step launched a kernel")
-    del kernel_state, plain_state
+    extra = [k for k, v in kernels.launches.items() if v != counted.get(k, 0)]
+    # the unfused reference still runs B3; neither reference may run B4
+    if [k for k in extra if not fused or k.startswith("fused_mlp")]:
+        fail(f"the reference step launched {extra}")
+    del kernel_state, ref_state
 
     def exact_step():
         exact_state = copy.deepcopy(state)
+        if fused:
+            set_fused((exact_state.model,), False)
         with exact_attention(torch):
             return train_step(exact_state, batch, with_grads=True)
 
-    judge(torch, "plain attention", got, want, exact_step)
+    judge(torch, "the unfused FFN" if fused else "plain attention", got, want,
+          exact_step, names=("fused", "unfused") if fused else ("kernel", "plain"))
     del got, want
 
     def three_steps():
         for _ in range(3):
             train_step(state, batch)
 
-    profile_window(torch, three_steps, f"3 supervised training steps at {img} px",
-                   rows=25)
+    profile_window(torch, three_steps, f"3 supervised training steps at {img} px"
+                   + (" (fused FFN)" if fused else ""), rows=25)
     return {"training_supervised" + suffix: train_launches,
             "eval_supervised" + suffix: eval_launches}
 
@@ -1775,6 +1998,7 @@ def main() -> int:
         from vit_ssl_tpu_torch.ops import flash_attention as fa
         from vit_ssl_tpu_torch.ops import flash_blockwise as fb
         from vit_ssl_tpu_torch.ops import fused_mlp as fm
+        from vit_ssl_tpu_torch.ops import masked_matmul as mm
     except ImportError as e:
         print(f"chip_smoke: the vit_ssl_tpu_torch package is missing ({e}); "
               "run from the root of a checkout", file=sys.stderr)
@@ -1799,6 +2023,7 @@ def main() -> int:
 
     train_errors = phase_kernels(torch, fa)
     mlp_errors = phase_mlp_kernels(torch, fm)
+    masked_errors = phase_masked_kernels(torch, mm)
     fused_errors = phase_fused_kernels(torch, fa)
     blockwise_errors = phase_blockwise_kernels(torch, fb)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1813,21 +2038,36 @@ def main() -> int:
     del state, train_step, batch
     fused_train_launches = phase_training_fused(torch, fa, fm, warm_ms, card)
     mlp_stats = phase_mlp_times(torch, fm, card)
+    blocks = VIT_B16_384["model"]["num_blocks"]
     with tempfile.TemporaryDirectory() as tmp:
-        sup_serve_launches = phase_supervised_serving(torch, fa, tmp, card, VIT_B16_384,
-                                                      fa.FUSED_KERNEL)
+        sup_serve_launches = phase_supervised_serving(
+            torch, fa, tmp, card, VIT_B16_384, {fa.FUSED_KERNEL: blocks})
     sup_paths = phase_supervised_training(
-        torch, fa, card, VIT_B16_384, (fa.FUSED_KERNEL_TRAIN, fa.FUSED_KERNEL_BWD),
-        fa.FUSED_KERNEL, "")
+        torch, fa, card, VIT_B16_384,
+        {fa.FUSED_KERNEL_TRAIN: blocks, fa.FUSED_KERNEL_BWD: blocks},
+        {fa.FUSED_KERNEL: blocks}, "")
+    with tempfile.TemporaryDirectory() as tmp:
+        sup_fused_serve_launches = phase_supervised_serving(
+            torch, fa, tmp, card, VIT_B16_384_FUSED,
+            {fa.FUSED_KERNEL: blocks, fm.KERNEL: blocks}, [no_plain_mlp(fm)], fused=True)
+    sup_fused_paths = phase_supervised_training(
+        torch, fa, card, VIT_B16_384_FUSED,
+        {fa.FUSED_KERNEL_TRAIN: blocks, fa.FUSED_KERNEL_BWD: blocks,
+         fm.KERNEL_TRAIN: blocks, fm.KERNEL_BWD: blocks},
+        {fa.FUSED_KERNEL: blocks, fm.KERNEL: blocks}, "_fused", [no_plain_mlp(fm)],
+        fused=True)
     fused_stats = phase_fused_times(torch, fa, card)
     with tempfile.TemporaryDirectory() as tmp:
-        sup512_serve_launches = phase_supervised_serving(torch, fa, tmp, card,
-                                                         VIT_B16_512, fb.KERNEL)
+        sup512_serve_launches = phase_supervised_serving(
+            torch, fa, tmp, card, VIT_B16_512, {fb.KERNEL: blocks})
     sup512_paths = phase_supervised_training(
-        torch, fa, card, VIT_B16_512, (fb.KERNEL, fb.KERNEL_DQ, fb.KERNEL_DKV),
-        fb.KERNEL, "_512")
+        torch, fa, card, VIT_B16_512,
+        {fb.KERNEL: blocks, fb.KERNEL_DQ: blocks, fb.KERNEL_DKV: blocks},
+        {fb.KERNEL: blocks}, "_512")
     blockwise_stats = phase_blockwise_times(torch, fb, card)
     probe_launches, p1_stats, p1_err = phase_exp2_probe(torch, fb, card)
+    masked_stats = phase_masked_times(torch, mm, card)
+    dropout_probe_launches, _ = phase_dropout_probe(torch, fm, mm, card)
 
     b, n, h, d, dtype_name, bs = ATTENTION_CASES[0]
     xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=200)
@@ -1836,10 +2076,6 @@ def main() -> int:
     serve_err = float((out.float() - ref.float()).abs().max())
 
     globals_case = TRAIN_CASES[0]
-    serve_rows, train_rows = MLP_ROWS[2], MLP_ROWS[0]
-    bwd_errors = mlp_errors[(train_rows, "bfloat16")]
-    # the backward's max_abs_err is dx's: the weight gradients sum over T
-    # rows and are held to a relative bar, so they are listed apart
     entries = [
         (fa.KERNEL, "attention_nhd_fwd.cu", "vit_ssl_tpu/ops/flash_attention.py:352",
          serve_err, serve_stats),
@@ -1847,17 +2083,29 @@ def main() -> int:
          train_errors[globals_case][0], train_stats[("fwd", 0)]),
         (fa.KERNEL_BWD, "attention_nhd_bwd.cu", "vit_ssl_tpu/ops/flash_attention.py:392",
          train_errors[globals_case][1], train_stats[("bwd", 0)]),
-        (fm.KERNEL, "fused_mlp_fwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:72",
-         mlp_errors[(serve_rows, "bfloat16")]["fwd"], mlp_stats[("fwd", serve_rows)]),
-        (fm.KERNEL_TRAIN, "fused_mlp_fwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:93",
-         mlp_errors[(train_rows, "bfloat16")]["fwd_pre"],
-         mlp_stats[("fwd_pre", train_rows)]),
-        (fm.KERNEL_BWD, "fused_mlp_bwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:182",
-         bwd_errors["bwd_abs"]["dx"],
-         {**mlp_stats[("bwd", train_rows)],
-          "max_abs_err_by_output": bwd_errors["bwd_abs"],
-          "max_rel_err_by_output": bwd_errors["bwd_rel"]}),
     ]
+    # B4 at each width: the served forward (no mask), the training forward
+    # and the backward (keep-mask); the backward's max_abs_err is dx's: the
+    # weight gradients sum over T rows and are held to a relative bar, so
+    # they are listed apart
+    for d_model, serve_rows, train_rows in ((MLP_DIMS[0], MLP_ROWS[2], MLP_ROWS[0]),
+                                            (VIT_B_MLP[0], 36928, 36928),
+                                            (VIT_L_MLP[0], 12608, 12608)):
+        errs = {dt: mlp_errors[(rows, d_model, "bfloat16")]
+                for dt, rows in (("serve", serve_rows), ("train", train_rows))}
+        width = {"d_model": d_model}
+        entries += [
+            (fm.KERNEL, "fused_mlp_fwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:72",
+             errs["serve"]["fwd"], {**mlp_stats[("fwd", serve_rows, d_model)], **width}),
+            (fm.KERNEL_TRAIN, "fused_mlp_fwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:93",
+             errs["train"]["fwd_pre"], {**mlp_stats[("fwd_pre", train_rows, d_model)],
+                                        **width}),
+            (fm.KERNEL_BWD, "fused_mlp_bwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:182",
+             errs["train"]["bwd_abs"]["dx"],
+             {**mlp_stats[("bwd", train_rows, d_model)], **width,
+              "max_abs_err_by_output": errs["train"]["bwd_abs"],
+              "max_rel_err_by_output": errs["train"]["bwd_rel"]}),
+        ]
     vit_case = FUSED_CASES[0]
     entries += [
         (fa.FUSED_KERNEL, "fused_attention.cu", "vit_ssl_tpu/ops/flash_attention.py:60",
@@ -1880,14 +2128,33 @@ def main() -> int:
         (fb.KERNEL_EXP2, "flash_blockwise_fwd.cu", "scripts/exp2_probe.py:27",
          p1_err, p1_stats),
     ]
+    # P2's backward: max_abs_err is dh's, the weight gradients listed apart
+    p2_case = masked_errors[(MASKED_CASES[0][0], MASKED_CASES[0][1], "bfloat16")]
+    entries += [
+        (mm.KERNEL, "masked_matmul.cu", "scripts/dropout_epilogue_probe.py:60",
+         p2_case["fwd"], masked_stats["fwd"]),
+        (mm.KERNEL_BWD, "masked_matmul.cu", "scripts/dropout_epilogue_probe.py:69",
+         p2_case["bwd_abs"]["dh"],
+         {**masked_stats["bwd"], "max_abs_err_by_output": p2_case["bwd_abs"],
+          "max_rel_err_by_output": p2_case["bwd_rel"]}),
+    ]
     paths = {"serving": serve_launches, "training": train_launches,
              "serving_fused": fused_serve_launches, "training_fused": fused_train_launches,
              "serving_supervised": sup_serve_launches, **sup_paths,
+             "serving_supervised_fused": sup_fused_serve_launches, **sup_fused_paths,
              "serving_supervised_512": sup512_serve_launches, **sup512_paths,
-             "exp2_probe": probe_launches}
-    for name, *_ in entries:
+             "exp2_probe": probe_launches, "dropout_epilogue_probe": dropout_probe_launches}
+    # the paths that run B4 at each width (ViT-L's 1024 runs on none yet)
+    width_paths = {MLP_DIMS[0]: ("serving_fused", "training_fused", "dropout_epilogue_probe"),
+                   VIT_B_MLP[0]: ("serving_supervised_fused", "training_supervised_fused",
+                                  "eval_supervised_fused"),
+                   VIT_L_MLP[0]: ()}
+    for name, _, _, _, stats in entries:
         if sum(p.get(name, 0) for p in paths.values()) == 0:
             fail(f"{name} was not launched on the main paths")
+        if "d_model" in stats:
+            stats["launches_at_d_model"] = sum(paths[path].get(name, 0)
+                                               for path in width_paths[stats["d_model"]])
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": name,

@@ -11,8 +11,10 @@ its two backward kernels (with and without an lse cotangent) from N = 1 to
 a ``MultiHeadAttention`` gradient at ViT-B/16's N = 1025 through them.
 Kernel B4 (fused MLP):
 its forwards (no mask, keep-mask, keep-mask with pre saved) and its
-backward (with and without the mask), and a ``FeedForwardBlock(use_fused=
-True)`` gradient through the kernels against the plain path.
+backward (with and without the mask) at d_model 384, 768 and 1024, and a
+``FeedForwardBlock(use_fused=True)`` gradient through the kernels against
+the plain path. Kernel P2 (dropout-masked second FFN product): its forward
+and backward at the probe's and ViT-B's shapes, and a gradient through it.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device. The file imports neither JAX nor the JAX package, so it also runs
@@ -34,6 +36,7 @@ from vit_ssl_tpu_torch.ops import attention as attention_mod
 from vit_ssl_tpu_torch.ops import flash_attention as fa
 from vit_ssl_tpu_torch.ops import flash_blockwise as fb
 from vit_ssl_tpu_torch.ops import fused_mlp as fm
+from vit_ssl_tpu_torch.ops import masked_matmul as mm
 
 pytestmark = pytest.mark.cuda
 
@@ -233,9 +236,8 @@ MLP_ROWS = [37120, 5365, 1, 70]
 MLP_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
-def _mlp_inputs(t, dtype, device, seed=0):
+def _mlp_inputs(t, dtype, device, seed=0, d=384, d_ff=1536):
     rng = np.random.default_rng(seed)
-    d, d_ff = 384, 1536
 
     def arr(*shape, scale=1.0):
         return torch.from_numpy(
@@ -291,12 +293,43 @@ def test_fused_mlp_backward_matches_plain(cuda_device, t, dtype, with_mask):
     assert all(torch.equal(a, g) for a, g in zip(again, got))  # no atomics
 
 
+# B4 at ViT-B's and ViT-L's widths: the supervised ViT-B/16 at 384 px
+# (64 x 577 tokens), ViT-L/16 at 224 px (64 x 197), and short ragged T
+MLP_WIDE_CASES = [(36928, 768, 3072), (70, 768, 3072), (12608, 1024, 4096),
+                  (1, 1024, 4096)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("t,d,d_ff", MLP_WIDE_CASES)
+def test_fused_mlp_matches_plain_at_the_wide_widths(cuda_device, t, d, d_ff, dtype):
+    """The three forwards and the backward (with and without the mask) at
+    d_model 768 and 1024, whose row kernels take 32-row blocks and 16-wide
+    d_ff chunks."""
+    dt = getattr(torch, dtype)
+    x, w1, b1, w2, b2, mask, do = _mlp_inputs(t, dt, cuda_device, t, d, d_ff)
+    out = fm.fused_mlp_fwd(x, w1, b1, w2, b2)
+    out_mask = fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, 0.9)
+    out_pre, pre = fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, 0.9, save_pre=True)
+    want, want_pre = fm.fused_mlp_reference(x, w1, b1, w2, b2, mask, 0.9, save_pre=True)
+    pairs = [(out, fm.fused_mlp_reference(x, w1, b1, w2, b2)), (out_mask, want),
+             (pre, want_pre)]
+    for m in (mask, None):
+        got = fm.fused_mlp_bwd(x, want_pre, do, w1, w2, m, 0.9)
+        pairs += zip(got, fm.fused_mlp_bwd_reference(x, want_pre, do, w1, w2, m, 0.9))
+    torch.cuda.synchronize()
+    assert torch.equal(out_pre, out_mask)
+    for got, ref in pairs:
+        assert got.dtype == x.dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, ref) <= MLP_REL_TOL[dtype], _rel_err(got, ref)
+
+
 def test_fused_mlp_refuses_what_the_kernels_cannot_take(cuda_device):
     x, w1, w2 = (torch.zeros(s, device=cuda_device)
-                 for s in ((8, 768), (3072, 768), (768, 3072)))
+                 for s in ((8, 512), (2048, 512), (512, 2048)))
     with pytest.raises(ValueError, match="d_in"):
-        fm.fused_mlp(x, w1, torch.zeros(3072, device=cuda_device), w2,
-                     torch.zeros(768, device=cuda_device))
+        fm.fused_mlp(x, w1, torch.zeros(2048, device=cuda_device), w2,
+                     torch.zeros(512, device=cuda_device))
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -601,3 +634,71 @@ def test_multi_head_attention_gradient_through_b2(cuda_device, monkeypatch, dtyp
         cos = torch.nn.functional.cosine_similarity(
             got[name].flatten(), want[name].flatten(), dim=0)
         assert float(cos) >= 0.999, (name, float(cos))
+
+
+# Kernel P2 (dropout-masked second FFN product), (T, d_ff, d_out): the DINO
+# student-globals FFN, a ragged T, T = 1, ViT-B/16's FFN at 384 px
+MASKED_CASES = [(37120, 1536, 384), (5365, 1536, 384), (1, 1536, 384),
+                (36928, 3072, 768)]
+
+
+def _masked_inputs(t, d_ff, d_out, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy(
+            scale * rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+
+    h = torch.nn.functional.gelu(arr(t, d_ff).float()).to(dtype)
+    mask = torch.from_numpy(rng.random((t, d_ff)) >= 0.1).to(device)
+    return h, mask, arr(d_out, d_ff, scale=d_ff ** -0.5), arr(d_out, scale=0.1), arr(t, d_out)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("t,d_ff,d_out", MASKED_CASES)
+def test_masked_matmul_matches_plain(cuda_device, t, d_ff, d_out, dtype):
+    """The forward, and the backward's dh, dw2 and db2 (which repeat bit for
+    bit: no atomics), each one launch."""
+    h, mask, w2, b2, do = _masked_inputs(t, d_ff, d_out, getattr(torch, dtype),
+                                         cuda_device, t)
+    before = dict(kernels.launches)
+    out = mm.masked_matmul_fwd(h, mask, w2, b2, 0.9)
+    got = mm.masked_matmul_bwd(h, mask, do, w2, 0.9)
+    torch.cuda.synchronize()
+    assert kernels.launches[mm.KERNEL] == before.get(mm.KERNEL, 0) + 1
+    assert kernels.launches[mm.KERNEL_BWD] == before.get(mm.KERNEL_BWD, 0) + 1
+    pairs = [(out, mm.masked_matmul_reference(h, mask, w2, b2, 0.9)),
+             *zip(got, mm.masked_matmul_bwd_reference(h, mask, do, w2, 0.9))]
+    for g, w in pairs:
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        assert _rel_err(g, w) <= MLP_REL_TOL[dtype], _rel_err(g, w)
+    again = mm.masked_matmul_bwd(h, mask.to(torch.uint8), do, w2, 0.9)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_masked_matmul_refuses_what_the_kernels_cannot_take(cuda_device):
+    h, mask, w2, b2, _ = _masked_inputs(8, 192, 128, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        mm.masked_matmul(h, mask, w2, b2, 0.9)
+    h, mask, w2, b2, _ = _masked_inputs(8, 256, 128, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="nn.Linear layout"):
+        mm.masked_matmul(h, mask, w2.t().contiguous(), b2, 0.9)
+    with pytest.raises(ValueError, match="keep-mask"):
+        mm.masked_matmul(h, mask.float(), w2, b2, 0.9)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_masked_matmul_gradient_through_kernels(cuda_device, dtype):
+    """Autograd through masked_matmul on the card: one forward and one
+    backward launch, the plain versions' gradients for h, w2 and b2."""
+    h, mask, w2, b2, do = _masked_inputs(1000, 1536, 384, getattr(torch, dtype),
+                                         cuda_device, 3)
+    leaves = [y.clone().requires_grad_() for y in (h, w2, b2)]
+    kernels.launches.clear()
+    got = torch.autograd.grad(mm.masked_matmul(leaves[0], mask, *leaves[1:], 0.9),
+                              leaves, do)
+    assert dict(kernels.launches) == {mm.KERNEL: 1, mm.KERNEL_BWD: 1}
+    want = mm.masked_matmul_bwd_reference(h, mask, do, w2, 0.9)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= MLP_REL_TOL[dtype], _rel_err(g, w)

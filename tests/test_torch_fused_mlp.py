@@ -4,7 +4,8 @@ The port's ``fused_mlp`` (which runs its plain PyTorch versions for a CPU
 tensor) is held against the JAX package's ``fused_mlp`` in interpret mode,
 as ``tests/test_feed_forward.py`` runs it, on the same numpy inputs: the
 output, the saved pre-activation and the five gradients, at fp32 and bf16,
-with and without a keep-mask, at a ragged token count. The JAX function
+with and without a keep-mask, at a ragged token count, at a small width and
+at ViT-B's 768 / 3072 and ViT-L's 1024 / 4096. The JAX function
 takes its weights as (in, out); the port takes the ``nn.Linear`` (out, in)
 layout, so the tests transpose. Also here: ``FeedForwardBlock(use_fused=
 True)`` against JAX's on the same weights, the fused and unfused port
@@ -45,17 +46,17 @@ FWD_BF16 = dict(atol=1e-2, rtol=1e-2)
 GRAD_BF16 = dict(atol=2e-2, rtol=1e-2)
 
 
-def _inputs(seed=0, t=T):
+def _inputs(seed=0, t=T, d_in=D_IN, d_ff=D_FF):
     """x, JAX-layout weights (in, out), a keep-mask at rate 0.1 and an
     upstream gradient, all numpy fp32."""
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((t, D_IN), dtype=np.float32)
-    w1 = rng.standard_normal((D_IN, D_FF), dtype=np.float32) / np.sqrt(D_IN)
-    b1 = 0.1 * rng.standard_normal(D_FF, dtype=np.float32)
-    w2 = rng.standard_normal((D_FF, D_IN), dtype=np.float32) / np.sqrt(D_FF)
-    b2 = 0.1 * rng.standard_normal(D_IN, dtype=np.float32)
-    mask = rng.random((t, D_FF)) >= 0.1
-    do = rng.standard_normal((t, D_IN), dtype=np.float32)
+    x = rng.standard_normal((t, d_in), dtype=np.float32)
+    w1 = rng.standard_normal((d_in, d_ff), dtype=np.float32) / np.sqrt(d_in)
+    b1 = 0.1 * rng.standard_normal(d_ff, dtype=np.float32)
+    w2 = rng.standard_normal((d_ff, d_in), dtype=np.float32) / np.sqrt(d_ff)
+    b2 = 0.1 * rng.standard_normal(d_in, dtype=np.float32)
+    mask = rng.random((t, d_ff)) >= 0.1
+    do = rng.standard_normal((t, d_in), dtype=np.float32)
     return x, w1, b1, w2, b2, mask, do
 
 
@@ -79,10 +80,10 @@ def _jax_run(x, w1, b1, w2, b2, mask, do, dtype):
             [np.asarray(g, np.float32) for g in grads])
 
 
-@pytest.mark.parametrize("with_mask", [False, True], ids=["no-mask", "mask"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_mlp_matches_jax(dtype, with_mask):
-    x, w1, b1, w2, b2, mask, do = _inputs(seed=1)
+def _assert_matches_jax(dtype, with_mask, t=T, d_in=D_IN, d_ff=D_FF, seed=1):
+    """The port's fused_mlp (its plain versions: a CPU tensor launches no
+    kernel) against JAX's in interpret mode: out, pre and the gradients."""
+    x, w1, b1, w2, b2, mask, do = _inputs(seed, t, d_in, d_ff)
     mask = mask if with_mask else None
     want_out, want_pre, want_grads = _jax_run(x, w1, b1, w2, b2, mask, do,
                                               getattr(jnp, dtype))
@@ -97,13 +98,29 @@ def test_fused_mlp_matches_jax(dtype, with_mask):
     assert dict(kernels.launches) == before  # CPU: the plain versions, no kernel
     fwd_tol, grad_tol = ((FWD_FP32, GRAD_FP32) if dtype == "float32"
                          else (FWD_BF16, GRAD_BF16))
-    assert out.dtype == tdt and out.shape == (T, D_IN)
+    assert out.dtype == tdt and out.shape == (t, d_in)
     np.testing.assert_allclose(out.detach().float().numpy(), want_out, **fwd_tol)
-    assert pre.dtype == tdt and pre.shape == (T, D_FF)
+    assert pre.dtype == tdt and pre.shape == (t, d_ff)
     np.testing.assert_allclose(pre.float().numpy(), want_pre, **fwd_tol)
     for name, g, w, a in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, want_grads, args):
         assert g.dtype == tdt and g.shape == a.shape, name
         np.testing.assert_allclose(g.float().numpy(), w, err_msg=name, **grad_tol)
+
+
+@pytest.mark.parametrize("with_mask", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_mlp_matches_jax(dtype, with_mask):
+    _assert_matches_jax(dtype, with_mask)
+
+
+@pytest.mark.parametrize("with_mask", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d_in,d_ff", [(768, 3072), (1024, 4096)], ids=["vit-b", "vit-l"])
+def test_fused_mlp_matches_jax_at_the_new_widths(d_in, d_ff, dtype, with_mask):
+    """ViT-B's and ViT-L's FFN widths, which the kernels now take, at a
+    short ragged T; the same tolerances as at the small width (one bf16
+    ulp is relative, and the longer fp32 sums stay far inside 1e-4)."""
+    _assert_matches_jax(dtype, with_mask, t=19, d_in=d_in, d_ff=d_ff, seed=11)
 
 
 def test_backward_uses_the_rounded_pre_and_h():
@@ -147,7 +164,7 @@ def _kernel_args(t=8, d=384, d_ff=1536, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("t,d,d_ff,dtype,match", [
-    (8, 768, 3072, torch.float32, r"d_in \(384,\)"),  # ViT-B: refused
+    (8, 512, 2048, torch.float32, r"d_in \(384, 768, 1024\)"),  # not built: refused
     (8, 384, 1472, torch.float32, "multiple of 128"),
     (0, 384, 1536, torch.float32, "at least one token"),
     (8, 384, 1536, torch.float16, "not supported"),
@@ -177,11 +194,14 @@ def test_kernel_input_checks_layout():
 
 def test_kernel_sources_cover_their_headers():
     """A header edit must rebuild every library that includes it: B4's
-    libraries include their own header and, through it, B1's."""
-    for name in ("fused_mlp_fwd", "fused_mlp_bwd"):
+    libraries include their own header and, through it, B1's; the backward
+    (and P2's library) the weight-gradient header over them."""
+    common = ["fused_mlp_common.cuh", "attention_nhd_common.cuh"]
+    for name, headers in (("fused_mlp_fwd", common),
+                          ("fused_mlp_bwd", ["weight_grad.cuh", *common]),
+                          ("masked_matmul", ["weight_grad.cuh", *common])):
         files = [f.name for f in kernels.source_files(name)]
-        assert files == [f"{name}.cu", "fused_mlp_common.cuh",
-                         "attention_nhd_common.cuh"]
+        assert files == [f"{name}.cu", *headers]
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@
 - its entry points take the card unless the caller asks for the CPU;
 - ``chip_smoke.py``'s DINO ViT-S/8 config is the composed ``configs/dino.yaml``,
   its supervised ViT-B/16 the composed ``configs/vit_b_imagenet.yaml`` at
-  384 px and at 512 px, and the script refuses to run without a card;
+  384 px (with and without ``model.use_fused_mlp=true``) and at 512 px, its
+  bounds are the stated arithmetic, and the script refuses to run without a
+  card;
 - a self-attention longer than kernel B3 takes (N > 1024) runs kernel B2.
 """
 
@@ -42,6 +44,8 @@ def test_port_import_leaves_jax_out():
         "import vit_ssl_tpu_torch.utils.checkpoint, vit_ssl_tpu_torch.data.transforms\n"
         "import vit_ssl_tpu_torch.train, vit_ssl_tpu_torch.utils.metrics\n"
         "import vit_ssl_tpu_torch.data.device_augment, vit_ssl_tpu_torch.models.vit\n"
+        "import vit_ssl_tpu_torch.ops.masked_matmul, vit_ssl_tpu_torch.ops.precision\n"
+        "import vit_ssl_tpu_torch.scripts.dropout_epilogue_probe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} + ('cv2', 'PIL', 'triton'))\n"
         "print(bad)\n"
@@ -120,6 +124,20 @@ def test_chip_smoke_supervised_config_is_composed_vit_b_yaml():
     assert set(smoke) == {"training", "model", "data", "parallel", "transforms"}
     assert smoke["transforms"]["train"][0]["params"]["size"] == 384
     _assert_within(smoke, composed, "config")
+
+
+def test_chip_smoke_supervised_fused_config_is_composed_vit_b_yaml():
+    """The fused ViT-B/16 legs' config: the 384-px composition with
+    model.use_fused_mlp=true (kernel B4 at d_model 768, d_ff 3072)."""
+    composed = to_container(compose(REPO / "configs", "vit_b_imagenet", overrides=[
+        "data.img_size=384", "parallel.remat=false", "training.batch_size=64",
+        "model.use_fused_mlp=true"]))
+    smoke = _load_chip_smoke()
+    fused = smoke.VIT_B16_384_FUSED
+    assert fused["model"]["use_fused_mlp"] is True
+    assert smoke.VIT_B16_384["model"]["use_fused_mlp"] is False
+    assert (fused["model"]["embed_dim"], fused["model"]["mlp_dim"]) == smoke.VIT_B_MLP
+    _assert_within(fused, composed, "config")
 
 
 def test_chip_smoke_supervised_512_config_is_composed_vit_b_yaml():
@@ -234,6 +252,31 @@ def test_chip_smoke_mlp_bounds():
     served = _load_chip_smoke().mlp_bounds(18560, 384, 1536, "bfloat16",
                                            mask=False, pre=False)
     assert served["fwd"] == pytest.approx((flops / 2 / 989e9, "operations"))
+
+
+def test_chip_smoke_masked_matmul_bounds():
+    """Kernel P2 at the probe's shape (T = 37120, 1536 -> 384, bf16): the
+    forward moves h (114.0 MB), the int8 mask (57.0 MB), o (28.5 MB) and w2,
+    200.7 MB (0.0599 ms at 3.35 TB/s), against 43.8 GFLOP (0.0443 ms at 989
+    TFLOP/s); the backward h, the mask, do, dh and w2 and dw2, 316.4 MB
+    (0.0944 ms) against two products (0.0886 ms): bytes bound both."""
+    bounds = _load_chip_smoke().masked_bounds(37120, 1536, 384, "bfloat16")
+    h, mask, o, w = 37120 * 1536 * 2, 37120 * 1536, 37120 * 384 * 2, (384 * 1536 + 384) * 2
+    assert bounds["fwd"] == pytest.approx(((h + mask + o + w) / 3.35e9, "bytes"))
+    assert bounds["bwd"] == pytest.approx(((2 * h + mask + o + 2 * w) / 3.35e9, "bytes"))
+    assert 0.0598 < bounds["fwd"][0] < 0.0600 and 0.0943 < bounds["bwd"][0] < 0.0946
+    assert 2 * 37120 * 1536 * 384 / 989e9 == pytest.approx(0.0443, abs=1e-4)
+
+
+def test_chip_smoke_wide_mlp_bounds():
+    """Kernel B4 at ViT-B/16's FFN (T = 36928, 768 -> 3072, bf16): 348
+    GFLOP a forward (0.352 ms) and twice that a backward (0.705 ms), far
+    above their bytes: operations bound both."""
+    bounds = _load_chip_smoke().mlp_bounds(36928, 768, 3072, "bfloat16")
+    flops = 4 * 36928 * 768 * 3072
+    assert bounds["fwd"] == pytest.approx((flops / 989e9, "operations"))
+    assert bounds["bwd"] == pytest.approx((2 * flops / 989e9, "operations"))
+    assert 0.352 < bounds["fwd"][0] < 0.353
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "alone"])

@@ -22,10 +22,11 @@
 // 0.07 ms to move x, the weights, the int8 mask, out and the saved pre
 // (data sheet). How the design answers that: the (T, d_ff) activation
 // never reaches device memory (one 64 x 32 chunk of it lives in shared
-// memory at a time), the products run on the tensor cores (mma.sync bf16,
-// fp32 sums), the block's x tile is read once and the weight chunks stream
-// through two cp.async buffers. The weights are re-read by every 64-row
-// block from L2 (2.4 MB a block). Two entry points:
+// memory at a time; 32 x 16 at d_model 768 and 1024), the products run on
+// the tensor cores (mma.sync bf16, fp32 sums), the block's x tile is read
+// once and the weight chunks stream through two cp.async buffers. The
+// weights are re-read by every block from L2 (2.4 MB a 64-row block at
+// 384; 9.4 MB a 32-row block at ViT-B's 768 / 3072). Two entry points:
 //
 // - fused_mlp_fwd: no saved pre (serving, eval, the DINO teacher);
 // - fused_mlp_fwd_pre: the training forward, pre saved for fused_mlp_bwd.
@@ -41,24 +42,22 @@
 
 namespace {
 
-template <typename T, bool kMask, bool kPre>
+template <int D, typename T, bool kMask, bool kPre>
 cudaError_t launch(const RowArgs<T>& p, cudaStream_t stream) {
-  const bool bf = sizeof(T) == 2;
-  const size_t smem = bf ? RowSmemBf16::bytes : row_smem_f32();
-  const int rows_per_block = bf ? kMlpRows : kF32Rows;
-  const dim3 grid((p.rows + rows_per_block - 1) / rows_per_block);
   if constexpr (sizeof(T) == 2) {
-    auto kernel = mlp_rows_bf16<false, kMask, kPre>;
+    using S = RowTile<D>;
+    auto kernel = mlp_rows_bf16<D, false, kMask, kPre>;
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kMlpThreads, smem, stream>>>(p);
+    kernel<<<(p.rows + S::kRows - 1) / S::kRows, kMlpThreads, S::bytes, stream>>>(p);
   } else {
-    auto kernel = mlp_rows_f32<false, kMask, kPre>;
+    using S = F32Tile<D>;
+    auto kernel = mlp_rows_f32<D, false, kMask, kPre>;
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kF32Threads, smem, stream>>>(p);
+    kernel<<<(p.rows + S::kRows - 1) / S::kRows, kF32Threads, S::bytes, stream>>>(p);
   }
   return cudaGetLastError();
 }
@@ -67,7 +66,7 @@ template <typename T>
 int dispatch(const void* x, const void* w1, const void* b1, const void* w2,
              const void* b2, const void* mask, void* out, void* pre, int rows,
              int d_model, int d_ff, float keep_prob, void* stream) {
-  if (rows < 1 || d_model != kDModel || d_ff < 128 || d_ff % 128 != 0 ||
+  if (rows < 1 || d_ff < 128 || d_ff % 128 != 0 ||
       (mask != nullptr && !(keep_prob > 0.f)))
     return (int)cudaErrorInvalidValue;
   RowArgs<T> p{static_cast<const T*>(x), static_cast<const T*>(w1),
@@ -76,9 +75,12 @@ int dispatch(const void* x, const void* w1, const void* b1, const void* w2,
                static_cast<T*>(pre), static_cast<T*>(out), nullptr, nullptr,
                rows, d_ff, keep_prob};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mask != nullptr)
-    return (int)(pre != nullptr ? launch<T, true, true>(p, s) : launch<T, true, false>(p, s));
-  return (int)(pre != nullptr ? launch<T, false, true>(p, s) : launch<T, false, false>(p, s));
+  return (int)for_d_model(d_model, [&](auto dm) {
+    constexpr int D = decltype(dm)::value;
+    if (mask != nullptr)
+      return pre != nullptr ? launch<D, T, true, true>(p, s) : launch<D, T, true, false>(p, s);
+    return pre != nullptr ? launch<D, T, false, true>(p, s) : launch<D, T, false, false>(p, s);
+  });
 }
 
 int fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
@@ -97,8 +99,8 @@ int fwd(const void* x, const void* w1, const void* b1, const void* w2, const voi
 // x (rows, d_model), w1 (d_ff, d_model), b1 (d_ff), w2 (d_model, d_ff),
 // b2 (d_model), out (rows, d_model): contiguous, one dtype (is_bf16 = 1:
 // bfloat16, 0: float32), 16-byte aligned. mask: (rows, d_ff) bytes, nonzero
-// = keep, or null (no dropout; keep_prob unused). d_model must be 384 and
-// d_ff a multiple of 128. stream: a cudaStream_t. Returns the cudaError_t of
+// = keep, or null (no dropout; keep_prob unused). d_model must be 384, 768
+// or 1024 and d_ff a multiple of 128. stream: a cudaStream_t. Returns the cudaError_t of
 // the launch (0 = launched); the wrapper raises on non-zero.
 extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, const void* mask,

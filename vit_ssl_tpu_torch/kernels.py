@@ -38,6 +38,7 @@ SOURCES: Dict[str, str] = {
     "fused_mlp_bwd": "csrc/fused_mlp_bwd.cu",
     "flash_blockwise_fwd": "csrc/flash_blockwise_fwd.cu",
     "flash_blockwise_bwd": "csrc/flash_blockwise_bwd.cu",
+    "masked_matmul": "csrc/masked_matmul.cu",
 }
 
 NVCC_FLAGS = [

@@ -6,7 +6,7 @@ The config is the plain dict a checkpoint embeds (``.pth`` written by
 ``scripts/export_torch.py``): ``model.*``, ``data.img_size``,
 ``parallel.remat`` and the mode under ``training.type`` or ``eval.mode``.
 Finetune's weight surgery (``load_weights``, the freeze mask) is not
-ported yet (``ROADMAP.md`` queue A item 7): ``build_vit`` builds the
+ported yet (``ROADMAP.md`` queue A item 4): ``build_vit`` builds the
 model only.
 """
 
@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.precision import resolve_precision
 from .dino import DINONetwork, ViTBackbone
 from .vit import ViT
 
@@ -40,9 +41,13 @@ def compute_dtype(config: dict) -> torch.dtype:
 
 
 def _common_kwargs(config: dict, device) -> dict:
-    """Constructor arguments shared by every model (JAX ``_common_kwargs``)."""
+    """Constructor arguments shared by every model (JAX ``_common_kwargs``),
+    with JAX's defaults. ``model.matmul_precision`` is checked here and
+    passed to no module: each name the port takes means what it already
+    does (:mod:`..ops.precision`)."""
     model = config["model"]
     img = int(config["data"]["img_size"])
+    resolve_precision(model.get("matmul_precision", "default"))
     return dict(
         num_blocks=int(model["num_blocks"]),
         input_shape=(int(model["in_channels"]), img, img),
@@ -54,6 +59,10 @@ def _common_kwargs(config: dict, device) -> dict:
         dropout=float(model.get("dropout", 0.1)),
         fast_dropout=bool(model.get("fast_dropout", True)),
         use_fused_mlp=bool(model.get("use_fused_mlp", False)),
+        use_flash=bool(model.get("use_flash_attention", True)),
+        init_scheme=str(model.get("init_scheme", "reference")),
+        remat=bool((config.get("parallel") or {}).get("remat", False)),
+        scan_layers=bool(model.get("scan_layers", False)),
         device=device,
     )
 
@@ -79,8 +88,6 @@ def build_vit(config: dict, device) -> ViT:
     return ViT(
         num_classes=int(model["num_classes"]),
         patch_dropout=float(model.get("patch_dropout", 0.0)),
-        remat=bool((config.get("parallel") or {}).get("remat", False)),
-        scan_layers=bool(model.get("scan_layers", False)),
         moe_experts=int(model.get("moe_experts", 0) or 0),
         **_common_kwargs(config, device),
     )

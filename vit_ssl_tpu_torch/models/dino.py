@@ -11,12 +11,14 @@
   :func:`update_center` (weighted), :func:`momentum_update` and the two
   cosine schedules.
 
-PyTorch's default ``nn.Linear``/``nn.Conv2d`` initialisation and the
-uniform [0, 1) CLS/positional embeddings equal the JAX package's
-``"reference"`` init scheme; ``reset_parameters`` redraws them all from a
-``torch.Generator``. Dropout follows the JAX package's explicit
+``reset_parameters`` redraws every parameter from a ``torch.Generator``
+with the model's ``init_scheme`` (``"reference"`` or ``"tpu"``,
+:mod:`..ops.initializers`). ``use_flash=False`` (the config's
+``model.use_flash_attention=false``) sends every attention call to the
+plain PyTorch attention. Dropout follows the JAX package's explicit
 ``deterministic`` flag (not ``nn.Module.train``), and its masks come from
-the caller's generator.
+the caller's generator. ``remat`` and ``scan_layers`` are refused, as the
+supervised ViT refuses them (:mod:`.vit`).
 """
 
 from __future__ import annotations
@@ -28,34 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import ConvPatchEmbed, DynamicPatchEmbed, EncoderBlock
-
-
-@torch.no_grad()
-def _reset_linear(module: nn.Module, generator: Optional[torch.Generator]):
-    """Kaiming-uniform (a=√5) weight, U(±1/√fan_in) bias: torch's default."""
-    nn.init.kaiming_uniform_(module.weight, a=math.sqrt(5), generator=generator)
-    if module.bias is not None:
-        bound = 1.0 / math.sqrt(module.weight[0].numel())
-        nn.init.uniform_(module.bias, -bound, bound, generator=generator)
-
-
-@torch.no_grad()
-def reference_init_(model: nn.Module, generator: Optional[torch.Generator] = None):
-    """Redraw every parameter of ``model`` with the reference init, in
-    module order: Kaiming-uniform (a=√5) weights and U(±1/√fan_in) biases
-    for Linear/Conv2d, ones and zeros for LayerNorm, U[0, 1) CLS and
-    positional embeddings. Returns ``model``."""
-    for module in model.modules():
-        if isinstance(module, (nn.Linear, nn.Conv2d)):
-            _reset_linear(module, generator)
-        elif isinstance(module, nn.LayerNorm):
-            nn.init.ones_(module.weight)
-            nn.init.zeros_(module.bias)
-        elif isinstance(module, (ConvPatchEmbed, DynamicPatchEmbed)):
-            nn.init.uniform_(module.cls_token, generator=generator)
-            nn.init.uniform_(module.positional_embedding, generator=generator)
-    return model
+from ..ops import DynamicPatchEmbed, EncoderBlock
+from ..ops.initializers import bias_, check_scheme, init_, linear_, weight_
+from .vit import refuse_unported
 
 
 class ViTBackbone(nn.Module):
@@ -63,16 +40,21 @@ class ViTBackbone(nn.Module):
                  embed_dim: int, patch_size: int, num_heads: int = 8,
                  mlp_dim: int = 3072, dtype: torch.dtype = torch.float32,
                  dropout: float = 0.1, fast_dropout: bool = True,
-                 use_fused_mlp: bool = False, device=None):
+                 use_fused_mlp: bool = False, use_flash: bool = True,
+                 init_scheme: str = "reference", remat: bool = False,
+                 scan_layers: bool = False, device=None):
         super().__init__()
+        refuse_unported(remat=remat, scan_layers=scan_layers)
         self.dtype = dtype
+        self.init_scheme = check_scheme(init_scheme)
         self.patch_embedding = DynamicPatchEmbed(
             input_shape, embed_dim, patch_size, dtype=dtype, device=device
         )
         self.encoder_blocks = nn.ModuleList(
             EncoderBlock(embed_dim, num_heads, mlp_dim, dtype=dtype,
                          dropout=dropout, fast_dropout=fast_dropout,
-                         use_fused_mlp=use_fused_mlp, device=device)
+                         use_fused_mlp=use_fused_mlp, use_flash=use_flash,
+                         device=device)
             for _ in range(num_blocks)
         )
 
@@ -91,9 +73,9 @@ class ViTBackbone(nn.Module):
         return self.encode(self.embed(x), 0, deterministic, generator)[:, 0]
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Redraw every parameter with the reference init
-        (:func:`reference_init_`)."""
-        return reference_init_(self, generator)
+        """Redraw every parameter with the model's init scheme
+        (:func:`~..ops.initializers.init_`)."""
+        return init_(self, self.init_scheme, generator)
 
 
 class _WeightParts(nn.Module):
@@ -113,8 +95,10 @@ class WeightNormDense(nn.Module):
     named as in the reference state dict:
     ``parametrizations.weight.original{0,1}`` and ``bias``."""
 
-    def __init__(self, in_features: int, out_features: int, device=None):
+    def __init__(self, in_features: int, out_features: int, device=None,
+                 init_scheme: str = "reference"):
         super().__init__()
+        self.init_scheme = check_scheme(init_scheme)
         self.parametrizations = nn.Module()
         self.parametrizations.weight = _WeightParts(in_features, out_features,
                                                     device)
@@ -128,11 +112,11 @@ class WeightNormDense(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """v and bias as an ``nn.Linear``'s; g = ‖v‖ per output unit."""
+        """v and bias as an ``nn.Linear``'s under the init scheme; g = ‖v‖
+        per output unit."""
         v = self.parametrizations.weight.original1
-        nn.init.kaiming_uniform_(v, a=math.sqrt(5), generator=generator)
-        bound = 1.0 / math.sqrt(v.shape[1])
-        nn.init.uniform_(self.bias, -bound, bound, generator=generator)
+        weight_(v, self.init_scheme, generator)
+        bias_(self.bias, v.shape[1], self.init_scheme, generator)
         self.parametrizations.weight.original0.copy_(
             torch.linalg.vector_norm(v, dim=1, keepdim=True))
         return self
@@ -146,9 +130,11 @@ class DINOHead(nn.Module):
     """3-layer GELU MLP → fp32 L2-normalise → fp32 weight-norm Linear."""
 
     def __init__(self, embed_dim: int, output_dim: int, hidden_dim: int = 2048,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 init_scheme: str = "reference"):
         super().__init__()
         self.dtype = dtype
+        self.init_scheme = check_scheme(init_scheme)
         self.mlp = nn.Sequential(
             nn.Linear(embed_dim, hidden_dim, device=device),
             nn.GELU(),
@@ -156,7 +142,8 @@ class DINOHead(nn.Module):
             nn.GELU(),
             nn.Linear(hidden_dim, embed_dim, device=device),
         )
-        self.fully_connected = WeightNormDense(embed_dim, output_dim, device)
+        self.fully_connected = WeightNormDense(embed_dim, output_dim, device,
+                                               init_scheme)
 
     def forward(self, x):
         dt = self.dtype
@@ -174,7 +161,7 @@ class DINOHead(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         for i in (0, 2, 4):
-            _reset_linear(self.mlp[i], generator)
+            linear_(self.mlp[i], self.init_scheme, generator)
         self.fully_connected.reset_parameters(generator)
         return self
 
@@ -187,14 +174,18 @@ class DINONetwork(nn.Module):
                  mlp_dim: int = 3072, dropout: float = 0.1,
                  output_dim: int = 65536, dtype: torch.dtype = torch.float32,
                  fast_dropout: bool = True, use_fused_mlp: bool = False,
-                 device=None):
+                 use_flash: bool = True, init_scheme: str = "reference",
+                 remat: bool = False, scan_layers: bool = False, device=None):
         super().__init__()
         self.backbone = ViTBackbone(
             num_blocks, input_shape, embed_dim, patch_size, num_heads, mlp_dim,
             dtype=dtype, dropout=dropout, fast_dropout=fast_dropout,
-            use_fused_mlp=use_fused_mlp, device=device,
+            use_fused_mlp=use_fused_mlp, use_flash=use_flash,
+            init_scheme=init_scheme, remat=remat, scan_layers=scan_layers,
+            device=device,
         )
-        self.head = DINOHead(embed_dim, output_dim, dtype=dtype, device=device)
+        self.head = DINOHead(embed_dim, output_dim, dtype=dtype, device=device,
+                             init_scheme=init_scheme)
 
     def forward(self, x, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):

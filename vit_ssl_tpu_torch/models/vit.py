@@ -5,6 +5,10 @@
 ``return_attn`` also returns the last block's attention probabilities.
 The forward is ``embed`` → ``encode`` → ``finish``, as in the JAX module.
 
+``reset_parameters`` draws with the model's ``init_scheme`` and
+``use_flash=False`` takes the plain attention, as for the DINO backbone
+(:mod:`.dino`).
+
 Not ported yet, and refused with ``NotImplementedError`` (``ROADMAP.md``
 queue A): ``remat`` (activation checkpointing: the dropout masks come from
 explicit generators, which ``torch.utils.checkpoint`` does not replay),
@@ -19,13 +23,29 @@ import torch
 from torch import nn
 
 from ..ops import ConvPatchEmbed, EncoderBlock, MLPHead
-from .dino import reference_init_
+from ..ops.initializers import check_scheme, init_
 
 
-def _refuse(option: str, why: str = "") -> None:
+def _refuse(option: str, item: int, why: str = "") -> None:
     raise NotImplementedError(
-        f"{option} is not ported yet{why}; see ROADMAP.md queue A"
+        f"{option} is not ported yet{why}; see ROADMAP.md queue A item {item}"
     )
+
+
+def refuse_unported(remat: bool = False, scan_layers: bool = False,
+                    patch_dropout: float = 0.0, moe_experts: int = 0) -> None:
+    """Raise ``NotImplementedError`` for the first model option asked for
+    that the port does not run yet, naming its ``ROADMAP.md`` item."""
+    if remat:
+        _refuse("parallel.remat (activation checkpointing)", 3,
+                ": the dropout masks come from explicit generators, which "
+                "torch.utils.checkpoint does not replay")
+    if scan_layers:
+        _refuse("model.scan_layers", 9)
+    if patch_dropout > 0.0:
+        _refuse("model.patch_dropout > 0", 9)
+    if moe_experts > 0:
+        _refuse("model.moe_experts > 0 (Mixture-of-Experts blocks)", 9)
 
 
 class ViT(nn.Module):
@@ -34,27 +54,21 @@ class ViT(nn.Module):
                  patch_size: int, num_heads: int = 8, mlp_dim: int = 3072,
                  dropout: float = 0.1, patch_dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, fast_dropout: bool = True,
-                 use_fused_mlp: bool = False, remat: bool = False,
+                 use_fused_mlp: bool = False, use_flash: bool = True,
+                 init_scheme: str = "reference", remat: bool = False,
                  scan_layers: bool = False, moe_experts: int = 0, device=None):
         super().__init__()
-        if remat:
-            _refuse("parallel.remat (activation checkpointing)",
-                    ": the dropout masks come from explicit generators, which "
-                    "torch.utils.checkpoint does not replay")
-        if scan_layers:
-            _refuse("model.scan_layers")
-        if patch_dropout > 0.0:
-            _refuse("model.patch_dropout > 0")
-        if moe_experts > 0:
-            _refuse("model.moe_experts > 0 (Mixture-of-Experts blocks)")
+        refuse_unported(remat, scan_layers, patch_dropout, moe_experts)
         self.dtype = dtype
+        self.init_scheme = check_scheme(init_scheme)
         self.patch_embedding = ConvPatchEmbed(
             input_shape, embed_dim, patch_size, dtype=dtype, device=device
         )
         self.encoder_blocks = nn.ModuleList(
             EncoderBlock(embed_dim, num_heads, mlp_dim, dtype=dtype,
                          dropout=dropout, fast_dropout=fast_dropout,
-                         use_fused_mlp=use_fused_mlp, device=device)
+                         use_fused_mlp=use_fused_mlp, use_flash=use_flash,
+                         device=device)
             for _ in range(num_blocks)
         )
         self.classification_head = MLPHead(embed_dim, num_classes, device=device)
@@ -93,6 +107,6 @@ class ViT(nn.Module):
         return self.finish(self.encode(x, deterministic, generator))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Redraw every parameter with the reference init
-        (:func:`~.dino.reference_init_`)."""
-        return reference_init_(self, generator)
+        """Redraw every parameter with the model's init scheme
+        (:func:`~..ops.initializers.init_`)."""
+        return init_(self, self.init_scheme, generator)

@@ -16,9 +16,10 @@ the JAX package picks it (``MultiHeadAttention.__call__``,
 
 (:func:`.flash_attention.attention_route`).
 
-``return_attn`` (the attention visualizer) and cross-attention take the
-plain math of :func:`scaled_dot_product_attention`, as the JAX package
-sends them to XLA.
+``return_attn`` (the attention visualizer), cross-attention and
+``use_flash=False`` (the config's ``model.use_flash_attention=false``) take
+the plain math of :func:`scaled_dot_product_attention` and launch no
+kernel, as the JAX package sends them to XLA.
 """
 
 from __future__ import annotations
@@ -61,10 +62,11 @@ class MultiHeadAttention(nn.Module):
 
     Parameters are fp32 (``w_query``, ``w_key``, ``w_value``,
     ``final_linear``: the reference state-dict names); the projections run
-    in ``dtype``."""
+    in ``dtype``. ``use_flash=False``: the plain attention, no kernel."""
 
     def __init__(self, d_model: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, use_flash: bool = True,
+                 device=None):
         super().__init__()
         if d_model % num_heads != 0:
             raise ValueError(
@@ -74,6 +76,7 @@ class MultiHeadAttention(nn.Module):
         self.d_model = d_model
         self.num_heads = num_heads
         self.dtype = dtype
+        self.use_flash = use_flash
         linear = lambda: nn.Linear(d_model, d_model, bias=False, device=device)  # noqa: E731
         self.w_query = linear()
         self.w_key = linear()
@@ -96,7 +99,7 @@ class MultiHeadAttention(nn.Module):
         def heads(x, n):  # (B, N, H·D) -> (B, H, N, D)
             return x.reshape(b, n, self.num_heads, d_head).transpose(1, 2)
 
-        if not return_attn and n_q == n_k:
+        if self.use_flash and not return_attn and n_q == n_k:
             xq, xk, xv = (self._proj(layer, x) for layer, x in (
                 (self.w_query, query), (self.w_key, key), (self.w_value, value)))
             route = attention_route(b, n_q, self.num_heads, self.d_model,

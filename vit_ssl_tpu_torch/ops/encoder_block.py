@@ -22,13 +22,13 @@ class EncoderBlock(nn.Module):
     def __init__(self, d_model: int = 512, num_heads: int = 8,
                  mlp_dim: int = 3072, dtype: torch.dtype = torch.float32,
                  dropout: float = 0.1, fast_dropout: bool = True,
-                 use_fused_mlp: bool = False, device=None):
+                 use_fused_mlp: bool = False, use_flash: bool = True, device=None):
         super().__init__()
         self.dtype = dtype
         self.layer_norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.layer_norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.self_attention = MultiHeadAttention(
-            d_model, num_heads, dtype=dtype, device=device
+            d_model, num_heads, dtype=dtype, use_flash=use_flash, device=device
         )
         self.feed_forward = FeedForwardBlock(
             d_model, mlp_dim, dropout=dropout, dtype=dtype,

@@ -24,8 +24,8 @@ holds: w1 (d_ff, d_in), w2 (d_in, d_ff). The JAX function takes them as
 PyTorch's (the kernels' ``erff``) where the JAX package uses the
 Abramowitz–Stegun polynomial (|error| ≤ 1.5e-7).
 
-The kernels take d_in = 384 (DINO ViT-S) and d_ff a multiple of 128; ViT-B's
-768 / 3072 are refused with a ``ValueError``.
+The kernels take d_in 384, 768 and 1024 (ViT-S, ViT-B and ViT-L) and d_ff
+a multiple of 128; any other d_in is refused with a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from .. import kernels
 KERNEL = "fused_mlp_fwd"  # forward, no pre saved
 KERNEL_TRAIN = "fused_mlp_fwd_pre"  # training forward, in KERNEL's library
 KERNEL_BWD = "fused_mlp_bwd"
-D_MODELS = (384,)
+D_MODELS = (384, 768, 1024)
 D_FF_MULTIPLE = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SQRT2_INV = 0.7071067811865476
