@@ -3,9 +3,10 @@
 Kernel B1: the inference forward, the training forward (output and softmax
 statistics) and the backward (dq, dk, dv), and a ``MultiHeadAttention``
 gradient through the kernels against the plain path. Kernel B3: the same
-three entries on the head-major layout, their equality with B1 on the same
-data, and a ``MultiHeadAttention`` gradient at ViT-B/16's N = 577 through
-them. Kernel B2 (blockwise flash attention): its forward (o and lse) and
+three entries on the head-major layout, their agreement with B1 on the
+same data (bf16: B3's own Hopper forward), each head kept to its own rows,
+repeatable bits, and a ``MultiHeadAttention`` gradient at ViT-B/16's
+N = 577 through them. Kernel B2 (blockwise flash attention): its forward (o and lse) and
 its two backward kernels (with and without an lse cotangent) from N = 1 to
 4096, P1 (the exp2 forward) against its plain version and B2's forward, and
 a ``MultiHeadAttention`` gradient at ViT-B/16's N = 1025 through them.
@@ -429,8 +430,11 @@ def test_fused_attention_backward_matches_plain(cuda_device, b, h, n, d, dtype):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_fused_attention_is_b1_on_the_head_major_layout(cuda_device, dtype):
-    """One kernel body for two layouts: B3 equals B1 on the same data bit
-    for bit, forward and backward."""
+    """B3 computes B1's function on the head-major layout. fp32: one kernel
+    body for both layouts, equal bit for bit. bf16: B3's forward is its own
+    Hopper body (wgmma sums in another order), within BF16_TOL of B1 and
+    its statistics within 1e-5. The backward is one body for both layouts:
+    fed B1's statistics, B3's gradients equal B1's bit for bit."""
     dt = getattr(torch, dtype)
     b, h, n, d = 4, 12, 577, 64
     q, k, v = _head_inputs(b, h, n, d, dt, cuda_device, seed=11)
@@ -441,10 +445,49 @@ def test_fused_attention_is_b1_on_the_head_major_layout(cuda_device, dtype):
 
     out, stats = fa.fused_attention_fwd_stats(q, k, v, 0.125)
     b1_out, b1_stats = fa.attention_nhd_fwd_stats(nhd(q), nhd(k), nhd(v), h, 0.125)
-    assert torch.equal(nhd(out), b1_out) and torch.equal(stats, b1_stats)
-    got = fa.fused_attention_bwd(q, k, v, do, stats, 0.125)
+    if dtype == "float32":
+        assert torch.equal(nhd(out), b1_out) and torch.equal(stats, b1_stats)
+    else:
+        torch.testing.assert_close(nhd(out).float(), b1_out.float(), **BF16_TOL)
+        torch.testing.assert_close(stats, b1_stats, atol=1e-5, rtol=1e-5)
+    got = fa.fused_attention_bwd(q, k, v, do, b1_stats, 0.125)
     want = fa.attention_nhd_bwd(nhd(q), nhd(k), nhd(v), nhd(do), b1_stats, h, 0.125)
     assert all(torch.equal(nhd(g), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [577, 70])
+def test_fused_attention_forward_keeps_to_its_head(cuda_device, n):
+    """A tile that ran past row n of one head would read the next head's
+    rows: with head 1's q, k and v all inf, heads 0 and 2 still equal the
+    plain version of each head alone (the 3-D tensor maps zero-fill past
+    n), in both forward entries."""
+    b, h, d = 2, 3, 64
+    q, k, v = _head_inputs(b, h, n, d, torch.bfloat16, cuda_device, seed=n + 13)
+    for x in (q, k, v):
+        x[:, 1] = float("inf")
+    out = fa.fused_attention_fwd(q, k, v, 0.125)
+    out_t, stats = fa.fused_attention_fwd_stats(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, 0::2], out_t[:, 0::2])  # head 1 is NaN in both
+    for head in (0, 2):
+        alone = [x[:, head:head + 1].contiguous() for x in (q, k, v)]
+        got = out[:, head:head + 1]
+        assert torch.isfinite(got).all() and torch.isfinite(stats[:, head, :n]).all()
+        torch.testing.assert_close(got.float(),
+                                   fa.fused_attention_reference(*alone, 0.125).float(),
+                                   **BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fused_attention_forward_repeats_bit_for_bit(cuda_device, dtype):
+    """No atomics, no order that changes between calls: two calls on the
+    same inputs give the same bits, output and statistics."""
+    q, k, v = _head_inputs(8, 12, 577, 64, getattr(torch, dtype), cuda_device, seed=14)
+    first = fa.fused_attention_fwd_stats(q, k, v, 0.125)
+    second = fa.fused_attention_fwd_stats(q, k, v, 0.125)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    assert torch.equal(fa.fused_attention_fwd(q, k, v, 0.125),
+                       fa.fused_attention_fwd(q, k, v, 0.125))
 
 
 def test_fused_attention_refuses_what_the_kernel_cannot_take(cuda_device):

@@ -196,17 +196,27 @@ def test_training_wrappers_take_plain_versions_on_cpu():
 
 def test_kernel_sources_cover_their_headers():
     """A header edit must rebuild every library that includes it: B1's two
-    libraries and B3's share the kernel bodies and the common header."""
+    libraries and B3's share the kernel bodies and the common header; B3's
+    bf16 forward (``attention_fwd_sm90.cuh``) is B3's alone."""
     want = {
         "attention_nhd_fwd": {"attention_nhd_fwd.cu", "attention_fwd.cuh"},
         "attention_nhd_bwd": {"attention_nhd_bwd.cu", "attention_bwd.cuh"},
         "fused_attention": {"fused_attention.cu", "attention_fwd.cuh",
-                            "attention_bwd.cuh"},
+                            "attention_bwd.cuh", "attention_fwd_sm90.cuh"},
     }
     for name, files in want.items():
         got = [f.name for f in kernels.source_files(name)]
         assert got[0] == f"{name}.cu" and len(got) == len(set(got))
         assert set(got) == files | {"attention_nhd_common.cuh"}
+
+
+@pytest.mark.parametrize("name", ["attention_nhd_fwd", "attention_nhd_bwd"])
+def test_b1_libraries_do_not_reach_the_sm90_forward(name):
+    """B3's Hopper forward is not in B1's sources, so an edit to it leaves
+    B1's libraries as they are (no rebuild, the same bits)."""
+    assert "attention_fwd_sm90.cuh" not in {f.name for f in kernels.source_files(name)}
+    assert "attention_fwd_sm90" not in "".join(
+        f.read_text() for f in kernels.source_files(name))
 
 
 def test_stale_follows_headers(monkeypatch, tmp_path):
@@ -272,6 +282,40 @@ def test_fused_reference_matches_jax_interpret(b, h, n, d, dtype):
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want, np.float32),
         **(FP32_TOL if dtype == "float32" else BF16_TOL))
+
+
+def _share_differing(got, want) -> float:
+    return float(np.mean(np.asarray(got, np.float32) != np.asarray(want, np.float32)))
+
+
+@pytest.mark.parametrize("n", [70, 577])
+def test_fused_training_forward_rounds_after_normalising(n):
+    """The contract B3's bf16 forward kernel is held to: pn = bf16(p / l),
+    rounded after normalising. The plain training forward agrees with JAX's
+    ``_attn_kernel`` (interpret mode) but for sums in another order (under 1 %
+    of outputs, one bf16 ulp); so does P.V rebuilt from its statistics as the
+    kernels rebuild it (pn = bf16(exp(s - m) * (1/l))); online rounding (p
+    rounded relative to the running max before normalising, B2's form, at
+    64-key tiles) differs from JAX in a large share of outputs."""
+    from vit_ssl_tpu_torch.ops import flash_blockwise as fb
+
+    xs = _heads_inputs(1, 2, n, 64, seed=n + 5)
+    scale = 0.125
+    want = np.asarray(_jax_fused(xs, scale, jnp.bfloat16), np.float32)
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in xs)
+    out, stats = fa.fused_attention_fwd_stats(q, k, v, scale)
+    assert out.dtype == torch.bfloat16 and stats.shape == (1, 2, n, 2)
+    np.testing.assert_allclose(out.float().numpy(), want, **BF16_TOL)
+    assert _share_differing(out.float(), want) < 0.01
+
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    pn = (torch.exp(s - stats[..., :1]) * stats[..., 1:]).bfloat16().float()
+    rebuilt = torch.matmul(pn, v.float()).bfloat16()
+    assert _share_differing(rebuilt.float(), want) < 0.01
+
+    online, _ = fb.blockwise_attention_reference(q, k, v, scale, block_k=64)
+    assert not torch.equal(online, out)
+    assert _share_differing(online.float(), want) > 0.2
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -370,6 +414,17 @@ def test_fused_kernel_input_checks(shape, dtype, match):
     x = torch.zeros(shape, dtype=dtype)
     with pytest.raises(ValueError, match=match):
         fa._check_heads(x, x, x)
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125, float("nan")])
+def test_fused_bf16_kernel_refuses_a_non_positive_scale(scale):
+    """The bf16 forward kernel takes the row max before scaling; fp32 and
+    a positive scale pass the check."""
+    x = torch.zeros(1, 1, 4, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="scale must be positive"):
+        fa._check_fused_scale(x, scale)
+    fa._check_fused_scale(x, 0.125)
+    fa._check_fused_scale(x.float(), scale)
 
 
 def test_fused_kernel_input_checks_layout():

@@ -13,12 +13,15 @@
 // to a multiple of 8 and sets the padded keys to -inf; here the ragged edge
 // is masked inside the kernel and nothing is padded.
 //
-// B3 computes B1's function on another layout, so it is B1's kernel bodies
-// (attention_fwd.cuh, attention_bwd.cuh) instantiated with kHeadMajor:
-// head h of token i of image b at [((b*H + h)*N + i)*D], one head's rows
-// contiguous, D elements apart (B1: H*D apart). The JAX package sends a
-// self-attention here when B1 does not fit the TPU's VMEM (ViT-B/16 at
-// 384 px: N = 577, 12 heads of 64).
+// B3 computes B1's function on another layout: head h of token i of image
+// b at [((b*H + h)*N + i)*D], one head's rows contiguous, D elements apart
+// (B1: H*D apart). The JAX package sends a self-attention here when B1 does
+// not fit the TPU's VMEM (ViT-B/16 at 384 px: N = 577, 12 heads of 64).
+// The bfloat16 forward is its own Hopper body (attention_fwd_sm90.cuh:
+// wgmma, TMA, a producer warp and two consumer warpgroups); the float32
+// forward (CUDA cores) and the backward are B1's kernel bodies
+// (attention_fwd.cuh, attention_bwd.cuh) instantiated with kHeadMajor. The
+// dispatch is by dtype alone: a bf16 call never reaches the old body.
 //
 // What bounds it on an H100 SXM, at ViT-B/16's (64, 12, 577, 64) bf16
 // (56.7 MB a tensor, 32.7 GFLOP a product; data sheet: 3.35 TB/s, 989
@@ -37,6 +40,7 @@
 
 #include "attention_bwd.cuh"
 #include "attention_fwd.cuh"
+#include "attention_fwd_sm90.cuh"
 
 // q, k, v, o: contiguous (batch, heads, n, head_dim) of one dtype
 // (is_bf16 = 1: bfloat16, 0: float32), 16-byte aligned. stream: a
@@ -46,8 +50,10 @@ extern "C" int fused_attention_fwd(const void* q, const void* k, const void* v, 
                                    int batch, int n, int heads, int head_dim,
                                    int is_bf16, float scale, void* stream) {
   if (o == nullptr) return (int)cudaErrorInvalidValue;
-  return fwd_dispatch<true>(q, k, v, o, nullptr, batch, n, heads, head_dim, is_bf16,
-                            scale, 0, stream);
+  if (is_bf16)
+    return sm90::dispatch(q, k, v, o, nullptr, batch, n, heads, head_dim, scale, stream);
+  return fwd_dispatch<true>(q, k, v, o, nullptr, batch, n, heads, head_dim, 0, scale, 0,
+                            stream);
 }
 
 // The training forward: fused_attention_fwd's output, bit for bit, and the
@@ -58,8 +64,10 @@ extern "C" int fused_attention_fwd_stats(const void* q, const void* k, const voi
                                          int heads, int head_dim, int is_bf16,
                                          float scale, void* stream) {
   if (o == nullptr || stats == nullptr) return (int)cudaErrorInvalidValue;
-  return fwd_dispatch<true>(q, k, v, o, stats, batch, n, heads, head_dim, is_bf16,
-                            scale, 0, stream);
+  if (is_bf16)
+    return sm90::dispatch(q, k, v, o, stats, batch, n, heads, head_dim, scale, stream);
+  return fwd_dispatch<true>(q, k, v, o, stats, batch, n, heads, head_dim, 0, scale, 0,
+                            stream);
 }
 
 // q, k, v, dout (the upstream gradient, already in the input dtype), dq, dk,

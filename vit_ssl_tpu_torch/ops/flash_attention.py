@@ -26,10 +26,14 @@ to the other: a CUDA call that a kernel cannot take raises.
 
 :func:`fused_attention` is B3, the same function without the mask on
 contiguous (B, H, N, D) tensors, with the same three entries in one library
-(``csrc/fused_attention.cu``, B1's kernel bodies instantiated for the
-head-major layout): ``fused_attention_fwd``, ``fused_attention_fwd_stats``
-and ``fused_attention_bwd``; on a CPU tensor :func:`fused_attention_reference`
-and :func:`fused_attention_bwd_reference`.
+(``csrc/fused_attention.cu``): ``fused_attention_fwd``,
+``fused_attention_fwd_stats`` and ``fused_attention_bwd``; on a CPU tensor
+:func:`fused_attention_reference` and :func:`fused_attention_bwd_reference`.
+Its bf16 forwards run a Hopper body of their own
+(``csrc/attention_fwd_sm90.cuh``: wgmma, TMA, a producer warp and two
+consumer warpgroups; the softmax scale must be positive); its fp32
+forwards and its backward are B1's kernel bodies instantiated for the
+head-major layout.
 
 The JAX package gates B1 with TPU measurements
 (``attention_nhd_profitable``); the port keeps only its feasibility rule,
@@ -475,6 +479,13 @@ def _check_heads(q, k, v) -> Tuple[int, int, int, int]:
     return b, h, n, d
 
 
+def _check_fused_scale(q, scale: float) -> None:
+    """B3's bf16 forward kernel takes the row max of the unscaled scores,
+    which is the scaled scores' row max only for a positive scale."""
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"scale must be positive for the bf16 kernel, got {scale}")
+
+
 def fused_attention_fwd(q, k, v, scale: float):
     """B3's inference forward: kernel ``fused_attention_fwd`` on a CUDA
     tensor, :func:`fused_attention_reference` on a CPU tensor."""
@@ -482,6 +493,7 @@ def fused_attention_fwd(q, k, v, scale: float):
         return fused_attention_reference(q, k, v, scale)
     _require_cuda(q, "fused_attention")
     b, h, n, d = _check_heads(q, k, v)
+    _check_fused_scale(q, scale)
     out = torch.empty_like(q)
     _launch(FUSED_KERNEL, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, n, h, d, _DTYPES[q.dtype], float(scale))
@@ -499,6 +511,7 @@ def fused_attention_fwd_stats(q, k, v, scale: float):
                 fused_attention_stats_reference(q, k, scale))
     _require_cuda(q, "fused_attention")
     b, h, n, d = _check_heads(q, k, v)
+    _check_fused_scale(q, scale)
     out = torch.empty_like(q)
     stats = torch.zeros(b, h, _stats_rows(n), 2, device=q.device,
                         dtype=torch.float32)
