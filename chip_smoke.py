@@ -69,8 +69,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               versions: the forward (o and lse) and the dq and dk/dv
               kernels, with and without an lse cotangent, at ViT-B/16's
               (64, 12, 1025, 64), N = 1, a ragged N, N = 2048 and 4096, head
-              dims 32 and 128, bf16 and fp32 (run beside the other kernel
-              checks, before any model)
+              dims 32 and 128, bf16 and fp32; in bf16 also P1 against its
+              plain version, both forwards bit-equal on a second call, and
+              each head kept to its own rows (a NaN planted in one head's
+              K) (run beside the other kernel checks, before any model)
 14. supervised serving and training at 512 px (N = 1025) — phases 11 and
               12 at full width and depth with every block on B2: 12 B2
               forwards a served batch and an ``eval_step``, 12 forwards, 12
@@ -709,9 +711,10 @@ def phase_blockwise_kernels(torch, fb):
     LSE_REL_TOL) and the backward's two kernels with and without an lse
     cotangent (each gradient within GRAD_REL_TOL of max|plain|, floored as
     B2_GRAD_FLOOR says, from the same o and lse, and bit-equal on a second
-    call: no atomics). Returns,
-    per case, the max abs errors of o, lse, dq and max(dk, dv) without
-    dlse."""
+    call: no atomics); the forward bit-equal on a second call too, and in
+    bf16 P1 against its plain version at the same tile (bit-equal on a
+    second call); then :func:`blockwise_head_isolation`. Returns, per case,
+    the max abs errors of o, lse, dq and max(dk, dv) without dlse."""
     print("== kernels: blockwise_fwd, blockwise_bwd_dq and blockwise_bwd_dkv "
           "against their plain versions", flush=True)
     errors = {}
@@ -727,10 +730,26 @@ def phase_blockwise_kernels(torch, fb):
         ref, ref_lse = fb.blockwise_attention_reference(q, k, v, scale, fb.KERNEL_BLOCK_K)
         fwd_ok, fwd_tol = forward_ok(torch, out, ref, dtype_name)
         lse_err = rel_err(lse, ref_lse)
-        ok = fwd_ok and lse_err <= LSE_REL_TOL
+        again = fb.blockwise_attention_fwd(q, k, v, scale)
+        same = torch.equal(again[0], out) and torch.equal(again[1], lse)
+        ok = fwd_ok and lse_err <= LSE_REL_TOL and same
         line = (f"  ({b},{h},{n},{d}) {dtype_name}: o max_abs_err {max_abs(out, ref):.3e} "
                 f"({fwd_tol}, plain at block_k {fb.KERNEL_BLOCK_K}); lse rel_err "
-                f"{lse_err:.3e} (<= {LSE_REL_TOL:g})")
+                f"{lse_err:.3e} (<= {LSE_REL_TOL:g}), repeat "
+                + ("bit-equal" if same else "DIFFERS"))
+        if dtype_name == "bfloat16":  # P1, the same body in the exp2 form
+            out2, lse2 = fb.blockwise_attention_fwd_exp2(q, k, v, scale)
+            again = fb.blockwise_attention_fwd_exp2(q, k, v, scale)
+            torch.cuda.synchronize()
+            ref2, ref2_lse = fb.blockwise_attention_exp2_reference(
+                q, k, v, scale, fb.KERNEL_BLOCK_K)
+            p1_ok, _ = forward_ok(torch, out2, ref2, dtype_name)
+            p1_lse = rel_err(lse2, ref2_lse)
+            p1_same = torch.equal(again[0], out2) and torch.equal(again[1], lse2)
+            ok = ok and p1_ok and p1_lse <= LSE_REL_TOL and p1_same
+            line += (f"; P1 o max_abs_err {max_abs(out2, ref2):.3e}, lse rel_err "
+                     f"{p1_lse:.3e}, repeat " + ("bit-equal" if p1_same else "DIFFERS"))
+            del out2, lse2, ref2, ref2_lse
         tol = GRAD_REL_TOL[dtype_name]
         for label, cot in (("dlse", dlse), ("no dlse", None)):
             got = fb.blockwise_attention_bwd(q, k, v, out, lse, do, scale, cot)
@@ -752,7 +771,38 @@ def phase_blockwise_kernels(torch, fb):
             "fwd": max_abs(out, ref), "lse": max_abs(lse, ref_lse),
             "dq": abs_errs[0], "dkv": max(abs_errs[1:])}
         del q, k, v, do, out, lse, ref, ref_lse, got, again, want
+    blockwise_head_isolation(torch, fb)
     return errors
+
+
+def blockwise_head_isolation(torch, fb):
+    """With a NaN planted in head 1's K, heads 0 and 2 of B2's and P1's
+    bf16 forwards stay finite and equal the plain version of each head
+    alone (by :func:`forward_ok`, lse within LSE_REL_TOL): no tile reads
+    another head's rows."""
+    b, h, n, d = 2, 3, 1025, 64
+    q, k, v = heads_qkv(b, h, n, d, torch.bfloat16, seed=870)
+    k[:, 1, n // 2, 3] = float("nan")
+    for forward, plain in ((fb.blockwise_attention_fwd, fb.blockwise_attention_reference),
+                           (fb.blockwise_attention_fwd_exp2,
+                            fb.blockwise_attention_exp2_reference)):
+        out, lse = forward(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        errs = []
+        ok = not bool(torch.isfinite(out[:, 1]).all())  # the NaN spreads in its head
+        for head in (0, 2):
+            alone = [x[:, head:head + 1].contiguous() for x in (q, k, v)]
+            ref, ref_lse = plain(*alone, 0.125, fb.KERNEL_BLOCK_K)
+            head_ok, _ = forward_ok(torch, out[:, head:head + 1], ref, "bfloat16")
+            lse_err = rel_err(lse[:, head:head + 1], ref_lse)
+            ok = ok and head_ok and lse_err <= LSE_REL_TOL
+            errs.append(f"{max_abs(out[:, head:head + 1], ref):.3e} / {lse_err:.3e}")
+        print(f"  head isolation ({b},{h},{n},{d}) bfloat16, NaN in head 1's K, "
+              f"{forward.__name__}: heads 0 and 2 o max_abs_err / lse rel_err "
+              f"{'; '.join(errs)} against each head alone {'ok' if ok else 'MISS'}",
+              flush=True)
+        if not ok:
+            fail(f"{forward.__name__} reads across heads")
 
 
 def phase_mlp_kernels(torch, fm):
@@ -2261,13 +2311,13 @@ def main() -> int:
     ]
     b2_case = blockwise_errors[BLOCKWISE_CASES[0]]
     entries += [
-        (fb.KERNEL, "flash_blockwise_fwd.cu", "vit_ssl_tpu/ops/flash_blockwise.py:76",
+        (fb.KERNEL, "flash_blockwise_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_blockwise.py:76",
          b2_case["fwd"], {**blockwise_stats["fwd"], "lse_max_abs_err": b2_case["lse"]}),
         (fb.KERNEL_DQ, "flash_blockwise_bwd.cu", "vit_ssl_tpu/ops/flash_blockwise.py:217",
          b2_case["dq"], blockwise_stats["dq"]),
         (fb.KERNEL_DKV, "flash_blockwise_bwd.cu", "vit_ssl_tpu/ops/flash_blockwise.py:168",
          b2_case["dkv"], blockwise_stats["dkv"]),
-        (fb.KERNEL_EXP2, "flash_blockwise_fwd.cu", "scripts/exp2_probe.py:27",
+        (fb.KERNEL_EXP2, "flash_blockwise_fwd_sm90.cuh", "scripts/exp2_probe.py:27",
          p1_err, p1_stats),
     ]
     # P2's backward: max_abs_err is dh's, the weight gradients listed apart

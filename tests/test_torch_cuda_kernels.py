@@ -9,8 +9,10 @@ its own rows and repeatable bits in both directions, the Hopper backward's
 kernels by name in a profile, and a ``MultiHeadAttention`` gradient at
 ViT-B/16's N = 577 through them. Kernel B2 (blockwise flash attention): its forward (o and lse) and
 its two backward kernels (with and without an lse cotangent) from N = 1 to
-4096, P1 (the exp2 forward) against its plain version and B2's forward, and
-a ``MultiHeadAttention`` gradient at ViT-B/16's N = 1025 through them.
+4096, P1 (the exp2 forward) against its plain version and B2's forward,
+both forwards' repeatable bits, each head kept to its own rows and the
+Hopper body by name in a profile at every head dim, and a
+``MultiHeadAttention`` gradient at ViT-B/16's N = 1025 through them.
 Kernel B4 (fused MLP):
 its forwards (no mask, keep-mask, keep-mask with pre saved) and its
 backward (with and without the mask) at d_model 384, 768 and 1024, and a
@@ -499,25 +501,38 @@ def test_fused_attention_backward_keeps_to_its_head(cuda_device, n):
             assert _rel_err(g, w) <= GRAD_REL_TOL["bfloat16"], (head, name, _rel_err(g, w))
 
 
+def _device_kernel_names(fn, sessions: int = 3) -> str:
+    """The device kernels that a profile of ``fn`` records, by name. The
+    profiler records the second of two calls; a fresh session can lose a
+    short window's device events, so a session that records no device
+    kernel at all is run again, up to ``sessions`` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return " ".join(names)
+    return ""
+
+
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_fused_attention_bf16_backward_runs_the_hopper_kernels(cuda_device, d):
     """A bf16 backward launches the two kernels of attention_bwd_sm90.cuh
-    at every head dim, shown by name in a profile of the call, and none of
-    the mma.sync body's. The profiler records the second of two calls: a
-    fresh session can lose a short window's device events."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
+    at every head dim, shown by name in a profile of the call
+    (:func:`_device_kernel_names`), and none of the mma.sync body's."""
     q, k, v, do = (_head_inputs(2, 4, 203, d, torch.bfloat16, cuda_device, seed=d + 19)
                    + _head_inputs(2, 4, 203, d, torch.bfloat16, cuda_device, seed=d + 20))[:4]
     _, stats = fa.fused_attention_fwd_stats(q, k, v, 1.0 / d ** 0.5)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            fa.fused_attention_bwd(q, k, v, do, stats, 1.0 / d ** 0.5)
-            torch.cuda.synchronize()
-            prof.step()
-    names = " ".join(e.key for e in prof.key_averages())
+    names = _device_kernel_names(
+        lambda: fa.fused_attention_bwd(q, k, v, do, stats, 1.0 / d ** 0.5))
     assert f"attention_bwd_dq_sm90_kernel<{d}>" in names, names
     assert f"attention_bwd_dkv_sm90_kernel<{d}>" in names, names
     assert "bf16_kernel" not in names, names
@@ -684,7 +699,8 @@ def test_blockwise_backward_matches_plain(cuda_device, b, h, n, d, dtype, with_d
 
 
 @pytest.mark.parametrize("b,h,n,d", [(8, 6, 2048, 64), (4, 6, 4096, 64),
-                                     (64, 12, 1025, 64), (4, 2, 1100, 128)])
+                                     (64, 12, 1025, 64), (4, 2, 1100, 128),
+                                     (4, 12, 1, 64), (8, 4, 300, 32)])
 def test_exp2_forward_matches_plain_and_b2(cuda_device, b, h, n, d):
     """P1 (bf16): o within BF16_TOL of its plain version at the kernel's
     tile and within the probe's atol/rtol 3e-2 of B2's forward; its lse,
@@ -704,6 +720,67 @@ def test_exp2_forward_matches_plain_and_b2(cuda_device, b, h, n, d):
     assert _rel_err(lse, ref_lse) <= LSE_REL_TOL
 
 
+@pytest.mark.parametrize("d,dtype", [(32, "bfloat16"), (64, "bfloat16"),
+                                     (128, "bfloat16"), (64, "float32")])
+def test_blockwise_forward_repeats_bit_for_bit(cuda_device, d, dtype):
+    """No atomics, no order that changes between calls: two forward calls
+    on the same inputs give the same o and lse, in every bf16 head dim (B2
+    and P1) and in fp32."""
+    dt = getattr(torch, dtype)
+    q, k, v = _head_inputs(4, 12 * 64 // d, 1025, d, dt, cuda_device, seed=d + 21)
+    forwards = [fb.blockwise_attention_fwd]
+    if dtype == "bfloat16":
+        forwards.append(fb.blockwise_attention_fwd_exp2)
+    for forward in forwards:
+        first = forward(q, k, v, d ** -0.5)
+        second = forward(q, k, v, d ** -0.5)
+        assert all(torch.equal(a, c) for a, c in zip(first, second)), forward.__name__
+
+
+@pytest.mark.parametrize("n", [1025, 70])
+def test_blockwise_forward_keeps_to_its_head(cuda_device, n):
+    """A tile that ran past row n of one head would read the next head's
+    rows: with a NaN planted in head 1's K, heads 0 and 2 stay finite and
+    equal the plain version of each head alone at the kernel's tile (o
+    within BF16_TOL, lse within LSE_REL_TOL), in B2 and P1."""
+    b, h, d = 2, 3, 64
+    q, k, v = _head_inputs(b, h, n, d, torch.bfloat16, cuda_device, seed=n + 22)
+    k[:, 1, n // 2, 3] = float("nan")
+    for forward, plain in ((fb.blockwise_attention_fwd, fb.blockwise_attention_reference),
+                           (fb.blockwise_attention_fwd_exp2,
+                            fb.blockwise_attention_exp2_reference)):
+        out, lse = forward(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        assert not torch.isfinite(out[:, 1]).all()  # the planted NaN spreads in its head
+        for head in (0, 2):
+            alone = [x[:, head:head + 1].contiguous() for x in (q, k, v)]
+            ref, ref_lse = plain(*alone, 0.125, fb.KERNEL_BLOCK_K)
+            got = out[:, head:head + 1]
+            assert torch.isfinite(got).all() and torch.isfinite(lse[:, head]).all()
+            torch.testing.assert_close(got.float(), ref.float(), **BF16_TOL)
+            assert _rel_err(lse[:, head:head + 1], ref_lse) <= LSE_REL_TOL
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_blockwise_bf16_forward_runs_the_hopper_kernel(cuda_device, d):
+    """A bf16 forward launches the wgmma/TMA kernel of
+    flash_blockwise_fwd_sm90.cuh at every head dim, in both forms, shown by
+    name in a profile of the calls (:func:`_device_kernel_names`), and no
+    other bf16 body; the library holds no other."""
+    q, k, v = _head_inputs(2, 4, 1025, d, torch.bfloat16, cuda_device, seed=d + 23)
+
+    def both_forms():
+        fb.blockwise_attention_fwd(q, k, v, d ** -0.5)
+        fb.blockwise_attention_fwd_exp2(q, k, v, d ** -0.5)
+
+    names = _device_kernel_names(both_forms)
+    assert f"blockwise_fwd_sm90_kernel<{d}, false>" in names, names
+    assert f"blockwise_fwd_sm90_kernel<{d}, true>" in names, names
+    assert "bf16_kernel" not in names, names
+    binary = kernels.library_path(fb.FWD_LIBRARY).read_bytes()
+    assert b"blockwise_fwd_sm90_kernel" in binary and b"blockwise_fwd_bf16_kernel" not in binary
+
+
 def test_blockwise_refuses_what_the_kernels_cannot_take(cuda_device):
     x = torch.zeros(2, 2, 37, 48, device=cuda_device)
     with pytest.raises(ValueError, match="head dim 48"):
@@ -713,6 +790,11 @@ def test_blockwise_refuses_what_the_kernels_cannot_take(cuda_device):
         fb.blockwise_attention(x, x.transpose(2, 3).contiguous().transpose(2, 3), x, 0.125)
     with pytest.raises(ValueError, match="bfloat16"):
         fb.blockwise_attention_fwd_exp2(x, x, x, 0.125)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="scale > 0"):
+        fb.blockwise_attention(xb, xb, xb, 0.0)
+    with pytest.raises(ValueError, match="scale > 0"):
+        fb.blockwise_attention_fwd_exp2(xb, xb, xb, -0.125)
     with pytest.raises(ValueError, match="lse"):
         fb.blockwise_attention_bwd(x, x, x, x, torch.zeros(2, 2, 36, device=cuda_device),
                                    x, 0.125)

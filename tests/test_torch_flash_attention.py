@@ -197,14 +197,14 @@ def test_training_wrappers_take_plain_versions_on_cpu():
 def test_kernel_sources_cover_their_headers():
     """A header edit must rebuild every library that includes it: B1's two
     libraries and B3's share the kernel bodies and the common header; B3's
-    bf16 forward and backward (``attention_{fwd,bwd}_sm90.cuh``) are B3's
-    alone."""
+    bf16 forward and backward (``attention_{fwd,bwd}_sm90.cuh``, over the
+    Hopper primitives of ``sm90_common.cuh``) are B3's alone."""
     want = {
         "attention_nhd_fwd": {"attention_nhd_fwd.cu", "attention_fwd.cuh"},
         "attention_nhd_bwd": {"attention_nhd_bwd.cu", "attention_bwd.cuh"},
         "fused_attention": {"fused_attention.cu", "attention_fwd.cuh",
                             "attention_bwd.cuh", "attention_fwd_sm90.cuh",
-                            "attention_bwd_sm90.cuh"},
+                            "attention_bwd_sm90.cuh", "sm90_common.cuh"},
     }
     for name, files in want.items():
         got = [f.name for f in kernels.source_files(name)]
@@ -212,12 +212,13 @@ def test_kernel_sources_cover_their_headers():
         assert set(got) == files | {"attention_nhd_common.cuh"}
 
 
-@pytest.mark.parametrize("header", ["attention_fwd_sm90", "attention_bwd_sm90"])
+@pytest.mark.parametrize("header", ["attention_fwd_sm90", "attention_bwd_sm90",
+                                    "sm90_common", "flash_blockwise_fwd_sm90"])
 @pytest.mark.parametrize("name", ["attention_nhd_fwd", "attention_nhd_bwd"])
 def test_b1_libraries_do_not_reach_the_sm90_forward(name, header):
-    """B3's Hopper forward and backward are not in B1's sources, so an edit
-    to either leaves B1's libraries as they are (no rebuild, the same
-    bits)."""
+    """The Hopper bodies (B3's forward and backward, B2's forward) and
+    their primitives are not in B1's sources, so an edit to any of them
+    leaves B1's libraries as they are (no rebuild, the same bits)."""
     assert f"{header}.cuh" not in {f.name for f in kernels.source_files(name)}
     assert header not in "".join(f.read_text() for f in kernels.source_files(name))
 

@@ -12,10 +12,13 @@ only in the order of sums. bf16: the port's forward at JAX's key block
 rounds p at the same points, so it is held to one bf16 ulp (2⁻⁸ relative,
 atol/rtol 1e-2) and measured equal. Also P1 (the exp2 form) against
 ``scripts/exp2_probe.py::fwd_exp2``, the routing of long sequences to B2,
-and what the kernel wrappers refuse.
+what the kernel wrappers refuse, and the plain forwards against JAX at the
+bf16 kernel's own key tile (``KERNEL_BLOCK_K``), which the card holds the
+kernel to.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -25,6 +28,7 @@ import pytest
 import torch
 
 from vit_ssl_tpu.ops import MultiHeadAttention as JaxMHA
+from vit_ssl_tpu.ops.flash_blockwise import _flash_fwd as jax_flash_fwd
 from vit_ssl_tpu.ops.flash_blockwise import blockwise_attention_lse as jax_lse
 from vit_ssl_tpu_torch import kernels
 from vit_ssl_tpu_torch.ops import MultiHeadAttention
@@ -151,6 +155,60 @@ def test_exp2_form_matches_the_probe(dtype):
     o_cpu, lse_cpu = fb.blockwise_attention_fwd_exp2(*ts, scale)
     o_one, lse_one = fb.blockwise_attention_exp2_reference(*ts, scale)
     assert torch.equal(o_cpu, o_one) and torch.equal(lse_cpu, lse_one)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_bf16_forwards_match_jax_at_the_kernel_tile(d):
+    """The yardsticks of the bf16 kernels, at the kernel's key tile
+    (``KERNEL_BLOCK_K``) and an N of three tiles with a ragged last one:
+    B2's plain forward against JAX's ``_flash_fwd`` (interpret mode,
+    block_k = ``KERNEL_BLOCK_K``), P1's against the probe's ``fwd_exp2``
+    at that tile; o to one bf16 ulp (the same rounding points), lse (fp32;
+    P1's returned as natural log) at 1e-5."""
+    bk = fb.KERNEL_BLOCK_K
+    q, k, v, *_ = _inputs(2 * bk + 5, d=d, seed=d)
+    scale = d ** -0.5
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want_o, want_lse, _ = jax_flash_fwd(jq, jk, jv, scale, bk, bk, True)
+    want_exp2 = _exp2_probe().fwd_exp2(jq, jk, jv, scale, bk, bk)
+    ts = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    for plain, want in ((fb.blockwise_attention_reference, want_o),
+                        (fb.blockwise_attention_exp2_reference, want_exp2)):
+        o, lse = plain(*ts, scale, block_k=bk)
+        assert o.dtype == torch.bfloat16 and lse.shape == (2, 2, 2 * bk + 5)
+        np.testing.assert_allclose(o.float().numpy(), np.asarray(want, np.float32), **BF16)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **FP32_FWD)
+
+
+def test_forward_key_tile_and_sources_are_the_kernels():
+    """``KERNEL_BLOCK_K`` is the bf16 body's key tile (``kKeys`` in
+    ``csrc/flash_blockwise_fwd_sm90.cuh``), and the forward library lists
+    that header and ``sm90_common.cuh`` among its sources, so an edit to
+    either rebuilds it; B3's library lists ``sm90_common.cuh`` too, and the
+    B2 library none of B3's headers."""
+    header = kernels.CSRC_DIR / "flash_blockwise_fwd_sm90.cuh"
+    tiles = re.findall(r"constexpr int kKeys = (\d+);", header.read_text())
+    assert tiles == [str(fb.KERNEL_BLOCK_K)]
+    fwd = {p.name for p in kernels.source_files(fb.FWD_LIBRARY)}
+    assert {"flash_blockwise_fwd.cu", "flash_blockwise_fwd_sm90.cuh",
+            "sm90_common.cuh"} <= fwd
+    assert not fwd & {"attention_fwd_sm90.cuh", "attention_bwd_sm90.cuh"}
+    b3 = {p.name for p in kernels.source_files("fused_attention")}
+    assert {"attention_fwd_sm90.cuh", "attention_bwd_sm90.cuh", "sm90_common.cuh"} <= b3
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125, float("nan")])
+def test_bf16_forward_refuses_a_scale_it_cannot_fold(scale):
+    """The bf16 forward folds the scale into its exponent (the max is taken
+    of the unscaled scores): ``_check`` refuses scale <= 0 (and NaN) by
+    name for bf16 when a scale is given; fp32 and the backward's checks
+    (no scale) take any."""
+    x = torch.zeros(2, 2, 37, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="scale > 0"):
+        fb._check(x, x, x, scale)
+    assert fb._check(x, x, x) == (2, 2, 37, 64)
+    assert fb._check(*[x.float()] * 3, scale) == (2, 2, 37, 64)
+    assert fb._check(x, x, x, 0.125) == (2, 2, 37, 64)
 
 
 def test_cpu_wrappers_run_the_plain_versions():

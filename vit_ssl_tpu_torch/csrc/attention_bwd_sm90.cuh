@@ -1,8 +1,9 @@
 // Kernel B3's bfloat16 backward, redesigned for Hopper (sm_90a) with wgmma
 // and TMA. Included by fused_attention.cu only (B1's libraries reach
-// neither this header nor attention_fwd_sm90.cuh, whose primitives it
-// uses); float32 stays on the CUDA-core body of attention_bwd.cuh. Every
-// head dim the bf16 forward takes (32, 64, 128) runs it.
+// neither this header nor attention_fwd_sm90.cuh, whose tile shapes it
+// uses; the Hopper primitives are sm90_common.cuh's); float32 stays on
+// the CUDA-core body of attention_bwd.cuh. Every head dim the bf16
+// forward takes (32, 64, 128) runs it.
 //
 // Replaces the TPU kernel vit_ssl_tpu/ops/flash_attention.py::
 // _attn_bwd_kernel, called from _fused_attention_bwd_impl (C entry
@@ -82,7 +83,8 @@
 
 #pragma once
 
-#include "attention_fwd_sm90.cuh"
+#include "attention_fwd_sm90.cuh"  // B3's tiles: Shape, kConsumers, kKeys, ...
+#include "sm90_common.cuh"         // mbarriers, TMA, wgmma, tensor maps
 
 namespace {
 namespace sm90 {

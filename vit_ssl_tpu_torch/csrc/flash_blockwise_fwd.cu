@@ -17,204 +17,39 @@
 // p is rounded to the input dtype relative to the running max before P.V,
 // so in bf16 the output depends on the key tiling: the plain version
 // (ops/flash_blockwise.py::blockwise_attention_reference) takes the
-// kernel's tile, kKTile = 64 keys, to be held to it.
+// kernel's tile, KERNEL_BLOCK_K = flash_blockwise_fwd_sm90.cuh's kKeys, to
+// be held to it.
 //
 // The two forms (template kExp2):
 // - exp (blockwise_fwd, the TPU kernel's form, the one the model path
-//   launches): s is scaled by `scale`, and every exponential is expf, the
-//   accurate one (no fast math), so p and lse follow the plain version's
-//   torch.exp to an fp32 ulp or two.
+//   launches): every exponential is expf, the accurate one (no fast math),
+//   so p and lse follow the plain version's torch.exp to an fp32 ulp or
+//   two.
 // - exp2 (blockwise_fwd_exp2, P1): log2(e) is folded into the scale, so s
 //   is in the log2 domain, each exponential is one ex2.approx on the
 //   special-function unit, and lse = (m2 + log2(l)) / log2(e) is returned as
 //   natural log. exp2(x log2 e) = exp(x), so it computes the same function.
+// The model path keeps the TPU kernel's form; the exp2 probe
+// (vit_ssl_tpu_torch/scripts/exp2_probe.py) times P1 against it.
 //
-// Which form the model path launches: exp. On an H100 SXM (700 W) the exp2
-// form takes 0.85x the exp form's time at (8, 6, 2048, 64) and (4, 6, 4096,
-// 64) bf16 (vit_ssl_tpu_torch/scripts/exp2_probe.py), and both meet the
-// same tolerances. The path keeps the TPU kernel's form because P1 is by
-// definition B2's forward in the other form, held beside it by the probe;
-// moving the path to exp2 (one FFMA and one ex2 a score instead of expf's
-// range reduction) belongs with the change that makes B2 fast.
-//
-// What bounds it on an H100 SXM, at ViT-B/16's (64, 12, 1025, 64) bf16
-// (100.8 MB a tensor, 103.3 GFLOP a product; data sheet: 3.35 TB/s, 989
-// TFLOP/s bf16): q, k, v read and o written, 403 MB, plus 3.1 MB of lse:
-// 0.121 ms; the two products 0.209 ms: operations bound it, and 807 M
-// exponentials (0.19 ms on the special-function units at 16 a clock per
-// SM, with the exp2 form) come close. What the design does:
-//
-// - one pass with online rescaling: the scores are computed once (B1/B3's
-//   body computes them twice, the first pass only for the row max and sum),
-//   and the (N, N) scores never leave the chip;
-// - bfloat16 on the tensor cores through mma.sync m16n8k16 with fp32
-//   accumulation: one block of 4 warps owns 64 query rows of one (b, h), 16
-//   rows a warp with its Q fragments in registers; K and V stream through
-//   64-row shared tiles copied with cp.async into two buffers, the next
-//   tile's copies in flight while this one computes; p goes from the score
-//   accumulators to the P.V product's A operand in registers (no shared
-//   memory round trip); the query tiles of one (b, h) run side by side, so
-//   their re-reads of K and V come mostly from L2;
-// - the ragged last key tile is masked in the kernel, and its 8-key column
-//   groups at or past n skip their products: nothing is padded in memory
-//   (the TPU kernel pads N to its block and computes the padding);
-// - float32 keeps full fp32 products on the CUDA cores (TF32 would miss the
-//   fp32 tolerance): one block of 8 warps owns 32 query rows, 8 threads a
-//   row, and the p tile goes through shared memory to the P.V product.
+// bfloat16 runs the Hopper body of flash_blockwise_fwd_sm90.cuh (wgmma,
+// TMA, one online-softmax pass; what bounds it and its design are written
+// there) at every head dim, with scale > 0; there is no other bf16 body.
+// float32 keeps full fp32 products on the CUDA cores (TF32 would miss the
+// fp32 tolerance): one block of 8 warps owns 32 query rows, 8 threads a
+// row, K and V tiles of kKTile keys go through shared memory, and the p
+// tile goes through shared memory to the P.V product. What bounds it at
+// (64, 12, 1025, 64) fp32: the two products' 206.6 GFLOP at the CUDA
+// cores' 67 TFLOP/s, 3.1 ms.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (vit_ssl_tpu_torch/kernels.py); called through
 // ctypes from vit_ssl_tpu_torch/ops/flash_blockwise.py.
 
 #include "attention_nhd_common.cuh"
+#include "flash_blockwise_fwd_sm90.cuh"
 
 namespace {
-
-template <bool kExp2>
-__device__ __forceinline__ float softmax_exp(float x) {
-  return kExp2 ? exp2_approx(x) : expf(x);
-}
-
-template <bool kExp2>
-__device__ __forceinline__ float natural_lse(float m, float l) {
-  return kExp2 ? (m + log2f(l)) / kLog2e : m + logf(l);
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores
-
-template <int D>
-constexpr size_t fwd_smem_bf16() {  // K and V, two buffers each
-  return 4 * sizeof(bf16) * kKTile * (D + kBPad);
-}
-
-// grid (ceil(n / kRows16), heads, batch), 32 * kWarps16 threads,
-// fwd_smem_bf16<D>() of dynamic shared memory.
-template <int D, bool kExp2>
-__global__ void __launch_bounds__(32 * kWarps16)
-    blockwise_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, bf16* __restrict__ o,
-                              float* __restrict__ lse, int n, float scale) {
-  static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
-  constexpr int kTileElems = kKTile * (D + kBPad);
-  extern __shared__ uint4 smem_bf16[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_bf16);  // [2][kKTile][D + kBPad]
-  bf16* vs = ks + 2 * kTileElems;                 // [2][kKTile][D + kBPad]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int t = lane & 3;
-  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  const size_t base = bh * n * D;
-  const int row0 = blockIdx.x * kRows16 + 16 * warp;
-  const int row_lo = row0 + (lane >> 2), row_hi = row_lo + 8;
-  const bool active = row0 < n;  // a warp whose rows all lie past n only loads
-  const int tiles = (n + kKTile - 1) / kKTile;
-
-  auto start_copies = [&](int tile) {  // K and V tile `tile` into buffer tile & 1
-    const int buf = tile & 1, k0 = tile * kKTile;
-    load_tile_bf16<D>(ks + buf * kTileElems, k + base, k0, n, D);
-    load_tile_bf16<D>(vs + buf * kTileElems, v + base, k0, n, D);
-    cp_async_commit();
-  };
-  start_copies(0);
-
-  uint32_t qa[D / 16][4];  // this warp's Q rows; rows past n are 0
-  load_a_frags<D>(qa, q + base, row_lo, n, D);
-
-  const float sscale = kExp2 ? scale * kLog2e : scale;
-  // running max (in the form's domain) and this lane's share of the row sum
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  for (int tile = 0; tile < tiles; ++tile) {
-    if (tile + 1 < tiles) {
-      start_copies(tile + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = tile * kKTile;
-    if (active) {
-      const bf16* kt = ks + (tile & 1) * kTileElems;
-      const bf16* vt = vs + (tile & 1) * kTileElems;
-      const bool whole = k0 + kKTile <= n;  // uniform
-      float s[kKTile / 8][4];
-#pragma unroll
-      for (int j = 0; j < kKTile / 8; ++j) {
-        if (k0 + 8 * j >= n) {  // uniform: 8 keys past n, no product
-          s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
-          continue;
-        }
-        mma_abt8<D>(s[j], qa, kt + 8 * j * (D + kBPad));
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * j + 2 * t + (e & 1);
-          s[j][e] = whole || col < n ? s[j][e] * sscale : -INFINITY;
-        }
-      }
-      // the new row max (finite: key k0 < n is in the tile), the factor
-      // that rescales the old sum and accumulator, then p in place of s
-      float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float tile_max = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kKTile / 8; ++j)
-          tile_max = fmaxf(tile_max, fmaxf(s[j][2 * half], s[j][2 * half + 1]));
-        const float m_new = fmaxf(m[half], quad_max(tile_max));
-        corr[half] = softmax_exp<kExp2>(m[half] - m_new);  // 0 on the first tile
-        m[half] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < kKTile / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = softmax_exp<kExp2>(s[j][e] - m[e >> 1]);
-          sum[e >> 1] += s[j][e];
-        }
-#pragma unroll
-      for (int half = 0; half < 2; ++half) l[half] = l[half] * corr[half] + sum[half];
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        acc[dn][0] *= corr[0];
-        acc[dn][1] *= corr[0];
-        acc[dn][2] *= corr[1];
-        acc[dn][3] *= corr[1];
-      }
-      // acc += p . v, p rounded to bf16 as the A operand, 16 keys a step
-#pragma unroll
-      for (int kk = 0; kk < kKTile / 16; ++kk) {
-        if (k0 + 16 * kk >= n) continue;  // uniform: p = 0
-        uint32_t pa[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float* sj = s[2 * kk + (e >> 1)];
-          pa[e] = pack_bf16(sj[2 * (e & 1)], sj[2 * (e & 1) + 1]);
-        }
-        mma_ab16<D>(acc, pa, vt + 16 * kk * (D + kBPad));
-      }
-    }
-    __syncthreads();  // buffer tile & 1 is free for tile + 2
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) l[half] = fmaxf(quad_sum(l[half]), 1e-30f);
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    acc[dn][0] /= l[0];
-    acc[dn][1] /= l[0];
-    acc[dn][2] /= l[1];
-    acc[dn][3] /= l[1];
-  }
-  store_rows_bf16<D>(o + base, acc, row_lo, n, D);
-  if (active && t == 0) {
-    if (row_lo < n) lse[bh * n + row_lo] = natural_lse<kExp2>(m[0], l[0]);
-    if (row_hi < n) lse[bh * n + row_hi] = natural_lse<kExp2>(m[1], l[1]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
@@ -330,19 +165,12 @@ template <int D, bool kExp2>
 cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                        int batch, int n, int heads, int is_bf16, float scale,
                        cudaStream_t stream) {
-  float* ls = static_cast<float*>(lse);
   if (is_bf16) {
-    constexpr size_t smem = fwd_smem_bf16<D>();
-    auto kernel = blockwise_fwd_bf16_kernel<D, kExp2>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((n + kRows16 - 1) / kRows16, heads, batch);
-    kernel<<<grid, 32 * kWarps16, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), ls, n, scale);
-    return cudaGetLastError();
+    if (!(scale > 0.f)) return cudaErrorInvalidValue;  // folded into the exponent
+    return blockwise_sm90::launch<D, kExp2>(q, k, v, o, lse, batch, n, heads, scale,
+                                            stream);
   }
+  float* ls = static_cast<float*>(lse);
   constexpr size_t smem = fwd_smem_f32<D>();
   auto kernel = blockwise_fwd_f32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(

@@ -11,8 +11,9 @@ hop.
 
 On a CUDA tensor the wrappers launch the hand-written Hopper kernels:
 
-- ``blockwise_fwd`` (``csrc/flash_blockwise_fwd.cu``): one pass over the
-  key tiles with online rescaling; writes o and lse;
+- ``blockwise_fwd`` (``csrc/flash_blockwise_fwd.cu``; in bf16 the Hopper
+  body of ``csrc/flash_blockwise_fwd_sm90.cuh``, wgmma and TMA, scale > 0):
+  one pass over the key tiles with online rescaling; writes o and lse;
 - ``blockwise_fwd_exp2`` (same source, P1): the same forward in the log2
   domain, bf16 only; the model path does not launch it
   (``vit_ssl_tpu_torch/scripts/exp2_probe.py`` times it against
@@ -50,7 +51,8 @@ KERNEL_DQ = "blockwise_bwd_dq"  # dq and delta
 KERNEL_DKV = "blockwise_bwd_dkv"  # dk and dv, in KERNEL_DQ's library
 FWD_LIBRARY = "flash_blockwise_fwd"
 BWD_LIBRARY = "flash_blockwise_bwd"
-KERNEL_BLOCK_K = 64  # the kernels' key tile (csrc/attention_nhd_common.cuh::kKTile)
+# the bf16 forward's key tile (csrc/flash_blockwise_fwd_sm90.cuh::kKeys)
+KERNEL_BLOCK_K = 64
 HEAD_DIMS = (32, 64, 128)
 LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,8 +155,11 @@ def blockwise_attention_bwd_reference(q, k, v, o, lse, do, scale: float,
 # Kernel wrappers
 
 
-def _check(q, k, v) -> Tuple[int, int, int, int]:
-    """Validate what B2's kernels take; returns (B, H, N, D)."""
+def _check(q, k, v, scale: Optional[float] = None) -> Tuple[int, int, int, int]:
+    """Validate what B2's kernels take; returns (B, H, N, D). With
+    ``scale``, also what the forward takes: the bf16 body folds the scale
+    into its exponent (the max is taken of the unscaled scores), so it
+    takes scale > 0 only."""
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(
@@ -177,6 +182,9 @@ def _check(q, k, v) -> Tuple[int, int, int, int]:
         raise ValueError(f"sequence length {n} < 1")
     if not 1 <= b <= 65535 or not 1 <= h <= 65535:
         raise ValueError(f"batch {b} / heads {h} outside the grid limits 1..65535")
+    if scale is not None and q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"the bf16 forward takes scale > 0 (folded into its "
+                         f"exponent), got {scale}")
     return b, h, n, d
 
 
@@ -217,7 +225,7 @@ def _require_cuda(x, name: str) -> None:
 
 
 def _forward(entry: str, q, k, v, scale: float):
-    b, h, n, d = _check(q, k, v)
+    b, h, n, d = _check(q, k, v, scale)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
     _launch(entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -1,23 +1,35 @@
-"""Kernel B3's bf16 entries against those of another checkout, in turns.
+"""A kernel's bf16 entries against those of another checkout, in turns.
 
-Builds ``vit_ssl_tpu_torch/csrc/fused_attention.cu`` of another checkout
-(``--other``, for example a parent commit unpacked with ``git archive``)
-beside this checkout's library, both with ``kernels.NVCC_FLAGS``, and times
-the three C entries ``fused_attention_fwd``, ``fused_attention_fwd_stats``
-and ``fused_attention_bwd`` of both on the same inputs with CUDA events, in
-turns (other, this, this, other), beside SDPA on the same heads (forward;
-backward through autograd) and the bound. Both backwards are fed this
-checkout's statistics. Each library is held to the plain version: a
-forward at atol/rtol 1e-2, each gradient within 2e-2 of max|plain|.
+Builds one kernel library of another checkout (``--other``, for example a
+parent commit unpacked with ``git archive``) beside this checkout's, both
+with ``kernels.NVCC_FLAGS``, and times the library's C entries of both on
+the same inputs with CUDA events, in turns (other, this, this, other),
+beside SDPA on the same heads and the bound. Each library is held to the
+plain version, and the two libraries' outputs are compared bit for bit.
+Two modes (``--kernel``):
 
-Then the ViT-B/16 384-px training step of ``chip_smoke.py``, unfused and
-with ``model.use_fused_mlp=true``, with B3's entries routed to each library
-in the same turns: the warm step (host clock, median of 10 steps), device
-busy a step (``chip_smoke.profile_window`` over 3 steps, which must show
-that library's backward kernels by name) and peak memory. Card only; run
+- ``b3`` (the default): ``vit_ssl_tpu_torch/csrc/fused_attention.cu``,
+  entries ``fused_attention_fwd``, ``fused_attention_fwd_stats`` and
+  ``fused_attention_bwd`` at ViT-B/16's (64, 12, 577, 64) (SDPA's
+  backward through autograd; both backwards are fed this checkout's
+  statistics); a forward at atol/rtol 1e-2, each gradient within 2e-2 of
+  max|plain|. Then the ViT-B/16 384-px training step of ``chip_smoke.py``,
+  unfused and with ``model.use_fused_mlp=true``, with B3's entries routed
+  to each library in the same turns.
+- ``b2``: ``vit_ssl_tpu_torch/csrc/flash_blockwise_fwd.cu``, entries
+  ``blockwise_fwd`` (B2's forward) and ``blockwise_fwd_exp2`` (P1) at
+  ViT-B/16's (64, 12, 1025, 64) and at the exp2 probe's (8, 6, 2048, 64);
+  o at atol/rtol 1e-2 of the plain version at ``KERNEL_BLOCK_K``, lse
+  within 1e-5 of max|plain|. Then the ViT-B/16 512-px training step and a
+  served batch (``chip_smoke.py``'s, batch 64), with B2's forward routed
+  to each library in the same turns.
+
+Each step or batch turn gives the warm time (host clock, median of 10),
+device busy a step or batch (``chip_smoke.profile_window`` over 3, which
+must show that library's kernels by name) and peak memory. Card only; run
 from the root of a checkout (``chip_smoke.py`` is imported from there):
 
-    python -m vit_ssl_tpu_torch.scripts.b3_turns --other DIR
+    python -m vit_ssl_tpu_torch.scripts.b3_turns --other DIR [--kernel b2]
 
 Prints each time beside the card's name and power limit, then one JSON
 line.
@@ -40,28 +52,46 @@ import torch
 
 from vit_ssl_tpu_torch import kernels
 from vit_ssl_tpu_torch.ops import flash_attention as fa
+from vit_ssl_tpu_torch.ops import flash_blockwise as fb
 from vit_ssl_tpu_torch.scripts.exp2_probe import card_line, cuda_ms
 
 SHAPE = (64, 12, 577, 64)  # ViT-B/16 at 384 px
+B2_SHAPES = [(64, 12, 1025, 64), (8, 6, 2048, 64)]  # ViT-B/16 at 512 px; the exp2 probe's
 ENTRIES = (fa.FUSED_KERNEL, fa.FUSED_KERNEL_TRAIN, fa.FUSED_KERNEL_BWD)
-POINTERS = {fa.FUSED_KERNEL: 4, fa.FUSED_KERNEL_TRAIN: 5, fa.FUSED_KERNEL_BWD: 9}
+B2_ENTRIES = (fb.KERNEL, fb.KERNEL_EXP2)
+POINTERS = {fa.FUSED_KERNEL: 4, fa.FUSED_KERNEL_TRAIN: 5, fa.FUSED_KERNEL_BWD: 9,
+            fb.KERNEL: 5, fb.KERNEL_EXP2: 5}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_BF16_OPS_PER_S = 989e12
 GRAD_REL_TOL = 2e-2  # bf16: p and ds round on both sides
-# each library's bf16 backward kernels, as a profile names them: this
-# checkout's Hopper body, and the mma.sync body it replaced
-BWD_KERNELS = {"this": ("attention_bwd_dq_sm90_kernel", "attention_bwd_dkv_sm90_kernel"),
-               "other": ("attention_bwd_dq_bf16_kernel", "attention_bwd_dkv_bf16_kernel")}
+LSE_REL_TOL = 1e-5
+# the routed entries' bf16 kernels, the Hopper bodies and the mma.sync
+# bodies they replaced: a profile of a step on a library must show by name
+# those that library's binary holds
+BODIES = {"b3": ("attention_bwd_dq_sm90_kernel", "attention_bwd_dkv_sm90_kernel",
+                 "attention_bwd_dq_bf16_kernel", "attention_bwd_dkv_bf16_kernel"),
+          "b2": ("blockwise_fwd_sm90_kernel", "blockwise_fwd_bf16_kernel")}
 STEPS = 10  # timed steps a turn, as chip_smoke.TIMED_STEPS
 
 
-def build_other(root: Path, out_dir: Path) -> ctypes.CDLL:
-    """``root``'s B3 library, compiled into ``out_dir``."""
-    src = root / "vit_ssl_tpu_torch" / "csrc" / "fused_attention.cu"
-    lib = out_dir / "libfused_attention_other.so"
+def build_other(root: Path, out_dir: Path, library: str = fa.FUSED_LIBRARY) -> ctypes.CDLL:
+    """``root``'s kernel library ``library``, compiled into ``out_dir``."""
+    src = root / "vit_ssl_tpu_torch" / kernels.SOURCES[library]
+    lib = out_dir / f"lib{library}_other.so"
     subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)],
                    check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(lib))
+
+
+def bodies_in(libs: dict, kernel: str) -> dict:
+    """Per library, the names of ``BODIES[kernel]`` that its binary holds."""
+    found = {who: tuple(name for name in BODIES[kernel]
+                        if name.encode() in Path(lib._name).read_bytes())
+             for who, lib in libs.items()}
+    for who, names in found.items():
+        if not names:
+            raise RuntimeError(f"the {who} library holds none of {BODIES[kernel]}")
+    return found
 
 
 def entry_fn(lib: ctypes.CDLL, name: str):
@@ -74,7 +104,7 @@ def entry_fn(lib: ctypes.CDLL, name: str):
 
 def caller(fn, name, q, k, v, do, stats, scale):
     """A no-argument call of one library's entry, on fresh outputs; returns
-    the output (forwards) or (dq, dk, dv)."""
+    the output (B3's forwards), (o, lse) (B2's) or (dq, dk, dv)."""
     b, h, n, d = q.shape
     rows = -(-n // fa.STATS_ROWS) * fa.STATS_ROWS
 
@@ -83,6 +113,9 @@ def caller(fn, name, q, k, v, do, stats, scale):
             outs = [torch.empty_like(q) for _ in range(3)]
             delta = torch.zeros(b, h, rows, device=q.device)
             ptrs = [q, k, v, do, stats, *outs, delta]
+        elif name in B2_ENTRIES:
+            outs = [torch.empty_like(q), torch.empty(b, h, n, device=q.device)]
+            ptrs = [q, k, v, *outs]
         else:
             outs = [torch.empty_like(q)]
             ptrs = [q, k, v, *outs]
@@ -100,37 +133,63 @@ def bound_ms(b, h, n, d, name) -> float:
     """The least time for the entry's work: q, k, v (and do) read, its
     outputs and statistics written, over the memory rate, against its
     products (two forward, five backward) over the bf16 peak."""
-    act, stats = b * h * n * d * 2, b * h * n * 8
+    act = b * h * n * d * 2
     moved, products = {fa.FUSED_KERNEL: (4 * act, 2),
-                       fa.FUSED_KERNEL_TRAIN: (4 * act + stats, 2),
-                       fa.FUSED_KERNEL_BWD: (7 * act + stats, 5)}[name]
+                       fa.FUSED_KERNEL_TRAIN: (4 * act + b * h * n * 8, 2),
+                       fa.FUSED_KERNEL_BWD: (7 * act + b * h * n * 8, 5),
+                       fb.KERNEL: (4 * act + b * h * n * 4, 2),
+                       fb.KERNEL_EXP2: (4 * act + b * h * n * 4, 2)}[name]
     ops = products * 2 * b * h * n * n * d
     return max(moved / HBM_BYTES_PER_S, ops / PEAK_BF16_OPS_PER_S) * 1e3
 
 
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
 def errors(name, got, want):
-    """Each output's max |got - want| (forwards) or max |got - want| over
-    max |want| (gradients), and whether all are within their bar."""
-    if name != fa.FUSED_KERNEL_BWD:
-        o, ref = got[0].float(), want[0].float()
-        return [float((o - ref).abs().max())], bool(
-            ((o - ref).abs() <= 1e-2 + 1e-2 * ref.abs()).all())
-    errs = [float((g.float() - w.float()).abs().max() / w.float().abs().max())
-            for g, w in zip(got, want)]
-    return errs, max(errs) <= GRAD_REL_TOL
+    """Each output's max |got - want| (forwards; B2's lse over max |want|)
+    or max |got - want| over max |want| (gradients), and whether all are
+    within their bar."""
+    if name == fa.FUSED_KERNEL_BWD:
+        errs = [_rel(g, w) for g, w in zip(got, want)]
+        return errs, max(errs) <= GRAD_REL_TOL
+    o, ref = got[0].float(), want[0].float()
+    errs = [float((o - ref).abs().max())]
+    ok = bool(((o - ref).abs() <= 1e-2 + 1e-2 * ref.abs()).all())
+    if name in B2_ENTRIES:
+        errs.append(_rel(got[1], want[1]))
+        ok = ok and errs[1] <= LSE_REL_TOL
+    return errs, ok
 
 
 @contextlib.contextmanager
-def routed(lib: ctypes.CDLL):
-    """Within the block, ``flash_attention``'s launches of B3's three
-    entries call ``lib``'s."""
-    fns = {name: entry_fn(lib, name) for name in ENTRIES}
-    base = fa._kernel_fn
-    fa._kernel_fn = lambda entry: fns[entry] if entry in fns else base(entry)
+def routed(lib: ctypes.CDLL, module=fa, entries=ENTRIES):
+    """Within the block, ``module``'s launches of ``entries`` call
+    ``lib``'s."""
+    fns = {name: entry_fn(lib, name) for name in entries}
+    base = module._kernel_fn
+    module._kernel_fn = lambda entry: fns[entry] if entry in fns else base(entry)
     try:
         yield
     finally:
-        fa._kernel_fn = base
+        module._kernel_fn = base
+
+
+def _timed_steps(step):
+    """Warm-up, then (median host ms of STEPS calls of ``step`` ending in a
+    synchronize, their outputs, peak GB)."""
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host_ms, outs = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        outs.append(step())
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(host_ms)), outs, torch.cuda.max_memory_allocated() / 1e9
 
 
 def step_turns(card: str, libs: dict) -> dict:
@@ -140,65 +199,128 @@ def step_turns(card: str, libs: dict) -> dict:
     finite."""
     import chip_smoke  # the checkout's root, on sys.path under python -m
 
-    # as chip_smoke.py runs the step: no TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     rows = {}
     for leg, cfg in (("unfused", chip_smoke.VIT_B16_384),
                      ("fused", chip_smoke.VIT_B16_384_FUSED)):
-        state, train_step, _, batch = chip_smoke.build_supervised_training(torch, cfg)
-        turns = []
-        for who in ("other", "this", "this", "other"):
-            with routed(libs[who]):
-                for _ in range(2):  # warm-up steps
-                    train_step(state, batch)
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                host_ms, losses = [], []
-                for _ in range(STEPS):
-                    t0 = time.perf_counter()
-                    out = train_step(state, batch)
-                    torch.cuda.synchronize()
-                    host_ms.append((time.perf_counter() - t0) * 1e3)
-                    losses.append(float(out["loss"]))
-                peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-                def three_steps():
-                    for _ in range(3):
-                        train_step(state, batch)
-
-                _, busy_ms = chip_smoke.profile_window(
-                    torch, three_steps, f"3 ViT-B/16 384-px {leg} steps, {who} library",
-                    rows=4, want=BWD_KERNELS[who])
-            turns.append({"library": who, "warm_step_ms": float(np.median(host_ms)),
-                          "device_busy_ms": busy_ms / 3, "peak_gb": peak_gb,
-                          "finite": bool(np.isfinite(losses).all())})
-            print(f"{card}: ViT-B/16 384 px {leg} training, {who} library: warm step "
-                  f"{turns[-1]['warm_step_ms']:.3f} ms median of {STEPS}, device busy "
-                  f"{busy_ms / 3:.2f} ms a step, peak {peak_gb:.2f} GB; losses "
-                  f"{'finite' if turns[-1]['finite'] else 'NOT FINITE'}", flush=True)
-        rows[leg] = turns
-        del state, train_step, batch
-        torch.cuda.empty_cache()
+        rows[leg] = _training_turns(card, libs, cfg, f"ViT-B/16 384 px {leg}",
+                                    fa, ENTRIES, bodies_in(libs, "b3"))
     return rows
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--other", type=Path, required=True,
-                        help="root of the other checkout")
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("b3_turns: no CUDA device; this script runs on the card", file=sys.stderr)
-        return 1
-    card = card_line()
+def _training_turns(card, libs, cfg, label, module, entries, want):
+    """``cfg``'s training step with ``entries`` of ``module`` routed to each
+    library in turns."""
+    import chip_smoke
+
+    state, train_step, _, batch = chip_smoke.build_supervised_training(torch, cfg)
+    turns = []
+    for who in ("other", "this", "this", "other"):
+        with routed(libs[who], module, entries):
+            warm_ms, outs, peak_gb = _timed_steps(lambda: train_step(state, batch))
+            losses = [float(out["loss"]) for out in outs]
+
+            def three_steps():
+                for _ in range(3):
+                    train_step(state, batch)
+
+            _, busy_ms = chip_smoke.profile_window(
+                torch, three_steps, f"3 {label} training steps, {who} library",
+                rows=4, want=want[who])
+        turns.append({"library": who, "warm_step_ms": warm_ms,
+                      "device_busy_ms": busy_ms / 3, "peak_gb": peak_gb,
+                      "finite": bool(np.isfinite(losses).all())})
+        print(f"{card}: {label} training, {who} library: warm step {warm_ms:.3f} ms "
+              f"median of {STEPS}, device busy {busy_ms / 3:.2f} ms a step, peak "
+              f"{peak_gb:.2f} GB; losses "
+              f"{'finite' if turns[-1]['finite'] else 'NOT FINITE'}", flush=True)
+    del state, train_step, batch
+    torch.cuda.empty_cache()
+    return turns
+
+
+def b2_step_turns(card: str, libs: dict) -> dict:
+    """The ViT-B/16 512-px training step and a served batch of 64 with B2's
+    forward on each library in turns (other, this, this, other): warm ms,
+    device busy ms and peak GB; whether every loss and logit was finite."""
+    import chip_smoke
+    from vit_ssl_tpu_torch.serve import Server
+
+    cfg = chip_smoke.VIT_B16_512
+    rows = {"training": _training_turns(card, libs, cfg, "ViT-B/16 512 px", fb,
+                                        B2_ENTRIES, bodies_in(libs, "b2"))}
+    batch, img = cfg["training"]["batch_size"], cfg["data"]["img_size"]
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = f"{tmp}/vit_b16_{img}.pth"
+        model = chip_smoke.build_vit_model(torch, 5, cfg)
+        torch.save({"model_state_dict": model.state_dict(), "config": cfg, "epoch": 0}, pth)
+        del model
+        server = Server(pth, batch_size=batch, device="cuda")
+    x = np.random.default_rng(5).random((batch, img, img, 3), np.float32)
+    turns = []
+    for who in ("other", "this", "this", "other"):
+        with routed(libs[who], fb, B2_ENTRIES):
+            warm_ms, outs, peak_gb = _timed_steps(lambda: server.forward_batch(x))
+
+            def three_batches():
+                for _ in range(3):
+                    server.forward_batch(x)
+
+            _, busy_ms = chip_smoke.profile_window(
+                torch, three_batches, f"3 ViT-B/16 512-px served batches, {who} library",
+                rows=4, want=bodies_in(libs, "b2")[who])
+        turns.append({"library": who, "warm_batch_ms": warm_ms,
+                      "device_busy_ms": busy_ms / 3, "peak_gb": peak_gb,
+                      "finite": bool(all(np.isfinite(out).all() for out in outs))})
+        print(f"{card}: ViT-B/16 512 px served batch of {batch}, {who} library: warm "
+              f"batch {warm_ms:.3f} ms median of {STEPS}, device busy {busy_ms / 3:.2f} "
+              f"ms a batch, peak {peak_gb:.2f} GB; logits "
+              f"{'finite' if turns[-1]['finite'] else 'NOT FINITE'}", flush=True)
+    rows["serving"] = turns
+    return rows
+
+
+def entry_turns(card, shape, entries, libs, plain, library):
+    """Each entry of both libraries at ``shape``: held to ``plain``, timed
+    in turns beside SDPA (``library``) and the bound."""
+    b, h, n, d = shape
+    rows = {}
+    for name in entries:
+        other = caller(entry_fn(libs["other"], name), name, *plain["inputs"])
+        this = caller(entry_fn(libs["this"], name), name, *plain["inputs"])
+        got_other, got_this = other(), this()
+        torch.cuda.synchronize()
+        errs_other, ok_other = errors(name, got_other, plain[name])
+        errs_this, ok_this = errors(name, got_this, plain[name])
+        same = all(torch.equal(a, c) for a, c in zip(got_other, got_this))
+        turns = [cuda_ms(fn) for fn in (other, this, this, other)]
+        sdpa = cuda_ms(library[name])
+        rows[name] = {"other_ms": [turns[0], turns[3]], "this_ms": [turns[1], turns[2]],
+                      "sdpa_ms": sdpa, "bound_ms": bound_ms(b, h, n, d, name),
+                      "ratio": min(turns[1:3]) / min(turns[0], turns[3]),
+                      "agree": ok_other and ok_this, "bit_equal": same,
+                      "other_vs_plain": errs_other, "this_vs_plain": errs_this}
+        kind = {fa.FUSED_KERNEL_BWD: "dq/dk/dv rel_err", fb.KERNEL: "o max_abs/lse rel_err",
+                fb.KERNEL_EXP2: "o max_abs/lse rel_err"}.get(name, "max_abs")
+        print(f"{card}: {name} at {shape} bf16: other {turns[0]:.4f} / {turns[3]:.4f} "
+              f"ms, this {turns[1]:.4f} / {turns[2]:.4f} ms "
+              f"({rows[name]['ratio']:.3f}x), SDPA {sdpa:.4f} ms, bound "
+              f"{rows[name]['bound_ms']:.4f} ms; {kind} vs plain: other "
+              + "/".join(f"{e:.3e}" for e in errs_other) + ", this "
+              + "/".join(f"{e:.3e}" for e in errs_this)
+              + f"; outputs {'bit-equal' if same else 'differ'} between the libraries; "
+              + ("ok" if rows[name]["agree"] else "MISS"), flush=True)
+    return rows
+
+
+def b3_main(card, other_lib, this_lib):
     b, h, n, d = SHAPE
     scale = 1.0 / d ** 0.5
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, do = (torch.randn(b, h, n, d, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(4))
     _, stats = fa.fused_attention_fwd_stats(q, k, v, scale)
-    plain = {fa.FUSED_KERNEL: [fa.fused_attention_reference(q, k, v, scale)],
+    plain = {"inputs": (q, k, v, do, stats, scale),
+             fa.FUSED_KERNEL: [fa.fused_attention_reference(q, k, v, scale)],
              fa.FUSED_KERNEL_BWD: fa.fused_attention_bwd_reference(q, k, v, do, scale)}
     plain[fa.FUSED_KERNEL_TRAIN] = plain[fa.FUSED_KERNEL]
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
@@ -210,37 +332,66 @@ def main(argv=None) -> int:
                                                          retain_graph=True),
     }
     library[fa.FUSED_KERNEL_TRAIN] = library[fa.FUSED_KERNEL]
-    this_lib = kernels.load(fa.FUSED_LIBRARY)
-    rows = {}
+    libs = {"other": other_lib, "this": this_lib}
+    rows = entry_turns(card, SHAPE, ENTRIES, libs, plain, library)
+    return {"shape": SHAPE, "entries": rows, "steps": step_turns(card, libs)}
+
+
+def b2_main(card, other_lib, this_lib):
+    libs = {"other": other_lib, "this": this_lib}
+    shapes = {}
+    for shape in B2_SHAPES:
+        b, h, n, d = shape
+        scale = 1.0 / d ** 0.5
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v = (torch.randn(b, h, n, d, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        plain = {"inputs": (q, k, v, None, None, scale),
+                 fb.KERNEL: fb.blockwise_attention_reference(q, k, v, scale,
+                                                             fb.KERNEL_BLOCK_K),
+                 fb.KERNEL_EXP2: fb.blockwise_attention_exp2_reference(q, k, v, scale,
+                                                                       fb.KERNEL_BLOCK_K)}
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, scale=scale)
+        rows = entry_turns(card, shape, B2_ENTRIES, libs, plain,
+                           {fb.KERNEL: sdpa, fb.KERNEL_EXP2: sdpa})
+        ratios = {who: min(rows[fb.KERNEL_EXP2][f"{who}_ms"]) / min(rows[fb.KERNEL][f"{who}_ms"])
+                  for who in ("other", "this")}
+        print(f"{card}: exp2/exp at {shape}: other {ratios['other']:.3f}, this "
+              f"{ratios['this']:.3f}", flush=True)
+        shapes[str(shape)] = {"entries": rows, "exp2_over_exp": ratios}
+        del q, k, v, plain
+    return {"shapes": shapes, "steps": b2_step_turns(card, libs)}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--other", type=Path, required=True,
+                        help="root of the other checkout")
+    parser.add_argument("--kernel", choices=("b3", "b2"), default="b3",
+                        help="b3: fused_attention's three entries and the 384-px step; "
+                             "b2: blockwise_fwd and blockwise_fwd_exp2, the 512-px step "
+                             "and served batch")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("b3_turns: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 1
+    # as chip_smoke.py runs the plain versions and the steps: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    library = fa.FUSED_LIBRARY if args.kernel == "b3" else fb.FWD_LIBRARY
+    this_lib = kernels.load(library)
     with tempfile.TemporaryDirectory() as tmp:
-        other_lib = build_other(args.other.resolve(), Path(tmp))
-        for name in ENTRIES:
-            other = caller(entry_fn(other_lib, name), name, q, k, v, do, stats, scale)
-            this = caller(entry_fn(this_lib, name), name, q, k, v, do, stats, scale)
-            got_other, got_this = other(), this()
-            torch.cuda.synchronize()
-            errs_other, ok_other = errors(name, got_other, plain[name])
-            errs_this, ok_this = errors(name, got_this, plain[name])
-            turns = [cuda_ms(fn) for fn in (other, this, this, other)]
-            sdpa = cuda_ms(library[name])
-            rows[name] = {"other_ms": [turns[0], turns[3]], "this_ms": [turns[1], turns[2]],
-                          "sdpa_ms": sdpa, "bound_ms": bound_ms(b, h, n, d, name),
-                          "ratio": min(turns[1:3]) / min(turns[0], turns[3]),
-                          "agree": ok_other and ok_this, "other_vs_plain": errs_other,
-                          "this_vs_plain": errs_this}
-            kind = "max_abs" if name != fa.FUSED_KERNEL_BWD else "dq/dk/dv rel_err"
-            print(f"{card}: {name} at {SHAPE} bf16: other {turns[0]:.4f} / {turns[3]:.4f} "
-                  f"ms, this {turns[1]:.4f} / {turns[2]:.4f} ms "
-                  f"({rows[name]['ratio']:.3f}x), SDPA {sdpa:.4f} ms, bound "
-                  f"{rows[name]['bound_ms']:.4f} ms; {kind} vs plain: other "
-                  + "/".join(f"{e:.3e}" for e in errs_other) + ", this "
-                  + "/".join(f"{e:.3e}" for e in errs_this)
-                  + f"; {'ok' if rows[name]['agree'] else 'MISS'}", flush=True)
-        steps = step_turns(card, {"other": other_lib, "this": this_lib})
-    print(json.dumps({"card": card, "shape": SHAPE, "entries": rows, "steps": steps}),
-          flush=True)
-    return 0 if (all(r["agree"] for r in rows.values())
-                 and all(t["finite"] for leg in steps.values() for t in leg)) else 1
+        other_lib = build_other(args.other.resolve(), Path(tmp), library)
+        run = b3_main if args.kernel == "b3" else b2_main
+        result = {"card": card, "kernel": args.kernel, **run(card, other_lib, this_lib)}
+    print(json.dumps(result), flush=True)
+    entries = ([result["entries"]] if args.kernel == "b3"
+               else [s["entries"] for s in result["shapes"].values()])
+    legs = [leg for leg in result["steps"].values()]
+    return 0 if (all(r["agree"] for rows in entries for r in rows.values())
+                 and all(t["finite"] for leg in legs for t in leg)) else 1
 
 
 if __name__ == "__main__":
