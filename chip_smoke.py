@@ -9,10 +9,15 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device   — needs a CUDA device; prints the card's name and power limit
 2. build    — compiles every kernel library from ``csrc/``, one nvcc each,
-              all at once; prints registers and spills
+              all at once; prints registers and spills, and fails on a
+              spill or a serialised wgmma (ptxas C7514, C7515, C7520) in
+              any Hopper (``*_sm90_kernel``) body
 3. kernels  — kernel B1 against its plain PyTorch versions on the card:
               the inference forward, the training forward (output and
-              softmax statistics) and the backward (dq, dk, dv); kernel B4
+              softmax statistics) and the backward (dq, dk, dv), the bf16
+              forward in its one-pass (N <= 256) and two-pass forms; each
+              head kept to its columns and each image to its rows, two
+              calls bit-equal; kernel B4
               (fused MLP): its three forwards (no mask; keep-mask; keep-mask
               and saved pre) and its backward (with and without the mask)
               at every token count of the main paths, and at d_model 768 /
@@ -25,7 +30,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``forward_batch`` entry point: launch counts, agreement with
               the plain attention path, padding rows inert
 5. serving times — warm batch, kernel, plain and library times (CUDA
-              events), and a ``torch.profiler`` breakdown of five batches
+              events) of B1's inference forward at (128, 145), beside the
+              mma.sync body's recorded time, and a ``torch.profiler``
+              breakdown of five batches, which must show B1's Hopper body
 6. fused serving — the same weights with ``model.use_fused_mlp=true``:
               B4 and B1 launch counts, agreement with the unfused server,
               warm batch
@@ -34,9 +41,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               on the card from uint8 images: launch counts per step,
               finite losses, moving state, agreement with the plain
               attention path from one cloned state
-8. training times — warm step, kernel/plain/library times at the two
-              training shapes, and a ``torch.profiler`` breakdown of three
-              steps
+8. training times — warm step, kernel/plain/library times of B1 at the
+              two training shapes (forward and backward) and the teacher's
+              inference forward at (256, 145), and a ``torch.profiler``
+              breakdown of three steps, which must show B1's Hopper body
 9. fused training — the same step with ``model.use_fused_mlp=true``:
               B4 and B1 launch counts per step, agreement with the unfused
               step from one cloned state, warm step, a profile of three
@@ -44,8 +52,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 10. B3 kernels — kernel B3 (head-major fused attention) against its plain
               versions: inference forward, training forward and backward at
               ViT-B/16's (64, 12, 577, 64), at N = 1, N = 1024 and ragged N,
-              bf16 and fp32; B1 on the same data; each head kept to its own
-              rows (a neighbouring head of inf); two calls bit-equal
+              bf16 and fp32; B1 on the same data (the same forward bodies:
+              bit-equal); each head kept to its own rows (a neighbouring
+              head of inf); two calls bit-equal
 11. supervised serving — the supervised ViT-B/16 at 384 px (N = 577) from
               a written ``.pth``, batch 64, through ``Server.forward_batch``:
               12 B3 inference launches a batch and nothing else, agreement
@@ -268,6 +277,15 @@ TRAIN_CASES = [
 # fp32: sums in another order
 GRAD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 STATS_REL_TOL = 1e-5
+# B1's bf16 forward at the main paths' shapes, (entry, batch, seq,
+# block_size) -> ms, on the mma.sync body that attention_fwd_sm90.cuh
+# replaced, as this script measured it through the wrapper on an NVIDIA
+# H100 80GB HBM3 at 700 W; the teacher's (256, 145) inference forward, which
+# this script did not time then, as vit_ssl_tpu_torch/scripts/b3_turns.py
+# --kernel b1 measured that body's C entry alone beside the new one. Printed
+# beside this run's times, never in the kernels line
+B1_MMA_SYNC_MS = {("fwd", 128, 145, 0): 0.0828, ("fwd", 256, 145, 0): 0.1568,
+                  ("fwd_stats", 256, 145, 0): 0.1589, ("fwd_stats", 128, 148, 37): 0.0767}
 
 # Kernel B3 (head-major, no mask), (batch, heads, seq, head_dim, dtype):
 # ViT-B/16 at 384 px first (bf16, fp32), then N = 1, N = 1024 and ragged N
@@ -346,7 +364,10 @@ MLP_GRADS = ("dx", "dw1", "db1", "dw2", "db2")  # fused_mlp_bwd's outputs
 
 
 def fail(msg: str) -> None:
+    """Print ``msg`` on both streams (a caller that keeps only the end of
+    standard error still reads why) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
 
 
@@ -383,6 +404,24 @@ def ptxas_lines(log: str, nvcc: str):
             yield f"{kernel}: {note.strip()}"
 
 
+# ptxas' notes that it serialised a kernel's wgmma instructions (a product
+# under a branch; accumulator registers touched while a group is in flight)
+SERIALISED_WGMMA = ("C7514", "C7515", "C7520")
+
+
+def hopper_faults(lines):
+    """The ``ptxas_lines`` of Hopper bodies (``*_sm90_kernel``) that show a
+    spill or serialised wgmma instructions."""
+    faults = []
+    for line in lines:
+        if "_sm90_kernel" not in line.split(": ")[0]:
+            continue
+        spills = re.findall(r"(\d+) bytes spill", line)
+        if any(int(x) for x in spills) or any(c in line for c in SERIALISED_WGMMA):
+            faults.append(line)
+    return faults
+
+
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean device milliseconds per call, from CUDA events around ``iters``
     back-to-back calls after ``warmup`` calls."""
@@ -399,6 +438,89 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds a call of ``fn``: ``calls`` back-to-back calls with
+    no synchronisation inside (the launch queue holds them all)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def b1_bare(torch, fa, entry, xq, xk, xv, h, scale, bs, fn=None):
+    """A no-argument launch of B1's C entry ``entry`` (``fn``: that entry of
+    another library; default this checkout's) on outputs allocated once (the
+    statistics zeroed once), returning them: the kernel's device time without
+    the wrapper's checks and allocations, which at DINO's shapes take about
+    as long on the host as the kernel takes on the card."""
+    b, n, hd = xq.shape
+    bufs = [torch.empty_like(xq)]
+    if entry == fa.KERNEL_TRAIN:
+        bufs.append(torch.zeros(b, h, -(-n // fa.STATS_ROWS) * fa.STATS_ROWS, 2,
+                                device=xq.device))
+    ptrs = [x.data_ptr() for x in (xq, xk, xv, *bufs)]
+    fn = fn or fa._kernel_fn(entry)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        if fn(*ptrs, b, n, h, hd // h, 1, scale, bs, stream):
+            fail(f"{entry} launch failed")
+        return bufs
+    return call
+
+
+def b1_forward_row(torch, fa, entry, label, xq, xk, xv, h, scale, bs, bound):
+    """B1's bf16 forward ``entry`` at one shape: ``ms`` through the wrapper,
+    back to back (twice, around the plain version's and SDPA's on views of
+    the same storage, a boolean block-diagonal mask when bs > 0), the
+    wrapper's host microseconds a call, and ``bare_ms``, the C entry alone
+    (b1_bare: the kernel without the wrapper's host work). Prints them
+    beside ``bound`` (ms, by) and the mma.sync body's recorded time, and
+    returns the row of the kernels line."""
+    import torch.nn.functional as F
+
+    b, n, hd = xq.shape
+    d = hd // h
+    wrapper = {fa.KERNEL: fa.attention_nhd_fwd, fa.KERNEL_TRAIN: fa.attention_nhd_fwd_stats}[entry]
+    plain = {fa.KERNEL: lambda: fa.attention_nhd_reference(xq, xk, xv, h, scale, bs),
+             fa.KERNEL_TRAIN: lambda: (
+                 fa.attention_nhd_reference(xq, xk, xv, h, scale, bs),
+                 fa.attention_nhd_stats_reference(xq, xk, h, scale, bs))}[entry]
+    heads = [x.view(b, n, h, d).transpose(1, 2) for x in (xq, xk, xv)]
+    mask = None
+    if bs:
+        block = torch.arange(n, device="cuda") // bs
+        mask = block[:, None] == block[None, :]
+    first = cuda_ms(lambda: wrapper(xq, xk, xv, h, scale, bs))
+    row = {
+        "plain_ms": cuda_ms(plain, iters=10),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            *heads, attn_mask=mask, scale=scale)),
+        "bare_ms": cuda_ms(b1_bare(torch, fa, entry, xq, xk, xv, h, scale, bs)),
+        "wrapper_host_us": host_us(lambda: wrapper(xq, xk, xv, h, scale, bs)),
+    }
+    second = cuda_ms(lambda: wrapper(xq, xk, xv, h, scale, bs))
+    form = fa.attention_nhd_form(n)
+    key = ("fwd" if entry == fa.KERNEL else "fwd_stats", b, n, bs)
+    dtype = str(xq.dtype).removeprefix("torch.")
+    print(f"  {entry} ({b},{n},{h}x{d}) {dtype} block_size={bs}{label} ({form}): "
+          f"kernel {first:.4f} / {second:.4f} ms through the wrapper back to back, "
+          f"{row['wrapper_host_us']:.1f} us a call on the host; the C entry alone "
+          f"{row['bare_ms']:.4f} ms; the mma.sync body it replaced "
+          f"{B1_MMA_SYNC_MS[key]} ms (recorded), plain {row['plain_ms']:.4f} ms, "
+          f"SDPA{' (boolean attn_mask)' if bs else ''} {row['library_ms']:.4f} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return {"ms": min(first, second), "ms_readings": [first, second], **row,
+            "bound_ms": bound[0], "bound_by": bound[1], "form": form,
+            "shape": [b, n, h, d, bs]}
 
 
 def _bound(bytes_moved, ops, dtype):
@@ -516,7 +638,8 @@ def phase_kernels(torch, fa):
         torch.cuda.synchronize()
         ref = fa.attention_nhd_reference(xq, xk, xv, h, scale, bs)
         ok, tol = forward_ok(torch, out, ref, dtype_name)
-        print(f"  ({b},{n},{h}x{d}) {dtype_name} block_size={bs}: "
+        body = fa.attention_nhd_form(n) if dtype_name == "bfloat16" else "CUDA cores"
+        print(f"  ({b},{n},{h}x{d}) {dtype_name} block_size={bs} ({body}): "
               f"max_abs_err {max_abs(out, ref):.3e} ({tol}) {'ok' if ok else 'MISS'}",
               flush=True)
         if not ok:
@@ -556,7 +679,53 @@ def phase_kernels(torch, fa):
         if not ok:
             fail(f"training kernels disagree at ({b},{n},{h}x{d}) {dtype_name}")
         errors[(b, n, h, d, dtype_name, bs)] = (out_err, grad_abs)
+    b1_isolation(torch, fa)
     return errors
+
+
+def b1_isolation(torch, fa):
+    """B1's bf16 forward keeps to its head and its image: with head 1's
+    columns of q, k and v all inf and image 1 all NaN, heads 0 and 2 of
+    images 0 and 2 equal the plain version of each head alone (forward_ok)
+    in both entries, their statistics finite, at N = 145 (one pass) and
+    577 (two passes). Then two calls of each entry bit-equal at the
+    serving and training shapes."""
+    for n in (145, 577):
+        xq, xk, xv = qkv(3, n, 3, 64, torch.bfloat16, seed=90 + n)
+        for x in (xq, xk, xv):
+            x.view(3, n, 3, 64)[:, :, 1] = float("inf")
+            x[1] = float("nan")
+        out = fa.attention_nhd_fwd(xq, xk, xv, 3, 0.125)
+        out_t, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, 3, 0.125)
+        torch.cuda.synchronize()
+        ok, errs = True, []
+        for img in (0, 2):
+            for head in (0, 2):
+                alone = [x.view(3, n, 3, 64)[img:img + 1, :, head].contiguous()
+                         for x in (xq, xk, xv)]
+                ref = fa.attention_nhd_reference(*alone, 1, 0.125)
+                for got in (out, out_t):
+                    got = got.view(3, n, 3, 64)[img:img + 1, :, head]
+                    ok = ok and forward_ok(torch, got, ref, "bfloat16")[0]
+                    errs.append(max_abs(got, ref))
+                ok = ok and bool(torch.isfinite(stats[img, head, :n]).all())
+        print(f"  isolation (3,{n},3x64) bfloat16 ({fa.attention_nhd_form(n)}), head 1 "
+              f"all inf, image 1 all NaN: heads 0 and 2 of images 0 and 2 max_abs_err "
+              f"{max(errs):.3e} against each head alone {'ok' if ok else 'MISS'}",
+              flush=True)
+        if not ok:
+            fail(f"B1's forward reads past its head or image at N = {n}")
+    for b, n, h, d, _, bs in (ATTENTION_CASES[0], TRAIN_CASES[0], TRAIN_CASES[2]):
+        xq, xk, xv = qkv(b, n, h, d, torch.bfloat16, seed=95)
+        first, second = (fa.attention_nhd_fwd_stats(xq, xk, xv, h, 0.125, bs)
+                         for _ in range(2))
+        repeat = (all(torch.equal(a, c) for a, c in zip(first, second))
+                  and torch.equal(fa.attention_nhd_fwd(xq, xk, xv, h, 0.125, bs),
+                                  fa.attention_nhd_fwd(xq, xk, xv, h, 0.125, bs)))
+        print(f"  two calls of each forward at ({b},{n},{h}x{d}) block_size={bs} "
+              f"{'bit-equal' if repeat else 'DIFFER'}", flush=True)
+        if not repeat:
+            fail(f"B1's forward does not repeat bit for bit at ({b},{n},{h}x{d})")
 
 
 def heads_qkv(b, h, n, d, dtype, seed, count=3):
@@ -574,10 +743,10 @@ def phase_fused_kernels(torch, fa):
     training forward (output bit-equal to the inference kernel's,
     statistics within STATS_REL_TOL, padding rows zero) and the backward
     fed those statistics (each gradient within GRAD_REL_TOL of max|plain|).
-    At ViT-B/16's shape also B1 on the same data in B1's layout: fp32 is one
-    kernel body for both layouts (bit-equal expected); bf16 is B3's own
-    Hopper forward (output within the forward tolerance of B1's, statistics
-    within STATS_REL_TOL). Then each head kept to its own rows (head 1
+    At ViT-B/16's shape also B1 on the same data in B1's layout: one
+    forward body for both layouts in each dtype (fp32: CUDA cores; bf16:
+    the Hopper body's two-pass form), so output and statistics bit-equal.
+    Then each head kept to its own rows (head 1
     filled with inf at N = 577 and 70; heads 0 and 2 against the plain
     version of each head alone), forward and backward (each gradient within
     GRAD_REL_TOL), and two calls bit-equal, forward and backward (bf16 at
@@ -621,16 +790,11 @@ def phase_fused_kernels(torch, fa):
                 return x.transpose(1, 2).reshape(b, n, h * d)
             b1, b1_stats = fa.attention_nhd_fwd_stats(nhd(q), nhd(k), nhd(v), h, scale)
             b1_stats_err = rel_err(stats, b1_stats)
-            if dtype_name == "float32":
-                b1_ok = torch.equal(b1, nhd(out)) and torch.equal(b1_stats, stats)
-                want_b1 = "bit-equal expected"
-            else:
-                b1_ok = forward_ok(torch, nhd(out), b1, dtype_name)[0] and \
-                    b1_stats_err <= STATS_REL_TOL
-                want_b1 = f"{fwd_tol}, stats <= {STATS_REL_TOL:g}"
+            b1_ok = torch.equal(b1, nhd(out)) and torch.equal(b1_stats, stats)
             ok = ok and b1_ok
             line += (f"; B1 on the same data: max_abs_diff {max_abs(b1, nhd(out)):.3e}, "
-                     f"stats rel_diff {b1_stats_err:.3e} ({want_b1})")
+                     f"stats rel_diff {b1_stats_err:.3e} (the same body: bit-equal "
+                     f"expected)")
         print(line + f" {'ok' if ok else 'MISS'}", flush=True)
         if not ok:
             fail(f"B3 kernels disagree at ({b},{h},{n},{d}) {dtype_name}")
@@ -1140,27 +1304,49 @@ def phase_serving_fused(torch, fa, fm, tmp, x, unfused_out, card):
     return main_launches
 
 
+# profiler sessions a window may take (see profile_window)
+PROFILE_SESSIONS = 5
+
+
 def profile_window(torch, fn, label, rows=14, want=()):
     """Device busy and idle share of ``fn`` under ``torch.profiler``, and
-    the top device operations; fails if no device operation's name
-    contains ``want`` (a name or a tuple of names, each of which must
-    appear). ``fn`` runs twice: a warm-up cycle of the profiler, not
-    recorded (a fresh session can lose a short window's device events),
-    then the recorded one. Returns (idle share, device busy ms)."""
+    the top device operations. ``fn`` runs twice a session: a warm-up cycle
+    of the profiler, not recorded, then the recorded one. A session can lose
+    all or some of its device events (on an NVIDIA H100 80GB HBM3 with
+    torch 2.11 one now and then recorded none, whatever the window's
+    length), so sessions repeat, up to PROFILE_SESSIONS, until one records
+    some device operation and every name in ``want`` (a name or a tuple of
+    names); that session is the one reported. Fails if none does. Returns
+    (idle share, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        fn()
+    wants = (want,) if isinstance(want, str) else tuple(want)
+    for session in range(1, PROFILE_SESSIONS + 1):
         torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        prof.step()
-    events = prof.key_averages()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+        events = prof.key_averages()
+        device_names = [e.key for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not e.key.startswith("ProfilerStep")]
+        missing = [name for name in wants
+                   if not any(name in key for key in device_names)]
+        if device_names and not missing:
+            break
+        print(f"  profile of {label}: session {session} recorded "
+              f"{len(device_names)} device operations"
+              + (f", none named {missing}" if missing else ""), flush=True)
+    else:
+        fail(f"{PROFILE_SESSIONS} profiles of {label} recorded no device operation"
+             + (f" named {missing}" if wants else ""))
     # device-side entries only (kernels, copies); CPU ops repeat their time,
     # and so does the schedule's ProfilerStep range on the device
     device_us = sum(e.self_device_time_total for e in events
@@ -1168,20 +1354,14 @@ def profile_window(torch, fn, label, rows=14, want=()):
                     and not e.key.startswith("ProfilerStep"))
     idle = 1 - device_us / 1e3 / wall_ms
     print(f"  profile of {label}: wall {wall_ms:.3f} ms, device busy "
-          f"{device_us / 1e3:.3f} ms, device idle share {idle:.3f}", flush=True)
+          f"{device_us / 1e3:.3f} ms, device idle share {idle:.3f}"
+          + (f" (session {session})" if session > 1 else ""), flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=rows,
                        max_name_column_width=70), flush=True)
-    device_names = [e.key for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-    for name in (want,) if isinstance(want, str) else want:
-        if not any(name in key for key in device_names):
-            fail(f"no device operation named {name} in the profile of {label}")
     return idle, device_us / 1e3
 
 
 def phase_serving_times(torch, fa, server, x, card):
-    import torch.nn.functional as F
-
     print(f"== serving times on {card}", flush=True)
     warm_ms = warm_batch_ms(server, x)
     print(f"  serving: warm batch {warm_ms:.3f} ms median of 10 "
@@ -1192,20 +1372,8 @@ def phase_serving_times(torch, fa, server, x, card):
     b, n, h, d, dtype_name, bs = ATTENTION_CASES[0]
     xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=100)
     scale = 1.0 / d ** 0.5
-    kernel_ms = cuda_ms(lambda: fa.attention_nhd_fwd(xq, xk, xv, h, scale, bs))
-    plain_ms = cuda_ms(lambda: fa.attention_nhd_reference(xq, xk, xv, h, scale, bs))
-
-    def heads(t):  # views only: SDPA reads the (B, N, H·D) storage strided
-        return t.view(b, n, h, d).transpose(1, 2)
-
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        heads(xq), heads(xk), heads(xv), scale=scale))
-    kernel_ms2 = cuda_ms(lambda: fa.attention_nhd_fwd(xq, xk, xv, h, scale, bs))
-    bound_ms, bound_by = attention_bound(b, n, h, d, dtype_name, bs)
-    print(f"  attention_nhd_fwd ({b},{n},{h}x{d}) {dtype_name}: kernel "
-          f"{kernel_ms:.4f} / {kernel_ms2:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
+    row = b1_forward_row(torch, fa, fa.KERNEL, "", xq, xk, xv, h, scale, bs,
+                         attention_bound(b, n, h, d, dtype_name, bs))
     f32 = [t.float() for t in (xq, xk, xv)]
     f32_ms = cuda_ms(lambda: fa.attention_nhd_fwd(*f32, h, scale, bs))
     f32_bound_ms, f32_bound_by = attention_bound(b, n, h, d, "float32", bs)
@@ -1217,10 +1385,9 @@ def phase_serving_times(torch, fa, server, x, card):
         for _ in range(5):
             server.forward_batch(x)
 
-    profile_window(torch, five_batches, "5 serving batches")
-    return {"ms": min(kernel_ms, kernel_ms2), "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    profile_window(torch, five_batches, "5 serving batches",
+                   want=fa.FORWARD_BODIES[fa.attention_nhd_form(n)])
+    return row
 
 
 def build_training(torch, cfg=DINO_VIT_S8):
@@ -1524,23 +1691,17 @@ def phase_training_times(torch, fa, state, train_step, batch, warm_ms, card):
         xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=300)
         (do,) = qkv(b, n, h, d, getattr(torch, dtype_name), seed=301)[:1]
         scale = 1.0 / d ** 0.5
+        bounds = attention_train_bounds(b, n, h, d, dtype_name, bs)
+        rows[("fwd", bs)] = b1_forward_row(torch, fa, fa.KERNEL_TRAIN, "", xq, xk, xv,
+                                           h, scale, bs, bounds["fwd"])
+
         _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)
-        times = {
-            "fwd": cuda_ms(lambda: fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)),
-            "fwd_plain": cuda_ms(lambda: (
-                fa.attention_nhd_reference(xq, xk, xv, h, scale, bs),
-                fa.attention_nhd_stats_reference(xq, xk, h, scale, bs))),
-            "bwd": cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h,
-                                                        scale, bs)),
-            "bwd_plain": cuda_ms(lambda: fa.attention_nhd_bwd_reference(
-                xq, xk, xv, do, h, scale, bs)),
-        }
-        times["fwd2"] = cuda_ms(lambda: fa.attention_nhd_fwd_stats(xq, xk, xv, h,
-                                                                   scale, bs))
-        times["bwd2"] = cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats,
-                                                             h, scale, bs))
-        # SDPA's yardstick; at the packed locals with a boolean
-        # block-diagonal attn_mask (True = attend)
+        first = cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs))
+        plain_ms = cuda_ms(lambda: fa.attention_nhd_bwd_reference(
+            xq, xk, xv, do, h, scale, bs))
+        second = cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs))
+        # SDPA's backward through autograd; at the packed locals with a
+        # boolean block-diagonal attn_mask (True = attend)
         q, k, v = (x.detach().view(b, n, h, d).transpose(1, 2).requires_grad_()
                    for x in (xq, xk, xv))
         g = do.view(b, n, h, d).transpose(1, 2)
@@ -1548,30 +1709,30 @@ def phase_training_times(torch, fa, state, train_step, batch, warm_ms, card):
         if bs:
             block = torch.arange(n, device="cuda") // bs
             mask = block[:, None] == block[None, :]
-        library = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=scale))}
         o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
-        library["bwd"] = cuda_ms(lambda: torch.autograd.grad(
-            o, (q, k, v), g, retain_graph=True))
-        bounds = attention_train_bounds(b, n, h, d, dtype_name, bs)
-        for part in ("fwd", "bwd"):
-            ms = min(times[part], times[part + "2"])
-            lib = library[part]
-            print(f"  attention_nhd_{'fwd_stats' if part == 'fwd' else 'bwd'} "
-                  f"({b},{n},{h}x{d}) {dtype_name} block_size={bs}: kernel "
-                  f"{times[part]:.4f} / {times[part + '2']:.4f} ms, plain "
-                  f"{times[part + '_plain']:.4f} ms, SDPA"
-                  f"{' (boolean attn_mask)' if bs else ''} {lib:.4f} ms, bound "
-                  f"{bounds[part][0]:.4f} ms ({bounds[part][1]})", flush=True)
-            rows[(part, bs)] = {"ms": ms, "plain_ms": times[part + "_plain"],
-                                "bound_ms": bounds[part][0],
-                                "bound_by": bounds[part][1], "library_ms": lib}
+        lib = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True))
+        print(f"  attention_nhd_bwd ({b},{n},{h}x{d}) {dtype_name} block_size={bs}: kernel "
+              f"{first:.4f} / {second:.4f} ms, plain {plain_ms:.4f} ms, SDPA"
+              f"{' (boolean attn_mask)' if bs else ''} {lib:.4f} ms, bound "
+              f"{bounds['bwd'][0]:.4f} ms ({bounds['bwd'][1]})", flush=True)
+        rows[("bwd", bs)] = {"ms": min(first, second), "plain_ms": plain_ms,
+                             "bound_ms": bounds["bwd"][0], "bound_by": bounds["bwd"][1],
+                             "library_ms": lib, "shape": [b, n, h, d, bs]}
+
+    # the teacher's inference forward at the globals' shape
+    b, n, h, d, dtype_name, bs = TRAIN_CASES[0]
+    xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=302)
+    scale = 1.0 / d ** 0.5
+    rows[("fwd_inference", bs)] = b1_forward_row(
+        torch, fa, fa.KERNEL, ", the teacher", xq, xk, xv, h, scale, bs,
+        attention_bound(b, n, h, d, dtype_name, bs))
 
     def three_steps():
         for _ in range(3):
             train_step(state, batch, teacher_temp, teacher_momentum)
 
-    profile_window(torch, three_steps, "3 training steps", rows=25)
+    profile_window(torch, three_steps, "3 training steps", rows=25,
+                   want=fa.FORWARD_BODIES[fa.attention_nhd_form(TRAIN_CASES[0][1])])
     return rows
 
 
@@ -1996,8 +2157,8 @@ def phase_supervised_training(torch, fa, card, cfg, per_step, per_eval, suffix,
 # B3's bf16 entries at (64, 12, 577, 64) on the mma.sync bodies that
 # attention_fwd_sm90.cuh and attention_bwd_sm90.cuh replaced (B1's bodies
 # on the head-major layout), as this script measured them on an NVIDIA
-# H100 80GB HBM3 at 700 W; B1 on the same data, timed beside, is that body
-# in this run.
+# H100 80GB HBM3 at 700 W. B1 on the same data, timed beside, runs the same
+# forward body as B3 (its two-pass form) and the mma.sync backward.
 B3_MMA_SYNC_MS = {"fwd": 0.7726, "fwd_stats": 0.7659, "bwd": 1.5807}
 # and its dq/dk/dv errors at FUSED_CASES[0], over max|plain| (the same run)
 B3_MMA_SYNC_GRAD_ERRS = (1.3e-3, 1.3e-3, 2.0e-3)
@@ -2208,9 +2369,14 @@ def main() -> int:
     built = kernels.build()
     print(f"== build: {sorted(kernels.SOURCES)} in {time.perf_counter() - t0:.1f} s "
           f"(compiled: {sorted(built)})", flush=True)
+    faults = []
     for name in kernels.SOURCES:
-        for line in ptxas_lines(kernels.log_path(name).read_text(), kernels.nvcc_path()):
+        lines = list(ptxas_lines(kernels.log_path(name).read_text(), kernels.nvcc_path()))
+        for line in lines:
             print(f"  {name}: {line}", flush=True)
+        faults += [f"{name}: {line}" for line in hopper_faults(lines)]
+    if faults:
+        fail("a Hopper body spills or has its wgmma serialised:\n" + "\n".join(faults))
 
     train_errors = phase_kernels(torch, fa)
     mlp_errors = phase_mlp_kernels(torch, fm)
@@ -2267,11 +2433,18 @@ def main() -> int:
     serve_err = float((out.float() - ref.float()).abs().max())
 
     globals_case = TRAIN_CASES[0]
+    # B1's forwards: the served batch's and the student globals' shapes, each
+    # with the other main-path shapes of its entry (the teacher's; the packed
+    # locals) listed beside
+    locals_case = TRAIN_CASES[2]
     entries = [
-        (fa.KERNEL, "attention_nhd_fwd.cu", "vit_ssl_tpu/ops/flash_attention.py:352",
-         serve_err, serve_stats),
-        (fa.KERNEL_TRAIN, "attention_nhd_fwd.cu", "vit_ssl_tpu/ops/flash_attention.py:352",
-         train_errors[globals_case][0], train_stats[("fwd", 0)]),
+        (fa.KERNEL, "attention_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:352",
+         serve_err, {**serve_stats, "at_other_shapes": [train_stats[("fwd_inference", 0)]]}),
+        (fa.KERNEL_TRAIN, "attention_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:352",
+         train_errors[globals_case][0],
+         {**train_stats[("fwd", 0)], "at_other_shapes": [
+             {**train_stats[("fwd", locals_case[-1])],
+              "max_abs_err": train_errors[locals_case][0]}]}),
         (fa.KERNEL_BWD, "attention_nhd_bwd.cu", "vit_ssl_tpu/ops/flash_attention.py:392",
          train_errors[globals_case][1], train_stats[("bwd", 0)]),
     ]

@@ -2,7 +2,10 @@
 
 Kernel B1: the inference forward, the training forward (output and softmax
 statistics) and the backward (dq, dk, dv), and a ``MultiHeadAttention``
-gradient through the kernels against the plain path. Kernel B3: the same
+gradient through the kernels against the plain path; the bf16 forward's
+Hopper body in both its forms (one pass up to N = 256, two above) at every
+head dim: its kernels by name in a profile, repeatable bits, each head kept
+to its columns and each image to its rows, and the refusal of a scale <= 0. Kernel B3: the same
 three entries on the head-major layout, their agreement with B1 on the
 same data (bf16: B3's own Hopper forward and backward), each head kept to
 its own rows and repeatable bits in both directions, the Hopper backward's
@@ -232,6 +235,113 @@ def test_multi_head_attention_gradient_through_kernels(cuda_device, monkeypatch,
         assert float(cos) >= 0.999, (name, float(cos))
 
 
+# B1's bf16 forward in both of its forms (fa.attention_nhd_form): N = 1,
+# ragged N, N on both sides of ONE_PASS_MAX_SEQ, a block size that does not
+# divide N, and the two-pass form up to MAX_SEQ; (seq, block_size)
+B1_FORM_CASES = [(1, 0), (37, 0), (100, 0), (145, 5), (148, 37), (192, 0), (200, 7),
+                 (255, 0), (256, 0), (257, 0), (300, 7), (577, 0), (1024, 0)]
+
+
+def _b1_heads(d):
+    return 384 // d // 2  # 6 heads of 32, 3 of 64, 1 of 128
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("n,bs", B1_FORM_CASES)
+def test_b1_bf16_forward_matches_plain_in_both_forms(cuda_device, n, bs, d):
+    """Both entries against the plain version on either side of the
+    one-pass/two-pass boundary: the output within BF16_TOL, the training
+    output equal to the inference output bit for bit, the statistics within
+    1e-5 and zero past n."""
+    h, b = _b1_heads(d), 3
+    xq, xk, xv = _inputs(b, n, h, d, torch.bfloat16, cuda_device, seed=n + d)
+    scale = 1.0 / d ** 0.5
+    out = fa.attention_nhd_fwd(xq, xk, xv, h, scale, bs)
+    out_t, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_t)
+    torch.testing.assert_close(out.float(), fa.attention_nhd_reference(
+        xq, xk, xv, h, scale, bs).float(), **BF16_TOL)
+    torch.testing.assert_close(stats[:, :, :n], fa.attention_nhd_stats_reference(
+        xq, xk, h, scale, bs), atol=1e-5, rtol=1e-5)
+    assert not stats[:, :, n:].any()
+
+
+@pytest.mark.parametrize("n", [145, 577])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_b1_bf16_forward_runs_the_hopper_kernel(cuda_device, d, n):
+    """Both bf16 entries launch the form of attention_fwd_sm90.cuh that
+    attention_nhd_form names (one pass at N = 145, two at 577), shown by
+    name in a profile of the call (:func:`_device_kernel_names`), and
+    nothing of the mma.sync body."""
+    h = _b1_heads(d)
+    xq, xk, xv = _inputs(32, n, h, d, torch.bfloat16, cuda_device, seed=d + 21)
+    body = fa.FORWARD_BODIES[fa.attention_nhd_form(n)]
+    for entry in (fa.attention_nhd_fwd, fa.attention_nhd_fwd_stats):
+        names = _device_kernel_names(lambda: entry(xq, xk, xv, h, 1.0 / d ** 0.5),
+                                     want=(f"{body}<{d},",))
+        assert f"{body}<{d}," in names, names
+        assert "bf16_kernel" not in names, names
+
+
+@pytest.mark.parametrize("n", [145, 577])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_b1_bf16_forward_repeats_bit_for_bit(cuda_device, d, n):
+    """No atomics, no order that changes between calls: two calls of each
+    entry on the same inputs give the same bits, output and statistics."""
+    h = _b1_heads(d)
+    xq, xk, xv = _inputs(4, n, h, d, torch.bfloat16, cuda_device, seed=d + 22)
+    first = fa.attention_nhd_fwd_stats(xq, xk, xv, h, 0.125, 37)
+    second = fa.attention_nhd_fwd_stats(xq, xk, xv, h, 0.125, 37)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    assert torch.equal(fa.attention_nhd_fwd(xq, xk, xv, h, 0.125),
+                       fa.attention_nhd_fwd(xq, xk, xv, h, 0.125))
+
+
+@pytest.mark.parametrize("n", [145, 577])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_b1_bf16_forward_keeps_to_its_head_and_image(cuda_device, d, n):
+    """A box that reached a neighbouring head's columns or ran past row n
+    into the next image would read them: with head 1's columns all inf and
+    image 1 all NaN, heads 0 and 2 of images 0 and 2 equal the plain version
+    of each head alone, in both entries (the tensor maps over (H·D, N, B)
+    zero-fill past n)."""
+    h, b = 3, 3
+    xq, xk, xv = _inputs(b, n, h, d, torch.bfloat16, cuda_device, seed=d + 23)
+    for x in (xq, xk, xv):
+        x.view(b, n, h, d)[:, :, 1] = float("inf")
+        x[1] = float("nan")
+    out = fa.attention_nhd_fwd(xq, xk, xv, h, 0.125)
+    out_t, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, 0.125)
+    torch.cuda.synchronize()
+    for img in (0, 2):
+        for head in (0, 2):
+            alone = [x.view(b, n, h, d)[img:img + 1, :, head].contiguous()
+                     for x in (xq, xk, xv)]
+            want = fa.attention_nhd_reference(*alone, 1, 0.125).float()
+            for got in (out, out_t):
+                got = got.view(b, n, h, d)[img:img + 1, :, head].float()
+                assert torch.isfinite(got).all(), (img, head)
+                torch.testing.assert_close(got, want, **BF16_TOL)
+            assert torch.isfinite(stats[img, head, :n]).all(), (img, head)
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125])
+def test_b1_bf16_forward_refuses_a_non_positive_scale(cuda_device, scale):
+    """The Hopper body takes the row max before scaling: a bf16 call with
+    scale <= 0 raises by name, and never reaches another body; fp32 takes
+    it."""
+    xq, xk, xv = _inputs(2, 37, 2, 64, torch.bfloat16, cuda_device, seed=24)
+    before = dict(kernels.launches)
+    for entry in (fa.attention_nhd_fwd, fa.attention_nhd_fwd_stats):
+        with pytest.raises(ValueError, match="scale must be positive"):
+            entry(xq, xk, xv, 2, scale)
+    assert dict(kernels.launches) == before
+    f32 = [x.float() for x in (xq, xk, xv)]
+    torch.testing.assert_close(fa.attention_nhd_fwd(*f32, 2, scale),
+                               fa.attention_nhd_reference(*f32, 2, scale), **FP32_TOL)
+
+
 # Kernel B4 at DINO ViT-S/8's widths: the student's globals, a short served
 # batch, T = 1 and a ragged T. max |kernel - plain| over max |plain|; bf16:
 # h and dpre round to bf16 on both sides and may land on either side of a
@@ -433,12 +543,13 @@ def test_fused_attention_backward_matches_plain(cuda_device, b, h, n, d, dtype):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_fused_attention_is_b1_on_the_head_major_layout(cuda_device, dtype):
-    """B3 computes B1's function on the head-major layout. fp32: one kernel
-    body for both layouts, forward and backward, equal bit for bit. bf16:
-    B3's forward and backward are Hopper bodies of their own (wgmma sums in
-    another order): the forward within BF16_TOL of B1, its statistics
-    within 1e-5, and, fed B1's statistics, its gradients within
-    GRAD_REL_TOL of max|B1|."""
+    """B3 computes B1's function on the head-major layout. The forward is
+    one body for both layouts in each dtype (fp32: the CUDA cores; bf16:
+    the two-pass form of attention_fwd_sm90.cuh, which B1 takes at
+    N = 577), so output and statistics are equal bit for bit. The backward:
+    fp32 one body, equal bit for bit; bf16 B3's own Hopper backward (wgmma
+    sums in another order than B1's mma.sync backward): fed B1's
+    statistics, its gradients within GRAD_REL_TOL of max|B1|."""
     dt = getattr(torch, dtype)
     b, h, n, d = 4, 12, 577, 64
     q, k, v = _head_inputs(b, h, n, d, dt, cuda_device, seed=11)
@@ -449,11 +560,8 @@ def test_fused_attention_is_b1_on_the_head_major_layout(cuda_device, dtype):
 
     out, stats = fa.fused_attention_fwd_stats(q, k, v, 0.125)
     b1_out, b1_stats = fa.attention_nhd_fwd_stats(nhd(q), nhd(k), nhd(v), h, 0.125)
-    if dtype == "float32":
-        assert torch.equal(nhd(out), b1_out) and torch.equal(stats, b1_stats)
-    else:
-        torch.testing.assert_close(nhd(out).float(), b1_out.float(), **BF16_TOL)
-        torch.testing.assert_close(stats, b1_stats, atol=1e-5, rtol=1e-5)
+    assert fa.attention_nhd_form(n) == "two-pass"
+    assert torch.equal(nhd(out), b1_out) and torch.equal(stats, b1_stats)
     got = fa.fused_attention_bwd(q, k, v, do, b1_stats, 0.125)
     want = fa.attention_nhd_bwd(nhd(q), nhd(k), nhd(v), nhd(do), b1_stats, h, 0.125)
     if dtype == "float32":
@@ -501,13 +609,19 @@ def test_fused_attention_backward_keeps_to_its_head(cuda_device, n):
             assert _rel_err(g, w) <= GRAD_REL_TOL["bfloat16"], (head, name, _rel_err(g, w))
 
 
-def _device_kernel_names(fn, sessions: int = 3) -> str:
-    """The device kernels that a profile of ``fn`` records, by name. The
-    profiler records the second of two calls; a fresh session can lose a
-    short window's device events, so a session that records no device
-    kernel at all is run again, up to ``sessions`` times."""
+def _device_kernel_names(fn, sessions: int = 10, want=()) -> str:
+    """The device kernels that profiles of ``fn`` record, by name: each
+    session records the second of two calls. A session can lose all or
+    some of its device events (on an NVIDIA H100 80GB HBM3 with torch 2.11,
+    a session now and then lost all of them, whatever the activities,
+    schedule or window length, and the first session of B2's forward
+    profile lost one or both of its two kernels in most runs), so sessions
+    run until together they record some device kernel and every name in
+    ``want``, up to ``sessions`` times. Returns the names that the sessions
+    recorded together."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    names = set()
     for _ in range(sessions):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA],
@@ -516,11 +630,12 @@ def _device_kernel_names(fn, sessions: int = 3) -> str:
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
-        names = [e.key for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            return " ".join(names)
-    return ""
+        names |= {e.key for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+        joined = " ".join(sorted(names))
+        if names and all(name in joined for name in want):
+            break
+    return joined
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -532,7 +647,8 @@ def test_fused_attention_bf16_backward_runs_the_hopper_kernels(cuda_device, d):
                    + _head_inputs(2, 4, 203, d, torch.bfloat16, cuda_device, seed=d + 20))[:4]
     _, stats = fa.fused_attention_fwd_stats(q, k, v, 1.0 / d ** 0.5)
     names = _device_kernel_names(
-        lambda: fa.fused_attention_bwd(q, k, v, do, stats, 1.0 / d ** 0.5))
+        lambda: fa.fused_attention_bwd(q, k, v, do, stats, 1.0 / d ** 0.5),
+        want=(f"attention_bwd_dq_sm90_kernel<{d}>", f"attention_bwd_dkv_sm90_kernel<{d}>"))
     assert f"attention_bwd_dq_sm90_kernel<{d}>" in names, names
     assert f"attention_bwd_dkv_sm90_kernel<{d}>" in names, names
     assert "bf16_kernel" not in names, names
@@ -773,7 +889,8 @@ def test_blockwise_bf16_forward_runs_the_hopper_kernel(cuda_device, d):
         fb.blockwise_attention_fwd(q, k, v, d ** -0.5)
         fb.blockwise_attention_fwd_exp2(q, k, v, d ** -0.5)
 
-    names = _device_kernel_names(both_forms)
+    names = _device_kernel_names(both_forms, want=(f"blockwise_fwd_sm90_kernel<{d}, false>",
+                                                   f"blockwise_fwd_sm90_kernel<{d}, true>"))
     assert f"blockwise_fwd_sm90_kernel<{d}, false>" in names, names
     assert f"blockwise_fwd_sm90_kernel<{d}, true>" in names, names
     assert "bf16_kernel" not in names, names

@@ -196,11 +196,13 @@ def test_training_wrappers_take_plain_versions_on_cpu():
 
 def test_kernel_sources_cover_their_headers():
     """A header edit must rebuild every library that includes it: B1's two
-    libraries and B3's share the kernel bodies and the common header; B3's
-    bf16 forward and backward (``attention_{fwd,bwd}_sm90.cuh``, over the
-    Hopper primitives of ``sm90_common.cuh``) are B3's alone."""
+    libraries and B3's share the CUDA-core bodies and the common header; B1's
+    forward library and B3's share the bf16 Hopper forward
+    (``attention_fwd_sm90.cuh``, over the primitives of
+    ``sm90_common.cuh``); B3's Hopper backward is B3's alone."""
     want = {
-        "attention_nhd_fwd": {"attention_nhd_fwd.cu", "attention_fwd.cuh"},
+        "attention_nhd_fwd": {"attention_nhd_fwd.cu", "attention_fwd.cuh",
+                              "attention_fwd_sm90.cuh", "sm90_common.cuh"},
         "attention_nhd_bwd": {"attention_nhd_bwd.cu", "attention_bwd.cuh"},
         "fused_attention": {"fused_attention.cu", "attention_fwd.cuh",
                             "attention_bwd.cuh", "attention_fwd_sm90.cuh",
@@ -212,15 +214,66 @@ def test_kernel_sources_cover_their_headers():
         assert set(got) == files | {"attention_nhd_common.cuh"}
 
 
-@pytest.mark.parametrize("header", ["attention_fwd_sm90", "attention_bwd_sm90",
-                                    "sm90_common", "flash_blockwise_fwd_sm90"])
-@pytest.mark.parametrize("name", ["attention_nhd_fwd", "attention_nhd_bwd"])
-def test_b1_libraries_do_not_reach_the_sm90_forward(name, header):
-    """The Hopper bodies (B3's forward and backward, B2's forward) and
-    their primitives are not in B1's sources, so an edit to any of them
-    leaves B1's libraries as they are (no rebuild, the same bits)."""
-    assert f"{header}.cuh" not in {f.name for f in kernels.source_files(name)}
-    assert header not in "".join(f.read_text() for f in kernels.source_files(name))
+# (library, sm90 header, reached): B1's forward reaches the Hopper forward
+# and its primitives; B1's backward stays on its mma.sync body and reaches
+# none of the four sm90 headers; neither reaches B3's Hopper backward or
+# B2's Hopper forward
+B1_SM90_REACH = [
+    ("attention_nhd_fwd", "attention_fwd_sm90", True),
+    ("attention_nhd_fwd", "sm90_common", True),
+    ("attention_nhd_fwd", "attention_bwd_sm90", False),
+    ("attention_nhd_fwd", "flash_blockwise_fwd_sm90", False),
+    ("attention_nhd_bwd", "attention_fwd_sm90", False),
+    ("attention_nhd_bwd", "sm90_common", False),
+    ("attention_nhd_bwd", "attention_bwd_sm90", False),
+    ("attention_nhd_bwd", "flash_blockwise_fwd_sm90", False),
+]
+
+
+@pytest.mark.parametrize("name,header,reached", B1_SM90_REACH)
+def test_b1_libraries_reach_only_their_sm90_headers(name, header, reached):
+    """An edit to a Hopper header rebuilds exactly the B1 libraries that
+    compile it: the forward's (its bf16 body), never the backward's. A
+    header a library does not include is not named by its sources either
+    (nothing of it is instantiated there), except in the comments of
+    ``sm90_common.cuh``, which list the bodies over it."""
+    files = kernels.source_files(name)
+    assert (f"{header}.cuh" in {f.name for f in files}) == reached
+    if not reached:
+        text = "".join(f.read_text() for f in files if f.name != "sm90_common.cuh")
+        assert header not in text
+
+
+@pytest.mark.parametrize("n,form", [(1, "one-pass"), (64, "one-pass"), (65, "one-pass"),
+                                    (145, "one-pass"), (148, "one-pass"),
+                                    (197, "one-pass"), (256, "one-pass"),
+                                    (257, "two-pass"), (577, "two-pass"),
+                                    (1024, "two-pass")])
+def test_b1_forward_form_follows_the_sequence_length(n, form):
+    """The host rule: one pass up to ONE_PASS_MAX_SEQ (DINO's 145 and 148),
+    two passes above, up to MAX_SEQ; the form names its kernel."""
+    assert fa.attention_nhd_form(n) == form
+    assert fa.FORWARD_BODIES[form].endswith("_sm90_kernel")
+
+
+@pytest.mark.parametrize("n", [0, fa.MAX_SEQ + 1])
+def test_b1_forward_form_refuses_lengths_the_kernels_do_not_take(n):
+    with pytest.raises(ValueError, match=f"sequence length {n}"):
+        fa.attention_nhd_form(n)
+
+
+def test_one_pass_limit_is_the_kernels():
+    """ONE_PASS_MAX_SEQ is the header's kOnePassTiles key tiles of kKeys,
+    and each form's kernel name is a kernel of that header."""
+    import re
+
+    header = (kernels.CSRC_DIR / "attention_fwd_sm90.cuh").read_text()
+    tiles = re.findall(r"constexpr int kOnePassTiles = (\d+);", header)
+    keys = re.findall(r"constexpr int kKeys = (\d+);", header)
+    assert len(tiles) == len(keys) == 1
+    assert fa.ONE_PASS_MAX_SEQ == int(tiles[0]) * int(keys[0])
+    for name in fa.FORWARD_BODIES.values():
+        assert re.search(rf"\b{name}\(", header), name
 
 
 def test_stale_follows_headers(monkeypatch, tmp_path):
@@ -491,12 +544,33 @@ def test_fused_kernel_input_checks(shape, dtype, match):
 @pytest.mark.parametrize("scale", [0.0, -0.125, float("nan")])
 def test_fused_bf16_kernel_refuses_a_non_positive_scale(scale):
     """The bf16 forward kernel takes the row max before scaling; fp32 and
-    a positive scale pass the check."""
+    a positive scale pass the check (B1 and B3 share it)."""
     x = torch.zeros(1, 1, 4, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="scale must be positive"):
-        fa._check_fused_scale(x, scale)
-    fa._check_fused_scale(x, 0.125)
-    fa._check_fused_scale(x.float(), scale)
+        fa._check_scale(x, scale)
+    fa._check_scale(x, 0.125)
+    fa._check_scale(x.float(), scale)
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125, float("nan")])
+@pytest.mark.parametrize("entry", ["attention_nhd_fwd", "attention_nhd_fwd_stats"])
+def test_b1_bf16_wrappers_refuse_a_non_positive_scale(monkeypatch, entry, scale):
+    """B1's two forward wrappers refuse a bf16 call with scale <= 0 by name
+    before any launch (its Hopper body folds the scale into the exponent);
+    an fp32 call with the same scale reaches the launch. Run on the meta
+    device with the device check and the launch stubbed, as the card would
+    run them."""
+    launched = []
+    monkeypatch.setattr(fa, "_require_cuda", lambda *a: None)
+    monkeypatch.setattr(fa, "_launch", lambda name, *a: launched.append(name))
+    x = torch.empty(2, 37, 128, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="scale must be positive"):
+        getattr(fa, entry)(x, x, x, 2, scale)
+    assert launched == []
+    y = torch.empty(2, 37, 128, device="meta")
+    getattr(fa, entry)(y, y, y, 2, scale)
+    assert launched == [{"attention_nhd_fwd": fa.KERNEL,
+                         "attention_nhd_fwd_stats": fa.KERNEL_TRAIN}[entry]]
 
 
 def test_fused_kernel_input_checks_layout():

@@ -16,10 +16,11 @@
 // the input dtype. The TPU kernels read the (B, H, N, N) probabilities
 // their training forwards saved; this one recomputes them from q, k and the
 // softmax statistics (m, 1/l) that the training forward saved (fp32,
-// (B, H, round_up(N, 64), 2)): the scores with the forward's very
-// instructions (attention_nhd_common.cuh: mma_abt8 for bf16, dot8_f32 for
-// fp32), then p = exp(s - m) * (1/l) rounded as the forward rounded it. So
-// the bf16 p here is the one the forward fed to P.V. Recomputing p means
+// (B, H, round_up(N, 64), 2)): the scores again (mma_abt8 for bf16;
+// dot8_f32 for fp32, the forward's very instructions), then
+// p = exp(s - m) * (1/l) rounded as the forward rounded it (in bf16 the
+// forward's wgmma sums in another order, so p may differ from the one it
+// fed to P.V by a rounding at a tie). Recomputing p means
 // applying the block-diagonal mask again (the saved probabilities were zero
 // off the blocks; recomputed ones would not be), and zeroing rows and keys
 // past N.

@@ -3,9 +3,13 @@
 // reductions, the bf16 mma.sync / ldmatrix / cp.async building blocks and
 // the tile loads.
 //
-// Both kernels must compute the scores s = q . k^T * scale with the very
-// same instruction sequence (mma_abt8), so that the backward rebuilds the
-// bf16 probabilities the forward fed to P.V bit for bit.
+// The fp32 forward and backward compute the scores with the very same
+// instruction sequence (dot8_f32), so that the backward rebuilds the
+// forward's probabilities bit for bit. In bf16 the forward's scores come
+// from wgmma (the Hopper forward body) and B1's backward's from mma_abt8:
+// sums in another order, so a rebuilt p may round to the neighbouring bf16
+// value where the fp32 score lands near a tie (the gradients are held to
+// their plain version, not to bit-equality).
 //
 // kernels.py rebuilds a library when this header is newer than it.
 

@@ -29,22 +29,29 @@
 // What bounds it on an H100 SXM: bytes. At the serving shape (128, 145,
 // 6x64) bf16 q/k/v/o move 4 * 128*145*384 * 2 B = 57 MB, 17 us at
 // 3.35 TB/s, against 4.1 GFLOP, 4.2 us at the 989 TFLOP/s bf16 tensor-core
-// rate (data sheet). At the training shape (256, 145, 6x64) the training
-// entry moves 114 MB plus 1.8 MB of statistics, about 35 us, against 8 us
-// of operations.
+// rate (data sheet). At the teacher's and the student globals' (256, 145,
+// 6x64) 114 MB, 34 us (training: plus 1.8 MB of statistics, 35 us),
+// against 8 us of operations; at the packed locals (128, 148, 6x64, block
+// 37) 59 MB, 18 us, against 1 us.
 //
-// The kernel bodies (bf16 on the tensor cores, fp32 on the CUDA cores) and
-// how their design answers that bound are in attention_fwd.cuh, shared
-// with kernel B3 (fused_attention.cu), which reads the head-major layout.
+// The bfloat16 body is the Hopper forward of attention_fwd_sm90.cuh
+// (wgmma, TMA; one pass over the keys at N <= 256, two above), shared
+// with kernel B3; how its design answers that bound is written there. The
+// float32 body runs on the CUDA cores (attention_fwd.cuh). The dispatch is
+// by dtype alone: a bf16 call that the Hopper body refuses (a scale <= 0,
+// a tensor map cuTensorMapEncodeTiled refuses) fails; it never takes another
+// body.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (vit_ssl_tpu_torch/kernels.py); called through
 // ctypes from vit_ssl_tpu_torch/ops/flash_attention.py.
 
-#include "attention_fwd.cuh"
+#include "attention_fwd.cuh"      // float32
+#include "attention_fwd_sm90.cuh"  // bfloat16
 
 // q, k, v, o: contiguous (batch, n, heads * head_dim) of one dtype
-// (is_bf16 = 1: bfloat16, 0: float32), 16-byte aligned. stream: a
+// (is_bf16 = 1: bfloat16, 0: float32), 16-byte aligned; bf16 takes
+// scale > 0 only (the Hopper body folds it into the exponent). stream: a
 // cudaStream_t. Returns the cudaError_t of the launch (0 = launched); the
 // wrapper raises on non-zero.
 extern "C" int attention_nhd_fwd(const void* q, const void* k, const void* v,
@@ -52,8 +59,11 @@ extern "C" int attention_nhd_fwd(const void* q, const void* k, const void* v,
                                  int head_dim, int is_bf16, float scale,
                                  int block_size, void* stream) {
   if (o == nullptr) return (int)cudaErrorInvalidValue;
-  return fwd_dispatch<false>(q, k, v, o, nullptr, batch, n, heads, head_dim, is_bf16,
-                             scale, block_size, stream);
+  if (is_bf16)
+    return sm90::dispatch<false>(q, k, v, o, nullptr, batch, n, heads, head_dim, scale,
+                                 block_size, stream);
+  return fwd_dispatch<false>(q, k, v, o, nullptr, batch, n, heads, head_dim, scale,
+                             block_size, stream);
 }
 
 // The training forward: attention_nhd_fwd's output, bit for bit, and the
@@ -64,6 +74,9 @@ extern "C" int attention_nhd_fwd_stats(const void* q, const void* k, const void*
                                        int heads, int head_dim, int is_bf16,
                                        float scale, int block_size, void* stream) {
   if (o == nullptr || stats == nullptr) return (int)cudaErrorInvalidValue;
-  return fwd_dispatch<false>(q, k, v, o, stats, batch, n, heads, head_dim, is_bf16,
-                             scale, block_size, stream);
+  if (is_bf16)
+    return sm90::dispatch<false>(q, k, v, o, stats, batch, n, heads, head_dim, scale,
+                                 block_size, stream);
+  return fwd_dispatch<false>(q, k, v, o, stats, batch, n, heads, head_dim, scale,
+                             block_size, stream);
 }

@@ -17,12 +17,11 @@
 // b at [((b*H + h)*N + i)*D], one head's rows contiguous, D elements apart
 // (B1: H*D apart). The JAX package sends a self-attention here when B1 does
 // not fit the TPU's VMEM (ViT-B/16 at 384 px: N = 577, 12 heads of 64).
-// The bfloat16 forward and backward are Hopper bodies of their own
-// (attention_fwd_sm90.cuh, attention_bwd_sm90.cuh: wgmma, TMA, two
-// consumer warpgroups a block); the float32 forward and backward (CUDA
-// cores) are B1's kernel bodies (attention_fwd.cuh, attention_bwd.cuh)
-// instantiated with kHeadMajor. The dispatch is by dtype alone: a bf16
-// call never reaches the old bodies, at every head dim.
+// The bfloat16 forward is the Hopper body B1 shares (attention_fwd_sm90.cuh:
+// wgmma, TMA, its two-pass form at every N here); the bfloat16 backward is
+// B3's own (attention_bwd_sm90.cuh); the float32 forward and backward (CUDA
+// cores) are B1's kernel bodies (attention_fwd.cuh, attention_bwd.cuh).
+// All are instantiated with kHeadMajor. The dispatch is by dtype alone.
 //
 // What bounds it on an H100 SXM, at ViT-B/16's (64, 12, 577, 64) bf16
 // (56.7 MB a tensor, 32.7 GFLOP a product; data sheet: 3.35 TB/s, 989
@@ -53,8 +52,9 @@ extern "C" int fused_attention_fwd(const void* q, const void* k, const void* v, 
                                    int is_bf16, float scale, void* stream) {
   if (o == nullptr) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return sm90::dispatch(q, k, v, o, nullptr, batch, n, heads, head_dim, scale, stream);
-  return fwd_dispatch<true>(q, k, v, o, nullptr, batch, n, heads, head_dim, 0, scale, 0,
+    return sm90::dispatch<true>(q, k, v, o, nullptr, batch, n, heads, head_dim, scale, 0,
+                                stream);
+  return fwd_dispatch<true>(q, k, v, o, nullptr, batch, n, heads, head_dim, scale, 0,
                             stream);
 }
 
@@ -67,8 +67,9 @@ extern "C" int fused_attention_fwd_stats(const void* q, const void* k, const voi
                                          float scale, void* stream) {
   if (o == nullptr || stats == nullptr) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return sm90::dispatch(q, k, v, o, stats, batch, n, heads, head_dim, scale, stream);
-  return fwd_dispatch<true>(q, k, v, o, stats, batch, n, heads, head_dim, 0, scale, 0,
+    return sm90::dispatch<true>(q, k, v, o, stats, batch, n, heads, head_dim, scale, 0,
+                                stream);
+  return fwd_dispatch<true>(q, k, v, o, stats, batch, n, heads, head_dim, scale, 0,
                             stream);
 }
 

@@ -1,6 +1,6 @@
-// Hopper (sm_90a) primitives of the wgmma/TMA attention bodies: kernel
-// B3's bf16 forward and backward (attention_fwd_sm90.cuh,
-// attention_bwd_sm90.cuh) and kernel B2's bf16 forward
+// Hopper (sm_90a) primitives of the wgmma/TMA attention bodies: kernels
+// B1's and B3's bf16 forwards (attention_fwd_sm90.cuh), B3's bf16 backward
+// (attention_bwd_sm90.cuh) and kernel B2's bf16 forward
 // (flash_blockwise_fwd_sm90.cuh). Shared-memory addresses, mbarriers, TMA
 // loads through 3-D tensor maps, wgmma descriptors and products, and the
 // host's encoding of the tensor maps. Each library that includes it builds
@@ -187,15 +187,22 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over (D, n, batch * heads) bf16, boxes of (kSwz, rows, 1),
-// zero fill past each dimension's end.
+// A 3-D map over (width, n, planes) bf16: rows of `width` elements, n rows
+// a plane, planes back to back; boxes of (kSwz, rows, 1), zero fill past
+// each dimension's end. A head-major (B, H, N, D) tensor is (D, n, B*H):
+// a box that runs past row n of one head is zero-filled, never read from
+// the next head. B1's (B, N, H*D) tensor is (H*D, n, B), head h's boxes at
+// column h*D: a box never reaches the neighbouring head's columns (kSwz
+// divides D), and one that runs past row n of one image is zero-filled,
+// never read from the next image. Returns false if cuTensorMapEncodeTiled
+// refuses the map or cannot be found.
 template <int D>
-bool encode_heads(CUtensorMap* map, const void* ptr, int n, int bh, int rows) {
+bool encode_rows(CUtensorMap* map, const void* ptr, int width, int n, int planes, int rows) {
   using S = HeadTile<D>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)n * D * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)n, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)n * width * 2};
   const cuuint32_t box[3] = {(cuuint32_t)S::kSwz, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
@@ -203,6 +210,12 @@ bool encode_heads(CUtensorMap* map, const void* ptr, int n, int bh, int rows) {
             D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A head-major (B, H, N, D) tensor's map: (D, n, batch * heads).
+template <int D>
+bool encode_heads(CUtensorMap* map, const void* ptr, int n, int bh, int rows) {
+  return encode_rows<D>(map, ptr, D, n, bh, rows);
 }
 
 }  // namespace sm90

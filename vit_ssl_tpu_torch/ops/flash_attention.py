@@ -14,7 +14,11 @@ it launches the hand-written Hopper kernels:
 - ``attention_nhd_fwd_stats`` (same source), the training forward: the same
   output bit for bit, plus each row's softmax statistics (row max m and
   1/l, fp32). They replace the (B, H, N, N) probabilities that the TPU
-  kernel saves for its backward;
+  kernel saves for its backward. In bf16 both run the Hopper body of
+  ``csrc/attention_fwd_sm90.cuh`` (wgmma, TMA; the softmax scale must be
+  positive) in one of two forms, :func:`attention_nhd_form`: one pass over
+  the keys up to ``ONE_PASS_MAX_SEQ`` (DINO's N = 145 and 148), two passes
+  above, the form B3 runs; in fp32 a CUDA-core body;
 - ``attention_nhd_bwd`` (``csrc/attention_nhd_bwd.cu``), the backward: it
   rebuilds the forward's rounded probabilities from q, k and the
   statistics and returns dq, dk and dv.
@@ -29,11 +33,11 @@ contiguous (B, H, N, D) tensors, with the same three entries in one library
 (``csrc/fused_attention.cu``): ``fused_attention_fwd``,
 ``fused_attention_fwd_stats`` and ``fused_attention_bwd``; on a CPU tensor
 :func:`fused_attention_reference` and :func:`fused_attention_bwd_reference`.
-Its bf16 forwards and backward run Hopper bodies of their own
-(``csrc/attention_fwd_sm90.cuh``, ``csrc/attention_bwd_sm90.cuh``: wgmma,
+Its bf16 forwards run the two-pass form of B1's Hopper body, its bf16
+backward a Hopper body of its own (``csrc/attention_bwd_sm90.cuh``: wgmma,
 TMA, two consumer warpgroups a block; the softmax scale must be positive);
-its fp32 forwards and backward are B1's kernel bodies instantiated for the
-head-major layout.
+its fp32 forwards and backward are B1's CUDA-core bodies, all instantiated
+for the head-major layout.
 
 The JAX package gates B1 with TPU measurements
 (``attention_nhd_profitable``); the port keeps only its feasibility rule,
@@ -63,6 +67,13 @@ FUSED_KERNEL_BWD = "fused_attention_bwd"
 MAX_SEQ = 1024  # the JAX single-tile ceiling (MAX_FUSED_SEQ)
 HEAD_DIMS = (32, 64, 128)
 STATS_ROWS = 64  # the statistics' rows per (b, h) are padded to this multiple
+# B1's bf16 forward takes one pass over the keys up to this length (four
+# 64-key tiles of scores in a warpgroup's registers), two passes above:
+# csrc/attention_fwd_sm90.cuh's kOnePassMaxSeq
+ONE_PASS_MAX_SEQ = 256
+# each form's kernel, as a profiler names it
+FORWARD_BODIES = {"one-pass": "attention_fwd_onepass_sm90_kernel",
+                  "two-pass": "attention_fwd_sm90_kernel"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # entry -> (library, pointer arguments, takes block_size)
@@ -127,6 +138,19 @@ def attention_route(b: int, n: int, num_heads: int, hd: int, itemsize: int,
     if n > MAX_SEQ:
         return "B2"
     return "B1" if attention_nhd_feasible(b, n, num_heads, hd, itemsize) else "B3"
+
+
+def attention_nhd_form(n: int) -> str:
+    """The form of B1's bf16 forward kernel at sequence length ``n``, as
+    ``csrc/attention_fwd_sm90.cuh`` picks it: ``"one-pass"`` up to
+    ``ONE_PASS_MAX_SEQ`` (every score of a 64-row block in registers: the
+    exact row max and sum, then p and P·V), else ``"two-pass"`` (the row
+    max and sum in a first sweep over the keys, the scores again, p and
+    P·V in a second). Both entries, inference and training, run the same
+    form. B3's bf16 forward runs the two-pass form at every N."""
+    if not 1 <= n <= MAX_SEQ:
+        raise ValueError(f"sequence length {n} outside 1..{MAX_SEQ}")
+    return "one-pass" if n <= ONE_PASS_MAX_SEQ else "two-pass"
 
 
 # ---------------------------------------------------------------------------
@@ -335,6 +359,7 @@ def attention_nhd_fwd(xq, xk, xv, num_heads: int, scale: float,
         return attention_nhd_reference(xq, xk, xv, num_heads, scale, block_size)
     _require_cuda(xq)
     d = _check(xq, xk, xv, num_heads, block_size)
+    _check_scale(xq, scale)
     b, n, _ = xq.shape
     out = torch.empty_like(xq)
     _launch(KERNEL, xq.device, xq.data_ptr(), xk.data_ptr(), xv.data_ptr(),
@@ -355,6 +380,7 @@ def attention_nhd_fwd_stats(xq, xk, xv, num_heads: int, scale: float,
                 attention_nhd_stats_reference(xq, xk, num_heads, scale, block_size))
     _require_cuda(xq)
     d = _check(xq, xk, xv, num_heads, block_size)
+    _check_scale(xq, scale)
     b, n, _ = xq.shape
     out = torch.empty_like(xq)
     stats = torch.zeros(b, num_heads, _stats_rows(n), 2, device=xq.device,
@@ -479,10 +505,10 @@ def _check_heads(q, k, v) -> Tuple[int, int, int, int]:
     return b, h, n, d
 
 
-def _check_fused_scale(q, scale: float) -> None:
-    """B3's bf16 forward kernel takes the row max of the unscaled scores,
-    which is the scaled scores' row max only for a positive scale; its bf16
-    backward rebuilds p the same way."""
+def _check_scale(q, scale: float) -> None:
+    """B1's and B3's bf16 forward kernel takes the row max of the unscaled
+    scores, which is the scaled scores' row max only for a positive scale;
+    B3's bf16 backward rebuilds p the same way. fp32 takes any scale."""
     if q.dtype == torch.bfloat16 and not scale > 0:
         raise ValueError(f"scale must be positive for the bf16 kernel, got {scale}")
 
@@ -494,7 +520,7 @@ def fused_attention_fwd(q, k, v, scale: float):
         return fused_attention_reference(q, k, v, scale)
     _require_cuda(q, "fused_attention")
     b, h, n, d = _check_heads(q, k, v)
-    _check_fused_scale(q, scale)
+    _check_scale(q, scale)
     out = torch.empty_like(q)
     _launch(FUSED_KERNEL, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, n, h, d, _DTYPES[q.dtype], float(scale))
@@ -512,7 +538,7 @@ def fused_attention_fwd_stats(q, k, v, scale: float):
                 fused_attention_stats_reference(q, k, scale))
     _require_cuda(q, "fused_attention")
     b, h, n, d = _check_heads(q, k, v)
-    _check_fused_scale(q, scale)
+    _check_scale(q, scale)
     out = torch.empty_like(q)
     stats = torch.zeros(b, h, _stats_rows(n), 2, device=q.device,
                         dtype=torch.float32)
@@ -533,7 +559,7 @@ def fused_attention_bwd(q, k, v, do, stats, scale: float):
         return fused_attention_bwd_reference(q, k, v, do, scale)
     _require_cuda(q, "fused_attention")
     b, h, n, d = _check_heads(q, k, v)
-    _check_fused_scale(q, scale)
+    _check_scale(q, scale)
     do, dq, dk, dv, delta = _bwd_buffers(q, do, stats, b, h, n)
     _launch(FUSED_KERNEL_BWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),

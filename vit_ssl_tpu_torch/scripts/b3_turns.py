@@ -23,13 +23,28 @@ Two modes (``--kernel``):
   within 1e-5 of max|plain|. Then the ViT-B/16 512-px training step and a
   served batch (``chip_smoke.py``'s, batch 64), with B2's forward routed
   to each library in the same turns.
+- ``b1``: ``vit_ssl_tpu_torch/csrc/attention_nhd_fwd.cu``, entries
+  ``attention_nhd_fwd`` (B1's inference forward) and
+  ``attention_nhd_fwd_stats`` (its training forward) at DINO ViT-S/8's
+  shapes on B1's (B, N, H·D) layout: a served batch (128, 145), the
+  teacher's and the student globals' (256, 145), the packed locals (128,
+  148, block 37); the output at atol/rtol 1e-2 of the plain version, the
+  statistics within 1e-5 of max|plain|; SDPA on views of the same storage
+  (a boolean block-diagonal mask at the locals). Each entry is timed
+  through ``chip_smoke.b1_bare`` (the C entry alone, on outputs allocated
+  once), with each library's host microseconds a launch (its tensor maps
+  encoded, if any, and the launch), and through its wrapper routed to
+  each library, back to back (as ``chip_smoke.py``'s ``ms``).
+  Then the DINO ViT-S/8 training step and a served DINO batch of 128
+  (``chip_smoke.py``'s), with both forward entries routed to each library
+  in the same turns.
 
 Each step or batch turn gives the warm time (host clock, median of 10),
 device busy a step or batch (``chip_smoke.profile_window`` over 3, which
 must show that library's kernels by name) and peak memory. Card only; run
 from the root of a checkout (``chip_smoke.py`` is imported from there):
 
-    python -m vit_ssl_tpu_torch.scripts.b3_turns --other DIR [--kernel b2]
+    python -m vit_ssl_tpu_torch.scripts.b3_turns --other DIR [--kernel b2|b1]
 
 Prints each time beside the card's name and power limit, then one JSON
 line.
@@ -59,8 +74,15 @@ SHAPE = (64, 12, 577, 64)  # ViT-B/16 at 384 px
 B2_SHAPES = [(64, 12, 1025, 64), (8, 6, 2048, 64)]  # ViT-B/16 at 512 px; the exp2 probe's
 ENTRIES = (fa.FUSED_KERNEL, fa.FUSED_KERNEL_TRAIN, fa.FUSED_KERNEL_BWD)
 B2_ENTRIES = (fb.KERNEL, fb.KERNEL_EXP2)
+B1_ENTRIES = (fa.KERNEL, fa.KERNEL_TRAIN)
+# DINO ViT-S/8's B1 forwards, (batch, seq, heads, head_dim, block_size,
+# entries): a served batch; the teacher (inference) and the student
+# globals (training); the packed locals (training)
+B1_SHAPES = [(128, 145, 6, 64, 0, (fa.KERNEL,)),
+             (256, 145, 6, 64, 0, (fa.KERNEL, fa.KERNEL_TRAIN)),
+             (128, 148, 6, 64, 37, (fa.KERNEL_TRAIN,))]
 POINTERS = {fa.FUSED_KERNEL: 4, fa.FUSED_KERNEL_TRAIN: 5, fa.FUSED_KERNEL_BWD: 9,
-            fb.KERNEL: 5, fb.KERNEL_EXP2: 5}
+            fb.KERNEL: 5, fb.KERNEL_EXP2: 5, fa.KERNEL: 4, fa.KERNEL_TRAIN: 5}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_BF16_OPS_PER_S = 989e12
 GRAD_REL_TOL = 2e-2  # bf16: p and ds round on both sides
@@ -70,8 +92,10 @@ LSE_REL_TOL = 1e-5
 # those that library's binary holds
 BODIES = {"b3": ("attention_bwd_dq_sm90_kernel", "attention_bwd_dkv_sm90_kernel",
                  "attention_bwd_dq_bf16_kernel", "attention_bwd_dkv_bf16_kernel"),
-          "b2": ("blockwise_fwd_sm90_kernel", "blockwise_fwd_bf16_kernel")}
+          "b2": ("blockwise_fwd_sm90_kernel", "blockwise_fwd_bf16_kernel"),
+          "b1": ("attention_fwd_onepass_sm90_kernel", "attention_fwd_bf16_kernel")}
 STEPS = 10  # timed steps a turn, as chip_smoke.TIMED_STEPS
+TURNS = ("other", "this", "this", "other")
 
 
 def build_other(root: Path, out_dir: Path, library: str = fa.FUSED_LIBRARY) -> ctypes.CDLL:
@@ -96,8 +120,9 @@ def bodies_in(libs: dict, kernel: str) -> dict:
 
 def entry_fn(lib: ctypes.CDLL, name: str):
     fn = getattr(lib, name)
+    block_size = [ctypes.c_int] if name in B1_ENTRIES else []
     fn.argtypes = ([ctypes.c_void_p] * POINTERS[name] + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, *block_size, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -202,26 +227,46 @@ def step_turns(card: str, libs: dict) -> dict:
     rows = {}
     for leg, cfg in (("unfused", chip_smoke.VIT_B16_384),
                      ("fused", chip_smoke.VIT_B16_384_FUSED)):
-        rows[leg] = _training_turns(card, libs, cfg, f"ViT-B/16 384 px {leg}",
-                                    fa, ENTRIES, bodies_in(libs, "b3"))
+        rows[leg] = _training_turns(card, libs, lambda: supervised_step(cfg),
+                                    f"ViT-B/16 384 px {leg}", fa, ENTRIES,
+                                    bodies_in(libs, "b3"))
     return rows
 
 
-def _training_turns(card, libs, cfg, label, module, entries, want):
-    """``cfg``'s training step with ``entries`` of ``module`` routed to each
-    library in turns."""
+def supervised_step(cfg):
+    """A no-argument training step of ``cfg`` (``chip_smoke.py``'s
+    supervised state and batch)."""
     import chip_smoke
 
     state, train_step, _, batch = chip_smoke.build_supervised_training(torch, cfg)
+    return lambda: train_step(state, batch)
+
+
+def dino_step():
+    """A no-argument DINO ViT-S/8 training step (``chip_smoke.py``'s state,
+    batch and first-step schedule values)."""
+    import chip_smoke
+
+    state, train_step, batch = chip_smoke.build_training(torch)
+    teacher_temp, teacher_momentum = chip_smoke.schedule_values()
+    return lambda: train_step(state, batch, teacher_temp, teacher_momentum)
+
+
+def _training_turns(card, libs, build, label, module, entries, want):
+    """The training step that ``build()`` returns, with ``entries`` of
+    ``module`` routed to each library in turns."""
+    import chip_smoke
+
+    step = build()
     turns = []
-    for who in ("other", "this", "this", "other"):
+    for who in TURNS:
         with routed(libs[who], module, entries):
-            warm_ms, outs, peak_gb = _timed_steps(lambda: train_step(state, batch))
+            warm_ms, outs, peak_gb = _timed_steps(step)
             losses = [float(out["loss"]) for out in outs]
 
             def three_steps():
                 for _ in range(3):
-                    train_step(state, batch)
+                    step()
 
             _, busy_ms = chip_smoke.profile_window(
                 torch, three_steps, f"3 {label} training steps, {who} library",
@@ -233,8 +278,35 @@ def _training_turns(card, libs, cfg, label, module, entries, want):
               f"median of {STEPS}, device busy {busy_ms / 3:.2f} ms a step, peak "
               f"{peak_gb:.2f} GB; losses "
               f"{'finite' if turns[-1]['finite'] else 'NOT FINITE'}", flush=True)
-    del state, train_step, batch
+    del step
     torch.cuda.empty_cache()
+    return turns
+
+
+def _serving_turns(card, libs, server, x, label, module, entries, want, batches):
+    """``server``'s batch ``x`` with ``entries`` of ``module`` routed to each
+    library in turns; device busy from a profile of ``batches`` batches."""
+    import chip_smoke
+
+    turns = []
+    for who in TURNS:
+        with routed(libs[who], module, entries):
+            warm_ms, outs, peak_gb = _timed_steps(lambda: server.forward_batch(x))
+
+            def profiled():
+                for _ in range(batches):
+                    server.forward_batch(x)
+
+            _, busy_ms = chip_smoke.profile_window(
+                torch, profiled, f"{batches} {label}es, {who} library", rows=4,
+                want=want[who])
+        turns.append({"library": who, "warm_batch_ms": warm_ms,
+                      "device_busy_ms": busy_ms / batches, "peak_gb": peak_gb,
+                      "finite": bool(all(np.isfinite(out).all() for out in outs))})
+        print(f"{card}: {label} of {len(x)}, {who} library: warm batch {warm_ms:.3f} "
+              f"ms median of {STEPS}, device busy {busy_ms / batches:.3f} ms a batch, "
+              f"peak {peak_gb:.2f} GB; outputs "
+              f"{'finite' if turns[-1]['finite'] else 'NOT FINITE'}", flush=True)
     return turns
 
 
@@ -246,8 +318,9 @@ def b2_step_turns(card: str, libs: dict) -> dict:
     from vit_ssl_tpu_torch.serve import Server
 
     cfg = chip_smoke.VIT_B16_512
-    rows = {"training": _training_turns(card, libs, cfg, "ViT-B/16 512 px", fb,
-                                        B2_ENTRIES, bodies_in(libs, "b2"))}
+    want = bodies_in(libs, "b2")
+    rows = {"training": _training_turns(card, libs, lambda: supervised_step(cfg),
+                                        "ViT-B/16 512 px", fb, B2_ENTRIES, want)}
     batch, img = cfg["training"]["batch_size"], cfg["data"]["img_size"]
     with tempfile.TemporaryDirectory() as tmp:
         pth = f"{tmp}/vit_b16_{img}.pth"
@@ -256,26 +329,8 @@ def b2_step_turns(card: str, libs: dict) -> dict:
         del model
         server = Server(pth, batch_size=batch, device="cuda")
     x = np.random.default_rng(5).random((batch, img, img, 3), np.float32)
-    turns = []
-    for who in ("other", "this", "this", "other"):
-        with routed(libs[who], fb, B2_ENTRIES):
-            warm_ms, outs, peak_gb = _timed_steps(lambda: server.forward_batch(x))
-
-            def three_batches():
-                for _ in range(3):
-                    server.forward_batch(x)
-
-            _, busy_ms = chip_smoke.profile_window(
-                torch, three_batches, f"3 ViT-B/16 512-px served batches, {who} library",
-                rows=4, want=bodies_in(libs, "b2")[who])
-        turns.append({"library": who, "warm_batch_ms": warm_ms,
-                      "device_busy_ms": busy_ms / 3, "peak_gb": peak_gb,
-                      "finite": bool(all(np.isfinite(out).all() for out in outs))})
-        print(f"{card}: ViT-B/16 512 px served batch of {batch}, {who} library: warm "
-              f"batch {warm_ms:.3f} ms median of {STEPS}, device busy {busy_ms / 3:.2f} "
-              f"ms a batch, peak {peak_gb:.2f} GB; logits "
-              f"{'finite' if turns[-1]['finite'] else 'NOT FINITE'}", flush=True)
-    rows["serving"] = turns
+    rows["serving"] = _serving_turns(card, libs, server, x, "ViT-B/16 512-px served batch",
+                                     fb, B2_ENTRIES, want, batches=3)
     return rows
 
 
@@ -337,6 +392,106 @@ def b3_main(card, other_lib, this_lib):
     return {"shape": SHAPE, "entries": rows, "steps": step_turns(card, libs)}
 
 
+def b1_entry_turns(card, libs):
+    """B1's two forward entries of both libraries at each B1_SHAPES shape:
+    held to the plain version, device and host times in turns, beside SDPA
+    and the bound."""
+    import chip_smoke
+
+    rows = {}
+    for b, n, h, d, bs, entries in B1_SHAPES:
+        scale = 1.0 / d ** 0.5
+        g = torch.Generator(device="cuda").manual_seed(0)
+        xq, xk, xv = (torch.randn(b, n, h * d, generator=g, device="cuda").to(torch.bfloat16)
+                      for _ in range(3))
+        ref = fa.attention_nhd_reference(xq, xk, xv, h, scale, bs)
+        ref_stats = fa.attention_nhd_stats_reference(xq, xk, h, scale, bs)
+        heads = [x.view(b, n, h, d).transpose(1, 2) for x in (xq, xk, xv)]
+        mask = None
+        if bs:
+            block = torch.arange(n, device="cuda") // bs
+            mask = block[:, None] == block[None, :]
+        for name in entries:
+            calls = {who: chip_smoke.b1_bare(torch, fa, name, xq, xk, xv, h, scale, bs,
+                                             entry_fn(lib, name))
+                     for who, lib in libs.items()}
+            got = {who: [x.clone() for x in call()] for who, call in calls.items()}
+            torch.cuda.synchronize()
+            errs, agree = {}, True
+            for who, outs in got.items():
+                o = outs[0].float()
+                errs[who] = [float((o - ref.float()).abs().max())]
+                agree = agree and bool(((o - ref.float()).abs()
+                                        <= 1e-2 + 1e-2 * ref.float().abs()).all())
+                if name == fa.KERNEL_TRAIN:
+                    errs[who].append(_rel(outs[1][:, :, :n], ref_stats))
+                    agree = agree and errs[who][1] <= chip_smoke.STATS_REL_TOL
+            turns = [cuda_ms(calls[who]) for who in TURNS]
+            hosts = [chip_smoke.host_us(calls[who]) for who in TURNS]
+            wrapper = {fa.KERNEL: fa.attention_nhd_fwd,
+                       fa.KERNEL_TRAIN: fa.attention_nhd_fwd_stats}[name]
+            wrapped = []
+            for who in TURNS:
+                with routed(libs[who], fa, B1_ENTRIES):
+                    wrapped.append(cuda_ms(lambda: wrapper(xq, xk, xv, h, scale, bs)))
+            sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                *heads, attn_mask=mask, scale=scale))
+            bound = (chip_smoke.attention_bound(b, n, h, d, "bfloat16", bs)
+                     if name == fa.KERNEL else
+                     chip_smoke.attention_train_bounds(b, n, h, d, "bfloat16", bs)["fwd"])
+            key = f"{name} ({b}, {n}, {h}x{d}, bs {bs})"
+            rows[key] = {"other_ms": [turns[0], turns[3]], "this_ms": [turns[1], turns[2]],
+                         "other_host_us": [hosts[0], hosts[3]],
+                         "this_host_us": [hosts[1], hosts[2]],
+                         "other_wrapper_ms": [wrapped[0], wrapped[3]],
+                         "this_wrapper_ms": [wrapped[1], wrapped[2]], "sdpa_ms": sdpa,
+                         "bound_ms": bound[0], "bound_by": bound[1],
+                         "ratio": min(turns[1:3]) / min(turns[0], turns[3]),
+                         "agree": agree, "other_vs_plain": errs["other"],
+                         "this_vs_plain": errs["this"], "form": fa.attention_nhd_form(n)}
+            print(f"{card}: {key} bf16 ({fa.attention_nhd_form(n)}): other "
+                  f"{turns[0]:.4f} / {turns[3]:.4f} ms, this {turns[1]:.4f} / "
+                  f"{turns[2]:.4f} ms ({rows[key]['ratio']:.3f}x); through the wrapper, back "
+                  f"to back: other {wrapped[0]:.4f} / {wrapped[3]:.4f} ms, this "
+                  f"{wrapped[1]:.4f} / {wrapped[2]:.4f} ms; SDPA{' (mask)' if bs else ''} "
+                  f"{sdpa:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); host a launch: "
+                  f"other {hosts[0]:.2f} / {hosts[3]:.2f} us, this {hosts[1]:.2f} / "
+                  f"{hosts[2]:.2f} us; o max_abs"
+                  + ("/stats rel_err" if name == fa.KERNEL_TRAIN else "")
+                  + " vs plain: other " + "/".join(f"{e:.3e}" for e in errs["other"])
+                  + ", this " + "/".join(f"{e:.3e}" for e in errs["this"])
+                  + ("; ok" if agree else "; MISS"), flush=True)
+        del xq, xk, xv, ref, heads
+    return rows
+
+
+def b1_step_turns(card: str, libs: dict) -> dict:
+    """The DINO ViT-S/8 training step and a served batch of 128 with B1's
+    forward entries on each library in turns (other, this, this, other):
+    warm ms, device busy ms and peak GB; whether every loss and embedding
+    was finite."""
+    import chip_smoke
+    from vit_ssl_tpu_torch.serve import Server
+
+    want = bodies_in(libs, "b1")
+    rows = {"training": _training_turns(card, libs, dino_step, "DINO ViT-S/8", fa,
+                                        B1_ENTRIES, want)}
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = f"{tmp}/dino_vit_s8.pth"
+        chip_smoke.write_checkpoint(torch, chip_smoke.DINO_VIT_S8, pth)
+        server = Server(pth, batch_size=chip_smoke.SERVE_BATCH, device="cuda")
+    img = chip_smoke.DINO_VIT_S8["data"]["img_size"]
+    x = np.random.default_rng(0).random((chip_smoke.SERVE_BATCH, img, img, 3), np.float32)
+    rows["serving"] = _serving_turns(card, libs, server, x, "served DINO batch", fa,
+                                     B1_ENTRIES, want, batches=5)
+    return rows
+
+
+def b1_main(card, other_lib, this_lib):
+    libs = {"other": other_lib, "this": this_lib}
+    return {"entries": b1_entry_turns(card, libs), "steps": b1_step_turns(card, libs)}
+
+
 def b2_main(card, other_lib, this_lib):
     libs = {"other": other_lib, "this": this_lib}
     shapes = {}
@@ -368,10 +523,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", type=Path, required=True,
                         help="root of the other checkout")
-    parser.add_argument("--kernel", choices=("b3", "b2"), default="b3",
+    parser.add_argument("--kernel", choices=("b3", "b2", "b1"), default="b3",
                         help="b3: fused_attention's three entries and the 384-px step; "
                              "b2: blockwise_fwd and blockwise_fwd_exp2, the 512-px step "
-                             "and served batch")
+                             "and served batch; b1: attention_nhd_fwd and "
+                             "attention_nhd_fwd_stats, the DINO step and served batch")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("b3_turns: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -380,15 +536,15 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    library = fa.FUSED_LIBRARY if args.kernel == "b3" else fb.FWD_LIBRARY
+    library, run = {"b3": (fa.FUSED_LIBRARY, b3_main), "b2": (fb.FWD_LIBRARY, b2_main),
+                    "b1": (fa.KERNEL, b1_main)}[args.kernel]
     this_lib = kernels.load(library)
     with tempfile.TemporaryDirectory() as tmp:
         other_lib = build_other(args.other.resolve(), Path(tmp), library)
-        run = b3_main if args.kernel == "b3" else b2_main
         result = {"card": card, "kernel": args.kernel, **run(card, other_lib, this_lib)}
     print(json.dumps(result), flush=True)
-    entries = ([result["entries"]] if args.kernel == "b3"
-               else [s["entries"] for s in result["shapes"].values()])
+    entries = ([s["entries"] for s in result["shapes"].values()] if args.kernel == "b2"
+               else [result["entries"]])
     legs = [leg for leg in result["steps"].values()]
     return 0 if (all(r["agree"] for rows in entries for r in rows.values())
                  and all(t["finite"] for leg in legs for t in leg)) else 1
