@@ -81,12 +81,16 @@ Phases, each printing its own lines; any failure exits non-zero:
               dims 32 and 128, bf16 and fp32; in bf16 also P1 against its
               plain version, both forwards bit-equal on a second call, and
               each head kept to its own rows (a NaN planted in one head's
-              K) (run beside the other kernel checks, before any model)
+              K), forwards and backward (and, apart, in one head's dO)
+              (run beside the other kernel checks, before any model)
 14. supervised serving and training at 512 px (N = 1025) — phases 11 and
               12 at full width and depth with every block on B2: 12 B2
               forwards a served batch and an ``eval_step``, 12 forwards, 12
-              dq and 12 dk/dv launches a training step
-15. B2 times — kernel, plain, SDPA and bound at (64, 12, 1025, 64) bf16
+              dq and 12 dk/dv launches a training step, and a profile of
+              three steps naming the Hopper backward's two kernels 36 times
+              each and no mma.sync backward body
+15. B2 times — kernel, plain, SDPA and bound at (64, 12, 1025, 64) bf16,
+              beside the mma.sync backward's recorded times
 16. exp2 probe — ``vit_ssl_tpu_torch/scripts/exp2_probe.py``: P1
               (``blockwise_fwd_exp2``) against B2's forward, both timed; P1
               against its plain version
@@ -967,6 +971,40 @@ def blockwise_head_isolation(torch, fb):
               flush=True)
         if not ok:
             fail(f"{forward.__name__} reads across heads")
+    for where in ("k", "do"):
+        blockwise_bwd_head_isolation(torch, fb, where)
+
+
+def blockwise_bwd_head_isolation(torch, fb, where):
+    """With a NaN planted in head 1's K (its o and lse NaN too) or, apart,
+    in head 1's dO, heads 0 and 2 of B2's bf16 backward (with an lse
+    cotangent) give dq, dk and dv that are finite and within GRAD_REL_TOL
+    (floored, B2_GRAD_FLOOR) of the plain version of each head alone: no
+    tile, statistic or delta is read from another head."""
+    b, h, n, d = 2, 3, 1025, 64
+    q, k, v, do = heads_qkv(b, h, n, d, torch.bfloat16, seed=875, count=4)
+    dlse = torch.randn(b, h, n, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(876))
+    {"k": k, "do": do}[where][:, 1, n // 2, 3] = float("nan")
+    out, lse = fb.blockwise_attention_fwd(q, k, v, 0.125)
+    got = fb.blockwise_attention_bwd(q, k, v, out, lse, do, 0.125, dlse)
+    torch.cuda.synchronize()
+    ok = not bool(torch.isfinite(got[0][:, 1]).all())  # the NaN spreads in its head
+    errs = []
+    for head in (0, 2):
+        alone = [x[:, head:head + 1].contiguous() for x in (q, k, v, out, lse, do)]
+        want = fb.blockwise_attention_bwd_reference(*alone, 0.125,
+                                                    dlse[:, head:head + 1].contiguous())
+        mine = [g[:, head:head + 1] for g in got]
+        rel = b2_grad_errs(*alone[:3], alone[5], 0.125, mine, want)
+        ok = ok and all(bool(torch.isfinite(g).all()) for g in mine)
+        ok = ok and max(rel) <= GRAD_REL_TOL["bfloat16"]
+        errs.append("/".join(f"{e:.3e}" for e in rel))
+    print(f"  backward head isolation ({b},{h},{n},{d}) bfloat16, NaN in head 1's "
+          f"{'K' if where == 'k' else 'dO'}: heads 0 and 2 dq/dk/dv rel_err "
+          f"{'; '.join(errs)} against each head alone {'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        fail("blockwise_attention_bwd reads across heads")
 
 
 def phase_mlp_kernels(torch, fm):
@@ -1308,19 +1346,22 @@ def phase_serving_fused(torch, fa, fm, tmp, x, unfused_out, card):
 PROFILE_SESSIONS = 5
 
 
-def profile_window(torch, fn, label, rows=14, want=()):
+def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=()):
     """Device busy and idle share of ``fn`` under ``torch.profiler``, and
     the top device operations. ``fn`` runs twice a session: a warm-up cycle
     of the profiler, not recorded, then the recorded one. A session can lose
     all or some of its device events (on an NVIDIA H100 80GB HBM3 with
     torch 2.11 one now and then recorded none, whatever the window's
     length), so sessions repeat, up to PROFILE_SESSIONS, until one records
-    some device operation and every name in ``want`` (a name or a tuple of
-    names); that session is the one reported. Fails if none does. Returns
-    (idle share, device busy ms)."""
+    some device operation, every name in ``want`` (a name or a tuple of
+    names) and, for each name of ``counts``, that many launches of kernels
+    whose names hold it; that session is the one reported. Fails if none
+    does, or if a session records a kernel whose name holds one of
+    ``absent``. Returns (idle share, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     wants = (want,) if isinstance(want, str) else tuple(want)
+    counts = counts or {}
     for session in range(1, PROFILE_SESSIONS + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1339,6 +1380,14 @@ def profile_window(torch, fn, label, rows=14, want=()):
                         and not e.key.startswith("ProfilerStep")]
         missing = [name for name in wants
                    if not any(name in key for key in device_names)]
+        launched = {name: sum(e.count for e in events
+                              if e.device_type == torch.autograd.DeviceType.CUDA
+                              and name in e.key) for name in counts}
+        missing += [f"{name} x{count} (got {launched[name]})"
+                    for name, count in counts.items() if launched[name] != count]
+        stray = [key for key in device_names if any(name in key for name in absent)]
+        if stray:
+            fail(f"the profile of {label} names {stray}")
         if device_names and not missing:
             break
         print(f"  profile of {label}: session {session} recorded "
@@ -1346,7 +1395,7 @@ def profile_window(torch, fn, label, rows=14, want=()):
               + (f", none named {missing}" if missing else ""), flush=True)
     else:
         fail(f"{PROFILE_SESSIONS} profiles of {label} recorded no device operation"
-             + (f" named {missing}" if wants else ""))
+             + (f" named {missing}" if wants or counts else ""))
     # device-side entries only (kernels, copies); CPU ops repeat their time,
     # and so does the schedule's ProfilerStep range on the device
     device_us = sum(e.self_device_time_total for e in events
@@ -2042,15 +2091,17 @@ def build_supervised_training(torch, cfg=VIT_B16_384):
     return state, train_step, eval_step, batch
 
 
-# ViT-B/16 at 384 px, (img, fused FFN) -> (warm step ms, device busy ms a
-# step, peak GB) of this script's run on the mma.sync backward that
-# attention_bwd_sm90.cuh replaced (NVIDIA H100 80GB HBM3, 700 W)
+# ViT-B/16, (img, fused FFN) -> (warm step ms, device busy ms a step, peak
+# GB) of this script's runs on the mma.sync backwards that
+# attention_bwd_sm90.cuh replaced (NVIDIA H100 80GB HBM3, 700 W): B3's at
+# 384 px, B2's at 512 px
 SUPERVISED_BEFORE = {(384, False): (124.791, 120.38, 16.79),
-                     (384, True): (193.324, 188.31, 14.12)}
+                     (384, True): (193.324, 188.31, 14.12),
+                     (512, False): (211.792, 209.05, 29.72)}
 
 
 def phase_supervised_training(torch, fa, card, cfg, per_step, per_eval, suffix,
-                              guards=(), fused=False):
+                              guards=(), fused=False, profiled=None, absent=()):
     """The ViT-B/16 training step of ``cfg`` at batch 64: two warm-up
     steps, then TIMED_STEPS steps under the plain-version guards, each
     launching exactly ``per_step`` (at 384 px 12 each of B3's training
@@ -2059,8 +2110,10 @@ def phase_supervised_training(torch, fa, card, cfg, per_step, per_eval, suffix,
     kernels); losses finite, every parameter moved; peak memory; agreement
     with the reference step from one cloned state (plain attention, or,
     when ``fused``, the unfused FFN); ``eval_step``'s ``per_eval``
-    launches; a profile of three steps. Returns the launches of the
-    training and eval paths, named with ``suffix``."""
+    launches; a profile of three steps (``profiled``: kernel name -> its
+    launches in them; ``absent``: names no kernel of theirs may hold).
+    Returns the launches of the training and eval paths, named with
+    ``suffix``."""
     from vit_ssl_tpu_torch import kernels
 
     b, img = cfg["training"]["batch_size"], cfg["data"]["img_size"]
@@ -2114,7 +2167,7 @@ def phase_supervised_training(torch, fa, card, cfg, per_step, per_eval, suffix,
           f"{TIMED_STEPS} ({b / warm_ms * 1e3:.1f} img/s), host clock with "
           f"torch.cuda.synchronize(), device augmentation included; peak memory "
           f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)"
-          + (f"; before B3's Hopper backward: {before_pr[0]} ms, {before_pr[2]} GB"
+          + (f"; before the Hopper backward: {before_pr[0]} ms, {before_pr[2]} GB"
              if before_pr else ""), flush=True)
 
     kernel_state, ref_state = copy.deepcopy(state), copy.deepcopy(state)
@@ -2146,9 +2199,10 @@ def phase_supervised_training(torch, fa, card, cfg, per_step, per_eval, suffix,
             train_step(state, batch)
 
     _, busy_ms = profile_window(torch, three_steps, f"3 supervised training steps at {img} px"
-                                + (" (fused FFN)" if fused else ""), rows=25)
+                                + (" (fused FFN)" if fused else ""), rows=25,
+                                counts=profiled, absent=absent)
     print(f"  device busy a step {busy_ms / 3:.2f} ms"
-          + (f" (before B3's Hopper backward: {before_pr[1]} ms)" if before_pr else ""),
+          + (f" (before the Hopper backward: {before_pr[1]} ms)" if before_pr else ""),
           flush=True)
     return {"training_supervised" + suffix: train_launches,
             "eval_supervised" + suffix: eval_launches}
@@ -2229,13 +2283,26 @@ def phase_fused_times(torch, fa, card):
     return rows
 
 
+# B2's bf16 backward: each C entry's Hopper body (attention_bwd_sm90.cuh),
+# and the mma.sync bodies they replaced, with those bodies' times at
+# (64, 12, 1025, 64) as this script measured them through the wrapper on an
+# NVIDIA H100 80GB HBM3 at 700 W; printed beside this run's, never in the
+# kernels line
+B2_BWD_BODIES = {"blockwise_bwd_dq": "blockwise_bwd_dq_sm90_kernel",
+                 "blockwise_bwd_dkv": "blockwise_bwd_dkv_sm90_kernel"}
+B2_MMA_SYNC_BODIES = ("blockwise_dq_bf16_kernel", "blockwise_dkv_bf16_kernel")
+B2_MMA_SYNC_MS = {"dq": 1.2437, "dkv": 1.7576}
+
+
 def phase_blockwise_times(torch, fb, card):
     """B2's three entries at ViT-B/16's (64, 12, 1025, 64) bf16, CUDA
     events: kernel twice around its plain version (the forward at the
     kernel's key tile; for the dq and dk/dv kernels the whole plain
     backward, which computes both), and SDPA on the same contiguous heads
     (forward; for both backward kernels its whole backward through
-    autograd). Returns the JSON rows."""
+    autograd), and the mma.sync backward's recorded times. Then a profile
+    of 5 backward calls, which must show the Hopper bodies 5 times each and
+    no mma.sync body. Returns the JSON rows."""
     import torch.nn.functional as F
 
     b, h, n, d, dtype_name = BLOCKWISE_CASES[0]
@@ -2271,14 +2338,21 @@ def phase_blockwise_times(torch, fb, card):
         library_ms = cuda_ms(library)
         second = cuda_ms(kernel)
         bound_ms, bound_by = bounds[part]
-        print(f"  {name}: kernel {first:.4f} / {second:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-              flush=True)
-        rows[part] = {"ms": min(first, second), "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": library_ms}
+        row = {"ms": min(first, second), "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms}
+        extra = ""
+        if part in B2_MMA_SYNC_MS:
+            row["body"] = B2_BWD_BODIES[name]
+            extra = f", the mma.sync body it replaced {B2_MMA_SYNC_MS[part]} ms"
+        print(f"  {name}: kernel {first:.4f} / {second:.4f} ms{extra}, plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+        rows[part] = row
     rows["dq"]["plain_is"] = rows["dkv"]["plain_is"] = "the whole plain backward"
     rows["dq"]["library_is"] = rows["dkv"]["library_is"] = "SDPA's whole backward"
+    print(f"  the pair: {rows['dq']['ms'] + rows['dkv']['ms']:.4f} ms, SDPA's whole backward "
+          f"{rows['dq']['library_ms']:.4f} ms, the mma.sync pair "
+          f"{B2_MMA_SYNC_MS['dq'] + B2_MMA_SYNC_MS['dkv']:.4f} ms", flush=True)
     f32 = [x.float() for x in (q, k, v)]
     f32_ms = cuda_ms(lambda: fb.blockwise_attention_fwd(*f32, scale), iters=10)
     f32_bound = blockwise_bounds(b, h, n, d, "float32")["fwd"]
@@ -2286,7 +2360,9 @@ def phase_blockwise_times(torch, fb, card):
           f"{f32_bound[0]:.4f} ms ({f32_bound[1]})", flush=True)
     profile_window(torch, lambda: [fb.blockwise_attention_bwd(q, k, v, out, lse, do, scale)
                                    for _ in range(5)],
-                   "5 blockwise_attention_bwd calls (its two kernels)", rows=4)
+                   "5 blockwise_attention_bwd calls (its two kernels)", rows=6,
+                   counts={body: 5 for body in B2_BWD_BODIES.values()},
+                   absent=B2_MMA_SYNC_BODIES)
     return rows
 
 
@@ -2420,7 +2496,9 @@ def main() -> int:
     sup512_paths = phase_supervised_training(
         torch, fa, card, VIT_B16_512,
         {fb.KERNEL: blocks, fb.KERNEL_DQ: blocks, fb.KERNEL_DKV: blocks},
-        {fb.KERNEL: blocks}, "_512")
+        {fb.KERNEL: blocks}, "_512",
+        profiled={body: 3 * blocks for body in B2_BWD_BODIES.values()},
+        absent=B2_MMA_SYNC_BODIES)
     blockwise_stats = phase_blockwise_times(torch, fb, card)
     probe_launches, p1_stats, p1_err = phase_exp2_probe(torch, fb, card)
     masked_stats = phase_masked_times(torch, mm, card)
@@ -2486,9 +2564,9 @@ def main() -> int:
     entries += [
         (fb.KERNEL, "flash_blockwise_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_blockwise.py:76",
          b2_case["fwd"], {**blockwise_stats["fwd"], "lse_max_abs_err": b2_case["lse"]}),
-        (fb.KERNEL_DQ, "flash_blockwise_bwd.cu", "vit_ssl_tpu/ops/flash_blockwise.py:217",
+        (fb.KERNEL_DQ, "attention_bwd_sm90.cuh", "vit_ssl_tpu/ops/flash_blockwise.py:217",
          b2_case["dq"], blockwise_stats["dq"]),
-        (fb.KERNEL_DKV, "flash_blockwise_bwd.cu", "vit_ssl_tpu/ops/flash_blockwise.py:168",
+        (fb.KERNEL_DKV, "attention_bwd_sm90.cuh", "vit_ssl_tpu/ops/flash_blockwise.py:168",
          b2_case["dkv"], blockwise_stats["dkv"]),
         (fb.KERNEL_EXP2, "flash_blockwise_fwd_sm90.cuh", "scripts/exp2_probe.py:27",
          p1_err, p1_stats),

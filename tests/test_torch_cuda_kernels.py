@@ -745,6 +745,14 @@ BLOCKWISE_CASES = [
     (4, 2, 1100, 128, "bfloat16"),
     (4, 2, 1100, 128, "float32"),
 ]
+# The bf16 backward's ragged edges past 1024: one query and key tile past a
+# 64-row edge (1088 = 17 tiles; 1089 one row into the 18th) and a whole
+# 128-row block (1152 = 9 blocks)
+BLOCKWISE_BWD_EDGES = [
+    (4, 4, 1088, 64, "bfloat16"),
+    (4, 4, 1089, 64, "bfloat16"),
+    (4, 4, 1152, 64, "bfloat16"),
+]
 # lse: max |kernel - plain| over max |plain|; the scores' sums run in
 # another order, and the bf16 kernels' exponentials are ex2.approx
 LSE_REL_TOL = 1e-5
@@ -787,12 +795,13 @@ def test_blockwise_forward_matches_plain(cuda_device, b, h, n, d, dtype):
 
 
 @pytest.mark.parametrize("with_dlse", [True, False], ids=["dlse", "no-dlse"])
-@pytest.mark.parametrize("b,h,n,d,dtype", BLOCKWISE_CASES)
+@pytest.mark.parametrize("b,h,n,d,dtype", BLOCKWISE_CASES + BLOCKWISE_BWD_EDGES)
 def test_blockwise_backward_matches_plain(cuda_device, b, h, n, d, dtype, with_dlse):
     """blockwise_bwd_dq and blockwise_bwd_dkv once each: dq, dk, dv within
     GRAD_REL_TOL of max|plain| (floored, _blockwise_grad_errs) from the same
-    o and lse, with and without an lse cotangent; a second call gives the
-    same bits (no atomics)."""
+    o and lse, with and without an lse cotangent, at every case and at the
+    bf16 backward's ragged edges; a second call gives the same bits (no
+    atomics)."""
     dt = getattr(torch, dtype)
     q, k, v = _head_inputs(b, h, n, d, dt, cuda_device, seed=b + n + 3)
     (do,) = _head_inputs(b, h, n, d, torch.float32, cuda_device, seed=13)[:1]
@@ -875,6 +884,99 @@ def test_blockwise_forward_keeps_to_its_head(cuda_device, n):
             assert torch.isfinite(got).all() and torch.isfinite(lse[:, head]).all()
             torch.testing.assert_close(got.float(), ref.float(), **BF16_TOL)
             assert _rel_err(lse[:, head:head + 1], ref_lse) <= LSE_REL_TOL
+
+
+@pytest.mark.parametrize("where", ["k", "do"])
+@pytest.mark.parametrize("n", [1025, 70])
+def test_blockwise_backward_keeps_to_its_head(cuda_device, n, where):
+    """A tile, a statistic or a delta read past row n of one head would
+    read the next head's: with a NaN planted in head 1's K (so its o and
+    lse are NaN too), and apart from that in head 1's dO, the backward's
+    dq, dk and dv of heads 0 and 2 stay finite and within GRAD_REL_TOL
+    (floored) of the plain version of each head alone, with an lse
+    cotangent."""
+    b, h, d = 2, 3, 64
+    q, k, v, do = (_head_inputs(b, h, n, d, torch.bfloat16, cuda_device, seed=n + 24)
+                   + _head_inputs(b, h, n, d, torch.bfloat16, cuda_device, seed=n + 25))[:4]
+    dlse = torch.randn(b, h, n, device=cuda_device,
+                       generator=torch.Generator(device=cuda_device).manual_seed(26))
+    {"k": k, "do": do}[where][:, 1, n // 2, 3] = float("nan")
+    out, lse = fb.blockwise_attention_fwd(q, k, v, 0.125)
+    got = fb.blockwise_attention_bwd(q, k, v, out, lse, do, 0.125, dlse)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(got[0][:, 1]).all()  # the NaN spreads in its head
+    for head in (0, 2):
+        alone = [x[:, head:head + 1].contiguous() for x in (q, k, v, out, lse, do)]
+        want = fb.blockwise_attention_bwd_reference(*alone, 0.125,
+                                                    dlse[:, head:head + 1].contiguous())
+        mine = [g[:, head:head + 1] for g in got]
+        errs = _blockwise_grad_errs(*alone[:3], alone[5], 0.125, mine, want)
+        for name, g, err in zip(("dq", "dk", "dv"), mine, errs):
+            assert torch.isfinite(g).all(), (head, name)
+            assert err <= GRAD_REL_TOL["bfloat16"], (head, name, err)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_blockwise_bf16_backward_runs_the_hopper_kernels(cuda_device, d):
+    """A bf16 backward launches the two kernels of attention_bwd_sm90.cuh in
+    its lse form at every head dim, shown by name in a profile of the call
+    (:func:`_device_kernel_names`), and no other bf16 body; the library
+    holds none of the mma.sync bodies they replaced."""
+    q, k, v, do = (_head_inputs(2, 4, 1025, d, torch.bfloat16, cuda_device, seed=d + 27)
+                   + _head_inputs(2, 4, 1025, d, torch.bfloat16, cuda_device, seed=d + 28))[:4]
+    out, lse = fb.blockwise_attention_fwd(q, k, v, d ** -0.5)
+    want = (f"blockwise_bwd_dq_sm90_kernel<{d}>", f"blockwise_bwd_dkv_sm90_kernel<{d}>")
+    names = _device_kernel_names(
+        lambda: fb.blockwise_attention_bwd(q, k, v, out, lse, do, d ** -0.5), want=want)
+    assert all(name in names for name in want), names
+    assert "bf16_kernel" not in names, names
+    binary = kernels.library_path(fb.BWD_LIBRARY).read_bytes()
+    assert b"blockwise_bwd_dq_sm90_kernel" in binary
+    assert b"blockwise_dq_bf16_kernel" not in binary and b"blockwise_dkv_bf16_kernel" not in binary
+
+
+def test_vit_512_step_runs_the_hopper_backward(cuda_device):
+    """ViT-B/16's widths at 512 px (N = 1025; 2 of its 12 blocks, batch 2,
+    bf16, dropout on): a training forward and backward launches B2's
+    forward, dq and dk/dv once a block by the launch counters, and a
+    profile of the step names the Hopper backward's kernels on every dq and
+    dk/dv launch and no other backward body."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_ssl_tpu_torch.models import ViT
+
+    blocks = 2
+    torch.manual_seed(0)
+    model = ViT(num_classes=1000, num_blocks=blocks, input_shape=(3, 512, 512),
+                embed_dim=768, patch_size=16, num_heads=12, mlp_dim=3072, dropout=0.1,
+                dtype=torch.bfloat16).to(cuda_device)
+    x = torch.rand(2, 512, 512, 3, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def step():
+        model.zero_grad()
+        model(x, deterministic=False, generator=gen).float().square().mean().backward()
+
+    step()
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    step()
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {fb.KERNEL: blocks, fb.KERNEL_DQ: blocks,
+                                      fb.KERNEL_DKV: blocks}
+    want = {"blockwise_bwd_dq_sm90_kernel<64>": blocks,
+            "blockwise_bwd_dkv_sm90_kernel<64>": blocks}
+    for _ in range(10):  # a session can lose device events (_device_kernel_names)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+        got = {name: sum(c for key, c in counts.items() if name in key) for name in want}
+        if got == want:
+            break
+    assert got == want, counts
+    assert not any("blockwise_d" in key and "bf16_kernel" in key for key in counts), counts
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])

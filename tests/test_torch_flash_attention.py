@@ -263,13 +263,15 @@ def test_b1_forward_form_refuses_lengths_the_kernels_do_not_take(n):
 
 
 def test_one_pass_limit_is_the_kernels():
-    """ONE_PASS_MAX_SEQ is the header's kOnePassTiles key tiles of kKeys,
-    and each form's kernel name is a kernel of that header."""
+    """ONE_PASS_MAX_SEQ is the header's kOnePassTiles key tiles of kKeys
+    (the tile of ``sm90_common.cuh``, which the Hopper bodies share), and
+    each form's kernel name is a kernel of that header."""
     import re
 
     header = (kernels.CSRC_DIR / "attention_fwd_sm90.cuh").read_text()
+    common = (kernels.CSRC_DIR / "sm90_common.cuh").read_text()
     tiles = re.findall(r"constexpr int kOnePassTiles = (\d+);", header)
-    keys = re.findall(r"constexpr int kKeys = (\d+);", header)
+    keys = re.findall(r"constexpr int kKeys = (\d+);", common)
     assert len(tiles) == len(keys) == 1
     assert fa.ONE_PASS_MAX_SEQ == int(tiles[0]) * int(keys[0])
     for name in fa.FORWARD_BODIES.values():

@@ -181,14 +181,17 @@ def test_bf16_forwards_match_jax_at_the_kernel_tile(d):
 
 
 def test_forward_key_tile_and_sources_are_the_kernels():
-    """``KERNEL_BLOCK_K`` is the bf16 body's key tile (``kKeys`` in
-    ``csrc/flash_blockwise_fwd_sm90.cuh``), and the forward library lists
-    that header and ``sm90_common.cuh`` among its sources, so an edit to
-    either rebuilds it; B3's library lists ``sm90_common.cuh`` too, and the
-    B2 library none of B3's headers."""
-    header = kernels.CSRC_DIR / "flash_blockwise_fwd_sm90.cuh"
-    tiles = re.findall(r"constexpr int kKeys = (\d+);", header.read_text())
+    """``KERNEL_BLOCK_K`` is the bf16 body's key tile (``kKeys`` of
+    ``csrc/sm90_common.cuh``, the tiles the Hopper bodies share, which
+    ``csrc/flash_blockwise_fwd_sm90.cuh`` takes and does not define again),
+    and the forward library lists that header and ``sm90_common.cuh`` among
+    its sources, so an edit to either rebuilds it; B3's library lists
+    ``sm90_common.cuh`` too, and the B2 library none of B3's headers."""
+    common = (kernels.CSRC_DIR / "sm90_common.cuh").read_text()
+    tiles = re.findall(r"constexpr int kKeys = (\d+);", common)
     assert tiles == [str(fb.KERNEL_BLOCK_K)]
+    body = (kernels.CSRC_DIR / "flash_blockwise_fwd_sm90.cuh").read_text()
+    assert "kKeys" in body and not re.findall(r"constexpr int kKeys\b", body)
     fwd = {p.name for p in kernels.source_files(fb.FWD_LIBRARY)}
     assert {"flash_blockwise_fwd.cu", "flash_blockwise_fwd_sm90.cuh",
             "sm90_common.cuh"} <= fwd

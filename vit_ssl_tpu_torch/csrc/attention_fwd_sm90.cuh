@@ -3,8 +3,9 @@
 // (kHeadMajor, as attention_fwd.cuh's bodies are): attention_nhd_fwd.cu
 // instantiates it for B1's (B, N, H*D) layout, fused_attention.cu for B3's
 // (B, H, N, D) layout. float32 stays on the CUDA-core body of
-// attention_fwd.cuh. Its Hopper primitives (mbarriers, TMA, wgmma, tensor
-// maps) are sm90_common.cuh's.
+// attention_fwd.cuh. Its tiles and Hopper pieces (mbarriers and the ring,
+// TMA, wgmma, descriptors, the row-guarded store, tensor maps) are
+// sm90_common.cuh's.
 //
 // Replaces the TPU kernels vit_ssl_tpu/ops/flash_attention.py::
 // _nhd_fwd_kernel (B1, both pallas_calls of _attention_nhd_fwd_impl) and
@@ -125,40 +126,20 @@
 #pragma once
 
 #include "attention_nhd_common.cuh"
-#include "sm90_common.cuh"  // mbarriers, TMA, wgmma, tensor maps
+#include "sm90_common.cuh"  // tiles, ring, TMA, wgmma, descriptors, tensor maps
 
 namespace {
 namespace sm90 {
 
-constexpr int kConsumers = 2;                     // consumer warpgroups (two-pass)
-constexpr int kRowsWG = 64;                       // query rows a consumer
-constexpr int kRowsBlock = kConsumers * kRowsWG;  // query rows a block (two-pass)
+// The two-pass form: Shape<D>'s blocks (two consumer warpgroups, at most
+// 113 registers a thread at two blocks an SM) and a producer warp.
 constexpr int kProducerWarp = 4 * kConsumers;     // after the consumers
 constexpr int kBlockThreads = 32 * (kProducerWarp + 1);
-constexpr int kStages = 4;
-constexpr int kKeys = 64;  // keys a tile
 // The longest sequence the one-pass form takes (B1 only): four key tiles,
 // 128 score registers a thread, three blocks an SM still at D = 64.
 // ops/flash_attention.py::ONE_PASS_MAX_SEQ.
 constexpr int kOnePassTiles = 4;
 constexpr int kOnePassMaxSeq = kOnePassTiles * kKeys;
-
-template <int D>
-struct Shape : HeadTile<D> {  // kSwz, kRowBytes, kSubs, kLayout
-  using HeadTile<D>::kRowBytes;
-  static constexpr int kQBytes = kRowsWG * D * 2;        // one consumer's Q
-  static constexpr int kTileBytes = kKeys * D * 2;       // one K or V tile
-  static constexpr int kQSub = kRowsWG * kRowBytes;      // Q box bytes
-  static constexpr int kTileSub = kKeys * kRowBytes;     // K/V box bytes
-  static constexpr int kBarrierOffset =
-      kConsumers * kQBytes + kStages * 2 * kTileBytes;
-  // + 1024 so the base can be rounded up to the 1024-byte swizzle atom
-  static constexpr size_t kSmem = 1024 + kBarrierOffset + 8 * (2 * kStages + 1);
-  // blocks an SM holds: two at D <= 64 (at most 113 registers a thread and
-  // 81 KB of shared memory each), one at D = 128 (its O accumulator needs
-  // more registers)
-  static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
-};
 
 // The one-pass form's shared memory: Q (64 rows), T tiles of K, T tiles of
 // V, two mbarriers.
@@ -188,16 +169,6 @@ __device__ __forceinline__ MapAt map_at(int b, int h, int heads) {
   return {h * D, b};
 }
 
-// One head's `rows` rows at `row` of a map into `dst`, box by box.
-template <int D>
-__device__ __forceinline__ void tma_head(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         MapAt at, int row, int box_bytes) {
-#pragma unroll
-  for (int sub = 0; sub < HeadTile<D>::kSubs; ++sub)
-    tma_load_3d(dst + sub * box_bytes, map, bar, at.col + sub * HeadTile<D>::kSwz, row,
-                at.plane);
-}
-
 // The keys a query row keeps: its diagonal block (block_size > 0), else
 // every key before n (a row past n included: its output is never stored).
 __device__ __forceinline__ Span row_keys(int row, int n, int block_size) {
@@ -218,28 +189,15 @@ __device__ __forceinline__ void mask_keys(float (&s)[kKeys / 2], int k0, int t, 
 }
 
 // A warp's 16 output rows (row_lo, row_lo + 8) from the O accumulator as
-// bf16, rows >= n skipped.
+// bf16, rows >= n skipped. The accumulator layout is sm90_common.cuh's:
+// columns 16kk .. 16kk + 15 of S, packed to bf16, are P.V's A fragment for
+// keys 16kk .. 16kk + 15.
 template <int D, bool kHeadMajor>
 __device__ __forceinline__ void store_o(bf16* __restrict__ o, const float (&acc)[D / 2],
                                         int b, int h, int n, int heads, int row_lo, int t) {
   const HeadRows rows = head_rows<kHeadMajor, D>(b, h, n, heads);
-  bf16* lo = o + rows.base + (size_t)row_lo * rows.stride + 2 * t;
-  bf16* hi = lo + (size_t)8 * rows.stride;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (row_lo < n)
-      *reinterpret_cast<uint32_t*>(lo + 8 * j) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
-    if (row_lo + 8 < n)
-      *reinterpret_cast<uint32_t*>(hi + 8 * j) = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
-  }
+  store_acc<D>(o + rows.base, acc, row_lo, n, t, rows.stride);
 }
-
-// Accumulator layout (wgmma m64nN, as mma.sync's m16n8 per warp): warp w
-// of a consumer holds rows 16w + g and 16w + g + 8 (g = lane / 4); for
-// column block j (8 columns), d[4j], d[4j + 1] are row 16w + g, columns
-// 8j + 2t, 8j + 2t + 1 (t = lane % 4), and d[4j + 2], d[4j + 3] the same
-// columns of row 16w + g + 8. Columns 16kk .. 16kk + 15 of S, packed to
-// bf16, are P.V's A fragment for keys 16kk .. 16kk + 15.
 
 // ---------------------------------------------------------------------------
 // one pass: grid (ceil(n / 64), heads, batch), 128 threads (one consumer
@@ -268,14 +226,14 @@ __global__ void __launch_bounds__(128, OnePass<D, T>::kMinBlocks)
     mbar_init(v_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(qk_bar, S::kQBytes + T * S::kTileBytes);
-    tma_head<D>(q_smem, &tq, qk_bar, at, q0, S::kQSub);
+    tma_rows<D>(q_smem, &tq, qk_bar, q0, at.plane, at.col);
 #pragma unroll
     for (int j = 0; j < T; ++j)
-      tma_head<D>(k_smem + j * S::kTileBytes, &tk, qk_bar, at, j * kKeys, S::kTileSub);
+      tma_rows<D>(k_smem + j * S::kTileBytes, &tk, qk_bar, j * kKeys, at.plane, at.col);
     mbar_expect_tx(v_bar, T * S::kTileBytes);
 #pragma unroll
     for (int j = 0; j < T; ++j)
-      tma_head<D>(v_smem + j * S::kTileBytes, &tv, v_bar, at, j * kKeys, S::kTileSub);
+      tma_rows<D>(v_smem + j * S::kTileBytes, &tv, v_bar, j * kKeys, at.plane, at.col);
   }
   __syncthreads();  // the barriers are initialised
 
@@ -283,33 +241,13 @@ __global__ void __launch_bounds__(128, OnePass<D, T>::kMinBlocks)
   const int g = lane >> 2, t = lane & 3;
   const int row_lo = q0 + 16 * warp + g;  // and row_lo + 8
 
-  // descriptors: Q (A, K-major), K (B, K-major), V (B, MN-major)
-  constexpr uint32_t kSbo = 8 * S::kRowBytes;  // 8 rows of one box
-  auto q_desc = [&](int kk) {  // head-dim step kk: 16 columns
-    const int col = 16 * kk;
-    return desc(q_smem + (col / S::kSwz) * S::kQSub + (col % S::kSwz) * 2, 16, kSbo,
-                S::kLayout);
-  };
-  auto k_desc = [&](int j, int kk) {
-    const int col = 16 * kk;
-    return desc(k_smem + j * S::kTileBytes + (col / S::kSwz) * S::kTileSub +
-                    (col % S::kSwz) * 2,
-                16, kSbo, S::kLayout);
-  };
-  auto v_desc = [&](int j, int kk) {  // key step kk: 16 rows; LBO: the next box
-    return desc(v_smem + j * S::kTileBytes + 16 * kk * S::kRowBytes, S::kTileSub, kSbo,
-                S::kLayout);
-  };
-
-  // every score of the block's rows: T tiles of 64 keys, unscaled
+  // every score of the block's rows: T tiles of 64 keys, unscaled (Q and K
+  // both K-major)
   float sacc[T][kKeys / 2];
   mbar_wait(qk_bar, 0);
   wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < T; ++j)
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<kKeys>(sacc[j], q_desc(kk), k_desc(j, kk), kk > 0);
+  for (int j = 0; j < T; ++j) scores<D>(sacc[j], q_smem, k_smem + j * S::kTileBytes);
   wgmma_commit();
   wgmma_wait_all();
 #pragma unroll
@@ -376,9 +314,7 @@ __global__ void __launch_bounds__(128, OnePass<D, T>::kMinBlocks)
   mbar_wait(v_bar, 0);
   wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < T; ++j)
-#pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) wgmma_rs<D>(oacc, pa[j][kk], v_desc(j, kk));
+  for (int j = 0; j < T; ++j) product_rs<D>(oacc, pa[j], v_smem + j * S::kTileBytes);
   wgmma_commit();
   wgmma_wait_all();
   reg_fence(oacc);
@@ -404,10 +340,7 @@ __global__ void __launch_bounds__(kBlockThreads, Shape<D>::kMinBlocks)
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_smem = base;  // [consumer][sub][64 rows][kSwz]
   const uint32_t kv_smem = base + kConsumers * S::kQBytes;  // [stage][K, V][sub][rows][kSwz]
-  const uint32_t bars = base + S::kBarrierOffset;
-  auto full_bar = [&](int s) { return bars + 8 * s; };
-  auto empty_bar = [&](int s) { return bars + 8 * (kStages + s); };
-  const uint32_t q_bar = bars + 16 * kStages;
+  const Ring ring(base + S::kBarrierOffset);  // its rows() barrier: Q's
   auto k_tile = [&](int s) { return kv_smem + s * 2 * S::kTileBytes; };
   auto v_tile = [&](int s) { return kv_smem + s * 2 * S::kTileBytes + S::kTileBytes; };
 
@@ -418,29 +351,23 @@ __global__ void __launch_bounds__(kBlockThreads, Shape<D>::kMinBlocks)
   const int tiles = (n + kKeys - 1) / kKeys;
   const int warp_id = threadIdx.x / 32;
 
-  if (threadIdx.x == 0) {
-    mbar_init(q_bar, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full_bar(s), 1);
-      mbar_init(empty_bar(s), 4 * consumers);  // one arrival a consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) ring.init(consumers);
   __syncthreads();
 
   if (warp_id == kProducerWarp) {  // producer: one thread issues every copy
     if (threadIdx.x != 32 * kProducerWarp) return;
-    mbar_expect_tx(q_bar, consumers * S::kQBytes);
+    mbar_expect_tx(ring.rows(), consumers * S::kQBytes);
     for (int c = 0; c < consumers; ++c)
-      tma_head<D>(q_smem + c * S::kQBytes, &tq, q_bar, at, q0 + c * kRowsWG, S::kQSub);
+      tma_rows<D>(q_smem + c * S::kQBytes, &tq, ring.rows(), q0 + c * kRowsWG, at.plane,
+                  at.col);
     for (int job = 0; job < 2 * tiles; ++job) {
       const int s = job % kStages;
-      mbar_wait(empty_bar(s), ((job / kStages) & 1) ^ 1);
+      ring.wait_free(job);
       const bool with_v = job >= tiles;  // pass 2
       const int k0 = (job % tiles) * kKeys;
-      mbar_expect_tx(full_bar(s), (with_v ? 2 : 1) * S::kTileBytes);
-      tma_head<D>(k_tile(s), &tk, full_bar(s), at, k0, S::kTileSub);
-      if (with_v) tma_head<D>(v_tile(s), &tv, full_bar(s), at, k0, S::kTileSub);
+      mbar_expect_tx(ring.full(s), (with_v ? 2 : 1) * S::kTileBytes);
+      tma_rows<D>(k_tile(s), &tk, ring.full(s), k0, at.plane, at.col);
+      if (with_v) tma_rows<D>(v_tile(s), &tv, ring.full(s), k0, at.plane, at.col);
     }
     return;
   }
@@ -450,38 +377,14 @@ __global__ void __launch_bounds__(kBlockThreads, Shape<D>::kMinBlocks)
   const int warp = warp_id % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int row_lo = q0 + c * kRowsWG + 16 * warp + g;  // and row_lo + 8
-
-  // descriptors: Q (A, K-major), K (B, K-major), V (B, MN-major)
-  constexpr uint32_t kSbo = 8 * S::kRowBytes;  // 8 rows of one box
   const uint32_t q_addr = q_smem + c * S::kQBytes;
-  auto q_desc = [&](int kk) {  // head-dim step kk: 16 columns
-    const int col = 16 * kk;
-    return desc(q_addr + (col / S::kSwz) * S::kQSub + (col % S::kSwz) * 2, 16, kSbo,
-                S::kLayout);
-  };
-  auto k_desc = [&](int s, int kk) {
-    const int col = 16 * kk;
-    return desc(k_tile(s) + (col / S::kSwz) * S::kTileSub + (col % S::kSwz) * 2, 16, kSbo,
-                S::kLayout);
-  };
-  auto v_desc = [&](int s, int kk) {  // key step kk: 16 rows; LBO: the next box
-    return desc(v_tile(s) + 16 * kk * S::kRowBytes, S::kTileSub, kSbo, S::kLayout);
-  };
-
-  mbar_wait(q_bar, 0);
+  mbar_wait(ring.rows(), 0);
 
   float sacc[kKeys / 2];
-  auto wait_full = [&](int job) { mbar_wait(full_bar(job % kStages), (job / kStages) & 1); };
-  auto release = [&](int job) {  // this warp is done reading job's stage
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty_bar(job % kStages));
-  };
-  auto scores = [&](int job) {  // sacc = Q . K^T of job's stage
-    wait_full(job);
+  auto qk = [&](int job) {  // sacc = Q . K^T of job's stage (both K-major)
+    ring.wait_full(job);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<kKeys>(sacc, q_desc(kk), k_desc(job % kStages, kk), kk > 0);
+    scores<D>(sacc, q_addr, k_tile(job % kStages));
     wgmma_commit();
     wgmma_wait_all();
     reg_fence(sacc);
@@ -497,8 +400,8 @@ __global__ void __launch_bounds__(kBlockThreads, Shape<D>::kMinBlocks)
   // of the unscaled scores until the statistics are written.
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int job = 0; job < tiles; ++job) {
-    scores(job);
-    release(job);
+    qk(job);
+    ring.arrive(job);
     mask_keys(sacc, job * kKeys, t, lo, hi, n, block_size);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -541,7 +444,7 @@ __global__ void __launch_bounds__(kBlockThreads, Shape<D>::kMinBlocks)
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
   for (int job = tiles; job < 2 * tiles; ++job) {
-    scores(job);
+    qk(job);
     mask_keys(sacc, (job - tiles) * kKeys, t, lo, hi, n, block_size);
     uint32_t pa[kKeys / 16][4];
 #pragma unroll
@@ -553,15 +456,14 @@ __global__ void __launch_bounds__(kBlockThreads, Shape<D>::kMinBlocks)
         pa[kk][e] = pack_bf16(exp2_approx(fmaf(sacc[i], sl2e, -m[half])) * l[half],
                               exp2_approx(fmaf(sacc[i + 1], sl2e, -m[half])) * l[half]);
       }
-    // keys not kept: p = 0, and TMA zero-filled V's rows past n
+    // keys not kept: p = 0, and TMA zero-filled V's rows past n (V the
+    // MN-major B operand)
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk)
-      wgmma_rs<D>(oacc, pa[kk], v_desc(job % kStages, kk));
+    product_rs<D>(oacc, pa, v_tile(job % kStages));
     wgmma_commit();
     wgmma_wait_all();
     reg_fence(oacc);
-    release(job);
+    ring.arrive(job);
   }
 
   store_o<D, kHeadMajor>(o, oacc, b, h, n, heads, row_lo, t);

@@ -19,8 +19,10 @@
 // not fit the TPU's VMEM (ViT-B/16 at 384 px: N = 577, 12 heads of 64).
 // The bfloat16 forward is the Hopper body B1 shares (attention_fwd_sm90.cuh:
 // wgmma, TMA, its two-pass form at every N here); the bfloat16 backward is
-// B3's own (attention_bwd_sm90.cuh); the float32 forward and backward (CUDA
-// cores) are B1's kernel bodies (attention_fwd.cuh, attention_bwd.cuh).
+// the Hopper backward B2 shares in its lse form (attention_bwd_sm90.cuh,
+// instantiated here in B3's (m, 1/l) form); the float32 forward and
+// backward (CUDA cores) are B1's kernel bodies (attention_fwd.cuh,
+// attention_bwd.cuh).
 // All are instantiated with kHeadMajor. The dispatch is by dtype alone.
 //
 // What bounds it on an H100 SXM, at ViT-B/16's (64, 12, 577, 64) bf16
@@ -83,9 +85,16 @@ extern "C" int fused_attention_bwd(const void* q, const void* k, const void* v,
                                    void* dk, void* dv, void* delta, int batch, int n,
                                    int heads, int head_dim, int is_bf16, float scale,
                                    void* stream) {
-  if (is_bf16)
-    return sm90::bwd_dispatch(q, k, v, dout, stats, dq, dk, dv, delta, batch, n, heads,
-                              head_dim, scale, stream);
+  if (is_bf16) {
+    if (sm90::bad_bwd_sizes(batch, n, heads, scale) || n > kMaxSeq || stats == nullptr ||
+        delta == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return sm90::for_head_dim(head_dim, [&](auto d) {
+      return sm90::launch_bwd<decltype(d)::value>(q, k, v, dout, stats, dq, dk, dv, delta,
+                                                  batch, n, heads, scale,
+                                                  static_cast<cudaStream_t>(stream));
+    });
+  }
   return bwd_dispatch<true>(q, k, v, dout, stats, dq, dk, dv, delta, batch, n, heads,
                             head_dim, 0, scale, 0, stream);
 }

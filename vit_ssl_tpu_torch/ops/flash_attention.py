@@ -34,8 +34,9 @@ contiguous (B, H, N, D) tensors, with the same three entries in one library
 ``fused_attention_fwd_stats`` and ``fused_attention_bwd``; on a CPU tensor
 :func:`fused_attention_reference` and :func:`fused_attention_bwd_reference`.
 Its bf16 forwards run the two-pass form of B1's Hopper body, its bf16
-backward a Hopper body of its own (``csrc/attention_bwd_sm90.cuh``: wgmma,
-TMA, two consumer warpgroups a block; the softmax scale must be positive);
+backward the Hopper backward of ``csrc/attention_bwd_sm90.cuh`` in its
+(m, 1/l) form (wgmma, TMA, two consumer warpgroups a block; the softmax
+scale must be positive), which B2's backward shares in its lse form;
 its fp32 forwards and backward are B1's CUDA-core bodies, all instantiated
 for the head-major layout.
 

@@ -19,8 +19,14 @@ On a CUDA tensor the wrappers launch the hand-written Hopper kernels:
   (``vit_ssl_tpu_torch/scripts/exp2_probe.py`` times it against
   ``blockwise_fwd``);
 - ``blockwise_bwd_dq`` and ``blockwise_bwd_dkv``
-  (``csrc/flash_blockwise_bwd.cu``): the backward's two kernels; the first
-  also computes δ = rowsum(dO·O) − dlse for the second.
+  (``csrc/flash_blockwise_bwd.cu``; in bf16 the Hopper backward of
+  ``csrc/attention_bwd_sm90.cuh`` in its lse form, wgmma and TMA, which B3's
+  backward shares in its own form; scale > 0): the backward's two kernels;
+  the first also computes δ = rowsum(dO·O) − dlse for the second. The bf16
+  bodies read the lse and δ in whole 64-row tiles, so the wrappers hand
+  them copies padded to ``STATS_ROWS`` rows a head (:func:`pad_rows`: lse
+  +inf past N, as JAX's ``_flash_bwd`` pads it; δ 0); the Python API keeps
+  (B, H, N).
 
 On a CPU tensor they run the plain PyTorch versions. There is no fallback
 from one to the other: a CUDA call that a kernel cannot take raises.
@@ -51,8 +57,12 @@ KERNEL_DQ = "blockwise_bwd_dq"  # dq and delta
 KERNEL_DKV = "blockwise_bwd_dkv"  # dk and dv, in KERNEL_DQ's library
 FWD_LIBRARY = "flash_blockwise_fwd"
 BWD_LIBRARY = "flash_blockwise_bwd"
-# the bf16 forward's key tile (csrc/flash_blockwise_fwd_sm90.cuh::kKeys)
+# the bf16 forward's key tile (kKeys of csrc/sm90_common.cuh, the tile of
+# csrc/flash_blockwise_fwd_sm90.cuh)
 KERNEL_BLOCK_K = 64
+# the bf16 backward's lse and δ rows a head are padded to a multiple of this
+# (its 64-row query tiles, csrc/attention_bwd_sm90.cuh)
+STATS_ROWS = 64
 HEAD_DIMS = (32, 64, 128)
 LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -157,9 +167,9 @@ def blockwise_attention_bwd_reference(q, k, v, o, lse, do, scale: float,
 
 def _check(q, k, v, scale: Optional[float] = None) -> Tuple[int, int, int, int]:
     """Validate what B2's kernels take; returns (B, H, N, D). With
-    ``scale``, also what the forward takes: the bf16 body folds the scale
-    into its exponent (the max is taken of the unscaled scores), so it
-    takes scale > 0 only."""
+    ``scale``, also the scale: the bf16 bodies fold it into their exponent
+    (the forward takes the max of the unscaled scores; the backward masks
+    with −inf before scaling), so they take scale > 0 only."""
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(
@@ -183,7 +193,7 @@ def _check(q, k, v, scale: Optional[float] = None) -> Tuple[int, int, int, int]:
     if not 1 <= b <= 65535 or not 1 <= h <= 65535:
         raise ValueError(f"batch {b} / heads {h} outside the grid limits 1..65535")
     if scale is not None and q.dtype == torch.bfloat16 and not scale > 0:
-        raise ValueError(f"the bf16 forward takes scale > 0 (folded into its "
+        raise ValueError(f"the bf16 kernels take scale > 0 (folded into their "
                          f"exponent), got {scale}")
     return b, h, n, d
 
@@ -256,67 +266,114 @@ def blockwise_attention_fwd_exp2(q, k, v, scale: float):
     return _forward(KERNEL_EXP2, q, k, v, scale)
 
 
-def _bwd_inputs(q, k, v, do, lse):
+def stat_rows(n: int, dtype) -> int:
+    """Rows a head of the lse and δ that the backward kernels take: the
+    bf16 bodies read whole 64-row query tiles of them, round_up(n,
+    ``STATS_ROWS``); the fp32 bodies n."""
+    return -(-n // STATS_ROWS) * STATS_ROWS if dtype == torch.bfloat16 else n
+
+
+def pad_rows(x, rows: int, fill: float):
+    """(B, H, n) fp32 ``x`` as a contiguous (B, H, ``rows``) tensor, ``fill``
+    past n (``x`` itself when it already is one): the lse padded with +inf
+    (p = exp(s − ∞) = 0 on padded rows, as JAX's ``_flash_bwd`` pads it), δ
+    with 0."""
+    n = x.shape[-1]
+    if rows == n:
+        return x.contiguous()
+    out = torch.full((*x.shape[:-1], rows), fill, device=x.device, dtype=torch.float32)
+    out[..., :n] = x
+    return out
+
+
+def _bwd_inputs(q, k, v, do, lse, scale: float):
     """Checks a backward kernel's inputs; returns (B, H, N, D) and ``do``
-    cast to the input dtype and made contiguous (never in the kernels)."""
-    b, h, n, d = _check(q, k, v)
+    cast to the input dtype and made contiguous (never in the kernels).
+    The bf16 bodies fold the scale into the exponent after the mask's
+    −inf, so they take scale > 0 only."""
+    b, h, n, d = _check(q, k, v, scale)
     do = do.to(q.dtype).contiguous()
     _check_rows("do", do, q.shape, q.dtype, q.device)
     _check_rows("lse", lse, (b, h, n), torch.float32, q.device)
     return (b, h, n, d), do
 
 
-def blockwise_attention_bwd_dq(q, k, v, o, lse, do, scale: float, dlse=None):
-    """(dq, δ) of B2 for the upstream gradient ``do`` (and ``dlse``, the
-    lse output's cotangent, when given); δ = Σ dO·O − dlse, fp32
-    (B, H, N), is what :func:`blockwise_attention_bwd_dkv` takes. On a
-    CUDA tensor kernel ``blockwise_bwd_dq``; on a CPU tensor the plain
-    versions."""
-    if q.device.type == "cpu":
-        delta = blockwise_attention_delta_reference(o, do.to(q.dtype), dlse)
-        return _bwd_plain(q, k, v, do, lse, delta, scale)[0], delta
-    _require_cuda(q, "blockwise_attention")
-    (b, h, n, d), do = _bwd_inputs(q, k, v, do, lse)
-    _check_rows("o", o, q.shape, q.dtype, q.device)
+def _launch_dq(q, k, v, o, lse_p, do, scale: float, dlse):
+    """``blockwise_bwd_dq`` on checked inputs, the lse of ``stat_rows``
+    rows a head; returns dq and δ of as many rows."""
+    b, h, n, d = q.shape
     if dlse is not None:
         dlse = dlse.to(torch.float32).contiguous()
         _check_rows("dlse", dlse, (b, h, n), torch.float32, q.device)
     dq = torch.empty_like(q)
-    delta = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
+    delta = torch.empty(b, h, lse_p.shape[-1], device=q.device, dtype=torch.float32)
     _launch(KERNEL_DQ, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse_p.data_ptr(),
             None if dlse is None else dlse.data_ptr(), dq.data_ptr(),
             delta.data_ptr(), b, n, h, d, _DTYPES[q.dtype], float(scale))
     return dq, delta
 
 
+def _launch_dkv(q, k, v, do, lse_p, delta_p, scale: float):
+    """``blockwise_bwd_dkv`` on checked inputs, lse and δ of ``stat_rows``
+    rows a head."""
+    b, h, n, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(KERNEL_DKV, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse_p.data_ptr(), delta_p.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, n, h, d, _DTYPES[q.dtype], float(scale))
+    return dk, dv
+
+
+def blockwise_attention_bwd_dq(q, k, v, o, lse, do, scale: float, dlse=None):
+    """(dq, δ) of B2 for the upstream gradient ``do`` (and ``dlse``, the
+    lse output's cotangent, when given); δ = Σ dO·O − dlse, fp32
+    (B, H, N), is what :func:`blockwise_attention_bwd_dkv` takes (on the
+    card in bf16 a view of the kernel's padded δ). On a CUDA tensor kernel
+    ``blockwise_bwd_dq``; on a CPU tensor the plain versions."""
+    if q.device.type == "cpu":
+        delta = blockwise_attention_delta_reference(o, do.to(q.dtype), dlse)
+        return _bwd_plain(q, k, v, do, lse, delta, scale)[0], delta
+    _require_cuda(q, "blockwise_attention")
+    (b, h, n, d), do = _bwd_inputs(q, k, v, do, lse, scale)
+    _check_rows("o", o, q.shape, q.dtype, q.device)
+    lse_p = pad_rows(lse, stat_rows(n, q.dtype), math.inf)
+    dq, delta = _launch_dq(q, k, v, o, lse_p, do, scale, dlse)
+    return dq, delta[..., :n]
+
+
 def blockwise_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float):
-    """(dk, dv) of B2 from δ of :func:`blockwise_attention_bwd_dq`. On a
-    CUDA tensor kernel ``blockwise_bwd_dkv``; on a CPU tensor the plain
-    versions."""
+    """(dk, dv) of B2 from δ of :func:`blockwise_attention_bwd_dq`, fp32
+    (B, H, N) of any strides. On a CUDA tensor kernel ``blockwise_bwd_dkv``;
+    on a CPU tensor the plain versions."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, lse, delta, scale)[1:]
     _require_cuda(q, "blockwise_attention")
-    (b, h, n, d), do = _bwd_inputs(q, k, v, do, lse)
-    _check_rows("delta", delta, (b, h, n), torch.float32, q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(KERNEL_DKV, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, n, h, d, _DTYPES[q.dtype], float(scale))
-    return dk, dv
+    (b, h, n, d), do = _bwd_inputs(q, k, v, do, lse, scale)
+    if tuple(delta.shape) != (b, h, n) or delta.dtype != torch.float32 \
+            or delta.device != q.device:
+        raise ValueError(f"delta {tuple(delta.shape)} {delta.dtype} {delta.device} is not "
+                         f"a {(b, h, n)} float32 tensor on {q.device}")
+    rows = stat_rows(n, q.dtype)
+    return _launch_dkv(q, k, v, do, pad_rows(lse, rows, math.inf), pad_rows(delta, rows, 0.0),
+                       scale)
 
 
 def blockwise_attention_bwd(q, k, v, o, lse, do, scale: float, dlse=None):
     """(dq, dk, dv) of B2 for the upstream gradient ``do`` (and ``dlse``,
     the lse output's cotangent, when given). On a CUDA tensor kernels
     ``blockwise_bwd_dq`` then ``blockwise_bwd_dkv`` (``do`` is cast to the
-    input dtype and made contiguous here, never in the kernels); on a CPU
-    tensor :func:`blockwise_attention_bwd_reference`."""
+    input dtype and made contiguous here, never in the kernels; the lse is
+    padded once and the dq kernel's padded δ handed on); on a CPU tensor
+    :func:`blockwise_attention_bwd_reference`."""
     if q.device.type == "cpu":
         return blockwise_attention_bwd_reference(q, k, v, o, lse, do, scale, dlse)
-    do = do.to(q.dtype).contiguous()
-    dq, delta = blockwise_attention_bwd_dq(q, k, v, o, lse, do, scale, dlse)
-    return (dq, *blockwise_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+    _require_cuda(q, "blockwise_attention")
+    (b, h, n, d), do = _bwd_inputs(q, k, v, do, lse, scale)
+    _check_rows("o", o, q.shape, q.dtype, q.device)
+    lse_p = pad_rows(lse, stat_rows(n, q.dtype), math.inf)
+    dq, delta_p = _launch_dq(q, k, v, o, lse_p, do, scale, dlse)
+    return (dq, *_launch_dkv(q, k, v, do, lse_p, delta_p, scale))
 
 
 # ---------------------------------------------------------------------------

@@ -20,9 +20,16 @@ Two modes (``--kernel``):
   ``blockwise_fwd`` (B2's forward) and ``blockwise_fwd_exp2`` (P1) at
   ViT-B/16's (64, 12, 1025, 64) and at the exp2 probe's (8, 6, 2048, 64);
   o at atol/rtol 1e-2 of the plain version at ``KERNEL_BLOCK_K``, lse
-  within 1e-5 of max|plain|. Then the ViT-B/16 512-px training step and a
-  served batch (``chip_smoke.py``'s, batch 64), with B2's forward routed
-  to each library in the same turns.
+  within 1e-5 of max|plain|. Then ``csrc/flash_blockwise_bwd.cu``'s
+  ``blockwise_bwd_dq`` and ``blockwise_bwd_dkv`` at (64, 12, 1025, 64), fed
+  this checkout's o and lse, each library's dq, dk and dv within 2e-2 of
+  max|plain| (floored as ``chip_smoke.b2_grad_errs``), timed as C entries
+  and through the wrappers routed to each library (a library without the
+  Hopper backward takes the lse and delta unpadded: ``fb.stat_rows`` is
+  routed too), beside SDPA's whole backward and the bounds. Then the
+  ViT-B/16 512-px training step and a served batch (``chip_smoke.py``'s,
+  batch 64), with all four of B2's entries routed to each library in the
+  same turns.
 - ``b1``: ``vit_ssl_tpu_torch/csrc/attention_nhd_fwd.cu``, entries
   ``attention_nhd_fwd`` (B1's inference forward) and
   ``attention_nhd_fwd_stats`` (its training forward) at DINO ViT-S/8's
@@ -30,7 +37,8 @@ Two modes (``--kernel``):
   teacher's and the student globals' (256, 145), the packed locals (128,
   148, block 37); the output at atol/rtol 1e-2 of the plain version, the
   statistics within 1e-5 of max|plain|; SDPA on views of the same storage
-  (a boolean block-diagonal mask at the locals). Each entry is timed
+  (a boolean block-diagonal mask at the locals); the two libraries'
+  outputs compared bit for bit. Each entry is timed
   through ``chip_smoke.b1_bare`` (the C entry alone, on outputs allocated
   once), with each library's host microseconds a launch (its tensor maps
   encoded, if any, and the launch), and through its wrapper routed to
@@ -41,8 +49,10 @@ Two modes (``--kernel``):
 
 Each step or batch turn gives the warm time (host clock, median of 10),
 device busy a step or batch (``chip_smoke.profile_window`` over 3, which
-must show that library's kernels by name) and peak memory. Card only; run
-from the root of a checkout (``chip_smoke.py`` is imported from there):
+must show that library's kernels by name) and peak memory. Each mode first
+prints the registers and spills (``-Xptxas -v``) of both libraries' bf16
+bodies. Card only; run from the root of a checkout (``chip_smoke.py`` is
+imported from there):
 
     python -m vit_ssl_tpu_torch.scripts.b3_turns --other DIR [--kernel b2|b1]
 
@@ -81,8 +91,10 @@ B1_ENTRIES = (fa.KERNEL, fa.KERNEL_TRAIN)
 B1_SHAPES = [(128, 145, 6, 64, 0, (fa.KERNEL,)),
              (256, 145, 6, 64, 0, (fa.KERNEL, fa.KERNEL_TRAIN)),
              (128, 148, 6, 64, 37, (fa.KERNEL_TRAIN,))]
+B2_BWD_ENTRIES = (fb.KERNEL_DQ, fb.KERNEL_DKV)
 POINTERS = {fa.FUSED_KERNEL: 4, fa.FUSED_KERNEL_TRAIN: 5, fa.FUSED_KERNEL_BWD: 9,
-            fb.KERNEL: 5, fb.KERNEL_EXP2: 5, fa.KERNEL: 4, fa.KERNEL_TRAIN: 5}
+            fb.KERNEL: 5, fb.KERNEL_EXP2: 5, fa.KERNEL: 4, fa.KERNEL_TRAIN: 5,
+            fb.KERNEL_DQ: 9, fb.KERNEL_DKV: 8}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_BF16_OPS_PER_S = 989e12
 GRAD_REL_TOL = 2e-2  # bf16: p and ds round on both sides
@@ -92,30 +104,62 @@ LSE_REL_TOL = 1e-5
 # those that library's binary holds
 BODIES = {"b3": ("attention_bwd_dq_sm90_kernel", "attention_bwd_dkv_sm90_kernel",
                  "attention_bwd_dq_bf16_kernel", "attention_bwd_dkv_bf16_kernel"),
-          "b2": ("blockwise_fwd_sm90_kernel", "blockwise_fwd_bf16_kernel"),
+          "b2": ("blockwise_fwd_sm90_kernel", "blockwise_fwd_bf16_kernel",
+                 "blockwise_bwd_dq_sm90_kernel", "blockwise_bwd_dkv_sm90_kernel",
+                 "blockwise_dq_bf16_kernel", "blockwise_dkv_bf16_kernel"),
           "b1": ("attention_fwd_onepass_sm90_kernel", "attention_fwd_bf16_kernel")}
 STEPS = 10  # timed steps a turn, as chip_smoke.TIMED_STEPS
 TURNS = ("other", "this", "this", "other")
 
 
 def build_other(root: Path, out_dir: Path, library: str = fa.FUSED_LIBRARY) -> ctypes.CDLL:
-    """``root``'s kernel library ``library``, compiled into ``out_dir``."""
+    """``root``'s kernel library ``library``, compiled into ``out_dir``;
+    the compiler's log beside it."""
     src = root / "vit_ssl_tpu_torch" / kernels.SOURCES[library]
     lib = out_dir / f"lib{library}_other.so"
-    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)],
-                   check=True, capture_output=True, text=True)
+    done = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)],
+                          check=True, capture_output=True, text=True)
+    lib.with_suffix(".log").write_text(done.stdout + done.stderr)
     return ctypes.CDLL(str(lib))
 
 
+def print_registers(card: str, libs: dict) -> None:
+    """``-Xptxas -v``'s lines of each library's bf16 bodies (Hopper and
+    mma.sync), for both checkouts."""
+    import chip_smoke
+
+    for who, by_name in libs.items():
+        for name, lib in by_name.items():
+            log = Path(lib._name).with_suffix(".log")
+            if who == "this":
+                log = kernels.log_path(name)
+            for line in chip_smoke.ptxas_lines(log.read_text(), kernels.nvcc_path()):
+                if "sm90_kernel" in line or "bf16_kernel" in line:
+                    print(f"{card}: {who} {name}: {line}", flush=True)
+
+
+def _libs(lib) -> list:
+    return list(lib.values()) if isinstance(lib, dict) else [lib]
+
+
 def bodies_in(libs: dict, kernel: str) -> dict:
-    """Per library, the names of ``BODIES[kernel]`` that its binary holds."""
+    """Per checkout, the names of ``BODIES[kernel]`` that its libraries'
+    binaries hold."""
     found = {who: tuple(name for name in BODIES[kernel]
-                        if name.encode() in Path(lib._name).read_bytes())
+                        if any(name.encode() in Path(x._name).read_bytes()
+                               for x in _libs(lib)))
              for who, lib in libs.items()}
     for who, names in found.items():
         if not names:
             raise RuntimeError(f"the {who} library holds none of {BODIES[kernel]}")
     return found
+
+
+def takes_padded_stats(lib: ctypes.CDLL) -> bool:
+    """Whether a ``flash_blockwise_bwd`` library's bf16 entries take the lse
+    and delta padded to ``fb.STATS_ROWS`` rows a head (the Hopper backward)
+    or unpadded (the mma.sync bodies before it)."""
+    return b"blockwise_bwd_dq_sm90_kernel" in Path(lib._name).read_bytes()
 
 
 def entry_fn(lib: ctypes.CDLL, name: str):
@@ -129,12 +173,22 @@ def entry_fn(lib: ctypes.CDLL, name: str):
 
 def caller(fn, name, q, k, v, do, stats, scale):
     """A no-argument call of one library's entry, on fresh outputs; returns
-    the output (B3's forwards), (o, lse) (B2's) or (dq, dk, dv)."""
+    the output (B3's forwards), (o, lse) (B2's) or (dq, dk, dv). B2's
+    backward entries take ``stats`` = (o, the lse as that library takes it,
+    delta of as many rows): dq fills delta, dk/dv reads it."""
     b, h, n, d = q.shape
     rows = -(-n // fa.STATS_ROWS) * fa.STATS_ROWS
 
     def call():
-        if name == fa.FUSED_KERNEL_BWD:
+        if name == fb.KERNEL_DQ:
+            o, lse, delta = stats
+            outs = [torch.empty_like(q)]
+            ptrs = [q, k, v, o, do, lse, None, outs[0], delta]
+        elif name == fb.KERNEL_DKV:
+            _, lse, delta = stats
+            outs = [torch.empty_like(q), torch.empty_like(q)]
+            ptrs = [q, k, v, do, lse, delta, *outs]
+        elif name == fa.FUSED_KERNEL_BWD:
             outs = [torch.empty_like(q) for _ in range(3)]
             delta = torch.zeros(b, h, rows, device=q.device)
             ptrs = [q, k, v, do, stats, *outs, delta]
@@ -146,7 +200,7 @@ def caller(fn, name, q, k, v, do, stats, scale):
             ptrs = [q, k, v, *outs]
             if name == fa.FUSED_KERNEL_TRAIN:
                 ptrs.append(torch.zeros(b, h, rows, 2, device=q.device))
-        err = fn(*(x.data_ptr() for x in ptrs), b, n, h, d, 1, scale,
+        err = fn(*(x if x is None else x.data_ptr() for x in ptrs), b, n, h, d, 1, scale,
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -189,16 +243,23 @@ def errors(name, got, want):
 
 
 @contextlib.contextmanager
-def routed(lib: ctypes.CDLL, module=fa, entries=ENTRIES):
+def routed(lib, module=fa, entries=ENTRIES):
     """Within the block, ``module``'s launches of ``entries`` call
-    ``lib``'s."""
-    fns = {name: entry_fn(lib, name) for name in entries}
-    base = module._kernel_fn
+    ``lib``'s (a library, or a dict of them by entry). A B2 backward
+    library that takes the lse and delta unpadded gets them so:
+    ``fb.stat_rows`` is routed too."""
+    fns = {name: entry_fn(lib[name] if isinstance(lib, dict) else lib, name)
+           for name in entries}
+    base, rows = module._kernel_fn, fb.stat_rows
     module._kernel_fn = lambda entry: fns[entry] if entry in fns else base(entry)
+    bwd = [lib[name] if isinstance(lib, dict) else lib
+           for name in entries if name in B2_BWD_ENTRIES]
+    if module is fb and bwd and not takes_padded_stats(bwd[0]):
+        fb.stat_rows = lambda n, dtype: n
     try:
         yield
     finally:
-        module._kernel_fn = base
+        module._kernel_fn, fb.stat_rows = base, rows
 
 
 def _timed_steps(step):
@@ -311,16 +372,19 @@ def _serving_turns(card, libs, server, x, label, module, entries, want, batches)
 
 
 def b2_step_turns(card: str, libs: dict) -> dict:
-    """The ViT-B/16 512-px training step and a served batch of 64 with B2's
-    forward on each library in turns (other, this, this, other): warm ms,
-    device busy ms and peak GB; whether every loss and logit was finite."""
+    """The ViT-B/16 512-px training step (B2's forward, dq and dk/dv) and a
+    served batch of 64 (its forward) with B2's entries on each checkout's
+    libraries in turns (other, this, this, other): warm ms, device busy ms
+    and peak GB; whether every loss and logit was finite."""
     import chip_smoke
     from vit_ssl_tpu_torch.serve import Server
 
     cfg = chip_smoke.VIT_B16_512
     want = bodies_in(libs, "b2")
     rows = {"training": _training_turns(card, libs, lambda: supervised_step(cfg),
-                                        "ViT-B/16 512 px", fb, B2_ENTRIES, want)}
+                                        "ViT-B/16 512 px", fb, B2_ENTRIES + B2_BWD_ENTRIES,
+                                        want)}
+    want = {who: tuple(name for name in names if "fwd" in name) for who, names in want.items()}
     batch, img = cfg["training"]["batch_size"], cfg["data"]["img_size"]
     with tempfile.TemporaryDirectory() as tmp:
         pth = f"{tmp}/vit_b16_{img}.pth"
@@ -367,7 +431,7 @@ def entry_turns(card, shape, entries, libs, plain, library):
     return rows
 
 
-def b3_main(card, other_lib, this_lib):
+def b3_main(card, built):
     b, h, n, d = SHAPE
     scale = 1.0 / d ** 0.5
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -387,7 +451,7 @@ def b3_main(card, other_lib, this_lib):
                                                          retain_graph=True),
     }
     library[fa.FUSED_KERNEL_TRAIN] = library[fa.FUSED_KERNEL]
-    libs = {"other": other_lib, "this": this_lib}
+    libs = {who: by_name[fa.FUSED_LIBRARY] for who, by_name in built.items()}
     rows = entry_turns(card, SHAPE, ENTRIES, libs, plain, library)
     return {"shape": SHAPE, "entries": rows, "steps": step_turns(card, libs)}
 
@@ -417,6 +481,7 @@ def b1_entry_turns(card, libs):
                      for who, lib in libs.items()}
             got = {who: [x.clone() for x in call()] for who, call in calls.items()}
             torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip(got["other"], got["this"]))
             errs, agree = {}, True
             for who, outs in got.items():
                 o = outs[0].float()
@@ -447,7 +512,7 @@ def b1_entry_turns(card, libs):
                          "this_wrapper_ms": [wrapped[1], wrapped[2]], "sdpa_ms": sdpa,
                          "bound_ms": bound[0], "bound_by": bound[1],
                          "ratio": min(turns[1:3]) / min(turns[0], turns[3]),
-                         "agree": agree, "other_vs_plain": errs["other"],
+                         "agree": agree, "bit_equal": same, "other_vs_plain": errs["other"],
                          "this_vs_plain": errs["this"], "form": fa.attention_nhd_form(n)}
             print(f"{card}: {key} bf16 ({fa.attention_nhd_form(n)}): other "
                   f"{turns[0]:.4f} / {turns[3]:.4f} ms, this {turns[1]:.4f} / "
@@ -460,6 +525,7 @@ def b1_entry_turns(card, libs):
                   + ("/stats rel_err" if name == fa.KERNEL_TRAIN else "")
                   + " vs plain: other " + "/".join(f"{e:.3e}" for e in errs["other"])
                   + ", this " + "/".join(f"{e:.3e}" for e in errs["this"])
+                  + f"; outputs {'bit-equal' if same else 'differ'} between the libraries"
                   + ("; ok" if agree else "; MISS"), flush=True)
         del xq, xk, xv, ref, heads
     return rows
@@ -487,13 +553,90 @@ def b1_step_turns(card: str, libs: dict) -> dict:
     return rows
 
 
-def b1_main(card, other_lib, this_lib):
-    libs = {"other": other_lib, "this": this_lib}
+def b1_main(card, built):
+    libs = {who: by_name[fa.KERNEL] for who, by_name in built.items()}
     return {"entries": b1_entry_turns(card, libs), "steps": b1_step_turns(card, libs)}
 
 
-def b2_main(card, other_lib, this_lib):
-    libs = {"other": other_lib, "this": this_lib}
+def b2_bwd_turns(card, libs):
+    """B2's two backward entries of both checkouts at (64, 12, 1025, 64),
+    fed this checkout's o and lse: each library's dq, dk and dv against the
+    plain version (``chip_smoke.b2_grad_errs``), timed in turns as C
+    entries and through the wrappers, beside SDPA's whole backward and the
+    bounds."""
+    import chip_smoke
+
+    b, h, n, d = B2_SHAPES[0]
+    scale = 1.0 / d ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(b, h, n, d, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = fb.blockwise_attention_fwd(q, k, v, scale)
+    want = fb.blockwise_attention_bwd_reference(q, k, v, out, lse, do, scale)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    sdpa = chip_smoke.cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
+                                                          retain_graph=True))
+    bounds = chip_smoke.blockwise_bounds(b, h, n, d, "bfloat16")
+    calls, deltas, errs, outs = {}, {}, {}, {}
+    for who, by_entry in libs.items():
+        lib = by_entry[fb.KERNEL_DQ]
+        rows = fb.stat_rows(n, q.dtype) if takes_padded_stats(lib) else n
+        stats = (out, fb.pad_rows(lse, rows, float("inf")),
+                 torch.zeros(b, h, rows, device="cuda"))
+        calls[who] = {name: caller(entry_fn(lib, name), name, q, k, v, do, stats, scale)
+                      for name in B2_BWD_ENTRIES}
+        dq = calls[who][fb.KERNEL_DQ]()[0]
+        outs[who] = [dq, *calls[who][fb.KERNEL_DKV]()]
+        errs[who] = chip_smoke.b2_grad_errs(q, k, v, do, scale, outs[who], want)
+        with routed(by_entry, fb, B2_BWD_ENTRIES):
+            deltas[who] = fb.blockwise_attention_bwd_dq(q, k, v, out, lse, do, scale)[1]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(outs["other"], outs["this"]))
+    result = {}
+    for name, part in ((fb.KERNEL_DQ, "dq"), (fb.KERNEL_DKV, "dkv")):
+        bare = [chip_smoke.cuda_ms(calls[who][name]) for who in TURNS]
+        through = []
+        for who in TURNS:
+            with routed(libs[who], fb, B2_BWD_ENTRIES):
+                if name == fb.KERNEL_DQ:
+                    through.append(chip_smoke.cuda_ms(
+                        lambda: fb.blockwise_attention_bwd_dq(q, k, v, out, lse, do, scale)))
+                else:
+                    through.append(chip_smoke.cuda_ms(
+                        lambda: fb.blockwise_attention_bwd_dkv(q, k, v, do, lse, deltas[who],
+                                                               scale)))
+        result[name] = {"other_ms": [bare[0], bare[3]], "this_ms": [bare[1], bare[2]],
+                        "other_wrapper_ms": [through[0], through[3]],
+                        "this_wrapper_ms": [through[1], through[2]],
+                        "ratio": min(bare[1:3]) / min(bare[0], bare[3]),
+                        "sdpa_whole_backward_ms": sdpa, "bound_ms": bounds[part][0],
+                        "bound_by": bounds[part][1]}
+        print(f"{card}: {name} at {B2_SHAPES[0]} bf16, C entry: other {bare[0]:.4f} / "
+              f"{bare[3]:.4f} ms, this {bare[1]:.4f} / {bare[2]:.4f} ms "
+              f"({result[name]['ratio']:.3f}x); through the wrapper: other "
+              f"{through[0]:.4f} / {through[3]:.4f} ms, this {through[1]:.4f} / "
+              f"{through[2]:.4f} ms; SDPA's whole backward {sdpa:.4f} ms, bound "
+              f"{bounds[part][0]:.4f} ms ({bounds[part][1]})", flush=True)
+    pair = {who: [result[fb.KERNEL_DQ][f"{who}_ms"][i] + result[fb.KERNEL_DKV][f"{who}_ms"][i]
+                  for i in range(2)] for who in ("other", "this")}
+    agree = all(max(e) <= GRAD_REL_TOL for e in errs.values())
+    print(f"{card}: the backward pair as C entries: other {pair['other'][0]:.4f} / "
+          f"{pair['other'][1]:.4f} ms, this {pair['this'][0]:.4f} / {pair['this'][1]:.4f} "
+          f"ms; dq/dk/dv rel_err vs plain: other "
+          + "/".join(f"{e:.3e}" for e in errs["other"]) + ", this "
+          + "/".join(f"{e:.3e}" for e in errs["this"])
+          + f"; outputs {'bit-equal' if same else 'differ'} between the libraries; "
+          + ("ok" if agree else "MISS"), flush=True)
+    result.update({"pair_ms": pair, "errors": errs, "agree": agree, "bit_equal": same})
+    return result
+
+
+def b2_main(card, built):
+    # per checkout, each of B2's entries' library
+    libs = {who: {**{name: by_name[fb.FWD_LIBRARY] for name in B2_ENTRIES},
+                  **{name: by_name[fb.BWD_LIBRARY] for name in B2_BWD_ENTRIES}}
+            for who, by_name in built.items()}
     shapes = {}
     for shape in B2_SHAPES:
         b, h, n, d = shape
@@ -508,15 +651,17 @@ def b2_main(card, other_lib, this_lib):
                                                                        fb.KERNEL_BLOCK_K)}
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             q, k, v, scale=scale)
-        rows = entry_turns(card, shape, B2_ENTRIES, libs, plain,
-                           {fb.KERNEL: sdpa, fb.KERNEL_EXP2: sdpa})
+        rows = entry_turns(card, shape, B2_ENTRIES,
+                           {who: by_name[fb.FWD_LIBRARY] for who, by_name in built.items()},
+                           plain, {fb.KERNEL: sdpa, fb.KERNEL_EXP2: sdpa})
         ratios = {who: min(rows[fb.KERNEL_EXP2][f"{who}_ms"]) / min(rows[fb.KERNEL][f"{who}_ms"])
                   for who in ("other", "this")}
         print(f"{card}: exp2/exp at {shape}: other {ratios['other']:.3f}, this "
               f"{ratios['this']:.3f}", flush=True)
         shapes[str(shape)] = {"entries": rows, "exp2_over_exp": ratios}
         del q, k, v, plain
-    return {"shapes": shapes, "steps": b2_step_turns(card, libs)}
+    return {"shapes": shapes, "backward": b2_bwd_turns(card, libs),
+            "steps": b2_step_turns(card, libs)}
 
 
 def main(argv=None) -> int:
@@ -536,17 +681,21 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    library, run = {"b3": (fa.FUSED_LIBRARY, b3_main), "b2": (fb.FWD_LIBRARY, b2_main),
-                    "b1": (fa.KERNEL, b1_main)}[args.kernel]
-    this_lib = kernels.load(library)
+    libraries, run = {"b3": ((fa.FUSED_LIBRARY,), b3_main),
+                      "b2": ((fb.FWD_LIBRARY, fb.BWD_LIBRARY), b2_main),
+                      "b1": ((fa.KERNEL,), b1_main)}[args.kernel]
     with tempfile.TemporaryDirectory() as tmp:
-        other_lib = build_other(args.other.resolve(), Path(tmp), library)
-        result = {"card": card, "kernel": args.kernel, **run(card, other_lib, this_lib)}
+        built = {"other": {name: build_other(args.other.resolve(), Path(tmp), name)
+                           for name in libraries},
+                 "this": {name: kernels.load(name) for name in libraries}}
+        print_registers(card, built)
+        result = {"card": card, "kernel": args.kernel, **run(card, built)}
     print(json.dumps(result), flush=True)
     entries = ([s["entries"] for s in result["shapes"].values()] if args.kernel == "b2"
                else [result["entries"]])
     legs = [leg for leg in result["steps"].values()]
-    return 0 if (all(r["agree"] for rows in entries for r in rows.values())
+    backward_ok = result["backward"]["agree"] if args.kernel == "b2" else True
+    return 0 if (all(r["agree"] for rows in entries for r in rows.values()) and backward_ok
                  and all(t["finite"] for leg in legs for t in leg)) else 1
 
 
