@@ -15,7 +15,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. kernels  — kernel B1 against its plain PyTorch versions on the card:
               the inference forward, the training forward (output and
               softmax statistics) and the backward (dq, dk, dv), the bf16
-              forward in its one-pass (N <= 256) and two-pass forms; each
+              forward in its one-pass (N <= 256) and two-pass forms, the
+              bf16 backward in its resident (N <= 256) and streamed forms; each
               head kept to its columns and each image to its rows, two
               calls bit-equal; kernel B4
               (fused MLP): its three forwards (no mask; keep-mask; keep-mask
@@ -42,9 +43,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               finite losses, moving state, agreement with the plain
               attention path from one cloned state
 8. training times — warm step, kernel/plain/library times of B1 at the
-              two training shapes (forward and backward) and the teacher's
-              inference forward at (256, 145), and a ``torch.profiler``
-              breakdown of three steps, which must show B1's Hopper body
+              two training shapes (forward and backward, beside the mma.sync
+              bodies' recorded times; SDPA's backward fed dO strided and
+              contiguous, in turns) and the teacher's inference forward at
+              (256, 145), and a ``torch.profiler`` breakdown of three
+              steps, which must show B1's Hopper forward and both kernels of
+              its Hopper backward, 36 launches each
 9. fused training — the same step with ``model.use_fused_mlp=true``:
               B4 and B1 launch counts per step, agreement with the unfused
               step from one cloned state, warm step, a profile of three
@@ -281,15 +285,17 @@ TRAIN_CASES = [
 # fp32: sums in another order
 GRAD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 STATS_REL_TOL = 1e-5
-# B1's bf16 forward at the main paths' shapes, (entry, batch, seq,
-# block_size) -> ms, on the mma.sync body that attention_fwd_sm90.cuh
-# replaced, as this script measured it through the wrapper on an NVIDIA
-# H100 80GB HBM3 at 700 W; the teacher's (256, 145) inference forward, which
-# this script did not time then, as vit_ssl_tpu_torch/scripts/b3_turns.py
-# --kernel b1 measured that body's C entry alone beside the new one. Printed
-# beside this run's times, never in the kernels line
+# B1's bf16 forward and backward at the main paths' shapes, (entry, batch,
+# seq, block_size) -> ms, on the mma.sync bodies that attention_fwd_sm90.cuh
+# and attention_bwd_sm90.cuh replaced, as this script measured them through
+# the wrapper on an NVIDIA H100 80GB HBM3 at 700 W; the teacher's (256, 145)
+# inference forward, which this script did not time then, as
+# vit_ssl_tpu_torch/scripts/b3_turns.py --kernel b1 measured that body's C
+# entry alone beside the new one. Printed beside this run's times, never in
+# the kernels line
 B1_MMA_SYNC_MS = {("fwd", 128, 145, 0): 0.0828, ("fwd", 256, 145, 0): 0.1568,
-                  ("fwd_stats", 256, 145, 0): 0.1589, ("fwd_stats", 128, 148, 37): 0.0767}
+                  ("fwd_stats", 256, 145, 0): 0.1589, ("fwd_stats", 128, 148, 37): 0.0767,
+                  ("bwd", 256, 145, 0): 0.3208, ("bwd", 128, 148, 37): 0.1429}
 
 # Kernel B3 (head-major, no mask), (batch, heads, seq, head_dim, dtype):
 # ViT-B/16 at 384 px first (bf16, fp32), then N = 1, N = 1024 and ragged N
@@ -459,18 +465,27 @@ def host_us(fn, calls: int = 100) -> float:
     return elapsed / calls * 1e6
 
 
-def b1_bare(torch, fa, entry, xq, xk, xv, h, scale, bs, fn=None):
+def b1_bare(torch, fa, entry, xq, xk, xv, h, scale, bs, fn=None, grad=()):
     """A no-argument launch of B1's C entry ``entry`` (``fn``: that entry of
     another library; default this checkout's) on outputs allocated once (the
-    statistics zeroed once), returning them: the kernel's device time without
-    the wrapper's checks and allocations, which at DINO's shapes take about
-    as long on the host as the kernel takes on the card."""
+    statistics, or the backward's delta, zeroed once), returning them: the
+    kernel's device time without the wrapper's checks and allocations, which
+    at DINO's shapes take about as long on the host as the kernel takes on
+    the card. The backward (``fa.KERNEL_BWD``) takes ``grad`` = (do in the
+    input dtype, contiguous; the training forward's statistics) and returns
+    (dq, dk, dv)."""
     b, n, hd = xq.shape
+    rows = -(-n // fa.STATS_ROWS) * fa.STATS_ROWS
     bufs = [torch.empty_like(xq)]
     if entry == fa.KERNEL_TRAIN:
-        bufs.append(torch.zeros(b, h, -(-n // fa.STATS_ROWS) * fa.STATS_ROWS, 2,
-                                device=xq.device))
-    ptrs = [x.data_ptr() for x in (xq, xk, xv, *bufs)]
+        bufs.append(torch.zeros(b, h, rows, 2, device=xq.device))
+    inputs = (xq, xk, xv)
+    if entry == fa.KERNEL_BWD:
+        bufs = [torch.empty_like(xq) for _ in range(3)]
+        inputs = (xq, xk, xv, *grad)
+    # the backward's delta: rows past n stay zero, the kernel writes no others
+    scratch = [torch.zeros(b, h, rows, device=xq.device)] if entry == fa.KERNEL_BWD else []
+    ptrs = [x.data_ptr() for x in (*inputs, *bufs, *scratch)]
     fn = fn or fa._kernel_fn(entry)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -478,6 +493,7 @@ def b1_bare(torch, fa, entry, xq, xk, xv, h, scale, bs, fn=None):
         if fn(*ptrs, b, n, h, hd // h, 1, scale, bs, stream):
             fail(f"{entry} launch failed")
         return bufs
+    call.scratch = scratch  # alive as long as the call
     return call
 
 
@@ -688,48 +704,63 @@ def phase_kernels(torch, fa):
 
 
 def b1_isolation(torch, fa):
-    """B1's bf16 forward keeps to its head and its image: with head 1's
-    columns of q, k and v all inf and image 1 all NaN, heads 0 and 2 of
-    images 0 and 2 equal the plain version of each head alone (forward_ok)
-    in both entries, their statistics finite, at N = 145 (one pass) and
-    577 (two passes). Then two calls of each entry bit-equal at the
-    serving and training shapes."""
+    """B1's bf16 forward and backward keep to their head and their image:
+    with head 1's columns of q, k, v and do all inf and image 1 all NaN,
+    heads 0 and 2 of images 0 and 2 equal the plain version of each head
+    alone, in both forward entries (forward_ok; their statistics finite)
+    and in the backward (dq, dk and dv finite and within GRAD_REL_TOL), at
+    N = 145 (one pass, resident backward) and 577 (two passes, streamed).
+    Then two calls of each entry bit-equal at the serving and training
+    shapes."""
+    tol = GRAD_REL_TOL["bfloat16"]
     for n in (145, 577):
         xq, xk, xv = qkv(3, n, 3, 64, torch.bfloat16, seed=90 + n)
-        for x in (xq, xk, xv):
+        (do,) = qkv(3, n, 3, 64, torch.bfloat16, seed=91 + n)[:1]
+        for x in (xq, xk, xv, do):
             x.view(3, n, 3, 64)[:, :, 1] = float("inf")
             x[1] = float("nan")
         out = fa.attention_nhd_fwd(xq, xk, xv, 3, 0.125)
         out_t, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, 3, 0.125)
+        grads = fa.attention_nhd_bwd(xq, xk, xv, do, stats, 3, 0.125)
         torch.cuda.synchronize()
-        ok, errs = True, []
+        ok, errs, grad_errs = True, [], []
         for img in (0, 2):
             for head in (0, 2):
                 alone = [x.view(3, n, 3, 64)[img:img + 1, :, head].contiguous()
-                         for x in (xq, xk, xv)]
-                ref = fa.attention_nhd_reference(*alone, 1, 0.125)
+                         for x in (xq, xk, xv, do)]
+                ref = fa.attention_nhd_reference(*alone[:3], 1, 0.125)
                 for got in (out, out_t):
                     got = got.view(3, n, 3, 64)[img:img + 1, :, head]
                     ok = ok and forward_ok(torch, got, ref, "bfloat16")[0]
                     errs.append(max_abs(got, ref))
                 ok = ok and bool(torch.isfinite(stats[img, head, :n]).all())
-        print(f"  isolation (3,{n},3x64) bfloat16 ({fa.attention_nhd_form(n)}), head 1 "
-              f"all inf, image 1 all NaN: heads 0 and 2 of images 0 and 2 max_abs_err "
-              f"{max(errs):.3e} against each head alone {'ok' if ok else 'MISS'}",
-              flush=True)
+                want = fa.attention_nhd_bwd_reference(*alone, 1, 0.125)
+                for g, w in zip(grads, want):
+                    g = g.view(3, n, 3, 64)[img:img + 1, :, head]
+                    grad_errs.append(rel_err(g, w))
+                    ok = ok and bool(torch.isfinite(g).all()) and grad_errs[-1] <= tol
+        print(f"  isolation (3,{n},3x64) bfloat16 ({fa.attention_nhd_form(n)} forward, "
+              f"{fa.attention_nhd_bwd_form(n, 0, torch.bfloat16)} backward), head 1 all inf, "
+              f"image 1 all NaN: heads 0 and 2 of images 0 and 2 against each head alone, "
+              f"forward max_abs_err {max(errs):.3e}, dq/dk/dv rel_err {max(grad_errs):.3e} "
+              f"({tol}) {'ok' if ok else 'MISS'}", flush=True)
         if not ok:
-            fail(f"B1's forward reads past its head or image at N = {n}")
+            fail(f"B1 reads past its head or image at N = {n}")
     for b, n, h, d, _, bs in (ATTENTION_CASES[0], TRAIN_CASES[0], TRAIN_CASES[2]):
         xq, xk, xv = qkv(b, n, h, d, torch.bfloat16, seed=95)
+        (do,) = qkv(b, n, h, d, torch.bfloat16, seed=96)[:1]
         first, second = (fa.attention_nhd_fwd_stats(xq, xk, xv, h, 0.125, bs)
                          for _ in range(2))
+        grads = [fa.attention_nhd_bwd(xq, xk, xv, do, first[1], h, 0.125, bs)
+                 for _ in range(2)]
         repeat = (all(torch.equal(a, c) for a, c in zip(first, second))
                   and torch.equal(fa.attention_nhd_fwd(xq, xk, xv, h, 0.125, bs),
-                                  fa.attention_nhd_fwd(xq, xk, xv, h, 0.125, bs)))
-        print(f"  two calls of each forward at ({b},{n},{h}x{d}) block_size={bs} "
-              f"{'bit-equal' if repeat else 'DIFFER'}", flush=True)
+                                  fa.attention_nhd_fwd(xq, xk, xv, h, 0.125, bs))
+                  and all(torch.equal(a, c) for a, c in zip(*grads)))
+        print(f"  two calls of each forward and of the backward at ({b},{n},{h}x{d}) "
+              f"block_size={bs} {'bit-equal' if repeat else 'DIFFER'}", flush=True)
         if not repeat:
-            fail(f"B1's forward does not repeat bit for bit at ({b},{n},{h}x{d})")
+            fail(f"B1 does not repeat bit for bit at ({b},{n},{h}x{d})")
 
 
 def heads_qkv(b, h, n, d, dtype, seed, count=3):
@@ -1748,25 +1779,26 @@ def phase_training_times(torch, fa, state, train_step, batch, warm_ms, card):
         first = cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs))
         plain_ms = cuda_ms(lambda: fa.attention_nhd_bwd_reference(
             xq, xk, xv, do, h, scale, bs))
+        bare_ms = cuda_ms(b1_bare(torch, fa, fa.KERNEL_BWD, xq, xk, xv, h, scale, bs,
+                                  grad=(do, stats)))
+        host = host_us(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs))
         second = cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs))
-        # SDPA's backward through autograd; at the packed locals with a
-        # boolean block-diagonal attn_mask (True = attend)
-        q, k, v = (x.detach().view(b, n, h, d).transpose(1, 2).requires_grad_()
-                   for x in (xq, xk, xv))
-        g = do.view(b, n, h, d).transpose(1, 2)
-        mask = None
-        if bs:
-            block = torch.arange(n, device="cuda") // bs
-            mask = block[:, None] == block[None, :]
-        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
-        lib = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True))
-        print(f"  attention_nhd_bwd ({b},{n},{h}x{d}) {dtype_name} block_size={bs}: kernel "
-              f"{first:.4f} / {second:.4f} ms, plain {plain_ms:.4f} ms, SDPA"
-              f"{' (boolean attn_mask)' if bs else ''} {lib:.4f} ms, bound "
-              f"{bounds['bwd'][0]:.4f} ms ({bounds['bwd'][1]})", flush=True)
-        rows[("bwd", bs)] = {"ms": min(first, second), "plain_ms": plain_ms,
+        sdpa = sdpa_backward_ms(torch, xq, xk, xv, do, h, scale, bs)
+        form = fa.attention_nhd_bwd_form(n, bs, xq.dtype)
+        print(f"  attention_nhd_bwd ({b},{n},{h}x{d}) {dtype_name} block_size={bs} ({form}): "
+              f"kernel {first:.4f} / {second:.4f} ms through the wrapper, {host:.1f} us a "
+              f"call on the host; the C entry alone "
+              f"{bare_ms:.4f} ms; the mma.sync body it replaced "
+              f"{B1_MMA_SYNC_MS[('bwd', b, n, bs)]} ms (recorded), plain {plain_ms:.4f} ms, "
+              f"SDPA{' (boolean attn_mask)' if bs else ''} {sdpa['library_ms']:.4f} ms "
+              f"(its best reading), bound {bounds['bwd'][0]:.4f} ms ({bounds['bwd'][1]})",
+              flush=True)
+        rows[("bwd", bs)] = {"ms": min(first, second), "ms_readings": [first, second],
+                             "bare_ms": bare_ms, "wrapper_host_us": host, "plain_ms": plain_ms,
                              "bound_ms": bounds["bwd"][0], "bound_by": bounds["bwd"][1],
-                             "library_ms": lib, "shape": [b, n, h, d, bs]}
+                             **sdpa, "form": form,
+                             "kernels": list(fa.BACKWARD_BODIES[form]),
+                             "shape": [b, n, h, d, bs]}
 
     # the teacher's inference forward at the globals' shape
     b, n, h, d, dtype_name, bs = TRAIN_CASES[0]
@@ -1780,9 +1812,56 @@ def phase_training_times(torch, fa, state, train_step, batch, warm_ms, card):
         for _ in range(3):
             train_step(state, batch, teacher_temp, teacher_momentum)
 
+    # every B1 backward of the three steps (globals and packed locals, both
+    # resident) runs the form's two Hopper kernels
+    backward = fa.BACKWARD_BODIES[fa.attention_nhd_bwd_form(TRAIN_CASES[0][1], 0,
+                                                            torch.bfloat16)]
+    launches = 3 * attention_launches(fa)[fa.KERNEL_BWD]
     profile_window(torch, three_steps, "3 training steps", rows=25,
-                   want=fa.FORWARD_BODIES[fa.attention_nhd_form(TRAIN_CASES[0][1])])
+                   want=(fa.FORWARD_BODIES[fa.attention_nhd_form(TRAIN_CASES[0][1])],
+                         *backward),
+                   counts={name: launches for name in backward})
     return rows
+
+
+SDPA_REPEATS = 5  # readings of each way of feeding SDPA's backward, in turns
+
+
+def sdpa_backward_ms(torch, xq, xk, xv, do, h, scale, bs):
+    """SDPA's backward through autograd on views of B1's (B, N, H·D)
+    tensors as (B, H, N, D) (at the packed locals with a boolean
+    block-diagonal attn_mask, True = attend), fed dO two ways in turns,
+    SDPA_REPEATS readings each: as a strided view of B1's layout (as this
+    script fed it before), and contiguous in SDPA's own (B, H, N, D) layout.
+    Prints every reading and the spread. On an NVIDIA H100 80GB HBM3 the
+    readings fell in two modes at DINO's globals (0.27-0.29 ms and
+    0.44-0.58 ms) whichever way dO came, so the figure kept is the best:
+    returns ``library_ms`` (the least reading of either way) and both ways'
+    readings."""
+    import torch.nn.functional as F
+
+    b, n, hd = xq.shape
+    d = hd // h
+    q, k, v = (x.detach().view(b, n, h, d).transpose(1, 2).requires_grad_()
+               for x in (xq, xk, xv))
+    mask = None
+    if bs:
+        block = torch.arange(n, device="cuda") // bs
+        mask = block[:, None] == block[None, :]
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+    feeds = {"strided": do.view(b, n, h, d).transpose(1, 2),
+             "contiguous": do.view(b, n, h, d).transpose(1, 2).contiguous()}
+    readings = {way: [] for way in feeds}
+    for _ in range(SDPA_REPEATS):
+        for way, g in feeds.items():
+            readings[way].append(cuda_ms(
+                lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True)))
+    for way, ms in readings.items():
+        print(f"    SDPA backward ({b},{n},{h}x{d}) block_size={bs}, dO {way}: "
+              + " / ".join(f"{x:.4f}" for x in ms)
+              + f" ms, spread {min(ms):.4f}-{max(ms):.4f}", flush=True)
+    return {"library_ms": min(min(ms) for ms in readings.values()),
+            "library_ms_readings": readings}
 
 
 def phase_training_fused(torch, fa, fm, unfused_ms, card):
@@ -2523,8 +2602,12 @@ def main() -> int:
          {**train_stats[("fwd", 0)], "at_other_shapes": [
              {**train_stats[("fwd", locals_case[-1])],
               "max_abs_err": train_errors[locals_case][0]}]}),
-        (fa.KERNEL_BWD, "attention_nhd_bwd.cu", "vit_ssl_tpu/ops/flash_attention.py:392",
-         train_errors[globals_case][1], train_stats[("bwd", 0)]),
+        (fa.KERNEL_BWD, "attention_bwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:392",
+         train_errors[globals_case][1],
+         {**train_stats[("bwd", 0)],
+          "entry_source": "vit_ssl_tpu_torch/csrc/attention_nhd_bwd.cu",
+          "at_other_shapes": [{**train_stats[("bwd", locals_case[-1])],
+                               "max_abs_err": train_errors[locals_case][1]}]}),
     ]
     # B4 at each width: the served forward (no mask), the training forward
     # and the backward (keep-mask); the backward's max_abs_err is dx's: the

@@ -3,11 +3,12 @@
 Kernel B1: the inference forward, the training forward (output and softmax
 statistics) and the backward (dq, dk, dv), and a ``MultiHeadAttention``
 gradient through the kernels against the plain path; the bf16 forward's
-Hopper body in both its forms (one pass up to N = 256, two above) at every
-head dim: its kernels by name in a profile, repeatable bits, each head kept
-to its columns and each image to its rows, and the refusal of a scale <= 0. Kernel B3: the same
-three entries on the head-major layout, their agreement with B1 on the
-same data (bf16: B3's own Hopper forward and backward), each head kept to
+Hopper body in both its forms (one pass up to N = 256, two above) and the
+bf16 backward's (resident up to N = 256, streamed above) at every head dim:
+their kernels by name in a profile, repeatable bits, each head kept to its
+columns and each image to its rows, and the refusal of a scale <= 0. Kernel
+B3: the same three entries on the head-major layout, their agreement with
+B1 on the same data (bf16: the same Hopper bodies, bit for bit), each head kept to
 its own rows and repeatable bits in both directions, the Hopper backward's
 kernels by name in a profile, and a ``MultiHeadAttention`` gradient at
 ViT-B/16's N = 577 through them. Kernel B2 (blockwise flash attention): its forward (o and lse) and
@@ -235,11 +236,12 @@ def test_multi_head_attention_gradient_through_kernels(cuda_device, monkeypatch,
         assert float(cos) >= 0.999, (name, float(cos))
 
 
-# B1's bf16 forward in both of its forms (fa.attention_nhd_form): N = 1,
-# ragged N, N on both sides of ONE_PASS_MAX_SEQ, a block size that does not
-# divide N, and the two-pass form up to MAX_SEQ; (seq, block_size)
-B1_FORM_CASES = [(1, 0), (37, 0), (100, 0), (145, 5), (148, 37), (192, 0), (200, 7),
-                 (255, 0), (256, 0), (257, 0), (300, 7), (577, 0), (1024, 0)]
+# B1's bf16 forward and backward in both of their forms (fa.attention_nhd_form,
+# fa.attention_nhd_bwd_form): N = 1, blocks of one token, ragged N, N on both
+# sides of ONE_PASS_MAX_SEQ and RESIDENT_MAX_SEQ, a block size that does not
+# divide N, and the two-pass and streamed forms up to MAX_SEQ; (seq, block_size)
+B1_FORM_CASES = [(1, 0), (50, 1), (37, 0), (100, 0), (145, 5), (148, 37), (192, 0),
+                 (200, 7), (255, 0), (256, 0), (257, 0), (300, 7), (577, 0), (1024, 0)]
 
 
 def _b1_heads(d):
@@ -340,6 +342,114 @@ def test_b1_bf16_forward_refuses_a_non_positive_scale(cuda_device, scale):
     f32 = [x.float() for x in (xq, xk, xv)]
     torch.testing.assert_close(fa.attention_nhd_fwd(*f32, 2, scale),
                                fa.attention_nhd_reference(*f32, 2, scale), **FP32_TOL)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("n,bs", B1_FORM_CASES)
+def test_b1_bf16_backward_matches_plain_in_both_forms(cuda_device, n, bs, d):
+    """dq, dk and dv within GRAD_REL_TOL of max|plain| on either side of
+    RESIDENT_MAX_SEQ, with and without the mask: where every row keeps one
+    key (N = 1, blocks of one token) the plain dq and dk are exactly zero,
+    and so must the kernel's be (δ = Σ p·dp summed exactly)."""
+    h, b = _b1_heads(d), 3
+    xq, xk, xv, do = _inputs(b, n, h, d, torch.bfloat16, cuda_device, seed=n + d + 30) + \
+        _inputs(b, n, h, d, torch.bfloat16, cuda_device, seed=n + d + 31)[:1]
+    scale = 1.0 / d ** 0.5
+    _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)
+    before = kernels.launches[fa.KERNEL_BWD]
+    got = fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs)
+    torch.cuda.synchronize()
+    assert kernels.launches[fa.KERNEL_BWD] == before + 1
+    want = fa.attention_nhd_bwd_reference(xq, xk, xv, do, h, scale, bs)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= GRAD_REL_TOL["bfloat16"], (name, _rel_err(g, w))
+
+
+# B1's bf16 backward in both forms, with and without the mask; (seq, block_size)
+B1_BWD_FORMS = [(145, 0), (148, 37), (577, 0)]
+
+
+@pytest.mark.parametrize("n,bs", B1_BWD_FORMS)
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_b1_bf16_backward_runs_the_hopper_kernels(cuda_device, d, n, bs):
+    """A bf16 backward launches the two kernels of attention_bwd_sm90.cuh in
+    the form attention_nhd_bwd_form names (resident at N = 145 and 148,
+    streamed at 577), shown by name in a profile of the call
+    (:func:`_device_kernel_names`), and nothing of an mma.sync body."""
+    h = _b1_heads(d)
+    xq, xk, xv, do = _inputs(8, n, h, d, torch.bfloat16, cuda_device, seed=d + 32) + \
+        _inputs(8, n, h, d, torch.bfloat16, cuda_device, seed=d + 33)[:1]
+    _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, 1.0 / d ** 0.5, bs)
+    kernels_of = fa.BACKWARD_BODIES[fa.attention_nhd_bwd_form(n, bs, torch.bfloat16)]
+    want = tuple(f"{name}<{d}," for name in kernels_of)
+    names = _device_kernel_names(
+        lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, 1.0 / d ** 0.5, bs), want=want)
+    assert all(name in names for name in want), names
+    assert "bf16_kernel" not in names, names
+
+
+@pytest.mark.parametrize("n,bs", B1_BWD_FORMS + [(300, 7)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_b1_bf16_backward_repeats_bit_for_bit(cuda_device, d, n, bs):
+    """No atomics, no order that changes between calls: two backward calls
+    on the same inputs give the same bits, in both forms and every head
+    dim."""
+    h = _b1_heads(d)
+    xq, xk, xv, do = _inputs(4, n, h, d, torch.bfloat16, cuda_device, seed=d + 34) + \
+        _inputs(4, n, h, d, torch.bfloat16, cuda_device, seed=d + 35)[:1]
+    _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, 0.125, bs)
+    first = fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, 0.125, bs)
+    second = fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, 0.125, bs)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.parametrize("n,bs", B1_BWD_FORMS)
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_b1_bf16_backward_keeps_to_its_head_and_image(cuda_device, d, n, bs):
+    """With head 1's columns of q, k, v and do all inf and image 1 all NaN,
+    the gradients of heads 0 and 2 of images 0 and 2 stay finite and within
+    GRAD_REL_TOL of the plain version of each head alone: no tile reads a
+    neighbouring head's columns, the next image's rows, or another head's
+    statistics or delta."""
+    h, b = 3, 3
+    xq, xk, xv, do = _inputs(b, n, h, d, torch.bfloat16, cuda_device, seed=d + 36) + \
+        _inputs(b, n, h, d, torch.bfloat16, cuda_device, seed=d + 37)[:1]
+    for x in (xq, xk, xv, do):
+        x.view(b, n, h, d)[:, :, 1] = float("inf")
+        x[1] = float("nan")
+    _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, 0.125, bs)
+    got = fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, 0.125, bs)
+    torch.cuda.synchronize()
+    for img in (0, 2):
+        for head in (0, 2):
+            alone = [x.view(b, n, h, d)[img:img + 1, :, head].contiguous()
+                     for x in (xq, xk, xv, do)]
+            want = fa.attention_nhd_bwd_reference(*alone, 1, 0.125, bs)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                g = g.view(b, n, h, d)[img:img + 1, :, head]
+                assert torch.isfinite(g).all(), (img, head, name)
+                assert _rel_err(g, w) <= GRAD_REL_TOL["bfloat16"], (img, head, name)
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125])
+def test_b1_bf16_backward_refuses_a_non_positive_scale(cuda_device, scale):
+    """The Hopper backward rebuilds p with the scale folded into the
+    exponent after the mask's -inf: a bf16 call with scale <= 0 raises by
+    name and launches nothing; fp32 takes it."""
+    xq, xk, xv, do = _inputs(2, 37, 2, 64, torch.bfloat16, cuda_device, seed=38) + \
+        _inputs(2, 37, 2, 64, torch.bfloat16, cuda_device, seed=39)[:1]
+    _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, 2, 0.125)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="scale must be positive"):
+        fa.attention_nhd_bwd(xq, xk, xv, do, stats, 2, scale)
+    assert dict(kernels.launches) == before
+    f32 = [x.float() for x in (xq, xk, xv, do)]
+    _, stats = fa.attention_nhd_fwd_stats(*f32[:3], 2, scale)
+    got = fa.attention_nhd_bwd(*f32, stats, 2, scale)
+    for g, w in zip(got, fa.attention_nhd_bwd_reference(*f32, 2, scale)):
+        assert _rel_err(g, w) <= GRAD_REL_TOL["float32"]
 
 
 # Kernel B4 at DINO ViT-S/8's widths: the student's globals, a short served
@@ -543,13 +653,12 @@ def test_fused_attention_backward_matches_plain(cuda_device, b, h, n, d, dtype):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_fused_attention_is_b1_on_the_head_major_layout(cuda_device, dtype):
-    """B3 computes B1's function on the head-major layout. The forward is
-    one body for both layouts in each dtype (fp32: the CUDA cores; bf16:
-    the two-pass form of attention_fwd_sm90.cuh, which B1 takes at
-    N = 577), so output and statistics are equal bit for bit. The backward:
-    fp32 one body, equal bit for bit; bf16 B3's own Hopper backward (wgmma
-    sums in another order than B1's mma.sync backward): fed B1's
-    statistics, its gradients within GRAD_REL_TOL of max|B1|."""
+    """B3 computes B1's function on the head-major layout. Forward and
+    backward are one body for both layouts in each dtype (fp32: the CUDA
+    cores; bf16: the two-pass form of attention_fwd_sm90.cuh and the
+    streamed form of attention_bwd_sm90.cuh, which B1 takes at N = 577), so
+    output, statistics and, fed B1's statistics, the gradients are equal
+    bit for bit."""
     dt = getattr(torch, dtype)
     b, h, n, d = 4, 12, 577, 64
     q, k, v = _head_inputs(b, h, n, d, dt, cuda_device, seed=11)
@@ -564,11 +673,9 @@ def test_fused_attention_is_b1_on_the_head_major_layout(cuda_device, dtype):
     assert torch.equal(nhd(out), b1_out) and torch.equal(stats, b1_stats)
     got = fa.fused_attention_bwd(q, k, v, do, b1_stats, 0.125)
     want = fa.attention_nhd_bwd(nhd(q), nhd(k), nhd(v), nhd(do), b1_stats, h, 0.125)
-    if dtype == "float32":
-        assert all(torch.equal(nhd(g), w) for g, w in zip(got, want))
-    else:
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            assert _rel_err(nhd(g), w) <= GRAD_REL_TOL[dtype], (name, _rel_err(nhd(g), w))
+    if dtype == "bfloat16":
+        assert fa.attention_nhd_bwd_form(n, 0, dt) == "streamed"
+    assert all(torch.equal(nhd(g), w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("d,dtype", [(32, "bfloat16"), (64, "bfloat16"), (128, "bfloat16"),

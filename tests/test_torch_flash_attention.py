@@ -199,11 +199,13 @@ def test_kernel_sources_cover_their_headers():
     libraries and B3's share the CUDA-core bodies and the common header; B1's
     forward library and B3's share the bf16 Hopper forward
     (``attention_fwd_sm90.cuh``, over the primitives of
-    ``sm90_common.cuh``); B3's Hopper backward is B3's alone."""
+    ``sm90_common.cuh``); B1's backward library and B3's share the bf16
+    Hopper backward (``attention_bwd_sm90.cuh``)."""
     want = {
         "attention_nhd_fwd": {"attention_nhd_fwd.cu", "attention_fwd.cuh",
                               "attention_fwd_sm90.cuh", "sm90_common.cuh"},
-        "attention_nhd_bwd": {"attention_nhd_bwd.cu", "attention_bwd.cuh"},
+        "attention_nhd_bwd": {"attention_nhd_bwd.cu", "attention_bwd.cuh",
+                              "attention_bwd_sm90.cuh", "sm90_common.cuh"},
         "fused_attention": {"fused_attention.cu", "attention_fwd.cuh",
                             "attention_bwd.cuh", "attention_fwd_sm90.cuh",
                             "attention_bwd_sm90.cuh", "sm90_common.cuh"},
@@ -215,17 +217,16 @@ def test_kernel_sources_cover_their_headers():
 
 
 # (library, sm90 header, reached): B1's forward reaches the Hopper forward
-# and its primitives; B1's backward stays on its mma.sync body and reaches
-# none of the four sm90 headers; neither reaches B3's Hopper backward or
-# B2's Hopper forward
+# and its primitives, B1's backward the Hopper backward and the same
+# primitives; neither reaches the other's Hopper body or B2's Hopper forward
 B1_SM90_REACH = [
     ("attention_nhd_fwd", "attention_fwd_sm90", True),
     ("attention_nhd_fwd", "sm90_common", True),
     ("attention_nhd_fwd", "attention_bwd_sm90", False),
     ("attention_nhd_fwd", "flash_blockwise_fwd_sm90", False),
     ("attention_nhd_bwd", "attention_fwd_sm90", False),
-    ("attention_nhd_bwd", "sm90_common", False),
-    ("attention_nhd_bwd", "attention_bwd_sm90", False),
+    ("attention_nhd_bwd", "sm90_common", True),
+    ("attention_nhd_bwd", "attention_bwd_sm90", True),
     ("attention_nhd_bwd", "flash_blockwise_fwd_sm90", False),
 ]
 
@@ -233,7 +234,8 @@ B1_SM90_REACH = [
 @pytest.mark.parametrize("name,header,reached", B1_SM90_REACH)
 def test_b1_libraries_reach_only_their_sm90_headers(name, header, reached):
     """An edit to a Hopper header rebuilds exactly the B1 libraries that
-    compile it: the forward's (its bf16 body), never the backward's. A
+    compile it: the forward's for the Hopper forward, the backward's for the
+    Hopper backward, both for their shared primitives. A
     header a library does not include is not named by its sources either
     (nothing of it is instantiated there), except in the comments of
     ``sm90_common.cuh``, which list the bodies over it."""

@@ -23,10 +23,10 @@
 //   o  = pn . v                           fp32 accumulation, bf16 on store
 //
 // pn is rounded after normalising, as the plain versions
-// (ops/flash_attention.py) and the JAX kernels round it, and as the
-// backwards (B1's mma.sync body in attention_bwd.cuh, B3's Hopper body)
-// rebuild it from (m, 1/l): p = 2^(s log2e - m log2e) * (1/l). So the row
-// max and sum must be known before any pn is formed. Two forms:
+// (ops/flash_attention.py) and the JAX kernels round it, and as the Hopper
+// backward of B1 and B3 rebuilds it from (m, 1/l): p = 2^(s log2e -
+// m log2e) * (1/l). So the row max and sum must be known before any pn is
+// formed. Two forms:
 //
 // - one pass (B1 at n <= kOnePassMaxSeq = 256, up to four 64-key tiles:
 //   DINO's N = 145 and 148 take three): a consumer warpgroup's whole
@@ -156,37 +156,6 @@ struct OnePass : Shape<D> {
   // memory decides (two blocks at T <= 2, one at T >= 3)
   static constexpr int kMinBlocks = D <= 64 ? 3 : 1;
 };
-
-// Where head h of image b starts in its tensor map: the column of its
-// first element and the plane (B3: (D, n, B*H); B1: (H*D, n, B)).
-struct MapAt {
-  int col, plane;
-};
-
-template <bool kHeadMajor, int D>
-__device__ __forceinline__ MapAt map_at(int b, int h, int heads) {
-  if (kHeadMajor) return {0, b * heads + h};
-  return {h * D, b};
-}
-
-// The keys a query row keeps: its diagonal block (block_size > 0), else
-// every key before n (a row past n included: its output is never stored).
-__device__ __forceinline__ Span row_keys(int row, int n, int block_size) {
-  return block_size ? key_span(row, n, block_size) : Span{0, n};
-}
-
-// -inf for the scores of one 64-key tile at k0 that the lane's two rows
-// (spans lo and hi) do not keep. Only a tile that reaches past n, or any
-// tile under the block-diagonal mask, has any (uniform test).
-__device__ __forceinline__ void mask_keys(float (&s)[kKeys / 2], int k0, int t, Span lo,
-                                          Span hi, int n, int block_size) {
-  if (block_size == 0 && k0 + kKeys <= n) return;
-#pragma unroll
-  for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (!(e >> 1 ? hi : lo).has(k0 + 8 * j + 2 * t + (e & 1))) s[4 * j + e] = -INFINITY;
-}
 
 // A warp's 16 output rows (row_lo, row_lo + 8) from the O accumulator as
 // bf16, rows >= n skipped. The accumulator layout is sm90_common.cuh's:

@@ -16,31 +16,36 @@
 // the input dtype. The TPU kernel reads the (B, H, N, N) probabilities its
 // training forward saved; this one recomputes them from q, k and the
 // softmax statistics (m, 1/l) that attention_nhd_fwd_stats saved (fp32,
-// (B, H, round_up(N, 64), 2)): the scores again (mma_abt8 for bf16;
-// dot8_f32 for fp32, the forward's very instructions), then
-// p = exp(s - m) * (1/l) rounded as the forward rounded it (in bf16 the
-// forward's wgmma sums in another order, so p may differ from the one it
-// fed to P.V by a rounding at a tie). Recomputing p means
-// applying the block-diagonal mask again (the saved probabilities were zero
-// off the blocks; recomputed ones would not be), and zeroing rows and keys
-// past N.
+// (B, H, round_up(N, 64), 2)), with the forward's own instructions (bf16:
+// the same wgmma scores; fp32: dot8_f32), so p is the forward's bit for
+// bit (bf16: in the dq kernel, whose scores are Q.K^T). Recomputing p
+// means applying the block-diagonal mask again (the saved probabilities
+// were zero off the blocks; recomputed ones would not be), and zeroing rows
+// and keys past N.
 //
 // What bounds it on an H100 SXM: bytes. At the training shape (256, 145,
 // 6x64) bf16 it must read q, k, v, do (4 x 57 MB) and the statistics
 // (1.8 MB) and write dq, dk, dv (3 x 57 MB): about 200 MB, 60 us at
 // 3.35 TB/s, against 21 GFLOP of products, 21 us at the 989 TFLOP/s bf16
 // tensor-core rate (data sheet). At the packed locals (128, 148, 6x64,
-// block_size 37) it is about 30 us.
+// block_size 37) it is about 31 us.
 //
-// The kernel bodies (a dq kernel and a dk/dv kernel, bf16 on the tensor
-// cores, fp32 on the CUDA cores) and how their design answers that bound
-// are in attention_bwd.cuh, shared with kernel B3 (fused_attention.cu).
+// bfloat16 runs the Hopper backward of attention_bwd_sm90.cuh (wgmma, TMA;
+// B3's and B2's body) on B1's layout, with the mask: at n <= 256 (DINO's
+// N = 145 and 148) in its resident form (64-row blocks, several an SM,
+// every tile a block needs loaded once; under the mask the tiles off a
+// block's diagonal blocks are skipped), above in its streamed form (128-row
+// blocks, a ring of tiles). Its design and how it answers the bound are
+// written there; ops/flash_attention.py::attention_nhd_bwd_form names the
+// rule. It takes scale > 0 only. float32 runs the CUDA-core bodies of
+// attention_bwd.cuh (shared with kernel B3, fused_attention.cu).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (vit_ssl_tpu_torch/kernels.py); called through
 // ctypes from vit_ssl_tpu_torch/ops/flash_attention.py::attention_nhd_bwd.
 
-#include "attention_bwd.cuh"
+#include "attention_bwd.cuh"       // float32
+#include "attention_bwd_sm90.cuh"  // bfloat16
 
 // q, k, v, dout (the upstream gradient, already in the input dtype), dq, dk,
 // dv: contiguous (batch, n, heads * head_dim) of one dtype (is_bf16 = 1:
@@ -54,6 +59,16 @@ extern "C" int attention_nhd_bwd(const void* q, const void* k, const void* v,
                                  void* dk, void* dv, void* delta, int batch, int n,
                                  int heads, int head_dim, int is_bf16, float scale,
                                  int block_size, void* stream) {
+  if (is_bf16) {
+    if (sm90::bad_bwd_sizes(batch, n, heads, scale) || n > kMaxSeq || block_size < 0 ||
+        stats == nullptr || delta == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return sm90::for_head_dim(head_dim, [&](auto d) {
+      return sm90::launch_nhd_bwd<decltype(d)::value>(q, k, v, dout, stats, dq, dk, dv, delta,
+                                                      batch, n, heads, scale, block_size,
+                                                      static_cast<cudaStream_t>(stream));
+    });
+  }
   return bwd_dispatch<false>(q, k, v, dout, stats, dq, dk, dv, delta, batch, n, heads,
-                             head_dim, is_bf16, scale, block_size, stream);
+                             head_dim, scale, block_size, stream);
 }

@@ -1,15 +1,14 @@
 // Device helpers shared by the attention kernels of kernels B1 and B3
-// (attention_fwd.cuh, attention_bwd.cuh): the two layouts, warp
-// reductions, the bf16 mma.sync / ldmatrix / cp.async building blocks and
-// the tile loads.
+// (attention_fwd.cuh, attention_bwd.cuh, and the Hopper bodies through
+// sm90_common.cuh) and the fused MLP: the two layouts, the block-diagonal
+// mask's spans, warp reductions, the bf16 mma.sync / ldmatrix / cp.async
+// building blocks and the fp32 tile loads and dot products.
 //
 // The fp32 forward and backward compute the scores with the very same
 // instruction sequence (dot8_f32), so that the backward rebuilds the
-// forward's probabilities bit for bit. In bf16 the forward's scores come
-// from wgmma (the Hopper forward body) and B1's backward's from mma_abt8:
-// sums in another order, so a rebuilt p may round to the neighbouring bf16
-// value where the fp32 score lands near a tie (the gradients are held to
-// their plain version, not to bit-equality).
+// forward's probabilities bit for bit. In bf16 both B1 and B3 compute their
+// scores by wgmma.m64n64k16 with the same operands in the Hopper forward
+// and in the Hopper backward's dq kernel.
 //
 // kernels.py rebuilds a library when this header is newer than it.
 
@@ -79,10 +78,6 @@ __device__ __forceinline__ HeadRows head_rows(int b, int h, int n, int heads) {
 struct Span {
   int lo, hi;
   __device__ __forceinline__ bool has(int col) const { return col >= lo && col < hi; }
-  // does [c0, c0 + width) meet the span?
-  __device__ __forceinline__ bool meets(int c0, int width) const {
-    return c0 < hi && c0 + width > lo;
-  }
 };
 
 __device__ __forceinline__ Span key_span(int row, int n, int block_size) {
@@ -92,18 +87,16 @@ __device__ __forceinline__ Span key_span(int row, int n, int block_size) {
   return {lo, min(lo + block_size, n)};
 }
 
-// The keys any of a warp's 16 rows row0 .. row0 + 15 attends (row0 < n):
-// key tiles outside it hold no kept score for the warp and are skipped.
-__device__ __forceinline__ Span warp_key_span(int row0, int n, int block_size) {
+// The keys any of `rows` rows row0 .. row0 + rows - 1 attends (row0 < n):
+// tiles outside it hold no kept score for those rows and may be skipped.
+__device__ __forceinline__ Span rows_key_span(int row0, int rows, int n, int block_size) {
   return {key_span(row0, n, block_size).lo,
-          key_span(min(row0 + 15, n - 1), n, block_size).hi};
+          key_span(min(row0 + rows - 1, n - 1), n, block_size).hi};
 }
 
 // ---------------------------------------------------------------------------
 // bfloat16 on the tensor cores
 
-constexpr int kWarps16 = 4;              // warps per block, 16 rows each
-constexpr int kRows16 = 16 * kWarps16;   // rows per block
 constexpr int kBPad = 8;                 // row padding in bf16: 16-byte rows
                                          // whose 8 neighbours sit 4 banks apart
 
@@ -178,99 +171,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int pending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
-}
-
-// Starts copying rows [row0, row0 + kKTile) of one head into a padded shared
-// tile, 16 bytes a thread, all in flight at once; rows at or past n become
-// zero. The caller commits, waits (cp_async_wait) and synchronises.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* __restrict__ src,
-                                               int row0, int n, int row_stride) {
-  constexpr int kVecs = D / 8;
-#pragma unroll
-  for (int idx = threadIdx.x; idx < kKTile * kVecs; idx += 32 * kWarps16) {
-    const int r = idx / kVecs, c = (idx % kVecs) * 8;
-    const int g = row0 + r;
-    cp_async16(dst + r * (D + kBPad) + c,
-               g < n ? src + (size_t)g * row_stride + c : src, g < n);
-  }
-}
-
-// A warp's 16 rows (row_lo = its first row + lane / 4, and row_lo + 8) of
-// one head as mma A fragments, straight from global memory; rows at or past
-// n are zero.
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4],
-                                             const bf16* __restrict__ src,
-                                             int row_lo, int n, int row_stride) {
-  const int t = threadIdx.x & 3;
-  const int row_hi = row_lo + 8;
-  const bf16* lo = src + (size_t)row_lo * row_stride + 2 * t;
-  const bf16* hi = src + (size_t)row_hi * row_stride + 2 * t;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    a[kk][0] = row_lo < n ? ld32(lo + 16 * kk) : 0u;
-    a[kk][1] = row_hi < n ? ld32(hi + 16 * kk) : 0u;
-    a[kk][2] = row_lo < n ? ld32(lo + 16 * kk + 8) : 0u;
-    a[kk][3] = row_hi < n ? ld32(hi + 16 * kk + 8) : 0u;
-  }
-}
-
-// c = a . b^T for one 16x8 tile: a is a warp's 16 rows (A fragments over the
-// whole head dim), b the 8 rows of a padded shared tile starting at `rows`.
-// Lane (g, t) gets rows g and g + 8, columns 2t and 2t + 1.
-template <int D>
-__device__ __forceinline__ void mma_abt8(float (&c)[4], const uint32_t (&a)[D / 16][4],
-                                         const bf16* rows) {
-  const int lane = threadIdx.x & 31;
-  // this lane's ldmatrix row: row lane & 7, columns 8 * (lane >> 3)
-  const bf16* p = rows + (lane & 7) * (D + kBPad) + 8 * (lane >> 3);
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-#pragma unroll
-  for (int kp = 0; kp < D / 32; ++kp) {  // two 16-deep k-steps per ldmatrix
-    uint32_t b[4];
-    ldmatrix_x4<false>(b, p + 32 * kp);
-    mma_bf16(c, a[2 * kp], b[0], b[1]);
-    mma_bf16(c, a[2 * kp + 1], b[2], b[3]);
-  }
-}
-
-// acc += a . b: a is 16x16 (A fragments in registers: the 16-column slice
-// of two accumulator tiles, packed with pack_bf16), b the 16 rows of a
-// padded shared tile starting at `rows`, over the whole head dim.
-template <int D>
-__device__ __forceinline__ void mma_ab16(float (&acc)[D / 8][4], const uint32_t (&a)[4],
-                                         const bf16* rows) {
-  const int lane = threadIdx.x & 31, mat = lane >> 3;
-  // lane -> row address of one of the four 8x8 matrices: rows
-  // (lane & 7) + 8 * (matrix & 1), columns 8 * (matrix >> 1)
-  const bf16* p = rows + ((lane & 7) + 8 * (mat & 1)) * (D + kBPad) + 8 * (mat >> 1);
-#pragma unroll
-  for (int dp = 0; dp < D / 16; ++dp) {
-    uint32_t b[4];
-    ldmatrix_x4<true>(b, p + 16 * dp);
-    mma_bf16(acc[2 * dp], a, b[0], b[1]);
-    mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
-  }
-}
-
-// Stores a warp's 16 x D accumulator rows (row_lo, row_lo + 8) as bf16,
-// rows at or past n skipped.
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(bf16* __restrict__ dst,
-                                                const float (&acc)[D / 8][4],
-                                                int row_lo, int n, int row_stride) {
-  const int t = threadIdx.x & 3;
-  const int row_hi = row_lo + 8;
-  bf16* lo = dst + (size_t)row_lo * row_stride + 2 * t;
-  bf16* hi = dst + (size_t)row_hi * row_stride + 2 * t;
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    if (row_lo < n)
-      *reinterpret_cast<uint32_t*>(lo + 8 * dn) = pack_bf16(acc[dn][0], acc[dn][1]);
-    if (row_hi < n)
-      *reinterpret_cast<uint32_t*>(hi + 8 * dn) = pack_bf16(acc[dn][2], acc[dn][3]);
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -19,8 +19,8 @@
 // not fit the TPU's VMEM (ViT-B/16 at 384 px: N = 577, 12 heads of 64).
 // The bfloat16 forward is the Hopper body B1 shares (attention_fwd_sm90.cuh:
 // wgmma, TMA, its two-pass form at every N here); the bfloat16 backward is
-// the Hopper backward B2 shares in its lse form (attention_bwd_sm90.cuh,
-// instantiated here in B3's (m, 1/l) form); the float32 forward and
+// the Hopper backward B1 and B2 share (attention_bwd_sm90.cuh, instantiated
+// here in B3's (m, 1/l) form on its layout); the float32 forward and
 // backward (CUDA cores) are B1's kernel bodies (attention_fwd.cuh,
 // attention_bwd.cuh).
 // All are instantiated with kHeadMajor. The dispatch is by dtype alone.
@@ -96,5 +96,5 @@ extern "C" int fused_attention_bwd(const void* q, const void* k, const void* v,
     });
   }
   return bwd_dispatch<true>(q, k, v, dout, stats, dq, dk, dv, delta, batch, n, heads,
-                            head_dim, 0, scale, 0, stream);
+                            head_dim, scale, 0, stream);
 }

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) pieces of the wgmma/TMA attention bodies: kernels
 // B1's and B3's bf16 forwards (attention_fwd_sm90.cuh), kernel B2's bf16
-// forward (flash_blockwise_fwd_sm90.cuh) and the bf16 backward of B3 and
-// B2 (attention_bwd_sm90.cuh). Shared-memory addresses, mbarriers and the
+// forward (flash_blockwise_fwd_sm90.cuh) and the bf16 backward of B1, B3
+// and B2 (attention_bwd_sm90.cuh). Shared-memory addresses, mbarriers and the
 // ring of stages, TMA loads through 3-D tensor maps, wgmma descriptors and
-// products, the tiles all three share, the masking of keys past n, the
-// row-guarded bf16 store, and the host's encoding of the tensor maps. Each
+// products, the tiles all three share, where a head lies in its tensor map,
+// the masking of keys past n and off the diagonal blocks, the row-guarded
+// bf16 store, and the host's encoding of the tensor maps. Each
 // library that includes it builds only the bodies it instantiates.
 //
 // kernels.py rebuilds a library when this header is newer than it.
@@ -296,6 +297,38 @@ __device__ __forceinline__ void mask_columns(float (&acc)[kKeys / 2], int c0, in
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (c0 + 8 * j + 2 * t + (e & 1) >= n) acc[4 * j + e] = -INFINITY;
+}
+
+// Where head h of image b starts in its tensor map: the column of its
+// first element and the plane (B3 and B2: (D, n, B*H); B1: (H*D, n, B)).
+struct MapAt {
+  int col, plane;
+};
+
+template <bool kHeadMajor, int D>
+__device__ __forceinline__ MapAt map_at(int b, int h, int heads) {
+  if (kHeadMajor) return {0, b * heads + h};
+  return {h * D, b};
+}
+
+// The keys a query row keeps: its diagonal block (block_size > 0), else
+// every key before n (a row past n included: its output is never stored).
+// The mask is symmetric: for a key, the queries that keep it.
+__device__ __forceinline__ Span row_keys(int row, int n, int block_size) {
+  return block_size ? key_span(row, n, block_size) : Span{0, n};
+}
+
+// -inf for the scores of one 64-column tile at k0 that the lane's two rows
+// (spans lo and hi) do not keep. Only a tile that reaches past n, or any
+// tile under the block-diagonal mask, has any (uniform test).
+__device__ __forceinline__ void mask_keys(float (&s)[kKeys / 2], int k0, int t, Span lo,
+                                          Span hi, int n, int block_size) {
+  if (block_size == 0 && k0 + kKeys <= n) return;
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (!(e >> 1 ? hi : lo).has(k0 + 8 * j + 2 * t + (e & 1))) s[4 * j + e] = -INFINITY;
 }
 
 // The A-fragment slot of accumulator column block j, row half `half`:

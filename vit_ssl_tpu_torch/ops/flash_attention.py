@@ -21,7 +21,12 @@ it launches the hand-written Hopper kernels:
   above, the form B3 runs; in fp32 a CUDA-core body;
 - ``attention_nhd_bwd`` (``csrc/attention_nhd_bwd.cu``), the backward: it
   rebuilds the forward's rounded probabilities from q, k and the
-  statistics and returns dq, dk and dv.
+  statistics and returns dq, dk and dv. In bf16 it runs the Hopper
+  backward of ``csrc/attention_bwd_sm90.cuh`` (wgmma, TMA; B3's and B2's
+  body, on B1's layout with the mask; the softmax scale must be positive)
+  in one of two forms, :func:`attention_nhd_bwd_form`: resident up to
+  ``RESIDENT_MAX_SEQ`` (DINO's N = 145 and 148), streamed above; in fp32
+  a CUDA-core body.
 
 On a CPU tensor the same Function runs the plain PyTorch versions,
 :func:`attention_nhd_reference` forward and
@@ -34,9 +39,10 @@ contiguous (B, H, N, D) tensors, with the same three entries in one library
 ``fused_attention_fwd_stats`` and ``fused_attention_bwd``; on a CPU tensor
 :func:`fused_attention_reference` and :func:`fused_attention_bwd_reference`.
 Its bf16 forwards run the two-pass form of B1's Hopper body, its bf16
-backward the Hopper backward of ``csrc/attention_bwd_sm90.cuh`` in its
-(m, 1/l) form (wgmma, TMA, two consumer warpgroups a block; the softmax
-scale must be positive), which B2's backward shares in its lse form;
+backward the streamed form of B1's Hopper backward
+(``csrc/attention_bwd_sm90.cuh``: wgmma, TMA, two consumer warpgroups a
+block; the softmax scale must be positive), which B2's backward shares in
+its lse form;
 its fp32 forwards and backward are B1's CUDA-core bodies, all instantiated
 for the head-major layout.
 
@@ -75,6 +81,17 @@ ONE_PASS_MAX_SEQ = 256
 # each form's kernel, as a profiler names it
 FORWARD_BODIES = {"one-pass": "attention_fwd_onepass_sm90_kernel",
                   "two-pass": "attention_fwd_sm90_kernel"}
+# B1's bf16 backward holds every tile a 64-row block needs in shared memory
+# up to this length (four 64-row tiles), streams them through a ring above:
+# csrc/attention_bwd_sm90.cuh's kResidentMaxSeq
+RESIDENT_MAX_SEQ = 256
+# each backward form's (dq, dk/dv) kernels, as a profiler names them
+BACKWARD_BODIES = {
+    "resident": ("attention_nhd_bwd_dq_resident_sm90_kernel",
+                 "attention_nhd_bwd_dkv_resident_sm90_kernel"),
+    "streamed": ("attention_nhd_bwd_dq_sm90_kernel", "attention_nhd_bwd_dkv_sm90_kernel"),
+    "cuda-core": ("attention_bwd_dq_f32_kernel", "attention_bwd_dkv_f32_kernel"),
+}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # entry -> (library, pointer arguments, takes block_size)
@@ -152,6 +169,28 @@ def attention_nhd_form(n: int) -> str:
     if not 1 <= n <= MAX_SEQ:
         raise ValueError(f"sequence length {n} outside 1..{MAX_SEQ}")
     return "one-pass" if n <= ONE_PASS_MAX_SEQ else "two-pass"
+
+
+def attention_nhd_bwd_form(n: int, block_size: int, dtype) -> str:
+    """The form of B1's backward kernels for sequence length ``n``,
+    ``block_size`` and ``dtype``, as ``csrc/attention_nhd_bwd.cu`` picks it
+    (:data:`BACKWARD_BODIES` names each form's two kernels). bf16:
+    ``"resident"`` up to ``RESIDENT_MAX_SEQ`` (blocks of 64 query or key
+    rows, several an SM, each holding every K and V, or Q and dO, tile it
+    needs in shared memory; under the block-diagonal mask only the tiles
+    that hold a kept score), else ``"streamed"`` (blocks of 128 rows whose
+    tiles stream through a ring, the form of B3's and B2's backward). The
+    mask (``block_size`` > 0) is a template parameter of both forms, not a
+    form of its own. fp32: ``"cuda-core"``, at every n and block size."""
+    if not 1 <= n <= MAX_SEQ:
+        raise ValueError(f"sequence length {n} outside 1..{MAX_SEQ}")
+    if block_size < 0:
+        raise ValueError(f"block_size must be >= 0, got {block_size}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype {dtype} not supported (float32, bfloat16)")
+    if dtype == torch.float32:
+        return "cuda-core"
+    return "resident" if n <= RESIDENT_MAX_SEQ else "streamed"
 
 
 # ---------------------------------------------------------------------------
@@ -395,15 +434,17 @@ def attention_nhd_fwd_stats(xq, xk, xv, num_heads: int, scale: float,
 def attention_nhd_bwd(xq, xk, xv, do, stats, num_heads: int, scale: float,
                       block_size: int = 0):
     """(dq, dk, dv) of :func:`attention_nhd` for the upstream gradient
-    ``do``. On a CUDA tensor kernel ``attention_nhd_bwd``, from the
-    statistics of :func:`attention_nhd_fwd_stats` (``do`` is cast to the
-    input dtype and made contiguous here, never in the kernel); on a CPU
-    tensor :func:`attention_nhd_bwd_reference`, which needs no statistics."""
+    ``do``. On a CUDA tensor kernel ``attention_nhd_bwd`` in the form
+    :func:`attention_nhd_bwd_form` names, from the statistics of
+    :func:`attention_nhd_fwd_stats` (``do`` is cast to the input dtype and
+    made contiguous here, never in the kernel); on a CPU tensor
+    :func:`attention_nhd_bwd_reference`, which needs no statistics."""
     if xq.device.type == "cpu":
         return attention_nhd_bwd_reference(xq, xk, xv, do, num_heads, scale,
                                            block_size)
     _require_cuda(xq)
     d = _check(xq, xk, xv, num_heads, block_size)
+    _check_scale(xq, scale)
     b, n, _ = xq.shape
     do, dq, dk, dv, delta = _bwd_buffers(xq, do, stats, b, num_heads, n)
     _launch(KERNEL_BWD, xq.device, xq.data_ptr(), xk.data_ptr(), xv.data_ptr(),
@@ -509,7 +550,7 @@ def _check_heads(q, k, v) -> Tuple[int, int, int, int]:
 def _check_scale(q, scale: float) -> None:
     """B1's and B3's bf16 forward kernel takes the row max of the unscaled
     scores, which is the scaled scores' row max only for a positive scale;
-    B3's bf16 backward rebuilds p the same way. fp32 takes any scale."""
+    their bf16 backward rebuilds p the same way. fp32 takes any scale."""
     if q.dtype == torch.bfloat16 and not scale > 0:
         raise ValueError(f"scale must be positive for the bf16 kernel, got {scale}")
 

@@ -42,16 +42,22 @@ Two modes (``--kernel``):
   through ``chip_smoke.b1_bare`` (the C entry alone, on outputs allocated
   once), with each library's host microseconds a launch (its tensor maps
   encoded, if any, and the launch), and through its wrapper routed to
-  each library, back to back (as ``chip_smoke.py``'s ``ms``).
-  Then the DINO ViT-S/8 training step and a served DINO batch of 128
-  (``chip_smoke.py``'s), with both forward entries routed to each library
-  in the same turns.
+  each library, back to back (as ``chip_smoke.py``'s ``ms``). Then
+  ``csrc/attention_nhd_bwd.cu``'s ``attention_nhd_bwd`` (B1's backward) at
+  the two training shapes, both libraries fed this checkout's statistics:
+  dq, dk and dv within 2e-2 of max|plain|, compared bit for bit, timed as
+  C entries and through the wrapper in turns, beside SDPA's backward
+  (``chip_smoke.sdpa_backward_ms``) and the bound. Then the DINO ViT-S/8
+  training step (all three B1 entries routed) and a served DINO batch of
+  128 (both forwards routed), ``chip_smoke.py``'s, with each library in
+  the same turns.
 
 Each step or batch turn gives the warm time (host clock, median of 10),
 device busy a step or batch (``chip_smoke.profile_window`` over 3, which
 must show that library's kernels by name) and peak memory. Each mode first
 prints the registers and spills (``-Xptxas -v``) of both libraries' bf16
-bodies. Card only; run from the root of a checkout (``chip_smoke.py`` is
+bodies, and whether each Hopper kernel that both libraries hold has the
+same SASS (``cuobjdump -sass``) in both. Card only; run from the root of a checkout (``chip_smoke.py`` is
 imported from there):
 
     python -m vit_ssl_tpu_torch.scripts.b3_turns --other DIR [--kernel b2|b1]
@@ -65,7 +71,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import difflib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -92,9 +100,12 @@ B1_SHAPES = [(128, 145, 6, 64, 0, (fa.KERNEL,)),
              (256, 145, 6, 64, 0, (fa.KERNEL, fa.KERNEL_TRAIN)),
              (128, 148, 6, 64, 37, (fa.KERNEL_TRAIN,))]
 B2_BWD_ENTRIES = (fb.KERNEL_DQ, fb.KERNEL_DKV)
+# DINO ViT-S/8's B1 backwards, (batch, seq, heads, head_dim, block_size):
+# the student globals, the packed locals
+B1_BWD_SHAPES = [(256, 145, 6, 64, 0), (128, 148, 6, 64, 37)]
 POINTERS = {fa.FUSED_KERNEL: 4, fa.FUSED_KERNEL_TRAIN: 5, fa.FUSED_KERNEL_BWD: 9,
             fb.KERNEL: 5, fb.KERNEL_EXP2: 5, fa.KERNEL: 4, fa.KERNEL_TRAIN: 5,
-            fb.KERNEL_DQ: 9, fb.KERNEL_DKV: 8}
+            fa.KERNEL_BWD: 9, fb.KERNEL_DQ: 9, fb.KERNEL_DKV: 8}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_BF16_OPS_PER_S = 989e12
 GRAD_REL_TOL = 2e-2  # bf16: p and ds round on both sides
@@ -108,6 +119,10 @@ BODIES = {"b3": ("attention_bwd_dq_sm90_kernel", "attention_bwd_dkv_sm90_kernel"
                  "blockwise_bwd_dq_sm90_kernel", "blockwise_bwd_dkv_sm90_kernel",
                  "blockwise_dq_bf16_kernel", "blockwise_dkv_bf16_kernel"),
           "b1": ("attention_fwd_onepass_sm90_kernel", "attention_fwd_bf16_kernel")}
+# B1's bf16 backward kernels, by form: the mma.sync body that
+# attention_bwd_sm90.cuh replaced, and its two forms
+B1_BWD_BODIES = {"mma.sync": ("attention_bwd_dq_bf16_kernel", "attention_bwd_dkv_bf16_kernel"),
+                 **{form: fa.BACKWARD_BODIES[form] for form in ("resident", "streamed")}}
 STEPS = 10  # timed steps a turn, as chip_smoke.TIMED_STEPS
 TURNS = ("other", "this", "this", "other")
 
@@ -138,6 +153,69 @@ def print_registers(card: str, libs: dict) -> None:
                     print(f"{card}: {who} {name}: {line}", flush=True)
 
 
+def sass_functions(path: str) -> dict:
+    """``cuobjdump -sass`` of a library: each Hopper kernel (namespace
+    ``sm90``) by its mangled name past that namespace -> its instructions
+    (opcode and operands). nvcc names the anonymous namespace around
+    ``sm90`` after the source file, so that part of every name is
+    dropped."""
+    tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", path], check=True, capture_output=True,
+                         text=True).stdout
+    anon = re.compile(r"_ZN\d+_GLOBAL__N__\w+?4sm90")
+    found = {}
+    for part in out.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        if "4sm90" in name and "sm90_kernel" in name:
+            # "/*0040*/ OPCODE operands ; /* encoding */": the instruction
+            found[name.strip().split("4sm90", 1)[1]] = [
+                anon.sub("sm90", line.split("*/", 1)[1].split(";")[0].strip())
+                for line in body.splitlines() if re.match(r"\s*/\*[0-9a-f]{4,}\*/", line)]
+    return found
+
+
+def _loop_lines(code: list) -> list:
+    """The instructions from a kernel's first wgmma to its last, register
+    and predicate numbers and branch targets set aside."""
+    marks = [i for i, x in enumerate(code) if "GMMA" in x]
+    if not marks:
+        return []
+    lines = []
+    for x in code[marks[0]:marks[-1] + 1]:
+        x = re.sub(r"\b(U?R\d+|U?P\d|B\d)\b", "#", x).replace(".reuse", "")
+        if re.match(r"(@!?#\s+)?(BRA|BSSY|CALL|JMP|BRX)", x):
+            x = re.sub(r"0x[0-9a-f]+", "@", x)
+        lines.append(x)
+    return lines
+
+
+def print_sass(card: str, libs: dict) -> None:
+    """For each library that both checkouts build, whether each Hopper
+    kernel that both hold has the same SASS in both; where it does not,
+    the two instruction counts and how many instructions differ from the
+    first wgmma to the last once register numbers and branch targets are
+    set aside (0: the main loop is the same, the prologue or epilogue
+    differs)."""
+    for name in sorted(libs["this"].keys() & libs["other"].keys()):
+        this, other = (sass_functions(libs[who][name]._name) for who in ("this", "other"))
+        both = sorted(this.keys() & other.keys())
+        same = [f for f in both if this[f] == other[f]]
+        print(f"{card}: {name}: {len(same)} of {len(both)} Hopper kernels in both libraries "
+              f"have the same SASS", flush=True)
+        for f in both:
+            if f in same:
+                continue
+            a, b = _loop_lines(other[f]), _loop_lines(this[f])
+            diff = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2 in
+                       difflib.SequenceMatcher(None, a, b, autojunk=False).get_opcodes()
+                       if tag != "equal")
+            kernel, _, args = re.sub(r"^\d+", "", f).partition("I")
+            args = ", ".join(re.findall(r"L[ib](\d+)E", args.split("Ev")[0]))
+            print(f"  SASS differs: {kernel}<{args}>: {len(other[f])} instructions other, "
+                  f"{len(this[f])} this; "
+                  f"{diff} of {len(b)} differ from the first wgmma to the last", flush=True)
+
+
 def _libs(lib) -> list:
     return list(lib.values()) if isinstance(lib, dict) else [lib]
 
@@ -164,7 +242,7 @@ def takes_padded_stats(lib: ctypes.CDLL) -> bool:
 
 def entry_fn(lib: ctypes.CDLL, name: str):
     fn = getattr(lib, name)
-    block_size = [ctypes.c_int] if name in B1_ENTRIES else []
+    block_size = [ctypes.c_int] if name in (*B1_ENTRIES, fa.KERNEL_BWD) else []
     fn.argtypes = ([ctypes.c_void_p] * POINTERS[name] + [ctypes.c_int] * 5
                    + [ctypes.c_float, *block_size, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -477,7 +555,7 @@ def b1_entry_turns(card, libs):
             mask = block[:, None] == block[None, :]
         for name in entries:
             calls = {who: chip_smoke.b1_bare(torch, fa, name, xq, xk, xv, h, scale, bs,
-                                             entry_fn(lib, name))
+                                             entry_fn(lib[name], name))
                      for who, lib in libs.items()}
             got = {who: [x.clone() for x in call()] for who, call in calls.items()}
             torch.cuda.synchronize()
@@ -531,17 +609,114 @@ def b1_entry_turns(card, libs):
     return rows
 
 
+def b1_bwd_turns(card, libs):
+    """B1's backward entry of both libraries at each B1_BWD_SHAPES shape,
+    fed this checkout's statistics: dq, dk and dv against the plain
+    version, compared bit for bit, timed in turns as C entries
+    (``chip_smoke.b1_bare``; device ms, and host microseconds a launch: the
+    tensor maps encoded, if any, and the two launches) and through the
+    wrapper, beside SDPA's backward and the bound."""
+    import chip_smoke
+
+    rows = {}
+    for b, n, h, d, bs in B1_BWD_SHAPES:
+        scale = 1.0 / d ** 0.5
+        g = torch.Generator(device="cuda").manual_seed(0)
+        xq, xk, xv, do = (torch.randn(b, n, h * d, generator=g, device="cuda")
+                          .to(torch.bfloat16) for _ in range(4))
+        _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)
+        want = fa.attention_nhd_bwd_reference(xq, xk, xv, do, h, scale, bs)
+        calls = {who: chip_smoke.b1_bare(torch, fa, fa.KERNEL_BWD, xq, xk, xv, h, scale, bs,
+                                         entry_fn(lib[fa.KERNEL_BWD], fa.KERNEL_BWD),
+                                         grad=(do, stats))
+                 for who, lib in libs.items()}
+        got = {who: [x.clone() for x in call()] for who, call in calls.items()}
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got["other"], got["this"]))
+        errs = {who: [_rel(x, w) for x, w in zip(outs, want)] for who, outs in got.items()}
+        agree = all(max(e) <= GRAD_REL_TOL for e in errs.values())
+        bare = [cuda_ms(calls[who]) for who in TURNS]
+        hosts = [chip_smoke.host_us(calls[who]) for who in TURNS]
+        through = []
+        for who in TURNS:
+            with routed(libs[who], fa, (fa.KERNEL_BWD,)):
+                through.append(cuda_ms(
+                    lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs)))
+        sdpa = chip_smoke.sdpa_backward_ms(torch, xq, xk, xv, do, h, scale, bs)
+        bound = chip_smoke.attention_train_bounds(b, n, h, d, "bfloat16", bs)["bwd"]
+        key = f"{fa.KERNEL_BWD} ({b}, {n}, {h}x{d}, bs {bs})"
+        rows[key] = {"other_ms": [bare[0], bare[3]], "this_ms": [bare[1], bare[2]],
+                     "other_host_us": [hosts[0], hosts[3]],
+                     "this_host_us": [hosts[1], hosts[2]],
+                     "other_wrapper_ms": [through[0], through[3]],
+                     "this_wrapper_ms": [through[1], through[2]], **sdpa,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "ratio": min(bare[1:3]) / min(bare[0], bare[3]), "agree": agree,
+                     "bit_equal": same, "other_vs_plain": errs["other"],
+                     "this_vs_plain": errs["this"],
+                     "form": fa.attention_nhd_bwd_form(n, bs, torch.bfloat16)}
+        print(f"{card}: {key} bf16, C entry: other {bare[0]:.4f} / {bare[3]:.4f} ms, this "
+              f"{bare[1]:.4f} / {bare[2]:.4f} ms ({rows[key]['ratio']:.3f}x); through the "
+              f"wrapper: other {through[0]:.4f} / {through[3]:.4f} ms, this {through[1]:.4f}"
+              f" / {through[2]:.4f} ms; SDPA{' (mask)' if bs else ''} "
+              f"{sdpa['library_ms']:.4f} ms (its best reading), bound {bound[0]:.4f} ms "
+              f"({bound[1]}); host a launch: other {hosts[0]:.2f} / {hosts[3]:.2f} us, this "
+              f"{hosts[1]:.2f} / {hosts[2]:.2f} us; dq/dk/dv rel_err vs plain: other "
+              + "/".join(f"{e:.3e}" for e in errs["other"]) + ", this "
+              + "/".join(f"{e:.3e}" for e in errs["this"])
+              + f"; outputs {'bit-equal' if same else 'differ'} between the libraries; "
+              + ("ok" if agree else "MISS"), flush=True)
+        del xq, xk, xv, do, stats, want, calls, got
+    return rows
+
+
+def b1_bodies(libs: dict) -> dict:
+    """Per checkout, the B1 kernels a DINO step launches, by name: the
+    one-pass forward, and the dq and dk/dv kernels of the backward form
+    that a profiled call of that library's backward entry at DINO's globals
+    runs (read off the card, not the library's binary, which holds every
+    form: a copy built with another resident limit runs another)."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+
+    b, n, h, d, bs = B1_BWD_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xq, xk, xv, do = (torch.randn(b, n, h * d, generator=g, device="cuda").to(torch.bfloat16)
+                      for _ in range(4))
+    _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, d ** -0.5, bs)
+    found = {}
+    for who, lib in libs.items():
+        call = chip_smoke.b1_bare(torch, fa, fa.KERNEL_BWD, xq, xk, xv, h, d ** -0.5, bs,
+                                  entry_fn(lib[fa.KERNEL_BWD], fa.KERNEL_BWD), grad=(do, stats))
+        call()
+        for _ in range(chip_smoke.PROFILE_SESSIONS):  # a session may lose its events
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages()]
+            forms = [form for form, kernels_of in B1_BWD_BODIES.items()
+                     if all(any(k in name for name in names) for k in kernels_of)]
+            if forms:
+                break
+        else:
+            raise RuntimeError(f"no profile of the {who} library's {fa.KERNEL_BWD} names "
+                               f"the kernels of a form of {B1_BWD_BODIES}")
+        found[who] = (fa.FORWARD_BODIES["one-pass"], *B1_BWD_BODIES[forms[0]])
+    return found
+
+
 def b1_step_turns(card: str, libs: dict) -> dict:
-    """The DINO ViT-S/8 training step and a served batch of 128 with B1's
-    forward entries on each library in turns (other, this, this, other):
-    warm ms, device busy ms and peak GB; whether every loss and embedding
-    was finite."""
+    """The DINO ViT-S/8 training step (B1's three entries routed) and a
+    served batch of 128 (its two forwards) with each library in turns
+    (other, this, this, other): warm ms, device busy ms and peak GB;
+    whether every loss and embedding was finite."""
     import chip_smoke
     from vit_ssl_tpu_torch.serve import Server
 
-    want = bodies_in(libs, "b1")
+    want = b1_bodies(libs)
     rows = {"training": _training_turns(card, libs, dino_step, "DINO ViT-S/8", fa,
-                                        B1_ENTRIES, want)}
+                                        (*B1_ENTRIES, fa.KERNEL_BWD), want)}
+    want = {who: names[:1] for who, names in want.items()}
     with tempfile.TemporaryDirectory() as tmp:
         pth = f"{tmp}/dino_vit_s8.pth"
         chip_smoke.write_checkpoint(torch, chip_smoke.DINO_VIT_S8, pth)
@@ -554,8 +729,12 @@ def b1_step_turns(card: str, libs: dict) -> dict:
 
 
 def b1_main(card, built):
-    libs = {who: by_name[fa.KERNEL] for who, by_name in built.items()}
-    return {"entries": b1_entry_turns(card, libs), "steps": b1_step_turns(card, libs)}
+    # per checkout, each of B1's entries' library
+    libs = {who: {**{name: by_name[fa.KERNEL] for name in B1_ENTRIES},
+                  fa.KERNEL_BWD: by_name[fa.KERNEL_BWD]}
+            for who, by_name in built.items()}
+    return {"entries": b1_entry_turns(card, libs), "backward": b1_bwd_turns(card, libs),
+            "steps": b1_step_turns(card, libs)}
 
 
 def b2_bwd_turns(card, libs):
@@ -670,9 +849,9 @@ def main(argv=None) -> int:
                         help="root of the other checkout")
     parser.add_argument("--kernel", choices=("b3", "b2", "b1"), default="b3",
                         help="b3: fused_attention's three entries and the 384-px step; "
-                             "b2: blockwise_fwd and blockwise_fwd_exp2, the 512-px step "
-                             "and served batch; b1: attention_nhd_fwd and "
-                             "attention_nhd_fwd_stats, the DINO step and served batch")
+                             "b2: B2's forwards and backward, the 512-px step and served "
+                             "batch; b1: B1's two forwards and its backward, the DINO step "
+                             "and served batch")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("b3_turns: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -683,18 +862,21 @@ def main(argv=None) -> int:
     card = card_line()
     libraries, run = {"b3": ((fa.FUSED_LIBRARY,), b3_main),
                       "b2": ((fb.FWD_LIBRARY, fb.BWD_LIBRARY), b2_main),
-                      "b1": ((fa.KERNEL,), b1_main)}[args.kernel]
+                      "b1": ((fa.KERNEL, fa.KERNEL_BWD), b1_main)}[args.kernel]
     with tempfile.TemporaryDirectory() as tmp:
         built = {"other": {name: build_other(args.other.resolve(), Path(tmp), name)
                            for name in libraries},
                  "this": {name: kernels.load(name) for name in libraries}}
         print_registers(card, built)
+        print_sass(card, built)
         result = {"card": card, "kernel": args.kernel, **run(card, built)}
     print(json.dumps(result), flush=True)
     entries = ([s["entries"] for s in result["shapes"].values()] if args.kernel == "b2"
                else [result["entries"]])
     legs = [leg for leg in result["steps"].values()]
-    backward_ok = result["backward"]["agree"] if args.kernel == "b2" else True
+    backward_ok = {"b2": lambda: result["backward"]["agree"],
+                   "b1": lambda: all(r["agree"] for r in result["backward"].values()),
+                   "b3": lambda: True}[args.kernel]()
     return 0 if (all(r["agree"] for rows in entries for r in rows.values()) and backward_ok
                  and all(t["finite"] for leg in legs for t in leg)) else 1
 
