@@ -23,7 +23,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               and saved pre) and its backward (with and without the mask)
               at every token count of the main paths, and at d_model 768 /
               d_ff 3072 (T = 36928, ViT-B/16 at 384 px) and 1024 / 4096
-              (T = 12608, ViT-L/16 at 224 px), bf16 and fp32; kernel P2
+              (T = 12608, ViT-L/16 at 224 px), bf16 (the wgmma/TMA products
+              of ``csrc/mlp_gemm_sm90.cuh``) and fp32; kernel P2
               (dropout-masked second FFN product): its forward and backward
               at T = 37120 x (1536 -> 384), a ragged T, T = 1 and ViT-B's
               3072 -> 768 at T = 36928, bf16 and fp32
@@ -52,7 +53,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 9. fused training — the same step with ``model.use_fused_mlp=true``:
               B4 and B1 launch counts per step, agreement with the unfused
               step from one cloned state, warm step, a profile of three
-              steps, and B4's kernel/plain/unfused-chain times at each width
+              steps (and peak memory, as the unfused leg's), and B4's
+              kernel/plain/unfused-chain times at each width, each entry's
+              host microseconds a call through its wrapper, and a profile
+              of each timed call that must name its Hopper kernels
 10. B3 kernels — kernel B3 (head-major fused attention) against its plain
               versions: inference forward, training forward and backward at
               ViT-B/16's (64, 12, 577, 64), at N = 1, N = 1024 and ragged N,
@@ -371,6 +375,11 @@ KEEP_PROB = 0.9  # 1 - model.dropout
 # fp32: sums in another order
 MLP_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 MLP_GRADS = ("dx", "dw1", "db1", "dw2", "db2")  # fused_mlp_bwd's outputs
+# B4's bf16 kernels (csrc/mlp_gemm_sm90.cuh; every kernel that
+# ops/fused_mlp.py::HOPPER_BODIES names): the forward's fc1 and fc2, the
+# backward's dh, dx and weight-gradient products
+B4_BODIES = ("mlp_fc1_sm90_kernel", "mlp_fc2_sm90_kernel", "mlp_dh_sm90_kernel",
+             "mlp_dx_sm90_kernel", "mlp_wgrad_sm90_kernel")
 
 
 def fail(msg: str) -> None:
@@ -430,6 +439,24 @@ def hopper_faults(lines):
         if any(int(x) for x in spills) or any(c in line for c in SERIALISED_WGMMA):
             faults.append(line)
     return faults
+
+
+def registers_and_spills(lines, bodies):
+    """From ``ptxas_lines``: per kernel whose name holds one of ``bodies``,
+    its registers and spill bytes (stores, loads)."""
+    found = {}
+    for line in lines:
+        kernel, _, text = line.partition(": ")
+        if not any(body in kernel for body in bodies):
+            continue
+        row = found.setdefault(kernel, {})
+        used = re.search(r"Used (\d+) registers", text)
+        if used:
+            row["registers"] = int(used.group(1))
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+        if spills:
+            row["spill_stores"], row["spill_loads"] = map(int, spills.groups())
+    return found
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1531,6 +1558,7 @@ def train_leg(torch, cfg, per_step, guards):
         out = train_step(state, batch, teacher_temp, teacher_momentum)
     torch.cuda.synchronize()
     losses, host_ms = [float(out["loss"])], []
+    torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
         for guard in guards:
             stack.enter_context(guard)
@@ -1549,7 +1577,9 @@ def train_leg(torch, cfg, per_step, guards):
                      f"{per_step}")
         main_launches = dict(kernels.launches)  # ... and ends here
     print(f"  launches over {TIMED_STEPS} steps: {main_launches} "
-          f"(per step {per_step})", flush=True)
+          f"(per step {per_step}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          "(torch.cuda.max_memory_allocated)", flush=True)
     print(f"  losses: {' '.join(f'{x:.6f}' for x in losses)}", flush=True)
     print("  stats of the last step: " + ", ".join(
         f"{k} {float(v):.6g}" for k, v in out["dino_stats"].items()), flush=True)
@@ -1913,7 +1943,9 @@ MLP_TIMED = [
 def phase_mlp_times(torch, fm, card):
     """Kernel B4 (bf16) at the main paths' token counts and widths: kernel
     ms twice around its plain version and the unfused FFN chain of the same
-    function (its forward, or its autograd backward), CUDA events."""
+    function (its forward, or its autograd backward), CUDA events; the
+    wrapper's host microseconds a call; a profile of five calls, which must
+    name the entry's Hopper kernels (``fm.HOPPER_BODIES``)."""
     print(f"== fused MLP times on {card} (bf16; the unfused chain is F.linear -> "
           f"GELU -> dropout16's where/divide on the same mask -> F.linear)",
           flush=True)
@@ -1951,19 +1983,21 @@ def phase_mlp_times(torch, fm, card):
         plain_ms = cuda_ms(plain, iters=10)
         chain_ms = cuda_ms(chain)
         second = cuda_ms(kernel)
+        wrapper_us = host_us(kernel)
         bounds = mlp_bounds(t, d, d_ff, "bfloat16", with_mask, part == "fwd_pre")
         bound_ms, bound_by = bounds["bwd" if part == "bwd" else "fwd"]
         name = {"fwd": fm.KERNEL, "fwd_pre": fm.KERNEL_TRAIN, "bwd": fm.KERNEL_BWD}[part]
         print(f"  {name} T={t} {d}->{d_ff} {'keep-mask' if with_mask else 'no mask'}: "
               f"kernel {first:.4f} / {second:.4f} ms, plain {plain_ms:.4f} ms, unfused "
-              f"chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-              flush=True)
-        rows[(part, t, d)] = {"ms": min(first, second), "plain_ms": plain_ms,
-                              "bound_ms": bound_ms, "bound_by": bound_by,
-                              "library_ms": None, "unfused_chain_ms": chain_ms}
-        if part == "bwd" and d == MLP_DIMS[0]:
-            profile_window(torch, lambda: [kernel() for _ in range(5)],
-                           f"5 {name} calls at T={t} (its kernels)", rows=4)
+              f"chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); the "
+              f"wrapper {wrapper_us:.1f} us a call on the host", flush=True)
+        rows[(part, t, d)] = {"ms": min(first, second), "ms_readings": [first, second],
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": None,
+                              "unfused_chain_ms": chain_ms, "wrapper_host_us": wrapper_us}
+        profile_window(torch, lambda: [kernel() for _ in range(5)],
+                       f"5 {name} calls at T={t}, d_model {d} (its kernels)", rows=5,
+                       want=fm.HOPPER_BODIES[name])
     return rows
 
 
@@ -2524,14 +2558,18 @@ def main() -> int:
     built = kernels.build()
     print(f"== build: {sorted(kernels.SOURCES)} in {time.perf_counter() - t0:.1f} s "
           f"(compiled: {sorted(built)})", flush=True)
-    faults = []
+    faults, b4_ptxas = [], {}
     for name in kernels.SOURCES:
         lines = list(ptxas_lines(kernels.log_path(name).read_text(), kernels.nvcc_path()))
         for line in lines:
             print(f"  {name}: {line}", flush=True)
         faults += [f"{name}: {line}" for line in hopper_faults(lines)]
+        if name in (fm.KERNEL, fm.KERNEL_BWD):
+            b4_ptxas[name] = registers_and_spills(lines, B4_BODIES)
     if faults:
         fail("a Hopper body spills or has its wgmma serialised:\n" + "\n".join(faults))
+    if set(B4_BODIES) != {body for bodies in fm.HOPPER_BODIES.values() for body in bodies}:
+        fail(f"B4_BODIES {B4_BODIES} are not the wrapper's {fm.HOPPER_BODIES}")
 
     train_errors = phase_kernels(torch, fa)
     mlp_errors = phase_mlp_kernels(torch, fm)
@@ -2619,15 +2657,27 @@ def main() -> int:
         errs = {dt: mlp_errors[(rows, d_model, "bfloat16")]
                 for dt, rows in (("serve", serve_rows), ("train", train_rows))}
         width = {"d_model": d_model}
+        # the bf16 kernels each entry runs, with their ptxas registers and
+        # spills (the library that holds them)
+        hopper = {entry: {"bodies": list(fm.HOPPER_BODIES[entry]), "ptxas": {
+            kernel: row for kernel, row in b4_ptxas[library].items()
+            if any(body in kernel for body in fm.HOPPER_BODIES[entry])}}
+            for entry, library in ((fm.KERNEL, fm.KERNEL), (fm.KERNEL_TRAIN, fm.KERNEL),
+                                   (fm.KERNEL_BWD, fm.KERNEL_BWD))}
         entries += [
-            (fm.KERNEL, "fused_mlp_fwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:72",
-             errs["serve"]["fwd"], {**mlp_stats[("fwd", serve_rows, d_model)], **width}),
-            (fm.KERNEL_TRAIN, "fused_mlp_fwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:93",
+            (fm.KERNEL, "mlp_gemm_sm90.cuh", "vit_ssl_tpu/ops/fused_mlp.py:72",
+             errs["serve"]["fwd"], {**mlp_stats[("fwd", serve_rows, d_model)], **width,
+                                    "entry_source": "vit_ssl_tpu_torch/csrc/fused_mlp_fwd.cu",
+                                    **hopper[fm.KERNEL]}),
+            (fm.KERNEL_TRAIN, "mlp_gemm_sm90.cuh", "vit_ssl_tpu/ops/fused_mlp.py:93",
              errs["train"]["fwd_pre"], {**mlp_stats[("fwd_pre", train_rows, d_model)],
-                                        **width}),
-            (fm.KERNEL_BWD, "fused_mlp_bwd.cu", "vit_ssl_tpu/ops/fused_mlp.py:182",
+                                        **width,
+                                        "entry_source": "vit_ssl_tpu_torch/csrc/fused_mlp_fwd.cu",
+                                        **hopper[fm.KERNEL_TRAIN]}),
+            (fm.KERNEL_BWD, "mlp_gemm_sm90.cuh", "vit_ssl_tpu/ops/fused_mlp.py:182",
              errs["train"]["bwd_abs"]["dx"],
              {**mlp_stats[("bwd", train_rows, d_model)], **width,
+              "entry_source": "vit_ssl_tpu_torch/csrc/fused_mlp_bwd.cu", **hopper[fm.KERNEL_BWD],
               "max_abs_err_by_output": errs["train"]["bwd_abs"],
               "max_rel_err_by_output": errs["train"]["bwd_rel"]}),
         ]

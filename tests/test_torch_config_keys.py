@@ -10,7 +10,8 @@
 - ``model.matmul_precision``: the names map or are refused by name; an
   unknown one raises JAX's error (``vit_ssl_tpu/ops/precision.py``);
 - DINO refuses ``parallel.remat`` and ``model.scan_layers`` as the
-  supervised ViT does.
+  supervised ViT does;
+- SimMIM is refused by both builders with its ROADMAP item.
 """
 
 import math
@@ -22,7 +23,7 @@ from vit_ssl_tpu.config import compose, to_container
 from vit_ssl_tpu.ops.initializers import InitScheme
 from vit_ssl_tpu.ops.precision import resolve_precision as jax_resolve_precision
 from vit_ssl_tpu_torch.models import (DINONetwork, ViT, build_backbone,
-                                      build_dino_network, build_vit)
+                                      build_dino_network, build_model, build_vit)
 from vit_ssl_tpu_torch.models.dino import WeightNormDense
 from vit_ssl_tpu_torch.ops import attention as attention_mod
 from vit_ssl_tpu_torch.ops.precision import resolve_precision
@@ -197,3 +198,14 @@ def test_dino_refuses_remat_and_scan_layers(build, override, match):
     """A DINO config asking for either no longer runs without it."""
     with pytest.raises(NotImplementedError, match=f"(?s){match}"):
         build(_dino_config(**override), "cpu")
+
+
+@pytest.mark.parametrize("build", [build_model, build_backbone],
+                         ids=["build_model", "backbone"])
+def test_simmim_is_refused_with_its_roadmap_item(build):
+    """A SimMIM config is refused by name, pointing at ROADMAP.md queue A
+    item 6 (SimMIM), from the model factory and from the DINO builders."""
+    config = _dino_config()
+    config["training"]["type"] = "simmim"
+    with pytest.raises(NotImplementedError, match=r"(?is)simmim.*queue A item 6\b"):
+        build(config, "cpu")

@@ -19,9 +19,12 @@ Hopper body by name in a profile at every head dim, and a
 ``MultiHeadAttention`` gradient at ViT-B/16's N = 1025 through them.
 Kernel B4 (fused MLP):
 its forwards (no mask, keep-mask, keep-mask with pre saved) and its
-backward (with and without the mask) at d_model 384, 768 and 1024, and a
-``FeedForwardBlock(use_fused=True)`` gradient through the kernels against
-the plain path. Kernel P2 (dropout-masked second FFN product): its forward
+backward (with and without the mask) at d_model 384, 768 and 1024, each
+bf16 entry's wgmma/TMA kernels (and only those) by name in a profile at
+every token count and width, each entry's C entry keeping to its rows
+(outputs and scratch inside NaN-filled buffers, inputs beside NaN rows),
+and a ``FeedForwardBlock(use_fused=True)`` gradient through the kernels
+against the plain path. Kernel P2 (dropout-masked second FFN product): its forward
 and backward at the probe's and ViT-B's shapes, and a gradient through it.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
@@ -556,6 +559,95 @@ def test_fused_mlp_refuses_what_the_kernels_cannot_take(cuda_device):
                      torch.zeros(512, device=cuda_device))
 
 
+# every token count and width above, (T, d_model, d_ff)
+MLP_ALL_CASES = [(t, 384, 1536) for t in MLP_ROWS] + MLP_WIDE_CASES
+
+
+@pytest.mark.parametrize("t,d,d_ff", MLP_ALL_CASES)
+def test_fused_mlp_bf16_entries_run_only_the_hopper_kernels(cuda_device, t, d, d_ff):
+    """Each bf16 entry launches the wgmma/TMA kernels of
+    csrc/mlp_gemm_sm90.cuh that fm.HOPPER_BODIES names for it (the
+    backward also the ordered reduction of its weight gradients' slices)
+    and no other device kernel, shown by name in a profile of the call
+    (:func:`_device_kernels`)."""
+    x, w1, b1, w2, b2, mask, do = _mlp_inputs(t, torch.bfloat16, cuda_device, t + 3, d,
+                                              d_ff)
+    _, pre = fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, 0.9, save_pre=True)
+    calls = {fm.KERNEL: lambda: fm.fused_mlp_fwd(x, w1, b1, w2, b2),
+             fm.KERNEL_TRAIN: lambda: fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, 0.9,
+                                                       save_pre=True),
+             fm.KERNEL_BWD: lambda: fm.fused_mlp_bwd(x, pre, do, w1, w2, mask, 0.9)}
+    for entry, call in calls.items():
+        allowed = fm.HOPPER_BODIES[entry] + (("reduce_splits",) if entry == fm.KERNEL_BWD
+                                             else ())
+        names = _device_kernels(call, want=fm.HOPPER_BODIES[entry])
+        assert all(any(body in name for name in names) for body in fm.HOPPER_BODIES[entry]), \
+            (entry, names)
+        assert all(any(body in name for body in allowed) for name in names), (entry, names)
+
+
+def _in_nan(rows, *tail, dtype=torch.bfloat16, margin=64):
+    """A (rows, *tail) view at row ``margin`` of a NaN-filled buffer with
+    ``margin`` rows before and after it: (buffer, view)."""
+    buf = torch.full((rows + 2 * margin, *tail), float("nan"), dtype=dtype, device="cuda")
+    return buf, buf[margin:margin + rows]
+
+
+def _margins_nan(buf, rows, margin=64):
+    return bool(buf[:margin].isnan().all() and buf[margin + rows:].isnan().all())
+
+
+@pytest.mark.parametrize("entry", [fm.KERNEL, fm.KERNEL_TRAIN, fm.KERNEL_BWD])
+@pytest.mark.parametrize("t", [70, 5365])
+def test_fused_mlp_bf16_entries_keep_to_their_rows(cuda_device, t, entry):
+    """Each bf16 C entry, called on inputs beside NaN rows (x, pre and do
+    views into NaN-filled buffers) with every output and scratch tensor
+    (out, pre, h; dx, dpre, h and the weight and bias gradients) a view
+    into a larger NaN-filled buffer: the margins stay NaN, and the outputs
+    equal the wrapper's on plain tensors bit for bit. No tile reads a row
+    past T or writes one."""
+    d, d_ff = 384, 1536
+    x, w1, b1, w2, b2, mask, do = _mlp_inputs(t, torch.bfloat16, cuda_device, t + 5)
+    _, pre = fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, 0.9, save_pre=True)
+    inputs = {}
+    for name, y in (("x", x), ("pre", pre), ("do", do)):
+        buf, view = _in_nan(*y.shape)
+        view.copy_(y)
+        inputs[name] = view
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = fm._kernel_fn(entry)
+    if entry == fm.KERNEL_BWD:
+        shapes = {"dx": (t, d), "dw1": (d_ff, d), "db1": (d_ff,), "dw2": (d, d_ff),
+                  "db2": (d,), "dpre": (t, d_ff), "h": (t, d_ff)}
+        outs = {name: _in_nan(*shape) for name, shape in shapes.items()}
+        partial = torch.empty(fm._partial_floats(d, d_ff), device=cuda_device)
+        err = fn(inputs["x"].data_ptr(), inputs["pre"].data_ptr(), inputs["do"].data_ptr(),
+                 w1.data_ptr(), w2.data_ptr(), mask.data_ptr(),
+                 *(outs[name][1].data_ptr() for name in shapes), partial.data_ptr(), t, d,
+                 d_ff, 1, 0.9, stream)
+        want = dict(zip(("dx", "dw1", "db1", "dw2", "db2"),
+                        fm.fused_mlp_bwd(x, pre, do, w1, w2, mask, 0.9)))
+    else:
+        names = ["out", "pre", "h"] if entry == fm.KERNEL_TRAIN else ["out", "h"]
+        shapes = {"out": (t, d), "pre": (t, d_ff), "h": (t, d_ff)}
+        outs = {name: _in_nan(*shapes[name]) for name in names}
+        with_mask = entry == fm.KERNEL_TRAIN
+        err = fn(inputs["x"].data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                 b2.data_ptr(), mask.data_ptr() if with_mask else None,
+                 *(outs[name][1].data_ptr() for name in names), t, d, d_ff, 1,
+                 0.9 if with_mask else 1.0, stream)
+        got = fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask if with_mask else None, 0.9,
+                               save_pre=with_mask)
+        want = dict(zip(("out", "pre"), got if with_mask else (got,)))
+    torch.cuda.synchronize()
+    assert err == 0
+    for name, (buf, view) in outs.items():
+        assert _margins_nan(buf, view.shape[0]), name
+        assert torch.isfinite(view).all(), name
+        if name in want:
+            assert torch.equal(view, want[name]), name
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_feed_forward_gradient_through_fused_kernels(cuda_device, monkeypatch, dtype):
     """A gradient through FeedForwardBlock(use_fused=True) on the card
@@ -716,7 +808,7 @@ def test_fused_attention_backward_keeps_to_its_head(cuda_device, n):
             assert _rel_err(g, w) <= GRAD_REL_TOL["bfloat16"], (head, name, _rel_err(g, w))
 
 
-def _device_kernel_names(fn, sessions: int = 10, want=()) -> str:
+def _device_kernels(fn, sessions: int = 10, want=()) -> set:
     """The device kernels that profiles of ``fn`` record, by name: each
     session records the second of two calls. A session can lose all or
     some of its device events (on an NVIDIA H100 80GB HBM3 with torch 2.11,
@@ -738,11 +830,17 @@ def _device_kernel_names(fn, sessions: int = 10, want=()) -> str:
                 torch.cuda.synchronize()
                 prof.step()
         names |= {e.key for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA}
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")}
         joined = " ".join(sorted(names))
         if names and all(name in joined for name in want):
             break
-    return joined
+    return names
+
+
+def _device_kernel_names(fn, sessions: int = 10, want=()) -> str:
+    """:func:`_device_kernels`' names, joined by spaces."""
+    return " ".join(sorted(_device_kernels(fn, sessions, want)))
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])

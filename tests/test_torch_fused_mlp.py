@@ -194,11 +194,14 @@ def test_kernel_input_checks_layout():
 
 def test_kernel_sources_cover_their_headers():
     """A header edit must rebuild every library that includes it: B4's
-    libraries include their own header and, through it, B1's; the backward
-    (and P2's library) the weight-gradient header over them."""
+    libraries include their bf16 wgmma/TMA bodies' header and, through it,
+    the Hopper pieces and B1's header, and the fp32 bodies' header; the
+    backward (and P2's library) the weight-gradient header over the
+    latter."""
     common = ["fused_mlp_common.cuh", "attention_nhd_common.cuh"]
-    for name, headers in (("fused_mlp_fwd", common),
-                          ("fused_mlp_bwd", ["weight_grad.cuh", *common]),
+    hopper = ["mlp_gemm_sm90.cuh", "sm90_common.cuh"]
+    for name, headers in (("fused_mlp_fwd", [*hopper, *common[::-1]]),
+                          ("fused_mlp_bwd", ["weight_grad.cuh", *common, *hopper]),
                           ("masked_matmul", ["weight_grad.cuh", *common])):
         files = [f.name for f in kernels.source_files(name)]
         assert files == [f"{name}.cu", *headers]

@@ -17,32 +17,36 @@
 // dW1, dW2 come back in the same layouts.
 //
 // The TPU kernel sums dW1, db1, dW2 and db2 across its sequential grid.
-// Blocks on Hopper run in parallel and in no order, so the backward is two
-// kernels and uses no atomics; its results repeat run to run:
+// Blocks on Hopper run in parallel and in no order, so the weight
+// gradients are summed over fixed slices of the rows into fp32 partials
+// and a reduction adds the slices in slice order: no atomics, the results
+// repeat run to run. bfloat16, on wgmma and TMA (mlp_gemm_sm90.cuh):
 //
-// 1. the row kernel (fused_mlp_common.cuh, run backward): per row tile
-//    (64 rows at d_model 384, 32 at 768 and 1024), dh chunk by chunk over
-//    d_ff, dpre and h written to device memory in the input dtype, and
-//    dx = dpre . W1 accumulated in registers;
-// 2. the weight kernel (weight_grad.cuh): each block owns one 128 x 128
-//    tile of dW1 or of dW2 (both in one launch) and one of up to 8 slices
-//    of the rows, walked in a fixed order: C = A^T . B with A = dpre, B = x
-//    (dW1) or A = do, B = h (dW2); the blocks owning a tile's first column
-//    also sum A's columns into db1 or db2. They write fp32 partial sums;
-// 3. a reduction adds the slices' partial sums in slice order and rounds.
+// 1. dh = do . W2 (W2 read MN-major), its epilogue writing dpre and
+//    h = round(gelu(pre) [* mask / keep]) to (T, d_ff) scratch;
+// 2. dx = dpre . W1 (W1 read MN-major);
+// 3. dW1 = dpre^T . x and dW2 = do^T . h in one grid, both operands
+//    MN-major, each block one 128 x 128 tile over one slice of the rows,
+//    and the blocks on a tile's first column the bias sums (A^T . 1);
+// 4. reduce_splits (weight_grad.cuh) adds the slices and rounds.
+//
+// The slice count fills whole waves of blocks (two an SM) where it can:
+// gemm_splits. float32 runs the CUDA-core row kernel (fused_mlp_common.cuh,
+// run backward) and weight kernel (weight_grad.cuh) over the same
+// partials.
 //
 // What bounds it on an H100 SXM: operations. At T = 37120 (d_model 384,
 // d_ff 1536, bf16) the four products are 175 GFLOP, 0.177 ms at the 989
 // TFLOP/s bf16 rate, against about 0.08 ms to move x, pre, do, the mask,
 // the weights and the gradients once (data sheet). The split adds dpre and
-// h, written by the first kernel and read by the second: 4 x 114 MB at
-// T = 37120, about 0.14 ms more at 3.35 TB/s. The products run on the
-// tensor cores (mma.sync bf16, fp32 sums); float32 runs on the CUDA cores.
+// h, written by the first kernel and read by the others: 4 x 114 MB at
+// T = 37120, about 0.14 ms more at 3.35 TB/s.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (vit_ssl_tpu_torch/kernels.py); called through
 // ctypes from vit_ssl_tpu_torch/ops/fused_mlp.py.
 
+#include "mlp_gemm_sm90.cuh"
 #include "weight_grad.cuh"
 
 namespace {
@@ -50,24 +54,39 @@ namespace {
 // ---------------------------------------------------------------------------
 // launch
 
-template <int D, typename T, bool kMask>
-cudaError_t launch_rows(const RowArgs<T>& p, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {
-    using S = RowTile<D>;
-    auto kernel = mlp_rows_bf16<D, true, kMask, false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<(p.rows + S::kRows - 1) / S::kRows, kMlpThreads, S::bytes, stream>>>(p);
-  } else {
-    using S = F32Tile<D>;
-    auto kernel = mlp_rows_f32<D, true, kMask, false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<(p.rows + S::kRows - 1) / S::kRows, kF32Threads, S::bytes, stream>>>(p);
-  }
+template <int D, bool kMask>
+cudaError_t launch_rows_f32(const RowArgs<float>& p, cudaStream_t stream) {
+  using S = F32Tile<D>;
+  auto kernel = mlp_rows_f32<D, true, kMask, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(p.rows + S::kRows - 1) / S::kRows, kF32Threads, S::bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The slices of the bf16 weight kernel's rows: at most kMaxSplits, each at
+// least kMinSplitSteps steps of 64 rows, as many as fill the most of their
+// last wave of `tiles` x slices blocks over the card's SMs (two blocks an
+// SM); the fewest of those that fill it equally well.
+constexpr int kMinSplitSteps = 8;
+
+inline int gemm_splits(int tiles, int rows) {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    sms = 132;
+  const int steps = (rows + sm90::kGemmK - 1) / sm90::kGemmK;
+  int best = 1;
+  double best_waves = 1e30;  // waves a unit of K
+  for (int s = 1; s <= kMaxSplits && (s == 1 || s * kMinSplitSteps <= steps); ++s) {
+    const double waves = (double)((tiles * s + 2 * sms - 1) / (2 * sms)) / s;
+    if (waves < best_waves * (1 - 1e-9)) {
+      best = s;
+      best_waves = waves;
+    }
+  }
+  return best;
 }
 
 template <typename T>
@@ -79,27 +98,46 @@ int dispatch(const void* x, const void* pre, const void* dout, const void* w1,
       (mask != nullptr && !(keep_prob > 0.f)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RowArgs<T> p{static_cast<const T*>(dout), static_cast<const T*>(w1), nullptr,
-               static_cast<const T*>(w2), nullptr, static_cast<const uint8_t*>(mask),
-               const_cast<T*>(static_cast<const T*>(pre)), static_cast<T*>(dx),
-               static_cast<T*>(dpre), static_cast<T*>(h), rows, d_ff, keep_prob};
-  cudaError_t err = for_d_model(d_model, [&](auto dm) {
-    constexpr int D = decltype(dm)::value;
-    return mask != nullptr ? launch_rows<D, T, true>(p, s) : launch_rows<D, T, false>(p, s);
-  });
-  if (err != cudaSuccess) return (int)err;
   // one split's partials: [dW1 (d_ff, d_model) | dW2 (d_model, d_ff) | db1 | db2]
   float* part = static_cast<float*>(partial);
   const size_t n_w = (size_t)d_model * d_ff;
   const size_t split_stride = 2 * n_w + d_ff + d_model;
-  const WeightProblem<T> p_w1{static_cast<const T*>(dpre), static_cast<const T*>(x), nullptr,
-                              part, part + 2 * n_w, d_ff, d_model};
-  const WeightProblem<T> p_w2{static_cast<const T*>(dout), static_cast<const T*>(h), nullptr,
-                              part + n_w, part + 2 * n_w + d_ff, d_model, d_ff};
   const SplitOutputs<T, 4> out{
       {static_cast<T*>(dw1), static_cast<T*>(dw2), static_cast<T*>(db1), static_cast<T*>(db2)},
       {n_w, 2 * n_w, 2 * n_w + d_ff, split_stride}};
-  return (int)launch_weights<T, false, 4>(p_w1, p_w2, rows, split_stride, 1.f, out, s);
+  if constexpr (sizeof(T) == 2) {
+    const int splits =
+        gemm_splits(2 * (d_ff / sm90::kGemmCols) * (d_model / sm90::kGemmCols), rows);
+    cudaError_t err = for_d_model(d_model, [&](auto) {
+      auto run = [&](auto with_mask) {
+        return sm90::mlp_backward<decltype(with_mask)::value>(
+            static_cast<const bf16*>(x), static_cast<const bf16*>(pre),
+            static_cast<const bf16*>(dout), static_cast<const bf16*>(w1),
+            static_cast<const bf16*>(w2), static_cast<const uint8_t*>(mask),
+            static_cast<bf16*>(dx), static_cast<bf16*>(dpre), static_cast<bf16*>(h), part,
+            split_stride, splits, rows, d_model, d_ff, keep_prob, s);
+      };
+      return mask != nullptr ? run(std::true_type{}) : run(std::false_type{});
+    });
+    if (err != cudaSuccess) return (int)err;
+    reduce_splits<T, 4><<<264, 256, 0, s>>>(part, split_stride, splits, out);
+    return (int)cudaGetLastError();
+  } else {
+    RowArgs<T> p{static_cast<const T*>(dout), static_cast<const T*>(w1), nullptr,
+                 static_cast<const T*>(w2), nullptr, static_cast<const uint8_t*>(mask),
+                 const_cast<T*>(static_cast<const T*>(pre)), static_cast<T*>(dx),
+                 static_cast<T*>(dpre), static_cast<T*>(h), rows, d_ff, keep_prob};
+    cudaError_t err = for_d_model(d_model, [&](auto dm) {
+      constexpr int D = decltype(dm)::value;
+      return mask != nullptr ? launch_rows_f32<D, true>(p, s) : launch_rows_f32<D, false>(p, s);
+    });
+    if (err != cudaSuccess) return (int)err;
+    const WeightProblem<T> p_w1{static_cast<const T*>(dpre), static_cast<const T*>(x),
+                                nullptr, part, part + 2 * n_w, d_ff, d_model};
+    const WeightProblem<T> p_w2{static_cast<const T*>(dout), static_cast<const T*>(h),
+                                nullptr, part + n_w, part + 2 * n_w + d_ff, d_model, d_ff};
+    return (int)launch_weights<T, false, 4>(p_w1, p_w2, rows, split_stride, 1.f, out, s);
+  }
 }
 
 }  // namespace
@@ -110,9 +148,9 @@ int dispatch(const void* x, const void* pre, const void* dout, const void* w1,
 // float32), 16-byte aligned. partial: fp32 scratch of
 // fused_mlp_bwd_partial_floats(d_model, d_ff) elements. mask: (rows, d_ff)
 // bytes, nonzero = keep, or null. d_model must be 384, 768 or 1024 and d_ff
-// a multiple of 128. Three kernels on `stream` (a cudaStream_t); returns the first
-// launch's cudaError_t that is not 0, else 0; the wrapper raises on
-// non-zero.
+// a multiple of 128. Four kernels on `stream` (a cudaStream_t; float32:
+// three); returns the first launch's cudaError_t that is not 0, else 0; the
+// wrapper raises on non-zero.
 extern "C" int fused_mlp_bwd(const void* x, const void* pre, const void* dout,
                              const void* w1, const void* w2, const void* mask, void* dx,
                              void* dw1, void* db1, void* dw2, void* db2, void* dpre,

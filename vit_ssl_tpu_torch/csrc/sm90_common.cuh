@@ -337,51 +337,54 @@ __device__ __forceinline__ uint32_t& frag(uint32_t (&a)[kKeys / 16][4], int j, i
   return a[j >> 1][2 * (j & 1) + half];
 }
 
-// The ring's mbarriers: full[s] (the stage's copies landed), empty[s]
-// (every consumer warp finished reading it) and one for the rows a block
-// loads once. Either a producer warp issues the copies (wait_free before
-// each), or, with no producer warp, thread 0 does: it fills the first
-// kStages jobs before the sweep and, in release, when job j is done,
-// refills job j - 1's stage with job j - 1 + kStages (one job behind, so
+// The ring's mbarriers over kN stages (Ring: kStages, the attention
+// bodies'; kernel B4's products take three): full[s] (the stage's copies
+// landed), empty[s] (every consumer warp finished reading it) and one for
+// the rows a block loads once. Either a producer warp issues the copies
+// (wait_free before each), or, with no producer warp, thread 0 does: it
+// fills the first kN jobs before the sweep and, in release, when job j is
+// done, refills job j - 1's stage with job j - 1 + kN (one job behind, so
 // that it seldom waits for the other consumer to release the stage).
-struct Ring {
+template <int kN>
+struct StageRing {
   uint32_t bars;
-  __device__ explicit Ring(uint32_t b) : bars(b) {}
+  __device__ explicit StageRing(uint32_t b) : bars(b) {}
   __device__ uint32_t full(int s) const { return bars + 8 * s; }
-  __device__ uint32_t empty(int s) const { return bars + 8 * (kStages + s); }
-  __device__ uint32_t rows() const { return bars + 16 * kStages; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (kN + s); }
+  __device__ uint32_t rows() const { return bars + 16 * kN; }
   __device__ void init(int consumers) const {
     mbar_init(rows(), 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kN; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 4 * consumers);  // one arrival a consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __device__ void wait_full(int job) const {
-    mbar_wait(full(job % kStages), (job / kStages) & 1);
+    mbar_wait(full(job % kN), (job / kN) & 1);
   }
-  // Producer: waits until job's stage is free (job - kStages released).
+  // Producer: waits until job's stage is free (job - kN released).
   __device__ void wait_free(int job) const {
-    mbar_wait(empty(job % kStages), ((job / kStages) & 1) ^ 1);
+    mbar_wait(empty(job % kN), ((job / kN) & 1) ^ 1);
   }
   // This warp is done with job's stage.
   __device__ void arrive(int job) const {
     __syncwarp();
-    if (threadIdx.x % 32 == 0) mbar_arrive(empty(job % kStages));
+    if (threadIdx.x % 32 == 0) mbar_arrive(empty(job % kN));
   }
   // arrive, then thread 0 refills the stage before it (no producer warp).
   template <typename Load>
   __device__ void release(int job, int jobs, Load& load_job) const {
     arrive(job);
     const int prev = job - 1;
-    if (threadIdx.x == 0 && prev >= 0 && prev + kStages < jobs) {
-      mbar_wait(empty(prev % kStages), (prev / kStages) & 1);
-      load_job(prev + kStages);
+    if (threadIdx.x == 0 && prev >= 0 && prev + kN < jobs) {
+      mbar_wait(empty(prev % kN), (prev / kN) & 1);
+      load_job(prev + kN);
     }
     __syncwarp();
   }
 };
+using Ring = StageRing<kStages>;
 
 // ---------------------------------------------------------------------------
 // host: tensor maps

@@ -73,7 +73,7 @@ def _dino_kwargs(config: dict, device) -> dict:
     if mode not in ("dino", "eval_dino"):
         raise NotImplementedError(
             f"mode '{mode}' is not a DINO mode: build_model builds the "
-            "supervised/finetune ViT; SimMIM is ROADMAP.md queue A item 8"
+            "supervised/finetune ViT; SimMIM is ROADMAP.md queue A item 6"
         )
     return _common_kwargs(config, device)
 
@@ -103,7 +103,7 @@ def build_model(config: dict, device) -> nn.Module:
         return build_dino_network(config, device)
     if mode == "simmim":
         raise NotImplementedError(
-            "mode 'simmim' is not ported yet; see ROADMAP.md queue A item 8")
+            "mode 'simmim' is not ported yet; see ROADMAP.md queue A item 6")
     raise ValueError(f"Unknown model-building mode: {mode}")
 
 

@@ -10,7 +10,13 @@ launches the hand-written Hopper kernels:
 - ``fused_mlp_fwd_pre`` (same source), the training forward: the same
   output bit for bit, plus the pre-activation saved in x's dtype;
 - ``fused_mlp_bwd`` (``csrc/fused_mlp_bwd.cu``), the backward: dx and the
-  four weight and bias gradients, two kernels and no atomics.
+  four weight and bias gradients, no atomics.
+
+In bfloat16 each entry runs wgmma/TMA products with the GELU, dropout and
+GELU' in their epilogues (``csrc/mlp_gemm_sm90.cuh``; the kernels by name
+in :data:`HOPPER_BODIES`): the forward two, through a (T, d_ff) scratch h
+that the wrapper allocates; the backward three and an ordered reduction of
+its weight gradients' slices. float32 runs CUDA-core bodies.
 
 On a CPU tensor the same Function runs the plain PyTorch versions,
 :func:`fused_mlp_reference` and :func:`fused_mlp_bwd_reference`. There is
@@ -41,6 +47,14 @@ from .. import kernels
 KERNEL = "fused_mlp_fwd"  # forward, no pre saved
 KERNEL_TRAIN = "fused_mlp_fwd_pre"  # training forward, in KERNEL's library
 KERNEL_BWD = "fused_mlp_bwd"
+# the bf16 entries' Hopper kernels (csrc/mlp_gemm_sm90.cuh), by entry: the
+# forward's fc1 (pre, h) and fc2 (out); the backward's dh (dpre, h), dx and
+# the weight gradients' slices, which weight_grad.cuh's reduce_splits adds
+HOPPER_BODIES = {
+    KERNEL: ("mlp_fc1_sm90_kernel", "mlp_fc2_sm90_kernel"),
+    KERNEL_TRAIN: ("mlp_fc1_sm90_kernel", "mlp_fc2_sm90_kernel"),
+    KERNEL_BWD: ("mlp_dh_sm90_kernel", "mlp_dx_sm90_kernel", "mlp_wgrad_sm90_kernel"),
+}
 D_MODELS = (384, 768, 1024)
 D_FF_MULTIPLE = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -158,7 +172,7 @@ def _kernel_fn(entry: str):
         fn.argtypes = [p] * 14 + [i] * 4 + [ctypes.c_float, p]
     else:
         fn = getattr(kernels.load(KERNEL), entry)
-        pointers = 8 if entry == KERNEL_TRAIN else 7
+        pointers = 9 if entry == KERNEL_TRAIN else 8  # the last: the scratch h
         fn.argtypes = [p] * pointers + [i] * 4 + [ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
@@ -186,6 +200,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _scratch_h(x, d_ff: int) -> Optional[torch.Tensor]:
+    """The (T, d_ff) activation that the bf16 forward's two products pass
+    through device memory; float32 takes none."""
+    if x.dtype != torch.bfloat16:
+        return None
+    return torch.empty(x.shape[0], d_ff, device=x.device, dtype=x.dtype)
+
+
 def _require_cuda(x) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp runs on cuda or cpu, not {x.device}")
@@ -195,7 +217,8 @@ def fused_mlp_fwd(x, w1, b1, w2, b2, mask=None, keep_prob: float = 1.0,
                   save_pre: bool = False):
     """The forward: kernel ``fused_mlp_fwd`` (or, with ``save_pre``,
     ``fused_mlp_fwd_pre``, which also returns pre) on a CUDA tensor,
-    :func:`fused_mlp_reference` on a CPU tensor."""
+    :func:`fused_mlp_reference` on a CPU tensor. In bfloat16 the kernels
+    pass the activation h through (T, d_ff) scratch allocated here."""
     if x.device.type == "cpu":
         return fused_mlp_reference(x, w1, b1, w2, b2, mask, keep_prob, save_pre)
     _require_cuda(x)
@@ -204,10 +227,12 @@ def fused_mlp_fwd(x, w1, b1, w2, b2, mask=None, keep_prob: float = 1.0,
     d_ff = w1.shape[0]
     out = torch.empty_like(x)
     pre = torch.empty(t, d_ff, device=x.device, dtype=x.dtype) if save_pre else None
+    h = _scratch_h(x, d_ff)
     ptrs = [x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             _ptr(mask), out.data_ptr()]
     if save_pre:
         ptrs.append(pre.data_ptr())
+    ptrs.append(_ptr(h))
     _launch(KERNEL_TRAIN if save_pre else KERNEL, x.device, *ptrs, t, d, d_ff,
             _DTYPES[x.dtype], float(keep_prob))
     return (out, pre) if save_pre else out
@@ -230,8 +255,8 @@ def fused_mlp_bwd(x, pre, do, w1, w2, mask=None, keep_prob: float = 1.0):
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
     db1 = torch.empty(d_ff, device=x.device, dtype=x.dtype)
     db2 = torch.empty(d, device=x.device, dtype=x.dtype)
-    # scratch: dpre and h between the row and weight kernels, the weight
-    # kernel's fp32 partial sums
+    # scratch: dpre and h between the first kernel and the weight kernel,
+    # the weight kernel's fp32 partial sums
     dpre = torch.empty(t, d_ff, device=x.device, dtype=x.dtype)
     h = torch.empty_like(dpre)
     partial = torch.empty(_partial_floats(d, d_ff), device=x.device,

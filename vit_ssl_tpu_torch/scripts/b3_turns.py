@@ -57,10 +57,10 @@ device busy a step or batch (``chip_smoke.profile_window`` over 3, which
 must show that library's kernels by name) and peak memory. Each mode first
 prints the registers and spills (``-Xptxas -v``) of both libraries' bf16
 bodies, and whether each Hopper kernel that both libraries hold has the
-same SASS (``cuobjdump -sass``) in both. Card only; run from the root of a checkout (``chip_smoke.py`` is
-imported from there):
+same SASS (``cuobjdump -sass``) in both. Card only; run from the root of a
+checkout (``chip_smoke.py`` is imported from there):
 
-    python -m vit_ssl_tpu_torch.scripts.b3_turns --other DIR [--kernel b2|b1]
+    python -m vit_ssl_tpu_torch.scripts.b3_turns --other DIR [--kernel b2|b1|b4]
 
 Prints each time beside the card's name and power limit, then one JSON
 line.
@@ -86,6 +86,8 @@ import torch
 from vit_ssl_tpu_torch import kernels
 from vit_ssl_tpu_torch.ops import flash_attention as fa
 from vit_ssl_tpu_torch.ops import flash_blockwise as fb
+from vit_ssl_tpu_torch.ops import fused_mlp as fm
+from vit_ssl_tpu_torch.ops import masked_matmul as mm
 from vit_ssl_tpu_torch.scripts.exp2_probe import card_line, cuda_ms
 
 SHAPE = (64, 12, 577, 64)  # ViT-B/16 at 384 px
@@ -118,7 +120,21 @@ BODIES = {"b3": ("attention_bwd_dq_sm90_kernel", "attention_bwd_dkv_sm90_kernel"
           "b2": ("blockwise_fwd_sm90_kernel", "blockwise_fwd_bf16_kernel",
                  "blockwise_bwd_dq_sm90_kernel", "blockwise_bwd_dkv_sm90_kernel",
                  "blockwise_dq_bf16_kernel", "blockwise_dkv_bf16_kernel"),
-          "b1": ("attention_fwd_onepass_sm90_kernel", "attention_fwd_bf16_kernel")}
+          "b1": ("attention_fwd_onepass_sm90_kernel", "attention_fwd_bf16_kernel"),
+          # B4's wgmma/TMA kernels, and the mma.sync row and weight kernels
+          # they replaced
+          "b4": (*dict.fromkeys(b for bodies in fm.HOPPER_BODIES.values() for b in bodies),
+                 "mlp_rows_bf16", "mlp_weights_bf16")}
+B4_ENTRIES = (fm.KERNEL, fm.KERNEL_TRAIN, fm.KERNEL_BWD)
+P2_ENTRIES = (mm.KERNEL, mm.KERNEL_BWD)
+# the libraries whose Hopper kernels' SASS the b4 mode compares: B1's, B3's
+# and B2's, which share sm90_common.cuh with B4's bodies
+ATTENTION_LIBRARIES = (fa.KERNEL, fa.KERNEL_BWD, fa.FUSED_LIBRARY, fb.FWD_LIBRARY,
+                       fb.BWD_LIBRARY)
+# the float32 B4 cases and the P2 cases compared bit for bit between the
+# libraries: (T, d_model, d_ff) and (T, d_ff, d_out)
+B4_F32_CASES = [(5365, 384, 1536), (70, 768, 3072)]
+P2_CASES = [(37120, 1536, 384), (5365, 1536, 384)]
 # B1's bf16 backward kernels, by form: the mma.sync body that
 # attention_bwd_sm90.cuh replaced, and its two forms
 B1_BWD_BODIES = {"mma.sync": ("attention_bwd_dq_bf16_kernel", "attention_bwd_dkv_bf16_kernel"),
@@ -127,20 +143,30 @@ STEPS = 10  # timed steps a turn, as chip_smoke.TIMED_STEPS
 TURNS = ("other", "this", "this", "other")
 
 
-def build_other(root: Path, out_dir: Path, library: str = fa.FUSED_LIBRARY) -> ctypes.CDLL:
-    """``root``'s kernel library ``library``, compiled into ``out_dir``;
-    the compiler's log beside it."""
-    src = root / "vit_ssl_tpu_torch" / kernels.SOURCES[library]
-    lib = out_dir / f"lib{library}_other.so"
-    done = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)],
-                          check=True, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(done.stdout + done.stderr)
-    return ctypes.CDLL(str(lib))
+def build_others(root: Path, out_dir: Path, libraries) -> dict:
+    """``root``'s kernel libraries ``libraries``, compiled into ``out_dir``,
+    one nvcc each, all at once; each compiler's log beside its library."""
+    procs = {}
+    for library in libraries:
+        src = root / "vit_ssl_tpu_torch" / kernels.SOURCES[library]
+        lib = out_dir / f"lib{library}_other.so"
+        procs[library] = (lib, subprocess.Popen(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for library, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the other checkout's {library} failed to build:\n{out}")
+        built[library] = ctypes.CDLL(str(lib))
+    return built
 
 
 def print_registers(card: str, libs: dict) -> None:
     """``-Xptxas -v``'s lines of each library's bf16 bodies (Hopper and
-    mma.sync), for both checkouts."""
+    mma.sync: a kernel named ``*sm90*`` or ``*bf16*``), for both
+    checkouts."""
     import chip_smoke
 
     for who, by_name in libs.items():
@@ -149,7 +175,8 @@ def print_registers(card: str, libs: dict) -> None:
             if who == "this":
                 log = kernels.log_path(name)
             for line in chip_smoke.ptxas_lines(log.read_text(), kernels.nvcc_path()):
-                if "sm90_kernel" in line or "bf16_kernel" in line:
+                kernel = line.split(": ")[0]
+                if "sm90" in kernel or "bf16" in kernel:
                     print(f"{card}: {who} {name}: {line}", flush=True)
 
 
@@ -320,24 +347,64 @@ def errors(name, got, want):
     return errs, ok
 
 
+def has_b4_hopper(lib: ctypes.CDLL) -> bool:
+    """Whether a B4 library holds the wgmma/TMA bodies (its forward entries
+    then take the scratch h) or the mma.sync row kernel before them."""
+    return re.search(rb"mlp_\w+_sm90_kernel", Path(lib._name).read_bytes()) is not None
+
+
+def b4_entry(lib: ctypes.CDLL, name: str):
+    """B4's C entry ``name`` of ``lib``, called as this checkout's wrapper
+    calls it: a forward entry of a library without the Hopper bodies takes
+    no scratch h, so the wrapper's (None: ``routed`` routes
+    ``fm._scratch_h``) is dropped."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(lib, name)
+    pointers = {fm.KERNEL: 7, fm.KERNEL_TRAIN: 8, fm.KERNEL_BWD: 14}[name]
+    scratch = name != fm.KERNEL_BWD and has_b4_hopper(lib)
+    fn.argtypes = [p] * (pointers + scratch) + [i] * 4 + [ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    if scratch or name == fm.KERNEL_BWD:
+        return fn
+    return lambda *args: fn(*args[:pointers], *args[pointers + 1:])
+
+
+def library_entry(lib: ctypes.CDLL, name: str):
+    """Entry ``name`` of ``lib`` with the argtypes its wrapper passes."""
+    if name in B4_ENTRIES:
+        return b4_entry(lib, name)
+    if name in P2_ENTRIES:
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * (8 if name == mm.KERNEL_BWD else 5)
+                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        return fn
+    return entry_fn(lib, name)
+
+
 @contextlib.contextmanager
 def routed(lib, module=fa, entries=ENTRIES):
     """Within the block, ``module``'s launches of ``entries`` call
     ``lib``'s (a library, or a dict of them by entry). A B2 backward
     library that takes the lse and delta unpadded gets them so:
-    ``fb.stat_rows`` is routed too."""
-    fns = {name: entry_fn(lib[name] if isinstance(lib, dict) else lib, name)
-           for name in entries}
-    base, rows = module._kernel_fn, fb.stat_rows
+    ``fb.stat_rows`` is routed too; a B4 forward library without the Hopper
+    bodies gets no scratch h: ``fm._scratch_h`` is routed too."""
+    def of(name):
+        return lib[name] if isinstance(lib, dict) else lib
+
+    fns = {name: library_entry(of(name), name) for name in entries}
+    base, rows, scratch = module._kernel_fn, fb.stat_rows, fm._scratch_h
     module._kernel_fn = lambda entry: fns[entry] if entry in fns else base(entry)
-    bwd = [lib[name] if isinstance(lib, dict) else lib
-           for name in entries if name in B2_BWD_ENTRIES]
+    bwd = [of(name) for name in entries if name in B2_BWD_ENTRIES]
     if module is fb and bwd and not takes_padded_stats(bwd[0]):
         fb.stat_rows = lambda n, dtype: n
+    fwd = [of(name) for name in entries if name in (fm.KERNEL, fm.KERNEL_TRAIN)]
+    if module is fm and fwd and not has_b4_hopper(fwd[0]):
+        fm._scratch_h = lambda x, d_ff: None
     try:
         yield
     finally:
-        module._kernel_fn, fb.stat_rows = base, rows
+        module._kernel_fn, fb.stat_rows, fm._scratch_h = base, rows, scratch
 
 
 def _timed_steps(step):
@@ -381,12 +448,13 @@ def supervised_step(cfg):
     return lambda: train_step(state, batch)
 
 
-def dino_step():
+def dino_step(cfg=None):
     """A no-argument DINO ViT-S/8 training step (``chip_smoke.py``'s state,
-    batch and first-step schedule values)."""
+    batch and first-step schedule values; ``cfg``: its config,
+    ``chip_smoke.DINO_VIT_S8`` by default)."""
     import chip_smoke
 
-    state, train_step, batch = chip_smoke.build_training(torch)
+    state, train_step, batch = chip_smoke.build_training(torch, cfg or chip_smoke.DINO_VIT_S8)
     teacher_temp, teacher_momentum = chip_smoke.schedule_values()
     return lambda: train_step(state, batch, teacher_temp, teacher_momentum)
 
@@ -843,15 +911,180 @@ def b2_main(card, built):
             "steps": b2_step_turns(card, libs)}
 
 
+def b4_bare(lib, name, x, w1, b1, w2, b2, mask, pre, do, keep):
+    """A no-argument launch of ``lib``'s B4 entry ``name`` (in x's dtype)
+    on outputs and scratch allocated once, returning the outputs: (out,),
+    (out, pre) or (dx, dw1, db1, dw2, db2)."""
+    t, d = x.shape
+    d_ff = w1.shape[0]
+    fn = b4_entry(lib, name)
+
+    def new(*shape, dtype=x.dtype):
+        return torch.empty(*shape, device=x.device, dtype=dtype)
+
+    if name == fm.KERNEL_BWD:
+        floats = lib.fused_mlp_bwd_partial_floats
+        floats.argtypes, floats.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+        outs = [new(t, d), new(d_ff, d), new(d_ff), new(d, d_ff), new(d)]
+        scratch = [new(t, d_ff), new(t, d_ff), new(floats(d, d_ff), dtype=torch.float32)]
+        ptrs = [x, pre, do, w1, w2, mask, *outs, *scratch]
+    else:
+        outs = [new(t, d)] + ([new(t, d_ff)] if name == fm.KERNEL_TRAIN else [])
+        scratch = [fm._scratch_h(x, d_ff)]  # dropped for a library that takes none
+        ptrs = [x, w1, b1, w2, b2, mask, *outs, *scratch]
+    keep = keep if mask is not None else 1.0
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = fn(*(None if y is None else y.data_ptr() for y in ptrs), t, d, d_ff,
+                 int(x.dtype == torch.bfloat16), keep, stream)
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        return outs
+    return call
+
+
+def b4_entry_turns(card, libs):
+    """B4's bf16 entries of both libraries at each ``chip_smoke.MLP_TIMED``
+    row: held to the plain version, timed in turns as C entries (device ms,
+    host us a launch) and through the wrappers, beside the unfused chain
+    and the bound."""
+    import chip_smoke
+
+    keep, rows = chip_smoke.KEEP_PROB, {}
+    for part, t, with_mask, (d, d_ff) in chip_smoke.MLP_TIMED:
+        x, w1, b1, w2, b2, mask, do = chip_smoke.mlp_inputs(torch, t, torch.bfloat16, seed=500,
+                                                            dims=(d, d_ff))
+        mask = mask if with_mask else None
+        name = {"fwd": fm.KERNEL, "fwd_pre": fm.KERNEL_TRAIN, "bwd": fm.KERNEL_BWD}[part]
+        _, pre = fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, keep, save_pre=True)
+        if part == "bwd":
+            plain = fm.fused_mlp_bwd_reference(x, pre, do, w1, w2, mask, keep)
+            ins = [y.detach().requires_grad_() for y in (x, w1, b1, w2, b2)]
+            chain_out = chip_smoke.unfused_ffn(torch, *ins, mask, keep)
+
+            def wrapper():
+                return fm.fused_mlp_bwd(x, pre, do, w1, w2, mask, keep)
+
+            def chain():
+                return torch.autograd.grad(chain_out, ins, do, retain_graph=True)
+        else:
+            save_pre = part == "fwd_pre"
+            plain = fm.fused_mlp_reference(x, w1, b1, w2, b2, mask, keep, save_pre=save_pre)
+            plain = plain if save_pre else (plain,)
+
+            def wrapper():
+                return fm.fused_mlp_fwd(x, w1, b1, w2, b2, mask, keep, save_pre=save_pre)
+
+            def chain():
+                return chip_smoke.unfused_ffn(torch, x, w1, b1, w2, b2, mask, keep)
+        calls = {who: b4_bare(lib[name], name, x, w1, b1, w2, b2, mask, pre, do, keep)
+                 for who, lib in libs.items()}
+        got = {who: [y.clone() for y in call()] for who, call in calls.items()}
+        torch.cuda.synchronize()
+        errs = {who: [chip_smoke.rel_err(g, r) for g, r in zip(outs, plain)]
+                for who, outs in got.items()}
+        apart = [chip_smoke.rel_err(a, c) for a, c in zip(got["this"], got["other"])]
+        agree = all(max(e) <= chip_smoke.MLP_REL_TOL["bfloat16"] for e in errs.values())
+        bare = [cuda_ms(calls[who]) for who in TURNS]
+        hosts = [chip_smoke.host_us(calls[who]) for who in TURNS]
+        through = []
+        for who in TURNS:
+            with routed(libs[who], fm, B4_ENTRIES):
+                through.append(cuda_ms(wrapper))
+        chain_ms = cuda_ms(chain)
+        bound = chip_smoke.mlp_bounds(t, d, d_ff, "bfloat16", with_mask,
+                                      part == "fwd_pre")["bwd" if part == "bwd" else "fwd"]
+        key = f"{name} T={t} {d}->{d_ff}{' keep-mask' if with_mask else ''}"
+        rows[key] = {"other_ms": [bare[0], bare[3]], "this_ms": [bare[1], bare[2]],
+                     "other_host_us": [hosts[0], hosts[3]],
+                     "this_host_us": [hosts[1], hosts[2]],
+                     "other_wrapper_ms": [through[0], through[3]],
+                     "this_wrapper_ms": [through[1], through[2]],
+                     "ratio": min(bare[1:3]) / min(bare[0], bare[3]),
+                     "unfused_chain_ms": chain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                     "agree": agree, "other_vs_plain": errs["other"],
+                     "this_vs_plain": errs["this"], "this_vs_other": apart}
+        print(f"{card}: {key} bf16, C entry: other {bare[0]:.4f} / {bare[3]:.4f} ms, this "
+              f"{bare[1]:.4f} / {bare[2]:.4f} ms ({rows[key]['ratio']:.3f}x); through the "
+              f"wrapper: other {through[0]:.4f} / {through[3]:.4f} ms, this {through[1]:.4f} "
+              f"/ {through[2]:.4f} ms; unfused chain {chain_ms:.4f} ms, bound {bound[0]:.4f} "
+              f"ms ({bound[1]}); host a launch: other {hosts[0]:.2f} / {hosts[3]:.2f} us, "
+              f"this {hosts[1]:.2f} / {hosts[2]:.2f} us; rel_err vs plain: other "
+              + "/".join(f"{e:.3e}" for e in errs["other"]) + ", this "
+              + "/".join(f"{e:.3e}" for e in errs["this"]) + "; this vs other "
+              + "/".join(f"{e:.3e}" for e in apart) + ("; ok" if agree else "; MISS"),
+              flush=True)
+        del x, w1, b1, w2, b2, mask, do, pre, calls, got, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def unchanged_outputs(card, libs, p2_libs):
+    """B4's float32 entries (the masked training forward and the backward)
+    and P2's bf16 and float32 entries, each library on the same inputs:
+    whether the two libraries' outputs are equal bit for bit."""
+    import chip_smoke
+
+    keep, same = chip_smoke.KEEP_PROB, {}
+    for t, d, d_ff in B4_F32_CASES:
+        x, w1, b1, w2, b2, mask, do = chip_smoke.mlp_inputs(torch, t, torch.float32, seed=7,
+                                                            dims=(d, d_ff))
+        pre = fm.fused_mlp_reference(x, w1, b1, w2, b2, mask, keep, save_pre=True)[1]
+        for name in (fm.KERNEL_TRAIN, fm.KERNEL_BWD):
+            got = {who: [y.clone() for y in b4_bare(lib[name], name, x, w1, b1, w2, b2,
+                                                    mask, pre, do, keep)()]
+                   for who, lib in libs.items()}
+            same[f"{name} float32 T={t} {d}->{d_ff}"] = all(
+                torch.equal(a, c) for a, c in zip(got["other"], got["this"]))
+    for dtype in (torch.bfloat16, torch.float32):
+        for t, d_ff, d_out in P2_CASES:
+            h, mask, w2, b2, do = chip_smoke.masked_inputs(torch, t, d_ff, d_out, dtype, seed=8)
+            got = {}
+            for who, lib in p2_libs.items():
+                with routed(lib, mm, P2_ENTRIES):
+                    got[who] = [mm.masked_matmul_fwd(h, mask, w2, b2, keep),
+                                *mm.masked_matmul_bwd(h, mask, do, w2, keep)]
+            same[f"P2 {str(dtype).removeprefix('torch.')} T={t} {d_ff}->{d_out}"] = all(
+                torch.equal(a, c) for a, c in zip(got["other"], got["this"]))
+    torch.cuda.synchronize()
+    for key, equal in same.items():
+        print(f"{card}: {key}: outputs {'bit-equal' if equal else 'DIFFER'} between the "
+              "libraries", flush=True)
+    return same
+
+
+def b4_main(card, built):
+    import chip_smoke
+
+    # per checkout, each of B4's entries' library
+    libs = {who: {fm.KERNEL: by_name[fm.KERNEL], fm.KERNEL_TRAIN: by_name[fm.KERNEL],
+                  fm.KERNEL_BWD: by_name[fm.KERNEL_BWD]} for who, by_name in built.items()}
+    rows = b4_entry_turns(card, libs)
+    same = unchanged_outputs(card, libs, {who: by_name[mm.LIBRARY]
+                                          for who, by_name in built.items()})
+    want = bodies_in(libs, "b4")
+    steps = {
+        "vit_b16_384_fused": _training_turns(
+            card, libs, lambda: supervised_step(chip_smoke.VIT_B16_384_FUSED),
+            "ViT-B/16 384 px fused", fm, B4_ENTRIES, want),
+        "dino_fused": _training_turns(
+            card, libs, lambda: dino_step(chip_smoke.fused_config()), "DINO ViT-S/8 fused", fm,
+            B4_ENTRIES, want)}
+    return {"entries": rows, "bit_equal": same, "steps": steps}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", type=Path, required=True,
                         help="root of the other checkout")
-    parser.add_argument("--kernel", choices=("b3", "b2", "b1"), default="b3",
+    parser.add_argument("--kernel", choices=("b3", "b2", "b1", "b4"), default="b3",
                         help="b3: fused_attention's three entries and the 384-px step; "
                              "b2: B2's forwards and backward, the 512-px step and served "
                              "batch; b1: B1's two forwards and its backward, the DINO step "
-                             "and served batch")
+                             "and served batch; b4: the fused MLP's three entries, its "
+                             "fp32 and P2's outputs bit for bit, the fused ViT-B/16 "
+                             "384-px and DINO steps")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("b3_turns: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -862,12 +1095,16 @@ def main(argv=None) -> int:
     card = card_line()
     libraries, run = {"b3": ((fa.FUSED_LIBRARY,), b3_main),
                       "b2": ((fb.FWD_LIBRARY, fb.BWD_LIBRARY), b2_main),
-                      "b1": ((fa.KERNEL, fa.KERNEL_BWD), b1_main)}[args.kernel]
+                      "b1": ((fa.KERNEL, fa.KERNEL_BWD), b1_main),
+                      "b4": ((fm.KERNEL, fm.KERNEL_BWD, mm.LIBRARY, *ATTENTION_LIBRARIES),
+                             b4_main)}[args.kernel]
     with tempfile.TemporaryDirectory() as tmp:
-        built = {"other": {name: build_other(args.other.resolve(), Path(tmp), name)
-                           for name in libraries},
+        kernels.build(libraries)
+        built = {"other": build_others(args.other.resolve(), Path(tmp), libraries),
                  "this": {name: kernels.load(name) for name in libraries}}
-        print_registers(card, built)
+        shown = (fm.KERNEL, fm.KERNEL_BWD) if args.kernel == "b4" else libraries
+        print_registers(card, {who: {name: lib for name, lib in by_name.items()
+                                     if name in shown} for who, by_name in built.items()})
         print_sass(card, built)
         result = {"card": card, "kernel": args.kernel, **run(card, built)}
     print(json.dumps(result), flush=True)
@@ -876,6 +1113,7 @@ def main(argv=None) -> int:
     legs = [leg for leg in result["steps"].values()]
     backward_ok = {"b2": lambda: result["backward"]["agree"],
                    "b1": lambda: all(r["agree"] for r in result["backward"].values()),
+                   "b4": lambda: all(result["bit_equal"].values()),
                    "b3": lambda: True}[args.kernel]()
     return 0 if (all(r["agree"] for rows in entries for r in rows.values()) and backward_ok
                  and all(t["finite"] for leg in legs for t in leg)) else 1
