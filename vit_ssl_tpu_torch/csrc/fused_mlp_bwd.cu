@@ -120,7 +120,7 @@ int dispatch(const void* x, const void* pre, const void* dout, const void* w1,
       return mask != nullptr ? run(std::true_type{}) : run(std::false_type{});
     });
     if (err != cudaSuccess) return (int)err;
-    reduce_splits<T, 4><<<264, 256, 0, s>>>(part, split_stride, splits, out);
+    reduce_splits<T, 4><<<kReduceBlocks, 256, 0, s>>>(part, split_stride, splits, out);
     return (int)cudaGetLastError();
   } else {
     RowArgs<T> p{static_cast<const T*>(dout), static_cast<const T*>(w1), nullptr,

@@ -78,6 +78,16 @@ __device__ __forceinline__ float gelu_grad(float x) {
   return cdf + x * pdf;
 }
 
+// gelu_exact(x) and gelu_grad(x), bit for bit as those two, from one erff.
+struct GeluAndGrad {
+  float gelu, grad;
+};
+__device__ __forceinline__ GeluAndGrad gelu_and_grad(float x) {
+  const float e = erff(x * kSqrt2Inv);
+  const float pdf = kInvSqrt2Pi * expf(-0.5f * x * x);
+  return {x * 0.5f * (1.f + e), 0.5f * (1.f + e) + x * pdf};
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 

@@ -77,7 +77,7 @@
 
 #pragma once
 
-#include "fused_mlp_common.cuh"  // gelu_exact, gelu_grad, bf16, pack_bf16
+#include "fused_mlp_common.cuh"  // gelu_exact, gelu_and_grad, bf16, pack_bf16
 #include "sm90_common.cuh"       // ring, mbarriers, TMA, descriptors, tensor maps
 
 namespace {
@@ -453,8 +453,9 @@ struct Dh {
         const int r = row_lo % kGemmRows + 8 * half;
         uint32_t& pr = tile_pair(slots.ptr[0], r, c);
         const float p0 = bf16_lo(pr), p1 = bf16_hi(pr);
+        const GeluAndGrad g0 = gelu_and_grad(p0), g1 = gelu_and_grad(p1);
         float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-        float h0 = gelu_exact(p0), h1 = gelu_exact(p1);
+        float h0 = g0.gelu, h1 = g1.gelu;
         if (kMask) {
           const float2 s = side_keep(slots.ptr[1], r, c, inv_keep);
           h0 = h0 * s.x;
@@ -462,7 +463,7 @@ struct Dh {
           v0 = v0 * s.x;
           v1 = v1 * s.y;
         }
-        pr = pack_bf16(v0 * gelu_grad(p0), v1 * gelu_grad(p1));
+        pr = pack_bf16(v0 * g0.grad, v1 * g1.grad);
         tile_pair(slots.ptr[2], r, c) = pack_bf16(h0, h1);
       }
     }

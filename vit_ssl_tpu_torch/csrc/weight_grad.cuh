@@ -279,13 +279,22 @@ struct SplitOutputs {
   size_t end[kOutputs];  // cumulative element counts
 };
 
+// Each thread loads an element's kMaxSplits partials at once (those past
+// `splits` as 0, unused), then adds them in slice order.
+constexpr int kReduceBlocks = 1056;  // 8 blocks of 256 an SM
+
 template <typename T, int kOutputs>
 __global__ void reduce_splits(const float* __restrict__ part, size_t split_stride,
                               int splits, SplitOutputs<T, kOutputs> out) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < split_stride;
        i += (size_t)gridDim.x * blockDim.x) {
-    float s = part[i];
-    for (int k = 1; k < splits; ++k) s += part[k * split_stride + i];
+    float v[kMaxSplits];
+#pragma unroll
+    for (int k = 0; k < kMaxSplits; ++k) v[k] = k < splits ? part[k * split_stride + i] : 0.f;
+    float s = v[0];
+#pragma unroll
+    for (int k = 1; k < kMaxSplits; ++k)
+      if (k < splits) s += v[k];
     size_t begin = 0;
 #pragma unroll
     for (int o = 0; o < kOutputs; ++o) {
@@ -329,7 +338,8 @@ cudaError_t launch_weights(const WeightProblem<T>& p0, const WeightProblem<T>& p
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_splits<T, kOutputs><<<264, 256, 0, stream>>>(p0.part, split_stride, splits, out);
+  reduce_splits<T, kOutputs><<<kReduceBlocks, 256, 0, stream>>>(p0.part, split_stride, splits,
+                                                                out);
   return cudaGetLastError();
 }
 
