@@ -27,7 +27,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               of ``csrc/mlp_gemm_sm90.cuh``) and fp32; kernel P2
               (dropout-masked second FFN product): its forward and backward
               at T = 37120 x (1536 -> 384), a ragged T, T = 1 and ViT-B's
-              3072 -> 768 at T = 36928, bf16 and fp32
+              3072 -> 768 at T = 36928, bf16 (B4's wgmma/TMA product with h
+              masked on its way in; a profile of each entry at each case
+              must name its Hopper kernels and no other) and fp32
 4. serving  — a DINO ViT-S/8 ``Server`` at batch 128 through its
               ``forward_batch`` entry point: launch counts, agreement with
               the plain attention path, padding rows inert
@@ -103,7 +105,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               (``blockwise_fwd_exp2``) against B2's forward, both timed; P1
               against its plain version
 17. P2 times — kernel, plain, the library pair (``torch.where`` dropout
-              then ``F.linear``) and bound at T = 37120, 1536 -> 384, bf16
+              then ``F.linear``) and bound at T = 37120, 1536 -> 384 and at
+              ViT-B/16's T = 36928, 3072 -> 768, bf16, with the wrapper's
+              host microseconds a call and a profile of each entry
 18. dropout-epilogue probe —
               ``vit_ssl_tpu_torch/scripts/dropout_epilogue_probe.py``, P2's
               path: the epilogue FFN checked against the plain FFN, its five
@@ -380,6 +384,15 @@ MLP_GRADS = ("dx", "dw1", "db1", "dw2", "db2")  # fused_mlp_bwd's outputs
 # backward's dh, dx and weight-gradient products
 B4_BODIES = ("mlp_fc1_sm90_kernel", "mlp_fc2_sm90_kernel", "mlp_dh_sm90_kernel",
              "mlp_dx_sm90_kernel", "mlp_wgrad_sm90_kernel")
+# P2's bf16 kernels by entry (csrc/masked_matmul.cu on mlp_gemm_sm90.cuh's
+# product; ops/masked_matmul.py::HOPPER_BODIES): the forward's masked
+# product, the backward's dh and weight-gradient products; the backward
+# also runs the ordered reduction P2_REDUCTION. The mma.sync bodies they
+# replaced must not appear in a profile: P2_MMA_SYNC_BODIES.
+P2_BODIES = {"masked_mm_fwd": ("masked_mm_fwd_sm90_kernel",),
+             "masked_mm_bwd": ("masked_mm_dh_sm90_kernel", "masked_mm_wgrad_sm90_kernel")}
+P2_REDUCTION = "reduce_splits"
+P2_MMA_SYNC_BODIES = ("masked_mm_bf16", "mlp_weights_bf16")
 
 
 def fail(msg: str) -> None:
@@ -1143,8 +1156,9 @@ def masked_inputs(torch, t, d_ff, d_out, dtype, seed):
 def phase_masked_kernels(torch, mm):
     """Kernel P2 against its plain versions, per case and dtype: the
     forward, and the backward (dh, dw2, db2; a second call must repeat it
-    bit for bit: no atomics). Returns, per (T, d_ff, dtype), the max abs
-    errors."""
+    bit for bit: no atomics). In bf16 a profile of each entry must name its
+    Hopper kernels (``P2_BODIES``; the backward also ``P2_REDUCTION``) and
+    no other. Returns, per (T, d_ff, dtype), the max abs errors."""
     print("== kernels: masked_mm_fwd and masked_mm_bwd against "
           "masked_matmul_reference and masked_matmul_bwd_reference", flush=True)
     errors = {}
@@ -1173,6 +1187,19 @@ def phase_masked_kernels(torch, mm):
                 f"{'ok' if ok else 'MISS'}", flush=True)
             if not ok:
                 fail(f"masked matmul kernels disagree at T={t} {d_ff}->{d_out} {dtype_name}")
+            if dtype_name == "bfloat16":
+                calls = {mm.KERNEL: lambda: mm.masked_matmul_fwd(h, mask, w2, b2, KEEP_PROB),
+                         mm.KERNEL_BWD: lambda: mm.masked_matmul_bwd(h, mask, do, w2,
+                                                                     KEEP_PROB)}
+                for entry, call in calls.items():
+                    bodies = P2_BODIES[entry]
+                    extra = (P2_REDUCTION,) if entry == mm.KERNEL_BWD else ()
+                    # three calls a window: a session that loses some of
+                    # its device events still names the kernels
+                    profile_window(torch, lambda: [call() for _ in range(3)],
+                                   f"3 {entry} calls at T={t} {d_ff}->{d_out}", rows=4,
+                                   want=bodies, absent=P2_MMA_SYNC_BODIES,
+                                   only=bodies + extra)
             errors[(t, d_ff, dtype_name)] = {
                 "fwd": max_abs(out, want),
                 "bwd_abs": {name: max_abs(g, r) for name, g, r in zip(MASKED_GRADS, got, ref)},
@@ -1404,7 +1431,7 @@ def phase_serving_fused(torch, fa, fm, tmp, x, unfused_out, card):
 PROFILE_SESSIONS = 5
 
 
-def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=()):
+def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=(), only=()):
     """Device busy and idle share of ``fn`` under ``torch.profiler``, and
     the top device operations. ``fn`` runs twice a session: a warm-up cycle
     of the profiler, not recorded, then the recorded one. A session can lose
@@ -1414,8 +1441,9 @@ def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=()):
     some device operation, every name in ``want`` (a name or a tuple of
     names) and, for each name of ``counts``, that many launches of kernels
     whose names hold it; that session is the one reported. Fails if none
-    does, or if a session records a kernel whose name holds one of
-    ``absent``. Returns (idle share, device busy ms)."""
+    does, if a session records a kernel whose name holds one of
+    ``absent``, or (with ``only``) one whose name holds none of ``only``.
+    Returns (idle share, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     wants = (want,) if isinstance(want, str) else tuple(want)
@@ -1443,7 +1471,8 @@ def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=()):
                               and name in e.key) for name in counts}
         missing += [f"{name} x{count} (got {launched[name]})"
                     for name, count in counts.items() if launched[name] != count]
-        stray = [key for key in device_names if any(name in key for name in absent)]
+        stray = [key for key in device_names if any(name in key for name in absent)
+                 or only and not any(name in key for name in only)]
         if stray:
             fail(f"the profile of {label} names {stray}")
         if device_names and not missing:
@@ -2015,16 +2044,18 @@ def masked_bounds(t, d_ff, d_out, dtype):
 
 
 def phase_masked_times(torch, mm, card):
-    """Kernel P2 (bf16) at the probe's shape, the DINO student-globals FFN:
-    kernel ms twice around its plain version and the unfused PyTorch pair
-    (dropout16's where/divide on the same mask, then F.linear, or its
-    autograd backward), CUDA events; and the forward at ViT-B/16's FFN."""
+    """Kernel P2 (bf16) at the probe's shape, the DINO student-globals FFN,
+    and at ViT-B/16's FFN (384 px): kernel ms twice around its plain
+    version and the unfused PyTorch pair (dropout16's where/divide on the
+    same mask, then F.linear, or its autograd backward), CUDA events; the
+    wrapper's host microseconds a call; a profile of five calls of each
+    entry, which must name its Hopper kernels. Returns rows by (part, T)."""
     import torch.nn.functional as F
 
     print(f"== masked matmul (P2) times on {card} (bf16; the library column is "
           f"torch.where dropout then F.linear on the same inputs and mask)", flush=True)
     rows = {}
-    for t, d_ff, d_out in MASKED_CASES[:1]:
+    for t, d_ff, d_out in (MASKED_CASES[0], MASKED_CASES[3]):
         h, mask, w2, b2, do = masked_inputs(torch, t, d_ff, d_out, torch.bfloat16, seed=700)
         ins = [y.detach().requires_grad_() for y in (h, w2, b2)]
 
@@ -2046,18 +2077,25 @@ def phase_masked_times(torch, mm, card):
             plain_ms = cuda_ms(plain, iters=10)
             library_ms = cuda_ms(library)
             second = cuda_ms(kernel)
+            wrapper_us = host_us(kernel)
             bound_ms, bound_by = bounds[part]
             name = mm.KERNEL if part == "fwd" else mm.KERNEL_BWD
             print(f"  {name} T={t} {d_ff}->{d_out}: kernel {first:.4f} / {second:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, where + F.linear {library_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by})", flush=True)
-            rows[part] = {"ms": min(first, second), "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": library_ms, "shape": [t, d_ff, d_out],
-                          "library_is": "torch.where dropout then F.linear (addmm)"
-                                        + (", its autograd backward" if part == "bwd" else "")}
-    profile_window(torch, lambda: [legs["bwd"][0]() for _ in range(5)],
-                   "5 masked_matmul_bwd calls (its kernels)", rows=4)
+                  f"{bound_ms:.4f} ms ({bound_by}); the wrapper {wrapper_us:.1f} us a call "
+                  f"on the host", flush=True)
+            rows[(part, t)] = {"ms": min(first, second), "ms_readings": [first, second],
+                               "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "library_ms": library_ms,
+                               "shape": [t, d_ff, d_out], "wrapper_host_us": wrapper_us,
+                               "library_is": "torch.where dropout then F.linear (addmm)"
+                                             + (", its autograd backward" if part == "bwd"
+                                                else "")}
+            profile_window(torch, lambda: [kernel() for _ in range(5)],
+                           f"5 {name} calls at T={t} (its kernels)", rows=4,
+                           want=P2_BODIES[name], absent=P2_MMA_SYNC_BODIES)
+        del h, mask, w2, b2, do, ins, pair_out, legs
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2558,7 +2596,7 @@ def main() -> int:
     built = kernels.build()
     print(f"== build: {sorted(kernels.SOURCES)} in {time.perf_counter() - t0:.1f} s "
           f"(compiled: {sorted(built)})", flush=True)
-    faults, b4_ptxas = [], {}
+    faults, b4_ptxas, p2_ptxas = [], {}, {}
     for name in kernels.SOURCES:
         lines = list(ptxas_lines(kernels.log_path(name).read_text(), kernels.nvcc_path()))
         for line in lines:
@@ -2566,10 +2604,15 @@ def main() -> int:
         faults += [f"{name}: {line}" for line in hopper_faults(lines)]
         if name in (fm.KERNEL, fm.KERNEL_BWD):
             b4_ptxas[name] = registers_and_spills(lines, B4_BODIES)
+        if name == mm.LIBRARY:
+            p2_ptxas = registers_and_spills(
+                lines, [body for bodies in P2_BODIES.values() for body in bodies])
     if faults:
         fail("a Hopper body spills or has its wgmma serialised:\n" + "\n".join(faults))
     if set(B4_BODIES) != {body for bodies in fm.HOPPER_BODIES.values() for body in bodies}:
         fail(f"B4_BODIES {B4_BODIES} are not the wrapper's {fm.HOPPER_BODIES}")
+    if P2_BODIES != mm.HOPPER_BODIES:
+        fail(f"P2_BODIES {P2_BODIES} are not the wrapper's {mm.HOPPER_BODIES}")
 
     train_errors = phase_kernels(torch, fa)
     mlp_errors = phase_mlp_kernels(torch, fm)
@@ -2704,15 +2747,29 @@ def main() -> int:
         (fb.KERNEL_EXP2, "flash_blockwise_fwd_sm90.cuh", "scripts/exp2_probe.py:27",
          p1_err, p1_stats),
     ]
-    # P2's backward: max_abs_err is dh's, the weight gradients listed apart
-    p2_case = masked_errors[(MASKED_CASES[0][0], MASKED_CASES[0][1], "bfloat16")]
+    # P2 at the probe's shape, ViT-B/16's FFN beside it; the backward's
+    # max_abs_err is dh's, the weight gradients listed apart; each entry's
+    # bf16 kernels with their ptxas registers and spills
+    p2_rows = {}
+    for part, name in (("fwd", mm.KERNEL), ("bwd", mm.KERNEL_BWD)):
+        rows = []
+        for t, d_ff, _ in (MASKED_CASES[0], MASKED_CASES[3]):
+            errs = masked_errors[(t, d_ff, "bfloat16")]
+            err = errs["fwd"] if part == "fwd" else errs["bwd_abs"]["dh"]
+            rows.append({**masked_stats[(part, t)], "max_abs_err": err, **(
+                {} if part == "fwd" else {"max_abs_err_by_output": errs["bwd_abs"],
+                                          "max_rel_err_by_output": errs["bwd_rel"]})})
+        p2_rows[name] = (rows[0].pop("max_abs_err"), {
+            **rows[0], "entry_source": "vit_ssl_tpu_torch/csrc/masked_matmul.cu",
+            "bodies": list(mm.HOPPER_BODIES[name]),
+            "ptxas": {kernel: row for kernel, row in p2_ptxas.items()
+                      if any(body in kernel for body in mm.HOPPER_BODIES[name])},
+            "at_other_shapes": rows[1:]})
     entries += [
         (mm.KERNEL, "masked_matmul.cu", "scripts/dropout_epilogue_probe.py:60",
-         p2_case["fwd"], masked_stats["fwd"]),
+         *p2_rows[mm.KERNEL]),
         (mm.KERNEL_BWD, "masked_matmul.cu", "scripts/dropout_epilogue_probe.py:69",
-         p2_case["bwd_abs"]["dh"],
-         {**masked_stats["bwd"], "max_abs_err_by_output": p2_case["bwd_abs"],
-          "max_rel_err_by_output": p2_case["bwd_rel"]}),
+         *p2_rows[mm.KERNEL_BWD]),
     ]
     paths = {"serving": serve_launches, "training": train_launches,
              "serving_fused": fused_serve_launches, "training_fused": fused_train_launches,

@@ -25,7 +25,11 @@ every token count and width, each entry's C entry keeping to its rows
 (outputs and scratch inside NaN-filled buffers, inputs beside NaN rows),
 and a ``FeedForwardBlock(use_fused=True)`` gradient through the kernels
 against the plain path. Kernel P2 (dropout-masked second FFN product): its forward
-and backward at the probe's and ViT-B's shapes, and a gradient through it.
+and backward at the probe's and ViT-B's shapes, a gradient through it, each
+bf16 entry's wgmma/TMA kernels (and only those) by name in a profile at
+every shape, each C entry keeping to its rows (NaN-filled margins) and the
+backward repeating bit for bit. P2's and B4's backwards as the first CUDA
+work of a new thread (their tensor maps need a current context).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device. The file imports neither JAX nor the JAX package, so it also runs
@@ -35,6 +39,8 @@ on a machine that has only PyTorch:
 
 (``--noconftest``: ``tests/conftest.py`` sets JAX up and imports it).
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -1319,3 +1325,103 @@ def test_masked_matmul_gradient_through_kernels(cuda_device, dtype):
     want = mm.masked_matmul_bwd_reference(h, mask, do, w2, 0.9)
     for g, w in zip(got, want):
         assert _rel_err(g, w) <= MLP_REL_TOL[dtype], _rel_err(g, w)
+
+
+@pytest.mark.parametrize("t,d_ff,d_out", MASKED_CASES)
+def test_masked_matmul_bf16_entries_run_only_the_hopper_kernels(cuda_device, t, d_ff, d_out):
+    """Each bf16 entry launches the wgmma/TMA kernels that mm.HOPPER_BODIES
+    names for it (the backward also the ordered reduction of its weight
+    gradient's slices) and no other device kernel, shown by name in a
+    profile of the call (:func:`_device_kernels`)."""
+    h, mask, w2, b2, do = _masked_inputs(t, d_ff, d_out, torch.bfloat16, cuda_device, t + 1)
+    calls = {mm.KERNEL: lambda: mm.masked_matmul_fwd(h, mask, w2, b2, 0.9),
+             mm.KERNEL_BWD: lambda: mm.masked_matmul_bwd(h, mask, do, w2, 0.9)}
+    for entry, call in calls.items():
+        allowed = mm.HOPPER_BODIES[entry] + (("reduce_splits",) if entry == mm.KERNEL_BWD
+                                             else ())
+        names = _device_kernels(call, want=mm.HOPPER_BODIES[entry])
+        assert all(any(body in name for name in names) for body in mm.HOPPER_BODIES[entry]), \
+            (entry, names)
+        assert all(any(body in name for body in allowed) for name in names), (entry, names)
+
+
+@pytest.mark.parametrize("entry", [mm.KERNEL, mm.KERNEL_BWD])
+@pytest.mark.parametrize("t", [70, 5365])
+def test_masked_matmul_bf16_entries_keep_to_their_rows(cuda_device, t, entry):
+    """Each bf16 C entry, called on inputs beside NaN rows (h, the mask and
+    do views into buffers whose other rows are NaN, or 0xff mask bytes)
+    with every output (o; dh) a view into a larger NaN-filled buffer: the
+    margins stay NaN, and the outputs equal the wrapper's on plain tensors
+    bit for bit. No tile reads a row past T or writes one."""
+    d_ff, d_out = 1536, 384
+    h, mask, w2, b2, do = _masked_inputs(t, d_ff, d_out, torch.bfloat16, cuda_device, t + 2)
+    inputs = {}
+    for name, y in (("h", h), ("do", do)):
+        _, view = _in_nan(*y.shape)
+        view.copy_(y)
+        inputs[name] = view
+    mask_buf = torch.full((t + 128, d_ff), 255, dtype=torch.uint8, device=cuda_device)
+    inputs["mask"] = mask_buf[64:64 + t]
+    inputs["mask"].copy_(mask)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = mm._kernel_fn(entry)
+    if entry == mm.KERNEL_BWD:
+        shapes = {"dh": (t, d_ff), "dw2": (d_out, d_ff), "db2": (d_out,)}
+        outs = {name: _in_nan(*shape) for name, shape in shapes.items()}
+        partial = torch.empty(mm._partial_floats(d_ff, d_out), device=cuda_device)
+        err = fn(inputs["h"].data_ptr(), inputs["mask"].data_ptr(), inputs["do"].data_ptr(),
+                 w2.data_ptr(), *(outs[name][1].data_ptr() for name in shapes),
+                 partial.data_ptr(), t, d_ff, d_out, 1, 0.9, stream)
+        want = dict(zip(shapes, mm.masked_matmul_bwd(h, mask, do, w2, 0.9)))
+    else:
+        outs = {"o": _in_nan(t, d_out)}
+        err = fn(inputs["h"].data_ptr(), inputs["mask"].data_ptr(), w2.data_ptr(),
+                 b2.data_ptr(), outs["o"][1].data_ptr(), t, d_ff, d_out, 1, 0.9, stream)
+        want = {"o": mm.masked_matmul_fwd(h, mask, w2, b2, 0.9)}
+    torch.cuda.synchronize()
+    assert err == 0
+    for name, (buf, view) in outs.items():
+        assert _margins_nan(buf, view.shape[0]), name
+        assert torch.isfinite(view).all(), name
+        assert torch.equal(view, want[name]), name
+
+
+def test_masked_matmul_bf16_backward_repeats_bit_for_bit(cuda_device):
+    """No atomics: the backward's weight gradients are summed over fixed
+    slices of T and added in slice order, so a second call (and the
+    forward's) repeats the first bit for bit, at the probe's shape."""
+    h, mask, w2, b2, do = _masked_inputs(37120, 1536, 384, torch.bfloat16, cuda_device, 9)
+    first = [mm.masked_matmul_fwd(h, mask, w2, b2, 0.9),
+             *mm.masked_matmul_bwd(h, mask, do, w2, 0.9)]
+    for _ in range(2):
+        again = [mm.masked_matmul_fwd(h, mask, w2, b2, 0.9),
+                 *mm.masked_matmul_bwd(h, mask, do, w2, 0.9)]
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_hopper_entries_run_on_a_fresh_thread(cuda_device):
+    """A wgmma/TMA entry whose call is the first CUDA work of its thread
+    (as an autograd worker's first backward can be) encodes its tensor maps
+    and launches: P2's and B4's backwards in a new thread equal the same
+    calls on this one bit for bit."""
+    h, mask, w2, b2, do = _masked_inputs(1000, 1536, 384, torch.bfloat16, cuda_device, 4)
+    x, w1, b1, fw2, fb2, fmask, fdo = _mlp_inputs(1000, torch.bfloat16, cuda_device, 5)
+    _, pre = fm.fused_mlp_fwd(x, w1, b1, fw2, fb2, fmask, 0.9, save_pre=True)
+    calls = {"p2": lambda: mm.masked_matmul_bwd(h, mask, do, w2, 0.9),
+             "b4": lambda: fm.fused_mlp_bwd(x, pre, fdo, w1, fw2, fmask, 0.9)}
+    got = {}
+
+    def run(name):
+        try:
+            got[name] = calls[name]()
+            torch.cuda.synchronize()
+        except Exception as e:  # reported below, on the test's thread
+            got[name] = e
+
+    for name in calls:
+        thread = threading.Thread(target=run, args=(name,))
+        thread.start()
+        thread.join()
+    for name, call in calls.items():
+        assert not isinstance(got[name], Exception), (name, got[name])
+        assert all(torch.equal(a, b) for a, b in zip(got[name], call())), name

@@ -194,15 +194,15 @@ def test_kernel_input_checks_layout():
 
 def test_kernel_sources_cover_their_headers():
     """A header edit must rebuild every library that includes it: B4's
-    libraries include their bf16 wgmma/TMA bodies' header and, through it,
-    the Hopper pieces and B1's header, and the fp32 bodies' header; the
-    backward (and P2's library) the weight-gradient header over the
-    latter."""
+    libraries and P2's include the bf16 wgmma/TMA bodies' header and,
+    through it, the Hopper pieces and B1's header, and the fp32 bodies'
+    header; the backward and P2's library the weight-gradient header over
+    the latter."""
     common = ["fused_mlp_common.cuh", "attention_nhd_common.cuh"]
     hopper = ["mlp_gemm_sm90.cuh", "sm90_common.cuh"]
     for name, headers in (("fused_mlp_fwd", [*hopper, *common[::-1]]),
                           ("fused_mlp_bwd", ["weight_grad.cuh", *common, *hopper]),
-                          ("masked_matmul", ["weight_grad.cuh", *common])):
+                          ("masked_matmul", ["weight_grad.cuh", *common, *hopper])):
         files = [f.name for f in kernels.source_files(name)]
         assert files == [f"{name}.cu", *headers]
 

@@ -2,12 +2,13 @@
 
 What this host can check without a card: both B4 libraries rebuild when
 the products' header or the Hopper pieces under it change (``kernels.py``
-reads each source's includes), while P2's library does not include them;
-every kernel that the wrapper (``ops/fused_mlp.py::HOPPER_BODIES``) and
-``chip_smoke.py`` (``B4_BODIES``) name for the bf16 entries is a kernel of
-that header; the bf16 mma.sync row kernel is gone from
-``csrc/fused_mlp_common.cuh`` while the fp32 bodies and the fragment
-helpers of P2's products stay; and the port's ``fused_mlp`` (its plain
+reads each source's includes), and so does P2's, whose bf16 kernels run
+the same product; every kernel that the wrapper
+(``ops/fused_mlp.py::HOPPER_BODIES``) and ``chip_smoke.py``
+(``B4_BODIES``) name for the bf16 entries is a kernel of that header; the
+bf16 mma.sync row and weight kernels and their ldmatrix fragment helpers
+are gone from ``csrc/fused_mlp_common.cuh`` and ``csrc/weight_grad.cuh``
+while the fp32 bodies stay; and the port's ``fused_mlp`` (its plain
 versions on the CPU) against the JAX package's in interpret mode at
 DINO ViT-S/8's width and the ragged token counts 1 and 70, at the
 tolerances ``tests/test_torch_fused_mlp.py`` states. The kernels
@@ -47,11 +48,12 @@ def test_b4_libraries_rebuild_on_the_hopper_headers(library):
 
 
 def test_p2_library_does_not_include_the_hopper_products():
-    """P2 (``masked_matmul``) keeps its mma.sync bodies and the shared
-    weight kernel: neither B4's products nor the Hopper pieces rebuild it."""
+    """P2 (``masked_matmul``) runs B4's wgmma/TMA product with h masked on
+    its way in: the products' header and the Hopper pieces under it rebuild
+    its library, and so does ``weight_grad.cuh`` (the ordered reduction of
+    its weight gradient's slices, its fp32 weight kernel)."""
     files = {f.name for f in kernels.source_files("masked_matmul")}
-    assert "weight_grad.cuh" in files
-    assert not files & {"mlp_gemm_sm90.cuh", "sm90_common.cuh"}
+    assert {"mlp_gemm_sm90.cuh", "sm90_common.cuh", "weight_grad.cuh"} <= files
 
 
 def _header_kernels():
@@ -80,15 +82,19 @@ def test_forward_entries_share_their_kernels():
 
 def test_no_bf16_row_kernel_remains():
     """The mma.sync bf16 row kernel and its tiles are gone from the shared
-    header; its fp32 row kernel and the fragment helpers that P2's products
-    and the bf16 weight kernel take stay, and so does the weight kernel."""
+    header, and so are the ldmatrix fragment helpers that only P2's old
+    products and the bf16 weight kernel took; the fp32 row kernel stays.
+    ``weight_grad.cuh`` keeps its fp32 weight kernel and the ordered
+    reduction that both backwards' bf16 weight products end in."""
     common = (kernels.CSRC_DIR / "fused_mlp_common.cuh").read_text()
-    for gone in ("mlp_rows_bf16", "RowTile", "kMlpThreads", "mma_bf16(", "load_w2"):
+    for gone in ("mlp_rows_bf16", "RowTile", "kMlpThreads", "mma_bf16(", "load_w2",
+                 "load_a(", "load_b(", "frag_split_"):
         assert gone not in common, gone
-    for kept in ("mlp_rows_f32", "load_a(", "load_b(", "gelu_grad"):
+    for kept in ("mlp_rows_f32", "gelu_grad"):
         assert kept in common, kept
     weights = (kernels.CSRC_DIR / "weight_grad.cuh").read_text()
-    assert "mlp_weights_bf16" in weights and "mlp_weights_f32" in weights
+    assert "mlp_weights_bf16" not in weights and "mask_bf16x8" not in weights
+    assert "mlp_weights_f32" in weights and "reduce_splits" in weights
     assert '#include "weight_grad.cuh"' in (kernels.CSRC_DIR / "masked_matmul.cu").read_text()
 
 

@@ -31,9 +31,9 @@
 // 4. reduce_splits (weight_grad.cuh) adds the slices and rounds.
 //
 // The slice count fills whole waves of blocks (two an SM) where it can:
-// gemm_splits. float32 runs the CUDA-core row kernel (fused_mlp_common.cuh,
-// run backward) and weight kernel (weight_grad.cuh) over the same
-// partials.
+// weight_grad.cuh's gemm_splits. float32 runs the CUDA-core row kernel
+// (fused_mlp_common.cuh, run backward) and weight kernel (weight_grad.cuh)
+// over the same partials.
 //
 // What bounds it on an H100 SXM: operations. At T = 37120 (d_model 384,
 // d_ff 1536, bf16) the four products are 175 GFLOP, 0.177 ms at the 989
@@ -65,36 +65,12 @@ cudaError_t launch_rows_f32(const RowArgs<float>& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The slices of the bf16 weight kernel's rows: at most kMaxSplits, each at
-// least kMinSplitSteps steps of 64 rows, as many as fill the most of their
-// last wave of `tiles` x slices blocks over the card's SMs (two blocks an
-// SM); the fewest of those that fill it equally well.
-constexpr int kMinSplitSteps = 8;
-
-inline int gemm_splits(int tiles, int rows) {
-  int device = 0, sms = 132;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-    sms = 132;
-  const int steps = (rows + sm90::kGemmK - 1) / sm90::kGemmK;
-  int best = 1;
-  double best_waves = 1e30;  // waves a unit of K
-  for (int s = 1; s <= kMaxSplits && (s == 1 || s * kMinSplitSteps <= steps); ++s) {
-    const double waves = (double)((tiles * s + 2 * sms - 1) / (2 * sms)) / s;
-    if (waves < best_waves * (1 - 1e-9)) {
-      best = s;
-      best_waves = waves;
-    }
-  }
-  return best;
-}
-
 template <typename T>
 int dispatch(const void* x, const void* pre, const void* dout, const void* w1,
              const void* w2, const void* mask, void* dx, void* dw1, void* db1,
              void* dw2, void* db2, void* dpre, void* h, void* partial, int rows,
              int d_model, int d_ff, float keep_prob, void* stream) {
-  if (rows < 1 || d_ff < kWTile || d_ff % kWTile != 0 ||
+  if (rows < 1 || d_ff < sm90::kGemmCols || d_ff % sm90::kGemmCols != 0 ||
       (mask != nullptr && !(keep_prob > 0.f)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -107,7 +83,8 @@ int dispatch(const void* x, const void* pre, const void* dout, const void* w1,
       {n_w, 2 * n_w, 2 * n_w + d_ff, split_stride}};
   if constexpr (sizeof(T) == 2) {
     const int splits =
-        gemm_splits(2 * (d_ff / sm90::kGemmCols) * (d_model / sm90::kGemmCols), rows);
+        gemm_splits(2 * (d_ff / sm90::kGemmCols) * (d_model / sm90::kGemmCols),
+                    (rows + sm90::kGemmK - 1) / sm90::kGemmK, 2);
     cudaError_t err = for_d_model(d_model, [&](auto) {
       auto run = [&](auto with_mask) {
         return sm90::mlp_backward<decltype(with_mask)::value>(
@@ -136,7 +113,7 @@ int dispatch(const void* x, const void* pre, const void* dout, const void* w1,
                                 nullptr, part, part + 2 * n_w, d_ff, d_model};
     const WeightProblem<T> p_w2{static_cast<const T*>(dout), static_cast<const T*>(h),
                                 nullptr, part + n_w, part + 2 * n_w + d_ff, d_model, d_ff};
-    return (int)launch_weights<T, false, 4>(p_w1, p_w2, rows, split_stride, 1.f, out, s);
+    return (int)launch_weights<false, 4>(p_w1, p_w2, rows, split_stride, 1.f, out, s);
   }
 }
 

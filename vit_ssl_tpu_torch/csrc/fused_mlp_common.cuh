@@ -1,9 +1,8 @@
 // Device code shared by kernel B4's two libraries (fused_mlp_fwd.cu,
 // fused_mlp_bwd.cu) and kernel P2's (masked_matmul.cu, through
-// weight_grad.cuh): the exact GELU and its derivative, the ldmatrix
-// fragment addresses that P2's products and the bf16 weight kernel of
-// weight_grad.cuh take, and the float32 row kernel that B4's float32
-// forward and the backward's first pass run. B4's bfloat16 bodies are the
+// mlp_gemm_sm90.cuh and weight_grad.cuh): the exact GELU and its
+// derivative, and the float32 row kernel that B4's float32 forward and the
+// backward's first pass run. The bfloat16 bodies of B4 and P2 are the
 // wgmma/TMA products of mlp_gemm_sm90.cuh.
 //
 // The float32 row kernel streams the d_ff axis of a (T, d_model) row tile
@@ -22,8 +21,7 @@
 // the block's 227 KB of shared memory.
 //
 // kernels.py rebuilds a library when this header (or the attention header
-// it includes for the mma.sync / ldmatrix / cp.async building blocks) is
-// newer than it.
+// it includes for bf16 and its packing) is newer than it.
 
 #pragma once
 
@@ -98,58 +96,6 @@ template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
-
-// ---------------------------------------------------------------------------
-// ldmatrix.x4 fragment addresses (P2's products, weight_grad.cuh's bf16
-// weight kernel). Lane l gives the address of row l & 7 of
-// 8x8 matrix l >> 3 of a 16x16 region at (r0, c0) of a row-major shared
-// tile. "split rows" puts matrices 0, 1 on rows r0 .. r0 + 15 at column c0
-// and 2, 3 at column c0 + 8: mma A fragments of a tile stored [m][k], and B
-// fragments (two 8-wide n tiles) of a tile stored [k][n] read with .trans.
-// "split cols" puts matrices 0, 1 on columns c0, c0 + 8 of rows r0 .. r0 + 7
-// and 2, 3 on rows r0 + 8 .. r0 + 15: B fragments of a tile stored [n][k],
-// and A fragments of a tile stored [k][m] read with .trans. The *_rc forms
-// give the lane's (row, column), for tiles that are not plainly strided.
-
-__device__ __forceinline__ int2 split_rows_rc(int r0, int c0) {
-  const int lane = threadIdx.x & 31;
-  return make_int2(r0 + (lane & 7) + 8 * ((lane >> 3) & 1), c0 + 8 * (lane >> 4));
-}
-
-__device__ __forceinline__ int2 split_cols_rc(int r0, int c0) {
-  const int lane = threadIdx.x & 31;
-  return make_int2(r0 + (lane & 7) + 8 * (lane >> 4), c0 + 8 * ((lane >> 3) & 1));
-}
-
-__device__ __forceinline__ const bf16* frag_split_rows(const bf16* tile, int stride,
-                                                       int r0, int c0) {
-  const int2 rc = split_rows_rc(r0, c0);
-  return tile + rc.x * stride + rc.y;
-}
-
-__device__ __forceinline__ const bf16* frag_split_cols(const bf16* tile, int stride,
-                                                       int r0, int c0) {
-  const int2 rc = split_cols_rc(r0, c0);
-  return tile + rc.x * stride + rc.y;
-}
-
-// A 16x16 A fragment from a tile stored [m][k].
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int stride,
-                                       int m0, int k0) {
-  ldmatrix_x4<false>(a, frag_split_rows(tile, stride, m0, k0));
-}
-
-// B fragments of two 8-wide n tiles over 16 k: b[0], b[1] for columns
-// n0 .. n0 + 7, b[2], b[3] for n0 + 8 .. n0 + 15. kKN: the tile is stored
-// [k][n] (read with .trans); otherwise [n][k].
-template <bool kKN>
-__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* tile, int stride,
-                                       int k0, int n0) {
-  if (kKN)
-    ldmatrix_x4<true>(b, frag_split_rows(tile, stride, k0, n0));
-  else
-    ldmatrix_x4<false>(b, frag_split_cols(tile, stride, n0, k0));
-}
 
 // ---------------------------------------------------------------------------
 // The float32 row kernel's arguments. Forward: in = x, out = out, pre written when

@@ -14,189 +14,189 @@
 // h is (T, d_ff), the mask (T, d_ff) bytes (0 = dropped), W2 (d_out, d_ff)
 // in the nn.Linear layout, do (T, d_out), all in one dtype. The point of
 // the kernel is that the masked activation hm never reaches device memory
-// as a tensor of its own: each block scales its h tile in shared memory
-// between the cp.async that lands it and the ldmatrix that feeds the
-// tensor cores.
+// as a tensor of its own: a product scales its h tile in shared memory
+// between the copy that lands it and the tensor cores that read it.
 //
-// - masked_mm_fwd: one tiled product. A block owns 128 rows x 128 output
-//   columns; 8 warps of 64 x 32; 32-deep stages of h, its mask bytes and
-//   W2 stream through a ring of three cp.async buffers. The epilogue adds
-//   b2 and writes o once.
-// - masked_mm_bwd: no atomics, as B4's backward. The same tiled product,
-//   with do and W2 as stored, gives dh, scaled by the mask bytes in its
-//   epilogue; the weight kernel of weight_grad.cuh (B4's, with B masked on
-//   its way in) sums dW2 and db2 into fp32 partials over up to 8 slices of
-//   the rows, and an ordered reduction adds the slices and rounds.
+// bfloat16 runs kernel B4's wgmma/TMA product (mlp_gemm_sm90.cuh's
+// gemm_body: 128 x 128 tiles, two consumer warpgroups and a producer warp,
+// K in stages of 64), with h masked on its way in by the MaskedOperand
+// policy: each stage's full barrier also counts h's keep-mask box (8 KB by
+// TMA), and the consumers scale h's tile before the stage's products.
+// Three kernels, on rings of 40 KB stages (kFwdStages, kWgradStages) or on
+// B4's ring:
 //
-// Ragged T is masked in the kernels (rows past T load as zero and are not
-// stored); nothing is padded in memory. float32 runs on the CUDA cores
-// (full fp32 products).
+// - masked_mm_fwd_sm90_kernel: B4's fc2 with A = h masked in registers
+//   (each warp's fragments by ldmatrix, scaled, then wgmma's register-A
+//   form); b2's slice by TMA into a side slot, o staged and stored by TMA
+//   (StoreRows<true>);
+// - masked_mm_dh_sm90_kernel: B4's dh product (A = do, B = W2 MN-major)
+//   with the mask-only epilogue MaskRows: the mask tile by TMA, dh =
+//   round(acc * mask / keep) staged and stored by TMA;
+// - masked_mm_wgrad_sm90_kernel: B4's weight product, A = do and B = h
+//   both MN-major, B rewritten in place in shared memory (each consumer
+//   half of its K rows, behind a barrier of both consumers, which both
+//   read all of B), the
+//   ones product for db2, fp32 partials (Partials) over gemm_splits slices
+//   of T; weight_grad.cuh's reduce_splits adds the slices in slice order
+//   and rounds: no atomics, a second call repeats the first bit for bit.
+//
+// TMA zero-fills rows past T (h, do and the mask alike) and writes none;
+// nothing is padded in memory. float32 runs on the CUDA cores (full fp32
+// products: masked_mm_f32 here, weight_grad.cuh's fp32 weight kernel).
 //
 // What bounds it on an H100 SXM: bytes. At the DINO student-globals FFN
 // (T = 37120, d_ff 1536, d_out 384, bf16) the forward moves h, the mask,
 // W2 and o, about 201 MB, 0.060 ms at 3.35 TB/s, against 43.8 GFLOP, 0.044
 // ms at 989 TFLOP/s; the backward moves h, the mask, do, W2, dh and dW2,
-// about 317 MB, 0.095 ms, against two products, 0.089 ms (data sheet).
+// about 317 MB, 0.095 ms, against two products, 0.089 ms (data sheet). The
+// design reads h and the mask once a column tile of o (three times at
+// d_out 384, mostly from L2) and never writes hm. Scaling h costs shared-
+// memory traffic: in the forward 12 KB a consumer and stage of ldmatrix
+// and mask reads, which take the place of wgmma's own 8 KB of A; in the
+// weight product 20 KB of reads and writes beside the products' 33 KB.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (vit_ssl_tpu_torch/kernels.py); called through
 // ctypes from vit_ssl_tpu_torch/ops/masked_matmul.py.
 
+#include "mlp_gemm_sm90.cuh"
 #include "weight_grad.cuh"
 
 namespace {
+namespace sm90 {
 
-// The tiled product c (rows, n) = a (rows, k) . B over k, B from W2:
-// forward a = h (k = d_ff), B = W2^T (n = d_out), a masked on the way in,
-// b2 added in the epilogue; backward a = do (k = d_out), B = W2 (n = d_ff),
-// c masked in the epilogue.
-template <typename T>
+// The masked products' rings of 40 KB stages, one block an SM, chosen by
+// timing two to five stages of each on an H100 (PERF.md): the forward
+// three (its A fragments take 128 registers; at two stages and two blocks
+// an SM ptxas spills and serialises the products); the weight product four
+// (7 % faster than two stages and two blocks an SM at d_out 384, even at
+// 768)
+constexpr int kFwdStages = 3;
+constexpr int kWgradStages = 4;
+using FwdOperand = MaskedOperand<true, kFwdStages>;
+using WgradOperand = MaskedOperand<false, kWgradStages>;
+
+// grid (d_out / 128, row tiles); A = h, B = W2 (K-major, as stored)
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    masked_mm_fwd_sm90_kernel(const __grid_constant__ CUtensorMap th,
+                              const __grid_constant__ CUtensorMap tmask,
+                              const __grid_constant__ CUtensorMap tw2,
+                              const __grid_constant__ CUtensorMap tout, StoreRows<true> epi,
+                              FwdOperand op, int k_steps) {
+  epi.tout = &tout;
+  op.tmask = &tmask;
+  gemm_body<false, false, false, StoreRows<true>, FwdOperand>(
+      &th, &tw2, blockIdx.y * kGemmRows, blockIdx.x * kGemmCols, 0, k_steps, epi, op);
+}
+
+// grid (d_ff / 128, row tiles); A = do, B = W2 as (k = d_out, n = d_ff)
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    masked_mm_dh_sm90_kernel(const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tw2,
+                             const __grid_constant__ CUtensorMap tmask,
+                             const __grid_constant__ CUtensorMap tdh, MaskRows epi,
+                             int k_steps) {
+  epi.tmask = &tmask;
+  epi.tout = &tdh;
+  gemm_body<false, true, false>(&tdo, &tw2, blockIdx.y * kGemmRows, blockIdx.x * kGemmCols, 0,
+                                k_steps, epi);
+}
+
+// grid (dW2's tiles, slices); blockIdx.y is the slice of the k_steps row
+// steps
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    masked_mm_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap tdo,
+                                const __grid_constant__ CUtensorMap th,
+                                const __grid_constant__ CUtensorMap tmask, Partials epi,
+                                WgradOperand op, int k_steps) {
+  op.tmask = &tmask;
+  const int n_tiles = epi.width / kGemmCols;
+  const int per = (k_steps + gridDim.y - 1) / gridDim.y;
+  const int begin = min(k_steps, (int)blockIdx.y * per);
+  gemm_body<true, true, true, Partials, WgradOperand>(
+      &tdo, &th, blockIdx.x / n_tiles * kGemmRows, blockIdx.x % n_tiles * kGemmCols, begin,
+      min(k_steps, begin + per), epi, op);
+}
+
+// The forward. Maps: boxes of 128 rows for the K-major operands, of 64
+// for the store; the mask's boxes 64 columns x 128 rows.
+cudaError_t forward(const bf16* h, const uint8_t* mask, const bf16* w2, const bf16* b2,
+                    bf16* out, int rows, int d_ff, int d_out, float keep_prob,
+                    cudaStream_t stream) {
+  CUtensorMap th, tmask, tw2, tout;
+  if (!encode_matrix(&th, h, d_ff, rows, kGemmRows) ||
+      !encode_mask_box(&tmask, mask, d_ff, rows, kGemmK, kGemmRows) ||
+      !encode_matrix(&tw2, w2, d_ff, d_out, kGemmCols) ||
+      !encode_matrix(&tout, out, d_out, rows, 64))
+    return cudaErrorInvalidValue;
+  return launch_gemm<FwdOperand>(masked_mm_fwd_sm90_kernel,
+                                 dim3(d_out / kGemmCols, row_tiles(rows)), stream, th, tmask,
+                                 tw2, tout, StoreRows<true>{b2, nullptr},
+                                 FwdOperand{1.f / keep_prob, nullptr}, d_ff / kGemmK);
+}
+
+// The backward's three launches: dh, dW2's and db2's slices into fp32
+// partials (part: one slice's [dW2 (d_out, d_ff) | db2 (d_out)]), then
+// their ordered reduction. Maps: boxes of 128 rows for the K-major A (do),
+// of 64 for the MN-major operands and the store; the mask as dh's side
+// tile (128 x 128, swizzled) and as the weight product's B mask (128
+// columns x 64 rows).
+cudaError_t backward(const bf16* h, const uint8_t* mask, const bf16* dout, const bf16* w2,
+                     bf16* dh, bf16* dw2, bf16* db2, float* part, int rows, int d_ff,
+                     int d_out, float keep_prob, cudaStream_t stream) {
+  CUtensorMap tdo, tw2, tmask, tdh, tdo64, th64, tmask_b;
+  if (!encode_matrix(&tdo, dout, d_out, rows, kGemmRows) ||
+      !encode_matrix(&tw2, w2, d_ff, d_out, 64) ||  // W2 as (k = d_out, n = d_ff)
+      !encode_mask(&tmask, mask, d_ff, rows) || !encode_matrix(&tdh, dh, d_ff, rows, 64) ||
+      !encode_matrix(&tdo64, dout, d_out, rows, 64) ||
+      !encode_matrix(&th64, h, d_ff, rows, 64) ||
+      !encode_mask_box(&tmask_b, mask, d_ff, rows, kGemmCols, kGemmK))
+    return cudaErrorInvalidValue;
+  const float inv_keep = 1.f / keep_prob;
+  cudaError_t err = launch_gemm(masked_mm_dh_sm90_kernel,
+                                dim3(d_ff / kGemmCols, row_tiles(rows)), stream, tdo, tw2,
+                                tmask, tdh, MaskRows{inv_keep, nullptr, nullptr},
+                                d_out / kGemmK);
+  if (err != cudaSuccess) return err;
+  const size_t n_w = (size_t)d_out * d_ff, split_stride = n_w + d_out;
+  const int tiles = (d_out / kGemmCols) * (d_ff / kGemmCols);
+  const int steps = (rows + kGemmK - 1) / kGemmK;
+  const int splits = gemm_splits(tiles, steps, 1);
+  err = launch_gemm<WgradOperand>(masked_mm_wgrad_sm90_kernel, dim3(tiles, splits), stream,
+                                  tdo64, th64, tmask_b,
+                                  Partials{part, part + n_w, d_ff, split_stride},
+                                  WgradOperand{inv_keep, nullptr}, steps);
+  if (err != cudaSuccess) return err;
+  const SplitOutputs<bf16, 2> out{{dw2, db2}, {n_w, split_stride}};
+  reduce_splits<bf16, 2><<<kReduceBlocks, 256, 0, stream>>>(part, split_stride, splits, out);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+
+// ---------------------------------------------------------------------------
+// The tiled float32 product c (rows, n) = a (rows, k) . B over k, B from
+// W2: forward a = h (k = d_ff), B = W2^T (n = d_out), a masked on the way
+// in, b2 added in the epilogue; backward a = do (k = d_out), B = W2 (n =
+// d_ff), c masked in the epilogue.
 struct TileArgs {
-  const T* a;
-  const T* w2;           // (d_out, d_ff)
-  const T* b2;           // (d_out), forward only
+  const float* a;
+  const float* w2;       // (d_out, d_ff)
+  const float* b2;       // (d_out), forward only
   const uint8_t* mask;   // (rows, d_ff)
-  T* out;                // (rows, n): o or dh
+  float* out;            // (rows, n): o or dh
   int rows, n, k;
   float keep_prob;
 };
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kTileThreads = 256;  // 8 warps: 2 along the rows x 4 along n
-constexpr int kStages = 3;
-constexpr int kAStride = kBK + kBPad;    // a tiles [m][k]
-constexpr int kBStrideNK = kBK + kBPad;  // forward B: W2 as stored, [n][k]
-constexpr int kBStrideKN = kBN + kBPad;  // backward B: W2 as stored, [k][n]
-constexpr size_t kABytes = sizeof(bf16) * kBM * kAStride;
-
-template <bool kFwd>
-__host__ __device__ constexpr size_t stage_bytes() {
-  return kABytes + sizeof(bf16) * (kFwd ? kBN * kBStrideNK : kBK * kBStrideKN) +
-         (kFwd ? kBM * kBK : 0);  // the forward's mask bytes
-}
-
-template <bool kFwd>
-__global__ void __launch_bounds__(kTileThreads) masked_mm_bf16(TileArgs<bf16> p) {
-  constexpr size_t kBBytes = stage_bytes<kFwd>() - kABytes - (kFwd ? kBM * kBK : 0);
-  extern __shared__ uint4 smem_mm[];
-  char* smem = reinterpret_cast<char*>(smem_mm);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = 64 * (warp & 1), wn = 32 * (warp >> 1);
-  const int row0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int ktiles = p.k / kBK;
-  const float inv_keep = 1.f / p.keep_prob;
-
-  // k-tile kt's copies into slot kt % kStages (none past the end),
-  // committed as one group
-  auto copy_stage = [&](int kt) {
-    if (kt < ktiles) {
-      char* st = smem + (kt % kStages) * stage_bytes<kFwd>();
-      bf16* as = reinterpret_cast<bf16*>(st);
-      bf16* bs = reinterpret_cast<bf16*>(st + kABytes);
-      const int k0 = kt * kBK;
-      for (int idx = threadIdx.x; idx < kBM * kBK / 8; idx += kTileThreads) {
-        const int r = idx / (kBK / 8), c = (idx % (kBK / 8)) * 8;
-        const bool ok = row0 + r < p.rows;
-        cp_async16(as + r * kAStride + c, ok ? p.a + (size_t)(row0 + r) * p.k + k0 + c : p.a,
-                   ok);
-      }
-      if (kFwd) {
-        for (int idx = threadIdx.x; idx < kBN * kBK / 8; idx += kTileThreads) {
-          const int r = idx / (kBK / 8), c = (idx % (kBK / 8)) * 8;  // W2 row n0 + r
-          cp_async16(bs + r * kBStrideNK + c, p.w2 + (size_t)(n0 + r) * p.k + k0 + c, true);
-        }
-        uint8_t* ms = reinterpret_cast<uint8_t*>(st + kABytes + kBBytes);
-        for (int idx = threadIdx.x; idx < kBM * kBK / 16; idx += kTileThreads) {
-          const int r = idx / (kBK / 16), c = (idx % (kBK / 16)) * 16;
-          const bool ok = row0 + r < p.rows;
-          cp_async16(ms + r * kBK + c,
-                     ok ? p.mask + (size_t)(row0 + r) * p.k + k0 + c : p.mask, ok);
-        }
-      } else {
-        for (int idx = threadIdx.x; idx < kBK * kBN / 8; idx += kTileThreads) {
-          const int r = idx / (kBN / 8), c = (idx % (kBN / 8)) * 8;  // W2 row k0 + r
-          cp_async16(bs + r * kBStrideKN + c, p.w2 + (size_t)(k0 + r) * p.n + n0 + c, true);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-  for (int s = 0; s < kStages - 1; ++s) copy_stage(s);
-
-  float acc[4][4][4] = {};
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // this stage is in; every warp is done with the last one
-    copy_stage(kt + kStages - 1);  // into the slot the last stage used
-    char* st = smem + (kt % kStages) * stage_bytes<kFwd>();
-    bf16* as = reinterpret_cast<bf16*>(st);
-    const bf16* bs = reinterpret_cast<const bf16*>(st + kABytes);
-    if (kFwd) {  // hm = round(h * mask / keep), in place
-      const uint8_t* ms = reinterpret_cast<const uint8_t*>(st + kABytes + kBBytes);
-      for (int idx = threadIdx.x; idx < kBM * kBK / 8; idx += kTileThreads) {
-        const int r = idx / (kBK / 8), c = (idx % (kBK / 8)) * 8;
-        uint4* hv = reinterpret_cast<uint4*>(as + r * kAStride + c);
-        *hv = mask_bf16x8(*hv, *reinterpret_cast<const uint2*>(ms + r * kBK + c), inv_keep);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int k0 = 0; k0 < kBK; k0 += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) load_a(a[i], as, kAStride, wm + 16 * i, k0);
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        uint32_t b[4];
-        if (kFwd)
-          load_b<false>(b, bs, kBStrideNK, k0, wn + 16 * jp);
-        else
-          load_b<true>(b, bs, kBStrideKN, k0, wn + 16 * jp);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          mma_bf16(acc[i][2 * jp], a[i], b[0], b[1]);
-          mma_bf16(acc[i][2 * jp + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();  // the empty groups past the end
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + wn + 8 * j + 2 * t;
-    const float bias0 = kFwd ? to_float(p.b2[col]) : 0.f;
-    const float bias1 = kFwd ? to_float(p.b2[col + 1]) : 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int row = row0 + wm + 16 * i + g + 8 * hr;
-        if (row >= p.rows) continue;
-        float v0 = acc[i][j][2 * hr], v1 = acc[i][j][2 * hr + 1];
-        if (kFwd) {
-          v0 += bias0;
-          v1 += bias1;
-        } else {
-          const uint8_t* m = p.mask + (size_t)row * p.n + col;
-          v0 *= m[0] ? inv_keep : 0.f;
-          v1 *= m[1] ? inv_keep : 0.f;
-        }
-        *reinterpret_cast<uint32_t*>(p.out + (size_t)row * p.n + col) = pack_bf16(v0, v1);
-      }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32, CUDA cores: a block of 256 threads owns 64 rows x 64 columns,
+// CUDA cores: a block of 256 threads owns 64 rows x 64 columns,
 // 4 x 4 a thread; 16-deep stages of a (masked on the copy in the forward)
 // and B sit in shared memory as [k][m] and [k][n].
 
 constexpr int kF32Tile = 64, kF32K = 16;
 
 template <bool kFwd>
-__global__ void __launch_bounds__(kTileThreads) masked_mm_f32(TileArgs<float> p) {
+__global__ void __launch_bounds__(kF32Threads) masked_mm_f32(TileArgs p) {
   __shared__ float4 as[kF32K][kF32Tile / 4];
   __shared__ float4 bs[kF32K][kF32Tile / 4];
   float* af = reinterpret_cast<float*>(&as[0][0]);
@@ -270,19 +270,10 @@ __global__ void __launch_bounds__(kTileThreads) masked_mm_f32(TileArgs<float> p)
   }
 }
 
-template <bool kFwd, typename T>
-cudaError_t launch_tiles(const TileArgs<T>& p, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {
-    constexpr size_t smem = kStages * stage_bytes<kFwd>();
-    cudaError_t err = cudaFuncSetAttribute(
-        masked_mm_bf16<kFwd>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.rows + kBM - 1) / kBM, p.n / kBN);
-    masked_mm_bf16<kFwd><<<grid, kTileThreads, smem, stream>>>(p);
-  } else {
-    const dim3 grid((p.rows + kF32Tile - 1) / kF32Tile, p.n / kF32Tile);
-    masked_mm_f32<kFwd><<<grid, kTileThreads, 0, stream>>>(p);
-  }
+template <bool kFwd>
+cudaError_t launch_tiles(const TileArgs& p, cudaStream_t stream) {
+  const dim3 grid((p.rows + kF32Tile - 1) / kF32Tile, p.n / kF32Tile);
+  masked_mm_f32<kFwd><<<grid, kF32Threads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -291,37 +282,46 @@ bool shapes_ok(int rows, int d_ff, int d_out, float keep_prob) {
          keep_prob > 0.f;
 }
 
-template <typename T>
 int fwd(const void* h, const void* mask, const void* w2, const void* b2, void* out,
-        int rows, int d_ff, int d_out, float keep_prob, void* stream) {
+        int rows, int d_ff, int d_out, int is_bf16, float keep_prob, void* stream) {
   if (!shapes_ok(rows, d_ff, d_out, keep_prob)) return (int)cudaErrorInvalidValue;
-  const TileArgs<T> p{static_cast<const T*>(h), static_cast<const T*>(w2),
-                      static_cast<const T*>(b2), static_cast<const uint8_t*>(mask),
-                      static_cast<T*>(out), rows, d_out, d_ff, keep_prob};
-  return (int)launch_tiles<true>(p, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return (int)sm90::forward(static_cast<const bf16*>(h), static_cast<const uint8_t*>(mask),
+                              static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
+                              static_cast<bf16*>(out), rows, d_ff, d_out, keep_prob, s);
+  const TileArgs p{static_cast<const float*>(h), static_cast<const float*>(w2),
+                          static_cast<const float*>(b2), static_cast<const uint8_t*>(mask),
+                          static_cast<float*>(out), rows, d_out, d_ff, keep_prob};
+  return (int)launch_tiles<true>(p, s);
 }
 
-template <typename T>
 int bwd(const void* h, const void* mask, const void* dout, const void* w2, void* dh,
-        void* dw2, void* db2, void* partial, int rows, int d_ff, int d_out,
+        void* dw2, void* db2, void* partial, int rows, int d_ff, int d_out, int is_bf16,
         float keep_prob, void* stream) {
   if (!shapes_ok(rows, d_ff, d_out, keep_prob)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const TileArgs<T> p{static_cast<const T*>(dout), static_cast<const T*>(w2), nullptr,
-                      static_cast<const uint8_t*>(mask), static_cast<T*>(dh), rows, d_ff,
-                      d_out, keep_prob};
-  cudaError_t err = launch_tiles<false>(p, s);
-  if (err != cudaSuccess) return (int)err;
   // one split's partials: [dW2 (d_out, d_ff) | db2 (d_out)]
   float* part = static_cast<float*>(partial);
+  if (is_bf16)
+    return (int)sm90::backward(static_cast<const bf16*>(h), static_cast<const uint8_t*>(mask),
+                               static_cast<const bf16*>(dout), static_cast<const bf16*>(w2),
+                               static_cast<bf16*>(dh), static_cast<bf16*>(dw2),
+                               static_cast<bf16*>(db2), part, rows, d_ff, d_out, keep_prob, s);
+  const TileArgs p{static_cast<const float*>(dout), static_cast<const float*>(w2),
+                          nullptr, static_cast<const uint8_t*>(mask), static_cast<float*>(dh),
+                          rows, d_ff, d_out, keep_prob};
+  cudaError_t err = launch_tiles<false>(p, s);
+  if (err != cudaSuccess) return (int)err;
   const size_t n_w = (size_t)d_out * d_ff;
-  const WeightProblem<T> p_w2{static_cast<const T*>(dout), static_cast<const T*>(h),
-                              static_cast<const uint8_t*>(mask), part, part + n_w, d_out,
-                              d_ff};
-  const WeightProblem<T> none{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0};
-  const SplitOutputs<T, 2> out{{static_cast<T*>(dw2), static_cast<T*>(db2)},
-                               {n_w, n_w + d_out}};
-  return (int)launch_weights<T, true, 2>(p_w2, none, rows, n_w + d_out, keep_prob, out, s);
+  const WeightProblem<float> p_w2{static_cast<const float*>(dout),
+                                  static_cast<const float*>(h),
+                                  static_cast<const uint8_t*>(mask), part, part + n_w, d_out,
+                                  d_ff};
+  const WeightProblem<float> none{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0};
+  const SplitOutputs<float, 2> out{{static_cast<float*>(dw2), static_cast<float*>(db2)},
+                                   {n_w, n_w + d_out}};
+  return (int)launch_weights<true, 2>(p_w2, none, rows, n_w + d_out, keep_prob, out, s);
 }
 
 }  // namespace
@@ -335,24 +335,20 @@ int bwd(const void* h, const void* mask, const void* dout, const void* w2, void*
 extern "C" int masked_mm_fwd(const void* h, const void* mask, const void* w2,
                              const void* b2, void* out, int rows, int d_ff, int d_out,
                              int is_bf16, float keep_prob, void* stream) {
-  if (is_bf16) return fwd<bf16>(h, mask, w2, b2, out, rows, d_ff, d_out, keep_prob, stream);
-  return fwd<float>(h, mask, w2, b2, out, rows, d_ff, d_out, keep_prob, stream);
+  return fwd(h, mask, w2, b2, out, rows, d_ff, d_out, is_bf16, keep_prob, stream);
 }
 
 // The backward for the upstream gradient dout (rows, d_out): dh (rows,
 // d_ff), dw2 (d_out, d_ff) and db2 (d_out), in the tensors' dtype. partial:
 // fp32 scratch of masked_mm_bwd_partial_floats(d_ff, d_out) elements. Three
-// kernels on `stream`; returns the first launch's cudaError_t that is not
-// 0, else 0.
+// kernels on `stream` (dh, the weight product's slices, their reduction);
+// returns the first launch's cudaError_t that is not 0, else 0.
 extern "C" int masked_mm_bwd(const void* h, const void* mask, const void* dout,
                              const void* w2, void* dh, void* dw2, void* db2, void* partial,
                              int rows, int d_ff, int d_out, int is_bf16, float keep_prob,
                              void* stream) {
-  if (is_bf16)
-    return bwd<bf16>(h, mask, dout, w2, dh, dw2, db2, partial, rows, d_ff, d_out, keep_prob,
-                     stream);
-  return bwd<float>(h, mask, dout, w2, dh, dw2, db2, partial, rows, d_ff, d_out, keep_prob,
-                    stream);
+  return bwd(h, mask, dout, w2, dh, dw2, db2, partial, rows, d_ff, d_out, is_bf16, keep_prob,
+             stream);
 }
 
 // The fp32 scratch masked_mm_bwd needs: its most splits' partial sums.

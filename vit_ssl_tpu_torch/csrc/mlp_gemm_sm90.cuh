@@ -4,7 +4,9 @@
 // (the forward's two products) and fused_mlp_bwd.cu (the backward's three);
 // float32 stays on the CUDA-core bodies of fused_mlp_common.cuh and
 // weight_grad.cuh. The tiles' ring, mbarriers, TMA loads, wgmma descriptors
-// and tensor maps are sm90_common.cuh's.
+// and tensor maps are sm90_common.cuh's. Kernel P2 (masked_matmul.cu) runs
+// the same product with one operand scaled by a keep-mask on its way in
+// (the MaskedOperand policy of gemm_body) and the MaskRows epilogue.
 //
 // Replaces the TPU kernels vit_ssl_tpu/ops/fused_mlp.py::_mlp_kernel,
 // _mlp_dropout_kernel (the pallas_calls of _fused_mlp_impl) and
@@ -89,27 +91,142 @@ constexpr int kGemmCols = 128;         // output columns a block
 constexpr int kGemmThreads = 128 * kConsumers + 32;  // + the producer warp
 constexpr int kGemmStages = 3;         // two blocks an SM
 constexpr int kBoxBytes = 64 * 128;    // a box of 64 rows x 64 bf16
-using GemmRing = StageRing<kGemmStages>;
 
-// A block's shared memory: [stage][A, B], 8 rows of bf16 ones (the weight
-// kernel's bias product), the ring's barriers; + 1024 to round the base up
-// to the swizzle atom: 98 KB, two blocks an SM. The epilogue's side tiles
-// take the stages of the ring's jobs after the last K step: a stage holds
-// the (128, 128) bf16 pre tile as two 128-byte-swizzled boxes of 64
-// columns, or the (128, 128) keep-mask bytes as one swizzled box at 0 and
-// the 128 bias values at kSideBias.
-struct GemmTile {
+// An operand policy of gemm_body: the ring's stages, and whether each
+// stage also brings a keep-mask box by which the consumers scale one
+// operand before any product reads it (MaskedOperand, kernel P2's). B4's
+// products take AsLoaded: three stages, both operands as TMA lands them.
+struct AsLoaded {
+  static constexpr int kStages = kGemmStages;
+  static constexpr int kMaskBytes = 0;
+  static constexpr bool kMasked = false;
+  static constexpr bool kRegisterA = false;
+};
+
+// A block's shared memory: [stage][A, B, the operand's mask box], 8 rows
+// of bf16 ones (the weight kernel's bias product), the ring's barriers;
+// + 1024 to round the base up to the swizzle atom: 98 KB with AsLoaded,
+// two blocks an SM. The epilogue's side tiles take the stages of the
+// ring's jobs after the last K step: a stage holds the (128, 128) bf16 pre
+// tile as two 128-byte-swizzled boxes of 64 columns, or the (128, 128)
+// keep-mask bytes as one swizzled box at 0 and the 128 bias values at
+// kSideBias.
+template <typename Op>
+struct GemmTileOf {
   static constexpr int kABytes = kGemmRows * kGemmK * 2;
   static constexpr int kBBytes = kGemmCols * kGemmK * 2;
-  static constexpr int kStageBytes = kABytes + kBBytes;
-  static constexpr int kOnes = kGemmStages * kStageBytes;
+  static constexpr int kMaskAt = kABytes + kBBytes;
+  static constexpr int kStageBytes = kMaskAt + Op::kMaskBytes;
+  static constexpr int kOnes = Op::kStages * kStageBytes;
   static constexpr int kBarriers = kOnes + 1024;
-  static constexpr size_t kSmem = 1024 + kBarriers + 8 * (2 * kGemmStages + 1);
+  static constexpr size_t kSmem = 1024 + kBarriers + 8 * (2 * Op::kStages + 1);
   static constexpr int kSideBias = kGemmRows * kGemmCols;  // past the mask bytes
   static_assert(kStageBytes % 1024 == 0, "stages on the swizzle atom");
   static_assert(kGemmRows * kGemmCols * 2 <= kStageBytes &&
                     kSideBias + kGemmCols * 2 <= kStageBytes,
                 "a side tile fits a stage");
+};
+using GemmTile = GemmTileOf<AsLoaded>;
+
+// Eight bf16 values times their keep-mask bytes (0 = dropped) over keep,
+// rounded back.
+__device__ __forceinline__ uint4 keep_scale_x8(uint4 v, uint2 m, float inv_keep) {
+  uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t bytes = q < 2 ? m.x >> (16 * q) : m.y >> (16 * (q - 2));
+    const float s0 = (bytes & 0xffu) ? inv_keep : 0.f;
+    const float s1 = (bytes & 0xff00u) ? inv_keep : 0.f;
+    w[q] = pack_bf16(bf16_lo(w[q]) * s0, bf16_hi(w[q]) * s1);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The operand policy that takes one operand x as round(x * mask / keep)
+// (kernel P2's h): kOnA, A K-major (128 rows x 64 K a stage); else B
+// MN-major (64 K rows x 128 columns). Each stage's full barrier also
+// counts the operand's keep-mask box, 8 KB by TMA, unswizzled: 128 rows of
+// 64 bytes (A), or 64 rows of 128 bytes (B). kN >= 3 stages of 40 KB: one
+// block an SM.
+// - A goes through registers (wgmma's register-A form): each warp loads
+//   its 16 rows of a k16 step by ldmatrix, scales each pair by its mask
+//   bytes and rounds (fragments), and the products read A from there;
+//   nothing is written back, and no barrier is needed.
+// - B is read by both consumers from shared memory: each rewrites 32 of
+//   the 64 K rows in place (apply), fences the writes to the async proxy
+//   that wgmma reads through, and waits at a named barrier for the other.
+template <bool kOnA, int kN>
+struct MaskedOperand {
+  static constexpr int kStages = kN;
+  static constexpr int kMaskBytes = kGemmRows * kGemmK;
+  static constexpr bool kMasked = true;
+  static constexpr bool kRegisterA = kOnA;
+  float inv_keep;
+  const CUtensorMap* tmask;  // set in the kernel
+
+  // K step k's mask box into `dst`, counted on `bar`.
+  __device__ void load(uint32_t dst, uint32_t bar, int m0, int n0, int k) const {
+    if (kOnA)
+      tma_load_3d(dst, tmask, bar, k * kGemmK, m0, 0);
+    else
+      tma_load_3d(dst, tmask, bar, n0, k * kGemmK, 0);
+  }
+
+  // B: consumer c's share of the operand in `stage` (generic address),
+  // scaled in place; then the fence and the barrier. The consumer's 128
+  // threads take the 16-byte chunks of K rows 32c .. 32c + 31 of both
+  // 128-byte-swizzled boxes, a half-warp one row's 128 mask bytes.
+  __device__ void apply(uint8_t* stage, int c) const {
+    using S = GemmTileOf<MaskedOperand>;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = threadIdx.x % 128 + 128 * i, q = idx % 8, box = (idx / 8) % 2;
+      const int r = 32 * c + idx / 16;  // the K row
+      uint4& v = *reinterpret_cast<uint4*>(stage + S::kABytes + box * kBoxBytes + r * 128 +
+                                           ((q ^ (r & 7)) << 4));
+      v = keep_scale_x8(v,
+                        *reinterpret_cast<const uint2*>(stage + S::kMaskAt + r * kGemmCols +
+                                                        64 * box + 8 * q),
+                        inv_keep);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" :: "n"(128 * kConsumers) : "memory");
+  }
+
+  // A: warp `warp` of consumer c's A fragments of a stage's four k16
+  // steps (ldmatrix from the swizzled tile: the lane's 16 rows as an
+  // mma.sync A fragment), each pair scaled by its two mask bytes (the
+  // lane's two rows of the mask box, read whole) and rounded.
+  __device__ void fragments(uint32_t (&af)[kGemmK / 16][4], const uint8_t* stage, int c,
+                            int warp, int lane) const {
+    using S = GemmTileOf<MaskedOperand>;
+    const int row = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);  // in consumer c's box
+    const uint8_t* x = stage + c * kBoxBytes + row * 128;
+#pragma unroll
+    for (int kk = 0; kk < kGemmK / 16; ++kk)
+      ldmatrix_x4<false>(af[kk], reinterpret_cast<const bf16*>(
+                                     x + (((2 * kk + (lane >> 4)) ^ (row & 7)) << 4)));
+    const uint4* m = reinterpret_cast<const uint4*>(
+        stage + S::kMaskAt + (kRowsWG * c + 16 * warp + lane / 4) * kGemmK);
+    uint4 rows[2][kGemmK / 16];  // the lane's rows g and g + 8, 64 bytes each
+#pragma unroll
+    for (int i = 0; i < kGemmK / 16; ++i) {
+      rows[0][i] = m[i];
+      rows[1][i] = m[8 * kGemmK / 16 + i];
+    }
+    const int t = lane % 4;
+#pragma unroll
+    for (int kk = 0; kk < kGemmK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // rows g, g + 8 at k 2t; again at k 2t + 8
+        const uint4 w = rows[i & 1][kk];
+        const uint32_t word = i < 2 ? (t < 2 ? w.x : w.y) : (t < 2 ? w.z : w.w);
+        const uint32_t bytes = word >> (16 * (t & 1));
+        const float s0 = (bytes & 0xffu) ? inv_keep : 0.f;
+        const float s1 = (bytes & 0xff00u) ? inv_keep : 0.f;
+        af[kk][i] = pack_bf16(bf16_lo(af[kk][i]) * s0, bf16_hi(af[kk][i]) * s1);
+      }
+  }
 };
 
 // d (+)= A . B for a 64 x N fp32 tile, both operands from shared memory;
@@ -132,6 +249,20 @@ __device__ __forceinline__ void gemm_ss(float (&d)[N / 2], uint64_t a, uint64_t 
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "l"(a), "l"(b), "r"(1), "n"(int(kTA)), "n"(int(kTB)));
   }
+}
+
+// d += A . B for a 64 x 128 fp32 tile, A (64 x 16 bf16) from registers
+// (each warp's 16 rows as an mma.sync A fragment), B from shared memory
+// (kTB: MN-major).
+template <bool kTB>
+__device__ __forceinline__ void gemm_rs(float (&d)[kGemmCols / 2], const uint32_t (&a)[4],
+                                        uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(int(kTB)));
 }
 
 // Waits until at most N committed product groups are still in flight.
@@ -171,10 +302,10 @@ __device__ __forceinline__ void load_stage(uint32_t a, uint32_t b, const CUtenso
   }
 }
 
-// The ring's three stages after a block's last K step, in job order: the
-// epilogue's side tiles come into the first Epi::kSideSlots (the ring's
-// next jobs), its outputs are staged in the rest (and may overwrite a side
-// tile in place). Generic and shared addresses.
+// The ring's first three stages after a block's last K step, in job order:
+// the epilogue's side tiles come into the first Epi::kSideSlots (the
+// ring's next jobs), its outputs are staged in the rest (and may overwrite
+// a side tile in place). Generic and shared addresses.
 struct Slots {
   uint8_t* ptr[kGemmStages];
   uint32_t addr[kGemmStages];
@@ -194,15 +325,22 @@ struct Slots {
 // two rows' sums of A over K. Then one thread of each consumer stores its
 // 64 rows of the staged outputs by TMA (epi.store(c, slots, m0, n0); rows
 // past the tensor's end are not written) and waits until they are read.
-template <bool kAMN, bool kBMN, bool kBias, typename Epi>
+// Op: the ring's stages and the operand masking (AsLoaded, or a
+// MaskedOperand: each stage's mask box loaded beside A and B; before the
+// stage's products, A's fragments scaled in registers (op.fragments; the
+// products then read A from there and are waited for within the stage),
+// or B rewritten in place (op.apply)).
+template <bool kAMN, bool kBMN, bool kBias, typename Epi, typename Op = AsLoaded>
 __device__ __forceinline__ void gemm_body(const CUtensorMap* ta, const CUtensorMap* tb,
                                           int m0, int n0, int k_begin, int k_end,
-                                          const Epi& epi) {
-  using S = GemmTile;
+                                          const Epi& epi, const Op& op = Op()) {
+  using S = GemmTileOf<Op>;
+  constexpr int kN = Op::kStages;
+  static_assert(kN >= kGemmStages, "the epilogue's slots are stages of the ring");
   extern __shared__ uint8_t smem_gemm[];
   uint8_t* aligned = smem_gemm + ((1024 - (smem_u32(smem_gemm) & 1023)) & 1023);
   const uint32_t base = smem_u32(aligned);
-  const GemmRing ring(base + S::kBarriers);
+  const StageRing<kN> ring(base + S::kBarriers);
   auto a_tile = [&](int s) { return base + s * S::kStageBytes; };
   auto b_tile = [&](int s) { return base + s * S::kStageBytes + S::kABytes; };
   const int steps = k_end - k_begin;
@@ -220,17 +358,19 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* ta, const CUtensorM
     if (threadIdx.x % 32 != 0) return;
     for (int s = 0; s < steps; ++s) {
       ring.wait_free(s);
-      const uint32_t bar = ring.full(s % kGemmStages);
+      const uint32_t bar = ring.full(s % kN);
       mbar_expect_tx(bar, S::kStageBytes);
-      load_stage<kAMN, kBMN>(a_tile(s % kGemmStages), b_tile(s % kGemmStages), ta, tb, bar,
-                             m0, n0, k_begin + s);
+      load_stage<kAMN, kBMN>(a_tile(s % kN), b_tile(s % kN), ta, tb, bar, m0, n0,
+                             k_begin + s);
+      if constexpr (Op::kMasked)
+        op.load(a_tile(s % kN) + S::kMaskAt, bar, m0, n0, k_begin + s);
     }
 #pragma unroll
     for (int i = 0; i < Epi::kSideSlots; ++i) {
       ring.wait_free(steps + i);
-      const uint32_t bar = ring.full((steps + i) % kGemmStages);
+      const uint32_t bar = ring.full((steps + i) % kN);
       mbar_expect_tx(bar, Epi::side_bytes(i));
-      epi.load_side(i, a_tile((steps + i) % kGemmStages), bar, m0, n0);
+      epi.load_side(i, a_tile((steps + i) % kN), bar, m0, n0);
     }
     return;
   }
@@ -243,7 +383,21 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* ta, const CUtensorM
   for (int i = 0; i < 4; ++i) bias[i] = 0.f;
   for (int s = 0; s < steps; ++s) {
     ring.wait_full(s);
-    const uint32_t a = a_tile(s % kGemmStages) + c * kBoxBytes, b = b_tile(s % kGemmStages);
+    if constexpr (Op::kRegisterA) {  // A from registers, the stage read in full
+      static_assert(!kAMN && !kBias, "the register form takes a K-major A");
+      uint32_t af[kGemmK / 16][4];
+      op.fragments(af, aligned + (s % kN) * S::kStageBytes, c, warp, lane);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kGemmK / 16; ++kk)
+        gemm_rs<kBMN>(acc, af[kk], operand_desc<kBMN>(b_tile(s % kN), kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      ring.arrive(s);
+      continue;
+    }
+    if constexpr (Op::kMasked) op.apply(aligned + (s % kN) * S::kStageBytes, c);
+    const uint32_t a = a_tile(s % kN) + c * kBoxBytes, b = b_tile(s % kN);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kGemmK / 16; ++kk)
@@ -264,8 +418,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* ta, const CUtensorM
   Slots slots;
 #pragma unroll
   for (int i = 0; i < kGemmStages; ++i) {
-    slots.ptr[i] = aligned + ((steps + i) % kGemmStages) * S::kStageBytes;
-    slots.addr[i] = a_tile((steps + i) % kGemmStages);
+    slots.ptr[i] = aligned + ((steps + i) % kN) * S::kStageBytes;
+    slots.addr[i] = a_tile((steps + i) % kN);
   }
 #pragma unroll
   for (int i = 0; i < Epi::kSideSlots; ++i) ring.wait_full(steps + i);
@@ -474,6 +628,37 @@ struct Dh {
   }
 };
 
+// Kernel P2's dh epilogue: dh = round(acc * mask / keep). One side slot:
+// the mask; dh staged in the next slot.
+struct MaskRows {
+  static constexpr int kSideSlots = 1;
+  static constexpr bool kStaged = true;
+  __device__ static constexpr uint32_t side_bytes(int) { return kMaskTileBytes; }
+  float inv_keep;
+  const CUtensorMap* tmask;  // these set in the kernel
+  const CUtensorMap* tout;
+  __device__ void load_side(int, uint32_t slot, uint32_t bar, int m0, int n0) const {
+    load_mask(slot, tmask, bar, m0, n0);
+  }
+  __device__ void operator()(const Acc& acc, const float (&)[4], int row_lo, int, int t,
+                             const Slots& slots) const {
+#pragma unroll
+    for (int j = 0; j < kGemmCols / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row_lo % kGemmRows + 8 * half;
+        const float2 s = side_keep(slots.ptr[0], r, c, inv_keep);
+        tile_pair(slots.ptr[1], r, c) =
+            pack_bf16(acc[4 * j + 2 * half] * s.x, acc[4 * j + 2 * half + 1] * s.y);
+      }
+    }
+  }
+  __device__ void store(int c, const Slots& slots, int m0, int n0) const {
+    store_rows(tout, slots.addr[1], c, m0, n0);
+  }
+};
+
 // The weight kernel's epilogue: the tile's fp32 partial sums over this
 // block's slice (slice blockIdx.y at split_stride floats from slice 0), and
 // on a tile's first column the rows' sums of A (the bias gradient).
@@ -611,12 +796,30 @@ inline bool encode_mask(CUtensorMap* map, const uint8_t* mask, int width, int ro
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename Kernel, typename... Args>
+// A mask's (rows, width) bytes as a map with unswizzled boxes of box_cols
+// x box_rows (a MaskedOperand's mask boxes), zero fill past the last row.
+inline bool encode_mask_box(CUtensorMap* map, const uint8_t* mask, int width, int rows,
+                            int box_cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)width, (cuuint64_t)width * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<uint8_t*>(mask), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Op: the kernel's operand policy, which sets its shared memory.
+template <typename Op = AsLoaded, typename Kernel, typename... Args>
 cudaError_t launch_gemm(Kernel kernel, dim3 grid, cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)GemmTile::kSmem);
+  constexpr size_t smem = GemmTileOf<Op>::kSmem;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kGemmThreads, GemmTile::kSmem, stream>>>(args...);
+  kernel<<<grid, kGemmThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

@@ -395,23 +395,34 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// libcuda's cuTensorMapEncodeTiled, reached through the runtime (so the
-// library needs no -lcuda); null if it is not there.
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
+// A libcuda function, reached through the runtime (so the library needs
+// no -lcuda); null if it is not there.
+inline void* driver_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+  const cudaError_t err =
+      cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &found);
 #else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+  const cudaError_t err = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
 #endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
+// cuTensorMapEncodeTiled; null if it is not there. It refuses to encode
+// without a current context, which a thread whose first CUDA work is a
+// kernel's C entry does not have (an autograd worker's first backward):
+// there a runtime call (cudaFree of null) makes the device's primary
+// context current first.
+inline EncodeTiled encode_tiled() {
+  using GetCurrent = CUresult (*)(CUcontext*);
+  static const EncodeTiled fn =
+      reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
+  static const GetCurrent get_current =
+      reinterpret_cast<GetCurrent>(driver_fn("cuCtxGetCurrent"));
+  CUcontext ctx = nullptr;
+  if (get_current == nullptr || get_current(&ctx) != CUDA_SUCCESS || ctx == nullptr)
+    cudaFree(nullptr);
   return fn;
 }
 

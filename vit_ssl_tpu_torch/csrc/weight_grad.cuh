@@ -8,8 +8,11 @@
 // order, so the rows are cut into at most kMaxSplits slices, each block
 // writes one tile's fp32 partial sums over one slice, and reduce_splits
 // adds the slices in slice order and rounds once: no atomics, and results
-// repeat run to run. With kMaskB, b is h and is taken as round(h * mask /
-// keep) on its way in (P2's hm; mask (rows, n) bytes, 0 = dropped).
+// repeat run to run. The bf16 slices are the wgmma/TMA weight products of
+// mlp_gemm_sm90.cuh (gemm_splits sets their count); the float32 ones the
+// CUDA-core weight kernel here. With kMaskB, b is h and is taken as
+// h * mask / keep on its way in (P2's hm; mask (rows, n) bytes, 0 =
+// dropped).
 //
 // kernels.py rebuilds a library when this header is newer than it.
 
@@ -55,150 +58,6 @@ __device__ __forceinline__ void split_steps(int rows, int& begin, int& end) {
   const int per = (steps + gridDim.y - 1) / gridDim.y;
   begin = blockIdx.y * per;
   end = min(steps, begin + per);
-}
-
-// Eight bf16 values times their keep-mask bytes over keep, rounded back.
-__device__ __forceinline__ uint4 mask_bf16x8(uint4 v, uint2 m, float inv_keep) {
-  uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const uint32_t bytes = q < 2 ? m.x >> (16 * q) : m.y >> (16 * (q - 2));
-    const float s0 = (bytes & 0xffu) ? inv_keep : 0.f;
-    const float s1 = (bytes & 0xff00u) ? inv_keep : 0.f;
-    w[q] = pack_bf16(bf16_lo(w[q]) * s0, bf16_hi(w[q]) * s1);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16 weight kernel, tensor cores. A block owns a 128 x 128 tile; its 4
-// warps each a 64 x 64 corner (4 x 8 mma tiles, 128 fp32 sums a thread, 8
-// ldmatrix per 32 mma). 32-row stages of A and B stream through a ring of
-// kWStages cp.async buffers, so that copies several stages ahead cover
-// device-memory latency; both are stored [row][.] so their fragments come
-// from ldmatrix.trans. The blocks owning a tile's first column also sum A's
-// columns on the tensor cores, as A^T . 1 (one more 8-wide tile of ones in
-// the two warps at column 0): exact products, fp32 sums in a fixed order.
-// With kMaskB each stage's B is masked in place before the products.
-
-constexpr int kWTile = 128;
-constexpr int kWRows = 32;  // rows a stage
-constexpr int kWThreads = 128;
-constexpr int kWStages = 4;
-constexpr int kWStride = kWTile + kBPad;
-constexpr size_t kWStageElems = 2 * (size_t)kWRows * kWStride;  // A and B
-constexpr size_t kWMaskBytes = (size_t)kWRows * kWTile;          // B's mask, a stage
-
-template <bool kMaskB>
-constexpr size_t weight_smem_bf16() {
-  return sizeof(bf16) * kWStages * kWStageElems + (kMaskB ? kWStages * kWMaskBytes : 0);
-}
-
-template <bool kMaskB>
-__global__ void __launch_bounds__(kWThreads)
-    mlp_weights_bf16(WeightProblem<bf16> p0, WeightProblem<bf16> p1, int rows,
-                     size_t split_stride, float inv_keep) {
-  extern __shared__ uint4 smem_w[];
-  bf16* stage = reinterpret_cast<bf16*>(smem_w);  // [kWStages][A, B][kWRows][kWStride]
-  uint8_t* mstage = reinterpret_cast<uint8_t*>(stage + kWStages * kWStageElems);
-
-  WeightProblem<bf16> p;
-  int m0, n0, begin, end;
-  pick_tile<kWTile>(p0, p1, p, m0, n0);
-  split_steps<kWRows>(rows, begin, end);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = 64 * (warp & 1), wn = 64 * (warp >> 1);
-  const bool with_bias = n0 == 0 && wn == 0;  // warp-uniform
-  const uint32_t ones = 0x3f803f80u;          // two bf16 1.0
-
-  // stage `step`'s copies (or none past the end), committed as one group
-  auto copy_stage = [&](int step) {
-    if (step < end) {
-      const int slot = (step - begin) % kWStages;
-      bf16* as = stage + slot * kWStageElems;
-      bf16* bs = as + kWRows * kWStride;
-      for (int idx = threadIdx.x; idx < kWRows * kWTile / 8; idx += kWThreads) {
-        const int r = idx / (kWTile / 8), c = (idx % (kWTile / 8)) * 8;
-        const int row = step * kWRows + r;
-        const bool ok = row < rows;
-        cp_async16(as + r * kWStride + c, ok ? p.a + (size_t)row * p.m + m0 + c : p.a, ok);
-        cp_async16(bs + r * kWStride + c, ok ? p.b + (size_t)row * p.n + n0 + c : p.b, ok);
-      }
-      if (kMaskB) {
-        uint8_t* ms = mstage + slot * kWMaskBytes;
-        for (int idx = threadIdx.x; idx < kWRows * kWTile / 16; idx += kWThreads) {
-          const int r = idx / (kWTile / 16), c = (idx % (kWTile / 16)) * 16;
-          const int row = step * kWRows + r;
-          const bool ok = row < rows;
-          cp_async16(ms + r * kWTile + c,
-                     ok ? p.mask_b + (size_t)row * p.n + n0 + c : p.mask_b, ok);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-  for (int s = 0; s < kWStages - 1; ++s) copy_stage(begin + s);
-
-  float acc[4][8][4] = {};
-  float colsum[4][4] = {};  // A^T . 1: every column of each tile is the sum
-
-  for (int step = begin; step < end; ++step) {
-    cp_async_wait<kWStages - 2>();
-    __syncthreads();  // this stage is in; every warp is done with the last one
-    copy_stage(step + kWStages - 1);  // into the buffer the last stage used
-    const int slot = (step - begin) % kWStages;
-    bf16* as = stage + slot * kWStageElems;
-    bf16* bs = as + kWRows * kWStride;
-    if (kMaskB) {  // b = round(h * mask / keep), in place
-      const uint8_t* ms = mstage + slot * kWMaskBytes;
-      for (int idx = threadIdx.x; idx < kWRows * kWTile / 8; idx += kWThreads) {
-        const int r = idx / (kWTile / 8), c = (idx % (kWTile / 8)) * 8;
-        uint4* hv = reinterpret_cast<uint4*>(bs + r * kWStride + c);
-        *hv = mask_bf16x8(*hv, *reinterpret_cast<const uint2*>(ms + r * kWTile + c),
-                          inv_keep);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int k0 = 0; k0 < kWRows; k0 += 16) {
-      uint32_t a[4][4], b[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)  // A stored [k = row][m]: .trans
-        ldmatrix_x4<true>(a[i], frag_split_cols(as, kWStride, k0, wm + 16 * i));
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) load_b<true>(b[jp], bs, kWStride, k0, wn + 16 * jp);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int jp = 0; jp < 4; ++jp) {
-          mma_bf16(acc[i][2 * jp], a[i], b[jp][0], b[jp][1]);
-          mma_bf16(acc[i][2 * jp + 1], a[i], b[jp][2], b[jp][3]);
-        }
-        if (with_bias) mma_bf16(colsum[i], a[i], ones, ones);
-      }
-    }
-  }
-  cp_async_wait<0>();  // the empty groups past the end
-
-  float* c = p.part + blockIdx.y * split_stride;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int m = m0 + wm + 16 * i + g, n = n0 + wn + 8 * j + 2 * t;
-      *reinterpret_cast<float2*>(c + (size_t)m * p.n + n) = make_float2(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<float2*>(c + (size_t)(m + 8) * p.n + n) =
-          make_float2(acc[i][j][2], acc[i][j][3]);
-    }
-  if (with_bias && t == 0) {
-    float* bias = p.part_bias + blockIdx.y * split_stride;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bias[m0 + wm + 16 * i + g] = colsum[i][0];
-      bias[m0 + wm + 16 * i + g + 8] = colsum[i][2];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -310,36 +169,47 @@ inline int weight_splits(int rows, int step_rows) {
   return max(1, min(kMaxSplits, steps / 64));
 }
 
-// The weight kernel over p0's and p1's tiles (p1 may have none: m = 0),
-// then the reduction into `out` (split_stride: one split's partials).
-template <typename T, bool kMaskB, int kOutputs>
-cudaError_t launch_weights(const WeightProblem<T>& p0, const WeightProblem<T>& p1,
-                           int rows, size_t split_stride, float keep_prob,
-                           const SplitOutputs<T, kOutputs>& out, cudaStream_t stream) {
-  const float inv_keep = 1.f / keep_prob;
-  int splits;
-  if constexpr (sizeof(T) == 2) {
-    constexpr size_t smem = weight_smem_bf16<kMaskB>();
-    cudaError_t err = cudaFuncSetAttribute(
-        mlp_weights_bf16<kMaskB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    splits = weight_splits(rows, kWRows);
-    const dim3 grid((p0.m / kWTile) * (p0.n / kWTile) + (p1.m / kWTile) * (p1.n / kWTile),
-                    splits);
-    mlp_weights_bf16<kMaskB><<<grid, kWThreads, smem, stream>>>(p0, p1, rows, split_stride,
-                                                                inv_keep);
-  } else {
-    splits = weight_splits(rows, kWF32Tile);
-    const dim3 grid((p0.m / kWF32Tile) * (p0.n / kWF32Tile) +
-                        (p1.m / kWF32Tile) * (p1.n / kWF32Tile),
-                    splits);
-    mlp_weights_f32<kMaskB><<<grid, kWF32Threads, 0, stream>>>(p0, p1, rows, split_stride,
-                                                               inv_keep);
+// The slices of a bf16 weight product's `steps` row steps: at most
+// kMaxSplits, each at least kMinSplitSteps steps, as many as fill the most
+// of their last wave of `tiles` x slices blocks over the card's SMs
+// (`blocks` an SM); the fewest of those that fill it equally well.
+constexpr int kMinSplitSteps = 8;
+
+inline int gemm_splits(int tiles, int steps, int blocks) {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    sms = 132;
+  int best = 1;
+  double best_waves = 1e30;  // waves a unit of K
+  for (int s = 1; s <= kMaxSplits && (s == 1 || s * kMinSplitSteps <= steps); ++s) {
+    const double waves = (double)((tiles * s + blocks * sms - 1) / (blocks * sms)) / s;
+    if (waves < best_waves * (1 - 1e-9)) {
+      best = s;
+      best_waves = waves;
+    }
   }
+  return best;
+}
+
+// The float32 weight kernel over p0's and p1's tiles (p1 may have none:
+// m = 0), then the reduction into `out` (split_stride: one split's
+// partials).
+template <bool kMaskB, int kOutputs>
+cudaError_t launch_weights(const WeightProblem<float>& p0, const WeightProblem<float>& p1,
+                           int rows, size_t split_stride, float keep_prob,
+                           const SplitOutputs<float, kOutputs>& out, cudaStream_t stream) {
+  const float inv_keep = 1.f / keep_prob;
+  const int splits = weight_splits(rows, kWF32Tile);
+  const dim3 grid((p0.m / kWF32Tile) * (p0.n / kWF32Tile) +
+                      (p1.m / kWF32Tile) * (p1.n / kWF32Tile),
+                  splits);
+  mlp_weights_f32<kMaskB><<<grid, kWF32Threads, 0, stream>>>(p0, p1, rows, split_stride,
+                                                             inv_keep);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_splits<T, kOutputs><<<kReduceBlocks, 256, 0, stream>>>(p0.part, split_stride, splits,
-                                                                out);
+  reduce_splits<float, kOutputs><<<kReduceBlocks, 256, 0, stream>>>(p0.part, split_stride,
+                                                                    splits, out);
   return cudaGetLastError();
 }
 

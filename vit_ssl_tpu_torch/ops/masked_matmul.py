@@ -11,6 +11,17 @@ launches the hand-written Hopper kernels of ``csrc/masked_matmul.cu``:
 - ``masked_mm_bwd``, the backward: dh, dw2 and db2, three kernels and no
   atomics (the mask gets no gradient).
 
+In bfloat16 each entry runs kernel B4's wgmma/TMA product
+(``csrc/mlp_gemm_sm90.cuh``; the kernels by name in :data:`HOPPER_BODIES`)
+with h scaled by mask / keep_prob between the TMA copy that lands its tile
+and the tensor cores that read it: the forward is B4's second product with
+h masked in registers on its way in; the backward is B4's dh product with a
+mask-only epilogue, and B4's weight product with h rewritten masked in
+shared memory, summed over fixed slices of T into fp32 scratch and added
+in slice order. What bounds both is bytes: at the DINO student-globals FFN
+(T = 37120, 1536 → 384) about 0.060 ms forward and 0.094 ms backward at
+3.35 TB/s. float32 runs CUDA-core bodies.
+
 On a CPU tensor the same Function runs the plain PyTorch versions,
 :func:`masked_matmul_reference` and :func:`masked_matmul_bwd_reference`.
 There is no fallback from one to the other: a CUDA call that the kernels
@@ -35,6 +46,14 @@ from .. import kernels
 LIBRARY = "masked_matmul"
 KERNEL = "masked_mm_fwd"
 KERNEL_BWD = "masked_mm_bwd"
+# the bf16 entries' Hopper kernels (defined in csrc/masked_matmul.cu on
+# csrc/mlp_gemm_sm90.cuh's product), by entry: the forward's masked
+# product; the backward's dh and the weight gradients' slices, which
+# weight_grad.cuh's reduce_splits adds
+HOPPER_BODIES = {
+    KERNEL: ("masked_mm_fwd_sm90_kernel",),
+    KERNEL_BWD: ("masked_mm_dh_sm90_kernel", "masked_mm_wgrad_sm90_kernel"),
+}
 DIM_MULTIPLE = 128  # d_ff and d_out
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -6,7 +6,7 @@ with ``kernels.NVCC_FLAGS``, and times the library's C entries of both on
 the same inputs with CUDA events, in turns (other, this, this, other),
 beside SDPA on the same heads and the bound. Each library is held to the
 plain version, and the two libraries' outputs are compared bit for bit.
-Two modes (``--kernel``):
+The modes (``--kernel``):
 
 - ``b3`` (the default): ``vit_ssl_tpu_torch/csrc/fused_attention.cu``,
   entries ``fused_attention_fwd``, ``fused_attention_fwd_stats`` and
@@ -51,6 +51,21 @@ Two modes (``--kernel``):
   training step (all three B1 entries routed) and a served DINO batch of
   128 (both forwards routed), ``chip_smoke.py``'s, with each library in
   the same turns.
+- ``p2``: ``vit_ssl_tpu_torch/csrc/masked_matmul.cu``, entries
+  ``masked_mm_fwd`` and ``masked_mm_bwd`` (kernel P2) at the probe's
+  T = 37120, 1536 -> 384 and ViT-B/16's T = 36928, 3072 -> 768: each
+  library within 2e-2 of max|plain| per output, timed as C entries (device
+  ms and host us a launch) and through the wrappers in turns, beside the
+  ``where`` + ``F.linear`` pair and the bound. Then the dropout-epilogue
+  probe's check and its ``epilogue`` leg with both entries routed to each
+  library in turns, beside its ``xla`` leg, and the probe's verdict with
+  each. Then B4's three entries (``fused_mlp_fwd.cu``,
+  ``fused_mlp_bwd.cu``, built from each checkout: they share the product
+  body that P2's operand masking extends) in bf16 and fp32, and P2's fp32
+  entries, compared bit for bit between the libraries; with the SASS
+  comparison below, which must find B4's Hopper kernels unchanged, and no
+  Hopper kernel of either checkout that spills, serialises its wgmma or
+  (B4's) takes more than 112 registers.
 
 Each step or batch turn gives the warm time (host clock, median of 10),
 device busy a step or batch (``chip_smoke.profile_window`` over 3, which
@@ -60,7 +75,7 @@ bodies, and whether each Hopper kernel that both libraries hold has the
 same SASS (``cuobjdump -sass``) in both. Card only; run from the root of a
 checkout (``chip_smoke.py`` is imported from there):
 
-    python -m vit_ssl_tpu_torch.scripts.b3_turns --other DIR [--kernel b2|b1|b4]
+    python -m vit_ssl_tpu_torch.scripts.b3_turns --other DIR [--kernel b2|b1|b4|p2]
 
 Prints each time beside the card's name and power limit, then one JSON
 line.
@@ -124,7 +139,11 @@ BODIES = {"b3": ("attention_bwd_dq_sm90_kernel", "attention_bwd_dkv_sm90_kernel"
           # B4's wgmma/TMA kernels, and the mma.sync row and weight kernels
           # they replaced
           "b4": (*dict.fromkeys(b for bodies in fm.HOPPER_BODIES.values() for b in bodies),
-                 "mlp_rows_bf16", "mlp_weights_bf16")}
+                 "mlp_rows_bf16", "mlp_weights_bf16"),
+          # P2's wgmma/TMA kernels, and the mma.sync product and weight
+          # kernels they replaced
+          "p2": (*(b for bodies in mm.HOPPER_BODIES.values() for b in bodies),
+                 "masked_mm_bf16", "mlp_weights_bf16")}
 B4_ENTRIES = (fm.KERNEL, fm.KERNEL_TRAIN, fm.KERNEL_BWD)
 P2_ENTRIES = (mm.KERNEL, mm.KERNEL_BWD)
 # the libraries whose Hopper kernels' SASS the b4 mode compares: B1's, B3's
@@ -135,6 +154,13 @@ ATTENTION_LIBRARIES = (fa.KERNEL, fa.KERNEL_BWD, fa.FUSED_LIBRARY, fb.FWD_LIBRAR
 # libraries: (T, d_model, d_ff) and (T, d_ff, d_out)
 B4_F32_CASES = [(5365, 384, 1536), (70, 768, 3072)]
 P2_CASES = [(37120, 1536, 384), (5365, 1536, 384)]
+# the p2 mode: P2's timed shapes, (T, d_ff, d_out): the probe's (DINO
+# student globals) and ViT-B/16's FFN at 384 px; B4's bf16 cases compared
+# bit for bit, (T, d_model, d_ff, keep-mask)
+P2_TIMED = [(37120, 1536, 384), (36928, 3072, 768)]
+B4_BF16_CASES = [(37120, 384, 1536, True), (18560, 384, 1536, False), (70, 768, 3072, True),
+                 (12608, 1024, 4096, False)]
+REGISTERS_TWO_BLOCKS = 112  # a thread's registers with two blocks of 288 an SM
 # B1's bf16 backward kernels, by form: the mma.sync body that
 # attention_bwd_sm90.cuh replaced, and its two forms
 B1_BWD_BODIES = {"mma.sync": ("attention_bwd_dq_bf16_kernel", "attention_bwd_dkv_bf16_kernel"),
@@ -216,19 +242,22 @@ def _loop_lines(code: list) -> list:
     return lines
 
 
-def print_sass(card: str, libs: dict) -> None:
+def print_sass(card: str, libs: dict) -> dict:
     """For each library that both checkouts build, whether each Hopper
     kernel that both hold has the same SASS in both; where it does not,
     the two instruction counts and how many instructions differ from the
     first wgmma to the last once register numbers and branch targets are
     set aside (0: the main loop is the same, the prologue or epilogue
-    differs)."""
+    differs). Returns, by library, the kernels both hold and those whose
+    SASS differs."""
+    found = {}
     for name in sorted(libs["this"].keys() & libs["other"].keys()):
         this, other = (sass_functions(libs[who][name]._name) for who in ("this", "other"))
         both = sorted(this.keys() & other.keys())
         same = [f for f in both if this[f] == other[f]]
         print(f"{card}: {name}: {len(same)} of {len(both)} Hopper kernels in both libraries "
               f"have the same SASS", flush=True)
+        found[name] = {"both": len(both), "differ": [f for f in both if f not in same]}
         for f in both:
             if f in same:
                 continue
@@ -241,6 +270,7 @@ def print_sass(card: str, libs: dict) -> None:
             print(f"  SASS differs: {kernel}<{args}>: {len(other[f])} instructions other, "
                   f"{len(this[f])} this; "
                   f"{diff} of {len(b)} differ from the first wgmma to the last", flush=True)
+    return found
 
 
 def _libs(lib) -> list:
@@ -1074,17 +1104,236 @@ def b4_main(card, built):
     return {"entries": rows, "bit_equal": same, "steps": steps}
 
 
+def p2_bare(lib, name, h, mask, w2, b2, do, keep):
+    """A no-argument launch of ``lib``'s P2 entry ``name`` (in h's dtype) on
+    outputs and scratch allocated once, returning the outputs: (o,) or
+    (dh, dw2, db2)."""
+    t, d_ff = h.shape
+    d_out = w2.shape[0]
+    fn = library_entry(lib, name)
+    if name == mm.KERNEL_BWD:
+        floats = lib.masked_mm_bwd_partial_floats
+        floats.argtypes, floats.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+        outs = [torch.empty_like(h), torch.empty_like(w2), torch.empty_like(b2)]
+        part = torch.empty(floats(d_ff, d_out), device=h.device, dtype=torch.float32)
+        ptrs = [h, mask, do, w2, *outs, part]
+    else:
+        outs = [torch.empty(t, d_out, device=h.device, dtype=h.dtype)]
+        ptrs = [h, mask, w2, b2, *outs]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = fn(*(y.data_ptr() for y in ptrs), t, d_ff, d_out,
+                 int(h.dtype == torch.bfloat16), keep, stream)
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        return outs
+    return call
+
+
+def p2_entry_turns(card, libs):
+    """P2's bf16 entries of both libraries at each P2_TIMED shape: held to
+    the plain version, timed in turns as C entries (device ms, host us a
+    launch) and through the wrapper, beside the ``where`` + ``F.linear``
+    pair (the backward: its autograd backward) and the bound."""
+    import chip_smoke
+
+    keep, rows = chip_smoke.KEEP_PROB, {}
+    for t, d_ff, d_out in P2_TIMED:
+        h, mask, w2, b2, do = chip_smoke.masked_inputs(torch, t, d_ff, d_out, torch.bfloat16,
+                                                       seed=700)
+        ins = [y.detach().requires_grad_() for y in (h, w2, b2)]
+
+        def pair(h, w2, b2):
+            return torch.nn.functional.linear(
+                torch.where(mask, h / keep, h.new_zeros(())), w2, b2)
+
+        pair_out = pair(*ins)
+        bounds = chip_smoke.masked_bounds(t, d_ff, d_out, "bfloat16")
+        for name in P2_ENTRIES:
+            if name == mm.KERNEL:
+                plain = [mm.masked_matmul_reference(h, mask, w2, b2, keep)]
+
+                def wrapper():
+                    return mm.masked_matmul_fwd(h, mask, w2, b2, keep)
+
+                def library():
+                    return pair(h, w2, b2)
+            else:
+                plain = mm.masked_matmul_bwd_reference(h, mask, do, w2, keep)
+
+                def wrapper():
+                    return mm.masked_matmul_bwd(h, mask, do, w2, keep)
+
+                def library():
+                    return torch.autograd.grad(pair_out, ins, do, retain_graph=True)
+            bound = bounds["fwd" if name == mm.KERNEL else "bwd"]
+            calls = {who: p2_bare(lib, name, h, mask, w2, b2, do, keep)
+                     for who, lib in libs.items()}
+            got = {who: [y.clone() for y in call()] for who, call in calls.items()}
+            torch.cuda.synchronize()
+            errs = {who: [chip_smoke.rel_err(g, r) for g, r in zip(outs, plain)]
+                    for who, outs in got.items()}
+            apart = [chip_smoke.rel_err(a, c) for a, c in zip(got["this"], got["other"])]
+            agree = all(max(e) <= chip_smoke.MLP_REL_TOL["bfloat16"] for e in errs.values())
+            bare = [cuda_ms(calls[who]) for who in TURNS]
+            hosts = [chip_smoke.host_us(calls[who]) for who in TURNS]
+            through = []
+            for who in TURNS:
+                with routed(libs[who], mm, P2_ENTRIES):
+                    through.append(cuda_ms(wrapper))
+            library_ms = cuda_ms(library)
+            key = f"{name} T={t} {d_ff}->{d_out}"
+            rows[key] = {"other_ms": [bare[0], bare[3]], "this_ms": [bare[1], bare[2]],
+                         "other_host_us": [hosts[0], hosts[3]],
+                         "this_host_us": [hosts[1], hosts[2]],
+                         "other_wrapper_ms": [through[0], through[3]],
+                         "this_wrapper_ms": [through[1], through[2]],
+                         "ratio": min(bare[1:3]) / min(bare[0], bare[3]),
+                         "pair_ms": library_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                         "agree": agree, "other_vs_plain": errs["other"],
+                         "this_vs_plain": errs["this"], "this_vs_other": apart}
+            print(f"{card}: {key} bf16, C entry: other {bare[0]:.4f} / {bare[3]:.4f} ms, this "
+                  f"{bare[1]:.4f} / {bare[2]:.4f} ms ({rows[key]['ratio']:.3f}x); through the "
+                  f"wrapper: other {through[0]:.4f} / {through[3]:.4f} ms, this "
+                  f"{through[1]:.4f} / {through[2]:.4f} ms; where + F.linear {library_ms:.4f} "
+                  f"ms, bound {bound[0]:.4f} ms ({bound[1]}); host a launch: other "
+                  f"{hosts[0]:.2f} / {hosts[3]:.2f} us, this {hosts[1]:.2f} / {hosts[2]:.2f} "
+                  f"us; rel_err vs plain: other " + "/".join(f"{e:.3e}" for e in errs["other"])
+                  + ", this " + "/".join(f"{e:.3e}" for e in errs["this"]) + "; this vs other "
+                  + "/".join(f"{e:.3e}" for e in apart) + ("; ok" if agree else "; MISS"),
+                  flush=True)
+        del h, mask, w2, b2, do, ins, pair_out, calls, got, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def p2_probe_turns(card, libs):
+    """The dropout-epilogue probe's ``epilogue`` leg (an FFN step with P2's
+    forward and backward) with P2's entries routed to each library in turns,
+    beside its ``xla`` leg before and after: the probe's check under each
+    library, ms a step (CUDA events, the probe's ITERS steps), device busy
+    from a profile of one step (which must name that library's P2
+    kernels), and the probe's verdict with each library's time."""
+    import chip_smoke
+    from vit_ssl_tpu_torch.scripts import dropout_epilogue_probe as probe
+
+    x, params = probe.make_inputs()
+    generator = torch.Generator(device="cuda").manual_seed(7)
+    want = bodies_in(libs, "p2")
+    checks = {}
+    for who in ("other", "this"):
+        with routed(libs[who], mm, P2_ENTRIES):
+            checks[who] = probe.check(x, params, generator)
+        print(f"{card}: the probe's check, {who} library: o max_abs_err "
+              f"{checks[who][0]:.3e}, gradients {checks[who][1]:.3e} (within its "
+              f"tolerances)", flush=True)
+    steps = {leg: probe.make_step(leg, params, x, generator) for leg in ("xla", "epilogue")}
+    xla = [cuda_ms(steps["xla"], iters=probe.ITERS)]
+    turns = []
+    for who in TURNS:
+        with routed(libs[who], mm, P2_ENTRIES):
+            ms = cuda_ms(steps["epilogue"], iters=probe.ITERS)
+            _, busy_ms = chip_smoke.profile_window(
+                torch, steps["epilogue"], f"the probe's epilogue leg, {who} library", rows=6,
+                want=want[who])
+            finite = bool(torch.isfinite(steps["epilogue"]()).item())
+        turns.append({"library": who, "ms": ms, "device_busy_ms": busy_ms, "finite": finite})
+        print(f"{card}: the probe's epilogue leg, {who} library: {ms:.3f} ms a step, device "
+              f"busy {busy_ms:.3f} ms; {'finite' if finite else 'NOT FINITE'}", flush=True)
+    xla.append(cuda_ms(steps["xla"], iters=probe.ITERS))
+    verdicts = {who: probe.verdict({"xla": min(xla), "epilogue": min(
+        turn["ms"] for turn in turns if turn["library"] == who)}) for who in ("other", "this")}
+    print(f"{card}: the probe's xla leg {xla[0]:.3f} / {xla[1]:.3f} ms a step; verdict with "
+          f"the other library: {verdicts['other']}; with this: {verdicts['this']}", flush=True)
+    return {"check": checks, "xla_ms": xla, "epilogue": turns, "verdict": verdicts}
+
+
+def b4_unchanged(card, libs, p2_libs):
+    """B4's three entries, bf16 at B4_BF16_CASES and float32 at
+    B4_F32_CASES, and P2's float32 entries at P2_CASES, each library on the
+    same inputs: whether the two libraries' outputs are equal bit for bit
+    (P2's bf16 bodies changed their sums' order, so its bf16 outputs are
+    held to the plain version instead, in p2_entry_turns)."""
+    import chip_smoke
+
+    keep, same = chip_smoke.KEEP_PROB, {}
+    cases = ([(torch.bfloat16, *case) for case in B4_BF16_CASES]
+             + [(torch.float32, *case, True) for case in B4_F32_CASES])
+    for dtype, t, d, d_ff, with_mask in cases:
+        x, w1, b1, w2, b2, mask, do = chip_smoke.mlp_inputs(torch, t, dtype, seed=7,
+                                                            dims=(d, d_ff))
+        mask = mask if with_mask else None
+        pre = fm.fused_mlp_reference(x, w1, b1, w2, b2, mask, keep, save_pre=True)[1]
+        for name in B4_ENTRIES:
+            got = {who: [y.clone() for y in b4_bare(lib[name], name, x, w1, b1, w2, b2,
+                                                    mask, pre, do, keep)()]
+                   for who, lib in libs.items()}
+            same[f"{name} {str(dtype).removeprefix('torch.')} T={t} {d}->{d_ff}"
+                 f"{' keep-mask' if with_mask else ''}"] = all(
+                torch.equal(a, c) for a, c in zip(got["other"], got["this"]))
+        del x, w1, b1, w2, b2, mask, do, pre, got
+    for t, d_ff, d_out in P2_CASES:
+        h, mask, w2, b2, do = chip_smoke.masked_inputs(torch, t, d_ff, d_out, torch.float32,
+                                                       seed=8)
+        got = {who: [y.clone() for name in P2_ENTRIES
+                     for y in p2_bare(lib, name, h, mask, w2, b2, do, keep)()]
+               for who, lib in p2_libs.items()}
+        same[f"P2 float32 T={t} {d_ff}->{d_out}"] = all(
+            torch.equal(a, c) for a, c in zip(got["other"], got["this"]))
+    torch.cuda.synchronize()
+    for key, equal in same.items():
+        print(f"{card}: {key}: outputs {'bit-equal' if equal else 'DIFFER'} between the "
+              "libraries", flush=True)
+    return same
+
+
+def hopper_checks(card, built) -> dict:
+    """From both checkouts' ``-Xptxas -v`` logs: every Hopper kernel that
+    spills or has its wgmma serialised (C7514, C7515, C7520), and every B4
+    kernel above REGISTERS_TWO_BLOCKS registers (two blocks an SM)."""
+    import chip_smoke
+
+    faults, over = [], []
+    b4 = [body for bodies in fm.HOPPER_BODIES.values() for body in bodies]
+    for who, by_name in built.items():
+        for name, lib in by_name.items():
+            log = kernels.log_path(name) if who == "this" else Path(lib._name).with_suffix(".log")
+            lines = list(chip_smoke.ptxas_lines(log.read_text(), kernels.nvcc_path()))
+            faults += [f"{who} {name}: {line}" for line in chip_smoke.hopper_faults(lines)]
+            over += [f"{who} {name}: {kernel}: {row['registers']} registers"
+                     for kernel, row in chip_smoke.registers_and_spills(lines, b4).items()
+                     if row.get("registers", 0) > REGISTERS_TWO_BLOCKS]
+    print(f"{card}: Hopper kernels that spill or serialise their wgmma: {faults or 'none'}; "
+          f"B4 kernels above {REGISTERS_TWO_BLOCKS} registers: {over or 'none'}", flush=True)
+    return {"faults": faults, "b4_over_registers": over}
+
+
+def p2_main(card, built):
+    libs = {who: by_name[mm.LIBRARY] for who, by_name in built.items()}
+    b4_libs = {who: {fm.KERNEL: by_name[fm.KERNEL], fm.KERNEL_TRAIN: by_name[fm.KERNEL],
+                     fm.KERNEL_BWD: by_name[fm.KERNEL_BWD]} for who, by_name in built.items()}
+    checks = hopper_checks(card, built)
+    rows = p2_entry_turns(card, libs)
+    probe = p2_probe_turns(card, libs)
+    same = b4_unchanged(card, b4_libs, libs)
+    return {"entries": rows, "probe": probe, "bit_equal": same, "ptxas": checks,
+            "steps": {"probe_epilogue": probe["epilogue"]}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", type=Path, required=True,
                         help="root of the other checkout")
-    parser.add_argument("--kernel", choices=("b3", "b2", "b1", "b4"), default="b3",
+    parser.add_argument("--kernel", choices=("b3", "b2", "b1", "b4", "p2"), default="b3",
                         help="b3: fused_attention's three entries and the 384-px step; "
                              "b2: B2's forwards and backward, the 512-px step and served "
                              "batch; b1: B1's two forwards and its backward, the DINO step "
                              "and served batch; b4: the fused MLP's three entries, its "
                              "fp32 and P2's outputs bit for bit, the fused ViT-B/16 "
-                             "384-px and DINO steps")
+                             "384-px and DINO steps; p2: P2's two entries and the "
+                             "probe's epilogue leg, B4's outputs bit for bit and its "
+                             "Hopper kernels' SASS")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("b3_turns: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1097,7 +1346,8 @@ def main(argv=None) -> int:
                       "b2": ((fb.FWD_LIBRARY, fb.BWD_LIBRARY), b2_main),
                       "b1": ((fa.KERNEL, fa.KERNEL_BWD), b1_main),
                       "b4": ((fm.KERNEL, fm.KERNEL_BWD, mm.LIBRARY, *ATTENTION_LIBRARIES),
-                             b4_main)}[args.kernel]
+                             b4_main),
+                      "p2": ((mm.LIBRARY, fm.KERNEL, fm.KERNEL_BWD), p2_main)}[args.kernel]
     with tempfile.TemporaryDirectory() as tmp:
         kernels.build(libraries)
         built = {"other": build_others(args.other.resolve(), Path(tmp), libraries),
@@ -1105,8 +1355,8 @@ def main(argv=None) -> int:
         shown = (fm.KERNEL, fm.KERNEL_BWD) if args.kernel == "b4" else libraries
         print_registers(card, {who: {name: lib for name, lib in by_name.items()
                                      if name in shown} for who, by_name in built.items()})
-        print_sass(card, built)
-        result = {"card": card, "kernel": args.kernel, **run(card, built)}
+        sass = print_sass(card, built)
+        result = {"card": card, "kernel": args.kernel, "sass": sass, **run(card, built)}
     print(json.dumps(result), flush=True)
     entries = ([s["entries"] for s in result["shapes"].values()] if args.kernel == "b2"
                else [result["entries"]])
@@ -1114,6 +1364,10 @@ def main(argv=None) -> int:
     backward_ok = {"b2": lambda: result["backward"]["agree"],
                    "b1": lambda: all(r["agree"] for r in result["backward"].values()),
                    "b4": lambda: all(result["bit_equal"].values()),
+                   "p2": lambda: (all(result["bit_equal"].values())
+                                  and not any(result["ptxas"].values())
+                                  and not any(sass[name]["differ"]
+                                              for name in (fm.KERNEL, fm.KERNEL_BWD))),
                    "b3": lambda: True}[args.kernel]()
     return 0 if (all(r["agree"] for rows in entries for r in rows.values()) and backward_ok
                  and all(t["finite"] for leg in legs for t in leg)) else 1
