@@ -59,6 +59,17 @@ Phases, each printing its own lines; any failure exits non-zero:
               kernel/plain/unfused-chain times at each width, each entry's
               host microseconds a call through its wrapper, and a profile
               of each timed call that must name its Hopper kernels
+9a. DINO trainer — the same main path through the port's own trainer:
+              configs/dino.yaml composed by ``vit_ssl_tpu_torch.config``
+              (checked against DINO_VIT_S8), the loaders of its seeded split
+              over 1300 in-memory uint8 images, ``DINOTrainer.fit(2)``: 18
+              train and 6 val steps, B1's launches exact in each, no plain
+              attention, finite epoch metrics, best_model and last_model
+              written with their metadata; a fresh trainer resumed from
+              last_model (bit-equal to the file) trains epoch 3 to step 27;
+              epoch wall seconds and images a second, the input-wait share,
+              the in-loop step beside the bare warm step, each checkpoint's
+              snapshot and background write, peak memory
 10. B3 kernels — kernel B3 (head-major fused attention) against its plain
               versions: inference forward, training forward and backward at
               ViT-B/16's (64, 12, 577, 64), at N = 1, N = 1024 and ragged N,
@@ -1952,6 +1963,229 @@ def phase_training_fused(torch, fa, fm, unfused_ms, card):
     return main_launches
 
 
+TRAINER_IMAGES = 1300  # in-memory uint8 96 x 96 x 3 images: 1040 train, 260 val
+TRAINER_OVERRIDES = ["training.num_epochs=2", "eval.interval=0"]
+
+
+def config_differences(smoke, composed, path="config"):
+    """Paths where a value of ``smoke`` differs from the composed config."""
+    if isinstance(smoke, dict):
+        if not isinstance(composed, dict):
+            return [path]
+        return [d for key, value in smoke.items()
+                for d in (config_differences(value, composed[key], f"{path}.{key}")
+                          if key in composed else [f"{path}.{key}"])]
+    if isinstance(smoke, list):
+        if not isinstance(composed, list) or len(smoke) != len(composed):
+            return [path]
+        return [d for i, (a, b) in enumerate(zip(smoke, composed))
+                for d in config_differences(a, b, f"{path}[{i}]")]
+    return [] if smoke == composed else [f"{path}: {smoke!r} != {composed!r}"]
+
+
+class InMemoryImages:
+    """The decoded STL-10 dataset's item interface (one uint8 HWC image an
+    index) over images held in memory: the card's machine has no decoder."""
+
+    def __init__(self, images):
+        self.images = images
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx, rng=None):
+        return self.images[idx]
+
+
+def counted_steps(fn, log):
+    """``fn`` with each call's host start time, B1 launches and output
+    appended to ``log``."""
+    from vit_ssl_tpu_torch import kernels
+
+    def call(*args, **kwargs):
+        before, t0 = dict(kernels.launches), time.perf_counter()
+        out = fn(*args, **kwargs)
+        log.append((t0, {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                         if v != before.get(k, 0)}, out))
+        return out
+
+    return call
+
+
+def phase_trainer(torch, fa, card, warm_ms, tmp):
+    """DINO ViT-S/8 through the port's own trainer: configs/dino.yaml
+    composed by the port's config engine, the loaders of its split over
+    in-memory images, ``fit(2)`` (18 train and 6 val steps), best and last
+    checkpoints, then a fresh trainer resumed from last_model, bit-equal to
+    the file, trains epoch 3. Returns the launches of both runs."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose, to_container, validate_train_config
+    from vit_ssl_tpu_torch.data.builder import make_loaders
+    from vit_ssl_tpu_torch.models.builder import build_dino_network
+    from vit_ssl_tpu_torch.train.__main__ import get_save_path, get_trainer, save_run_config
+    from vit_ssl_tpu_torch.train.trainers.base import to_host
+    from vit_ssl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    configs = Path(__file__).resolve().parent / "configs"
+    run_dir = str(Path(tmp) / "run")
+    overrides = TRAINER_OVERRIDES + [f"hydra.run.dir={run_dir}"]
+    print(f"== DINO trainer: configs/dino.yaml composed by vit_ssl_tpu_torch.config "
+          f"with {' '.join(overrides)}; fit(2) over {TRAINER_IMAGES} in-memory "
+          f"images, then a resumed epoch 3; {card}", flush=True)
+    plain = to_container(compose(configs, "dino"))
+    diffs = config_differences(DINO_VIT_S8, plain)
+    config = compose(configs, "dino", overrides)
+    validate_train_config(config)
+    composed = to_container(config)
+    for key in ("training", "model", "data", "transforms"):
+        want = dict(plain[key], num_epochs=2) if key == "training" else plain[key]
+        if composed[key] != want:
+            diffs.append(f"the overrides changed config.{key} beyond num_epochs")
+    if diffs:
+        fail("the composed configs/dino.yaml differs from DINO_VIT_S8: "
+             + "; ".join(diffs))
+    print("  composed config: model, training, data and transforms equal "
+          "DINO_VIT_S8 (num_epochs 2 by override)", flush=True)
+
+    images = np.random.default_rng(5).integers(
+        0, 256, (TRAINER_IMAGES, 96, 96, 3), dtype=np.uint8)
+    mode = str(config.training.type)
+
+    def trainer_for(path):
+        train_loader, val_loader = make_loaders(config, InMemoryImages(images))
+        network = build_dino_network(config, "cuda")
+        return get_trainer(mode, network, path, config, train_loader, val_loader,
+                           "cuda"), train_loader, val_loader
+
+    save_path = get_save_path(config)
+    save_run_config(config, overrides, save_path)
+    trainer, train_loader, val_loader = trainer_for(save_path)
+    real = (len(train_loader.dataset), len(val_loader.dataset))
+    print(f"  loaders: {real[0]} train images in {len(train_loader)} steps, "
+          f"{real[1]} val images in {len(val_loader)} steps, batch "
+          f"{train_loader.batch_size}, {train_loader.num_workers} workers", flush=True)
+    train_log, val_log, epoch_s = [], [], []
+    trainer.train_step = counted_steps(trainer.train_step, train_log)
+    trainer.eval_step = counted_steps(trainer.eval_step, val_log)
+    train_epoch = trainer.train_epoch
+
+    def timed_epoch(epoch):
+        t0 = time.perf_counter()
+        metrics = train_epoch(epoch)  # ends in the epoch's one host fetch
+        epoch_s.append(time.perf_counter() - t0)
+        return metrics
+
+    trainer.train_epoch = timed_epoch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the trainer's path starts here
+        trainer.fit(2)
+        launches = dict(kernels.launches)  # ... and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    blocks = DINO_VIT_S8["model"]["num_blocks"]
+    per_train, per_val = attention_launches(fa), {fa.KERNEL: 3 * blocks}
+    if (len(train_log), len(val_log), trainer.state.step) != (18, 6, 18):
+        fail(f"fit(2) ran {len(train_log)} train and {len(val_log)} val steps to "
+             f"step {trainer.state.step}, expected 18, 6 and 18")
+    for kind, log, want in (("train", train_log, per_train), ("val", val_log, per_val)):
+        for i, (_, got, _) in enumerate(log):
+            if got != want:
+                fail(f"{kind} step {i} of the trainer launched {got}, expected {want}")
+    history = trainer.history.history
+    bad = [k for k, v in history.items() if not all(np.isfinite(v))]
+    if bad or len(history.get("train_Loss", [])) != 2:
+        fail(f"trainer epoch metrics not finite or missing: {bad or history}")
+    print(f"  launches over fit(2): {launches} (per train step {per_train}, per "
+          f"val step {per_val})", flush=True)
+    for epoch in (1, 2):
+        print(f"  epoch {epoch}: " + ", ".join(
+            f"{k} {history[k][epoch - 1]:.6g}" for k in sorted(history)), flush=True)
+
+    meta = {}
+    for name in ("best_model", "last_model"):
+        path = Path(save_path) / name / "metadata.json"
+        if not path.exists() or not (Path(save_path) / name / "state.pt").exists():
+            fail(f"the trainer wrote no {name}")
+        meta[name] = json.loads(path.read_text())
+    last = meta["last_model"]
+    if (last["epoch"], last["mode"], last["config"]) != (2, "dino", composed):
+        fail(f"last_model metadata: epoch {last['epoch']}, mode {last['mode']}, "
+             f"config equal {last['config'] == composed}")
+    print(f"  best_model: epoch {meta['best_model']['epoch']}, best_val_score "
+          f"{meta['best_model']['best_val_score']:.6g}; last_model: epoch 2", flush=True)
+
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(train_log[9:], train_log[10:])]
+    stats = {"epoch_s": epoch_s, "images_per_s": [real[0] / t for t in epoch_s],
+             "input_wait_share": [st["wait_s"] / st["wall_s"]
+                                  for st in trainer.epoch_input_stats],
+             "step_ms_median": float(np.median(step_ms)), "warm_step_ms": warm_ms,
+             "peak_gb": peak_gb, "saves": list(trainer.save_times)}
+    for epoch, (t, rate, wait) in enumerate(zip(epoch_s, stats["images_per_s"],
+                                                stats["input_wait_share"]), 1):
+        print(f"  epoch {epoch} on {card}: train {t:.3f} s wall for {real[0]} images "
+              f"({rate:.1f} img/s), input-wait share {wait:.4f}", flush=True)
+    print(f"  in-loop step (epoch 2, median of {len(step_ms)} intervals between step "
+          f"starts) {stats['step_ms_median']:.3f} ms; the bare warm step of the "
+          f"training phase {warm_ms:.3f} ms; peak memory {peak_gb:.2f} GB "
+          "(torch.cuda.max_memory_allocated)", flush=True)
+    for save in trainer.save_times:
+        print(f"  checkpoint {save['name']} of epoch {save['epoch']}: snapshot "
+              f"{save['snapshot_ms']:.1f} ms (0: the epoch's snapshot reused), "
+              f"background write {save['write_s']:.3f} s", flush=True)
+    saved, _ = load_checkpoint(str(Path(save_path) / "last_model"))
+    del trainer
+
+    resumed, _, _ = trainer_for(save_path)
+    resumed.resume_from(str(Path(save_path) / "last_model"))
+    mismatch = state_mismatch(torch, to_host(resumed.state.state_dict()), saved)
+    if mismatch or resumed.start_epoch != 2:
+        fail(f"the resumed state differs from last_model at {mismatch} (start epoch "
+             f"{resumed.start_epoch})")
+    resumed_log = []
+    resumed.train_step = counted_steps(resumed.train_step, resumed_log)
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the resumed run starts here
+        resumed.fit(1)
+        resumed_launches = dict(kernels.launches)  # ... and ends here
+    first_loss = float(resumed_log[0][2]["loss"])
+    if resumed.state.step != 27 or not np.isfinite(first_loss):
+        fail(f"the resumed epoch 3 ended at step {resumed.state.step} (expected 27), "
+             f"first loss {first_loss}")
+    print(f"  resumed from last_model: state bit-equal to the file (step 18, "
+          f"student, teacher, center, AdamW count and moments); epoch 3's first "
+          f"loss {first_loss:.6f}, ended at step 27; launches {resumed_launches}",
+          flush=True)
+    del resumed
+    return launches, resumed_launches, stats
+
+
+def state_mismatch(torch, got, want, where="state"):
+    """The first path where two checkpoint trees differ, bit for bit."""
+    if isinstance(want, torch.Tensor):
+        same = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and got.shape == want.shape and torch.equal(got, want))
+        return None if same else where
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return where
+        for key in want:
+            found = state_mismatch(torch, got[key], want[key], f"{where}.{key}")
+            if found:
+                return found
+        return None
+    if isinstance(want, list):
+        if len(got) != len(want):
+            return where
+        for i, (a, b) in enumerate(zip(got, want)):
+            found = state_mismatch(torch, a, b, f"{where}[{i}]")
+            if found:
+                return found
+        return None
+    return None if got == want else where
+
+
 # (entry, T, keep-mask, (d_model, d_ff)): at DINO ViT-S/8's width the
 # training forward at the student's globals and packed locals, the teacher's
 # forward, the served forward, the backward at the two student shapes; at
@@ -2630,6 +2864,9 @@ def main() -> int:
                                        warm_ms, card)
     del state, train_step, batch
     fused_train_launches = phase_training_fused(torch, fa, fm, warm_ms, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer_launches, resumed_launches, _ = phase_trainer(torch, fa, card, warm_ms,
+                                                              tmp)
     mlp_stats = phase_mlp_times(torch, fm, card)
     blocks = VIT_B16_384["model"]["num_blocks"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2772,6 +3009,7 @@ def main() -> int:
          *p2_rows[mm.KERNEL_BWD]),
     ]
     paths = {"serving": serve_launches, "training": train_launches,
+             "trainer": trainer_launches, "trainer_resumed": resumed_launches,
              "serving_fused": fused_serve_launches, "training_fused": fused_train_launches,
              "serving_supervised": sup_serve_launches, **sup_paths,
              "serving_supervised_fused": sup_fused_serve_launches, **sup_fused_paths,

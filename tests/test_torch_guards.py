@@ -27,6 +27,8 @@ from vit_ssl_tpu_torch import resolve_device
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "vit_ssl_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vit_ssl_tpu")
+# packages the card machine lacks: never imported by the port at module level
+HOST_ONLY = ("yaml", "orbax", "rich", "pandas", "cv2", "PIL", "matplotlib")
 
 
 def _load_chip_smoke():
@@ -46,8 +48,13 @@ def test_port_import_leaves_jax_out():
         "import vit_ssl_tpu_torch.data.device_augment, vit_ssl_tpu_torch.models.vit\n"
         "import vit_ssl_tpu_torch.ops.masked_matmul, vit_ssl_tpu_torch.ops.precision\n"
         "import vit_ssl_tpu_torch.scripts.dropout_epilogue_probe\n"
+        "import vit_ssl_tpu_torch.config, vit_ssl_tpu_torch.config.yaml_io\n"
+        "import vit_ssl_tpu_torch.data.datasets, vit_ssl_tpu_torch.data.loader\n"
+        "import vit_ssl_tpu_torch.data.builder, vit_ssl_tpu_torch.utils.logger\n"
+        "import vit_ssl_tpu_torch.utils.history, vit_ssl_tpu_torch.train.trainers\n"
+        "import vit_ssl_tpu_torch.train.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r} + ('cv2', 'PIL', 'triton'))\n"
+        f"{FORBIDDEN!r} + {HOST_ONLY!r} + ('triton',))\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
@@ -69,6 +76,28 @@ def test_no_jax_import_anywhere_in_the_port():
     assert len(files) > 10
     offenders = {str(f.relative_to(REPO)): root for f in files
                  for root in _imported_roots(f) if root in FORBIDDEN}
+    assert offenders == {}
+
+
+def test_host_packages_only_inside_functions():
+    """yaml, orbax, rich and pandas appear nowhere in the port; cv2, PIL and
+    matplotlib only inside the functions that decode, resize or plot."""
+    offenders = {}
+    for f in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(f.read_text(), filename=str(f))
+        inside = {id(n) for fn in ast.walk(tree)
+                  if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                  for n in ast.walk(fn)}
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                names = [node.module.split(".")[0]]
+            for name in names:
+                if name in ("yaml", "orbax", "rich", "pandas") or (
+                        name in HOST_ONLY and id(node) not in inside):
+                    offenders[f"{f.relative_to(REPO)}:{node.lineno}"] = name
     assert offenders == {}
 
 

@@ -1,5 +1,6 @@
-"""Clean inference pipeline: a copy of ``Compose``, ``Resize`` and ``ToTensor``
-from ``vit_ssl_tpu/data/transforms.py``, with the same semantics.
+"""Host pipelines: a copy of ``Compose``, ``Resize``, ``ToTensor`` and
+``is_deterministic`` from ``vit_ssl_tpu/data/transforms.py``, with the same
+semantics (serving's clean pipeline; the trainer's decode-and-resize).
 
 - pipelines consume PIL Images or uint8 HWC numpy arrays;
 - ``ToTensor`` converts to float32 HWC in [0, 1] (the NHWC layout the
@@ -7,7 +8,8 @@ from ``vit_ssl_tpu/data/transforms.py``, with the same semantics.
 - cv2 does the resize, with the same interpolation rule as the JAX package.
 
 cv2 and PIL are imported inside the functions that use them, so the device
-path (and a machine without them) never needs them.
+path (and a machine without them) never needs them; a resize to the size
+an image already has needs no cv2.
 """
 
 from __future__ import annotations
@@ -61,8 +63,6 @@ class Resize(Transform):
         self.size = size
 
     def __call__(self, img, rng=None):
-        import cv2
-
         arr = _to_numpy(img)
         h, w = arr.shape[:2]
         if isinstance(self.size, numbers.Number):
@@ -75,6 +75,8 @@ class Resize(Transform):
             nh, nw = _pair(self.size)
         if (nh, nw) == (h, w):
             return arr
+        import cv2
+
         interp = cv2.INTER_AREA if (nh < h or nw < w) else cv2.INTER_LINEAR
         return cv2.resize(arr, (nw, nh), interpolation=interp)
 
@@ -87,3 +89,16 @@ class ToTensor(Transform):
         if arr.dtype == np.uint8:
             return arr.astype(np.float32) / 255.0
         return np.clip(arr.astype(np.float32), 0.0, 1.0)
+
+
+_DETERMINISTIC = (Resize, ToTensor)
+
+
+def is_deterministic(transform) -> bool:
+    """True when a pipeline uses no randomness: its output per image is the
+    same every epoch, so the loader may cache post-transform samples."""
+    if transform is None:
+        return True
+    if isinstance(transform, Compose):
+        return all(is_deterministic(t) for t in transform.transforms)
+    return isinstance(transform, _DETERMINISTIC)

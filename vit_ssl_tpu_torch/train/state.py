@@ -15,6 +15,11 @@ count + 1 (m̂ / (√v̂ + eps)), then ``+ weight_decay·param`` on every
 parameter, then ``× −lr(count)`` with the schedule read at the count before
 it increments.
 
+:func:`make_optimizer` builds the optimizer the config names
+(``training.optimizer``); ``TrainState.state_dict`` and
+``load_state_dict`` carry a DINO state through a checkpoint, so that a
+resumed run continues bit for bit.
+
 Random streams: ``next_generators`` derives one ``torch.Generator`` per
 stream from ``numpy.random.SeedSequence((seed, step, stream))`` — the
 step's streams differ from every other step's and from each other, and a
@@ -26,7 +31,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -41,6 +46,24 @@ class AdamWState:
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copies the saved moments into this state's tensors, in place."""
+        for name in ("mu", "nu"):
+            ours, theirs = getattr(self, name), state[name]
+            if len(ours) != len(theirs):
+                raise ValueError(f"{name}: {len(theirs)} tensors saved, "
+                                 f"{len(ours)} parameters here")
+            for a, b in zip(ours, theirs):
+                if a.shape != b.shape:
+                    raise ValueError(f"{name}: shape {tuple(b.shape)} saved, "
+                                     f"{tuple(a.shape)} here")
+                a.copy_(b)
+        self.count = int(state["count"])
 
 
 class AdamW:
@@ -79,6 +102,29 @@ class AdamW:
         torch._foreach_add_(params, torch._foreach_mul(update, -lr))
         state.count = count_inc
         return lr
+
+
+# the other names of the JAX package's optimizer registry
+_NOT_PORTED_OPTIMIZERS = ("Adam", "SGD", "RMSprop")
+
+
+def make_optimizer(config, lr_schedule: Callable[[int], float]) -> AdamW:
+    """The optimizer ``training.optimizer`` names, with its ``params``
+    (``betas``, ``eps``, ``weight_decay``; the schedule owns the lr), as
+    ``vit_ssl_tpu/train/state.py::make_optimizer`` builds it."""
+    opt_cfg = config["training"]["optimizer"]
+    name = opt_cfg["name"]
+    if name in _NOT_PORTED_OPTIMIZERS:
+        raise NotImplementedError(
+            f"optimizer '{name}' is not ported yet (only AdamW); see ROADMAP.md "
+            "queue A item 4")
+    if name != "AdamW":
+        raise ValueError(f"Unknown optimizer '{name}' (have "
+                         f"{sorted(('AdamW',) + _NOT_PORTED_OPTIMIZERS)})")
+    params = dict(opt_cfg.get("params", {}) or {})
+    b1, b2 = tuple(params.get("betas", (0.9, 0.999)))
+    return AdamW(lr_schedule, b1=b1, b2=b2, eps=float(params.get("eps", 1e-8)),
+                 weight_decay=float(params.get("weight_decay", 1e-2)))
 
 
 def step_generators(seed: int, step: int, n: int, device) -> List[torch.Generator]:
@@ -159,6 +205,24 @@ class TrainState:
         sd.update({f"teacher_{k}": v for k, v in self.teacher.state_dict().items()})
         sd["center"] = self.center
         return sd
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a checkpoint holds: the step, the student's and teacher's
+        state dicts, the center and the AdamW count and moments (the
+        state's own tensors, not copies)."""
+        return {"step": self.step, "student": self.student.state_dict(),
+                "teacher": self.teacher.state_dict(), "center": self.center,
+                "opt_state": self.opt_state.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copies a :meth:`state_dict` into this state's tensors, in place
+        (they keep their device)."""
+        self.student.load_state_dict(state["student"], strict=True)
+        self.teacher.load_state_dict(state["teacher"], strict=True)
+        self.center.copy_(state["center"].reshape(self.center.shape))
+        self.opt_state.load_state_dict(state["opt_state"])
+        self.step = int(state["step"])
 
     @torch.no_grad()
     def load_model_state_dict(self, state: Dict[str, torch.Tensor],

@@ -46,7 +46,7 @@ def _refuse_grad_accum(grad_accum: int) -> None:
     if grad_accum > 1:
         raise NotImplementedError(
             "grad_accum > 1 (microbatched gradient accumulation) is not "
-            "ported yet; see ROADMAP.md queue A"
+            "ported yet; see ROADMAP.md queue A item 5"
         )
 
 

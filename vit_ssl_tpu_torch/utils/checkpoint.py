@@ -1,4 +1,12 @@
-"""Checkpoints of the port: reference-layout ``.pth`` files.
+"""Checkpoints of the port: train-state directories and reference-layout
+``.pth`` files.
+
+:func:`save_checkpoint` writes what the trainer saves each epoch
+(``best_model``, ``last_model``), after ``vit_ssl_tpu/utils/checkpoint.py``:
+a directory written as ``<path>.tmp`` and swapped in with ``os.replace``,
+holding ``metadata.json`` (epoch, the embedded config, the mode, ``best_*``)
+and the state's tensors in one ``torch.save`` file (``state.pt``) where the
+JAX package has an orbax tree. The port cannot read orbax directories.
 
 :func:`load_pth` reads what ``scripts/export_torch.py`` writes from a JAX
 run — ``{"model_state_dict": ..., "config": ..., "epoch": ...}`` — with
@@ -14,10 +22,48 @@ vit_params_to_torch}``.
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+_META_FILE = "metadata.json"
+_STATE_FILE = "state.pt"
+
+
+def save_checkpoint(path: str, tree: Any, metadata: Dict[str, Any]) -> None:
+    """Write ``tree`` (nested dicts and lists of tensors and numbers, on the
+    CPU) and ``metadata`` to the directory ``path``: into ``<path>.tmp``,
+    then swapped in."""
+    tmp = path + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp, exist_ok=True)
+    torch.save(tree, os.path.join(tmp, _STATE_FILE))
+    with open(os.path.join(tmp, _META_FILE), "w") as f:
+        json.dump(metadata, f, indent=1, default=str)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> Tuple[Any, Dict[str, Any]]:
+    """(tree, metadata) of a directory :func:`save_checkpoint` wrote; the
+    tensors on the CPU."""
+    state_file = os.path.join(path, _STATE_FILE)
+    if not os.path.exists(state_file):
+        raise FileNotFoundError(
+            f"{path} holds no {_STATE_FILE}: not a checkpoint of the port "
+            "(orbax checkpoints of the JAX package cannot be read)")
+    tree = torch.load(state_file, map_location="cpu", weights_only=True)
+    with open(os.path.join(path, _META_FILE)) as f:
+        metadata = json.load(f)
+    return tree, metadata
+
+
+def checkpoint_exists(path: str) -> bool:
+    return os.path.isdir(path) and os.path.exists(os.path.join(path, _META_FILE))
 
 
 def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:

@@ -4,11 +4,13 @@
 metrics that ``configs/dino/metrics.yaml`` names, in one pass on the
 device: the center's norm, the teacher's and the student's mean, unbiased
 STD and variance, and the mean teacher×student cosine similarity.
+:class:`MetricHandler` turns the ones a config's ``metrics`` list names
+into host floats, as the JAX package's name-keyed registry does.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, List
 
 import torch
 
@@ -53,3 +55,29 @@ def dino_distribution_stats(teacher, student, center,
         **_stats(s, "Student", w),
         "CosineSim": cos_mean,
     }
+
+
+# the supervised and SimMIM metrics of the JAX registry, with the queue-A
+# item that ports them
+_NOT_PORTED = {"Accuracy": 4, "F1Score": 4, "Recall": 4, "Precision": 4,
+               "PSNR": 6, "SSIM": 6}
+
+
+class MetricHandler:
+    """Name-keyed metric dispatch over a config's ``metrics`` list: each
+    DINO name reads its value from the step's ``dino_stats``."""
+
+    def __init__(self, config):
+        self.metric_names: List[str] = []
+        for name in config.get("metrics", []) or []:
+            if name in _NOT_PORTED:
+                raise NotImplementedError(
+                    f"metric '{name}' is not ported yet; see ROADMAP.md queue A "
+                    f"item {_NOT_PORTED[name]}")
+            if name not in DINO_METRICS:
+                raise ValueError(f"Unknown metric '{name}'")
+            self.metric_names.append(name)
+
+    def calculate_metrics(self, *, dino_stats: Dict[str, Any],
+                          **kwargs) -> Dict[str, float]:
+        return {name: float(dino_stats[name]) for name in self.metric_names}
