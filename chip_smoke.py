@@ -1438,27 +1438,40 @@ def phase_serving_fused(torch, fa, fm, tmp, x, unfused_out, card):
     return main_launches
 
 
-# profiler sessions a window may take (see profile_window)
+# profiler sessions a window may take, and the spin kernel's milliseconds on
+# each side of the window in the first session, doubled after each session
+# that lost events (see profile_window)
 PROFILE_SESSIONS = 5
+PROFILE_PAD_MS = 2.0
+# the name of torch.cuda._sleep's kernel, which pads a window
+PAD_KERNEL = "spin_kernel"
 
 
 def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=(), only=()):
     """Device busy and idle share of ``fn`` under ``torch.profiler``, and
     the top device operations. ``fn`` runs twice a session: a warm-up cycle
-    of the profiler, not recorded, then the recorded one. A session can lose
-    all or some of its device events (on an NVIDIA H100 80GB HBM3 with
-    torch 2.11 one now and then recorded none, whatever the window's
-    length), so sessions repeat, up to PROFILE_SESSIONS, until one records
-    some device operation, every name in ``want`` (a name or a tuple of
-    names) and, for each name of ``counts``, that many launches of kernels
-    whose names hold it; that session is the one reported. Fails if none
-    does, if a session records a kernel whose name holds one of
+    of the profiler, not recorded, then the recorded one. Kineto keeps a
+    device activity only inside the recorded cycle's window on the host
+    clock, and the card's timestamps sit off that clock by up to a few
+    hundred microseconds (``vit_ssl_tpu_torch/scripts/profiler_window_probe.py``),
+    so a short window could lose its edge kernels or all of them. The
+    recorded cycle therefore holds a spin kernel (``torch.cuda._sleep``) of
+    ``PROFILE_PAD_MS`` before ``fn`` and one after; the spins are left out
+    of every name, count and time below. Sessions repeat, up to
+    PROFILE_SESSIONS, with the pads doubled each time, until one records
+    some device operation of ``fn``, every name in ``want`` (a name or a
+    tuple of names) and, for each name of ``counts``, that many launches of
+    kernels whose names hold it; that session is the one reported. Fails if
+    none does, if a session records a kernel whose name holds one of
     ``absent``, or (with ``only``) one whose name holds none of ``only``.
     Returns (idle share, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile, schedule
+    from vit_ssl_tpu_torch.scripts.profiler_window_probe import spin_cycles_per_ms
 
     wants = (want,) if isinstance(want, str) else tuple(want)
     counts = counts or {}
+    cycles_per_ms = spin_cycles_per_ms()
+    pad_cycles = int(PROFILE_PAD_MS * cycles_per_ms)
     for session in range(1, PROFILE_SESSIONS + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1466,20 +1479,22 @@ def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=(), o
             fn()
             torch.cuda.synchronize()
             prof.step()
+            torch.cuda._sleep(pad_cycles)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda._sleep(pad_cycles)
+            torch.cuda.synchronize()
             prof.step()
         events = prof.key_averages()
-        device_names = [e.key for e in events
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and not e.key.startswith("ProfilerStep")]
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep") and PAD_KERNEL not in e.key]
+        device_names = [e.key for e in device]
         missing = [name for name in wants
                    if not any(name in key for key in device_names)]
-        launched = {name: sum(e.count for e in events
-                              if e.device_type == torch.autograd.DeviceType.CUDA
-                              and name in e.key) for name in counts}
+        launched = {name: sum(e.count for e in device if name in e.key) for name in counts}
         missing += [f"{name} x{count} (got {launched[name]})"
                     for name, count in counts.items() if launched[name] != count]
         stray = [key for key in device_names if any(name in key for name in absent)
@@ -1488,22 +1503,23 @@ def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=(), o
             fail(f"the profile of {label} names {stray}")
         if device_names and not missing:
             break
-        print(f"  profile of {label}: session {session} recorded "
+        print(f"  profile of {label}: session {session} (pads of "
+              f"{pad_cycles / cycles_per_ms:.1f} ms) recorded "
               f"{len(device_names)} device operations"
               + (f", none named {missing}" if missing else ""), flush=True)
+        pad_cycles *= 2
     else:
         fail(f"{PROFILE_SESSIONS} profiles of {label} recorded no device operation"
              + (f" named {missing}" if wants or counts else ""))
-    # device-side entries only (kernels, copies); CPU ops repeat their time,
-    # and so does the schedule's ProfilerStep range on the device
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.key.startswith("ProfilerStep"))
+    # device-side entries of fn only (kernels, copies); CPU ops repeat their
+    # time, and so does the schedule's ProfilerStep range on the device
+    device_us = sum(e.self_device_time_total for e in device)
     idle = 1 - device_us / 1e3 / wall_ms
     print(f"  profile of {label}: wall {wall_ms:.3f} ms, device busy "
           f"{device_us / 1e3:.3f} ms, device idle share {idle:.3f}"
           + (f" (session {session})" if session > 1 else ""), flush=True)
-    print(events.table(sort_by="self_device_time_total", row_limit=rows,
+    # one row more for the pads' spin kernel
+    print(events.table(sort_by="self_device_time_total", row_limit=rows + 1,
                        max_name_column_width=70), flush=True)
     return idle, device_us / 1e3
 
