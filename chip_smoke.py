@@ -16,9 +16,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               the inference forward, the training forward (output and
               softmax statistics) and the backward (dq, dk, dv), the bf16
               forward in its one-pass (N <= 256) and two-pass forms, the
-              bf16 backward in its resident (N <= 256) and streamed forms; each
-              head kept to its columns and each image to its rows, two
-              calls bit-equal; kernel B4
+              bf16 backward in its resident (N <= 256) and streamed forms,
+              also at ViT-B/16's 224-px shape (1024, 197, 12 x 64), bf16 and
+              fp32; each head kept to its columns and each image to its
+              rows, two calls bit-equal; kernel B4
               (fused MLP): its three forwards (no mask; keep-mask; keep-mask
               and saved pre) and its backward (with and without the mask)
               at every token count of the main paths, and at d_model 768 /
@@ -70,6 +71,14 @@ Phases, each printing its own lines; any failure exits non-zero:
               epoch wall seconds and images a second, the input-wait share,
               the in-loop step beside the bare warm step, each checkpoint's
               snapshot and background write, peak memory
+9b. finetune — configs/finetune.yaml composed by the port with
+              FINETUNE_OVERRIDES (ViT-S/8 at 96 px, extended transfer, the
+              backbone frozen until epoch 2), from phase 9a's DINO
+              best_model: every backbone tensor matched
+              (``check_loaded_model``), ``SupervisedTrainer.fit(2)`` over
+              1300 in-memory labeled images with B1's launches exact in
+              each step, the frozen tensors unchanged bit for bit through
+              epoch 1 and moved after the unfreeze
 10. B3 kernels — kernel B3 (head-major fused attention) against its plain
               versions: inference forward, training forward and backward at
               ViT-B/16's (64, 12, 577, 64), at N = 1, N = 1024 and ragged N,
@@ -123,7 +132,23 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``vit_ssl_tpu_torch/scripts/dropout_epilogue_probe.py``, P2's
               path: the epilogue FFN checked against the plain FFN, its five
               legs timed, the derived lines and the retire rule's verdict
-19. a JSON line describing every kernel (B4 once at each width), then the
+19. B1 at ViT-B/16's 224-px shape — kernel, plain, SDPA and bound of
+              B1's three entries at (1024, 197, 12 x 64) bf16
+20. ViT-B/16 trainer — configs/vit_b_imagenet.yaml composed by the port as
+              written (remat on, batch 1024, 224 px, 1000 classes, device
+              augmentation; only ``eval.interval=0``), through
+              ``SupervisedTrainer.fit(2)`` over 2600 in-memory uint8 images
+              (3 train and 1 val steps an epoch) and a resumed epoch 3:
+              B1's launches exact in every step (24 training forwards, the
+              checkpointed blocks' first forward and their recompute, and
+              12 backwards a train step; 12 inference forwards a val step),
+              no plain attention, peak memory, the in-loop and warm steps,
+              img/s, a profile of one step, agreement with the
+              plain-attention step from one cloned state
+21. remat against no remat — the same step at batch 128 from one cloned
+              state with ``parallel.remat`` on and off: agreement, both
+              peak memories and both device-busy times
+22. a JSON line describing every kernel (B4 once at each width), then the
               JSON ``ok`` line last.
 
 Imports neither JAX nor the JAX package, and needs no PIL, OpenCV or YAML.
@@ -133,6 +158,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import re
 import subprocess
@@ -204,7 +230,8 @@ DINO_VIT_S8 = {
 }
 # The supervised ViT-B/16 at 384 px: configs/vit_b_imagenet.yaml composed
 # with data.img_size=384 parallel.remat=false training.batch_size=64 (one
-# card's share of the global batch of 1024; remat is not ported);
+# card's share of the global batch of 1024, which fits without remat: the
+# legs time the step without its second forward);
 # tests/test_torch_guards.py pins every value here to that composition.
 SUPERVISED_TRAIN = [
     {"name": "RandomResizedCrop", "params": {"size": 384, "scale": [0.9, 1.0]}},
@@ -261,6 +288,48 @@ VIT_B16_384_FUSED["model"]["use_fused_mlp"] = True
 # configs/vit_b_imagenet.yaml composed with data.img_size=512
 # parallel.remat=false training.batch_size=64.
 VIT_B16_512 = supervised_config(512)
+# ViT-B/16 at 224 px as configs/vit_b_imagenet.yaml is written: remat on,
+# the global batch of 1024 on one card; tests/test_torch_guards.py pins every
+# value here to the port's composition of it
+VIT_B16_224 = copy.deepcopy(VIT_B16_384)
+VIT_B16_224["training"].update(batch_size=1024, criterion={"name": "CrossEntropyLoss"})
+VIT_B16_224["data"].update(img_size=224, dataset_name="imagefolder")
+VIT_B16_224["parallel"]["remat"] = True
+VIT_B16_224["transforms"]["train"][0]["params"]["size"] = 224
+VIT_B16_224["metrics"] = ["Accuracy", "F1Score", "Recall", "Precision"]
+# the one override: an automatic evaluation is refused (ROADMAP.md queue A
+# item 7); 2600 in-memory images make 3 train steps (2496 images) and 1 val
+# step (104) an epoch at the config's val_split 0.04
+VIT_B16_224_OVERRIDES = ["eval.interval=0"]
+VIT_B16_224_IMAGES = 2600
+REMAT_BATCH = 128
+# configs/finetune.yaml at DINO ViT-S/8's width (the base model, patch 8 at
+# 96 px), taking phase 9a's DINO best_model through the extended transfer
+# with the backbone frozen until epoch 2; tests/test_torch_guards.py pins
+# FINETUNE_S8 to the port's composition with FINETUNE_OVERRIDES
+FINETUNE_OVERRIDES = ["model.patch_size=8", "data.img_size=96",
+                      "training.extended_transfer=true", "training.freeze_backbone=true",
+                      "+freeze_backbone_epochs=2", "data.device_augment=true",
+                      "eval.interval=0"]
+FINETUNE_S8 = {
+    "training": {"type": "finetune", "batch_size": 128, "extended_transfer": True,
+                 "freeze_backbone": True, "warmup_epochs": 10,
+                 "optimizer": {"name": "AdamW", "params": {"weight_decay": 0.001}},
+                 "criterion": {"name": "CrossEntropyLoss"}},
+    "model": {key: DINO_VIT_S8["model"][key] for key in (
+        "in_channels", "embed_dim", "num_blocks", "num_heads", "mlp_dim", "patch_size",
+        "dropout", "fast_dropout", "use_fused_mlp", "compute_dtype")},
+    "data": {"img_size": 96, "device_augment": True, "val_split": 0.2},
+    "parallel": {"remat": False},
+    "freeze_backbone_epochs": 2,
+    "transforms": {"train": [
+        {"name": "RandomResizedCrop", "params": {"size": 96, "scale": [0.9, 1.0]}},
+        {"name": "RandomHorizontalFlip", "params": {}},
+        {"name": "ToTensor"}]},
+    "metrics": ["Accuracy"],
+}
+FINETUNE_S8["model"]["num_classes"] = 10
+FINETUNE_IMAGES = 1300  # in-memory uint8 96 x 96 x 3 images: 1040 train, 260 val
 GLOBAL_BATCH = 1024  # configs/vit_b_imagenet.yaml's training.batch_size
 IMAGENET_TRAIN = 1_281_167  # images of ImageNet-1k's train split
 SERVE_BATCH = 128
@@ -285,6 +354,8 @@ ATTENTION_CASES = [
     (16, 148, 3, 128, "float32", 37),
     (4, 1, 6, 64, "bfloat16", 0),
     (4, 1, 6, 64, "float32", 0),
+    (1024, 197, 12, 64, "bfloat16", 0),
+    (1024, 197, 12, 64, "float32", 0),
 ]
 # The training forward and backward: the student globals and packed locals
 # first (bf16 and fp32), then the other shapes the kernels take
@@ -298,7 +369,11 @@ TRAIN_CASES = [
     (16, 148, 3, 128, "bfloat16", 37),
     (8, 1024, 6, 64, "bfloat16", 0),
     (4, 1, 6, 64, "bfloat16", 0),
+    (1024, 197, 12, 64, "bfloat16", 0),
+    (1024, 197, 12, 64, "float32", 0),
 ]
+# ViT-B/16 at 224 px (configs/vit_b_imagenet.yaml): B1's shape on that path
+VIT_B_B1_CASE = (1024, 197, 12, 64, "bfloat16", 0)
 # gradients and statistics: max |kernel - plain| over max |plain|. bf16: p
 # and ds round to bf16 on both sides and may land on either side of a tie;
 # fp32: sums in another order
@@ -586,7 +661,8 @@ def b1_forward_row(torch, fa, entry, label, xq, xk, xv, h, scale, bs, bound):
           f"kernel {first:.4f} / {second:.4f} ms through the wrapper back to back, "
           f"{row['wrapper_host_us']:.1f} us a call on the host; the C entry alone "
           f"{row['bare_ms']:.4f} ms; the mma.sync body it replaced "
-          f"{B1_MMA_SYNC_MS[key]} ms (recorded), plain {row['plain_ms']:.4f} ms, "
+          f"{B1_MMA_SYNC_MS.get(key, 'not measured')} ms (recorded), plain "
+          f"{row['plain_ms']:.4f} ms, "
           f"SDPA{' (boolean attn_mask)' if bs else ''} {row['library_ms']:.4f} ms, "
           f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
     return {"ms": min(first, second), "ms_readings": [first, second], **row,
@@ -764,40 +840,42 @@ def b1_isolation(torch, fa):
     Then two calls of each entry bit-equal at the serving and training
     shapes."""
     tol = GRAD_REL_TOL["bfloat16"]
-    for n in (145, 577):
-        xq, xk, xv = qkv(3, n, 3, 64, torch.bfloat16, seed=90 + n)
-        (do,) = qkv(3, n, 3, 64, torch.bfloat16, seed=91 + n)[:1]
+    for n, h in ((145, 3), (577, 3), (197, 12)):
+        xq, xk, xv = qkv(3, n, h, 64, torch.bfloat16, seed=90 + n)
+        (do,) = qkv(3, n, h, 64, torch.bfloat16, seed=91 + n)[:1]
         for x in (xq, xk, xv, do):
-            x.view(3, n, 3, 64)[:, :, 1] = float("inf")
+            x.view(3, n, h, 64)[:, :, 1] = float("inf")
             x[1] = float("nan")
-        out = fa.attention_nhd_fwd(xq, xk, xv, 3, 0.125)
-        out_t, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, 3, 0.125)
-        grads = fa.attention_nhd_bwd(xq, xk, xv, do, stats, 3, 0.125)
+        out = fa.attention_nhd_fwd(xq, xk, xv, h, 0.125)
+        out_t, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, 0.125)
+        grads = fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, 0.125)
         torch.cuda.synchronize()
         ok, errs, grad_errs = True, [], []
         for img in (0, 2):
-            for head in (0, 2):
-                alone = [x.view(3, n, 3, 64)[img:img + 1, :, head].contiguous()
+            for head in sorted({0, 2, h - 1}):
+                alone = [x.view(3, n, h, 64)[img:img + 1, :, head].contiguous()
                          for x in (xq, xk, xv, do)]
                 ref = fa.attention_nhd_reference(*alone[:3], 1, 0.125)
                 for got in (out, out_t):
-                    got = got.view(3, n, 3, 64)[img:img + 1, :, head]
+                    got = got.view(3, n, h, 64)[img:img + 1, :, head]
                     ok = ok and forward_ok(torch, got, ref, "bfloat16")[0]
                     errs.append(max_abs(got, ref))
                 ok = ok and bool(torch.isfinite(stats[img, head, :n]).all())
                 want = fa.attention_nhd_bwd_reference(*alone, 1, 0.125)
                 for g, w in zip(grads, want):
-                    g = g.view(3, n, 3, 64)[img:img + 1, :, head]
+                    g = g.view(3, n, h, 64)[img:img + 1, :, head]
                     grad_errs.append(rel_err(g, w))
                     ok = ok and bool(torch.isfinite(g).all()) and grad_errs[-1] <= tol
-        print(f"  isolation (3,{n},3x64) bfloat16 ({fa.attention_nhd_form(n)} forward, "
+        print(f"  isolation (3,{n},{h}x64) bfloat16 ({fa.attention_nhd_form(n)} forward, "
               f"{fa.attention_nhd_bwd_form(n, 0, torch.bfloat16)} backward), head 1 all inf, "
-              f"image 1 all NaN: heads 0 and 2 of images 0 and 2 against each head alone, "
+              f"image 1 all NaN: heads {sorted({0, 2, h - 1})} of images 0 and 2 against "
+              f"each head alone, "
               f"forward max_abs_err {max(errs):.3e}, dq/dk/dv rel_err {max(grad_errs):.3e} "
               f"({tol}) {'ok' if ok else 'MISS'}", flush=True)
         if not ok:
             fail(f"B1 reads past its head or image at N = {n}")
-    for b, n, h, d, _, bs in (ATTENTION_CASES[0], TRAIN_CASES[0], TRAIN_CASES[2]):
+    for b, n, h, d, _, bs in (ATTENTION_CASES[0], TRAIN_CASES[0], TRAIN_CASES[2],
+                              VIT_B_B1_CASE):
         xq, xk, xv = qkv(b, n, h, d, torch.bfloat16, seed=95)
         (do,) = qkv(b, n, h, d, torch.bfloat16, seed=96)[:1]
         first, second = (fa.attention_nhd_fwd_stats(xq, xk, xv, h, 0.125, bs)
@@ -1861,30 +1939,8 @@ def phase_training_times(torch, fa, state, train_step, batch, warm_ms, card):
         rows[("fwd", bs)] = b1_forward_row(torch, fa, fa.KERNEL_TRAIN, "", xq, xk, xv,
                                            h, scale, bs, bounds["fwd"])
 
-        _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)
-        first = cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs))
-        plain_ms = cuda_ms(lambda: fa.attention_nhd_bwd_reference(
-            xq, xk, xv, do, h, scale, bs))
-        bare_ms = cuda_ms(b1_bare(torch, fa, fa.KERNEL_BWD, xq, xk, xv, h, scale, bs,
-                                  grad=(do, stats)))
-        host = host_us(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs))
-        second = cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs))
-        sdpa = sdpa_backward_ms(torch, xq, xk, xv, do, h, scale, bs)
-        form = fa.attention_nhd_bwd_form(n, bs, xq.dtype)
-        print(f"  attention_nhd_bwd ({b},{n},{h}x{d}) {dtype_name} block_size={bs} ({form}): "
-              f"kernel {first:.4f} / {second:.4f} ms through the wrapper, {host:.1f} us a "
-              f"call on the host; the C entry alone "
-              f"{bare_ms:.4f} ms; the mma.sync body it replaced "
-              f"{B1_MMA_SYNC_MS[('bwd', b, n, bs)]} ms (recorded), plain {plain_ms:.4f} ms, "
-              f"SDPA{' (boolean attn_mask)' if bs else ''} {sdpa['library_ms']:.4f} ms "
-              f"(its best reading), bound {bounds['bwd'][0]:.4f} ms ({bounds['bwd'][1]})",
-              flush=True)
-        rows[("bwd", bs)] = {"ms": min(first, second), "ms_readings": [first, second],
-                             "bare_ms": bare_ms, "wrapper_host_us": host, "plain_ms": plain_ms,
-                             "bound_ms": bounds["bwd"][0], "bound_by": bounds["bwd"][1],
-                             **sdpa, "form": form,
-                             "kernels": list(fa.BACKWARD_BODIES[form]),
-                             "shape": [b, n, h, d, bs]}
+        rows[("bwd", bs)] = b1_backward_row(torch, fa, xq, xk, xv, do, h, scale, bs,
+                                            bounds["bwd"])
 
     # the teacher's inference forward at the globals' shape
     b, n, h, d, dtype_name, bs = TRAIN_CASES[0]
@@ -1908,6 +1964,38 @@ def phase_training_times(torch, fa, state, train_step, batch, warm_ms, card):
                          *backward),
                    counts={name: launches for name in backward})
     return rows
+
+
+def b1_backward_row(torch, fa, xq, xk, xv, do, h, scale, bs, bound):
+    """B1's bf16 backward at one shape: ``ms`` through the wrapper, back to
+    back (twice, around the plain version's), the wrapper's host
+    microseconds a call, ``bare_ms`` (the C entry alone) and SDPA's
+    backward (:func:`sdpa_backward_ms`), printed beside ``bound`` and the
+    mma.sync body's recorded time; returns the row of the kernels line."""
+    b, n, hd = xq.shape
+    d = hd // h
+    dtype_name = str(xq.dtype).removeprefix("torch.")
+    _, stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale, bs)
+    first = cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs))
+    plain_ms = cuda_ms(lambda: fa.attention_nhd_bwd_reference(xq, xk, xv, do, h, scale, bs))
+    bare_ms = cuda_ms(b1_bare(torch, fa, fa.KERNEL_BWD, xq, xk, xv, h, scale, bs,
+                              grad=(do, stats)))
+    host = host_us(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs))
+    second = cuda_ms(lambda: fa.attention_nhd_bwd(xq, xk, xv, do, stats, h, scale, bs))
+    sdpa = sdpa_backward_ms(torch, xq, xk, xv, do, h, scale, bs)
+    form = fa.attention_nhd_bwd_form(n, bs, xq.dtype)
+    print(f"  attention_nhd_bwd ({b},{n},{h}x{d}) {dtype_name} block_size={bs} ({form}): "
+          f"kernel {first:.4f} / {second:.4f} ms through the wrapper, {host:.1f} us a "
+          f"call on the host; the C entry alone "
+          f"{bare_ms:.4f} ms; the mma.sync body it replaced "
+          f"{B1_MMA_SYNC_MS.get(('bwd', b, n, bs), 'not measured')} ms (recorded), plain "
+          f"{plain_ms:.4f} ms, SDPA{' (boolean attn_mask)' if bs else ''} "
+          f"{sdpa['library_ms']:.4f} ms (its best reading), bound {bound[0]:.4f} ms "
+          f"({bound[1]})", flush=True)
+    return {"ms": min(first, second), "ms_readings": [first, second],
+            "bare_ms": bare_ms, "wrapper_host_us": host, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], **sdpa, "form": form,
+            "kernels": list(fa.BACKWARD_BODIES[form]), "shape": [b, n, h, d, bs]}
 
 
 SDPA_REPEATS = 5  # readings of each way of feeding SDPA's backward, in turns
@@ -2200,6 +2288,396 @@ def state_mismatch(torch, got, want, where="state"):
                 return found
         return None
     return None if got == want else where
+
+
+class InMemoryLabeled:
+    """A labeled dataset's item interface (a uint8 HWC image and its class)
+    over images held in memory: the card's machine has no decoder."""
+
+    def __init__(self, images, labels):
+        self.images, self.labels = images, labels
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx, rng=None):
+        return self.images[idx], int(self.labels[idx])
+
+
+def epoch_recorder(trainer, record):
+    """Wrap ``trainer.train_epoch`` to time each epoch (host clock; the
+    epoch ends in its one host fetch) and call ``record(epoch)`` after
+    it; returns the list of epoch seconds."""
+    epoch_s = []
+    train_epoch = trainer.train_epoch
+
+    def timed(epoch):
+        t0 = time.perf_counter()
+        metrics = train_epoch(epoch)
+        epoch_s.append(time.perf_counter() - t0)
+        record(epoch)
+        return metrics
+
+    trainer.train_epoch = timed
+    return epoch_s
+
+
+def check_step_launches(logs, want_counts, steps):
+    """Every logged step launched exactly its ``want_counts`` entry (by
+    kind), and each kind ran its expected number of steps."""
+    for kind, log in logs.items():
+        if len(log) != steps[kind]:
+            fail(f"{len(log)} {kind} steps ran, expected {steps[kind]}")
+        for i, (_, got, _) in enumerate(log):
+            if got != want_counts[kind]:
+                fail(f"{kind} step {i} launched {got}, expected {want_counts[kind]}")
+
+
+def finite_history(trainer, epochs):
+    history = trainer.history.history
+    bad = [k for k, v in history.items() if not all(np.isfinite(v))]
+    if bad or len(history.get("train_Loss", [])) != epochs:
+        fail(f"trainer epoch metrics not finite or missing: {bad or history}")
+    for epoch in range(1, epochs + 1):
+        print(f"  epoch {epoch}: " + ", ".join(
+            f"{k} {history[k][epoch - 1]:.6g}" for k in sorted(history)), flush=True)
+
+
+def phase_finetune(torch, fa, card, pretrained, tmp):
+    """configs/finetune.yaml at DINO ViT-S/8's width from phase 9a's DINO
+    ``best_model``: every backbone tensor matched, ``fit(2)`` across the
+    unfreeze at epoch 2 with B1's launches exact in every step, the frozen
+    tensors unchanged bit for bit through epoch 1 and moved after it.
+    Returns the path's launches."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose, to_container, validate_train_config
+    from vit_ssl_tpu_torch.data.builder import make_loaders
+    from vit_ssl_tpu_torch.models.builder import build_model, freeze_backbone_mask
+    from vit_ssl_tpu_torch.train.__main__ import get_trainer
+
+    configs = Path(__file__).resolve().parent / "configs"
+    run_dir = str(Path(tmp) / "finetune")
+    overrides = FINETUNE_OVERRIDES + [f"training.pretrained_path={pretrained}",
+                                      f"hydra.run.dir={run_dir}"]
+    print(f"== finetune: configs/finetune.yaml composed by vit_ssl_tpu_torch.config "
+          f"with {' '.join(FINETUNE_OVERRIDES)}, from the DINO trainer's best_model; "
+          f"fit(2) over {FINETUNE_IMAGES} in-memory labeled images; {card}", flush=True)
+    config = compose(configs, "finetune", overrides)
+    validate_train_config(config)
+    diffs = config_differences(FINETUNE_S8, to_container(config))
+    if diffs:
+        fail("the composed configs/finetune.yaml differs from FINETUNE_S8: "
+             + "; ".join(diffs))
+    rng = np.random.default_rng(10)
+    img, classes = FINETUNE_S8["data"]["img_size"], FINETUNE_S8["model"]["num_classes"]
+    dataset = InMemoryLabeled(
+        rng.integers(0, 256, (FINETUNE_IMAGES, img, img, 3), dtype=np.uint8),
+        rng.integers(0, classes, FINETUNE_IMAGES))
+    train_loader, val_loader = make_loaders(config, dataset)
+    trainer = get_trainer("finetune", build_model(config, "cuda"), run_dir, config,
+                          train_loader, val_loader, "cuda")
+    network = trainer.network
+    backbone = [k for k in network.state_dict()
+                if k.startswith(("encoder_blocks.", "patch_embedding."))]
+    print(f"  check_loaded_model: {trainer.loaded} ({len(backbone)} backbone tensors)",
+          flush=True)
+    if trainer.loaded != {"matched": len(backbone), "mismatched": 0}:
+        fail(f"the finetune ViT matched {trainer.loaded} of {len(backbone)} backbone "
+             "tensors of the DINO checkpoint")
+    start = {k: v.detach().clone() for k, v in network.state_dict().items()}
+    frozen = [k for k, t in freeze_backbone_mask(network).items() if not t]
+    seen = []
+
+    def record(epoch):
+        sd = network.state_dict()
+        seen.append((epoch, trainer.state.step, trainer.state.opt_state.count,
+                     sum(not torch.equal(sd[k], start[k]) for k in frozen)))
+
+    epoch_s = epoch_recorder(trainer, record)
+    train_log, val_log = [], []
+    build_steps = trainer._build_steps
+
+    def counted_build():  # the unfreeze builds the steps anew
+        build_steps()
+        trainer.train_step = counted_steps(trainer.train_step, train_log)
+        trainer.eval_step = counted_steps(trainer.eval_step, val_log)
+
+    trainer._build_steps = counted_build
+    counted_build()
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the finetune path starts here
+        trainer.fit(2)
+        launches = dict(kernels.launches)  # ... and ends here
+    blocks = FINETUNE_S8["model"]["num_blocks"]
+    steps = len(train_loader)
+    check_step_launches({"train": train_log, "val": val_log},
+                        {"train": {fa.KERNEL_TRAIN: blocks, fa.KERNEL_BWD: blocks},
+                         "val": {fa.KERNEL: blocks}},
+                        {"train": 2 * steps, "val": 2 * len(val_loader)})
+    print(f"  launches over fit(2): {launches}; (epoch, step, optimizer count, frozen "
+          f"tensors changed of {len(frozen)}) after each epoch: {seen}", flush=True)
+    if seen[0] != (1, steps, steps, 0) or seen[1][:3] != (2, 2 * steps, steps) \
+            or not seen[1][3]:
+        fail(f"finetune epochs {seen}: expected the {len(frozen)} frozen tensors "
+             "unchanged through epoch 1, the optimizer rebuilt at epoch 2 and the "
+             "backbone moving after it")
+    finite_history(trainer, 2)
+    for epoch, t in enumerate(epoch_s, 1):
+        print(f"  epoch {epoch} on {card}: train {t:.3f} s wall for "
+              f"{len(train_loader.dataset)} images "
+              f"({len(train_loader.dataset) / t:.1f} img/s)", flush=True)
+    # the wrapped epoch and step functions hold the trainer in reference
+    # cycles: collect them, so that later phases' peak memory starts clean
+    del trainer, network, start
+    gc.collect()
+    return launches
+
+
+def phase_b1_vit_b_times(torch, fa, card):
+    """B1's three entries at ViT-B/16's 224-px shape, bf16: kernel, plain,
+    SDPA and bound (the rows of the kernels line)."""
+    b, n, h, d, dtype_name, bs = VIT_B_B1_CASE
+    print(f"== B1 at ViT-B/16's 224-px shape ({b},{n},{h}x{d}) {dtype_name} on {card}",
+          flush=True)
+    dtype = getattr(torch, dtype_name)
+    xq, xk, xv = qkv(b, n, h, d, dtype, seed=310)
+    (do,) = qkv(b, n, h, d, dtype, seed=311)[:1]
+    scale = 1.0 / d ** 0.5
+    bounds = attention_train_bounds(b, n, h, d, dtype_name, bs)
+    return {
+        "fwd": b1_forward_row(torch, fa, fa.KERNEL, ", ViT-B/16 eval", xq, xk, xv, h,
+                              scale, bs, attention_bound(b, n, h, d, dtype_name, bs)),
+        "fwd_stats": b1_forward_row(torch, fa, fa.KERNEL_TRAIN, ", ViT-B/16 training",
+                                    xq, xk, xv, h, scale, bs, bounds["fwd"]),
+        "bwd": b1_backward_row(torch, fa, xq, xk, xv, do, h, scale, bs, bounds["bwd"]),
+    }
+
+
+def remat_launches(fa, blocks, remat=True):
+    """B1's launches in one supervised ViT training step at N <= 256: with
+    remat each checkpointed block runs the training forward twice (its
+    first forward, non-reentrant, keeps grad mode on; then the recompute in
+    the backward)."""
+    return {fa.KERNEL_TRAIN: (2 if remat else 1) * blocks, fa.KERNEL_BWD: blocks}
+
+
+def phase_vit_b_trainer(torch, fa, card, tmp):
+    """configs/vit_b_imagenet.yaml as written (remat on, batch 1024,
+    224 px) through ``SupervisedTrainer.fit(2)`` and a resumed epoch 3,
+    B1's launches exact in every step; peak memory, the in-loop and warm
+    steps, img/s; agreement with the plain-attention step from one cloned
+    state. Returns the launches of both runs."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose, to_container, validate_train_config
+    from vit_ssl_tpu_torch.data.builder import make_loaders
+    from vit_ssl_tpu_torch.models.builder import build_model
+    from vit_ssl_tpu_torch.train.__main__ import get_save_path, get_trainer, save_run_config
+    from vit_ssl_tpu_torch.train.trainers.base import to_host
+    from vit_ssl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    configs = Path(__file__).resolve().parent / "configs"
+    run_dir = str(Path(tmp) / "vit_b")
+    overrides = VIT_B16_224_OVERRIDES + [f"hydra.run.dir={run_dir}"]
+    print(f"== ViT-B/16 trainer: configs/vit_b_imagenet.yaml composed by "
+          f"vit_ssl_tpu_torch.config as written with {' '.join(VIT_B16_224_OVERRIDES)}; "
+          f"fit(2) over {VIT_B16_224_IMAGES} in-memory images, then a resumed epoch 3; "
+          f"{card}", flush=True)
+    plain = to_container(compose(configs, "vit_b_imagenet"))
+    diffs = config_differences(VIT_B16_224, plain)
+    config = compose(configs, "vit_b_imagenet", overrides)
+    validate_train_config(config)
+    composed = to_container(config)
+    for key in ("training", "model", "data", "parallel", "transforms", "metrics"):
+        if composed[key] != plain[key]:
+            diffs.append(f"the overrides changed config.{key}")
+    if diffs:
+        fail("the composed configs/vit_b_imagenet.yaml differs from VIT_B16_224: "
+             + "; ".join(diffs))
+    print("  composed config: training, model, data, parallel (remat on), transforms "
+          "and metrics as written, equal to VIT_B16_224", flush=True)
+
+    rng = np.random.default_rng(9)
+    img, classes = VIT_B16_224["data"]["img_size"], VIT_B16_224["model"]["num_classes"]
+    dataset = InMemoryLabeled(
+        rng.integers(0, 256, (VIT_B16_224_IMAGES, img, img, 3), dtype=np.uint8),
+        rng.integers(0, classes, VIT_B16_224_IMAGES))
+
+    def trainer_for(path):
+        train_loader, val_loader = make_loaders(config, dataset)
+        return get_trainer("supervised", build_model(config, "cuda"), path, config,
+                           train_loader, val_loader, "cuda"), train_loader, val_loader
+
+    save_path = get_save_path(config)
+    save_run_config(config, overrides, save_path)
+    trainer, train_loader, val_loader = trainer_for(save_path)
+    if not trainer.network.remat:
+        fail("the composed config built a ViT without remat")
+    real = (len(train_loader.dataset), len(val_loader.dataset))
+    print(f"  loaders: {real[0]} train images in {len(train_loader)} steps, {real[1]} "
+          f"val images in {len(val_loader)} steps, batch {train_loader.batch_size}, "
+          f"{train_loader.num_workers} workers", flush=True)
+    step_fn = trainer.train_step
+    train_log, val_log = [], []
+    trainer.train_step = counted_steps(trainer.train_step, train_log)
+    trainer.eval_step = counted_steps(trainer.eval_step, val_log)
+    epoch_s = epoch_recorder(trainer, lambda epoch: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the ViT-B/16 trainer's path starts here
+        trainer.fit(2)
+        launches = dict(kernels.launches)  # ... and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    blocks = VIT_B16_224["model"]["num_blocks"]
+    per_train, per_val = remat_launches(fa, blocks), {fa.KERNEL: blocks}
+    check_step_launches({"train": train_log, "val": val_log},
+                        {"train": per_train, "val": per_val},
+                        {"train": 2 * len(train_loader), "val": 2 * len(val_loader)})
+    print(f"  launches over fit(2): {launches} (per train step {per_train}, per val "
+          f"step {per_val}); no plain attention ran", flush=True)
+    finite_history(trainer, 2)
+    meta = {name: json.loads((Path(save_path) / name / "metadata.json").read_text())
+            for name in ("best_model", "last_model")}
+    last = meta["last_model"]
+    if (last["epoch"], last["mode"], last["config"]) != (2, "supervised", composed):
+        fail(f"last_model metadata: epoch {last['epoch']}, mode {last['mode']}")
+    print(f"  best_model: epoch {meta['best_model']['epoch']}, best_val_acc "
+          f"{meta['best_model']['best_val_acc']:.6g}; last_model: epoch 2", flush=True)
+
+    batch = trainer._put(next(iter(train_loader)))
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step_fn(trainer.state, batch)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    warm_ms = float(np.median(host_ms))
+    b = VIT_B16_224["training"]["batch_size"]
+    in_loop_ms = [t / len(train_loader) * 1e3 for t in epoch_s]
+    for epoch, t in enumerate(epoch_s, 1):
+        print(f"  epoch {epoch} on {card}: train {t:.3f} s wall for {real[0]} images "
+              f"({real[0] / t:.1f} img/s; {in_loop_ms[epoch - 1]:.1f} ms a step), "
+              f"input-wait share "
+              f"{trainer.epoch_input_stats[epoch - 1]['wait_s'] / trainer.epoch_input_stats[epoch - 1]['wall_s']:.4f}",
+              flush=True)
+    print(f"  ViT-B/16 224 px training, remat on, batch {b}, on {card}: warm step "
+          f"{warm_ms:.3f} ms median of 3 ({' / '.join(f'{x:.3f}' for x in host_ms)}; "
+          f"{b / warm_ms * 1e3:.1f} img/s), host clock with torch.cuda.synchronize(), "
+          f"device augmentation included; peak memory over fit(2) {peak_gb:.2f} GB "
+          "(torch.cuda.max_memory_allocated)", flush=True)
+    for save in trainer.save_times:
+        print(f"  checkpoint {save['name']} of epoch {save['epoch']}: snapshot "
+              f"{save['snapshot_ms']:.1f} ms, background write {save['write_s']:.3f} s",
+              flush=True)
+    idle, busy_ms = profile_window(torch, lambda: step_fn(trainer.state, batch),
+                                   f"1 ViT-B/16 training step at batch {b} (remat)",
+                                   rows=16)
+
+    kernel_state, plain_state = copy.deepcopy(trainer.state), copy.deepcopy(trainer.state)
+    got = step_fn(kernel_state, batch, with_grads=True)
+    counted = dict(kernels.launches)
+    with plain_attention():
+        want = step_fn(plain_state, batch, with_grads=True)
+    torch.cuda.synchronize()
+    if dict(kernels.launches) != counted:
+        fail("the plain-attention step launched a kernel")
+    del kernel_state, plain_state
+
+    def exact_step():
+        exact_state = copy.deepcopy(trainer.state)
+        with exact_attention(torch):
+            return step_fn(exact_state, batch, with_grads=True)
+
+    judge(torch, "plain attention", got, want, exact_step)
+    del got, want, batch
+    saved, _ = load_checkpoint(str(Path(save_path) / "last_model"))
+    del trainer
+
+    resumed, _, _ = trainer_for(save_path)
+    resumed.resume_from(str(Path(save_path) / "last_model"))
+    mismatch = state_mismatch(torch, to_host(resumed.state.state_dict()), saved)
+    if mismatch or resumed.start_epoch != 2:
+        fail(f"the resumed state differs from last_model at {mismatch} (start epoch "
+             f"{resumed.start_epoch})")
+    del saved
+    resumed_log = []
+    resumed.train_step = counted_steps(resumed.train_step, resumed_log)
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the resumed run starts here
+        resumed.fit(1)
+        resumed_launches = dict(kernels.launches)  # ... and ends here
+    check_step_launches({"train": resumed_log}, {"train": per_train},
+                        {"train": len(train_loader)})
+    if resumed.state.step != 3 * len(train_loader):
+        fail(f"the resumed epoch 3 ended at step {resumed.state.step}")
+    print(f"  resumed from last_model: state bit-equal to the file; epoch 3 ended at "
+          f"step {resumed.state.step}; launches {resumed_launches}", flush=True)
+    del resumed
+    gc.collect()
+    return launches, resumed_launches, {"warm_ms": warm_ms, "peak_gb": peak_gb,
+                                        "in_loop_ms": in_loop_ms, "busy_ms": busy_ms,
+                                        "idle": idle}
+
+
+def phase_remat(torch, fa, card):
+    """The ViT-B/16 224-px step at batch REMAT_BATCH with ``parallel.remat``
+    on and off from one cloned state: exact launches, agreement, each
+    step's peak memory above what the states hold, each leg's device busy
+    a step. Returns the launches of both legs."""
+    from vit_ssl_tpu_torch import kernels
+
+    cfg = copy.deepcopy(VIT_B16_224)
+    cfg["training"]["batch_size"] = REMAT_BATCH
+    blocks = cfg["model"]["num_blocks"]
+    print(f"== remat against no remat: ViT-B/16 224 px train_step at batch "
+          f"{REMAT_BATCH}, dropout 0.1, from one cloned state; {card}", flush=True)
+    state, train_step, _, batch = build_supervised_training(torch, cfg)
+    for _ in range(2):  # warm-up steps
+        train_step(state, batch)
+    start = copy.deepcopy(state)  # the fp64 yardstick's start, if judge needs it
+    legs = {"remat": copy.deepcopy(state), "no remat": state}
+    legs["no remat"].model.remat = False
+    outs, peaks, paths = {}, {}, {}
+    for name, leg in legs.items():
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with no_plain_attention(fa):
+            kernels.launches.clear()  # the leg's step starts here
+            outs[name] = train_step(leg, batch, with_grads=True)
+            torch.cuda.synchronize()
+            paths[name] = dict(kernels.launches)  # ... and ends here
+        peaks[name] = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        want = remat_launches(fa, blocks, name == "remat")
+        if paths[name] != want:
+            fail(f"the {name} step launched {paths[name]}, expected {want}")
+    same = torch.equal(outs["remat"]["loss"], outs["no remat"]["loss"]) and all(
+        torch.equal(g, outs["no remat"]["grads"][k]) for k, g in outs["remat"]["grads"].items())
+    print(f"  launches: remat {paths['remat']}, no remat {paths['no remat']}; loss and "
+          f"gradients {'bit-equal' if same else 'not bit-equal'}", flush=True)
+
+    def exact_step():
+        with exact_attention(torch):
+            return train_step(start, batch, with_grads=True)
+
+    judge(torch, "no remat", outs["remat"], outs["no remat"], exact_step,
+          names=("remat", "no remat"))
+    del outs, start
+    busy = {}
+    for name, leg in legs.items():
+        def three_steps(leg=leg):
+            for _ in range(3):
+                train_step(leg, batch)
+
+        _, busy_ms = profile_window(torch, three_steps, f"3 training steps, {name}",
+                                    rows=12)
+        busy[name] = busy_ms / 3
+    print(f"  on {card}: step peak above the resident states {peaks['remat']:.2f} GB "
+          f"with remat, {peaks['no remat']:.2f} GB without ({peaks['remat'] / peaks['no remat']:.3f}x); "
+          f"device busy a step {busy['remat']:.2f} ms with remat, {busy['no remat']:.2f} "
+          f"ms without ({busy['remat'] / busy['no remat']:.3f}x)", flush=True)
+    del legs, state
+    return {"remat_step": paths["remat"], "no_remat_step": paths["no remat"]}
 
 
 # (entry, T, keep-mask, (d_model, d_ff)): at DINO ViT-S/8's width the
@@ -2883,6 +3361,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trainer_launches, resumed_launches, _ = phase_trainer(torch, fa, card, warm_ms,
                                                               tmp)
+        finetune_launches = phase_finetune(torch, fa, card,
+                                           Path(tmp) / "run" / "best_model", tmp)
     mlp_stats = phase_mlp_times(torch, fm, card)
     blocks = VIT_B16_384["model"]["num_blocks"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2916,6 +3396,10 @@ def main() -> int:
     probe_launches, p1_stats, p1_err = phase_exp2_probe(torch, fb, card)
     masked_stats = phase_masked_times(torch, mm, card)
     dropout_probe_launches, _ = phase_dropout_probe(torch, fm, mm, card)
+    vit_b_rows = phase_b1_vit_b_times(torch, fa, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        vit_b_launches, vit_b_resumed_launches, _ = phase_vit_b_trainer(torch, fa, card, tmp)
+    remat_paths = phase_remat(torch, fa, card)
 
     b, n, h, d, dtype_name, bs = ATTENTION_CASES[0]
     xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=200)
@@ -2928,20 +3412,27 @@ def main() -> int:
     # with the other main-path shapes of its entry (the teacher's; the packed
     # locals) listed beside
     locals_case = TRAIN_CASES[2]
+    # and ViT-B/16's 224-px shape (the training forward's output is
+    # bit-equal to the inference kernel's, so both carry its error)
+    vit_b_err = train_errors[VIT_B_B1_CASE]
     entries = [
         (fa.KERNEL, "attention_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:352",
-         serve_err, {**serve_stats, "at_other_shapes": [train_stats[("fwd_inference", 0)]]}),
+         serve_err, {**serve_stats, "at_other_shapes": [
+             train_stats[("fwd_inference", 0)],
+             {**vit_b_rows["fwd"], "max_abs_err": vit_b_err[0]}]}),
         (fa.KERNEL_TRAIN, "attention_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:352",
          train_errors[globals_case][0],
          {**train_stats[("fwd", 0)], "at_other_shapes": [
              {**train_stats[("fwd", locals_case[-1])],
-              "max_abs_err": train_errors[locals_case][0]}]}),
+              "max_abs_err": train_errors[locals_case][0]},
+             {**vit_b_rows["fwd_stats"], "max_abs_err": vit_b_err[0]}]}),
         (fa.KERNEL_BWD, "attention_bwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:392",
          train_errors[globals_case][1],
          {**train_stats[("bwd", 0)],
           "entry_source": "vit_ssl_tpu_torch/csrc/attention_nhd_bwd.cu",
           "at_other_shapes": [{**train_stats[("bwd", locals_case[-1])],
-                               "max_abs_err": train_errors[locals_case][1]}]}),
+                               "max_abs_err": train_errors[locals_case][1]},
+                              {**vit_b_rows["bwd"], "max_abs_err": vit_b_err[1]}]}),
     ]
     # B4 at each width: the served forward (no mask), the training forward
     # and the backward (keep-mask); the backward's max_abs_err is dx's: the
@@ -3026,6 +3517,8 @@ def main() -> int:
     ]
     paths = {"serving": serve_launches, "training": train_launches,
              "trainer": trainer_launches, "trainer_resumed": resumed_launches,
+             "finetune": finetune_launches, "trainer_vit_b": vit_b_launches,
+             "trainer_vit_b_resumed": vit_b_resumed_launches, **remat_paths,
              "serving_fused": fused_serve_launches, "training_fused": fused_train_launches,
              "serving_supervised": sup_serve_launches, **sup_paths,
              "serving_supervised_fused": sup_fused_serve_launches, **sup_fused_paths,

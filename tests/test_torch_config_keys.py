@@ -9,7 +9,7 @@
   (``vit_ssl_tpu/ops/initializers.py``);
 - ``model.matmul_precision``: the names map or are refused by name; an
   unknown one raises JAX's error (``vit_ssl_tpu/ops/precision.py``);
-- DINO refuses ``parallel.remat`` and ``model.scan_layers`` as the
+- DINO refuses ``model.scan_layers`` (and builds ``parallel.remat``) as the
   supervised ViT does;
 - SimMIM is refused by both builders with its ROADMAP item.
 """
@@ -191,11 +191,17 @@ def test_matmul_precision_mapping(monkeypatch):
 @pytest.mark.parametrize("build", [build_dino_network, build_backbone],
                          ids=["network", "backbone"])
 @pytest.mark.parametrize("override,match", [
-    ({"parallel.remat": "true"}, r"remat.*ROADMAP\.md queue A item 3"),
+    ({"parallel.remat": "true"}, None),
     ({"model.scan_layers": "true"}, r"scan_layers.*ROADMAP\.md queue A item 9"),
 ])
 def test_dino_refuses_remat_and_scan_layers(build, override, match):
-    """A DINO config asking for either no longer runs without it."""
+    """A DINO config asking for ``model.scan_layers`` no longer runs without
+    it; ``parallel.remat`` (ported since, no match) builds a backbone that
+    checkpoints its blocks."""
+    if match is None:
+        built = build(_dino_config(**override), "cpu")
+        assert getattr(built, "backbone", built).remat
+        return
     with pytest.raises(NotImplementedError, match=f"(?s){match}"):
         build(_dino_config(**override), "cpu")
 

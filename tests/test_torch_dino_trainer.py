@@ -12,7 +12,9 @@
 - Resume: ``fit(1)``, save, resume, ``fit(1)`` equals ``fit(2)`` bit for
   bit, and the epoch-1 snapshot written while epoch 2 trains holds epoch
   1's state.
-- Each refusal names its ``ROADMAP.md`` queue-A item.
+- Each refusal names its ``ROADMAP.md`` queue-A item; the options ported
+  since (``parallel.remat``, the supervised and finetune modes, the Adam,
+  SGD and RMSprop optimizers, the Accuracy metric) run instead.
 """
 
 import json
@@ -305,14 +307,27 @@ REFUSALS = [
     (["parallel.fsdp=true"], 10),
     (["+parallel.multihost=true"], 10),
     (["eval.interval=1"], 7),
-    (["parallel.remat=true"], 3),
+    (["parallel.remat=true"], None),  # ported: see below
     (["+training.grad_accum_steps=2"], 5),
 ]
 
 
 @pytest.mark.parametrize("overrides,item", REFUSALS,
                          ids=[o[0].split("=")[0].lstrip("+") for o, _ in REFUSALS])
-def test_trainer_refusals_name_their_item(tmp_path, overrides, item):
+def test_trainer_refusals_name_their_item(tmp_path, overrides, item, no_plots):
+    """Each refused option names its item; an option ported since (item
+    None) trains: ``parallel.remat`` checkpoints the student's blocks and
+    gives fit(1)'s state bit for bit."""
+    if item is None:
+        trainer = _port_trainer(tmp_path / "on", extra=overrides)
+        assert trainer.state.student.backbone.remat
+        trainer.fit(1)
+        plain = _port_trainer(tmp_path / "off")
+        assert not plain.state.student.backbone.remat
+        plain.fit(1)
+        _trees_equal(trainer_base.to_host(trainer.state.state_dict()),
+                     trainer_base.to_host(plain.state.state_dict()))
+        return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue A item {item}\b"):
         _port_trainer(tmp_path, extra=overrides)
 
@@ -323,9 +338,24 @@ def test_eval_interval_that_never_fires_runs(tmp_path):
     assert trainer.eval_interval == 5
 
 
-@pytest.mark.parametrize("mode,item", [("supervised", 4), ("finetune", 4),
+@pytest.mark.parametrize("mode,item", [("supervised", None), ("finetune", None),
                                        ("simmim", 6)])
-def test_other_training_modes_name_their_item(mode, item):
+def test_other_training_modes_name_their_item(mode, item, tmp_path):
+    """SimMIM names its item; supervised and finetune (ported since, item
+    None) are taken, and their labeled loaders built."""
+    if item is None:
+        from make_synthetic_data import make
+
+        data = make(str(tmp_path), n=10, size=8, num_classes=2)
+        check_mode(mode)
+        config = compose(CONFIGS, mode, [f"data.data_dir={data}/train_images",
+                                         f"data.data_csv={data}/train_labels.json",
+                                         "data.num_workers=0", "training.batch_size=4"])
+        train, val = prepare_dataloaders(config, mode)
+        batch = next(iter(train))
+        assert set(batch) == {"image", "label", "weight"}
+        assert (len(train.dataset), len(val.dataset)) == (8, 2)
+        return
     with pytest.raises(NotImplementedError, match=rf"queue A item {item}\b"):
         check_mode(mode)
     config = compose(CONFIGS, mode)
@@ -343,18 +373,27 @@ def test_host_data_refusals_name_their_item(tmp_path):
         prepare_dataloaders(config, ["eval_knn"])
 
 
-@pytest.mark.parametrize("name,item", [("Adam", 4), ("SGD", 4), ("RMSprop", 4)])
+@pytest.mark.parametrize("name,item", [("Adam", None), ("SGD", None), ("RMSprop", None)])
 def test_other_optimizers_name_their_item(name, item):
+    """Ported since (item None): each name builds its optimizer
+    (``tests/test_torch_optimizers.py`` holds them to optax); an unknown
+    name still raises."""
     config = compose(CONFIGS, "dino", [f"training.optimizer.name={name}"])
-    with pytest.raises(NotImplementedError, match=rf"queue A item {item}\b"):
-        make_optimizer(config, lambda step: 1e-3)
+    assert item is None
+    optimizer = make_optimizer(config, lambda step: 1e-3)
+    assert type(optimizer).__name__ == name
     with pytest.raises(ValueError, match="Unknown optimizer"):
         make_optimizer(compose(CONFIGS, "dino", ["training.optimizer.name=Lion"]),
                        lambda step: 1e-3)
 
 
-@pytest.mark.parametrize("metric,item", [("Accuracy", 4), ("PSNR", 6)])
+@pytest.mark.parametrize("metric,item", [("Accuracy", None), ("PSNR", 6)])
 def test_other_metrics_name_their_item(metric, item):
+    """PSNR names its item; Accuracy (ported since, item None) computes."""
+    if item is None:
+        handler = MetricHandler({"metrics": [metric]})
+        assert handler.calculate_metrics(correct=3, total=4) == {metric: 0.75}
+        return
     with pytest.raises(NotImplementedError, match=rf"queue A item {item}\b"):
         MetricHandler({"metrics": [metric]})
 

@@ -6,8 +6,11 @@
 - ``chip_smoke.py``'s DINO ViT-S/8 config is the composed ``configs/dino.yaml``,
   its supervised ViT-B/16 the composed ``configs/vit_b_imagenet.yaml`` at
   384 px (with and without ``model.use_fused_mlp=true``) and at 512 px, its
-  bounds are the stated arithmetic, and the script refuses to run without a
-  card;
+  ViT-B/16 trainer's config the port's composition of
+  ``configs/vit_b_imagenet.yaml`` as written and its finetune config the
+  port's composition of ``configs/finetune.yaml`` with the script's
+  overrides, its bounds are the stated arithmetic, and the script refuses
+  to run without a card;
 - a self-attention longer than kernel B3 takes (N > 1024) runs kernel B2.
 """
 
@@ -52,7 +55,8 @@ def test_port_import_leaves_jax_out():
         "import vit_ssl_tpu_torch.data.datasets, vit_ssl_tpu_torch.data.loader\n"
         "import vit_ssl_tpu_torch.data.builder, vit_ssl_tpu_torch.utils.logger\n"
         "import vit_ssl_tpu_torch.utils.history, vit_ssl_tpu_torch.train.trainers\n"
-        "import vit_ssl_tpu_torch.train.__main__\n"
+        "import vit_ssl_tpu_torch.train.__main__, vit_ssl_tpu_torch.train.trainers.supervised\n"
+        "import vit_ssl_tpu_torch.models.builder, vit_ssl_tpu_torch.ops.encoder_block\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} + {HOST_ONLY!r} + ('triton',))\n"
         "print(bad)\n"
@@ -153,6 +157,46 @@ def test_chip_smoke_supervised_config_is_composed_vit_b_yaml():
     assert set(smoke) == {"training", "model", "data", "parallel", "transforms"}
     assert smoke["transforms"]["train"][0]["params"]["size"] == 384
     _assert_within(smoke, composed, "config")
+
+
+def test_chip_smoke_vit_b_224_config_is_the_ports_composition():
+    """The ViT-B/16 trainer phase's config: the port's composition of
+    configs/vit_b_imagenet.yaml as written (remat on, batch 1024, 224 px),
+    and its one override touches only the automatic evaluation."""
+    from vit_ssl_tpu_torch.config import compose as port_compose
+    from vit_ssl_tpu_torch.config import to_container as port_to_container
+
+    smoke = _load_chip_smoke()
+    composed = port_to_container(port_compose(REPO / "configs", "vit_b_imagenet"))
+    cfg = smoke.VIT_B16_224
+    assert cfg["parallel"]["remat"] is True and cfg["training"]["batch_size"] == 1024
+    assert cfg["data"]["img_size"] == 224 and cfg["model"]["num_classes"] == 1000
+    assert cfg["transforms"]["train"][0]["params"]["size"] == 224
+    _assert_within(cfg, composed, "config")
+    assert smoke.VIT_B16_384["parallel"]["remat"] is False  # the copy left it alone
+    overridden = port_to_container(port_compose(REPO / "configs", "vit_b_imagenet",
+                                                smoke.VIT_B16_224_OVERRIDES))
+    assert {k for k in composed if composed[k] != overridden[k]} == {"eval"}
+    # 2600 images at val_split 0.04: 3 train steps and 1 val step of 1024
+    val = int(smoke.VIT_B16_224_IMAGES * cfg["data"]["val_split"])
+    assert -(-(smoke.VIT_B16_224_IMAGES - val) // 1024) == 3 and 0 < val <= 1024
+
+
+def test_chip_smoke_finetune_config_is_the_ports_composition():
+    smoke = _load_chip_smoke()
+    from vit_ssl_tpu_torch.config import compose as port_compose
+    from vit_ssl_tpu_torch.config import to_container as port_to_container
+
+    composed = port_to_container(port_compose(REPO / "configs", "finetune",
+                                              smoke.FINETUNE_OVERRIDES))
+    cfg = smoke.FINETUNE_S8
+    assert cfg["training"]["type"] == "finetune" and cfg["freeze_backbone_epochs"] == 2
+    assert cfg["training"]["extended_transfer"] and cfg["training"]["freeze_backbone"]
+    _assert_within(cfg, composed, "config")
+    # the DINO checkpoint's backbone is the finetune ViT's
+    for key in ("embed_dim", "num_blocks", "num_heads", "mlp_dim", "patch_size"):
+        assert cfg["model"][key] == smoke.DINO_VIT_S8["model"][key], key
+    assert cfg["data"]["img_size"] == smoke.DINO_VIT_S8["data"]["img_size"]
 
 
 def test_chip_smoke_supervised_fused_config_is_composed_vit_b_yaml():

@@ -1,16 +1,26 @@
 """Dataloader construction (after ``vit_ssl_tpu/data/builder.py``).
 
-:func:`prepare_dataloaders` builds DINO's dataset with
-``data.device_augment=true`` (the host decodes and resizes; the views are
-made on the card) and hands it to :func:`make_loaders`, the seeded
-train/val split by ``data.val_split`` and the two loaders. Train and val
-share one dataset object; only the train loader shuffles. Several
-processes (``torch.distributed`` initialised) each load their interleaved
-slice of every global batch.
+:func:`prepare_dataloaders` builds the datasets of a training mode and
+hands them to :func:`make_loaders`, the seeded train/val split by
+``data.val_split`` and the two loaders; only the train loader shuffles.
+Several processes (``torch.distributed`` initialised) each load their
+interleaved slice of every global batch.
 
-Refused by name, each with its ``ROADMAP.md`` queue-A item: the other
-training modes and the evaluators' labeled datasets, and DINO with
-``data.device_augment=false`` (host multi-crop).
+- supervised and finetune (:func:`labeled_datasets`): a train and a val
+  dataset over the same files (``data.dataset_name``: ``cifar10``,
+  ``stl10``, ``imagefolder``/``imagenet``). With ``data.device_augment``
+  both only decode and resize (the train augmentation runs on the card in
+  the step, and validation scales the uint8 images there); without it
+  they run the config's ``transforms.train`` and ``transforms.val`` on the
+  host. :func:`check_label_range` refuses a dataset with more classes
+  than the model's head.
+- DINO (:func:`dino_dataset`) with ``data.device_augment=true`` (the host
+  decodes and resizes; the views are made on the card); train and val
+  share one dataset object.
+
+Refused by name, each with its ``ROADMAP.md`` queue-A item: SimMIM, the
+evaluators' datasets, and DINO with ``data.device_augment=false`` (host
+multi-crop).
 """
 
 from __future__ import annotations
@@ -20,7 +30,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .datasets import Dataset, STL10UnsupervisedDataset, Subset
+from .datasets import (CIFAR10Dataset, Dataset, ImageFolderDataset, STL10Dataset,
+                       STL10UnsupervisedDataset, Subset)
 from .loader import DataLoader
 
 logger = logging.getLogger(__name__)
@@ -54,6 +65,64 @@ def dino_dataset(config) -> Dataset:
         native_decode=bool(data.get("native_decode", False)))
     dataset.num_global_views = int(config.training.num_global_views)
     return dataset
+
+
+def _decode_and_resize(config):
+    """The host pipeline under device augmentation: decode and resize to
+    ``data.img_size``."""
+    from .transforms import Compose, Resize
+
+    img = int(config["data"]["img_size"])
+    return Compose([Resize([img, img])])
+
+
+def labeled_datasets(config) -> Tuple[Dataset, Dataset]:
+    """The supervised/finetune train and val datasets ``data.*`` describes
+    (the JAX ``_get_dataset``'s labeled branch)."""
+    data = config.get("data", {})
+    dataset_name = str(data.get("dataset_name", "")).lower()
+    data_dir, data_csv = data.get("data_dir"), data.get("data_csv")
+    cache = bool(data.get("cache_decoded", False))
+    if bool(data.get("device_augment", False)):
+        train_t = val_t = _decode_and_resize(config)
+    else:
+        from .transforms import get_transforms
+
+        pipelines = get_transforms(config)
+        train_t, val_t = pipelines["train"], pipelines["val"]
+    if dataset_name == "cifar10":
+        return (CIFAR10Dataset(data_csv, data_dir, train_t, cache),
+                CIFAR10Dataset(data_csv, data_dir, val_t, cache))
+    if dataset_name == "stl10":
+        return (STL10Dataset(data_csv, data_dir, train_t, cache),
+                STL10Dataset(data_csv, data_dir, val_t, cache))
+    if dataset_name in ("imagefolder", "imagenet"):
+        return ImageFolderDataset(data_dir, train_t), ImageFolderDataset(data_dir, val_t)
+    raise ValueError(f"Unknown supervised/labeled dataset: {dataset_name}")
+
+
+def check_label_range(config, dataset) -> None:
+    """Refuse a labeled dataset with more classes than ``model.num_classes``
+    (labels past the head would make the loss meaningless); warn when it
+    has fewer."""
+    classes = getattr(dataset, "classes", None)
+    num_classes = config.get("model", {}).get("num_classes", None)
+    if classes is None or num_classes is None:
+        return
+    n_data, n_model = len(classes), int(num_classes)
+    if n_data > n_model:
+        from ..config import ConfigValidationError
+
+        raise ConfigValidationError(
+            f"Dataset at '{config.get('data', {}).get('data_dir')}' has "
+            f"{n_data} classes {sorted(map(str, classes))[:8]} but "
+            f"model.num_classes={n_model}; labels >= {n_model} have no logit. "
+            f"Set model.num_classes={n_data} or point data.data_csv at a "
+            f"{n_model}-class index.")
+    if n_data < n_model:
+        logger.warning("Dataset has %d classes but model.num_classes=%d: the "
+                       "extra head outputs never receive positive labels.",
+                       n_data, n_model)
 
 
 def make_loaders(config, train_full: Dataset,
@@ -101,16 +170,17 @@ def make_loaders(config, train_full: Dataset,
 
 def prepare_dataloaders(config, mode) -> Tuple[DataLoader, Optional[DataLoader]]:
     """The train and val loaders of a training mode (the JAX function's
-    dino branch)."""
+    supervised, finetune and dino branches)."""
     if isinstance(mode, (list, tuple)) or "eval" in str(mode).lower():
         raise NotImplementedError(
             f"the evaluators' datasets (mode {mode!r}) are not ported yet; see "
             "ROADMAP.md queue A item 7")
     mode = str(mode).lower()
     if mode in ("supervised", "finetune"):
-        raise NotImplementedError(
-            f"the {mode} datasets are not ported yet; see ROADMAP.md queue A "
-            "item 4")
+        logger.info("Preparing dataloaders for mode: '%s'", mode)
+        train_full, val_full = labeled_datasets(config)
+        check_label_range(config, train_full)
+        return make_loaders(config, train_full, val_full)
     if mode == "simmim":
         raise NotImplementedError(
             "mode 'simmim' is not ported yet; see ROADMAP.md queue A item 6")

@@ -270,6 +270,15 @@ def _op(entry: Dict):
     raise ValueError(f"Unsupported device transform '{name}'")
 
 
+_SUPPORTED = {"RandomResizedCrop", "RandomHorizontalFlip", "ColorJitter",
+              "RandomGrayscale", "GaussianBlur", "Resize", "Normalize", "ToTensor"}
+
+
+def supports_pipeline(sequence) -> bool:
+    """Whether every transform of a config list has a device version."""
+    return all(entry["name"] in _SUPPORTED for entry in sequence)
+
+
 def build_device_pipeline(sequence: Sequence[Dict]) -> Callable:
     """``fn(generator, images) -> images`` over a batch of fp32 (B, H, W, C)
     images in [0, 1]; each op draws its B samples' parameters, then runs."""

@@ -5,19 +5,52 @@ loads, and the full ``DINONetwork`` that training runs.
 The config is the plain dict a checkpoint embeds (``.pth`` written by
 ``scripts/export_torch.py``): ``model.*``, ``data.img_size``,
 ``parallel.remat`` and the mode under ``training.type`` or ``eval.mode``.
-Finetune's weight surgery (``load_weights``, the freeze mask) is not
-ported yet (``ROADMAP.md`` queue A item 4): ``build_vit`` builds the
-model only.
+
+Finetune's weight surgery (after ``vit_ssl_tpu/models/builder.py:156-428``),
+in the port's own key space, the reference ``.pth`` layout of its state
+dicts (``encoder_blocks.0.self_attention.w_query.weight``, …):
+
+- :func:`load_pretrained` reads a checkpoint into one flat state dict, as
+  the JAX package's ``_load_pretrained_tree`` and the trainer's
+  ``_merged_pre`` do: a DINO checkpoint's student under ``backbone.`` and
+  ``head.``, its teacher under ``teacher.backbone.`` and ``teacher.head.``,
+  and ``center``; a ViT's or a SimMIM's under their own keys.
+- :func:`load_weights` transfers it into a ViT's state dict by the
+  reference's rules: exact matches, ``projection.* → patch_embedding.
+  projection.*``, a positional embedding one token short padded with a
+  zero CLS slot, SSL-only keys (``simmim_head``, ``mask_token``,
+  ``teacher.*``, ``center``) skipped. As in the reference nothing reaches a
+  ViT from a DINO checkpoint (the prefixes never match) unless
+  ``extended``: then the teacher backbone's blocks, CLS token and patch
+  projection (``proj`` → ``conv``, the same layout) transfer, its
+  positional embedding resized with the Keys cubic of ``jax.image.resize``
+  (:mod:`..ops.resample`) when the grids differ, and a SimMIM projection
+  (D, C·p²) becomes the conv kernel (D, C, p, p).
+- :func:`freeze_backbone_mask` and :func:`all_trainable_mask` give the
+  trainable mask by parameter name; :func:`check_loaded_model` counts the
+  tensors that equal their checkpoint's.
+
+The JAX package's MoE upcycling and its conversion between the unrolled
+and the scanned encoder stacks are not ported: the port refuses
+``model.moe_experts`` and ``model.scan_layers`` (``ROADMAP.md`` queue A
+item 9), so no ViT of the port has either layout. Orbax checkpoints of the
+JAX package are not read (item 11); their ``.pth`` exports are.
 """
 
 from __future__ import annotations
+
+import logging
+from typing import Dict, Mapping
 
 import torch
 from torch import nn
 
 from ..ops.precision import resolve_precision
+from ..ops.resample import resize_hw
 from .dino import DINONetwork, ViTBackbone
 from .vit import ViT
+
+logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -117,3 +150,168 @@ def build_dino_network(config: dict, device) -> DINONetwork:
     from ``model.output_dim``) the config describes, on ``device``."""
     return DINONetwork(output_dim=int(config["model"]["output_dim"]),
                        **_dino_kwargs(config, device))
+
+
+# ---------------------------------------------------------------------------
+# Finetune's weight surgery, in the reference state-dict key space
+
+# where a DINO checkpoint's backbone sits in load_pretrained's flat dict, the
+# teacher's first (JAX _extended_transfer's order)
+_BACKBONE_PREFIXES = ("teacher.backbone.", "backbone.")
+
+
+def load_pretrained(path: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint as one flat state dict on the CPU: a ``.pth``/``.pt``
+    (a reference-layout export) or a train-state directory of the port."""
+    from ..utils.checkpoint import checkpoint_exists, load_checkpoint, load_pth
+
+    if path.endswith((".pth", ".pt")):
+        sd, _ = load_pth(path)
+        if not any(k.startswith("teacher_backbone.") for k in sd):
+            return dict(sd)  # a ViT's or a SimMIM's own keys
+        out = {}
+        for key, value in sd.items():
+            if key.startswith("student_"):
+                out[key[len("student_"):]] = value
+            elif key.startswith("teacher_"):
+                out["teacher." + key[len("teacher_"):]] = value
+            else:
+                out[key] = value
+        return out
+    if not checkpoint_exists(path):
+        raise FileNotFoundError(f"Checkpoint file not found: {path}")
+    tree, _ = load_checkpoint(path)
+    if "student" in tree:  # a DINO train state
+        out = dict(tree["student"])
+        out.update({f"teacher.{k}": v for k, v in tree["teacher"].items()})
+        out["center"] = tree["center"]
+        return out
+    return dict(tree["model"])
+
+
+def _interp_pos_embed(src_pe: torch.Tensor, tgt_shape) -> torch.Tensor:
+    """(1, 1 + g², D) → ``tgt_shape`` (1, 1 + G², D): the patch grid resized
+    with the Keys cubic (antialiased, as ``jax.image.resize``'s bicubic),
+    the CLS entry carried over."""
+    d = src_pe.shape[-1]
+    src_g = int(round((src_pe.shape[1] - 1) ** 0.5))
+    tgt_n = tgt_shape[1] - 1
+    tgt_g = int(round(tgt_n ** 0.5))
+    grid = src_pe[:, 1:].float().reshape(1, src_g, src_g, d)
+    resized = resize_hw(grid, tgt_g, tgt_g, "cubic").reshape(1, tgt_n, d)
+    return torch.cat([src_pe[:, :1].float(), resized], dim=1)
+
+
+def _extended_transfer(out, src, tgt):
+    """The transfers the reference cannot make: a DINO backbone (the
+    teacher's when the checkpoint has one) and a SimMIM projection."""
+    prefix, candidates = "", {}
+    for prefix in _BACKBONE_PREFIXES:
+        candidates = {k: v for k, v in src.items() if k.startswith(prefix)}
+        if candidates:
+            break
+    for key, value in candidates.items():
+        mapped = key[len(prefix):].replace("patch_embedding.proj.",
+                                           "patch_embedding.conv.")
+        if mapped in tgt and value.shape == tgt[mapped].shape:
+            out[mapped] = value
+        elif mapped.endswith("positional_embedding") and mapped in tgt:
+            if value.shape[1] != tgt[mapped].shape[1]:
+                out[mapped] = _interp_pos_embed(value, tgt[mapped].shape)
+
+    conv = "patch_embedding.conv.weight"
+    if "projection.weight" in src and conv in tgt:
+        d, c, p, _ = tgt[conv].shape
+        weight = src["projection.weight"]
+        if tuple(weight.shape) == (d, c * p * p):
+            out[conv] = weight.reshape(d, c, p, p)
+            if "projection.bias" in src:
+                out["patch_embedding.conv.bias"] = src["projection.bias"]
+    return out
+
+
+def load_weights(target: Mapping[str, torch.Tensor],
+                 pretrained: Mapping[str, torch.Tensor],
+                 extended: bool = False) -> Dict[str, torch.Tensor]:
+    """``target`` (a ViT's state dict) with what ``pretrained`` (from
+    :func:`load_pretrained`) transfers into it; the other entries are
+    ``target``'s own tensors."""
+    tgt = dict(target)
+    out = dict(tgt)
+    for key, value in pretrained.items():
+        if key in tgt:
+            if value.shape == tgt[key].shape:
+                out[key] = value
+            else:
+                logger.warning("Shape mismatch for '%s': pretrained %s vs model %s",
+                               key, tuple(value.shape), tuple(tgt[key].shape))
+        elif key.startswith("projection.") and f"patch_embedding.{key}" in tgt:
+            new_key = f"patch_embedding.{key}"
+            if value.shape == tgt[new_key].shape:
+                out[new_key] = value
+                logger.info("Remapped key '%s' to '%s'", key, new_key)
+        elif key == "positional_embedding" and "patch_embedding.positional_embedding" in tgt:
+            ft_pe = tgt["patch_embedding.positional_embedding"]
+            if value.shape[1] == ft_pe.shape[1] - 1 and value.shape[2] == ft_pe.shape[2]:
+                logger.info("Padding positional embedding (CLS slot zeroed)")
+                new_pe = torch.zeros_like(ft_pe)
+                new_pe[:, 1:, :] = value
+                out["patch_embedding.positional_embedding"] = new_pe
+            else:
+                logger.warning("Cannot pad positional_embedding: %s vs %s",
+                               tuple(value.shape), tuple(ft_pe.shape))
+        elif ("simmim_head" in key or "mask_token" in key
+              or key.startswith("teacher.") or key.startswith("center")):
+            logger.info("Skipping SSL-specific key: %s", key)
+        else:
+            logger.warning("Key '%s' from checkpoint not found in the model.", key)
+    if extended:
+        out = _extended_transfer(out, dict(pretrained), tgt)
+    updated = sum(1 for k in tgt if out[k] is not tgt[k])
+    logger.info("load_weights: %d/%d target tensors updated", updated, len(tgt))
+    return out
+
+
+def _frozen(name: str) -> bool:
+    return name.startswith("encoder_blocks.") or (
+        name.startswith("patch_embedding.") and "cls_token" not in name)
+
+
+def freeze_backbone_mask(model: nn.Module) -> Dict[str, bool]:
+    """Trainable by parameter name: False for the encoder blocks and the
+    patch embedding (its CLS token excepted), True elsewhere."""
+    return {name: not _frozen(name) for name, _ in model.named_parameters()}
+
+
+def all_trainable_mask(model: nn.Module) -> Dict[str, bool]:
+    return {name: True for name, _ in model.named_parameters()}
+
+
+def check_loaded_model(state: Mapping[str, torch.Tensor],
+                       pretrained: Mapping[str, torch.Tensor],
+                       extended: bool = False) -> Dict[str, int]:
+    """Count the live tensors equal (within 1e-5) to the checkpoint's
+    tensor of the same name and shape, and those that differ. With
+    ``extended`` a live tensor is also looked up where
+    :func:`load_weights` took it from: the DINO backbone's (``proj`` for
+    ``conv``). The JAX package looks up the same name only, so after an
+    extended transfer from DINO it counts nothing."""
+    matched = mismatched = 0
+    for key, value in state.items():
+        sources = [key]
+        if extended:
+            sources += [p + key.replace("patch_embedding.conv.", "patch_embedding.proj.")
+                        for p in _BACKBONE_PREFIXES]
+        for source in sources:
+            theirs = pretrained.get(source)
+            if theirs is not None and theirs.shape == value.shape:
+                if torch.allclose(value.detach().float().cpu(), theirs.float().cpu(),
+                                  atol=1e-5):
+                    matched += 1
+                else:
+                    mismatched += 1
+                break
+    logger.info("Matched parameters from checkpoint: %d", matched)
+    if mismatched:
+        logger.warning("Mismatched parameters: %d", mismatched)
+    return {"matched": matched, "mismatched": mismatched}

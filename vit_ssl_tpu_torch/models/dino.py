@@ -17,8 +17,10 @@ with the model's ``init_scheme`` (``"reference"`` or ``"tpu"``,
 ``model.use_flash_attention=false``) sends every attention call to the
 plain PyTorch attention. Dropout follows the JAX package's explicit
 ``deterministic`` flag (not ``nn.Module.train``), and its masks come from
-the caller's generator. ``remat`` and ``scan_layers`` are refused, as the
-supervised ViT refuses them (:mod:`.vit`).
+the caller's generator. ``remat`` checkpoints each backbone block where a
+backward runs through it (the student, globals and packed locals alike; not
+the teacher), as the supervised ViT does; ``scan_layers`` is refused, as
+there (:mod:`.vit`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import DynamicPatchEmbed, EncoderBlock
+from ..ops.encoder_block import remat_block, wants_remat
 from ..ops.initializers import bias_, check_scheme, init_, linear_, weight_
 from .vit import refuse_unported
 
@@ -44,8 +47,9 @@ class ViTBackbone(nn.Module):
                  init_scheme: str = "reference", remat: bool = False,
                  scan_layers: bool = False, device=None):
         super().__init__()
-        refuse_unported(remat=remat, scan_layers=scan_layers)
+        refuse_unported(scan_layers=scan_layers)
         self.dtype = dtype
+        self.remat = bool(remat)
         self.init_scheme = check_scheme(init_scheme)
         self.patch_embedding = DynamicPatchEmbed(
             input_shape, embed_dim, patch_size, dtype=dtype, device=device
@@ -64,7 +68,10 @@ class ViTBackbone(nn.Module):
     def encode(self, x, block_size: int = 0, deterministic: bool = True,
                generator: Optional[torch.Generator] = None):
         for block in self.encoder_blocks:
-            x = block(x, block_size, deterministic, generator)
+            if self.remat and wants_remat(block, x):
+                x = remat_block(block, x, block_size, deterministic, generator)
+            else:
+                x = block(x, block_size, deterministic, generator)
         return x
 
     def forward(self, x, deterministic: bool = True,

@@ -9,10 +9,14 @@ The forward is ``embed`` → ``encode`` → ``finish``, as in the JAX module.
 ``use_flash=False`` takes the plain attention, as for the DINO backbone
 (:mod:`.dino`).
 
+``remat`` (``parallel.remat``) checkpoints each encoder block
+(:func:`~..ops.encoder_block.remat_block`) where a backward will run
+through it; the dropout masks, the output and the gradients are those of
+the plain forward.
+
 Not ported yet, and refused with ``NotImplementedError`` (``ROADMAP.md``
-queue A): ``remat`` (activation checkpointing: the dropout masks come from
-explicit generators, which ``torch.utils.checkpoint`` does not replay),
-``scan_layers``, ``patch_dropout`` and Mixture-of-Experts blocks.
+queue A item 9): ``scan_layers``, ``patch_dropout`` and Mixture-of-Experts
+blocks.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops import ConvPatchEmbed, EncoderBlock, MLPHead
+from ..ops.encoder_block import remat_block, wants_remat
 from ..ops.initializers import check_scheme, init_
 
 
@@ -32,14 +37,10 @@ def _refuse(option: str, item: int, why: str = "") -> None:
     )
 
 
-def refuse_unported(remat: bool = False, scan_layers: bool = False,
-                    patch_dropout: float = 0.0, moe_experts: int = 0) -> None:
+def refuse_unported(scan_layers: bool = False, patch_dropout: float = 0.0,
+                    moe_experts: int = 0) -> None:
     """Raise ``NotImplementedError`` for the first model option asked for
     that the port does not run yet, naming its ``ROADMAP.md`` item."""
-    if remat:
-        _refuse("parallel.remat (activation checkpointing)", 3,
-                ": the dropout masks come from explicit generators, which "
-                "torch.utils.checkpoint does not replay")
     if scan_layers:
         _refuse("model.scan_layers", 9)
     if patch_dropout > 0.0:
@@ -58,8 +59,9 @@ class ViT(nn.Module):
                  init_scheme: str = "reference", remat: bool = False,
                  scan_layers: bool = False, moe_experts: int = 0, device=None):
         super().__init__()
-        refuse_unported(remat, scan_layers, patch_dropout, moe_experts)
+        refuse_unported(scan_layers, patch_dropout, moe_experts)
         self.dtype = dtype
+        self.remat = bool(remat)
         self.init_scheme = check_scheme(init_scheme)
         self.patch_embedding = ConvPatchEmbed(
             input_shape, embed_dim, patch_size, dtype=dtype, device=device
@@ -80,12 +82,15 @@ class ViT(nn.Module):
                generator: Optional[torch.Generator] = None,
                return_attn: bool = False):
         """The encoder blocks; with ``return_attn``, (tokens, the last
-        block's probabilities)."""
+        block's probabilities). With ``remat``, each block that a backward
+        will run through is checkpointed."""
         probs = None
         last = len(self.encoder_blocks) - 1
         for i, block in enumerate(self.encoder_blocks):
             if return_attn and i == last:
                 x, probs = block(x, 0, deterministic, generator, return_attn=True)
+            elif self.remat and wants_remat(block, x):
+                x = remat_block(block, x, 0, deterministic, generator)
             else:
                 x = block(x, 0, deterministic, generator)
         return (x, probs) if return_attn else x

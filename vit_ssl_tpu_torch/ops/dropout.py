@@ -9,7 +9,8 @@ from ``jax.random.bits`` by design. Masks are drawn in plain PyTorch, as the
 JAX package leaves them to XLA.
 
 The JAX package's ``fast_dropout=false`` (an fp32-uniform Bernoulli draw)
-is not ported: :class:`Dropout` raises for it.
+is not ported: :class:`Dropout` raises for it (``ROADMAP.md`` queue A
+item 5).
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ class Dropout(nn.Module):
         if not fast:
             raise NotImplementedError(
                 "fast_dropout=false (Bernoulli dropout) is not ported yet; "
-                "see ROADMAP.md queue A"
+                "see ROADMAP.md queue A item 5"
             )
         self.rate = float(rate)
 

@@ -4,6 +4,11 @@ LN → MHA → dropout → residual, LN → FFN → dropout → residual. The
 LayerNorms (eps 1e-5) run in fp32 whatever the compute dtype and their
 result is cast back to ``dtype`` before attention or the FFN; residual adds
 stay in ``dtype``.
+
+:func:`remat_block` runs a block under activation checkpointing
+(``parallel.remat``, JAX's ``nn.remat`` around each ``EncoderBlock``):
+its activations are dropped after the forward and recomputed in the
+backward, with the same three dropout masks.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import MultiHeadAttention
 from .dropout import Dropout
@@ -62,3 +68,40 @@ class EncoderBlock(nn.Module):
         h = self.feed_forward(h, deterministic, generator)
         x = self.drop2(h, deterministic, generator) + residual
         return (x, probs) if return_attn else x
+
+
+def wants_remat(block: nn.Module, x: torch.Tensor) -> bool:
+    """Checkpointing pays only where a backward will run through the block:
+    grad mode on, and x or one of the block's parameters needing a gradient
+    (not the teacher, an eval step or serving)."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in block.parameters()))
+
+
+def remat_block(block: EncoderBlock, x, block_size: int = 0,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+    """``block(x, block_size, deterministic, generator)`` under
+    ``torch.utils.checkpoint`` (non-reentrant, so ``torch.autograd.grad``
+    works through it), with the same output, gradients and generator stream
+    as the plain call.
+
+    The masks come from the caller's explicit generator, which
+    ``preserve_rng_state`` does not replay. So the block draws from a
+    generator of its own set to the caller's state before each run, the
+    first forward and the recompute alike, and the caller's generator then
+    takes the state the block left it in, as if the block had drawn from it.
+    Generator states live on the host: nothing here waits on the card."""
+    if deterministic or generator is None:
+        return checkpoint(block, x, block_size, True, None,
+                          use_reentrant=False, preserve_rng_state=False)
+    start = generator.get_state()
+    own = torch.Generator(device=generator.device)
+
+    def run(inp):
+        own.set_state(start)
+        return block(inp, block_size, False, own)
+
+    out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    generator.set_state(own.get_state())
+    return out

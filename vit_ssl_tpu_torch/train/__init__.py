@@ -1,30 +1,40 @@
 """Training of the port (mirrors ``vit_ssl_tpu/train``): the supervised and
-DINO steps, their train states and AdamW, the learning-rate schedules, and
-the DINO trainer (:mod:`.trainers`); ``python -m vit_ssl_tpu_torch.train``
-is the entry point (:mod:`.__main__`)."""
+DINO steps, their train states and optimizers, the learning-rate schedules,
+and the supervised/finetune and DINO trainers (:mod:`.trainers`);
+``python -m vit_ssl_tpu_torch.train`` is the entry point (:mod:`.__main__`)."""
 
 from .schedules import lr_schedule_from_config, reference_lr_schedule
 from .state import (
+    SGD,
+    Adam,
     AdamW,
-    AdamWState,
+    Optimizer,
+    OptimizerState,
+    RMSprop,
     SupervisedTrainState,
     TrainState,
     make_optimizer,
 )
 from .steps import (
     cross_entropy_loss,
+    make_criterion,
     make_dino_steps,
     make_supervised_steps,
     weighted_dino_loss,
 )
 
 __all__ = [
+    "Adam",
     "AdamW",
-    "AdamWState",
+    "Optimizer",
+    "OptimizerState",
+    "RMSprop",
+    "SGD",
     "SupervisedTrainState",
     "TrainState",
     "cross_entropy_loss",
     "lr_schedule_from_config",
+    "make_criterion",
     "make_dino_steps",
     "make_optimizer",
     "make_supervised_steps",

@@ -11,8 +11,9 @@ directory from ``hydra.run.dir`` (saving ``.hydra/config.yaml`` and
 device and the trainer, resumes from ``training.resume_from_checkpoint``
 when it is set, and runs ``fit``. It runs on the CUDA card unless
 ``--device cpu`` asks for the CPU; with no card and no such request it
-raises. The port trains DINO (``training.type=dino``); the other modes are
-refused with their ``ROADMAP.md`` queue-A item.
+raises. The port trains DINO, supervised and finetune
+(``training.type``); SimMIM is refused with its ``ROADMAP.md`` queue-A
+item.
 """
 
 from __future__ import annotations
@@ -73,31 +74,28 @@ def save_run_config(config, overrides, save_path: str) -> None:
 
 def check_mode(mode: str) -> None:
     """Raise unless the port trains ``mode``."""
-    if mode in ("supervised", "finetune"):
-        raise NotImplementedError(
-            f"training.type={mode} is not ported yet (the trainer, its "
-            "datasets and finetune's weight surgery); see ROADMAP.md queue A "
-            "item 4")
     if mode == "simmim":
         raise NotImplementedError(
             "training.type=simmim is not ported yet; see ROADMAP.md queue A "
             "item 6")
-    if mode != "dino":
+    if mode not in ("supervised", "finetune", "dino"):
         raise ValueError(f"Unknown training mode: {mode}")
 
 
 def get_trainer(mode, network, save_path, config, train_loader, val_loader, device):
-    from .trainers import DINOTrainer
+    """The trainer of ``mode``: supervised and finetune share one."""
+    from .trainers import DINOTrainer, SupervisedTrainer
 
     check_mode(mode)
-    return DINOTrainer(network, save_path, config, train_loader, val_loader, device)
+    cls = DINOTrainer if mode == "dino" else SupervisedTrainer
+    return cls(network, save_path, config, train_loader, val_loader, device)
 
 
 def run_single(config_path, config_name, overrides, device=None) -> str:
     from ..config import compose, preflight_eval_data, validate_train_config
     from ..data.builder import prepare_dataloaders
     from ..device import resolve_device
-    from ..models.builder import build_dino_network
+    from ..models.builder import build_model
 
     config = compose(config_path, config_name, overrides)
     validate_train_config(config)
@@ -106,8 +104,9 @@ def run_single(config_path, config_name, overrides, device=None) -> str:
     device = resolve_device(device)
     logger.info("Starting training with mode: %s on %s", mode, device)
 
+    check_mode(mode)
     train_loader, val_loader = prepare_dataloaders(config, mode)
-    network = build_dino_network(config, device)
+    network = build_model(config, device)
 
     save_path = get_save_path(config)
     os.makedirs(save_path, exist_ok=True)

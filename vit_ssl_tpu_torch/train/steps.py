@@ -5,8 +5,13 @@ steps (``make_dino_steps``, ``:429-692``).
 The supervised ``train_step`` makes its images (``augment_fn`` on the
 device from uint8, or the batch's own images scaled to [0, 1]), runs the
 model with dropout on, takes the weighted mean of the fp32 softmax
-cross-entropy, its backward and one AdamW update. Two generators a step,
-from ``state.next_generators(2)``: dropout, augmentation.
+cross-entropy, its backward and one optimizer update. Two generators a
+step, from ``state.next_generators(2)``: dropout, augmentation. Both
+steps take gradients of the parameters the optimizer trains only
+(``optimizer.select``: all of them unless a trainable mask freezes some);
+the gradient still flows through frozen blocks to what lies before them.
+:func:`make_criterion` checks the config's ``training.criterion`` against
+what each mode's step computes.
 
 One DINO ``train_step`` runs, in order:
 
@@ -17,7 +22,7 @@ One DINO ``train_step`` runs, in order:
 3. the teacher on the globals under ``torch.no_grad()``, with dropout on
    when ``teacher_dropout`` (the reference's train-mode teacher);
 4. the weighted center EMA, **before** the loss reads it;
-5. the weighted loss, its backward, AdamW, the teacher EMA toward the
+5. the weighted loss, its backward, the optimizer, the teacher EMA toward the
    updated student, and ``dino_distribution_stats``.
 
 It updates the :class:`~.state.TrainState` in place and returns
@@ -39,7 +44,7 @@ import torch.nn.functional as F
 from ..data.device_augment import to_unit_float
 from ..models.dino import momentum_update, update_center
 from ..utils.metrics import dino_distribution_stats
-from .state import AdamW, SupervisedTrainState, TrainState
+from .state import Optimizer, SupervisedTrainState, TrainState
 
 
 def _refuse_grad_accum(grad_accum: int) -> None:
@@ -50,6 +55,38 @@ def _refuse_grad_accum(grad_accum: int) -> None:
         )
 
 
+_CRITERIA = {
+    "CrossEntropyLoss": "ce",
+    "L1Loss": "l1",
+    "MSELoss": "mse",
+    "SmoothL1Loss": "smooth_l1",
+}
+# the criteria each training mode's step computes
+_MODE_CRITERIA = {
+    "supervised": ("ce",),
+    "finetune": ("ce",),
+    "simmim": ("l1", "mse", "smooth_l1"),
+}
+
+
+def make_criterion(config, mode: Optional[str] = None) -> str:
+    """The short name of ``training.criterion.name`` (default
+    CrossEntropyLoss), as ``vit_ssl_tpu/train/steps.py::make_criterion``
+    gives it: an unknown name raises, and so does one that the mode's step
+    does not compute (the supervised and finetune steps: cross-entropy)."""
+    crit = config["training"].get("criterion", {}) or {}
+    name = crit.get("name", "CrossEntropyLoss")
+    if name not in _CRITERIA:
+        raise ValueError(f"Unknown criterion '{name}'")
+    key = _CRITERIA[name]
+    mode = mode or str(config["training"].get("type", "")).lower()
+    if mode in _MODE_CRITERIA and key not in _MODE_CRITERIA[mode]:
+        raise ValueError(
+            f"Criterion '{name}' is not supported by the {mode} train step; "
+            f"supported: {sorted(_MODE_CRITERIA[mode])}")
+    return key
+
+
 def cross_entropy_loss(logits, labels, weight):
     """The weighted mean of fp32 softmax cross-entropy over integer labels
     (Σ w·ce / max(Σ w, 1)): padding rows of weight 0 drop out."""
@@ -58,7 +95,7 @@ def cross_entropy_loss(logits, labels, weight):
     return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-def make_supervised_steps(optimizer: AdamW, augment_fn: Optional[Callable] = None,
+def make_supervised_steps(optimizer: Optimizer, augment_fn: Optional[Callable] = None,
                           grad_accum: int = 1):
     """Returns ``(train_step, eval_step)`` over a
     :class:`~.state.SupervisedTrainState`:
@@ -88,13 +125,13 @@ def make_supervised_steps(optimizer: AdamW, augment_fn: Optional[Callable] = Non
         g_dropout, g_augment = state.next_generators(2)
         logits = state.model(images(batch, g_augment), False, g_dropout)
         loss = cross_entropy_loss(logits, batch["label"], batch["weight"])
-        params = state.params
+        params = optimizer.select(state.params)
         grads = torch.autograd.grad(loss, params)
         optimizer.update(params, grads, state.opt_state)
         state.step += 1
         out = outputs(logits, loss, batch)
         if with_grads:
-            names = [name for name, _ in state.model.named_parameters()]
+            names = optimizer.select(n for n, _ in state.model.named_parameters())
             out["grads"] = dict(zip(names, grads))
         return out
 
@@ -119,7 +156,7 @@ def weighted_dino_loss(t, s, center, teacher_temp: float, student_temp: float,
     return (per * w).sum() / torch.clamp(w.expand_as(per).sum(), min=1.0)
 
 
-def make_dino_steps(optimizer: AdamW, num_global_views: int, num_all_views: int,
+def make_dino_steps(optimizer: Optimizer, num_global_views: int, num_all_views: int,
                     student_temp: float, center_momentum: float,
                     teacher_dropout: bool = True,
                     view_fn: Optional[Callable] = None,
@@ -174,7 +211,7 @@ def make_dino_steps(optimizer: AdamW, num_global_views: int, num_all_views: int,
         t, s, new_center = outputs(state, batch, state.next_generators(4), True)
         loss = weighted_dino_loss(t, s, new_center, teacher_temp, student_temp,
                                   batch["weight"])
-        params = state.params
+        params = optimizer.select(state.params)
         grads = torch.autograd.grad(loss, params)
         optimizer.update(params, grads, state.opt_state)
         momentum_update(state.teacher, state.student, teacher_momentum)
@@ -183,7 +220,7 @@ def make_dino_steps(optimizer: AdamW, num_global_views: int, num_all_views: int,
         state.step += 1
         out = {"loss": loss.detach(), "dino_stats": stats}
         if with_grads:
-            names = [name for name, _ in state.student.named_parameters()]
+            names = optimizer.select(n for n, _ in state.student.named_parameters())
             out["grads"] = dict(zip(names, grads))
         return out
 

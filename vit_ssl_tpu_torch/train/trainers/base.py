@@ -11,8 +11,12 @@ checkpoints embed the config. As in the JAX package:
   (pinned host memory, ``non_blocking`` copies on the card), and the time
   spent waiting on the host loader is logged once an epoch as the input
   pipeline's goodput line;
-- ``last_model`` also records ``best_val_score``, so a resume from it
-  restores the best policy;
+- ``last_model`` also records the best score so far (``best_key``:
+  ``best_val_score`` for DINO, ``best_val_acc`` for the supervised
+  trainer), so a resume from it restores the best policy;
+- the optimizer freezes what ``_trainable_mask`` says, and
+  ``_init_state`` of a trainer that finetunes loads its pretrained weights
+  (``_apply_pretrained``) into the freshly drawn network;
 - one snapshot a checkpointed epoch, a completed copy to host memory taken
   before the next step runs (the port's train state is updated in place,
   so a copy that lagged would hold a later step's weights); the file is
@@ -21,8 +25,10 @@ checkpoints embed the config. As in the JAX package:
 Refused by name, each with its ``ROADMAP.md`` queue-A item:
 ``training.auto_resume`` and ``training.fault_inject_preempt_step`` (item
 8), ``parallel.{tp,pp,sp,ep} > 1``, ``parallel.fsdp`` and
-``parallel.multihost`` (item 10). ``training.preempt_checkpointing`` is
-accepted; no SIGTERM handler is installed yet (item 8).
+``parallel.multihost`` (item 10), and an automatic evaluation that would
+fire (item 7; :func:`refuse_automatic_evaluation`).
+``training.preempt_checkpointing`` is accepted; no SIGTERM handler is
+installed yet (item 8).
 """
 
 from __future__ import annotations
@@ -77,6 +83,27 @@ def refuse_unported_training(config) -> None:
                 "item 10")
 
 
+def refuse_automatic_evaluation(config, needs_mode: bool = True) -> None:
+    """Raise when ``fit`` would reach an automatic evaluation (the
+    condition ``preflight_eval_data`` checks): ``eval.interval`` > 0 (and,
+    with ``needs_mode``, as the SSL trainers have it, ``eval.mode`` set) on
+    a run that reaches a multiple of the interval. The evaluators are
+    ``ROADMAP.md`` queue A item 7."""
+    eval_cfg = config.get("eval", {}) or {}
+    interval = int(eval_cfg.get("interval", 0) or 0)
+    if not interval or (needs_mode and not eval_cfg.get("mode")):
+        return
+    training = config.get("training", {}) or {}
+    num_epochs = int(training.get("num_epochs", 0) or 0)
+    if num_epochs < interval and not training.get("resume_from_checkpoint"):
+        return
+    raise NotImplementedError(
+        f"eval.interval={interval}"
+        + (f" with eval.mode={eval_cfg.get('mode')}" if needs_mode else "")
+        + " would run the automatic evaluation, and the evaluators are not "
+        "ported yet (ROADMAP.md queue A item 7); set eval.interval=0")
+
+
 def to_host(tree: Any) -> Any:
     """A completed copy of ``tree``'s tensors in host memory (a new tensor
     also for those already there)."""
@@ -90,6 +117,9 @@ def to_host(tree: Any) -> Any:
 
 
 class BaseTrainer(ABC):
+    # the metadata key of the best score (last_model, best_model, resume)
+    best_key = "best_val_score"
+
     def __init__(self, network: torch.nn.Module, save_path: str, config,
                  train_loader, val_loader, device=None):
         refuse_unported_training(config)
@@ -105,7 +135,8 @@ class BaseTrainer(ABC):
         self.eval_interval = int(config["eval"].get("interval", 0) or 0)
 
         self.lr_schedule = lr_schedule_from_config(config, max(1, len(train_loader)))
-        self.optimizer = make_optimizer(config, self.lr_schedule)
+        self.optimizer = make_optimizer(config, self.lr_schedule,
+                                        self._mask_list(self._trainable_mask()))
 
         self.metric_handler = MetricHandler(config)
         self.train_logger = Logger(
@@ -133,6 +164,17 @@ class BaseTrainer(ABC):
         self._build_steps()
 
     # -- hooks ---------------------------------------------------------------
+    def _trainable_mask(self) -> Optional[Dict[str, bool]]:
+        """Trainable by parameter name, or None: all of them."""
+        return None
+
+    def _mask_list(self, mask: Optional[Dict[str, bool]]) -> Optional[List[bool]]:
+        """A mask by name as one bool a parameter, in ``parameters()``
+        order (the optimizer's)."""
+        if mask is None:
+            return None
+        return [mask[name] for name, _ in self.network.named_parameters()]
+
     @abstractmethod
     def _init_state(self):
         """The train state, from ``training.random_seed``."""
@@ -278,24 +320,28 @@ class BaseTrainer(ABC):
             raise RuntimeError("writing a checkpoint failed") from error
 
     def _save_last(self, epoch: int):
-        """``last_model`` carries ``best_val_score`` too (the JAX package's
+        """``last_model`` carries the best score too (the JAX package's
         writes it only into preemption checkpoints), so that a run resumed
         from it keeps its best policy."""
-        best = ({"best_val_score": self.best_score}
+        best = ({self.best_key: self.best_score}
                 if math.isfinite(self.best_score) else {})
         self._save("last_model", epoch, best)
 
     def resume_from(self, path: str):
-        """Restore the train state, the epoch and ``best_val_score``."""
+        """Restore the train state, the epoch and the best score."""
         if not checkpoint_exists(path):
             logger.warning("Resume path %s does not exist. Starting from scratch.",
                            path)
             return
         tree, metadata = load_checkpoint(path)
-        self.state.load_state_dict(tree)
+        self._restore(tree, metadata)
         self.start_epoch = int(metadata.get("epoch", 0))
-        self.best_score = float(metadata.get("best_val_score", -math.inf))
+        self.best_score = float(metadata.get(self.best_key, -math.inf))
         logger.info("Resuming from epoch %d.", self.start_epoch + 1)
+
+    def _restore(self, tree, metadata):
+        """Load a checkpoint's tree into the train state."""
+        self.state.load_state_dict(tree)
 
     def _vizualize(self):
         try:

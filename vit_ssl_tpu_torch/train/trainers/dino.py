@@ -27,26 +27,9 @@ from ...config import to_container
 from ...models.dino import cosine_momentum_schedule, teacher_temp_schedule
 from ..state import TrainState
 from ..steps import make_dino_steps
-from .base import BaseTrainer
+from .base import BaseTrainer, refuse_automatic_evaluation
 
 logger = logging.getLogger(__name__)
-
-
-def refuse_automatic_evaluation(config) -> None:
-    """Raise when ``fit`` would reach an automatic evaluation (the
-    condition ``preflight_eval_data`` checks)."""
-    eval_cfg = config.get("eval", {}) or {}
-    interval = int(eval_cfg.get("interval", 0) or 0)
-    if not interval or not eval_cfg.get("mode"):
-        return
-    training = config.get("training", {}) or {}
-    num_epochs = int(training.get("num_epochs", 0) or 0)
-    if num_epochs < interval and not training.get("resume_from_checkpoint"):
-        return
-    raise NotImplementedError(
-        f"eval.interval={interval} with eval.mode={eval_cfg.get('mode')} would "
-        "run the automatic evaluation, and the evaluators are not ported yet "
-        "(ROADMAP.md queue A item 7); set eval.interval=0")
 
 
 def _f32(x: float) -> float:

@@ -1,17 +1,25 @@
-"""Training metrics (port of the DINO part of ``vit_ssl_tpu/utils/metrics.py``).
+"""Training metrics (port of the DINO and supervised parts of
+``vit_ssl_tpu/utils/metrics.py``).
 
 :func:`dino_distribution_stats` computes the eight collapse-monitoring
 metrics that ``configs/dino/metrics.yaml`` names, in one pass on the
 device: the center's norm, the teacher's and the student's mean, unbiased
 STD and variance, and the mean teacher×student cosine similarity.
-:class:`MetricHandler` turns the ones a config's ``metrics`` list names
-into host floats, as the JAX package's name-keyed registry does.
+Accuracy, F1Score, Recall and Precision (``configs/supervised/metrics.yaml``)
+are computed on the host from an epoch's predictions and labels: the
+macro means over classes 0 … max(label) of the per-class scores, a class
+with no predictions or no labels scoring 0. :class:`MetricHandler` turns
+the ones a config's ``metrics`` list names into host floats, as the JAX
+package's name-keyed registry does.
+
+SimMIM's PSNR and SSIM are not ported yet (``ROADMAP.md`` queue A item 6).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
+import numpy as np
 import torch
 
 DINO_METRICS = ("CenterNorm", "TeacherMean", "TeacherSTD", "TeacherVar",
@@ -57,15 +65,65 @@ def dino_distribution_stats(teacher, student, center,
     }
 
 
-# the supervised and SimMIM metrics of the JAX registry, with the queue-A
-# item that ports them
-_NOT_PORTED = {"Accuracy": 4, "F1Score": 4, "Recall": 4, "Precision": 4,
-               "PSNR": 6, "SSIM": 6}
+def _per_class_counts(y_pred: np.ndarray, y_true: np.ndarray):
+    """(tp, fp, fn) of each class 0 … max(y_true)."""
+    for cls in range(int(y_true.max()) + 1):
+        tp = int(((y_pred == cls) & (y_true == cls)).sum())
+        fp = int(((y_pred == cls) & (y_true != cls)).sum())
+        fn = int(((y_pred != cls) & (y_true == cls)).sum())
+        yield tp, fp, fn
+
+
+def _ratio(a: int, b: int) -> float:
+    return a / b if b > 0 else 0.0
+
+
+def _macro(scores: List[float]) -> float:
+    return sum(scores) / len(scores) if scores else 0.0
+
+
+def accuracy(*, correct, total, **kwargs) -> float:
+    return float(correct) / float(total)
+
+
+def f1_score(*, y_pred, y_true, **kwargs) -> float:
+    f1s = []
+    for tp, fp, fn in _per_class_counts(np.asarray(y_pred), np.asarray(y_true)):
+        p, r = _ratio(tp, tp + fp), _ratio(tp, tp + fn)
+        f1s.append(2 * p * r / (p + r) if (p + r) > 0 else 0.0)
+    return _macro(f1s)
+
+
+def recall(*, y_pred, y_true, **kwargs) -> float:
+    return _macro([_ratio(tp, tp + fn) for tp, _, fn in
+                   _per_class_counts(np.asarray(y_pred), np.asarray(y_true))])
+
+
+def precision(*, y_pred, y_true, **kwargs) -> float:
+    return _macro([_ratio(tp, tp + fp) for tp, fp, _ in
+                   _per_class_counts(np.asarray(y_pred), np.asarray(y_true))])
+
+
+def _dino_stat(key: str):
+    def compute(*, dino_stats: Dict[str, Any], **kwargs) -> float:
+        return float(dino_stats[key])
+    return compute
+
+
+# name -> fn(**what the trainer passes) -> float, as the JAX registry maps
+# names to metric classes
+_REGISTRY = {name: _dino_stat(name) for name in DINO_METRICS}
+_REGISTRY.update({"Accuracy": accuracy, "F1Score": f1_score, "Recall": recall,
+                  "Precision": precision})
+# SimMIM's metrics, with the queue-A item that ports them
+_NOT_PORTED = {"PSNR": 6, "SSIM": 6}
 
 
 class MetricHandler:
     """Name-keyed metric dispatch over a config's ``metrics`` list: each
-    DINO name reads its value from the step's ``dino_stats``."""
+    DINO name reads its value from the step's ``dino_stats``; the
+    supervised names take ``correct``, ``total``, ``y_pred`` and
+    ``y_true``."""
 
     def __init__(self, config):
         self.metric_names: List[str] = []
@@ -74,10 +132,9 @@ class MetricHandler:
                 raise NotImplementedError(
                     f"metric '{name}' is not ported yet; see ROADMAP.md queue A "
                     f"item {_NOT_PORTED[name]}")
-            if name not in DINO_METRICS:
+            if name not in _REGISTRY:
                 raise ValueError(f"Unknown metric '{name}'")
             self.metric_names.append(name)
 
-    def calculate_metrics(self, *, dino_stats: Dict[str, Any],
-                          **kwargs) -> Dict[str, float]:
-        return {name: float(dino_stats[name]) for name in self.metric_names}
+    def calculate_metrics(self, **kwargs) -> Dict[str, float]:
+        return {name: _REGISTRY[name](**kwargs) for name in self.metric_names}
