@@ -18,7 +18,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               forward in its one-pass (N <= 256) and two-pass forms, the
               bf16 backward in its resident (N <= 256) and streamed forms,
               also at ViT-B/16's 224-px shape (1024, 197, 12 x 64), bf16 and
-              fp32; each head kept to its columns and each image to its
+              fp32, and SimMIM's (128, 144, 6 x 64), bf16; each head kept to its columns and each image to its
               rows, two calls bit-equal; kernel B4
               (fused MLP): its three forwards (no mask; keep-mask; keep-mask
               and saved pre) and its backward (with and without the mask)
@@ -79,6 +79,26 @@ Phases, each printing its own lines; any failure exits non-zero:
               1300 in-memory labeled images with B1's launches exact in
               each step, the frozen tensors unchanged bit for bit through
               epoch 1 and moved after the unfreeze
+9c. SimMIM trainer — configs/simmim.yaml (ViT-S/16 at 192 px, N = 144,
+              mask ratio 0.5) composed by the port (checked against
+              SIMMIM_VIT_S16), ``SimMIMTrainer.fit(2)`` over 400 in-memory
+              uint8 images (3 train and 1 val step an epoch): B1's launches
+              exact in each step (6 training forwards and 6 backwards a train
+              step, 6 inference forwards a val step), no plain attention,
+              finite PSNR and SSIM, best_model and last_model; a resumed
+              epoch 3 bit-equal to a straight fit(3); warm step, img/s,
+              device busy and idle share, peak memory, the in-loop step and
+              the input-wait share; one step against the plain-attention
+              step from one cloned state
+9d. gradient accumulation — a SimMIM step at grad_accum 4 and a DINO
+              ViT-S/8 step at grad_accum 2, each against grad_accum 1 from
+              one cloned state (dropout 0; SimMIM at mask ratio 1), B1's
+              launches exact; Bernoulli dropout's keep rate within 4 sigma
+9e. SimMIM serving — the trained model as a ``.pth`` through
+              ``Server.forward_batch`` at batch 128: 6 B1 inference launches
+              a batch, padding rows inert, row cosine >= 0.999 to the
+              plain-attention embedding, the warm batch; then B1's three
+              entries at (128, 144, 6 x 64): kernel, plain, SDPA and bound
 10. B3 kernels — kernel B3 (head-major fused attention) against its plain
               versions: inference forward, training forward and backward at
               ViT-B/16's (64, 12, 577, 64), at N = 1, N = 1024 and ragged N,
@@ -329,6 +349,34 @@ FINETUNE_S8 = {
     "metrics": ["Accuracy"],
 }
 FINETUNE_S8["model"]["num_classes"] = 10
+# SimMIM ViT-S/16 at 192 px as configs/simmim.yaml composes it (N = 144, no
+# CLS token, half the patches masked); tests/test_torch_guards.py pins every
+# value here to the port's composition. Its one override: an automatic
+# evaluation is refused (ROADMAP.md queue A item 7). 400 in-memory images
+# make 3 train steps (320 images, the last padded) and 1 val step (80) an
+# epoch at the config's val_split 0.2
+SIMMIM_VIT_S16 = {
+    "training": {"type": "simmim", "batch_size": 128, "num_epochs": 130,
+                 "warmup_epochs": 10, "warmup_initial_learning_rate": 1e-6,
+                 "warmup_final_learning_rate": 1e-4,
+                 "optimizer": {"name": "AdamW", "params": {"weight_decay": 0.001}},
+                 "criterion": {"name": "L1Loss"},
+                 "lr_scheduler": {"main": {"name": "CosineAnnealingLR",
+                                           "params": {"eta_min": 1e-6}}}},
+    "model": {key: DINO_VIT_S8["model"][key] for key in (
+        "in_channels", "embed_dim", "num_blocks", "num_heads", "mlp_dim", "dropout",
+        "fast_dropout", "use_fused_mlp", "compute_dtype")},
+    "data": {"dataset_name": "stl10", "img_size": 192, "val_split": 0.2},
+    "parallel": {"remat": False},
+    "transforms": {"train": [
+        {"name": "RandomResizedCrop", "params": {"size": 192, "scale": [0.9, 1.0]}},
+        {"name": "RandomHorizontalFlip", "params": {}},
+        {"name": "ToTensor"}]},
+    "metrics": ["PSNR", "SSIM"],
+}
+SIMMIM_VIT_S16["model"].update(patch_size=16, mask_ratio=0.5, use_flash_attention=True)
+SIMMIM_OVERRIDES = ["eval.interval=0"]
+SIMMIM_IMAGES = 400
 FINETUNE_IMAGES = 1300  # in-memory uint8 96 x 96 x 3 images: 1040 train, 260 val
 GLOBAL_BATCH = 1024  # configs/vit_b_imagenet.yaml's training.batch_size
 IMAGENET_TRAIN = 1_281_167  # images of ImageNet-1k's train split
@@ -356,6 +404,7 @@ ATTENTION_CASES = [
     (4, 1, 6, 64, "float32", 0),
     (1024, 197, 12, 64, "bfloat16", 0),
     (1024, 197, 12, 64, "float32", 0),
+    (128, 144, 6, 64, "bfloat16", 0),
 ]
 # The training forward and backward: the student globals and packed locals
 # first (bf16 and fp32), then the other shapes the kernels take
@@ -371,9 +420,12 @@ TRAIN_CASES = [
     (4, 1, 6, 64, "bfloat16", 0),
     (1024, 197, 12, 64, "bfloat16", 0),
     (1024, 197, 12, 64, "float32", 0),
+    (128, 144, 6, 64, "bfloat16", 0),
 ]
 # ViT-B/16 at 224 px (configs/vit_b_imagenet.yaml): B1's shape on that path
 VIT_B_B1_CASE = (1024, 197, 12, 64, "bfloat16", 0)
+# SimMIM ViT-S/16 at 192 px (configs/simmim.yaml): every forward and backward
+SIMMIM_B1_CASE = (128, 144, 6, 64, "bfloat16", 0)
 # gradients and statistics: max |kernel - plain| over max |plain|. bf16: p
 # and ds round to bf16 on both sides and may land on either side of a tie;
 # fp32: sums in another order
@@ -2680,6 +2732,359 @@ def phase_remat(torch, fa, card):
     return {"remat_step": paths["remat"], "no_remat_step": paths["no remat"]}
 
 
+def simmim_launches(fa, blocks, microbatches=1):
+    """B1's launches in one SimMIM training step: each block's training
+    forward and backward once a microbatch."""
+    return {fa.KERNEL_TRAIN: blocks * microbatches, fa.KERNEL_BWD: blocks * microbatches}
+
+
+def set_dropout(model, rate):
+    """Every dropout of ``model`` at ``rate``."""
+    from vit_ssl_tpu_torch.ops import Dropout
+
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.rate = rate
+
+
+def phase_simmim_trainer(torch, fa, card, tmp):
+    """configs/simmim.yaml (SimMIM ViT-S/16 at 192 px, N = 144) through
+    ``SimMIMTrainer.fit(2)`` over in-memory images, B1's launches exact in
+    every step; a fresh trainer resumed from last_model trains epoch 3 and
+    ends bit-equal to a straight fit(3); warm step, device busy, peak
+    memory, the in-loop step and the input-wait share; one step against the
+    plain-attention step from one cloned state. Returns the launches of both
+    runs and the phase's numbers."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose, to_container, validate_train_config
+    from vit_ssl_tpu_torch.data.builder import make_loaders
+    from vit_ssl_tpu_torch.models.builder import build_model
+    from vit_ssl_tpu_torch.train.__main__ import get_save_path, get_trainer, save_run_config
+    from vit_ssl_tpu_torch.train.trainers.base import to_host
+    from vit_ssl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    configs = Path(__file__).resolve().parent / "configs"
+    run_dir = str(Path(tmp) / "simmim")
+    overrides = SIMMIM_OVERRIDES + [f"hydra.run.dir={run_dir}"]
+    print(f"== SimMIM trainer: configs/simmim.yaml composed by vit_ssl_tpu_torch.config "
+          f"with {' '.join(SIMMIM_OVERRIDES)}; fit(2) over {SIMMIM_IMAGES} in-memory "
+          f"images (standing in for the host pipeline's output), a resumed epoch 3 "
+          f"against a straight fit(3); {card}", flush=True)
+    plain = to_container(compose(configs, "simmim"))
+    diffs = config_differences(SIMMIM_VIT_S16, plain)
+    config = compose(configs, "simmim", overrides)
+    validate_train_config(config)
+    composed = to_container(config)
+    diffs += [f"the overrides changed config.{k}" for k in composed
+              if k not in ("eval", "hydra") and composed[k] != plain[k]]
+    if diffs:
+        fail("the composed configs/simmim.yaml differs from SIMMIM_VIT_S16: "
+             + "; ".join(diffs))
+    print("  composed config: training, model (mask_ratio 0.5), data, transforms and "
+          "metrics as written, equal to SIMMIM_VIT_S16", flush=True)
+
+    img = SIMMIM_VIT_S16["data"]["img_size"]
+    images = np.random.default_rng(17).integers(0, 256, (SIMMIM_IMAGES, img, img, 3),
+                                                dtype=np.uint8)
+
+    def trainer_for(path):
+        train_loader, val_loader = make_loaders(config, InMemoryImages(images))
+        return get_trainer("simmim", build_model(config, "cuda"), path, config,
+                           train_loader, val_loader, "cuda"), train_loader, val_loader
+
+    save_path = get_save_path(config)
+    save_run_config(config, overrides, save_path)
+    trainer, train_loader, val_loader = trainer_for(save_path)
+    real = (len(train_loader.dataset), len(val_loader.dataset))
+    print(f"  loaders: {real[0]} train images in {len(train_loader)} steps, {real[1]} "
+          f"val images in {len(val_loader)} steps, batch {train_loader.batch_size}, "
+          f"{train_loader.num_workers} workers", flush=True)
+    step_fn = trainer.train_step
+    train_log, val_log = [], []
+    trainer.train_step = counted_steps(trainer.train_step, train_log)
+    trainer.eval_step = counted_steps(trainer.eval_step, val_log)
+    epoch_s = epoch_recorder(trainer, lambda epoch: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the SimMIM trainer's path starts here
+        trainer.fit(2)
+        launches = dict(kernels.launches)  # ... and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    blocks = SIMMIM_VIT_S16["model"]["num_blocks"]
+    per_train, per_val = simmim_launches(fa, blocks), {fa.KERNEL: blocks}
+    check_step_launches({"train": train_log, "val": val_log},
+                        {"train": per_train, "val": per_val},
+                        {"train": 2 * len(train_loader), "val": 2 * len(val_loader)})
+    print(f"  launches over fit(2): {launches} (per train step {per_train}, per val "
+          f"step {per_val}); no plain attention ran", flush=True)
+    finite_history(trainer, 2)
+    meta = {name: json.loads((Path(save_path) / name / "metadata.json").read_text())
+            for name in ("best_model", "last_model")}
+    last = meta["last_model"]
+    if (last["epoch"], last["mode"], last["config"]) != (2, "simmim", composed):
+        fail(f"last_model metadata: epoch {last['epoch']}, mode {last['mode']}")
+    print(f"  best_model: epoch {meta['best_model']['epoch']}, best_val_score "
+          f"{meta['best_model']['best_val_score']:.6g}; last_model: epoch 2", flush=True)
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(train_log[len(train_loader):],
+                                                   train_log[len(train_loader) + 1:])]
+    waits = [st["wait_s"] / st["wall_s"] for st in trainer.epoch_input_stats]
+    del trainer
+
+    resumed, _, _ = trainer_for(save_path)
+    resumed.resume_from(str(Path(save_path) / "last_model"))
+    saved, _ = load_checkpoint(str(Path(save_path) / "last_model"))
+    mismatch = state_mismatch(torch, to_host(resumed.state.state_dict()), saved)
+    if mismatch or resumed.start_epoch != 2:
+        fail(f"the resumed state differs from last_model at {mismatch} (start epoch "
+             f"{resumed.start_epoch})")
+    del saved
+    resumed_log = []
+    resumed.train_step = counted_steps(resumed.train_step, resumed_log)
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the resumed run starts here
+        resumed.fit(1)
+        resumed_launches = dict(kernels.launches)  # ... and ends here
+    check_step_launches({"train": resumed_log}, {"train": per_train},
+                        {"train": len(train_loader)})
+    straight, _, _ = trainer_for(str(Path(tmp) / "simmim_straight"))
+    with no_plain_attention(fa):
+        straight.fit(3)
+    mismatch = state_mismatch(torch, to_host(resumed.state.state_dict()),
+                              to_host(straight.state.state_dict()))
+    if mismatch or resumed.state.step != 3 * len(train_loader):
+        fail(f"the resumed epoch 3 (step {resumed.state.step}) differs from the "
+             f"straight fit(3) at {mismatch}")
+    print(f"  resumed from last_model: state bit-equal to the file; epoch 3 ended at "
+          f"step {resumed.state.step}, bit-equal to a straight fit(3); launches "
+          f"{resumed_launches}", flush=True)
+    state, optimizer = resumed.state, resumed.optimizer
+    del resumed, straight
+
+    batch = {"image": torch.from_numpy(images[:128]).cuda(),
+             "weight": torch.ones(128, device="cuda")}
+    host_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    warm_ms = float(np.median(host_ms[2:]))
+    b = SIMMIM_VIT_S16["training"]["batch_size"]
+    for epoch, (t, wait) in enumerate(zip(epoch_s, waits), 1):
+        print(f"  epoch {epoch} on {card}: train {t:.3f} s wall for {real[0]} images "
+              f"({real[0] / t:.1f} img/s), input-wait share {wait:.4f}", flush=True)
+    print(f"  SimMIM ViT-S/16 192 px training, batch {b}, on {card}: warm step "
+          f"{warm_ms:.3f} ms median of 3 after 2 ({' / '.join(f'{x:.3f}' for x in host_ms)}; "
+          f"{b / warm_ms * 1e3:.1f} img/s), host clock with torch.cuda.synchronize(); "
+          f"the in-loop step (epoch 2, intervals between step starts) "
+          f"{' / '.join(f'{x:.3f}' for x in step_ms)} ms; peak memory over fit(2) "
+          f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)", flush=True)
+    idle, busy_ms = profile_window(
+        torch, lambda: step_fn(state, batch), f"1 SimMIM training step at batch {b}",
+        rows=16, counts={name: blocks for name in fa.BACKWARD_BODIES[
+            fa.attention_nhd_bwd_form(144, 0, torch.bfloat16)]})
+
+    kernel_state, plain_state = copy.deepcopy(state), copy.deepcopy(state)
+    got = step_fn(kernel_state, batch, with_grads=True)
+    counted = dict(kernels.launches)
+    with plain_attention():
+        want = step_fn(plain_state, batch, with_grads=True)
+    torch.cuda.synchronize()
+    if dict(kernels.launches) != counted:
+        fail("the plain-attention step launched a kernel")
+    for key in ("psnr_sse", "ssim_sum"):
+        ratio = float(got[key]) / float(want[key])
+        print(f"  {key}: kernel {float(got[key]):.6g}, plain {float(want[key]):.6g} "
+              f"(ratio {ratio:.6f})", flush=True)
+    del kernel_state, plain_state
+
+    def exact_step():
+        exact_state = copy.deepcopy(state)
+        with exact_attention(torch):
+            return step_fn(exact_state, batch, with_grads=True)
+
+    judge(torch, "plain attention", got, want, exact_step)
+    del got, want
+    gc.collect()
+    return launches, resumed_launches, state, optimizer, batch, {
+        "warm_ms": warm_ms, "warm_ms_readings": host_ms, "busy_ms": busy_ms, "idle": idle,
+        "peak_gb": peak_gb, "in_loop_ms": step_ms, "input_wait_share": waits,
+        "epoch_s": epoch_s}
+
+
+def phase_grad_accum(torch, fa, card, state, optimizer, batch):
+    """One SimMIM step at grad_accum 4 and one DINO ViT-S/8 step at
+    grad_accum 2, each against the same step at grad_accum 1 from one cloned
+    state, dropout 0 (SimMIM at mask_ratio 1, so both mask every patch; the
+    DINO views made once on the card and fed to both), held to judge's bars,
+    B1's launches exact; then Bernoulli dropout's keep rate on the card
+    within 4 sigma. Returns the launches of both accumulated steps."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.data.device_augment import make_multicrop_fn
+    from vit_ssl_tpu_torch.ops import keep_mask_bernoulli
+    from vit_ssl_tpu_torch.train import (AdamW, lr_schedule_from_config, make_dino_steps,
+                                         make_simmim_steps)
+
+    model = SIMMIM_VIT_S16["model"]
+    blocks = model["num_blocks"]
+    print(f"== gradient accumulation on {card}: SimMIM at grad_accum 4 and DINO ViT-S/8 "
+          "at grad_accum 2, each against grad_accum 1 from one cloned state, dropout 0",
+          flush=True)
+
+    def accumulated(name, run, start, want_launches, accum, center=None):
+        """``run(state, accum)`` at ``accum`` (launches exact) and at 1,
+        from copies of ``start``, judged; returns the accumulated launches."""
+        outs, paths, states = {}, {}, {}
+        for a in (accum, 1):
+            states[a] = copy.deepcopy(start)
+            with no_plain_attention(fa):
+                kernels.launches.clear()  # the accumulated step's path starts here
+                outs[a] = run(states[a], a)
+                torch.cuda.synchronize()
+                paths[a] = dict(kernels.launches)  # ... and ends here
+            want = {k: v * a for k, v in want_launches.items()}
+            if paths[a] != want:
+                fail(f"the {name} step at grad_accum {a} launched {paths[a]}, "
+                     f"expected {want}")
+        print(f"  {name}: launches at grad_accum {accum} {paths[accum]}, at 1 {paths[1]}",
+              flush=True)
+        # at mask_ratio 1 every token is the mask token: SimMIM's projection
+        # takes no gradient, in either step, and has no cosine
+        unused = [n for n, g in outs[1]["grads"].items()
+                  if not g.any() and not outs[accum]["grads"][n].any()]
+        if unused:
+            print(f"  {name}: {unused} take no gradient in either step (zero in both)",
+                  flush=True)
+            for out in outs.values():
+                out["grads"] = {n: g for n, g in out["grads"].items() if n not in unused}
+
+        def exact_step():
+            with exact_attention(torch):
+                return run(copy.deepcopy(start), 1)
+
+        judge(torch, "grad_accum 1", outs[accum], outs[1], exact_step,
+              *((states[accum].center, states[1].center) if center else ()),
+              names=(f"grad_accum {accum}", "grad_accum 1"))
+        return paths[accum]
+
+    start = copy.deepcopy(state)
+    set_dropout(start.model, 0.0)
+    start.model.mask_ratio = 1.0
+
+    def simmim_run(leg, accum):
+        step, _ = make_simmim_steps(optimizer, model["patch_size"], model["in_channels"],
+                                    "l1", grad_accum=accum)
+        return step(leg, batch, with_grads=True)
+
+    simmim_path = accumulated("SimMIM", simmim_run, start, simmim_launches(fa, blocks), 4)
+    del start
+
+    cfg = copy.deepcopy(DINO_VIT_S8)
+    cfg["model"]["dropout"] = 0.0
+    dino_state, _, dino_batch = build_training(torch, cfg)
+    train, dmodel = cfg["training"], cfg["model"]
+    view_fn = make_multicrop_fn(cfg["transforms"]["globals"], cfg["transforms"]["locals"],
+                                train["num_global_views"], train["num_all_views"])
+    views = {"views": view_fn(torch.Generator(device="cuda").manual_seed(6),
+                              dino_batch["image"]), "weight": dino_batch["weight"]}
+
+    dino_optimizer = AdamW(lr_schedule_from_config(cfg, STL10_UNLABELED // train["batch_size"]),
+                           weight_decay=train["optimizer"]["params"]["weight_decay"])
+
+    def dino_run(leg, accum):
+        step, _ = make_dino_steps(
+            dino_optimizer, train["num_global_views"], train["num_all_views"],
+            student_temp=train["student_temp"], center_momentum=dmodel["center_momentum"],
+            teacher_dropout=train["teacher_dropout"], grad_accum=accum,
+            pack_locals=dmodel["dino_pack_locals"])
+        return step(leg, views, *schedule_values(), with_grads=True)
+
+    dino_path = accumulated("DINO", dino_run, dino_state, attention_launches(fa), 2,
+                            center=True)
+    del dino_state, dino_batch, views
+
+    rate, n = SIMMIM_VIT_S16["model"]["dropout"], 1 << 26
+    keep = keep_mask_bernoulli((n,), rate, torch.Generator(device="cuda").manual_seed(7))
+    kept = float(keep.float().mean())
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    print(f"  Bernoulli dropout on the card: keep rate {kept:.6f} over {n} draws, "
+          f"1 - rate {1 - rate:g}, |diff| {abs(kept - (1 - rate)) / sigma:.2f} sigma "
+          "(<= 4)", flush=True)
+    if abs(kept - (1 - rate)) > 4 * sigma:
+        fail("Bernoulli dropout's keep rate is off by more than 4 sigma")
+    del keep
+    gc.collect()
+    return {"grad_accum_step": simmim_path, "grad_accum_step_dino": dino_path}
+
+
+def phase_simmim_serving(torch, fa, card, state, tmp):
+    """The trained SimMIM model written as a ``.pth`` and served at batch
+    128 through ``Server.forward_batch``: 6 B1 inference launches a batch
+    and nothing else, padding rows inert, each row's embedding (the mean
+    patch feature) at cosine >= 0.999 to the plain-attention forward's, and
+    the warm batch. Returns the launches."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.serve import Server
+
+    img, blocks = SIMMIM_VIT_S16["data"]["img_size"], SIMMIM_VIT_S16["model"]["num_blocks"]
+    print(f"== SimMIM serving: the trained ViT-S/16 at {img} px (N=144), batch "
+          f"{SERVE_BATCH}, mean patch features, bf16; {card}", flush=True)
+    pth = f"{tmp}/simmim.pth"
+    config = copy.deepcopy(SIMMIM_VIT_S16)
+    torch.save({"model_state_dict": {k: v.detach().cpu() for k, v in
+                                     state.model.state_dict().items()},
+                "config": config, "epoch": 3}, pth)
+    server = Server(pth, batch_size=SERVE_BATCH, device="cuda")
+    x = np.random.default_rng(8).random((SERVE_BATCH, img, img, 3), np.float32)
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the SimMIM serving path starts here
+        out = server.forward_batch(x)
+        short = server.forward_batch(x[:37])
+        launches = dict(kernels.launches)  # ... and ends here
+    if launches != {fa.KERNEL: 2 * blocks}:
+        fail(f"two served SimMIM batches launched {launches}, expected "
+             f"{{{fa.KERNEL!r}: {2 * blocks}}}")
+    embed = SIMMIM_VIT_S16["model"]["embed_dim"]
+    if out.shape != (SERVE_BATCH, embed) or not np.isfinite(out).all():
+        fail(f"SimMIM embeddings {out.shape} not finite ({SERVE_BATCH}, {embed})")
+    pad_err = float(np.abs(short - out[:37]).max())
+    with plain_attention(), torch.inference_mode():
+        ref = server.model.inference_forward(torch.from_numpy(x).cuda()).float().cpu().numpy()
+    if dict(kernels.launches) != launches:
+        fail("the plain-attention SimMIM forward launched a kernel")
+    cos = row_cosine(out, ref)
+    print(f"  launches {launches}; padding rows: max_abs_diff {pad_err:.3e} (must be 0); "
+          f"against plain attention: min row cosine {cos.min():.6f} (>= 0.999)",
+          flush=True)
+    if pad_err != 0.0 or cos.min() < 0.999:
+        fail("the served SimMIM embeddings disagree with the plain attention path")
+    warm_ms = warm_batch_ms(server, x)
+    print(f"  SimMIM serving on {card}: warm batch {warm_ms:.3f} ms median of 10 "
+          f"({SERVE_BATCH / warm_ms * 1e3:.1f} img/s), host clock incl. H2D/D2H",
+          flush=True)
+    return launches, warm_ms
+
+
+def phase_b1_simmim_times(torch, fa, card):
+    """B1's three entries at SimMIM's (128, 144, 6 x 64), bf16: kernel,
+    plain, SDPA and bound (rows of the kernels line)."""
+    b, n, h, d, dtype_name, bs = SIMMIM_B1_CASE
+    print(f"== B1 at SimMIM's shape ({b},{n},{h}x{d}) {dtype_name} on {card}", flush=True)
+    dtype = getattr(torch, dtype_name)
+    xq, xk, xv = qkv(b, n, h, d, dtype, seed=320)
+    (do,) = qkv(b, n, h, d, dtype, seed=321)[:1]
+    scale = 1.0 / d ** 0.5
+    bounds = attention_train_bounds(b, n, h, d, dtype_name, bs)
+    return {
+        "fwd": b1_forward_row(torch, fa, fa.KERNEL, ", SimMIM eval", xq, xk, xv, h,
+                              scale, bs, attention_bound(b, n, h, d, dtype_name, bs)),
+        "fwd_stats": b1_forward_row(torch, fa, fa.KERNEL_TRAIN, ", SimMIM training",
+                                    xq, xk, xv, h, scale, bs, bounds["fwd"]),
+        "bwd": b1_backward_row(torch, fa, xq, xk, xv, do, h, scale, bs, bounds["bwd"]),
+    }
+
+
 # (entry, T, keep-mask, (d_model, d_ff)): at DINO ViT-S/8's width the
 # training forward at the student's globals and packed locals, the teacher's
 # forward, the served forward, the backward at the two student shapes; at
@@ -3363,6 +3768,14 @@ def main() -> int:
                                                               tmp)
         finetune_launches = phase_finetune(torch, fa, card,
                                            Path(tmp) / "run" / "best_model", tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        (simmim_fit_launches, simmim_resumed_launches, simmim_state, simmim_optimizer,
+         simmim_batch, _) = phase_simmim_trainer(torch, fa, card, tmp)
+        accum_paths = phase_grad_accum(torch, fa, card, simmim_state, simmim_optimizer,
+                                       simmim_batch)
+        simmim_serve_launches, _ = phase_simmim_serving(torch, fa, card, simmim_state, tmp)
+        del simmim_state, simmim_batch
+    simmim_b1_rows = phase_b1_simmim_times(torch, fa, card)
     mlp_stats = phase_mlp_times(torch, fm, card)
     blocks = VIT_B16_384["model"]["num_blocks"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -3415,24 +3828,29 @@ def main() -> int:
     # and ViT-B/16's 224-px shape (the training forward's output is
     # bit-equal to the inference kernel's, so both carry its error)
     vit_b_err = train_errors[VIT_B_B1_CASE]
+    # and SimMIM's (128, 144) shape, checked as a training case
+    simmim_err = train_errors[SIMMIM_B1_CASE]
     entries = [
         (fa.KERNEL, "attention_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:352",
          serve_err, {**serve_stats, "at_other_shapes": [
              train_stats[("fwd_inference", 0)],
-             {**vit_b_rows["fwd"], "max_abs_err": vit_b_err[0]}]}),
+             {**vit_b_rows["fwd"], "max_abs_err": vit_b_err[0]},
+             {**simmim_b1_rows["fwd"], "max_abs_err": simmim_err[0]}]}),
         (fa.KERNEL_TRAIN, "attention_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:352",
          train_errors[globals_case][0],
          {**train_stats[("fwd", 0)], "at_other_shapes": [
              {**train_stats[("fwd", locals_case[-1])],
               "max_abs_err": train_errors[locals_case][0]},
-             {**vit_b_rows["fwd_stats"], "max_abs_err": vit_b_err[0]}]}),
+             {**vit_b_rows["fwd_stats"], "max_abs_err": vit_b_err[0]},
+             {**simmim_b1_rows["fwd_stats"], "max_abs_err": simmim_err[0]}]}),
         (fa.KERNEL_BWD, "attention_bwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:392",
          train_errors[globals_case][1],
          {**train_stats[("bwd", 0)],
           "entry_source": "vit_ssl_tpu_torch/csrc/attention_nhd_bwd.cu",
           "at_other_shapes": [{**train_stats[("bwd", locals_case[-1])],
                                "max_abs_err": train_errors[locals_case][1]},
-                              {**vit_b_rows["bwd"], "max_abs_err": vit_b_err[1]}]}),
+                              {**vit_b_rows["bwd"], "max_abs_err": vit_b_err[1]},
+                              {**simmim_b1_rows["bwd"], "max_abs_err": simmim_err[1]}]}),
     ]
     # B4 at each width: the served forward (no mask), the training forward
     # and the backward (keep-mask); the backward's max_abs_err is dx's: the
@@ -3519,6 +3937,9 @@ def main() -> int:
              "trainer": trainer_launches, "trainer_resumed": resumed_launches,
              "finetune": finetune_launches, "trainer_vit_b": vit_b_launches,
              "trainer_vit_b_resumed": vit_b_resumed_launches, **remat_paths,
+             "simmim_trainer": simmim_fit_launches,
+             "simmim_trainer_resumed": simmim_resumed_launches,
+             "simmim_serve": simmim_serve_launches, **accum_paths,
              "serving_fused": fused_serve_launches, "training_fused": fused_train_launches,
              "serving_supervised": sup_serve_launches, **sup_paths,
              "serving_supervised_fused": sup_fused_serve_launches, **sup_fused_paths,

@@ -22,7 +22,7 @@ import torch
 from vit_ssl_tpu.config import compose, to_container
 from vit_ssl_tpu.ops.initializers import InitScheme
 from vit_ssl_tpu.ops.precision import resolve_precision as jax_resolve_precision
-from vit_ssl_tpu_torch.models import (DINONetwork, ViT, build_backbone,
+from vit_ssl_tpu_torch.models import (DINONetwork, SimMIMViT, ViT, build_backbone,
                                       build_dino_network, build_model, build_vit)
 from vit_ssl_tpu_torch.models.dino import WeightNormDense
 from vit_ssl_tpu_torch.ops import attention as attention_mod
@@ -209,9 +209,17 @@ def test_dino_refuses_remat_and_scan_layers(build, override, match):
 @pytest.mark.parametrize("build", [build_model, build_backbone],
                          ids=["build_model", "backbone"])
 def test_simmim_is_refused_with_its_roadmap_item(build):
-    """A SimMIM config is refused by name, pointing at ROADMAP.md queue A
-    item 6 (SimMIM), from the model factory and from the DINO builders."""
+    """SimMIM is ported since: the model factory builds a ``SimMIMViT``
+    masking the config's ``model.mask_ratio``; the DINO builders still
+    refuse a SimMIM config, and the refusal names no queue item."""
     config = _dino_config()
     config["training"]["type"] = "simmim"
-    with pytest.raises(NotImplementedError, match=r"(?is)simmim.*queue A item 6\b"):
+    config["model"]["mask_ratio"] = 0.5
+    if build is build_model:
+        net = build(config, "cpu")
+        assert isinstance(net, SimMIMViT) and net.mask_ratio == 0.5
+        assert net.positional_embedding.shape == (1, 16, 64)  # no CLS slot
+        return
+    with pytest.raises(NotImplementedError, match=r"(?is)simmim.*not a DINO mode") as err:
         build(config, "cpu")
+    assert "queue A item" not in str(err.value)

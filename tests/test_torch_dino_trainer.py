@@ -252,6 +252,22 @@ def _trees_equal(a, b, where="state"):
         assert a == b, where
 
 
+def _trees_close(a, b, where="state"):
+    if isinstance(a, torch.Tensor):
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
+                                   rtol=METRIC_RTOL, atol=PARAM_ATOL, err_msg=where)
+    elif isinstance(a, dict):
+        assert set(a) == set(b), where
+        for k in a:
+            _trees_close(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, list):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _trees_close(x, y, f"{where}[{i}]")
+    else:
+        assert a == b, where
+
+
 def test_resume_is_bit_exact_and_snapshots_are_complete(tmp_path, monkeypatch,
                                                         no_plots):
     """fit(1), save, resume and fit(1) give fit(2)'s state bit for bit on
@@ -308,7 +324,7 @@ REFUSALS = [
     (["+parallel.multihost=true"], 10),
     (["eval.interval=1"], 7),
     (["parallel.remat=true"], None),  # ported: see below
-    (["+training.grad_accum_steps=2"], 5),
+    (["+training.grad_accum_steps=2"], None),  # ported: see below
 ]
 
 
@@ -317,16 +333,22 @@ REFUSALS = [
 def test_trainer_refusals_name_their_item(tmp_path, overrides, item, no_plots):
     """Each refused option names its item; an option ported since (item
     None) trains: ``parallel.remat`` checkpoints the student's blocks and
-    gives fit(1)'s state bit for bit."""
+    gives fit(1)'s state bit for bit; ``training.grad_accum_steps=2``
+    accumulates over two microbatches and gives fit(1)'s state up to the
+    order of fp32 sums (rtol 1e-4, floor 1e-5, as against JAX)."""
     if item is None:
         trainer = _port_trainer(tmp_path / "on", extra=overrides)
-        assert trainer.state.student.backbone.remat
         trainer.fit(1)
         plain = _port_trainer(tmp_path / "off")
         assert not plain.state.student.backbone.remat
         plain.fit(1)
-        _trees_equal(trainer_base.to_host(trainer.state.state_dict()),
-                     trainer_base.to_host(plain.state.state_dict()))
+        got = trainer_base.to_host(trainer.state.state_dict())
+        want = trainer_base.to_host(plain.state.state_dict())
+        if overrides == ["parallel.remat=true"]:
+            assert trainer.state.student.backbone.remat
+            _trees_equal(got, want)
+        else:
+            _trees_close(got, want)
         return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue A item {item}\b"):
         _port_trainer(tmp_path, extra=overrides)
@@ -339,22 +361,32 @@ def test_eval_interval_that_never_fires_runs(tmp_path):
 
 
 @pytest.mark.parametrize("mode,item", [("supervised", None), ("finetune", None),
-                                       ("simmim", 6)])
+                                       ("simmim", None)])
 def test_other_training_modes_name_their_item(mode, item, tmp_path):
-    """SimMIM names its item; supervised and finetune (ported since, item
-    None) are taken, and their labeled loaders built."""
+    """Supervised, finetune and SimMIM (ported since, item None) are taken,
+    and their loaders built: labeled batches, or SimMIM's unlabeled images
+    through its host pipeline (``configs/simmim/train_transforms.yaml``)."""
     if item is None:
         from make_synthetic_data import make
 
         data = make(str(tmp_path), n=10, size=8, num_classes=2)
         check_mode(mode)
-        config = compose(CONFIGS, mode, [f"data.data_dir={data}/train_images",
-                                         f"data.data_csv={data}/train_labels.json",
-                                         "data.num_workers=0", "training.batch_size=4"])
+        if mode == "simmim":
+            config = compose(CONFIGS, mode, [f"data.data_dir={data}/unlabeled_images",
+                                             "data.img_size=8", "data.num_workers=0",
+                                             "training.batch_size=4"])
+            keys, image = {"image", "weight"}, (4, 8, 8, 3)
+        else:
+            config = compose(CONFIGS, mode, [f"data.data_dir={data}/train_images",
+                                             f"data.data_csv={data}/train_labels.json",
+                                             "data.num_workers=0", "training.batch_size=4"])
+            keys, image = {"image", "label", "weight"}, None
         train, val = prepare_dataloaders(config, mode)
         batch = next(iter(train))
-        assert set(batch) == {"image", "label", "weight"}
+        assert set(batch) == keys
         assert (len(train.dataset), len(val.dataset)) == (8, 2)
+        if image:
+            assert batch["image"].shape == image and batch["image"].dtype == np.float32
         return
     with pytest.raises(NotImplementedError, match=rf"queue A item {item}\b"):
         check_mode(mode)
@@ -387,12 +419,17 @@ def test_other_optimizers_name_their_item(name, item):
                        lambda step: 1e-3)
 
 
-@pytest.mark.parametrize("metric,item", [("Accuracy", None), ("PSNR", 6)])
+@pytest.mark.parametrize("metric,item", [("Accuracy", None), ("PSNR", None)])
 def test_other_metrics_name_their_item(metric, item):
-    """PSNR names its item; Accuracy (ported since, item None) computes."""
+    """Accuracy and PSNR (ported since, item None) compute; an unknown name
+    still raises."""
     if item is None:
         handler = MetricHandler({"metrics": [metric]})
-        assert handler.calculate_metrics(correct=3, total=4) == {metric: 0.75}
+        got = handler.calculate_metrics(correct=3, total=4, psnr_sse=1.0,
+                                        psnr_count=100.0)
+        assert got == {metric: 0.75 if metric == "Accuracy" else pytest.approx(20.0)}
+        with pytest.raises(ValueError, match="Unknown metric"):
+            MetricHandler({"metrics": [metric + "x"]})
         return
     with pytest.raises(NotImplementedError, match=rf"queue A item {item}\b"):
         MetricHandler({"metrics": [metric]})

@@ -9,7 +9,8 @@
   ViT-B/16 trainer's config the port's composition of
   ``configs/vit_b_imagenet.yaml`` as written and its finetune config the
   port's composition of ``configs/finetune.yaml`` with the script's
-  overrides, its bounds are the stated arithmetic, and the script refuses
+  overrides, its SimMIM config the port's composition of
+  ``configs/simmim.yaml``, its bounds are the stated arithmetic, and the script refuses
   to run without a card;
 - a self-attention longer than kernel B3 takes (N > 1024) runs kernel B2.
 """
@@ -57,6 +58,8 @@ def test_port_import_leaves_jax_out():
         "import vit_ssl_tpu_torch.utils.history, vit_ssl_tpu_torch.train.trainers\n"
         "import vit_ssl_tpu_torch.train.__main__, vit_ssl_tpu_torch.train.trainers.supervised\n"
         "import vit_ssl_tpu_torch.models.builder, vit_ssl_tpu_torch.ops.encoder_block\n"
+        "import vit_ssl_tpu_torch.models.simmim, vit_ssl_tpu_torch.train.trainers.simmim\n"
+        "import vit_ssl_tpu_torch.ops.patch_embedding, vit_ssl_tpu_torch.ops.dropout\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} + {HOST_ONLY!r} + ('triton',))\n"
         "print(bad)\n"
@@ -197,6 +200,30 @@ def test_chip_smoke_finetune_config_is_the_ports_composition():
     for key in ("embed_dim", "num_blocks", "num_heads", "mlp_dim", "patch_size"):
         assert cfg["model"][key] == smoke.DINO_VIT_S8["model"][key], key
     assert cfg["data"]["img_size"] == smoke.DINO_VIT_S8["data"]["img_size"]
+
+
+def test_chip_smoke_simmim_config_is_the_ports_composition():
+    """The SimMIM trainer phase's config: the port's composition of
+    configs/simmim.yaml as written (ViT-S/16 at 192 px, N = 144, mask ratio
+    0.5, L1, PSNR and SSIM); its one override touches only the automatic
+    evaluation; its images make 3 train steps and 1 val step an epoch."""
+    from vit_ssl_tpu_torch.config import compose as port_compose
+    from vit_ssl_tpu_torch.config import to_container as port_to_container
+
+    smoke = _load_chip_smoke()
+    composed = port_to_container(port_compose(REPO / "configs", "simmim"))
+    cfg = smoke.SIMMIM_VIT_S16
+    assert cfg["training"]["type"] == "simmim" and cfg["model"]["mask_ratio"] == 0.5
+    assert (cfg["data"]["img_size"] // cfg["model"]["patch_size"]) ** 2 == 144
+    assert smoke.SIMMIM_B1_CASE[:4] == (cfg["training"]["batch_size"], 144,
+                                        cfg["model"]["num_heads"],
+                                        cfg["model"]["embed_dim"] // cfg["model"]["num_heads"])
+    _assert_within(cfg, composed, "config")
+    overridden = port_to_container(port_compose(REPO / "configs", "simmim",
+                                                smoke.SIMMIM_OVERRIDES))
+    assert {k for k in composed if composed[k] != overridden[k]} == {"eval"}
+    val = int(smoke.SIMMIM_IMAGES * cfg["data"]["val_split"])
+    assert -(-(smoke.SIMMIM_IMAGES - val) // 128) == 3 and 0 < val <= 128
 
 
 def test_chip_smoke_supervised_fused_config_is_composed_vit_b_yaml():

@@ -232,12 +232,18 @@ def test_dropout_threshold_saturates():
 
 
 def test_bernoulli_dropout_and_fused_mlp_not_ported():
-    """Bernoulli dropout is still not ported. The fused MLP (kernel B4) now
-    is: ``use_fused=True`` builds, and on the CPU it computes the unfused
-    block's function on the same parameters (fp32: the two paths differ
-    only in where they round, which fp32 does not show at this size)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A item 5\b"):
-        Dropout(0.1, fast=False)
+    """Both are ported since. Bernoulli dropout (``fast=False``) builds and
+    drops by its own rule (``tests/test_torch_grad_accum.py`` holds its
+    keep rate); the fused MLP (kernel B4) builds with ``use_fused=True``,
+    and on the CPU it computes the unfused block's function on the same
+    parameters (fp32: the two paths differ only in where they round, which
+    fp32 does not show at this size)."""
+    drop = Dropout(0.1, fast=False)
+    x = torch.ones(4096)
+    y = drop(x, False, torch.Generator().manual_seed(0))
+    assert not drop.fast and torch.equal(drop(x, True), x)
+    assert torch.equal(y.unique(), torch.tensor([0.0, 1 / 0.9]))
+    assert not torch.equal(y, Dropout(0.1)(x, False, torch.Generator().manual_seed(0)))
     torch.manual_seed(0)
     unfused = FeedForwardBlock(32, 64)
     fused = FeedForwardBlock(32, 64, use_fused=True)

@@ -225,8 +225,29 @@ def test_train_step_with_dropout_and_device_augmentation():
 
 
 def test_grad_accum_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_supervised_steps(AdamW(lambda step: 1e-3), grad_accum=2)
+    """Ported since: ``grad_accum=2`` (two microbatches of the padded batch)
+    gives the full batch's loss and gradients to rtol 1e-5 (a floor of 1e-6
+    of each tensor's largest entry) and the same predictions; a batch it
+    does not divide raises ``ValueError``."""
+    rng = np.random.default_rng(40)
+    batch = {"image": torch.from_numpy(rng.random((B, 32, 32, 3), np.float32)),
+             "label": torch.tensor([1, 2, 3, 4]), "weight": torch.from_numpy(WEIGHT)}
+    outs = {}
+    for accum in (1, 2, 3):
+        model = ViT(**SMALL).reset_parameters(torch.Generator().manual_seed(0))
+        optimizer = AdamW(lambda step: 1e-3)
+        train_step, _ = make_supervised_steps(optimizer, grad_accum=accum)
+        state = SupervisedTrainState(model, optimizer, 0)
+        if accum == 3:
+            with pytest.raises(ValueError, match="must divide"):
+                train_step(state, batch)
+            continue
+        outs[accum] = train_step(state, batch, with_grads=True)
+    got, want = outs[2], outs[1]
+    assert torch.equal(got["preds"], want["preds"])
+    for g, w in [(got["loss"], want["loss"])] + [
+            (g, want["grads"][name]) for name, g in got["grads"].items()]:
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
 
 
 # ---------------------------------------------------------------------------

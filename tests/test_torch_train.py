@@ -232,8 +232,39 @@ def test_next_generators_are_per_step_and_stream():
 
 
 def test_grad_accum_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_dino_steps(AdamW(lambda step: 1e-3), 2, 6, 0.1, 0.9, grad_accum=2)
+    """Ported since: ``grad_accum=2`` (two microbatches of the padded batch,
+    the two-pass path) gives the full batch's loss, gradients, center and
+    statistics to rtol 1e-5 (a floor of 1e-6 of each tensor's largest
+    entry); a batch it does not divide raises ``ValueError``."""
+    outs = {}
+    for accum in (1, 2, 3):
+        student, teacher, center = _weights()
+        net = TorchDINONetwork(2, (3, 16, 16), 32, 8, 2, 64, dropout=0.0, output_dim=16)
+        optimizer = AdamW(reference_lr_schedule(**LR), weight_decay=WEIGHT_DECAY)
+        state = TrainState(net, optimizer, seed=0)
+        state.load_model_state_dict(dino_state_dict_from_flax(student, teacher, center))
+        step, _ = make_dino_steps(optimizer, 2, 6, 0.1, 0.9, teacher_dropout=False,
+                                  grad_accum=accum, pack_locals=True)
+        batch = {"views": [torch.from_numpy(v) for v in _batches()[0]],
+                 "weight": torch.from_numpy(WEIGHT)}
+        if accum == 3:
+            with pytest.raises(ValueError, match="must divide"):
+                step(state, batch, TEACHER_TEMPS[0], TEACHER_MOMENTA[0])
+            continue
+        outs[accum] = step(state, batch, TEACHER_TEMPS[0], TEACHER_MOMENTA[0],
+                           with_grads=True), state.center
+
+    def close(got, want):
+        atol = 1e-6 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+    (got, got_center), (want, want_center) = outs[2], outs[1]
+    close(got["loss"], want["loss"])
+    close(got_center, want_center)
+    for name, g in got["grads"].items():
+        close(g, want["grads"][name])
+    for key, value in got["dino_stats"].items():
+        close(value, want["dino_stats"][key])
 
 
 def test_teacher_takes_no_gradient_and_step_trains_with_dropout():

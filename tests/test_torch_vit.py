@@ -21,6 +21,7 @@ from vit_ssl_tpu.models.vit import ViT as JaxViT
 from vit_ssl_tpu.utils.checkpoint import vit_params_to_torch
 from vit_ssl_tpu_torch.models import (
     DINONetwork,
+    SimMIMViT,
     ViT,
     build_model,
     build_vit,
@@ -177,8 +178,10 @@ def test_build_model_dino_and_simmim():
         "data.img_size=32", "model.embed_dim=64", "model.num_heads=2",
         "model.num_blocks=1", "model.mlp_dim=128", "model.output_dim=16"]))
     assert isinstance(build_model(cfg, "cpu"), DINONetwork)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(_config("simmim"), "cpu")
+    simmim = _config("simmim", **{"+model.mask_ratio": 0.5})
+    model = build_model(simmim, "cpu")  # ported since
+    assert isinstance(model, SimMIMViT) and model.mask_ratio == 0.5
+    assert len(model.encoder_blocks) == 2 and model.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="does not build a ViT"):
         build_vit(cfg, "cpu")
 

@@ -96,7 +96,7 @@ class TrainingSchema:
     lr_final: float = 1e-6
     weight_decay: float = 0.001
     resume_from_checkpoint: Optional[str] = None
-    grad_accum_steps: int = 1  # supervised/simmim: microbatched grad accumulation
+    grad_accum_steps: int = 1  # microbatched gradient accumulation, every mode
     pretrained_path: Optional[str] = None
     freeze_backbone: bool = False
     # DINO fields

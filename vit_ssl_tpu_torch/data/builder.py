@@ -17,8 +17,13 @@ interleaved slice of every global batch.
 - DINO (:func:`dino_dataset`) with ``data.device_augment=true`` (the host
   decodes and resizes; the views are made on the card); train and val
   share one dataset object.
+- SimMIM (:func:`simmim_dataset`): the unlabeled images of
+  ``data.data_dir``, decoded and resized with ``data.device_augment``
+  (the train augmentation runs on the card), else through the config's
+  ``transforms.train`` on the host; train and val share one dataset
+  object, as in the JAX package.
 
-Refused by name, each with its ``ROADMAP.md`` queue-A item: SimMIM, the
+Refused by name, each with its ``ROADMAP.md`` queue-A item: the
 evaluators' datasets, and DINO with ``data.device_augment=false`` (host
 multi-crop).
 """
@@ -65,6 +70,25 @@ def dino_dataset(config) -> Dataset:
         native_decode=bool(data.get("native_decode", False)))
     dataset.num_global_views = int(config.training.num_global_views)
     return dataset
+
+
+def simmim_dataset(config) -> Dataset:
+    """SimMIM's dataset as ``data.*`` describes it (JAX ``_get_dataset``'s
+    ``simmim`` branch)."""
+    data = config.get("data", {})
+    dataset_name = str(data.get("dataset_name", "")).lower()
+    if dataset_name != "stl10":
+        raise ValueError(f"Unknown unsupervised dataset: {dataset_name}")
+    if bool(data.get("device_augment", False)):
+        transform = _decode_and_resize(config)
+    else:
+        from .transforms import get_transforms
+
+        transform = get_transforms(config)["train"]
+    return STL10UnsupervisedDataset(
+        data.get("data_dir"), transform=transform,
+        cache=bool(data.get("cache_decoded", False)),
+        native_decode=bool(data.get("native_decode", False)))
 
 
 def _decode_and_resize(config):
@@ -170,7 +194,7 @@ def make_loaders(config, train_full: Dataset,
 
 def prepare_dataloaders(config, mode) -> Tuple[DataLoader, Optional[DataLoader]]:
     """The train and val loaders of a training mode (the JAX function's
-    supervised, finetune and dino branches)."""
+    supervised, finetune, simmim and dino branches)."""
     if isinstance(mode, (list, tuple)) or "eval" in str(mode).lower():
         raise NotImplementedError(
             f"the evaluators' datasets (mode {mode!r}) are not ported yet; see "
@@ -181,10 +205,8 @@ def prepare_dataloaders(config, mode) -> Tuple[DataLoader, Optional[DataLoader]]
         train_full, val_full = labeled_datasets(config)
         check_label_range(config, train_full)
         return make_loaders(config, train_full, val_full)
-    if mode == "simmim":
-        raise NotImplementedError(
-            "mode 'simmim' is not ported yet; see ROADMAP.md queue A item 6")
-    if mode != "dino":
+    if mode not in ("simmim", "dino"):
         raise ValueError(f"Unknown mode for dataset creation: {mode}")
     logger.info("Preparing dataloaders for mode: '%s'", mode)
-    return make_loaders(config, dino_dataset(config))
+    return make_loaders(config, (simmim_dataset if mode == "simmim"
+                                 else dino_dataset)(config))

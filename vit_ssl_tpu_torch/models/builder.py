@@ -1,6 +1,7 @@
 """Model factory (port of ``vit_ssl_tpu/models/builder.py::build_model``):
-the supervised/finetune :class:`~.vit.ViT`, the DINO backbone that serving
-loads, and the full ``DINONetwork`` that training runs.
+the supervised/finetune :class:`~.vit.ViT`, the :class:`~.simmim.SimMIMViT`
+(``model.mask_ratio``), the DINO backbone that serving loads, and the full
+``DINONetwork`` that training runs.
 
 The config is the plain dict a checkpoint embeds (``.pth`` written by
 ``scripts/export_torch.py``): ``model.*``, ``data.img_size``,
@@ -48,6 +49,7 @@ from torch import nn
 from ..ops.precision import resolve_precision
 from ..ops.resample import resize_hw
 from .dino import DINONetwork, ViTBackbone
+from .simmim import SimMIMViT
 from .vit import ViT
 
 logger = logging.getLogger(__name__)
@@ -106,7 +108,7 @@ def _dino_kwargs(config: dict, device) -> dict:
     if mode not in ("dino", "eval_dino"):
         raise NotImplementedError(
             f"mode '{mode}' is not a DINO mode: build_model builds the "
-            "supervised/finetune ViT; SimMIM is ROADMAP.md queue A item 6"
+            "supervised/finetune ViT and the SimMIM ViT"
         )
     return _common_kwargs(config, device)
 
@@ -126,17 +128,28 @@ def build_vit(config: dict, device) -> ViT:
     )
 
 
+def build_simmim(config: dict, device) -> SimMIMViT:
+    """The SimMIM ViT the config describes, on ``device`` (JAX
+    ``build_model``'s ``simmim`` branch), masking ``model.mask_ratio`` of
+    the patches."""
+    mode = config_mode(config)
+    if mode != "simmim":
+        raise ValueError(f"mode '{mode}' does not build a SimMIM ViT")
+    return SimMIMViT(mask_ratio=float(config["model"]["mask_ratio"]),
+                     **_common_kwargs(config, device))
+
+
 def build_model(config: dict, device) -> nn.Module:
     """The model of the config's mode, on ``device``: the ViT for
-    supervised and finetune, the ``DINONetwork`` for dino and eval_dino."""
+    supervised and finetune, the ``SimMIMViT`` for simmim, the
+    ``DINONetwork`` for dino and eval_dino."""
     mode = config_mode(config)
     if mode in ("supervised", "finetune"):
         return build_vit(config, device)
     if mode in ("dino", "eval_dino"):
         return build_dino_network(config, device)
     if mode == "simmim":
-        raise NotImplementedError(
-            "mode 'simmim' is not ported yet; see ROADMAP.md queue A item 6")
+        return build_simmim(config, device)
     raise ValueError(f"Unknown model-building mode: {mode}")
 
 

@@ -8,9 +8,10 @@ explicit ``torch.Generator`` on the tensor's device, so its streams differ
 from ``jax.random.bits`` by design. Masks are drawn in plain PyTorch, as the
 JAX package leaves them to XLA.
 
-The JAX package's ``fast_dropout=false`` (an fp32-uniform Bernoulli draw)
-is not ported: :class:`Dropout` raises for it (``ROADMAP.md`` queue A
-item 5).
+``fast_dropout=false`` is the JAX package's ``dropout_bernoulli``: keep
+where an fp32 uniform draw is below 1 − rate (``jax.random.bernoulli``),
+kept values scaled by 1/(1 − rate). :class:`Dropout` picks the rule by its
+``fast`` flag.
 """
 
 from __future__ import annotations
@@ -45,18 +46,39 @@ def dropout16(x: torch.Tensor, rate: float,
     return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
 
+def keep_mask_bernoulli(shape, rate: float,
+                        generator: torch.Generator) -> torch.Tensor:
+    """Boolean keep-mask (True = keep): an fp32 uniform draw below
+    1 − rate, drawn with ``generator`` on its device."""
+    u = torch.rand(tuple(shape), generator=generator, device=generator.device)
+    return u < 1.0 - rate
+
+
+def keep_mask(shape, rate: float, generator: torch.Generator,
+              fast: bool = True) -> torch.Tensor:
+    """:func:`keep_mask16` when ``fast``, else :func:`keep_mask_bernoulli`."""
+    return (keep_mask16 if fast else keep_mask_bernoulli)(shape, rate, generator)
+
+
+def dropout_bernoulli(x: torch.Tensor, rate: float,
+                      generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with an fp32-uniform Bernoulli keep-mask; kept
+    values scaled by 1/(1 − rate), in x's dtype."""
+    if rate <= 0.0:
+        return x
+    keep = keep_mask_bernoulli(x.shape, rate, generator)
+    return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
+
+
 class Dropout(nn.Module):
-    """``dropout16`` as a module. The identity when ``deterministic`` is set
-    or the rate is 0; otherwise the caller's ``generator`` draws the mask."""
+    """``dropout16`` (``fast``) or ``dropout_bernoulli`` as a module. The
+    identity when ``deterministic`` is set or the rate is 0; otherwise the
+    caller's ``generator`` draws the mask."""
 
     def __init__(self, rate: float, fast: bool = True):
         super().__init__()
-        if not fast:
-            raise NotImplementedError(
-                "fast_dropout=false (Bernoulli dropout) is not ported yet; "
-                "see ROADMAP.md queue A item 5"
-            )
         self.rate = float(rate)
+        self.fast = bool(fast)
 
     def forward(self, x, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -64,4 +86,4 @@ class Dropout(nn.Module):
             return x
         if generator is None:
             raise ValueError("dropout in training mode needs a torch.Generator")
-        return dropout16(x, self.rate, generator)
+        return (dropout16 if self.fast else dropout_bernoulli)(x, self.rate, generator)

@@ -4,14 +4,15 @@ Linear(d_model→d_ff) → exact (erf) GELU → dropout → Linear(d_ff→d_mode
 computed in ``dtype`` with fp32 parameters named as in the reference state
 dict (``linear_in``, ``linear_out``). The JAX package evaluates erf with the
 Abramowitz–Stegun polynomial (|error| ≤ 1.5e-7, ``ops/fused_mlp.py:40``);
-here it is PyTorch's own erf. Dropout is ``dropout16``
-(:mod:`.dropout`), drawn from the caller's generator.
+here it is PyTorch's own erf. Dropout is ``dropout16``, or with
+``fast_dropout=False`` the Bernoulli rule (:mod:`.dropout`), drawn from the
+caller's generator.
 
 ``use_fused`` (the config's ``model.use_fused_mlp``) runs the whole block
 as kernel B4 (:func:`.fused_mlp.fused_mlp`) on the same parameters. Both
-paths draw the keep-mask with the same number of bits at the same point of
-the generator's stream, so from one generator state they drop the same
-units; they round at different places (the fused path keeps GELU's output
+paths draw the keep-mask by the same rule (``fast_dropout``), with the same
+number of draws at the same point of the generator's stream, so from one
+generator state they drop the same units; they round at different places (the fused path keeps GELU's output
 in fp32 through the dropout scale, as the JAX kernel does).
 """
 
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .dropout import Dropout, keep_mask16
+from .dropout import Dropout, keep_mask
 from .fused_mlp import fused_mlp
 
 
@@ -60,6 +61,7 @@ class FeedForwardBlock(nn.Module):
         if not deterministic and rate > 0.0:
             if generator is None:
                 raise ValueError("dropout in training mode needs a torch.Generator")
-            mask = keep_mask16((flat.shape[0], w1.shape[0]), rate, generator)
+            mask = keep_mask((flat.shape[0], w1.shape[0]), rate, generator,
+                             self.dropout.fast)
         out = fused_mlp(flat, w1, b1, w2, b2, mask, 1.0 - rate)
         return out.reshape(*lead, d)

@@ -1,6 +1,6 @@
-"""Serving CLI of the port: class predictions or DINO embeddings.
+"""Serving CLI of the port: class predictions or DINO and SimMIM embeddings.
 
-Port of ``scripts/serve.py`` for supervised, finetune and DINO
+Port of ``scripts/serve.py`` for supervised, finetune, SimMIM and DINO
 checkpoints. The checkpoint is the reference-layout ``.pth`` that
 ``scripts/export_torch.py`` writes from a JAX run (``model_state_dict``
 plus the embedded ``config``), loaded with ``strict=True``:
@@ -9,7 +9,10 @@ plus the embedded ``config``), loaded with ``strict=True``:
   answering the argmax class and its softmax probability;
 - dino: the teacher backbone (or the student's, when there is no teacher)
   in a :class:`~vit_ssl_tpu_torch.models.ViTBackbone`, answering its CLS
-  embedding; head and center are not used.
+  embedding; head and center are not used;
+- simmim: the whole :class:`~vit_ssl_tpu_torch.models.SimMIMViT`, answering
+  the mean of its patch features from the unmasked forward
+  (``inference_forward``), as the JAX package's evaluators embed SimMIM.
 
 Serving mechanics: one forward at a static batch shape (short batches are
 zero-padded, pad rows dropped on output), the checkpoint's compute dtype,
@@ -23,7 +26,7 @@ hand-written CUDA kernels on the card (B1, or B3 for ViT-B/16 at 384 px).
     ... | python -m vit_ssl_tpu_torch.serve --checkpoint model.pth --stdin
 
 Output is JSON lines: {"path", "pred", "prob"} for classifiers,
-{"path", "embedding"} for DINO (``--no-embedding-values`` emits the
+{"path", "embedding"} for DINO and SimMIM (``--no-embedding-values`` emits the
 vector's L2 norm instead); an input that fails to decode gives
 {"path", "error"}.
 """
@@ -43,7 +46,7 @@ import torch
 
 from .data.transforms import Compose, Resize, ToTensor
 from .device import resolve_device
-from .models.builder import build_backbone, build_vit, config_mode
+from .models.builder import build_backbone, build_simmim, build_vit, config_mode
 from .utils.checkpoint import backbone_state_dict, load_pth
 
 
@@ -67,10 +70,15 @@ class Server:
         if self.classifier:
             self.model = build_vit(self.config, self.device)
             self.model.load_state_dict(state, strict=True)
+        elif self.mode == "simmim":
+            self.model = build_simmim(self.config, self.device)
+            self.model.load_state_dict(state, strict=True)
         else:
             self.model = build_backbone(self.config, self.device)
             self.model.load_state_dict(backbone_state_dict(state), strict=True)
         self.model.eval()
+        self.forward = (self.model.inference_forward if self.mode == "simmim"
+                        else self.model)
         self.embedding_values = embedding_values
         self.img = int(self.config["data"]["img_size"])
         self.batch = int(batch_size)
@@ -93,7 +101,8 @@ class Server:
 
     def forward_batch(self, x: np.ndarray) -> np.ndarray:
         """(n, img, img, 3) float32 NHWC, n ≤ batch → (n, num_classes)
-        logits (classifiers) or (n, embed_dim) embeddings, float32.
+        logits (classifiers) or (n, embed_dim) embeddings (DINO's CLS
+        token, SimMIM's mean patch feature), float32.
 
         Short batches are zero-padded to the static batch; the pad rows are
         dropped from the result. Returns after the device has finished."""
@@ -103,7 +112,7 @@ class Server:
         xb = torch.zeros((self.batch, self.img, self.img, 3), dtype=torch.float32)
         xb[:n] = torch.from_numpy(np.asarray(x, np.float32))
         with torch.inference_mode():
-            out = self.model(xb.to(self.device))[:n].float().cpu().numpy()
+            out = self.forward(xb.to(self.device))[:n].float().cpu().numpy()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return out

@@ -11,9 +11,8 @@ directory from ``hydra.run.dir`` (saving ``.hydra/config.yaml`` and
 device and the trainer, resumes from ``training.resume_from_checkpoint``
 when it is set, and runs ``fit``. It runs on the CUDA card unless
 ``--device cpu`` asks for the CPU; with no card and no such request it
-raises. The port trains DINO, supervised and finetune
-(``training.type``); SimMIM is refused with its ``ROADMAP.md`` queue-A
-item.
+raises. The port trains every mode of the JAX package
+(``training.type``): DINO, SimMIM, supervised and finetune.
 """
 
 from __future__ import annotations
@@ -74,20 +73,16 @@ def save_run_config(config, overrides, save_path: str) -> None:
 
 def check_mode(mode: str) -> None:
     """Raise unless the port trains ``mode``."""
-    if mode == "simmim":
-        raise NotImplementedError(
-            "training.type=simmim is not ported yet; see ROADMAP.md queue A "
-            "item 6")
-    if mode not in ("supervised", "finetune", "dino"):
+    if mode not in ("supervised", "finetune", "simmim", "dino"):
         raise ValueError(f"Unknown training mode: {mode}")
 
 
 def get_trainer(mode, network, save_path, config, train_loader, val_loader, device):
     """The trainer of ``mode``: supervised and finetune share one."""
-    from .trainers import DINOTrainer, SupervisedTrainer
+    from .trainers import DINOTrainer, SimMIMTrainer, SupervisedTrainer
 
     check_mode(mode)
-    cls = DINOTrainer if mode == "dino" else SupervisedTrainer
+    cls = {"dino": DINOTrainer, "simmim": SimMIMTrainer}.get(mode, SupervisedTrainer)
     return cls(network, save_path, config, train_loader, val_loader, device)
 
 

@@ -3,8 +3,8 @@
 :class:`TrainState` holds what the JAX package threads through its jitted
 DINO step: the step count, the student and teacher ``DINONetwork``s, the
 center, the optimizer's buffers (:class:`OptimizerState`) and the base
-seed. :class:`SupervisedTrainState` holds the supervised step's: the step
-count, the model, the buffers and the seed. Unlike JAX's immutable pytree each is
+seed. :class:`SupervisedTrainState` holds the supervised and SimMIM
+steps': the step count, the model, the buffers and the seed. Unlike JAX's immutable pytree each is
 updated in place by its step (parameters, moments, teacher, center), which
 saves a copy of every tensor.
 
@@ -265,8 +265,9 @@ def step_generators(seed: int, step: int, n: int, device) -> List[torch.Generato
 
 
 class SupervisedTrainState:
-    """The supervised step's train state: the step count, the model (a
-    ``ViT``), the optimizer's buffers and the base seed."""
+    """A one-model train state (the supervised and SimMIM steps'): the step
+    count, the model (a ``ViT`` or a ``SimMIMViT``), the optimizer's buffers
+    and the base seed."""
 
     def __init__(self, model: nn.Module, optimizer: Optimizer, seed: int):
         self.step = 0
@@ -290,7 +291,7 @@ class SupervisedTrainState:
 
     def state_dict(self) -> Dict[str, Any]:
         """What a checkpoint holds: the step, the model's state dict (the
-        reference ``ViT`` layout) and the optimizer's count and buffers
+        reference ``ViT`` or ``SimMIM`` layout) and the optimizer's count and buffers
         (the state's own tensors, not copies)."""
         return {"step": self.step, "model": self.model.state_dict(),
                 "opt_state": self.opt_state.state_dict()}

@@ -1,6 +1,7 @@
 """The training and evaluation steps (port of ``vit_ssl_tpu/train/steps.py``):
-the supervised steps (``make_supervised_steps``, ``:97-271``) and the DINO
-steps (``make_dino_steps``, ``:429-692``).
+the supervised steps (``make_supervised_steps``, ``:97-271``), the SimMIM
+steps (``make_simmim_steps``, ``:279-426``) and the DINO steps
+(``make_dino_steps``, ``:429-692``).
 
 The supervised ``train_step`` makes its images (``augment_fn`` on the
 device from uint8, or the batch's own images scaled to [0, 1]), runs the
@@ -12,6 +13,13 @@ steps take gradients of the parameters the optimizer trains only
 the gradient still flows through frozen blocks to what lies before them.
 :func:`make_criterion` checks the config's ``training.criterion`` against
 what each mode's step computes.
+
+The SimMIM ``train_step`` draws three generators a step (dropout, mask,
+augmentation), runs the masked forward, and takes the criterion (``l1``,
+``mse`` or ``smooth_l1`` with β = 1) weighted by mask × sample weight over
+Σw · C·p² (floored at 1), its backward and one optimizer update; PSNR and
+SSIM ingredients come from the predictions clamped to [0, 1] against the
+raw targets.
 
 One DINO ``train_step`` runs, in order:
 
@@ -30,8 +38,19 @@ It updates the :class:`~.state.TrainState` in place and returns
 ``state.next_generators(4)``: student globals, student locals, teacher,
 augmentation.
 
-Gradient accumulation (``grad_accum > 1``: the JAX package's microbatching,
-two-pass for DINO) is not ported yet.
+Gradient accumulation (``grad_accum > 1``) splits the batch into that many
+contiguous microbatches (a batch it does not divide raises ``ValueError``),
+each with its own generators (stream ``n·j + i`` of the step for stream i
+of microbatch j), and updates once. Each microbatch's gradient is that of
+the **unnormalised** weighted loss, summed in fp32 and divided once by the
+whole batch's normaliser, so the update is the full batch's up to the
+order of fp32 sums: Σw for the supervised step, Σ mask·w · C·p² for SimMIM
+(its PSNR and SSIM sums added up), ng·K·Σw for DINO. DINO takes two
+passes, as the JAX package: pass A runs the teacher on every microbatch and
+updates the center once from the whole batch's teacher outputs; pass B
+accumulates the student's loss against those outputs and the updated
+center. Both passes draw the views of a microbatch from the same stream
+state (the step's generators made twice), so they see the same views.
 """
 
 from __future__ import annotations
@@ -43,16 +62,42 @@ import torch.nn.functional as F
 
 from ..data.device_augment import to_unit_float
 from ..models.dino import momentum_update, update_center
-from ..utils.metrics import dino_distribution_stats
+from ..utils.metrics import dino_distribution_stats, psnr_stats, ssim_stats
 from .state import Optimizer, SupervisedTrainState, TrainState
 
 
-def _refuse_grad_accum(grad_accum: int) -> None:
-    if grad_accum > 1:
-        raise NotImplementedError(
-            "grad_accum > 1 (microbatched gradient accumulation) is not "
-            "ported yet; see ROADMAP.md queue A item 5"
-        )
+def microbatches(batch, grad_accum: int):
+    """``batch`` cut into ``grad_accum`` contiguous microbatches along the
+    batch axis (every tensor, and each tensor of a list such as
+    ``"views"``); raises ``ValueError`` when the batch size is not a
+    multiple of ``grad_accum``."""
+    b = batch["weight"].shape[0]
+    if b % grad_accum != 0:
+        raise ValueError(f"batch size {b} must divide training.grad_accum_steps "
+                         f"({grad_accum})")
+    mb = b // grad_accum
+
+    def cut(x, j):
+        if isinstance(x, (list, tuple)):
+            return [cut(v, j) for v in x]
+        return x[j * mb:(j + 1) * mb]
+
+    return [{k: cut(v, j) for k, v in batch.items()} for j in range(grad_accum)]
+
+
+class _GradSum:
+    """fp32 sums of microbatch gradients, divided once at the end."""
+
+    def __init__(self, params):
+        self.params = params
+        self.sums = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+
+    def add(self, loss):
+        grads = torch.autograd.grad(loss, self.params)
+        torch._foreach_add_(self.sums, [g.float() for g in grads])
+
+    def divided(self, denom):
+        return [(s / denom).to(p.dtype) for s, p in zip(self.sums, self.params)]
 
 
 _CRITERIA = {
@@ -108,28 +153,47 @@ def make_supervised_steps(optimizer: Optimizer, augment_fn: Optional[Callable] =
     ``batch`` holds ``"image"`` (B, H, W, C) uint8 or float, ``"label"``
     (B,) and ``"weight"`` (B,). Each returns ``{"loss", "weight_sum",
     "preds", "labels", "weight"}``. The JAX function's ``model`` and ``tx``
-    are the state's model and ``optimizer`` here."""
-    _refuse_grad_accum(grad_accum)
+    are the state's model and ``optimizer`` here. ``grad_accum`` > 1
+    accumulates over microbatches (module docstring)."""
+    grad_accum = max(1, int(grad_accum))
 
     def images(batch, generator):
         if augment_fn is not None:
             return augment_fn(generator, batch["image"])
         return to_unit_float(batch["image"])
 
-    def outputs(logits, loss, batch):
+    def outputs(preds, loss, batch):
         return {"loss": loss.detach(), "weight_sum": batch["weight"].sum(),
-                "preds": logits.detach().argmax(dim=-1), "labels": batch["label"],
-                "weight": batch["weight"]}
+                "preds": preds, "labels": batch["label"], "weight": batch["weight"]}
+
+    def accumulated(state, params, batch):
+        """(gradients, loss, predictions) over the microbatches."""
+        gens = state.next_generators(2 * grad_accum)
+        grads, loss_sum, preds = _GradSum(params), 0.0, []
+        for j, micro in enumerate(microbatches(batch, grad_accum)):
+            g_dropout, g_augment = gens[2 * j:2 * j + 2]
+            logits = state.model(images(micro, g_augment), False, g_dropout)
+            ce = F.cross_entropy(logits.float(), micro["label"].long(), reduction="none")
+            loss = (ce * micro["weight"].float()).sum()  # Σ w·ce, no normaliser
+            grads.add(loss)
+            loss_sum = loss_sum + loss.detach()
+            preds.append(logits.detach().argmax(dim=-1))
+        w_total = torch.clamp(batch["weight"].float().sum(), min=1.0)
+        return grads.divided(w_total), loss_sum / w_total, torch.cat(preds)
 
     def train_step(state: SupervisedTrainState, batch, with_grads: bool = False):
-        g_dropout, g_augment = state.next_generators(2)
-        logits = state.model(images(batch, g_augment), False, g_dropout)
-        loss = cross_entropy_loss(logits, batch["label"], batch["weight"])
         params = optimizer.select(state.params)
-        grads = torch.autograd.grad(loss, params)
+        if grad_accum > 1:
+            grads, loss, preds = accumulated(state, params, batch)
+        else:
+            g_dropout, g_augment = state.next_generators(2)
+            logits = state.model(images(batch, g_augment), False, g_dropout)
+            loss = cross_entropy_loss(logits, batch["label"], batch["weight"])
+            grads = torch.autograd.grad(loss, params)
+            preds = logits.detach().argmax(dim=-1)
         optimizer.update(params, grads, state.opt_state)
         state.step += 1
-        out = outputs(logits, loss, batch)
+        out = outputs(preds, loss, batch)
         if with_grads:
             names = optimizer.select(n for n, _ in state.model.named_parameters())
             out["grads"] = dict(zip(names, grads))
@@ -138,8 +202,96 @@ def make_supervised_steps(optimizer: Optimizer, augment_fn: Optional[Callable] =
     @torch.no_grad()
     def eval_step(state: SupervisedTrainState, batch):
         logits = state.model(to_unit_float(batch["image"]), True)
-        return outputs(logits, cross_entropy_loss(logits, batch["label"],
-                                                  batch["weight"]), batch)
+        return outputs(logits.argmax(dim=-1), cross_entropy_loss(
+            logits, batch["label"], batch["weight"]), batch)
+
+    return train_step, eval_step
+
+
+def reconstruction_error(preds, targets, criterion: str):
+    """Elementwise fp32 error of a SimMIM criterion: |d|, d², or
+    ``SmoothL1Loss`` with β = 1 (0.5·d² where |d| < 1, else |d| − 0.5)."""
+    diff = preds.float() - targets.float()
+    if criterion == "l1":
+        return diff.abs()
+    if criterion == "mse":
+        return diff ** 2
+    if criterion == "smooth_l1":
+        absd = diff.abs()
+        return torch.where(absd < 1.0, 0.5 * diff ** 2, absd - 0.5)
+    raise ValueError(f"Unsupported SimMIM criterion '{criterion}'")
+
+
+def make_simmim_steps(optimizer: Optimizer, patch_size: int, channels: int,
+                      criterion: str = "l1", augment_fn: Optional[Callable] = None,
+                      grad_accum: int = 1):
+    """Returns ``(train_step, eval_step)`` over a
+    :class:`~.state.SupervisedTrainState` whose model is a ``SimMIMViT``:
+
+    - ``train_step(state, batch) -> dict`` (``with_grads=True`` adds the
+      gradients by parameter name)
+    - ``eval_step(state, batch, mask_generator) -> dict`` (no gradient,
+      no dropout, no augmentation; the mask from ``mask_generator``)
+
+    ``batch`` holds ``"image"`` (B, H, W, C) uint8 or float and
+    ``"weight"`` (B,). Each returns ``{"loss", "psnr_sse", "psnr_count",
+    "ssim_sum", "ssim_count"}``, the four sums over the masked patches
+    weighted by the sample weights. The JAX function's ``model`` and ``tx``
+    are the state's model and ``optimizer`` here."""
+    grad_accum = max(1, int(grad_accum))
+    if criterion not in _MODE_CRITERIA["simmim"]:
+        raise ValueError(f"Unsupported SimMIM criterion '{criterion}'")
+
+    def forward(state, batch, deterministic, g_dropout, g_mask, g_augment=None):
+        """(Σ err·w, its normaliser Σw·C·p², the PSNR and SSIM sums)."""
+        if augment_fn is not None and g_augment is not None:
+            images = augment_fn(g_augment, batch["image"])
+        else:
+            images = to_unit_float(batch["image"])
+        preds, targets, mask = state.model(images, deterministic, (g_dropout, g_mask))
+        mask_w = mask.float() * batch["weight"].float()[:, None]
+        err = reconstruction_error(preds, targets, criterion)
+        w = mask_w[..., None]
+        num, denom = (err * w).sum(), w.sum() * err.shape[-1]
+        with torch.no_grad():
+            clamped = preds.detach().clamp(0.0, 1.0)  # the predictions only
+            sse, cnt = psnr_stats(clamped, targets, w)
+            ssim_sum, ssim_cnt = ssim_stats(clamped, targets, mask_w, patch_size,
+                                            channels)
+        return num, denom, {"psnr_sse": sse, "psnr_count": cnt,
+                            "ssim_sum": ssim_sum, "ssim_count": ssim_cnt}
+
+    def accumulated(state, params, batch):
+        gens = state.next_generators(3 * grad_accum)
+        grads, num_sum, denom_sum, stats = _GradSum(params), 0.0, 0.0, None
+        for j, micro in enumerate(microbatches(batch, grad_accum)):
+            num, denom, part = forward(state, micro, False, *gens[3 * j:3 * j + 3])
+            grads.add(num)
+            num_sum, denom_sum = num_sum + num.detach(), denom_sum + denom
+            stats = part if stats is None else {k: stats[k] + v for k, v in part.items()}
+        denom = torch.clamp(denom_sum, min=1.0)
+        return grads.divided(denom), num_sum / denom, stats
+
+    def train_step(state: SupervisedTrainState, batch, with_grads: bool = False):
+        params = optimizer.select(state.params)
+        if grad_accum > 1:
+            grads, loss, stats = accumulated(state, params, batch)
+        else:
+            num, denom, stats = forward(state, batch, False, *state.next_generators(3))
+            loss = num / torch.clamp(denom, min=1.0)
+            grads = torch.autograd.grad(loss, params)
+        optimizer.update(params, grads, state.opt_state)
+        state.step += 1
+        out = {"loss": loss.detach(), **stats}
+        if with_grads:
+            names = optimizer.select(n for n, _ in state.model.named_parameters())
+            out["grads"] = dict(zip(names, grads))
+        return out
+
+    @torch.no_grad()
+    def eval_step(state: SupervisedTrainState, batch, mask_generator: torch.Generator):
+        num, denom, stats = forward(state, batch, True, None, mask_generator)
+        return {"loss": num / torch.clamp(denom, min=1.0), **stats}
 
     return train_step, eval_step
 
@@ -171,8 +323,9 @@ def make_dino_steps(optimizer: Optimizer, num_global_views: int, num_all_views: 
     ``batch`` holds ``"weight"`` (B,) and either ``"image"`` (uint8, with
     ``view_fn``) or ``"views"`` (a sequence of ``num_all_views`` tensors,
     globals first). The JAX function's ``model`` and ``tx`` arguments are
-    the state's networks and ``optimizer`` here."""
-    _refuse_grad_accum(grad_accum)
+    the state's networks and ``optimizer`` here. ``grad_accum`` > 1 takes
+    the two-pass microbatch path (module docstring)."""
+    grad_accum = max(1, int(grad_accum))
     ng, na = num_global_views, num_all_views
     nl = na - ng
 
@@ -181,14 +334,9 @@ def make_dino_steps(optimizer: Optimizer, num_global_views: int, num_all_views: 
             return view_fn(generator, batch["image"])
         return batch["views"]
 
-    def outputs(state: TrainState, batch, gens, training: bool):
-        """(teacher views (ng, B, K), student views (na, B, K), new center)."""
-        g_student, g_locals, g_teacher, g_augment = gens
-        views = get_views(batch, g_augment)
-        globals_x = torch.cat(list(views[:ng]), dim=0)
-        b = views[0].shape[0]
-        student = state.student
-        parts = [student(globals_x, not training, g_student)]
+    def student_outputs(student, views, training, g_student, g_locals):
+        """The student on the globals, then the locals: (na·B, K)."""
+        parts = [student(torch.cat(list(views[:ng]), dim=0), not training, g_student)]
         if nl > 0:
             locals_x = torch.cat(list(views[ng:]), dim=0)
             if pack_locals:
@@ -196,23 +344,76 @@ def make_dino_steps(optimizer: Optimizer, num_global_views: int, num_all_views: 
                                                     g_locals))
             else:
                 parts.append(student(locals_x, not training, g_locals))
-        student_out = torch.cat(parts, dim=0)
+        return torch.cat(parts, dim=0)
+
+    def teacher_outputs(state, views, training, g_teacher):
+        """The teacher on the globals, no gradient: (ng·B, K)."""
         det_teacher = not (training and teacher_dropout)
         with torch.no_grad():
-            t_g = state.teacher(globals_x, det_teacher,
-                                None if det_teacher else g_teacher)
+            return state.teacher(torch.cat(list(views[:ng]), dim=0), det_teacher,
+                                 None if det_teacher else g_teacher)
+
+    def outputs(state: TrainState, batch, gens, training: bool):
+        """(teacher views (ng, B, K), student views (na, B, K), new center)."""
+        g_student, g_locals, g_teacher, g_augment = gens
+        views = get_views(batch, g_augment)
+        b = views[0].shape[0]
+        student_out = student_outputs(state.student, views, training, g_student,
+                                      g_locals)
+        t_g = teacher_outputs(state, views, training, g_teacher)
         k = t_g.shape[-1]
         new_center = update_center(state.center, t_g, center_momentum,
                                    batch["weight"].repeat(ng))
         return t_g.reshape(ng, b, k), student_out.reshape(na, b, k), new_center
 
+    def by_view(parts, views):
+        """Microbatch outputs (views·mb, K) each → (views, B, K) in batch
+        order."""
+        k = parts[0].shape[-1]
+        stacked = torch.stack([p.reshape(views, -1, k) for p in parts], dim=1)
+        return stacked.reshape(views, -1, k)
+
+    def accumulated(state: TrainState, params, batch, teacher_temp: float):
+        """(gradients, loss, teacher views, student views, new center)."""
+        micro = microbatches(batch, grad_accum)
+        gens = state.next_generators(4 * grad_accum)
+        t_parts = [teacher_outputs(state, get_views(m, gens[4 * j + 3]), True,
+                                   gens[4 * j + 2]) for j, m in enumerate(micro)]
+        t = by_view(t_parts, ng)
+        new_center = update_center(state.center, t, center_momentum,
+                                   batch["weight"].repeat(ng))
+        # the same streams again: each microbatch's views are pass A's
+        gens = state.next_generators(4 * grad_accum)
+        grads, num_sum, s_parts = _GradSum(params), 0.0, []
+        for j, m in enumerate(micro):
+            g_student, g_locals, _, g_augment = gens[4 * j:4 * j + 4]
+            views = get_views(m, g_augment)
+            s_mb = student_outputs(state.student, views, True, g_student, g_locals)
+            k = s_mb.shape[-1]
+            sp = F.log_softmax(s_mb.float().reshape(na, -1, k) / student_temp, dim=-1)
+            tp = F.softmax((t_parts[j].float().reshape(ng, -1, k) - new_center[None])
+                           / teacher_temp, dim=-1)
+            per = -(tp * sp.sum(dim=0)[None])  # (ng, mb, K)
+            num = (per * m["weight"].float()[None, :, None]).sum()
+            grads.add(num)
+            num_sum = num_sum + num.detach()
+            s_parts.append(s_mb.detach())
+        k = t.shape[-1]
+        denom = torch.clamp(ng * k * batch["weight"].float().sum(), min=1.0)
+        return (grads.divided(denom), num_sum / denom, t, by_view(s_parts, na),
+                new_center)
+
     def train_step(state: TrainState, batch, teacher_temp: float,
                    teacher_momentum: float, with_grads: bool = False):
-        t, s, new_center = outputs(state, batch, state.next_generators(4), True)
-        loss = weighted_dino_loss(t, s, new_center, teacher_temp, student_temp,
-                                  batch["weight"])
         params = optimizer.select(state.params)
-        grads = torch.autograd.grad(loss, params)
+        if grad_accum > 1:
+            grads, loss, t, s, new_center = accumulated(state, params, batch,
+                                                        teacher_temp)
+        else:
+            t, s, new_center = outputs(state, batch, state.next_generators(4), True)
+            loss = weighted_dino_loss(t, s, new_center, teacher_temp, student_temp,
+                                      batch["weight"])
+            grads = torch.autograd.grad(loss, params)
         optimizer.update(params, grads, state.opt_state)
         momentum_update(state.teacher, state.student, teacher_momentum)
         stats = dino_distribution_stats(t, s.detach(), new_center, batch["weight"])

@@ -17,7 +17,7 @@ numpy arrays, e.g. ``DINONetwork`` params) into reference-layout state
 dicts that the port's modules load with ``strict=True``. It is a jax-free
 copy of ``vit_ssl_tpu/utils/checkpoint.py::{_encoder_block_to_torch,
 _dino_backbone_to_torch, _dino_head_to_torch, dino_params_to_torch,
-vit_params_to_torch}``.
+vit_params_to_torch, simmim_params_to_torch}``.
 """
 
 from __future__ import annotations
@@ -165,6 +165,23 @@ def vit_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         "classification_head.norm.bias": _t(head["norm"]["bias"]),
         "classification_head.linear.weight": _t(head["linear"]["kernel"]).T.contiguous(),
         "classification_head.linear.bias": _t(head["linear"]["bias"]),
+    }
+    sd.update(_encoder_blocks(params, ""))
+    return sd
+
+
+def simmim_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``SimMIMViT`` params → the port's ``SimMIMViT`` state dict (the
+    reference layout of ``simmim_params_to_torch``): the Dense kernels of
+    ``projection`` and ``simmim_head`` transposed, the blocks as
+    :func:`encoder_block_state_dict_from_flax` gives them."""
+    sd = {
+        "projection.weight": _t(params["projection"]["kernel"]).T.contiguous(),
+        "projection.bias": _t(params["projection"]["bias"]),
+        "mask_token": _t(params["mask_token"]),
+        "positional_embedding": _t(params["positional_embedding"]),
+        "simmim_head.weight": _t(params["simmim_head"]["kernel"]).T.contiguous(),
+        "simmim_head.bias": _t(params["simmim_head"]["bias"]),
     }
     sd.update(_encoder_blocks(params, ""))
     return sd
