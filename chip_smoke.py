@@ -156,7 +156,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               B1's three entries at (1024, 197, 12 x 64) bf16
 20. ViT-B/16 trainer — configs/vit_b_imagenet.yaml composed by the port as
               written (remat on, batch 1024, 224 px, 1000 classes, device
-              augmentation; only ``eval.interval=0``), through
+              augmentation; its supervised evaluation every epoch), through
               ``SupervisedTrainer.fit(2)`` over 2600 in-memory uint8 images
               (3 train and 1 val steps an epoch) and a resumed epoch 3:
               B1's launches exact in every step (24 training forwards, the
@@ -317,10 +317,10 @@ VIT_B16_224["data"].update(img_size=224, dataset_name="imagefolder")
 VIT_B16_224["parallel"]["remat"] = True
 VIT_B16_224["transforms"]["train"][0]["params"]["size"] = 224
 VIT_B16_224["metrics"] = ["Accuracy", "F1Score", "Recall", "Precision"]
-# the one override: an automatic evaluation is refused (ROADMAP.md queue A
-# item 7); 2600 in-memory images make 3 train steps (2496 images) and 1 val
-# step (104) an epoch at the config's val_split 0.04
-VIT_B16_224_OVERRIDES = ["eval.interval=0"]
+# no override: the supervised evaluation writes each epoch's predictions;
+# 2600 in-memory images make 3 train steps (2496 images) and 1 val step
+# (104) an epoch at the config's val_split 0.04
+VIT_B16_224_OVERRIDES = []
 VIT_B16_224_IMAGES = 2600
 REMAT_BATCH = 128
 # configs/finetune.yaml at DINO ViT-S/8's width (the base model, patch 8 at
@@ -330,7 +330,7 @@ REMAT_BATCH = 128
 FINETUNE_OVERRIDES = ["model.patch_size=8", "data.img_size=96",
                       "training.extended_transfer=true", "training.freeze_backbone=true",
                       "+freeze_backbone_epochs=2", "data.device_augment=true",
-                      "eval.interval=0"]
+                      "eval.interval=1"]
 FINETUNE_S8 = {
     "training": {"type": "finetune", "batch_size": 128, "extended_transfer": True,
                  "freeze_backbone": True, "warmup_epochs": 10,
@@ -351,8 +351,8 @@ FINETUNE_S8 = {
 FINETUNE_S8["model"]["num_classes"] = 10
 # SimMIM ViT-S/16 at 192 px as configs/simmim.yaml composes it (N = 144, no
 # CLS token, half the patches masked); tests/test_torch_guards.py pins every
-# value here to the port's composition. Its one override: an automatic
-# evaluation is refused (ROADMAP.md queue A item 7). 400 in-memory images
+# value here to the port's composition, which runs as written (its
+# evaluation after every epoch). 400 in-memory images
 # make 3 train steps (320 images, the last padded) and 1 val step (80) an
 # epoch at the config's val_split 0.2
 SIMMIM_VIT_S16 = {
@@ -375,7 +375,7 @@ SIMMIM_VIT_S16 = {
     "metrics": ["PSNR", "SSIM"],
 }
 SIMMIM_VIT_S16["model"].update(patch_size=16, mask_ratio=0.5, use_flash_attention=True)
-SIMMIM_OVERRIDES = ["eval.interval=0"]
+SIMMIM_OVERRIDES = []
 SIMMIM_IMAGES = 400
 FINETUNE_IMAGES = 1300  # in-memory uint8 96 x 96 x 3 images: 1040 train, 260 val
 GLOBAL_BATCH = 1024  # configs/vit_b_imagenet.yaml's training.batch_size
@@ -2120,7 +2120,10 @@ def phase_training_fused(torch, fa, fm, unfused_ms, card):
 
 
 TRAINER_IMAGES = 1300  # in-memory uint8 96 x 96 x 3 images: 1040 train, 260 val
-TRAINER_OVERRIDES = ["training.num_epochs=2", "eval.interval=0"]
+# the config's own eval.mode (KNN, linear probe, UMAP) after every epoch:
+# best_model records epoch 1 or 2, and the standalone evaluation of it is
+# held to that epoch's in-training one
+TRAINER_OVERRIDES = ["training.num_epochs=2", "eval.interval=1"]
 
 
 def config_differences(smoke, composed, path="config"):
@@ -2171,9 +2174,13 @@ def counted_steps(fn, log):
 def phase_trainer(torch, fa, card, warm_ms, tmp):
     """DINO ViT-S/8 through the port's own trainer: configs/dino.yaml
     composed by the port's config engine, the loaders of its split over
-    in-memory images, ``fit(2)`` (18 train and 6 val steps), best and last
+    in-memory images, ``fit(2)`` (18 train and 6 val steps) with the
+    config's evaluation (KNN, linear probe, UMAP) of the teacher after each
+    epoch over EVAL_IMAGES labeled in-memory images, best and last
     checkpoints, then a fresh trainer resumed from last_model, bit-equal to
-    the file, trains epoch 3. Returns the launches of both runs."""
+    the file, trains and evaluates epoch 3. Returns the launches of both
+    runs' training, the phase's numbers, and the evaluations' launches,
+    loaders and KNN accuracy by epoch."""
     from vit_ssl_tpu_torch import kernels
     from vit_ssl_tpu_torch.config import compose, to_container, validate_train_config
     from vit_ssl_tpu_torch.data.builder import make_loaders
@@ -2206,12 +2213,15 @@ def phase_trainer(torch, fa, card, warm_ms, tmp):
     images = np.random.default_rng(5).integers(
         0, 256, (TRAINER_IMAGES, 96, 96, 3), dtype=np.uint8)
     mode = str(config.training.type)
+    evaluation_loaders = eval_loaders(config, config.data.img_size, seed=23)
 
     def trainer_for(path):
         train_loader, val_loader = make_loaders(config, InMemoryImages(images))
         network = build_dino_network(config, "cuda")
-        return get_trainer(mode, network, path, config, train_loader, val_loader,
-                           "cuda"), train_loader, val_loader
+        trainer = get_trainer(mode, network, path, config, train_loader, val_loader,
+                              "cuda")
+        trainer.eval_loaders = evaluation_loaders
+        return trainer, train_loader, val_loader
 
     save_path = get_save_path(config)
     save_run_config(config, overrides, save_path)
@@ -2234,11 +2244,15 @@ def phase_trainer(torch, fa, card, warm_ms, tmp):
     trainer.train_epoch = timed_epoch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with no_plain_attention(fa):
+    recorder = EvalRecorder(torch)
+    with no_plain_attention(fa), recorder.installed():
         kernels.launches.clear()  # the trainer's path starts here
         trainer.fit(2)
         launches = dict(kernels.launches)  # ... and ends here
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fit_eval = recorder.launches()  # the extractions', counted as their own path
+    launches = {k: v - fit_eval.get(k, 0) for k, v in launches.items()
+                if v != fit_eval.get(k, 0)}
 
     blocks = DINO_VIT_S8["model"]["num_blocks"]
     per_train, per_val = attention_launches(fa), {fa.KERNEL: 3 * blocks}
@@ -2281,7 +2295,8 @@ def phase_trainer(torch, fa, card, warm_ms, tmp):
     for epoch, (t, rate, wait) in enumerate(zip(epoch_s, stats["images_per_s"],
                                                 stats["input_wait_share"]), 1):
         print(f"  epoch {epoch} on {card}: train {t:.3f} s wall for {real[0]} images "
-              f"({rate:.1f} img/s), input-wait share {wait:.4f}", flush=True)
+              f"({rate:.1f} img/s), input-wait share {wait:.4f}; its evaluation "
+              f"{recorder.evaluations[epoch - 1]['wall_s']:.3f} s wall", flush=True)
     print(f"  in-loop step (epoch 2, median of {len(step_ms)} intervals between step "
           f"starts) {stats['step_ms_median']:.3f} ms; the bare warm step of the "
           f"training phase {warm_ms:.3f} ms; peak memory {peak_gb:.2f} GB "
@@ -2301,10 +2316,13 @@ def phase_trainer(torch, fa, card, warm_ms, tmp):
              f"{resumed.start_epoch})")
     resumed_log = []
     resumed.train_step = counted_steps(resumed.train_step, resumed_log)
-    with no_plain_attention(fa):
+    with no_plain_attention(fa), recorder.installed():
         kernels.launches.clear()  # the resumed run starts here
         resumed.fit(1)
         resumed_launches = dict(kernels.launches)  # ... and ends here
+    resumed_eval = {k: v - fit_eval.get(k, 0) for k, v in recorder.launches().items()}
+    resumed_launches = {k: v - resumed_eval.get(k, 0) for k, v in resumed_launches.items()
+                        if v != resumed_eval.get(k, 0)}
     first_loss = float(resumed_log[0][2]["loss"])
     if resumed.state.step != 27 or not np.isfinite(first_loss):
         fail(f"the resumed epoch 3 ended at step {resumed.state.step} (expected 27), "
@@ -2313,8 +2331,63 @@ def phase_trainer(torch, fa, card, warm_ms, tmp):
           f"student, teacher, center, AdamW count and moments); epoch 3's first "
           f"loss {first_loss:.6f}, ended at step 27; launches {resumed_launches}",
           flush=True)
-    del resumed
-    return launches, resumed_launches, stats
+    blocks = DINO_VIT_S8["model"]["num_blocks"]
+    evaluation = {"launches": check_evaluations(torch, fa, recorder, blocks, "DINO"),
+                  "loaders": evaluation_loaders,
+                  "knn_by_epoch": {int(Path(ev["save_path"]).name.split("_")[1]):
+                                   ev["results"]["eval_knn"]["accuracy"]
+                                   for ev in recorder.evaluations},
+                  "wall_s": [ev["wall_s"] for ev in recorder.evaluations]}
+    if sorted(evaluation["knn_by_epoch"]) != [1, 2, 3]:
+        fail(f"the DINO trainer evaluated after epochs {sorted(evaluation['knn_by_epoch'])}, "
+             "expected 1, 2 and 3")
+    del resumed, recorder
+    gc.collect()
+    return launches, resumed_launches, stats, evaluation
+
+
+def phase_standalone_eval(torch, fa, card, run_dir, evaluation):
+    """configs/eval_config.yaml (``eval_knn``) on the DINO trainer's run
+    directory, as ``python -m vit_ssl_tpu_torch.evaluate`` dispatches it:
+    ``validate_eval_config``, then the unsupervised ``run_evaluation``, which
+    merges the run's saved config and loads its best_model's teacher
+    (``load_model_state``), over the trainer phase's in-memory loaders. Its
+    KNN accuracy must equal the in-training evaluation's at the epoch
+    best_model records. Returns its launches."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose, validate_eval_config
+    from vit_ssl_tpu_torch.evaluators import unsupervised_evaluator as ue
+
+    configs = Path(__file__).resolve().parent / "configs"
+    print(f"== standalone evaluation: configs/eval_config.yaml with "
+          f"eval.experiment_path=<the DINO trainer's run>; {card}", flush=True)
+    config = validate_eval_config(compose(configs, "eval_config",
+                                          [f"eval.experiment_path={run_dir}"]))
+    best_epoch = json.loads((Path(run_dir) / "best_model" / "metadata.json")
+                            .read_text())["epoch"]
+    recorder = EvalRecorder(torch)
+    with no_plain_attention(fa), recorder.installed():
+        kernels.launches.clear()  # the standalone evaluation starts here
+        results = ue.run_evaluation(config, loaders=evaluation["loaders"], device="cuda")
+        launches = dict(kernels.launches)  # ... and ends here
+    (ev,) = recorder.evaluations
+    blocks = DINO_VIT_S8["model"]["num_blocks"]
+    batches = sum(ex["batches"] for ex in ev["extract"])
+    if launches != {fa.KERNEL: blocks * batches}:
+        fail(f"the standalone evaluation launched {launches}, expected {blocks} B1 "
+             f"inference forwards in each of {batches} feature batches")
+    if sorted(results) != ["eval_knn"] or not (Path(run_dir) / "evaluation_summary.csv").exists():
+        fail(f"the standalone evaluation ran {sorted(results)} and wrote "
+             f"{sorted(p.name for p in Path(run_dir).iterdir())}")
+    got, want = results["eval_knn"]["accuracy"], evaluation["knn_by_epoch"][best_epoch]
+    print(f"  best_model (epoch {best_epoch}) loaded by load_model_state; KNN accuracy "
+          f"{got:.4f}, the in-training evaluation of epoch {best_epoch} {want:.4f}; wall "
+          f"{ev['wall_s']:.3f} s, extraction {ev['extract'][0]['seconds'] + ev['extract'][1]['seconds']:.3f} s, "
+          f"KNN {ev['knn'] * 1e3:.3f} ms; launches {launches}", flush=True)
+    if got != want:
+        fail(f"the standalone KNN accuracy {got} differs from the in-training "
+             f"evaluation's {want} at best_model's epoch {best_epoch}")
+    return launches
 
 
 def state_mismatch(torch, got, want, where="state"):
@@ -2385,6 +2458,25 @@ def check_step_launches(logs, want_counts, steps):
                 fail(f"{kind} step {i} launched {got}, expected {want_counts[kind]}")
 
 
+def check_predictions(run_dir, epochs, val_rows, history, name):
+    """Each epoch's ``predictions.csv`` (the supervised evaluation of its
+    validation) holds every val row, and its accuracy equals the logged
+    val Accuracy."""
+    import csv
+
+    for epoch in epochs:
+        with open(Path(run_dir) / f"epoch_{epoch}" / "predictions.csv") as f:
+            rows = list(csv.DictReader(f))
+        accuracy = sum(r["label"] == r["prediction"] for r in rows) / max(len(rows), 1)
+        if len(rows) != val_rows or accuracy != history["val_Accuracy"][epoch - 1]:
+            fail(f"{name} epoch {epoch}: predictions.csv holds {len(rows)} rows (expected "
+                 f"{val_rows}) at accuracy {accuracy}, the validation's "
+                 f"{history['val_Accuracy'][epoch - 1]}")
+    print(f"  {name}: the supervised evaluation wrote predictions.csv for epochs "
+          f"{list(epochs)}, {val_rows} val rows each, accuracy equal to the logged val "
+          "Accuracy", flush=True)
+
+
 def finite_history(trainer, epochs):
     history = trainer.history.history
     bad = [k for k, v in history.items() if not all(np.isfinite(v))]
@@ -2393,6 +2485,242 @@ def finite_history(trainer, epochs):
     for epoch in range(1, epochs + 1):
         print(f"  epoch {epoch}: " + ", ".join(
             f"{k} {history[k][epoch - 1]:.6g}" for k in sorted(history)), flush=True)
+
+
+# The evaluators' cells: STL-10's labeled train split (5000 images, 4000
+# train and 1000 val rows at the configs' val_split 0.2), held in memory at
+# each config's img_size (the card's machine has no image decoder), 10
+# classes each with its own mean colour
+EVAL_IMAGES = 5000
+EVAL_CLASSES = 10
+EVAL_REPORTS = ("evaluation_summary.csv", "evaluation_summary.txt",
+                "umap_feature_quality_results.csv", "umap_feature_quality_report.txt")
+KNN_TIE = 1e-5  # a k-th and (k+1)-th similarity this close is a near tie
+
+
+class InMemoryEval:
+    """A labeled dataset's item interface over in-memory uint8 images,
+    through the evaluators' host pipeline (``Resize`` then ``ToTensor``)."""
+
+    def __init__(self, images, labels):
+        from vit_ssl_tpu_torch.data.builder import eval_pipeline
+
+        self.images, self.labels = images, labels
+        self.pipeline = eval_pipeline(images.shape[1])
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx, rng=None):
+        return self.pipeline(self.images[idx]), int(self.labels[idx])
+
+
+def eval_loaders(config, img, seed):
+    """The evaluators' train and val loaders over EVAL_IMAGES seeded images:
+    class-coloured noise (each class a mean colour, then uniform noise), so
+    that the features a trained or untrained ViT gives separate the
+    classes."""
+    from vit_ssl_tpu_torch.data.builder import make_loaders
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, EVAL_CLASSES, EVAL_IMAGES)
+    colours = rng.integers(0, 128, (EVAL_CLASSES, 3), dtype=np.uint8)
+    # uniform noise in [0, 128) from random bytes (a third of integers()' time)
+    noise = np.frombuffer(rng.bytes(EVAL_IMAGES * img * img * 3), np.uint8)
+    images = (noise >> 1).reshape(EVAL_IMAGES, img, img, 3)
+    images += colours[labels][:, None, None, :]
+    return make_loaders(config, InMemoryEval(images, labels))
+
+
+class EvalRecorder:
+    """Times the evaluations' parts on the card (host clock around work that
+    ends in ``torch.cuda.synchronize()``) and keeps what the checks need:
+    each extraction's network, loader, features, batches and kernel
+    launches; each KNN, probe (its L-BFGS iterations and projected
+    gradient), projection and quality-metric call; each evaluation's wall
+    seconds and directory; the warnings of the evaluators' loggers."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.evaluations = []
+        self.warnings = []
+
+    def _timed(self, fn, part):
+        def call(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.evaluations[-1][part] = time.perf_counter() - t0
+            self.evaluations[-1][part + "_out"] = out
+            return out
+        return call
+
+    def _extract(self, fn):
+        from vit_ssl_tpu_torch import kernels
+
+        def call(network, loader, device=None):
+            before = dict(kernels.launches)
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            features, labels = fn(network, loader, device)
+            seconds = time.perf_counter() - t0
+            self.evaluations[-1]["extract"].append({
+                "network": network, "loader": loader, "features": features,
+                "labels": labels, "batches": len(loader), "seconds": seconds,
+                "launches": {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                             if v != before.get(k, 0)}})
+            return features, labels
+        return call
+
+    def _evaluation(self, fn):
+        def call(config, network=None, save_path=None, loaders=None, device=None):
+            self.evaluations.append({"extract": [], "save_path": save_path})
+            t0 = time.perf_counter()
+            out = fn(config, network, save_path, loaders, device)
+            self.torch.cuda.synchronize()
+            self.evaluations[-1].update(wall_s=time.perf_counter() - t0, results=out)
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def installed(self):
+        import logging
+
+        from vit_ssl_tpu_torch.evaluators import embedding_analysis as ea
+        from vit_ssl_tpu_torch.evaluators import linear_probe as lp
+        from vit_ssl_tpu_torch.evaluators import unsupervised_evaluator as ue
+
+        patches = [(ue, "run_evaluation", self._evaluation),
+                   (ue, "extract_features", self._extract),
+                   (ue, "run_knn_evaluation", lambda fn: self._timed(fn, "knn")),
+                   (ue, "run_linear_evaluation", lambda fn: self._timed(fn, "probe")),
+                   (lp, "lbfgs_probe", lambda fn: self._timed(fn, "lbfgs")),
+                   (ea, "_project", lambda fn: self._timed(fn, "umap")),
+                   (ea, "evaluate_feature_quality", lambda fn: self._timed(fn, "quality"))]
+        saved = [(module, name, getattr(module, name)) for module, name, _ in patches]
+        for module, name, wrap in patches:
+            setattr(module, name, wrap(getattr(module, name)))
+        recorder = self
+
+        class Warnings(logging.Handler):
+            def emit(self, record):
+                recorder.warnings.append(record.getMessage())
+
+        handler = Warnings(level=logging.WARNING)
+        log = logging.getLogger("vit_ssl_tpu_torch.evaluators")
+        log.addHandler(handler)
+        try:
+            yield self
+        finally:
+            log.removeHandler(handler)
+            for module, name, fn in saved:
+                setattr(module, name, fn)
+
+    def launches(self):
+        """Every kernel launch the extractions made."""
+        total = {}
+        for evaluation in self.evaluations:
+            for ex in evaluation["extract"]:
+                for k, v in ex["launches"].items():
+                    total[k] = total.get(k, 0) + v
+        return total
+
+
+def knn_mismatches_outside_ties(torch, ex_train, ex_val, differ, k):
+    """The val rows (of those in ``differ``) whose neighbour sets are not a
+    near tie: their k-th and (k+1)-th cosine similarities apart by more
+    than KNN_TIE. The same neighbours give the same vote and the same
+    first-maximum argmax on either device, so a prediction that differs
+    elsewhere is a fault."""
+    from vit_ssl_tpu_torch.evaluators.knn import _normalize
+
+    tf = _normalize(torch.from_numpy(ex_train["features"]).double())
+    vf = _normalize(torch.from_numpy(ex_val["features"]).double())
+    bad = []
+    for row in np.nonzero(differ)[0]:
+        sims = torch.sort(vf[row] @ tf.T, descending=True).values
+        if sims[k - 1] - sims[k] > KNN_TIE:
+            bad.append(int(row))
+    return bad
+
+
+def check_evaluations(torch, fa, recorder, blocks, name):
+    """Every evaluation's checks: B1's inference forward exactly ``blocks``
+    times a feature batch and no other launch; the reports written; each
+    skipped figure named. The last evaluation's features against the same
+    extraction with plain attention (row cosine >= 0.999), its KNN and
+    probe against the CPU's on the same features. Prints each evaluation's
+    times. Returns the launches of the extractions."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.evaluators import knn, linear_probe
+    from vit_ssl_tpu_torch.evaluators.evaluator_utils import extract_features
+
+    figures = ("umap_visualization.png", "comprehensive_umap_analysis.png")
+    skipped = [w for w in recorder.warnings if all(f in w for f in figures)]
+    for i, ev in enumerate(recorder.evaluations):
+        for ex in ev["extract"]:
+            if ex["launches"] != {fa.KERNEL: blocks * ex["batches"]}:
+                fail(f"{name} evaluation {i}: extraction over {ex['batches']} batches "
+                     f"launched {ex['launches']}, expected {blocks} B1 inference "
+                     "forwards a batch")
+        out_dir = Path(ev["save_path"])
+        missing = [r for r in EVAL_REPORTS if not (out_dir / r).exists()]
+        drawn = all((out_dir / f).exists() for f in figures)
+        if missing or not (drawn or any(str(out_dir) in w for w in skipped)):
+            fail(f"{name} evaluation into {out_dir}: reports missing {missing}, figures "
+                 f"neither drawn nor named as skipped ({recorder.warnings})")
+        train, val = ev["extract"]
+        rows = len(train["features"]) + len(val["features"])
+        extract_s = train["seconds"] + val["seconds"]
+        res = ev["results"]
+        lbfgs = ev["lbfgs_out"][1]
+        print(f"  {name} evaluation into {out_dir.name}/ on the card: wall "
+              f"{ev['wall_s']:.3f} s; extraction {rows} rows ({len(train['features'])} "
+              f"train, {len(val['features'])} val) in {train['batches'] + val['batches']} "
+              f"batches, {extract_s:.3f} s ({rows / extract_s:.1f} img/s), B1 "
+              f"{fa.KERNEL} {blocks} a batch; KNN {ev['knn'] * 1e3:.3f} ms (accuracy "
+              f"{res['eval_knn']['accuracy']:.4f}); probe {ev['probe']:.3f} s "
+              f"({lbfgs.nit} L-BFGS-B iterations, projected gradient "
+              f"{float(np.max(np.abs(lbfgs.jac))):.3g}; accuracy "
+              f"{res['eval_linear']['accuracy']:.4f}); UMAP {ev['umap']:.3f} s; quality "
+              f"metrics {ev['quality']:.3f} s ({res['eval_umap']['quality']}, silhouette "
+              f"{res['eval_umap']['metrics']['silhouette_features']:.4f})", flush=True)
+    if skipped:
+        print(f"  figures skipped and named in the log ({len(skipped)}x): "
+              f"{skipped[-1]}", flush=True)
+
+    last = recorder.evaluations[-1]
+    train, val = last["extract"]
+    counted = dict(kernels.launches)
+    with plain_attention():
+        plain = [extract_features(ex["network"], ex["loader"], "cuda")[0]
+                 for ex in (train, val)]
+    if dict(kernels.launches) != counted:
+        fail(f"{name}: the plain-attention extraction launched a kernel")
+    got = np.concatenate([train["features"], val["features"]]).astype(np.float64)
+    cos = float(row_cosine(got, np.concatenate(plain).astype(np.float64)).min())
+    if cos < 0.999:
+        fail(f"{name}: features against plain attention, min row cosine {cos:.6f} < 0.999")
+    card_knn = last["knn_out"]
+    cpu_knn = knn.run_knn_evaluation(train["features"], train["labels"], val["features"],
+                                     val["labels"], EVAL_CLASSES, device="cpu")
+    differ = card_knn["predictions"] != cpu_knn["predictions"]
+    bad = knn_mismatches_outside_ties(torch, train, val, differ, card_knn["num_neighbors"])
+    if bad:
+        fail(f"{name}: KNN predictions on the card differ from the CPU's outside near "
+             f"ties at val rows {bad[:10]}")
+    cpu_preds, _ = linear_probe.lbfgs_probe(train["features"], train["labels"],
+                                            val["features"], "cpu")
+    agree = float(np.mean(cpu_preds == last["probe_out"]["predictions"]))
+    if agree < 0.99:
+        fail(f"{name}: the probe's predictions agree with the CPU run's on {agree:.4f} "
+             "of the val rows (< 0.99)")
+    print(f"  {name} last evaluation: features against plain attention, min row "
+          f"cosine {cos:.6f}; KNN on the card vs the CPU on the same features: "
+          f"{int(differ.sum())} of {len(differ)} predictions differ, all near ties; "
+          f"probe vs the CPU run: {agree:.4f} of the predictions equal", flush=True)
+    return recorder.launches()
 
 
 def phase_finetune(torch, fa, card, pretrained, tmp):
@@ -2474,6 +2802,8 @@ def phase_finetune(torch, fa, card, pretrained, tmp):
              "unchanged through epoch 1, the optimizer rebuilt at epoch 2 and the "
              "backbone moving after it")
     finite_history(trainer, 2)
+    check_predictions(run_dir, (1, 2), len(val_loader.dataset), trainer.history.history,
+                      "finetune")
     for epoch, t in enumerate(epoch_s, 1):
         print(f"  epoch {epoch} on {card}: train {t:.3f} s wall for "
               f"{len(train_loader.dataset)} images "
@@ -2531,7 +2861,7 @@ def phase_vit_b_trainer(torch, fa, card, tmp):
     run_dir = str(Path(tmp) / "vit_b")
     overrides = VIT_B16_224_OVERRIDES + [f"hydra.run.dir={run_dir}"]
     print(f"== ViT-B/16 trainer: configs/vit_b_imagenet.yaml composed by "
-          f"vit_ssl_tpu_torch.config as written with {' '.join(VIT_B16_224_OVERRIDES)}; "
+          f"vit_ssl_tpu_torch.config as written (its evaluation every epoch); "
           f"fit(2) over {VIT_B16_224_IMAGES} in-memory images, then a resumed epoch 3; "
           f"{card}", flush=True)
     plain = to_container(compose(configs, "vit_b_imagenet"))
@@ -2588,6 +2918,8 @@ def phase_vit_b_trainer(torch, fa, card, tmp):
     print(f"  launches over fit(2): {launches} (per train step {per_train}, per val "
           f"step {per_val}); no plain attention ran", flush=True)
     finite_history(trainer, 2)
+    check_predictions(run_dir, (1, 2), len(val_loader.dataset), trainer.history.history,
+                      "ViT-B/16 trainer")
     meta = {name: json.loads((Path(save_path) / name / "metadata.json").read_text())
             for name in ("best_model", "last_model")}
     last = meta["last_model"]
@@ -2748,13 +3080,16 @@ def set_dropout(model, rate):
 
 
 def phase_simmim_trainer(torch, fa, card, tmp):
-    """configs/simmim.yaml (SimMIM ViT-S/16 at 192 px, N = 144) through
+    """configs/simmim.yaml as written (SimMIM ViT-S/16 at 192 px, N = 144;
+    its evaluation, KNN, linear probe and UMAP, after every epoch) through
     ``SimMIMTrainer.fit(2)`` over in-memory images, B1's launches exact in
-    every step; a fresh trainer resumed from last_model trains epoch 3 and
-    ends bit-equal to a straight fit(3); warm step, device busy, peak
-    memory, the in-loop step and the input-wait share; one step against the
-    plain-attention step from one cloned state. Returns the launches of both
-    runs and the phase's numbers."""
+    every step, each evaluation over EVAL_IMAGES labeled in-memory images;
+    a fresh trainer resumed from last_model trains and evaluates epoch 3
+    and ends bit-equal to a straight fit(3) (evaluating too); warm step,
+    device busy, peak memory, the in-loop step and the input-wait share;
+    one step against the plain-attention step from one cloned state.
+    Returns the launches of both runs' training, the phase's numbers and the
+    evaluations' launches."""
     from vit_ssl_tpu_torch import kernels
     from vit_ssl_tpu_torch.config import compose, to_container, validate_train_config
     from vit_ssl_tpu_torch.data.builder import make_loaders
@@ -2767,9 +3102,10 @@ def phase_simmim_trainer(torch, fa, card, tmp):
     run_dir = str(Path(tmp) / "simmim")
     overrides = SIMMIM_OVERRIDES + [f"hydra.run.dir={run_dir}"]
     print(f"== SimMIM trainer: configs/simmim.yaml composed by vit_ssl_tpu_torch.config "
-          f"with {' '.join(SIMMIM_OVERRIDES)}; fit(2) over {SIMMIM_IMAGES} in-memory "
-          f"images (standing in for the host pipeline's output), a resumed epoch 3 "
-          f"against a straight fit(3); {card}", flush=True)
+          f"as written (its evaluation after every epoch); fit(2) over {SIMMIM_IMAGES} "
+          f"in-memory images (standing in for the host pipeline's output), each "
+          f"evaluation over {EVAL_IMAGES} labeled ones, a resumed epoch 3 against a "
+          f"straight fit(3); {card}", flush=True)
     plain = to_container(compose(configs, "simmim"))
     diffs = config_differences(SIMMIM_VIT_S16, plain)
     config = compose(configs, "simmim", overrides)
@@ -2786,11 +3122,14 @@ def phase_simmim_trainer(torch, fa, card, tmp):
     img = SIMMIM_VIT_S16["data"]["img_size"]
     images = np.random.default_rng(17).integers(0, 256, (SIMMIM_IMAGES, img, img, 3),
                                                 dtype=np.uint8)
+    evaluation_loaders = eval_loaders(config, img, seed=24)
 
     def trainer_for(path):
         train_loader, val_loader = make_loaders(config, InMemoryImages(images))
-        return get_trainer("simmim", build_model(config, "cuda"), path, config,
-                           train_loader, val_loader, "cuda"), train_loader, val_loader
+        trainer = get_trainer("simmim", build_model(config, "cuda"), path, config,
+                              train_loader, val_loader, "cuda")
+        trainer.eval_loaders = evaluation_loaders
+        return trainer, train_loader, val_loader
 
     save_path = get_save_path(config)
     save_run_config(config, overrides, save_path)
@@ -2806,11 +3145,15 @@ def phase_simmim_trainer(torch, fa, card, tmp):
     epoch_s = epoch_recorder(trainer, lambda epoch: None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with no_plain_attention(fa):
+    recorder = EvalRecorder(torch)
+    with no_plain_attention(fa), recorder.installed():
         kernels.launches.clear()  # the SimMIM trainer's path starts here
         trainer.fit(2)
         launches = dict(kernels.launches)  # ... and ends here
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fit_eval = recorder.launches()  # the extractions', counted as their own path
+    launches = {k: v - fit_eval.get(k, 0) for k, v in launches.items()
+                if v != fit_eval.get(k, 0)}
     blocks = SIMMIM_VIT_S16["model"]["num_blocks"]
     per_train, per_val = simmim_launches(fa, blocks), {fa.KERNEL: blocks}
     check_step_launches({"train": train_log, "val": val_log},
@@ -2841,10 +3184,13 @@ def phase_simmim_trainer(torch, fa, card, tmp):
     del saved
     resumed_log = []
     resumed.train_step = counted_steps(resumed.train_step, resumed_log)
-    with no_plain_attention(fa):
+    with no_plain_attention(fa), recorder.installed():
         kernels.launches.clear()  # the resumed run starts here
         resumed.fit(1)
         resumed_launches = dict(kernels.launches)  # ... and ends here
+    resumed_eval = {k: v - fit_eval.get(k, 0) for k, v in recorder.launches().items()}
+    resumed_launches = {k: v - resumed_eval.get(k, 0) for k, v in resumed_launches.items()
+                        if v != resumed_eval.get(k, 0)}
     check_step_launches({"train": resumed_log}, {"train": per_train},
                         {"train": len(train_loader)})
     straight, _, _ = trainer_for(str(Path(tmp) / "simmim_straight"))
@@ -2856,10 +3202,17 @@ def phase_simmim_trainer(torch, fa, card, tmp):
         fail(f"the resumed epoch 3 (step {resumed.state.step}) differs from the "
              f"straight fit(3) at {mismatch}")
     print(f"  resumed from last_model: state bit-equal to the file; epoch 3 ended at "
-          f"step {resumed.state.step}, bit-equal to a straight fit(3); launches "
-          f"{resumed_launches}", flush=True)
+          f"step {resumed.state.step}, bit-equal to a straight fit(3) (both evaluating "
+          f"after every epoch); launches {resumed_launches}", flush=True)
+    written = sorted(p.name for p in Path(save_path).iterdir() if p.name.startswith("epoch_"))
+    if written != ["epoch_1", "epoch_2", "epoch_3"]:
+        fail(f"the SimMIM trainer's evaluations wrote {written}")
+    for epoch, (t, ev) in enumerate(zip(epoch_s, recorder.evaluations), 1):
+        print(f"  epoch {epoch}: train {t:.3f} s wall, its evaluation {ev['wall_s']:.3f} s "
+              "wall", flush=True)
+    eval_launches = check_evaluations(torch, fa, recorder, blocks, "SimMIM")
     state, optimizer = resumed.state, resumed.optimizer
-    del resumed, straight
+    del resumed, straight, recorder
 
     batch = {"image": torch.from_numpy(images[:128]).cuda(),
              "weight": torch.ones(128, device="cuda")}
@@ -2910,7 +3263,7 @@ def phase_simmim_trainer(torch, fa, card, tmp):
     return launches, resumed_launches, state, optimizer, batch, {
         "warm_ms": warm_ms, "warm_ms_readings": host_ms, "busy_ms": busy_ms, "idle": idle,
         "peak_gb": peak_gb, "in_loop_ms": step_ms, "input_wait_share": waits,
-        "epoch_s": epoch_s}
+        "epoch_s": epoch_s}, eval_launches
 
 
 def phase_grad_accum(torch, fa, card, state, optimizer, batch):
@@ -3764,13 +4117,17 @@ def main() -> int:
     del state, train_step, batch
     fused_train_launches = phase_training_fused(torch, fa, fm, warm_ms, card)
     with tempfile.TemporaryDirectory() as tmp:
-        trainer_launches, resumed_launches, _ = phase_trainer(torch, fa, card, warm_ms,
-                                                              tmp)
+        trainer_launches, resumed_launches, _, dino_eval = phase_trainer(
+            torch, fa, card, warm_ms, tmp)
+        standalone_launches = phase_standalone_eval(torch, fa, card, Path(tmp) / "run",
+                                                    dino_eval)
+        dino_eval_launches = dino_eval["launches"]
+        del dino_eval
         finetune_launches = phase_finetune(torch, fa, card,
                                            Path(tmp) / "run" / "best_model", tmp)
     with tempfile.TemporaryDirectory() as tmp:
         (simmim_fit_launches, simmim_resumed_launches, simmim_state, simmim_optimizer,
-         simmim_batch, _) = phase_simmim_trainer(torch, fa, card, tmp)
+         simmim_batch, _, simmim_eval_launches) = phase_simmim_trainer(torch, fa, card, tmp)
         accum_paths = phase_grad_accum(torch, fa, card, simmim_state, simmim_optimizer,
                                        simmim_batch)
         simmim_serve_launches, _ = phase_simmim_serving(torch, fa, card, simmim_state, tmp)
@@ -3935,6 +4292,9 @@ def main() -> int:
     ]
     paths = {"serving": serve_launches, "training": train_launches,
              "trainer": trainer_launches, "trainer_resumed": resumed_launches,
+             "dino_evaluation": dino_eval_launches,
+             "evaluate_standalone": standalone_launches,
+             "simmim_evaluation": simmim_eval_launches,
              "finetune": finetune_launches, "trainer_vit_b": vit_b_launches,
              "trainer_vit_b_resumed": vit_b_resumed_launches, **remat_paths,
              "simmim_trainer": simmim_fit_launches,

@@ -13,8 +13,9 @@
   bit, and the epoch-1 snapshot written while epoch 2 trains holds epoch
   1's state.
 - Each refusal names its ``ROADMAP.md`` queue-A item; the options ported
-  since (``parallel.remat``, the supervised and finetune modes, the Adam,
-  SGD and RMSprop optimizers, the Accuracy metric) run instead.
+  since (``parallel.remat``, the automatic evaluation, the supervised and
+  finetune modes, the evaluators' datasets, the Adam, SGD and RMSprop
+  optimizers, the Accuracy metric) run instead.
 """
 
 import json
@@ -34,7 +35,7 @@ from vit_ssl_tpu.train.trainers import base as jax_trainer_base
 from vit_ssl_tpu.train.trainers.dino import DINOTrainer as JaxDINOTrainer
 from vit_ssl_tpu.utils.checkpoint import dino_params_to_torch
 from vit_ssl_tpu_torch.config import compose
-from vit_ssl_tpu_torch.data.builder import make_loaders, prepare_dataloaders
+from vit_ssl_tpu_torch.data.builder import eval_pipeline, make_loaders, prepare_dataloaders
 from vit_ssl_tpu_torch.data.datasets import Dataset, STL10UnsupervisedDataset
 from vit_ssl_tpu_torch.data.loader import DataLoader
 from vit_ssl_tpu_torch.models.builder import build_dino_network
@@ -322,7 +323,7 @@ REFUSALS = [
     (["parallel.ep=2", "model.moe_experts=2"], 10),
     (["parallel.fsdp=true"], 10),
     (["+parallel.multihost=true"], 10),
-    (["eval.interval=1"], 7),
+    (["eval.interval=1"], None),  # ported: see below
     (["parallel.remat=true"], None),  # ported: see below
     (["+training.grad_accum_steps=2"], None),  # ported: see below
 ]
@@ -333,11 +334,17 @@ REFUSALS = [
 def test_trainer_refusals_name_their_item(tmp_path, overrides, item, no_plots):
     """Each refused option names its item; an option ported since (item
     None) trains: ``parallel.remat`` checkpoints the student's blocks and
-    gives fit(1)'s state bit for bit; ``training.grad_accum_steps=2``
+    gives fit(1)'s state bit for bit; ``eval.interval=1`` evaluates the
+    teacher after epoch 1 (all three of the config's modes, over in-memory
+    labeled images) into ``epoch_1/`` and gives fit(1)'s state bit for bit,
+    every module's train flag as it was; ``training.grad_accum_steps=2``
     accumulates over two microbatches and gives fit(1)'s state up to the
     order of fp32 sums (rtol 1e-4, floor 1e-5, as against JAX)."""
     if item is None:
         trainer = _port_trainer(tmp_path / "on", extra=overrides)
+        if overrides == ["eval.interval=1"]:
+            trainer.eval_loaders = _labeled_loaders(trainer.config)
+            flags = [m.training for m in trainer.state.teacher.modules()]
         trainer.fit(1)
         plain = _port_trainer(tmp_path / "off")
         assert not plain.state.student.backbone.remat
@@ -347,11 +354,39 @@ def test_trainer_refusals_name_their_item(tmp_path, overrides, item, no_plots):
         if overrides == ["parallel.remat=true"]:
             assert trainer.state.student.backbone.remat
             _trees_equal(got, want)
+        elif overrides == ["eval.interval=1"]:
+            _trees_equal(got, want)
+            assert [m.training for m in trainer.state.teacher.modules()] == flags
+            for name in ("evaluation_summary.csv", "evaluation_summary.txt",
+                         "umap_feature_quality_results.csv"):
+                assert (tmp_path / "on" / "epoch_1" / name).exists(), name
+            assert not (tmp_path / "off" / "epoch_1").exists()
         else:
             _trees_close(got, want)
         return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue A item {item}\b"):
         _port_trainer(tmp_path, extra=overrides)
+
+
+class _Labeled(Dataset):
+    """n seeded 16-px images through the evaluators' host pipeline, with
+    labels of 4 classes."""
+
+    def __init__(self, n):
+        rng = np.random.default_rng(21)
+        self.images = rng.integers(0, 256, (n, 16, 16, 3), dtype=np.uint8)
+        self.labels = np.arange(n) % 4
+        self.pipeline = eval_pipeline(16)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx, rng=None):
+        return self.pipeline(self.images[idx]), int(self.labels[idx])
+
+
+def _labeled_loaders(config):
+    return make_loaders(config, _Labeled(40))
 
 
 def test_eval_interval_that_never_fires_runs(tmp_path):
@@ -396,13 +431,27 @@ def test_other_training_modes_name_their_item(mode, item, tmp_path):
 
 
 def test_host_data_refusals_name_their_item(tmp_path):
+    """The host multi-crop and the native decoder name their item; the
+    evaluators' datasets (ported since) load ``eval.*``'s labeled images,
+    a list of modes by its first, through Resize and ToTensor."""
+    from make_synthetic_data import make
+
     config = compose(CONFIGS, "dino", ["data.device_augment=false"])
     with pytest.raises(NotImplementedError, match=r"device_augment.*queue A item 11\b"):
         prepare_dataloaders(config, "dino")
     with pytest.raises(NotImplementedError, match=r"native_decode.*queue A item 11\b"):
         STL10UnsupervisedDataset(str(tmp_path), native_decode=True)
-    with pytest.raises(NotImplementedError, match=r"evaluators.*queue A item 7\b"):
-        prepare_dataloaders(config, ["eval_knn"])
+    data = make(str(tmp_path / "synth"), n=10, size=20, num_classes=2)
+    config = compose(CONFIGS, "dino", [f"eval.data_dir={data}/train_images",
+                                       f"eval.data_csv={data}/train_labels.json",
+                                       "data.img_size=16", "data.num_workers=0",
+                                       "training.batch_size=4"])
+    train, val = prepare_dataloaders(config, ["eval_knn", "eval_umap"])
+    batch = next(iter(train))
+    assert set(batch) == {"image", "label", "weight"}
+    assert batch["image"].shape == (4, 16, 16, 3) and batch["image"].dtype == np.float32
+    assert float(batch["image"].max()) <= 1.0
+    assert (len(train.dataset), len(val.dataset)) == (8, 2)
 
 
 @pytest.mark.parametrize("name,item", [("Adam", None), ("SGD", None), ("RMSprop", None)])

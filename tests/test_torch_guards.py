@@ -2,6 +2,9 @@
 
 - the port (``vit_ssl_tpu_torch``) and ``chip_smoke.py`` import neither JAX
   nor the JAX package, checked in a fresh interpreter and by an AST scan;
+- the evaluators import sklearn, pandas, matplotlib, seaborn and PIL at no
+  module level: with all five blocked they import and run KNN, the linear
+  probe and UMAP, write every CSV and TXT and name each skipped figure;
 - its entry points take the card unless the caller asks for the CPU;
 - ``chip_smoke.py``'s DINO ViT-S/8 config is the composed ``configs/dino.yaml``,
   its supervised ViT-B/16 the composed ``configs/vit_b_imagenet.yaml`` at
@@ -10,13 +13,14 @@
   ``configs/vit_b_imagenet.yaml`` as written and its finetune config the
   port's composition of ``configs/finetune.yaml`` with the script's
   overrides, its SimMIM config the port's composition of
-  ``configs/simmim.yaml``, its bounds are the stated arithmetic, and the script refuses
-  to run without a card;
+  ``configs/simmim.yaml`` as written, its bounds are the stated arithmetic,
+  and the script refuses to run without a card;
 - a self-attention longer than kernel B3 takes (N > 1024) runs kernel B2.
 """
 
 import ast
 import importlib.util
+import os
 import shutil
 import subprocess
 import sys
@@ -32,7 +36,10 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "vit_ssl_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vit_ssl_tpu")
 # packages the card machine lacks: never imported by the port at module level
-HOST_ONLY = ("yaml", "orbax", "rich", "pandas", "cv2", "PIL", "matplotlib")
+HOST_ONLY = ("yaml", "orbax", "rich", "pandas", "cv2", "PIL", "matplotlib", "sklearn",
+             "seaborn")
+# never imported by the port at all
+NOWHERE = ("yaml", "orbax", "rich", "pandas", "sklearn")
 
 
 def _load_chip_smoke():
@@ -40,6 +47,15 @@ def _load_chip_smoke():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+EVALUATOR_MODULES = tuple(
+    f"vit_ssl_tpu_torch.evaluators.{name}" for name in (
+        "evaluator_utils", "knn", "linear_probe", "umap_native", "embedding_analysis",
+        "unsupervised_evaluator", "supervised_evaluator")) + (
+    "vit_ssl_tpu_torch.evaluators", "vit_ssl_tpu_torch.evaluate",
+    "vit_ssl_tpu_torch.scripts.knn_classification",
+    "vit_ssl_tpu_torch.scripts.linear_probing")
 
 
 def test_port_import_leaves_jax_out():
@@ -60,6 +76,7 @@ def test_port_import_leaves_jax_out():
         "import vit_ssl_tpu_torch.models.builder, vit_ssl_tpu_torch.ops.encoder_block\n"
         "import vit_ssl_tpu_torch.models.simmim, vit_ssl_tpu_torch.train.trainers.simmim\n"
         "import vit_ssl_tpu_torch.ops.patch_embedding, vit_ssl_tpu_torch.ops.dropout\n"
+        f"import {', '.join(EVALUATOR_MODULES)}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} + {HOST_ONLY!r} + ('triton',))\n"
         "print(bad)\n"
@@ -87,8 +104,9 @@ def test_no_jax_import_anywhere_in_the_port():
 
 
 def test_host_packages_only_inside_functions():
-    """yaml, orbax, rich and pandas appear nowhere in the port; cv2, PIL and
-    matplotlib only inside the functions that decode, resize or plot."""
+    """yaml, orbax, rich, pandas and sklearn appear nowhere in the port;
+    cv2, PIL, matplotlib and seaborn only inside the functions that decode,
+    resize or plot."""
     offenders = {}
     for f in sorted(PORT.rglob("*.py")):
         tree = ast.parse(f.read_text(), filename=str(f))
@@ -102,10 +120,53 @@ def test_host_packages_only_inside_functions():
             elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
                 names = [node.module.split(".")[0]]
             for name in names:
-                if name in ("yaml", "orbax", "rich", "pandas") or (
+                if name in NOWHERE or (
                         name in HOST_ONLY and id(node) not in inside):
                     offenders[f"{f.relative_to(REPO)}:{node.lineno}"] = name
     assert offenders == {}
+
+
+EVAL_BLOCKED_RUN = """
+import logging, sys
+for name in ("sklearn", "pandas", "matplotlib", "seaborn", "PIL"):
+    sys.modules[name] = None
+import numpy as np
+for module in MODULES:
+    __import__(module)
+from vit_ssl_tpu_torch.evaluators import supervised_evaluator as sup
+from vit_ssl_tpu_torch.evaluators import unsupervised_evaluator as unsup
+logging.basicConfig(level=logging.WARNING, format="%(levelname)s %(message)s")
+out = sys.argv[1]
+rng = np.random.default_rng(0)
+labels = np.arange(60) % 3
+feats = (rng.normal(size=(60, 8)) + 4 * labels[:, None]).astype(np.float32)
+bank = unsup.FeatureBank(feats[:45], labels[:45], feats[45:], labels[45:])
+config = {"eval": {"mode": ["eval_knn", "eval_linear", "eval_umap"], "num_classes": 3}}
+outcomes = unsup.run_modes(config, bank, out, "cpu")
+unsup.render_summary(outcomes, out)
+sup.save_results(True, 1.0, labels[45:], labels[45:], out)
+print(sorted(o.mode for o in outcomes))
+"""
+
+
+def test_evaluators_run_without_host_plotting_and_sklearn(tmp_path):
+    """With sklearn, pandas, matplotlib, seaborn and PIL blocked: every
+    evaluator module and the entry points import, a tiny ``run_modes``
+    runs all three modes, every CSV and TXT is written, and the log names
+    each skipped figure."""
+    code = f"MODULES = {EVALUATOR_MODULES!r}\n" + EVAL_BLOCKED_RUN
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
+    env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "['eval_knn', 'eval_linear', 'eval_umap']"
+    assert {p.name for p in tmp_path.iterdir()} == {
+        "evaluation_summary.csv", "evaluation_summary.txt", "predictions.csv",
+        "umap_feature_quality_results.csv", "umap_feature_quality_report.txt"}
+    for figure in ("umap_visualization.png", "comprehensive_umap_analysis.png",
+                   "confusion_matrix.png"):
+        assert figure in out.stderr, figure
 
 
 def test_resolve_device(monkeypatch):
@@ -164,8 +225,8 @@ def test_chip_smoke_supervised_config_is_composed_vit_b_yaml():
 
 def test_chip_smoke_vit_b_224_config_is_the_ports_composition():
     """The ViT-B/16 trainer phase's config: the port's composition of
-    configs/vit_b_imagenet.yaml as written (remat on, batch 1024, 224 px),
-    and its one override touches only the automatic evaluation."""
+    configs/vit_b_imagenet.yaml as written (remat on, batch 1024, 224 px,
+    its supervised evaluation every epoch): the script overrides nothing."""
     from vit_ssl_tpu_torch.config import compose as port_compose
     from vit_ssl_tpu_torch.config import to_container as port_to_container
 
@@ -179,7 +240,7 @@ def test_chip_smoke_vit_b_224_config_is_the_ports_composition():
     assert smoke.VIT_B16_384["parallel"]["remat"] is False  # the copy left it alone
     overridden = port_to_container(port_compose(REPO / "configs", "vit_b_imagenet",
                                                 smoke.VIT_B16_224_OVERRIDES))
-    assert {k for k in composed if composed[k] != overridden[k]} == {"eval"}
+    assert overridden == composed and composed["eval"]["interval"] == 1
     # 2600 images at val_split 0.04: 3 train steps and 1 val step of 1024
     val = int(smoke.VIT_B16_224_IMAGES * cfg["data"]["val_split"])
     assert -(-(smoke.VIT_B16_224_IMAGES - val) // 1024) == 3 and 0 < val <= 1024
@@ -205,8 +266,9 @@ def test_chip_smoke_finetune_config_is_the_ports_composition():
 def test_chip_smoke_simmim_config_is_the_ports_composition():
     """The SimMIM trainer phase's config: the port's composition of
     configs/simmim.yaml as written (ViT-S/16 at 192 px, N = 144, mask ratio
-    0.5, L1, PSNR and SSIM); its one override touches only the automatic
-    evaluation; its images make 3 train steps and 1 val step an epoch."""
+    0.5, L1, PSNR and SSIM, its evaluation every epoch in the three modes):
+    the script overrides nothing; its images make 3 train steps and 1 val
+    step an epoch."""
     from vit_ssl_tpu_torch.config import compose as port_compose
     from vit_ssl_tpu_torch.config import to_container as port_to_container
 
@@ -221,7 +283,8 @@ def test_chip_smoke_simmim_config_is_the_ports_composition():
     _assert_within(cfg, composed, "config")
     overridden = port_to_container(port_compose(REPO / "configs", "simmim",
                                                 smoke.SIMMIM_OVERRIDES))
-    assert {k for k in composed if composed[k] != overridden[k]} == {"eval"}
+    assert overridden == composed and composed["eval"]["interval"] == 1
+    assert composed["eval"]["mode"] == ["eval_knn", "eval_linear", "eval_umap"]
     val = int(smoke.SIMMIM_IMAGES * cfg["data"]["val_split"])
     assert -(-(smoke.SIMMIM_IMAGES - val) // 128) == 3 and 0 < val <= 128
 

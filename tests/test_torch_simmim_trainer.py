@@ -13,6 +13,8 @@ and ``python -m vit_ssl_tpu_torch.train --config-name simmim``, on the CPU.
   ``best_val_score`` equal.
 - Resume is bit-exact: ``fit(2)`` then a resumed ``fit(1)`` equals
   ``fit(3)``, with the port's own masks; val masks repeat across epochs.
+- ``eval.interval=1`` (``configs/simmim/eval.yaml``'s) evaluates after the
+  epoch into ``epoch_1/`` and leaves ``fit(1)``'s state bit for bit.
 - The CLI trains on ``tests/make_synthetic_data.py``'s PNGs through the
   host pipeline of ``configs/simmim/train_transforms.yaml``, and again with
   ``data.device_augment=true``, ``training.grad_accum_steps=2`` and
@@ -37,6 +39,7 @@ from vit_ssl_tpu.train.trainers import base as jax_trainer_base
 from vit_ssl_tpu.train.trainers.simmim import SimMIMTrainer as JaxSimMIMTrainer
 from vit_ssl_tpu.utils.checkpoint import simmim_params_to_torch
 from vit_ssl_tpu_torch.config import compose
+from vit_ssl_tpu_torch.data.builder import eval_pipeline, make_loaders
 from vit_ssl_tpu_torch.models import simmim as port_simmim_mod
 from vit_ssl_tpu_torch.models.builder import build_model
 from vit_ssl_tpu_torch.train.__main__ import check_mode, get_trainer
@@ -198,7 +201,7 @@ def test_resume_is_bit_exact_and_val_masks_repeat(tmp_path, quiet):
     assert resumed.history.history["train_Loss"] == straight.history.history["train_Loss"][2:]
 
 
-def test_mode_and_trainer_are_taken(tmp_path):
+def test_mode_and_trainer_are_taken(tmp_path, quiet):
     check_mode("simmim")
     config = compose("configs", "simmim", TINY)
     train, val = _loaders()
@@ -206,8 +209,33 @@ def test_mode_and_trainer_are_taken(tmp_path):
                           train, val, "cpu")
     assert isinstance(trainer, SimMIMTrainer)
     assert trainer.state.model.mask_ratio == 0.5
-    with pytest.raises(NotImplementedError, match=r"queue A item 7\b"):
-        _port_trainer(tmp_path, ["eval.interval=1"])
+    # configs/simmim/eval.yaml evaluates every epoch (ported since): the
+    # unmasked forward's features, into epoch_1/, training unmoved
+    evaluated = _port_trainer(tmp_path / "eval", ["eval.interval=1"])
+    assert evaluated.eval_interval == 1 and len(evaluated.eval_mode) == 3
+    evaluated.eval_loaders = make_loaders(evaluated.config, _Labeled(40))
+    evaluated.fit(1)
+    plain = _port_trainer(tmp_path / "plain")
+    plain.fit(1)
+    _equal(trainer_base.to_host(evaluated.state.state_dict()),
+           trainer_base.to_host(plain.state.state_dict()))
+    assert (tmp_path / "eval" / "epoch_1" / "evaluation_summary.csv").exists()
+    assert (tmp_path / "eval" / "epoch_1" / "umap_feature_quality_report.txt").exists()
+
+
+class _Labeled:
+    """n seeded images through the evaluators' host pipeline, 4 classes."""
+
+    def __init__(self, n):
+        self.images = np.random.default_rng(22).integers(0, 256, (n, IMG, IMG, 3),
+                                                         dtype=np.uint8)
+        self.pipeline = eval_pipeline(IMG)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx, rng=None):
+        return self.pipeline(self.images[idx]), idx % 4
 
 
 def _cli(args):

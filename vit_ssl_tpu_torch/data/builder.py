@@ -22,10 +22,16 @@ interleaved slice of every global batch.
   (the train augmentation runs on the card), else through the config's
   ``transforms.train`` on the host; train and val share one dataset
   object, as in the JAX package.
+- the evaluators (:func:`eval_datasets`, modes ``eval_knn``,
+  ``eval_linear``, ``eval_umap``; a list of modes loads by its first
+  entry): the labeled datasets of ``eval.*``, each key falling back to
+  ``data.*`` only when ``eval`` lacks it, through
+  :func:`eval_pipeline` (``Resize`` to ``data.img_size``, then
+  ``ToTensor``; never the device augmentation).
 
-Refused by name, each with its ``ROADMAP.md`` queue-A item: the
-evaluators' datasets, and DINO with ``data.device_augment=false`` (host
-multi-crop).
+Refused by name, with its ``ROADMAP.md`` queue-A item: DINO with
+``data.device_augment=false`` (host multi-crop), which ``eval_dino``'s
+datasets are too.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..config import is_list
 from .datasets import (CIFAR10Dataset, Dataset, ImageFolderDataset, STL10Dataset,
                        STL10UnsupervisedDataset, Subset)
 from .loader import DataLoader
@@ -104,9 +111,6 @@ def labeled_datasets(config) -> Tuple[Dataset, Dataset]:
     """The supervised/finetune train and val datasets ``data.*`` describes
     (the JAX ``_get_dataset``'s labeled branch)."""
     data = config.get("data", {})
-    dataset_name = str(data.get("dataset_name", "")).lower()
-    data_dir, data_csv = data.get("data_dir"), data.get("data_csv")
-    cache = bool(data.get("cache_decoded", False))
     if bool(data.get("device_augment", False)):
         train_t = val_t = _decode_and_resize(config)
     else:
@@ -114,6 +118,34 @@ def labeled_datasets(config) -> Tuple[Dataset, Dataset]:
 
         pipelines = get_transforms(config)
         train_t, val_t = pipelines["train"], pipelines["val"]
+    return _labeled(str(data.get("dataset_name", "")).lower(), data.get("data_dir"),
+                    data.get("data_csv"), train_t, val_t,
+                    bool(data.get("cache_decoded", False)))
+
+
+def eval_pipeline(img_size: int):
+    """The evaluators' host pipeline: ``Resize([img, img])`` then
+    ``ToTensor`` (float32 HWC in [0, 1])."""
+    from .transforms import Compose, Resize, ToTensor
+
+    return Compose([Resize([img_size, img_size]), ToTensor()])
+
+
+def eval_datasets(config) -> Tuple[Dataset, Dataset]:
+    """The evaluators' train and val datasets: ``eval.dataset_name``,
+    ``eval.data_dir`` and ``eval.data_csv``, each ``data.*``'s when
+    ``eval`` has no such key (a key present but empty stays empty), both
+    through :func:`eval_pipeline`."""
+    data, section = config.get("data", {}), config.get("eval", {})
+    pipeline = eval_pipeline(int(config["data"]["img_size"]))
+    return _labeled(
+        str(section.get("dataset_name", data.get("dataset_name", ""))).lower(),
+        section.get("data_dir", data.get("data_dir")),
+        section.get("data_csv", data.get("data_csv")), pipeline, pipeline,
+        bool(data.get("cache_decoded", False)))
+
+
+def _labeled(dataset_name, data_dir, data_csv, train_t, val_t, cache):
     if dataset_name == "cifar10":
         return (CIFAR10Dataset(data_csv, data_dir, train_t, cache),
                 CIFAR10Dataset(data_csv, data_dir, val_t, cache))
@@ -192,14 +224,26 @@ def make_loaders(config, train_full: Dataset,
             None if val_dataset is None else loader(val_dataset, False))
 
 
+EVAL_DATA_MODES = ("eval_knn", "eval_linear", "eval_umap")
+
+
 def prepare_dataloaders(config, mode) -> Tuple[DataLoader, Optional[DataLoader]]:
-    """The train and val loaders of a training mode (the JAX function's
-    supervised, finetune, simmim and dino branches)."""
-    if isinstance(mode, (list, tuple)) or "eval" in str(mode).lower():
-        raise NotImplementedError(
-            f"the evaluators' datasets (mode {mode!r}) are not ported yet; see "
-            "ROADMAP.md queue A item 7")
+    """The train and val loaders of a training mode or of the evaluators'
+    modes (a list loads by its first entry), as the JAX function builds
+    them."""
+    if is_list(mode):
+        logger.info("Multiple evaluation modes detected: %s", mode)
+        mode = mode[0]
     mode = str(mode).lower()
+    if mode in EVAL_DATA_MODES:
+        logger.info("Preparing dataloaders for mode: '%s' (eval.data_dir -> %s)", mode,
+                    config.get("eval", {}).get("data_dir",
+                                               config.get("data", {}).get("data_dir")))
+        return make_loaders(config, *eval_datasets(config))
+    if mode == "eval_dino":
+        raise NotImplementedError(
+            "eval_dino's datasets are DINO's host multi-crop (STL10DINODataset), "
+            "not ported yet; see ROADMAP.md queue A item 11")
     if mode in ("supervised", "finetune"):
         logger.info("Preparing dataloaders for mode: '%s'", mode)
         train_full, val_full = labeled_datasets(config)

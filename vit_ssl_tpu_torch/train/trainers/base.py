@@ -2,7 +2,10 @@
 the train state, checkpoints and resume.
 
 ``fit`` runs, per epoch: ``train_epoch`` → ``validate`` → log → the best
-checkpoint (each trainer keys "best" its own way) → ``last_model``;
+checkpoint (each trainer keys "best" its own way) → ``last_model`` → the
+automatic evaluation, when ``eval.interval`` and ``eval.mode`` are set and
+the epoch is a multiple of the interval (:meth:`BaseTrainer._evaluate`:
+the unsupervised evaluation of ``eval.mode`` into ``epoch_{n}/``);
 checkpoints embed the config. As in the JAX package:
 
 - the step's outputs stay on the device through the epoch and are fetched
@@ -20,13 +23,15 @@ checkpoints embed the config. As in the JAX package:
 - one snapshot a checkpointed epoch, a completed copy to host memory taken
   before the next step runs (the port's train state is updated in place,
   so a copy that lagged would hold a later step's weights); the file is
-  written on a thread while the next epoch trains.
+  written on a thread while the next epoch trains;
+- the evaluation starts after that snapshot, reads the weights only (its
+  randomness comes from generators of its own) and gives every module its
+  train flag back, so a fit ends bit-equal with it or without it.
 
 Refused by name, each with its ``ROADMAP.md`` queue-A item:
 ``training.auto_resume`` and ``training.fault_inject_preempt_step`` (item
 8), ``parallel.{tp,pp,sp,ep} > 1``, ``parallel.fsdp`` and
-``parallel.multihost`` (item 10), and an automatic evaluation that would
-fire (item 7; :func:`refuse_automatic_evaluation`).
+``parallel.multihost`` (item 10).
 ``training.preempt_checkpointing`` is accepted; no SIGTERM handler is
 installed yet (item 8).
 """
@@ -83,27 +88,6 @@ def refuse_unported_training(config) -> None:
                 "item 10")
 
 
-def refuse_automatic_evaluation(config, needs_mode: bool = True) -> None:
-    """Raise when ``fit`` would reach an automatic evaluation (the
-    condition ``preflight_eval_data`` checks): ``eval.interval`` > 0 (and,
-    with ``needs_mode``, as the SSL trainers have it, ``eval.mode`` set) on
-    a run that reaches a multiple of the interval. The evaluators are
-    ``ROADMAP.md`` queue A item 7."""
-    eval_cfg = config.get("eval", {}) or {}
-    interval = int(eval_cfg.get("interval", 0) or 0)
-    if not interval or (needs_mode and not eval_cfg.get("mode")):
-        return
-    training = config.get("training", {}) or {}
-    num_epochs = int(training.get("num_epochs", 0) or 0)
-    if num_epochs < interval and not training.get("resume_from_checkpoint"):
-        return
-    raise NotImplementedError(
-        f"eval.interval={interval}"
-        + (f" with eval.mode={eval_cfg.get('mode')}" if needs_mode else "")
-        + " would run the automatic evaluation, and the evaluators are not "
-        "ported yet (ROADMAP.md queue A item 7); set eval.interval=0")
-
-
 def to_host(tree: Any) -> Any:
     """A completed copy of ``tree``'s tensors in host memory (a new tensor
     also for those already there)."""
@@ -133,6 +117,10 @@ class BaseTrainer(ABC):
         self.warmup_epochs = int(config["training"]["warmup_epochs"])
         self.num_epochs = int(config["training"]["num_epochs"])
         self.eval_interval = int(config["eval"].get("interval", 0) or 0)
+        self.eval_mode = config["eval"].get("mode")
+        # the evaluation's (train, val) loaders; None: the eval.* datasets,
+        # loaded at each evaluation
+        self.eval_loaders = None
 
         self.lr_schedule = lr_schedule_from_config(config, max(1, len(train_loader)))
         self.optimizer = make_optimizer(config, self.lr_schedule,
@@ -240,8 +228,27 @@ class BaseTrainer(ABC):
                 self.history.update(train_metrics, val_metrics)
                 self._save_if_best(epoch, val_metrics)
                 self._save_last(epoch)
+                if self.eval_interval and self.eval_mode and epoch % self.eval_interval == 0:
+                    self._evaluate(epoch)
             self._join_pending_save()
         self._vizualize()
+
+    def _eval_network(self) -> torch.nn.Module:
+        """The network whose features the evaluation reads."""
+        return self.network
+
+    def _evaluate(self, epoch: int):
+        """The unsupervised evaluation of ``eval.mode`` into
+        ``save_path/epoch_{epoch}`` (``evaluation_summary.*`` and the UMAP
+        reports), over :attr:`eval_loaders`."""
+        from ...evaluators.unsupervised_evaluator import run_evaluation
+
+        logger.info("Running automatic evaluation (mode: %s)...", self.eval_mode)
+        self.train_logger.pause()
+        run_evaluation(self.config, network=self._eval_network(),
+                       save_path=os.path.join(self.save_path, f"epoch_{epoch}"),
+                       loaders=self.eval_loaders, device=self.device)
+        self.train_logger.resume()
 
     def _log_memory_once(self):
         """One line after the first trained epoch: the card's peak memory."""

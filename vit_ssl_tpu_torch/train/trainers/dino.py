@@ -8,11 +8,8 @@ batches (made on the device from uint8 images with
 ``data.device_augment``); the collapse metrics from the epoch's **last
 batch only**; the best checkpoint keyed on
 ``CosineSim - |CenterNorm-1| - |StudentSTD-TeacherSTD|``. Validation
-advances the center, as the reference's teacher forward does.
-
-An automatic evaluation that would fire (``eval.interval`` > 0 with
-``eval.mode`` set, on a run that reaches a multiple of the interval) is
-refused at construction: the evaluators are ``ROADMAP.md`` queue A item 7.
+advances the center, as the reference's teacher forward does. The
+automatic evaluation reads the teacher's backbone (its CLS features).
 """
 
 from __future__ import annotations
@@ -27,7 +24,7 @@ from ...config import to_container
 from ...models.dino import cosine_momentum_schedule, teacher_temp_schedule
 from ..state import TrainState
 from ..steps import make_dino_steps
-from .base import BaseTrainer, refuse_automatic_evaluation
+from .base import BaseTrainer
 
 logger = logging.getLogger(__name__)
 
@@ -39,7 +36,6 @@ def _f32(x: float) -> float:
 class DINOTrainer(BaseTrainer):
     def __init__(self, network, save_path: str, config, train_loader, val_loader,
                  device=None):
-        refuse_automatic_evaluation(config)
         super().__init__(network, save_path, config, train_loader, val_loader,
                          device)
         training = self.config.training
@@ -61,6 +57,9 @@ class DINOTrainer(BaseTrainer):
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self.network.reset_parameters(generator)
         return TrainState(self.network, self.optimizer, seed)
+
+    def _eval_network(self):
+        return self.state.teacher
 
     def _build_steps(self):
         training = self.config.training

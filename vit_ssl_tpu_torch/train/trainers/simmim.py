@@ -12,9 +12,8 @@ epoch's validation masks the same patches.
 The train state is a :class:`~..state.SupervisedTrainState` over the
 ``SimMIMViT``: one model, its optimizer buffers, the step and the seed.
 
-An automatic evaluation that would fire (``configs/simmim/eval.yaml`` has
-``interval: 1`` with KNN, linear probe and UMAP) is refused at
-construction: the evaluators are ``ROADMAP.md`` queue A item 7.
+The automatic evaluation (``configs/simmim/eval.yaml``: every epoch, KNN,
+linear probe and UMAP) reads the unmasked forward's mean patch features.
 """
 
 from __future__ import annotations
@@ -27,7 +26,7 @@ import torch
 from ...config import to_container
 from ..state import SupervisedTrainState, step_generators
 from ..steps import make_criterion, make_simmim_steps
-from .base import BaseTrainer, refuse_automatic_evaluation
+from .base import BaseTrainer
 
 logger = logging.getLogger(__name__)
 
@@ -35,12 +34,6 @@ _SUMS = ("psnr_sse", "psnr_count", "ssim_sum", "ssim_count")
 
 
 class SimMIMTrainer(BaseTrainer):
-    def __init__(self, network, save_path: str, config, train_loader, val_loader,
-                 device=None):
-        refuse_automatic_evaluation(config)
-        super().__init__(network, save_path, config, train_loader, val_loader,
-                         device)
-
     def _init_state(self) -> SupervisedTrainState:
         seed = int(self.config["training"].get("random_seed", 0))
         generator = torch.Generator(device=self.device).manual_seed(seed)

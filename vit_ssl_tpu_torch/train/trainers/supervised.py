@@ -19,16 +19,18 @@ the optimizer is rebuilt: the moments are dropped and the count restarts,
 so the lr schedule restarts from its first step, as in the reference. A
 run resumed from a checkpoint written after that epoch starts unfrozen.
 
-An automatic evaluation that would fire (``eval.interval`` > 0 on a run
-that reaches a multiple of it) is refused at construction: the evaluators
-are ``ROADMAP.md`` queue A item 7.
+Every ``eval.interval`` epochs (when set) the supervised evaluation
+writes the epoch's validation predictions (``predictions.csv``, and the
+confusion matrix with ``eval.save_confusion_matrix``) into
+``epoch_{n}/``.
 """
 
 from __future__ import annotations
 
 import logging
 import math
-from typing import Dict
+import os
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +45,7 @@ from ...models.builder import (
 )
 from ..state import SupervisedTrainState, make_optimizer
 from ..steps import make_criterion, make_supervised_steps
-from .base import BaseTrainer, refuse_automatic_evaluation
+from .base import BaseTrainer
 
 logger = logging.getLogger(__name__)
 
@@ -53,7 +55,6 @@ class SupervisedTrainer(BaseTrainer):
 
     def __init__(self, network, save_path: str, config, train_loader, val_loader,
                  device=None):
-        refuse_automatic_evaluation(config, needs_mode=False)
         super().__init__(network, save_path, config, train_loader, val_loader,
                          device)
         self.freeze_backbone = bool(self.config["training"].get("freeze_backbone", False))
@@ -112,17 +113,19 @@ class SupervisedTrainer(BaseTrainer):
             self.train_logger.train_log_step(epoch, idx)
         return self._epoch_metrics(outs)
 
-    def validate(self) -> Dict[str, float]:
+    def validate(self) -> Tuple[Dict[str, float], np.ndarray, np.ndarray]:
+        """The val metrics, and the predictions and labels of the real rows."""
         outs = []
         for idx, batch in enumerate(self._device_batches(self.val_loader)):
             outs.append(self.eval_step(self.state, batch))
             self.train_logger.val_log_step(idx)
-        return self._epoch_metrics(outs)
+        return self._epoch_metrics(outs, return_preds=True)
 
-    def _epoch_metrics(self, outs) -> Dict[str, float]:
+    def _epoch_metrics(self, outs, return_preds: bool = False):
         """One device-to-host fetch an epoch: every step's loss and weight
         sum, and the predictions, labels and weights of every row (class
-        indices are exact in fp32)."""
+        indices are exact in fp32); with ``return_preds`` also the real
+        rows' predictions and labels."""
         n = len(outs)
         host = torch.cat(
             [torch.stack([o["loss"].float() for o in outs]),
@@ -140,6 +143,8 @@ class SupervisedTrainer(BaseTrainer):
             y_pred=preds, y_true=labels)
         loss_sum = sum(loss * w for loss, w in zip(losses, weight_sums))
         metrics["Loss"] = float(loss_sum) / max(float(weight_sums.sum()), 1.0)
+        if return_preds:
+            return metrics, preds, labels
         return metrics
 
     # -- fit (the unfreeze) --------------------------------------------------------
@@ -153,13 +158,27 @@ class SupervisedTrainer(BaseTrainer):
                 profiling = self._maybe_start_profile(epoch)
                 train_metrics = self.train_epoch(epoch)
                 self._stop_profile(profiling, epoch)
-                val_metrics = self.validate()
+                val_metrics, preds, labels = self.validate()
                 self._log_metrics(train_metrics, val_metrics)
                 self.history.update(train_metrics, val_metrics)
                 self._save_if_best(epoch, val_metrics["Accuracy"])
                 self._save_last(epoch)
+                if self.eval_interval and epoch % self.eval_interval == 0:
+                    self._evaluate_predictions(epoch, val_metrics["Accuracy"], preds,
+                                               labels)
             self._join_pending_save()
         self._vizualize()
+
+    def _evaluate_predictions(self, epoch: int, accuracy: float, preds, labels):
+        """The supervised evaluation of the epoch's validation predictions
+        into ``save_path/epoch_{epoch}``."""
+        from ...evaluators.supervised_evaluator import run_evaluation
+
+        logger.info("Running automatic evaluation...")
+        self.train_logger.pause()
+        run_evaluation(self.config, save_path=os.path.join(self.save_path, f"epoch_{epoch}"),
+                       accuracy=accuracy, preds=preds, labels=labels, device=self.device)
+        self.train_logger.resume()
 
     def _unfreeze_backbone(self):
         """Every parameter trains from here, under a new optimizer: its
