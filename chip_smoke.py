@@ -18,7 +18,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               forward in its one-pass (N <= 256) and two-pass forms, the
               bf16 backward in its resident (N <= 256) and streamed forms,
               also at ViT-B/16's 224-px shape (1024, 197, 12 x 64), bf16 and
-              fp32, and SimMIM's (128, 144, 6 x 64), bf16; each head kept to its columns and each image to its
+              fp32, SimMIM's (128, 144, 6 x 64) and the patch-dropout
+              (1024, 99, 12 x 64), bf16; each head kept to its columns and each image to its
               rows, two calls bit-equal; kernel B4
               (fused MLP): its three forwards (no mask; keep-mask; keep-mask
               and saved pre) and its backward (with and without the mask)
@@ -60,6 +61,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               kernel/plain/unfused-chain times at each width, each entry's
               host microseconds a call through its wrapper, and a profile
               of each timed call that must name its Hopper kernels
+9.1 scan — the DINO training step with ``model.scan_layers=true`` from
+              phase 7's initial weights stacked (``flat_to_scanned``): loss,
+              student, teacher, center and AdamW moments bit-equal to the
+              unrolled step's; its ``state.pt`` through ``flat_to_unrolled``
+              loads strictly into an unrolled state; both warm steps
 9a. DINO trainer — the same main path through the port's own trainer:
               configs/dino.yaml composed by ``vit_ssl_tpu_torch.config``
               (checked against DINO_VIT_S8), the loaders of its seeded split
@@ -71,6 +77,13 @@ Phases, each printing its own lines; any failure exits non-zero:
               epoch wall seconds and images a second, the input-wait share,
               the in-loop step beside the bare warm step, each checkpoint's
               snapshot and background write, peak memory
+9a.1 preempt — configs/dino.yaml with PREEMPT_OVERRIDES through the CLI's
+              own flow (``train.__main__.fit_with_preemption``) over the
+              same in-memory images: fault injection stops the run at epoch
+              2 after 4 batches with exit 75 and a preempt_model that says
+              so (its snapshot and write timed); the same call again
+              auto-resumes, trains the other 5 batches and removes it, and
+              its last_model equals phase 9a's straight fit(2) bit for bit
 9b. finetune — configs/finetune.yaml composed by the port with
               FINETUNE_OVERRIDES (ViT-S/8 at 96 px, extended transfer, the
               backbone frozen until epoch 2), from phase 9a's DINO
@@ -168,6 +181,18 @@ Phases, each printing its own lines; any failure exits non-zero:
 21. remat against no remat — the same step at batch 128 from one cloned
               state with ``parallel.remat`` on and off: agreement, both
               peak memories and both device-busy times
+21a. V-MoE ViT-B/16 — configs/vit_b_imagenet.yaml with MOE_OVERRIDES (8
+              experts in every 2nd block, routed per image, top-2, capacity
+              factor 1.25; V-MoE-B/16 "every-2") through
+              ``SupervisedTrainer.fit(1)`` (2 train steps, 1 val step), B1's
+              launches exact; warm step, img/s, device busy, peak memory,
+              ``moe_dropped_frac``; one step against plain attention: the
+              router loss, the training bars with the routing pinned to the
+              kernel step's, the routing's fidelity to fp64 attention
+21b. patch dropout — the ViT-B/16 224 step with ``model.patch_dropout=0.5``
+              at batch 1024 against plain attention, every B1 call at N =
+              99; device busy; then B1's training entries at (1024, 99,
+              12 x 64): kernel, plain, SDPA and bound
 22. a JSON line describing every kernel (B4 once at each width), then the
               JSON ``ok`` line last.
 
@@ -421,11 +446,15 @@ TRAIN_CASES = [
     (1024, 197, 12, 64, "bfloat16", 0),
     (1024, 197, 12, 64, "float32", 0),
     (128, 144, 6, 64, "bfloat16", 0),
+    (1024, 99, 12, 64, "bfloat16", 0),
 ]
 # ViT-B/16 at 224 px (configs/vit_b_imagenet.yaml): B1's shape on that path
 VIT_B_B1_CASE = (1024, 197, 12, 64, "bfloat16", 0)
 # SimMIM ViT-S/16 at 192 px (configs/simmim.yaml): every forward and backward
 SIMMIM_B1_CASE = (128, 144, 6, 64, "bfloat16", 0)
+# ViT-B/16 at 224 px with model.patch_dropout=0.5: the CLS token and 98 of
+# 196 patches, every training forward and backward
+PATCH_B1_CASE = (1024, 99, 12, 64, "bfloat16", 0)
 # gradients and statistics: max |kernel - plain| over max |plain|. bf16: p
 # and ds round to bf16 on both sides and may land on either side of a tie;
 # fp32: sums in another order
@@ -2179,8 +2208,8 @@ def phase_trainer(torch, fa, card, warm_ms, tmp):
     epoch over EVAL_IMAGES labeled in-memory images, best and last
     checkpoints, then a fresh trainer resumed from last_model, bit-equal to
     the file, trains and evaluates epoch 3. Returns the launches of both
-    runs' training, the phase's numbers, and the evaluations' launches,
-    loaders and KNN accuracy by epoch."""
+    runs' training, the phase's numbers, the evaluations' launches,
+    loaders and KNN accuracy by epoch, and fit(2)'s last_model tree."""
     from vit_ssl_tpu_torch import kernels
     from vit_ssl_tpu_torch.config import compose, to_container, validate_train_config
     from vit_ssl_tpu_torch.data.builder import make_loaders
@@ -2343,7 +2372,7 @@ def phase_trainer(torch, fa, card, warm_ms, tmp):
              "expected 1, 2 and 3")
     del resumed, recorder
     gc.collect()
-    return launches, resumed_launches, stats, evaluation
+    return launches, resumed_launches, stats, evaluation, saved
 
 
 def phase_standalone_eval(torch, fa, card, run_dir, evaluation):
@@ -4052,6 +4081,548 @@ def phase_exp2_probe(torch, fb, card):
     return launches, stats, err
 
 
+# -- fault tolerance, the scanned stack, V-MoE and patch dropout ------------
+
+# the preempt phase's fault lands mid-epoch 2 of the DINO trainer's run: 9
+# train steps an epoch, so after 13 steps, at epoch 2 batch 4
+PREEMPT_STEP = 13
+PREEMPT_OVERRIDES = ["training.num_epochs=2", "eval.interval=0",
+                     f"training.fault_inject_preempt_step={PREEMPT_STEP}",
+                     "training.auto_resume=true"]
+
+
+def phase_preempt(torch, fa, card, tmp, straight):
+    """DINO ViT-S/8 (configs/dino.yaml) through the CLI's own flow
+    (``train.__main__.fit_with_preemption``) over the DINO trainer phase's
+    in-memory images: with PREEMPT_OVERRIDES the fit stops at epoch 2 after
+    4 batches and exits 75, preempt_model's metadata says so; the same call
+    again auto-resumes, trains the epoch's other 5 batches, removes
+    preempt_model, and its last_model equals the trainer phase's straight
+    fit(2) (``straight``) bit for bit: student, teacher, center, AdamW count
+    and moments, step. Prints save_preempt's snapshot and write. Returns the
+    launches of both runs."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose, validate_train_config
+    from vit_ssl_tpu_torch.data.builder import make_loaders
+    from vit_ssl_tpu_torch.models.builder import build_dino_network
+    from vit_ssl_tpu_torch.train.__main__ import fit_with_preemption, get_trainer
+    from vit_ssl_tpu_torch.utils.checkpoint import load_checkpoint
+    from vit_ssl_tpu_torch.utils.preempt import PREEMPT_EXIT_CODE
+
+    configs = Path(__file__).resolve().parent / "configs"
+    run_dir = str(Path(tmp) / "preempt")
+    config = compose(configs, "dino", PREEMPT_OVERRIDES + [f"hydra.run.dir={run_dir}"])
+    validate_train_config(config)
+    print(f"== preempt: configs/dino.yaml with {' '.join(PREEMPT_OVERRIDES)} through "
+          f"train.__main__.fit_with_preemption over the DINO trainer's {TRAINER_IMAGES} "
+          f"in-memory images, then the same call again; {card}", flush=True)
+    images = np.random.default_rng(5).integers(
+        0, 256, (TRAINER_IMAGES, 96, 96, 3), dtype=np.uint8)
+
+    def run(label):
+        train_loader, val_loader = make_loaders(config, InMemoryImages(images))
+        trainer = get_trainer("dino", build_dino_network(config, "cuda"), run_dir, config,
+                              train_loader, val_loader, "cuda")
+        log, code = [], None
+        trainer.train_step = counted_steps(trainer.train_step, log)
+        with no_plain_attention(fa):
+            kernels.launches.clear()  # this run's path starts here
+            try:
+                fit_with_preemption(trainer, config, run_dir)
+            except SystemExit as e:
+                code = e.code
+            launches = dict(kernels.launches)  # ... and ends here
+        for i, (_, got, _) in enumerate(log):
+            if got != attention_launches(fa):
+                fail(f"{label} train step {i} launched {got}")
+        return trainer, len(log), code, launches
+
+    t0 = time.perf_counter()
+    trainer, steps, code, first = run("the preempted run")
+    first_s = time.perf_counter() - t0
+    meta_path = Path(run_dir) / "preempt_model" / "metadata.json"
+    if code != PREEMPT_EXIT_CODE or not meta_path.exists():
+        fail(f"the preempted run ended with {code} and preempt_model "
+             f"{'written' if meta_path.exists() else 'missing'}")
+    meta = json.loads(meta_path.read_text())
+    want = (1, 2, PREEMPT_STEP - 9)
+    got = (meta["epoch"], meta["preempt_epoch"], meta["preempt_batches_done"])
+    if got != want or steps != PREEMPT_STEP:
+        fail(f"preempt_model's (epoch, preempt_epoch, preempt_batches_done) {got}, "
+             f"expected {want}, after {steps} steps")
+    save = trainer.save_times[-1]
+    print(f"  preempted run: {steps} train steps, SystemExit({code}) in {first_s:.3f} s; "
+          f"preempt_model epoch {got[0]}, preempt_epoch {got[1]}, batches done {got[2]}; "
+          f"launches {first}", flush=True)
+    print(f"  save_preempt on {card}: host snapshot {save['snapshot_ms']:.1f} ms, "
+          f"synchronous write {save['write_s']:.3f} s", flush=True)
+    del trainer
+    t0 = time.perf_counter()
+    resumed, steps, code, second = run("the auto-resumed run")
+    if code is not None or steps != 18 - PREEMPT_STEP:
+        fail(f"the auto-resumed run ended with {code} after {steps} steps")
+    if (Path(run_dir) / "preempt_model").exists():
+        fail("the auto-resumed run left preempt_model behind")
+    got_tree, got_meta = load_checkpoint(str(Path(run_dir) / "last_model"))
+    mismatch = state_mismatch(torch, got_tree, straight)
+    if mismatch or got_meta["epoch"] != 2:
+        fail(f"the preempted and auto-resumed run's last_model differs from the straight "
+             f"fit(2) at {mismatch} (epoch {got_meta['epoch']})")
+    print(f"  auto-resumed run: {steps} train steps in {time.perf_counter() - t0:.3f} s, "
+          f"preempt_model removed; last_model bit-equal to the DINO trainer's straight "
+          f"fit(2) (student, teacher, center, AdamW count and moments, step "
+          f"{got_tree['step']}); launches {second}", flush=True)
+    del resumed
+    gc.collect()
+    return {"preempt": first, "preempt_resumed": second}
+
+
+def named_moments(state, names):
+    """An optimizer state's AdamW moments by ``mu.<param>``/``nu.<param>``."""
+    return {f"{b}.{n}": t for b in ("mu", "nu")
+            for n, t in zip(names, state.opt_state.buffers[b])}
+
+
+def phase_scan(torch, fa, card):
+    """DINO ViT-S/8 with ``model.scan_layers=true``: the training phase's
+    initial weights converted to the stacked layout (``flat_to_scanned``),
+    one training step against the unrolled step from the same state and
+    batch, bit for bit (loss, student, teacher, center, moments); the
+    stacked state through ``state.pt`` and ``flat_to_unrolled`` loads
+    strictly into an unrolled state and equals it; warm steps of both.
+    Returns the scanned step's launches."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.models import build_dino_network
+    from vit_ssl_tpu_torch.ops import encoder_stack as es
+    from vit_ssl_tpu_torch.train import AdamW, TrainState
+    from vit_ssl_tpu_torch.train.trainers.base import to_host
+    from vit_ssl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    print(f"== scan: DINO ViT-S/8 train_step with model.scan_layers=true against the "
+          f"unrolled step from one converted state, batch "
+          f"{DINO_VIT_S8['training']['batch_size']}; {card}", flush=True)
+    unrolled, train_step, batch = build_training(torch)
+    cfg = copy.deepcopy(DINO_VIT_S8)
+    cfg["model"]["scan_layers"] = True
+    student = build_dino_network(cfg, "cuda")
+    student.load_state_dict(es.flat_to_scanned(unrolled.student.state_dict()), strict=True)
+    # the optimizer here only makes the zero moments: the step updates with
+    # its own (build_training's)
+    scanned = TrainState(student, AdamW(lambda step: 0.0), seed=unrolled.seed)
+    if scanned.student.backbone.encoder_scan is None:
+        fail("model.scan_layers built no stacked body")
+    temps = schedule_values()
+    with no_plain_attention(fa):
+        want = train_step(unrolled, batch, *temps)
+        kernels.launches.clear()  # the scanned step's path starts here
+        got = train_step(scanned, batch, *temps)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)  # ... and ends here
+    if launches != attention_launches(fa):
+        fail(f"the scanned step launched {launches}, expected {attention_launches(fa)}")
+    names_u = [n for n, _ in unrolled.student.named_parameters()]
+    names_s = [n for n, _ in scanned.student.named_parameters()]
+    pairs = [("loss", {"loss": got["loss"]}, {"loss": want["loss"]}),
+             ("student", scanned.student.state_dict(),
+              es.flat_to_scanned(unrolled.student.state_dict())),
+             ("teacher", scanned.teacher.state_dict(),
+              es.flat_to_scanned(unrolled.teacher.state_dict())),
+             ("center", {"c": scanned.center}, {"c": unrolled.center}),
+             ("moments", named_moments(scanned, names_s),
+              es.flat_to_scanned(named_moments(unrolled, names_u)))]
+    worst = {}
+    for label, a, b in pairs:
+        if set(a) != set(b):
+            fail(f"scan: the {label} keys differ")
+        worst[label] = max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
+    if any(worst.values()):
+        fail(f"the scanned step is not bit-equal to the unrolled one: largest "
+             f"differences {worst}")
+    print(f"  one step: loss {float(got['loss']):.6f}; loss, student, teacher, center and "
+          f"AdamW moments bit-equal to the unrolled step; launches {launches}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(str(Path(tmp) / "scan"), to_host(scanned.state_dict()), {})
+        tree, _ = load_checkpoint(str(Path(tmp) / "scan"))
+    moments = es.flat_to_unrolled(dict(zip(
+        [f"{b}.{n}" for b in ("mu", "nu") for n in names_s],
+        tree["opt_state"]["mu"] + tree["opt_state"]["nu"])))
+    converted = {"step": tree["step"], "center": tree["center"],
+                 "student": es.flat_to_unrolled(tree["student"]),
+                 "teacher": es.flat_to_unrolled(tree["teacher"]),
+                 "opt_state": {"count": tree["opt_state"]["count"],
+                               **{b: [moments[f"{b}.{n}"] for n in names_u]
+                                  for b in ("mu", "nu")}}}
+    if not any(k.startswith("backbone.encoder_scan.block.") for k in tree["student"]):
+        fail("the scanned state.pt holds no stacked tensors")
+    fresh, _, _ = build_training(torch)
+    fresh.load_state_dict(converted)  # strict
+    mismatch = state_mismatch(torch, to_host(fresh.state_dict()),
+                              to_host(unrolled.state_dict()))
+    if mismatch:
+        fail(f"the stacked state.pt converted back differs from the unrolled state at "
+             f"{mismatch}")
+    print("  the stacked state.pt (backbone.encoder_scan.block.*), converted with "
+          "flat_to_unrolled, loads strictly into an unrolled TrainState bit-equal to "
+          "the unrolled step's", flush=True)
+    del fresh
+    warm = {}
+    for label, state in (("unrolled", unrolled), ("scanned", scanned)):
+        host_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            train_step(state, batch, *temps)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        warm[label] = float(np.median(host_ms))
+    print(f"  warm step on {card}, median of 3, host clock with torch.cuda.synchronize(): "
+          f"scanned {warm['scanned']:.3f} ms, unrolled {warm['unrolled']:.3f} ms "
+          f"({warm['scanned'] / warm['unrolled']:.3f}x; a finding, not a claim)",
+          flush=True)
+    del unrolled, scanned, batch
+    gc.collect()
+    return {"scan_step": launches}
+
+
+# V-MoE-B/16 "every-2" (Riquelme et al., arXiv:2106.05974): configs/vit_b_imagenet.yaml
+# with 8 experts, routed per image (197 tokens a group, capacity 64); the
+# rest as written (top-2, moe_every 2: 6 MoE blocks, capacity factor 1.25,
+# aux weight 0.01, z-loss 1e-3, remat, batch 1024, 224 px)
+MOE_OVERRIDES = ["model.moe_experts=8", "model.moe_group_size=197"]
+MOE_IMAGES = 2130  # 2045 train images (2 steps of 1024) and 85 val at val_split 0.04
+# the kernel path's routing, each decision taken from the same upstream
+# routing as an fp64-attention forward, agrees with fp64's at least as
+# often as the plain attention path's does, to this share
+ROUTING_FIDELITY_SLACK = 1e-3
+VIT_B_DENSE_BUSY_MS = 670.65  # device busy of the dense step (PERF.md section 5)
+
+
+@contextlib.contextmanager
+def recorded_routing(log):
+    """Record each routing call's top-k expert indices and its router loss
+    (``aux_weight``·balance + ``zloss_weight``·z-loss at the config's
+    weights) into ``log``."""
+    from vit_ssl_tpu_torch.ops import moe as moe_mod
+
+    real_topk, real_routing = moe_mod.top_k_lower_index, moe_mod.moe_routing
+
+    def topk(probs, k):
+        values, idx = real_topk(probs, k)
+        log.append(("idx", idx))
+        return values, idx
+
+    def routing(*args, **kwargs):
+        combine, aux = real_routing(*args, **kwargs)
+        log.append(("aux", float(0.01 * aux["balance"].mean() + 1e-3 * aux["zloss"].mean())))
+        return combine, aux
+
+    moe_mod.top_k_lower_index, moe_mod.moe_routing = topk, routing
+    try:
+        yield
+    finally:
+        moe_mod.top_k_lower_index, moe_mod.moe_routing = real_topk, real_routing
+
+
+@contextlib.contextmanager
+def pinned_routing(indices, own=None):
+    """Route each routing call by the next of ``indices`` (a recorded
+    run's top-k expert choices, in call order) instead of its own top-k;
+    the gates are this run's probabilities at those experts. Holds a run
+    to another's discrete choices, so that its gradients can be compared
+    where a routing flip would move an expert's slots; ``own`` (a list)
+    collects the choices this run would have made."""
+    from vit_ssl_tpu_torch.ops import moe as moe_mod
+
+    real_topk, queue = moe_mod.top_k_lower_index, list(indices)
+
+    def topk(probs, k):
+        idx = queue.pop(0)
+        if own is not None:
+            own.append(real_topk(probs.detach(), k)[1])
+        return probs.gather(-1, idx), idx
+
+    moe_mod.top_k_lower_index = topk
+    try:
+        yield
+    finally:
+        moe_mod.top_k_lower_index = real_topk
+    if queue:
+        fail(f"{len(queue)} recorded routing calls were not replayed")
+
+
+def routing_fidelity(torch, model, batch):
+    """Each MoE block's routing decisions in one eval forward of ``batch``
+    through the kernels and through the plain attention, each run pinned
+    to an fp64-attention forward's choices upstream: the share of its own
+    top-k assignments equal to fp64's, by block."""
+    from vit_ssl_tpu_torch.data.device_augment import to_unit_float
+
+    x = to_unit_float(batch["image"])
+    exact_log = []
+    with torch.no_grad():
+        with exact_attention(torch), recorded_routing(exact_log):
+            model(x, True)
+        exact = [v for kind, v in exact_log if kind == "idx"]
+        del exact_log
+        shares = {}
+        for label, ctx in (("kernel", contextlib.nullcontext), ("plain", plain_attention)):
+            own = []
+            with ctx(), pinned_routing(exact, own):
+                model(x, True)
+            shares[label] = [float((a == e).float().mean()) for a, e in zip(own, exact)]
+    return shares
+
+
+def phase_moe(torch, fa, card, tmp):
+    """V-MoE ViT-B/16 (MOE_OVERRIDES on configs/vit_b_imagenet.yaml) through
+    ``SupervisedTrainer.fit(1)`` over MOE_IMAGES in-memory images (2 train
+    steps, 1 val step), B1's launches exact in every step; then one step
+    from one cloned state against the plain-attention step: with its own
+    routing, the router loss within 1e-2 of its size (the routing's drift
+    printed); with its routing pinned to the kernel step's choices, the
+    training bars of ``judge``; the kernel path's routing decisions as
+    close to an fp64-attention forward's as the plain path's
+    (``routing_fidelity``, within ROUTING_FIDELITY_SLACK);
+    the warm step, img/s, device busy, peak memory and
+    ``moe_dropped_frac``. Returns the fit's launches."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose, validate_train_config
+    from vit_ssl_tpu_torch.data.builder import make_loaders
+    from vit_ssl_tpu_torch.models.builder import build_model
+    from vit_ssl_tpu_torch.ops.moe import expert_capacity
+    from vit_ssl_tpu_torch.train.__main__ import get_trainer
+
+    configs = Path(__file__).resolve().parent / "configs"
+    run_dir = str(Path(tmp) / "moe")
+    config = compose(configs, "vit_b_imagenet", MOE_OVERRIDES + [f"hydra.run.dir={run_dir}"])
+    validate_train_config(config)
+    model_cfg = config["model"]
+    capacity = expert_capacity(197, 8, int(model_cfg["moe_top_k"]),
+                               float(model_cfg["moe_capacity_factor"]))
+    print(f"== V-MoE ViT-B/16: configs/vit_b_imagenet.yaml with {' '.join(MOE_OVERRIDES)} "
+          f"(top-{model_cfg['moe_top_k']}, every {model_cfg['moe_every']}nd block, capacity "
+          f"factor {model_cfg['moe_capacity_factor']}: {capacity} slots an expert an "
+          f"image), remat, batch {config['training']['batch_size']}, 224 px; "
+          f"SupervisedTrainer.fit(1) over {MOE_IMAGES} in-memory images; {card}",
+          flush=True)
+    rng = np.random.default_rng(17)
+    dataset = InMemoryLabeled(
+        rng.integers(0, 256, (MOE_IMAGES, 224, 224, 3), dtype=np.uint8),
+        rng.integers(0, int(model_cfg["num_classes"]), MOE_IMAGES))
+    train_loader, val_loader = make_loaders(config, dataset)
+    trainer = get_trainer("supervised", build_model(config, "cuda"), run_dir, config,
+                          train_loader, val_loader, "cuda")
+    blocks = int(model_cfg["num_blocks"])
+    moe_blocks = [i for i, b in enumerate(trainer.network.encoder_blocks) if b.is_moe]
+    if moe_blocks != list(range(1, blocks, 2)) or not trainer.network.remat:
+        fail(f"the composed config built MoE blocks {moe_blocks}, remat "
+             f"{trainer.network.remat}")
+    n_params = sum(p.numel() for p in trainer.network.parameters())
+    print(f"  MoE blocks {moe_blocks}; {n_params / 1e6:.1f} M parameters; loaders: "
+          f"{len(train_loader)} train and {len(val_loader)} val steps", flush=True)
+    step_fn = trainer.train_step
+    train_log, val_log = [], []
+    trainer.train_step = counted_steps(trainer.train_step, train_log)
+    trainer.eval_step = counted_steps(trainer.eval_step, val_log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the V-MoE trainer's path starts here
+        trainer.fit(1)
+        launches = dict(kernels.launches)  # ... and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_train, per_val = remat_launches(fa, blocks), {fa.KERNEL: blocks}
+    check_step_launches({"train": train_log, "val": val_log},
+                        {"train": per_train, "val": per_val},
+                        {"train": len(train_loader), "val": len(val_loader)})
+    finite_history(trainer, 1)
+    dropped = [float(out["moe_dropped_frac"]) for _, _, out in train_log]
+    print(f"  launches over fit(1): {launches} (per train step {per_train}, per val step "
+          f"{per_val}); no plain attention ran; moe_dropped_frac by step "
+          f"{' '.join(f'{x:.6f}' for x in dropped)}", flush=True)
+
+    batch = trainer._put(next(iter(train_loader)))
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = step_fn(trainer.state, batch)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    warm_ms = float(np.median(host_ms))
+    b = int(config["training"]["batch_size"])
+    idle, busy_ms = profile_window(torch, lambda: step_fn(trainer.state, batch),
+                                   f"1 V-MoE ViT-B/16 training step at batch {b} (remat)",
+                                   rows=16)
+    print(f"  V-MoE ViT-B/16 on {card}: warm step {warm_ms:.3f} ms median of 3 "
+          f"({' / '.join(f'{x:.3f}' for x in host_ms)}; {b / warm_ms * 1e3:.1f} img/s), "
+          f"host clock with torch.cuda.synchronize(), device augmentation included; "
+          f"device busy {busy_ms:.2f} ms a step ({busy_ms / VIT_B_DENSE_BUSY_MS:.3f}x the "
+          f"dense step's {VIT_B_DENSE_BUSY_MS} ms), idle share {idle:.3f}; peak memory over "
+          f"fit(1) {peak_gb:.2f} GB (torch.cuda.max_memory_allocated); moe_dropped_frac "
+          f"{float(out['moe_dropped_frac']):.6f}", flush=True)
+
+    # one step through the kernels; the plain-attention step once with its
+    # own routing (the router loss, and how far the routing drifts apart),
+    # then once pinned to the kernel step's expert choices (the training
+    # bars: a flipped choice moves the capacity seats of every later token
+    # of its image, which the gradients of the experts' parameters follow)
+    kernel_log, free_log = [], []
+    kernel_state = copy.deepcopy(trainer.state)
+    with recorded_routing(kernel_log):
+        got = step_fn(kernel_state, batch, with_grads=True)
+    del kernel_state
+    counted = dict(kernels.launches)
+    free_state = copy.deepcopy(trainer.state)
+    with plain_attention(), recorded_routing(free_log):
+        free = step_fn(free_state, batch)
+    torch.cuda.synchronize()
+    if dict(kernels.launches) != counted:
+        fail("the plain-attention step launched a kernel")
+    del free_state
+    aux = [sum(v for kind, v in log if kind == "aux") for log in (kernel_log, free_log)]
+    idx = [[v for kind, v in log if kind == "idx"] for log in (kernel_log, free_log)]
+    del free_log
+    drift = [float((a == c).float().mean()) for a, c in zip(*idx)]
+    print(f"  router loss summed over {len(idx[0])} routing calls (6 MoE blocks, each "
+          f"forward and its recompute): {aux[0]:.6f} against plain attention's "
+          f"{aux[1]:.6f} (|d| {abs(aux[0] - aux[1]):.3e} <= {1e-2 * abs(aux[1]):.3e}); "
+          f"moe_dropped_frac {float(got['moe_dropped_frac']):.6f} against "
+          f"{float(free['moe_dropped_frac']):.6f}; free-running routing assignments equal "
+          f"by MoE block (forward) {' '.join(f'{x:.4f}' for x in drift[:len(moe_blocks)])}: "
+          f"a flipped choice moves the capacity seats of its image's later tokens, and "
+          f"the flips compound block to block", flush=True)
+    if (len(idx[0]) != len(idx[1]) or len(idx[0]) != 2 * len(moe_blocks)
+            or abs(aux[0] - aux[1]) > 1e-2 * abs(aux[1])):
+        fail("the V-MoE step's router loss disagrees with the plain-attention step")
+    fidelity = routing_fidelity(torch, trainer.state.model, batch)
+    print(f"  routing each decision from fp64 attention's upstream routing (eval forward, "
+          f"batch {b}), assignments equal to fp64's by MoE block: kernel "
+          f"{' '.join(f'{x:.5f}' for x in fidelity['kernel'])}, plain "
+          f"{' '.join(f'{x:.5f}' for x in fidelity['plain'])}; means "
+          f"{np.mean(fidelity['kernel']):.5f} against {np.mean(fidelity['plain']):.5f} "
+          f"(kernel >= plain - {ROUTING_FIDELITY_SLACK:g})", flush=True)
+    if np.mean(fidelity["kernel"]) < np.mean(fidelity["plain"]) - ROUTING_FIDELITY_SLACK:
+        fail("the V-MoE kernel path routes less like fp64 attention than plain attention does")
+    pinned = idx[0]
+    del free, idx
+    counted = dict(kernels.launches)
+    plain_state = copy.deepcopy(trainer.state)
+    with plain_attention(), pinned_routing(pinned):
+        want = step_fn(plain_state, batch, with_grads=True)
+    torch.cuda.synchronize()
+    if dict(kernels.launches) != counted:
+        fail("the pinned plain-attention step launched a kernel")
+    del plain_state
+
+    def exact_step():
+        exact_state = copy.deepcopy(trainer.state)
+        with exact_attention(torch), pinned_routing(pinned):
+            return step_fn(exact_state, batch, with_grads=True)
+
+    judge(torch, "plain attention, its routing pinned to the kernel step's", got, want,
+          exact_step)
+    del got, want, batch, trainer, kernel_log, pinned
+    gc.collect()
+    return {"moe_trainer": launches}
+
+
+def phase_b1_patch_times(torch, fa, card):
+    """B1's training entries at the patch-dropout shape PATCH_B1_CASE, bf16:
+    kernel, plain, SDPA and bound (rows of the kernels line)."""
+    b, n, h, d, dtype_name, bs = PATCH_B1_CASE
+    print(f"== B1 at ViT-B/16's patch-dropout shape ({b},{n},{h}x{d}) {dtype_name} on "
+          f"{card}", flush=True)
+    dtype = getattr(torch, dtype_name)
+    xq, xk, xv = qkv(b, n, h, d, dtype, seed=320)
+    (do,) = qkv(b, n, h, d, dtype, seed=321)[:1]
+    scale = 1.0 / d ** 0.5
+    bounds = attention_train_bounds(b, n, h, d, dtype_name, bs)
+    return {
+        "fwd_stats": b1_forward_row(torch, fa, fa.KERNEL_TRAIN, ", ViT-B/16 patch dropout",
+                                    xq, xk, xv, h, scale, bs, bounds["fwd"]),
+        "bwd": b1_backward_row(torch, fa, xq, xk, xv, do, h, scale, bs, bounds["bwd"]),
+    }
+
+
+@contextlib.contextmanager
+def recorded_b1_lengths(lengths):
+    """Record the sequence length of each call of B1's wrapper on the model's
+    path into ``lengths`` (the call itself unchanged)."""
+    from vit_ssl_tpu_torch.ops import attention as attention_mod
+
+    nhd = attention_mod.attention_nhd
+
+    def recording(q, *args, **kwargs):
+        lengths.append(q.shape[1])
+        return nhd(q, *args, **kwargs)
+
+    with routed_attention(recording, attention_mod.fused_attention,
+                          attention_mod.blockwise_attention):
+        yield
+
+
+def phase_patch_dropout(torch, fa, card):
+    """ViT-B/16 at 224 px, batch 1024, remat, ``model.patch_dropout=0.5``:
+    one training step from one cloned state against the plain-attention
+    step from the same generator (``judge``), every B1 call at N = 99 (CLS
+    and 98 of 196 patches), launches exact; device busy beside the dense
+    step's. Returns the step's launches."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.models.vit import patch_keep_count
+
+    cfg = copy.deepcopy(VIT_B16_224)
+    cfg["model"]["patch_dropout"] = 0.5
+    n = 1 + patch_keep_count(196, 0.5)
+    blocks = cfg["model"]["num_blocks"]
+    print(f"== patch dropout: ViT-B/16 224 px train_step, model.patch_dropout=0.5 (N = "
+          f"{n}), remat, batch {cfg['training']['batch_size']}; {card}", flush=True)
+    state, train_step, _, batch = build_supervised_training(torch, cfg)
+    if state.model.patch_dropout != 0.5 or not state.model.remat:
+        fail("the ViT was built without patch dropout or remat")
+    train_step(state, batch)  # warm-up
+    kernel_state, plain_state = copy.deepcopy(state), copy.deepcopy(state)
+    lengths = []
+    with no_plain_attention(fa), recorded_b1_lengths(lengths):
+        kernels.launches.clear()  # the patch-dropout step's path starts here
+        got = train_step(kernel_state, batch, with_grads=True)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)  # ... and ends here
+    want_launches = remat_launches(fa, blocks)
+    if launches != want_launches or set(lengths) != {n} or len(lengths) != 2 * blocks:
+        fail(f"the patch-dropout step launched {launches} (expected {want_launches}) at "
+             f"lengths {sorted(set(lengths))} over {len(lengths)} calls (expected {n})")
+    with plain_attention():
+        want = train_step(plain_state, batch, with_grads=True)
+    torch.cuda.synchronize()
+    del plain_state
+
+    def exact_step():
+        exact_state = copy.deepcopy(state)
+        with exact_attention(torch):
+            return train_step(exact_state, batch, with_grads=True)
+
+    judge(torch, "plain attention", got, want, exact_step)
+    print(f"  launches {launches}: every B1 call at N = {n}", flush=True)
+    del got, want, kernel_state
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    b = cfg["training"]["batch_size"]
+    idle, busy_ms = profile_window(torch, lambda: train_step(state, batch),
+                                   f"1 ViT-B/16 training step with patch dropout 0.5", rows=12)
+    warm_ms = float(np.median(host_ms))
+    print(f"  patch dropout 0.5 on {card}: warm step {warm_ms:.3f} ms median of 3 "
+          f"({b / warm_ms * 1e3:.1f} img/s); device busy {busy_ms:.2f} ms a step "
+          f"({busy_ms / VIT_B_DENSE_BUSY_MS:.3f}x the dense step's {VIT_B_DENSE_BUSY_MS} ms "
+          f"at N = 197), idle share {idle:.3f}", flush=True)
+    del state, batch
+    gc.collect()
+    return {"patch_dropout_step": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4116,9 +4687,12 @@ def main() -> int:
                                        warm_ms, card)
     del state, train_step, batch
     fused_train_launches = phase_training_fused(torch, fa, fm, warm_ms, card)
+    scan_paths = phase_scan(torch, fa, card)
     with tempfile.TemporaryDirectory() as tmp:
-        trainer_launches, resumed_launches, _, dino_eval = phase_trainer(
+        trainer_launches, resumed_launches, _, dino_eval, straight = phase_trainer(
             torch, fa, card, warm_ms, tmp)
+        preempt_paths = phase_preempt(torch, fa, card, tmp, straight)
+        del straight
         standalone_launches = phase_standalone_eval(torch, fa, card, Path(tmp) / "run",
                                                     dino_eval)
         dino_eval_launches = dino_eval["launches"]
@@ -4170,6 +4744,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         vit_b_launches, vit_b_resumed_launches, _ = phase_vit_b_trainer(torch, fa, card, tmp)
     remat_paths = phase_remat(torch, fa, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        moe_paths = phase_moe(torch, fa, card, tmp)
+    patch_paths = phase_patch_dropout(torch, fa, card)
+    patch_b1_rows = phase_b1_patch_times(torch, fa, card)
 
     b, n, h, d, dtype_name, bs = ATTENTION_CASES[0]
     xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=200)
@@ -4187,6 +4765,8 @@ def main() -> int:
     vit_b_err = train_errors[VIT_B_B1_CASE]
     # and SimMIM's (128, 144) shape, checked as a training case
     simmim_err = train_errors[SIMMIM_B1_CASE]
+    # and ViT-B/16's patch-dropout shape (1024, 99), a training case
+    patch_err = train_errors[PATCH_B1_CASE]
     entries = [
         (fa.KERNEL, "attention_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:352",
          serve_err, {**serve_stats, "at_other_shapes": [
@@ -4199,7 +4779,8 @@ def main() -> int:
              {**train_stats[("fwd", locals_case[-1])],
               "max_abs_err": train_errors[locals_case][0]},
              {**vit_b_rows["fwd_stats"], "max_abs_err": vit_b_err[0]},
-             {**simmim_b1_rows["fwd_stats"], "max_abs_err": simmim_err[0]}]}),
+             {**simmim_b1_rows["fwd_stats"], "max_abs_err": simmim_err[0]},
+             {**patch_b1_rows["fwd_stats"], "max_abs_err": patch_err[0]}]}),
         (fa.KERNEL_BWD, "attention_bwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:392",
          train_errors[globals_case][1],
          {**train_stats[("bwd", 0)],
@@ -4207,7 +4788,8 @@ def main() -> int:
           "at_other_shapes": [{**train_stats[("bwd", locals_case[-1])],
                                "max_abs_err": train_errors[locals_case][1]},
                               {**vit_b_rows["bwd"], "max_abs_err": vit_b_err[1]},
-                              {**simmim_b1_rows["bwd"], "max_abs_err": simmim_err[1]}]}),
+                              {**simmim_b1_rows["bwd"], "max_abs_err": simmim_err[1]},
+                              {**patch_b1_rows["bwd"], "max_abs_err": patch_err[1]}]}),
     ]
     # B4 at each width: the served forward (no mask), the training forward
     # and the backward (keep-mask); the backward's max_abs_err is dx's: the
@@ -4304,7 +4886,8 @@ def main() -> int:
              "serving_supervised": sup_serve_launches, **sup_paths,
              "serving_supervised_fused": sup_fused_serve_launches, **sup_fused_paths,
              "serving_supervised_512": sup512_serve_launches, **sup512_paths,
-             "exp2_probe": probe_launches, "dropout_epilogue_probe": dropout_probe_launches}
+             "exp2_probe": probe_launches, "dropout_epilogue_probe": dropout_probe_launches,
+             **preempt_paths, **scan_paths, **moe_paths, **patch_paths}
     # the paths that run B4 at each width (ViT-L's 1024 runs on none yet)
     width_paths = {MLP_DIMS[0]: ("serving_fused", "training_fused", "dropout_epilogue_probe"),
                    VIT_B_MLP[0]: ("serving_supervised_fused", "training_supervised_fused",

@@ -9,7 +9,7 @@
   (``vit_ssl_tpu/ops/initializers.py``);
 - ``model.matmul_precision``: the names map or are refused by name; an
   unknown one raises JAX's error (``vit_ssl_tpu/ops/precision.py``);
-- DINO refuses ``model.scan_layers`` (and builds ``parallel.remat``) as the
+- DINO builds ``model.scan_layers`` (and ``parallel.remat``) as the
   supervised ViT does;
 - SimMIM is refused by both builders with its ROADMAP item.
 """
@@ -195,15 +195,17 @@ def test_matmul_precision_mapping(monkeypatch):
     ({"model.scan_layers": "true"}, r"scan_layers.*ROADMAP\.md queue A item 9"),
 ])
 def test_dino_refuses_remat_and_scan_layers(build, override, match):
-    """A DINO config asking for ``model.scan_layers`` no longer runs without
-    it; ``parallel.remat`` (ported since, no match) builds a backbone that
-    checkpoints its blocks."""
+    """Both options, once refused, are ported: ``parallel.remat`` builds a
+    backbone that checkpoints its blocks, ``model.scan_layers`` one whose
+    blocks are one stacked body (``encoder_scan.block.*``; its parity with
+    JAX and its bit-equal training: ``tests/test_torch_scan_layers.py``)."""
+    built = build(_dino_config(**override), "cpu")
+    backbone = getattr(built, "backbone", built)
     if match is None:
-        built = build(_dino_config(**override), "cpu")
-        assert getattr(built, "backbone", built).remat
+        assert backbone.remat
         return
-    with pytest.raises(NotImplementedError, match=f"(?s){match}"):
-        build(_dino_config(**override), "cpu")
+    assert backbone.encoder_scan is not None and len(backbone.encoder_blocks) == 0
+    assert backbone.encoder_scan.stacked_layers == _dino_config()["model"]["num_blocks"]
 
 
 @pytest.mark.parametrize("build", [build_model, build_backbone],

@@ -13,7 +13,9 @@
   bit, and the epoch-1 snapshot written while epoch 2 trains holds epoch
   1's state.
 - Each refusal names its ``ROADMAP.md`` queue-A item; the options ported
-  since (``parallel.remat``, the automatic evaluation, the supervised and
+  since (preemption's ``training.auto_resume`` and
+  ``training.fault_inject_preempt_step``, ``parallel.remat``, the
+  automatic evaluation, the supervised and
   finetune modes, the evaluators' datasets, the Adam, SGD and RMSprop
   optimizers, the Accuracy metric) run instead.
 """
@@ -315,8 +317,8 @@ def test_resume_is_bit_exact_and_snapshots_are_complete(tmp_path, monkeypatch,
 
 
 REFUSALS = [
-    (["training.auto_resume=true"], 8),
-    (["training.fault_inject_preempt_step=3"], 8),
+    (["training.auto_resume=true"], None),  # ported: see below
+    (["training.fault_inject_preempt_step=3"], None),  # ported: see below
     (["parallel.tp=2"], 10),
     (["parallel.pp=2"], 10),
     (["parallel.sp=2"], 10),
@@ -339,7 +341,34 @@ def test_trainer_refusals_name_their_item(tmp_path, overrides, item, no_plots):
     labeled images) into ``epoch_1/`` and gives fit(1)'s state bit for bit,
     every module's train flag as it was; ``training.grad_accum_steps=2``
     accumulates over two microbatches and gives fit(1)'s state up to the
-    order of fp32 sums (rtol 1e-4, floor 1e-5, as against JAX)."""
+    order of fp32 sums (rtol 1e-4, floor 1e-5, as against JAX);
+    ``training.auto_resume`` with no preempt_model fits the config's 2
+    epochs through the CLI's flow, bit-equal to fit(2);
+    ``training.fault_inject_preempt_step=3`` (2 train batches an epoch)
+    stops fit(2) at epoch 2 after 1 batch, and a trainer auto-resumed from
+    the preempt_model it saves ends bit-equal to fit(2) and removes it
+    (every mode: ``tests/test_torch_preempt.py``)."""
+    if overrides[0].startswith(("training.auto_resume", "training.fault_inject")):
+        from vit_ssl_tpu_torch.train.__main__ import fit_with_preemption
+        from vit_ssl_tpu_torch.utils.preempt import PreemptionRequested, clear_preemption
+
+        run = tmp_path / "on"
+        trainer = _port_trainer(run, extra=overrides)
+        if overrides[0].startswith("training.fault_inject"):
+            with pytest.raises(PreemptionRequested) as exc:
+                trainer.fit(2)
+            clear_preemption()
+            assert (exc.value.epoch, exc.value.batches_done) == (2, 1)
+            trainer.save_preempt(exc.value)
+            assert _meta(run, "preempt_model")["preempt_batches_done"] == 1
+            trainer = _port_trainer(run, extra=["training.auto_resume=true"])
+        fit_with_preemption(trainer, trainer.config, str(run))
+        assert not (run / "preempt_model").exists()
+        plain = _port_trainer(tmp_path / "off")
+        plain.fit(2)
+        _trees_equal(trainer_base.to_host(trainer.state.state_dict()),
+                     trainer_base.to_host(plain.state.state_dict()))
+        return
     if item is None:
         trainer = _port_trainer(tmp_path / "on", extra=overrides)
         if overrides == ["eval.interval=1"]:

@@ -13,8 +13,10 @@
   ``configs/vit_b_imagenet.yaml`` as written and its finetune config the
   port's composition of ``configs/finetune.yaml`` with the script's
   overrides, its SimMIM config the port's composition of
-  ``configs/simmim.yaml`` as written, its bounds are the stated arithmetic,
-  and the script refuses to run without a card;
+  ``configs/simmim.yaml`` as written, its preempt phase's fault lands
+  mid-epoch 2, its V-MoE phase is V-MoE-B/16 "every-2" and its
+  patch-dropout phase's B1 case is (1024, 99), its bounds are the stated
+  arithmetic, and the script refuses to run without a card;
 - a self-attention longer than kernel B3 takes (N > 1024) runs kernel B2.
 """
 
@@ -317,6 +319,58 @@ def test_chip_smoke_supervised_512_config_is_composed_vit_b_yaml():
     assert (smoke["data"]["img_size"] // smoke["model"]["patch_size"]) ** 2 + 1 == 1025
     _assert_within(smoke, composed, "config")
     assert _load_chip_smoke().VIT_B16_384["data"]["img_size"] == 384
+
+
+def test_chip_smoke_preempt_phase_lands_mid_epoch_2():
+    """The preempt phase's overrides on configs/dino.yaml: 1040 train images
+    of the DINO trainer's 1300 make 9 steps of 128, so the fault after
+    PREEMPT_STEP lands at epoch 2, batch 4, and the rerun trains 5."""
+    from vit_ssl_tpu_torch.config import compose as port_compose
+    from vit_ssl_tpu_torch.config import to_container as port_to_container
+
+    smoke = _load_chip_smoke()
+    cfg = port_to_container(port_compose(REPO / "configs", "dino", smoke.PREEMPT_OVERRIDES))
+    training = cfg["training"]
+    assert training["auto_resume"] is True and training["num_epochs"] == 2
+    train_images = smoke.TRAINER_IMAGES - int(smoke.TRAINER_IMAGES * cfg["data"]["val_split"])
+    steps = -(-train_images // training["batch_size"])
+    assert steps == 9 and divmod(smoke.PREEMPT_STEP, steps) == (1, 4)
+    plain = port_to_container(port_compose(REPO / "configs", "dino"))
+    assert cfg["model"] == plain["model"] and cfg["data"] == plain["data"]
+
+
+def test_chip_smoke_moe_phase_is_v_moe_b16():
+    """V-MoE-B/16 "every-2": configs/vit_b_imagenet.yaml with MOE_OVERRIDES
+    validates, builds 6 MoE blocks of 8 experts among 12 (the rest as
+    written: top-2, capacity factor 1.25, remat, batch 1024) with 64 slots
+    an expert an image, and MOE_IMAGES makes 2 train steps and 1 val step."""
+    from vit_ssl_tpu_torch.config import compose as port_compose
+    from vit_ssl_tpu_torch.config import to_container as port_to_container
+    from vit_ssl_tpu_torch.config import validate_train_config
+    from vit_ssl_tpu_torch.ops.moe import expert_capacity
+
+    smoke = _load_chip_smoke()
+    config = port_compose(REPO / "configs", "vit_b_imagenet", smoke.MOE_OVERRIDES)
+    validate_train_config(config)
+    cfg = port_to_container(config)
+    model = cfg["model"]
+    assert (model["moe_experts"], model["moe_every"], model["moe_top_k"]) == (8, 2, 2)
+    assert model["moe_capacity_factor"] == 1.25 and cfg["parallel"]["remat"] is True
+    assert [(i + 1) % model["moe_every"] == 0 for i in range(12)].count(True) == 6
+    assert expert_capacity(model["moe_group_size"], 8, 2, 1.25) == 64
+    val = int(smoke.MOE_IMAGES * cfg["data"]["val_split"])
+    assert -(-(smoke.MOE_IMAGES - val) // 1024) == 2 and 0 < val <= 1024
+
+
+def test_chip_smoke_patch_dropout_b1_case():
+    """Patch dropout 0.5 at 224 px keeps the CLS token and 98 of 196
+    patches: B1's training case (1024, 99, 12x64) is checked and timed."""
+    from vit_ssl_tpu_torch.models.vit import patch_keep_count
+
+    smoke = _load_chip_smoke()
+    assert smoke.PATCH_B1_CASE == (1024, 1 + patch_keep_count(196, 0.5), 12, 64,
+                                   "bfloat16", 0)
+    assert smoke.PATCH_B1_CASE in smoke.TRAIN_CASES
 
 
 def test_chip_smoke_b2_bounds():

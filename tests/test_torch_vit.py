@@ -6,7 +6,7 @@ parameters are jiggled with numpy noise, carried across with the port's
 ``vit_state_dict_from_flax`` and loaded with ``strict=True``; both run on
 the same numpy images. fp32, outputs and gradients at atol/rtol 1e-4.
 Also: the B3 route forced on both sides, the builder, and the options the
-port refuses.
+port once refused, which it now builds.
 """
 
 import jax
@@ -193,14 +193,26 @@ def test_build_model_dino_and_simmim():
     ({"model.moe_experts": "4"}, "moe_experts"),
 ])
 def test_unported_options_raise(override, match):
-    """Each unported option names ROADMAP.md; ``parallel.remat`` (ported
-    since, no match), which the ViT-B config sets, builds a ViT that
-    checkpoints its blocks."""
+    """Each option once refused is ported and builds what it names:
+    ``parallel.remat``, which the ViT-B config sets, a ViT that checkpoints
+    its blocks; ``model.scan_layers`` one stacked body
+    (``encoder_scan.block.*``); ``model.patch_dropout`` a ViT whose training
+    forward keeps half the patch tokens; ``model.moe_experts`` MoE blocks
+    at every second block (their parity with JAX: the
+    ``tests/test_torch_{scan_layers,patch_dropout,moe}.py`` files)."""
+    vit = build_vit(_config(**override), "cpu")
     if match is None:
-        assert build_vit(_config(**override), "cpu").remat
-        return
-    with pytest.raises(NotImplementedError, match=f"(?s){match}.*ROADMAP.md"):
-        build_vit(_config(**override), "cpu")
+        assert vit.remat
+    elif match == "scan_layers":
+        assert vit.encoder_scan is not None and len(vit.encoder_blocks) == 0
+        assert any(k.startswith("encoder_scan.block.") for k in vit.state_dict())
+    elif match == "patch_dropout":
+        x = torch.rand(2, 32, 32, 3)
+        assert vit.embed(x, False, torch.Generator().manual_seed(0)).shape[1] == 1 + 8
+        assert vit.embed(x).shape[1] == 1 + 16
+    else:
+        assert [b.is_moe for b in vit.encoder_blocks] == [False, True]
+        assert vit.encoder_blocks[1].moe.w1.shape == (4, 64, 128)
 
 
 def test_vit_b_config_at_384_is_the_b3_shape():

@@ -31,11 +31,17 @@ dicts (``encoder_blocks.0.self_attention.w_query.weight``, …):
   trainable mask by parameter name; :func:`check_loaded_model` counts the
   tensors that equal their checkpoint's.
 
-The JAX package's MoE upcycling and its conversion between the unrolled
-and the scanned encoder stacks are not ported: the port refuses
-``model.moe_experts`` and ``model.scan_layers`` (``ROADMAP.md`` queue A
-item 9), so no ViT of the port has either layout. Orbax checkpoints of the
-JAX package are not read (item 11); their ``.pth`` exports are.
+As in JAX, :func:`load_weights` first converts the checkpoint's encoder
+stack to the target's layout (unrolled ``encoder_blocks.{i}.*`` ↔ stacked
+``encoder_scan.block.*``, :mod:`..ops.encoder_stack`), under any prefix,
+and last upcycles a dense checkpoint into an MoE target (sparse upcycling,
+Komatsuzaki et al., arXiv:2212.05055): every expert of
+``encoder_blocks.{i}.moe`` starts as a copy of the dense FFN of block i
+(``linear_in.weight`` (f, d) transposed into each ``w1`` slice (d, f),
+``linear_out.weight`` into ``w2``, the biases into ``b1``, ``b2``), under
+the DINO backbone prefixes too with ``extended``; the router keeps its
+fresh draw. Orbax checkpoints of the JAX package are not read (item 11);
+their ``.pth`` exports are.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from typing import Dict, Mapping
 import torch
 from torch import nn
 
+from ..ops import encoder_stack as es
 from ..ops.precision import resolve_precision
 from ..ops.resample import resize_hw
 from .dino import DINONetwork, ViTBackbone
@@ -124,6 +131,13 @@ def build_vit(config: dict, device) -> ViT:
         num_classes=int(model["num_classes"]),
         patch_dropout=float(model.get("patch_dropout", 0.0)),
         moe_experts=int(model.get("moe_experts", 0) or 0),
+        moe_every=int(model.get("moe_every", 2)),
+        moe_top_k=int(model.get("moe_top_k", 2)),
+        moe_capacity_factor=float(model.get("moe_capacity_factor", 1.25)),
+        moe_group_size=int(model.get("moe_group_size", 0) or 0),
+        moe_aux_weight=float(model.get("moe_aux_weight", 0.01)),
+        moe_zloss_weight=float(model.get("moe_zloss_weight", 1e-3)),
+        moe_router_noise=float(model.get("moe_router_noise", 0.0)),
         **_common_kwargs(config, device),
     )
 
@@ -251,6 +265,8 @@ def load_weights(target: Mapping[str, torch.Tensor],
     ``target``'s own tensors."""
     tgt = dict(target)
     out = dict(tgt)
+    pretrained = _align_stack_convention(dict(pretrained), tgt)
+    upcycle_keys = _moe_upcycle_sources(tgt)
     for key, value in pretrained.items():
         if key in tgt:
             if value.shape == tgt[key].shape:
@@ -276,17 +292,89 @@ def load_weights(target: Mapping[str, torch.Tensor],
         elif ("simmim_head" in key or "mask_token" in key
               or key.startswith("teacher.") or key.startswith("center")):
             logger.info("Skipping SSL-specific key: %s", key)
+        elif key in upcycle_keys:
+            pass  # consumed by _upcycle_moe below
         else:
             logger.warning("Key '%s' from checkpoint not found in the model.", key)
     if extended:
-        out = _extended_transfer(out, dict(pretrained), tgt)
+        out = _extended_transfer(out, pretrained, tgt)
+    out = _upcycle_moe(out, pretrained, tgt, extended)
     updated = sum(1 for k in tgt if out[k] is not tgt[k])
     logger.info("load_weights: %d/%d target tensors updated", updated, len(tgt))
     return out
 
 
+def _align_stack_convention(src, tgt):
+    """``src`` in ``tgt``'s encoder-stack layout (unrolled ↔ stacked), so
+    that checkpoints of either layout load into models of either."""
+    if es.flat_has_scanned(tgt) and es.flat_has_unrolled(src):
+        logger.info("load_weights: stacking unrolled encoder blocks (checkpoint) "
+                    "into the scanned layout (model)")
+        return es.flat_to_scanned(src)
+    if es.flat_has_unrolled(tgt) and es.flat_has_scanned(src):
+        logger.info("load_weights: unstacking scanned encoder blocks (checkpoint) "
+                    "into the unrolled layout (model)")
+        return es.flat_to_unrolled(src)
+    return src
+
+
+# an MoE expert tensor -> (the dense FFN tensor it copies, transposed?)
+_UPCYCLE = {"w1": ("linear_in.weight", True), "b1": ("linear_in.bias", False),
+            "w2": ("linear_out.weight", True), "b2": ("linear_out.bias", False)}
+
+
+def _moe_upcycle_sources(tgt):
+    """The dense-FFN checkpoint keys that :func:`_upcycle_moe` consumes."""
+    keys = set()
+    for k in tgt:
+        parts = k.split(".")
+        if len(parts) >= 3 and parts[-2] == "moe" and parts[-1] in _UPCYCLE:
+            keys.add(".".join(parts[:-2]) + ".feed_forward." + _UPCYCLE[parts[-1]][0])
+    return keys
+
+
+def _upcycle_moe(out, src, tgt, extended: bool = False):
+    """Each MoE expert tensor of ``tgt`` whose block has a dense FFN in
+    ``src`` (under the backbone prefixes too with ``extended``): that
+    tensor, in the expert layout, copied to every expert."""
+    prefixes = ("",) + (_BACKBONE_PREFIXES if extended else ())
+    for key, value in tgt.items():
+        parts = key.split(".")
+        if len(parts) < 3 or parts[-2] != "moe" or parts[-1] not in _UPCYCLE:
+            continue  # the router keeps its fresh draw
+        dense_name, transposed = _UPCYCLE[parts[-1]]
+        dense_key = ".".join(parts[:-2]) + ".feed_forward." + dense_name
+        dense = next((src[p + dense_key] for p in prefixes if p + dense_key in src), None)
+        if dense is None:
+            if parts[-1] == "w1":
+                logger.warning("MoE upcycle: no dense FFN found for '%s'; experts keep "
+                               "their fresh init", ".".join(parts[:-1]))
+            continue
+        dense = dense.t() if transposed else dense
+        if tuple(dense.shape) != tuple(value.shape[1:]):
+            logger.warning("MoE upcycle: dense '%s' %s does not match the expert slice "
+                           "of '%s' %s", dense_key, tuple(dense.shape), key,
+                           tuple(value.shape))
+            continue
+        out[key] = dense.to(value.dtype).expand_as(value).clone()
+        if parts[-1] == "w1":
+            logger.info("Upcycled dense FFN '%s' into %d experts of '%s'",
+                        dense_key.rsplit(".", 2)[0], value.shape[0],
+                        ".".join(parts[:-1]))
+    return out
+
+
+def load_state_any_layout(model: nn.Module, state: Mapping[str, torch.Tensor]) -> None:
+    """``model.load_state_dict(state, strict=True)`` after converting
+    ``state``'s encoder stack to the model's layout: a ``.pth`` exported
+    from a scanned run holds unrolled blocks, and a config that asks for
+    ``scan_layers`` builds a stacked model."""
+    model.load_state_dict(_align_stack_convention(dict(state), model.state_dict()),
+                          strict=True)
+
+
 def _frozen(name: str) -> bool:
-    return name.startswith("encoder_blocks.") or (
+    return name.startswith(("encoder_blocks.", "encoder_scan.")) or (
         name.startswith("patch_embedding.") and "cls_token" not in name)
 
 
@@ -310,6 +398,7 @@ def check_loaded_model(state: Mapping[str, torch.Tensor],
     ``conv``). The JAX package looks up the same name only, so after an
     extended transfer from DINO it counts nothing."""
     matched = mismatched = 0
+    pretrained = _align_stack_convention(dict(pretrained), dict(state))
     for key, value in state.items():
         sources = [key]
         if extended:

@@ -19,8 +19,10 @@ plain PyTorch attention. Dropout follows the JAX package's explicit
 ``deterministic`` flag (not ``nn.Module.train``), and its masks come from
 the caller's generator. ``remat`` checkpoints each backbone block where a
 backward runs through it (the student, globals and packed locals alike; not
-the teacher), as the supervised ViT does; ``scan_layers`` is refused, as
-there (:mod:`.vit`).
+the teacher), as the supervised ViT does; ``scan_layers`` holds the blocks
+as one stacked body (``backbone.encoder_scan.block.*``), as there
+(:mod:`.vit`). :func:`momentum_update` is elementwise, so the teacher's EMA
+is the same on stacked parameters.
 """
 
 from __future__ import annotations
@@ -32,10 +34,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import DynamicPatchEmbed, EncoderBlock
+from ..ops import DynamicPatchEmbed
 from ..ops.encoder_block import remat_block, wants_remat
 from ..ops.initializers import bias_, check_scheme, init_, linear_, weight_
-from .vit import refuse_unported
+from .vit import block_kwargs, encoder_stack
 
 
 class ViTBackbone(nn.Module):
@@ -47,26 +49,24 @@ class ViTBackbone(nn.Module):
                  init_scheme: str = "reference", remat: bool = False,
                  scan_layers: bool = False, device=None):
         super().__init__()
-        refuse_unported(scan_layers=scan_layers)
         self.dtype = dtype
         self.remat = bool(remat)
         self.init_scheme = check_scheme(init_scheme)
         self.patch_embedding = DynamicPatchEmbed(
             input_shape, embed_dim, patch_size, dtype=dtype, device=device
         )
-        self.encoder_blocks = nn.ModuleList(
-            EncoderBlock(embed_dim, num_heads, mlp_dim, dtype=dtype,
-                         dropout=dropout, fast_dropout=fast_dropout,
-                         use_fused_mlp=use_fused_mlp, use_flash=use_flash,
-                         device=device)
-            for _ in range(num_blocks)
-        )
+        self.encoder_blocks, self.encoder_scan = encoder_stack(
+            num_blocks, block_kwargs(embed_dim, num_heads, mlp_dim, dtype, dropout,
+                                     fast_dropout, use_fused_mlp, use_flash),
+            scan_layers, device)
 
     def embed(self, x):
         return self.patch_embedding(x)
 
     def encode(self, x, block_size: int = 0, deterministic: bool = True,
                generator: Optional[torch.Generator] = None):
+        if self.encoder_scan is not None:
+            return self.encoder_scan(x, block_size, deterministic, generator, self.remat)
         for block in self.encoder_blocks:
             if self.remat and wants_remat(block, x):
                 x = remat_block(block, x, block_size, deterministic, generator)

@@ -13,8 +13,9 @@
   ``encoder_blocks.{i}.*``), so a JAX export loads with ``strict=True``.
 - :func:`masked_l1_loss`: the mean L1 over masked patches only.
 
-``remat`` checkpoints each block where a backward runs through it, as the
-ViT does; ``scan_layers`` is refused as there (:mod:`.vit`).
+``remat`` checkpoints each block where a backward runs through it, and
+``scan_layers`` holds the blocks as one stacked body
+(``encoder_scan.block.*``), as the ViT does (:mod:`.vit`).
 """
 
 from __future__ import annotations
@@ -25,10 +26,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import EncoderBlock, extract_patches
+from ..ops import extract_patches
 from ..ops.encoder_block import remat_block, wants_remat
 from ..ops.initializers import check_scheme, init_
-from .vit import refuse_unported
+from .vit import block_kwargs, encoder_stack
 
 
 def make_random_mask(generator: torch.Generator, batch: int, num_patches: int,
@@ -55,7 +56,6 @@ class SimMIMViT(nn.Module):
                  use_flash: bool = True, init_scheme: str = "reference",
                  remat: bool = False, scan_layers: bool = False, device=None):
         super().__init__()
-        refuse_unported(scan_layers=scan_layers)
         c, h, _ = input_shape
         self.dtype = dtype
         self.patch_size = patch_size
@@ -68,13 +68,10 @@ class SimMIMViT(nn.Module):
         self.mask_token = nn.Parameter(torch.empty(1, 1, embed_dim, device=device))
         self.positional_embedding = nn.Parameter(
             torch.empty(1, num_patches, embed_dim, device=device))
-        self.encoder_blocks = nn.ModuleList(
-            EncoderBlock(embed_dim, num_heads, mlp_dim, dtype=dtype,
-                         dropout=dropout, fast_dropout=fast_dropout,
-                         use_fused_mlp=use_fused_mlp, use_flash=use_flash,
-                         device=device)
-            for _ in range(num_blocks)
-        )
+        self.encoder_blocks, self.encoder_scan = encoder_stack(
+            num_blocks, block_kwargs(embed_dim, num_heads, mlp_dim, dtype, dropout,
+                                     fast_dropout, use_fused_mlp, use_flash),
+            scan_layers, device)
         self.simmim_head = nn.Linear(embed_dim, patch_dim, device=device)
         self.reset_parameters()
 
@@ -85,6 +82,8 @@ class SimMIMViT(nn.Module):
 
     def encode(self, x, deterministic: bool = True,
                generator: Optional[torch.Generator] = None):
+        if self.encoder_scan is not None:
+            return self.encoder_scan(x, 0, deterministic, generator, self.remat)
         for block in self.encoder_blocks:
             if self.remat and wants_remat(block, x):
                 x = remat_block(block, x, 0, deterministic, generator)

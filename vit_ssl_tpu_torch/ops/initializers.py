@@ -55,6 +55,19 @@ def weight_(weight: torch.Tensor, scheme: str,
 
 
 @torch.no_grad()
+def kernel_(weight: torch.Tensor, fan_in: int, scheme: str,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """A kernel of any layout with the given fan-in (the MoE router's
+    (d, E), an expert's (d, f) or (f, d) slice): U(±1/√fan_in), the
+    reference's Linear default, or LeCun-normal."""
+    if check_scheme(scheme) == "reference":
+        bound = 1.0 / math.sqrt(fan_in)
+        return nn.init.uniform_(weight, -bound, bound, generator=generator)
+    std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+@torch.no_grad()
 def bias_(bias: torch.Tensor, fan_in: int, scheme: str,
           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     if check_scheme(scheme) == "reference":
@@ -88,21 +101,49 @@ def token_(param: torch.Tensor, scheme: str,
 
 
 @torch.no_grad()
+def _init_module(module: nn.Module, scheme: str, generator, layer=None) -> None:
+    """One module's own parameters; ``layer`` picks that slice of a stacked
+    (layer-leading) parameter."""
+    def own(t):
+        return t if layer is None else t[layer]
+
+    if isinstance(module, (nn.Linear, nn.Conv2d)):
+        weight_(own(module.weight), scheme, generator)
+        if module.bias is not None:
+            bias_(own(module.bias), _fan_in(own(module.weight)), scheme, generator)
+    elif isinstance(module, nn.LayerNorm):
+        nn.init.ones_(module.weight)
+        nn.init.zeros_(module.bias)
+    elif hasattr(module, "init_parameters"):  # an MoE FFN's experts
+        module.init_parameters(scheme, generator)
+    for name in _TOKENS:
+        param = getattr(module, name, None)
+        if isinstance(param, nn.Parameter):
+            token_(own(param), scheme, generator, name == "mask_token")
+
+
+@torch.no_grad()
 def init_(model: nn.Module, scheme: str = "reference",
           generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Redraw every Linear, Conv2d and LayerNorm parameter of ``model`` and
-    its tokens with ``scheme``, in module order. Returns ``model``."""
+    """Redraw every Linear, Conv2d and LayerNorm parameter of ``model``, its
+    tokens and its MoE experts with ``scheme``, in module order. A scanned
+    encoder stack (a module with ``stacked_layers``) draws its layers one
+    after another, each in its block's module order: the draws of the
+    unrolled stack, bit for bit. Returns ``model``."""
     check_scheme(scheme)
+    inside_stack = set()
     for module in model.modules():
-        if isinstance(module, (nn.Linear, nn.Conv2d)):
-            linear_(module, scheme, generator)
-        elif isinstance(module, nn.LayerNorm):
-            nn.init.ones_(module.weight)
-            nn.init.zeros_(module.bias)
-        for name in _TOKENS:
-            param = getattr(module, name, None)
-            if isinstance(param, nn.Parameter):
-                token_(param, scheme, generator, name == "mask_token")
+        if id(module) in inside_stack:
+            continue
+        layers = getattr(module, "stacked_layers", None)
+        if layers is not None:
+            inner = list(module.modules())[1:]
+            inside_stack.update(id(m) for m in inner)
+            for layer in range(layers):
+                for sub in inner:
+                    _init_module(sub, scheme, generator, layer)
+            continue
+        _init_module(module, scheme, generator)
     return model
 
 

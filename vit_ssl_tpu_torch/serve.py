@@ -46,7 +46,8 @@ import torch
 
 from .data.transforms import Compose, Resize, ToTensor
 from .device import resolve_device
-from .models.builder import build_backbone, build_simmim, build_vit, config_mode
+from .models.builder import (build_backbone, build_simmim, build_vit, config_mode,
+                             load_state_any_layout)
 from .utils.checkpoint import backbone_state_dict, load_pth
 
 
@@ -69,13 +70,13 @@ class Server:
         self.classifier = self.mode in ("supervised", "finetune")
         if self.classifier:
             self.model = build_vit(self.config, self.device)
-            self.model.load_state_dict(state, strict=True)
+            load_state_any_layout(self.model, state)
         elif self.mode == "simmim":
             self.model = build_simmim(self.config, self.device)
-            self.model.load_state_dict(state, strict=True)
+            load_state_any_layout(self.model, state)
         else:
             self.model = build_backbone(self.config, self.device)
-            self.model.load_state_dict(backbone_state_dict(state), strict=True)
+            load_state_any_layout(self.model, backbone_state_dict(state))
         self.model.eval()
         self.forward = (self.model.inference_forward if self.mode == "simmim"
                         else self.model)

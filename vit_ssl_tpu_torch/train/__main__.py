@@ -9,10 +9,21 @@ It composes the config (:mod:`vit_ssl_tpu_torch.config`), creates the run
 directory from ``hydra.run.dir`` (saving ``.hydra/config.yaml`` and
 ``overrides.yaml`` as Hydra does), builds the loaders, the network on the
 device and the trainer, resumes from ``training.resume_from_checkpoint``
-when it is set, and runs ``fit``. It runs on the CUDA card unless
-``--device cpu`` asks for the CPU; with no card and no such request it
-raises. The port trains every mode of the JAX package
-(``training.type``): DINO, SimMIM, supervised and finetune.
+when it is set, and runs ``fit`` through :func:`fit_with_preemption`. It
+runs on the CUDA card unless ``--device cpu`` asks for the CPU; with no card
+and no such request it raises. The port trains every mode of the JAX
+package (``training.type``): DINO, SimMIM, supervised and finetune.
+
+Preemption (:mod:`..utils.preempt`): with ``training.preempt_checkpointing``
+(the default) SIGTERM or SIGUSR1 makes the trainer stop at the next batch
+boundary, write ``<run>/preempt_model`` and exit with code 75. Rerun with
+``training.resume_from_checkpoint=<run>/preempt_model`` (then
+``training.num_epochs`` counts the epochs to run, the interrupted one
+included), or rerun the same command with ``training.auto_resume=true`` and
+a pinned ``hydra.run.dir``: it picks ``preempt_model`` up, trains up to the
+original ``training.num_epochs`` and removes it at the end, so a retry loop
+(``until python -m vit_ssl_tpu_torch.train ...; do :; done``) converges to
+the uninterrupted run bit for bit.
 """
 
 from __future__ import annotations
@@ -110,15 +121,55 @@ def run_single(config_path, config_name, overrides, device=None) -> str:
 
     trainer = get_trainer(mode, network, save_path, config, train_loader,
                           val_loader, device)
-    resume = config["training"].get("resume_from_checkpoint", None)
-    if resume:
-        trainer.resume_from(resume)
-    if bool(config["training"].get("preempt_checkpointing", True)):
-        logger.info("training.preempt_checkpointing: no SIGTERM handler is "
-                    "installed yet (ROADMAP.md queue A item 8)")
-    trainer.fit(int(config["training"]["num_epochs"]))
+    fit_with_preemption(trainer, config, save_path)
     logger.info("Training completed for mode: %s", mode)
     return save_path
+
+
+def fit_with_preemption(trainer, config, save_path: str) -> None:
+    """Resume, fit and handle a preemption, as ``train.py`` does for the JAX
+    package: ``training.resume_from_checkpoint`` resumes and fits
+    ``num_epochs`` more; otherwise ``training.auto_resume`` picks up
+    ``<save_path>/preempt_model`` when there is one and fits up to
+    ``num_epochs`` in all. With ``training.preempt_checkpointing`` the
+    signal handler is installed for the fit. On ``PreemptionRequested`` the
+    trainer writes ``preempt_model`` and this raises ``SystemExit(75)``; the
+    handler is always uninstalled. An auto-resumed fit that ends removes the
+    ``preempt_model`` it consumed."""
+    import shutil
+
+    from ..utils.preempt import (PREEMPT_EXIT_CODE, PreemptionRequested,
+                                 install_preemption_handler,
+                                 uninstall_preemption_handler)
+
+    training = config["training"]
+    resume = training.get("resume_from_checkpoint", None)
+    auto_resumed = False
+    if not resume and bool(training.get("auto_resume", False)):
+        candidate = os.path.join(save_path, "preempt_model")
+        if os.path.isdir(candidate):
+            resume, auto_resumed = candidate, True
+            logger.info("auto_resume: picking up %s", candidate)
+    if resume:
+        trainer.resume_from(resume)
+    epochs = int(training["num_epochs"])
+    if auto_resumed:
+        epochs = max(0, epochs - trainer.start_epoch)
+    if bool(training.get("preempt_checkpointing", True)):
+        install_preemption_handler()
+    try:
+        trainer.fit(epochs)
+    except PreemptionRequested as e:
+        path = trainer.save_preempt(e)
+        logger.warning("Preempted at epoch %d after %d batches; state saved to %s. "
+                       "Resume with training.resume_from_checkpoint=%s, or rerun "
+                       "with training.auto_resume=true", e.epoch, e.batches_done,
+                       path, path)
+        raise SystemExit(PREEMPT_EXIT_CODE)
+    finally:
+        uninstall_preemption_handler()
+    if auto_resumed:
+        shutil.rmtree(os.path.join(save_path, "preempt_model"), ignore_errors=True)
 
 
 def run_multirun(args) -> List[str]:

@@ -154,13 +154,28 @@ def make_supervised_steps(optimizer: Optimizer, augment_fn: Optional[Callable] =
     (B,) and ``"weight"`` (B,). Each returns ``{"loss", "weight_sum",
     "preds", "labels", "weight"}``. The JAX function's ``model`` and ``tx``
     are the state's model and ``optimizer`` here. ``grad_accum`` > 1
-    accumulates over microbatches (module docstring)."""
+    accumulates over microbatches (module docstring).
+
+    A model with Mixture-of-Experts blocks (``moe_experts`` > 0): the
+    router losses of its training forward are added to the training loss,
+    and only there (not to ``eval_step``'s); under ``grad_accum`` each
+    microbatch's is weighted by its weight sum before the one division, and
+    capacity applies per microbatch, as in JAX. Without ``grad_accum`` the
+    output also holds ``moe_dropped_frac``, the mean over MoE blocks of the
+    share of routing assignments past capacity."""
     grad_accum = max(1, int(grad_accum))
 
     def images(batch, generator):
         if augment_fn is not None:
             return augment_fn(generator, batch["image"])
         return to_unit_float(batch["image"])
+
+    def forward_train(model, x, generator):
+        """(logits, MoE router loss, mean dropped share); zeros without MoE."""
+        if int(getattr(model, "moe_experts", 0) or 0) > 0:
+            return model(x, False, generator, return_aux=True)
+        zero = torch.zeros((), device=x.device)
+        return model(x, False, generator), zero, None
 
     def outputs(preds, loss, batch):
         return {"loss": loss.detach(), "weight_sum": batch["weight"].sum(),
@@ -172,9 +187,11 @@ def make_supervised_steps(optimizer: Optimizer, augment_fn: Optional[Callable] =
         grads, loss_sum, preds = _GradSum(params), 0.0, []
         for j, micro in enumerate(microbatches(batch, grad_accum)):
             g_dropout, g_augment = gens[2 * j:2 * j + 2]
-            logits = state.model(images(micro, g_augment), False, g_dropout)
+            logits, aux, _ = forward_train(state.model, images(micro, g_augment),
+                                           g_dropout)
             ce = F.cross_entropy(logits.float(), micro["label"].long(), reduction="none")
-            loss = (ce * micro["weight"].float()).sum()  # Σ w·ce, no normaliser
+            w = micro["weight"].float()
+            loss = (ce * w).sum() + aux * w.sum()  # Σ w·ce + aux·Σw, no normaliser
             grads.add(loss)
             loss_sum = loss_sum + loss.detach()
             preds.append(logits.detach().argmax(dim=-1))
@@ -183,17 +200,21 @@ def make_supervised_steps(optimizer: Optimizer, augment_fn: Optional[Callable] =
 
     def train_step(state: SupervisedTrainState, batch, with_grads: bool = False):
         params = optimizer.select(state.params)
+        dropped = None
         if grad_accum > 1:
             grads, loss, preds = accumulated(state, params, batch)
         else:
             g_dropout, g_augment = state.next_generators(2)
-            logits = state.model(images(batch, g_augment), False, g_dropout)
-            loss = cross_entropy_loss(logits, batch["label"], batch["weight"])
+            logits, aux, dropped = forward_train(state.model,
+                                                 images(batch, g_augment), g_dropout)
+            loss = cross_entropy_loss(logits, batch["label"], batch["weight"]) + aux
             grads = torch.autograd.grad(loss, params)
             preds = logits.detach().argmax(dim=-1)
         optimizer.update(params, grads, state.opt_state)
         state.step += 1
         out = outputs(preds, loss, batch)
+        if dropped is not None:
+            out["moe_dropped_frac"] = dropped.detach()
         if with_grads:
             names = optimizer.select(n for n, _ in state.model.named_parameters())
             out["grads"] = dict(zip(names, grads))

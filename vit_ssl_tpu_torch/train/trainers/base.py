@@ -26,14 +26,19 @@ checkpoints embed the config. As in the JAX package:
   written on a thread while the next epoch trains;
 - the evaluation starts after that snapshot, reads the weights only (its
   randomness comes from generators of its own) and gives every module its
-  train flag back, so a fit ends bit-equal with it or without it.
+  train flag back, so a fit ends bit-equal with it or without it;
+- preemption (:mod:`...utils.preempt`): the train loop polls the flag at
+  each batch boundary and raises ``PreemptionRequested(epoch,
+  batches_done)``, the batches already copied ahead dropped;
+  ``training.fault_inject_preempt_step=N`` raises it after N train batches
+  of this process. :meth:`BaseTrainer.save_preempt` writes
+  ``preempt_model`` synchronously, and :meth:`BaseTrainer.resume_from` of
+  it restarts inside the interrupted epoch, skipping its trained batches
+  (:meth:`BaseTrainer._train_batches`).
 
 Refused by name, each with its ``ROADMAP.md`` queue-A item:
-``training.auto_resume`` and ``training.fault_inject_preempt_step`` (item
-8), ``parallel.{tp,pp,sp,ep} > 1``, ``parallel.fsdp`` and
+``parallel.{tp,pp,sp,ep} > 1``, ``parallel.fsdp`` and
 ``parallel.multihost`` (item 10).
-``training.preempt_checkpointing`` is accepted; no SIGTERM handler is
-installed yet (item 8).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from ...utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpo
 from ...utils.history import TrainingHistory
 from ...utils.logger import Logger
 from ...utils.metrics import MetricHandler
+from ...utils.preempt import PreemptionRequested, preemption_requested, request_preemption
 from ..schedules import lr_schedule_from_config
 from ..state import make_optimizer
 
@@ -66,15 +72,6 @@ logger = logging.getLogger(__name__)
 def refuse_unported_training(config) -> None:
     """Raise on a training option the port does not run yet, naming its
     ``ROADMAP.md`` queue-A item."""
-    training = config.get("training", {}) or {}
-    if bool(training.get("auto_resume", False)):
-        raise NotImplementedError(
-            "training.auto_resume=true (elastic restart from preempt_model) is "
-            "not ported yet; see ROADMAP.md queue A item 8")
-    if int(training.get("fault_inject_preempt_step", 0) or 0) > 0:
-        raise NotImplementedError(
-            "training.fault_inject_preempt_step > 0 (preemption fault "
-            "injection) is not ported yet; see ROADMAP.md queue A item 8")
     parallel = config.get("parallel", {}) or {}
     for axis in ("tp", "pp", "sp", "ep"):
         if int(parallel.get(axis, 1) or 1) > 1:
@@ -147,6 +144,12 @@ class BaseTrainer(ABC):
         # batches (the goodput line); per checkpoint: its snapshot and write
         self.epoch_input_stats: List[Dict[str, float]] = []
         self.save_times: List[Dict[str, Any]] = []
+        # preemption: the mid-epoch resume offset (epoch, batches done), the
+        # train batches this process stepped, the fault-injection trigger
+        self._mid_epoch_skip = None
+        self._train_batches_seen = 0
+        self._fault_inject = int(
+            config["training"].get("fault_inject_preempt_step", 0) or 0)
 
         self.state = self._init_state()
         self._build_steps()
@@ -330,12 +333,44 @@ class BaseTrainer(ABC):
         """``last_model`` carries the best score too (the JAX package's
         writes it only into preemption checkpoints), so that a run resumed
         from it keeps its best policy."""
-        best = ({self.best_key: self.best_score}
+        self._save("last_model", epoch, self._best_extra())
+
+    def _best_extra(self) -> Dict[str, float]:
+        """The best score, for a checkpoint's metadata, once there is one."""
+        return ({self.best_key: float(self.best_score)}
                 if math.isfinite(self.best_score) else {})
-        self._save("last_model", epoch, best)
+
+    def save_preempt(self, exc: PreemptionRequested) -> str:
+        """The mid-epoch checkpoint ``<run>/preempt_model``, written
+        synchronously after the pending epoch save: the state as the last
+        completed step left it, ``epoch`` (completed epochs),
+        ``preempt_epoch`` and ``preempt_batches_done`` for
+        :meth:`resume_from`, the config, the mode and the best score. Its
+        host snapshot and write times go to :attr:`save_times`."""
+        self._join_pending_save()
+        os.makedirs(self.save_path, exist_ok=True)
+        t0 = time.perf_counter()
+        tree = to_host(self.state.state_dict())
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        metadata = {
+            "epoch": exc.epoch - 1,
+            "preempt_epoch": exc.epoch,
+            "preempt_batches_done": exc.batches_done,
+            "config": to_container(self.config),
+            "mode": self.mode,
+            **self._best_extra(),
+        }
+        path = os.path.join(self.save_path, "preempt_model")
+        t0 = time.perf_counter()
+        save_checkpoint(path, tree, metadata)
+        self.save_times.append({"name": "preempt_model", "epoch": exc.epoch,
+                                "snapshot_ms": snapshot_ms,
+                                "write_s": time.perf_counter() - t0})
+        return path
 
     def resume_from(self, path: str):
-        """Restore the train state, the epoch and the best score."""
+        """Restore the train state, the epoch and the best score; from a
+        preemption checkpoint, restart inside the interrupted epoch."""
         if not checkpoint_exists(path):
             logger.warning("Resume path %s does not exist. Starting from scratch.",
                            path)
@@ -344,7 +379,32 @@ class BaseTrainer(ABC):
         self._restore(tree, metadata)
         self.start_epoch = int(metadata.get("epoch", 0))
         self.best_score = float(metadata.get(self.best_key, -math.inf))
+        if "preempt_epoch" in metadata:
+            p_epoch = int(metadata["preempt_epoch"])
+            p_done = int(metadata.get("preempt_batches_done", 0))
+            self._mid_epoch_skip = (p_epoch, p_done)
+            logger.info("Resuming from a preemption checkpoint: restarting inside "
+                        "epoch %d after %d already-trained batches.", p_epoch, p_done)
+            return
         logger.info("Resuming from epoch %d.", self.start_epoch + 1)
+
+    def _consume_mid_epoch_skip(self, epoch: int) -> int:
+        """The number of already-trained batches of ``epoch`` to skip, as
+        :meth:`resume_from` recorded them from a preemption checkpoint.
+        One-shot; an offset recorded for another epoch is dropped."""
+        if not self._mid_epoch_skip:
+            return 0
+        skip_epoch, k = self._mid_epoch_skip
+        self._mid_epoch_skip = None
+        if skip_epoch != epoch:
+            logger.warning("Mid-epoch resume offset was recorded for epoch %d but "
+                           "training reached epoch %d first; training the full epoch",
+                           skip_epoch, epoch)
+            return 0
+        if k:
+            logger.info("Mid-epoch resume: skipping %d already-trained batches of "
+                        "epoch %d", k, epoch)
+        return k
 
     def _restore(self, tree, metadata):
         """Load a checkpoint's tree into the train state."""
@@ -373,34 +433,74 @@ class BaseTrainer(ABC):
             return [self._put(v) for v in batch]
         return batch
 
-    def _device_batches(self, loader, depth: int = 3, train_epoch=None):
+    def _train_batches(self, loader, epoch: int):
+        """``(index, batch)`` of the train epoch ``epoch`` on the device,
+        the index the batch's position in the whole epoch: a resumed epoch
+        skips its already-trained batches and counts on from them."""
+        skip = self._consume_mid_epoch_skip(epoch)
+        return enumerate(self._device_batches(loader, train_epoch=epoch, skip=skip),
+                         start=skip)
+
+    def _preempt_now(self) -> bool:
+        """The preemption flag, or the fault injection's trigger reached."""
+        if preemption_requested():
+            return True
+        if self._fault_inject and self._train_batches_seen >= self._fault_inject:
+            logger.warning("Fault injection: simulating preemption after %d train "
+                           "batches (training.fault_inject_preempt_step)",
+                           self._train_batches_seen)
+            request_preemption()
+            return True
+        return False
+
+    def _device_batches(self, loader, depth: int = 3, train_epoch=None, skip: int = 0):
         """Yield ``loader``'s batches on the device, their copies issued
         ``depth`` batches ahead of the step that takes them. With
-        ``train_epoch`` (train loops only) the epoch's input-wait, wall
-        time and batch count go to :attr:`epoch_input_stats`."""
+        ``train_epoch`` (train loops only): the first ``skip`` batches are
+        drawn and dropped (a resumed epoch's trained ones), a preemption
+        raises :class:`PreemptionRequested` at the next batch boundary
+        (the copies ahead are dropped, not counted), and the epoch's
+        input-wait, wall time and batch count go to
+        :attr:`epoch_input_stats`. A signal during validation is handled
+        at the next train boundary."""
         sentinel = object()
         it = iter(loader)
+        done = 0
+        if train_epoch is not None:
+            for _ in range(skip):
+                next(it, None)
+            done = skip
         wall0 = time.perf_counter()
         input_wait = 0.0
-        done = 0
         pending = deque()
+
+        def stepped():
+            nonlocal done
+            done += 1
+            if train_epoch is not None:
+                self._train_batches_seen += 1
+
         while True:
             t0 = time.perf_counter()
             batch = next(it, sentinel)
             input_wait += time.perf_counter() - t0
             if batch is sentinel:
                 break
+            if train_epoch is not None and self._preempt_now():
+                raise PreemptionRequested(train_epoch, done)
             pending.append(self._put(batch))
             if len(pending) > depth:
                 yield pending.popleft()
-                done += 1
+                stepped()
         while pending:
+            if train_epoch is not None and self._preempt_now():
+                raise PreemptionRequested(train_epoch, done)
             yield pending.popleft()
-            done += 1
+            stepped()
         if train_epoch is not None:
             self.epoch_input_stats.append({
                 "epoch": train_epoch,
                 "wait_s": input_wait,
                 "wall_s": time.perf_counter() - wall0,
-                "batches": done,
+                "batches": done - skip,
             })

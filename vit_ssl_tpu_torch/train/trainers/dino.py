@@ -117,16 +117,18 @@ class DINOTrainer(BaseTrainer):
         self.train_loader.set_epoch(epoch)
         outs = []
         if self.step_granular:
-            batches = self._device_batches(
-                self._with_step_schedules(self.train_loader, epoch), train_epoch=epoch)
-            for idx, batch in enumerate(batches):
+            # the schedule values ride with each host batch, attached before
+            # a resumed epoch's trained batches are skipped: each step reads
+            # its own position's values
+            batches = self._train_batches(
+                self._with_step_schedules(self.train_loader, epoch), epoch)
+            for idx, batch in batches:
                 t_temp, t_momentum = batch.pop("t_temp"), batch.pop("t_momentum")
                 outs.append(self.train_step(self.state, batch, t_temp, t_momentum))
                 self.train_logger.train_log_step(epoch, idx)
             return self._epoch_metrics(outs)
         t_temp, t_momentum = self._teacher_temp(epoch), self._teacher_momentum(epoch)
-        for idx, batch in enumerate(
-                self._device_batches(self.train_loader, train_epoch=epoch)):
+        for idx, batch in self._train_batches(self.train_loader, epoch):
             outs.append(self.train_step(self.state, batch, t_temp, t_momentum))
             self.train_logger.train_log_step(epoch, idx)
         return self._epoch_metrics(outs)

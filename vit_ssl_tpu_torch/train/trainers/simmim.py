@@ -63,8 +63,7 @@ class SimMIMTrainer(BaseTrainer):
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         self.train_loader.set_epoch(epoch)
         outs = []
-        for idx, batch in enumerate(
-                self._device_batches(self.train_loader, train_epoch=epoch)):
+        for idx, batch in self._train_batches(self.train_loader, epoch):
             outs.append(self.train_step(self.state, batch))
             self.train_logger.train_log_step(epoch, idx)
         return self._epoch_metrics(outs)

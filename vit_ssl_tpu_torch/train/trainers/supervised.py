@@ -17,7 +17,8 @@ the patch embedding (its CLS token excepted); at the start of epoch
 ``freeze_backbone_epochs`` (a top-level key) the backbone unfreezes and
 the optimizer is rebuilt: the moments are dropped and the count restarts,
 so the lr schedule restarts from its first step, as in the reference. A
-run resumed from a checkpoint written after that epoch starts unfrozen.
+run resumed from a checkpoint written after the unfreeze (a preemption
+checkpoint inside that epoch included) starts unfrozen.
 
 Every ``eval.interval`` epochs (when set) the supervised evaluation
 writes the epoch's validation predictions (``predictions.csv``, and the
@@ -59,6 +60,7 @@ class SupervisedTrainer(BaseTrainer):
                          device)
         self.freeze_backbone = bool(self.config["training"].get("freeze_backbone", False))
         self.freeze_backbone_epochs = self.config.get("freeze_backbone_epochs", math.inf)
+        self._unfrozen = False
 
     # -- construction -----------------------------------------------------------
     def _trainable_mask(self):
@@ -107,8 +109,7 @@ class SupervisedTrainer(BaseTrainer):
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         self.train_loader.set_epoch(epoch)
         outs = []
-        for idx, batch in enumerate(
-                self._device_batches(self.train_loader, train_epoch=epoch)):
+        for idx, batch in self._train_batches(self.train_loader, epoch):
             outs.append(self.train_step(self.state, batch))
             self.train_logger.train_log_step(epoch, idx)
         return self._epoch_metrics(outs)
@@ -153,7 +154,8 @@ class SupervisedTrainer(BaseTrainer):
         with self.train_logger:
             for epoch in range(self.start_epoch + 1, end_epoch + 1):
                 self.current_epoch = epoch
-                if self.freeze_backbone and epoch == self.freeze_backbone_epochs:
+                if (self.freeze_backbone and epoch == self.freeze_backbone_epochs
+                        and not self._unfrozen):
                     self._unfreeze_backbone()
                 profiling = self._maybe_start_profile(epoch)
                 train_metrics = self.train_epoch(epoch)
@@ -185,6 +187,7 @@ class SupervisedTrainer(BaseTrainer):
         buffers start at zero and its count (the lr schedule's step) at 0,
         as the reference rebuilds its optimizer."""
         logger.info("Unfreezing backbone and rebuilding optimizer...")
+        self._unfrozen = True
         self.optimizer = make_optimizer(
             self.config, self.lr_schedule,
             self._mask_list(all_trainable_mask(self.network)))
@@ -192,9 +195,12 @@ class SupervisedTrainer(BaseTrainer):
         self._build_steps()
 
     def _restore(self, tree, metadata):
-        """A checkpoint written at or after the unfreeze epoch holds the
-        unfrozen optimizer's buffers: unfreeze before loading them."""
-        if self.freeze_backbone and int(metadata.get("epoch", 0)) >= self.freeze_backbone_epochs:
+        """A checkpoint written after the unfreeze (at the end of that epoch
+        or later, or inside it by a preemption) holds the unfrozen
+        optimizer's buffers: unfreeze before loading them, and not again."""
+        reached = (int(metadata["preempt_epoch"]) if "preempt_epoch" in metadata
+                   else int(metadata.get("epoch", 0)))
+        if self.freeze_backbone and reached >= self.freeze_backbone_epochs:
             self._unfreeze_backbone()
         super()._restore(tree, metadata)
 

@@ -17,7 +17,14 @@ numpy arrays, e.g. ``DINONetwork`` params) into reference-layout state
 dicts that the port's modules load with ``strict=True``. It is a jax-free
 copy of ``vit_ssl_tpu/utils/checkpoint.py::{_encoder_block_to_torch,
 _dino_backbone_to_torch, _dino_head_to_torch, dino_params_to_torch,
-vit_params_to_torch, simmim_params_to_torch}``.
+vit_params_to_torch, simmim_params_to_torch}``, extended to the layouts
+the reference has not: a tree with a scanned ``encoder_scan`` subtree
+gives the port's stacked ``encoder_scan.block.*`` keys (each kernel
+transposed on its last two dimensions), and an MoE block's
+``moe.{router,w1,b1,w2,b2}`` pass as they are (the port keeps the JAX
+layout for them). A ``.pth`` that the JAX exporter wrote from a scanned run
+holds unrolled blocks; ``models.builder.load_weights`` loads either layout
+into either.
 """
 
 from __future__ import annotations
@@ -81,10 +88,15 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
 
 
+def _kernel_t(x) -> torch.Tensor:
+    """A flax Dense kernel (..., in, out) → torch's (..., out, in)."""
+    return _t(x).transpose(-1, -2).contiguous()
+
+
 def attention_state_dict_from_flax(att: Mapping,
                                    prefix: str = "") -> Dict[str, torch.Tensor]:
     """JAX ``MultiHeadAttention`` params → ``MultiHeadAttention`` state dict."""
-    return {f"{prefix}{name}.weight": _t(att[name]["kernel"]).T.contiguous()
+    return {f"{prefix}{name}.weight": _kernel_t(att[name]["kernel"])
             for name in ("w_query", "w_key", "w_value", "final_linear")}
 
 
@@ -92,25 +104,25 @@ def feed_forward_state_dict_from_flax(ff: Mapping,
                                       prefix: str = "") -> Dict[str, torch.Tensor]:
     """JAX ``FeedForwardBlock`` params → ``FeedForwardBlock`` state dict."""
     return {
-        f"{prefix}linear_in.weight": _t(ff["w1"]).T.contiguous(),
+        f"{prefix}linear_in.weight": _kernel_t(ff["w1"]),
         f"{prefix}linear_in.bias": _t(ff["b1"]),
-        f"{prefix}linear_out.weight": _t(ff["w2"]).T.contiguous(),
+        f"{prefix}linear_out.weight": _kernel_t(ff["w2"]),
         f"{prefix}linear_out.bias": _t(ff["b2"]),
     }
 
 
 def encoder_block_state_dict_from_flax(block: Mapping,
                                       prefix: str = "") -> Dict[str, torch.Tensor]:
-    """JAX ``EncoderBlock`` params → ``EncoderBlock`` state dict under ``prefix``."""
-    if "moe" in block:
-        raise ValueError(
-            f"{prefix} is a Mixture-of-Experts block; only dense blocks have "
-            "a reference layout"
-        )
+    """JAX ``EncoderBlock`` params → ``EncoderBlock`` state dict under
+    ``prefix``; a scanned block's stacked leaves give stacked tensors."""
     sd = attention_state_dict_from_flax(block["self_attention"],
                                         f"{prefix}self_attention.")
-    sd.update(feed_forward_state_dict_from_flax(block["feed_forward"],
-                                                f"{prefix}feed_forward."))
+    if "moe" in block:
+        sd.update({f"{prefix}moe.{name}": _t(block["moe"][name])
+                   for name in ("router", "w1", "b1", "w2", "b2")})
+    else:
+        sd.update(feed_forward_state_dict_from_flax(block["feed_forward"],
+                                                    f"{prefix}feed_forward."))
     for ln in ("layer_norm1", "layer_norm2"):
         sd[f"{prefix}{ln}.weight"] = _t(block[ln]["scale"])
         sd[f"{prefix}{ln}.bias"] = _t(block[ln]["bias"])
@@ -132,12 +144,11 @@ def patch_embedding_state_dict_from_flax(
 
 
 def _encoder_blocks(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
-    """``encoder_blocks_<i>`` subtrees → ``{prefix}encoder_blocks.<i>.*``."""
+    """``encoder_blocks_<i>`` subtrees → ``{prefix}encoder_blocks.<i>.*``;
+    a scanned ``encoder_scan`` subtree → ``{prefix}encoder_scan.block.*``."""
     if "encoder_scan" in tree:
-        raise ValueError(
-            "params carry a scanned 'encoder_scan' subtree; unroll it with "
-            "the JAX package's ops.encoder_stack.unroll_scanned_tree first"
-        )
+        return encoder_block_state_dict_from_flax(tree["encoder_scan"]["block"],
+                                                  f"{prefix}encoder_scan.block.")
     blocks = sorted(
         (k for k in tree if str(k).startswith("encoder_blocks_")),
         key=lambda k: int(str(k).rsplit("_", 1)[1]),
