@@ -84,6 +84,17 @@ Phases, each printing its own lines; any failure exits non-zero:
               so (its snapshot and write timed); the same call again
               auto-resumes, trains the other 5 batches and removes it, and
               its last_model equals phase 9a's straight fit(2) bit for bit
+9a.2 data parallel — configs/dino.yaml with DP_OVERRIDES (parallel.fsdp)
+              in an NCCL process group of one rank started here (a TCP
+              store on a free port): the port's mesh published, the same
+              in-memory images, ``fit(2)`` with the gradients reduced, the
+              weight sums, center and statistics all-reduced and the
+              parameters gathered for each step and freed after; its
+              last_model against phase 9a's straight fit(2) (bit-equal, or
+              within the trainer's bars), NCCL's device operations and
+              B1's kernels counted in one profile window of 3 steps, the
+              in-loop step and peak memory beside phase 9a's; the group
+              destroyed at the end
 9b. finetune — configs/finetune.yaml composed by the port with
               FINETUNE_OVERRIDES (ViT-S/8 at 96 px, extended transfer, the
               backbone frozen until epoch 2), from phase 9a's DINO
@@ -154,6 +165,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               each and no mma.sync backward body
 15. B2 times — kernel, plain, SDPA and bound at (64, 12, 1025, 64) bf16,
               beside the mma.sync backward's recorded times
+15a. ring — ring attention's per-rank body
+              (``parallel/ring_attention.py``) over RING_SP = 5 virtual
+              ranks at (64, 12, 1025, 64) bf16, every hop through B2: 25
+              forwards, 25 dq and 25 dk/dv launches counted; against B2 on
+              the whole sequence and the plain version at the B2 bars; the
+              ring's forward and backward time beside B2's whole-sequence
 16. exp2 probe — ``vit_ssl_tpu_torch/scripts/exp2_probe.py``: P1
               (``blockwise_fwd_exp2``) against B2's forward, both timed; P1
               against its plain version
@@ -1606,7 +1623,8 @@ PROFILE_PAD_MS = 2.0
 PAD_KERNEL = "spin_kernel"
 
 
-def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=(), only=()):
+def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=(), only=(),
+                   report=None):
     """Device busy and idle share of ``fn`` under ``torch.profiler``, and
     the top device operations. ``fn`` runs twice a session: a warm-up cycle
     of the profiler, not recorded, then the recorded one. Kineto keeps a
@@ -1623,7 +1641,9 @@ def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=(), o
     kernels whose names hold it; that session is the one reported. Fails if
     none does, if a session records a kernel whose name holds one of
     ``absent``, or (with ``only``) one whose name holds none of ``only``.
-    Returns (idle share, device busy ms)."""
+    With ``report`` (a dict), the reported session's launches of each
+    device operation go into ``report["device_counts"]``. Returns (idle
+    share, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     from vit_ssl_tpu_torch.scripts.profiler_window_probe import spin_cycles_per_ms
 
@@ -1673,6 +1693,8 @@ def profile_window(torch, fn, label, rows=14, want=(), counts=None, absent=(), o
     # device-side entries of fn only (kernels, copies); CPU ops repeat their
     # time, and so does the schedule's ProfilerStep range on the device
     device_us = sum(e.self_device_time_total for e in device)
+    if report is not None:
+        report["device_counts"] = {e.key: e.count for e in device}
     idle = 1 - device_us / 1e3 / wall_ms
     print(f"  profile of {label}: wall {wall_ms:.3f} ms, device busy "
           f"{device_us / 1e3:.3f} ms, device idle share {idle:.3f}"
@@ -4177,6 +4199,251 @@ def phase_preempt(torch, fa, card, tmp, straight):
     return {"preempt": first, "preempt_resumed": second}
 
 
+# The data-parallel phase: configs/dino.yaml with ZeRO-3 sharding, in an
+# NCCL process group of one rank (the machine has one card); eval.interval 0
+# (the evaluations leave the trained state as it is: the trainer phase
+# checks that bit for bit)
+DP_OVERRIDES = ["training.num_epochs=2", "eval.interval=0", "parallel.fsdp=true"]
+# NCCL's kernels carry this in their names
+NCCL_KERNEL = "nccl"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def state_close(torch, got, want, where="state"):
+    """The paths where two checkpoint trees differ beyond the trainer's bars
+    (each tensor's max |got - want| within GRAD_REL_TOL["bfloat16"] of
+    max|want|, floored at 1e-6), and the largest such relative error."""
+    if isinstance(want, torch.Tensor):
+        err = max_abs(got, want) / max(float(want.float().abs().max()), 1e-6)
+        return ([] if err <= GRAD_REL_TOL["bfloat16"] else [where]), err
+    if isinstance(want, dict):
+        items = want.items()
+    elif isinstance(want, list):
+        items = enumerate(want)
+    else:
+        return ([] if got == want else [where]), 0.0
+    bad, worst = [], 0.0
+    for key, value in items:
+        b, e = state_close(torch, got[key], value, f"{where}.{key}")
+        bad, worst = bad + b, max(worst, e)
+    return bad, worst
+
+
+def phase_data_parallel(torch, fa, card, tmp, straight, trainer_stats):
+    """DINO ViT-S/8 (configs/dino.yaml with DP_OVERRIDES: parallel.fsdp) in
+    an NCCL process group of world size 1 started here (a TCP store on a
+    free port): the port's mesh published, the DINO trainer phase's
+    in-memory images through the loaders, ``fit(2)`` with every gradient
+    reduced (one reduce-scatter into the chunks, one all-reduce of the
+    replicated leaves), the weight sums, center and statistics all-reduced,
+    the parameters gathered for each step and freed after. Its last_model
+    against the trainer phase's straight fit(2) (``straight``): bit-equal,
+    or within the trainer's bars. One profile window of 3 train steps
+    counts NCCL's kernels and B1's. Prints the in-loop step beside the
+    straight trainer's and the peak memory; the group is destroyed at the
+    end. Returns the path's launches and the phase's numbers."""
+    import torch.distributed as dist
+
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose, to_container, validate_train_config
+    from vit_ssl_tpu_torch.data.builder import make_loaders
+    from vit_ssl_tpu_torch.models.builder import build_dino_network
+    from vit_ssl_tpu_torch.parallel import context as parallel_context
+    from vit_ssl_tpu_torch.parallel.mesh import mesh_from_config
+    from vit_ssl_tpu_torch.train.__main__ import get_trainer
+    from vit_ssl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    configs = Path(__file__).resolve().parent / "configs"
+    run_dir = str(Path(tmp) / "data_parallel")
+    config = compose(configs, "dino", DP_OVERRIDES + [f"hydra.run.dir={run_dir}"])
+    validate_train_config(config)
+    composed = to_container(config)
+    plain = to_container(compose(configs, "dino"))
+    diffs = config_differences(DINO_VIT_S8, plain)
+    for key in ("model", "data", "transforms"):
+        if composed[key] != plain[key]:
+            diffs.append(f"the overrides changed config.{key}")
+    if composed["parallel"] != dict(plain["parallel"], fsdp=True):
+        diffs.append("the overrides changed config.parallel beyond fsdp")
+    if diffs:
+        fail("the data-parallel phase's config is not configs/dino.yaml with "
+             "parallel.fsdp=true: " + "; ".join(diffs))
+    port = free_port()
+    print(f"== data parallel: configs/dino.yaml with {' '.join(DP_OVERRIDES)}, an NCCL "
+          f"process group of 1 rank (TCP store on 127.0.0.1:{port}), fit(2) over the "
+          f"DINO trainer's {TRAINER_IMAGES} in-memory images; {card}", flush=True)
+    store = dist.TCPStore("127.0.0.1", port, 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = mesh_from_config(config)
+        parallel_context.set_parallel_context(mesh)
+        images = np.random.default_rng(5).integers(
+            0, 256, (TRAINER_IMAGES, 96, 96, 3), dtype=np.uint8)
+        train_loader, val_loader = make_loaders(config, InMemoryImages(images))
+        trainer = get_trainer("dino", build_dino_network(config, "cuda"), run_dir, config,
+                              train_loader, val_loader, "cuda")
+        if trainer._fsdp is None or trainer.mesh is not mesh:
+            fail("the trainer did not take the published mesh and shard its state")
+        at_rest = trainer._fsdp.bytes_at_rest()
+        print(f"  mesh {mesh}, backend {dist.get_backend()}; fsdp bytes at rest per "
+              f"rank: {at_rest}", flush=True)
+        log = []
+        trainer.train_step = counted_steps(trainer.train_step, log)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with no_plain_attention(fa):
+            kernels.launches.clear()  # the data-parallel path starts here
+            trainer.fit(2)
+            launches = dict(kernels.launches)  # ... and ends here
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if len(log) != 18 or trainer.state.step != 18:
+            fail(f"the data-parallel fit(2) ran {len(log)} steps to step "
+                 f"{trainer.state.step}, expected 18")
+        for i, (_, got, _) in enumerate(log):
+            if got != attention_launches(fa):
+                fail(f"data-parallel train step {i} launched {got}")
+        got_tree, meta = load_checkpoint(str(Path(run_dir) / "last_model"))
+        mismatch = state_mismatch(torch, got_tree, straight)
+        bad, worst = state_close(torch, got_tree, straight)
+        if bad or meta["epoch"] != 2:
+            fail(f"the data-parallel last_model differs from the straight fit(2) beyond "
+                 f"the trainer's bars at {bad[:5]} (worst rel err {worst:.3e}; epoch "
+                 f"{meta['epoch']})")
+        print(f"  last_model against the DINO trainer's straight fit(2): "
+              + ("bit-equal (student, teacher, center, AdamW count and moments, step)"
+                 if mismatch is None else
+                 f"not bit-equal (first at {mismatch}), worst rel err {worst:.3e} "
+                 f"(<= {GRAD_REL_TOL['bfloat16']:g})"), flush=True)
+        step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(log[9:], log[10:])]
+        stats = {"step_ms_median": float(np.median(step_ms)), "peak_gb": peak_gb,
+                 "bit_equal": mismatch is None, "worst_rel_err": worst,
+                 "bytes_at_rest": at_rest,
+                 "straight_step_ms_median": trainer_stats["step_ms_median"],
+                 "straight_peak_gb": trainer_stats["peak_gb"]}
+        print(f"  in-loop step (epoch 2, median of {len(step_ms)} intervals) "
+              f"{stats['step_ms_median']:.3f} ms against the straight trainer's "
+              f"{trainer_stats['step_ms_median']:.3f} ms; peak memory {peak_gb:.2f} GB "
+              f"against {trainer_stats['peak_gb']:.2f} GB", flush=True)
+
+        batch = trainer._put(next(iter(train_loader)))
+        t_temp, t_momentum = trainer._teacher_temp(3), trainer._teacher_momentum(3)
+
+        def three_steps():
+            for _ in range(3):
+                trainer.train_step(trainer.state, batch, t_temp, t_momentum)
+
+        report = {}
+        backward = fa.BACKWARD_BODIES[fa.attention_nhd_bwd_form(TRAIN_CASES[0][1], 0,
+                                                                torch.bfloat16)]
+        with no_plain_attention(fa):
+            profile_window(torch, three_steps, "3 data-parallel training steps", rows=30,
+                           want=(NCCL_KERNEL, *backward),
+                           counts={name: 3 * attention_launches(fa)[fa.KERNEL_BWD]
+                                   for name in backward}, report=report)
+        counts = report["device_counts"]
+        nccl = {k: v for k, v in counts.items() if NCCL_KERNEL in k.lower()}
+        copies = {k: v for k, v in counts.items() if k.startswith("Memcpy DtoD")}
+        b1 = {k: v for k, v in counts.items()
+              if any(body in k for body in (*backward, *fa.FORWARD_BODIES.values()))}
+        if not nccl or not b1:
+            fail(f"the data-parallel window counted NCCL kernels {nccl} and B1 {b1}")
+        stats["window_nccl_kernels"], stats["window_b1_kernels"] = nccl, b1
+        stats["window_device_copies"] = copies
+        print(f"  in the window of 3 steps: NCCL's device operations {nccl} "
+              f"({sum(nccl.values())}; at one rank NCCL copies where several run its "
+              f"ring kernels), device-to-device copies {copies}; B1's kernels "
+              f"{sum(b1.values())} launches {b1}", flush=True)
+        del trainer, batch
+    finally:
+        parallel_context.set_parallel_context(None)
+        dist.destroy_process_group()
+    gc.collect()
+    return {"data_parallel": launches}, stats
+
+
+# The ring phase: ViT-B/16's 512-px attention as sp = RING_SP virtual ranks
+RING_CASE = (64, 12, 1025, 64, "bfloat16")
+RING_SP = 5
+
+
+def phase_ring(torch, fb, card):
+    """Ring attention's per-rank body (``parallel/ring_attention.py``) over
+    RING_SP virtual ranks in this process (the rotation an index shift) at
+    RING_CASE: the forward and backward through B2 (sp² forwards, sp² dq
+    and sp² dk/dv launches, counted), held against B2 on the whole
+    sequence and against the plain version with the B2 rows' bars (o by
+    :func:`forward_ok`, lse within LSE_REL_TOL, each gradient within
+    GRAD_REL_TOL floored as B2_GRAD_FLOOR says). Prints the ring's time
+    beside B2's on the whole sequence. Returns the path's launches and the
+    numbers."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.parallel.ring_attention import (virtual_ring_backward,
+                                                           virtual_ring_forward)
+
+    b, h, n, d, dtype_name = RING_CASE
+    sp = RING_SP
+    if n % sp:
+        fail(f"the ring's N = {n} is not divisible by sp = {sp}")
+    print(f"== ring: ({b},{h},{n},{d}) {dtype_name} as sp = {sp} virtual ranks of "
+          f"{n // sp} tokens, every hop through B2; {card}", flush=True)
+    q, k, v, do = heads_qkv(b, h, n, d, getattr(torch, dtype_name), seed=1200, count=4)
+    scale = 1.0 / d ** 0.5
+    torch.cuda.synchronize()
+    kernels.launches.clear()  # the ring's path starts here
+    o, lse = virtual_ring_forward(q, k, v, scale, sp)
+    grads = virtual_ring_backward(q, k, v, o, lse, do, scale, sp)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)  # ... and ends here
+    want = {fb.KERNEL: sp * sp, fb.KERNEL_DQ: sp * sp, fb.KERNEL_DKV: sp * sp}
+    if launches != want:
+        fail(f"the ring launched {launches}, expected {want}")
+    whole_o, whole_lse = fb.blockwise_attention_fwd(q, k, v, scale)
+    whole = fb.blockwise_attention_bwd(q, k, v, whole_o, whole_lse, do, scale)
+    ref_o, ref_lse = fb.blockwise_attention_reference(q, k, v, scale, fb.KERNEL_BLOCK_K)
+    ref = fb.blockwise_attention_bwd_reference(q, k, v, ref_o, ref_lse, do, scale)
+    torch.cuda.synchronize()
+    tol = GRAD_REL_TOL[dtype_name]
+    errs = {}
+    for label, (o_w, lse_w, g_w) in (("B2 on the whole sequence", (whole_o, whole_lse, whole)),
+                                      ("the plain version", (ref_o, ref_lse, ref))):
+        fwd_ok, fwd_tol = forward_ok(torch, o, o_w, dtype_name)
+        lse_err = rel_err(lse, lse_w)
+        rel = b2_grad_errs(q, k, v, do, scale, grads, g_w)
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        ok = fwd_ok and lse_err <= LSE_REL_TOL and max(rel) <= tol and finite
+        print(f"  against {label}: o max_abs_err {max_abs(o, o_w):.3e} ({fwd_tol}), lse "
+              f"rel_err {lse_err:.3e} (<= {LSE_REL_TOL:g}), dq/dk/dv rel_err "
+              + "/".join(f"{e:.3e}" for e in rel) + f" (<= {tol:g}, floored) "
+              + ("ok" if ok else "MISS"), flush=True)
+        if not ok:
+            fail(f"the ring disagrees with {label}")
+        errs[label] = {"o": max_abs(o, o_w), "lse_rel": lse_err, "grads_rel": rel,
+                       "grads_abs": [max_abs(g, w) for g, w in zip(grads, g_w)]}
+    del whole, ref, ref_o, ref_lse
+    ring_fwd = cuda_ms(lambda: virtual_ring_forward(q, k, v, scale, sp), iters=5, warmup=1)
+    ring_bwd = cuda_ms(lambda: virtual_ring_backward(q, k, v, o, lse, do, scale, sp),
+                       iters=5, warmup=1)
+    whole_fwd = cuda_ms(lambda: fb.blockwise_attention_fwd(q, k, v, scale), iters=10)
+    whole_bwd = cuda_ms(lambda: fb.blockwise_attention_bwd(q, k, v, whole_o, whole_lse,
+                                                           do, scale), iters=10)
+    stats = {"sp": sp, "ring_fwd_ms": ring_fwd, "ring_bwd_ms": ring_bwd,
+             "whole_fwd_ms": whole_fwd, "whole_bwd_ms": whole_bwd, "errors": errs}
+    print(f"  ring over {sp} virtual ranks (all hops and merges in one process): forward "
+          f"{ring_fwd:.4f} ms, backward {ring_bwd:.4f} ms; B2 on the whole sequence: "
+          f"forward {whole_fwd:.4f} ms, backward {whole_bwd:.4f} ms", flush=True)
+    del q, k, v, do, o, lse, grads, whole_o, whole_lse
+    gc.collect()
+    return {"ring": launches}, stats
+
+
 def named_moments(state, names):
     """An optimizer state's AdamW moments by ``mu.<param>``/``nu.<param>``."""
     return {f"{b}.{n}": t for b in ("mu", "nu")
@@ -4689,9 +4956,11 @@ def main() -> int:
     fused_train_launches = phase_training_fused(torch, fa, fm, warm_ms, card)
     scan_paths = phase_scan(torch, fa, card)
     with tempfile.TemporaryDirectory() as tmp:
-        trainer_launches, resumed_launches, _, dino_eval, straight = phase_trainer(
-            torch, fa, card, warm_ms, tmp)
+        trainer_launches, resumed_launches, trainer_stats, dino_eval, straight = \
+            phase_trainer(torch, fa, card, warm_ms, tmp)
         preempt_paths = phase_preempt(torch, fa, card, tmp, straight)
+        dp_paths, dp_stats = phase_data_parallel(torch, fa, card, tmp, straight,
+                                                 trainer_stats)
         del straight
         standalone_launches = phase_standalone_eval(torch, fa, card, Path(tmp) / "run",
                                                     dino_eval)
@@ -4737,6 +5006,7 @@ def main() -> int:
         profiled={body: 3 * blocks for body in B2_BWD_BODIES.values()},
         absent=B2_MMA_SYNC_BODIES)
     blockwise_stats = phase_blockwise_times(torch, fb, card)
+    ring_paths, ring_stats = phase_ring(torch, fb, card)
     probe_launches, p1_stats, p1_err = phase_exp2_probe(torch, fb, card)
     masked_stats = phase_masked_times(torch, mm, card)
     dropout_probe_launches, _ = phase_dropout_probe(torch, fm, mm, card)
@@ -4775,7 +5045,7 @@ def main() -> int:
              {**simmim_b1_rows["fwd"], "max_abs_err": simmim_err[0]}]}),
         (fa.KERNEL_TRAIN, "attention_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:352",
          train_errors[globals_case][0],
-         {**train_stats[("fwd", 0)], "at_other_shapes": [
+         {**train_stats[("fwd", 0)], "data_parallel": dp_stats, "at_other_shapes": [
              {**train_stats[("fwd", locals_case[-1])],
               "max_abs_err": train_errors[locals_case][0]},
              {**vit_b_rows["fwd_stats"], "max_abs_err": vit_b_err[0]},
@@ -4840,11 +5110,12 @@ def main() -> int:
     b2_case = blockwise_errors[BLOCKWISE_CASES[0]]
     entries += [
         (fb.KERNEL, "flash_blockwise_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_blockwise.py:76",
-         b2_case["fwd"], {**blockwise_stats["fwd"], "lse_max_abs_err": b2_case["lse"]}),
+         b2_case["fwd"], {**blockwise_stats["fwd"], "lse_max_abs_err": b2_case["lse"],
+                          "ring": ring_stats}),
         (fb.KERNEL_DQ, "attention_bwd_sm90.cuh", "vit_ssl_tpu/ops/flash_blockwise.py:217",
-         b2_case["dq"], blockwise_stats["dq"]),
+         b2_case["dq"], {**blockwise_stats["dq"], "ring": ring_stats}),
         (fb.KERNEL_DKV, "attention_bwd_sm90.cuh", "vit_ssl_tpu/ops/flash_blockwise.py:168",
-         b2_case["dkv"], blockwise_stats["dkv"]),
+         b2_case["dkv"], {**blockwise_stats["dkv"], "ring": ring_stats}),
         (fb.KERNEL_EXP2, "flash_blockwise_fwd_sm90.cuh", "scripts/exp2_probe.py:27",
          p1_err, p1_stats),
     ]
@@ -4887,7 +5158,8 @@ def main() -> int:
              "serving_supervised_fused": sup_fused_serve_launches, **sup_fused_paths,
              "serving_supervised_512": sup512_serve_launches, **sup512_paths,
              "exp2_probe": probe_launches, "dropout_epilogue_probe": dropout_probe_launches,
-             **preempt_paths, **scan_paths, **moe_paths, **patch_paths}
+             **preempt_paths, **scan_paths, **moe_paths, **patch_paths,
+             **dp_paths, **ring_paths}
     # the paths that run B4 at each width (ViT-L's 1024 runs on none yet)
     width_paths = {MLP_DIMS[0]: ("serving_fused", "training_fused", "dropout_epilogue_probe"),
                    VIT_B_MLP[0]: ("serving_supervised_fused", "training_supervised_fused",

@@ -321,10 +321,10 @@ REFUSALS = [
     (["training.fault_inject_preempt_step=3"], None),  # ported: see below
     (["parallel.tp=2"], 10),
     (["parallel.pp=2"], 10),
-    (["parallel.sp=2"], 10),
+    (["parallel.sp=2"], None),  # ported: see below
     (["parallel.ep=2", "model.moe_experts=2"], 10),
-    (["parallel.fsdp=true"], 10),
-    (["+parallel.multihost=true"], 10),
+    (["parallel.fsdp=true"], None),  # ported: see below
+    (["+parallel.multihost=true"], None),  # ported: see below
     (["eval.interval=1"], None),  # ported: see below
     (["parallel.remat=true"], None),  # ported: see below
     (["+training.grad_accum_steps=2"], None),  # ported: see below
@@ -347,7 +347,21 @@ def test_trainer_refusals_name_their_item(tmp_path, overrides, item, no_plots):
     ``training.fault_inject_preempt_step=3`` (2 train batches an epoch)
     stops fit(2) at epoch 2 after 1 batch, and a trainer auto-resumed from
     the preempt_model it saves ends bit-equal to fit(2) and removes it
-    (every mode: ``tests/test_torch_preempt.py``)."""
+    (every mode: ``tests/test_torch_preempt.py``); ``parallel.sp=2`` trains
+    over two gloo processes, the globals at 24 px (N = 10) ringing over both,
+    and ends as one process's fit(1) within the trainer's bars;
+    ``parallel.fsdp`` (dp = 1 without a process group: nothing to shard, as
+    in JAX) and ``parallel.multihost`` (read by the entry point only) give
+    fit(1)'s state bit for bit (across processes:
+    ``tests/test_torch_parallel_cli.py``)."""
+    if overrides == ["parallel.sp=2"]:
+        from torch_dist_worker import dino_fit, spawn
+
+        grown = TINY + ["data.img_size=24"]
+        spawn("dino_fit", 2, tmp_path / "sp", *grown, *overrides, timeout=180)
+        got = torch.load(tmp_path / "sp" / "dino_fit.pt", weights_only=True)
+        _trees_close(got, dino_fit(grown, tmp_path / "plain"))
+        return
     if overrides[0].startswith(("training.auto_resume", "training.fault_inject")):
         from vit_ssl_tpu_torch.train.__main__ import fit_with_preemption
         from vit_ssl_tpu_torch.utils.preempt import PreemptionRequested, clear_preemption
@@ -382,6 +396,8 @@ def test_trainer_refusals_name_their_item(tmp_path, overrides, item, no_plots):
         want = trainer_base.to_host(plain.state.state_dict())
         if overrides == ["parallel.remat=true"]:
             assert trainer.state.student.backbone.remat
+            _trees_equal(got, want)
+        elif overrides in (["parallel.fsdp=true"], ["+parallel.multihost=true"]):
             _trees_equal(got, want)
         elif overrides == ["eval.interval=1"]:
             _trees_equal(got, want)

@@ -15,8 +15,11 @@
   overrides, its SimMIM config the port's composition of
   ``configs/simmim.yaml`` as written, its preempt phase's fault lands
   mid-epoch 2, its V-MoE phase is V-MoE-B/16 "every-2" and its
-  patch-dropout phase's B1 case is (1024, 99), its bounds are the stated
-  arithmetic, and the script refuses to run without a card;
+  patch-dropout phase's B1 case is (1024, 99), its data-parallel phase's
+  config the port's composition of ``configs/dino.yaml`` with
+  ``parallel.fsdp=true``, its ring phase's shape ViT-B/16's 512-px one,
+  divisible by its sp, its bounds are the stated arithmetic, and the
+  script refuses to run without a card;
 - a self-attention longer than kernel B3 takes (N > 1024) runs kernel B2.
 """
 
@@ -510,3 +513,37 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_data_parallel_config_is_dino_yaml_with_fsdp():
+    """The data-parallel phase's config: the port's composition of
+    configs/dino.yaml with its overrides, which change only num_epochs (2,
+    as the trainer phase it is held to), eval.interval (0: the evaluations
+    leave the trained state as it is) and parallel.fsdp (true); its model,
+    data and transforms are DINO_VIT_S8's."""
+    from vit_ssl_tpu_torch.config import compose as port_compose
+    from vit_ssl_tpu_torch.config import to_container as port_to_container
+
+    smoke = _load_chip_smoke()
+    plain = port_to_container(port_compose(REPO / "configs", "dino"))
+    cfg = port_to_container(port_compose(REPO / "configs", "dino", smoke.DP_OVERRIDES))
+    assert cfg["parallel"] == dict(plain["parallel"], fsdp=True)
+    assert cfg["training"] == dict(plain["training"], num_epochs=2)
+    assert cfg["eval"] == dict(plain["eval"], interval=0)
+    for key in ("model", "data", "transforms"):
+        assert cfg[key] == plain[key], key
+    assert smoke.config_differences({k: smoke.DINO_VIT_S8[k] for k in
+                                     ("model", "data", "transforms")}, cfg) == []
+    assert set(smoke.TRAINER_OVERRIDES) - {"eval.interval=1"} <= set(smoke.DP_OVERRIDES)
+
+
+def test_chip_smoke_ring_shape_divides_by_its_sp():
+    """The ring phase runs ViT-B/16's 512-px attention (B2's first case,
+    N = (512 / 16)^2 + 1 = 1025) as sp virtual ranks: sp divides N."""
+    smoke = _load_chip_smoke()
+    b, h, n, d, dtype = smoke.RING_CASE
+    assert smoke.RING_CASE == smoke.BLOCKWISE_CASES[0]
+    img, patch = smoke.VIT_B16_512["data"]["img_size"], smoke.VIT_B16_512["model"]["patch_size"]
+    assert n == (img // patch) ** 2 + 1 and h == smoke.VIT_B16_512["model"]["num_heads"]
+    assert smoke.RING_SP > 1 and n % smoke.RING_SP == 0
+

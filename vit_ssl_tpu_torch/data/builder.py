@@ -4,7 +4,9 @@
 hands them to :func:`make_loaders`, the seeded train/val split by
 ``data.val_split`` and the two loaders; only the train loader shuffles.
 Several processes (``torch.distributed`` initialised) each load their
-interleaved slice of every global batch.
+interleaved slice of every global batch, by their rank and the size of the
+mesh's ``data`` axis (the seq ranks of one data index load the same rows,
+as JAX shards the batch over ``data`` only).
 
 - supervised and finetune (:func:`labeled_datasets`): a train and a val
   dataset over the same files (``data.dataset_name``: ``cifar10``,
@@ -49,12 +51,21 @@ from .loader import DataLoader
 logger = logging.getLogger(__name__)
 
 
-def _process_shard() -> Optional[Tuple[int, int]]:
-    import torch.distributed as dist
+def _process_shard(config) -> Optional[Tuple[int, int]]:
+    """(data rank, data size) of this process in ``config``'s mesh over the
+    started processes, or None: one process, a data axis of 1, or a
+    suspended context (a rank that evaluates alone). The seq ranks of one
+    data index load the same rows."""
+    from ..parallel.context import is_suspended
+    from ..parallel.mesh import DATA_AXIS, axis_sizes, coordinates, world
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        return dist.get_rank(), dist.get_world_size()
-    return None
+    rank, size = world()
+    if size <= 1 or is_suspended():
+        return None
+    sizes = axis_sizes(config, size)
+    if sizes[DATA_AXIS] <= 1:
+        return None
+    return coordinates(sizes, rank)[DATA_AXIS], sizes[DATA_AXIS]
 
 
 def dino_dataset(config) -> Dataset:
@@ -208,10 +219,10 @@ def make_loaders(config, train_full: Dataset,
     batch_size = config.get("training", {}).get(
         "batch_size", config.get("eval", {}).get("batch_size"))
     num_workers = int(config.data.num_workers)
-    process_shard = _process_shard()
+    process_shard = _process_shard(config)
     if process_shard is not None:
         logger.info(
-            "Data sharding: process %d/%d loads %d of every %d-sample "
+            "Data sharding: data rank %d/%d loads %d of every %d-sample "
             "global batch", process_shard[0], process_shard[1],
             int(batch_size) // process_shard[1], batch_size)
 

@@ -7,7 +7,9 @@ so that a test can hand JAX's draws to the port:
 
 - ``draw(generator, b, h, w)``: the parameters of b samples, as (b,)
   tensors, all from the one ``torch.Generator`` (whose streams differ from
-  ``jax.random``'s by design);
+  ``jax.random``'s by design); under data parallelism each draw is the data
+  rank's rows of the global batch's, so a dp-way run augments each image
+  as one process does;
 - ``apply(images, params)``: the op on (b, h, w, c) fp32 images in [0, 1]
   with those parameters.
 
@@ -30,6 +32,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import torch
 
 from ..ops.resample import resize_hw, weight_matrix
+from ..parallel.context import rand_rows
 
 Params = Dict[str, torch.Tensor]
 
@@ -79,8 +82,14 @@ def grayscale(img: torch.Tensor) -> torch.Tensor:
     return img[..., 0] * 0.299 + img[..., 1] * 0.587 + img[..., 2] * 0.114
 
 
+def _rand(generator, b):
+    """(b,) uniform draws: this data rank's rows of the global batch's
+    (:func:`..parallel.context.rand_rows`)."""
+    return rand_rows(generator, (b,))
+
+
 def _uniform(generator, b, low, high):
-    u = torch.rand(b, generator=generator, device=generator.device)
+    u = _rand(generator, b)
     return u * (high - low) + low
 
 
@@ -109,8 +118,8 @@ class RandomResizedCrop:
         aspect = torch.exp(log_r)
         cw = torch.clamp(torch.round(torch.sqrt(area * aspect)), 1, w)
         ch = torch.clamp(torch.round(torch.sqrt(area / aspect)), 1, h)
-        top = torch.rand(b, generator=generator, device=generator.device) * (h - ch)
-        left = torch.rand(b, generator=generator, device=generator.device) * (w - cw)
+        top = _rand(generator, b) * (h - ch)
+        left = _rand(generator, b) * (w - cw)
         return {"top": top, "left": left, "height": ch, "width": cw}
 
     def apply(self, img, p: Params):
@@ -129,7 +138,7 @@ class RandomHorizontalFlip:
         self.p = float(p)
 
     def draw(self, generator, b, h, w) -> Params:
-        u = torch.rand(b, generator=generator, device=generator.device)
+        u = _rand(generator, b)
         return {"flip": u < self.p}
 
     def apply(self, img, p: Params):
@@ -176,7 +185,7 @@ class RandomGrayscale:
         self.p = float(p)
 
     def draw(self, generator, b, h, w) -> Params:
-        u = torch.rand(b, generator=generator, device=generator.device)
+        u = _rand(generator, b)
         return {"gray": u < self.p}
 
     def apply(self, img, p: Params):

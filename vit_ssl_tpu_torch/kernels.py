@@ -52,6 +52,20 @@ launches: collections.Counter = collections.Counter()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+def refuse_dtensor(kernel: str, **tensors) -> None:
+    """Raise ``TypeError`` naming ``kernel`` and the argument when an input
+    is a ``torch.distributed`` ``DTensor``: the kernels take raw pointers
+    to whole local tensors, and a sharded ``DTensor``'s pointer is one
+    rank's chunk. The port's fsdp hands them the gathered parameters
+    (``parallel/fsdp.py``); a ``DTensor`` here is a fault upstream."""
+    for name, x in tensors.items():
+        if x is not None and type(x).__name__ == "DTensor":
+            raise TypeError(
+                f"{kernel}: {name} is a DTensor (placements "
+                f"{getattr(x, 'placements', '?')}); the hand-written kernels take "
+                "whole local tensors by pointer: gather it (full_tensor()) first")
+
+
 def nvcc_path() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     candidate = Path(cuda_home) / "bin" / "nvcc"

@@ -37,6 +37,8 @@ from torch import nn
 from ..ops import DynamicPatchEmbed
 from ..ops.encoder_block import remat_block, wants_remat
 from ..ops.initializers import bias_, check_scheme, init_, linear_, weight_
+from ..parallel.context import dp_sum
+from ..parallel.fsdp import local_tensors
 from .vit import block_kwargs, encoder_stack
 
 
@@ -243,22 +245,27 @@ def dino_loss(teacher_output, student_output, center, teacher_temp: float,
 
 def update_center(center, teacher_output, center_momentum: float, weight=None):
     """EMA of the center (1, K) toward the batch mean of the teacher output,
-    flattened to (rows, K); ``weight`` (rows,) excludes padding rows."""
+    flattened to (rows, K); ``weight`` (rows,) excludes padding rows. Under
+    data parallelism the mean is the global batch's: the weighted sum and
+    the weight sum go through one all-reduce over the data axis."""
     flat = teacher_output.reshape(-1, teacher_output.shape[-1]).float()
+    w = (torch.ones(flat.shape[0], 1, device=flat.device) if weight is None
+         else weight.reshape(-1, 1).float())
+    sums = dp_sum(torch.cat([(flat * w).sum(dim=0), w.sum().reshape(1)]))
     if weight is None:
-        batch_mean = flat.mean(dim=0, keepdim=True)
+        batch_mean = sums[None, :-1] / sums[-1]
     else:
-        w = weight.reshape(-1, 1).float()
-        batch_mean = (flat * w).sum(dim=0, keepdim=True) / torch.clamp(w.sum(), min=1.0)
+        batch_mean = sums[None, :-1] / torch.clamp(sums[-1], min=1.0)
     return center_momentum * center + (1.0 - center_momentum) * batch_mean
 
 
 @torch.no_grad()
 def momentum_update(teacher: nn.Module, student: nn.Module, momentum: float):
     """teacher ← momentum·teacher + (1 − momentum)·student, every parameter,
-    in place."""
-    t = [p for p in teacher.parameters()]
-    s = [p for p in student.parameters()]
+    in place; under ``parallel.fsdp`` chunk to chunk
+    (:func:`..parallel.fsdp.local_tensors`)."""
+    t = local_tensors(teacher)
+    s = local_tensors(student)
     torch._foreach_mul_(t, momentum)
     torch._foreach_add_(t, torch._foreach_mul(s, 1.0 - momentum))
 

@@ -29,6 +29,7 @@ from torch import nn
 from ..ops import extract_patches
 from ..ops.encoder_block import remat_block, wants_remat
 from ..ops.initializers import check_scheme, init_
+from ..parallel.context import rand_rows
 from .vit import block_kwargs, encoder_stack
 
 
@@ -36,13 +37,13 @@ def make_random_mask(generator: torch.Generator, batch: int, num_patches: int,
                      mask_ratio: float) -> torch.Tensor:
     """(batch, num_patches) bool on the generator's device, exactly
     int(num_patches · mask_ratio) True a row (scores tie with probability
-    0)."""
+    0); the scores are this data rank's rows of the global batch's
+    draws."""
     num_masked = int(num_patches * mask_ratio)
     if num_masked == 0:
         return torch.zeros(batch, num_patches, dtype=torch.bool,
                            device=generator.device)
-    scores = torch.rand(batch, num_patches, generator=generator,
-                        device=generator.device)
+    scores = rand_rows(generator, (batch, num_patches))
     kth = scores.sort(dim=-1).values[:, num_masked - 1:num_masked]
     return scores <= kth
 

@@ -23,8 +23,9 @@ the same weights, and refuses ``return_attn``, as JAX does.
 training, and never under ``return_attn``, each image keeps
 ``max(1, round(n·(1 − p)))`` of its n patch tokens after the positional
 embedding, the CLS token always: the first ones of the argsort of uniform
-scores drawn from the step's generator before any block draws
-(:func:`patch_keep_count`, :func:`draw_patch_scores`,
+scores drawn from the step's dropout generator before any block draws
+(under data parallelism each data rank's own draws, as for its dropout
+masks; :func:`patch_keep_count`, :func:`draw_patch_scores`,
 :func:`patch_keep_indices`, :func:`drop_patches`).
 
 ``moe_experts`` E > 0: blocks ``moe_every − 1, 2·moe_every − 1, …`` (the
@@ -54,8 +55,11 @@ def patch_keep_count(num_patches: int, rate: float) -> int:
 
 def draw_patch_scores(generator: torch.Generator, batch: int,
                       num_patches: int) -> torch.Tensor:
-    """(batch, num_patches) uniform fp32 scores on the generator's device."""
-    return torch.rand(batch, num_patches, generator=generator,
+    """(batch, num_patches) uniform fp32 scores on the generator's device,
+    from the forward's dropout stream (JAX draws them from its ``dropout``
+    rng): under data parallelism each data rank's own draws, as its
+    dropout masks are."""
+    return torch.rand((batch, num_patches), generator=generator,
                       device=generator.device)
 
 

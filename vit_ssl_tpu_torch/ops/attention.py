@@ -16,6 +16,11 @@ the JAX package picks it (``MultiHeadAttention.__call__``,
 
 (:func:`.flash_attention.attention_route`).
 
+With ``parallel.sp`` > 1 in the published mesh, self-attention without a
+block mask or ``return_attn`` runs as ring attention over the seq axis
+(:mod:`..parallel.ring_attention`) when sp divides N, before any of the
+above; DINO's packed locals never ring.
+
 ``return_attn`` (the attention visualizer), cross-attention and
 ``use_flash=False`` (the config's ``model.use_flash_attention=false``) take
 the plain math of :func:`scaled_dot_product_attention` and launch no
@@ -24,6 +29,7 @@ kernel, as the JAX package sends them to XLA.
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Optional
 
@@ -33,6 +39,11 @@ from torch import nn
 
 from .flash_attention import attention_nhd, attention_route, fused_attention
 from .flash_blockwise import blockwise_attention
+
+logger = logging.getLogger(__name__)
+
+# (N, sp) shapes whose fallback from the ring was logged
+_SP_FALLBACK_WARNED = set()
 
 
 def scaled_dot_product_attention(query, key, value, return_attn: bool = False,
@@ -99,7 +110,11 @@ class MultiHeadAttention(nn.Module):
         def heads(x, n):  # (B, N, H·D) -> (B, H, N, D)
             return x.reshape(b, n, self.num_heads, d_head).transpose(1, 2)
 
-        if self.use_flash and not return_attn and n_q == n_k:
+        ring = None
+        if not return_attn and not block_size and n_q == n_k:
+            ring = self._ring_group(n_q)
+
+        if ring is None and self.use_flash and not return_attn and n_q == n_k:
             xq, xk, xv = (self._proj(layer, x) for layer, x in (
                 (self.w_query, query), (self.w_key, key), (self.w_value, value)))
             route = attention_route(b, n_q, self.num_heads, self.d_model,
@@ -117,11 +132,48 @@ class MultiHeadAttention(nn.Module):
         q = heads(self._proj(self.w_query, query), n_q)
         k = heads(self._proj(self.w_key, key), n_k)
         v = heads(self._proj(self.w_value, value), n_k)
-        context, probs = scaled_dot_product_attention(
-            q, k, v, return_attn, block_size=block_size
-        )
+        if ring is not None:
+            from ..parallel.ring_attention import ring_attention
+
+            context, probs = ring_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), scale, ring,
+                plain=not self.use_flash), None
+        else:
+            context, probs = scaled_dot_product_attention(
+                q, k, v, return_attn, block_size=block_size
+            )
         context = context.transpose(1, 2).reshape(b, n_q, self.d_model)
         out = self._proj(self.final_linear, context)
         if return_attn:
             return out, probs
         return out
+
+    @staticmethod
+    def _ring_group(n: int):
+        """Sequence parallelism (``parallel.sp``, JAX
+        ``MultiHeadAttention._maybe_ring_attention``): the seq axis's group
+        when the published mesh has one whose size divides N, for the ring
+        (:func:`..parallel.ring_attention.ring_attention`: B2 at every hop
+        on the card, its plain versions with ``use_flash=False`` or on the
+        CPU), whose output is all-gathered along the sequence. None (the
+        single-device paths) when sp is off; an sp that does not divide N
+        falls back with one logged warning per shape."""
+        from ..parallel import context
+        from ..parallel.mesh import SEQ_AXIS
+
+        sp = context.sp_size()
+        if sp <= 1:
+            return None
+        if n % sp:
+            if (n, sp) not in _SP_FALLBACK_WARNED:
+                _SP_FALLBACK_WARNED.add((n, sp))
+                logger.warning(
+                    "parallel.sp=%d does not divide sequence length %d: this "
+                    "attention call falls back to the single-device path "
+                    "(replicated over the seq axis)", sp, n)
+            return None
+        group = context.axis_group(SEQ_AXIS)
+        if group is None:
+            raise RuntimeError(f"parallel.sp={sp} in the published mesh, but no process "
+                               "group: start the ranks with torch.distributed.run")
+        return group

@@ -499,6 +499,7 @@ def attention_nhd(xq, xk, xv, num_heads: int, scale: float,
     On the card: the training forward and backward kernels when a gradient
     is wanted, the inference kernel otherwise. On the CPU: the plain
     versions."""
+    kernels.refuse_dtensor("attention_nhd", xq=xq, xk=xk, xv=xv)
     if xq.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_nhd runs on cuda or cpu, not {xq.device}")
     if not _wants_grad(xq, xk, xv):
@@ -643,6 +644,7 @@ def fused_attention(q, k, v, scale: float):
     On the card: B3's training forward and backward kernels when a gradient
     is wanted, its inference kernel otherwise. On the CPU: the plain
     versions."""
+    kernels.refuse_dtensor("fused_attention", q=q, k=k, v=v)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention runs on cuda or cpu, not {q.device}")
     if not _wants_grad(q, k, v):

@@ -161,6 +161,18 @@ def blockwise_attention_bwd_reference(q, k, v, o, lse, do, scale: float,
     return _bwd_plain(q, k, v, do, lse, delta, scale)
 
 
+def blockwise_attention_bwd_dq_reference(q, k, v, o, lse, do, scale: float,
+                                         dlse=None):
+    """Plain version of :func:`blockwise_attention_bwd_dq`: (dq, δ)."""
+    delta = blockwise_attention_delta_reference(o, do.to(q.dtype), dlse)
+    return _bwd_plain(q, k, v, do, lse, delta, scale)[0], delta
+
+
+def blockwise_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale: float):
+    """Plain version of :func:`blockwise_attention_bwd_dkv`: (dk, dv)."""
+    return _bwd_plain(q, k, v, do, lse, delta, scale)[1:]
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 
@@ -332,8 +344,7 @@ def blockwise_attention_bwd_dq(q, k, v, o, lse, do, scale: float, dlse=None):
     card in bf16 a view of the kernel's padded δ). On a CUDA tensor kernel
     ``blockwise_bwd_dq``; on a CPU tensor the plain versions."""
     if q.device.type == "cpu":
-        delta = blockwise_attention_delta_reference(o, do.to(q.dtype), dlse)
-        return _bwd_plain(q, k, v, do, lse, delta, scale)[0], delta
+        return blockwise_attention_bwd_dq_reference(q, k, v, o, lse, do, scale, dlse)
     _require_cuda(q, "blockwise_attention")
     (b, h, n, d), do = _bwd_inputs(q, k, v, do, lse, scale)
     _check_rows("o", o, q.shape, q.dtype, q.device)
@@ -347,7 +358,7 @@ def blockwise_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float):
     (B, H, N) of any strides. On a CUDA tensor kernel ``blockwise_bwd_dkv``;
     on a CPU tensor the plain versions."""
     if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, do, lse, delta, scale)[1:]
+        return blockwise_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
     _require_cuda(q, "blockwise_attention")
     (b, h, n, d), do = _bwd_inputs(q, k, v, do, lse, scale)
     if tuple(delta.shape) != (b, h, n) or delta.dtype != torch.float32 \
@@ -411,7 +422,8 @@ def _wants_grad(*xs) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
-def _device_check(q) -> None:
+def _device_check(q, k, v) -> None:
+    kernels.refuse_dtensor("blockwise_attention", q=q, k=k, v=v)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"blockwise_attention runs on cuda or cpu, not {q.device}")
 
@@ -421,7 +433,7 @@ def blockwise_attention_lse(q, k, v, scale: float):
     row's log-sum-exp, fp32 (B, H, N); both outputs carry a gradient when an
     input requires one (the composition primitive of ring attention). On the
     card: B2's kernels; on the CPU: the plain versions."""
-    _device_check(q)
+    _device_check(q, k, v)
     if not _wants_grad(q, k, v):
         return blockwise_attention_fwd(q, k, v, scale)
     return _Blockwise.apply(q, k, v, scale, q.device.type == "cpu")

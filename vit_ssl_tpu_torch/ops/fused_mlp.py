@@ -298,6 +298,7 @@ def fused_mlp(x, w1, b1, w2, b2, mask=None, keep_prob: float = 1.0):
     On the card: the training forward and backward kernels when a gradient
     is wanted, the forward kernel otherwise. On the CPU: the plain
     versions."""
+    kernels.refuse_dtensor("fused_mlp", x=x, w1=w1, b1=b1, w2=w2, b2=b2, mask=mask)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mlp runs on cuda or cpu, not {x.device}")
     if not _wants_grad(x, w1, b1, w2, b2):

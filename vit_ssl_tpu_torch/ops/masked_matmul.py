@@ -214,6 +214,7 @@ def masked_matmul(h, mask, w2, b2, keep_prob: float):
     """(h · mask/keep_prob) · w2ᵀ + b2 over (T, d_ff) activations, in h's
     dtype, with a gradient for h, w2 and b2 when one requires it. ``mask``:
     a (T, d_ff) bool or uint8 keep-mask (nonzero = keep)."""
+    kernels.refuse_dtensor("masked_matmul", h=h, mask=mask, w2=w2, b2=b2)
     if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"masked_matmul runs on cuda or cpu, not {h.device}")
     if not (torch.is_grad_enabled() and any(x.requires_grad for x in (h, w2, b2))):

@@ -14,6 +14,22 @@ runs on the CUDA card unless ``--device cpu`` asks for the CPU; with no card
 and no such request it raises. The port trains every mode of the JAX
 package (``training.type``): DINO, SimMIM, supervised and finetune.
 
+Several processes, one device each (the parallel axes, ``parallel.*``):
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m vit_ssl_tpu_torch.train --config-name vit_b_imagenet    # dp=8 cards
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m vit_ssl_tpu_torch.train --device cpu parallel.sp=2 ...  # dp=2 × sp=2, gloo
+
+Under the launcher (``WORLD_SIZE`` > 1), or with ``parallel.multihost=true``,
+the entry point starts the process group from the launcher's environment
+(:func:`init_distributed`): NCCL with each process on ``cuda:$LOCAL_RANK``,
+or gloo with ``--device cpu``; a card whose NCCL fails raises, never falls
+back to gloo. The mesh of ``parallel.*`` is published before the loaders
+are built (they shard by the data rank). Rank 0 alone writes the run
+directory, ``.hydra/``, checkpoints and evaluations; the group is destroyed
+at the end, and a preemption exits 75 on every rank.
+
 Preemption (:mod:`..utils.preempt`): with ``training.preempt_checkpointing``
 (the default) SIGTERM or SIGUSR1 makes the trainer stop at the next batch
 boundary, write ``<run>/preempt_model`` and exit with code 75. Rerun with
@@ -97,33 +113,79 @@ def get_trainer(mode, network, save_path, config, train_loader, val_loader, devi
     return cls(network, save_path, config, train_loader, val_loader, device)
 
 
+def init_distributed(config, device=None):
+    """Start the process group when the launcher started several processes
+    (``WORLD_SIZE`` > 1 in the environment) or ``parallel.multihost`` asks
+    for one: ``env://`` rendezvous, gloo with a CPU device, else NCCL with
+    this process on ``cuda:$LOCAL_RANK``. Returns (device, whether it
+    started the group). No card and no ``--device cpu`` raises, as for one
+    process; an NCCL failure raises too."""
+    import torch
+    import torch.distributed as dist
+
+    from ..device import resolve_device
+
+    multihost = bool((config.get("parallel", {}) or {}).get("multihost", False))
+    world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    device = resolve_device(device)
+    if (world_size <= 1 and not multihost) or dist.is_initialized():
+        return device, False
+    if "MASTER_ADDR" not in os.environ:
+        raise RuntimeError(
+            "parallel.multihost=true needs the launcher's environment (RANK, "
+            "WORLD_SIZE, MASTER_ADDR, MASTER_PORT): run under python -m "
+            "torch.distributed.run")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", init_method="env://", device_id=device)
+    else:
+        dist.init_process_group("gloo", init_method="env://")
+    logger.info("Process group: rank %d of %d (%s) on %s", dist.get_rank(),
+                dist.get_world_size(), dist.get_backend(), device)
+    return device, True
+
+
 def run_single(config_path, config_name, overrides, device=None) -> str:
     from ..config import compose, preflight_eval_data, validate_train_config
     from ..data.builder import prepare_dataloaders
-    from ..device import resolve_device
     from ..models.builder import build_model
+    from ..parallel import context as parallel_context
+    from ..parallel.mesh import mesh_from_config
 
     config = compose(config_path, config_name, overrides)
     validate_train_config(config)
     preflight_eval_data(config)
     mode = str(config["training"]["type"]).lower()
-    device = resolve_device(device)
-    logger.info("Starting training with mode: %s on %s", mode, device)
+    device, started = init_distributed(config, device)
+    try:
+        logger.info("Starting training with mode: %s on %s", mode, device)
+        check_mode(mode)
+        mesh = mesh_from_config(config)
+        parallel_context.set_parallel_context(mesh)
+        logger.info("Device mesh: %s", mesh)
+        train_loader, val_loader = prepare_dataloaders(config, mode)
+        network = build_model(config, device)
 
-    check_mode(mode)
-    train_loader, val_loader = prepare_dataloaders(config, mode)
-    network = build_model(config, device)
+        save_path = get_save_path(config)
+        if parallel_context.is_rank_zero():
+            os.makedirs(save_path, exist_ok=True)
+            save_run_config(config, overrides, save_path)
+            logger.info("Run directory: %s", save_path)
+        parallel_context.barrier()
 
-    save_path = get_save_path(config)
-    os.makedirs(save_path, exist_ok=True)
-    save_run_config(config, overrides, save_path)
-    logger.info("Run directory: %s", save_path)
+        trainer = get_trainer(mode, network, save_path, config, train_loader,
+                              val_loader, device)
+        fit_with_preemption(trainer, config, save_path)
+        logger.info("Training completed for mode: %s", mode)
+        parallel_context.barrier()
+        return save_path
+    finally:
+        parallel_context.set_parallel_context(None)
+        if started:
+            import torch.distributed as dist
 
-    trainer = get_trainer(mode, network, save_path, config, train_loader,
-                          val_loader, device)
-    fit_with_preemption(trainer, config, save_path)
-    logger.info("Training completed for mode: %s", mode)
-    return save_path
+            dist.destroy_process_group()
 
 
 def fit_with_preemption(trainer, config, save_path: str) -> None:
@@ -169,7 +231,11 @@ def fit_with_preemption(trainer, config, save_path: str) -> None:
     finally:
         uninstall_preemption_handler()
     if auto_resumed:
-        shutil.rmtree(os.path.join(save_path, "preempt_model"), ignore_errors=True)
+        from ..parallel import context as parallel_context
+
+        parallel_context.barrier()  # every rank has read it
+        if parallel_context.is_rank_zero():
+            shutil.rmtree(os.path.join(save_path, "preempt_model"), ignore_errors=True)
 
 
 def run_multirun(args) -> List[str]:

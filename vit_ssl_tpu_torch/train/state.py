@@ -253,12 +253,24 @@ def make_optimizer(config, lr_schedule: Callable[[int], float],
     return _OPTIMIZERS[name](lr_schedule, params, trainable_mask)
 
 
-def step_generators(seed: int, step: int, n: int, device) -> List[torch.Generator]:
+def step_generators(seed: int, step: int, n: int, device,
+                    per_rank: Sequence[int] = ()) -> List[torch.Generator]:
     """Step ``step``'s n generators on ``device``, stream i seeded from
-    SeedSequence((seed, step, i))."""
+    SeedSequence((seed, step, i)). Under data parallelism (dp > 1) the
+    streams listed in ``per_rank`` (the dropout streams) fold the data rank
+    in, SeedSequence((seed, step, i, rank + 1)): each data rank draws its own
+    masks, while the seq ranks of one data index draw the same ones; the
+    other streams are the same on every rank (their per-image draws are
+    partitioned instead, :func:`..parallel.context.rand_rows`)."""
+    from ..parallel.context import data_rank, dp_size
+
+    ranked = set(per_rank) if dp_size() > 1 else set()
     gens = []
     for stream in range(n):
-        seq = np.random.SeedSequence((seed, step, stream))
+        # rank + 1: SeedSequence pads short entropy with zeros, so a
+        # trailing 0 would not change the stream
+        key = (seed, step, stream) + ((data_rank() + 1,) if stream in ranked else ())
+        seq = np.random.SeedSequence(key)
         value = int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
         gens.append(torch.Generator(device=device).manual_seed(value))
     return gens
@@ -284,10 +296,12 @@ class SupervisedTrainState:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
-    def next_generators(self, n: int, device=None) -> List[torch.Generator]:
-        """This step's n generators on ``device`` (default: the model's)."""
+    def next_generators(self, n: int, device=None,
+                        per_rank: Sequence[int] = ()) -> List[torch.Generator]:
+        """This step's n generators on ``device`` (default: the model's);
+        ``per_rank`` as :func:`step_generators` takes it."""
         device = self.device if device is None else torch.device(device)
-        return step_generators(self.seed, self.step, n, device)
+        return step_generators(self.seed, self.step, n, device, per_rank)
 
     def state_dict(self) -> Dict[str, Any]:
         """What a checkpoint holds: the step, the model's state dict (the
@@ -332,11 +346,13 @@ class TrainState:
     def device(self) -> torch.device:
         return self.center.device
 
-    def next_generators(self, n: int, device=None) -> List[torch.Generator]:
+    def next_generators(self, n: int, device=None,
+                        per_rank: Sequence[int] = ()) -> List[torch.Generator]:
         """This step's n generators on ``device`` (default: the state's),
-        stream i seeded from SeedSequence((seed, step, i))."""
+        stream i seeded from SeedSequence((seed, step, i)); ``per_rank`` as
+        :func:`step_generators` takes it."""
         device = self.device if device is None else torch.device(device)
-        return step_generators(self.seed, self.step, n, device)
+        return step_generators(self.seed, self.step, n, device, per_rank)
 
     def model_state_dict(self) -> Dict[str, torch.Tensor]:
         """The reference ``DINOViT`` layout: ``student_backbone.*``,

@@ -38,6 +38,17 @@ It updates the :class:`~.state.TrainState` in place and returns
 ``state.next_generators(4)``: student globals, student locals, teacher,
 augmentation.
 
+Data parallelism (a ``data`` axis in the published mesh,
+:mod:`..parallel.context`): every normaliser is the global batch's (the
+weight sums through :func:`~..parallel.context.dp_sum`), so the sum of the
+ranks' gradients, which the optimizer wrapper takes
+(:class:`~..parallel.data_parallel.DataParallelOptimizer`), is the global
+batch's gradient; each rank's ``loss`` is its share of the global loss (the
+trainers sum them). The dropout streams (dropout masks, patch-dropout
+scores) fold the data rank in (``per_rank``); the augmentation's and the
+mask's per-image draws are the rank's rows of the global batch's. DINO's
+center and statistics are the global batch's too.
+
 Gradient accumulation (``grad_accum > 1``) splits the batch into that many
 contiguous microbatches (a batch it does not divide raises ``ValueError``),
 each with its own generators (stream ``n·j + i`` of the step for stream i
@@ -61,6 +72,7 @@ import torch
 import torch.nn.functional as F
 
 from ..data.device_augment import to_unit_float
+from ..parallel.context import dp_size, dp_sum
 from ..models.dino import momentum_update, update_center
 from ..utils.metrics import dino_distribution_stats, psnr_stats, ssim_stats
 from .state import Optimizer, SupervisedTrainState, TrainState
@@ -137,7 +149,7 @@ def cross_entropy_loss(logits, labels, weight):
     (Σ w·ce / max(Σ w, 1)): padding rows of weight 0 drop out."""
     ce = F.cross_entropy(logits.float(), labels.long(), reduction="none")
     w = weight.float()
-    return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return (ce * w).sum() / torch.clamp(dp_sum(w.sum()), min=1.0)
 
 
 def make_supervised_steps(optimizer: Optimizer, augment_fn: Optional[Callable] = None,
@@ -183,7 +195,7 @@ def make_supervised_steps(optimizer: Optimizer, augment_fn: Optional[Callable] =
 
     def accumulated(state, params, batch):
         """(gradients, loss, predictions) over the microbatches."""
-        gens = state.next_generators(2 * grad_accum)
+        gens = state.next_generators(2 * grad_accum, per_rank=range(0, 2 * grad_accum, 2))
         grads, loss_sum, preds = _GradSum(params), 0.0, []
         for j, micro in enumerate(microbatches(batch, grad_accum)):
             g_dropout, g_augment = gens[2 * j:2 * j + 2]
@@ -195,7 +207,7 @@ def make_supervised_steps(optimizer: Optimizer, augment_fn: Optional[Callable] =
             grads.add(loss)
             loss_sum = loss_sum + loss.detach()
             preds.append(logits.detach().argmax(dim=-1))
-        w_total = torch.clamp(batch["weight"].float().sum(), min=1.0)
+        w_total = torch.clamp(dp_sum(batch["weight"].float().sum()), min=1.0)
         return grads.divided(w_total), loss_sum / w_total, torch.cat(preds)
 
     def train_step(state: SupervisedTrainState, batch, with_grads: bool = False):
@@ -204,10 +216,13 @@ def make_supervised_steps(optimizer: Optimizer, augment_fn: Optional[Callable] =
         if grad_accum > 1:
             grads, loss, preds = accumulated(state, params, batch)
         else:
-            g_dropout, g_augment = state.next_generators(2)
+            g_dropout, g_augment = state.next_generators(2, per_rank=(0,))
             logits, aux, dropped = forward_train(state.model,
                                                  images(batch, g_augment), g_dropout)
-            loss = cross_entropy_loss(logits, batch["label"], batch["weight"]) + aux
+            # the router loss is a mean over routing groups: each data
+            # rank's share of the global batch's mean
+            loss = (cross_entropy_loss(logits, batch["label"], batch["weight"])
+                    + aux / dp_size())
             grads = torch.autograd.grad(loss, params)
             preds = logits.detach().argmax(dim=-1)
         optimizer.update(params, grads, state.opt_state)
@@ -273,7 +288,7 @@ def make_simmim_steps(optimizer: Optimizer, patch_size: int, channels: int,
         mask_w = mask.float() * batch["weight"].float()[:, None]
         err = reconstruction_error(preds, targets, criterion)
         w = mask_w[..., None]
-        num, denom = (err * w).sum(), w.sum() * err.shape[-1]
+        num, denom = (err * w).sum(), dp_sum(w.sum()) * err.shape[-1]
         with torch.no_grad():
             clamped = preds.detach().clamp(0.0, 1.0)  # the predictions only
             sse, cnt = psnr_stats(clamped, targets, w)
@@ -283,7 +298,7 @@ def make_simmim_steps(optimizer: Optimizer, patch_size: int, channels: int,
                             "ssim_sum": ssim_sum, "ssim_count": ssim_cnt}
 
     def accumulated(state, params, batch):
-        gens = state.next_generators(3 * grad_accum)
+        gens = state.next_generators(3 * grad_accum, per_rank=range(0, 3 * grad_accum, 3))
         grads, num_sum, denom_sum, stats = _GradSum(params), 0.0, 0.0, None
         for j, micro in enumerate(microbatches(batch, grad_accum)):
             num, denom, part = forward(state, micro, False, *gens[3 * j:3 * j + 3])
@@ -298,7 +313,8 @@ def make_simmim_steps(optimizer: Optimizer, patch_size: int, channels: int,
         if grad_accum > 1:
             grads, loss, stats = accumulated(state, params, batch)
         else:
-            num, denom, stats = forward(state, batch, False, *state.next_generators(3))
+            num, denom, stats = forward(state, batch, False,
+                                        *state.next_generators(3, per_rank=(0,)))
             loss = num / torch.clamp(denom, min=1.0)
             grads = torch.autograd.grad(loss, params)
         optimizer.update(params, grads, state.opt_state)
@@ -326,7 +342,7 @@ def weighted_dino_loss(t, s, center, teacher_temp: float, student_temp: float,
     tp = F.softmax((t - center[None]) / teacher_temp, dim=-1)
     per = -(tp * sp.sum(dim=0)[None])  # (Vt, B, K)
     w = weight.float()[None, :, None]
-    return (per * w).sum() / torch.clamp(w.expand_as(per).sum(), min=1.0)
+    return (per * w).sum() / torch.clamp(dp_sum(w.expand_as(per).sum()), min=1.0)
 
 
 def make_dino_steps(optimizer: Optimizer, num_global_views: int, num_all_views: int,
@@ -397,14 +413,15 @@ def make_dino_steps(optimizer: Optimizer, num_global_views: int, num_all_views: 
     def accumulated(state: TrainState, params, batch, teacher_temp: float):
         """(gradients, loss, teacher views, student views, new center)."""
         micro = microbatches(batch, grad_accum)
-        gens = state.next_generators(4 * grad_accum)
+        dropout_streams = [4 * j + i for j in range(grad_accum) for i in range(3)]
+        gens = state.next_generators(4 * grad_accum, per_rank=dropout_streams)
         t_parts = [teacher_outputs(state, get_views(m, gens[4 * j + 3]), True,
                                    gens[4 * j + 2]) for j, m in enumerate(micro)]
         t = by_view(t_parts, ng)
         new_center = update_center(state.center, t, center_momentum,
                                    batch["weight"].repeat(ng))
         # the same streams again: each microbatch's views are pass A's
-        gens = state.next_generators(4 * grad_accum)
+        gens = state.next_generators(4 * grad_accum, per_rank=dropout_streams)
         grads, num_sum, s_parts = _GradSum(params), 0.0, []
         for j, m in enumerate(micro):
             g_student, g_locals, _, g_augment = gens[4 * j:4 * j + 4]
@@ -420,7 +437,7 @@ def make_dino_steps(optimizer: Optimizer, num_global_views: int, num_all_views: 
             num_sum = num_sum + num.detach()
             s_parts.append(s_mb.detach())
         k = t.shape[-1]
-        denom = torch.clamp(ng * k * batch["weight"].float().sum(), min=1.0)
+        denom = torch.clamp(dp_sum(ng * k * batch["weight"].float().sum()), min=1.0)
         return (grads.divided(denom), num_sum / denom, t, by_view(s_parts, na),
                 new_center)
 
@@ -431,7 +448,8 @@ def make_dino_steps(optimizer: Optimizer, num_global_views: int, num_all_views: 
             grads, loss, t, s, new_center = accumulated(state, params, batch,
                                                         teacher_temp)
         else:
-            t, s, new_center = outputs(state, batch, state.next_generators(4), True)
+            t, s, new_center = outputs(state, batch,
+                                       state.next_generators(4, per_rank=(0, 1, 2)), True)
             loss = weighted_dino_loss(t, s, new_center, teacher_temp, student_temp,
                                       batch["weight"])
             grads = torch.autograd.grad(loss, params)

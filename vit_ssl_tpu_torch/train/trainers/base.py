@@ -36,13 +36,27 @@ checkpoints embed the config. As in the JAX package:
   it restarts inside the interrupted epoch, skipping its trained batches
   (:meth:`BaseTrainer._train_batches`).
 
-Refused by name, each with its ``ROADMAP.md`` queue-A item:
-``parallel.{tp,pp,sp,ep} > 1``, ``parallel.fsdp`` and
-``parallel.multihost`` (item 10).
+Several processes (``torch.distributed``; ``train/__main__.py`` starts
+them under ``torch.distributed.run``): the trainer publishes the mesh of
+``parallel.*`` (:mod:`...parallel.context`) before it builds its steps,
+starts every rank from rank 0's weights, and wraps the optimizer so that
+each update takes the gradients summed over the ``data`` axis
+(:class:`...parallel.data_parallel.DataParallelOptimizer`); with
+``parallel.fsdp`` the state's large leaves are sharded over it
+(:class:`...parallel.fsdp.ShardedState`). ``parallel.sp`` rings attention
+over the ``seq`` axis inside the model. Epoch metrics are reduced over the
+data ranks, so every rank reports the single-process figures. Rank 0 alone
+writes checkpoints (full tensors) and runs the evaluations, over unsharded
+loaders with the mesh suspended, while the others wait; a preemption is
+agreed on by every rank at the same batch boundary.
+
+Refused by name, with its ``ROADMAP.md`` queue-A item:
+``parallel.{tp,pp,ep} > 1`` (item 10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -58,6 +72,10 @@ import torch
 from ...config import to_container
 from ...device import resolve_device
 from ...models.builder import config_mode
+from ...parallel import context as parallel_context
+from ...parallel.data_parallel import DataParallelOptimizer
+from ...parallel.fsdp import ShardedState
+from ...parallel.mesh import DATA_AXIS, axis_sizes, broadcast_module, mesh_from_config, world
 from ...utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from ...utils.history import TrainingHistory
 from ...utils.logger import Logger
@@ -71,18 +89,18 @@ logger = logging.getLogger(__name__)
 
 def refuse_unported_training(config) -> None:
     """Raise on a training option the port does not run yet, naming its
-    ``ROADMAP.md`` queue-A item."""
+    ``ROADMAP.md`` queue-A item: tensor, pipeline and expert parallelism.
+    dp, ``parallel.sp``, ``parallel.fsdp`` and ``parallel.multihost`` run."""
     parallel = config.get("parallel", {}) or {}
-    for axis in ("tp", "pp", "sp", "ep"):
+    for axis in ("tp", "pp", "ep"):
         if int(parallel.get(axis, 1) or 1) > 1:
             raise NotImplementedError(
                 f"parallel.{axis} > 1 is not ported yet; see ROADMAP.md queue A "
                 "item 10")
-    for flag in ("fsdp", "multihost"):
-        if bool(parallel.get(flag, False)):
-            raise NotImplementedError(
-                f"parallel.{flag}=true is not ported yet; see ROADMAP.md queue A "
-                "item 10")
+
+
+def _distributed() -> bool:
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
 
 
 def to_host(tree: Any) -> Any:
@@ -105,6 +123,9 @@ class BaseTrainer(ABC):
                  train_loader, val_loader, device=None):
         refuse_unported_training(config)
         self.device = resolve_device(device)
+        self.mesh = self._publish_mesh(config)
+        self.data_group = self.mesh.groups.get(DATA_AXIS)
+        self._fsdp = None
         self.network = network
         self.mode = config_mode(config)
         self.config = config
@@ -120,8 +141,7 @@ class BaseTrainer(ABC):
         self.eval_loaders = None
 
         self.lr_schedule = lr_schedule_from_config(config, max(1, len(train_loader)))
-        self.optimizer = make_optimizer(config, self.lr_schedule,
-                                        self._mask_list(self._trainable_mask()))
+        self.optimizer = self._make_optimizer(self._mask_list(self._trainable_mask()))
 
         self.metric_handler = MetricHandler(config)
         self.train_logger = Logger(
@@ -152,7 +172,62 @@ class BaseTrainer(ABC):
             config["training"].get("fault_inject_preempt_step", 0) or 0)
 
         self.state = self._init_state()
+        self._distribute_state()
         self._build_steps()
+        self._wrap_steps()
+
+    # -- the parallel axes ------------------------------------------------------
+    @staticmethod
+    def _publish_mesh(config):
+        """The mesh of ``parallel.*`` over the started processes, published
+        (the one already published when it has the same axes)."""
+        mesh = parallel_context.current_mesh()
+        if (mesh is None or mesh.shape != axis_sizes(config, world()[1])
+                or (mesh.device_mesh is not None) != _distributed()):
+            mesh = mesh_from_config(config)
+            parallel_context.set_parallel_context(mesh)
+        return mesh
+
+    def _make_optimizer(self, mask_list):
+        """The config's optimizer, wrapped to sum gradients over the data
+        axis when there is a process group."""
+        optimizer = make_optimizer(self.config, self.lr_schedule, mask_list)
+        if self.data_group is None:
+            return optimizer
+        return DataParallelOptimizer(optimizer, self.data_group, self._fsdp)
+
+    def _state_modules(self) -> List[torch.nn.Module]:
+        return [m for m in (getattr(self.state, n, None)
+                            for n in ("student", "teacher", "model")) if m is not None]
+
+    def _trained_params(self):
+        return self.optimizer.select(self.state.params)
+
+    def _distribute_state(self):
+        """Every rank starts from rank 0's weights (JAX's ``replicate``);
+        with ``parallel.fsdp`` the large leaves are then sharded over the
+        data axis and the optimizer updates the chunks."""
+        if self.data_group is None:
+            return
+        for module in self._state_modules():
+            broadcast_module(module)
+        if bool(self.config.get("parallel", {}).get("fsdp", False)):
+            self._fsdp = ShardedState(self._state_modules(), self.state.opt_state,
+                                      self._trained_params(), self.data_group)
+            self.optimizer.sharded = self._fsdp
+
+    def _wrap_steps(self):
+        """Under fsdp the steps run on the gathered parameters."""
+        if self._fsdp is not None:
+            self.train_step = self._fsdp.around(self.train_step)
+            self.eval_step = self._fsdp.around(self.eval_step)
+
+    def _host_state(self, keep: bool = True):
+        """The train state in host memory, full tensors (every rank takes
+        part under fsdp; ranks without ``keep`` get None)."""
+        if self._fsdp is not None:
+            return self._fsdp.host_state_dict(self.state, self._trained_params(), keep)
+        return to_host(self.state.state_dict()) if keep else None
 
     # -- hooks ---------------------------------------------------------------
     def _trainable_mask(self) -> Optional[Dict[str, bool]]:
@@ -243,15 +318,26 @@ class BaseTrainer(ABC):
     def _evaluate(self, epoch: int):
         """The unsupervised evaluation of ``eval.mode`` into
         ``save_path/epoch_{epoch}`` (``evaluation_summary.*`` and the UMAP
-        reports), over :attr:`eval_loaders`."""
+        reports), over :attr:`eval_loaders`: rank 0 alone, on the full
+        weights, with the mesh suspended, while the other ranks wait."""
         from ...evaluators.unsupervised_evaluator import run_evaluation
 
         logger.info("Running automatic evaluation (mode: %s)...", self.eval_mode)
         self.train_logger.pause()
-        run_evaluation(self.config, network=self._eval_network(),
-                       save_path=os.path.join(self.save_path, f"epoch_{epoch}"),
-                       loaders=self.eval_loaders, device=self.device)
+        with self._materialized():
+            if parallel_context.is_rank_zero():
+                with parallel_context.suspended():
+                    run_evaluation(self.config, network=self._eval_network(),
+                                   save_path=os.path.join(self.save_path,
+                                                          f"epoch_{epoch}"),
+                                   loaders=self.eval_loaders, device=self.device)
+            parallel_context.barrier()
         self.train_logger.resume()
+
+    def _materialized(self):
+        """The full parameters inside (under fsdp; a no-op otherwise)."""
+        return self._fsdp.materialized() if self._fsdp is not None \
+            else contextlib.nullcontext()
 
     def _log_memory_once(self):
         """One line after the first trained epoch: the card's peak memory."""
@@ -289,7 +375,14 @@ class BaseTrainer(ABC):
     # -- checkpointing ------------------------------------------------------------
     def _save(self, name: str, epoch: int, extra: Dict[str, Any]):
         """One host snapshot per epoch (best and last share it), then the
-        write on a thread."""
+        write on a thread; rank 0 alone snapshots and writes (under fsdp
+        every rank takes part in gathering the full tensors)."""
+        rank_zero = parallel_context.is_rank_zero()
+        if not rank_zero:
+            if self._fsdp is not None and self._snapshot_epoch != epoch:
+                self._host_state(keep=False)
+                self._snapshot_epoch = epoch
+            return
         os.makedirs(self.save_path, exist_ok=True)
         metadata = {
             "epoch": epoch,
@@ -300,7 +393,7 @@ class BaseTrainer(ABC):
         snapshot_ms = 0.0
         if self._snapshot_epoch != epoch:
             t0 = time.perf_counter()
-            self._snapshot = to_host(self.state.state_dict())
+            self._snapshot = self._host_state()
             snapshot_ms = (time.perf_counter() - t0) * 1e3
             self._snapshot_epoch = epoch
         self._join_pending_save()
@@ -348,10 +441,15 @@ class BaseTrainer(ABC):
         :meth:`resume_from`, the config, the mode and the best score. Its
         host snapshot and write times go to :attr:`save_times`."""
         self._join_pending_save()
-        os.makedirs(self.save_path, exist_ok=True)
+        path = os.path.join(self.save_path, "preempt_model")
+        rank_zero = parallel_context.is_rank_zero()
         t0 = time.perf_counter()
-        tree = to_host(self.state.state_dict())
+        tree = self._host_state(keep=rank_zero)
         snapshot_ms = (time.perf_counter() - t0) * 1e3
+        if not rank_zero:
+            parallel_context.barrier()  # rank 0 has written it
+            return path
+        os.makedirs(self.save_path, exist_ok=True)
         metadata = {
             "epoch": exc.epoch - 1,
             "preempt_epoch": exc.epoch,
@@ -360,12 +458,12 @@ class BaseTrainer(ABC):
             "mode": self.mode,
             **self._best_extra(),
         }
-        path = os.path.join(self.save_path, "preempt_model")
         t0 = time.perf_counter()
         save_checkpoint(path, tree, metadata)
         self.save_times.append({"name": "preempt_model", "epoch": exc.epoch,
                                 "snapshot_ms": snapshot_ms,
                                 "write_s": time.perf_counter() - t0})
+        parallel_context.barrier()
         return path
 
     def resume_from(self, path: str):
@@ -407,10 +505,16 @@ class BaseTrainer(ABC):
         return k
 
     def _restore(self, tree, metadata):
-        """Load a checkpoint's tree into the train state."""
-        self.state.load_state_dict(tree)
+        """Load a checkpoint's tree (full tensors, of any world size) into
+        the train state."""
+        if self._fsdp is not None:
+            self._fsdp.load_state_dict(self.state, tree, self._trained_params())
+        else:
+            self.state.load_state_dict(tree)
 
     def _vizualize(self):
+        if not parallel_context.is_rank_zero():
+            return
         try:
             self.history.vizualize(self.num_epochs)
         except ImportError:
@@ -442,16 +546,27 @@ class BaseTrainer(ABC):
                          start=skip)
 
     def _preempt_now(self) -> bool:
-        """The preemption flag, or the fault injection's trigger reached."""
-        if preemption_requested():
-            return True
-        if self._fault_inject and self._train_batches_seen >= self._fault_inject:
+        """The preemption flag, or the fault injection's trigger reached; with
+        several processes, true on every rank when it is on any (one host
+        all-reduce over the mesh's gloo group), so all stop at the same
+        batch boundary."""
+        now = preemption_requested()
+        if not now and self._fault_inject and \
+                self._train_batches_seen >= self._fault_inject:
             logger.warning("Fault injection: simulating preemption after %d train "
                            "batches (training.fault_inject_preempt_step)",
                            self._train_batches_seen)
             request_preemption()
-            return True
-        return False
+            now = True
+        group = self.mesh.host_group
+        if group is not None and torch.distributed.get_world_size(group) > 1:
+            flag = torch.tensor([int(now)], dtype=torch.int32)
+            torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
+                                         group=group)
+            if int(flag) and not now:
+                request_preemption()
+            now = bool(int(flag))
+        return now
 
     def _device_batches(self, loader, depth: int = 3, train_epoch=None, skip: int = 0):
         """Yield ``loader``'s batches on the device, their copies issued

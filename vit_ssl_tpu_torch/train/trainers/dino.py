@@ -22,6 +22,7 @@ import torch
 
 from ...config import to_container
 from ...models.dino import cosine_momentum_schedule, teacher_temp_schedule
+from ...parallel.context import dp_sum
 from ..state import TrainState
 from ..steps import make_dino_steps
 from .base import BaseTrainer
@@ -142,11 +143,13 @@ class DINOTrainer(BaseTrainer):
         return self._epoch_metrics(outs)
 
     def _epoch_metrics(self, outs) -> Dict[str, float]:
-        """One device-to-host fetch an epoch: every step's loss and the last
-        step's collapse statistics."""
+        """One device-to-host fetch an epoch: every step's loss (summed over
+        the data ranks: each holds its share) and the last step's collapse
+        statistics (the global batch's already)."""
         names = list(outs[-1]["dino_stats"])
-        host = torch.stack([o["loss"].float() for o in outs]
-                           + [outs[-1]["dino_stats"][k].float() for k in names]).cpu()
+        losses = dp_sum(torch.stack([o["loss"].float() for o in outs]))
+        host = torch.cat([losses, torch.stack(
+            [outs[-1]["dino_stats"][k].float() for k in names])]).cpu()
         losses, stats = host[:len(outs)], host[len(outs):]
         metrics = self.metric_handler.calculate_metrics(
             dino_stats=dict(zip(names, stats.tolist())))

@@ -24,6 +24,7 @@ from typing import Dict
 import torch
 
 from ...config import to_container
+from ...parallel.context import dp_sum
 from ..state import SupervisedTrainState, step_generators
 from ..steps import make_criterion, make_simmim_steps
 from .base import BaseTrainer
@@ -79,9 +80,9 @@ class SimMIMTrainer(BaseTrainer):
 
     def _epoch_metrics(self, outs) -> Dict[str, float]:
         """One device-to-host fetch an epoch: each step's loss and four
-        sums."""
-        host = torch.stack([torch.stack([o[k].float() for k in ("loss",) + _SUMS])
-                            for o in outs]).cpu().double()
+        sums, summed over the data ranks."""
+        host = dp_sum(torch.stack([torch.stack([o[k].float() for k in ("loss",) + _SUMS])
+                                   for o in outs])).cpu().double()
         totals = dict(zip(_SUMS, host[:, 1:].sum(dim=0).tolist()))
         metrics = self.metric_handler.calculate_metrics(**totals)
         metrics["Loss"] = float(host[:, 0].sum()) / max(len(outs), 1)

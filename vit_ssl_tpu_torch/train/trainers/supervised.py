@@ -44,7 +44,8 @@ from ...models.builder import (
     load_pretrained,
     load_weights,
 )
-from ..state import SupervisedTrainState, make_optimizer
+from ...parallel import context as parallel_context
+from ..state import SupervisedTrainState
 from ..steps import make_criterion, make_supervised_steps
 from .base import BaseTrainer
 
@@ -126,17 +127,19 @@ class SupervisedTrainer(BaseTrainer):
         """One device-to-host fetch an epoch: every step's loss and weight
         sum, and the predictions, labels and weights of every row (class
         indices are exact in fp32); with ``return_preds`` also the real
-        rows' predictions and labels."""
+        rows' predictions and labels. The losses and weight sums are summed
+        over the data ranks, the rows gathered in the global batches'
+        order."""
         n = len(outs)
-        host = torch.cat(
+        sums = parallel_context.dp_sum(torch.stack(
             [torch.stack([o["loss"].float() for o in outs]),
-             torch.stack([o["weight_sum"].float() for o in outs])]
-            + [torch.cat([o[key].float() for o in outs])
-               for key in ("preds", "labels", "weight")]).cpu().numpy()
-        losses, weight_sums = host[:n], host[n:2 * n]
-        rows = (len(host) - 2 * n) // 3
-        preds, labels, weight = (host[2 * n + i * rows: 2 * n + (i + 1) * rows]
-                                 for i in range(3))
+             torch.stack([o["weight_sum"].float() for o in outs])]))
+        rows = parallel_context.dp_gather_rows(torch.stack(
+            [torch.cat([o[key].float() for o in outs])
+             for key in ("preds", "labels", "weight")]), n)
+        sums, rows = sums.cpu().numpy(), rows.cpu().numpy()
+        losses, weight_sums = sums[0], sums[1]
+        preds, labels, weight = rows[0], rows[1], rows[2]
         real = weight > 0
         preds, labels = preds[real].astype(np.int64), labels[real].astype(np.int64)
         metrics = self.metric_handler.calculate_metrics(
@@ -178,8 +181,11 @@ class SupervisedTrainer(BaseTrainer):
 
         logger.info("Running automatic evaluation...")
         self.train_logger.pause()
-        run_evaluation(self.config, save_path=os.path.join(self.save_path, f"epoch_{epoch}"),
-                       accuracy=accuracy, preds=preds, labels=labels, device=self.device)
+        if parallel_context.is_rank_zero():
+            run_evaluation(self.config,
+                           save_path=os.path.join(self.save_path, f"epoch_{epoch}"),
+                           accuracy=accuracy, preds=preds, labels=labels,
+                           device=self.device)
         self.train_logger.resume()
 
     def _unfreeze_backbone(self):
@@ -188,11 +194,11 @@ class SupervisedTrainer(BaseTrainer):
         as the reference rebuilds its optimizer."""
         logger.info("Unfreezing backbone and rebuilding optimizer...")
         self._unfrozen = True
-        self.optimizer = make_optimizer(
-            self.config, self.lr_schedule,
+        self.optimizer = self._make_optimizer(
             self._mask_list(all_trainable_mask(self.network)))
         self.state.opt_state = self.optimizer.init(self.state.params)
         self._build_steps()
+        self._wrap_steps()
 
     def _restore(self, tree, metadata):
         """A checkpoint written after the unfreeze (at the end of that epoch

@@ -30,47 +30,63 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.context import dp_sum
+
 DINO_METRICS = ("CenterNorm", "TeacherMean", "TeacherSTD", "TeacherVar",
                 "StudentMean", "StudentSTD", "StudentVar", "CosineSim")
 
 
-def _stats(x, prefix: str, w=None) -> Dict[str, torch.Tensor]:
-    """Mean, unbiased STD and variance of x (V, B, K); with per-sample
-    weights w (B,), each real sample contributes its V·K elements."""
-    if w is None:
-        flat = x.reshape(-1)
-        mean, var = flat.mean(), flat.var(correction=1)
-    else:
-        wb = w[None, :, None]
-        count = torch.clamp(x.shape[0] * x.shape[2] * w.sum(), min=2.0)
-        mean = (x * wb).sum() / count
-        var = (wb * (x - mean) ** 2).sum() / (count - 1.0)
+def _stats(x, prefix: str) -> Dict[str, torch.Tensor]:
+    """Mean, unbiased STD and variance of all of x."""
+    flat = x.reshape(-1)
+    mean, var = flat.mean(), flat.var(correction=1)
     return {f"{prefix}Mean": mean, f"{prefix}STD": torch.sqrt(var),
             f"{prefix}Var": var}
+
+
+def _weighted_stats(t, s, cos, w) -> Dict[str, torch.Tensor]:
+    """The weighted means, unbiased STDs and variances of t and s (V, B, K)
+    and the mean cosine (Vt, Vs, B), each real sample contributing its
+    V·K elements, over the global batch: each rank's sums through two
+    all-reduces over the data axis (the means first, then the squared
+    deviations from them; one process sums alone)."""
+    wb = w[None, :, None]
+    first = dp_sum(torch.stack([(t * wb).sum(), (s * wb).sum(),
+                                (cos * w[None, None, :]).sum(), w.sum()]))
+    t_mean = first[0] / torch.clamp(t.shape[0] * t.shape[2] * first[3], min=2.0)
+    s_mean = first[1] / torch.clamp(s.shape[0] * s.shape[2] * first[3], min=2.0)
+    second = dp_sum(torch.stack([(wb * (t - t_mean) ** 2).sum(),
+                                 (wb * (s - s_mean) ** 2).sum()]))
+    out = {}
+    for prefix, x, mean, dev in (("Teacher", t, t_mean, second[0]),
+                                 ("Student", s, s_mean, second[1])):
+        count = torch.clamp(x.shape[0] * x.shape[2] * first[3], min=2.0)
+        var = dev / (count - 1.0)
+        out.update({f"{prefix}Mean": mean, f"{prefix}STD": torch.sqrt(var),
+                    f"{prefix}Var": var})
+    out["CosineSim"] = first[2] / torch.clamp(
+        cos.shape[0] * cos.shape[1] * first[3], min=1.0)
+    return out
 
 
 def dino_distribution_stats(teacher, student, center,
                             weight=None) -> Dict[str, torch.Tensor]:
     """teacher (Vt, B, K), student (Vs, B, K), center (1, K); ``weight``
     (B,) excludes padding rows (0/1 weights give the truncated batch's
-    stats exactly). Returns 0-d fp32 tensors keyed by ``DINO_METRICS``."""
+    stats exactly). Returns 0-d fp32 tensors keyed by ``DINO_METRICS``.
+    With a weight they are the global batch's under a data axis
+    (:mod:`..parallel.context`), as one process computes them."""
     t, s = teacher.float(), student.float()
-    w = None if weight is None else weight.float()
     t_norm = torch.linalg.vector_norm(t, dim=-1)  # (Vt, B)
     s_norm = torch.linalg.vector_norm(s, dim=-1)  # (Vs, B)
     dot = torch.einsum("tbk,sbk->tsb", t, s)
     cos = dot / (t_norm[:, None] * s_norm[None] + 1e-8)
-    if w is None:
-        cos_mean = cos.mean()
-    else:
-        cos_mean = (cos * w[None, None, :]).sum() / torch.clamp(
-            cos.shape[0] * cos.shape[1] * w.sum(), min=1.0)
-    return {
-        "CenterNorm": torch.linalg.vector_norm(center.float()),
-        **_stats(t, "Teacher", w),
-        **_stats(s, "Student", w),
-        "CosineSim": cos_mean,
-    }
+    center_norm = torch.linalg.vector_norm(center.float())
+    if weight is not None:
+        return {"CenterNorm": center_norm,
+                **_weighted_stats(t, s, cos, weight.float())}
+    return {"CenterNorm": center_norm, **_stats(t, "Teacher"), **_stats(s, "Student"),
+            "CosineSim": cos.mean()}
 
 
 def psnr_stats(preds, targets, weight):
