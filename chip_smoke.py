@@ -171,6 +171,19 @@ Phases, each printing its own lines; any failure exits non-zero:
               forwards, 25 dq and 25 dk/dv launches counted; against B2 on
               the whole sequence and the plain version at the B2 bars; the
               ring's forward and backward time beside B2's whole-sequence
+15b. tensor and expert parallel — the layers' per-rank bodies
+              (``parallel/tensor_parallel.py``) over virtual ranks in this
+              process, each against the unsharded layer from the same
+              parameters, inputs and dropout draws (output row cosine >=
+              0.999, every gradient's cosine >= 0.99, no plain version):
+              DINO ViT-S/8's block unfused and fused at (256, 145) and
+              packed (128, 148, block 37), and its head, at tp = 2 (B1 at
+              3 x 64 heads, B4 at 384 -> 768); a ViT-B/16 block at 384 px
+              (B3 at (64, 6, 577, 64)) and 512 px (B2 at (64, 6, 1025,
+              64)) at tp = 2; a V-MoE ViT-B/16 MoE block at ep = 4; the
+              launches counted at the local shapes, each way timed; then
+              each of those kernels at its local shape: kernel, plain,
+              SDPA and bound
 16. exp2 probe — ``vit_ssl_tpu_torch/scripts/exp2_probe.py``: P1
               (``blockwise_fwd_exp2``) against B2's forward, both timed; P1
               against its plain version
@@ -448,8 +461,14 @@ ATTENTION_CASES = [
     (1024, 197, 12, 64, "float32", 0),
     (128, 144, 6, 64, "bfloat16", 0),
 ]
+# B1's shapes at tp = 2 (TP_VIRTUAL: one rank's 3 of DINO ViT-S/8's 6
+# heads, 6 of ViT-B/16's 12), bf16: the student globals, the packed locals,
+# ViT-B/16 at 224 px
+TP_B1_CASES = [(256, 145, 3, 64, "bfloat16", 0), (128, 148, 3, 64, "bfloat16", 37),
+               (1024, 197, 6, 64, "bfloat16", 0)]
 # The training forward and backward: the student globals and packed locals
-# first (bf16 and fp32), then the other shapes the kernels take
+# first (bf16 and fp32), then the other shapes the kernels take, the tp = 2
+# shapes last
 TRAIN_CASES = [
     (256, 145, 6, 64, "bfloat16", 0),
     (256, 145, 6, 64, "float32", 0),
@@ -464,6 +483,7 @@ TRAIN_CASES = [
     (1024, 197, 12, 64, "float32", 0),
     (128, 144, 6, 64, "bfloat16", 0),
     (1024, 99, 12, 64, "bfloat16", 0),
+    *TP_B1_CASES,
 ]
 # ViT-B/16 at 224 px (configs/vit_b_imagenet.yaml): B1's shape on that path
 VIT_B_B1_CASE = (1024, 197, 12, 64, "bfloat16", 0)
@@ -491,7 +511,8 @@ B1_MMA_SYNC_MS = {("fwd", 128, 145, 0): 0.0828, ("fwd", 256, 145, 0): 0.1568,
 
 # Kernel B3 (head-major, no mask), (batch, heads, seq, head_dim, dtype):
 # ViT-B/16 at 384 px first (bf16, fp32), then N = 1, N = 1024 and ragged N
-# with the other head dims
+# with the other head dims, and the 384-px shape at tp = 2 (6 heads a rank)
+TP_B3_CASE = (64, 6, 577, 64, "bfloat16")
 FUSED_CASES = [
     (64, 12, 577, 64, "bfloat16"),
     (64, 12, 577, 64, "float32"),
@@ -503,11 +524,14 @@ FUSED_CASES = [
     (16, 4, 70, 32, "float32"),
     (16, 2, 203, 128, "bfloat16"),
     (16, 2, 203, 128, "float32"),
+    TP_B3_CASE,
 ]
 
 # Kernel B2 (blockwise flash attention), (batch, heads, seq, head_dim,
 # dtype): ViT-B/16 at 512 px first (bf16, fp32), then N = 1, a ragged
-# N <= 1024, N = 2048 and 4096, and head dims 32 and 128
+# N <= 1024, N = 2048 and 4096, head dims 32 and 128, and the 512-px shape
+# at tp = 2 (6 heads a rank)
+TP_B2_CASE = (64, 6, 1025, 64, "bfloat16")
 BLOCKWISE_CASES = [
     (64, 12, 1025, 64, "bfloat16"),
     (64, 12, 1025, 64, "float32"),
@@ -523,6 +547,7 @@ BLOCKWISE_CASES = [
     (16, 4, 300, 32, "float32"),
     (8, 2, 1100, 128, "bfloat16"),
     (8, 2, 1100, 128, "float32"),
+    TP_B2_CASE,
 ]
 # B2's lse: max |kernel - plain| over max |plain| (sums in another order;
 # the bf16 kernels' exponentials are ex2.approx or expf)
@@ -554,9 +579,14 @@ MLP_ROWS = [37120, 18944, 18560, 5365, 1, 70]
 MLP_DIMS = (384, 1536)  # d_model, d_ff of DINO ViT-S/8
 # B4 at the other widths it is built for, (T, d_model, d_ff): ViT-B/16 at
 # 384 px (64 x 577 tokens) and ViT-L/16 at 224 px (64 x 197), each with a
-# short ragged T
+# short ragged T; then the local widths at tp = 2 (half of d_ff a rank):
+# DINO ViT-S/8's 384 -> 768 at the student's two token counts
+# (TP_B4_CASES) and a ragged T, ViT-B/16's 768 -> 1536 at a full and a
+# ragged T
+TP_B4_CASES = [(37120, 384, 768), (18944, 384, 768)]
 MLP_WIDE_CASES = [(36928, 768, 3072), (70, 768, 3072), (12608, 1024, 4096),
-                  (1, 1024, 4096)]
+                  (1, 1024, 4096), *TP_B4_CASES, (70, 384, 768), (12608, 768, 1536),
+                  (70, 768, 1536)]
 KEEP_PROB = 0.9  # 1 - model.dropout
 # outputs and gradients: max |kernel - plain| over max |plain|. bf16: h and
 # dpre round to bf16 on both sides and may land on either side of a tie;
@@ -1271,7 +1301,7 @@ def phase_mlp_kernels(torch, fm):
     teacher), with the mask and pre saved (the student; its output must
     equal the masked forward's bit for bit), and the backward with and
     without the mask (from the plain forward's pre). Returns, per (T,
-    d_model, dtype), the max abs errors of each entry point."""
+    d_model, d_ff, dtype), the max abs errors of each entry point."""
     print("== kernels: fused_mlp_fwd, fused_mlp_fwd_pre and fused_mlp_bwd "
           "against fused_mlp_reference and fused_mlp_bwd_reference", flush=True)
     cases = [(t, *MLP_DIMS) for t in MLP_ROWS] + MLP_WIDE_CASES
@@ -1311,7 +1341,7 @@ def phase_mlp_kernels(torch, fm):
                 f"{'ok' if ok else 'MISS'}", flush=True)
             if not ok:
                 fail(f"fused MLP kernels disagree at T={t} d_model {d} {dtype_name}")
-            errors[(t, d, dtype_name)] = {
+            errors[(t, d, d_ff, dtype_name)] = {
                 "fwd": max_abs(out, plain), "fwd_pre": max_abs(out_pre, want),
                 "bwd_abs": bwd_abs,
                 "bwd_rel": {name: rel[f"bwd mask {name}"] for name in MLP_GRADS}}
@@ -3507,64 +3537,70 @@ MLP_TIMED = [
 
 
 def phase_mlp_times(torch, fm, card):
-    """Kernel B4 (bf16) at the main paths' token counts and widths: kernel
-    ms twice around its plain version and the unfused FFN chain of the same
-    function (its forward, or its autograd backward), CUDA events; the
-    wrapper's host microseconds a call; a profile of five calls, which must
-    name the entry's Hopper kernels (``fm.HOPPER_BODIES``)."""
+    """Kernel B4 (bf16) at the main paths' token counts and widths
+    (:func:`mlp_time_row` each, with its profile)."""
     print(f"== fused MLP times on {card} (bf16; the unfused chain is F.linear -> "
           f"GELU -> dropout16's where/divide on the same mask -> F.linear)",
           flush=True)
-    rows = {}
-    for part, t, with_mask, (d, d_ff) in MLP_TIMED:
-        x, w1, b1, w2, b2, mask, do = mlp_inputs(torch, t, torch.bfloat16, seed=500,
-                                                 dims=(d, d_ff))
-        mask = mask if with_mask else None
-        args = (x, w1, b1, w2, b2, mask, KEEP_PROB)
-        if part == "bwd":
-            _, pre = fm.fused_mlp_fwd(*args, save_pre=True)
-            ins = [y.detach().requires_grad_() for y in (x, w1, b1, w2, b2)]
-            chain_out = unfused_ffn(torch, *ins, mask, KEEP_PROB)
+    return {(part, t, dims[0]): mlp_time_row(torch, fm, part, t, with_mask, dims)
+            for part, t, with_mask, dims in MLP_TIMED}
 
-            def kernel():
-                return fm.fused_mlp_bwd(x, pre, do, w1, w2, mask, KEEP_PROB)
 
-            def plain():
-                return fm.fused_mlp_bwd_reference(x, pre, do, w1, w2, mask, KEEP_PROB)
+def mlp_time_row(torch, fm, part, t, with_mask, dims, profile=True):
+    """Kernel B4's entry ``part`` (bf16) at T = ``t`` and ``dims`` = (d_model,
+    d_ff): kernel ms twice around its plain version and the unfused FFN
+    chain of the same function (its forward, or its autograd backward),
+    CUDA events; the wrapper's host microseconds a call; with ``profile``, a
+    profile of five calls, which must name the entry's Hopper kernels
+    (``fm.HOPPER_BODIES``). Returns the row of the kernels line."""
+    d, d_ff = dims
+    x, w1, b1, w2, b2, mask, do = mlp_inputs(torch, t, torch.bfloat16, seed=500, dims=dims)
+    mask = mask if with_mask else None
+    args = (x, w1, b1, w2, b2, mask, KEEP_PROB)
+    if part == "bwd":
+        _, pre = fm.fused_mlp_fwd(*args, save_pre=True)
+        ins = [y.detach().requires_grad_() for y in (x, w1, b1, w2, b2)]
+        chain_out = unfused_ffn(torch, *ins, mask, KEEP_PROB)
 
-            def chain():
-                return torch.autograd.grad(chain_out, ins, do, retain_graph=True)
-        else:
-            save_pre = part == "fwd_pre"
+        def kernel():
+            return fm.fused_mlp_bwd(x, pre, do, w1, w2, mask, KEEP_PROB)
 
-            def kernel():
-                return fm.fused_mlp_fwd(*args, save_pre=save_pre)
+        def plain():
+            return fm.fused_mlp_bwd_reference(x, pre, do, w1, w2, mask, KEEP_PROB)
 
-            def plain():
-                return fm.fused_mlp_reference(*args, save_pre=save_pre)
+        def chain():
+            return torch.autograd.grad(chain_out, ins, do, retain_graph=True)
+    else:
+        save_pre = part == "fwd_pre"
 
-            def chain():
-                return unfused_ffn(torch, *args)
-        first = cuda_ms(kernel)
-        plain_ms = cuda_ms(plain, iters=10)
-        chain_ms = cuda_ms(chain)
-        second = cuda_ms(kernel)
-        wrapper_us = host_us(kernel)
-        bounds = mlp_bounds(t, d, d_ff, "bfloat16", with_mask, part == "fwd_pre")
-        bound_ms, bound_by = bounds["bwd" if part == "bwd" else "fwd"]
-        name = {"fwd": fm.KERNEL, "fwd_pre": fm.KERNEL_TRAIN, "bwd": fm.KERNEL_BWD}[part]
-        print(f"  {name} T={t} {d}->{d_ff} {'keep-mask' if with_mask else 'no mask'}: "
-              f"kernel {first:.4f} / {second:.4f} ms, plain {plain_ms:.4f} ms, unfused "
-              f"chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); the "
-              f"wrapper {wrapper_us:.1f} us a call on the host", flush=True)
-        rows[(part, t, d)] = {"ms": min(first, second), "ms_readings": [first, second],
-                              "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": None,
-                              "unfused_chain_ms": chain_ms, "wrapper_host_us": wrapper_us}
+        def kernel():
+            return fm.fused_mlp_fwd(*args, save_pre=save_pre)
+
+        def plain():
+            return fm.fused_mlp_reference(*args, save_pre=save_pre)
+
+        def chain():
+            return unfused_ffn(torch, *args)
+    first = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain, iters=10)
+    chain_ms = cuda_ms(chain)
+    second = cuda_ms(kernel)
+    wrapper_us = host_us(kernel)
+    bounds = mlp_bounds(t, d, d_ff, "bfloat16", with_mask, part == "fwd_pre")
+    bound_ms, bound_by = bounds["bwd" if part == "bwd" else "fwd"]
+    name = {"fwd": fm.KERNEL, "fwd_pre": fm.KERNEL_TRAIN, "bwd": fm.KERNEL_BWD}[part]
+    print(f"  {name} T={t} {d}->{d_ff} {'keep-mask' if with_mask else 'no mask'}: "
+          f"kernel {first:.4f} / {second:.4f} ms, plain {plain_ms:.4f} ms, unfused "
+          f"chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); the "
+          f"wrapper {wrapper_us:.1f} us a call on the host", flush=True)
+    if profile:
         profile_window(torch, lambda: [kernel() for _ in range(5)],
                        f"5 {name} calls at T={t}, d_model {d} (its kernels)", rows=5,
                        want=fm.HOPPER_BODIES[name])
-    return rows
+    return {"ms": min(first, second), "ms_readings": [first, second],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "unfused_chain_ms": chain_ms, "wrapper_host_us": wrapper_us,
+            "shape": [t, d, d_ff]}
 
 
 def masked_bounds(t, d_ff, d_out, dtype):
@@ -3906,66 +3942,113 @@ B3_MMA_SYNC_MS = {"fwd": 0.7726, "fwd_stats": 0.7659, "bwd": 1.5807}
 B3_MMA_SYNC_GRAD_ERRS = (1.3e-3, 1.3e-3, 2.0e-3)
 
 
-def phase_fused_times(torch, fa, card):
-    """B3's three entries at ViT-B/16's (64, 12, 577, 64) bf16, CUDA
-    events: kernel twice around its plain version, SDPA on the same
-    contiguous heads (forward; backward through autograd), and B1 on the
-    same data in its (64, 577, 768) layout; each beside the mma.sync body's
-    recorded time. Then profiles of 5 forward calls and 5 backward calls,
-    which must show the Hopper kernels by name. Returns the JSON rows."""
+def heads_time_rows(torch, fa, fb, route, q, k, v, do, same_data=None, before=None):
+    """B3's (``route`` "B3") or B2's ("B2") three bf16 entries on the
+    contiguous (B, H, N, D) heads q, k, v and cotangent do, CUDA events: each
+    kernel twice around its plain version (B2's backward kernels: the whole
+    plain backward, which computes both), then SDPA on the same heads
+    (forward; for a backward its whole autograd backward), then
+    ``same_data``'s (label, {part: function}) on the same data; ``before``:
+    each part's ms on the body the kernel replaced, printed beside. Returns
+    ({part: row}, {part: the kernel's call})."""
     import torch.nn.functional as F
 
+    b, h, n, d = q.shape
+    dtype_name = str(q.dtype).split(".")[-1]
+    scale = 1.0 / d ** 0.5
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True)
+
+    if route == "B3":
+        _, stats = fa.fused_attention_fwd_stats(q, k, v, scale)
+        bounds = attention_train_bounds(b, n, h, d, dtype_name, 0)
+        parts = {
+            "fwd": (fa.FUSED_KERNEL, lambda: fa.fused_attention_fwd(q, k, v, scale),
+                    lambda: fa.fused_attention_reference(q, k, v, scale), sdpa_fwd,
+                    attention_bound(b, n, h, d, dtype_name, 0)),
+            "fwd_stats": (fa.FUSED_KERNEL_TRAIN,
+                          lambda: fa.fused_attention_fwd_stats(q, k, v, scale),
+                          lambda: (fa.fused_attention_reference(q, k, v, scale),
+                                   fa.fused_attention_stats_reference(q, k, scale)),
+                          sdpa_fwd, bounds["fwd"]),
+            "bwd": (fa.FUSED_KERNEL_BWD,
+                    lambda: fa.fused_attention_bwd(q, k, v, do, stats, scale),
+                    lambda: fa.fused_attention_bwd_reference(q, k, v, do, scale),
+                    sdpa_bwd, bounds["bwd"])}
+    else:
+        out, lse = fb.blockwise_attention_fwd(q, k, v, scale)
+        _, delta = fb.blockwise_attention_bwd_dq(q, k, v, out, lse, do, scale)
+        bounds = blockwise_bounds(b, h, n, d, dtype_name)
+
+        def plain_bwd():
+            return fb.blockwise_attention_bwd_reference(q, k, v, out, lse, do, scale)
+
+        parts = {
+            "fwd": (fb.KERNEL, lambda: fb.blockwise_attention_fwd(q, k, v, scale),
+                    lambda: fb.blockwise_attention_reference(q, k, v, scale,
+                                                             fb.KERNEL_BLOCK_K),
+                    sdpa_fwd, bounds["fwd"]),
+            "dq": (fb.KERNEL_DQ,
+                   lambda: fb.blockwise_attention_bwd_dq(q, k, v, out, lse, do, scale),
+                   plain_bwd, sdpa_bwd, bounds["dq"]),
+            "dkv": (fb.KERNEL_DKV,
+                    lambda: fb.blockwise_attention_bwd_dkv(q, k, v, do, lse, delta, scale),
+                    plain_bwd, sdpa_bwd, bounds["dkv"])}
+    rows = {}
+    for part, (name, kernel, plain, library, (bound_ms, bound_by)) in parts.items():
+        first = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, iters=10)
+        library_ms = cuda_ms(library)
+        rows[part] = {"ms": None, "ms_readings": None, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                      "shape": [b, h, n, d]}
+        extra = ""
+        if same_data is not None:
+            label, fns = same_data
+            ms = cuda_ms(fns[part])
+            rows[part][label.replace(" ", "_") + "_ms"] = ms
+            extra = f", {label} {ms:.4f} ms"
+        second = cuda_ms(kernel)
+        rows[part].update(ms=min(first, second), ms_readings=[first, second])
+        replaced = "" if not before or part not in before else \
+            f", the mma.sync body it replaced {before[part]} ms"
+        print(f"  {name} ({b},{h},{n},{d}) {dtype_name}: kernel {first:.4f} / {second:.4f} "
+              f"ms{replaced}, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms{extra}, "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return rows, {part: entry[1] for part, entry in parts.items()}
+
+
+def phase_fused_times(torch, fa, card):
+    """B3's three entries at ViT-B/16's (64, 12, 577, 64) bf16
+    (:func:`heads_time_rows`), with B1 on the same data in its (64, 577,
+    768) layout timed beside, and the mma.sync body's recorded times. Then
+    profiles of 5 forward calls and 5 backward calls, which must show the
+    Hopper kernels by name. Returns the JSON rows."""
     b, h, n, d, dtype_name = FUSED_CASES[0]
     print(f"== B3 times on {card}: ({b},{h},{n},{d}) {dtype_name}", flush=True)
     q, k, v, do = heads_qkv(b, h, n, d, getattr(torch, dtype_name), seed=700, count=4)
     scale = 1.0 / d ** 0.5
-    _, stats = fa.fused_attention_fwd_stats(q, k, v, scale)
 
     def nhd(x):
         return x.transpose(1, 2).reshape(b, n, h * d).contiguous()
 
     xq, xk, xv, xdo = (nhd(x) for x in (q, k, v, do))
     _, b1_stats = fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale)
-    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-    parts = {
-        "fwd": (lambda: fa.fused_attention_fwd(q, k, v, scale),
-                lambda: fa.fused_attention_reference(q, k, v, scale),
-                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-                lambda: fa.attention_nhd_fwd(xq, xk, xv, h, scale),
-                attention_bound(b, n, h, d, dtype_name, 0), fa.FUSED_KERNEL),
-        "fwd_stats": (lambda: fa.fused_attention_fwd_stats(q, k, v, scale),
-                      lambda: (fa.fused_attention_reference(q, k, v, scale),
-                               fa.fused_attention_stats_reference(q, k, scale)),
-                      lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-                      lambda: fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale),
-                      attention_train_bounds(b, n, h, d, dtype_name, 0)["fwd"],
-                      fa.FUSED_KERNEL_TRAIN),
-        "bwd": (lambda: fa.fused_attention_bwd(q, k, v, do, stats, scale),
-                lambda: fa.fused_attention_bwd_reference(q, k, v, do, scale),
-                lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True),
-                lambda: fa.attention_nhd_bwd(xq, xk, xv, xdo, b1_stats, h, scale),
-                attention_train_bounds(b, n, h, d, dtype_name, 0)["bwd"],
-                fa.FUSED_KERNEL_BWD),
-    }
-    rows = {}
-    for part, (kernel, plain, library, b1, bound, name) in parts.items():
-        first = cuda_ms(kernel)
-        plain_ms = cuda_ms(plain, iters=10)
-        library_ms = cuda_ms(library)
-        b1_ms = cuda_ms(b1)
-        second = cuda_ms(kernel)
-        before = f", the mma.sync body it replaced {B3_MMA_SYNC_MS[part]} ms"
-        print(f"  {name}: kernel {first:.4f} / {second:.4f} ms{before}, plain "
-              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, B1 on the same data "
-              f"{b1_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
-        rows[part] = {"ms": min(first, second), "plain_ms": plain_ms,
-                      "bound_ms": bound[0], "bound_by": bound[1],
-                      "library_ms": library_ms, "b1_same_data_ms": b1_ms}
-    profile_window(torch, lambda: [parts["fwd"][0]() for _ in range(5)],
+    b1 = {"fwd": lambda: fa.attention_nhd_fwd(xq, xk, xv, h, scale),
+          "fwd_stats": lambda: fa.attention_nhd_fwd_stats(xq, xk, xv, h, scale),
+          "bwd": lambda: fa.attention_nhd_bwd(xq, xk, xv, xdo, b1_stats, h, scale)}
+    rows, calls = heads_time_rows(torch, fa, None, "B3", q, k, v, do,
+                                  same_data=("b1 same data", b1), before=B3_MMA_SYNC_MS)
+    profile_window(torch, lambda: [calls["fwd"]() for _ in range(5)],
                    "5 fused_attention_fwd calls (the Hopper body)", rows=4,
                    want="attention_fwd_sm90_kernel")
-    profile_window(torch, lambda: [parts["bwd"][0]() for _ in range(5)],
+    profile_window(torch, lambda: [calls["bwd"]() for _ in range(5)],
                    "5 fused_attention_bwd calls (the Hopper body's two kernels)", rows=4,
                    want=("attention_bwd_dq_sm90_kernel", "attention_bwd_dkv_sm90_kernel"))
     return rows
@@ -3983,61 +4066,20 @@ B2_MMA_SYNC_MS = {"dq": 1.2437, "dkv": 1.7576}
 
 
 def phase_blockwise_times(torch, fb, card):
-    """B2's three entries at ViT-B/16's (64, 12, 1025, 64) bf16, CUDA
-    events: kernel twice around its plain version (the forward at the
-    kernel's key tile; for the dq and dk/dv kernels the whole plain
-    backward, which computes both), and SDPA on the same contiguous heads
-    (forward; for both backward kernels its whole backward through
-    autograd), and the mma.sync backward's recorded times. Then a profile
-    of 5 backward calls, which must show the Hopper bodies 5 times each and
-    no mma.sync body. Returns the JSON rows."""
-    import torch.nn.functional as F
-
+    """B2's three entries at ViT-B/16's (64, 12, 1025, 64) bf16
+    (:func:`heads_time_rows`: the forward's plain version at the kernel's
+    key tile, the dq and dk/dv kernels' the whole plain backward; SDPA's
+    whole backward beside both), and the mma.sync backward's recorded
+    times. Then a profile of 5 backward calls, which must show the Hopper
+    bodies 5 times each and no mma.sync body. Returns the JSON rows."""
     b, h, n, d, dtype_name = BLOCKWISE_CASES[0]
     print(f"== B2 times on {card}: ({b},{h},{n},{d}) {dtype_name}", flush=True)
     q, k, v, do = heads_qkv(b, h, n, d, getattr(torch, dtype_name), seed=950, count=4)
     scale = 1.0 / d ** 0.5
-    out, lse = fb.blockwise_attention_fwd(q, k, v, scale)
-    _, delta = fb.blockwise_attention_bwd_dq(q, k, v, out, lse, do, scale)
-    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-    bounds = blockwise_bounds(b, h, n, d, dtype_name)
-
-    def plain_bwd():
-        return fb.blockwise_attention_bwd_reference(q, k, v, out, lse, do, scale)
-
-    def sdpa_bwd():
-        return torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True)
-
-    parts = {
-        "fwd": (lambda: fb.blockwise_attention_fwd(q, k, v, scale),
-                lambda: fb.blockwise_attention_reference(q, k, v, scale,
-                                                         fb.KERNEL_BLOCK_K),
-                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), fb.KERNEL),
-        "dq": (lambda: fb.blockwise_attention_bwd_dq(q, k, v, out, lse, do, scale),
-               plain_bwd, sdpa_bwd, fb.KERNEL_DQ),
-        "dkv": (lambda: fb.blockwise_attention_bwd_dkv(q, k, v, do, lse, delta, scale),
-                plain_bwd, sdpa_bwd, fb.KERNEL_DKV),
-    }
-    rows = {}
-    for part, (kernel, plain, library, name) in parts.items():
-        first = cuda_ms(kernel)
-        plain_ms = cuda_ms(plain, iters=10)
-        library_ms = cuda_ms(library)
-        second = cuda_ms(kernel)
-        bound_ms, bound_by = bounds[part]
-        row = {"ms": min(first, second), "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms}
-        extra = ""
-        if part in B2_MMA_SYNC_MS:
-            row["body"] = B2_BWD_BODIES[name]
-            extra = f", the mma.sync body it replaced {B2_MMA_SYNC_MS[part]} ms"
-        print(f"  {name}: kernel {first:.4f} / {second:.4f} ms{extra}, plain "
-              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})", flush=True)
-        rows[part] = row
-    rows["dq"]["plain_is"] = rows["dkv"]["plain_is"] = "the whole plain backward"
-    rows["dq"]["library_is"] = rows["dkv"]["library_is"] = "SDPA's whole backward"
+    rows, _ = heads_time_rows(torch, None, fb, "B2", q, k, v, do, before=B2_MMA_SYNC_MS)
+    for part, name in (("dq", fb.KERNEL_DQ), ("dkv", fb.KERNEL_DKV)):
+        rows[part].update(body=B2_BWD_BODIES[name], plain_is="the whole plain backward",
+                          library_is="SDPA's whole backward")
     print(f"  the pair: {rows['dq']['ms'] + rows['dkv']['ms']:.4f} ms, SDPA's whole backward "
           f"{rows['dq']['library_ms']:.4f} ms, the mma.sync pair "
           f"{B2_MMA_SYNC_MS['dq'] + B2_MMA_SYNC_MS['dkv']:.4f} ms", flush=True)
@@ -4046,6 +4088,7 @@ def phase_blockwise_times(torch, fb, card):
     f32_bound = blockwise_bounds(b, h, n, d, "float32")["fwd"]
     print(f"  {fb.KERNEL} float32 (CUDA cores): kernel {f32_ms:.4f} ms, bound "
           f"{f32_bound[0]:.4f} ms ({f32_bound[1]})", flush=True)
+    out, lse = fb.blockwise_attention_fwd(q, k, v, scale)
     profile_window(torch, lambda: [fb.blockwise_attention_bwd(q, k, v, out, lse, do, scale)
                                    for _ in range(5)],
                    "5 blockwise_attention_bwd calls (its two kernels)", rows=6,
@@ -4256,6 +4299,7 @@ def phase_data_parallel(torch, fa, card, tmp, straight, trainer_stats):
     from vit_ssl_tpu_torch.data.builder import make_loaders
     from vit_ssl_tpu_torch.models.builder import build_dino_network
     from vit_ssl_tpu_torch.parallel import context as parallel_context
+    from vit_ssl_tpu_torch.parallel.fsdp import ShardedState
     from vit_ssl_tpu_torch.parallel.mesh import mesh_from_config
     from vit_ssl_tpu_torch.train.__main__ import get_trainer
     from vit_ssl_tpu_torch.utils.checkpoint import load_checkpoint
@@ -4290,9 +4334,9 @@ def phase_data_parallel(torch, fa, card, tmp, straight, trainer_stats):
         train_loader, val_loader = make_loaders(config, InMemoryImages(images))
         trainer = get_trainer("dino", build_dino_network(config, "cuda"), run_dir, config,
                               train_loader, val_loader, "cuda")
-        if trainer._fsdp is None or trainer.mesh is not mesh:
+        if not isinstance(trainer._sharded, ShardedState) or trainer.mesh is not mesh:
             fail("the trainer did not take the published mesh and shard its state")
-        at_rest = trainer._fsdp.bytes_at_rest()
+        at_rest = trainer._sharded.bytes_at_rest()
         print(f"  mesh {mesh}, backend {dist.get_backend()}; fsdp bytes at rest per "
               f"rank: {at_rest}", flush=True)
         log = []
@@ -4442,6 +4486,217 @@ def phase_ring(torch, fb, card):
     del q, k, v, do, o, lse, grads, whole_o, whole_lse
     gc.collect()
     return {"ring": launches}, stats
+
+
+# Tensor and expert parallelism on the one card: the layers' per-rank bodies
+# (vit_ssl_tpu_torch/parallel/tensor_parallel.py) over virtual ranks in this
+# process, each held to the unsharded layer from the same parameters, inputs
+# and dropout draws (NCCL puts no two ranks on one device)
+TP_VIRTUAL = 2
+EP_VIRTUAL = 4
+TP_OUT_COSINE = 0.999  # each output row (PERF.md section 2's serving bar)
+TP_GRAD_COSINE = 0.99  # every gradient (the training bar)
+# the V-MoE block of MOE_OVERRIDES: 8 experts, top-2, routed per image
+TP_MOE = {"num_experts": 8, "moe_top_k": 2, "moe_capacity_factor": 1.25,
+          "moe_group_size": 197}
+
+
+def cosine(a, b) -> float:
+    """Cosine of two tensors taken whole (1 where both are zero)."""
+    a, b = a.detach().float().reshape(-1), b.detach().float().reshape(-1)
+    norms = float(a.norm() * b.norm())
+    return 1.0 if norms == 0.0 and not bool(a.any()) and not bool(b.any()) \
+        else float(a @ b) / max(norms, 1e-30)
+
+
+def min_row_cosine(a, b) -> float:
+    """The smallest cosine between matching rows (the last dim) of two tensors."""
+    a = a.detach().float().reshape(-1, a.shape[-1])
+    b = b.detach().float().reshape(-1, b.shape[-1])
+    return float(((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-30)).min())
+
+
+def tp_case(torch, label, module, call, x, sizes, want, guards, residual=False):
+    """``call(module, x, generator)``'s output and gradients (x's and every
+    parameter's, against a seeded cotangent) unsharded, then with the
+    module's per-rank bodies over the virtual ranks of ``sizes``
+    (``virtual_shards``), under ``guards``: the output within TP_OUT_COSINE
+    a row, every gradient within TP_GRAD_COSINE, and the kernels the virtual
+    run launched, counted, exactly ``want``. A ``residual`` block is held on
+    its branches alone: its output less x, x's gradient less the cotangent
+    (the identity path, which both ways share, would hide an error in the
+    branches). Both ways' forward and backward timed. Returns (launches,
+    stats)."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.parallel.tensor_parallel import virtual_shards
+
+    params = list(module.parameters())
+    with torch.no_grad():
+        out = call(module, x, torch.Generator(device="cuda").manual_seed(41))
+    cot = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(42),
+                      device="cuda").to(out.dtype)
+
+    def step():
+        xg = x.detach().requires_grad_()
+        out = call(module, xg, torch.Generator(device="cuda").manual_seed(41))
+        return out, torch.autograd.grad(out, [xg] + params, cot)
+
+    want_out, want_grads = step()
+    whole_ms = cuda_ms(step, iters=5, warmup=1)
+    with contextlib.ExitStack() as stack:
+        for guard in guards:
+            stack.enter_context(guard)
+        plan = stack.enter_context(virtual_shards(module, sizes))
+        torch.cuda.synchronize()
+        kernels.launches.clear()  # the sharded path starts here
+        got_out, got_grads = step()
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)  # ... and ends here
+        virtual_ms = cuda_ms(step, iters=5, warmup=1)
+    if residual:
+        got_out, want_out = (o.float() - x.float() for o in (got_out, want_out))
+        got_grads, want_grads = ([g[0].float() - cot.float(), *g[1:]]
+                                 for g in (got_grads, want_grads))
+    out_cos = min_row_cosine(got_out, want_out)
+    grad_cos = [cosine(g, w) for g, w in zip(got_grads, want_grads)]
+    finite = bool(torch.isfinite(got_out).all()) and all(
+        bool(torch.isfinite(g).all()) for g in got_grads)
+    ok = (launches == want and out_cos >= TP_OUT_COSINE and min(grad_cos) >= TP_GRAD_COSINE
+          and finite)
+    held = "branch output" if residual else "output"
+    print(f"  {label}: {len(plan)} tensors sharded over {sizes}; launched {launches}; "
+          f"{held} row cosine min {out_cos:.6f} (>= {TP_OUT_COSINE}), {len(grad_cos)} "
+          f"gradients' cosine min {min(grad_cos):.6f} (>= {TP_GRAD_COSINE}); forward and "
+          f"backward {virtual_ms:.3f} ms over the virtual ranks against {whole_ms:.3f} ms "
+          f"unsharded {'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        fail(f"{label}: the sharded layer launched {launches} (expected {want}) or "
+             "disagrees with the unsharded layer")
+    return launches, {"sizes": sizes, "launches": launches, "held": held,
+                      "out_row_cosine_min": out_cos,
+                      "grad_cosine_min": min(grad_cos), "virtual_ms": virtual_ms,
+                      "unsharded_ms": whole_ms}
+
+
+def phase_tensor_parallel(torch, fa, fb, fm, card):
+    """The per-rank bodies over virtual ranks, each against the unsharded
+    layer (:func:`tp_case`; a block on its branches), bf16 at full width: DINO ViT-S/8's encoder
+    block, unfused and fused, at the student's globals (256, 145) and packed
+    locals (128, 148, block 37), and its head, at tp = TP_VIRTUAL; one
+    ViT-B/16 block at 384 px (B3) and at 512 px (B2) at tp = TP_VIRTUAL; one
+    V-MoE ViT-B/16 MoE block at ep = EP_VIRTUAL. Every kernel runs at the
+    local shapes (3 or 6 heads a rank, d_ff 768 a rank), no plain version
+    allowed. Returns (launches by path, stats by path)."""
+    from vit_ssl_tpu_torch.models.dino import DINOHead
+    from vit_ssl_tpu_torch.ops.encoder_block import EncoderBlock
+
+    dino, vit_b = DINO_VIT_S8["model"], VIT_B16_384["model"]
+    tp, ep = {"model": TP_VIRTUAL}, {"expert": EP_VIRTUAL}
+    print(f"== tensor and expert parallel: the layers' per-rank bodies over virtual "
+          f"ranks (tp = {TP_VIRTUAL}, ep = {EP_VIRTUAL}) against the unsharded layers; "
+          f"{card}", flush=True)
+    guards = lambda: (no_plain_attention(fa), no_plain_mlp(fm))  # noqa: E731
+
+    def block(model, seed, fused=False, **kw):
+        torch.manual_seed(seed)
+        return EncoderBlock(model["embed_dim"], model["num_heads"], model["mlp_dim"],
+                            dtype=torch.bfloat16, dropout=model["dropout"],
+                            use_fused_mlp=fused, **kw).cuda()
+
+    def tokens(b, n, d, seed):
+        return torch.randn(b, n, d, generator=torch.Generator().manual_seed(seed)) \
+            .to(device="cuda", dtype=torch.bfloat16)
+
+    def through(bs=0, **kw):
+        return lambda m, x, g: m(x, bs, False, g, **kw)
+
+    b1 = {fa.KERNEL_TRAIN: TP_VIRTUAL, fa.KERNEL_BWD: TP_VIRTUAL}
+    b4 = {fm.KERNEL_TRAIN: TP_VIRTUAL, fm.KERNEL_BWD: TP_VIRTUAL}
+    d = dino["embed_dim"]
+    cases = []
+    for fused in (False, True):
+        net = block(dino, 1500, fused)
+        for where, x, bs in (("globals", tokens(256, 145, d, 1501), 0),
+                             ("packed", tokens(128, 148, d, 1502), 37)):
+            cases.append((f"tp_dino_block{'_fused' if fused else ''}_{where}",
+                          f"DINO ViT-S/8 block{' (fused)' if fused else ''}, {where} "
+                          f"{tuple(x.shape[:2])}{f' block {bs}' if bs else ''}",
+                          net, through(bs), x, tp, {**b1, **(b4 if fused else {})}, True))
+    torch.manual_seed(1503)
+    head = DINOHead(d, dino["output_dim"], dtype=torch.bfloat16).reset_parameters(
+        torch.Generator().manual_seed(1504)).cuda()
+    cases.append(("tp_dino_head", f"DINO head {d} -> 2048 -> 2048 -> {d} -> "
+                  f"{dino['output_dim']}", head, lambda m, x, g: m(x),
+                  tokens(1, 256, d, 1505)[0], tp, {}, False))
+    vit = block(vit_b, 1506)
+    cases += [
+        ("tp_vit_b_384", "ViT-B/16 block at 384 px (64, 577)", vit, through(),
+         tokens(64, 577, vit_b["embed_dim"], 1507), tp,
+         {fa.FUSED_KERNEL_TRAIN: TP_VIRTUAL, fa.FUSED_KERNEL_BWD: TP_VIRTUAL}, True),
+        ("tp_vit_b_512", "ViT-B/16 block at 512 px (64, 1025)", vit, through(),
+         tokens(64, 1025, vit_b["embed_dim"], 1508), tp,
+         {fb.KERNEL: TP_VIRTUAL, fb.KERNEL_DQ: TP_VIRTUAL, fb.KERNEL_DKV: TP_VIRTUAL}, True),
+        ("ep_vmoe_block", "V-MoE ViT-B/16 MoE block (64, 197), 8 experts, top-2",
+         block(vit_b, 1509, **TP_MOE), lambda m, x, g: m(x, 0, False, g, return_aux=True)[0],
+         tokens(64, 197, vit_b["embed_dim"], 1510), ep,
+         {fa.KERNEL_TRAIN: 1, fa.KERNEL_BWD: 1}, True),
+    ]
+    paths, stats = {}, {}
+    for name, label, module, call, x, sizes, want, residual in cases:
+        paths[name], stats[name] = tp_case(torch, label, module, call, x, sizes, want,
+                                           guards(), residual)
+    del cases, net, head, vit
+    gc.collect()
+    return paths, stats
+
+
+def phase_tp_times(torch, fa, fb, fm, card, errors):
+    """Each kernel of the tensor-parallel phase at one rank's local shape at
+    tp = TP_VIRTUAL, bf16, with its max_abs_err from the kernel checks
+    (``errors``: B1's, B4's, B3's and B2's by case): B1's training forward
+    and backward at TP_B1_CASES' DINO shapes, (256, 145, 3 x 64) and (128,
+    148, 3 x 64, block 37); B4's training forward and backward at
+    TP_B4_CASES (384 -> 768); B3's training entries at TP_B3_CASE; B2's at
+    TP_B2_CASE (:func:`heads_time_rows`). Returns {kernel: [rows]}."""
+    print(f"== kernel times at the tp = {TP_VIRTUAL} local shapes on {card} (bf16)",
+          flush=True)
+    rows = {}
+    for idx, case in enumerate(TP_B1_CASES[:2]):
+        b, n, h, d, dtype_name, bs = case
+        xq, xk, xv = qkv(b, n, h, d, torch.bfloat16, seed=1520 + idx)
+        (do,) = qkv(b, n, h, d, torch.bfloat16, seed=1530 + idx)[:1]
+        scale = 1.0 / d ** 0.5
+        bounds = attention_train_bounds(b, n, h, d, dtype_name, bs)
+        out_err, grad_err = errors["b1"][case]
+        rows.setdefault(fa.KERNEL_TRAIN, []).append({**b1_forward_row(
+            torch, fa, fa.KERNEL_TRAIN, f", tp = {TP_VIRTUAL} local heads", xq, xk, xv,
+            h, scale, bs, bounds["fwd"]), "max_abs_err": out_err})
+        rows.setdefault(fa.KERNEL_BWD, []).append({**b1_backward_row(
+            torch, fa, xq, xk, xv, do, h, scale, bs, bounds["bwd"]), "max_abs_err": grad_err})
+    for t, d_model, d_ff in TP_B4_CASES:
+        errs = errors["b4"][(t, d_model, d_ff, "bfloat16")]
+        for part, name, err in (("fwd_pre", fm.KERNEL_TRAIN, errs["fwd_pre"]),
+                                ("bwd", fm.KERNEL_BWD, errs["bwd_abs"]["dx"])):
+            rows.setdefault(name, []).append({**mlp_time_row(
+                torch, fm, part, t, True, (d_model, d_ff), profile=False), "max_abs_err": err})
+    for route, case, seed in (("B3", TP_B3_CASE, 1522), ("B2", TP_B2_CASE, 1523)):
+        b, h, n, d, dtype_name = case
+        q, k, v, do = heads_qkv(b, h, n, d, getattr(torch, dtype_name), seed=seed, count=4)
+        timed, _ = heads_time_rows(torch, fa, fb, route, q, k, v, do)
+        if route == "B3":
+            out_err, grad_err = errors["b3"][case]
+            named = {fa.FUSED_KERNEL_TRAIN: (timed["fwd_stats"], out_err),
+                     fa.FUSED_KERNEL_BWD: (timed["bwd"], grad_err)}
+        else:
+            errs = errors["b2"][case]
+            named = {fb.KERNEL: (timed["fwd"], errs["fwd"]),
+                     fb.KERNEL_DQ: (timed["dq"], errs["dq"]),
+                     fb.KERNEL_DKV: (timed["dkv"], errs["dkv"])}
+        for name, (row, err) in named.items():
+            rows.setdefault(name, []).append({**row, "max_abs_err": err})
+        del q, k, v, do
+    gc.collect()
+    return rows
 
 
 def named_moments(state, names):
@@ -5007,6 +5262,9 @@ def main() -> int:
         absent=B2_MMA_SYNC_BODIES)
     blockwise_stats = phase_blockwise_times(torch, fb, card)
     ring_paths, ring_stats = phase_ring(torch, fb, card)
+    tp_paths, tp_stats = phase_tensor_parallel(torch, fa, fb, fm, card)
+    tp_rows = phase_tp_times(torch, fa, fb, fm, card, {
+        "b1": train_errors, "b4": mlp_errors, "b3": fused_errors, "b2": blockwise_errors})
     probe_launches, p1_stats, p1_err = phase_exp2_probe(torch, fb, card)
     masked_stats = phase_masked_times(torch, mm, card)
     dropout_probe_launches, _ = phase_dropout_probe(torch, fm, mm, card)
@@ -5065,10 +5323,10 @@ def main() -> int:
     # and the backward (keep-mask); the backward's max_abs_err is dx's: the
     # weight gradients sum over T rows and are held to a relative bar, so
     # they are listed apart
-    for d_model, serve_rows, train_rows in ((MLP_DIMS[0], MLP_ROWS[2], MLP_ROWS[0]),
-                                            (VIT_B_MLP[0], 36928, 36928),
-                                            (VIT_L_MLP[0], 12608, 12608)):
-        errs = {dt: mlp_errors[(rows, d_model, "bfloat16")]
+    for (d_model, d_ff), serve_rows, train_rows in ((MLP_DIMS, MLP_ROWS[2], MLP_ROWS[0]),
+                                                    (VIT_B_MLP, 36928, 36928),
+                                                    (VIT_L_MLP, 12608, 12608)):
+        errs = {dt: mlp_errors[(rows, d_model, d_ff, "bfloat16")]
                 for dt, rows in (("serve", serve_rows), ("train", train_rows))}
         width = {"d_model": d_model}
         # the bf16 kernels each entry runs, with their ptxas registers and
@@ -5159,12 +5417,19 @@ def main() -> int:
              "serving_supervised_512": sup512_serve_launches, **sup512_paths,
              "exp2_probe": probe_launches, "dropout_epilogue_probe": dropout_probe_launches,
              **preempt_paths, **scan_paths, **moe_paths, **patch_paths,
-             **dp_paths, **ring_paths}
+             **dp_paths, **ring_paths, **tp_paths}
     # the paths that run B4 at each width (ViT-L's 1024 runs on none yet)
     width_paths = {MLP_DIMS[0]: ("serving_fused", "training_fused", "dropout_epilogue_probe"),
                    VIT_B_MLP[0]: ("serving_supervised_fused", "training_supervised_fused",
                                   "eval_supervised_fused"),
                    VIT_L_MLP[0]: ()}
+    # each kernel of the tensor-parallel phase at its tp-local shapes (B4: the
+    # 384 entries), the phase's checks beside B1's training forward
+    for name, _, _, _, stats in entries:
+        if name in tp_rows and stats.get("d_model", MLP_DIMS[0]) == MLP_DIMS[0]:
+            stats["tp_local_shapes"] = tp_rows[name]
+        if name == fa.KERNEL_TRAIN:
+            stats["tensor_parallel"] = tp_stats
     for name, _, _, _, stats in entries:
         if sum(p.get(name, 0) for p in paths.values()) == 0:
             fail(f"{name} was not launched on the main paths")

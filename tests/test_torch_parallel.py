@@ -1,6 +1,6 @@
 """The port's parallel axes (``vit_ssl_tpu_torch/parallel/``) against the JAX
-package's: the mesh from the config (its axes and JAX's refusals), tp, pp
-and ep still refused by the trainer, fsdp's sharding rule, the loaders
+package's: the mesh from the config (its axes and JAX's refusals), pp
+still refused by the trainer (tp and ep pass it), fsdp's sharding rule, the loaders
 sharded by the data rank under sp, the partitioned per-image draws, and
 one data-parallel step (plain and fsdp) over two gloo processes equal to
 the single-process step over the concatenated global batch, including a
@@ -82,14 +82,15 @@ def test_fsdp_conflicts_refused_as_jax(overrides):
         validate_train_config(_cfg(*(base + overrides)))
 
 
-@pytest.mark.parametrize("axis", ["tp", "pp", "ep"])
+@pytest.mark.parametrize("axis", ["pp"])
 def test_tp_pp_ep_still_refused(axis):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A item 10\b"):
         refuse_unported_training(_cfg(f"parallel.{axis}=2"))
 
 
 @pytest.mark.parametrize("overrides", [("parallel.sp=2",), ("parallel.fsdp=true",),
-                                       ("+parallel.multihost=true",)])
+                                       ("+parallel.multihost=true",), ("parallel.tp=2",),
+                                       ("parallel.ep=2", "model.moe_experts=2")])
 def test_sp_fsdp_multihost_pass_the_trainer(overrides):
     refuse_unported_training(_cfg(*overrides))
 

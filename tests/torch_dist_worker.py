@@ -1,5 +1,6 @@
 """One rank of a gloo process group on the CPU, for the port's parallel
-tests (``tests/test_torch_ring_attention.py``, ``tests/test_torch_parallel.py``).
+tests (``tests/test_torch_ring_attention.py``, ``tests/test_torch_parallel.py``,
+``tests/test_torch_tensor_parallel.py``).
 
     python tests/torch_dist_worker.py CASE RANK WORLD STORE_DIR OUT_DIR [ARGS...]
 
@@ -322,6 +323,156 @@ def case_preempt(rank, world, out, *overrides):
     except SystemExit as e:
         code = e.code
     np.savez(out / f"preempt_{rank}.npz", code=-1 if code is None else code)
+
+
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism (tests/test_torch_tensor_parallel.py)
+
+
+def _holder(**modules):
+    """A container naming each layer as the models do (the rule table keys
+    on ``self_attention``, ``moe``, ...)."""
+    from torch import nn
+
+    holder = nn.Module()
+    for name, module in modules.items():
+        setattr(holder, name, module)
+    return holder
+
+
+def tp_layer_cases():
+    """name → (mesh sizes, factory, call): each sharded layer at its tiny
+    width, seeded, and its forward with dropout drawn from a fresh seeded
+    generator (so every rank and the unsharded layer draw alike)."""
+    from vit_ssl_tpu_torch.models.dino import DINOHead
+    from vit_ssl_tpu_torch.ops.attention import MultiHeadAttention
+    from vit_ssl_tpu_torch.ops.encoder_block import EncoderBlock, remat_block
+    from vit_ssl_tpu_torch.ops.feed_forward import FeedForwardBlock
+    from vit_ssl_tpu_torch.ops.moe import MoEFeedForward
+
+    def gen():
+        return torch.Generator().manual_seed(7)
+
+    def seeded(build):
+        def factory():
+            torch.manual_seed(11)
+            return build()
+        return factory
+
+    def moe():
+        return _holder(moe=MoEFeedForward(32, 64, 4, dropout=0.1, router_noise=0.5))
+
+    tp, ep = {"data": 1, "model": 2}, {"data": 1, "expert": 2}
+    tp_ep = {"data": 1, "model": 2, "expert": 2}
+    return {
+        "attention": (tp, seeded(lambda: _holder(self_attention=MultiHeadAttention(32, 4))),
+                      lambda m, x: m.self_attention(x)),
+        "attention_packed": (tp, seeded(lambda: _holder(
+            self_attention=MultiHeadAttention(32, 4))),
+            lambda m, x: m.self_attention(x, block_size=5)),
+        "ffn": (tp, seeded(lambda: _holder(feed_forward=FeedForwardBlock(32, 64, 0.1))),
+                lambda m, x: m.feed_forward(x, False, gen())),
+        "ffn_fused": (tp, seeded(lambda: _holder(feed_forward=FeedForwardBlock(
+            32, 64, 0.1, use_fused=True))), lambda m, x: m.feed_forward(x, False, gen())),
+        "moe_tp": (tp, seeded(moe), lambda m, x: m.moe(x, False, gen())[0]),
+        "moe_ep": (ep, seeded(moe), lambda m, x: m.moe(x, False, gen())[0]),
+        "moe_tp_ep": (tp_ep, seeded(moe), lambda m, x: m.moe(x, False, gen())[0]),
+        "dino_head": (tp, seeded(lambda: DINOHead(32, 16, hidden_dim=64).reset_parameters(
+            torch.Generator().manual_seed(3))),
+                      lambda m, x: m(x[:, 0])),
+        "block_remat": (tp, seeded(lambda: _holder(block=EncoderBlock(32, 4, 64, dropout=0.1))),
+                        lambda m, x: remat_block(m.block, x, 0, False, gen())),
+    }
+
+
+def tp_layer_run(factory, call, x, cot, sharding=None):
+    """(output, gradients by name: ``x`` and every parameter) of one layer;
+    ``sharding(module)`` shards it first and returns the plan, by which the
+    local gradients are gathered whole."""
+    from vit_ssl_tpu_torch.parallel.tensor_parallel import gather_whole
+
+    module = factory()
+    specs, groups = sharding(module) if sharding is not None else ({}, {})
+    x = x.clone().requires_grad_()
+    out = call(module, x)
+    names = ["x"] + [n for n, _ in module.named_parameters()]
+    grads = torch.autograd.grad((out * cot).sum(), [x] + list(module.parameters()))
+    grads = {n: gather_whole(g, specs[n], groups) if n in specs else g
+             for n, g in zip(names, grads)}
+    return out.detach(), grads
+
+
+def tp_layer_inputs(seed=5):
+    """(x (2, 10, 32), the output cotangent's generator seed)."""
+    return torch.randn(2, 10, 32, generator=torch.Generator().manual_seed(seed))
+
+
+def case_tp_layers(rank, world, out):
+    """Every layer of :func:`tp_layer_cases` whose mesh is this world's size,
+    unsharded and sharded over it: the outputs and the whole gradients."""
+    from vit_ssl_tpu_torch.parallel.mesh import Mesh
+    from vit_ssl_tpu_torch.parallel.tensor_parallel import shard_module
+
+    res = {}
+    for name, (sizes, factory, call) in tp_layer_cases().items():
+        if int(np.prod(list(sizes.values()))) != world:
+            continue
+        mesh = Mesh(sizes, rank)
+        x = tp_layer_inputs()
+        with torch.no_grad():
+            shape = call(factory(), x).shape
+        cot = torch.randn(shape, generator=torch.Generator().manual_seed(6))
+        want_out, want = tp_layer_run(factory, call, x, cot)
+        got_out, got = tp_layer_run(factory, call, x, cot,
+                                    lambda m: (shard_module(m, mesh), mesh.groups))
+        res[f"{name}:out:want"], res[f"{name}:out:got"] = want_out.numpy(), got_out.numpy()
+        for n in want:
+            res[f"{name}:{n}:want"], res[f"{name}:{n}:got"] = want[n].numpy(), got[n].numpy()
+    np.savez(out / f"tp_layers_{rank}.npz", **res)
+
+
+def tp_dino_setup(group=None):
+    """The port's side of ``tests/test_sharding.py::
+    test_tp_sharded_dino_step_matches_replicated``: its network, AdamW at
+    lr 1e-3 (optax's default weight decay 1e-4; summing gradients over the
+    data ``group`` when one is given), train state and step."""
+    from vit_ssl_tpu_torch.models import DINONetwork
+    from vit_ssl_tpu_torch.parallel.data_parallel import DataParallelOptimizer
+    from vit_ssl_tpu_torch.train import AdamW, TrainState, make_dino_steps
+
+    net = DINONetwork(1, (3, 16, 16), 32, 8, 4, 64, dropout=0.0, output_dim=32,
+                      use_flash=False)
+    optimizer = AdamW(lambda step: 1e-3, weight_decay=1e-4)
+    if group is not None:
+        optimizer = DataParallelOptimizer(optimizer, group)
+    state = TrainState(net, optimizer, seed=0)
+    step, _ = make_dino_steps(optimizer, 2, 3, student_temp=0.1, center_momentum=0.9)
+    return optimizer, state, step
+
+
+def case_tp_dino_step(rank, world, out, inputs):
+    """One DINO step at tp = world from the reference-layout weights and
+    batch in ``inputs`` (npz): rank 0 saves the loss and the whole state
+    after it (the reference layout)."""
+    from vit_ssl_tpu_torch.parallel import context
+    from vit_ssl_tpu_torch.parallel.mesh import Mesh
+    from vit_ssl_tpu_torch.parallel.tensor_parallel import TensorParallelState
+
+    data = dict(np.load(inputs))
+    mesh = Mesh({"data": 1, "model": world}, rank)
+    context.set_parallel_context(mesh)
+    optimizer, state, step = tp_dino_setup(mesh.groups["data"])
+    state.load_model_state_dict({k[3:]: torch.from_numpy(v) for k, v in data.items()
+                                 if k.startswith("sd:")})
+    trained = optimizer.select(state.params)
+    tp = TensorParallelState({"student": state.student, "teacher": state.teacher},
+                             state.opt_state, trained, mesh)
+    batch = {"views": [torch.from_numpy(data[f"view{i}"]) for i in range(3)],
+             "weight": torch.from_numpy(data["weight"])}
+    result = step(state, batch, 0.04, 0.996)
+    tree = tp.host_state_dict(state, trained)
+    if rank == 0:
+        torch.save({"loss": float(result["loss"]), "state": tree}, out / "tp_dino_step.pt")
 
 
 def spawn(case, world, tmp, *args, timeout=240):

@@ -39,6 +39,7 @@ from ..ops.encoder_block import remat_block, wants_remat
 from ..ops.initializers import bias_, check_scheme, init_, linear_, weight_
 from ..parallel.context import dp_sum
 from ..parallel.fsdp import local_tensors
+from ..parallel.tensor_parallel import axis_of, linear_body, run
 from .vit import block_kwargs, encoder_stack
 
 
@@ -114,10 +115,18 @@ class WeightNormDense(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features, device=device))
 
     def forward(self, x):
-        g = self.parametrizations.weight.original0.float()
-        v = self.parametrizations.weight.original1.float()
-        weight = g * v / (torch.linalg.vector_norm(v, dim=1, keepdim=True) + 1e-12)
-        return F.linear(x.float(), weight, self.bias.float())
+        """Under tensor parallelism (the output dim K sharded) each rank's
+        rows of v are normalised where they lie, and the (rows, K) output is
+        gathered."""
+        parts = self.parametrizations.weight
+
+        def body(x, g, v, bias, rank, size):
+            g, v = g.float(), v.float()
+            weight = g * v / (torch.linalg.vector_norm(v, dim=1, keepdim=True) + 1e-12)
+            return F.linear(x.float(), weight, bias.float())
+
+        return run(axis_of(self), body, (x,), (parts.original0, parts.original1, self.bias),
+                   (0, 0, 0), "cat")
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -155,13 +164,23 @@ class DINOHead(nn.Module):
                                                init_scheme)
 
     def forward(self, x):
+        """Under tensor parallelism (JAX's rule rows) ``mlp.0`` is
+        column-parallel and ``mlp.2`` row-parallel (its partial outputs
+        summed, its bias added once after), ``mlp.4`` column-parallel with
+        its output gathered for the fp32 L2 normalise, which needs the whole
+        row, and ``fully_connected`` gathers its (rows, K) output."""
         dt = self.dtype
-        x = x.to(dt)
-        for i in (0, 2, 4):
-            layer = self.mlp[i]
-            x = F.linear(x, layer.weight.to(dt), layer.bias.to(dt))
-            if i < 4:
-                x = _gelu_erf(x)
+        l0, l2, l4 = self.mlp[0], self.mlp[2], self.mlp[4]
+        b2 = l2.bias.to(dt)
+
+        def hidden(x, w0, b0, w2, rank, size):
+            h = _gelu_erf(F.linear(x, w0.to(dt), b0.to(dt)))
+            return F.linear(h, w2.to(dt), b2 if size == 1 else None)
+
+        axis = axis_of(l0)
+        x = run(axis, hidden, (x.to(dt),), (l0.weight, l0.bias, l2.weight), (0, 0, 1))
+        x = _gelu_erf(x if axis is None else x + b2)
+        x = run(axis_of(l4), linear_body, (x,), (l4.weight, l4.bias), (0, 0), "cat")
         x32 = x.float()
         x = (x32 / torch.clamp(torch.linalg.vector_norm(x32, dim=1, keepdim=True),
                                min=1e-12)).to(dt)
@@ -263,7 +282,8 @@ def update_center(center, teacher_output, center_momentum: float, weight=None):
 def momentum_update(teacher: nn.Module, student: nn.Module, momentum: float):
     """teacher ← momentum·teacher + (1 − momentum)·student, every parameter,
     in place; under ``parallel.fsdp`` chunk to chunk
-    (:func:`..parallel.fsdp.local_tensors`)."""
+    (:func:`..parallel.fsdp.local_tensors`), under tensor parallelism shard
+    to shard (the teacher is sharded as the student)."""
     t = local_tensors(teacher)
     s = local_tensors(student)
     torch._foreach_mul_(t, momentum)

@@ -30,6 +30,7 @@ from ..ops import extract_patches
 from ..ops.encoder_block import remat_block, wants_remat
 from ..ops.initializers import check_scheme, init_
 from ..parallel.context import rand_rows
+from ..parallel.tensor_parallel import axis_of, linear_body, run
 from .vit import block_kwargs, encoder_stack
 
 
@@ -111,8 +112,11 @@ class SimMIMViT(nn.Module):
         return tokens + self.positional_embedding.to(dt), patches, bool_mask
 
     def predict(self, tokens):
-        """The reconstruction head, fp32: (B, N, C·p²)."""
-        return self.simmim_head(tokens.float())
+        """The reconstruction head, fp32: (B, N, C·p²); column-parallel under
+        tensor parallelism, the predictions gathered."""
+        head = self.simmim_head
+        return run(axis_of(head), linear_body, (tokens.float(),), (head.weight, head.bias),
+                   (0, 0), "cat")
 
     def forward(self, x, deterministic: bool = True,
                 generators: Sequence[Optional[torch.Generator]] = (None, None),

@@ -21,6 +21,13 @@ block mask or ``return_attn`` runs as ring attention over the seq axis
 (:mod:`..parallel.ring_attention`) when sp divides N, before any of the
 above; DINO's packed locals never ring.
 
+Under tensor parallelism (``parallel.tp``, :mod:`..parallel.tensor_parallel`)
+``w_query``, ``w_key`` and ``w_value`` hold this rank's rows (its heads)
+and ``final_linear`` its columns: the block runs on its local heads, the
+route, the kernels and the ring take the local head count and width, and
+the partial outputs are summed over the model axis. Where tp does not
+divide the heads, the attention stays whole on every rank.
+
 ``return_attn`` (the attention visualizer), cross-attention and
 ``use_flash=False`` (the config's ``model.use_flash_attention=false``) take
 the plain math of :func:`scaled_dot_product_attention` and launch no
@@ -37,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor_parallel import axis_of, run
 from .flash_attention import attention_nhd, attention_route, fused_attention
 from .flash_blockwise import blockwise_attention
 
@@ -94,44 +102,67 @@ class MultiHeadAttention(nn.Module):
         self.w_value = linear()
         self.final_linear = linear()
 
-    def _proj(self, layer: nn.Linear, x):
-        return F.linear(x.to(self.dtype), layer.weight.to(self.dtype))
-
     def forward(self, query, key: Optional[torch.Tensor] = None,
                 value: Optional[torch.Tensor] = None,
                 return_attn: bool = False, block_size: int = 0):
         key = query if key is None else key
         value = key if value is None else value
+        weights = [layer.weight for layer in
+                   (self.w_query, self.w_key, self.w_value, self.final_linear)]
+        axis = axis_of(self.w_query)
+        if axis is None:
+            return self._heads(query, key, value, *weights, return_attn, block_size)
+        if return_attn:
+            raise ValueError("return_attn needs the whole attention: a tensor-parallel "
+                             "block holds only its local heads")
+        self_attn = key is query and value is query
+
+        def body(*args):
+            *xs, wq, wk, wv, wo, _rank, _size = args
+            q, k, v = xs * 3 if self_attn else xs
+            return self._heads(q, k, v, wq, wk, wv, wo, False, block_size)
+
+        return run(axis, body, (query,) if self_attn else (query, key, value),
+                   weights, (0, 0, 0, 1))
+
+    def _heads(self, query, key, value, wq, wk, wv, wo, return_attn: bool,
+               block_size: int):
+        """The attention of the heads that the projections ``wq``, ``wk``,
+        ``wv`` (rows) and ``wo`` (columns) hold: all of them, or under
+        tensor parallelism this rank's (its output then a partial sum)."""
         b, n_q, _ = query.shape
         n_k = key.shape[1]
         d_head = self.d_model // self.num_heads
+        num_heads = wq.shape[0] // d_head
+        width = num_heads * d_head
         scale = 1.0 / float(d_head) ** 0.5
 
+        def proj(x, w):
+            return F.linear(x.to(self.dtype), w.to(self.dtype))
+
         def heads(x, n):  # (B, N, H·D) -> (B, H, N, D)
-            return x.reshape(b, n, self.num_heads, d_head).transpose(1, 2)
+            return x.reshape(b, n, num_heads, d_head).transpose(1, 2)
 
         ring = None
         if not return_attn and not block_size and n_q == n_k:
             ring = self._ring_group(n_q)
 
         if ring is None and self.use_flash and not return_attn and n_q == n_k:
-            xq, xk, xv = (self._proj(layer, x) for layer, x in (
-                (self.w_query, query), (self.w_key, key), (self.w_value, value)))
-            route = attention_route(b, n_q, self.num_heads, self.d_model,
-                                    self.dtype.itemsize, block_size)
+            xq, xk, xv = proj(query, wq), proj(key, wk), proj(value, wv)
+            route = attention_route(b, n_q, num_heads, width, self.dtype.itemsize,
+                                    block_size)
             if route == "B1":
-                context = attention_nhd(xq, xk, xv, self.num_heads, scale,
-                                        block_size)
+                context = attention_nhd(xq, xk, xv, num_heads, scale, block_size)
             else:
                 kernel = fused_attention if route == "B3" else blockwise_attention
                 context = kernel(
                     *(heads(x, n_q).contiguous() for x in (xq, xk, xv)), scale)
-                context = context.transpose(1, 2).reshape(b, n_q, self.d_model)
-            return self._proj(self.final_linear, context)
+                context = context.transpose(1, 2).reshape(b, n_q, width)
+            return proj(context, wo)
 
-        q = heads(self._proj(self.w_query, query), n_q)
-        k = heads(self._proj(self.w_key, key), n_k)
-        v = heads(self._proj(self.w_value, value), n_k)
+        q = heads(proj(query, wq), n_q)
+        k = heads(proj(key, wk), n_k)
+        v = heads(proj(value, wv), n_k)
         if ring is not None:
             from ..parallel.ring_attention import ring_attention
 
@@ -142,8 +173,8 @@ class MultiHeadAttention(nn.Module):
             context, probs = scaled_dot_product_attention(
                 q, k, v, return_attn, block_size=block_size
             )
-        context = context.transpose(1, 2).reshape(b, n_q, self.d_model)
-        out = self._proj(self.final_linear, context)
+        context = context.transpose(1, 2).reshape(b, n_q, width)
+        out = proj(context, wo)
         if return_attn:
             return out, probs
         return out

@@ -16,6 +16,13 @@ block sows the router's loss and its dropped share into collections, this
 block returns them: ``forward(..., return_aux=True)`` gives ``(x,
 aux_loss, dropped_frac)``, outputs that survive :func:`remat_block` (the
 recompute returns nothing to the caller, so nothing is counted twice).
+
+Under tensor or expert parallelism (:mod:`..parallel.tensor_parallel`) the
+attention and the FFN run their per-rank bodies between collectives; the
+LayerNorms, the residual adds and the block's own dropout run whole and
+alike on every rank of one data index. Under :func:`remat_block` the
+recompute issues the forward's collectives again in the backward; every
+rank recomputes the same blocks in the same order, so they meet.
 """
 
 from __future__ import annotations

@@ -10,10 +10,17 @@ caller's generator.
 
 ``use_fused`` (the config's ``model.use_fused_mlp``) runs the whole block
 as kernel B4 (:func:`.fused_mlp.fused_mlp`) on the same parameters. Both
-paths draw the keep-mask by the same rule (``fast_dropout``), with the same
-number of draws at the same point of the generator's stream, so from one
-generator state they drop the same units; they round at different places (the fused path keeps GELU's output
+paths draw the (tokens, d_ff) keep-mask by the same rule (``fast_dropout``)
+before the first product, so from one generator state they drop the same
+units; they round at different places (the fused path keeps GELU's output
 in fp32 through the dropout scale, as the JAX kernel does).
+
+Under tensor parallelism (:mod:`..parallel.tensor_parallel`) ``linear_in``
+holds this rank's rows of the hidden width and ``linear_out`` its columns:
+the block (unfused, or B4 at the local d_ff) gives a partial output, summed
+over the model axis, and ``linear_out``'s bias is added once after the
+sum. The keep-mask is this rank's columns of the whole (tokens, d_ff)
+draw, so the ranks drop what one process drops.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor_parallel import axis_of, run, shard
 from .dropout import Dropout, keep_mask
 from .fused_mlp import fused_mlp
 
@@ -43,25 +51,31 @@ class FeedForwardBlock(nn.Module):
     def forward(self, x, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         dt = self.dtype
-        w1, b1 = self.linear_in.weight.to(dt), self.linear_in.bias.to(dt)
-        w2, b2 = self.linear_out.weight.to(dt), self.linear_out.bias.to(dt)
-        if self.use_fused:
-            return self._fused(x.to(dt), w1, b1, w2, b2, deterministic, generator)
-        h = self.dropout(F.gelu(F.linear(x.to(dt), w1, b1)), deterministic, generator)
-        return F.linear(h, w2, b2)
-
-    def _fused(self, x, w1, b1, w2, b2, deterministic, generator):
-        """``vit_ssl_tpu/ops/feed_forward.py:68-76``: tokens flattened to
-        (B·N, d_model), the keep-mask drawn where the unfused path draws
-        its dropout mask."""
         *lead, d = x.shape
-        flat = x.reshape(-1, d)
         rate = self.dropout.rate
         mask = None
         if not deterministic and rate > 0.0:
             if generator is None:
                 raise ValueError("dropout in training mode needs a torch.Generator")
-            mask = keep_mask((flat.shape[0], w1.shape[0]), rate, generator,
+            rows = x.numel() // d
+            mask = keep_mask((rows, self.linear_in.out_features), rate, generator,
                              self.dropout.fast)
-        out = fused_mlp(flat, w1, b1, w2, b2, mask, 1.0 - rate)
-        return out.reshape(*lead, d)
+        b2 = self.linear_out.bias.to(dt)
+
+        def body(x, w1, b1, w2, rank, size):
+            keep = None if mask is None else shard(mask, 1, rank, size)
+            bias = b2 if size == 1 else None  # added once after the sum otherwise
+            w1, b1, w2 = w1.to(dt), b1.to(dt), w2.to(dt)
+            if self.use_fused:
+                bias = torch.zeros_like(b2) if bias is None else bias
+                return fused_mlp(x.reshape(-1, d), w1, b1, w2, bias, keep,
+                                 1.0 - rate).reshape(*lead, d)
+            h = F.gelu(F.linear(x, w1, b1))
+            if keep is not None:
+                h = torch.where(keep.reshape(h.shape), h / (1.0 - rate), h.new_zeros(()))
+            return F.linear(h, w2, bias)
+
+        axis = axis_of(self.linear_in)
+        out = run(axis, body, (x.to(dt),), (self.linear_in.weight, self.linear_in.bias,
+                                             self.linear_out.weight), (0, 0, 1))
+        return out if axis is None else out + b2

@@ -8,7 +8,10 @@ directly. Parameter names as in the reference state dict: ``norm.*`` and
 
 from __future__ import annotations
 
+import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.tensor_parallel import axis_of, linear_body, run, whole
 
 
 class MLPHead(nn.Module):
@@ -18,5 +21,11 @@ class MLPHead(nn.Module):
         self.linear = nn.Linear(d_model, num_classes, device=device)
 
     def forward(self, x):
-        """(B, d_model) → (B, num_classes) fp32 logits."""
-        return self.linear(self.norm(x.float()))
+        """(B, d_model) → (B, num_classes) fp32 logits; under tensor
+        parallelism ``linear`` is column-parallel and the logits gathered
+        (JAX's rule also shards the LayerNorm's bias, gathered here)."""
+        norm = self.norm
+        x = F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
+                         whole(axis_of(norm), norm.bias), norm.eps)
+        return run(axis_of(self.linear), linear_body, (x,),
+                   (self.linear.weight, self.linear.bias), (0, 0), "cat")

@@ -29,8 +29,21 @@ which the port keeps at ``"highest"`` (:mod:`.precision`: no TF32); the
 expert products run in the compute dtype. Ties in the router's
 probabilities go to the lower expert index, as ``lax.top_k`` breaks them.
 The products are ``torch.einsum``: the JAX module runs them as XLA
-einsums, outside any Pallas kernel. Expert parallelism (``parallel.ep``)
-is not ported (``ROADMAP.md`` queue A item 10).
+einsums, outside any Pallas kernel.
+
+Expert parallelism (``parallel.ep``) and tensor parallelism
+(``parallel.tp``, :mod:`..parallel.tensor_parallel`), per JAX's rule rows:
+each expert rank holds its experts (``w1``, ``b1``, ``w2``, ``b2`` along
+E), each model rank its columns of every expert's hidden (``w1``, ``b1``
+along f, ``w2`` along its rows). The router runs whole on every rank, as
+the batch is sharded over ``data`` only (JAX's ``_constrain_expert_major``
+keeps the tokens of one data index on every expert rank), so the routing,
+the aux loss and the dropped share are the same on each and counted once.
+An expert rank takes its experts' slice of ``dispatch`` and ``combine``;
+a model rank's partial expert outputs are summed over the model axis
+before ``b2`` is added, and the partial ``y`` is summed over the expert
+axis. The dropout mask is this rank's slice of the whole (G, E, C, f) draw,
+so the ranks drop what one process drops.
 """
 
 from __future__ import annotations
@@ -42,7 +55,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .dropout import Dropout
+from ..parallel.mesh import EXPERT_AXIS, MODEL_AXIS
+from ..parallel.tensor_parallel import axis_of, run, shard
+from .dropout import Dropout, keep_mask
 from .initializers import bias_, check_scheme, kernel_
 
 
@@ -182,11 +197,42 @@ class MoEFeedForward(nn.Module):
 
         dt = self.dtype
         dispatch = (combine > 0).to(dt)
-        w1, b1 = self.w1.to(dt), self.b1.to(dt)
-        w2, b2 = self.w2.to(dt), self.b2.to(dt)
-        expert_in = torch.einsum("gtec,gtd->gecd", dispatch, flat.to(dt))
-        h = torch.einsum("gecd,edf->gecf", expert_in, w1) + b1[None, :, None, :]
-        h = self.dropout(F.gelu(h), deterministic, generator).to(dt)
-        out = torch.einsum("gecf,efd->gecd", h, w2) + b2[None, :, None, :]
-        y = torch.einsum("gtec,gecd->gtd", combine.to(dt), out)
+        mask = None
+        rate = self.dropout.rate
+        if not deterministic and rate > 0.0:
+            if generator is None:
+                raise ValueError("dropout in training mode needs a torch.Generator")
+            mask = keep_mask((t // tg, self.num_experts, capacity, self.w1.shape[-1] *
+                              _real_size(axis_of(self, MODEL_AXIS))),
+                             rate, generator, self.dropout.fast)
+
+        def experts(flat, combine, w1, b1, w2, b2, e_rank, e_size):
+            """This expert rank's experts: their share of y."""
+            local = w1.shape[0]
+            e0 = e_rank * local
+            expert_in = torch.einsum("gtec,gtd->gecd", dispatch[:, :, e0:e0 + local],
+                                     flat.to(dt))
+
+            def hidden(expert_in, w1, b1, w2, m_rank, m_size):
+                """This model rank's columns of each local expert's hidden."""
+                h = torch.einsum("gecd,edf->gecf", expert_in, w1.to(dt)) \
+                    + b1.to(dt)[None, :, None, :]
+                h = F.gelu(h)
+                if mask is not None:
+                    keep = shard(mask[:, e0:e0 + local], 3, m_rank, m_size)
+                    h = torch.where(keep, h / (1.0 - rate), h.new_zeros(()))
+                return torch.einsum("gecf,efd->gecd", h.to(dt), w2.to(dt))
+
+            out = run(axis_of(self, MODEL_AXIS), hidden, (expert_in,), (w1, b1, w2),
+                      (2, 1, 1)) + b2.to(dt)[None, :, None, :]
+            return torch.einsum("gtec,gecd->gtd", combine[:, :, e0:e0 + local].to(dt), out)
+
+        y = run(axis_of(self, EXPERT_AXIS), experts, (flat, combine),
+                (self.w1, self.b1, self.w2, self.b2), (0, 0, 0, 0))
         return y.reshape(b, n, d), aux_loss, aux["dropped_frac"]
+
+
+def _real_size(axis) -> int:
+    """The axis's size where this rank holds a slice of the parameters (real
+    ranks), else 1."""
+    return 1 if axis is None or axis.virtual else axis.size

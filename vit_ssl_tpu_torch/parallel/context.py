@@ -6,13 +6,17 @@ active :class:`~.mesh.Mesh` here before it builds its steps (JAX
 it at call time:
 
 - ``MultiHeadAttention`` takes the ring over the ``seq`` axis;
+- the modules that :mod:`.tensor_parallel` shards over the ``model`` and
+  ``expert`` axes carry their groups themselves; :func:`tp_size` and
+  :func:`ep_size` give the axes' sizes;
 - the steps, DINO's center and its statistics sum over the ``data`` axis
   (:func:`dp_sum`), so every mean is the global batch's, weight-exact;
 - the per-image draws (device augmentation, SimMIM's mask) are the data
   rank's rows of the global batch's draws (:func:`rand_rows`), so a dp-way
   run draws what one process draws;
-- the dropout streams fold the data rank in (:func:`data_rank`): each rank
-  draws its own dropout masks and patch-dropout scores;
+- the dropout streams fold the data rank in (:func:`data_rank`): each data
+  rank draws its own dropout masks and patch-dropout scores, and the
+  model, seq and expert ranks of one data index draw the same ones;
 - the loaders shard by the data rank (``data/builder.py``).
 
 :func:`suspended` hides the mesh while one process works alone (rank 0's
@@ -27,7 +31,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .mesh import DATA_AXIS, SEQ_AXIS, Mesh
+from .mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
 
 _MESH: Optional[Mesh] = None
 _SUSPENDED = False
@@ -85,6 +89,14 @@ def dp_size() -> int:
 
 def sp_size() -> int:
     return axis_size(SEQ_AXIS)
+
+
+def tp_size() -> int:
+    return axis_size(MODEL_AXIS)
+
+
+def ep_size() -> int:
+    return axis_size(EXPERT_AXIS)
 
 
 def data_rank() -> int:

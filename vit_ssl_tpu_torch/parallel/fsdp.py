@@ -189,6 +189,12 @@ class ShardedState:
         finally:
             self.release()
 
+    def unsharded(self, module: torch.nn.Module, keep: bool = True):
+        """``module`` itself, whole inside :meth:`materialized` (None for
+        ranks without ``keep``), as :meth:`..tensor_parallel.TensorParallelState.unsharded`
+        gives a tensor-parallel module."""
+        return module if keep else None
+
     def around(self, step):
         """``step`` run with the full parameters."""
         def wrapped(*args, **kwargs):

@@ -5,7 +5,8 @@ collectives. Here each process drives one device (``torch.distributed``:
 NCCL on the card, gloo on the CPU), the world is laid out as a
 ``torch.distributed.device_mesh.DeviceMesh`` with JAX's axis names, and the
 collectives are written out by the code that needs them (the gradient
-all-reduce, the weight sums, the ring).
+all-reduce, the weight sums, the ring, tensor and expert parallelism's
+sums and gathers).
 
 :func:`axis_sizes` is JAX's ``mesh_from_config`` rule: dp (``data``) is
 implicit, whatever the world leaves after tp·pp·sp·ep; axes of size 1 are
@@ -27,10 +28,10 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
-MODEL_AXIS = "model"  # tensor parallelism (not ported: ROADMAP.md queue A item 10)
-PIPE_AXIS = "pipe"    # pipeline parallelism (not ported: item 10)
+MODEL_AXIS = "model"  # tensor parallelism (parallel/tensor_parallel.py)
+PIPE_AXIS = "pipe"    # pipeline parallelism (not ported: ROADMAP.md queue A item 10)
 SEQ_AXIS = "seq"      # sequence parallelism, ring attention
-EXPERT_AXIS = "expert"  # expert parallelism (not ported: item 10)
+EXPERT_AXIS = "expert"  # expert parallelism (parallel/tensor_parallel.py)
 _CONFIG_KEYS = {MODEL_AXIS: "tp", PIPE_AXIS: "pp", SEQ_AXIS: "sp", EXPERT_AXIS: "ep"}
 
 

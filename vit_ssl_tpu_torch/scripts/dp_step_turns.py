@@ -169,7 +169,7 @@ def _host_breakdown(trainer, batch, mesh, steps=STEPS):
         timers.wrap(module, "dp_sum", "dp_sum (clone + all_reduce of a weight sum)")
     timers.wrap(data_parallel, "all_reduce_flat",
                 "all_reduce_flat (cat, all_reduce, views)")
-    if mesh is not None and trainer._fsdp is not None:
+    if mesh is not None and isinstance(trainer._sharded, ShardedState):
         timers.wrap(ShardedState, "gather", "fsdp gather (resize, cat, all_gather, copies)")
         timers.wrap(ShardedState, "release", "fsdp release (resize to 0)")
         timers.wrap(ShardedState, "reduce", "fsdp reduce (cat, reduce_scatter, views)")

@@ -44,14 +44,19 @@ each update takes the gradients summed over the ``data`` axis
 (:class:`...parallel.data_parallel.DataParallelOptimizer`); with
 ``parallel.fsdp`` the state's large leaves are sharded over it
 (:class:`...parallel.fsdp.ShardedState`). ``parallel.sp`` rings attention
-over the ``seq`` axis inside the model. Epoch metrics are reduced over the
-data ranks, so every rank reports the single-process figures. Rank 0 alone
+over the ``seq`` axis inside the model. ``parallel.tp`` and ``parallel.ep``
+shard the state's modules over the ``model`` and ``expert`` axes after
+the broadcast, and the optimizer's buffers with them
+(:class:`...parallel.tensor_parallel.TensorParallelState`); checkpoints
+hold whole tensors, and rank 0's evaluation reads an unsharded copy.
+Epoch metrics are reduced over the data ranks, so every rank reports the
+single-process figures. Rank 0 alone
 writes checkpoints (full tensors) and runs the evaluations, over unsharded
 loaders with the mesh suspended, while the others wait; a preemption is
 agreed on by every rank at the same batch boundary.
 
 Refused by name, with its ``ROADMAP.md`` queue-A item:
-``parallel.{tp,pp,ep} > 1`` (item 10).
+``parallel.pp > 1`` (item 10).
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ from ...parallel import context as parallel_context
 from ...parallel.data_parallel import DataParallelOptimizer
 from ...parallel.fsdp import ShardedState
 from ...parallel.mesh import DATA_AXIS, axis_sizes, broadcast_module, mesh_from_config, world
+from ...parallel.tensor_parallel import TensorParallelState
 from ...utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from ...utils.history import TrainingHistory
 from ...utils.logger import Logger
@@ -89,14 +95,13 @@ logger = logging.getLogger(__name__)
 
 def refuse_unported_training(config) -> None:
     """Raise on a training option the port does not run yet, naming its
-    ``ROADMAP.md`` queue-A item: tensor, pipeline and expert parallelism.
-    dp, ``parallel.sp``, ``parallel.fsdp`` and ``parallel.multihost`` run."""
+    ``ROADMAP.md`` queue-A item: pipeline parallelism. dp, ``parallel.tp``,
+    ``parallel.ep``, ``parallel.sp``, ``parallel.fsdp`` and
+    ``parallel.multihost`` run."""
     parallel = config.get("parallel", {}) or {}
-    for axis in ("tp", "pp", "ep"):
-        if int(parallel.get(axis, 1) or 1) > 1:
-            raise NotImplementedError(
-                f"parallel.{axis} > 1 is not ported yet; see ROADMAP.md queue A "
-                "item 10")
+    if int(parallel.get("pp", 1) or 1) > 1:
+        raise NotImplementedError(
+            "parallel.pp > 1 is not ported yet; see ROADMAP.md queue A item 10")
 
 
 def _distributed() -> bool:
@@ -125,7 +130,10 @@ class BaseTrainer(ABC):
         self.device = resolve_device(device)
         self.mesh = self._publish_mesh(config)
         self.data_group = self.mesh.groups.get(DATA_AXIS)
-        self._fsdp = None
+        # the sharded state: a ShardedState (parallel.fsdp), a
+        # TensorParallelState (parallel.tp or parallel.ep; the config refuses
+        # fsdp with either) or None
+        self._sharded = None
         self.network = network
         self.mode = config_mode(config)
         self.config = config
@@ -194,7 +202,7 @@ class BaseTrainer(ABC):
         optimizer = make_optimizer(self.config, self.lr_schedule, mask_list)
         if self.data_group is None:
             return optimizer
-        return DataParallelOptimizer(optimizer, self.data_group, self._fsdp)
+        return DataParallelOptimizer(optimizer, self.data_group)
 
     def _state_modules(self) -> List[torch.nn.Module]:
         return [m for m in (getattr(self.state, n, None)
@@ -206,27 +214,35 @@ class BaseTrainer(ABC):
     def _distribute_state(self):
         """Every rank starts from rank 0's weights (JAX's ``replicate``);
         with ``parallel.fsdp`` the large leaves are then sharded over the
-        data axis and the optimizer updates the chunks."""
+        data axis and the optimizer updates the chunks; with ``parallel.tp``
+        or ``parallel.ep`` the modules are sharded over the model and expert
+        axes (JAX's ``shard_params``, the teacher and the optimizer's
+        buffers alike: ``shard_tree_tp``)."""
         if self.data_group is None:
             return
         for module in self._state_modules():
             broadcast_module(module)
-        if bool(self.config.get("parallel", {}).get("fsdp", False)):
-            self._fsdp = ShardedState(self._state_modules(), self.state.opt_state,
-                                      self._trained_params(), self.data_group)
-            self.optimizer.sharded = self._fsdp
+        if parallel_context.tp_size() > 1 or parallel_context.ep_size() > 1:
+            modules = {n: getattr(self.state, n) for n in ("student", "teacher", "model")
+                       if getattr(self.state, n, None) is not None}
+            self._sharded = TensorParallelState(modules, self.state.opt_state,
+                                                self._trained_params(), self.mesh)
+        elif bool(self.config.get("parallel", {}).get("fsdp", False)):
+            self._sharded = ShardedState(self._state_modules(), self.state.opt_state,
+                                         self._trained_params(), self.data_group)
+            self.optimizer.sharded = self._sharded
 
     def _wrap_steps(self):
         """Under fsdp the steps run on the gathered parameters."""
-        if self._fsdp is not None:
-            self.train_step = self._fsdp.around(self.train_step)
-            self.eval_step = self._fsdp.around(self.eval_step)
+        if isinstance(self._sharded, ShardedState):
+            self.train_step = self._sharded.around(self.train_step)
+            self.eval_step = self._sharded.around(self.eval_step)
 
     def _host_state(self, keep: bool = True):
         """The train state in host memory, full tensors (every rank takes
-        part under fsdp; ranks without ``keep`` get None)."""
-        if self._fsdp is not None:
-            return self._fsdp.host_state_dict(self.state, self._trained_params(), keep)
+        part when the state is sharded; ranks without ``keep`` get None)."""
+        if self._sharded is not None:
+            return self._sharded.host_state_dict(self.state, self._trained_params(), keep)
         return to_host(self.state.state_dict()) if keep else None
 
     # -- hooks ---------------------------------------------------------------
@@ -319,15 +335,20 @@ class BaseTrainer(ABC):
         """The unsupervised evaluation of ``eval.mode`` into
         ``save_path/epoch_{epoch}`` (``evaluation_summary.*`` and the UMAP
         reports), over :attr:`eval_loaders`: rank 0 alone, on the full
-        weights, with the mesh suspended, while the other ranks wait."""
+        weights (under tp or ep an unsharded copy that every rank helps
+        gather), with the mesh suspended, while the other ranks wait."""
         from ...evaluators.unsupervised_evaluator import run_evaluation
 
         logger.info("Running automatic evaluation (mode: %s)...", self.eval_mode)
         self.train_logger.pause()
         with self._materialized():
-            if parallel_context.is_rank_zero():
+            rank_zero = parallel_context.is_rank_zero()
+            network = self._eval_network()
+            if self._sharded is not None:
+                network = self._sharded.unsharded(network, keep=rank_zero)
+            if rank_zero:
                 with parallel_context.suspended():
-                    run_evaluation(self.config, network=self._eval_network(),
+                    run_evaluation(self.config, network=network,
                                    save_path=os.path.join(self.save_path,
                                                           f"epoch_{epoch}"),
                                    loaders=self.eval_loaders, device=self.device)
@@ -336,7 +357,7 @@ class BaseTrainer(ABC):
 
     def _materialized(self):
         """The full parameters inside (under fsdp; a no-op otherwise)."""
-        return self._fsdp.materialized() if self._fsdp is not None \
+        return self._sharded.materialized() if isinstance(self._sharded, ShardedState) \
             else contextlib.nullcontext()
 
     def _log_memory_once(self):
@@ -375,11 +396,11 @@ class BaseTrainer(ABC):
     # -- checkpointing ------------------------------------------------------------
     def _save(self, name: str, epoch: int, extra: Dict[str, Any]):
         """One host snapshot per epoch (best and last share it), then the
-        write on a thread; rank 0 alone snapshots and writes (under fsdp
-        every rank takes part in gathering the full tensors)."""
+        write on a thread; rank 0 alone snapshots and writes (under fsdp,
+        tp or ep every rank takes part in gathering the full tensors)."""
         rank_zero = parallel_context.is_rank_zero()
         if not rank_zero:
-            if self._fsdp is not None and self._snapshot_epoch != epoch:
+            if self._sharded is not None and self._snapshot_epoch != epoch:
                 self._host_state(keep=False)
                 self._snapshot_epoch = epoch
             return
@@ -507,8 +528,8 @@ class BaseTrainer(ABC):
     def _restore(self, tree, metadata):
         """Load a checkpoint's tree (full tensors, of any world size) into
         the train state."""
-        if self._fsdp is not None:
-            self._fsdp.load_state_dict(self.state, tree, self._trained_params())
+        if self._sharded is not None:
+            self._sharded.load_state_dict(self.state, tree, self._trained_params())
         else:
             self.state.load_state_dict(tree)
 
