@@ -184,6 +184,17 @@ Phases, each printing its own lines; any failure exits non-zero:
               launches counted at the local shapes, each way timed; then
               each of those kernels at its local shape: kernel, plain,
               SDPA and bound
+15c. pipeline — the pipeline's per-stage bodies
+              (``parallel/pipeline.py``) over virtual stages in this
+              process, each encoder against the unpipelined one from the
+              same weights and inputs at dropout 0 (output row cosine >=
+              0.9999, every gradient's cosine >= 0.999, no plain version):
+              DINO ViT-S/8's 6-block student at pp = 2, M = 2 on the globals
+              (256, 145), the packed locals (128, 148, block 37) and fused
+              (B4), and at pp = 3, V = 2, M = 4 on both; ViT-B/16's 12
+              blocks at 384 px (B3, pp = 4, M = 4) and 512 px (B2, pp = 2,
+              V = 2, M = 2), batch 64; each kernel's launches counted (one
+              a block and microbatch), both ways timed, the bubble fraction
 16. exp2 probe — ``vit_ssl_tpu_torch/scripts/exp2_probe.py``: P1
               (``blockwise_fwd_exp2``) against B2's forward, both timed; P1
               against its plain version
@@ -466,9 +477,14 @@ ATTENTION_CASES = [
 # ViT-B/16 at 224 px
 TP_B1_CASES = [(256, 145, 3, 64, "bfloat16", 0), (128, 148, 3, 64, "bfloat16", 37),
                (1024, 197, 6, 64, "bfloat16", 0)]
+# B1's shapes inside the pipeline phase's stages (microbatches of DINO
+# ViT-S/8's student, 6 heads), bf16: the globals (256, 145) at M = 2 and 4,
+# the packed locals (128, 148, block 37) at M = 2 and 4
+PIPE_B1_CASES = [(128, 145, 6, 64, "bfloat16", 0), (64, 145, 6, 64, "bfloat16", 0),
+                 (64, 148, 6, 64, "bfloat16", 37), (32, 148, 6, 64, "bfloat16", 37)]
 # The training forward and backward: the student globals and packed locals
 # first (bf16 and fp32), then the other shapes the kernels take, the tp = 2
-# shapes last
+# shapes, then the pipeline's microbatch shapes
 TRAIN_CASES = [
     (256, 145, 6, 64, "bfloat16", 0),
     (256, 145, 6, 64, "float32", 0),
@@ -484,6 +500,7 @@ TRAIN_CASES = [
     (128, 144, 6, 64, "bfloat16", 0),
     (1024, 99, 12, 64, "bfloat16", 0),
     *TP_B1_CASES,
+    *PIPE_B1_CASES,
 ]
 # ViT-B/16 at 224 px (configs/vit_b_imagenet.yaml): B1's shape on that path
 VIT_B_B1_CASE = (1024, 197, 12, 64, "bfloat16", 0)
@@ -513,6 +530,8 @@ B1_MMA_SYNC_MS = {("fwd", 128, 145, 0): 0.0828, ("fwd", 256, 145, 0): 0.1568,
 # ViT-B/16 at 384 px first (bf16, fp32), then N = 1, N = 1024 and ragged N
 # with the other head dims, and the 384-px shape at tp = 2 (6 heads a rank)
 TP_B3_CASE = (64, 6, 577, 64, "bfloat16")
+# ... and ViT-B/16 at 384 px in the pipeline phase's microbatches (64 / M = 4)
+PIPE_B3_CASE = (16, 12, 577, 64, "bfloat16")
 FUSED_CASES = [
     (64, 12, 577, 64, "bfloat16"),
     (64, 12, 577, 64, "float32"),
@@ -525,6 +544,7 @@ FUSED_CASES = [
     (16, 2, 203, 128, "bfloat16"),
     (16, 2, 203, 128, "float32"),
     TP_B3_CASE,
+    PIPE_B3_CASE,
 ]
 
 # Kernel B2 (blockwise flash attention), (batch, heads, seq, head_dim,
@@ -532,6 +552,8 @@ FUSED_CASES = [
 # N <= 1024, N = 2048 and 4096, head dims 32 and 128, and the 512-px shape
 # at tp = 2 (6 heads a rank)
 TP_B2_CASE = (64, 6, 1025, 64, "bfloat16")
+# ... and ViT-B/16 at 512 px in the pipeline phase's microbatches (64 / M = 2)
+PIPE_B2_CASE = (32, 12, 1025, 64, "bfloat16")
 BLOCKWISE_CASES = [
     (64, 12, 1025, 64, "bfloat16"),
     (64, 12, 1025, 64, "float32"),
@@ -548,6 +570,7 @@ BLOCKWISE_CASES = [
     (8, 2, 1100, 128, "bfloat16"),
     (8, 2, 1100, 128, "float32"),
     TP_B2_CASE,
+    PIPE_B2_CASE,
 ]
 # B2's lse: max |kernel - plain| over max |plain| (sums in another order;
 # the bf16 kernels' exponentials are ex2.approx or expf)
@@ -4699,6 +4722,150 @@ def phase_tp_times(torch, fa, fb, fm, card, errors):
     return rows
 
 
+PIPE_ROW_COSINE = 0.9999  # each output row against the unpipelined stack
+PIPE_GRAD_COSINE = 0.999  # every parameter's and the input's gradient
+
+
+def pipe_case(torch, label, blocks, x, block_size, pp, m, v, want, guards):
+    """The encoder ``blocks`` over ``x`` (dropout 0) and the gradients of
+    its output against a seeded cotangent (x's and every parameter's):
+    unpipelined (the blocks in order), then over ``pp`` virtual stages
+    (``m`` microbatches, ``v`` chunks a stage: the per-stage bodies the
+    gloo ranks run, :class:`~vit_ssl_tpu_torch.parallel.pipeline.Pipeline`)
+    under ``guards``: each output row within PIPE_ROW_COSINE, every
+    gradient within PIPE_GRAD_COSINE, and the kernels the pipelined run
+    launched, counted, exactly ``want``. Both ways timed (forward and
+    backward). Returns (launches, stats)."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.parallel.pipeline import Pipeline, pipeline_bubble_fraction
+
+    params = list(blocks.parameters())
+    pipe = Pipeline(len(blocks), pp, m, v)
+    with torch.no_grad():
+        probe = x
+        for block in blocks:
+            probe = block(probe, block_size)
+    cot = torch.randn(probe.shape, generator=torch.Generator(device=x.device)
+                      .manual_seed(43), device=x.device).to(probe.dtype)
+    del probe
+
+    def unpipelined():
+        h = xg = x.detach().requires_grad_()
+        for block in blocks:
+            h = block(h, block_size, False)
+        return h, torch.autograd.grad(h, [xg] + params, cot)
+
+    def pipelined():
+        xg = x.detach().requires_grad_()
+        h = pipe(blocks, xg, block_size, False)
+        return h, torch.autograd.grad(h, [xg] + params, cot)
+
+    want_out, want_grads = unpipelined()
+    whole_ms = cuda_ms(unpipelined, iters=3, warmup=1)
+    with contextlib.ExitStack() as stack:
+        for guard in guards:
+            stack.enter_context(guard)
+        torch.cuda.synchronize()
+        kernels.launches.clear()  # the pipelined path starts here
+        got_out, got_grads = pipelined()
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)  # ... and ends here
+        pipe_ms = cuda_ms(pipelined, iters=3, warmup=1)
+    out_cos = min_row_cosine(got_out, want_out)
+    grad_cos = [cosine(g, w) for g, w in zip(got_grads, want_grads)]
+    finite = bool(torch.isfinite(got_out).all()) and all(
+        bool(torch.isfinite(g).all()) for g in got_grads)
+    ok = (launches == want and out_cos >= PIPE_ROW_COSINE
+          and min(grad_cos) >= PIPE_GRAD_COSINE and finite)
+    bubble = pipeline_bubble_fraction(pp, m, v)
+    print(f"  {label}: pp = {pp}, M = {m}, V = {v} (bubble fraction {bubble:.3f}); "
+          f"launched {launches}; output row cosine min {out_cos:.6f} (>= "
+          f"{PIPE_ROW_COSINE}), {len(grad_cos)} gradients' cosine min {min(grad_cos):.6f} "
+          f"(>= {PIPE_GRAD_COSINE}); forward and backward {pipe_ms:.3f} ms over the "
+          f"virtual stages (in series) against {whole_ms:.3f} ms unpipelined "
+          f"{'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        fail(f"{label}: the pipelined stack launched {launches} (expected {want}) or "
+             "disagrees with the unpipelined stack")
+    return launches, {"pp": pp, "microbatches": m, "interleave": v,
+                      "bubble_fraction": bubble, "launches": launches,
+                      "out_row_cosine_min": out_cos, "grad_cosine_min": min(grad_cos),
+                      "pipelined_ms": pipe_ms, "unpipelined_ms": whole_ms}
+
+
+def phase_pipeline(torch, fa, fb, fm, card):
+    """The pipeline's per-stage bodies over virtual stages in one process
+    (one card holds one rank), at full width, bf16, dropout 0, each against
+    the unpipelined stack on the same weights and inputs
+    (:func:`pipe_case`): DINO ViT-S/8's student encoder (6 blocks of 6 x 64)
+    at pp = 2, M = 2 on the globals (256, 145) and the packed locals (128,
+    148, block 37), at pp = 3, V = 2, M = 4 (one block a chunk) on both, and
+    at pp = 2 with the fused FFN (B4); ViT-B/16's encoder at 384 px, batch
+    64 (B3), pp = 4, M = 4; at 512 px, batch 64 (B2), pp = 2, V = 2, M = 2.
+    Every kernel runs at its microbatch shape, no plain version allowed.
+    Returns (launches by path, stats by path)."""
+    from vit_ssl_tpu_torch.ops.encoder_block import EncoderBlock
+
+    dino, vit_b = DINO_VIT_S8["model"], VIT_B16_384["model"]
+    print(f"== pipeline: the per-stage bodies over virtual stages against the "
+          f"unpipelined encoder; {card}", flush=True)
+    guards = lambda: (no_plain_attention(fa), no_plain_mlp(fm))  # noqa: E731
+
+    def stack(model, seed, fused=False):
+        torch.manual_seed(seed)
+        return torch.nn.ModuleList(
+            EncoderBlock(model["embed_dim"], model["num_heads"], model["mlp_dim"],
+                         dtype=torch.bfloat16, dropout=0.0, use_fused_mlp=fused)
+            for _ in range(model["num_blocks"])).cuda()
+
+    def tokens(b, n, d, seed):
+        return torch.randn(b, n, d, generator=torch.Generator().manual_seed(seed)) \
+            .to(device="cuda", dtype=torch.bfloat16)
+
+    def calls(kernel_names, blocks, m):
+        """Each kernel once a block and microbatch."""
+        return {name: len(blocks) * m for name in kernel_names}
+
+    b1 = (fa.KERNEL_TRAIN, fa.KERNEL_BWD)
+    b4 = (fm.KERNEL_TRAIN, fm.KERNEL_BWD)
+    d = dino["embed_dim"]
+    student = stack(dino, 1600)
+    fused = stack(dino, 1600, fused=True)
+    fused.load_state_dict(student.state_dict())
+    globals_x, locals_x = tokens(256, 145, d, 1601), tokens(128, 148, d, 1602)
+    cases = []
+    for where, x, bs in (("globals", globals_x, 0), ("packed", locals_x, 37)):
+        shape = f"{tuple(x.shape[:2])}{f' block {bs}' if bs else ''}"
+        cases += [
+            (f"pp_dino_{where}", f"DINO ViT-S/8 student, {where} {shape}", student, x, bs,
+             2, 2, 1, calls(b1, student, 2)),
+            (f"pp_dino_{where}_interleaved", f"DINO ViT-S/8 student, {where} {shape}, "
+             "interleaved", student, x, bs, 3, 4, 2, calls(b1, student, 4)),
+        ]
+    cases.append(("pp_dino_fused_globals", "DINO ViT-S/8 student (fused FFN), globals "
+                  "(256, 145)", fused, globals_x, 0, 2, 2, 1, calls(b1 + b4, fused, 2)))
+    paths, stats = {}, {}
+    for name, label, blocks, x, bs, pp, m, v, want in cases:
+        paths[name], stats[name] = pipe_case(torch, label, blocks, x, bs, pp, m, v, want,
+                                             guards())
+    del cases, student, fused, globals_x, locals_x
+    gc.collect()
+    width = vit_b["embed_dim"]
+    for name, label, img_n, route, pp, m, v, seed in (
+            ("pp_vit_b_384", "ViT-B/16 encoder at 384 px (64, 577)", 577,
+             (fa.FUSED_KERNEL_TRAIN, fa.FUSED_KERNEL_BWD), 4, 4, 1, 1604),
+            ("pp_vit_b_512", "ViT-B/16 encoder at 512 px (64, 1025)", 1025,
+             (fb.KERNEL, fb.KERNEL_DQ, fb.KERNEL_DKV), 2, 2, 2, 1605)):
+        blocks = stack(vit_b, seed)
+        paths[name], stats[name] = pipe_case(
+            torch, label, blocks, tokens(64, img_n, width, seed), 0, pp, m, v,
+            calls(route, blocks, m), guards())
+        del blocks
+        gc.collect()
+    torch.cuda.empty_cache()
+    return paths, stats
+
+
 def named_moments(state, names):
     """An optimizer state's AdamW moments by ``mu.<param>``/``nu.<param>``."""
     return {f"{b}.{n}": t for b in ("mu", "nu")
@@ -5265,6 +5432,7 @@ def main() -> int:
     tp_paths, tp_stats = phase_tensor_parallel(torch, fa, fb, fm, card)
     tp_rows = phase_tp_times(torch, fa, fb, fm, card, {
         "b1": train_errors, "b4": mlp_errors, "b3": fused_errors, "b2": blockwise_errors})
+    pipe_paths, pipe_stats = phase_pipeline(torch, fa, fb, fm, card)
     probe_launches, p1_stats, p1_err = phase_exp2_probe(torch, fb, card)
     masked_stats = phase_masked_times(torch, mm, card)
     dropout_probe_launches, _ = phase_dropout_probe(torch, fm, mm, card)
@@ -5417,7 +5585,7 @@ def main() -> int:
              "serving_supervised_512": sup512_serve_launches, **sup512_paths,
              "exp2_probe": probe_launches, "dropout_epilogue_probe": dropout_probe_launches,
              **preempt_paths, **scan_paths, **moe_paths, **patch_paths,
-             **dp_paths, **ring_paths, **tp_paths}
+             **dp_paths, **ring_paths, **tp_paths, **pipe_paths}
     # the paths that run B4 at each width (ViT-L's 1024 runs on none yet)
     width_paths = {MLP_DIMS[0]: ("serving_fused", "training_fused", "dropout_epilogue_probe"),
                    VIT_B_MLP[0]: ("serving_supervised_fused", "training_supervised_fused",
@@ -5430,6 +5598,7 @@ def main() -> int:
             stats["tp_local_shapes"] = tp_rows[name]
         if name == fa.KERNEL_TRAIN:
             stats["tensor_parallel"] = tp_stats
+            stats["pipeline"] = pipe_stats
     for name, _, _, _, stats in entries:
         if sum(p.get(name, 0) for p in paths.values()) == 0:
             fail(f"{name} was not launched on the main paths")

@@ -320,7 +320,7 @@ REFUSALS = [
     (["training.auto_resume=true"], None),  # ported: see below
     (["training.fault_inject_preempt_step=3"], None),  # ported: see below
     (["parallel.tp=2"], None),  # ported: see below
-    (["parallel.pp=2"], 10),
+    (["parallel.pp=2"], None),  # ported: see below
     (["parallel.sp=2"], None),  # ported: see below
     (["parallel.ep=2", "model.moe_experts=2"], None),  # ported: see below
     (["parallel.fsdp=true"], None),  # ported: see below
@@ -353,10 +353,12 @@ def test_trainer_refusals_name_their_item(tmp_path, overrides, item, no_plots):
     ``parallel.fsdp`` (dp = 1 without a process group: nothing to shard, as
     in JAX) and ``parallel.multihost`` (read by the entry point only) give
     fit(1)'s state bit for bit (across processes:
-    ``tests/test_torch_parallel_cli.py``); ``parallel.tp=2`` and
-    ``parallel.ep=2`` pass the trainer's refusal, and in one process the
-    mesh refuses a world of 1 that they do not divide, as JAX's does (their
-    runs over processes: ``tests/test_torch_{tensor,expert}_parallel_cli.py``)."""
+    ``tests/test_torch_parallel_cli.py``); ``parallel.tp=2``,
+    ``parallel.ep=2`` and ``parallel.pp=2`` pass the trainer's refusal, and
+    in one process the mesh refuses a world of 1 that they do not divide, as
+    JAX's does (their runs over processes:
+    ``tests/test_torch_{tensor,expert}_parallel_cli.py``,
+    ``tests/test_torch_pipeline{,_modes}_cli.py``)."""
     if overrides == ["parallel.sp=2"]:
         from torch_dist_worker import dino_fit, spawn
 
@@ -365,7 +367,7 @@ def test_trainer_refusals_name_their_item(tmp_path, overrides, item, no_plots):
         got = torch.load(tmp_path / "sp" / "dino_fit.pt", weights_only=True)
         _trees_close(got, dino_fit(grown, tmp_path / "plain"))
         return
-    if overrides[0].startswith(("parallel.tp", "parallel.ep")):
+    if overrides[0].startswith(("parallel.tp", "parallel.ep", "parallel.pp")):
         config = compose(CONFIGS, "dino", _overrides(False) + overrides)
         trainer_base.refuse_unported_training(config)
         with pytest.raises(ValueError, match="to divide the 1 visible devices"):

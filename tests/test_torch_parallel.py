@@ -82,15 +82,10 @@ def test_fsdp_conflicts_refused_as_jax(overrides):
         validate_train_config(_cfg(*(base + overrides)))
 
 
-@pytest.mark.parametrize("axis", ["pp"])
-def test_tp_pp_ep_still_refused(axis):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A item 10\b"):
-        refuse_unported_training(_cfg(f"parallel.{axis}=2"))
-
-
 @pytest.mark.parametrize("overrides", [("parallel.sp=2",), ("parallel.fsdp=true",),
                                        ("+parallel.multihost=true",), ("parallel.tp=2",),
-                                       ("parallel.ep=2", "model.moe_experts=2")])
+                                       ("parallel.ep=2", "model.moe_experts=2"),
+                                       ("parallel.pp=2",)])
 def test_sp_fsdp_multihost_pass_the_trainer(overrides):
     refuse_unported_training(_cfg(*overrides))
 

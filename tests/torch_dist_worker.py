@@ -1,6 +1,6 @@
 """One rank of a gloo process group on the CPU, for the port's parallel
 tests (``tests/test_torch_ring_attention.py``, ``tests/test_torch_parallel.py``,
-``tests/test_torch_tensor_parallel.py``).
+``tests/test_torch_tensor_parallel.py``, ``tests/test_torch_pipeline.py``).
 
     python tests/torch_dist_worker.py CASE RANK WORLD STORE_DIR OUT_DIR [ARGS...]
 
@@ -473,6 +473,54 @@ def case_tp_dino_step(rank, world, out, inputs):
     tree = tp.host_state_dict(state, trained)
     if rank == 0:
         torch.save({"loss": float(result["loss"]), "state": tree}, out / "tp_dino_step.pt")
+
+
+def pipeline_model(dropout=0.0, seed=11):
+    """A tiny 4-block port ViT (the JAX pipeline tests' widths) and a batch
+    of 8 images."""
+    from vit_ssl_tpu_torch.models import ViT
+
+    model = ViT(num_classes=5, num_blocks=4, input_shape=(3, 16, 16), embed_dim=32,
+                patch_size=4, num_heads=4, mlp_dim=64, dropout=dropout)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    x = torch.from_numpy(np.random.default_rng(seed).random((8, 16, 16, 3), np.float32))
+    return model, x
+
+
+def pipeline_step(model, x, dropout):
+    """The model's output with dropout on (generator seed 5) and the
+    gradients of sum(out²) by parameter name (those this process holds)."""
+    out = model(x, dropout <= 0.0, torch.Generator().manual_seed(5))
+    named = [(n, p) for n, p in model.named_parameters()]
+    grads = torch.autograd.grad(out.square().sum(), [p for _, p in named],
+                                allow_unused=True)
+    return out.detach(), {n: g for (n, _), g in zip(named, grads) if g is not None}
+
+
+def case_pipeline(rank, world, out, *layouts):
+    """:func:`pipeline_model` over ``world`` real pipeline stages (the world
+    is the pipe group), once a layout ``m:v:dropout`` (``m`` microbatches,
+    ``v`` chunks a stage): the output and the gradients this rank takes;
+    rank 0 also the same run over virtual stages. Each layout writes
+    ``pipeline_<layout>_<rank>.npz``."""
+    from vit_ssl_tpu_torch.parallel.integrate import virtual_pipeline
+    from vit_ssl_tpu_torch.parallel.pipeline import Pipeline
+
+    for layout in layouts:
+        m, v, dropout = layout.split(":")
+        m, v, dropout = int(m), int(v), float(dropout)
+        model, x = pipeline_model(dropout)
+        model._pipeline = Pipeline(4, world, m, v, stage=rank, group=dist.group.WORLD,
+                                   ranks=list(range(world)))
+        y, grads = pipeline_step(model, x, dropout)
+        res = {"out": y.numpy(), **{f"grad/{n}": g.numpy() for n, g in grads.items()}}
+        if rank == 0:
+            del model._pipeline
+            with virtual_pipeline(model, world, m, v):
+                y, grads = pipeline_step(model, x, dropout)
+            res.update({"virtual_out": y.numpy(),
+                        **{f"virtual/{n}": g.numpy() for n, g in grads.items()}})
+        np.savez(out / f"pipeline_{layout}_{rank}.npz", **res)
 
 
 def spawn(case, world, tmp, *args, timeout=240):

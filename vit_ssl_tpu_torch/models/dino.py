@@ -68,6 +68,12 @@ class ViTBackbone(nn.Module):
 
     def encode(self, x, block_size: int = 0, deterministic: bool = True,
                generator: Optional[torch.Generator] = None):
+        """The blocks (over the pipeline's stages under ``_pipeline``:
+        :mod:`..parallel.integrate`); ``block_size`` > 0 for packed crops."""
+        pipe = getattr(self, "_pipeline", None)
+        if pipe is not None:
+            return pipe(self.encoder_blocks, x, block_size, deterministic, generator,
+                        self.remat)
         if self.encoder_scan is not None:
             return self.encoder_scan(x, block_size, deterministic, generator, self.remat)
         for block in self.encoder_blocks:

@@ -84,6 +84,11 @@ class SimMIMViT(nn.Module):
 
     def encode(self, x, deterministic: bool = True,
                generator: Optional[torch.Generator] = None):
+        """The blocks (over the pipeline's stages under ``_pipeline``:
+        :mod:`..parallel.integrate`)."""
+        pipe = getattr(self, "_pipeline", None)
+        if pipe is not None:
+            return pipe(self.encoder_blocks, x, 0, deterministic, generator, self.remat)
         if self.encoder_scan is not None:
             return self.encoder_scan(x, 0, deterministic, generator, self.remat)
         for block in self.encoder_blocks:

@@ -162,7 +162,15 @@ class ViT(nn.Module):
         block's probabilities); with ``return_aux``, (tokens, the MoE
         blocks' summed router loss, their mean dropped share), zeros
         without MoE blocks. With ``remat``, each block that a backward
-        will run through is checkpointed."""
+        will run through is checkpointed. Under pipeline parallelism
+        (``_pipeline``, :mod:`..parallel.integrate`) the blocks run over the
+        stages, without ``return_attn`` or ``return_aux``."""
+        pipe = getattr(self, "_pipeline", None)
+        if pipe is not None:
+            if return_attn or return_aux:
+                raise ValueError("return_attn and return_aux run on an unpipelined "
+                                 "model (PipelineState.unsharded)")
+            return pipe(self.encoder_blocks, x, 0, deterministic, generator, self.remat)
         if self.encoder_scan is not None:
             if return_attn:
                 refuse_return_attn()

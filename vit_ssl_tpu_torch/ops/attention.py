@@ -187,13 +187,15 @@ class MultiHeadAttention(nn.Module):
         (:func:`..parallel.ring_attention.ring_attention`: B2 at every hop
         on the card, its plain versions with ``use_flash=False`` or on the
         CPU), whose output is all-gathered along the sequence. None (the
-        single-device paths) when sp is off; an sp that does not divide N
-        falls back with one logged warning per shape."""
+        single-device paths) when sp is off or inside a pipeline stage
+        (:func:`..parallel.context.pipeline_stage`; the trainer warns once);
+        an sp that does not divide N falls back with one logged warning per
+        shape."""
         from ..parallel import context
         from ..parallel.mesh import SEQ_AXIS
 
         sp = context.sp_size()
-        if sp <= 1:
+        if sp <= 1 or context.in_pipeline_stage():
             return None
         if n % sp:
             if (n, sp) not in _SP_FALLBACK_WARNED:

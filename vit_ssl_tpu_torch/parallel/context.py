@@ -9,6 +9,9 @@ it at call time:
 - the modules that :mod:`.tensor_parallel` shards over the ``model`` and
   ``expert`` axes carry their groups themselves; :func:`tp_size` and
   :func:`ep_size` give the axes' sizes;
+- the trainer splits the encoder blocks over the ``pipe`` axis
+  (:mod:`.pipeline`): :func:`pp_size`, :func:`pipe_rank` (this rank's
+  stage) and :func:`pipe_group`;
 - the steps, DINO's center and its statistics sum over the ``data`` axis
   (:func:`dp_sum`), so every mean is the global batch's, weight-exact;
 - the per-image draws (device augmentation, SimMIM's mask) are the data
@@ -16,7 +19,7 @@ it at call time:
   run draws what one process draws;
 - the dropout streams fold the data rank in (:func:`data_rank`): each data
   rank draws its own dropout masks and patch-dropout scores, and the
-  model, seq and expert ranks of one data index draw the same ones;
+  model, pipe, seq and expert ranks of one data index draw the same ones;
 - the loaders shard by the data rank (``data/builder.py``).
 
 :func:`suspended` hides the mesh while one process works alone (rank 0's
@@ -31,10 +34,11 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
+from .mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, Mesh
 
 _MESH: Optional[Mesh] = None
 _SUSPENDED = False
+_IN_STAGE = False
 
 
 def set_parallel_context(mesh: Optional[Mesh]) -> None:
@@ -61,6 +65,24 @@ def suspended():
 
 def is_suspended() -> bool:
     return _SUSPENDED
+
+
+@contextlib.contextmanager
+def pipeline_stage():
+    """Inside, the code runs one pipeline stage's blocks (its forward, or
+    the backward through them): attention does not ring over the seq axis
+    there, as in JAX, where the ring does not run inside the stages'
+    ``shard_map``."""
+    global _IN_STAGE
+    was, _IN_STAGE = _IN_STAGE, True
+    try:
+        yield
+    finally:
+        _IN_STAGE = was
+
+
+def in_pipeline_stage() -> bool:
+    return _IN_STAGE
 
 
 def axis_size(name: str) -> int:
@@ -97,6 +119,19 @@ def tp_size() -> int:
 
 def ep_size() -> int:
     return axis_size(EXPERT_AXIS)
+
+
+def pp_size() -> int:
+    return axis_size(PIPE_AXIS)
+
+
+def pipe_rank() -> int:
+    """This rank's pipeline stage."""
+    return axis_rank(PIPE_AXIS)
+
+
+def pipe_group():
+    return axis_group(PIPE_AXIS)
 
 
 def data_rank() -> int:

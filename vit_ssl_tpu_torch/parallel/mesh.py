@@ -6,7 +6,7 @@ NCCL on the card, gloo on the CPU), the world is laid out as a
 ``torch.distributed.device_mesh.DeviceMesh`` with JAX's axis names, and the
 collectives are written out by the code that needs them (the gradient
 all-reduce, the weight sums, the ring, tensor and expert parallelism's
-sums and gathers).
+sums and gathers, the pipeline's sends and broadcasts).
 
 :func:`axis_sizes` is JAX's ``mesh_from_config`` rule: dp (``data``) is
 implicit, whatever the world leaves after tp·pp·sp·ep; axes of size 1 are
@@ -29,7 +29,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"  # tensor parallelism (parallel/tensor_parallel.py)
-PIPE_AXIS = "pipe"    # pipeline parallelism (not ported: ROADMAP.md queue A item 10)
+PIPE_AXIS = "pipe"    # pipeline parallelism (parallel/pipeline.py)
 SEQ_AXIS = "seq"      # sequence parallelism, ring attention
 EXPERT_AXIS = "expert"  # expert parallelism (parallel/tensor_parallel.py)
 _CONFIG_KEYS = {MODEL_AXIS: "tp", PIPE_AXIS: "pp", SEQ_AXIS: "sp", EXPERT_AXIS: "ep"}
@@ -108,6 +108,16 @@ class Mesh:
             self.groups = {a: self.device_mesh.get_group(a) for a in self.axis_names}
             self.host_group = (dist.new_group(backend="gloo")
                                if dist.get_backend() != "gloo" else dist.group.WORLD)
+
+    def rank_at(self, **coords: int) -> int:
+        """The global rank whose coordinates are this rank's with ``coords``
+        replaced (e.g. ``rank_at(pipe=s)``: stage s of this rank's pipe
+        group)."""
+        where = {**self.coords, **coords}
+        rank = 0
+        for axis, size in self.shape.items():
+            rank = rank * size + where[axis]
+        return rank
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank}, coords={self.coords})"

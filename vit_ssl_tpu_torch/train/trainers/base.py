@@ -55,8 +55,11 @@ writes checkpoints (full tensors) and runs the evaluations, over unsharded
 loaders with the mesh suspended, while the others wait; a preemption is
 agreed on by every rank at the same batch boundary.
 
-Refused by name, with its ``ROADMAP.md`` queue-A item:
-``parallel.pp > 1`` (item 10).
+``parallel.pp`` splits the encoder blocks over the ``pipe`` axis before the
+steps are built (:class:`...parallel.integrate.PipelineState`: each rank
+keeps its stage's blocks, the embedding and the head, and the optimizer
+those only; tp, ep and fsdp then shard the kept modules); checkpoints hold
+every stage's blocks, whole.
 """
 
 from __future__ import annotations
@@ -80,6 +83,7 @@ from ...models.builder import config_mode
 from ...parallel import context as parallel_context
 from ...parallel.data_parallel import DataParallelOptimizer
 from ...parallel.fsdp import ShardedState
+from ...parallel.integrate import PipelineState
 from ...parallel.mesh import DATA_AXIS, axis_sizes, broadcast_module, mesh_from_config, world
 from ...parallel.tensor_parallel import TensorParallelState
 from ...utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
@@ -95,13 +99,11 @@ logger = logging.getLogger(__name__)
 
 def refuse_unported_training(config) -> None:
     """Raise on a training option the port does not run yet, naming its
-    ``ROADMAP.md`` queue-A item: pipeline parallelism. dp, ``parallel.tp``,
-    ``parallel.ep``, ``parallel.sp``, ``parallel.fsdp`` and
-    ``parallel.multihost`` run."""
-    parallel = config.get("parallel", {}) or {}
-    if int(parallel.get("pp", 1) or 1) > 1:
-        raise NotImplementedError(
-            "parallel.pp > 1 is not ported yet; see ROADMAP.md queue A item 10")
+    ``ROADMAP.md`` queue-A item. Every option runs since pipeline
+    parallelism (dp, ``parallel.tp``, ``parallel.ep``, ``parallel.sp``,
+    ``parallel.pp``, ``parallel.fsdp``, ``parallel.multihost``): nothing is
+    refused; the trainers call it first, so that an option the JAX
+    package's config gains has one place to be refused."""
 
 
 def _distributed() -> bool:
@@ -132,7 +134,8 @@ class BaseTrainer(ABC):
         self.data_group = self.mesh.groups.get(DATA_AXIS)
         # the sharded state: a ShardedState (parallel.fsdp), a
         # TensorParallelState (parallel.tp or parallel.ep; the config refuses
-        # fsdp with either) or None
+        # fsdp with either), a PipelineState (parallel.pp) around either or
+        # none, or None
         self._sharded = None
         self.network = network
         self.mode = config_mode(config)
@@ -217,26 +220,41 @@ class BaseTrainer(ABC):
         data axis and the optimizer updates the chunks; with ``parallel.tp``
         or ``parallel.ep`` the modules are sharded over the model and expert
         axes (JAX's ``shard_params``, the teacher and the optimizer's
-        buffers alike: ``shard_tree_tp``)."""
+        buffers alike: ``shard_tree_tp``); with ``parallel.pp`` the other
+        stages' blocks are dropped first, and the kept modules sharded."""
         if self.data_group is None:
             return
         for module in self._state_modules():
             broadcast_module(module)
+        modules = {n: getattr(self.state, n) for n in ("student", "teacher", "model")
+                   if getattr(self.state, n, None) is not None}
+        pipeline = None
+        if parallel_context.pp_size() > 1:
+            pipeline = PipelineState(modules, self.state, self.optimizer, self.mesh,
+                                     self.config)
         if parallel_context.tp_size() > 1 or parallel_context.ep_size() > 1:
-            modules = {n: getattr(self.state, n) for n in ("student", "teacher", "model")
-                       if getattr(self.state, n, None) is not None}
             self._sharded = TensorParallelState(modules, self.state.opt_state,
                                                 self._trained_params(), self.mesh)
         elif bool(self.config.get("parallel", {}).get("fsdp", False)):
             self._sharded = ShardedState(self._state_modules(), self.state.opt_state,
                                          self._trained_params(), self.data_group)
             self.optimizer.sharded = self._sharded
+        if pipeline is not None:
+            pipeline.inner, self._sharded = self._sharded, pipeline
+
+    def _fsdp(self) -> Optional[ShardedState]:
+        """The fsdp state (under pp, the pipeline's inner one), or None."""
+        sharded = self._sharded
+        if isinstance(sharded, PipelineState):
+            sharded = sharded.inner
+        return sharded if isinstance(sharded, ShardedState) else None
 
     def _wrap_steps(self):
         """Under fsdp the steps run on the gathered parameters."""
-        if isinstance(self._sharded, ShardedState):
-            self.train_step = self._sharded.around(self.train_step)
-            self.eval_step = self._sharded.around(self.eval_step)
+        fsdp = self._fsdp()
+        if fsdp is not None:
+            self.train_step = fsdp.around(self.train_step)
+            self.eval_step = fsdp.around(self.eval_step)
 
     def _host_state(self, keep: bool = True):
         """The train state in host memory, full tensors (every rank takes
@@ -335,7 +353,7 @@ class BaseTrainer(ABC):
         """The unsupervised evaluation of ``eval.mode`` into
         ``save_path/epoch_{epoch}`` (``evaluation_summary.*`` and the UMAP
         reports), over :attr:`eval_loaders`: rank 0 alone, on the full
-        weights (under tp or ep an unsharded copy that every rank helps
+        weights (under tp, ep or pp an unsharded copy that every rank helps
         gather), with the mesh suspended, while the other ranks wait."""
         from ...evaluators.unsupervised_evaluator import run_evaluation
 
@@ -357,8 +375,8 @@ class BaseTrainer(ABC):
 
     def _materialized(self):
         """The full parameters inside (under fsdp; a no-op otherwise)."""
-        return self._sharded.materialized() if isinstance(self._sharded, ShardedState) \
-            else contextlib.nullcontext()
+        fsdp = self._fsdp()
+        return fsdp.materialized() if fsdp is not None else contextlib.nullcontext()
 
     def _log_memory_once(self):
         """One line after the first trained epoch: the card's peak memory."""
