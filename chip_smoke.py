@@ -95,6 +95,19 @@ Phases, each printing its own lines; any failure exits non-zero:
               B1's kernels counted in one profile window of 3 steps, the
               in-loop step and peak memory beside phase 9a's; the group
               destroyed at the end
+9a.3 host multi-crop — DINO ViT-S/8 from a folder of 320 seeded 96 px
+              PNGs (this script's encoder, row filters 0-4 in turn) with
+              ``data.device_augment=false``: the port's PNG decoder bit-equal
+              to the encoded arrays and ``native_batch`` to the per-sample
+              path; configs/dino.yaml composed by the port (checked against
+              DINO_VIT_S8) through the CLI's ``main`` for one epoch (2 train
+              and 1 val steps, the views made on the host by the config's
+              globals and locals pipelines), B1's launches exact, checkpoints
+              written; one host-views step against plain attention from one
+              cloned state; the PNGs served through ``Server.infer`` against
+              ``forward_batch`` on the decoded arrays; host ms per view of
+              each pipeline, decode ms per image, the epoch's img/s and
+              input-wait share beside phase 9a's
 9b. finetune — configs/finetune.yaml composed by the port with
               FINETUNE_OVERRIDES (ViT-S/8 at 96 px, extended transfer, the
               backbone frozen until epoch 2), from phase 9a's DINO
@@ -246,11 +259,13 @@ import contextlib
 import copy
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -5312,6 +5327,213 @@ def phase_patch_dropout(torch, fa, card):
     return {"patch_dropout_step": launches}
 
 
+HOST_IMAGES = 320  # 96 px PNGs: 256 train (two batches of 128) and 64 val at val_split 0.2
+HOST_OVERRIDES = ["data.device_augment=false", "training.num_epochs=1", "eval.interval=0"]
+
+
+def png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (len(body).to_bytes(4, "big") + kind + body
+            + zlib.crc32(kind + body).to_bytes(4, "big"))
+
+
+def encode_png(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of ``rgb`` (H, W, 3) uint8, row y filtered with
+    PNG filter y mod 5 (None, Sub, Up, Average, Paeth in turn)."""
+    h, w, _ = rgb.shape
+    rows = rgb.reshape(h, w * 3).astype(np.int16)
+    raw = bytearray()
+    prev = np.zeros(w * 3, np.int16)
+    for y in range(h):
+        row, kind = rows[y], y % 5
+        left = np.concatenate([np.zeros(3, np.int16), row[:-3]])
+        upleft = np.concatenate([np.zeros(3, np.int16), prev[:-3]])
+        if kind == 0:
+            pred = 0
+        elif kind == 1:
+            pred = left
+        elif kind == 2:
+            pred = prev
+        elif kind == 3:
+            pred = (left + prev) >> 1
+        else:
+            pa, pb = np.abs(prev - upleft), np.abs(left - upleft)
+            pc = np.abs(left + prev - 2 * upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, prev, upleft))
+        raw.append(kind)
+        raw += ((row - pred) & 255).astype(np.uint8).tobytes()
+        prev = row
+    header = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 2, 0, 0, 0])
+    return (b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", header)
+            + png_chunk(b"IDAT", zlib.compress(bytes(raw), 6)) + png_chunk(b"IEND", b""))
+
+
+def phase_host_multicrop(torch, fa, card, tmp, trainer_stats):
+    """DINO ViT-S/8 from a PNG folder with the views made on the host: a
+    folder of HOST_IMAGES seeded 96 px PNGs (this script's encoder, every
+    row filter); the port's decoder bit-equal to the encoded arrays and
+    ``native_batch`` to the per-sample path; configs/dino.yaml with
+    HOST_OVERRIDES and the folder through the CLI's ``main`` (the host
+    multi-crop through the config's globals and locals pipelines,
+    ``data.num_workers`` as composed): 2 train and 1 val steps, B1's
+    launches exact, a checkpoint written; one step on a host-views batch
+    against the plain-attention step from one cloned state (the DINO bars);
+    the folder served through ``Server.infer`` against ``forward_batch`` on
+    the decoded arrays (row cosine >= 0.999); host ms per view of each
+    pipeline, decode ms per image (per sample and native), the epoch's img/s
+    and input-wait share beside the device-augment trainer's. Returns the
+    CLI run's launches."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose, to_container
+    from vit_ssl_tpu_torch.data import png
+    from vit_ssl_tpu_torch.data.builder import prepare_dataloaders
+    from vit_ssl_tpu_torch.data.datasets import STL10UnsupervisedDataset
+    from vit_ssl_tpu_torch.data.transforms import Compose, Resize, get_transforms
+    from vit_ssl_tpu_torch.serve import Server
+    from vit_ssl_tpu_torch.train import __main__ as cli
+
+    folder = Path(tmp) / "png"
+    folder.mkdir()
+    images = np.random.default_rng(31).integers(0, 256, (HOST_IMAGES, 96, 96, 3),
+                                                dtype=np.uint8)
+    for i, image in enumerate(images):
+        (folder / f"{i:05d}.png").write_bytes(encode_png(image))
+    files = sorted(str(p) for p in folder.glob("*.png"))
+    run_dir = str(Path(tmp) / "host_run")
+    overrides = HOST_OVERRIDES + [f"data.data_dir={folder}", f"hydra.run.dir={run_dir}"]
+    print(f"== host multi-crop: configs/dino.yaml with {' '.join(overrides[:-2])}, a folder "
+          f"of {HOST_IMAGES} 96 px PNGs (filters 0-4 by row); the CLI's main; {card}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    decoded = [png.decode(f) for f in files]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(files)
+    bad = [i for i, (a, b) in enumerate(zip(decoded, images)) if not np.array_equal(a, b)]
+    if bad:
+        fail(f"the PNG decoder differs from the encoded arrays at files {bad[:5]}")
+    dataset = STL10UnsupervisedDataset(str(folder), Compose([Resize([96, 96])]),
+                                       native_decode=True)
+    t0 = time.perf_counter()
+    native = [x for lo in range(0, HOST_IMAGES, 128)
+              for x in dataset.native_batch(range(lo, min(lo + 128, HOST_IMAGES)))]
+    native_ms = (time.perf_counter() - t0) * 1e3 / HOST_IMAGES
+    if len(native) != HOST_IMAGES or any(not np.array_equal(a, dataset[i])
+                                         for i, a in enumerate(native)):
+        fail("native_batch differs from the per-sample path")
+    print(f"  decode: bit-equal to the encoded arrays; native_batch bit-equal to the "
+          f"per-sample path; {decode_ms:.3f} ms an image per sample, {native_ms:.3f} ms "
+          f"an image native ({os.cpu_count()} host cores)", flush=True)
+
+    config = compose(Path(__file__).resolve().parent / "configs", "dino", overrides)
+    composed = to_container(config)
+    diffs = config_differences({k: DINO_VIT_S8[k] for k in ("model", "transforms")},
+                               composed)
+    want_training = dict(DINO_VIT_S8["training"], num_epochs=1)
+    diffs += config_differences(want_training, composed["training"], "config.training")
+    if diffs or composed["data"]["device_augment"]:
+        fail("the composed config differs from DINO_VIT_S8: " + "; ".join(diffs))
+    pipes = get_transforms(config)
+    host_ms = {}
+    for key in ("globals", "locals"):
+        t0 = time.perf_counter()
+        for i, image in enumerate(decoded[:64]):
+            pipes[key](image, np.random.default_rng(i))
+        host_ms[key] = (time.perf_counter() - t0) * 1e3 / 64
+    views = DINO_VIT_S8["training"]["num_global_views"]
+    per_image = views * host_ms["globals"] + (
+        DINO_VIT_S8["training"]["num_all_views"] - views) * host_ms["locals"]
+    print(f"  composed config: model, training (num_epochs 1) and transforms equal "
+          f"DINO_VIT_S8; host pipelines on one thread: globals {host_ms['globals']:.3f} "
+          f"ms a view, locals {host_ms['locals']:.3f} ms a view, {per_image:.3f} ms an "
+          f"image's 6 views; data.num_workers {config.data.num_workers}", flush=True)
+
+    trainers, train_log, val_log = [], [], []
+    get_trainer = cli.get_trainer
+
+    def recorded(*args, **kwargs):
+        trainer = get_trainer(*args, **kwargs)
+        trainer.train_step = counted_steps(trainer.train_step, train_log)
+        trainer.eval_step = counted_steps(trainer.eval_step, val_log)
+        trainers.append(trainer)
+        return trainer
+
+    cli.get_trainer = recorded
+    try:
+        with no_plain_attention(fa):
+            kernels.launches.clear()  # the host multi-crop path starts here
+            t0 = time.perf_counter()
+            cli.main(["--config-path", str(Path(__file__).resolve().parent / "configs"),
+                      "--config-name", "dino", *overrides])
+            run_s = time.perf_counter() - t0
+            launches = dict(kernels.launches)  # ... and ends here
+    finally:
+        cli.get_trainer = get_trainer
+    blocks = DINO_VIT_S8["model"]["num_blocks"]
+    per_train, per_val = attention_launches(fa), {fa.KERNEL: 3 * blocks}
+    if (len(train_log), len(val_log)) != (2, 1):
+        fail(f"the CLI ran {len(train_log)} train and {len(val_log)} val steps, "
+             "expected 2 and 1")
+    for kind, log, want in (("train", train_log, per_train), ("val", val_log, per_val)):
+        for i, (_, got, _) in enumerate(log):
+            if got != want:
+                fail(f"{kind} step {i} of the host multi-crop run launched {got}, "
+                     f"expected {want}")
+    if any(launches.get(name, 0) == 0 for name in (fa.KERNEL, fa.KERNEL_TRAIN,
+                                                     fa.KERNEL_BWD)):
+        fail(f"the host multi-crop run left a B1 entry unlaunched: {launches}")
+    for name in ("best_model", "last_model"):
+        if not (Path(run_dir) / name / "state.pt").exists():
+            fail(f"the host multi-crop run wrote no {name}")
+    trainer = trainers[0]
+    losses = [float(out["loss"]) for _, _, out in train_log + val_log]
+    if not np.isfinite(losses).all():
+        fail(f"a host multi-crop loss is not finite: {losses}")
+    stats = trainer.epoch_input_stats[0]
+    real = len(trainer.train_loader.dataset)
+    rate, wait = real / stats["wall_s"], stats["wait_s"] / stats["wall_s"]
+    print(f"  launches: {launches} (per train step {per_train}, per val step {per_val}); "
+          f"losses {' '.join(f'{x:.6f}' for x in losses)}; the CLI call {run_s:.3f} s",
+          flush=True)
+    print(f"  epoch on {card}: {real} images in {stats['wall_s']:.3f} s wall "
+          f"({rate:.1f} img/s), input-wait share {wait:.4f}; the device-augment "
+          f"trainer's epochs: " + ", ".join(
+              f"{r:.1f} img/s at input-wait {w:.4f}" for r, w in zip(
+                  trainer_stats["images_per_s"], trainer_stats["input_wait_share"])),
+          flush=True)
+    del trainer, trainers
+    gc.collect()
+
+    batches = iter(prepare_dataloaders(config, "dino")[0])
+    batch = next(batches)
+    batches.close()  # stops the loader's producer thread
+    batch = {"views": [torch.from_numpy(v).cuda() for v in batch["views"]],
+             "weight": torch.from_numpy(batch["weight"]).cuda()}
+    print("  one step on this host-views batch, B1 against plain attention:", flush=True)
+    state, train_step, _ = build_training(torch)
+    agreement(torch, fa, state, train_step, batch)
+    del state, train_step, batch
+    gc.collect()
+
+    pth = f"{tmp}/host_dino.pth"
+    write_checkpoint(torch, DINO_VIT_S8, pth)
+    server = Server(pth, batch_size=SERVE_BATCH, device="cuda")
+    records = server.infer(files[:SERVE_BATCH])
+    errors = [r for r in records if "error" in r]
+    if errors:
+        fail(f"serving the PNG folder gave error records: {errors[:2]}")
+    got = np.asarray([r["embedding"] for r in records], np.float32)
+    want = server.forward_batch(np.stack(decoded[:SERVE_BATCH]).astype(np.float32) / 255)
+    cos = row_cosine(got, want)
+    print(f"  served {len(records)} PNGs through Server.infer: min row cosine "
+          f"{cos.min():.6f} to forward_batch on the decoded arrays (>= 0.999)",
+          flush=True)
+    if cos.min() < 0.999:
+        fail("the served PNGs disagree with forward_batch on the decoded arrays")
+    del server
+    gc.collect()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5390,6 +5612,8 @@ def main() -> int:
         del dino_eval
         finetune_launches = phase_finetune(torch, fa, card,
                                            Path(tmp) / "run" / "best_model", tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        host_launches = phase_host_multicrop(torch, fa, card, tmp, trainer_stats)
     with tempfile.TemporaryDirectory() as tmp:
         (simmim_fit_launches, simmim_resumed_launches, simmim_state, simmim_optimizer,
          simmim_batch, _, simmim_eval_launches) = phase_simmim_trainer(torch, fa, card, tmp)
@@ -5571,6 +5795,7 @@ def main() -> int:
     ]
     paths = {"serving": serve_launches, "training": train_launches,
              "trainer": trainer_launches, "trainer_resumed": resumed_launches,
+             "host_multicrop": host_launches,
              "dino_evaluation": dino_eval_launches,
              "evaluate_standalone": standalone_launches,
              "simmim_evaluation": simmim_eval_launches,

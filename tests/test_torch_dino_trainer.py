@@ -487,17 +487,32 @@ def test_other_training_modes_name_their_item(mode, item, tmp_path):
 
 
 def test_host_data_refusals_name_their_item(tmp_path):
-    """The host multi-crop and the native decoder name their item; the
-    evaluators' datasets (ported since) load ``eval.*``'s labeled images,
-    a list of modes by its first, through Resize and ToTensor."""
+    """The host multi-crop and the native decoder, once refused by name,
+    load what the JAX package loads (DINO's views with
+    ``data.device_augment=false``; ``native_decode``'s whole-batch decode,
+    equal to the per-sample path); the evaluators' datasets load
+    ``eval.*``'s labeled images, a list of modes by its first, through
+    Resize and ToTensor."""
     from make_synthetic_data import make
+    from vit_ssl_tpu.data import prepare_dataloaders as jax_prepare_dataloaders
+    from vit_ssl_tpu.data.transforms import get_transforms as jax_get_transforms
 
-    config = compose(CONFIGS, "dino", ["data.device_augment=false"])
-    with pytest.raises(NotImplementedError, match=r"device_augment.*queue A item 11\b"):
-        prepare_dataloaders(config, "dino")
-    with pytest.raises(NotImplementedError, match=r"native_decode.*queue A item 11\b"):
-        STL10UnsupervisedDataset(str(tmp_path), native_decode=True)
     data = make(str(tmp_path / "synth"), n=10, size=20, num_classes=2)
+    config = compose(CONFIGS, "dino", ["data.device_augment=false", "data.img_size=16",
+                                       "data.local_img_size=8", "data.num_workers=0",
+                                       "training.batch_size=4",
+                                       f"data.data_dir={data}/unlabeled_images"])
+    got = next(iter(prepare_dataloaders(config, "dino")[0]))
+    want = next(iter(jax_prepare_dataloaders(config, jax_get_transforms(config),
+                                             "dino")[0]))
+    assert set(got) == set(want) == {"views", "weight"}
+    for a, b in zip(got["views"], want["views"]):
+        np.testing.assert_array_equal(a, b)
+    native = STL10UnsupervisedDataset(f"{data}/unlabeled_images",
+                                      eval_pipeline(16).transforms[0], native_decode=True)
+    batch = native.native_batch([4, 1])
+    for i, image in zip((4, 1), batch):
+        np.testing.assert_array_equal(image, native[i])
     config = compose(CONFIGS, "dino", [f"eval.data_dir={data}/train_images",
                                        f"eval.data_csv={data}/train_labels.json",
                                        "data.img_size=16", "data.num_workers=0",

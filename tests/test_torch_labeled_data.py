@@ -141,8 +141,11 @@ def test_label_range_and_remaining_refusals(root):
                      _overrides(root, True, "supervised") + ["model.num_classes=2"])
     with pytest.raises(ConfigValidationError, match="3 classes"):
         prepare_dataloaders(config, "supervised")
-    with pytest.raises(NotImplementedError, match=r"ColorJitter.*queue A item 11\b"):
-        transforms.build_transform("ColorJitter", {})
+    jitter = transforms.build_transform("ColorJitter", {"brightness": 0.4, "hue": 0.1})
+    ref = jax_transforms.build_transform("ColorJitter", {"brightness": 0.4, "hue": 0.1})
+    image = np.random.default_rng(0).integers(0, 256, (12, 14, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(jitter(image, np.random.default_rng(1)),
+                                  ref(image, np.random.default_rng(1)))
     with pytest.raises(ValueError, match="Unknown transform"):
         transforms.build_transform("Solarize", {})
     config = compose("configs", "supervised",

@@ -16,9 +16,12 @@ as JAX shards the batch over ``data`` only).
   they run the config's ``transforms.train`` and ``transforms.val`` on the
   host. :func:`check_label_range` refuses a dataset with more classes
   than the model's head.
-- DINO (:func:`dino_dataset`) with ``data.device_augment=true`` (the host
-  decodes and resizes; the views are made on the card); train and val
-  share one dataset object.
+- DINO (:func:`dino_dataset`): with ``data.device_augment=true`` the host
+  decodes and resizes (the views are made on the card); without it the
+  host multi-crop ``STL10DINODataset`` makes them through the config's
+  ``transforms.globals`` and ``transforms.locals``
+  (``training.num_all_views`` views, ``training.num_global_views`` of them
+  global). Train and val share one dataset object.
 - SimMIM (:func:`simmim_dataset`): the unlabeled images of
   ``data.data_dir``, decoded and resized with ``data.device_augment``
   (the train augmentation runs on the card), else through the config's
@@ -30,10 +33,10 @@ as JAX shards the batch over ``data`` only).
   ``data.*`` only when ``eval`` lacks it, through
   :func:`eval_pipeline` (``Resize`` to ``data.img_size``, then
   ``ToTensor``; never the device augmentation).
-
-Refused by name, with its ``ROADMAP.md`` queue-A item: DINO with
-``data.device_augment=false`` (host multi-crop), which ``eval_dino``'s
-datasets are too.
+- ``eval_dino``: the host multi-crop of :func:`dino_dataset` over
+  ``eval.dataset_name`` and ``eval.data_dir`` (each ``data.*``'s when
+  ``eval`` lacks it) and the config's ``transforms``, as the JAX
+  ``_get_dataset`` builds it when handed them.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import numpy as np
 
 from ..config import is_list
 from .datasets import (CIFAR10Dataset, Dataset, ImageFolderDataset, STL10Dataset,
-                       STL10UnsupervisedDataset, Subset)
+                       STL10DINODataset, STL10UnsupervisedDataset, Subset)
 from .loader import DataLoader
 
 logger = logging.getLogger(__name__)
@@ -68,26 +71,29 @@ def _process_shard(config) -> Optional[Tuple[int, int]]:
     return coordinates(sizes, rank)[DATA_AXIS], sizes[DATA_AXIS]
 
 
-def dino_dataset(config) -> Dataset:
-    """DINO's dataset as ``data.*`` describes it (device augmentation)."""
+def dino_dataset(config, section: str = "data") -> Dataset:
+    """DINO's dataset: ``data.*`` (``section="eval"``: ``eval.dataset_name``
+    and ``eval.data_dir``, each ``data.*``'s when ``eval`` lacks it, always
+    the host multi-crop, as ``eval_dino`` loads)."""
     data = config.get("data", {})
-    if not bool(data.get("device_augment", False)):
-        raise NotImplementedError(
-            "DINO with data.device_augment=false (host multi-crop through "
-            "cv2 transforms, STL10DINODataset) is not ported yet; see "
-            "ROADMAP.md queue A item 11. Set data.device_augment=true")
-    dataset_name = str(data.get("dataset_name", "")).lower()
+    keys = config.get(section, {})
+    dataset_name = str(keys.get("dataset_name", data.get("dataset_name", ""))).lower()
+    data_dir = keys.get("data_dir", data.get("data_dir"))
     if dataset_name != "stl10":
         raise ValueError(f"Unknown DINO dataset: {dataset_name}")
-    from .transforms import Compose, Resize
+    training = config.training
+    if section == "data" and bool(data.get("device_augment", False)):
+        dataset = STL10UnsupervisedDataset(
+            data_dir, transform=_decode_and_resize(config),
+            cache=bool(data.get("cache_decoded", False)),
+            native_decode=bool(data.get("native_decode", False)))
+        dataset.num_global_views = int(training.num_global_views)
+        return dataset
+    from .transforms import get_transforms
 
-    img = int(config["data"]["img_size"])
-    dataset = STL10UnsupervisedDataset(
-        data.get("data_dir"), transform=Compose([Resize([img, img])]),
-        cache=bool(data.get("cache_decoded", False)),
-        native_decode=bool(data.get("native_decode", False)))
-    dataset.num_global_views = int(config.training.num_global_views)
-    return dataset
+    return STL10DINODataset(data_dir, transforms=get_transforms(config),
+                            num_all_views=int(training.num_all_views),
+                            num_global_views=int(training.num_global_views))
 
 
 def simmim_dataset(config) -> Dataset:
@@ -252,9 +258,10 @@ def prepare_dataloaders(config, mode) -> Tuple[DataLoader, Optional[DataLoader]]
                                                config.get("data", {}).get("data_dir")))
         return make_loaders(config, *eval_datasets(config))
     if mode == "eval_dino":
-        raise NotImplementedError(
-            "eval_dino's datasets are DINO's host multi-crop (STL10DINODataset), "
-            "not ported yet; see ROADMAP.md queue A item 11")
+        logger.info("Preparing dataloaders for mode: '%s' (eval.data_dir -> %s)", mode,
+                    config.get("eval", {}).get("data_dir",
+                                               config.get("data", {}).get("data_dir")))
+        return make_loaders(config, dino_dataset(config, "eval"))
     if mode in ("supervised", "finetune"):
         logger.info("Preparing dataloaders for mode: '%s'", mode)
         train_full, val_full = labeled_datasets(config)

@@ -1,22 +1,24 @@
 """Datasets (from ``vit_ssl_tpu/data/datasets.py``): the base ``Dataset``, the
 decoder and its cache, the labeled datasets (``CIFAR10Dataset``,
-``STL10Dataset``, ``ImageFolderDataset``), the unlabeled STL-10 folder and
-``Subset``.
+``STL10Dataset``, ``ImageFolderDataset``), the unlabeled STL-10 folder with
+its whole-batch decode (``native_batch``), DINO's host multi-crop
+``STL10DINODataset`` and ``Subset``.
 
 Datasets return numpy arrays (uint8 HWC after the device-augment pipeline's
-decode and resize, float32 after a host ``ToTensor``) and, when labeled,
-int labels; the loader stacks them into NHWC batches. OpenCV is imported
-inside :func:`_load_image`, so a dataset held in memory needs none.
+decode and resize, float32 after a host ``ToTensor``; a list of views from
+the multi-crop) and, when labeled, int labels; the loader stacks them into
+NHWC batches.
+
+Decoding: PNG files go through :mod:`.png` (zlib and numpy, bit-equal to
+OpenCV's reader), so a PNG folder needs neither OpenCV nor PIL; other
+formats, and the PNGs that decoder refuses (16-bit, interlaced), through
+OpenCV or PIL where one is installed.
 
 The labeled indexes are read as the JAX package's pandas reads them, with
 ``csv`` and ``json``: the first column is the file, the second the class;
 the classes are the sorted distinct values of the second column (numbers
 when every value of a CSV column is an integer, as pandas infers them), and
 a label is its class's index.
-
-Not ported yet: the host multi-crop ``STL10DINODataset`` and the native
-batch decoder (``csrc/fastloader``, which links OpenCV): ``ROADMAP.md``
-queue A item 11.
 """
 
 from __future__ import annotations
@@ -25,9 +27,12 @@ import csv
 import glob
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import png
 
 
 class Dataset:
@@ -39,17 +44,35 @@ class Dataset:
 
 
 def _load_image(path: str) -> np.ndarray:
-    """Decode to RGB uint8 HWC with OpenCV; PIL for what OpenCV cannot
-    read."""
-    import cv2
-
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
-    if img is None:  # pragma: no cover - corrupt/unsupported file
+    """Decode to RGB uint8 HWC: a PNG with :func:`png.decode_bytes`; other
+    files (and the PNGs it refuses) with OpenCV, else PIL, refused by name
+    when neither is installed."""
+    with open(path, "rb") as f:
+        data = f.read()
+    refused = None
+    if png.is_png(data):
+        try:
+            return png.decode_bytes(data)
+        except png.UnsupportedPNG as e:
+            refused = e
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is not None:
+            return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    try:
         from PIL import Image
-
+    except ImportError:
+        Image = None
+    if Image is not None:
         with Image.open(path) as pil:
             return np.asarray(pil.convert("RGB"))
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    raise ValueError(
+        f"{path}: {refused or 'not a PNG file'}; without OpenCV or PIL installed "
+        "only PNG images decode (ROADMAP.md: JPEG and other formats)")
 
 
 class _DecodeCache:
@@ -208,21 +231,89 @@ class STL10UnsupervisedDataset(Dataset):
 
     def __init__(self, root_dir: str, transform: Optional[Callable] = None,
                  cache: bool = False, native_decode: bool = False):
-        if native_decode:
-            raise NotImplementedError(
-                "data.native_decode=true binds csrc/libfastloader.so, which "
-                "links OpenCV; the port does not take it yet (ROADMAP.md "
-                "queue A item 11)")
         self.root_dir = root_dir
         self.transform = transform
         self.files = sorted(glob.glob(f"{root_dir}/*.png"))
         self._cache = _DecodeCache(cache)
+        self.native_decode = native_decode
 
     def __len__(self):
         return len(self.files)
 
     def __getitem__(self, idx, rng: Optional[np.random.Generator] = None):
         return self._cache.load_transformed(self.files[idx], self.transform, rng)
+
+    def _native_size(self):
+        """(h, w) when the pipeline is decode+Resize only (the device-
+        augment contract), else None: gates the whole-batch path."""
+        from .transforms import Compose, Resize
+
+        t = self.transform
+        if isinstance(t, Compose) and len(t.transforms) == 1:
+            t = t.transforms[0]
+        if isinstance(t, Resize) and isinstance(t.size, (list, tuple)):
+            return int(t.size[0]), int(t.size[1])
+        return None
+
+    def native_batch(self, indices):
+        """Decode and resize a whole batch in one call: the files read and
+        the images resized across a thread pool, the PNGs of one size
+        unfiltered together (:func:`png.decode_many`; the same decoder and
+        resize as the per-sample path, so the samples are the same).
+        Returns a list of uint8 HWC arrays, or None to use the per-sample
+        path: ``data.native_decode`` off, the cache on (it is faster than
+        either after epoch 1), a pipeline other than decode and Resize, or
+        a file that is not a PNG this decoder takes."""
+        if not self.native_decode or self._cache.enabled:
+            return None
+        if self._native_size() is None:
+            return None
+        paths = [self.files[int(i)] for i in indices]
+
+        def read(path):
+            with open(path, "rb") as f:
+                return f.read()
+
+        workers = max(1, min(os.cpu_count() or 1, len(paths)))
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            datas = list(pool.map(read, paths))
+            try:
+                images = png.decode_many(datas)
+            except ValueError:  # the per-sample path decodes or names it
+                return None
+            return list(pool.map(self.transform, images))
+
+
+class STL10DINODataset(Dataset):
+    """DINO's host multi-crop: a sorted glob of ``*.png``; each item is one
+    decode, then ``num_global_views`` draws of ``transforms["globals"]``
+    and ``num_all_views - num_global_views`` of ``transforms["locals"]``,
+    all from the item's generator, globals first."""
+
+    def __init__(self, root_dir: str, transforms: Optional[Dict[str, Callable]] = None,
+                 num_all_views: Optional[int] = None,
+                 num_global_views: Optional[int] = None):
+        self.root_dir = root_dir
+        self.transforms = transforms
+        self.files = sorted(glob.glob(f"{root_dir}/*.png"))
+        self.num_all_views = num_all_views
+        self._num_global_views = num_global_views
+        self._cache = _DecodeCache(False)
+
+    @property
+    def num_global_views(self) -> int:
+        return self._num_global_views
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx, rng: Optional[np.random.Generator] = None) -> List[np.ndarray]:
+        arr = self._cache.load(self.files[idx])
+        views = [self.transforms["globals"](arr, rng)
+                 for _ in range(self.num_global_views)]
+        num_local = self.num_all_views - self.num_global_views
+        views.extend(self.transforms["locals"](arr, rng) for _ in range(num_local))
+        return views
 
 
 class Subset(Dataset):
@@ -241,3 +332,9 @@ class Subset(Dataset):
 
     def __getitem__(self, idx, rng: Optional[np.random.Generator] = None):
         return self.dataset.__getitem__(self.indices[idx], rng)
+
+    def native_batch(self, indices):
+        inner = getattr(self.dataset, "native_batch", None)
+        if inner is None:
+            return None
+        return inner([self.indices[int(i)] for i in indices])

@@ -1,0 +1,327 @@
+"""OpenCV's arithmetic that the host transforms use, in numpy: resize
+(``INTER_AREA`` and ``INTER_LINEAR``), RGB↔HSV on OpenCV's [0, 180) hue and
+the Gaussian blur, each equal bit for bit to ``cv2.resize``,
+``cv2.cvtColor`` and ``cv2.GaussianBlur`` on uint8 images (OpenCV 5.0 on
+x86-64, the dispatched SIMD paths; ``tests/test_torch_host_transforms.py``
+holds each against ``cv2``, the colour conversions over every input).
+
+- resize, ``INTER_LINEAR``: source coordinate ``(d + 0.5)·scale - 0.5`` in
+  float32, 11-bit weights (``round(w·2048)``, each of the pair rounded on
+  its own, so a pair need not sum to 2048), a horizontal pass summed in
+  integers, then the vertical pass as OpenCV's vector code computes it:
+  ``((r0 >> 4)·b0 >> 16) + ((r1 >> 4)·b1 >> 16)``, rounded by
+  ``(s + 2) >> 2``. A shrink by exactly 2 on both axes is the 2×2 box
+  average, as OpenCV switches it to ``INTER_AREA``.
+- resize, ``INTER_AREA``: when both axes shrink, an integer factor on both
+  is a box average (``(sum + 2) >> 2`` for 2×2, else ``round(sum·(1/area))``
+  in float32) and any other factor sums each destination pixel's covered
+  source pixels with float32 coverage weights, rows then columns in
+  OpenCV's order, rounded half to even. When an axis grows, it is the
+  linear path with the area variant of the coordinates.
+- RGB→HSV: OpenCV's 12-bit division tables, all integer.
+- HSV→RGB: float32, the sector formulas with their products fused
+  (``v·fma(-s, h, 1)``), times 255; OpenCV converts each row in blocks of
+  32 pixels, which truncate to uint8, and rounds the row's remaining
+  (width mod 32) pixels half to even.
+- Gaussian blur: the kernel of ``getGaussianKernel`` in float64, made an
+  8-bit fixed-point kernel by error diffusion (its sum exactly 256), one
+  separable pass in integers with reflect-101 borders and a single
+  rounding, ``(sum + 2^15) >> 16``.
+
+A float image (float32 or float64) resizes and blurs in its own precision
+with OpenCV's float coordinates, weights and kernel: within a few units in
+the last place of OpenCV, whose sums run in another order.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+
+_COEF_SCALE = 2048  # INTER_RESIZE_COEF_SCALE: 11-bit resize weights
+_HSV_SHIFT = 12
+# pixels one vector step of OpenCV's HSV→RGB converts (its x86-64 SIMD
+# dispatch); a row's remainder goes through its scalar tail
+_HSV_BLOCK = 32
+_DBL_EPSILON = np.finfo(np.float64).eps
+
+
+def _check_uint8(img: np.ndarray) -> np.ndarray:
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"the colour conversions take uint8 images, not {img.dtype}")
+    return img
+
+
+def _check_image(img: np.ndarray) -> np.ndarray:
+    """uint8, or float32/float64 (computed in their own precision)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 and img.dtype not in (np.float32, np.float64):
+        raise TypeError(f"the host image ops take uint8 or float images, not {img.dtype}")
+    return img
+
+
+# -- resize ---------------------------------------------------------------------
+
+def _linear_coords(dsize: int, ssize: int, scale: float, inv_scale: float,
+                   area_mode: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """Each destination index's first source index and float32 fraction."""
+    d = np.arange(dsize)
+    if area_mode:
+        s = np.floor(d * scale).astype(np.int64)
+        f = ((d + 1) - (s + 1) * inv_scale).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    else:
+        f = ((d + 0.5) * scale - 0.5).astype(np.float32)
+        s = np.floor(f).astype(np.int64)
+        f = (f - s.astype(np.float32)).astype(np.float32)
+    return s, f
+
+
+def _weights(f: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    one = np.float32(1)
+    w0 = np.rint((one - f) * np.float32(_COEF_SCALE)).astype(np.int32)
+    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int32)
+    return w0, w1
+
+
+def _resize_linear(src: np.ndarray, dh: int, dw: int, area_mode: bool) -> np.ndarray:
+    sh, sw, cn = src.shape
+    inv_x, inv_y = dw / sw, dh / sh
+    sx, fx = _linear_coords(dw, sw, 1.0 / inv_x, inv_x, area_mode)
+    sy, fy = _linear_coords(dh, sh, 1.0 / inv_y, inv_y, area_mode)
+    left = sx < 0
+    fx, sx = np.where(left, np.float32(0), fx), np.where(left, 0, sx)
+    edge = sx >= sw - 1  # the last column and past it: one source pixel
+    fx, sx = np.where(edge, np.float32(0), fx), np.where(edge, sw - 1, sx)
+    if src.dtype != np.uint8:  # float: the float weights, no fixed point
+        one, t = np.float32(1), src.dtype.type
+        a0, a1 = (one - fx).astype(t), fx.astype(t)
+        b0, b1 = (one - fy).astype(t), fy.astype(t)
+        x1 = np.minimum(sx + 1, sw - 1)
+        rows = src[:, sx] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
+        rows = np.where(edge[None, :, None], src[:, sx], rows)
+        return (rows[np.clip(sy, 0, sh - 1)] * b0[:, None, None]
+                + rows[np.clip(sy + 1, 0, sh - 1)] * b1[:, None, None])
+    a0, a1 = _weights(fx)
+    b0, b1 = _weights(fy)
+    s = src.astype(np.int32)
+    rows = s[:, sx] * a0[None, :, None] + s[:, np.minimum(sx + 1, sw - 1)] * a1[None, :, None]
+    rows = np.where(edge[None, :, None], s[:, sx] * _COEF_SCALE, rows)
+    r0 = rows[np.clip(sy, 0, sh - 1)] >> 4
+    r1 = rows[np.clip(sy + 1, 0, sh - 1)] >> 4
+    out = (((r0 * b0[:, None, None]) >> 16) + ((r1 * b1[:, None, None]) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _area_table(ssize: int, dsize: int, scale: float) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV's ``computeResizeAreaTab`` as (dsize, K) source indices and
+    float32 weights in its order, padded with weight-0 entries."""
+    entries = [[] for _ in range(dsize)]
+    for dx in range(dsize):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, ssize - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, ssize - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            entries[dx].append((sx1 - 1, (sx1 - fsx1) / cell))
+        entries[dx].extend((sx, 1.0 / cell) for sx in range(sx1, sx2))
+        if fsx2 - sx2 > 1e-3:
+            entries[dx].append((sx2, min(min(fsx2 - sx2, 1.0), cell) / cell))
+    k = max(len(e) for e in entries)
+    index = np.zeros((dsize, k), np.int64)
+    alpha = np.zeros((dsize, k), np.float32)
+    for dx, e in enumerate(entries):
+        for j, (si, a) in enumerate(e):
+            index[dx, j], alpha[dx, j] = si, np.float32(a)
+    return index, alpha
+
+
+def _resize_area(src: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    sh, sw, cn = src.shape
+    scale_x, scale_y = 1.0 / (dw / sw), 1.0 / (dh / sh)
+    ix, iy = int(round(scale_x)), int(round(scale_y))
+    is_float = src.dtype != np.uint8
+    if abs(scale_x - ix) < _DBL_EPSILON and abs(scale_y - iy) < _DBL_EPSILON:
+        if is_float:
+            box = src[:dh * iy, :dw * ix].reshape(dh, iy, dw, ix, cn)
+            return box.sum(axis=(1, 3)) * src.dtype.type(1.0 / (ix * iy))
+        box = src[:dh * iy, :dw * ix].astype(np.int32).reshape(dh, iy, dw, ix, cn)
+        total = box.sum(axis=(1, 3))
+        if ix == 2 and iy == 2:
+            return ((total + 2) >> 2).astype(np.uint8)
+        mean = total.astype(np.float32) * np.float32(1.0 / (ix * iy))
+        return np.clip(np.rint(mean), 0, 255).astype(np.uint8)
+    x_index, x_alpha = _area_table(sw, dw, scale_x)
+    y_index, y_alpha = _area_table(sh, dh, scale_y)
+    dtype = src.dtype if is_float else np.float32
+    f = src.astype(dtype)
+    x_alpha, y_alpha = x_alpha.astype(dtype), y_alpha.astype(dtype)
+    cols = np.zeros((sh, dw, cn), dtype)
+    for j in range(x_index.shape[1]):
+        cols = cols + f[:, x_index[:, j]] * x_alpha[None, :, j, None]
+    out = np.zeros((dh, dw, cn), dtype)
+    for j in range(y_index.shape[1]):
+        out = out + cols[y_index[:, j]] * y_alpha[:, j, None, None]
+    return out if is_float else np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def resize(img: np.ndarray, height: int, width: int, interpolation: str) -> np.ndarray:
+    """``cv2.resize(img, (width, height), interpolation=INTER_AREA or
+    INTER_LINEAR)`` of an (H, W, C) image; ``interpolation`` is ``"area"``
+    or ``"linear"``. uint8 is bit-equal to OpenCV; a float image takes the
+    same coordinates and weights in its own precision (OpenCV's float
+    paths, up to the order of their sums)."""
+    img = _check_image(img)
+    if interpolation not in ("area", "linear"):
+        raise ValueError(f"unknown interpolation {interpolation!r}")
+    squeeze = img.ndim == 2
+    src = img[:, :, None] if squeeze else img
+    sh, sw = src.shape[:2]
+    height, width = int(height), int(width)
+    if height <= 0 or width <= 0:
+        raise ValueError(f"resize to an empty size ({height}, {width})")
+    if (height, width) == (sh, sw):
+        out = src.copy()
+    else:
+        scale_x, scale_y = 1.0 / (width / sw), 1.0 / (height / sh)
+        if (interpolation == "linear" and abs(scale_x - 2) < _DBL_EPSILON
+                and abs(scale_y - 2) < _DBL_EPSILON):
+            interpolation = "area"
+        if interpolation == "area" and scale_x >= 1 and scale_y >= 1:
+            out = _resize_area(src, height, width)
+        else:
+            out = _resize_linear(src, height, width, interpolation == "area")
+    return out[:, :, 0] if squeeze else out
+
+
+# -- colour ---------------------------------------------------------------------
+
+def _division_tables():
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv = np.zeros(256, np.int64)
+    hdiv = np.zeros(256, np.int64)
+    sdiv[1:] = np.rint((255 << _HSV_SHIFT) / i)
+    hdiv[1:] = np.rint((180 << _HSV_SHIFT) / (6.0 * i))
+    return sdiv, hdiv
+
+
+_SDIV, _HDIV = _division_tables()
+
+
+def rgb_to_hsv(rgb: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV)`` of uint8 (..., 3): hue in
+    [0, 180), saturation and value in [0, 255]."""
+    rgb = _check_uint8(rgb)
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + half) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], axis=-1).astype(np.uint8)
+
+
+# each sector's (b, g, r) entries of (v, p, q, t)
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def _fma(a: np.ndarray, b: np.ndarray, c) -> np.ndarray:
+    """float32 a·b + c rounded once: the float32 product is exact in
+    float64."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c).astype(np.float32)
+
+
+def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)`` of uint8 (..., 3) with hue
+    in [0, 180)."""
+    hsv = _check_uint8(hsv)
+    one, inv = np.float32(1), np.float32(1.0 / 255.0)
+    h = hsv[..., 0].astype(np.float32) * np.float32(6.0 / 180.0)
+    s = hsv[..., 1].astype(np.float32) * inv
+    v = hsv[..., 2].astype(np.float32) * inv
+    h = np.fmod(h, np.float32(6))
+    sector = np.floor(h).astype(np.int64)
+    h = h - sector.astype(np.float32)
+    bad = (sector < 0) | (sector >= 6)
+    sector, h = np.where(bad, 0, sector), np.where(bad, np.float32(0), h)
+    table = np.stack([v, v * (one - s), v * _fma(-s, h, 1.0),
+                      v * _fma(-s, one - h, 1.0)], axis=-1)
+    bgr = np.take_along_axis(table, _SECTORS[sector], axis=-1)
+    bgr = np.where((s == 0)[..., None], v[..., None], bgr) * np.float32(255)
+    # OpenCV converts each row in blocks of _HSV_BLOCK pixels, which
+    # truncate, and rounds the row's last (width mod _HSV_BLOCK) pixels
+    width = hsv.shape[-2] if hsv.ndim >= 2 else 1
+    body = np.arange(width) < width - width % _HSV_BLOCK
+    out = np.where(body[:, None], np.trunc(bgr), np.rint(bgr)) if hsv.ndim >= 2 \
+        else np.rint(bgr)
+    return np.clip(out, 0, 255).astype(np.uint8)[..., ::-1]
+
+
+# -- Gaussian blur ---------------------------------------------------------------
+
+def gaussian_kernel(size: int, sigma: float) -> np.ndarray:
+    """``cv2.getGaussianKernel(size, sigma)`` (odd size, sigma > 0) in
+    float64: exp(-x²/2σ²) normalised to sum 1."""
+    if size % 2 != 1 or sigma <= 0:
+        raise ValueError(f"Gaussian kernel needs an odd size and sigma > 0, got "
+                         f"{size}, {sigma}")
+    scale = -0.125 / (sigma * sigma)
+    values = [math.exp(float(x * x) * scale) for x in range(1 - size, 0, 2)]
+    mul = 1.0 / (2.0 * sum(values) + 1.0)
+    side = [v * mul for v in values]
+    return np.array(side + [mul] + side[::-1], np.float64)
+
+
+def gaussian_kernel_fixed(size: int, sigma: float, bits: int = 8) -> np.ndarray:
+    """The ``bits``-bit fixed-point kernel OpenCV filters uint8 images with:
+    :func:`gaussian_kernel` scaled by 2^bits and rounded by error diffusion
+    from the outside in, the centre taking what makes the sum exactly
+    2^bits."""
+    kernel = gaussian_kernel(size, sigma)
+    half = size // 2
+    out = np.zeros(size, np.int64)
+    err = 0.0
+    for i in range(half):
+        adjusted = kernel[i] * float(1 << bits) + err
+        value = round(adjusted)  # half to even, as cvRound
+        err = adjusted - value
+        out[i] = out[size - 1 - i] = value
+    out[half] = (1 << bits) - 2 * int(out[:half].sum())
+    return out
+
+
+def gaussian_blur(img: np.ndarray, ksize: Tuple[int, int], sigma_x: float,
+                  sigma_y: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, ksize, sigmaX, sigmaY)`` of an (H, W, C)
+    image; ``ksize`` is (width, height), both odd, as OpenCV takes it.
+    uint8 is bit-equal to OpenCV; a float image is filtered with the float
+    kernel in its own precision (OpenCV's float path, up to the order of
+    its sums)."""
+    img = _check_image(img)
+    squeeze = img.ndim == 2
+    src = img[:, :, None] if squeeze else img
+    h, w = src.shape[:2]
+    if src.dtype != np.uint8:
+        t = src.dtype.type
+        kx = gaussian_kernel(int(ksize[0]), float(sigma_x)).astype(np.float32).astype(t)
+        ky = gaussian_kernel(int(ksize[1]), float(sigma_y)).astype(np.float32).astype(t)
+        rx, ry = len(kx) // 2, len(ky) // 2
+        padded = np.pad(src, ((ry, ry), (rx, rx), (0, 0)), mode="reflect")
+        rows = sum(kx[j] * padded[:, j:j + w] for j in range(len(kx)))
+        out = sum(ky[i] * rows[i:i + h] for i in range(len(ky)))
+        return out[:, :, 0] if squeeze else out
+    kx = gaussian_kernel_fixed(int(ksize[0]), float(sigma_x))
+    ky = gaussian_kernel_fixed(int(ksize[1]), float(sigma_y))
+    rx, ry = len(kx) // 2, len(ky) // 2
+    padded = np.pad(src.astype(np.int32), ((ry, ry), (rx, rx), (0, 0)), mode="reflect")
+    rows = sum(int(kx[j]) * padded[:, j:j + w] for j in range(len(kx)))
+    out = sum(int(ky[i]) * rows[i:i + h] for i in range(len(ky)))
+    out = np.clip((out + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
+    return out[:, :, 0] if squeeze else out

@@ -1,9 +1,11 @@
 """Host-side data loader (a copy of ``vit_ssl_tpu/data/loader.py``): threaded
 decode workers and a batch prefetch queue.
 
-Worker threads decode samples (cv2 releases the GIL for the heavy work),
-whole batches are stacked into numpy arrays, and a bounded prefetch queue
-keeps ``prefetch_factor`` batches ready ahead of the training step.
+Worker threads decode and transform samples (zlib and numpy's larger
+operations release the GIL), or a dataset's ``native_batch`` decodes a
+whole batch in one call (``data.native_decode``); whole batches are
+stacked into numpy arrays, and a bounded prefetch queue keeps
+``prefetch_factor`` batches ready ahead of the training step.
 
 Static shapes: the final short batch is padded up to ``batch_size`` with
 copies of its first sample, and a per-sample ``weight`` vector (1 real, 0
@@ -124,6 +126,13 @@ class DataLoader:
             return self.dataset[int(index)]
 
     def _fetch_batch(self, idxs) -> List[Any]:
+        """Whole-batch fetch: one decode call when the dataset offers it
+        (``native_batch``, ``data.native_decode``), else per sample."""
+        native = getattr(self.dataset, "native_batch", None)
+        if native is not None:
+            samples = native(idxs)
+            if samples is not None:
+                return samples
         return [self._fetch(i) for i in idxs]
 
     def _batches(self) -> List[np.ndarray]:
@@ -162,11 +171,16 @@ class DataLoader:
 
         def produce():
             try:
+                native = getattr(self.dataset, "native_batch", None)
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
                     for idxs, n_real in batches:
                         if stop.is_set():
                             return
-                        samples = list(pool.map(self._fetch, idxs))
+                        samples = None
+                        if native is not None:
+                            samples = native(idxs)
+                        if samples is None:
+                            samples = list(pool.map(self._fetch, idxs))
                         out_q.put(
                             _collate(samples, self.local_batch_size, n_real)
                         )

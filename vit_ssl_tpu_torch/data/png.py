@@ -1,0 +1,225 @@
+"""A PNG decoder on ``zlib`` and numpy: the host's image reader where neither
+OpenCV nor PIL is installed.
+
+:func:`decode` returns RGB uint8 (H, W, 3), bit-equal to
+``cv2.imread(path, cv2.IMREAD_COLOR)`` followed by BGR→RGB: grey is
+replicated, a palette is expanded (an index past the palette reads black,
+as libpng's expansion gives), an alpha channel is dropped without
+compositing, and no gamma or colour-space chunk is applied.
+
+It takes colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey with alpha)
+and 6 (RGBA) at 8 bits, and grey and palette images at 1, 2 and 4 bits. It
+refuses 16-bit and interlaced (Adam7) images by name, with
+:class:`UnsupportedPNG`, so that a caller with another decoder may hand
+them on.
+
+Unfiltering: None and Up rows need only the row above and Sub rows a
+running sum, but Average and Paeth rows depend on the pixel to the left
+as well as on the row above. The rows are therefore unfiltered along
+anti-diagonals (pixel (y, x) on diagonal y + x): every pixel of one
+diagonal depends only on the two diagonals before it, so each diagonal is
+one set of numpy operations over all of its pixels, H + W - 1 steps for
+any mix of filters. The image is held skewed (column y + x of row y holds
+pixel (y, x)), so that each diagonal is one column and its neighbours are
+slices of the two columns before it. :func:`decode_many` sweeps the
+diagonals of many images of one size together, so the per-step cost of
+numpy's dispatch is shared by the whole batch.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# channels a pixel holds, by colour type
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# the bit depths each colour type may have
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+class UnsupportedPNG(ValueError):
+    """A valid PNG this decoder does not take (16-bit or interlaced)."""
+
+
+def is_png(data: bytes) -> bool:
+    return data[:8] == SIGNATURE
+
+
+def _chunks(data: bytes) -> List[Tuple[bytes, bytes]]:
+    """(type, payload) of every chunk up to IEND, each CRC checked."""
+    if not is_png(data):
+        raise ValueError("not a PNG file (bad signature)")
+    out, pos = [], 8
+    while pos + 12 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length or pos + 12 + length > len(data):
+            raise ValueError(f"PNG chunk {kind!r} is truncated")
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) != crc:
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        out.append((kind, body))
+        pos += 12 + length
+        if kind == b"IEND":
+            return out
+    raise ValueError("PNG file ends before its IEND chunk")
+
+
+def _header(chunks) -> Dict[str, int]:
+    if not chunks or chunks[0][0] != b"IHDR" or len(chunks[0][1]) != 13:
+        raise ValueError("PNG file does not start with an IHDR chunk")
+    width, height, depth, ctype, comp, filt, interlace = struct.unpack(
+        ">IIBBBBB", chunks[0][1])
+    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
+        raise ValueError(f"PNG colour type {ctype} at bit depth {depth} is invalid")
+    if width == 0 or height == 0 or comp != 0 or filt != 0:
+        raise ValueError("PNG header holds an empty size or an unknown method")
+    if depth == 16:
+        raise UnsupportedPNG("16-bit PNG images are not supported by this decoder")
+    if interlace:
+        raise UnsupportedPNG("interlaced (Adam7) PNG images are not supported by "
+                             "this decoder")
+    return {"width": width, "height": height, "depth": depth, "ctype": ctype}
+
+
+def _paeth(a, b, c):
+    """The Paeth predictor of left ``a``, up ``b`` and upper-left ``c``
+    (int16 arrays), ties broken as the PNG specification orders them."""
+    pa = np.abs(b - c)
+    pb = np.abs(a - c)
+    pc = np.abs(a + b - 2 * c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter_diagonals(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the row filters of N images of one size at once: ``raw`` (N, H,
+    row_bytes) uint8 filtered bytes, ``filters`` (N, H) each row's filter
+    type, ``bpp`` the bytes a pixel (at least 1). Returns the (N, H,
+    row_bytes) uint8 scanlines: one diagonal sweep for the whole stack."""
+    n, h, row_bytes = raw.shape
+    w = row_bytes // bpp  # whole pixels; sub-byte depths have bpp 1
+    ys, xs = np.arange(h)[:, None], np.arange(w)[None, :]
+    # skewed: row y + 1 (row 0 is the zero row above the image), column
+    # y + x + 2 (columns 0 and 1 are zero pixels left of every row's first)
+    skew = np.zeros((n, h + 1, h + w + 2, bpp), np.int16)
+    raw_skew = np.zeros((n, h, h + w, bpp), np.int16)
+    raw_skew[:, ys, ys + xs] = raw.reshape(n, h, w, bpp)
+    kind = filters.astype(np.intp)[:, :, None, None]
+    zeros = np.zeros((n, min(h, w), bpp), np.int16)
+    for d in range(h + w - 1):
+        y0, y1 = max(0, d - w + 1), min(h, d + 1)
+        a = skew[:, y0 + 1:y1 + 1, d + 1]  # left: (y, x - 1)
+        b = skew[:, y0:y1, d + 1]          # up: (y - 1, x)
+        c = skew[:, y0:y1, d]              # upper left: (y - 1, x - 1)
+        k = np.broadcast_to(kind[:, y0:y1, 0], a.shape)
+        pred = np.choose(k, (zeros[:, :y1 - y0], a, b, (a + b) >> 1, _paeth(a, b, c)))
+        skew[:, y0 + 1:y1 + 1, d + 2] = (raw_skew[:, y0:y1, d] + pred) & 255
+    out = skew[:, 1:][:, ys, ys + xs + 2]
+    return out.astype(np.uint8).reshape(n, h, row_bytes)
+
+
+def _unfilter_rows(tables: np.ndarray, bpp: int) -> np.ndarray:
+    """The scanlines of N same-size images, ``tables`` (N, H, 1 + row_bytes):
+    each row's filter byte, then its filtered bytes."""
+    filters, raw = tables[:, :, 0], tables[:, :, 1:]
+    if np.any(filters > 4):
+        raise ValueError(f"PNG row filter type {int(filters.max())} is invalid")
+    if np.all(filters == 0):
+        return raw.copy()
+    if np.any((filters == 3) | (filters == 4)):
+        return _unfilter_diagonals(raw, filters, bpp)
+    # no row reads its left neighbour through a nonlinear predictor: None,
+    # Sub (a running sum along the row) and Up (a sum down the rows), row by
+    # row
+    n, h, row_bytes = raw.shape
+    w = row_bytes // bpp
+    out = np.empty_like(raw)
+    prev = np.zeros((n, row_bytes), np.uint8)
+    for y in range(h):
+        f = filters[:, y, None]
+        row = raw[:, y]
+        sub = np.cumsum(row.reshape(n, w, bpp), axis=1, dtype=np.uint8).reshape(n, -1)
+        out[:, y] = np.where(f == 1, sub, np.where(f == 2, row + prev, row))
+        prev = out[:, y]
+    return out
+
+
+def _inflate(data: bytes):
+    """(header, chunks, the inflated image data as (H, 1 + row_bytes)
+    uint8, bytes a pixel) of an in-memory PNG file."""
+    chunks = _chunks(data)
+    hdr = _header(chunks)
+    idat = b"".join(body for kind, body in chunks if kind == b"IDAT")
+    if not idat:
+        raise ValueError("PNG file holds no IDAT chunk")
+    try:
+        inflated = zlib.decompress(idat)
+    except zlib.error as e:
+        raise ValueError(f"PNG image data does not inflate: {e}") from None
+    bits = _CHANNELS[hdr["ctype"]] * hdr["depth"]
+    row_bytes = (hdr["width"] * bits + 7) // 8
+    want = hdr["height"] * (row_bytes + 1)
+    if len(inflated) < want:
+        raise ValueError(f"PNG image data holds {len(inflated)} bytes, {want} needed")
+    table = np.frombuffer(inflated, np.uint8, want).reshape(hdr["height"], row_bytes + 1)
+    return hdr, chunks, table, max(1, bits // 8)
+
+
+def _to_rgb(hdr, chunks, rows: np.ndarray) -> np.ndarray:
+    """The unfiltered scanlines (H, row_bytes) as RGB uint8 (H, W, 3)."""
+    w, h, depth, ctype = hdr["width"], hdr["height"], hdr["depth"], hdr["ctype"]
+    if depth < 8:
+        # one sample per `depth` bits, most significant first
+        per_byte = 8 // depth
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+        samples = samples.reshape(h, rows.shape[1] * per_byte)[:, :w]
+        if ctype == 0:  # scaled to 8 bits, as libpng expands grey
+            samples = samples * (255 // ((1 << depth) - 1))
+        pix = samples.astype(np.uint8)[:, :, None]
+    else:
+        pix = rows.reshape(h, w, _CHANNELS[ctype])
+    if ctype == 3:
+        plte = next((body for kind, body in chunks if kind == b"PLTE"), None)
+        if plte is None or len(plte) % 3 or not plte:
+            raise ValueError("palette PNG without a valid PLTE chunk")
+        palette = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(plte, np.uint8).reshape(-1, 3)[:256]
+        palette[:len(entries)] = entries
+        return palette[pix[:, :, 0]]
+    if ctype in (0, 4):
+        return np.repeat(pix[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(pix[:, :, :3])
+
+
+def decode_bytes(data: bytes) -> np.ndarray:
+    """An in-memory PNG file as RGB uint8 (H, W, 3)."""
+    hdr, chunks, table, bpp = _inflate(data)
+    return _to_rgb(hdr, chunks, _unfilter_rows(table[None], bpp)[0])
+
+
+def decode_many(datas: Sequence[bytes]) -> List[np.ndarray]:
+    """In-memory PNG files as RGB uint8 arrays, equal to
+    :func:`decode_bytes` of each: the images of one size and pixel layout
+    are unfiltered together, in one diagonal sweep for the whole group."""
+    parsed = [_inflate(data) for data in datas]
+    groups: Dict[Tuple[int, ...], List[int]] = {}
+    for i, (_, _, table, bpp) in enumerate(parsed):
+        groups.setdefault(table.shape + (bpp,), []).append(i)
+    out: List[np.ndarray] = [None] * len(parsed)
+    for key, members in groups.items():
+        rows = _unfilter_rows(np.stack([parsed[i][2] for i in members]), key[-1])
+        for i, r in zip(members, rows):
+            out[i] = _to_rgb(parsed[i][0], parsed[i][1], r)
+    return out
+
+
+def decode(path: str) -> np.ndarray:
+    """The PNG file at ``path`` as RGB uint8 (H, W, 3)."""
+    with open(path, "rb") as f:
+        return decode_bytes(f.read())

@@ -202,11 +202,31 @@ def _as_legacy_dict(o: EvalOutcome) -> Dict[str, Any]:
 
 # --- entry point ---------------------------------------------------------------------
 
+def _refuse_eval_dino(config) -> None:
+    """``eval.mode`` ``eval_dino`` (alone or first) loads DINO's host
+    multi-crop, whose items are lists of views drawn through
+    ``transforms["globals"]`` and ``["locals"]``, while the evaluation
+    hands its datasets only the clean ``train``/``val`` pipelines and
+    extracts features from single images. The JAX package's evaluator
+    fails there at the first batch (``KeyError: 'globals'``); this one
+    refuses up front, naming why."""
+    modes = _requested_modes(config)
+    if modes and str(modes[0]).lower() == "eval_dino":
+        raise ValueError(
+            "eval.mode eval_dino cannot be evaluated: its datasets are DINO's "
+            "host multi-crop (lists of 'globals' and 'locals' views), but the "
+            "evaluators pass only their 'train'/'val' pipelines and extract "
+            "features from single images (the JAX package fails here too, with "
+            "KeyError: 'globals'); use eval_knn, eval_linear or eval_umap")
+
+
 def feature_bank(config, network: Optional[torch.nn.Module] = None, loaders=None,
                  device=None) -> FeatureBank:
     """The train and val features of ``network`` (default: the experiment's,
     :func:`load_model_state`) over ``loaders`` (default: the ``eval.*``
     datasets')."""
+    if loaders is None:
+        _refuse_eval_dino(config)
     if network is None:
         network = load_model_state(config, device)
     if loaders is None:

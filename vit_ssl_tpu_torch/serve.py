@@ -44,6 +44,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .data.datasets import _load_image
 from .data.transforms import Compose, Resize, ToTensor
 from .device import resolve_device
 from .models.builder import (build_backbone, build_simmim, build_vit, config_mode,
@@ -52,7 +53,7 @@ from .utils.checkpoint import backbone_state_dict, load_pth
 
 
 def make_pipeline(img_size: int) -> Compose:
-    """The evaluators' clean inference pipeline: cv2 Resize + ToTensor."""
+    """The evaluators' clean inference pipeline: Resize + ToTensor."""
     return Compose([Resize([img_size, img_size]), ToTensor()])
 
 
@@ -119,10 +120,9 @@ class Server:
         return out
 
     def _decode(self, path: str) -> np.ndarray:
-        from PIL import Image
-
-        with Image.open(path) as img:
-            return self.pipeline(img.convert("RGB"))
+        """The image at ``path`` through the clean pipeline: a PNG decodes
+        without OpenCV or PIL; other formats need one of them."""
+        return self.pipeline(_load_image(path))
 
     def infer(self, paths):
         """Forward a (possibly short) list of paths; returns one result dict
