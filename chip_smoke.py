@@ -108,6 +108,20 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``forward_batch`` on the decoded arrays; host ms per view of
               each pipeline, decode ms per image, the epoch's img/s and
               input-wait share beside phase 9a's
+9a.4 JPEG folder — ViT-B/16 224 from an ImageNet-layout folder of 533
+              JPEGs (64 seeded pictures at ImageNet's common sizes, this
+              script's baseline encoder at 4:2:0 and 4:4:4, hard-linked
+              into 10 class folders): the port's JPEG decoder built with
+              the host compiler and held to the cv2 and PIL digests of
+              tests/torch_jpeg_fixtures; configs/vit_b_imagenet.yaml with
+              the folder and batch 256 through the CLI's ``main`` for one
+              epoch (2 train and 1 val steps, 8 loader threads), B1's
+              launches exact, checkpoints written; one JPEG-batch step
+              against plain attention from one cloned state; 64 JPEGs
+              served through ``Server.infer`` against ``forward_batch`` on
+              the decoded arrays; decode ms a picture on 1 and 8 threads,
+              the epoch's img/s and input-wait share, the bare step alone
+              and while 8 threads decode, or decode and resize
 9b. finetune — configs/finetune.yaml composed by the port with
               FINETUNE_OVERRIDES (ViT-S/8 at 96 px, extended transfer, the
               backbone frozen until epoch 2), from phase 9a's DINO
@@ -5368,6 +5382,158 @@ def encode_png(rgb: np.ndarray) -> bytes:
             + png_chunk(b"IDAT", zlib.compress(bytes(raw), 6)) + png_chunk(b"IEND", b""))
 
 
+# the baseline JPEG encoder's tables (ITU-T T.81 Annex K): quantization in
+# natural order, and the bits/values of the four Huffman tables
+JPEG_QUANT = (np.array([  # luminance
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+    np.array([  # chrominance
+        17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+        24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32))
+JPEG_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48,
+    41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23,
+    30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+_AC_LUMA_VALS = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a16"
+    "1718191a25262728292a3435363738393a434445464748494a535455565758595a636465666768696a"
+    "737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8"
+    "b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+_AC_CHROMA_VALS = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434"
+    "e125f11718191a262728292a35363738393a434445464748494a535455565758595a636465666768"
+    "696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
+    "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+    "f9fa")
+JPEG_HUFFMAN = {  # (class, id): (code counts by length 1-16, symbols)
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12))),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), bytes(range(12))),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D), _AC_LUMA_VALS),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77), _AC_CHROMA_VALS),
+}
+_DCT = np.array([[(0.5 / 2 ** 0.5 if u == 0 else 0.5) * np.cos((2 * x + 1) * u * np.pi / 16)
+                  for x in range(8)] for u in range(8)])
+
+
+def _huffman_codes(counts, symbols):
+    """Code and length of each symbol (T.81 Annex C), as 256-entry arrays."""
+    code_of, size_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, count in enumerate(counts, 1):
+        for _ in range(count):
+            code_of[symbols[k]], size_of[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, size_of
+
+
+def _quantized_blocks(plane, table):
+    """(H, W) samples (H, W multiples of 8) -> (H/8, W/8, 64) quantized DCT
+    coefficients in zigzag order."""
+    h, w = plane.shape
+    blocks = (plane - 128.0).reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+    coefs = np.einsum("ux,abxy,vy->abuv", _DCT, blocks, _DCT)
+    q = np.rint(coefs / table.reshape(8, 8)).astype(np.int64)
+    return q.reshape(h // 8, w // 8, 64)[..., JPEG_ZIGZAG]
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 90, subsampling: str = "420") -> bytes:
+    """A baseline JFIF JPEG of ``rgb`` (H, W, 3) uint8: YCbCr at 4:2:0 or
+    4:4:4, the Annex K tables scaled to ``quality`` as libjpeg scales them,
+    a float DCT over all blocks at once, and the Huffman coding of every
+    block vectorised (events sorted by block and coefficient, then packed
+    to bits)."""
+    h, w, _ = rgb.shape
+    f = 2 if subsampling == "420" else 1
+    mcu = 8 * f
+    padded = np.pad(rgb.astype(np.float64), ((0, -h % mcu), (0, -w % mcu), (0, 0)),
+                    mode="edge")
+    r, g, b = padded[..., 0], padded[..., 1], padded[..., 2]
+    ycc = [0.299 * r + 0.587 * g + 0.114 * b,
+           -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+           0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+    if f == 2:
+        ycc[1:] = [c.reshape(c.shape[0] // 2, 2, c.shape[1] // 2, 2).mean((1, 3))
+                   for c in ycc[1:]]
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    tables = [np.clip((t * scale + 50) // 100, 1, 255) for t in JPEG_QUANT]
+    luma = _quantized_blocks(np.clip(np.rint(ycc[0]), 0, 255), tables[0])
+    chroma = [_quantized_blocks(np.clip(np.rint(c), 0, 255), tables[1]) for c in ycc[1:]]
+    my, mx = chroma[0].shape[:2]
+    # the MCUs in order: f*f luma blocks (raster within the MCU), Cb, Cr
+    luma = luma.reshape(my, f, mx, f, 64).transpose(0, 2, 1, 3, 4).reshape(my * mx, f * f, 64)
+    units = np.concatenate([luma] + [c.reshape(my * mx, 1, 64) for c in chroma], axis=1)
+    comp = np.array([0] * (f * f) + [1, 2])
+    blocks = units.reshape(-1, 64)
+    comp = np.tile(comp, my * mx)
+    table = np.minimum(comp, 1)
+    diff = np.empty(len(blocks), np.int64)
+    for c in range(3):
+        dc = blocks[comp == c, 0]
+        diff[comp == c] = dc - np.concatenate([[0], dc[:-1]])
+    codes = {key: _huffman_codes(*spec) for key, spec in JPEG_HUFFMAN.items()}
+
+    def size(v):
+        return np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
+
+    def bits(v, s):
+        return np.where(v >= 0, v, v + (1 << s) - 1)
+
+    def coded(cls, tab, symbol, extra_bits, extra_size):
+        code = np.where(tab == 0, codes[(cls, 0)][0][symbol], codes[(cls, 1)][0][symbol])
+        length = np.where(tab == 0, codes[(cls, 0)][1][symbol], codes[(cls, 1)][1][symbol])
+        return (code << extra_size) | extra_bits, length + extra_size
+
+    ids = np.arange(len(blocks))
+    s = size(diff)
+    events = [(ids * 260, *coded(0, table, s, bits(diff, s), s))]
+    bi, ki = np.nonzero(blocks[:, 1:])
+    k = ki + 1
+    v = blocks[bi, k]
+    prev = np.where(np.concatenate([[False], bi[1:] == bi[:-1]]),
+                    np.concatenate([[0], k[:-1]]), 0)
+    run = k - prev - 1
+    s = size(v)
+    events.append((bi * 260 + 4 * k + 3, *coded(1, table[bi], (run % 16) * 16 + s,
+                                                bits(v, s), s)))
+    for j in range(3):  # runs of 16 zeros before a coefficient (ZRL, 0xF0)
+        has = run // 16 > j
+        zb = bi[has]
+        events.append((zb * 260 + 4 * k[has] + j,
+                       *coded(1, table[zb], np.full(len(zb), 0xF0), 0, 0)))
+    last = np.zeros(len(blocks), np.int64)
+    last[bi] = k  # k ascends within a block: the last write is the last nonzero
+    eob = ids[last < 63]
+    events.append((eob * 260 + 256, *coded(1, table[eob], np.zeros(len(eob), np.int64), 0, 0)))
+    keys = np.concatenate([e[0] for e in events])
+    order = np.argsort(keys, kind="stable")
+    values = np.concatenate([e[1] for e in events])[order]
+    lengths = np.concatenate([e[2] for e in events])[order]
+    total = int(lengths.sum())
+    starts = np.cumsum(lengths) - lengths
+    within = np.arange(total) - np.repeat(starts, lengths)
+    stream = (np.repeat(values, lengths) >> (np.repeat(lengths, lengths) - 1 - within)) & 1
+    stream = np.concatenate([stream, np.ones(-total % 8, np.int64)]).astype(np.uint8)
+    data = np.packbits(stream)
+    data = np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0).tobytes()  # byte stuffing
+    sampling = 0x22 if f == 2 else 0x11
+    header = (b"\xff\xd8" + _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+              + _segment(0xDB, b"".join(bytes([i]) + bytes(t[JPEG_ZIGZAG].astype(np.uint8))
+                                        for i, t in enumerate(tables)))
+              + _segment(0xC0, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+                         + bytes([3, 1, sampling, 0, 2, 0x11, 1, 3, 0x11, 1]))
+              + _segment(0xC4, b"".join(bytes([cls << 4 | i]) + bytes(counts) + symbols
+                                        for (cls, i), (counts, symbols) in JPEG_HUFFMAN.items()))
+              + _segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    return header + data + b"\xff\xd9"
+
+
 def phase_host_multicrop(torch, fa, card, tmp, trainer_stats):
     """DINO ViT-S/8 from a PNG folder with the views made on the host: a
     folder of HOST_IMAGES seeded 96 px PNGs (this script's encoder, every
@@ -5534,6 +5700,316 @@ def phase_host_multicrop(torch, fa, card, tmp, trainer_stats):
     return launches
 
 
+# ViT-B/16 from an ImageNet-layout JPEG folder: JPEG_IMAGES seeded images at
+# ImageNet's common sizes ((h, w)), encoded by encode_jpeg, hard-linked under
+# JPEG_FILES distinct names into JPEG_CLASSES class folders; at the config's
+# val_split 0.04 that is 512 train images (2 steps at batch 256) and 21 val
+# images (1 step)
+JPEG_IMAGES = 64
+JPEG_FILES = 533
+JPEG_CLASSES = 10
+JPEG_SIZES = [(375, 500), (500, 375), (500, 333), (334, 500), (256, 256)]
+JPEG_OVERRIDES = ["training.batch_size=256", "training.num_epochs=1"]
+JPEG_SERVE = 64
+JPEG_THREADS = 8
+
+
+def smooth_picture(rng, h, w):
+    """A seeded (h, w, 3) uint8 picture: a coarse random grid bilinearly
+    upsampled, with noise on it."""
+    coarse = rng.integers(0, 256, (h // 25 + 2, w // 25 + 2, 3)).astype(np.float64)
+    ys = np.linspace(0, coarse.shape[0] - 1.001, h)
+    xs = np.linspace(0, coarse.shape[1] - 1.001, w)
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    top = coarse[y0][:, x0] * (1 - fx) + coarse[y0][:, x0 + 1] * fx
+    bottom = coarse[y0 + 1][:, x0] * (1 - fx) + coarse[y0 + 1][:, x0 + 1] * fx
+    image = top * (1 - fy) + bottom * fy + rng.normal(0, 6, (h, w, 3))
+    return np.clip(np.rint(image), 0, 255).astype(np.uint8)
+
+
+def step_under_load(torch, step, load):
+    """Median ms of 3 ``step()`` calls (each ending in a synchronise) while
+    JPEG_THREADS threads call ``load(i)`` over the pictures in a loop."""
+    import threading
+
+    stop = threading.Event()
+
+    def work(first):
+        i = first
+        while not stop.is_set():
+            load(i % JPEG_IMAGES)
+            i += JPEG_THREADS
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(JPEG_THREADS)]
+    for thread in threads:
+        thread.start()
+    try:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        stop.set()
+        for thread in threads:
+            thread.join()
+    return float(np.median(times))
+
+
+def phase_jpeg_folder(torch, fa, card, tmp):
+    """ViT-B/16 from an ImageNet-layout JPEG folder, with the port's own
+    decoder: (a) the host library built with the host compiler; (b) every
+    committed fixture of ``tests/torch_jpeg_fixtures`` decoded bit-equal to
+    the digests recorded from cv2 and PIL; (c) a folder of JPEG_FILES
+    hard links to JPEG_IMAGES seeded pictures (this script's encoder, 4:2:0
+    and 4:4:4) in JPEG_CLASSES classes; (d) configs/vit_b_imagenet.yaml with
+    the folder and JPEG_OVERRIDES through the CLI's ``main`` (the model as
+    written, ``data.num_workers`` as composed): 2 train and 1 val steps, B1's
+    launches exact, a checkpoint written; (e) one step on a JPEG batch
+    against the plain-attention step from one cloned state (the ViT-B/16
+    bars); (f) the folder's first JPEG_SERVE files through ``Server.infer``
+    against ``forward_batch`` on the decoded arrays (row cosine >= 0.999);
+    (g) decode ms an image on one thread and across JPEG_THREADS threads,
+    the epoch's img/s, input-wait share and step-to-step seconds, a sample's
+    decode and resize on one thread, and the bare step alone and while
+    JPEG_THREADS threads decode, or decode and resize. Returns the paths'
+    launches."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose, to_container
+    from vit_ssl_tpu_torch.data import jpeg
+    from vit_ssl_tpu_torch.data.transforms import Compose, Resize, ToTensor
+    from vit_ssl_tpu_torch.serve import Server
+    from vit_ssl_tpu_torch.train import __main__ as cli
+
+    root = Path(__file__).resolve().parent
+    print(f"== JPEG folder: ViT-B/16 224 px from {JPEG_FILES} ImageNet-layout JPEGs "
+          f"({JPEG_IMAGES} distinct) through the port's decoder; configs/vit_b_imagenet.yaml "
+          f"with the folder and {' '.join(JPEG_OVERRIDES)}; the CLI's main; {card}",
+          flush=True)
+    build_s = kernels.build_host(jpeg.LIBRARY)
+    print(f"  host library: {kernels.library_path(jpeg.LIBRARY).name} from "
+          f"{kernels.HOST_SOURCES[jpeg.LIBRARY]} with {kernels.host_compiler()} "
+          f"{' '.join(kernels.HOST_FLAGS)}: {build_s:.3f} s (0: already built)", flush=True)
+
+    fixtures = root / "tests" / "torch_jpeg_fixtures"
+    digests = json.loads((fixtures / "digests.json").read_text())
+    server_options = {"exif_orientation": False, "cmyk": "pil"}
+    for name, want in sorted(digests.items()):
+        data = (fixtures / name).read_bytes()
+        for key, options in (("cv2", {}), ("pil", server_options)):
+            got = jpeg.decode_bytes(data, **options)
+            digest = {"shape": list(got.shape),
+                      "sha256": hashlib.sha256(got.tobytes()).hexdigest()}
+            if digest != want[key]:
+                fail(f"the JPEG fixture {name} ({want['case']}) decodes to {digest}, "
+                     f"not {key}'s {want[key]}")
+    print(f"  fixtures: {len(digests)} files ({'; '.join(v['case'] for v in digests.values())}) "
+          "each bit-equal to its cv2 and PIL digests", flush=True)
+
+    rng = np.random.default_rng(41)
+    sources, encoded = Path(tmp) / "jpeg_sources", []
+    sources.mkdir()
+    t0 = time.perf_counter()
+    pictures = []
+    for i in range(JPEG_IMAGES):
+        h, w = JPEG_SIZES[i % len(JPEG_SIZES)]
+        pictures.append(smooth_picture(rng, h, w))
+        quality, sampling = (90, 75)[i % 2], ("420", "444")[(i // 2) % 2]
+        encoded.append(encode_jpeg(pictures[-1], quality, sampling))
+        (sources / f"{i:03d}.jpg").write_bytes(encoded[-1])
+    encode_s = time.perf_counter() - t0
+    folder = Path(tmp) / "imagenet" / "train"
+    for j in range(JPEG_FILES):
+        cls = folder / f"n{j % JPEG_CLASSES:08d}"
+        cls.mkdir(parents=True, exist_ok=True)
+        os.link(sources / f"{j % JPEG_IMAGES:03d}.jpg", cls / f"n{j % JPEG_CLASSES:08d}_{j}.JPEG")
+    decoded = [jpeg.decode_bytes(d) for d in encoded]
+    psnr = [10 * np.log10(255 ** 2 / np.mean((a.astype(np.float64) - b) ** 2))
+            for a, b in zip(decoded, pictures)]
+    if any(a.shape != b.shape for a, b in zip(decoded, pictures)) or min(psnr) < 30:
+        fail(f"the decoded folder images are off their pictures: PSNR {min(psnr):.2f} dB")
+    print(f"  folder: {JPEG_IMAGES} pictures at {JPEG_SIZES} (h, w) encoded in "
+          f"{encode_s:.3f} s ({sum(map(len, encoded)) / 1e6:.3f} MB, quality 90/75, 4:2:0 "
+          f"and 4:4:4), {JPEG_FILES} hard links in {JPEG_CLASSES} classes; decoded PSNR "
+          f"{min(psnr):.2f}-{max(psnr):.2f} dB to the pictures", flush=True)
+
+    for data in encoded[:4]:  # warm
+        jpeg.decode_bytes(data)
+    t0 = time.perf_counter()
+    for data in encoded:
+        jpeg.decode_bytes(data)
+    one_ms = (time.perf_counter() - t0) * 1e3 / len(encoded)
+    work = encoded * 4
+    with ThreadPoolExecutor(JPEG_THREADS) as pool:
+        list(pool.map(jpeg.decode_bytes, encoded[:JPEG_THREADS]))
+        t0 = time.perf_counter()
+        list(pool.map(jpeg.decode_bytes, work))
+        many_ms = (time.perf_counter() - t0) * 1e3 / len(work)
+    host = {"decode_ms_one_thread": one_ms, "decode_ms_per_image_threads": many_ms,
+            "threads": JPEG_THREADS, "scaling": one_ms / many_ms,
+            "host_cores": os.cpu_count()}
+    print(f"  decode on {card}'s host ({os.cpu_count()} cores): {one_ms:.3f} ms an image on "
+          f"one thread; {len(work)} decodes across {JPEG_THREADS} threads {many_ms:.3f} ms "
+          f"an image ({one_ms / many_ms:.2f}x)", flush=True)
+
+    run_dir = str(Path(tmp) / "jpeg_run")
+    overrides = [f"data.data_dir={folder}", *JPEG_OVERRIDES, f"hydra.run.dir={run_dir}"]
+    config = compose(root / "configs", "vit_b_imagenet", overrides)
+    composed = to_container(config)
+    diffs = config_differences({k: VIT_B16_224[k] for k in ("model", "parallel")}, composed)
+    if diffs or composed["data"]["num_workers"] != 8 or composed["data"]["img_size"] != 224:
+        fail("the composed config differs from VIT_B16_224: " + "; ".join(diffs))
+    print(f"  overrides: {' '.join(overrides)}; model (ViT-B/16, 1000-class head) and "
+          f"parallel (remat on) equal VIT_B16_224; data.num_workers "
+          f"{composed['data']['num_workers']}", flush=True)
+
+    trainers, raw_steps, train_log, val_log = [], [], [], []
+    get_trainer = cli.get_trainer
+
+    def recorded(*args, **kwargs):
+        trainer = get_trainer(*args, **kwargs)
+        raw_steps.append(trainer.train_step)
+        trainer.train_step = counted_steps(trainer.train_step, train_log)
+        trainer.eval_step = counted_steps(trainer.eval_step, val_log)
+        trainers.append(trainer)
+        return trainer
+
+    cli.get_trainer = recorded
+    try:
+        with no_plain_attention(fa):
+            kernels.launches.clear()  # the JPEG-folder path starts here
+            t0 = time.perf_counter()
+            cli.main(["--config-path", str(root / "configs"), "--config-name",
+                      "vit_b_imagenet", *overrides])
+            run_s = time.perf_counter() - t0
+            launches = dict(kernels.launches)  # ... and ends here
+    finally:
+        cli.get_trainer = get_trainer
+    blocks = VIT_B16_224["model"]["num_blocks"]
+    per_train, per_val = remat_launches(fa, blocks), {fa.KERNEL: blocks}
+    if (len(train_log), len(val_log)) != (2, 1):
+        fail(f"the CLI ran {len(train_log)} train and {len(val_log)} val steps, "
+             "expected 2 and 1")
+    for kind, log, want in (("train", train_log, per_train), ("val", val_log, per_val)):
+        for i, (_, got, _) in enumerate(log):
+            if got != want:
+                fail(f"{kind} step {i} of the JPEG-folder run launched {got}, "
+                     f"expected {want}")
+    for name in ("best_model", "last_model"):
+        if not (Path(run_dir) / name / "state.pt").exists():
+            fail(f"the JPEG-folder run wrote no {name}")
+    trainer = trainers[0]
+    losses = [float(out["loss"]) for _, _, out in train_log + val_log]
+    if not np.isfinite(losses).all():
+        fail(f"a JPEG-folder loss is not finite: {losses}")
+    stats = trainer.epoch_input_stats[0]
+    real = len(trainer.train_loader.dataset)
+    starts = [t for t, _, _ in train_log + val_log]
+    host.update(images_per_s=real / stats["wall_s"], input_wait_share=stats["wait_s"]
+                / stats["wall_s"], epoch_wall_s=stats["wall_s"], cli_s=run_s,
+                in_loop_step_s=[b - a for a, b in zip(starts, starts[1:])])
+    samples = trainer.train_loader.dataset
+    t0 = time.perf_counter()
+    for i in range(JPEG_IMAGES):
+        samples[i]
+    host["sample_ms_one_thread"] = (time.perf_counter() - t0) * 1e3 / JPEG_IMAGES
+    print(f"  launches: {launches} (per train step {per_train}, per val step {per_val}); "
+          f"losses {' '.join(f'{x:.6f}' for x in losses)}; best_model and last_model "
+          f"written; the CLI call {run_s:.3f} s", flush=True)
+    print(f"  epoch on {card}: {real} images in {stats['wall_s']:.3f} s wall "
+          f"({host['images_per_s']:.1f} img/s), input-wait share "
+          f"{host['input_wait_share']:.4f}; from one step's start to the next "
+          f"{' / '.join(f'{t:.3f}' for t in host['in_loop_step_s'])} s; one thread "
+          f"decodes and resizes a sample in {host['sample_ms_one_thread']:.3f} ms",
+          flush=True)
+
+    batches = iter(trainer.train_loader)
+    batch = trainer._put(next(batches))
+    batches.close()  # stops the loader's producer thread
+    step_fn = raw_steps[0]
+    print("  one step on this JPEG batch, B1 against plain attention:", flush=True)
+    kernel_state, plain_state = copy.deepcopy(trainer.state), copy.deepcopy(trainer.state)
+    got = step_fn(kernel_state, batch, with_grads=True)
+    counted = dict(kernels.launches)
+    with plain_attention():
+        want = step_fn(plain_state, batch, with_grads=True)
+    torch.cuda.synchronize()
+    if dict(kernels.launches) != counted:
+        fail("the plain-attention step launched a kernel")
+    del kernel_state, plain_state
+
+    def exact_step():
+        exact_state = copy.deepcopy(trainer.state)
+        with exact_attention(torch):
+            return step_fn(exact_state, batch, with_grads=True)
+
+    judge(torch, "plain attention", got, want, exact_step)
+    del got, want
+    bare = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        step_fn(trainer.state, batch)
+        torch.cuda.synchronize()
+        bare.append((time.perf_counter() - t0) * 1e3)
+    host["warm_step_ms"] = float(np.median(bare[1:]))
+    print(f"  the bare step on this batch, no loader running: "
+          f"{' / '.join(f'{t:.3f}' for t in bare)} ms (the first after the agreement "
+          f"check; median of the last 3 {host['warm_step_ms']:.3f} ms, "
+          f"{256 / host['warm_step_ms'] * 1e3:.1f} img/s)", flush=True)
+    for label, load in (("decode", lambda i: jpeg.decode_bytes(encoded[i])),
+                        ("decode_resize", lambda i: samples[i])):
+        host[f"step_ms_under_{label}"] = step_under_load(
+            torch, lambda: step_fn(trainer.state, batch), load)
+    print(f"  the same step while {JPEG_THREADS} threads decode: "
+          f"{host['step_ms_under_decode']:.3f} ms; while they decode and resize to "
+          f"224 (the loader's work): {host['step_ms_under_decode_resize']:.3f} ms "
+          "(medians of 3)", flush=True)
+    del batch, trainer, trainers, raw_steps
+    gc.collect()
+
+    pth = f"{tmp}/vit_b16_224.pth"
+    model = build_vit_model(torch, 5, composed)
+    torch.save({"model_state_dict": model.state_dict(), "config": composed, "epoch": 0}, pth)
+    del model
+    server = Server(pth, batch_size=JPEG_SERVE, device="cuda")
+    paths = sorted(str(f) for f in folder.rglob("*.JPEG"))[:JPEG_SERVE]
+    rows, format_record = [], server._format
+
+    def captured(path, row):
+        rows.append(row)
+        return format_record(path, row)
+
+    server._format = captured
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the JPEG serving path starts here
+        records = server.infer(paths)
+        serve_launches = dict(kernels.launches)  # ... and ends here
+    errors = [r for r in records if "error" in r]
+    if errors:
+        fail(f"serving the JPEG folder gave error records: {errors[:2]}")
+    if serve_launches != {fa.KERNEL: blocks}:
+        fail(f"the served batch launched {serve_launches}, expected {fa.KERNEL}: {blocks}")
+    pipeline = Compose([Resize([224, 224]), ToTensor()])
+    arrays = np.stack([pipeline(jpeg.decode(p, **server_options)) for p in paths])
+    ref = server.forward_batch(arrays)
+    cos = row_cosine(np.stack(rows), ref)
+    same = [r["pred"] for r in records] == [int(x) for x in ref.argmax(1)]
+    print(f"  served {len(records)} JPEGs through Server.infer: min row cosine "
+          f"{cos.min():.6f} to forward_batch on the decoded arrays (>= 0.999), preds "
+          f"{'equal' if same else 'differ'}; launches {serve_launches}", flush=True)
+    if cos.min() < 0.999 or not same:
+        fail("the served JPEGs disagree with forward_batch on the decoded arrays")
+    print("jpeg_decode host: " + json.dumps(host), flush=True)
+    del server
+    gc.collect()
+    return {"jpeg_folder": launches, "jpeg_serving": serve_launches}
+
+
 def main() -> int:
     import torch
 
@@ -5614,6 +6090,8 @@ def main() -> int:
                                            Path(tmp) / "run" / "best_model", tmp)
     with tempfile.TemporaryDirectory() as tmp:
         host_launches = phase_host_multicrop(torch, fa, card, tmp, trainer_stats)
+    with tempfile.TemporaryDirectory() as tmp:
+        jpeg_paths = phase_jpeg_folder(torch, fa, card, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         (simmim_fit_launches, simmim_resumed_launches, simmim_state, simmim_optimizer,
          simmim_batch, _, simmim_eval_launches) = phase_simmim_trainer(torch, fa, card, tmp)
@@ -5810,7 +6288,7 @@ def main() -> int:
              "serving_supervised_512": sup512_serve_launches, **sup512_paths,
              "exp2_probe": probe_launches, "dropout_epilogue_probe": dropout_probe_launches,
              **preempt_paths, **scan_paths, **moe_paths, **patch_paths,
-             **dp_paths, **ring_paths, **tp_paths, **pipe_paths}
+             **dp_paths, **ring_paths, **tp_paths, **pipe_paths, **jpeg_paths}
     # the paths that run B4 at each width (ViT-L's 1024 runs on none yet)
     width_paths = {MLP_DIMS[0]: ("serving_fused", "training_fused", "dropout_epilogue_probe"),
                    VIT_B_MLP[0]: ("serving_supervised_fused", "training_supervised_fused",

@@ -5,6 +5,8 @@
 - the evaluators import sklearn, pandas, matplotlib, seaborn and PIL at no
   module level: with all five blocked they import and run KNN, the linear
   probe and UMAP, write every CSV and TXT and name each skipped figure;
+- the port's image decoders (``data/png.py``, ``data/jpeg.py``,
+  ``data/bmp.py``) import neither cv2 nor PIL anywhere;
 - its entry points take the card unless the caller asks for the CPU;
 - ``chip_smoke.py``'s DINO ViT-S/8 config is the composed ``configs/dino.yaml``,
   its supervised ViT-B/16 the composed ``configs/vit_b_imagenet.yaml`` at
@@ -18,8 +20,10 @@
   patch-dropout phase's B1 case is (1024, 99), its data-parallel phase's
   config the port's composition of ``configs/dino.yaml`` with
   ``parallel.fsdp=true``, its ring phase's shape ViT-B/16's 512-px one,
-  divisible by its sp, its bounds are the stated arithmetic, and the
-  script refuses to run without a card;
+  divisible by its sp, its JPEG-folder phase's config the port's
+  composition of ``configs/vit_b_imagenet.yaml`` with the folder and its
+  overrides (2 train and 1 val steps over its files), its bounds are the
+  stated arithmetic, and the script refuses to run without a card;
 - a self-attention longer than kernel B3 takes (N > 1024) runs kernel B2.
 """
 
@@ -31,6 +35,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -81,6 +86,7 @@ def test_port_import_leaves_jax_out():
         "import vit_ssl_tpu_torch.models.builder, vit_ssl_tpu_torch.ops.encoder_block\n"
         "import vit_ssl_tpu_torch.models.simmim, vit_ssl_tpu_torch.train.trainers.simmim\n"
         "import vit_ssl_tpu_torch.ops.patch_embedding, vit_ssl_tpu_torch.ops.dropout\n"
+        "import vit_ssl_tpu_torch.data.jpeg, vit_ssl_tpu_torch.data.bmp\n"
         f"import {', '.join(EVALUATOR_MODULES)}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} + {HOST_ONLY!r} + ('triton',))\n"
@@ -129,6 +135,19 @@ def test_host_packages_only_inside_functions():
                         name in HOST_ONLY and id(node) not in inside):
                     offenders[f"{f.relative_to(REPO)}:{node.lineno}"] = name
     assert offenders == {}
+
+
+def test_image_decoders_import_no_cv2_or_pil():
+    """The decoders take their place where OpenCV and PIL are missing: they
+    import neither, at module level or inside a function."""
+    for name in ("png", "jpeg", "bmp"):
+        roots = set(_imported_roots(PORT / "data" / f"{name}.py"))
+        assert not roots & {"cv2", "PIL"}, name
+    code = ("import sys\nsys.modules['cv2'] = sys.modules['PIL'] = None\n"
+            "from vit_ssl_tpu_torch.data import bmp, jpeg, png\nprint('OK')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "OK"
 
 
 EVAL_BLOCKED_RUN = """
@@ -547,3 +566,31 @@ def test_chip_smoke_ring_shape_divides_by_its_sp():
     assert n == (img // patch) ** 2 + 1 and h == smoke.VIT_B16_512["model"]["num_heads"]
     assert smoke.RING_SP > 1 and n % smoke.RING_SP == 0
 
+
+
+def test_chip_smoke_jpeg_folder_makes_two_train_and_one_val_step(tmp_path):
+    """The JPEG-folder phase's folder (JPEG_FILES names in JPEG_CLASSES
+    class folders) under configs/vit_b_imagenet.yaml with JPEG_OVERRIDES:
+    the model as written, 8 loader workers, 512 train images in 2 steps of
+    256 and 21 val images in 1 step."""
+    from vit_ssl_tpu_torch.config import compose as port_compose
+    from vit_ssl_tpu_torch.config import to_container as port_to_container
+    from vit_ssl_tpu_torch.data.builder import prepare_dataloaders
+
+    smoke = _load_chip_smoke()
+    source = tmp_path / "one.jpg"
+    source.write_bytes(smoke.encode_jpeg(np.zeros((8, 8, 3), np.uint8)))
+    folder = tmp_path / "train"
+    for j in range(smoke.JPEG_FILES):
+        cls = folder / f"n{j % smoke.JPEG_CLASSES:08d}"
+        cls.mkdir(parents=True, exist_ok=True)
+        os.link(source, cls / f"{j}.JPEG")
+    config = port_compose(REPO / "configs", "vit_b_imagenet",
+                          [f"data.data_dir={folder}", *smoke.JPEG_OVERRIDES])
+    composed = port_to_container(config)
+    _assert_within({k: smoke.VIT_B16_224[k] for k in ("model", "parallel")}, composed,
+                   "config")
+    assert composed["data"]["num_workers"] == 8
+    train, val = prepare_dataloaders(config, "supervised")
+    assert (len(train.dataset), len(val.dataset)) == (512, 21)
+    assert (len(train), len(val), train.batch_size) == (2, 1, 256)

@@ -9,10 +9,15 @@ decode and resize, float32 after a host ``ToTensor``; a list of views from
 the multi-crop) and, when labeled, int labels; the loader stacks them into
 NHWC batches.
 
-Decoding: PNG files go through :mod:`.png` (zlib and numpy, bit-equal to
-OpenCV's reader), so a PNG folder needs neither OpenCV nor PIL; other
-formats, and the PNGs that decoder refuses (16-bit, interlaced), through
-OpenCV or PIL where one is installed.
+Decoding chooses the decoder by a file's magic bytes, never by its
+extension (an ImageNet file named ``.JPEG`` may hold a PNG): PNG through
+:mod:`.png` (zlib and numpy), JPEG through :mod:`.jpeg` (the port's C++
+decoder, built with the host compiler at first use), BMP through :mod:`.bmp`
+(numpy), each bit-equal to OpenCV's reader, so a folder of these formats
+needs neither OpenCV nor PIL. Only what these decoders refuse by name (WebP
+and other formats, arithmetic-coded JPEG, 16-bit PNG, RLE BMP, ...) goes to
+OpenCV or PIL where one is installed; a damaged file raises ``ValueError``
+naming it.
 
 The labeled indexes are read as the JAX package's pandas reads them, with
 ``csv`` and ``json``: the first column is the file, the second the class;
@@ -32,7 +37,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import png
+from . import bmp, jpeg, png
 
 
 class Dataset:
@@ -43,36 +48,80 @@ class Dataset:
         raise NotImplementedError
 
 
-def _load_image(path: str) -> np.ndarray:
-    """Decode to RGB uint8 HWC: a PNG with :func:`png.decode_bytes`; other
-    files (and the PNGs it refuses) with OpenCV, else PIL, refused by name
-    when neither is installed."""
-    with open(path, "rb") as f:
-        data = f.read()
-    refused = None
+# a decoder's reference: the JAX package's dataset reader (OpenCV, then PIL)
+# or its server's (PIL), with the JPEG options that match it
+_REFERENCES = {
+    "cv2": ({"exif_orientation": True, "cmyk": "cv2"}, ("cv2", "PIL")),
+    "pil": ({"exif_orientation": False, "cmyk": "pil"}, ("PIL", "cv2")),
+}
+
+
+def _own_decoder(data: bytes, jpeg_options):
+    """(format, decode, its refusal) of the port's decoder for ``data``'s
+    magic bytes, or None."""
     if png.is_png(data):
+        return "PNG", png.decode_bytes, png.UnsupportedPNG
+    if jpeg.is_jpeg(data):
+        return "JPEG", lambda d: jpeg.decode_bytes(d, **jpeg_options), jpeg.UnsupportedJPEG
+    if bmp.is_bmp(data):
+        return "BMP", bmp.decode_bytes, bmp.UnsupportedBMP
+    return None
+
+
+def _format_name(data: bytes) -> str:
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "a WebP file"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "a GIF file"
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        return "a TIFF file"
+    return "not a PNG, JPEG or BMP file"
+
+
+def _decode_with(library: str, path: str):
+    """RGB uint8 HWC from OpenCV or PIL, or None where it is not installed
+    or (OpenCV) cannot read the file."""
+    if library == "cv2":
         try:
-            return png.decode_bytes(data)
-        except png.UnsupportedPNG as e:
-            refused = e
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    if cv2 is not None:
+            import cv2
+        except ImportError:
+            return None
         img = cv2.imread(path, cv2.IMREAD_COLOR)
-        if img is not None:
-            return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        return None if img is None else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
     try:
         from PIL import Image
     except ImportError:
-        Image = None
-    if Image is not None:
-        with Image.open(path) as pil:
-            return np.asarray(pil.convert("RGB"))
+        return None
+    with Image.open(path) as pil:
+        return np.asarray(pil.convert("RGB"))
+
+
+def _load_image(path: str, reference: str = "cv2") -> np.ndarray:
+    """Decode to RGB uint8 HWC with the port's decoder for the file's magic
+    bytes (PNG, JPEG, BMP), bit-equal to ``reference``: "cv2" the datasets'
+    ``cv2.imread(..., IMREAD_COLOR)`` (EXIF orientation applied), "pil" the
+    server's ``Image.open(...).convert("RGB")``. What the decoder refuses by
+    name, and other formats, go to OpenCV or PIL where one is installed;
+    without them, and for a damaged file, ``ValueError`` names the file."""
+    jpeg_options, libraries = _REFERENCES[reference]
+    with open(path, "rb") as f:
+        data = f.read()
+    own, refused = _own_decoder(data, jpeg_options), None
+    if own is not None:
+        kind, decode, unsupported = own
+        try:
+            return decode(data)
+        except unsupported as e:
+            refused = e
+        except ValueError as e:
+            raise ValueError(f"{path}: damaged {kind} file: {e}") from e
+    for library in libraries:
+        image = _decode_with(library, path)
+        if image is not None:
+            return image
     raise ValueError(
-        f"{path}: {refused or 'not a PNG file'}; without OpenCV or PIL installed "
-        "only PNG images decode (ROADMAP.md: JPEG and other formats)")
+        f"{path}: {refused or _format_name(data)}; without OpenCV or PIL installed "
+        "only PNG, JPEG and BMP images decode (ROADMAP.md: WebP and other formats)")
 
 
 class _DecodeCache:

@@ -11,6 +11,11 @@ loaded when this module is imported, so the CPU tests import it freely.
 ``launches`` counts, per C entry point, the launches the wrappers made. Each
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that a path really went through the kernels.
+
+Beside them, the host libraries (:data:`HOST_SOURCES`: C++ for the CPU,
+such as the JPEG decoder) are built with the host C++ compiler (``c++``,
+else ``g++``) into ``_build/lib<name>.so`` at first use, by
+:func:`load_host`; they are no part of :data:`SOURCES` or :func:`build`.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List
@@ -40,6 +46,13 @@ SOURCES: Dict[str, str] = {
     "flash_blockwise_bwd": "csrc/flash_blockwise_bwd.cu",
     "masked_matmul": "csrc/masked_matmul.cu",
 }
+
+# host library name -> C++ source, relative to the package
+HOST_SOURCES: Dict[str, str] = {
+    "jpeg_decode": "csrc/jpeg_decode.cpp",
+}
+
+HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -92,9 +105,9 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def source_files(name: str) -> List[Path]:
-    """The kernel's source and every local header it includes, directly or
+    """The library's source and every local header it includes, directly or
     through another header (``#include "..."``, resolved beside the file)."""
-    files, todo = [], [PACKAGE_DIR / SOURCES[name]]
+    files, todo = [], [PACKAGE_DIR / {**SOURCES, **HOST_SOURCES}[name]]
     while todo:
         path = todo.pop()
         if path in files:
@@ -105,7 +118,8 @@ def source_files(name: str) -> List[Path]:
 
 
 def _stale(name: str) -> bool:
-    """The library is missing or older than its source or any header."""
+    """The library (a kernel's or a host one) is missing or older than its
+    source or any header."""
     lib = library_path(name)
     return not lib.exists() or any(lib.stat().st_mtime < f.stat().st_mtime
                                    for f in source_files(name))
@@ -153,4 +167,55 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
+    return lib
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: ``c++``, else ``g++``, on PATH."""
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found is not None:
+            return found
+    raise RuntimeError(
+        "no host C++ compiler (c++ or g++) on PATH: the host libraries "
+        f"{sorted(HOST_SOURCES)} are built from csrc/ at first use")
+
+
+def build_host(name: str) -> float:
+    """Compile the host library ``name`` when it is missing or older than
+    its source; returns the build's seconds (0 when it was current). Built
+    to a name of this process's own and moved into place, so processes
+    that build at once each see a whole file. Raises with the compiler's
+    output if the build fails; the log is kept in ``_build/lib<name>.log``."""
+    if not _stale(name):
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
+    cmd = [host_compiler(), *HOST_FLAGS, "-o", str(tmp), str(PACKAGE_DIR / HOST_SOURCES[name])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    log_path(name).write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host library build failed ({' '.join(cmd)}, exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, library_path(name))
+    return seconds
+
+
+_host_lock = threading.Lock()
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library ``name``, built first if needed (once, whichever
+    thread asks first)."""
+    lib = _loaded.get(name)
+    if lib is None:
+        with _host_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build_host(name)
+                lib = ctypes.CDLL(str(library_path(name)))
+                _loaded[name] = lib
     return lib

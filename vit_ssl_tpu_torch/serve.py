@@ -120,9 +120,11 @@ class Server:
         return out
 
     def _decode(self, path: str) -> np.ndarray:
-        """The image at ``path`` through the clean pipeline: a PNG decodes
-        without OpenCV or PIL; other formats need one of them."""
-        return self.pipeline(_load_image(path))
+        """The image at ``path`` through the clean pipeline, decoded as the
+        JAX package's server decodes it (PIL's ``convert("RGB")``: no EXIF
+        rotation, PIL's CMYK): PNG, JPEG and BMP without OpenCV or PIL,
+        other formats with one of them."""
+        return self.pipeline(_load_image(path, reference="pil"))
 
     def infer(self, paths):
         """Forward a (possibly short) list of paths; returns one result dict

@@ -4,7 +4,7 @@ mode: one log record and one printed line per epoch and split.
 The surface is the JAX logger's (``train_log_step``, ``val_log_step``,
 ``log_train_epoch``, ``log_val_epoch``, ``pause``, ``resume``, the context
 manager), so the trainers call it as they call that one. Its rich live
-two-pane view is not ported (``ROADMAP.md`` queue A item 11):
+two-pane view is not ported (``ROADMAP.md`` queue A item 7):
 ``plain`` is accepted and every mode logs lines.
 """
 
