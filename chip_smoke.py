@@ -19,7 +19,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               bf16 backward in its resident (N <= 256) and streamed forms,
               also at ViT-B/16's 224-px shape (1024, 197, 12 x 64), bf16 and
               fp32, SimMIM's (128, 144, 6 x 64) and the patch-dropout
-              (1024, 99, 12 x 64), bf16; each head kept to its columns and each image to its
+              (1024, 99, 12 x 64), bf16, and the visualizers' batch-1 inference
+              shapes (1, 197, 12 x 64) and (1, 144, 6 x 64), bf16; each head kept
+              to its columns and each image to its
               rows, two calls bit-equal; kernel B4
               (fused MLP): its three forwards (no mask; keep-mask; keep-mask
               and saved pre) and its backward (with and without the mask)
@@ -261,6 +263,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               at batch 1024 against plain attention, every B1 call at N =
               99; device busy; then B1's training entries at (1024, 99,
               12 x 64): kernel, plain, SDPA and bound
+21c. visualizers — the three scripts of ``vit_ssl_tpu_torch.scripts``
+              through their ``main`` on the trainer phases' run directories:
+              the attention map of the ViT-B/16 best_model (11 B1 inference
+              forwards at (1, 197, 12 x 64)) and the SimMIM reconstruction (6
+              at (1, 144, 6 x 64)), each within row cosine 0.999 of
+              ``model.use_flash_attention=false``; the 3D UMAP of the DINO
+              run over a PNG folder (6 B1 forwards a feature batch), its
+              embedding finite; wall seconds; B1 at the two batch-1 shapes:
+              kernel, plain, SDPA, host microseconds and bound
 22. a JSON line describing every kernel (B4 once at each width), then the
               JSON ``ok`` line last.
 
@@ -272,6 +283,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import gc
+import importlib.util
 import json
 import os
 import re
@@ -483,6 +495,10 @@ TIMED_STEPS = 10
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
+# B1's inference forward at batch 1: the attention visualizer on ViT-B/16 at
+# 224 px, the SimMIM visualizer at 192 px
+VIT_B_B1_ONE = (1, 197, 12, 64, "bfloat16", 0)
+SIMMIM_B1_ONE = (1, 144, 6, 64, "bfloat16", 0)
 # (batch, seq, heads, head_dim, dtype, block_size): the serving shape first
 ATTENTION_CASES = [
     (128, 145, 6, 64, "bfloat16", 0),
@@ -500,6 +516,8 @@ ATTENTION_CASES = [
     (1024, 197, 12, 64, "bfloat16", 0),
     (1024, 197, 12, 64, "float32", 0),
     (128, 144, 6, 64, "bfloat16", 0),
+    VIT_B_B1_ONE,
+    SIMMIM_B1_ONE,
 ]
 # B1's shapes at tp = 2 (TP_VIRTUAL: one rank's 3 of DINO ViT-S/8's 6
 # heads, 6 of ViT-B/16's 12), bf16: the student globals, the packed locals,
@@ -6010,6 +6028,271 @@ def phase_jpeg_folder(torch, fa, card, tmp):
     return {"jpeg_folder": launches, "jpeg_serving": serve_launches}
 
 
+# The visualizer phase: the three scripts of vit_ssl_tpu_torch.scripts over
+# the run directories of the DINO, SimMIM and ViT-B/16 trainer phases, each
+# through its main() as a user runs it; B1 at batch 1 beside SDPA
+VIS_COSINE = 0.999  # each row of a heat map or image against the plain path
+VIS_UMAP_IMAGES = 640  # 96 px PNGs in 10 class folders: 512 train, 128 val
+VIS_UMAP_CLASSES = 10
+
+
+@contextlib.contextmanager
+def recorded_b1_shapes(shapes):
+    """Record (batch, seq, heads x head_dim) of each call of B1's wrapper on
+    the model's path into ``shapes`` (the call itself unchanged)."""
+    from vit_ssl_tpu_torch.ops import attention as attention_mod
+
+    nhd = attention_mod.attention_nhd
+
+    def recording(q, k, v, num_heads, *args, **kwargs):
+        shapes.append((q.shape[0], q.shape[1], f"{num_heads}x{q.shape[2] // num_heads}"))
+        return nhd(q, k, v, num_heads, *args, **kwargs)
+
+    with routed_attention(recording, attention_mod.fused_attention,
+                          attention_mod.blockwise_attention):
+        yield
+
+
+def visualizer_image(tmp, name, seed):
+    """A seeded 375 x 500 picture as a baseline JPEG (this script's encoder)
+    in ``tmp``; its path."""
+    path = Path(tmp) / name
+    path.write_bytes(encode_jpeg(smooth_picture(np.random.default_rng(seed), 375, 500)))
+    return str(path)
+
+
+def plain_twin(torch, ckpt):
+    """The checkpoint's model on the card twice, as its config builds it and
+    with ``model.use_flash_attention=false``: (kernel model, plain model,
+    config)."""
+    from vit_ssl_tpu_torch.config import from_container
+    from vit_ssl_tpu_torch.models.builder import build_model
+    from vit_ssl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tree, meta = load_checkpoint(ckpt)
+    plain_cfg = copy.deepcopy(meta["config"])
+    plain_cfg["model"]["use_flash_attention"] = False
+    models = []
+    for cfg in (meta["config"], plain_cfg):
+        model = build_model(from_container(cfg), "cuda")
+        model.load_state_dict(tree["model"])
+        models.append(model.eval())
+    return models[0], models[1], from_container(meta["config"])
+
+
+def visualizer_run(fa, fn):
+    """``fn()`` as a main path: the launch counts zeroed just before and read
+    just after, every B1 call's shape recorded, no plain attention version
+    allowed; (its result, launches, shapes, wall seconds)."""
+    import torch
+    from vit_ssl_tpu_torch import kernels
+
+    shapes = []
+    torch.cuda.synchronize()
+    with no_plain_attention(fa), recorded_b1_shapes(shapes):
+        t0 = time.perf_counter()
+        kernels.launches.clear()  # the visualizer's path starts here
+        out = fn()
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)  # ... and ends here
+        wall_s = time.perf_counter() - t0
+    return out, launches, shapes, wall_s
+
+
+def check_visualizer_launches(fa, name, launches, shapes, calls, shape):
+    want = f"{shape[2]}x{shape[3]}"
+    if launches != {fa.KERNEL: calls} or set(shapes) != {(shape[0], shape[1], want)}:
+        fail(f"the {name} launched {launches} at {sorted(set(shapes))}, expected "
+             f"{calls} B1 inference forwards at ({shape[0]}, {shape[1]}, {want})")
+
+
+def phase_visualize_attention(torch, fa, card, run_dir, tmp):
+    """``python -m vit_ssl_tpu_torch.scripts.attention_visualizer`` on the
+    ViT-B/16 trainer's best_model (224 px) and a JPEG, through its ``main``:
+    11 B1 inference forwards at (1, 197, 12 x 64) (the last block's
+    probabilities are the plain math, as in JAX), the heat map within row
+    cosine VIS_COSINE of the same forward with
+    ``model.use_flash_attention=false``, the predicted class equal outside
+    a near tie. Returns (launches, wall seconds)."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.scripts import attention_visualizer as av
+
+    ckpt = str(Path(run_dir) / "best_model")
+    image = visualizer_image(tmp, "attention.jpg", 41)
+    output = str(Path(tmp) / "attention_overlay.png")
+    print(f"== visualizers: attention map of the ViT-B/16 trainer's best_model at 224 px "
+          f"(vit_ssl_tpu_torch.scripts.attention_visualizer.main); {card}", flush=True)
+    (pred, heat), launches, shapes, wall_s = visualizer_run(fa, lambda: av.main(
+        ["--checkpoint", ckpt, "--image", image, "--output", output]))
+    blocks = VIT_B16_224["model"]["num_blocks"]
+    check_visualizer_launches(fa, "attention visualizer", launches, shapes, blocks - 1,
+                              VIT_B_B1_ONE)
+    model, plain, config = plain_twin(torch, ckpt)
+    counted = dict(kernels.launches)
+    _, plain_pred, plain_heat = av.attention_arrays(plain, config, image)
+    x = torch.as_tensor(av.load_image(image, 224))[None].cuda()
+    with torch.inference_mode():
+        want = plain(x).float().cpu().numpy()
+        if dict(kernels.launches) != counted:
+            fail("the plain-attention attention map launched a kernel")
+        got = model(x).float().cpu().numpy()
+    cos = row_cosine(heat, plain_heat)
+    max_err = float(np.abs(got - want).max())
+    near_tie = float(top2_margin(want)[0]) <= 2 * max_err
+    print(f"  main: {wall_s:.3f} s wall (checkpoint load, JPEG decode, forward, heat map; "
+          f"matplotlib {'drew ' + output if Path(output).exists() else 'absent: no figure'}); "
+          f"launches {launches}, every B1 call at {shapes[0]}; heat map {heat.shape}, min row "
+          f"cosine {cos.min():.6f} to model.use_flash_attention=false (>= {VIS_COSINE}); "
+          f"predicted class {pred}, plain {plain_pred} (logits max_abs_err {max_err:.3e}, "
+          f"top-2 margin {float(top2_margin(want)[0]):.3e}); {card}", flush=True)
+    if heat.shape != (224, 224) or not np.isfinite(heat).all() or cos.min() < VIS_COSINE:
+        fail("the attention map disagrees with the plain-attention forward")
+    if pred != plain_pred and not near_tie:
+        fail(f"the attention visualizer predicts {pred}, the plain path {plain_pred}")
+    del model, plain
+    gc.collect()
+    return launches, wall_s
+
+
+def phase_visualize_simmim(torch, fa, card, run_dir, tmp):
+    """``python -m vit_ssl_tpu_torch.scripts.simmim_visualizer`` on the
+    SimMIM trainer's best_model (192 px) and a JPEG, through its ``main``
+    (seed 0): 6 B1 inference forwards at (1, 144, 6 x 64), the three images
+    within row cosine VIS_COSINE of the plain path's with the same mask.
+    Returns (launches, wall seconds)."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.scripts import simmim_visualizer as sv
+
+    ckpt = str(Path(run_dir) / "best_model")
+    image = visualizer_image(tmp, "simmim.jpg", 42)
+    output = str(Path(tmp) / "simmim_reconstruction.png")
+    print(f"== visualizers: SimMIM reconstruction of the SimMIM trainer's best_model at "
+          f"192 px (vit_ssl_tpu_torch.scripts.simmim_visualizer.main); {card}", flush=True)
+    images, launches, shapes, wall_s = visualizer_run(fa, lambda: sv.main(
+        ["--checkpoint", ckpt, "--image", image, "--output", output, "--seed", "0"]))
+    check_visualizer_launches(fa, "SimMIM visualizer", launches, shapes,
+                              SIMMIM_VIT_S16["model"]["num_blocks"], SIMMIM_B1_ONE)
+    _, plain, config = plain_twin(torch, ckpt)
+    counted = dict(kernels.launches)
+    want = sv.reconstruction_arrays(plain, config, image, seed=0)
+    if dict(kernels.launches) != counted:
+        fail("the plain-attention reconstruction launched a kernel")
+    masked = float(np.isclose(images[1], 0.5).all(axis=-1).mean())
+    worst = []
+    for title, got, ref in zip(sv.TITLES, images, want):
+        cos = row_cosine(got.reshape(got.shape[0], -1), ref.reshape(ref.shape[0], -1))
+        worst.append(float(cos.min()))
+        if got.shape != (192, 192, 3) or not np.isfinite(got).all() or cos.min() < VIS_COSINE:
+            fail(f"the SimMIM {title} image disagrees with the plain path "
+                 f"(min row cosine {cos.min():.6f})")
+    print(f"  main: {wall_s:.3f} s wall (checkpoint load, JPEG decode, masked forward, "
+          f"images; matplotlib "
+          f"{'drew ' + output if Path(output).exists() else 'absent: no figure'}); launches "
+          f"{launches}, every B1 call at {shapes[0]}; {masked:.3f} of the pixels masked "
+          f"(mask ratio {config['model']['mask_ratio']}); min row cosine to "
+          f"model.use_flash_attention=false with the same mask: "
+          + ", ".join(f"{t} {c:.6f}" for t, c in zip(sv.TITLES, worst))
+          + f" (>= {VIS_COSINE}); {card}", flush=True)
+    del plain
+    gc.collect()
+    return launches, wall_s
+
+
+def phase_visualize_umap(torch, fa, card, run_dir, tmp):
+    """``python -m vit_ssl_tpu_torch.scripts.umap_3d_visualizer`` on the DINO
+    trainer's run directory (eval.experiment_path) over an ImageNet-layout
+    folder of VIS_UMAP_IMAGES PNGs (this script's encoder), through its
+    ``main``: 6 B1 inference forwards at (128, 145, 6 x 64) in each feature
+    batch, a finite (n, 3) embedding, and the GIF of 90 frames where
+    matplotlib and PIL are installed, else one warning naming them.
+    Returns (launches, wall seconds)."""
+    import logging
+
+    from vit_ssl_tpu_torch.config import compose
+    from vit_ssl_tpu_torch.data.builder import prepare_dataloaders
+    from vit_ssl_tpu_torch.evaluators import merge_with_experiment_config
+    from vit_ssl_tpu_torch.scripts import umap_3d_visualizer as uv
+
+    configs = Path(__file__).resolve().parent / "configs"
+    rng = np.random.default_rng(43)
+    labels = rng.integers(0, VIS_UMAP_CLASSES, VIS_UMAP_IMAGES)
+    colours = rng.integers(0, 160, (VIS_UMAP_CLASSES, 3))
+    folder = Path(tmp) / "umap_images"
+    for i, label in enumerate(labels):
+        pixels = rng.integers(0, 96, (96, 96, 3)) + colours[label]
+        (folder / f"class_{label}").mkdir(parents=True, exist_ok=True)
+        (folder / f"class_{label}" / f"{i:04d}.png").write_bytes(
+            encode_png(pixels.astype(np.uint8)))
+    overrides = [f"eval.experiment_path={run_dir}", "eval.dataset_name=imagefolder",
+                 f"eval.data_dir={folder}"]
+    config = merge_with_experiment_config(compose(configs, "eval_config", overrides))
+    batches = sum(len(loader) for loader in prepare_dataloaders(config, "eval_knn"))
+    print(f"== visualizers: 3D UMAP of the DINO trainer's run over {VIS_UMAP_IMAGES} "
+          f"PNGs in {VIS_UMAP_CLASSES} class folders "
+          f"(vit_ssl_tpu_torch.scripts.umap_3d_visualizer.main, {' '.join(overrides[1:2])}); "
+          f"{card}", flush=True)
+    warnings = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                warnings.append(record.getMessage())
+
+    handler = Keep()
+    analysis = logging.getLogger("vit_ssl_tpu_torch.evaluators.embedding_analysis")
+    analysis.addHandler(handler)
+    try:
+        embedding, launches, shapes, wall_s = visualizer_run(fa, lambda: uv.main(
+            ["--config-path", str(configs), *overrides]))
+    finally:
+        analysis.removeHandler(handler)
+    check_visualizer_launches(fa, "3D UMAP visualizer", launches, shapes,
+                              DINO_VIT_S8["model"]["num_blocks"] * batches,
+                              (128, 145, 6, 64))
+    gif = Path(run_dir) / "umap_3d_rotation.gif"
+    try:
+        import matplotlib  # noqa: F401
+        import PIL  # noqa: F401
+        drawing = True
+    except ImportError:
+        drawing = False
+    if drawing:
+        from PIL import Image
+
+        with Image.open(gif) as frames:
+            ok, note = frames.n_frames == 90, f"{gif.name} of {frames.n_frames} frames"
+    else:
+        ok = (len(warnings) == 1 and str(gif) in warnings[0] and "matplotlib" in warnings[0]
+              and not gif.exists())
+        note = f"no GIF, warned: {warnings}"
+    print(f"  main: {wall_s:.3f} s wall (features of {batches} batches, the 3D projection, "
+          f"the animation); launches {launches}, every B1 call at {shapes[0]}; embedding "
+          f"{embedding.shape}, finite {bool(np.isfinite(embedding).all())}; {note}; {card}",
+          flush=True)
+    if embedding.shape != (VIS_UMAP_IMAGES, 3) or not np.isfinite(embedding).all() or not ok:
+        fail("the 3D UMAP visualizer's embedding or animation is wrong")
+    return launches, wall_s
+
+
+def phase_b1_batch1_times(torch, fa, card):
+    """B1's inference forward at the visualizers' batch-1 shapes, bf16:
+    max_abs_err to its plain version, kernel (CUDA events), plain, SDPA,
+    the C entry alone, the wrapper's host microseconds, the bound (rows of
+    the kernels line)."""
+    rows = []
+    for (b, n, h, d, dtype_name, bs), label, seed in (
+            (VIT_B_B1_ONE, ", attention map", 330), (SIMMIM_B1_ONE, ", SimMIM reconstruction", 331)):
+        print(f"== B1 at batch 1 ({b},{n},{h}x{d}) {dtype_name}{label} on {card}", flush=True)
+        xq, xk, xv = qkv(b, n, h, d, getattr(torch, dtype_name), seed=seed)
+        scale = 1.0 / d ** 0.5
+        err = max_abs(fa.attention_nhd_fwd(xq, xk, xv, h, scale, bs),
+                      fa.attention_nhd_reference(xq, xk, xv, h, scale, bs))
+        row = b1_forward_row(torch, fa, fa.KERNEL, label, xq, xk, xv, h, scale, bs,
+                             attention_bound(b, n, h, d, dtype_name, bs))
+        rows.append({**row, "max_abs_err": err})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -6086,6 +6369,8 @@ def main() -> int:
                                                     dino_eval)
         dino_eval_launches = dino_eval["launches"]
         del dino_eval
+        umap_vis_launches, umap_vis_s = phase_visualize_umap(torch, fa, card,
+                                                             Path(tmp) / "run", tmp)
         finetune_launches = phase_finetune(torch, fa, card,
                                            Path(tmp) / "run" / "best_model", tmp)
     with tempfile.TemporaryDirectory() as tmp:
@@ -6099,6 +6384,8 @@ def main() -> int:
                                        simmim_batch)
         simmim_serve_launches, _ = phase_simmim_serving(torch, fa, card, simmim_state, tmp)
         del simmim_state, simmim_batch
+        simmim_vis_launches, simmim_vis_s = phase_visualize_simmim(
+            torch, fa, card, Path(tmp) / "simmim", tmp)
     simmim_b1_rows = phase_b1_simmim_times(torch, fa, card)
     mlp_stats = phase_mlp_times(torch, fm, card)
     blocks = VIT_B16_384["model"]["num_blocks"]
@@ -6141,6 +6428,15 @@ def main() -> int:
     vit_b_rows = phase_b1_vit_b_times(torch, fa, card)
     with tempfile.TemporaryDirectory() as tmp:
         vit_b_launches, vit_b_resumed_launches, _ = phase_vit_b_trainer(torch, fa, card, tmp)
+        attention_vis_launches, attention_vis_s = phase_visualize_attention(
+            torch, fa, card, Path(tmp) / "vit_b", tmp)
+    batch1_rows = phase_b1_batch1_times(torch, fa, card)
+    present = {name: importlib.util.find_spec(name) is not None
+               for name in ("rich", "matplotlib", "PIL")}
+    print(f"== visualizers on {card}: wall seconds through main: attention map "
+          f"{attention_vis_s:.3f}, SimMIM reconstruction {simmim_vis_s:.3f}, 3D UMAP "
+          f"{umap_vis_s:.3f}; host packages installed here (the live training view "
+          f"and the figures): {present}", flush=True)
     remat_paths = phase_remat(torch, fa, card)
     with tempfile.TemporaryDirectory() as tmp:
         moe_paths = phase_moe(torch, fa, card, tmp)
@@ -6170,7 +6466,8 @@ def main() -> int:
          serve_err, {**serve_stats, "at_other_shapes": [
              train_stats[("fwd_inference", 0)],
              {**vit_b_rows["fwd"], "max_abs_err": vit_b_err[0]},
-             {**simmim_b1_rows["fwd"], "max_abs_err": simmim_err[0]}]}),
+             {**simmim_b1_rows["fwd"], "max_abs_err": simmim_err[0]},
+             *batch1_rows]}),
         (fa.KERNEL_TRAIN, "attention_fwd_sm90.cuh", "vit_ssl_tpu/ops/flash_attention.py:352",
          train_errors[globals_case][0],
          {**train_stats[("fwd", 0)], "data_parallel": dp_stats, "at_other_shapes": [
@@ -6288,7 +6585,10 @@ def main() -> int:
              "serving_supervised_512": sup512_serve_launches, **sup512_paths,
              "exp2_probe": probe_launches, "dropout_epilogue_probe": dropout_probe_launches,
              **preempt_paths, **scan_paths, **moe_paths, **patch_paths,
-             **dp_paths, **ring_paths, **tp_paths, **pipe_paths, **jpeg_paths}
+             **dp_paths, **ring_paths, **tp_paths, **pipe_paths, **jpeg_paths,
+             "visualizer_attention": attention_vis_launches,
+             "visualizer_simmim": simmim_vis_launches,
+             "visualizer_umap_3d": umap_vis_launches}
     # the paths that run B4 at each width (ViT-L's 1024 runs on none yet)
     width_paths = {MLP_DIMS[0]: ("serving_fused", "training_fused", "dropout_epilogue_probe"),
                    VIT_B_MLP[0]: ("serving_supervised_fused", "training_supervised_fused",

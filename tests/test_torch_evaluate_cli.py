@@ -162,7 +162,8 @@ def test_supervised_writes_predictions_each_epoch(data, tmp_path):
     run = str(tmp_path / "sup")
     out, err = _finish(_start("vit_ssl_tpu_torch.train", [
         "--config-name", "supervised", *SUPERVISED, f"data.data_dir={data}/train_images",
-        f"data.data_csv={data}/train_labels.json", f"hydra.run.dir={run}"]))
+        f"data.data_csv={data}/train_labels.json", "training.plain_logging=true",
+        f"hydra.run.dir={run}"]))
     val_lines = [line for line in out.splitlines() if line.startswith("[epoch")
                  and "val:" in line]
     assert len(val_lines) == 2

@@ -49,7 +49,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vit_ssl_tpu")
 HOST_ONLY = ("yaml", "orbax", "rich", "pandas", "cv2", "PIL", "matplotlib", "sklearn",
              "seaborn")
 # never imported by the port at all
-NOWHERE = ("yaml", "orbax", "rich", "pandas", "sklearn")
+NOWHERE = ("yaml", "orbax", "pandas", "sklearn")
 
 
 def _load_chip_smoke():
@@ -115,9 +115,9 @@ def test_no_jax_import_anywhere_in_the_port():
 
 
 def test_host_packages_only_inside_functions():
-    """yaml, orbax, rich, pandas and sklearn appear nowhere in the port;
-    cv2, PIL, matplotlib and seaborn only inside the functions that decode,
-    resize or plot."""
+    """yaml, orbax, pandas and sklearn appear nowhere in the port; cv2,
+    PIL, matplotlib, seaborn and rich only inside the functions that decode,
+    resize, plot or start the live training view."""
     offenders = {}
     for f in sorted(PORT.rglob("*.py")):
         tree = ast.parse(f.read_text(), filename=str(f))

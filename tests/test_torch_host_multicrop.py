@@ -86,7 +86,7 @@ def runs(data, tmp_path_factory):
     out = tmp_path_factory.mktemp("runs")
     common = ["-m", "vit_ssl_tpu_torch.train", "--config-name", "dino", "--device", "cpu",
               f"data.data_dir={data}/a/unlabeled_images", *TINY,
-              "training.num_epochs=1"]
+              "training.num_epochs=1", "training.plain_logging=true"]
     procs = {
         "host": _start(common + ["data.device_augment=false",
                                  f"hydra.run.dir={out / 'host'}"]),

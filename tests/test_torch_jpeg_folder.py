@@ -182,7 +182,7 @@ def test_cli_trains_from_a_jpeg_folder_without_cv2_and_pil(tmp_path):
     env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
     args = ["--device", "cpu", "--config-name", "vit_b_imagenet", f"data.data_dir={folder}",
             *NARROW, "training.num_epochs=1", "data.num_workers=2", "data.val_split=0.25",
-            f"hydra.run.dir={run}"]
+            "training.plain_logging=true", f"hydra.run.dir={run}"]
     out = subprocess.run([sys.executable, "-c", BLOCKED_CLI, *args], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -253,7 +253,7 @@ def test_cli_trains_simmim(tmp_path):
               "model.embed_dim=32", "model.num_heads=2", "model.num_blocks=2",
               "model.mlp_dim=64", f"model.patch_size={PATCH}", "training.batch_size=8",
               "training.num_epochs=2", "training.warmup_epochs=1", "eval.interval=0",
-              "data.num_workers=0"]
+              "data.num_workers=0", "training.plain_logging=true"]
     runs = {"host": [], "device": ["data.device_augment=true",
                                    "+training.grad_accum_steps=2",
                                    "model.fast_dropout=false"]}

@@ -90,7 +90,7 @@ def _dino_pth(path):
 def test_cli_trains_and_resumes_bit_exactly(tmp_path, mode):
     data = make(str(tmp_path / "synth"), n=30, size=16, num_classes=3)
     common = ["--config-name", mode, f"data.data_dir={data}/train_images",
-              f"data.data_csv={data}/train_labels.json", *TINY]
+              f"data.data_csv={data}/train_labels.json", *TINY, "training.plain_logging=true"]
     if mode == "finetune":
         common += FINETUNE + [f"training.pretrained_path={_dino_pth(tmp_path / 'dino.pth')}"]
     straight, split = str(tmp_path / "straight"), str(tmp_path / "split")

@@ -66,7 +66,8 @@ def test_cli_trains_and_resumes_on_the_cpu(tmp_path, blocked_run):
     data_root = make(str(tmp_path / "synth"), n=16, size=16, num_classes=3)
     run = str(tmp_path / "run")
     common = ["-m", "vit_ssl_tpu_torch.train", "--config-name", "dino",
-              "--device", "cpu", f"data.data_dir={data_root}/unlabeled_images", *TINY]
+              "--device", "cpu", f"data.data_dir={data_root}/unlabeled_images", *TINY,
+              "training.plain_logging=true"]
     out = _finish(_start(common + ["training.num_epochs=2", f"hydra.run.dir={run}"]))
     assert out.returncode == 0, out.stderr[-3000:]
     for path in (".hydra/config.yaml", ".hydra/overrides.yaml",

@@ -1,6 +1,7 @@
 """OpenCV's arithmetic that the host transforms use, in numpy: resize
-(``INTER_AREA`` and ``INTER_LINEAR``), RGB↔HSV on OpenCV's [0, 180) hue and
-the Gaussian blur, each equal bit for bit to ``cv2.resize``,
+(``INTER_AREA``, ``INTER_LINEAR`` and, on float images, ``INTER_CUBIC``),
+RGB↔HSV on OpenCV's [0, 180) hue and the Gaussian blur, each equal bit for
+bit to ``cv2.resize``,
 ``cv2.cvtColor`` and ``cv2.GaussianBlur`` on uint8 images (OpenCV 5.0 on
 x86-64, the dispatched SIMD paths; ``tests/test_torch_host_transforms.py``
 holds each against ``cv2``, the colour conversions over every input).
@@ -18,6 +19,14 @@ holds each against ``cv2``, the colour conversions over every input).
   source pixels with float32 coverage weights, rows then columns in
   OpenCV's order, rounded half to even. When an axis grows, it is the
   linear path with the area variant of the coordinates.
+- resize, ``INTER_CUBIC`` (float images only; the attention visualizer's
+  upsampling of a heat map): the same source coordinate in float32, Keys'
+  cubic with A = -0.75 as OpenCV's ``interpolateCubic`` computes its four
+  float32 weights (the last one minus the other three), taps past the edge
+  replicated, a horizontal pass summed tap by tap, then the vertical one.
+  Within a few units in the last place of OpenCV's C++ path; OpenCV's IPP
+  path, which it takes for a float shrink, sums in another form (about
+  2e-6 of the largest value apart).
 - RGB→HSV: OpenCV's 12-bit division tables, all integer.
 - HSV→RGB: float32, the sector formulas with their products fused
   (``v·fma(-s, h, 1)``), times 255; OpenCV converts each row in blocks of
@@ -116,6 +125,33 @@ def _resize_linear(src: np.ndarray, dh: int, dw: int, area_mode: bool) -> np.nda
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
+def _cubic_weights(f: np.ndarray) -> np.ndarray:
+    """(n, 4) float32 weights of the taps at s - 1 .. s + 2 for fractions
+    ``f``: OpenCV's ``interpolateCubic`` (A = -0.75) in float32."""
+    a, one = np.float32(-0.75), np.float32(1)
+    x1, y = f + one, one - f
+    w0 = ((a * x1 - np.float32(5) * a) * x1 + np.float32(8) * a) * x1 - np.float32(4) * a
+    w1 = ((a + np.float32(2)) * f - (a + np.float32(3))) * f * f + one
+    w2 = ((a + np.float32(2)) * y - (a + np.float32(3))) * y * y + one
+    return np.stack([w0, w1, w2, one - w0 - w1 - w2], axis=-1).astype(np.float32)
+
+
+def _resize_cubic(src: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    sh, sw, _ = src.shape
+    t = src.dtype.type
+    inv_x, inv_y = dw / sw, dh / sh
+    sx, fx = _linear_coords(dw, sw, 1.0 / inv_x, inv_x, False)
+    sy, fy = _linear_coords(dh, sh, 1.0 / inv_y, inv_y, False)
+    alpha, beta = _cubic_weights(fx).astype(t), _cubic_weights(fy).astype(t)
+    rows = np.zeros((sh, dw, src.shape[2]), t)
+    for j in range(4):
+        rows = rows + src[:, np.clip(sx + j - 1, 0, sw - 1)] * alpha[None, :, j, None]
+    out = rows[np.clip(sy - 1, 0, sh - 1)] * beta[:, 0, None, None]
+    for k in range(1, 4):
+        out = out + rows[np.clip(sy + k - 1, 0, sh - 1)] * beta[:, k, None, None]
+    return out
+
+
 def _area_table(ssize: int, dsize: int, scale: float) -> Tuple[np.ndarray, np.ndarray]:
     """OpenCV's ``computeResizeAreaTab`` as (dsize, K) source indices and
     float32 weights in its order, padded with weight-0 entries."""
@@ -171,14 +207,17 @@ def _resize_area(src: np.ndarray, dh: int, dw: int) -> np.ndarray:
 
 
 def resize(img: np.ndarray, height: int, width: int, interpolation: str) -> np.ndarray:
-    """``cv2.resize(img, (width, height), interpolation=INTER_AREA or
-    INTER_LINEAR)`` of an (H, W, C) image; ``interpolation`` is ``"area"``
-    or ``"linear"``. uint8 is bit-equal to OpenCV; a float image takes the
+    """``cv2.resize(img, (width, height), interpolation=INTER_AREA,
+    INTER_LINEAR or INTER_CUBIC)`` of an (H, W) or (H, W, C) image;
+    ``interpolation`` is ``"area"``, ``"linear"`` or ``"cubic"`` (float
+    images only). uint8 is bit-equal to OpenCV; a float image takes the
     same coordinates and weights in its own precision (OpenCV's float
     paths, up to the order of their sums)."""
     img = _check_image(img)
-    if interpolation not in ("area", "linear"):
+    if interpolation not in ("area", "linear", "cubic"):
         raise ValueError(f"unknown interpolation {interpolation!r}")
+    if interpolation == "cubic" and img.dtype == np.uint8:
+        raise TypeError("the cubic resize takes float32 or float64 images, not uint8")
     squeeze = img.ndim == 2
     src = img[:, :, None] if squeeze else img
     sh, sw = src.shape[:2]
@@ -187,6 +226,8 @@ def resize(img: np.ndarray, height: int, width: int, interpolation: str) -> np.n
         raise ValueError(f"resize to an empty size ({height}, {width})")
     if (height, width) == (sh, sw):
         out = src.copy()
+    elif interpolation == "cubic":
+        out = _resize_cubic(src, height, width)
     else:
         scale_x, scale_y = 1.0 / (width / sw), 1.0 / (height / sh)
         if (interpolation == "linear" and abs(scale_x - 2) < _DBL_EPSILON

@@ -2,10 +2,11 @@
 extraction, cosine KNN, the linear probe, native UMAP with its quality
 metrics, and the unsupervised and supervised evaluation runs. Only torch,
 numpy and scipy are imported at module level; figures import matplotlib
-where they are drawn."""
+(and the 3D animation PIL) where they are drawn."""
 
 from .embedding_analysis import (
     assess_quality,
+    create_3d_umap_animation,
     evaluate_feature_quality,
     prepare_combined_features,
     run_umap_analysis,
@@ -16,6 +17,7 @@ from .linear_probe import run_linear_evaluation
 
 __all__ = [
     "assess_quality",
+    "create_3d_umap_animation",
     "evaluate_feature_quality",
     "prepare_combined_features",
     "run_umap_analysis",

@@ -22,10 +22,12 @@ sklearn is not used; its functions are rebuilt here:
 
 The projector is :class:`~.umap_native.NativeUMAP` (umap-learn is not
 used). The figures (``umap_visualization.png``,
-``comprehensive_umap_analysis.png``) are host files: matplotlib is imported
-inside the function that draws them, and on a host without it one warning
-names each skipped file; the CSV and TXT reports are written with ``csv``
-and plain writes either way.
+``comprehensive_umap_analysis.png``) and the rotating 3D view
+(``umap_3d_rotation.gif``, :func:`create_3d_umap_animation`) are host
+files: matplotlib (and PIL, for the GIF) is imported inside the function
+that draws them, and on a host without it one warning names each skipped
+file; the CSV and TXT reports are written with ``csv`` and plain writes
+either way.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from .umap_native import row_blocks
 logger = logging.getLogger(__name__)
 
 FIGURES = ("umap_visualization.png", "comprehensive_umap_analysis.png")
+ANIMATION = "umap_3d_rotation.gif"
 
 
 def projector_name() -> str:
@@ -497,3 +500,47 @@ def run_umap_analysis(features, labels, output_dir, umap_params: Optional[Dict] 
     save_results(metrics, quality, feedback, output_dir)
     logger.info("Analysis complete! Quality: %s", quality)
     return embedding, metrics, quality, feedback
+
+
+def create_3d_umap_animation(features, labels, output_dir, umap_params=None,
+                             step_degrees: int = 4, device=None):
+    """The 3D projection of ``features`` (returned), and where matplotlib
+    and PIL are installed a rotating scatter of it, ``umap_3d_rotation.gif``
+    in ``output_dir``: 360 / ``step_degrees`` frames at elevation 20, 10
+    frames a second (matplotlib's ``FuncAnimation`` and ``PillowWriter``)."""
+    device = resolve_device(device)
+    os.makedirs(output_dir, exist_ok=True)
+    embedding = _project(np.asarray(features), 3, umap_params, device)
+    gif_path = os.path.join(output_dir, ANIMATION)
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        import PIL  # noqa: F401  (PillowWriter's)
+        from matplotlib import animation
+    except ImportError:
+        logger.warning("matplotlib or PIL is not installed: skipped the animation %s",
+                       gif_path)
+        return embedding
+    fig = plt.figure(figsize=(12, 9))
+    ax = fig.add_subplot(111, projection="3d")
+    ax.scatter(embedding[:, 0], embedding[:, 1], embedding[:, 2],
+               c=np.asarray(labels), cmap="Spectral", s=5, alpha=0.7)
+    name = projector_name()
+    ax.set_xlabel(f"{name} 1")
+    ax.set_ylabel(f"{name} 2")
+    ax.set_zlabel(f"{name} 3")
+
+    def spin(frame_idx):
+        angle = frame_idx * step_degrees
+        ax.view_init(elev=20, azim=angle)
+        ax.set_title(f"3D {name} embedding — azimuth {angle}°")
+        return ()
+
+    anim = animation.FuncAnimation(fig, spin, frames=360 // step_degrees, interval=100,
+                                   blit=False)
+    anim.save(gif_path, writer=animation.PillowWriter(fps=10))
+    plt.close(fig)
+    logger.info("3D animation saved to: %s", gif_path)
+    return embedding
