@@ -20,7 +20,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               also at ViT-B/16's 224-px shape (1024, 197, 12 x 64), bf16 and
               fp32, SimMIM's (128, 144, 6 x 64) and the patch-dropout
               (1024, 99, 12 x 64), bf16, and the visualizers' batch-1 inference
-              shapes (1, 197, 12 x 64) and (1, 144, 6 x 64), bf16; each head kept
+              shapes (1, 197, 12 x 64) and (1, 144, 6 x 64), bf16, and the
+              orbax fixture step's (8, 5, 1 x 32) and (4, 8, 1 x 32, block
+              2), fp32; each head kept
               to its columns and each image to its
               rows, two calls bit-equal; kernel B4
               (fused MLP): its three forwards (no mask; keep-mask; keep-mask
@@ -79,6 +81,23 @@ Phases, each printing its own lines; any failure exits non-zero:
               epoch wall seconds and images a second, the input-wait share,
               the in-loop step beside the bare warm step, each checkpoint's
               snapshot and background write, peak memory
+9a.0 orbax resume — the JAX package's checkpoints read without orbax: every
+              fixture of tests/torch_orbax_fixtures (written by the JAX
+              trainers) read by the port's reader (``utils/orbax_tree.py``:
+              OCDBT, zarr, the zstd decoder of ``csrc/zstd_decode.cpp`` built
+              with the host compiler) to the sha256, shape and dtype of its
+              digests.json, the decoder's MB/s on their frames, and a port
+              DINO trainer at the fixture's width (its head narrowed alike)
+              resumed from ``dino_step1`` trains one step, B1's launches
+              exact at the fixture's shapes (ORBAX_FIXTURE_B1_CASES, held
+              against plain attention in phase 3); then phase 9a's last_model
+              (step 18) written as a JAX-layout orbax tree
+              (``train_state_to_flax``, ``write_tree``) beside it, a fresh
+              trainer from configs/dino.yaml resumed from that directory
+              (bit-equal to last_model, start epoch 2) trains epoch 3 to step
+              27, bit-equal to phase 9a's resumed run with its B1 launches;
+              the tree's write and read seconds and MB/s, ``resume_from``'s
+              ms and the epoch's wall seconds
 9a.1 preempt — configs/dino.yaml with PREEMPT_OVERRIDES through the CLI's
               own flow (``train.__main__.fit_with_preemption``) over the
               same in-memory images: fault injection stops the run at epoch
@@ -287,6 +306,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -499,6 +519,12 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # 224 px, the SimMIM visualizer at 192 px
 VIT_B_B1_ONE = (1, 197, 12, 64, "bfloat16", 0)
 SIMMIM_B1_ONE = (1, 144, 6, 64, "bfloat16", 0)
+# B1 in the orbax phase's step from the JAX DINO fixture
+# (tests/torch_orbax_fixtures/fixture_spec.py: batch 4, 16-px globals and 8-px
+# locals at patch 8, one head of 32, fp32): the globals (8, 5) in the training
+# and inference forwards, the packed locals (4, 8, block 2) in both and in
+# the backward
+ORBAX_FIXTURE_B1_CASES = [(8, 5, 1, 32, "float32", 0), (4, 8, 1, 32, "float32", 2)]
 # (batch, seq, heads, head_dim, dtype, block_size): the serving shape first
 ATTENTION_CASES = [
     (128, 145, 6, 64, "bfloat16", 0),
@@ -518,6 +544,7 @@ ATTENTION_CASES = [
     (128, 144, 6, 64, "bfloat16", 0),
     VIT_B_B1_ONE,
     SIMMIM_B1_ONE,
+    *ORBAX_FIXTURE_B1_CASES,
 ]
 # B1's shapes at tp = 2 (TP_VIRTUAL: one rank's 3 of DINO ViT-S/8's 6
 # heads, 6 of ViT-B/16's 12), bf16: the student globals, the packed locals,
@@ -531,7 +558,7 @@ PIPE_B1_CASES = [(128, 145, 6, 64, "bfloat16", 0), (64, 145, 6, 64, "bfloat16", 
                  (64, 148, 6, 64, "bfloat16", 37), (32, 148, 6, 64, "bfloat16", 37)]
 # The training forward and backward: the student globals and packed locals
 # first (bf16 and fp32), then the other shapes the kernels take, the tp = 2
-# shapes, then the pipeline's microbatch shapes
+# shapes, the pipeline's microbatch shapes, then the orbax fixture's
 TRAIN_CASES = [
     (256, 145, 6, 64, "bfloat16", 0),
     (256, 145, 6, 64, "float32", 0),
@@ -548,6 +575,7 @@ TRAIN_CASES = [
     (1024, 99, 12, 64, "bfloat16", 0),
     *TP_B1_CASES,
     *PIPE_B1_CASES,
+    *ORBAX_FIXTURE_B1_CASES,
 ]
 # ViT-B/16 at 224 px (configs/vit_b_imagenet.yaml): B1's shape on that path
 VIT_B_B1_CASE = (1024, 197, 12, 64, "bfloat16", 0)
@@ -2331,7 +2359,10 @@ def phase_trainer(torch, fa, card, warm_ms, tmp):
     checkpoints, then a fresh trainer resumed from last_model, bit-equal to
     the file, trains and evaluates epoch 3. Returns the launches of both
     runs' training, the phase's numbers, the evaluations' launches,
-    loaders and KNN accuracy by epoch, and fit(2)'s last_model tree."""
+    loaders and KNN accuracy by epoch, fit(2)'s last_model tree, and what
+    the orbax phase takes from this one: the resumed run's final host
+    state, last_model's metadata and the function that builds a trainer
+    over the same loaders."""
     from vit_ssl_tpu_torch import kernels
     from vit_ssl_tpu_torch.config import compose, to_container, validate_train_config
     from vit_ssl_tpu_torch.data.builder import make_loaders
@@ -2475,6 +2506,8 @@ def phase_trainer(torch, fa, card, warm_ms, tmp):
     resumed_launches = {k: v - resumed_eval.get(k, 0) for k, v in resumed_launches.items()
                         if v != resumed_eval.get(k, 0)}
     first_loss = float(resumed_log[0][2]["loss"])
+    handoff = {"final": to_host(resumed.state.state_dict()), "last_meta": last,
+               "trainer_for": trainer_for, "run_dir": save_path}
     if resumed.state.step != 27 or not np.isfinite(first_loss):
         fail(f"the resumed epoch 3 ended at step {resumed.state.step} (expected 27), "
              f"first loss {first_loss}")
@@ -2494,7 +2527,196 @@ def phase_trainer(torch, fa, card, warm_ms, tmp):
              "expected 1, 2 and 3")
     del resumed, recorder
     gc.collect()
-    return launches, resumed_launches, stats, evaluation, saved
+    return launches, resumed_launches, stats, evaluation, saved, handoff
+
+
+@contextlib.contextmanager
+def narrow_dino_head(hidden):
+    """The port's DINO head at ``hidden`` features (the orbax fixtures' DINO
+    head; the package's default is 2048)."""
+    from vit_ssl_tpu_torch.models import dino as dino_mod
+
+    wide = dino_mod.DINOHead
+
+    class NarrowDINOHead(wide):
+        def __init__(self, embed_dim, output_dim, hidden_dim=None, **kwargs):
+            super().__init__(embed_dim, output_dim, hidden, **kwargs)
+
+    dino_mod.DINOHead = NarrowDINOHead
+    try:
+        yield
+    finally:
+        dino_mod.DINOHead = wide
+
+
+def fixture_spec():
+    """``tests/torch_orbax_fixtures/fixture_spec.py`` as a module: the orbax
+    fixtures' widths, overrides, loaders and ``leaf_digests`` (numpy and the
+    standard library only)."""
+    path = Path(__file__).resolve().parent / "tests" / "torch_orbax_fixtures" / \
+        "fixture_spec.py"
+    spec = importlib.util.spec_from_file_location("orbax_fixture_spec", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_orbax_resume(torch, fa, card, tmp, straight, handoff, resumed_launches):
+    """The JAX package's orbax checkpoints read by the port: the committed
+    fixtures to their digests and a step from the DINO one at its width;
+    then phase 9a's step-18 last_model as a JAX-layout tree, resumed by a
+    fresh trainer that trains epoch 3 bit-equal to phase 9a's resumed run.
+    Returns the launches of both trainings by path."""
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose
+    from vit_ssl_tpu_torch.models.builder import build_dino_network
+    from vit_ssl_tpu_torch.train.trainers import DINOTrainer
+    from vit_ssl_tpu_torch.train.trainers.base import to_host
+    from vit_ssl_tpu_torch.utils import ocdbt, orbax_tree, zstd
+    from vit_ssl_tpu_torch.utils.checkpoint import train_state_to_flax
+
+    root = Path(__file__).resolve().parent
+    fixtures = root / "tests" / "torch_orbax_fixtures"
+    print(f"== orbax resume: the JAX package's checkpoints through the port's own "
+          f"reader (no orbax, tensorstore or zstandard here); {card}", flush=True)
+    t0 = time.perf_counter()
+    built_s = kernels.build_host(zstd.LIBRARY)
+    zstd.crc32c(b"")  # loads the library now: a build or load failure stops here
+    print(f"  host library {zstd.LIBRARY}: built in {built_s:.1f} s "
+          f"({time.perf_counter() - t0:.1f} s with the load)", flush=True)
+
+    # the committed fixtures, leaf by leaf
+    fs = fixture_spec()
+    digests = json.loads((fixtures / "digests.json").read_text())
+    frames = []
+    for name, want in sorted(digests.items()):
+        tree = orbax_tree.read_tree(str(fixtures / name / "tree"))
+        got = fs.leaf_digests(tree)
+        if got != want:
+            bad = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+            fail(f"orbax fixture {name}: leaves {bad[:5]} differ from digests.json")
+        store = ocdbt.open_store(str(fixtures / name / "tree"))
+        frames += [store.read(k) for k in store.list() if not k.endswith(".zarray")]
+    decoded = sum(len(zstd.decompress(f)) for f in frames)
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for f in frames:
+            zstd.decompress(f)
+    zstd_s = (time.perf_counter() - t0) / reps
+    print(f"  fixtures: {len(digests)} JAX checkpoints ({', '.join(sorted(digests))}), "
+          f"every leaf's sha256, shape and dtype as digests.json records them", flush=True)
+    print(f"  zstd decoder on {card}'s host: the fixtures' {len(frames)} chunk frames "
+          f"(orbax's level 1, {sum(map(len, frames))} bytes -> {decoded} bytes) in "
+          f"{zstd_s * 1e3:.3f} ms a pass, {decoded / zstd_s / 1e6:.1f} MB/s decoded "
+          f"(mean of {reps} passes, one thread)", flush=True)
+
+    # one step at the fixture's width from the JAX DINO checkpoint
+    fixture_dir = fixtures / "dino_step1"
+    with narrow_dino_head(fs.HEAD_HIDDEN):
+        config = compose(root / "configs", "dino", fs.DINO)
+        train, val = fs.loaders("dino")
+        train.n = 1  # one train step
+        small = DINOTrainer(build_dino_network(config, "cuda"), str(Path(tmp) / "fixture"),
+                            config, train, val, "cuda")
+        small.resume_from(str(fixture_dir))
+        if (small.state.step, small.start_epoch) != (1, 1):
+            fail(f"the DINO fixture resumed at step {small.state.step}, epoch "
+                 f"{small.start_epoch}; expected 1 and 1")
+        shapes = []
+        with no_plain_attention(fa), recorded_b1_shapes(shapes):
+            kernels.launches.clear()  # the fixture's step starts here
+            small.fit(1)
+            fixture_launches = dict(kernels.launches)  # ... and ends here
+    blocks = int(config.model.num_blocks)
+    want = {fa.KERNEL_TRAIN: 2 * blocks, fa.KERNEL: blocks + 3 * blocks,
+            fa.KERNEL_BWD: 2 * blocks}
+    b, img, local = fs.B, fs.IMG, fs.LOCAL_IMG
+    patch, heads = int(config.model.patch_size), int(config.model.num_heads)
+    head = f"{heads}x{int(config.model.embed_dim) // heads}"
+    n_global, n_local = (img // patch) ** 2 + 1, (local // patch) ** 2 + 1
+    want_shapes = {(2 * b, n_global, head), (b, 4 * n_local, head)}
+    held = {(cb, cn, f"{ch}x{cd}") for cb, cn, ch, cd, _, _ in ORBAX_FIXTURE_B1_CASES}
+    if want_shapes != held or str(config.model.compute_dtype) != "float32":
+        fail(f"the DINO fixture's B1 shapes {sorted(want_shapes)} "
+             f"({config.model.compute_dtype}) are not ORBAX_FIXTURE_B1_CASES "
+             f"{sorted(held)} (fp32), which the kernels phase holds against the plain version")
+    loss = small.history.history["train_Loss"]
+    if (fixture_launches != want or set(shapes) != want_shapes
+            or small.state.step != 2 or not np.all(np.isfinite(loss))):
+        fail(f"the step from the DINO fixture launched {fixture_launches} at "
+             f"{sorted(set(shapes))} to step {small.state.step}, loss {loss}; expected "
+             f"{want} at {sorted(want_shapes)}, step 2, a finite loss")
+    print(f"  a port DINO trainer at the fixture's width resumed from dino_step1 "
+          f"(step 1) trained step 2: loss {loss[0]:.6f}; B1 launches {fixture_launches} "
+          f"at (batch, seq, heads x head dim) {sorted(set(shapes))}, each held against "
+          f"plain attention in the kernels phase (ORBAX_FIXTURE_B1_CASES)", flush=True)
+    del small
+
+    # full width: phase 9a's last_model as a JAX-layout tree
+    run_dir = Path(handoff["run_dir"])
+    target = run_dir / "last_model_orbax"
+    shutil.rmtree(target, ignore_errors=True)
+    target.mkdir()
+    t0 = time.perf_counter()
+    flax_tree = train_state_to_flax(straight, handoff["last_meta"])
+    orbax_tree.write_tree(str(target / "tree"), flax_tree)
+    (target / "metadata.json").write_text(json.dumps(handoff["last_meta"], indent=1))
+    write_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(straight))
+    t0 = time.perf_counter()
+    orbax_tree.read_tree(str(target / "tree"))
+    read_s = time.perf_counter() - t0
+    del flax_tree
+    print(f"  phase 9a's last_model (step 18, {nbytes / 1e6:.1f} MB of tensors) as a "
+          f"JAX-layout orbax tree: written in {write_s:.3f} s ({nbytes / write_s / 1e6:.0f} "
+          f"MB/s, train_state_to_flax and write_tree: Raw zstd frames, one OCDBT leaf "
+          f"node), read back in {read_s:.3f} s ({nbytes / read_s / 1e6:.0f} MB/s, "
+          f"read_tree; the files warm in the page cache) on {card}", flush=True)
+
+    trainer, _, _ = handoff["trainer_for"](str(Path(tmp) / "orbax_run"))
+    trainer.eval_interval = 0  # the train state only: phase 9a's evaluations are its own
+    t0 = time.perf_counter()
+    trainer.resume_from(str(target))
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    mismatch = state_mismatch(torch, to_host(trainer.state.state_dict()), straight)
+    if mismatch or trainer.start_epoch != 2:
+        fail(f"the state resumed from the JAX-layout tree differs from last_model at "
+             f"{mismatch} (start epoch {trainer.start_epoch})")
+    torch.cuda.synchronize()
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the resumed run starts here
+        t0 = time.perf_counter()
+        trainer.fit(1)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)  # ... and ends here
+    mismatch = state_mismatch(torch, to_host(trainer.state.state_dict()), handoff["final"])
+    if trainer.state.step != 27 or mismatch or launches != resumed_launches:
+        fail(f"epoch 3 resumed from the JAX-layout tree ended at step "
+             f"{trainer.state.step} (expected 27), differs from phase 9a's resumed run "
+             f"at {mismatch}, launched {launches} (phase 9a: {resumed_launches})")
+    print(f"  a fresh trainer resumed from last_model_orbax through resume_from in "
+          f"{resume_ms:.1f} ms (read, bridged, loaded; bit-equal to last_model, start "
+          f"epoch 2); epoch 3 in {epoch_s:.3f} s wall to step 27, the whole state "
+          f"bit-equal to phase 9a's resumed run, B1 launches {launches} as there; "
+          f"{card}", flush=True)
+    del trainer
+    shutil.rmtree(target)
+    shutil.rmtree(Path(tmp) / "orbax_run", ignore_errors=True)
+    gc.collect()
+    return {"orbax_fixture_step": fixture_launches, "orbax_resumed": launches}
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    elif hasattr(tree, "element_size"):
+        yield tree
 
 
 def phase_standalone_eval(torch, fa, card, run_dir, evaluation):
@@ -6359,8 +6581,11 @@ def main() -> int:
     fused_train_launches = phase_training_fused(torch, fa, fm, warm_ms, card)
     scan_paths = phase_scan(torch, fa, card)
     with tempfile.TemporaryDirectory() as tmp:
-        trainer_launches, resumed_launches, trainer_stats, dino_eval, straight = \
+        trainer_launches, resumed_launches, trainer_stats, dino_eval, straight, handoff = \
             phase_trainer(torch, fa, card, warm_ms, tmp)
+        orbax_paths = phase_orbax_resume(torch, fa, card, tmp, straight, handoff,
+                                         resumed_launches)
+        del handoff
         preempt_paths = phase_preempt(torch, fa, card, tmp, straight)
         dp_paths, dp_stats = phase_data_parallel(torch, fa, card, tmp, straight,
                                                  trainer_stats)
@@ -6586,6 +6811,7 @@ def main() -> int:
              "exp2_probe": probe_launches, "dropout_epilogue_probe": dropout_probe_launches,
              **preempt_paths, **scan_paths, **moe_paths, **patch_paths,
              **dp_paths, **ring_paths, **tp_paths, **pipe_paths, **jpeg_paths,
+             **orbax_paths,
              "visualizer_attention": attention_vis_launches,
              "visualizer_simmim": simmim_vis_launches,
              "visualizer_umap_3d": umap_vis_launches}

@@ -22,8 +22,10 @@
   ``parallel.fsdp=true``, its ring phase's shape ViT-B/16's 512-px one,
   divisible by its sp, its JPEG-folder phase's config the port's
   composition of ``configs/vit_b_imagenet.yaml`` with the folder and its
-  overrides (2 train and 1 val steps over its files), its bounds are the
-  stated arithmetic, and the script refuses to run without a card;
+  overrides (2 train and 1 val steps over its files), its orbax phase's
+  B1 shapes are the fixture's and cases the kernels phase checks, what it
+  loads of the orbax fixtures imports no JAX, its bounds are the stated
+  arithmetic, and the script refuses to run without a card;
 - a self-attention longer than kernel B3 takes (N > 1024) runs kernel B2.
 """
 
@@ -594,3 +596,52 @@ def test_chip_smoke_jpeg_folder_makes_two_train_and_one_val_step(tmp_path):
     train, val = prepare_dataloaders(config, "supervised")
     assert (len(train.dataset), len(val.dataset)) == (512, 21)
     assert (len(train), len(val), train.batch_size) == (2, 1, 256)
+
+
+def test_chip_smoke_orbax_fixture_b1_cases():
+    """The orbax phase's step from the JAX DINO fixture runs B1 at the
+    fixture's shapes, fp32: the globals (2·B, (IMG/patch)² + 1) and the
+    packed locals (B, 4·((LOCAL_IMG/patch)² + 1), block (LOCAL_IMG/patch)²
+    + 1), one head of 32. Both are cases that the kernels phase holds
+    against plain attention, in the inference and the training lists."""
+    from vit_ssl_tpu_torch.config import compose as port_compose
+
+    smoke = _load_chip_smoke()
+    spec = smoke.fixture_spec()
+    config = port_compose(str(REPO / "configs"), "dino", spec.DINO)
+    patch, heads = int(config.model.patch_size), int(config.model.num_heads)
+    head_dim = int(config.model.embed_dim) // heads
+    n_global = (spec.IMG // patch) ** 2 + 1
+    n_local = (spec.LOCAL_IMG // patch) ** 2 + 1
+    dtype = str(config.model.compute_dtype)
+    assert smoke.ORBAX_FIXTURE_B1_CASES == [
+        (2 * spec.B, n_global, heads, head_dim, dtype, 0),
+        (spec.B, 4 * n_local, heads, head_dim, dtype, n_local)]
+    for case in smoke.ORBAX_FIXTURE_B1_CASES:
+        assert case in smoke.ATTENTION_CASES and case in smoke.TRAIN_CASES
+
+
+def test_chip_smoke_orbax_fixture_spec_imports_no_jax():
+    """What ``chip_smoke.py`` loads of the orbax fixtures is
+    ``fixture_spec.py``, which imports numpy and the standard library only
+    (AST scan); in a fresh interpreter, loading the script and the spec and
+    using its loaders and ``leaf_digests`` leaves JAX, the JAX package,
+    orbax, tensorstore and zstandard out of ``sys.modules``."""
+    spec_file = REPO / "tests" / "torch_orbax_fixtures" / "fixture_spec.py"
+    roots = set(_imported_roots(spec_file))
+    assert roots <= {"__future__", "hashlib", "pathlib", "numpy"}, roots
+    assert "make_fixtures" not in (REPO / "chip_smoke.py").read_text()
+    blocked = FORBIDDEN + ("orbax", "tensorstore", "zstandard")
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "smoke = importlib.util.module_from_spec(spec); spec.loader.exec_module(smoke)\n"
+        "fs = smoke.fixture_spec()\n"
+        "train, val = fs.loaders('dino')\n"
+        "batch = next(iter(train))\n"
+        "assert len(fs.leaf_digests(batch)) == 7\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {blocked!r}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "[]"

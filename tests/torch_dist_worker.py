@@ -1,6 +1,7 @@
 """One rank of a gloo process group on the CPU, for the port's parallel
 tests (``tests/test_torch_ring_attention.py``, ``tests/test_torch_parallel.py``,
-``tests/test_torch_tensor_parallel.py``, ``tests/test_torch_pipeline.py``).
+``tests/test_torch_tensor_parallel.py``, ``tests/test_torch_pipeline.py``,
+``tests/test_torch_orbax_parallel_resume.py``).
 
     python tests/torch_dist_worker.py CASE RANK WORLD STORE_DIR OUT_DIR [ARGS...]
 
@@ -301,6 +302,45 @@ def case_dino_fit(rank, world, out, *overrides):
     tree = dino_fit(overrides, out / "run")
     if rank == 0:
         torch.save(tree, out / "dino_fit.pt")
+
+
+def orbax_resume(fixture, overrides, save_path):
+    """The port's trainer for the orbax fixture ``fixture`` (a JAX
+    checkpoint in ``tests/torch_orbax_fixtures``, with its config from
+    ``fixture_spec.py`` and ``overrides``), resumed from it: its state in
+    host memory, full tensors."""
+    import importlib.util
+
+    from vit_ssl_tpu_torch.config import compose
+    from vit_ssl_tpu_torch.models import build_dino_network, build_model
+    from vit_ssl_tpu_torch.models import dino as port_dino
+    from vit_ssl_tpu_torch.train.trainers import DINOTrainer, SimMIMTrainer, SupervisedTrainer
+
+    fixtures = REPO / "tests" / "torch_orbax_fixtures"
+    spec = importlib.util.spec_from_file_location("torch_orbax_fixture_spec",
+                                                  fixtures / "fixture_spec.py")
+    fs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fs)
+
+    class NarrowHead(port_dino.DINOHead):  # the fixtures' DINO head width
+        def __init__(self, embed_dim, output_dim, hidden_dim=None, **kwargs):
+            super().__init__(embed_dim, output_dim, fs.HEAD_HIDDEN, **kwargs)
+
+    port_dino.DINOHead = NarrowHead
+    name, base, kind = fs.RESUMES[fixture]
+    config = compose(str(REPO / "configs"), name, list(base) + list(overrides))
+    cls = {"dino": DINOTrainer, "simmim": SimMIMTrainer}.get(name, SupervisedTrainer)
+    network = (build_dino_network if cls is DINOTrainer else build_model)(config, "cpu")
+    trainer = cls(network, str(save_path), config, *fs.loaders(kind), "cpu")
+    trainer.resume_from(str(fixtures / fixture))
+    return trainer._host_state()
+
+
+def case_orbax_resume(rank, world, out, fixture, *overrides):
+    """:func:`orbax_resume` on every rank; rank 0 saves the state."""
+    tree = orbax_resume(fixture, overrides, out / "run")
+    if rank == 0:
+        torch.save(tree, out / "orbax_resume.pt")
 
 
 def case_preempt(rank, world, out, *overrides):

@@ -13,7 +13,7 @@ wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that a path really went through the kernels.
 
 Beside them, the host libraries (:data:`HOST_SOURCES`: C++ for the CPU,
-such as the JPEG decoder) are built with the host C++ compiler (``c++``,
+the JPEG and zstd decoders) are built with the host C++ compiler (``c++``,
 else ``g++``) into ``_build/lib<name>.so`` at first use, by
 :func:`load_host`; they are no part of :data:`SOURCES` or :func:`build`.
 """
@@ -50,6 +50,7 @@ SOURCES: Dict[str, str] = {
 # host library name -> C++ source, relative to the package
 HOST_SOURCES: Dict[str, str] = {
     "jpeg_decode": "csrc/jpeg_decode.cpp",
+    "zstd_decode": "csrc/zstd_decode.cpp",
 }
 
 HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]

@@ -189,7 +189,8 @@ _BACKBONE_PREFIXES = ("teacher.backbone.", "backbone.")
 
 def load_pretrained(path: str) -> Dict[str, torch.Tensor]:
     """A checkpoint as one flat state dict on the CPU: a ``.pth``/``.pt``
-    (a reference-layout export) or a train-state directory of the port."""
+    (a reference-layout export) or a train-state directory of the port or
+    of the JAX package (its orbax tree, ``utils.checkpoint.load_checkpoint``)."""
     from ..utils.checkpoint import checkpoint_exists, load_checkpoint, load_pth
 
     if path.endswith((".pth", ".pt")):

@@ -221,6 +221,11 @@ class PipelineState:
         return [n for n in self.train_names
                 if (n if self._mine(attr, n) else self._template(attr, n)) in local]
 
+    def trained_names(self, trained) -> List[str]:
+        """The whole model's trained parameters' names, in its order, from
+        this rank's ``trained`` (as the optimizer selects them)."""
+        return self._full_trained(self._names(trained))
+
     # -- the exchange -------------------------------------------------------------
     @torch.no_grad()
     def _broadcast(self, tensors: List[torch.Tensor], stage: int) -> None:

@@ -28,9 +28,10 @@ logger = logging.getLogger(__name__)
 
 
 def load_model_from_checkpoint(checkpoint_path: str, device=None):
-    """(model, config) of a port checkpoint directory (``state.pt`` and
-    ``metadata.json``): the model its embedded config builds, on
-    ``device`` (default the card), with the saved weights."""
+    """(model, config) of a checkpoint directory (``metadata.json`` beside
+    the port's ``state.pt`` or a JAX run's orbax ``tree/``): the model its
+    embedded config builds, on ``device`` (default the card), with the
+    saved weights."""
     from ..config import from_container
     from ..device import resolve_device
     from ..models.builder import build_model

@@ -1,9 +1,11 @@
 """Serving CLI of the port: class predictions or DINO and SimMIM embeddings.
 
 Port of ``scripts/serve.py`` for supervised, finetune, SimMIM and DINO
-checkpoints. The checkpoint is the reference-layout ``.pth`` that
+checkpoints. The checkpoint is a checkpoint directory, as ``scripts/serve.py``
+takes it (a JAX run's ``best_model``, its orbax tree read by the port's own
+reader, or a port run's), or the reference-layout ``.pth`` that
 ``scripts/export_torch.py`` writes from a JAX run (``model_state_dict``
-plus the embedded ``config``), loaded with ``strict=True``:
+plus the embedded ``config``); the weights are loaded with ``strict=True``:
 
 - supervised / finetune: the whole :class:`~vit_ssl_tpu_torch.models.ViT`,
   answering the argmax class and its softmax probability;
@@ -22,6 +24,7 @@ oldest request has waited ``--max-wait-ms``. Attention runs through the
 hand-written CUDA kernels on the card (B1, or B3 for ViT-B/16 at 384 px).
 
     python -m vit_ssl_tpu_torch.serve --checkpoint model.pth img1.png img2.png
+    python -m vit_ssl_tpu_torch.serve --checkpoint <run>/best_model img1.png
     python -m vit_ssl_tpu_torch.serve --checkpoint model.pth --input-dir imgs/
     ... | python -m vit_ssl_tpu_torch.serve --checkpoint model.pth --stdin
 
@@ -49,7 +52,21 @@ from .data.transforms import Compose, Resize, ToTensor
 from .device import resolve_device
 from .models.builder import (build_backbone, build_simmim, build_vit, config_mode,
                              load_state_any_layout)
-from .utils.checkpoint import backbone_state_dict, load_pth
+from .utils.checkpoint import backbone_state_dict, load_checkpoint, load_pth
+
+
+def load_serving_state(checkpoint: str):
+    """(reference-layout state dict, metadata) of a ``.pth`` or of a
+    checkpoint directory of either package (DINO's teacher and student as
+    ``teacher_*`` and ``student_*`` keys, a model's own keys)."""
+    if not os.path.isdir(checkpoint):
+        return load_pth(checkpoint)
+    tree, metadata = load_checkpoint(checkpoint)
+    if "model" in tree:
+        return tree["model"], metadata
+    state = {f"student_{k}": v for k, v in tree["student"].items()}
+    state.update({f"teacher_{k}": v for k, v in tree["teacher"].items()})
+    return state, metadata
 
 
 def make_pipeline(img_size: int) -> Compose:
@@ -63,7 +80,7 @@ class Server:
     def __init__(self, checkpoint: str, batch_size: int,
                  embedding_values: bool = True, device=None):
         self.device = resolve_device(device)
-        state, metadata = load_pth(checkpoint)
+        state, metadata = load_serving_state(checkpoint)
         if "config" not in metadata:
             raise ValueError(f"{checkpoint} embeds no config")
         self.config = metadata["config"]
@@ -211,7 +228,8 @@ def main(argv=None):
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
     )
     parser.add_argument("--checkpoint", required=True,
-                        help=".pth written by scripts/export_torch.py")
+                        help="a checkpoint directory (a JAX or port run's best_model) "
+                        "or a .pth written by scripts/export_torch.py")
     parser.add_argument("paths", nargs="*", help="image files")
     parser.add_argument("--input-dir", help="serve every image in a directory")
     parser.add_argument("--stdin", action="store_true",

@@ -73,6 +73,27 @@ class OptimizerState:
         self.count = int(state["count"])
 
 
+def buffers_in_order(opt_state: Dict[str, Any], names: Sequence[str]) -> Dict[str, Any]:
+    """A saved optimizer state whose buffers are keyed by parameter name (a
+    JAX checkpoint's, ``utils.checkpoint.train_state_from_flax``) with each
+    buffer a list in the order of ``names``, the trained parameters' names
+    in the optimizer's order, which must be the names it holds; a state of
+    lists passes as it is."""
+    by_name = {k: v for k, v in opt_state.items() if isinstance(v, dict)}
+    if not by_name:
+        return opt_state
+    out = dict(opt_state)
+    for field, buffers in by_name.items():
+        if set(buffers) != set(names):
+            raise ValueError(
+                f"optimizer buffer {field} saved for {len(buffers)} parameters, "
+                f"{len(names)} are trained here (saved only: "
+                f"{sorted(set(buffers) - set(names))[:5]}, trained only: "
+                f"{sorted(set(names) - set(buffers))[:5]})")
+        out[field] = [buffers[n] for n in names]
+    return out
+
+
 class Optimizer:
     """An optax optimizer over a list of parameters: its hyper-parameters
     and its update; the buffers live in an :class:`OptimizerState`.

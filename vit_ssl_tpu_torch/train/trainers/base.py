@@ -92,7 +92,7 @@ from ...utils.logger import Logger
 from ...utils.metrics import MetricHandler
 from ...utils.preempt import PreemptionRequested, preemption_requested, request_preemption
 from ..schedules import lr_schedule_from_config
-from ..state import make_optimizer
+from ..state import buffers_in_order, make_optimizer
 
 logger = logging.getLogger(__name__)
 
@@ -213,6 +213,13 @@ class BaseTrainer(ABC):
 
     def _trained_params(self):
         return self.optimizer.select(self.state.params)
+
+    def _trained_names(self) -> List[str]:
+        """The trained parameters' names, of the whole model (every pipeline
+        stage's), in the order of the optimizer's buffers in a checkpoint."""
+        if isinstance(self._sharded, PipelineState):
+            return self._sharded.trained_names(self._trained_params())
+        return self.optimizer.select([n for n, _ in self.network.named_parameters()])
 
     def _distribute_state(self):
         """Every rank starts from rank 0's weights (JAX's ``replicate``);
@@ -545,7 +552,10 @@ class BaseTrainer(ABC):
 
     def _restore(self, tree, metadata):
         """Load a checkpoint's tree (full tensors, of any world size) into
-        the train state."""
+        the train state; a JAX checkpoint's optimizer buffers, by parameter
+        name, are put in the optimizer's order first."""
+        tree = dict(tree, opt_state=buffers_in_order(tree["opt_state"],
+                                                     self._trained_names()))
         if self._sharded is not None:
             self._sharded.load_state_dict(self.state, tree, self._trained_params())
         else:
