@@ -143,6 +143,19 @@ Phases, each printing its own lines; any failure exits non-zero:
               the decoded arrays; decode ms a picture on 1 and 8 threads,
               the epoch's img/s and input-wait share, the bare step alone
               and while 8 threads decode, or decode and resize
+9a.5 image formats — ViT-B/16 224 from an ImageNet-layout folder of 533
+              files of mixed formats: the committed WebP fixtures hard-linked
+              beside 16-bit RGB and grey, Adam7 and eXIf-rotated PNG,
+              16-bit grey and LZW TIFF and RLE8 BMP written by the numpy
+              encoders of tests/torch_image_fixtures/encoders.py at
+              ImageNet's common sizes; the TIFF and WebP host libraries
+              built with the host compiler; every fixture of
+              tests/torch_image_fixtures decoded by the port's own readers
+              to its cv2 and PIL digests; the folder through the CLI's
+              ``main`` (2 train and 1 val steps, B1's launches exact); its
+              WebP, TIFF and 16-bit files served through ``Server.infer``
+              against ``forward_batch`` on the decoded arrays; decode ms an
+              image per format on one thread
 9b. finetune — configs/finetune.yaml composed by the port with
               FINETUNE_OVERRIDES (ViT-S/8 at 96 px, extended transfer, the
               backbone frozen until epoch 2), from phase 9a's DINO
@@ -6250,6 +6263,268 @@ def phase_jpeg_folder(torch, fa, card, tmp):
     return {"jpeg_folder": launches, "jpeg_serving": serve_launches}
 
 
+# ViT-B/16 from an ImageNet-layout folder of mixed formats: FORMAT_PER_KIND
+# pictures of each written kind at JPEG_SIZES, each hard-linked FORMAT_LINKS
+# times, and the committed WebP fixtures filling the rest of JPEG_FILES
+# ImageNet names (the decoders choose by magic bytes) in JPEG_CLASSES
+# classes: 2 train steps and 1 val step at batch 256. The written PNGs cost
+# 60-140 ms an image on the H100 machine's host and hold the GIL (the numpy
+# diagonal sweep), which stalls every loader thread: with every file linked
+# alike the epoch ran at 6 img/s, with each written picture linked 4 times
+# (a fifth of the folder) at 12, so they are a tenth of it
+FORMAT_PER_KIND = 4
+FORMAT_LINKS = 2
+FORMAT_KINDS = ("png16_rgb", "png16_grey", "png_adam7", "png_exif6", "tiff16_grey",
+                "tiff_lzw", "bmp_rle8")
+FORMAT_SERVED = ("webp", "png16_rgb", "png16_grey", "tiff16_grey", "tiff_lzw")
+
+
+def format_sources(encoders, rng):
+    """{name: (kind, file bytes, the RGB the JAX dataset reader gives)} of
+    the pictures this phase writes with the numpy encoders."""
+    levels = np.array([0, 85, 170, 255], np.uint8)
+    palette = np.stack(np.meshgrid(levels, levels, levels, indexing="ij"), -1).reshape(64, 3)
+    out = {}
+    for i in range(FORMAT_PER_KIND * len(FORMAT_KINDS)):
+        kind = FORMAT_KINDS[i % len(FORMAT_KINDS)]
+        h, w = JPEG_SIZES[i % len(JPEG_SIZES)]
+        picture = smooth_picture(rng, h, w)
+        deep = picture.astype(np.uint16) * 257 + rng.integers(0, 257, picture.shape).astype(
+            np.uint16)
+        grey = np.repeat((deep[:, :, :1] >> 8).astype(np.uint8), 3, 2)
+        if kind == "png16_rgb":
+            data, want = encoders.png(deep, 2, 16), (deep >> 8).astype(np.uint8)
+        elif kind == "png16_grey":
+            data, want = encoders.png(deep[:, :, 0], 0, 16), grey
+        elif kind == "png_adam7":
+            data, want = encoders.png(picture, 2, interlace=True), picture
+        elif kind == "png_exif6":
+            data = encoders.png(picture, 2, exif=encoders.exif_orientation(6))
+            want = np.ascontiguousarray(picture[::-1].transpose(1, 0, 2))
+        elif kind == "tiff16_grey":
+            data = encoders.tiff(deep[:, :, 0], photometric=1, bits=16, compression=8,
+                                 predictor=2, rows_per_strip=16)
+            want = grey
+        elif kind == "tiff_lzw":
+            data = encoders.tiff(picture, photometric=2, compression=5, predictor=2,
+                                 rows_per_strip=32)
+            want = picture
+        else:
+            index = (picture[:, :, 0] // 64 * 16 + picture[:, :, 1] // 64 * 4
+                     + picture[:, :, 2] // 64).astype(np.uint8)
+            data, want = encoders.bmp_rle(index, palette), palette[index]
+        out[f"{i:03d}_{kind}"] = (kind, data, want)
+    return out
+
+
+def phase_image_formats(torch, fa, card, tmp):
+    """ViT-B/16 from an ImageNet-layout folder of mixed formats, read by the
+    port's own decoders with no OpenCV: (a) the TIFF and WebP host libraries
+    built with the host compiler; (b) every committed fixture of
+    ``tests/torch_image_fixtures`` decoded bit-equal to the digests recorded
+    from cv2 (the JAX package's dataset reader) and PIL; (c) a folder of
+    JPEG_FILES hard links to the WebP fixtures and to pictures at
+    JPEG_SIZES written by the fixtures' numpy encoders, each written
+    picture decoded back exactly; (d) configs/vit_b_imagenet.yaml with the
+    folder and JPEG_OVERRIDES through the CLI's ``main``: 2 train and 1 val
+    steps, B1's launches exact, a checkpoint written; (e) the folder's WebP,
+    TIFF and 16-bit files through ``Server.infer`` against
+    ``forward_batch`` on the decoded arrays (row cosine >= 0.999); (f)
+    decode ms an image per format on one thread. Returns the paths'
+    launches."""
+    import hashlib
+    import itertools
+
+    from vit_ssl_tpu_torch import kernels
+    from vit_ssl_tpu_torch.config import compose, to_container
+    from vit_ssl_tpu_torch.data import datasets, tiff, webp
+    from vit_ssl_tpu_torch.data.transforms import Compose, Resize, ToTensor
+    from vit_ssl_tpu_torch.serve import Server
+    from vit_ssl_tpu_torch.train import __main__ as cli
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    fixtures = root / "tests" / "torch_image_fixtures"
+    sys.path.insert(0, str(fixtures))
+    import encoders
+
+    print(f"== image formats: ViT-B/16 224 px from {JPEG_FILES} ImageNet-layout files of "
+          f"WebP, 16-bit, Adam7 and eXIf PNG, TIFF and RLE BMP through the port's own "
+          f"decoders; configs/vit_b_imagenet.yaml with {' '.join(JPEG_OVERRIDES)}; the "
+          f"CLI's main; {card}", flush=True)
+    for library in (tiff.LIBRARY, webp.LIBRARY):
+        build_s = kernels.build_host(library)
+        print(f"  host library: {kernels.library_path(library).name} from "
+              f"{kernels.HOST_SOURCES[library]} with {kernels.host_compiler()} "
+              f"{' '.join(kernels.HOST_FLAGS)}: {build_s:.3f} s (0: already built)",
+              flush=True)
+
+    def own(data, reference):
+        """The port's own decoder for ``data``, never OpenCV's or PIL's."""
+        found = datasets._own_decoder(data, reference)
+        if found is None:
+            fail(f"the port has no decoder for {data[:12]!r}")
+        return found[1](data)
+
+    digests = json.loads((fixtures / "digests.json").read_text())
+    for name, want in sorted(digests.items()):
+        data = (fixtures / name).read_bytes()
+        for key in ("cv2", "pil"):
+            got = own(data, key)
+            digest = {"shape": list(got.shape),
+                      "sha256": hashlib.sha256(got.tobytes()).hexdigest()}
+            if digest != want[key]:
+                fail(f"the image fixture {name} ({want['case']}) decodes to {digest}, "
+                     f"not {key}'s {want[key]}")
+    print(f"  fixtures: {len(digests)} files ({'; '.join(v['case'] for v in digests.values())})"
+          " each bit-equal to its cv2 and PIL digests", flush=True)
+
+    t0 = time.perf_counter()
+    written = format_sources(encoders, np.random.default_rng(43))
+    encode_s = time.perf_counter() - t0
+    for name, (kind, data, want) in written.items():
+        got = own(data, "cv2")
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"the written {kind} picture {name} decodes off its pixels")
+    sources = Path(tmp) / "format_sources"
+    sources.mkdir()
+    kinds = {}
+    for name, (kind, data, _) in written.items():
+        (sources / name).write_bytes(data)
+        kinds[name] = kind
+    for name in sorted(digests):
+        if name.endswith(".webp"):
+            os.link(fixtures / name, sources / name)
+            kinds[name] = "webp"
+    names = sorted(kinds)
+    webps = [n for n in names if kinds[n] == "webp"]
+    links = [n for n in sorted(written) for _ in range(FORMAT_LINKS)]
+    links += [webps[j % len(webps)] for j in range(JPEG_FILES - len(links))]
+    links = [links[j] for j in np.random.default_rng(44).permutation(len(links))]
+    folder = Path(tmp) / "imagenet_formats" / "train"
+    linked = {}
+    for j, name in enumerate(links):
+        cls = folder / f"n{j % JPEG_CLASSES:08d}"
+        cls.mkdir(parents=True, exist_ok=True)
+        path = cls / f"n{j % JPEG_CLASSES:08d}_{j}.JPEG"
+        os.link(sources / name, path)
+        linked[str(path)] = kinds[name]
+    count = {k: sum(v == k for v in linked.values()) for k in ("webp", *FORMAT_KINDS)}
+    print(f"  folder: {len(names)} distinct files ({len(written)} written in {encode_s:.3f} s "
+          f"at {JPEG_SIZES} (h, w), each decoded back exactly, and {len(webps)} WebP "
+          f"fixtures; {sum((sources / n).stat().st_size for n in names) / 1e6:.3f} MB), "
+          f"{JPEG_FILES} hard links named .JPEG in {JPEG_CLASSES} classes: {count}",
+          flush=True)
+
+    run_dir = str(Path(tmp) / "formats_run")
+    overrides = [f"data.data_dir={folder}", *JPEG_OVERRIDES, f"hydra.run.dir={run_dir}"]
+    composed = to_container(compose(root / "configs", "vit_b_imagenet", overrides))
+    trainers, train_log, val_log, get_trainer = [], [], [], cli.get_trainer
+
+    def recorded(*args, **kwargs):
+        trainer = get_trainer(*args, **kwargs)
+        trainer.train_step = counted_steps(trainer.train_step, train_log)
+        trainer.eval_step = counted_steps(trainer.eval_step, val_log)
+        trainers.append(trainer)
+        return trainer
+
+    cli.get_trainer = recorded
+    try:
+        with no_plain_attention(fa):
+            kernels.launches.clear()  # the mixed-format folder path starts here
+            t0 = time.perf_counter()
+            cli.main(["--config-path", str(root / "configs"), "--config-name",
+                      "vit_b_imagenet", *overrides])
+            run_s = time.perf_counter() - t0
+            launches = dict(kernels.launches)  # ... and ends here
+    finally:
+        cli.get_trainer = get_trainer
+    blocks = VIT_B16_224["model"]["num_blocks"]
+    per_train, per_val = remat_launches(fa, blocks), {fa.KERNEL: blocks}
+    if (len(train_log), len(val_log)) != (2, 1):
+        fail(f"the CLI ran {len(train_log)} train and {len(val_log)} val steps on the "
+             "mixed-format folder, expected 2 and 1")
+    for kind, log, want in (("train", train_log, per_train), ("val", val_log, per_val)):
+        for i, (_, got, _) in enumerate(log):
+            if got != want:
+                fail(f"{kind} step {i} of the mixed-format run launched {got}, "
+                     f"expected {want}")
+    if not (Path(run_dir) / "last_model" / "state.pt").exists():
+        fail("the mixed-format run wrote no last_model")
+    losses = [float(out["loss"]) for _, _, out in train_log + val_log]
+    if not np.isfinite(losses).all():
+        fail(f"a mixed-format loss is not finite: {losses}")
+    stats = trainers[0].epoch_input_stats[0]
+    real = len(trainers[0].train_loader.dataset)
+    epoch = {"cli_s": run_s, "epoch_wall_s": stats["wall_s"],
+             "images_per_s": real / stats["wall_s"],
+             "input_wait_share": stats["wait_s"] / stats["wall_s"]}
+    print(f"  launches: {launches} (per train step {per_train}, per val step {per_val}); "
+          f"losses {' '.join(f'{x:.6f}' for x in losses)}; the CLI call {run_s:.3f} s; "
+          f"the epoch {real} images in {stats['wall_s']:.3f} s wall "
+          f"({epoch['images_per_s']:.1f} img/s), input-wait share "
+          f"{epoch['input_wait_share']:.4f}", flush=True)
+    del trainers
+    gc.collect()
+
+    pth = f"{tmp}/vit_b16_224_formats.pth"
+    model = build_vit_model(torch, 6, composed)
+    torch.save({"model_state_dict": model.state_dict(), "config": composed, "epoch": 0}, pth)
+    del model
+    server = Server(pth, batch_size=JPEG_SERVE, device="cuda")
+    by_kind = [[p for p in sorted(linked) if linked[p] == kind] for kind in FORMAT_SERVED]
+    # round robin over the kinds, so every served kind is in the batch
+    paths = [p for turn in itertools.zip_longest(*by_kind) for p in turn if p][:JPEG_SERVE]
+    rows, format_record = [], server._format
+
+    def captured(path, row):
+        rows.append(row)
+        return format_record(path, row)
+
+    server._format = captured
+    with no_plain_attention(fa):
+        kernels.launches.clear()  # the mixed-format serving path starts here
+        records = server.infer(paths)
+        serve_launches = dict(kernels.launches)  # ... and ends here
+    errors = [r for r in records if "error" in r]
+    if errors:
+        fail(f"serving the mixed-format folder gave error records: {errors[:2]}")
+    if serve_launches != {fa.KERNEL: blocks}:
+        fail(f"the served batch launched {serve_launches}, expected {fa.KERNEL}: {blocks}")
+    pipeline = Compose([Resize([224, 224]), ToTensor()])
+    arrays = np.stack([pipeline(own(Path(p).read_bytes(), "pil")) for p in paths])
+    cos = row_cosine(np.stack(rows), server.forward_batch(arrays))
+    served = {k: sum(linked[p] == k for p in paths) for k in FORMAT_SERVED}
+    print(f"  served {len(records)} files {served} through Server.infer: min row cosine "
+          f"{cos.min():.6f} to forward_batch on the decoded arrays (>= 0.999); launches "
+          f"{serve_launches}", flush=True)
+    if cos.min() < 0.999:
+        fail("the served mixed-format files disagree with forward_batch on the decoded "
+             "arrays")
+    del server
+    gc.collect()
+
+    host = {"card": card, "host_cores": os.cpu_count(), **epoch, "decode_ms_one_thread": {}}
+    files_of = {}
+    for name in names:
+        kind = kinds[name]
+        if kind == "webp":
+            kind = "webp_lossless" if "lossless" in name else "webp_lossy"
+        files_of.setdefault(kind, []).append((sources / name).read_bytes())
+    for kind, files in sorted(files_of.items()):
+        own(files[0], "cv2")  # warm
+        t0 = time.perf_counter()
+        for data in files:
+            own(data, "cv2")
+        host["decode_ms_one_thread"][kind] = (time.perf_counter() - t0) * 1e3 / len(files)
+    host["phase_s"] = time.perf_counter() - t_phase
+    print(f"  decode on {card}'s host, ms an image on one thread: "
+          f"{json.dumps(host['decode_ms_one_thread'])}; the phase {host['phase_s']:.3f} s",
+          flush=True)
+    print("image_formats host: " + json.dumps(host), flush=True)
+    return {"image_formats": launches, "image_formats_serving": serve_launches}
+
+
 # The visualizer phase: the three scripts of vit_ssl_tpu_torch.scripts over
 # the run directories of the DINO, SimMIM and ViT-B/16 trainer phases, each
 # through its main() as a user runs it; B1 at batch 1 beside SDPA
@@ -6603,6 +6878,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         jpeg_paths = phase_jpeg_folder(torch, fa, card, tmp)
     with tempfile.TemporaryDirectory() as tmp:
+        format_paths = phase_image_formats(torch, fa, card, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
         (simmim_fit_launches, simmim_resumed_launches, simmim_state, simmim_optimizer,
          simmim_batch, _, simmim_eval_launches) = phase_simmim_trainer(torch, fa, card, tmp)
         accum_paths = phase_grad_accum(torch, fa, card, simmim_state, simmim_optimizer,
@@ -6811,6 +7088,7 @@ def main() -> int:
              "exp2_probe": probe_launches, "dropout_epilogue_probe": dropout_probe_launches,
              **preempt_paths, **scan_paths, **moe_paths, **patch_paths,
              **dp_paths, **ring_paths, **tp_paths, **pipe_paths, **jpeg_paths,
+             **format_paths,
              **orbax_paths,
              "visualizer_attention": attention_vis_launches,
              "visualizer_simmim": simmim_vis_launches,

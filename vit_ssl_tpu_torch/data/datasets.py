@@ -13,11 +13,13 @@ Decoding chooses the decoder by a file's magic bytes, never by its
 extension (an ImageNet file named ``.JPEG`` may hold a PNG): PNG through
 :mod:`.png` (zlib and numpy), JPEG through :mod:`.jpeg` (the port's C++
 decoder, built with the host compiler at first use), BMP through :mod:`.bmp`
-(numpy), each bit-equal to OpenCV's reader, so a folder of these formats
-needs neither OpenCV nor PIL. Only what these decoders refuse by name (WebP
-and other formats, arithmetic-coded JPEG, 16-bit PNG, RLE BMP, ...) goes to
-OpenCV or PIL where one is installed; a damaged file raises ``ValueError``
-naming it.
+(numpy), WebP through :mod:`.webp` (the port's C++ decoder) and TIFF through
+:mod:`.tiff` (numpy, LZW and PackBits in C++), each bit-equal to the
+caller's reference (OpenCV's reader then PIL for the datasets, PIL for the
+server), so a folder of these formats needs neither OpenCV nor PIL. Only
+what these decoders refuse by name (GIF and other formats, arithmetic-coded
+JPEG, animated WebP, CMYK TIFF, ...) goes to OpenCV or PIL where one is
+installed; a damaged file raises ``ValueError`` naming it.
 
 The labeled indexes are read as the JAX package's pandas reads them, with
 ``csv`` and ``json``: the first column is the file, the second the class;
@@ -37,7 +39,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import bmp, jpeg, png
+from . import bmp, jpeg, png, tiff, webp
 
 
 class Dataset:
@@ -48,34 +50,34 @@ class Dataset:
         raise NotImplementedError
 
 
-# a decoder's reference: the JAX package's dataset reader (OpenCV, then PIL)
-# or its server's (PIL), with the JPEG options that match it
-_REFERENCES = {
-    "cv2": ({"exif_orientation": True, "cmyk": "cv2"}, ("cv2", "PIL")),
-    "pil": ({"exif_orientation": False, "cmyk": "pil"}, ("PIL", "cv2")),
-}
+# a reference: the JAX package's dataset reader (OpenCV, then PIL) or its
+# server's (PIL), and the libraries that read what the port's decoders refuse
+_REFERENCES = {"cv2": ("cv2", "PIL"), "pil": ("PIL", "cv2")}
 
 
-def _own_decoder(data: bytes, jpeg_options):
+def _own_decoder(data: bytes, reference: str):
     """(format, decode, its refusal) of the port's decoder for ``data``'s
-    magic bytes, or None."""
+    magic bytes, set to ``reference``, or None."""
+    rotate = reference == "cv2"  # OpenCV applies the EXIF orientation, PIL does not
     if png.is_png(data):
-        return "PNG", png.decode_bytes, png.UnsupportedPNG
+        return "PNG", lambda d: png.decode_bytes(d, reference), png.UnsupportedPNG
     if jpeg.is_jpeg(data):
-        return "JPEG", lambda d: jpeg.decode_bytes(d, **jpeg_options), jpeg.UnsupportedJPEG
+        return ("JPEG", lambda d: jpeg.decode_bytes(d, exif_orientation=rotate, cmyk=reference),
+                jpeg.UnsupportedJPEG)
     if bmp.is_bmp(data):
-        return "BMP", bmp.decode_bytes, bmp.UnsupportedBMP
+        return "BMP", lambda d: bmp.decode_bytes(d, reference), bmp.UnsupportedBMP
+    if webp.is_webp(data):
+        return ("WebP", lambda d: webp.decode_bytes(d, exif_orientation=rotate),
+                webp.UnsupportedWebP)
+    if tiff.is_tiff(data):
+        return "TIFF", lambda d: tiff.decode_bytes(d, reference), tiff.UnsupportedTIFF
     return None
 
 
 def _format_name(data: bytes) -> str:
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "a WebP file"
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return "a GIF file"
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
-        return "a TIFF file"
-    return "not a PNG, JPEG or BMP file"
+    return "not a PNG, JPEG, BMP, WebP or TIFF file"
 
 
 def _decode_with(library: str, path: str):
@@ -98,15 +100,15 @@ def _decode_with(library: str, path: str):
 
 def _load_image(path: str, reference: str = "cv2") -> np.ndarray:
     """Decode to RGB uint8 HWC with the port's decoder for the file's magic
-    bytes (PNG, JPEG, BMP), bit-equal to ``reference``: "cv2" the datasets'
-    ``cv2.imread(..., IMREAD_COLOR)`` (EXIF orientation applied), "pil" the
-    server's ``Image.open(...).convert("RGB")``. What the decoder refuses by
+    bytes (PNG, JPEG, BMP, WebP, TIFF), bit-equal to ``reference``: "cv2"
+    the datasets' ``cv2.imread(..., IMREAD_COLOR)`` then PIL (EXIF
+    orientation applied), "pil" the server's ``Image.open(...).convert("RGB")``. What the decoder refuses by
     name, and other formats, go to OpenCV or PIL where one is installed;
     without them, and for a damaged file, ``ValueError`` names the file."""
-    jpeg_options, libraries = _REFERENCES[reference]
+    libraries = _REFERENCES[reference]
     with open(path, "rb") as f:
         data = f.read()
-    own, refused = _own_decoder(data, jpeg_options), None
+    own, refused = _own_decoder(data, reference), None
     if own is not None:
         kind, decode, unsupported = own
         try:
@@ -121,7 +123,8 @@ def _load_image(path: str, reference: str = "cv2") -> np.ndarray:
             return image
     raise ValueError(
         f"{path}: {refused or _format_name(data)}; without OpenCV or PIL installed "
-        "only PNG, JPEG and BMP images decode (ROADMAP.md: WebP and other formats)")
+        "only PNG, JPEG, BMP, WebP and TIFF images decode (ROADMAP.md: GIF and other "
+        "formats)")
 
 
 class _DecodeCache:

@@ -1,17 +1,25 @@
 """A PNG decoder on ``zlib`` and numpy: the host's image reader where neither
 OpenCV nor PIL is installed.
 
-:func:`decode` returns RGB uint8 (H, W, 3), bit-equal to
-``cv2.imread(path, cv2.IMREAD_COLOR)`` followed by BGR→RGB: grey is
+:func:`decode` returns RGB uint8 (H, W, 3), bit-equal to the caller's
+reference: ``reference="cv2"`` is ``cv2.imread(path, cv2.IMREAD_COLOR)``
+followed by BGR→RGB (the JAX package's dataset reader), ``reference="pil"``
+is ``Image.open(path).convert("RGB")`` (its server's). Under both, grey is
 replicated, a palette is expanded (an index past the palette reads black,
 as libpng's expansion gives), an alpha channel is dropped without
-compositing, and no gamma or colour-space chunk is applied.
+compositing, and no gamma or colour-space chunk is applied. They differ in
+two places:
 
-It takes colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey with alpha)
-and 6 (RGBA) at 8 bits, and grey and palette images at 1, 2 and 4 bits. It
-refuses 16-bit and interlaced (Adam7) images by name, with
-:class:`UnsupportedPNG`, so that a caller with another decoder may hand
-them on.
+- 16-bit samples: OpenCV keeps the high byte; PIL does too, except for
+  16-bit grey, which it clips to 255;
+- the ``eXIf`` chunk's orientation (1 to 8, a TIFF stream starting ``II``
+  or ``MM``): OpenCV applies it, PIL does not.
+
+It takes every colour type and bit depth PNG defines: colour types 0
+(grey), 2 (RGB), 3 (palette), 4 (grey with alpha) and 6 (RGBA) at 8 and 16
+bits, and grey and palette images at 1, 2 and 4 bits, interlaced (Adam7)
+or not. :class:`UnsupportedPNG` is kept for a caller that hands refused
+files on; no valid PNG is refused.
 
 Unfiltering: None and Up rows need only the row above and Sub rows a
 running sum, but Average and Paeth rows depend on the pixel to the left
@@ -21,9 +29,11 @@ diagonal depends only on the two diagonals before it, so each diagonal is
 one set of numpy operations over all of its pixels, H + W - 1 steps for
 any mix of filters. The image is held skewed (column y + x of row y holds
 pixel (y, x)), so that each diagonal is one column and its neighbours are
-slices of the two columns before it. :func:`decode_many` sweeps the
-diagonals of many images of one size together, so the per-step cost of
-numpy's dispatch is shared by the whole batch.
+slices of the two columns before it. An interlaced image is seven such
+sweeps, one a pass, whose pixels are then scattered to their places.
+:func:`decode_many` sweeps the diagonals of many non-interlaced images of
+one size together, so the per-step cost of numpy's dispatch is shared by
+the whole batch.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from . import exif
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # channels a pixel holds, by colour type
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -41,8 +53,14 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 
 
+# Adam7's passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+          (0, 1, 2, 2), (1, 0, 2, 1))
+REFERENCES = ("cv2", "pil")
+
+
 class UnsupportedPNG(ValueError):
-    """A valid PNG this decoder does not take (16-bit or interlaced)."""
+    """A valid PNG this decoder does not take (none is refused today)."""
 
 
 def is_png(data: bytes) -> bool:
@@ -77,14 +95,24 @@ def _header(chunks) -> Dict[str, int]:
         ">IIBBBBB", chunks[0][1])
     if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
         raise ValueError(f"PNG colour type {ctype} at bit depth {depth} is invalid")
-    if width == 0 or height == 0 or comp != 0 or filt != 0:
+    if width == 0 or height == 0 or comp != 0 or filt != 0 or interlace > 1:
         raise ValueError("PNG header holds an empty size or an unknown method")
-    if depth == 16:
-        raise UnsupportedPNG("16-bit PNG images are not supported by this decoder")
-    if interlace:
-        raise UnsupportedPNG("interlaced (Adam7) PNG images are not supported by "
-                             "this decoder")
-    return {"width": width, "height": height, "depth": depth, "ctype": ctype}
+    return {"width": width, "height": height, "depth": depth, "ctype": ctype,
+            "interlace": interlace}
+
+
+def _passes(hdr) -> List[Tuple[int, int, int, int, int, int]]:
+    """(first row, first column, row step, column step, rows, columns) of
+    each non-empty pass: Adam7's seven, or the whole image."""
+    w, h = hdr["width"], hdr["height"]
+    if not hdr["interlace"]:
+        return [(0, 0, 1, 1, h, w)]
+    out = []
+    for y0, x0, dy, dx in _ADAM7:
+        rows, cols = (h - y0 + dy - 1) // dy, (w - x0 + dx - 1) // dx
+        if rows > 0 and cols > 0:
+            out.append((y0, x0, dy, dx, rows, cols))
+    return out
 
 
 def _paeth(a, b, c):
@@ -150,8 +178,9 @@ def _unfilter_rows(tables: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def _inflate(data: bytes):
-    """(header, chunks, the inflated image data as (H, 1 + row_bytes)
-    uint8, bytes a pixel) of an in-memory PNG file."""
+    """(header, chunks, the inflated image data as one (rows, 1 +
+    row_bytes) uint8 table a pass, bytes a pixel) of an in-memory PNG
+    file."""
     chunks = _chunks(data)
     hdr = _header(chunks)
     idat = b"".join(body for kind, body in chunks if kind == b"IDAT")
@@ -162,18 +191,28 @@ def _inflate(data: bytes):
     except zlib.error as e:
         raise ValueError(f"PNG image data does not inflate: {e}") from None
     bits = _CHANNELS[hdr["ctype"]] * hdr["depth"]
-    row_bytes = (hdr["width"] * bits + 7) // 8
-    want = hdr["height"] * (row_bytes + 1)
-    if len(inflated) < want:
-        raise ValueError(f"PNG image data holds {len(inflated)} bytes, {want} needed")
-    table = np.frombuffer(inflated, np.uint8, want).reshape(hdr["height"], row_bytes + 1)
-    return hdr, chunks, table, max(1, bits // 8)
+    tables, at = [], 0
+    for *_, rows, cols in _passes(hdr):
+        row_bytes = (cols * bits + 7) // 8
+        tables.append((at, rows, row_bytes + 1))
+        at += rows * (row_bytes + 1)
+    if len(inflated) < at:
+        raise ValueError(f"PNG image data holds {len(inflated)} bytes, {at} needed")
+    tables = [np.frombuffer(inflated, np.uint8, rows * size, start).reshape(rows, size)
+              for start, rows, size in tables]
+    return hdr, chunks, tables, max(1, bits // 8)
 
 
-def _to_rgb(hdr, chunks, rows: np.ndarray) -> np.ndarray:
-    """The unfiltered scanlines (H, row_bytes) as RGB uint8 (H, W, 3)."""
-    w, h, depth, ctype = hdr["width"], hdr["height"], hdr["depth"], hdr["ctype"]
-    if depth < 8:
+def _to_rgb(hdr, chunks, rows: np.ndarray, w: int, reference: str) -> np.ndarray:
+    """The unfiltered scanlines (h, row_bytes) of ``w`` pixels as RGB uint8
+    (h, w, 3)."""
+    h, depth, ctype = rows.shape[0], hdr["depth"], hdr["ctype"]
+    if depth == 16:
+        pairs = rows.reshape(h, w, _CHANNELS[ctype], 2)
+        pix = pairs[..., 0]  # the high byte, as OpenCV and PIL keep it
+        if ctype == 0 and reference == "pil":  # PIL clips 16-bit grey to 255
+            pix = np.where(pix > 0, 255, pairs[..., 1]).astype(np.uint8)
+    elif depth < 8:
         # one sample per `depth` bits, most significant first
         per_byte = 8 // depth
         shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
@@ -183,7 +222,7 @@ def _to_rgb(hdr, chunks, rows: np.ndarray) -> np.ndarray:
             samples = samples * (255 // ((1 << depth) - 1))
         pix = samples.astype(np.uint8)[:, :, None]
     else:
-        pix = rows.reshape(h, w, _CHANNELS[ctype])
+        pix = rows[:, :w * _CHANNELS[ctype]].reshape(h, w, _CHANNELS[ctype])
     if ctype == 3:
         plte = next((body for kind, body in chunks if kind == b"PLTE"), None)
         if plte is None or len(plte) % 3 or not plte:
@@ -197,29 +236,60 @@ def _to_rgb(hdr, chunks, rows: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(pix[:, :, :3])
 
 
-def decode_bytes(data: bytes) -> np.ndarray:
-    """An in-memory PNG file as RGB uint8 (H, W, 3)."""
-    hdr, chunks, table, bpp = _inflate(data)
-    return _to_rgb(hdr, chunks, _unfilter_rows(table[None], bpp)[0])
+def _image(hdr, chunks, rows: List[np.ndarray], reference: str) -> np.ndarray:
+    """Each pass's unfiltered scanlines as the RGB image, oriented as the
+    reference orients it."""
+    passes = _passes(hdr)
+    if len(passes) == 1 and not hdr["interlace"]:
+        image = _to_rgb(hdr, chunks, rows[0], hdr["width"], reference)
+    else:
+        image = np.empty((hdr["height"], hdr["width"], 3), np.uint8)
+        for (y0, x0, dy, dx, _, cols), r in zip(passes, rows):
+            image[y0::dy, x0::dx] = _to_rgb(hdr, chunks, r, cols, reference)
+    if reference == "cv2":
+        body = next((body for kind, body in chunks if kind == b"eXIf"), None)
+        if body is not None:
+            image = exif.apply_orientation(image, exif.orientation(body))
+    return image
 
 
-def decode_many(datas: Sequence[bytes]) -> List[np.ndarray]:
+def _check(reference: str) -> None:
+    if reference not in REFERENCES:
+        raise ValueError(f"reference must be one of {REFERENCES}, not {reference!r}")
+
+
+def decode_bytes(data: bytes, reference: str = "cv2") -> np.ndarray:
+    """An in-memory PNG file as RGB uint8 (H, W, 3), as ``reference``
+    ("cv2" or "pil") reads it."""
+    _check(reference)
+    hdr, chunks, tables, bpp = _inflate(data)
+    rows = [_unfilter_rows(t[None], bpp)[0] for t in tables]
+    return _image(hdr, chunks, rows, reference)
+
+
+def decode_many(datas: Sequence[bytes], reference: str = "cv2") -> List[np.ndarray]:
     """In-memory PNG files as RGB uint8 arrays, equal to
-    :func:`decode_bytes` of each: the images of one size and pixel layout
-    are unfiltered together, in one diagonal sweep for the whole group."""
+    :func:`decode_bytes` of each: the non-interlaced images of one size and
+    pixel layout are unfiltered together, in one diagonal sweep for the
+    whole group."""
+    _check(reference)
     parsed = [_inflate(data) for data in datas]
     groups: Dict[Tuple[int, ...], List[int]] = {}
-    for i, (_, _, table, bpp) in enumerate(parsed):
-        groups.setdefault(table.shape + (bpp,), []).append(i)
     out: List[np.ndarray] = [None] * len(parsed)
+    for i, (hdr, chunks, tables, bpp) in enumerate(parsed):
+        if hdr["interlace"]:
+            rows = [_unfilter_rows(t[None], bpp)[0] for t in tables]
+            out[i] = _image(hdr, chunks, rows, reference)
+        else:
+            groups.setdefault(tables[0].shape + (bpp,), []).append(i)
     for key, members in groups.items():
-        rows = _unfilter_rows(np.stack([parsed[i][2] for i in members]), key[-1])
+        rows = _unfilter_rows(np.stack([parsed[i][2][0] for i in members]), key[-1])
         for i, r in zip(members, rows):
-            out[i] = _to_rgb(parsed[i][0], parsed[i][1], r)
+            out[i] = _image(parsed[i][0], parsed[i][1], [r], reference)
     return out
 
 
-def decode(path: str) -> np.ndarray:
-    """The PNG file at ``path`` as RGB uint8 (H, W, 3)."""
+def decode(path: str, **kwargs) -> np.ndarray:
+    """The PNG file at ``path``; the keywords of :func:`decode_bytes`."""
     with open(path, "rb") as f:
-        return decode_bytes(f.read())
+        return decode_bytes(f.read(), **kwargs)
