@@ -9,7 +9,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device   — needs a CUDA device; prints the card's name and power limit
 2. build    — compiles every kernel library from ``csrc/``, one nvcc each,
-              all at once; prints registers and spills, and fails on a
+              all at once, and beside them the host C++ libraries (the
+              decoders, the image ops, the whole-batch decode) with the host
+              compiler; prints registers and spills, and fails on a
               spill or a serialised wgmma (ptxas C7514, C7515, C7520) in
               any Hopper (``*_sm90_kernel``) body
 3. kernels  — kernel B1 against its plain PyTorch versions on the card:
@@ -118,17 +120,24 @@ Phases, each printing its own lines; any failure exits non-zero:
               destroyed at the end
 9a.3 host multi-crop — DINO ViT-S/8 from a folder of 320 seeded 96 px
               PNGs (this script's encoder, row filters 0-4 in turn) with
-              ``data.device_augment=false``: the port's PNG decoder bit-equal
-              to the encoded arrays and ``native_batch`` to the per-sample
-              path; configs/dino.yaml composed by the port (checked against
+              ``data.device_augment=false``: the port's C++ PNG decoder
+              bit-equal to the encoded arrays and to its plain numpy version,
+              ``native_batch`` (the C++ whole-batch decode) to the per-sample
+              path, each C++ image op (resize, HSV pair, blur) to its plain
+              version on the decoded images and through both pipelines;
+              configs/dino.yaml composed by the port (checked against
               DINO_VIT_S8) through the CLI's ``main`` for one epoch (2 train
               and 1 val steps, the views made on the host by the config's
-              globals and locals pipelines), B1's launches exact, checkpoints
-              written; one host-views step against plain attention from one
-              cloned state; the PNGs served through ``Server.infer`` against
+              globals and locals pipelines), B1's launches exact, every C
+              entry of the path called, checkpoints written; the same folder
+              with ``data.native_decode=true`` and the views made on the card
+              (one ``vitssl_decode_batch`` call a batch), the same checks;
+              one host-views step against plain attention from one cloned
+              state; the PNGs served through ``Server.infer`` against
               ``forward_batch`` on the decoded arrays; host ms per view of
-              each pipeline, decode ms per image, the epoch's img/s and
-              input-wait share beside phase 9a's
+              each pipeline and decode ms per image, each beside its plain
+              version's, both epochs' img/s and input-wait shares beside
+              phase 9a's
 9a.4 JPEG folder — ViT-B/16 224 from an ImageNet-layout folder of 533
               JPEGs (64 seeded pictures at ImageNet's common sizes, this
               script's baseline encoder at 4:2:0 and 4:4:4, hard-linked
@@ -142,20 +151,29 @@ Phases, each printing its own lines; any failure exits non-zero:
               served through ``Server.infer`` against ``forward_batch`` on
               the decoded arrays; decode ms a picture on 1 and 8 threads,
               the epoch's img/s and input-wait share, the bare step alone
-              and while 8 threads decode, or decode and resize
+              and while 8 threads decode, or decode and resize (the C++
+              resize, and the plain one), while 4 threads decode and
+              resize, and while 8 std::threads do so inside one
+              ``native.decode_batch`` call a batch (the GIL released
+              throughout: GIL or shared cores); each C++ image op bit-equal to its
+              plain version on the decoded pictures, a 500 x 375 -> 224
+              resize beside the plain one's time, every C entry of the CLI
+              path called
 9a.5 image formats — ViT-B/16 224 from an ImageNet-layout folder of 533
               files of mixed formats: the committed WebP fixtures hard-linked
               beside 16-bit RGB and grey, Adam7 and eXIf-rotated PNG,
               16-bit grey and LZW TIFF and RLE8 BMP written by the numpy
               encoders of tests/torch_image_fixtures/encoders.py at
-              ImageNet's common sizes; the TIFF and WebP host libraries
+              ImageNet's common sizes; the TIFF and image host libraries
               built with the host compiler; every fixture of
               tests/torch_image_fixtures decoded by the port's own readers
               to its cv2 and PIL digests; the folder through the CLI's
               ``main`` (2 train and 1 val steps, B1's launches exact); its
               WebP, TIFF and 16-bit files served through ``Server.infer``
               against ``forward_batch`` on the decoded arrays; decode ms an
-              image per format on one thread
+              image per format on one thread, the PNGs' beside their plain
+              numpy version's; the C++ PNG decoder bit-equal to the plain
+              one on every written PNG; every C entry of the CLI path called
 9b. finetune — configs/finetune.yaml composed by the port with
               FINETUNE_OVERRIDES (ViT-S/8 at 96 px, extended transfer, the
               backbone frozen until epoch 2), from phase 9a's DINO
@@ -304,8 +322,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               run over a PNG folder (6 B1 forwards a feature batch), its
               embedding finite; wall seconds; B1 at the two batch-1 shapes:
               kernel, plain, SDPA, host microseconds and bound
-22. a JSON line describing every kernel (B4 once at each width), then the
-              JSON ``ok`` line last.
+22. a ``host_calls:`` line (the host C++ entries each host-data path
+              called, from ``kernels.host_calls``), the card's name and power
+              limit, a JSON line describing every kernel (B4 once at each
+              width), then the JSON ``ok`` line last.
 
 Imports neither JAX nor the JAX package, and needs no PIL, OpenCV or YAML.
 """
@@ -324,6 +344,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import zlib
 from pathlib import Path
 
@@ -5787,30 +5808,158 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 90, subsampling: str = "420") ->
     return header + data + b"\xff\xd9"
 
 
+# the C entries of the host C++ libraries (built with the host compiler at
+# first use, all at once at the start of main) that each host-data path must
+# call: a path that ran a plain numpy version instead fails the run
+HOST_PATH_ENTRIES = {
+    "host_multicrop": ("png_decode", "image_resize", "image_rgb_to_hsv", "image_hsv_to_rgb",
+                       "image_gaussian_blur"),
+    "host_multicrop_native": ("vitssl_decode_batch",),
+    "jpeg_folder": ("jpeg_decode", "image_resize"),
+    "image_formats": ("png_decode", "webp_decode", "tiff_lzw", "image_resize"),
+}
+PLAIN_IMAGES = 64  # images each plain numpy version is held to and timed on
+
+
+def build_host_libraries(kernels):
+    """Build every host library at once, one compiler a source;
+    {name: seconds}, 0 where already built."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = tuple(kernels.HOST_SOURCES)
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(kernels.build_host, names)))
+
+
+@contextlib.contextmanager
+def plain_image_ops(image_ops):
+    """The host transforms on the plain numpy versions of the image ops."""
+    names = ("resize", "rgb_to_hsv", "hsv_to_rgb", "gaussian_blur")
+    saved = {name: getattr(image_ops, name) for name in names}
+    for name in names:
+        setattr(image_ops, name, getattr(image_ops, name + "_plain"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(image_ops, name, fn)
+
+
+def check_host_calls(path, calls):
+    missing = [entry for entry in HOST_PATH_ENTRIES[path] if calls.get(entry, 0) == 0]
+    if missing:
+        fail(f"the {path} path called no {missing} of the host C++ (host_calls {calls}): "
+             "a plain version ran")
+
+
+def image_ops_agreement(image_ops, images, rng):
+    """max |Δ| of each C++ image op against its plain numpy version on
+    ``images`` (uint8 HWC): resizes that shrink by 2, by a fraction and to
+    224, and that grow; the HSV pair; the blur at a kernel size 3-9 and a
+    sigma in the configs' (0.1, 2.0). Fails unless every one is 0."""
+    errs = {}
+
+    def record(name, got, want):
+        diff = (int(np.abs(got.astype(np.int32) - want).max()) if got.shape == want.shape
+                else 256)
+        errs[name] = max(errs.get(name, 0), diff)
+
+    for img in images:
+        h, w = img.shape[:2]
+        for dh, dw, how in ((h // 2, w // 2, "area"), (h * 2 // 3 + 1, w * 3 // 5 + 1, "area"),
+                            (224, 224, "area" if min(h, w) > 224 else "linear"),
+                            (2 * h + 3, w + 5, "linear")):
+            record(f"resize_{how}", image_ops.resize(img, dh, dw, how),
+                   image_ops.resize_plain(img, dh, dw, how))
+        hsv = image_ops.rgb_to_hsv(img)
+        record("rgb_to_hsv", hsv, image_ops.rgb_to_hsv_plain(img))
+        record("hsv_to_rgb", image_ops.hsv_to_rgb(hsv), image_ops.hsv_to_rgb_plain(hsv))
+        k, sigma = int(rng.choice([3, 5, 7, 9])), float(rng.uniform(0.1, 2.0))
+        record("gaussian_blur", image_ops.gaussian_blur(img, (k, k), sigma, sigma),
+               image_ops.gaussian_blur_plain(img, (k, k), sigma, sigma))
+    if any(errs.values()):
+        fail(f"a C++ image op differs from its plain version: max |Δ| {errs}")
+    return errs
+
+
+def cli_leg(fa, kernels, cli, root, path, config_name, overrides, per_train, per_val):
+    """The CLI's ``main`` over ``overrides``, no plain attention allowed, the
+    launch and host C entry counts set to 0 just before it and read just
+    after. Fails unless it ran 2 train and 1 val steps, each launching
+    exactly ``per_train`` or ``per_val``, called every C entry of ``path``
+    and gave finite losses. Returns the trainer, its unwrapped train step,
+    the train and val step logs, the launches, the host C entry calls, the
+    losses and the call's seconds."""
+    trainers, raw_steps, train_log, val_log = [], [], [], []
+    get_trainer = cli.get_trainer
+
+    def recorded(*args, **kwargs):
+        trainer = get_trainer(*args, **kwargs)
+        raw_steps.append(trainer.train_step)
+        trainer.train_step = counted_steps(trainer.train_step, train_log)
+        trainer.eval_step = counted_steps(trainer.eval_step, val_log)
+        trainers.append(trainer)
+        return trainer
+
+    cli.get_trainer = recorded
+    try:
+        with no_plain_attention(fa):
+            kernels.launches.clear()  # the path starts here
+            kernels.host_calls.clear()
+            t0 = time.perf_counter()
+            cli.main(["--config-path", str(root / "configs"), "--config-name", config_name,
+                      *overrides])
+            run_s = time.perf_counter() - t0
+            launches, calls = dict(kernels.launches), dict(kernels.host_calls)  # ... and ends
+    finally:
+        cli.get_trainer = get_trainer
+    if (len(train_log), len(val_log)) != (2, 1):
+        fail(f"the CLI ran {len(train_log)} train and {len(val_log)} val steps on the "
+             f"{path} path, expected 2 and 1")
+    for kind, log, want in (("train", train_log, per_train), ("val", val_log, per_val)):
+        for i, (_, got, _) in enumerate(log):
+            if got != want:
+                fail(f"{kind} step {i} of the {path} run launched {got}, expected {want}")
+    check_host_calls(path, calls)
+    losses = [float(out["loss"]) for _, _, out in train_log + val_log]
+    if not np.isfinite(losses).all():
+        fail(f"a {path} loss is not finite: {losses}")
+    return types.SimpleNamespace(trainer=trainers[0], step=raw_steps[0], train_log=train_log,
+                                 val_log=val_log, launches=launches, calls=calls,
+                                 losses=losses, seconds=run_s)
+
+
 def phase_host_multicrop(torch, fa, card, tmp, trainer_stats):
     """DINO ViT-S/8 from a PNG folder with the views made on the host: a
     folder of HOST_IMAGES seeded 96 px PNGs (this script's encoder, every
-    row filter); the port's decoder bit-equal to the encoded arrays and
-    ``native_batch`` to the per-sample path; configs/dino.yaml with
-    HOST_OVERRIDES and the folder through the CLI's ``main`` (the host
-    multi-crop through the config's globals and locals pipelines,
-    ``data.num_workers`` as composed): 2 train and 1 val steps, B1's
-    launches exact, a checkpoint written; one step on a host-views batch
-    against the plain-attention step from one cloned state (the DINO bars);
-    the folder served through ``Server.infer`` against ``forward_batch`` on
-    the decoded arrays (row cosine >= 0.999); host ms per view of each
-    pipeline, decode ms per image (per sample and native), the epoch's img/s
-    and input-wait share beside the device-augment trainer's. Returns the
-    CLI run's launches."""
+    row filter); the host C++ libraries built; the port's decoder bit-equal
+    to the encoded arrays and to its plain numpy version, ``native_batch``
+    (one ``vitssl_decode_batch`` call a batch) to the per-sample path, and
+    each C++ image op to its plain version on the decoded images and
+    through both pipelines; configs/dino.yaml with HOST_OVERRIDES and the
+    folder through the CLI's ``main`` (the host multi-crop through the
+    config's globals and locals pipelines, ``data.num_workers`` as
+    composed): 2 train and 1 val steps, B1's launches exact, every C entry
+    of the path called, a checkpoint written; the same folder with
+    ``data.native_decode=true`` and the views made on the card: the same
+    steps and launches through the whole-batch C++ decode; one step on a
+    host-views batch against the plain-attention step from one cloned state
+    (the DINO bars); the folder served through ``Server.infer`` against
+    ``forward_batch`` on the decoded arrays (row cosine >= 0.999); host ms
+    per view of each pipeline and decode ms per image (per sample and
+    native), each beside its plain version's, the epochs' img/s and
+    input-wait shares beside the device-augment trainer's. Returns the CLI
+    runs' launches and host C entry calls."""
     from vit_ssl_tpu_torch import kernels
     from vit_ssl_tpu_torch.config import compose, to_container
-    from vit_ssl_tpu_torch.data import png
+    from vit_ssl_tpu_torch.data import image_ops, native, png
     from vit_ssl_tpu_torch.data.builder import prepare_dataloaders
     from vit_ssl_tpu_torch.data.datasets import STL10UnsupervisedDataset
     from vit_ssl_tpu_torch.data.transforms import Compose, Resize, get_transforms
     from vit_ssl_tpu_torch.serve import Server
     from vit_ssl_tpu_torch.train import __main__ as cli
 
+    root = Path(__file__).resolve().parent
     folder = Path(tmp) / "png"
     folder.mkdir()
     images = np.random.default_rng(31).integers(0, 256, (HOST_IMAGES, 96, 96, 3),
@@ -5823,27 +5972,51 @@ def phase_host_multicrop(torch, fa, card, tmp, trainer_stats):
     print(f"== host multi-crop: configs/dino.yaml with {' '.join(overrides[:-2])}, a folder "
           f"of {HOST_IMAGES} 96 px PNGs (filters 0-4 by row); the CLI's main; {card}",
           flush=True)
+    built_s = kernels.build_host(kernels.HOST_IMAGE)
+    print(f"  host library: {kernels.library_path(kernels.HOST_IMAGE).name} from "
+          f"{', '.join(kernels.HOST_SOURCES[kernels.HOST_IMAGE])} with "
+          f"{kernels.host_compiler()} {' '.join(kernels.HOST_FLAGS)}: {built_s:.3f} s (0: "
+          "built at the start)", flush=True)
 
+    host = {"card": card, "host_cores": os.cpu_count()}
+    datas = [Path(f).read_bytes() for f in files]
     t0 = time.perf_counter()
     decoded = [png.decode(f) for f in files]
-    decode_ms = (time.perf_counter() - t0) * 1e3 / len(files)
+    host["decode_ms"] = (time.perf_counter() - t0) * 1e3 / len(files)
+    t0 = time.perf_counter()
+    plain = [png.decode_bytes_plain(d) for d in datas[:PLAIN_IMAGES]]
+    host["decode_ms_plain"] = (time.perf_counter() - t0) * 1e3 / PLAIN_IMAGES
     bad = [i for i, (a, b) in enumerate(zip(decoded, images)) if not np.array_equal(a, b)]
+    bad += [i for i, (a, b) in enumerate(zip(plain, decoded)) if not np.array_equal(a, b)]
     if bad:
-        fail(f"the PNG decoder differs from the encoded arrays at files {bad[:5]}")
+        fail(f"the PNG decoder differs from the encoded arrays or its plain version at "
+             f"files {bad[:5]}")
     dataset = STL10UnsupervisedDataset(str(folder), Compose([Resize([96, 96])]),
                                        native_decode=True)
     t0 = time.perf_counter()
-    native = [x for lo in range(0, HOST_IMAGES, 128)
-              for x in dataset.native_batch(range(lo, min(lo + 128, HOST_IMAGES)))]
-    native_ms = (time.perf_counter() - t0) * 1e3 / HOST_IMAGES
-    if len(native) != HOST_IMAGES or any(not np.array_equal(a, dataset[i])
-                                         for i, a in enumerate(native)):
+    batched = [x for lo in range(0, HOST_IMAGES, 128)
+               for x in dataset.native_batch(range(lo, min(lo + 128, HOST_IMAGES)))]
+    host["native_ms"] = (time.perf_counter() - t0) * 1e3 / HOST_IMAGES
+    if len(batched) != HOST_IMAGES or any(not np.array_equal(a, dataset[i])
+                                          for i, a in enumerate(batched)):
         fail("native_batch differs from the per-sample path")
-    print(f"  decode: bit-equal to the encoded arrays; native_batch bit-equal to the "
-          f"per-sample path; {decode_ms:.3f} ms an image per sample, {native_ms:.3f} ms "
-          f"an image native ({os.cpu_count()} host cores)", flush=True)
+    t0 = time.perf_counter()
+    png.decode_many_plain(datas[:128])  # the plain versions' whole-batch sweep
+    host["native_ms_plain"] = (time.perf_counter() - t0) * 1e3 / 128
+    t0 = time.perf_counter()
+    _, ok = native.decode_batch(files, 96, 96, num_threads=1)
+    host["native_ms_one_thread"] = (time.perf_counter() - t0) * 1e3 / HOST_IMAGES
+    if not ok.all():
+        fail("the whole-batch decode refused a PNG of the folder")
+    errs = image_ops_agreement(image_ops, decoded[:PLAIN_IMAGES], np.random.default_rng(32))
+    print(f"  decode: bit-equal to the encoded arrays and to the plain version; "
+          f"native_batch bit-equal to the per-sample path; each C++ image op bit-equal to "
+          f"its plain version (max |Δ| {errs}); {host['decode_ms']:.3f} ms an image per "
+          f"sample (plain {host['decode_ms_plain']:.3f}), {host['native_ms']:.3f} ms an "
+          f"image native ({host['native_ms_one_thread']:.3f} on one thread; the plain "
+          f"sweep {host['native_ms_plain']:.3f}) ({os.cpu_count()} host cores)", flush=True)
 
-    config = compose(Path(__file__).resolve().parent / "configs", "dino", overrides)
+    config = compose(root / "configs", "dino", overrides)
     composed = to_container(config)
     diffs = config_differences({k: DINO_VIT_S8[k] for k in ("model", "transforms")},
                                composed)
@@ -5852,75 +6025,68 @@ def phase_host_multicrop(torch, fa, card, tmp, trainer_stats):
     if diffs or composed["data"]["device_augment"]:
         fail("the composed config differs from DINO_VIT_S8: " + "; ".join(diffs))
     pipes = get_transforms(config)
-    host_ms = {}
+    host_ms, plain_ms = {}, {}
     for key in ("globals", "locals"):
         t0 = time.perf_counter()
-        for i, image in enumerate(decoded[:64]):
-            pipes[key](image, np.random.default_rng(i))
-        host_ms[key] = (time.perf_counter() - t0) * 1e3 / 64
+        views = [pipes[key](image, np.random.default_rng(i))
+                 for i, image in enumerate(decoded[:PLAIN_IMAGES])]
+        host_ms[key] = (time.perf_counter() - t0) * 1e3 / PLAIN_IMAGES
+        with plain_image_ops(image_ops):
+            t0 = time.perf_counter()
+            want = [pipes[key](image, np.random.default_rng(i))
+                    for i, image in enumerate(decoded[:PLAIN_IMAGES])]
+            plain_ms[key] = (time.perf_counter() - t0) * 1e3 / PLAIN_IMAGES
+        if any(not np.array_equal(a, b) for a, b in zip(views, want)):
+            fail(f"the {key} pipeline on the C++ image ops differs from it on the plain ones")
     views = DINO_VIT_S8["training"]["num_global_views"]
     per_image = views * host_ms["globals"] + (
         DINO_VIT_S8["training"]["num_all_views"] - views) * host_ms["locals"]
+    host.update(view_ms=host_ms, view_ms_plain=plain_ms, image_views_ms=per_image)
     print(f"  composed config: model, training (num_epochs 1) and transforms equal "
-          f"DINO_VIT_S8; host pipelines on one thread: globals {host_ms['globals']:.3f} "
-          f"ms a view, locals {host_ms['locals']:.3f} ms a view, {per_image:.3f} ms an "
-          f"image's 6 views; data.num_workers {config.data.num_workers}", flush=True)
+          f"DINO_VIT_S8; host pipelines on one thread, bit-equal on the plain image ops: "
+          f"globals {host_ms['globals']:.3f} ms a view (plain {plain_ms['globals']:.3f}), "
+          f"locals {host_ms['locals']:.3f} (plain {plain_ms['locals']:.3f}), "
+          f"{per_image:.3f} ms an image's 6 views; data.num_workers "
+          f"{config.data.num_workers}", flush=True)
 
-    trainers, train_log, val_log = [], [], []
-    get_trainer = cli.get_trainer
-
-    def recorded(*args, **kwargs):
-        trainer = get_trainer(*args, **kwargs)
-        trainer.train_step = counted_steps(trainer.train_step, train_log)
-        trainer.eval_step = counted_steps(trainer.eval_step, val_log)
-        trainers.append(trainer)
-        return trainer
-
-    cli.get_trainer = recorded
-    try:
-        with no_plain_attention(fa):
-            kernels.launches.clear()  # the host multi-crop path starts here
-            t0 = time.perf_counter()
-            cli.main(["--config-path", str(Path(__file__).resolve().parent / "configs"),
-                      "--config-name", "dino", *overrides])
-            run_s = time.perf_counter() - t0
-            launches = dict(kernels.launches)  # ... and ends here
-    finally:
-        cli.get_trainer = get_trainer
     blocks = DINO_VIT_S8["model"]["num_blocks"]
     per_train, per_val = attention_launches(fa), {fa.KERNEL: 3 * blocks}
-    if (len(train_log), len(val_log)) != (2, 1):
-        fail(f"the CLI ran {len(train_log)} train and {len(val_log)} val steps, "
-             "expected 2 and 1")
-    for kind, log, want in (("train", train_log, per_train), ("val", val_log, per_val)):
-        for i, (_, got, _) in enumerate(log):
-            if got != want:
-                fail(f"{kind} step {i} of the host multi-crop run launched {got}, "
-                     f"expected {want}")
-    if any(launches.get(name, 0) == 0 for name in (fa.KERNEL, fa.KERNEL_TRAIN,
-                                                     fa.KERNEL_BWD)):
-        fail(f"the host multi-crop run left a B1 entry unlaunched: {launches}")
-    for name in ("best_model", "last_model"):
-        if not (Path(run_dir) / name / "state.pt").exists():
-            fail(f"the host multi-crop run wrote no {name}")
-    trainer = trainers[0]
-    losses = [float(out["loss"]) for _, _, out in train_log + val_log]
-    if not np.isfinite(losses).all():
-        fail(f"a host multi-crop loss is not finite: {losses}")
-    stats = trainer.epoch_input_stats[0]
-    real = len(trainer.train_loader.dataset)
-    rate, wait = real / stats["wall_s"], stats["wait_s"] / stats["wall_s"]
-    print(f"  launches: {launches} (per train step {per_train}, per val step {per_val}); "
-          f"losses {' '.join(f'{x:.6f}' for x in losses)}; the CLI call {run_s:.3f} s",
-          flush=True)
-    print(f"  epoch on {card}: {real} images in {stats['wall_s']:.3f} s wall "
-          f"({rate:.1f} img/s), input-wait share {wait:.4f}; the device-augment "
-          f"trainer's epochs: " + ", ".join(
-              f"{r:.1f} img/s at input-wait {w:.4f}" for r, w in zip(
-                  trainer_stats["images_per_s"], trainer_stats["input_wait_share"])),
-          flush=True)
-    del trainer, trainers
-    gc.collect()
+    native_dir = str(Path(tmp) / "native_run")
+    legs = {"host_multicrop": overrides,
+            "host_multicrop_native": [o for o in overrides if "device_augment" not in o
+                                      and "hydra.run.dir" not in o]
+            + ["data.native_decode=true", f"hydra.run.dir={native_dir}"]}
+    launches, calls, epochs = {}, {}, {}
+    for path, overrides_of_leg in legs.items():
+        leg = cli_leg(fa, kernels, cli, root, path, "dino", overrides_of_leg, per_train,
+                      per_val)
+        launches[path], calls[path] = leg.launches, leg.calls
+        if any(leg.launches.get(name, 0) == 0 for name in (fa.KERNEL, fa.KERNEL_TRAIN,
+                                                           fa.KERNEL_BWD)):
+            fail(f"the {path} run left a B1 entry unlaunched: {leg.launches}")
+        run = run_dir if path == "host_multicrop" else native_dir
+        for name in ("best_model", "last_model"):
+            if not (Path(run) / name / "state.pt").exists():
+                fail(f"the {path} run wrote no {name}")
+        stats = leg.trainer.epoch_input_stats[0]
+        real = len(leg.trainer.train_loader.dataset)
+        epochs[path] = {"images_per_s": real / stats["wall_s"],
+                        "input_wait_share": stats["wait_s"] / stats["wall_s"],
+                        "epoch_wall_s": stats["wall_s"], "cli_s": leg.seconds}
+        print(f"  {path}: launches {leg.launches} (per train step {per_train}, per val "
+              f"step {per_val}); host C entries {leg.calls}; losses "
+              f"{' '.join(f'{x:.6f}' for x in leg.losses)}; the CLI call "
+              f"{leg.seconds:.3f} s", flush=True)
+        print(f"  epoch on {card}: {real} images in {stats['wall_s']:.3f} s wall "
+              f"({epochs[path]['images_per_s']:.1f} img/s), input-wait share "
+              f"{epochs[path]['input_wait_share']:.4f}", flush=True)
+        del leg
+        gc.collect()
+    host["epochs"] = epochs
+    print(f"  the device-augment trainer's epochs: " + ", ".join(
+        f"{r:.1f} img/s at input-wait {w:.4f}" for r, w in zip(
+            trainer_stats["images_per_s"], trainer_stats["input_wait_share"])), flush=True)
+    print("host_multicrop host: " + json.dumps(host), flush=True)
 
     batches = iter(prepare_dataloaders(config, "dino")[0])
     batch = next(batches)
@@ -5950,7 +6116,7 @@ def phase_host_multicrop(torch, fa, card, tmp, trainer_stats):
         fail("the served PNGs disagree with forward_batch on the decoded arrays")
     del server
     gc.collect()
-    return launches
+    return launches, calls
 
 
 # ViT-B/16 from an ImageNet-layout JPEG folder: JPEG_IMAGES seeded images at
@@ -5981,20 +6147,22 @@ def smooth_picture(rng, h, w):
     return np.clip(np.rint(image), 0, 255).astype(np.uint8)
 
 
-def step_under_load(torch, step, load):
+def step_under_load(torch, step, load, threads=JPEG_THREADS):
     """Median ms of 3 ``step()`` calls (each ending in a synchronise) while
-    JPEG_THREADS threads call ``load(i)`` over the pictures in a loop."""
+    ``threads`` Python threads call ``load(i)`` over the pictures in a
+    loop."""
     import threading
 
     stop = threading.Event()
+    count = threads
 
     def work(first):
         i = first
         while not stop.is_set():
             load(i % JPEG_IMAGES)
-            i += JPEG_THREADS
+            i += count
 
-    threads = [threading.Thread(target=work, args=(k,)) for k in range(JPEG_THREADS)]
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(count)]
     for thread in threads:
         thread.start()
     try:
@@ -6027,14 +6195,20 @@ def phase_jpeg_folder(torch, fa, card, tmp):
     (g) decode ms an image on one thread and across JPEG_THREADS threads,
     the epoch's img/s, input-wait share and step-to-step seconds, a sample's
     decode and resize on one thread, and the bare step alone and while
-    JPEG_THREADS threads decode, or decode and resize. Returns the paths'
-    launches."""
+    JPEG_THREADS threads decode, or decode and resize, on half the threads,
+    and on JPEG_THREADS std::threads inside one ``native.decode_batch`` call
+    a batch, the GIL released throughout; (h) each C++ image op
+    held to its plain numpy version on the decoded pictures, a 500 x 375 ->
+    224 resize and a sample's decode and resize timed beside the plain
+    resize's, the step under decode and the plain resize, and every C entry
+    of the CLI path called. Returns the paths' launches and the CLI run's
+    host C entry calls."""
     import hashlib
     from concurrent.futures import ThreadPoolExecutor
 
     from vit_ssl_tpu_torch import kernels
     from vit_ssl_tpu_torch.config import compose, to_container
-    from vit_ssl_tpu_torch.data import jpeg
+    from vit_ssl_tpu_torch.data import image_ops, jpeg, native
     from vit_ssl_tpu_torch.data.transforms import Compose, Resize, ToTensor
     from vit_ssl_tpu_torch.serve import Server
     from vit_ssl_tpu_torch.train import __main__ as cli
@@ -6045,9 +6219,9 @@ def phase_jpeg_folder(torch, fa, card, tmp):
           f"with the folder and {' '.join(JPEG_OVERRIDES)}; the CLI's main; {card}",
           flush=True)
     build_s = kernels.build_host(jpeg.LIBRARY)
-    print(f"  host library: {kernels.library_path(jpeg.LIBRARY).name} from "
-          f"{kernels.HOST_SOURCES[jpeg.LIBRARY]} with {kernels.host_compiler()} "
-          f"{' '.join(kernels.HOST_FLAGS)}: {build_s:.3f} s (0: already built)", flush=True)
+    print(f"  host library: {kernels.library_path(jpeg.LIBRARY).name} with "
+          f"{kernels.host_compiler()} {' '.join(kernels.HOST_FLAGS)}: {build_s:.3f} s (0: "
+          "already built)", flush=True)
 
     fixtures = root / "tests" / "torch_jpeg_fixtures"
     digests = json.loads((fixtures / "digests.json").read_text())
@@ -6090,6 +6264,18 @@ def phase_jpeg_folder(torch, fa, card, tmp):
           f"{encode_s:.3f} s ({sum(map(len, encoded)) / 1e6:.3f} MB, quality 90/75, 4:2:0 "
           f"and 4:4:4), {JPEG_FILES} hard links in {JPEG_CLASSES} classes; decoded PSNR "
           f"{min(psnr):.2f}-{max(psnr):.2f} dB to the pictures", flush=True)
+    errs = image_ops_agreement(image_ops, decoded[:16], np.random.default_rng(42))
+    big = [d for d in decoded if d.shape[:2] == (375, 500)]
+    resize_ms = {}
+    for name, fn in (("library", image_ops.resize), ("plain", image_ops.resize_plain)):
+        fn(big[0], 224, 224, "area")  # warm
+        t0 = time.perf_counter()
+        for image in big * 3:
+            fn(image, 224, 224, "area")
+        resize_ms[name] = (time.perf_counter() - t0) * 1e3 / (3 * len(big))
+    print(f"  each C++ image op bit-equal to its plain version on 16 decoded pictures (max "
+          f"|Δ| {errs}); a 500 x 375 -> 224 INTER_AREA resize {resize_ms['library']:.3f} ms "
+          f"(plain {resize_ms['plain']:.3f}) on one thread", flush=True)
 
     for data in encoded[:4]:  # warm
         jpeg.decode_bytes(data)
@@ -6105,7 +6291,8 @@ def phase_jpeg_folder(torch, fa, card, tmp):
         many_ms = (time.perf_counter() - t0) * 1e3 / len(work)
     host = {"decode_ms_one_thread": one_ms, "decode_ms_per_image_threads": many_ms,
             "threads": JPEG_THREADS, "scaling": one_ms / many_ms,
-            "host_cores": os.cpu_count()}
+            "host_cores": os.cpu_count(), "resize_500x375_to_224_ms": resize_ms["library"],
+            "resize_500x375_to_224_ms_plain": resize_ms["plain"]}
     print(f"  decode on {card}'s host ({os.cpu_count()} cores): {one_ms:.3f} ms an image on "
           f"one thread; {len(work)} decodes across {JPEG_THREADS} threads {many_ms:.3f} ms "
           f"an image ({one_ms / many_ms:.2f}x)", flush=True)
@@ -6121,48 +6308,18 @@ def phase_jpeg_folder(torch, fa, card, tmp):
           f"parallel (remat on) equal VIT_B16_224; data.num_workers "
           f"{composed['data']['num_workers']}", flush=True)
 
-    trainers, raw_steps, train_log, val_log = [], [], [], []
-    get_trainer = cli.get_trainer
-
-    def recorded(*args, **kwargs):
-        trainer = get_trainer(*args, **kwargs)
-        raw_steps.append(trainer.train_step)
-        trainer.train_step = counted_steps(trainer.train_step, train_log)
-        trainer.eval_step = counted_steps(trainer.eval_step, val_log)
-        trainers.append(trainer)
-        return trainer
-
-    cli.get_trainer = recorded
-    try:
-        with no_plain_attention(fa):
-            kernels.launches.clear()  # the JPEG-folder path starts here
-            t0 = time.perf_counter()
-            cli.main(["--config-path", str(root / "configs"), "--config-name",
-                      "vit_b_imagenet", *overrides])
-            run_s = time.perf_counter() - t0
-            launches = dict(kernels.launches)  # ... and ends here
-    finally:
-        cli.get_trainer = get_trainer
     blocks = VIT_B16_224["model"]["num_blocks"]
     per_train, per_val = remat_launches(fa, blocks), {fa.KERNEL: blocks}
-    if (len(train_log), len(val_log)) != (2, 1):
-        fail(f"the CLI ran {len(train_log)} train and {len(val_log)} val steps, "
-             "expected 2 and 1")
-    for kind, log, want in (("train", train_log, per_train), ("val", val_log, per_val)):
-        for i, (_, got, _) in enumerate(log):
-            if got != want:
-                fail(f"{kind} step {i} of the JPEG-folder run launched {got}, "
-                     f"expected {want}")
+    leg = cli_leg(fa, kernels, cli, root, "jpeg_folder", "vit_b_imagenet", overrides,
+                  per_train, per_val)
+    launches, calls, losses, run_s = leg.launches, leg.calls, leg.losses, leg.seconds
     for name in ("best_model", "last_model"):
         if not (Path(run_dir) / name / "state.pt").exists():
             fail(f"the JPEG-folder run wrote no {name}")
-    trainer = trainers[0]
-    losses = [float(out["loss"]) for _, _, out in train_log + val_log]
-    if not np.isfinite(losses).all():
-        fail(f"a JPEG-folder loss is not finite: {losses}")
+    trainer = leg.trainer
     stats = trainer.epoch_input_stats[0]
     real = len(trainer.train_loader.dataset)
-    starts = [t for t, _, _ in train_log + val_log]
+    starts = [t for t, _, _ in leg.train_log + leg.val_log]
     host.update(images_per_s=real / stats["wall_s"], input_wait_share=stats["wait_s"]
                 / stats["wall_s"], epoch_wall_s=stats["wall_s"], cli_s=run_s,
                 in_loop_step_s=[b - a for a, b in zip(starts, starts[1:])])
@@ -6171,6 +6328,15 @@ def phase_jpeg_folder(torch, fa, card, tmp):
     for i in range(JPEG_IMAGES):
         samples[i]
     host["sample_ms_one_thread"] = (time.perf_counter() - t0) * 1e3 / JPEG_IMAGES
+
+    def plain_sample(i):
+        """The sample's decode, then the plain numpy resize."""
+        return image_ops.resize_plain(jpeg.decode_bytes(encoded[i]), 224, 224, "area")
+
+    t0 = time.perf_counter()
+    for i in range(JPEG_IMAGES):
+        plain_sample(i)
+    host["sample_ms_one_thread_plain"] = (time.perf_counter() - t0) * 1e3 / JPEG_IMAGES
     print(f"  launches: {launches} (per train step {per_train}, per val step {per_val}); "
           f"losses {' '.join(f'{x:.6f}' for x in losses)}; best_model and last_model "
           f"written; the CLI call {run_s:.3f} s", flush=True)
@@ -6178,13 +6344,14 @@ def phase_jpeg_folder(torch, fa, card, tmp):
           f"({host['images_per_s']:.1f} img/s), input-wait share "
           f"{host['input_wait_share']:.4f}; from one step's start to the next "
           f"{' / '.join(f'{t:.3f}' for t in host['in_loop_step_s'])} s; one thread "
-          f"decodes and resizes a sample in {host['sample_ms_one_thread']:.3f} ms",
+          f"decodes and resizes a sample in {host['sample_ms_one_thread']:.3f} ms (the "
+          f"plain resize {host['sample_ms_one_thread_plain']:.3f}); host C entries {calls}",
           flush=True)
 
     batches = iter(trainer.train_loader)
     batch = trainer._put(next(batches))
     batches.close()  # stops the loader's producer thread
-    step_fn = raw_steps[0]
+    step_fn = leg.step
     print("  one step on this JPEG batch, B1 against plain attention:", flush=True)
     kernel_state, plain_state = copy.deepcopy(trainer.state), copy.deepcopy(trainer.state)
     got = step_fn(kernel_state, batch, with_grads=True)
@@ -6214,15 +6381,30 @@ def phase_jpeg_folder(torch, fa, card, tmp):
           f"{' / '.join(f'{t:.3f}' for t in bare)} ms (the first after the agreement "
           f"check; median of the last 3 {host['warm_step_ms']:.3f} ms, "
           f"{256 / host['warm_step_ms'] * 1e3:.1f} img/s)", flush=True)
-    for label, load in (("decode", lambda i: jpeg.decode_bytes(encoded[i])),
-                        ("decode_resize", lambda i: samples[i])):
+    files = [str(sources / f"{i:03d}.jpg") for i in range(JPEG_IMAGES)]
+    half = JPEG_THREADS // 2
+    # GIL or shared cores: the loader's work on half the threads, and on
+    # JPEG_THREADS std::threads inside one C call (the whole-batch decode
+    # and resize, no Python between images and the GIL released throughout)
+    for label, load, threads in (
+            ("decode", lambda i: jpeg.decode_bytes(encoded[i]), JPEG_THREADS),
+            ("decode_resize", lambda i: samples[i], JPEG_THREADS),
+            ("decode_resize_plain", plain_sample, JPEG_THREADS),
+            (f"decode_resize_{half}_threads", lambda i: samples[i], half),
+            ("decode_resize_in_c", lambda i: native.decode_batch(
+                files, 224, 224, num_threads=JPEG_THREADS), 1)):
         host[f"step_ms_under_{label}"] = step_under_load(
-            torch, lambda: step_fn(trainer.state, batch), load)
+            torch, lambda: step_fn(trainer.state, batch), load, threads)
     print(f"  the same step while {JPEG_THREADS} threads decode: "
           f"{host['step_ms_under_decode']:.3f} ms; while they decode and resize to "
-          f"224 (the loader's work): {host['step_ms_under_decode_resize']:.3f} ms "
+          f"224 (the loader's work): {host['step_ms_under_decode_resize']:.3f} ms; with "
+          f"the plain resize: {host['step_ms_under_decode_resize_plain']:.3f} ms; the "
+          f"loader's work on {half} threads: "
+          f"{host[f'step_ms_under_decode_resize_{half}_threads']:.3f} ms; on "
+          f"{JPEG_THREADS} std::threads in one C call a batch (native.decode_batch, the "
+          f"GIL released throughout): {host['step_ms_under_decode_resize_in_c']:.3f} ms "
           "(medians of 3)", flush=True)
-    del batch, trainer, trainers, raw_steps
+    del batch, trainer, leg
     gc.collect()
 
     pth = f"{tmp}/vit_b16_224.pth"
@@ -6260,7 +6442,7 @@ def phase_jpeg_folder(torch, fa, card, tmp):
     print("jpeg_decode host: " + json.dumps(host), flush=True)
     del server
     gc.collect()
-    return {"jpeg_folder": launches, "jpeg_serving": serve_launches}
+    return {"jpeg_folder": launches, "jpeg_serving": serve_launches}, calls
 
 
 # ViT-B/16 from an ImageNet-layout folder of mixed formats: FORMAT_PER_KIND
@@ -6319,7 +6501,7 @@ def format_sources(encoders, rng):
 
 def phase_image_formats(torch, fa, card, tmp):
     """ViT-B/16 from an ImageNet-layout folder of mixed formats, read by the
-    port's own decoders with no OpenCV: (a) the TIFF and WebP host libraries
+    port's own decoders with no OpenCV: (a) the TIFF and image host libraries
     built with the host compiler; (b) every committed fixture of
     ``tests/torch_image_fixtures`` decoded bit-equal to the digests recorded
     from cv2 (the JAX package's dataset reader) and PIL; (c) a folder of
@@ -6330,14 +6512,16 @@ def phase_image_formats(torch, fa, card, tmp):
     steps, B1's launches exact, a checkpoint written; (e) the folder's WebP,
     TIFF and 16-bit files through ``Server.infer`` against
     ``forward_batch`` on the decoded arrays (row cosine >= 0.999); (f)
-    decode ms an image per format on one thread. Returns the paths'
-    launches."""
+    decode ms an image per format on one thread, the PNGs' beside their
+    plain numpy version's; (g) the C++ PNG decoder bit-equal to its plain
+    version on every written PNG, and every C entry of the CLI path called.
+    Returns the paths' launches and the CLI run's host C entry calls."""
     import hashlib
     import itertools
 
     from vit_ssl_tpu_torch import kernels
     from vit_ssl_tpu_torch.config import compose, to_container
-    from vit_ssl_tpu_torch.data import datasets, tiff, webp
+    from vit_ssl_tpu_torch.data import datasets, png, tiff, webp
     from vit_ssl_tpu_torch.data.transforms import Compose, Resize, ToTensor
     from vit_ssl_tpu_torch.serve import Server
     from vit_ssl_tpu_torch.train import __main__ as cli
@@ -6354,10 +6538,9 @@ def phase_image_formats(torch, fa, card, tmp):
           f"CLI's main; {card}", flush=True)
     for library in (tiff.LIBRARY, webp.LIBRARY):
         build_s = kernels.build_host(library)
-        print(f"  host library: {kernels.library_path(library).name} from "
-              f"{kernels.HOST_SOURCES[library]} with {kernels.host_compiler()} "
-              f"{' '.join(kernels.HOST_FLAGS)}: {build_s:.3f} s (0: already built)",
-              flush=True)
+        print(f"  host library: {kernels.library_path(library).name} with "
+              f"{kernels.host_compiler()} {' '.join(kernels.HOST_FLAGS)}: {build_s:.3f} s "
+              "(0: already built)", flush=True)
 
     def own(data, reference):
         """The port's own decoder for ``data``, never OpenCV's or PIL's."""
@@ -6386,6 +6569,8 @@ def phase_image_formats(torch, fa, card, tmp):
         got = own(data, "cv2")
         if got.shape != want.shape or not np.array_equal(got, want):
             fail(f"the written {kind} picture {name} decodes off its pixels")
+        if kind.startswith("png") and not np.array_equal(got, png.decode_bytes_plain(data)):
+            fail(f"the C++ PNG decoder differs from its plain version on {name}")
     sources = Path(tmp) / "format_sources"
     sources.mkdir()
     kinds = {}
@@ -6419,43 +6604,15 @@ def phase_image_formats(torch, fa, card, tmp):
     run_dir = str(Path(tmp) / "formats_run")
     overrides = [f"data.data_dir={folder}", *JPEG_OVERRIDES, f"hydra.run.dir={run_dir}"]
     composed = to_container(compose(root / "configs", "vit_b_imagenet", overrides))
-    trainers, train_log, val_log, get_trainer = [], [], [], cli.get_trainer
-
-    def recorded(*args, **kwargs):
-        trainer = get_trainer(*args, **kwargs)
-        trainer.train_step = counted_steps(trainer.train_step, train_log)
-        trainer.eval_step = counted_steps(trainer.eval_step, val_log)
-        trainers.append(trainer)
-        return trainer
-
-    cli.get_trainer = recorded
-    try:
-        with no_plain_attention(fa):
-            kernels.launches.clear()  # the mixed-format folder path starts here
-            t0 = time.perf_counter()
-            cli.main(["--config-path", str(root / "configs"), "--config-name",
-                      "vit_b_imagenet", *overrides])
-            run_s = time.perf_counter() - t0
-            launches = dict(kernels.launches)  # ... and ends here
-    finally:
-        cli.get_trainer = get_trainer
     blocks = VIT_B16_224["model"]["num_blocks"]
     per_train, per_val = remat_launches(fa, blocks), {fa.KERNEL: blocks}
-    if (len(train_log), len(val_log)) != (2, 1):
-        fail(f"the CLI ran {len(train_log)} train and {len(val_log)} val steps on the "
-             "mixed-format folder, expected 2 and 1")
-    for kind, log, want in (("train", train_log, per_train), ("val", val_log, per_val)):
-        for i, (_, got, _) in enumerate(log):
-            if got != want:
-                fail(f"{kind} step {i} of the mixed-format run launched {got}, "
-                     f"expected {want}")
+    leg = cli_leg(fa, kernels, cli, root, "image_formats", "vit_b_imagenet", overrides,
+                  per_train, per_val)
+    launches, calls, losses, run_s = leg.launches, leg.calls, leg.losses, leg.seconds
     if not (Path(run_dir) / "last_model" / "state.pt").exists():
         fail("the mixed-format run wrote no last_model")
-    losses = [float(out["loss"]) for _, _, out in train_log + val_log]
-    if not np.isfinite(losses).all():
-        fail(f"a mixed-format loss is not finite: {losses}")
-    stats = trainers[0].epoch_input_stats[0]
-    real = len(trainers[0].train_loader.dataset)
+    stats = leg.trainer.epoch_input_stats[0]
+    real = len(leg.trainer.train_loader.dataset)
     epoch = {"cli_s": run_s, "epoch_wall_s": stats["wall_s"],
              "images_per_s": real / stats["wall_s"],
              "input_wait_share": stats["wait_s"] / stats["wall_s"]}
@@ -6463,8 +6620,8 @@ def phase_image_formats(torch, fa, card, tmp):
           f"losses {' '.join(f'{x:.6f}' for x in losses)}; the CLI call {run_s:.3f} s; "
           f"the epoch {real} images in {stats['wall_s']:.3f} s wall "
           f"({epoch['images_per_s']:.1f} img/s), input-wait share "
-          f"{epoch['input_wait_share']:.4f}", flush=True)
-    del trainers
+          f"{epoch['input_wait_share']:.4f}; host C entries {calls}", flush=True)
+    del leg
     gc.collect()
 
     pth = f"{tmp}/vit_b16_224_formats.pth"
@@ -6504,7 +6661,8 @@ def phase_image_formats(torch, fa, card, tmp):
     del server
     gc.collect()
 
-    host = {"card": card, "host_cores": os.cpu_count(), **epoch, "decode_ms_one_thread": {}}
+    host = {"card": card, "host_cores": os.cpu_count(), **epoch, "decode_ms_one_thread": {},
+            "decode_ms_one_thread_plain": {}}
     files_of = {}
     for name in names:
         kind = kinds[name]
@@ -6517,12 +6675,19 @@ def phase_image_formats(torch, fa, card, tmp):
         for data in files:
             own(data, "cv2")
         host["decode_ms_one_thread"][kind] = (time.perf_counter() - t0) * 1e3 / len(files)
+        if kind.startswith("png"):
+            t0 = time.perf_counter()
+            for data in files:
+                png.decode_bytes_plain(data)
+            host["decode_ms_one_thread_plain"][kind] = ((time.perf_counter() - t0) * 1e3
+                                                        / len(files))
     host["phase_s"] = time.perf_counter() - t_phase
     print(f"  decode on {card}'s host, ms an image on one thread: "
-          f"{json.dumps(host['decode_ms_one_thread'])}; the phase {host['phase_s']:.3f} s",
-          flush=True)
+          f"{json.dumps(host['decode_ms_one_thread'])} (the PNGs' plain version: "
+          f"{json.dumps(host['decode_ms_one_thread_plain'])}); the phase "
+          f"{host['phase_s']:.3f} s", flush=True)
     print("image_formats host: " + json.dumps(host), flush=True)
-    return {"image_formats": launches, "image_formats_serving": serve_launches}
+    return {"image_formats": launches, "image_formats_serving": serve_launches}, calls
 
 
 # The visualizer phase: the three scripts of vit_ssl_tpu_torch.scripts over
@@ -6816,10 +6981,18 @@ def main() -> int:
     print(f"== device: {card} ({torch.cuda.get_device_name(0)}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    built = kernels.build()
-    print(f"== build: {sorted(kernels.SOURCES)} in {time.perf_counter() - t0:.1f} s "
-          f"(compiled: {sorted(built)})", flush=True)
+    with ThreadPoolExecutor(1) as pool:  # the host libraries built beside the kernels
+        host_built = pool.submit(build_host_libraries, kernels)
+        built = kernels.build()
+        kernel_s = time.perf_counter() - t0
+        host_built = host_built.result()
+    print(f"== build: {sorted(kernels.SOURCES)} in {kernel_s:.1f} s "
+          f"(compiled: {sorted(built)}); beside them the host libraries "
+          f"{', '.join(f'{n} {t:.1f} s' for n, t in host_built.items())} "
+          f"(all in {time.perf_counter() - t0:.1f} s)", flush=True)
     faults, b4_ptxas, p2_ptxas = [], {}, {}
     for name in kernels.SOURCES:
         lines = list(ptxas_lines(kernels.log_path(name).read_text(), kernels.nvcc_path()))
@@ -6874,11 +7047,11 @@ def main() -> int:
         finetune_launches = phase_finetune(torch, fa, card,
                                            Path(tmp) / "run" / "best_model", tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        host_launches = phase_host_multicrop(torch, fa, card, tmp, trainer_stats)
+        host_paths, host_calls = phase_host_multicrop(torch, fa, card, tmp, trainer_stats)
     with tempfile.TemporaryDirectory() as tmp:
-        jpeg_paths = phase_jpeg_folder(torch, fa, card, tmp)
+        jpeg_paths, host_calls["jpeg_folder"] = phase_jpeg_folder(torch, fa, card, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        format_paths = phase_image_formats(torch, fa, card, tmp)
+        format_paths, host_calls["image_formats"] = phase_image_formats(torch, fa, card, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         (simmim_fit_launches, simmim_resumed_launches, simmim_state, simmim_optimizer,
          simmim_batch, _, simmim_eval_launches) = phase_simmim_trainer(torch, fa, card, tmp)
@@ -7072,7 +7245,7 @@ def main() -> int:
     ]
     paths = {"serving": serve_launches, "training": train_launches,
              "trainer": trainer_launches, "trainer_resumed": resumed_launches,
-             "host_multicrop": host_launches,
+             **host_paths,
              "dino_evaluation": dino_eval_launches,
              "evaluate_standalone": standalone_launches,
              "simmim_evaluation": simmim_eval_launches,
@@ -7112,6 +7285,8 @@ def main() -> int:
         if "d_model" in stats:
             stats["launches_at_d_model"] = sum(paths[path].get(name, 0)
                                                for path in width_paths[stats["d_model"]])
+    # the host C++ entries each host-data path called (checked in its phase)
+    print("host_calls: " + json.dumps(host_calls), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": name,

@@ -14,7 +14,8 @@
 //   - the colour-space rules of jdapimin.c (JFIF, Adobe APP14 transform,
 //     component ids).
 // CMYK goes to RGB by OpenCV's formula or PIL's (flags), and the EXIF
-// orientation (APP1, tag 0x0112) is applied only when asked for.
+// orientation (APP1, tag 0x0112; read and applied by host_image.h, as the
+// PNG decoder and the whole-batch decode do) is applied only when asked for.
 //
 // It uses the C++ standard library only and keeps no global state, so any
 // number of threads may decode at once. The plain C interface is bound with
@@ -36,6 +37,8 @@
 #include <new>
 #include <string>
 #include <vector>
+
+#include "host_image.h"
 
 namespace {
 
@@ -553,37 +556,7 @@ struct Decoder {
     }
     if (marker == 0xE1 && len >= 14 && std::memcmp(data + p, "Exif\0\0", 6) == 0 &&
         orientation == 1)
-      read_exif(data + p + 6, len - 6);
-  }
-
-  // IFD0's orientation tag (0x0112) of a TIFF stream; 1 when absent or bad
-  void read_exif(const uint8_t* t, size_t n) {
-    if (n < 8) return;
-    bool le;
-    if (t[0] == 'I' && t[1] == 'I') le = true;
-    else if (t[0] == 'M' && t[1] == 'M') le = false;
-    else return;
-    auto u16 = [&](size_t o) -> uint32_t {
-      return le ? (t[o] | (t[o + 1] << 8)) : ((t[o] << 8) | t[o + 1]);
-    };
-    auto u32 = [&](size_t o) -> uint32_t {
-      return le ? (t[o] | (t[o + 1] << 8) | (t[o + 2] << 16) | (static_cast<uint32_t>(t[o + 3]) << 24))
-                : ((static_cast<uint32_t>(t[o]) << 24) | (t[o + 1] << 16) | (t[o + 2] << 8) | t[o + 3]);
-    };
-    if (u16(2) != 42) return;
-    size_t ifd = u32(4);
-    if (ifd + 2 > n) return;
-    size_t entries = u16(ifd);
-    for (size_t i = 0; i < entries; ++i) {
-      size_t e = ifd + 2 + 12 * i;
-      if (e + 12 > n) return;
-      if (u16(e) == 0x0112) {
-        uint32_t type = u16(e + 2);
-        uint32_t value = type == 3 ? u16(e + 8) : type == 4 ? u32(e + 8) : 0;
-        if (value >= 1 && value <= 8) orientation = static_cast<int>(value);
-        return;
-      }
-    }
+      orientation = vitssl::exif_orientation(data + p + 6, len - 6);
   }
 
   // the scan's header; returns the components in it
@@ -1055,32 +1028,6 @@ struct Decoder {
     return rgb;
   }
 
-  // the EXIF orientation applied as OpenCV's ApplyExifOrientation does
-  static std::vector<uint8_t> orient(const std::vector<uint8_t>& src, int h, int w, int o,
-                                     int* oh, int* ow) {
-    bool swap = o >= 5;
-    *oh = swap ? w : h;
-    *ow = swap ? h : w;
-    std::vector<uint8_t> dst(src.size());
-    for (int y = 0; y < *oh; ++y)
-      for (int x = 0; x < *ow; ++x) {
-        int sy, sx;  // the source pixel of output (y, x)
-        switch (o) {
-          case 2: sy = y; sx = w - 1 - x; break;
-          case 3: sy = h - 1 - y; sx = w - 1 - x; break;
-          case 4: sy = h - 1 - y; sx = x; break;
-          case 5: sy = x; sx = y; break;
-          case 6: sy = h - 1 - x; sx = y; break;
-          case 7: sy = h - 1 - x; sx = w - 1 - y; break;
-          case 8: sy = x; sx = w - 1 - y; break;
-          default: sy = y; sx = x; break;
-        }
-        std::memcpy(&dst[(static_cast<size_t>(y) * *ow + x) * 3],
-                    &src[(static_cast<size_t>(sy) * w + sx) * 3], 3);
-      }
-    return dst;
-  }
-
   std::vector<uint8_t> run(int* out_h, int* out_w) {
     parse();
     if (progressive)
@@ -1092,10 +1039,10 @@ struct Decoder {
                  comps[i].coef_bits[k] < 0 ? "never coded" : "left unrefined");
     inverse_dct();
     std::vector<uint8_t> rgb = to_rgb();
-    if (exif_orientation && orientation != 1)
-      return orient(rgb, height, width, orientation, out_h, out_w);
-    *out_h = height;
-    *out_w = width;
+    int h = height, w = width;
+    if (exif_orientation) vitssl::apply_orientation(rgb, h, w, orientation);
+    *out_h = h;
+    *out_w = w;
     return rgb;
   }
 };

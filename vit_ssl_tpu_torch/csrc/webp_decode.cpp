@@ -2,9 +2,12 @@
 // (lossless, RFC 9649) bitstreams, with libwebp's arithmetic wherever the
 // specification leaves a choice, so the pixels equal what OpenCV
 // (WebPDecodeBGRInto) and PIL (WebPAnimDecoder) give. Standard library only,
-// a plain C interface for ctypes; the RIFF container, the EXIF orientation
-// and the alpha chunk (which IMREAD_COLOR and convert("RGB") drop) are the
-// Python side's.
+// a plain C interface for ctypes (data/webp.py) and for the whole-batch
+// decode (batch_decode.cpp). The entry reads the RIFF container too: a
+// simple lossy (VP8) or lossless (VP8L) file, or an extended one (VP8X)
+// whose ALPH chunk is dropped, as IMREAD_COLOR and convert("RGB") drop
+// alpha; an animation is refused; the EXIF chunk's orientation
+// (host_image.h) is applied when asked for, as OpenCV's reader does.
 //
 // VP8: the boolean decoder, segments, the token probabilities and their
 // updates, the 16x16, 4x4 and chroma intra predictors on libwebp's work
@@ -18,8 +21,8 @@
 // indexing with pixel packing), the colour cache, meta prefix codes and
 // LZ77 backward references with the distance map.
 //
-// The entry returns 0 and RGB rows in *out (release with webp_free), or 2
-// for damaged data, with a message.
+// The entry returns 0 and RGB rows in *out (release with webp_free), 1 for
+// an animation or 2 for damaged data, with a message.
 
 #include <cstdarg>
 #include <cstdint>
@@ -30,9 +33,11 @@
 #include <string>
 #include <vector>
 
+#include "host_image.h"
+
 namespace {
 
-constexpr int kOk = 0, kInvalid = 2;
+constexpr int kOk = 0, kUnsupported = 1, kInvalid = 2;
 
 struct Failure {
   int status;
@@ -40,7 +45,7 @@ struct Failure {
 };
 
 [[noreturn]] void fail(int status, const char* fmt, ...) {
-  char buf[256];
+  char buf[512];
   va_list args;
   va_start(args, fmt);
   std::vsnprintf(buf, sizeof(buf), fmt, args);
@@ -1448,28 +1453,131 @@ std::vector<uint8_t> decode_vp8l(const uint8_t* data, size_t size, int* out_w, i
   return rgb;
 }
 
+// A VP8 (kind 0) or VP8L (kind 1) chunk payload data[0, size) as RGB rows
+std::vector<uint8_t> decode_frame(const uint8_t* data, size_t size, int kind, int* height,
+                                  int* width) {
+  if (kind == 1) return decode_vp8l(data, size, width, height);
+  Vp8 d(data, size);
+  d.decode();
+  *width = d.width;
+  *height = d.height;
+  return d.rgb();
+}
+
+uint32_t le32(const uint8_t* p) {
+  return static_cast<uint32_t>(p[0]) | p[1] << 8 | p[2] << 16 | static_cast<uint32_t>(p[3]) << 24;
+}
+
+// A FourCC as Python writes a bytes object (b'VP8 '), for the messages
+std::string fourcc_repr(const uint8_t* p) {
+  const bool dq = std::memchr(p, '\'', 4) != nullptr && std::memchr(p, '"', 4) == nullptr;
+  const char quote = dq ? '"' : '\'';
+  std::string out = "b";
+  out += quote;
+  for (int i = 0; i < 4; ++i) {
+    const uint8_t c = p[i];
+    char buf[8];
+    if (c == quote || c == '\\') {
+      out += '\\';
+      out += static_cast<char>(c);
+    } else if (c == '\t') {
+      out += "\\t";
+    } else if (c == '\n') {
+      out += "\\n";
+    } else if (c == '\r') {
+      out += "\\r";
+    } else if (c < 0x20 || c >= 0x7f) {
+      std::snprintf(buf, sizeof buf, "\\x%02x", c);
+      out += buf;
+    } else {
+      out += static_cast<char>(c);
+    }
+  }
+  out += quote;
+  return out;
+}
+
+// The WebP file data[0, n) as RGB rows: its RIFF chunks walked, a simple or
+// extended file's frame decoded, the EXIF orientation applied when asked for
+std::vector<uint8_t> decode_file(const uint8_t* d, size_t n, bool exif_orientation, int* height,
+                                 int* width) {
+  if (n < 20 || std::memcmp(d, "RIFF", 4) != 0 || std::memcmp(d + 8, "WEBP", 4) != 0)
+    fail(kInvalid, "not a WebP file (no RIFF/WEBP header)");
+  const uint32_t riff = le32(d + 4);
+  const uint64_t end = static_cast<uint64_t>(riff) + 8;
+  if (end > n)
+    fail(kInvalid, "WebP RIFF size %u runs past the end of the file (%zu bytes)", riff, n);
+  struct Chunk {
+    const uint8_t* kind;
+    size_t at, size;
+  };
+  std::vector<Chunk> chunks;
+  for (uint64_t at = 12; at + 8 <= end;) {
+    const uint32_t size = le32(d + at + 4);
+    if (at + 8 + size > end)
+      fail(kInvalid, "WebP chunk %s at byte %llu runs past the end of the file",
+           fourcc_repr(d + at).c_str(), static_cast<unsigned long long>(at));
+    chunks.push_back({d + at, static_cast<size_t>(at + 8), size});
+    at += 8 + static_cast<uint64_t>(size) + (size & 1);
+  }
+  if (chunks.empty()) fail(kInvalid, "WebP file holds no chunk");
+  auto is = [](const Chunk& c, const char* name) { return std::memcmp(c.kind, name, 4) == 0; };
+  int canvas_h = -1, canvas_w = -1;
+  const Chunk* exif = nullptr;
+  if (is(chunks[0], "VP8X")) {
+    const Chunk& x = chunks[0];
+    if (x.size < 10) fail(kInvalid, "WebP VP8X chunk at byte %zu is truncated", x.at - 8);
+    bool animated = (d[x.at] & 0x02) != 0;
+    for (const Chunk& c : chunks) animated = animated || is(c, "ANIM") || is(c, "ANMF");
+    if (animated) fail(kUnsupported, "animated WebP is not supported by this decoder");
+    canvas_w = static_cast<int>(d[x.at + 4] | d[x.at + 5] << 8 | d[x.at + 6] << 16) + 1;
+    canvas_h = static_cast<int>(d[x.at + 7] | d[x.at + 8] << 8 | d[x.at + 9] << 16) + 1;
+    for (const Chunk& c : chunks) {
+      if (is(c, "EXIF")) {
+        exif = &c;
+        break;
+      }
+    }
+  }
+  const Chunk* frame = nullptr;
+  for (const Chunk& c : chunks) {
+    if (is(c, "VP8 ") || is(c, "VP8L")) {
+      frame = &c;
+      break;
+    }
+  }
+  if (frame == nullptr) fail(kInvalid, "WebP file holds no VP8 or VP8L chunk");
+  const int kind = is(*frame, "VP8L") ? 1 : 0;
+  std::vector<uint8_t> rgb;
+  try {
+    rgb = decode_frame(d + frame->at, frame->size, kind, height, width);
+  } catch (const Failure& f) {
+    fail(f.status, "WebP %s data at byte %zu: %s", kind ? "VP8L" : "VP8", frame->at,
+         f.message.c_str());
+  }
+  if (canvas_h >= 0 && (canvas_h != *height || canvas_w != *width))
+    fail(kInvalid, "WebP canvas %dx%d differs from its image %dx%d", canvas_w, canvas_h,
+         *width, *height);
+  if (exif_orientation && exif != nullptr)
+    vitssl::apply_orientation(rgb, *height, *width,
+                              vitssl::exif_orientation(d + exif->at, exif->size));
+  return rgb;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Decode a VP8 (kind 0) or VP8L (kind 1) chunk payload data[0, size) to RGB
-// uint8 (height, width, 3) rows. Returns 0 and sets *out (release it with
-// webp_free), *height and *width; 2 for damaged data, with a message in
-// msg.
-int webp_decode(const uint8_t* data, size_t size, int kind, uint8_t** out, int* height,
-                int* width, char* msg, int msg_size) {
+// Decode the WebP file data[0, size) to RGB uint8 (height, width, 3) rows,
+// the EXIF orientation applied when exif_orientation is nonzero. Returns 0
+// and sets *out (release it with webp_free), *height and *width; 1 for an
+// animation, 2 for damaged data, with a message in msg.
+int webp_decode(const uint8_t* data, size_t size, int exif_orientation, uint8_t** out,
+                int* height, int* width, char* msg, int msg_size) {
   *out = nullptr;
   try {
-    std::vector<uint8_t> rgb;
-    if (kind == 0) {
-      Vp8 d(data, size);
-      d.decode();
-      rgb = d.rgb();
-      *width = d.width;
-      *height = d.height;
-    } else {
-      rgb = decode_vp8l(data, size, width, height);
-    }
+    const std::vector<uint8_t> rgb = decode_file(data, size, exif_orientation != 0, height,
+                                                 width);
     *out = static_cast<uint8_t*>(std::malloc(rgb.size()));
     if (*out == nullptr) throw std::bad_alloc();
     std::memcpy(*out, rgb.data(), rgb.size());

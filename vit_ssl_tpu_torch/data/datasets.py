@@ -1,8 +1,8 @@
 """Datasets (from ``vit_ssl_tpu/data/datasets.py``): the base ``Dataset``, the
 decoder and its cache, the labeled datasets (``CIFAR10Dataset``,
 ``STL10Dataset``, ``ImageFolderDataset``), the unlabeled STL-10 folder with
-its whole-batch decode (``native_batch``), DINO's host multi-crop
-``STL10DINODataset`` and ``Subset``.
+its whole-batch decode (``native_batch``, on :mod:`.native`), DINO's host
+multi-crop ``STL10DINODataset`` and ``Subset``.
 
 Datasets return numpy arrays (uint8 HWC after the device-augment pipeline's
 decode and resize, float32 after a host ``ToTensor``; a list of views from
@@ -11,15 +11,15 @@ NHWC batches.
 
 Decoding chooses the decoder by a file's magic bytes, never by its
 extension (an ImageNet file named ``.JPEG`` may hold a PNG): PNG through
-:mod:`.png` (zlib and numpy), JPEG through :mod:`.jpeg` (the port's C++
-decoder, built with the host compiler at first use), BMP through :mod:`.bmp`
-(numpy), WebP through :mod:`.webp` (the port's C++ decoder) and TIFF through
-:mod:`.tiff` (numpy, LZW and PackBits in C++), each bit-equal to the
-caller's reference (OpenCV's reader then PIL for the datasets, PIL for the
-server), so a folder of these formats needs neither OpenCV nor PIL. Only
-what these decoders refuse by name (GIF and other formats, arithmetic-coded
-JPEG, animated WebP, CMYK TIFF, ...) goes to OpenCV or PIL where one is
-installed; a damaged file raises ``ValueError`` naming it.
+:mod:`.png` (the port's C++ decoder), JPEG through :mod:`.jpeg` (the port's
+C++ decoder; each built with the host compiler at first use), BMP through
+:mod:`.bmp` (numpy), WebP through :mod:`.webp` (the port's C++ decoder) and
+TIFF through :mod:`.tiff` (numpy, LZW and PackBits in C++), each bit-equal
+to the caller's reference (OpenCV's reader then PIL for the datasets, PIL
+for the server), so a folder of these formats needs neither OpenCV nor PIL.
+Only what these decoders refuse by name (GIF and other formats,
+arithmetic-coded JPEG, animated WebP, CMYK TIFF, ...) goes to OpenCV or PIL
+where one is installed; a damaged file raises ``ValueError`` naming it.
 
 The labeled indexes are read as the JAX package's pandas reads them, with
 ``csv`` and ``json``: the first column is the file, the second the class;
@@ -34,12 +34,11 @@ import csv
 import glob
 import json
 import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import bmp, jpeg, png, tiff, webp
+from . import bmp, jpeg, native, png, tiff, webp
 
 
 class Dataset:
@@ -308,32 +307,24 @@ class STL10UnsupervisedDataset(Dataset):
         return None
 
     def native_batch(self, indices):
-        """Decode and resize a whole batch in one call: the files read and
-        the images resized across a thread pool, the PNGs of one size
-        unfiltered together (:func:`png.decode_many`; the same decoder and
-        resize as the per-sample path, so the samples are the same).
-        Returns a list of uint8 HWC arrays, or None to use the per-sample
-        path: ``data.native_decode`` off, the cache on (it is faster than
-        either after epoch 1), a pipeline other than decode and Resize, or
-        a file that is not a PNG this decoder takes."""
+        """Decode and resize a whole batch in one call of the host library
+        (:func:`.native.decode_batch`, the counterpart of the JAX package's
+        ``csrc/fastloader.cpp``; the same decoders and resize as the
+        per-sample path, so the samples are the same). Returns a list of
+        uint8 HWC arrays, or None to use the per-sample path:
+        ``data.native_decode`` off, the cache on (it is faster than either
+        after epoch 1), a pipeline other than decode and Resize, or a file
+        the call did not decode (the per-sample path decodes it or names
+        it)."""
         if not self.native_decode or self._cache.enabled:
             return None
-        if self._native_size() is None:
+        size = self._native_size()
+        if size is None:
             return None
-        paths = [self.files[int(i)] for i in indices]
-
-        def read(path):
-            with open(path, "rb") as f:
-                return f.read()
-
-        workers = max(1, min(os.cpu_count() or 1, len(paths)))
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            datas = list(pool.map(read, paths))
-            try:
-                images = png.decode_many(datas)
-            except ValueError:  # the per-sample path decodes or names it
-                return None
-            return list(pool.map(self.transform, images))
+        out, ok = native.decode_batch([self.files[int(i)] for i in indices], *size)
+        if not ok.all():
+            return None
+        return list(out)
 
 
 class STL10DINODataset(Dataset):

@@ -1,7 +1,9 @@
 """The EXIF orientation, as OpenCV's reader applies it: the tag is read from
-IFD0 of a TIFF stream (a PNG ``eXIf`` chunk, a WebP ``EXIF`` chunk), the same
-rule as the JPEG decoder's (``csrc/jpeg_decode.cpp``, ``read_exif``), and
-applied as OpenCV's ``ApplyExifOrientation`` does."""
+IFD0 of a TIFF stream (a PNG ``eXIf`` chunk, in the PNG decoder's plain
+version), the same rule as the host C++'s (``csrc/host_image.h``,
+``exif_orientation``, which the JPEG, PNG and WebP decoders and the
+whole-batch decode share), and applied as OpenCV's ``ApplyExifOrientation``
+does (also to a TIFF, by its own orientation tag)."""
 
 from __future__ import annotations
 

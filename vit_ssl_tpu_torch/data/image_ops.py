@@ -1,4 +1,4 @@
-"""OpenCV's arithmetic that the host transforms use, in numpy: resize
+"""OpenCV's arithmetic that the host transforms use: resize
 (``INTER_AREA``, ``INTER_LINEAR`` and, on float images, ``INTER_CUBIC``),
 RGB↔HSV on OpenCV's [0, 180) hue and the Gaussian blur, each equal bit for
 bit to ``cv2.resize``,
@@ -40,14 +40,33 @@ holds each against ``cv2``, the colour conversions over every input).
 A float image (float32 or float64) resizes and blurs in its own precision
 with OpenCV's float coordinates, weights and kernel: within a few units in
 the last place of OpenCV, whose sums run in another order.
+
+Dispatch is by dtype: :func:`resize`, :func:`rgb_to_hsv`,
+:func:`hsv_to_rgb` and :func:`gaussian_blur` send a uint8 image to the
+port's host C++ ``csrc/image_ops.cpp`` (in the image library
+:data:`vit_ssl_tpu_torch.kernels.HOST_IMAGE`, built with the host compiler at
+first use by :func:`vit_ssl_tpu_torch.kernels.load_host`, called through
+``ctypes``, which releases the GIL; output arrays allocated here), and a
+float image (the visualizer's cubic resize, a float pipeline) to the numpy
+versions. The numpy versions of the uint8 forms stay as the plain versions
+the library is held against bit for bit (:func:`resize_plain`,
+:func:`rgb_to_hsv_plain`, :func:`hsv_to_rgb_plain`,
+:func:`gaussian_blur_plain`); a library that does not build raises, it does
+not hand the image to them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Tuple
 
 import numpy as np
+
+from .. import kernels
+
+LIBRARY = kernels.HOST_IMAGE
+_INTERPOLATION = {"area": 0, "linear": 1}
 
 _COEF_SCALE = 2048  # INTER_RESIZE_COEF_SCALE: 11-bit resize weights
 _HSV_SHIFT = 12
@@ -206,9 +225,9 @@ def _resize_area(src: np.ndarray, dh: int, dw: int) -> np.ndarray:
     return out if is_float else np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
-def resize(img: np.ndarray, height: int, width: int, interpolation: str) -> np.ndarray:
+def resize_plain(img: np.ndarray, height: int, width: int, interpolation: str) -> np.ndarray:
     """``cv2.resize(img, (width, height), interpolation=INTER_AREA,
-    INTER_LINEAR or INTER_CUBIC)`` of an (H, W) or (H, W, C) image;
+    INTER_LINEAR or INTER_CUBIC)`` of an (H, W) or (H, W, C) image in numpy;
     ``interpolation`` is ``"area"``, ``"linear"`` or ``"cubic"`` (float
     images only). uint8 is bit-equal to OpenCV; a float image takes the
     same coordinates and weights in its own precision (OpenCV's float
@@ -254,9 +273,9 @@ def _division_tables():
 _SDIV, _HDIV = _division_tables()
 
 
-def rgb_to_hsv(rgb: np.ndarray) -> np.ndarray:
-    """``cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV)`` of uint8 (..., 3): hue in
-    [0, 180), saturation and value in [0, 255]."""
+def rgb_to_hsv_plain(rgb: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV)`` of uint8 (..., 3) in numpy:
+    hue in [0, 180), saturation and value in [0, 255]."""
     rgb = _check_uint8(rgb)
     r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
     v = np.maximum(np.maximum(b, g), r)
@@ -279,9 +298,9 @@ def _fma(a: np.ndarray, b: np.ndarray, c) -> np.ndarray:
     return (a.astype(np.float64) * b.astype(np.float64) + c).astype(np.float32)
 
 
-def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+def hsv_to_rgb_plain(hsv: np.ndarray) -> np.ndarray:
     """``cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)`` of uint8 (..., 3) with hue
-    in [0, 180)."""
+    in [0, 180), in numpy."""
     hsv = _check_uint8(hsv)
     one, inv = np.float32(1), np.float32(1.0 / 255.0)
     h = hsv[..., 0].astype(np.float32) * np.float32(6.0 / 180.0)
@@ -338,10 +357,10 @@ def gaussian_kernel_fixed(size: int, sigma: float, bits: int = 8) -> np.ndarray:
     return out
 
 
-def gaussian_blur(img: np.ndarray, ksize: Tuple[int, int], sigma_x: float,
-                  sigma_y: float) -> np.ndarray:
+def gaussian_blur_plain(img: np.ndarray, ksize: Tuple[int, int], sigma_x: float,
+                        sigma_y: float) -> np.ndarray:
     """``cv2.GaussianBlur(img, ksize, sigmaX, sigmaY)`` of an (H, W, C)
-    image; ``ksize`` is (width, height), both odd, as OpenCV takes it.
+    image in numpy; ``ksize`` is (width, height), both odd, as OpenCV takes it.
     uint8 is bit-equal to OpenCV; a float image is filtered with the float
     kernel in its own precision (OpenCV's float path, up to the order of
     its sums)."""
@@ -366,3 +385,133 @@ def gaussian_blur(img: np.ndarray, ksize: Tuple[int, int], sigma_x: float,
     out = sum(int(ky[i]) * rows[i:i + h] for i in range(len(ky)))
     out = np.clip((out + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
     return out[:, :, 0] if squeeze else out
+
+
+# -- the host library (uint8) -----------------------------------------------------
+
+def _library() -> ctypes.CDLL:
+    lib = kernels.load_host(LIBRARY)
+    if not getattr(lib, "_image_ops_typed", False):
+        u8p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.image_resize.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i64, u8p,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.image_resize.restype = ctypes.c_int
+        lib.image_rgb_to_hsv.argtypes = [u8p, u8p, i64]
+        lib.image_rgb_to_hsv.restype = None
+        lib.image_hsv_to_rgb.argtypes = [u8p, u8p, i64, ctypes.c_int]
+        lib.image_hsv_to_rgb.restype = None
+        lib.image_gaussian_blur.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i64,
+                                            u8p, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                            ctypes.c_double]
+        lib.image_gaussian_blur.restype = ctypes.c_int
+        lib.image_gaussian_kernel_fixed.argtypes = [ctypes.c_int, ctypes.c_double, u8p]
+        lib.image_gaussian_kernel_fixed.restype = None
+        lib._image_ops_typed = True
+    return lib
+
+
+def _hwc_rows(img: np.ndarray) -> Tuple[np.ndarray, int]:
+    """``img`` as (H, W, C) uint8 whose pixels are packed within each row,
+    and its row stride in bytes: a crop of a contiguous image is taken as
+    it lies, anything else copied."""
+    src = img[:, :, None] if img.ndim == 2 else img
+    c = src.shape[2]
+    if not (src.strides[2] == 1 and src.strides[1] == c and src.strides[0] >= src.shape[1] * c):
+        src = np.ascontiguousarray(src)
+    return src, src.strides[0]
+
+
+def _same_shape(img: np.ndarray, out: np.ndarray) -> np.ndarray:
+    return out[:, :, 0] if img.ndim == 2 else out
+
+
+def resize(img: np.ndarray, height: int, width: int, interpolation: str) -> np.ndarray:
+    """``cv2.resize(img, (width, height), interpolation=INTER_AREA,
+    INTER_LINEAR or INTER_CUBIC)`` of an (H, W) or (H, W, C) image;
+    ``interpolation`` is ``"area"``, ``"linear"`` or ``"cubic"`` (float
+    images only). uint8 runs in the host library, bit-equal to OpenCV and
+    to :func:`resize_plain`; a float image runs in :func:`resize_plain`."""
+    img = _check_image(img)
+    if img.dtype != np.uint8 or interpolation not in _INTERPOLATION or img.ndim not in (2, 3):
+        return resize_plain(img, height, width, interpolation)
+    height, width = int(height), int(width)
+    if height <= 0 or width <= 0:
+        raise ValueError(f"resize to an empty size ({height}, {width})")
+    src, stride = _hwc_rows(img)
+    sh, sw, cn = src.shape
+    out = np.empty((height, width, cn), np.uint8)
+    lib = _library()
+    kernels.count_host_call("image_resize")
+    if lib.image_resize(src.ctypes.data, sh, sw, cn, stride, out.ctypes.data, height, width,
+                        _INTERPOLATION[interpolation]):
+        raise ValueError(f"image_resize refused ({sh}, {sw}, {cn}) -> ({height}, {width})")
+    return _same_shape(img, out)
+
+
+def rgb_to_hsv(rgb: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV)`` of uint8 (..., 3): hue in
+    [0, 180), saturation and value in [0, 255]; in the host library."""
+    rgb = _check_uint8(rgb)
+    if rgb.shape[-1:] != (3,):
+        raise ValueError(f"the colour conversions take (..., 3) images, not {rgb.shape}")
+    src = np.ascontiguousarray(rgb)
+    out = np.empty(src.shape, np.uint8)
+    lib = _library()
+    kernels.count_host_call("image_rgb_to_hsv")
+    lib.image_rgb_to_hsv(src.ctypes.data, out.ctypes.data, src.size // 3)
+    return out
+
+
+def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)`` of uint8 (..., 3) with hue
+    in [0, 180); in the host library."""
+    hsv = _check_uint8(hsv)
+    if hsv.shape[-1:] != (3,):
+        raise ValueError(f"the colour conversions take (..., 3) images, not {hsv.shape}")
+    src = np.ascontiguousarray(hsv)
+    out = np.empty(src.shape, np.uint8)
+    # a row of OpenCV's conversion is the last axis but the channels (one
+    # pixel: a row of one)
+    width = src.shape[-2] if src.ndim >= 2 else 1
+    lib = _library()
+    kernels.count_host_call("image_hsv_to_rgb")
+    if width:
+        lib.image_hsv_to_rgb(src.ctypes.data, out.ctypes.data, src.size // (3 * width), width)
+    return out
+
+
+def gaussian_kernel_fixed_library(size: int, sigma: float) -> np.ndarray:
+    """:func:`gaussian_kernel_fixed` (8 bits) as the host library computes
+    it."""
+    if size % 2 != 1 or sigma <= 0:
+        raise ValueError(f"Gaussian kernel needs an odd size and sigma > 0, got "
+                         f"{size}, {sigma}")
+    out = np.empty(size, np.int32)
+    _library().image_gaussian_kernel_fixed(int(size), float(sigma), out.ctypes.data)
+    return out.astype(np.int64)
+
+
+def gaussian_blur(img: np.ndarray, ksize: Tuple[int, int], sigma_x: float,
+                  sigma_y: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, ksize, sigmaX, sigmaY)`` of an (H, W, C)
+    image; ``ksize`` is (width, height), both odd, as OpenCV takes it.
+    uint8 runs in the host library, bit-equal to OpenCV and to
+    :func:`gaussian_blur_plain`; a float image runs in
+    :func:`gaussian_blur_plain`."""
+    img = _check_image(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        return gaussian_blur_plain(img, ksize, sigma_x, sigma_y)
+    kx, ky = int(ksize[0]), int(ksize[1])
+    for size, sigma in ((kx, float(sigma_x)), (ky, float(sigma_y))):
+        if size % 2 != 1 or sigma <= 0:
+            raise ValueError(f"Gaussian kernel needs an odd size and sigma > 0, got "
+                             f"{size}, {sigma}")
+    src, stride = _hwc_rows(img)
+    h, w, cn = src.shape
+    out = np.empty((h, w, cn), np.uint8)
+    lib = _library()
+    kernels.count_host_call("image_gaussian_blur")
+    if lib.image_gaussian_blur(src.ctypes.data, h, w, cn, stride, out.ctypes.data, kx, ky,
+                               float(sigma_x), float(sigma_y)):
+        raise ValueError(f"image_gaussian_blur refused ({h}, {w}, {cn}) at {ksize}")
+    return _same_shape(img, out)

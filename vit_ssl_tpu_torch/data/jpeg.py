@@ -1,4 +1,5 @@
-"""JPEG decoding on the port's own host library (``csrc/jpeg_decode.cpp``):
+"""JPEG decoding on the port's own host C++ (``csrc/jpeg_decode.cpp``, in the
+image library :data:`vit_ssl_tpu_torch.kernels.HOST_IMAGE`):
 the host's JPEG reader where neither OpenCV nor PIL is installed.
 
 :func:`decode_bytes` returns RGB uint8 (H, W, 3), bit-equal to libjpeg-turbo
@@ -35,7 +36,7 @@ import numpy as np
 
 from .. import kernels
 
-LIBRARY = "jpeg_decode"
+LIBRARY = kernels.HOST_IMAGE
 SOI = b"\xff\xd8\xff"
 _CMYK = {"cv2": 0, "pil": 2}
 _UNSUPPORTED, _INVALID = 1, 2
@@ -53,7 +54,7 @@ def is_jpeg(data: bytes) -> bool:
 
 def _library() -> ctypes.CDLL:
     lib = kernels.load_host(LIBRARY)
-    if not getattr(lib, "_typed", False):
+    if not getattr(lib, "_jpeg_typed", False):
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.jpeg_decode.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.POINTER(u8p),
@@ -62,7 +63,7 @@ def _library() -> ctypes.CDLL:
         lib.jpeg_decode.restype = ctypes.c_int
         lib.jpeg_free.argtypes = [u8p]
         lib.jpeg_free.restype = None
-        lib._typed = True
+        lib._jpeg_typed = True
     return lib
 
 
@@ -78,6 +79,7 @@ def decode_bytes(data: bytes, *, exif_orientation: bool = True,
     msg = ctypes.create_string_buffer(_MESSAGE)
     data = bytes(data)
     flags = int(exif_orientation) | _CMYK[cmyk]
+    kernels.count_host_call("jpeg_decode")
     status = lib.jpeg_decode(data, len(data), flags, ctypes.byref(out), ctypes.byref(h),
                              ctypes.byref(w), msg, _MESSAGE)
     if status:

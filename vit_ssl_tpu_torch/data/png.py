@@ -1,7 +1,16 @@
-"""A PNG decoder on ``zlib`` and numpy: the host's image reader where neither
-OpenCV nor PIL is installed.
+"""A PNG decoder: the host's image reader where neither OpenCV nor PIL is
+installed. :func:`decode_bytes`, :func:`decode_many` and :func:`decode` run
+the port's host C++ ``csrc/png_decode.cpp`` (over ``csrc/inflate.cpp``, in the
+image library :data:`vit_ssl_tpu_torch.kernels.HOST_IMAGE`,
+built with the host compiler at first use by
+:func:`vit_ssl_tpu_torch.kernels.load_host`; its entry is called through
+``ctypes``, which releases the GIL, so a loader's threads decode at once).
+:func:`decode_bytes_plain` and :func:`decode_many_plain` are the same
+decoder on ``zlib`` and numpy, the plain versions the library is held
+against bit for bit. A library that does not build raises: nothing falls
+back to the plain versions.
 
-:func:`decode` returns RGB uint8 (H, W, 3), bit-equal to the caller's
+Each returns RGB uint8 (H, W, 3), bit-equal to the caller's
 reference: ``reference="cv2"`` is ``cv2.imread(path, cv2.IMREAD_COLOR)``
 followed by BGR→RGB (the JAX package's dataset reader), ``reference="pil"``
 is ``Image.open(path).convert("RGB")`` (its server's). Under both, grey is
@@ -21,9 +30,9 @@ bits, and grey and palette images at 1, 2 and 4 bits, interlaced (Adam7)
 or not. :class:`UnsupportedPNG` is kept for a caller that hands refused
 files on; no valid PNG is refused.
 
-Unfiltering: None and Up rows need only the row above and Sub rows a
-running sum, but Average and Paeth rows depend on the pixel to the left
-as well as on the row above. The rows are therefore unfiltered along
+The plain versions' unfiltering: None and Up rows need only the row above
+and Sub rows a running sum, but Average and Paeth rows depend on the pixel
+to the left as well as on the row above. The rows are therefore unfiltered along
 anti-diagonals (pixel (y, x) on diagonal y + x): every pixel of one
 diagonal depends only on the two diagonals before it, so each diagonal is
 one set of numpy operations over all of its pixels, H + W - 1 steps for
@@ -31,20 +40,25 @@ any mix of filters. The image is held skewed (column y + x of row y holds
 pixel (y, x)), so that each diagonal is one column and its neighbours are
 slices of the two columns before it. An interlaced image is seven such
 sweeps, one a pass, whose pixels are then scattered to their places.
-:func:`decode_many` sweeps the diagonals of many non-interlaced images of
-one size together, so the per-step cost of numpy's dispatch is shared by
-the whole batch.
+:func:`decode_many_plain` sweeps the diagonals of many non-interlaced
+images of one size together, so the per-step cost of numpy's dispatch is
+shared by the whole batch. The library unfilters row by row in place.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from .. import kernels
 from . import exif
+
+LIBRARY = kernels.HOST_IMAGE
+_MESSAGE = 512
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # channels a pixel holds, by colour type
@@ -258,20 +272,20 @@ def _check(reference: str) -> None:
         raise ValueError(f"reference must be one of {REFERENCES}, not {reference!r}")
 
 
-def decode_bytes(data: bytes, reference: str = "cv2") -> np.ndarray:
+def decode_bytes_plain(data: bytes, reference: str = "cv2") -> np.ndarray:
     """An in-memory PNG file as RGB uint8 (H, W, 3), as ``reference``
-    ("cv2" or "pil") reads it."""
+    ("cv2" or "pil") reads it: the plain version, on zlib and numpy."""
     _check(reference)
     hdr, chunks, tables, bpp = _inflate(data)
     rows = [_unfilter_rows(t[None], bpp)[0] for t in tables]
     return _image(hdr, chunks, rows, reference)
 
 
-def decode_many(datas: Sequence[bytes], reference: str = "cv2") -> List[np.ndarray]:
+def decode_many_plain(datas: Sequence[bytes], reference: str = "cv2") -> List[np.ndarray]:
     """In-memory PNG files as RGB uint8 arrays, equal to
-    :func:`decode_bytes` of each: the non-interlaced images of one size and
-    pixel layout are unfiltered together, in one diagonal sweep for the
-    whole group."""
+    :func:`decode_bytes_plain` of each: the non-interlaced images of one
+    size and pixel layout are unfiltered together, in one diagonal sweep for
+    the whole group."""
     _check(reference)
     parsed = [_inflate(data) for data in datas]
     groups: Dict[Tuple[int, ...], List[int]] = {}
@@ -287,6 +301,49 @@ def decode_many(datas: Sequence[bytes], reference: str = "cv2") -> List[np.ndarr
         for i, r in zip(members, rows):
             out[i] = _image(parsed[i][0], parsed[i][1], [r], reference)
     return out
+
+
+def _library() -> ctypes.CDLL:
+    lib = kernels.load_host(LIBRARY)
+    if not getattr(lib, "_png_typed", False):
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.png_decode.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.POINTER(u8p),
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
+            ctypes.c_int]
+        lib.png_decode.restype = ctypes.c_int
+        lib.png_free.argtypes = [u8p]
+        lib.png_free.restype = None
+        lib._png_typed = True
+    return lib
+
+
+def decode_bytes(data: bytes, reference: str = "cv2") -> np.ndarray:
+    """An in-memory PNG file as RGB uint8 (H, W, 3), as ``reference``
+    ("cv2" or "pil") reads it, by the host library; a damaged file raises
+    ``ValueError`` with the plain version's message."""
+    _check(reference)
+    lib = _library()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    h, w = ctypes.c_int(), ctypes.c_int()
+    msg = ctypes.create_string_buffer(_MESSAGE)
+    data = bytes(data)
+    kernels.count_host_call("png_decode")
+    status = lib.png_decode(data, len(data), REFERENCES.index(reference), ctypes.byref(out),
+                            ctypes.byref(h), ctypes.byref(w), msg, _MESSAGE)
+    if status:
+        raise ValueError(msg.value.decode(errors="replace"))
+    try:
+        return np.ctypeslib.as_array(out, shape=(h.value, w.value, 3)).copy()
+    finally:
+        lib.png_free(out)
+
+
+def decode_many(datas: Sequence[bytes], reference: str = "cv2") -> List[np.ndarray]:
+    """In-memory PNG files as RGB uint8 arrays, :func:`decode_bytes` of
+    each."""
+    _check(reference)
+    return [decode_bytes(data, reference) for data in datas]
 
 
 def decode(path: str, **kwargs) -> np.ndarray:

@@ -96,7 +96,9 @@ def _expand(kind: int, block: bytes, size: int, at: int) -> bytes:
     out = np.empty(size, np.uint8)
     got = ctypes.c_size_t()
     msg = ctypes.create_string_buffer(_MESSAGE)
-    fn = _library().tiff_lzw if kind == 5 else _library().tiff_packbits
+    entry = "tiff_lzw" if kind == 5 else "tiff_packbits"
+    fn = getattr(_library(), entry)
+    kernels.count_host_call(entry)
     status = fn(block, len(block), out.ctypes.data, size, ctypes.byref(got), msg, _MESSAGE)
     if status:
         text = f"TIFF {_COMPRESSIONS[kind]} data at byte {at}: {msg.value.decode()}"

@@ -13,8 +13,8 @@ pipelines and DINO's host multi-crop when ``data.device_augment`` is off.
   ``Compose``: the same draws in the same order as the JAX package's;
 - the numpy arithmetic is the JAX package's, line for line; where that
   calls OpenCV (the resizes, the hue jitter's colour conversions, the
-  blur), :mod:`.image_ops` computes the same uint8 results in numpy, so no
-  pipeline needs OpenCV or PIL.
+  blur), :mod:`.image_ops` computes the same uint8 results in the port's
+  host C++ (float images in numpy), so no pipeline needs OpenCV or PIL.
 """
 
 from __future__ import annotations

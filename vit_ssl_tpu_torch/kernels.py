@@ -12,10 +12,16 @@ loaded when this module is imported, so the CPU tests import it freely.
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that a path really went through the kernels.
 
-Beside them, the host libraries (:data:`HOST_SOURCES`: C++ for the CPU,
-the JPEG, zstd, TIFF and WebP decoders) are built with the host C++ compiler (``c++``,
-else ``g++``) into ``_build/lib<name>.so`` at first use, by
-:func:`load_host`; they are no part of :data:`SOURCES` or :func:`build`.
+Beside them, the host libraries (:data:`HOST_SOURCES`: C++ for the CPU)
+are built with the host C++ compiler (``c++``, else ``g++``) into
+``_build/lib<name>.so`` at first use, by :func:`load_host`; they are no part
+of :data:`SOURCES` or :func:`build`. :data:`HOST_IMAGE` is the image path's
+one library: the PNG (over its inflate), JPEG and WebP decoders, OpenCV's
+image arithmetic and the whole-batch decode, whose entries the others' are,
+each source compiled once. The TIFF and zstd decoders are libraries of their
+own. They link the C++ standard library only and are called through
+:mod:`ctypes`, which releases the GIL. ``host_calls`` counts, per C entry,
+the calls the host wrappers made, as ``launches`` does for the kernels.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple, Union
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -47,15 +53,21 @@ SOURCES: Dict[str, str] = {
     "masked_matmul": "csrc/masked_matmul.cu",
 }
 
-# host library name -> C++ source, relative to the package
-HOST_SOURCES: Dict[str, str] = {
-    "jpeg_decode": "csrc/jpeg_decode.cpp",
+# the image path's host library: every source compiled once, each to an
+# object, then linked into one library (C entry names unique across them)
+HOST_IMAGE = "host_image"
+
+# host library name -> its C++ source, or sources, relative to the package
+HOST_SOURCES: Dict[str, Union[str, Tuple[str, ...]]] = {
+    HOST_IMAGE: ("csrc/png_decode.cpp", "csrc/inflate.cpp", "csrc/image_ops.cpp",
+                 "csrc/jpeg_decode.cpp", "csrc/webp_decode.cpp", "csrc/batch_decode.cpp"),
     "zstd_decode": "csrc/zstd_decode.cpp",
     "tiff_decode": "csrc/tiff_decode.cpp",
-    "webp_decode": "csrc/webp_decode.cpp",
 }
 
-HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+# ISO C++17: no GNU extensions, so floating-point contraction stays off and
+# the host image arithmetic rounds as the numpy versions do (no -ffast-math)
+HOST_FLAGS = ["-std=c++17", "-O2", "-fPIC"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -64,6 +76,15 @@ NVCC_FLAGS = [
 ]
 
 launches: collections.Counter = collections.Counter()
+host_calls: collections.Counter = collections.Counter()
+_host_calls_lock = threading.Lock()
+
+
+def count_host_call(entry: str) -> None:
+    """Add one to ``host_calls[entry]``: a host wrapper calls this where it
+    calls the C entry, from any of the loader's threads."""
+    with _host_calls_lock:
+        host_calls[entry] += 1
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -107,10 +128,18 @@ def log_path(name: str) -> Path:
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
+def host_sources(name: str) -> List[Path]:
+    """The host library's C++ sources."""
+    sources = HOST_SOURCES[name]
+    return [PACKAGE_DIR / s for s in ((sources,) if isinstance(sources, str) else sources)]
+
+
 def source_files(name: str) -> List[Path]:
-    """The library's source and every local header it includes, directly or
-    through another header (``#include "..."``, resolved beside the file)."""
-    files, todo = [], [PACKAGE_DIR / {**SOURCES, **HOST_SOURCES}[name]]
+    """The library's sources and every local header they include, directly
+    or through another header (``#include "..."``, resolved beside the
+    file)."""
+    files = []
+    todo = host_sources(name) if name in HOST_SOURCES else [PACKAGE_DIR / SOURCES[name]]
     while todo:
         path = todo.pop()
         if path in files:
@@ -186,23 +215,43 @@ def host_compiler() -> str:
 
 def build_host(name: str) -> float:
     """Compile the host library ``name`` when it is missing or older than
-    its source; returns the build's seconds (0 when it was current). Built
-    to a name of this process's own and moved into place, so processes
-    that build at once each see a whole file. Raises with the compiler's
-    output if the build fails; the log is kept in ``_build/lib<name>.log``."""
+    any of its sources; returns the build's seconds (0 when it was current).
+    Each source is compiled to an object, all at once, one compiler each,
+    then the objects are linked. Built to a name of this process's own and
+    moved into place, so processes that build at once each see a whole file.
+    Raises with the compiler's output if the build fails; the log (each
+    command and its output) is kept in ``_build/lib<name>.log``."""
     if not _stale(name):
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
-    cmd = [host_compiler(), *HOST_FLAGS, "-o", str(tmp), str(PACKAGE_DIR / HOST_SOURCES[name])]
+    stem = f"lib{name}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{stem}.so"
+    compiler, sources = host_compiler(), host_sources(name)
+    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    steps = [[compiler, *HOST_FLAGS, "-c", "-o", str(obj), str(src)]
+             for obj, src in zip(objects, sources)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in steps]
+    outputs = []
+    for cmd, proc in zip(steps, procs):
+        out, _ = proc.communicate()
+        outputs.append((cmd, proc.returncode, out))
+    if all(rc == 0 for _, rc, _ in outputs):
+        link = [compiler, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        outputs.append((link, proc.returncode, proc.stdout))
     seconds = time.perf_counter() - t0
-    log_path(name).write_text(proc.stdout)
-    if proc.returncode != 0:
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    log = BUILD_DIR / f"{stem}.log"
+    log.write_text("".join(f"$ {' '.join(cmd)}\n{out}" for cmd, _, out in outputs))
+    os.replace(log, log_path(name))  # whole, as the library
+    failed = [(cmd, rc, out) for cmd, rc, out in outputs if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"host library build failed ({' '.join(cmd)}, exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
+        cmd, rc, out = failed[0]
+        raise RuntimeError(f"host library build failed ({' '.join(cmd)}, exit {rc}):\n{out}")
     os.replace(tmp, library_path(name))
     return seconds
 
